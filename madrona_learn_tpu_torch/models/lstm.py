@@ -1,0 +1,133 @@
+"""Stacked LSTM with batch-leading recurrent state (JAX: models/lstm.py).
+
+The (c, h) state is a pair of ``[N, num_layers, H]`` tensors in the compute
+dtype. Gates are packed ``(i, f, g, o)`` along the last axis of the input
+kernel ``[F, 4H]`` and the recurrent kernel ``[H, 4H]``.
+
+Every step uses the "precise gates" math of the fused kernel: f32 gates
+from storage-dtype operands, the carry rounded back at the step boundary.
+The rollout step (``forward``) and the update-pass ``sequence`` both go
+through ``ops/cuda/lstm.py`` (K2 with T = 1 for the step, K2/K3 for the
+sequence), so on the card the two forwards share rounding points and PPO's
+ratio can start at 1. The sequence pass hoists each layer's input
+projection into one ``[T*N, F] x [F, 4H]`` product and clears the carry
+after any step whose ``seq_ends`` flag is set.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops.cuda.lstm import lstm_sequence, lstm_step
+from .common import Dense
+
+__all__ = ["LSTM"]
+
+
+def _orthogonal_4h(hidden: int):
+    """Per-gate orthogonal blocks packed along the last axis."""
+
+    def init(shape, generator):
+        blocks = []
+        for _ in range(4):
+            w = torch.empty((shape[0], hidden), dtype=torch.float32)
+            nn.init.orthogonal_(w, generator=generator)
+            blocks.append(w)
+        return torch.cat(blocks, dim=-1)
+
+    return init
+
+
+class _PackedLSTMLayer(nn.Module):
+    def __init__(self, in_features: int, hidden: int, dtype,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        init = _orthogonal_4h(hidden)
+        self.input_proj = Dense(in_features, 4 * hidden, dtype,
+                                use_bias=False, kernel_init=init,
+                                generator=generator)
+        self.recurrent_kernel = nn.Parameter(
+            init((hidden, 4 * hidden), generator))
+        self.bias = nn.Parameter(torch.zeros(4 * hidden))
+
+    def project_input(self, x):
+        """[..., F] -> [..., 4H]."""
+        return self.input_proj(x)
+
+    def packed_weights(self):
+        return (self.recurrent_kernel.to(self.dtype),
+                self.bias.to(self.dtype))
+
+    def forward(self, carry, x):
+        c, h = carry
+        wr, b = self.packed_weights()
+        new_c, new_h = lstm_step(self.project_input(x).contiguous(), wr, b,
+                                 c.contiguous(), h.contiguous())
+        return (new_c, new_h), new_h
+
+
+class LSTM(nn.Module):
+    def __init__(self, in_features: int, num_hidden_channels: int,
+                 num_layers: int, dtype,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_hidden_channels = num_hidden_channels
+        self.num_layers = num_layers
+        self.dtype = dtype
+        width = in_features
+        for layer in range(num_layers):
+            self.add_module(f"layer_{layer}", _PackedLSTMLayer(
+                width, num_hidden_channels, dtype, generator))
+            width = num_hidden_channels
+
+    def _cells(self):
+        return [getattr(self, f"layer_{l}") for l in range(self.num_layers)]
+
+    def init_recurrent_state(self, N: int, device=None):
+        shape = (N, self.num_layers, self.num_hidden_channels)
+        return (torch.zeros(shape, dtype=self.dtype, device=device),
+                torch.zeros(shape, dtype=self.dtype, device=device))
+
+    def clear_recurrent_state(self, rnn_states, should_clear):
+        """should_clear [N, 1] bool; broadcasts over (layer, hidden)."""
+        mask = should_clear[..., None]
+        return tuple(torch.where(mask, torch.zeros((), dtype=s.dtype,
+                                                   device=s.device), s)
+                     for s in rnn_states)
+
+    def forward(self, cur_hiddens, in_features):
+        """One step for every layer: ([N, L*H] outputs, new carry)."""
+        c_in, h_in = cur_hiddens
+        cs, hs, outs = [], [], []
+        layer_in = in_features
+        for layer, cell in enumerate(self._cells()):
+            (c, h), out = cell((c_in[:, layer], h_in[:, layer]), layer_in)
+            layer_in = h
+            cs.append(c)
+            hs.append(h)
+            outs.append(out)
+        carry = (torch.stack(cs, dim=1), torch.stack(hs, dim=1))
+        return torch.cat(outs, dim=-1), carry
+
+    def sequence(self, start_hiddens, seq_ends, seq_x):
+        """[T, N, F] features -> [T, N, L*H], clearing the carry after any
+        step whose ``seq_ends`` flag is set."""
+        c0, h0 = start_hiddens
+        T, N = seq_x.shape[0], seq_x.shape[1]
+        zero = torch.zeros((), dtype=self.dtype, device=seq_x.device)
+        keep = torch.where(seq_ends.reshape(T, N), zero, zero + 1).contiguous()
+        outs = []
+        layer_in = seq_x
+        for layer, cell in enumerate(self._cells()):
+            wr, b = cell.packed_weights()
+            x_proj = cell.project_input(layer_in).contiguous()
+            ys = lstm_sequence(x_proj, keep, wr, b,
+                               c0[:, layer].contiguous(),
+                               h0[:, layer].contiguous())
+            layer_in = ys
+            outs.append(ys)
+        return torch.cat(outs, dim=-1)

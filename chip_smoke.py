@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's PPO main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc:
 
@@ -10,20 +10,35 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: requires CUDA, prints the card's name and power limit;
 2. build: compiles ``madrona_learn_tpu_torch/csrc/*.cu`` with nvcc;
 3. kernels: each hand-written kernel against its plain PyTorch version at
-   the main path's shapes and at a ragged batch, with the stated
-   tolerances, and the median time of both;
-4. trainer: the ``bench.py`` headline configuration (16384 worlds, 2x256
-   MLP, 256-wide LSTM, bf16, T=32 in 2 BPTT chunks, 1 epoch of 4
-   minibatches) built in the port, 1 warm-up update and 3 trials of 10
-   updates; checks finite losses and metrics, and that every kernel's
-   launch count grew by what the configuration implies.
+   the main paths' shapes and at ragged ones, with the stated tolerances;
+   the median time of the kernel, of the plain version and, where one
+   PyTorch call computes the same function, of that call; and each
+   kernel's bound, the least time the card could take for the same work;
+4. models: the update pass and its gradients through the kernels on the
+   card against the same model on the CPU, for the MLP model and a small
+   flagship (entity attention) model;
+5. headline trainer: the ``bench.py`` headline configuration (16384
+   worlds, 2x256 MLP, 256-wide LSTM, bf16, T=32 in 2 BPTT chunks, 1 epoch
+   of 4 minibatches) built in the port, 1 warm-up update and 3 trials of 10;
+6. flagship trainer: the repo's flagship model (EntitySelfAttentionNet
+   128 -> 256 with 4 heads, LSTM 256, [5, 3] actions, DreamerV3 critic,
+   bf16) at the same rollout and PPO settings over entity observations
+   made from the toy gridworld, 1 warm-up update and 3 trials of 5.
+
+Each trainer phase sets every launch count to 0 just before it and checks
+just after it that every kernel of its path launched as often as the
+configuration implies; it checks finite losses and metrics and a rising
+mean reward, and prints env-steps/s, peak memory, the first minibatch's max
+|ratio - 1|, a synchronized collect / learn split and a torch.profiler
+breakdown of one update.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
-every kernel with its launches on the main path, error and times.
+every kernel with its launches on the main paths, error, times and bound.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -34,23 +49,44 @@ import time
 # Tolerances, max |kernel - plain| <= atol + rtol * max |plain|:
 # - float32: the kernels and the plain versions do the same f32 math and
 #   differ only in the summation order of the products and in expf/tanhf
-#   against PyTorch's implementations (a few ulp per step);
+#   against PyTorch's implementations (a few ulp per step); the mha kernel
+#   also takes its softmax with a running maximum over chunks of keys, which
+#   rounds differently from the plain two-pass softmax;
 # - bfloat16: outputs are rounded to bf16 (8 mantissa bits), so a few-ulp
 #   f32 difference can flip a rounding by one bf16 ulp (2^-7 at |x| = 1)
 #   and the recurrence carries it on; the plain backward (autograd through
 #   the plain forward) also rounds the gate cotangents at other points than
-#   the kernel, which rounds them to bf16 as the TPU kernel does.
+#   the kernel, which rounds them to bf16 as the TPU kernel does. The mha
+#   kernel in bf16 is held per element to 2^-7 |plain| (compare_ulp): one
+#   bf16 ulp, or two just above a power of two.
 TOL = {
     "gae": dict(atol=1e-5, rtol=1e-5),
     ("fwd", "float32"): dict(atol=1e-5, rtol=1e-5),
     ("bwd", "float32"): dict(atol=1e-4, rtol=1e-4),
     ("fwd", "bfloat16"): dict(atol=3.2e-2, rtol=0.0),
     ("bwd", "bfloat16"): dict(atol=0.0, rtol=3.2e-2),
+    ("mha", "float32"): dict(atol=1e-5, rtol=1e-5),
 }
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates, at the
+# full 700 W power limit): device memory bandwidth and the rates of the
+# operation types the kernels do.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "f32": 67e12}
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def bound(nbytes, ops):
+    """The least time the card could take for a kernel's work: the larger
+    of the bytes it must move over the memory rate and its operations over
+    the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def device_phase():
@@ -111,6 +147,20 @@ def compare(name, got, want, atol, rtol):
     return err
 
 
+def compare_ulp(name, got, want):
+    """bf16 outputs within 2^-7 |plain| of the plain version, element by
+    element (1e-6 absolute where the plain value is 0)."""
+    diff = (got.float() - want.float()).abs()
+    worst = (diff / (want.float().abs() * 2 ** -7 + 1e-6)).max().item()
+    err = diff.max().item()
+    ok = math.isfinite(worst) and worst <= 1.0
+    log(f"  {name}: max_abs_err {err:.3e}, worst |diff| / (2^-7 |plain|) "
+        f"{worst:.3f} (tol 1) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with plain version")
+    return err
+
+
 def check_gae(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gae import gae, gae_reference
@@ -131,7 +181,12 @@ def check_gae(results):
             plain_ms = time_ms(
                 lambda: gae_reference(0.99, 0.95, r, v, d, b))
             log(f"  gae [{T},{N}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            results["gae"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+            # rewards, values, dones read and advantages written once, the
+            # bootstrap read once; five f32 operations per element. GAE is
+            # a reverse scan: no single PyTorch call computes it.
+            results["gae"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bound(T * N * (4 + 4 + 1 + 4) + 4 * N, {"f32": 5 * T * N}))
     results["gae"]["max_abs_err"] = worst
 
 
@@ -145,6 +200,57 @@ def _lstm_inputs(gen, T, N, H, dtype):
     return (rnd(T, N, 4 * H),
             (torch.rand(T, N, device="cuda", generator=gen) > 0.2).to(dtype),
             rnd(H, 4 * H, scale=H ** -0.5), rnd(4 * H), rnd(N, H), rnd(N, H))
+
+
+def _lstm_bounds(T, N, H, itemsize):
+    """Bytes and operations of the forward and backward kernels: each
+    input read once, each output written once; the h . Wr products (and in
+    the backward dgates . Wr^T and h^T . dgates) on bf16 tensor cores, and
+    about 30 f32 operations of gate math per unit and step (40 backward)."""
+    seq, state = T * N * H, N * H
+    fwd_bytes = itemsize * (4 * seq + T * N + 4 * H * H + 4 * H + 2 * state
+                            + 2 * seq)
+    bwd_bytes = itemsize * (4 * seq + T * N + 4 * H * H + 4 * H + 2 * state
+                            + 3 * seq
+                            + 4 * seq + 4 * H * H + 4 * H + 2 * state)
+    product = 2 * T * N * H * 4 * H
+    return (bound(fwd_bytes, {"bf16_tensor": product, "f32": 30 * seq}),
+            bound(bwd_bytes, {"bf16_tensor": 2 * product, "f32": 40 * seq}))
+
+
+def cudnn_lstm_check(args, ys):
+    """cuDNN's LSTM (torch.nn.LSTM, identity input weight so that its input
+    is x_proj) on the same inputs as the forward kernel. It cannot clear the
+    carry after a step whose keep is 0, so it computes another function and
+    the kernel has no library yardstick; this prints how far it lands and
+    its time."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.lstm import lstm_sequence_fwd
+
+    x_proj, keep, wr, bias, c0, h0 = args
+    G = x_proj.shape[-1]
+    try:
+        lstm = torch.nn.LSTM(G, G // 4).to(device="cuda", dtype=x_proj.dtype)
+        with torch.no_grad():
+            lstm.weight_ih_l0.copy_(torch.eye(G))
+            lstm.weight_hh_l0.copy_(wr.t())
+            lstm.bias_ih_l0.copy_(bias)
+            lstm.bias_hh_l0.zero_()
+
+            def run():
+                return lstm(x_proj, (h0[None], c0[None]))[0]
+
+            got = run()
+            ones, _ = lstm_sequence_fwd(x_proj, torch.ones_like(keep), wr,
+                                        bias, c0, h0)
+            err_keep = (got.float() - ys.float()).abs().max().item()
+            err_ones = (got.float() - ones.float()).abs().max().item()
+            ms = time_ms(run)
+        log(f"  cuDNN LSTM on the same inputs: max |diff| from the kernel "
+            f"{err_keep:.3e} with the keep mask, {err_ones:.3e} with keep = "
+            f"1; {ms:.3f} ms (another function: library_ms null)")
+    except RuntimeError as e:
+        log(f"  cuDNN LSTM on the same inputs did not run: {e}")
 
 
 def check_lstm(results):
@@ -199,14 +305,86 @@ def check_lstm(results):
             bwd["ms"] = time_ms(
                 lambda: lstm_sequence_bwd(*args, ys, cs, probe))
             bwd["plain_ms"] = time_ms(plain_bwd)
+            fwd_bound, bwd_bound = _lstm_bounds(T, N, H, 2)
+            fwd.update(library_ms=None, **fwd_bound)
+            bwd.update(library_ms=None, **bwd_bound)
             log(f"  lstm {tag}: fwd kernel {fwd['ms']:.3f} ms, plain "
-                f"{fwd['plain_ms']:.3f} ms; bwd kernel {bwd['ms']:.3f} ms, "
-                f"plain {bwd['plain_ms']:.3f} ms")
+                f"{fwd['plain_ms']:.3f} ms, bound {fwd['bound_ms']:.4f} ms "
+                f"({fwd['bound_by']}); bwd kernel {bwd['ms']:.3f} ms, plain "
+                f"{bwd['plain_ms']:.3f} ms, bound {bwd['bound_ms']:.4f} ms "
+                f"({bwd['bound_by']})")
+            cudnn_lstm_check(args, ys)
         elif main_path:
             step_ms = time_ms(lambda: lstm_sequence_fwd(*args))
             step_plain = time_ms(lambda: lstm_sequence_reference(*args))
+            step_bound = _lstm_bounds(T, N, H, 2)[0]
             log(f"  lstm {tag}: fwd kernel {step_ms:.3f} ms, plain "
-                f"{step_plain:.3f} ms")
+                f"{step_plain:.3f} ms, bound {step_bound['bound_ms']:.4f} ms")
+
+
+def _mha_bound(B, S, H, D, valid_len, itemsize):
+    """q read and the output written whole, the valid_len key and value
+    rows read once; the q . k and P . V products on bf16 tensor cores and
+    about 5 f32 operations of softmax per score."""
+    nbytes = itemsize * B * H * D * (2 * S + 2 * valid_len)
+    scores = B * H * S * valid_len
+    return bound(nbytes, {"bf16_tensor": 4 * scores * D, "f32": 5 * scores})
+
+
+def check_mha(results):
+    import torch
+    import torch.nn.functional as F
+    from madrona_learn_tpu_torch.ops.cuda.mha import mha_fwd, mha_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    res = results["mha"] = {"max_abs_err": 0.0}
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (B, S, H, D, dtype, valid_len, on the main path): the flagship's
+    # rollout step and update pass, a ragged float32 batch, valid_len == S,
+    # and the other head widths (16: the small flagship of model_phase).
+    cases = [
+        (16384, 16, 4, 32, bf16, 12, True),
+        (131072, 16, 4, 32, bf16, 12, True),
+        (1000, 24, 4, 32, f32, 20, False),
+        (2048, 16, 4, 32, bf16, 16, False),
+        (1000, 16, 2, 16, f32, 16, False),
+        (64, 256, 2, 64, f32, 200, False),
+    ]
+    for B, S, H, D, dtype, valid_len, main_path in cases:
+        dname = str(dtype).split(".")[-1]
+        tag = f"[{B},{S},{H},{D}] {dname} valid_len={valid_len}"
+        q, k, v = (torch.randn(B, S, H, D, device="cuda", generator=gen)
+                   .to(dtype) for _ in range(3))
+        got = mha_fwd(q, k, v, valid_len)
+        want = mha_reference(q, k, v, valid_len)
+        if dtype == bf16:
+            err = compare_ulp(f"mha {tag}", got, want)
+        else:
+            err = compare(f"mha {tag}", got, want, **TOL[("mha", dname)])
+        if main_path:
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+        if valid_len < S:
+            # Keys past valid_len must have no effect: poison them.
+            k[:, valid_len:] = 1e4
+            v[:, valid_len:] = -1e4
+            if not torch.equal(mha_fwd(q, k, v, valid_len), got):
+                raise AssertionError(f"mha {tag}: masked keys changed the "
+                                     f"output")
+            log(f"  mha {tag}: keys past valid_len poisoned, output "
+                f"unchanged ok")
+        if main_path:
+            ms = time_ms(lambda: mha_fwd(q, k, v, valid_len))
+            plain_ms = time_ms(lambda: mha_reference(q, k, v, valid_len))
+            mask = (torch.arange(S, device="cuda") < valid_len).expand(S, S)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+            b = _mha_bound(B, S, H, D, valid_len, q.element_size())
+            log(f"  mha {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+            # The last main-path case, the update pass, goes in the record.
+            res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
 
 
 def kernel_phase():
@@ -214,6 +392,7 @@ def kernel_phase():
     log("kernels against their plain versions:")
     check_gae(results)
     check_lstm(results)
+    check_mha(results)
     return results
 
 
@@ -237,33 +416,80 @@ def _small_actor_critic(dtype, hidden, seed):
         critic=DenseLayerCritic(hidden, dtype, generator=gen))
 
 
-def model_phase():
-    """The update-pass forward and its gradients through the kernels on
-    the card against the same model on the CPU (plain versions), float32,
-    small input."""
+# The flagship's observations (__graft_entry__.py): self [16], allies
+# [5, 12], enemies [6, 12]; its action space move [5, 3].
+ENTITY_OBS = {"self": 16, "allies": 12, "enemies": 12}
+FLAGSHIP_BUCKETS = [5, 3]
+
+
+def _flagship_actor_critic(dtype, embed, out, heads, hidden, seed):
+    import torch
+    from madrona_learn_tpu_torch.config import DiscreteActionsConfig
+    from madrona_learn_tpu_torch.models import (
+        LSTM, ActorCritic, BackboneShared, DenseLayerDiscreteActor,
+        DictActor, DreamerV3Critic, EntitySelfAttentionNet,
+        RecurrentBackboneEncoder)
+
+    gen = torch.Generator().manual_seed(seed)
+    return ActorCritic(
+        backbone=BackboneShared(
+            prefix=lambda obs: obs,
+            encoder=RecurrentBackboneEncoder(
+                net=EntitySelfAttentionNet(ENTITY_OBS, embed, out, heads,
+                                           dtype, generator=gen),
+                rnn=LSTM(out, hidden, 1, dtype, generator=gen))),
+        actor=DictActor({"move": DenseLayerDiscreteActor(
+            DiscreteActionsConfig(actions_num_buckets=FLAGSHIP_BUCKETS),
+            hidden, dtype, generator=gen)}),
+        critic=DreamerV3Critic(hidden, dtype))
+
+
+def _entity_env(base):
+    """The toy gridworld's obs as the flagship's entity sets: with f =
+    concat(delta, time), self = f @ A_self and ally / enemy j = f @ A[j],
+    the matrices drawn once from numpy's default_rng(0)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    a_self, a_ally, a_enemy = (
+        torch.from_numpy((rng.standard_normal(shape) * 3 ** -0.5)
+                         .astype(np.float32)).cuda()
+        for shape in ((3, 16), (5, 3, 12), (6, 3, 12)))
+
+    def wrap(obs):
+        f = torch.cat([obs["delta"], obs["time"]], dim=-1)
+        return {"self": f @ a_self,
+                "allies": torch.einsum("bf,jfe->bje", f, a_ally),
+                "enemies": torch.einsum("bf,jfe->bje", f, a_enemy)}
+
+    def init_fn():
+        out = base["init"]()
+        return {"state": out["state"], "obs": wrap(out["obs"])}
+
+    def step_fn(step_input):
+        out = dict(base["step"](step_input))
+        out["obs"] = wrap(out["obs"])
+        return out
+
+    return {"init": init_fn, "step": step_fn}
+
+
+def _card_vs_cpu(ac_cpu, obs, dones, actions, start, loss_fn):
+    """The update pass and its gradients on the card (kernels) against the
+    same module on the CPU (plain versions)."""
     import copy
 
     import torch
 
-    log("model update pass, card (kernels) against CPU (plain), float32:")
-    T, N, H = 8, 96, 128
-    gen = torch.Generator().manual_seed(3)
-    ac_cpu = _small_actor_critic(torch.float32, H, seed=4)
     ac_gpu = copy.deepcopy(ac_cpu).cuda()
-    obs = {"delta": torch.randn(T, N, 2, generator=gen),
-           "time": torch.rand(T, N, 1, generator=gen)}
-    dones = torch.rand(T, N, 1, generator=gen) < 0.2
-    actions = {"move": torch.randint(0, 5, (T, N, 1), generator=gen)}
-    start = tuple(torch.randn(N, 1, H, generator=gen) for _ in range(2))
 
     def run(ac, dev):
         out = ac.update(tuple(s.to(dev) for s in start), dones.to(dev),
                         {k: v.to(dev) for k, v in actions.items()},
                         {k: v.to(dev) for k, v in obs.items()})
-        loss = (out["log_probs"]["move"].sum() + out["critic"].square().sum()
-                + out["entropies"]["move"].sum())
         names, params = zip(*ac.named_parameters())
-        grads = torch.autograd.grad(loss, params)
+        grads = torch.autograd.grad(loss_fn(out, dev), params)
         return out, dict(zip(names, grads))
 
     out_cpu, g_cpu = run(ac_cpu, "cpu")
@@ -272,9 +498,56 @@ def model_phase():
     tol = dict(atol=1e-4, rtol=1e-4)
     compare("log_probs", out_gpu["log_probs"]["move"].cpu(),
             out_cpu["log_probs"]["move"], **tol)
-    compare("critic", out_gpu["critic"].cpu(), out_cpu["critic"], **tol)
+    critic_gpu, critic_cpu = out_gpu["critic"], out_cpu["critic"]
+    if not isinstance(critic_cpu, torch.Tensor):
+        critic_gpu, critic_cpu = critic_gpu.mean(), critic_cpu.mean()
+    compare("critic", critic_gpu.cpu(), critic_cpu, **tol)
     for name in g_cpu:
         compare(f"grad {name}", g_gpu[name].cpu(), g_cpu[name], **tol)
+
+
+def model_phase():
+    """The MLP model and a small flagship model, float32, small input."""
+    import torch
+
+    log("model update pass, card (kernels) against CPU (plain), float32:")
+    T, N, H = 8, 96, 128
+    gen = torch.Generator().manual_seed(3)
+    obs = {"delta": torch.randn(T, N, 2, generator=gen),
+           "time": torch.rand(T, N, 1, generator=gen)}
+    dones = torch.rand(T, N, 1, generator=gen) < 0.2
+    actions = {"move": torch.randint(0, 5, (T, N, 1), generator=gen)}
+    start = tuple(torch.randn(N, 1, H, generator=gen) for _ in range(2))
+
+    def mlp_loss(out, dev):
+        return (out["log_probs"]["move"].sum()
+                + out["critic"].square().sum()
+                + out["entropies"]["move"].sum())
+
+    _card_vs_cpu(_small_actor_critic(torch.float32, H, seed=4), obs, dones,
+                 actions, start, mlp_loss)
+
+    log("flagship model (embed 32, out 64, 2 heads, LSTM 128) update pass, "
+        "card against CPU, float32:")
+    obs = {"self": torch.randn(T, N, 16, generator=gen),
+           "allies": torch.randn(T, N, 5, 12, generator=gen),
+           "enemies": torch.randn(T, N, 6, 12, generator=gen)}
+    actions = {"move": torch.stack(
+        [torch.randint(0, 5, (T, N), generator=gen),
+         torch.randint(0, 3, (T, N), generator=gen)], dim=-1)}
+    returns = 3 * torch.randn(T, N, 1, generator=gen)
+    ac = _flagship_actor_critic(torch.float32, 32, 64, 2, H, seed=6)
+    # A critic head away from its zero init, so the check sees it.
+    with torch.no_grad():
+        ac.critic.Dense_0.kernel.normal_(0, 0.1, generator=gen)
+
+    def flagship_loss(out, dev):
+        return (out["log_probs"]["move"].sum()
+                + out["entropies"]["move"].sum()
+                + out["critic"].two_hot_cross_entropy_loss(
+                    returns.to(dev)).sum())
+
+    _card_vs_cpu(ac, obs, dones, actions, start, flagship_loss)
 
 
 NUM_WORLDS = 16384
@@ -282,25 +555,16 @@ STEPS_PER_UPDATE = 32
 NUM_BPTT_CHUNKS = 2
 NUM_MINIBATCHES = 4
 CHANNELS = 256
-TIMED_UPDATES = 10
-TRIALS = 3
 
 
-def build_trainer(hooks):
-    import torch
+def _train_config(actions, dreamer_v3_critic):
     import madrona_learn_tpu_torch as mlt
-    from madrona_learn_tpu_torch.envs import ToyEnvConfig, make_toy_env
 
-    dtype = torch.bfloat16
-    actor_critic = _small_actor_critic(dtype, CHANNELS, seed=0)
-    policy = mlt.Policy(
-        actor_critic=actor_critic,
-        obs_preprocess=mlt.ObservationsEMANormalizer.create(
-            decay=0.99999, dtype=dtype))
-    cfg = mlt.TrainConfig(
+    return mlt.TrainConfig(
         num_worlds=NUM_WORLDS,
         num_agents_per_world=1,
-        actions={"move": mlt.DiscreteActionsConfig(actions_num_buckets=[5])},
+        actions={"move": mlt.DiscreteActionsConfig(
+            actions_num_buckets=actions)},
         steps_per_update=STEPS_PER_UPDATE,
         num_bptt_chunks=NUM_BPTT_CHUNKS,
         lr=1e-3,
@@ -316,19 +580,50 @@ def build_trainer(hooks):
             entropy_coef=0.01,
             max_grad_norm=0.5,
         ),
+        dreamer_v3_critic=dreamer_v3_critic,
     )
-    sim_fns = make_toy_env(ToyEnvConfig(
+
+
+def _toy_env():
+    from madrona_learn_tpu_torch.envs import ToyEnvConfig, make_toy_env
+
+    return make_toy_env(ToyEnvConfig(
         num_worlds=NUM_WORLDS, episode_len=40, grid_size=8, seed=0),
         device="cuda")
+
+
+def build_headline(hooks):
+    import torch
+    import madrona_learn_tpu_torch as mlt
+
+    dtype = torch.bfloat16
+    policy = mlt.Policy(
+        actor_critic=_small_actor_critic(dtype, CHANNELS, seed=0),
+        obs_preprocess=mlt.ObservationsEMANormalizer.create(
+            decay=0.99999, dtype=dtype))
     return mlt.init_training(
-        "cuda", cfg, sim_fns, policy,
+        "cuda", _train_config([5], dreamer_v3_critic=False), _toy_env(),
+        policy, torch.zeros((1,), dtype=torch.int32, device="cuda"),
+        user_hooks=hooks)
+
+
+def build_flagship(hooks):
+    import torch
+    import madrona_learn_tpu_torch as mlt
+
+    # __graft_entry__.py's model at its published width; no obs
+    # preprocessing, as there.
+    policy = mlt.Policy(actor_critic=_flagship_actor_critic(
+        torch.bfloat16, 128, 256, 4, CHANNELS, seed=0))
+    return mlt.init_training(
+        "cuda", _train_config(FLAGSHIP_BUCKETS, dreamer_v3_critic=True),
+        _entity_env(_toy_env()), policy,
         torch.zeros((1,), dtype=torch.int32, device="cuda"),
         user_hooks=hooks)
 
 
-def trainer_phase(card):
+def _phase_timer():
     import torch
-    from madrona_learn_tpu_torch.ops.cuda import KERNELS
     from madrona_learn_tpu_torch.train import TrainHooks
 
     class PhaseTimer(TrainHooks):
@@ -339,37 +634,81 @@ def trainer_phase(card):
             self.active = False
             self.marks = []
 
-        def _mark(self, name):
+        def mark(self, name):
             if self.active:
                 torch.cuda.synchronize()
                 self.marks.append((name, time.perf_counter()))
 
         def start_rollouts(self, rollout_state, user_state):
-            self._mark("collect")
+            self.mark("collect")
             return rollout_state, user_state
 
         def rollout_metrics(self, metrics, rollouts, user_state):
-            self._mark("learn")
+            self.mark("learn")
             return metrics
 
-    timer = PhaseTimer()
-    mgr = build_trainer(timer)
-    per_update = {
-        "gae": 1,
-        # one rollout step per collect step, the bootstrap value's critic
-        # step, and the sequence forward of every minibatch
-        "lstm_sequence_fwd": STEPS_PER_UPDATE + 1 + NUM_MINIBATCHES,
-        "lstm_sequence_bwd": NUM_MINIBATCHES,
-    }
-    num_updates = 1 + TRIALS * TIMED_UPDATES
-    log(f"trainer: {NUM_WORLDS} worlds, bf16, MLP 2x{CHANNELS}, LSTM "
-        f"{CHANNELS}, T={STEPS_PER_UPDATE} in {NUM_BPTT_CHUNKS} chunks, "
-        f"{NUM_MINIBATCHES} minibatches; expected launches per update "
-        f"{per_update}")
+    return PhaseTimer()
 
-    for k in KERNELS:
-        k.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+
+def _profile_update(one_update):
+    """Device time over one update, with torch.profiler: the kernels with
+    the most time, their total against the wall time, and the inclusive
+    device time of the port's autograd functions around the kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one_update()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def self_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    def total_ms(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0)) / 1e3
+
+    rows = prof.key_averages()
+    kernels = sorted((e for e in rows if e.device_type == DeviceType.CUDA),
+                     key=self_ms, reverse=True)
+    busy_ms = sum(self_ms(e) for e in kernels)
+    log(f"  profile of one update (profiler on): kernels {busy_ms:.1f} ms "
+        f"of {wall_ms:.1f} ms wall, {sum(e.count for e in kernels)} "
+        f"launches")
+    for e in kernels[:12]:
+        log(f"    {self_ms(e):9.3f} ms {e.count:6d}x  {e.key[:100]}")
+    for e in rows:
+        if e.key in ("_MHA", "_MHABackward", "_LSTMSequence",
+                     "_LSTMSequenceBackward"):
+            log(f"    {total_ms(e):9.3f} ms {e.count:6d}x  {e.key} "
+                f"(inclusive)")
+
+
+def trainer_phase(card, name, build, per_update, trials, timed_updates,
+                  last_rewards):
+    """One trainer: launch counts, finite metrics, rising reward,
+    env-steps/s, memory, the ratio at the first minibatch, the phase split
+    and a profile."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda import KERNELS
+
+    # Start from an empty allocator cache, whatever ran before.
+    gc.collect()
+    torch.cuda.empty_cache()
+    timer = _phase_timer()
+    mgr = build(timer)
+    per_update = {k.name: per_update.get(k.name, 0) for k in KERNELS}
+    num_updates = 1 + trials * timed_updates
+    log(f"{name} trainer: {NUM_WORLDS} worlds, bf16, T={STEPS_PER_UPDATE} "
+        f"in {NUM_BPTT_CHUNKS} chunks, {NUM_MINIBATCHES} minibatches; "
+        f"expected launches per update {per_update}")
+
     losses, rewards = [], []
 
     def one_update():
@@ -377,6 +716,9 @@ def trainer_phase(card):
         losses.append(mgr.first_minibatch_stats["loss"])
         rewards.append(mgr.metrics.latest("Rewards").mean[0])
 
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     one_update()
     torch.cuda.synchronize()
@@ -388,55 +730,81 @@ def trainer_phase(card):
         f"clip fraction {clip_frac:.3e}")
 
     trial_s = []
-    for _ in range(TRIALS):
+    for _ in range(trials):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(TIMED_UPDATES):
+        for _ in range(timed_updates):
             one_update()
         torch.cuda.synchronize()
         trial_s.append(time.perf_counter() - t0)
-        for name, m in mgr.metrics.metrics.items():
+        for metric, m in mgr.metrics.metrics.items():
             if not bool(torch.isfinite(m.mean).all()):
-                raise AssertionError(f"metric {name} is not finite")
+                raise AssertionError(f"{name}: metric {metric} is not "
+                                     f"finite")
     launches = {k.name: k.launches for k in KERNELS}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     loss_hist = torch.stack(losses).float().cpu()
     reward_hist = torch.stack(rewards).float().cpu()
     if not bool(torch.isfinite(loss_hist).all()):
-        raise AssertionError(f"non-finite loss: {loss_hist.tolist()}")
-    for name, per in per_update.items():
-        if launches[name] != per * num_updates:
+        raise AssertionError(f"{name}: non-finite loss: "
+                             f"{loss_hist.tolist()}")
+    for kernel, per in per_update.items():
+        if launches[kernel] != per * num_updates:
             raise AssertionError(
-                f"{name}: {launches[name]} launches over {num_updates} "
-                f"updates, expected {per * num_updates}")
+                f"{name}: {kernel}: {launches[kernel]} launches over "
+                f"{num_updates} updates, expected {per * num_updates}")
     log(f"  launches over {num_updates} updates: {launches} (expected "
         f"{ {k: v * num_updates for k, v in per_update.items()} })")
-    env_steps = TIMED_UPDATES * STEPS_PER_UPDATE * NUM_WORLDS
+    env_steps = timed_updates * STEPS_PER_UPDATE * NUM_WORLDS
     sps = [env_steps / s for s in trial_s]
-    log(f"  trials: {[f'{s * 1e3 / TIMED_UPDATES:.1f} ms/update' for s in trial_s]}")
-    log(f"  env-steps/s (best of {TRIALS}x{TIMED_UPDATES}): {max(sps):.0f} "
-        f"on {card}")
+    log(f"  trials: "
+        f"{[f'{s * 1e3 / timed_updates:.1f} ms/update' for s in trial_s]}")
+    log(f"  {name} env-steps/s (best of {trials}x{timed_updates}): "
+        f"{max(sps):.0f} on {card}")
     log(f"  peak device memory: {peak_gib:.2f} GiB")
     log(f"  mean reward: update 1 {reward_hist[0]:.4f}, update "
         f"{num_updates} {reward_hist[-1]:.4f}")
-    if not reward_hist[-10:].mean() > reward_hist[:3].mean():
+    if not reward_hist[-last_rewards:].mean() > reward_hist[:3].mean():
         raise AssertionError(
-            f"mean reward did not rise: {reward_hist.tolist()}")
+            f"{name}: mean reward did not rise: {reward_hist.tolist()}")
 
     # Collect / learn split over a few synchronized updates.
     timer.active = True
     for _ in range(3):
         one_update()
-    timer._mark("end")
+    timer.mark("end")
     timer.active = False
     spans = {}
-    for (name, t), (_, t_next) in zip(timer.marks, timer.marks[1:]):
-        spans.setdefault(name, []).append((t_next - t) * 1e3)
+    for (span, t), (_, t_next) in zip(timer.marks, timer.marks[1:]):
+        spans.setdefault(span, []).append((t_next - t) * 1e3)
     log(f"  phase split (ms, synchronized): "
         f"{ {k: [round(v, 2) for v in vs] for k, vs in spans.items()} }")
+    _profile_update(one_update)
     return launches, dict(sps=max(sps), ratio_dev=ratio_dev,
-                          clip_frac=clip_frac)
+                          clip_frac=clip_frac, peak_gib=peak_gib)
+
+
+def two_hot_loss_timing(card):
+    """The DreamerV3 value loss (two-hot cross entropy and its gradient) at
+    one minibatch of the flagship's update pass, [16, 8192] x 63 bins."""
+    import torch
+    from madrona_learn_tpu_torch.ops.dists import SymExpTwoHotDistribution
+
+    T, N = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, (
+        NUM_BPTT_CHUNKS * NUM_WORLDS // NUM_MINIBATCHES)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    logits = torch.randn(T, N, 63, device="cuda", generator=gen,
+                         requires_grad=True)
+    targets = 3 * torch.randn(T, N, 1, device="cuda", generator=gen)
+
+    def loss_fwd_bwd():
+        loss = SymExpTwoHotDistribution.create(
+            logits).two_hot_cross_entropy_loss(targets).mean()
+        return torch.autograd.grad(loss, logits)
+
+    log(f"two-hot loss + gradient at [{T}, {N}, 63]: "
+        f"{time_ms(loss_fwd_bwd):.3f} ms on {card}")
 
 
 def main():
@@ -444,7 +812,24 @@ def main():
     build_phase()
     results = kernel_phase()
     model_phase()
-    launches, _ = trainer_phase(card)
+
+    # Per update: one rollout step per collect step, the bootstrap value's
+    # critic step, and the sequence forward and backward of every minibatch.
+    steps = STEPS_PER_UPDATE + 1 + NUM_MINIBATCHES
+    lstm = {"gae": 1, "lstm_sequence_fwd": steps,
+            "lstm_sequence_bwd": NUM_MINIBATCHES}
+    paths = {
+        "headline": trainer_phase(card, "headline", build_headline, lstm,
+                                  trials=3, timed_updates=10,
+                                  last_rewards=10),
+        "flagship": trainer_phase(card, "flagship", build_flagship,
+                                  dict(lstm, mha=steps), trials=3,
+                                  timed_updates=5, last_rewards=5),
+    }
+    two_hot_loss_timing(card)
+    for name, (_, r) in paths.items():
+        log(f"{name}: {r['sps']:.0f} env-steps/s, max |ratio - 1| "
+            f"{r['ratio_dev']:.3e}, peak {r['peak_gib']:.2f} GiB on {card}")
 
     import torch
     from madrona_learn_tpu_torch.ops.cuda import KERNELS
@@ -452,11 +837,16 @@ def main():
     kernels = []
     for k in KERNELS:
         r = results[k.name]
+        by_path = {name: launches[k.name]
+                   for name, (launches, _) in paths.items()}
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": launches[k.name],
+            "replaces": k.replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"]})
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """madrona_learn_tpu_torch: the PyTorch + CUDA port of madrona_learn_tpu.
 
-The port runs the single-policy PPO main path on one NVIDIA GPU: the toy
-gridworld behind the EMA observation normalizer, an MLP + LSTM actor-critic,
-BPTT-chunked collection, GAE and clipped PPO. Its kernels are hand-written
+The port runs the single-policy PPO path on one NVIDIA GPU: BPTT-chunked
+collection from a batched simulator (the toy gridworld), GAE and clipped
+PPO, for an MLP + LSTM actor-critic with a scalar critic (the ``bench.py``
+headline) or the flagship entity self-attention + LSTM actor-critic with
+the DreamerV3 two-hot critic. Its kernels are hand-written
 CUDA for Hopper (``csrc/``), each with a plain PyTorch twin that CPU tensors
 take. Module names mirror the JAX package's, which stays the reference.
 """

@@ -3,8 +3,10 @@
 - ``actor_critic_state_dict``: a flax ``params`` tree (nested dicts of
   arrays, already on the host) -> ``{torch parameter name: np.ndarray}`` for
   ``ActorCritic.load_state_dict``. Layouts are shared (Dense kernels
-  ``[in, out]``, LSTM gates (i, f, g, o) in ``[F, 4H]`` / ``[H, 4H]``), so
-  only the names change: path components join with ``.``, and flax's
+  ``[in, out]``, LSTM gates (i, f, g, o) in ``[F, 4H]`` / ``[H, 4H]``, the
+  attention projections ``[F, heads, head_dim]`` / ``[heads, head_dim,
+  out]`` with their biases, the DreamerV3 critic's ``Dense_0``), so only
+  the names change: path components join with ``.``, and flax's
   ``heads_<name>`` for a dict of submodules becomes ``heads.<name>``.
 - ``obs_preprocess_state``: the EMA normalizer state of
   ``ObservationsEMANormalizer`` (per obs key: mu, inv_sigma, sigma,

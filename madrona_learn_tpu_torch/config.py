@@ -2,9 +2,10 @@
 
 The subset the single-policy PPO path needs: the discrete action space and
 ``TrainConfig``; mappings are plain dicts. The compute dtype lives on the
-model modules. The PBT, mesh, distributional-critic and minibatch-mode
-options of the JAX config are not ported yet, so they are absent rather
-than ignored.
+model modules. Of the distributional critics only ``dreamer_v3_critic`` is
+ported (on by default, as in the JAX package); the PBT, mesh, HL-Gauss,
+value-normalization and minibatch-mode options of the JAX config are not
+ported yet, so they are absent rather than ignored.
 """
 
 from __future__ import annotations
@@ -45,6 +46,9 @@ class TrainConfig:
     seed: int
     metrics_buffer_size: int
     gae_lambda: float = 1.0
+    # The critic returns a SymExpTwoHotDistribution (DreamerV3Critic):
+    # values are its mean and the value loss is its two-hot cross entropy.
+    dreamer_v3_critic: bool = True
 
     @property
     def sim_batch_size(self) -> int:

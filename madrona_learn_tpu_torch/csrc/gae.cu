@@ -1,4 +1,4 @@
-// K1: GAE reverse recurrence over the [T, N] trajectory store.
+// gae: GAE reverse recurrence over the [T, N] trajectory store.
 //
 // Replaces madrona_learn_tpu/ops/pallas/gae.py:gae_pallas (_gae_kernel).
 // The TPU kernel keeps a [T, 512] tile in VMEM and runs the recurrence per

@@ -1,8 +1,9 @@
-// K2 / K3: the fused LSTM sequence pass, forward and backward.
+// lstm_sequence_fwd / lstm_sequence_bwd: the fused LSTM sequence pass,
+// forward and backward.
 //
 // Replaces madrona_learn_tpu/ops/pallas/lstm.py:lstm_sequence: the forward
-// _fwd_kernel (K2) and the custom backward _bwd_kernel with its fused
-// dWr/db epilogue (K3).
+// _fwd_kernel (lstm_sequence_fwd) and the custom backward _bwd_kernel with
+// its fused dWr/db epilogue (lstm_sequence_bwd).
 //
 // What the TPU layout did, and why it cannot carry over: each TPU grid
 // program keeps all of Wr [H, 4H] resident in VMEM next to its batch tile

@@ -42,8 +42,9 @@ def _hash_draw2(base, salts, grid_size):
     return (((h >> 16) * grid_size) >> 16).to(torch.int32)
 
 
-def make_toy_env(cfg: ToyEnvConfig, device=None):
-    """``sim_fns`` for the gridworld, with every tensor on ``device``."""
+def make_toy_env(cfg: ToyEnvConfig, device="cuda"):
+    """``sim_fns`` for the gridworld, with every tensor on ``device`` (the
+    CUDA card unless the caller asks for another)."""
     B = cfg.batch_size
     moves = torch.tensor(_MOVES, dtype=torch.int32, device=device)
     salts_pos = torch.tensor([_SALTS_POS], dtype=torch.int64, device=device)

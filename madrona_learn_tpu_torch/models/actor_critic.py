@@ -5,7 +5,10 @@
 actions) over a backbone. The slice ports ``BackboneShared`` (one tower
 feeds both heads) with a ``RecurrentBackboneEncoder`` tower (net -> rnn,
 with a time-axis ``sequence`` path for BPTT). Recurrent-state init and
-clear live on the modules so the rollout engine owns state placement.
+clear live on the modules so the rollout engine owns state placement. The
+obs dict's leaves may carry entity axes ([N, E, F], [T, N, E, F] in the
+update pass); the time axis is always the leading one. The critic returns a
+tensor or, for the DreamerV3 critic, a distribution.
 """
 
 from __future__ import annotations
@@ -24,6 +27,14 @@ def _merge_time(tree, T, N):
 def _drop_time(tree):
     """[T, N, ...] -> [T*N, ...] on every tensor of a dict."""
     return {k: v.reshape(-1, *v.shape[2:]) for k, v in tree.items()}
+
+
+def _merge_time_critic(critic_out, T, N):
+    """[T*N, ...] -> [T, N, ...] on a critic output: a tensor, or a
+    distribution over its logits."""
+    if isinstance(critic_out, torch.Tensor):
+        return critic_out.reshape(T, N, *critic_out.shape[1:])
+    return critic_out.merge_time(T, N)
 
 
 class RecurrentBackboneEncoder(nn.Module):
@@ -127,9 +138,8 @@ class ActorCritic(nn.Module):
         dists = self.actor(actor_feats)
         log_probs, entropies = dists.action_stats(
             _drop_time(rollout_actions))
-        critic_out = self.critic(critic_feats)
         return {
             "log_probs": _merge_time(log_probs, T, N),
             "entropies": _merge_time(entropies, T, N),
-            "critic": critic_out.reshape(T, N, *critic_out.shape[1:]),
+            "critic": _merge_time_critic(self.critic(critic_feats), T, N),
         }

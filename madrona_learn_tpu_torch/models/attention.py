@@ -1,0 +1,182 @@
+"""Entity self-attention (JAX: madrona_learn_tpu/models/attention.py).
+
+``SelfAttention`` pads the entity axis to a multiple of 8, runs flax's
+``MultiHeadDotProductAttention`` layout (``query`` / ``key`` / ``value``
+projections with kernels ``[F, heads, head_dim]`` and biases, an ``out``
+projection with kernel ``[heads, head_dim, out]``) around the ``mha``
+kernel, whose static ``valid_len`` masks the padded keys, and slices the
+padded rows off. Leading batch dimensions fold into the kernel's batch.
+
+The rollout step and the update pass both take this one route (the kernel
+on the card, its plain version on the CPU), so PPO's importance ratio can
+start at 1. The JAX package's other route, flax's ``dot_product_attention``
+when ``use_pallas`` is off, is not ported.
+
+``EntitySelfAttentionNet`` is the flagship trunk: per-type bias-free embed
+-> LayerNorm -> leaky ReLU, self-attention, a residual (tiled when the
+output is wider than the embedding), mean-pool, LayerNorm, a feed-forward
+residual and a final LayerNorm. Parameter names follow the flax tree
+(``self_embed``, ``<key>_embed``, ``LayerNorm_0..``, ``SelfAttention_0``,
+``ff_0``, ``ff_1``), so the weight-norm projection and the LayerNorm renorm
+of the PPO update pick the same parameters as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.cuda.mha import mha
+from .common import Dense, LayerNorm, orthogonal
+
+__all__ = ["EntitySelfAttentionNet", "SelfAttention"]
+
+
+def lecun_normal(fan_in: int) -> Callable:
+    """flax's default attention kernel init: truncated normal with variance
+    1 / fan_in."""
+
+    def init(shape, generator):
+        std = math.sqrt(1.0 / fan_in) / .87962566103423978
+        w = torch.empty(shape, dtype=torch.float32)
+        nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+        return w
+
+    return init
+
+
+class DenseGeneral(nn.Module):
+    """flax ``DenseGeneral`` over the trailing ``in_shape`` axes:
+    ``kernel`` [*in_shape, *out_shape], ``bias`` [*out_shape], computed in
+    the compute dtype."""
+
+    def __init__(self, in_shape: Tuple[int, ...], out_shape: Tuple[int, ...],
+                 dtype, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
+        fan_in, fan_out = math.prod(in_shape), math.prod(out_shape)
+        self.kernel = nn.Parameter(lecun_normal(fan_in)(
+            (fan_in, fan_out), generator).reshape(*in_shape, *out_shape))
+        self.bias = nn.Parameter(torch.zeros(out_shape))
+
+    def forward(self, x):
+        lead = x.shape[:x.dim() - len(self.in_shape)]
+        fan_in = math.prod(self.in_shape)
+        y = (x.reshape(*lead, fan_in).to(self.dtype)
+             @ self.kernel.reshape(fan_in, -1).to(self.dtype)
+             + self.bias.reshape(-1).to(self.dtype))
+        return y.reshape(*lead, *self.out_shape)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    def __init__(self, in_features: int, num_heads: int, qkv_features: int,
+                 out_features: int, dtype,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        heads = (num_heads, qkv_features // num_heads)
+        self.query = DenseGeneral((in_features,), heads, dtype, generator)
+        self.key = DenseGeneral((in_features,), heads, dtype, generator)
+        self.value = DenseGeneral((in_features,), heads, dtype, generator)
+        self.out = DenseGeneral(heads, (out_features,), dtype, generator)
+
+    def forward(self, x, valid_len: int):
+        """x [..., S, F] -> [..., S, out]; keys past ``valid_len`` masked."""
+        q, k, v = self.query(x), self.key(x), self.value(x)
+        lead = q.shape[:-3]
+
+        def fold(t):
+            return t.reshape(-1, *t.shape[-3:])
+
+        o = mha(fold(q), fold(k), fold(v), valid_len)
+        return self.out(o.reshape(*lead, *o.shape[1:]))
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, in_features: int, num_heads: int, qkv_features: int,
+                 out_features: int, dtype,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
+            in_features, num_heads, qkv_features, out_features, dtype,
+            generator)
+
+    def forward(self, x):
+        seq_len = x.shape[-2]
+        pad = -(seq_len // -8) * 8 - seq_len
+        if pad:
+            x = nn.functional.pad(x, (0, 0, 0, pad))
+        out = self.MultiHeadDotProductAttention_0(x, valid_len=seq_len)
+        return out[..., :seq_len, :]
+
+
+def _leaky_relu(x):
+    return nn.functional.leaky_relu(x, 0.01)
+
+
+class EntitySelfAttentionNet(nn.Module):
+    """Per-entity-type embed -> self-attention -> mean-pool -> FF residual.
+
+    ``obs_features`` maps each obs key to its feature width: ``self``
+    ([..., F_self]) plus any number of entity sets ([..., num_entities,
+    F_e]). ``forward`` takes the obs dict and returns [..., out].
+    """
+
+    def __init__(self, obs_features: Dict[str, int], num_embed_channels: int,
+                 num_out_channels: int, num_heads: int, dtype,
+                 dense_init: Callable = orthogonal(math.sqrt(2)),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.num_embed_channels = num_embed_channels
+        self.num_out_channels = num_out_channels
+        # self first, then the entity sets in sorted key order, as flax's
+        # tree_flatten_with_path visits them.
+        self.entity_keys = sorted(k for k in obs_features if k != "self")
+        for idx, name in enumerate(["self"] + self.entity_keys):
+            self.add_module(f"{name}_embed", Dense(
+                obs_features[name], num_embed_channels, dtype,
+                use_bias=False, kernel_init=dense_init, generator=generator))
+            self.add_module(f"LayerNorm_{idx}",
+                            LayerNorm(num_embed_channels, dtype))
+        self.SelfAttention_0 = SelfAttention(
+            num_embed_channels, num_heads, num_embed_channels,
+            num_out_channels, dtype, generator)
+        n = 1 + len(self.entity_keys)
+        self.ff_0 = Dense(num_out_channels, num_out_channels, dtype,
+                          use_bias=False, kernel_init=dense_init,
+                          generator=generator)
+        self.ff_1 = Dense(num_out_channels, num_out_channels, dtype,
+                          use_bias=False, kernel_init=dense_init,
+                          generator=generator)
+        self._pool_norm = f"LayerNorm_{n}"
+        self._ff_norm = f"LayerNorm_{n + 1}"
+        self._out_norm = f"LayerNorm_{n + 2}"
+        for name in (self._pool_norm, self._ff_norm, self._out_norm):
+            self.add_module(name, LayerNorm(num_out_channels, dtype))
+
+    def _embed(self, idx, name, x):
+        x = getattr(self, f"{name}_embed")(x)
+        return _leaky_relu(getattr(self, f"LayerNorm_{idx}")(x))
+
+    def forward(self, x_tree):
+        embedded = [self._embed(0, "self", x_tree["self"][..., None, :])]
+        for idx, name in enumerate(self.entity_keys, start=1):
+            embedded.append(self._embed(idx, name, x_tree[name]))
+        entities = torch.cat(embedded, dim=-2)
+
+        attended = self.SelfAttention_0(entities)
+        reps = self.num_out_channels // self.num_embed_channels
+        attended = attended + entities.repeat(
+            *([1] * (entities.dim() - 1)), reps)
+
+        # jnp.mean of a bf16 array sums in f32 and rounds once.
+        pooled = attended.float().mean(dim=-2).to(self.dtype)
+        pooled = getattr(self, self._pool_norm)(pooled)
+        ff = _leaky_relu(getattr(self, self._ff_norm)(self.ff_0(pooled)))
+        ff = _leaky_relu(self.ff_1(ff))
+        return getattr(self, self._out_norm)(pooled + ff)

@@ -1,7 +1,8 @@
 """Actor and critic heads (JAX: madrona_learn_tpu/models/critics.py).
 
-The discrete dense actor, the dict actor over named action heads, and the
-scalar dense critic. The distributional critics are not ported yet.
+The discrete dense actor, the dict actor over named action heads, the
+scalar dense critic and the DreamerV3 two-hot critic. The HL-Gauss critics
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -12,7 +13,11 @@ import torch
 from torch import nn
 
 from ..config import DiscreteActionsConfig
-from ..ops.dists import DictActionDistributions, DiscreteActionDistributions
+from ..ops.dists import (
+    DictActionDistributions,
+    DiscreteActionDistributions,
+    SymExpTwoHotDistribution,
+)
 from .common import Dense, orthogonal
 
 
@@ -54,3 +59,20 @@ class DenseLayerCritic(nn.Module):
 
     def forward(self, features):
         return self.Dense_0(features).to(torch.float32)
+
+
+def _zeros(shape, generator):
+    return torch.zeros(shape, dtype=torch.float32)
+
+
+class DreamerV3Critic(nn.Module):
+    """Two-hot symexp critic; the zero-init head makes the mean start at
+    exactly 0."""
+
+    def __init__(self, in_features: int, dtype, num_bins: int = 63):
+        super().__init__()
+        self.Dense_0 = Dense(in_features, num_bins, dtype, use_bias=True,
+                             kernel_init=_zeros)
+
+    def forward(self, features):
+        return SymExpTwoHotDistribution.create(self.Dense_0(features))

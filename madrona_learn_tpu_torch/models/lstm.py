@@ -7,7 +7,8 @@ kernel ``[F, 4H]`` and the recurrent kernel ``[H, 4H]``.
 Every step uses the "precise gates" math of the fused kernel: f32 gates
 from storage-dtype operands, the carry rounded back at the step boundary.
 The rollout step (``forward``) and the update-pass ``sequence`` both go
-through ``ops/cuda/lstm.py`` (K2 with T = 1 for the step, K2/K3 for the
+through ``ops/cuda/lstm.py`` (``lstm_sequence_fwd`` with T = 1 for the
+step, ``lstm_sequence_fwd`` / ``lstm_sequence_bwd`` for the
 sequence), so on the card the two forwards share rounding points and PPO's
 ratio can start at 1. The sequence pass hoists each layer's input
 projection into one ``[T*N, F] x [F, 4H]`` product and clears the carry

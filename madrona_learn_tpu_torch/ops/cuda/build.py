@@ -113,6 +113,8 @@ _SIGNATURES = {
     # dtype, H, xp, keep, wr, wr_t, bias, c0, h0, ys, cs, dys, dxp, dh0,
     # dc0, part_w, part_b, dwr, db, T, N, splits, stream
     "mlt_lstm_bwd": [_I, _I] + [_P] * 17 + [_I, _I, _I, _P],
+    # dtype, D, q, k, v, out, B, S, H, valid_len, scale, stream
+    "mlt_mha_fwd": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 

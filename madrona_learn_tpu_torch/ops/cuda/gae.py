@@ -1,4 +1,4 @@
-"""K1: GAE over the trajectory store, as a CUDA kernel with a plain twin.
+"""gae: GAE over the trajectory store, as a CUDA kernel with a plain twin.
 
 Replaces ``madrona_learn_tpu/ops/pallas/gae.py:gae_pallas``. The kernel
 (``csrc/gae.cu``) gives one thread to each agent column and runs the reverse

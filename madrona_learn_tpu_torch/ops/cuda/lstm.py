@@ -1,4 +1,5 @@
-"""K2 / K3: the fused LSTM sequence pass as CUDA kernels, with plain twins.
+"""lstm_sequence_fwd / lstm_sequence_bwd: the fused LSTM sequence pass as
+CUDA kernels, with plain twins.
 
 Replaces ``madrona_learn_tpu/ops/pallas/lstm.py:lstm_sequence`` (forward
 ``_fwd_kernel``, backward ``_bwd_kernel`` with its fused dWr/db epilogue).
@@ -55,7 +56,8 @@ def _cell(x_proj_t, wr32, b32, c, h):
 def lstm_sequence_reference(x_proj, keep, wr, bias, c0, h0):
     """Plain twin of ``lstm_sequence_reference`` (ops/pallas/lstm.py:643).
 
-    Differentiable by autograd; its gradients are the plain version of K3.
+    Differentiable by autograd; its gradients are the plain version of
+    ``lstm_sequence_bwd``.
     """
     wr32, b32 = wr.float(), bias.float()
     c, h = c0, h0
@@ -103,7 +105,7 @@ def _check_inputs(x_proj, keep, wr, bias, c0, h0):
 
 
 def lstm_sequence_fwd(x_proj, keep, wr, bias, c0, h0):
-    """K2: (ys, cs), each [T, N, H] in the storage dtype."""
+    """The forward kernel: (ys, cs), each [T, N, H] in the storage dtype."""
     steps, n, hidden = _check_inputs(x_proj, keep, wr, bias, c0, h0)
     ys = torch.empty((steps, n, hidden), dtype=x_proj.dtype,
                      device=x_proj.device)
@@ -126,7 +128,8 @@ def _num_splits(steps, n, hidden, num_sms):
 
 
 def lstm_sequence_bwd(x_proj, keep, wr, bias, c0, h0, ys, cs, dys):
-    """K3: (dx_proj, dwr, db, dc0, dh0) given the forward's ys / cs."""
+    """The backward kernel: (dx_proj, dwr, db, dc0, dh0) given the
+    forward's ys / cs."""
     steps, n, hidden = _check_inputs(x_proj, keep, wr, bias, c0, h0)
     dtype, device = x_proj.dtype, x_proj.device
     _check("ys", ys, dtype, (steps, n, hidden))
@@ -184,9 +187,9 @@ def lstm_sequence(x_proj, keep, wr, bias, c0, h0):
 def lstm_step(x_proj, wr, bias, c, h):
     """One rollout step, (new_c, new_h) [N, H], no clearing.
 
-    On the card this is K2 with T = 1, so the rollout forward and the
-    update-pass sequence forward share gate math and rounding points and
-    PPO's ratio can start at 1.
+    On the card this is ``lstm_sequence_fwd`` with T = 1, so the rollout
+    forward and the update-pass sequence forward share gate math and
+    rounding points and PPO's ratio can start at 1.
     """
     if x_proj.device.type == "cpu":
         return _cell(x_proj, wr.float(), bias.float(), c, h)

@@ -1,8 +1,12 @@
 """PPO: clipped surrogate over collected rollouts (JAX: ppo.py).
 
 The slice ports uniform shuffled minibatches, the clipped surrogate per
-action head, the L2 value loss on unnormalized values, the entropy bonus,
-and the post-step weight-norm projection and LayerNorm renormalization.
+action head, the L2 value loss on unnormalized values or, with
+``dreamer_v3_critic``, the two-hot cross entropy of the critic's
+distribution, the entropy bonus, and the post-step weight-norm projection
+and LayerNorm renormalization. The port has no value clipping, huber loss
+or value normalization, which the JAX package forbids beside a
+distributional critic, so that combination cannot be configured.
 
 The optimizer is the JAX package's learning-rate-free chain,
 ``optax.clip_by_global_norm`` then ``optax.scale_by_adam``, written out in
@@ -142,9 +146,14 @@ def _ppo_update(cfg: TrainConfig, mb, policy_state, train_state,
         action_objs[k] = torch.minimum(advantages * ratio,
                                        advantages * clipped)
 
-    new_values = fwd["critic"]
-    value_errs = new_values - mb["returns"]
-    value_losses = 0.5 * (new_values - mb["returns"]) ** 2
+    if cfg.dreamer_v3_critic:
+        dist = fwd["critic"]
+        value_losses = dist.two_hot_cross_entropy_loss(mb["returns"])
+        value_errs = dist.mean() - mb["returns"]
+    else:
+        new_values = fwd["critic"]
+        value_errs = new_values - mb["returns"]
+        value_losses = 0.5 * (new_values - mb["returns"]) ** 2
 
     action_obj_avg = sum(o.to(_F32).mean() for o in action_objs.values())
     value_loss = value_losses.to(_F32).mean()

@@ -202,12 +202,27 @@ class RolloutManager:
                                 // train_cfg.num_bptt_chunks)
         self._gamma = train_cfg.gamma
         self._gae_lambda = train_cfg.gae_lambda
+        self._critic_outputs_distribution = train_cfg.dreamer_v3_critic
 
     def add_metrics(self, metrics: Dict[str, Metric]):
         return dict(metrics, **{
             name: Metric.init(True)
             for name in ("Rewards", "Est Returns", "Env Returns", "Values",
                          "Bootstrap Values", "Advantages")})
+
+    def _compute_value_estimate(self, critic_out):
+        if self._critic_outputs_distribution:
+            if isinstance(critic_out, torch.Tensor):
+                # .mean() on a plain tensor would silently collapse the
+                # batch axis.
+                raise TypeError(
+                    "TrainConfig.dreamer_v3_critic is enabled, but the "
+                    "model's critic returned a plain tensor (a scalar critic "
+                    "such as DenseLayerCritic). Either set "
+                    "dreamer_v3_critic=False in TrainConfig or use a "
+                    "distributional critic (DreamerV3Critic).")
+            return critic_out.mean()
+        return critic_out
 
     def collect(self, train_state_mgr, rollout_state: RolloutState,
                 metrics: TrainingMetrics, user_start_rollouts_hook,
@@ -237,7 +252,8 @@ class RolloutManager:
                 "actions": policy_out["actions"],
                 "log_probs": {k: v.to(_F32)
                               for k, v in policy_out["log_probs"].items()},
-                "values": policy_out["critic"],
+                "values": self._compute_value_estimate(
+                    policy_out["critic"]),
             }
             cb_state["obs_stats"] = obs_preprocess.update_obs_stats(
                 obs_state, cb_state["obs_stats"], step_idx, obs)
@@ -287,7 +303,7 @@ class RolloutManager:
                 policy_state.obs_preprocess_state, rollout_state.cur_obs)
             out, _ = policy_state.actor_critic.critic_only(
                 rollout_state.rnn_states, preprocessed)
-        return out["critic"].unsqueeze(0)
+        return self._compute_value_estimate(out["critic"]).unsqueeze(0)
 
     def _finalize_rollouts(self, rollouts, rnn_start_states,
                            bootstrap_values, metrics, user_state,

@@ -98,16 +98,22 @@ def _update_impl(algo: AlgoBase, cfg: TrainConfig, user_hooks: TrainHooks,
     return stats
 
 
+def resolve_device(dev) -> torch.device:
+    """The training device: ``None`` means the CUDA card."""
+    return torch.device("cuda" if dev is None else dev)
+
+
 def init_training(dev, cfg: TrainConfig, sim_fns: Dict[str, Callable],
                   policy: Policy, init_sim_ctrl: torch.Tensor,
                   user_hooks: TrainHooks = TrainHooks()) -> TrainingManager:
-    """Build the TrainingManager on ``dev`` (a torch device).
+    """Build the TrainingManager on ``dev`` (a torch device; ``None`` is
+    the CUDA card, and ``"cpu"`` must be asked for).
 
     ``sim_fns`` (a dict or a ``SimInterface``) must produce tensors on
     ``dev``. The sampling and minibatch
     RNGs are ``torch.Generator``s on ``dev`` seeded from ``cfg.seed``.
     """
-    dev = torch.device(dev)
+    dev = resolve_device(dev)
     algo = cfg.algo.setup()
     rollout_cfg = RolloutConfig.setup(
         num_worlds=cfg.num_worlds,

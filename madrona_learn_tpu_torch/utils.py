@@ -1,4 +1,5 @@
-"""Helpers over nested dicts / tuples of tensors (the port's pytrees)."""
+"""Helpers over nested dicts / tuples of tensors (the port's pytrees), and
+symlog / symexp (JAX: madrona_learn_tpu/utils/math.py)."""
 
 from __future__ import annotations
 
@@ -22,3 +23,13 @@ def tree_stack(trees):
         return type(first)(tree_stack([t[i] for t in trees])
                            for i in range(len(first)))
     return torch.stack(trees)
+
+
+def symlog(x):
+    """Symmetric log squashing used by DreamerV3-style critics."""
+    return torch.sign(x) * torch.log1p(torch.abs(x))
+
+
+def symexp(x):
+    """Inverse of :func:`symlog`."""
+    return torch.sign(x) * torch.expm1(torch.abs(x))

@@ -33,7 +33,7 @@ def test_toy_env_matches_jax_from_injected_state(seed):
     j_fns = jax_make_toy_env(JaxToyEnvConfig(
         num_worlds=W, episode_len=7, grid_size=6, seed=seed))
     t_fns = make_toy_env(ToyEnvConfig(num_worlds=W, episode_len=7,
-                                      grid_size=6, seed=seed))
+                                      grid_size=6, seed=seed), device="cpu")
     j_init = j_fns["init"]()
     j_state = j_init["state"]
     t_state = _to_torch(j_state)
@@ -64,8 +64,8 @@ def test_toy_env_matches_jax_from_injected_state(seed):
 
 def test_toy_env_init_is_seeded_and_in_range():
     cfg = ToyEnvConfig(num_worlds=64, grid_size=8, seed=3)
-    a = make_toy_env(cfg)["init"]()
-    b = make_toy_env(cfg)["init"]()
+    a = make_toy_env(cfg, device="cpu")["init"]()
+    b = make_toy_env(cfg, device="cpu")["init"]()
     for key in ("pos", "target"):
         torch.testing.assert_close(a["state"][key], b["state"][key])
         assert a["state"][key].dtype == torch.int32
@@ -91,7 +91,8 @@ def test_rollouts_reset_restarts_every_world():
         actions_cfg={"move": DiscreteActionsConfig(actions_num_buckets=[5])})
     actor_critic = _torch_actor_critic(torch.float32, 32)
     state = RolloutState.create(
-        cfg, make_toy_env(ToyEnvConfig(num_worlds=8, episode_len=5)),
+        cfg, make_toy_env(ToyEnvConfig(num_worlds=8, episode_len=5),
+                          device="cpu"),
         torch.Generator(), tuple(torch.ones(8, 1, 32) for _ in range(2)),
         torch.zeros((1,), dtype=torch.int32))
     state.sim_state["t"].fill_(3)

@@ -64,7 +64,8 @@ def _torch_config():
         gae_lambda=0.95, seed=SEED, metrics_buffer_size=1,
         algo=tlt.PPOConfig(num_epochs=1, minibatch_size=W * CHUNKS,
                            clip_coef=0.2, value_loss_coef=0.5,
-                           entropy_coef=0.01, max_grad_norm=0.5))
+                           entropy_coef=0.01, max_grad_norm=0.5),
+        dreamer_v3_critic=False)
 
 
 ENV = dict(num_worlds=W, episode_len=5, grid_size=5, seed=SEED)
@@ -134,8 +135,8 @@ def torch_run(jax_run):
     policy = tlt.Policy(actor_critic, tlt.ObservationsEMANormalizer.create(
         decay=0.99999, dtype=torch.float32))
     mgr = tlt.init_training("cpu", _torch_config(),
-                            make_toy_env(ToyEnvConfig(**ENV)), policy,
-                            torch.zeros((1,), dtype=torch.int32))
+                            make_toy_env(ToyEnvConfig(**ENV), device="cpu"),
+                            policy, torch.zeros((1,), dtype=torch.int32))
     # Inject the JAX start state.
     mgr.rollout.sim_state = {k: torch.from_numpy(np.array(v))
                              for k, v in j0.rollout.sim_state.items()}
@@ -273,7 +274,8 @@ def test_rollout_log_probs_equal_update_log_probs(torch_run):
     actor_critic = _torch_actor_critic(torch.float32, H)
     policy = tlt.Policy(actor_critic, tlt.ObservationsEMANormalizer.create(
         decay=0.99999, dtype=torch.float32))
-    mgr = tlt.init_training("cpu", cfg, make_toy_env(ToyEnvConfig(**ENV)),
+    mgr = tlt.init_training("cpu", cfg,
+                            make_toy_env(ToyEnvConfig(**ENV), device="cpu"),
                             policy, torch.zeros((1,), dtype=torch.int32))
     hooks = tlt.TrainHooks()
     data, _ = mgr.rollout_mgr.collect(

@@ -15,22 +15,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    PyTorch call computes the same function, of that call; and each
    kernel's bound, the least time the card could take for the same work;
 4. models: the update pass and its gradients through the kernels on the
-   card against the same model on the CPU, for the MLP model and a small
-   flagship (entity attention) model;
+   card against the same model on the CPU, for the MLP model, a small
+   flagship (entity attention) model and a small fused-trunk model (whose
+   rollout step is also compared);
 5. headline trainer: the ``bench.py`` headline configuration (16384
    worlds, 2x256 MLP, 256-wide LSTM, bf16, T=32 in 2 BPTT chunks, 1 epoch
    of 4 minibatches) built in the port, 1 warm-up update and 3 trials of 10;
 6. flagship trainer: the repo's flagship model (EntitySelfAttentionNet
    128 -> 256 with 4 heads, LSTM 256, [5, 3] actions, DreamerV3 critic,
    bf16) at the same rollout and PPO settings over entity observations
-   made from the toy gridworld, 1 warm-up update and 3 trials of 5.
+   made from the toy gridworld, 1 warm-up update and 3 trials of 5;
+7. headline_fused trainer: the headline with the fused trunk (the rollout
+   step as one ``fused_policy_step`` launch, the LSTM's input projection
+   inside ``lstm_sequence_proj``), 1 warm-up update and 3 trials of 10;
+8. native trainer: the headline_fused model over the C++ batch simulator
+   (``make_native_sim``, built with g++), 1 warm-up update and 2 trials
+   of 4.
 
 Each trainer phase sets every launch count to 0 just before it and checks
 just after it that every kernel of its path launched as often as the
 configuration implies; it checks finite losses and metrics and a rising
-mean reward, and prints env-steps/s, peak memory, the first minibatch's max
-|ratio - 1|, a synchronized collect / learn split and a torch.profiler
-breakdown of one update.
+mean reward and a first-minibatch max |ratio - 1| below the clip
+coefficient, and prints env-steps/s, peak memory, that ratio, a
+synchronized collect / learn split and a torch.profiler breakdown of one
+update.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel with its launches on the main paths, error, times and bound.
@@ -66,6 +74,12 @@ TOL = {
     ("fwd", "bfloat16"): dict(atol=3.2e-2, rtol=0.0),
     ("bwd", "bfloat16"): dict(atol=0.0, rtol=3.2e-2),
     ("mha", "float32"): dict(atol=1e-5, rtol=1e-5),
+    # fused_policy_step: the same f32 math as its plain version, with row
+    # sums and products in another order; in bf16 a last-bit difference can
+    # flip the rounding of a LayerNorm mean or variance, which moves a whole
+    # row by about one bf16 ulp.
+    ("step", "float32"): dict(atol=1e-5, rtol=1e-5),
+    ("step", "bfloat16"): dict(atol=3.2e-2, rtol=0.0),
 }
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates, at the
@@ -387,16 +401,183 @@ def check_mha(results):
             res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
 
 
+def _step_inputs(gen, N, F, H, layers, dtype):
+    """fused_policy_step operands: orthogonal-scale weights, LayerNorm
+    affines near 1 / 0, a carry of scale 0.5."""
+    import torch
+
+    def rnd(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(dt)
+
+    mlp, fin = [], F
+    for _ in range(layers):
+        mlp.append((rnd(fin, H, scale=(2 / fin) ** 0.5),
+                    1 + rnd(H, scale=0.1, dt=torch.float32),
+                    rnd(H, scale=0.1, dt=torch.float32)))
+        fin = H
+    return (rnd(N, F), mlp, rnd(H, 4 * H, scale=H ** -0.5),
+            rnd(H, 4 * H, scale=H ** -0.5), rnd(4 * H, scale=0.1),
+            rnd(N, H, scale=0.5), rnd(N, H, scale=0.5))
+
+
+def _step_bound(N, F, H, layers, itemsize):
+    """x, the weights and the carry read once, feats, c' and h' written
+    once; the Dense and LSTM products on bf16 tensor cores, about 10 f32
+    operations per LayerNorm element and 30 per LSTM unit."""
+    weights = F * H + (layers - 1) * H * H + 8 * H * H + 4 * H
+    nbytes = itemsize * (N * F + weights + 5 * N * H) + 8 * H * layers
+    product = 2 * N * (F * H + (layers - 1) * H * H + 8 * H * H)
+    return bound(nbytes, {"bf16_tensor": product,
+                          "f32": 10 * N * H * layers + 30 * N * H})
+
+
+def check_policy_step(results):
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.policy_step import (
+        fused_policy_step, fused_policy_step_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    res = results["fused_policy_step"] = {"max_abs_err": 0.0}
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (N, F, H, layers, dtype, on the main path): the headline_fused rollout
+    # step, float32 at the same shape, ragged batches, H = 128, and F = 128.
+    cases = [
+        (16384, 3, 256, 2, bf16, True),
+        (16384, 3, 256, 2, f32, False),
+        (1000, 3, 256, 2, bf16, False),
+        (1000, 3, 128, 1, f32, False),
+        (300, 128, 128, 3, bf16, False),
+    ]
+    for N, F, H, layers, dtype, main_path in cases:
+        dname = str(dtype).split(".")[-1]
+        tag = f"[{N},{F}->{H}x{layers},LSTM {H}] {dname}"
+        args = _step_inputs(gen, N, F, H, layers, dtype)
+        got_f, (got_c, got_h) = fused_policy_step(*args)
+        want_f, (want_c, want_h) = fused_policy_step_reference(*args)
+        for name, g, w in (("feats", got_f, want_f), ("c'", got_c, want_c),
+                           ("h'", got_h, want_h)):
+            err = compare(f"fused_policy_step {name} {tag}", g, w,
+                          **TOL[("step", dname)])
+            if main_path:
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+        if main_path:
+            ms = time_ms(lambda: fused_policy_step(*args))
+            plain_ms = time_ms(lambda: fused_policy_step_reference(*args))
+            b = _step_bound(N, F, H, layers, args[0].element_size())
+            log(f"  fused_policy_step {tag}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_by']}); no single PyTorch call computes it")
+            res.update(ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+
+
+def _proj_bounds(T, N, F, H, itemsize):
+    """Bytes and operations of the projection kernels: each input read
+    once, each output written once; the forward's x . Wi and h . Wr on bf16
+    tensor cores, the backward's six products (both recomputed, dgates .
+    Wi^T, dgates . Wr^T, x^T . dgates, h^T . dgates), and the gate math as
+    in _lstm_bounds."""
+    seq, state, rows = T * N * H, N * H, T * N
+    weights = F * 4 * H + 4 * H * H + 4 * H
+    fwd_bytes = itemsize * (rows * F + rows + weights + 2 * state + 2 * seq)
+    bwd_bytes = itemsize * (rows * F + rows + weights + 2 * state + 3 * seq
+                            + rows * F + weights + 2 * state)
+    products = 2 * rows * 4 * H * (F + H)
+    return (bound(fwd_bytes, {"bf16_tensor": products, "f32": 30 * seq}),
+            bound(bwd_bytes, {"bf16_tensor": 3 * products, "f32": 40 * seq}))
+
+
+def check_lstm_proj(results):
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.lstm import (
+        lstm_sequence_proj_bwd, lstm_sequence_proj_fwd,
+        lstm_sequence_proj_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    fwd = results["lstm_sequence_proj_fwd"] = {"max_abs_err": 0.0}
+    bwd = results["lstm_sequence_proj_bwd"] = {"max_abs_err": 0.0}
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (T, N, F, H, dtype, on the main path): the headline_fused update
+    # minibatch, float32 at the same shape, a ragged batch, F = 2H and 4H at
+    # H = 128.
+    cases = [
+        (16, 8192, 256, 256, bf16, True),
+        (16, 8192, 256, 256, f32, False),
+        (5, 1000, 128, 256, bf16, False),
+        (4, 70, 256, 128, f32, False),
+        (3, 300, 512, 128, f32, False),
+    ]
+    for T, N, F, H, dtype, main_path in cases:
+        dname = str(dtype).split(".")[-1]
+        tag = f"[{T},{N},{F}->{4 * H}] {dname}"
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, device="cuda", generator=gen)
+                    * scale).to(dtype)
+
+        args = (rnd(T, N, F),
+                (torch.rand(T, N, device="cuda", generator=gen) > 0.2)
+                .to(dtype),
+                rnd(F, 4 * H, scale=F ** -0.5), rnd(H, 4 * H, scale=H ** -0.5),
+                rnd(4 * H), rnd(N, H), rnd(N, H))
+        probe = rnd(T, N, H)
+
+        ys, cs = lstm_sequence_proj_fwd(*args)
+        err = compare(f"lstm_proj fwd {tag}", ys,
+                      lstm_sequence_proj_reference(*args),
+                      **TOL[("fwd", dname)])
+        if main_path:
+            fwd["max_abs_err"] = err
+
+        leaves = [a.detach().clone().requires_grad_(i != 1)
+                  for i, a in enumerate(args)]
+        diff = [leaves[i] for i in (0, 2, 3, 4, 5, 6)]
+
+        def plain_bwd():
+            out = lstm_sequence_proj_reference(*leaves)
+            return torch.autograd.grad(
+                (out.float() * probe.float()).sum(), diff)
+
+        got = lstm_sequence_proj_bwd(*args, ys, cs, probe)
+        for name, g, w in zip(("dx", "dwi", "dwr", "db", "dc0", "dh0"), got,
+                              plain_bwd()):
+            err = compare(f"lstm_proj bwd {name} {tag}", g, w,
+                          **TOL[("bwd", dname)])
+            if main_path:
+                bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
+
+        if main_path:
+            fwd["ms"] = time_ms(lambda: lstm_sequence_proj_fwd(*args))
+            fwd["plain_ms"] = time_ms(
+                lambda: lstm_sequence_proj_reference(*args))
+            bwd["ms"] = time_ms(
+                lambda: lstm_sequence_proj_bwd(*args, ys, cs, probe))
+            bwd["plain_ms"] = time_ms(plain_bwd)
+            fwd_bound, bwd_bound = _proj_bounds(T, N, F, H, 2)
+            fwd.update(library_ms=None, **fwd_bound)
+            bwd.update(library_ms=None, **bwd_bound)
+            log(f"  lstm_proj {tag}: fwd kernel {fwd['ms']:.3f} ms, plain "
+                f"{fwd['plain_ms']:.3f} ms, bound {fwd['bound_ms']:.4f} ms "
+                f"({fwd['bound_by']}); bwd kernel {bwd['ms']:.3f} ms, plain "
+                f"{bwd['plain_ms']:.3f} ms, bound {bwd['bound_ms']:.4f} ms "
+                f"({bwd['bound_by']}); no library call (cuDNN cannot clear "
+                f"the carry mid-sequence)")
+
+
 def kernel_phase():
     results = {}
     log("kernels against their plain versions:")
     check_gae(results)
     check_lstm(results)
     check_mha(results)
+    check_policy_step(results)
+    check_lstm_proj(results)
     return results
 
 
-def _small_actor_critic(dtype, hidden, seed):
+def _small_actor_critic(dtype, hidden, seed, fused=False):
+    """The headline's MLP + LSTM actor-critic; ``fused`` turns on the fused
+    trunk (``use_fused_step`` and ``fuse_input_proj``)."""
     import torch
     from madrona_learn_tpu_torch.config import DiscreteActionsConfig
     from madrona_learn_tpu_torch.models import (
@@ -410,7 +591,9 @@ def _small_actor_critic(dtype, hidden, seed):
             prefix=lambda obs: torch.cat([obs["delta"], obs["time"]], -1),
             encoder=RecurrentBackboneEncoder(
                 net=MLP(3, hidden, 2, dtype, generator=gen),
-                rnn=LSTM(hidden, hidden, 1, dtype, generator=gen))),
+                rnn=LSTM(hidden, hidden, 1, dtype, generator=gen,
+                         fuse_input_proj=fused),
+                use_fused_step=fused)),
         actor=DictActor({"move": DenseLayerDiscreteActor(
             move, hidden, dtype, generator=gen)}),
         critic=DenseLayerCritic(hidden, dtype, generator=gen))
@@ -507,7 +690,10 @@ def _card_vs_cpu(ac_cpu, obs, dones, actions, start, loss_fn):
 
 
 def model_phase():
-    """The MLP model and a small flagship model, float32, small input."""
+    """The MLP model, a small flagship model and a small fused-trunk model,
+    float32, small input."""
+    import copy
+
     import torch
 
     log("model update pass, card (kernels) against CPU (plain), float32:")
@@ -526,6 +712,24 @@ def model_phase():
 
     _card_vs_cpu(_small_actor_critic(torch.float32, H, seed=4), obs, dones,
                  actions, start, mlp_loss)
+
+    log("fused-trunk model (MLP 2x128, LSTM 128, fused step and input "
+        "projection), card against CPU, float32:")
+    ac = _small_actor_critic(torch.float32, H, seed=8, fused=True)
+    step_obs = {k: v[0] for k, v in obs.items()}
+    with torch.no_grad():
+        out_cpu, carry_cpu = ac.rollout(None, start, step_obs,
+                                        sample_actions=False)
+        ac_gpu = copy.deepcopy(ac).cuda()
+        out_gpu, carry_gpu = ac_gpu.rollout(
+            None, tuple(s.cuda() for s in start),
+            {k: v.cuda() for k, v in step_obs.items()}, sample_actions=False)
+    tol = dict(atol=1e-4, rtol=1e-4)
+    compare("rollout step critic", out_gpu["critic"].cpu(), out_cpu["critic"],
+            **tol)
+    for name, g, w in zip(("c", "h"), carry_gpu, carry_cpu):
+        compare(f"rollout step {name}", g.cpu(), w, **tol)
+    _card_vs_cpu(ac, obs, dones, actions, start, mlp_loss)
 
     log("flagship model (embed 32, out 64, 2 heads, LSTM 128) update pass, "
         "card against CPU, float32:")
@@ -555,6 +759,7 @@ STEPS_PER_UPDATE = 32
 NUM_BPTT_CHUNKS = 2
 NUM_MINIBATCHES = 4
 CHANNELS = 256
+CLIP_COEF = 0.2
 
 
 def _train_config(actions, dreamer_v3_critic):
@@ -575,7 +780,7 @@ def _train_config(actions, dreamer_v3_critic):
         algo=mlt.PPOConfig(
             num_epochs=1,
             minibatch_size=NUM_BPTT_CHUNKS * NUM_WORLDS // NUM_MINIBATCHES,
-            clip_coef=0.2,
+            clip_coef=CLIP_COEF,
             value_loss_coef=0.5,
             entropy_coef=0.01,
             max_grad_norm=0.5,
@@ -605,6 +810,33 @@ def build_headline(hooks):
         "cuda", _train_config([5], dreamer_v3_critic=False), _toy_env(),
         policy, torch.zeros((1,), dtype=torch.int32, device="cuda"),
         user_hooks=hooks)
+
+
+def build_headline_fused(hooks, sim_fns=None):
+    """The headline with the fused trunk, over the toy gridworld or
+    ``sim_fns``."""
+    import torch
+    import madrona_learn_tpu_torch as mlt
+
+    dtype = torch.bfloat16
+    policy = mlt.Policy(
+        actor_critic=_small_actor_critic(dtype, CHANNELS, seed=0, fused=True),
+        obs_preprocess=mlt.ObservationsEMANormalizer.create(
+            decay=0.99999, dtype=dtype))
+    return mlt.init_training(
+        "cuda", _train_config([5], dreamer_v3_critic=False),
+        sim_fns or _toy_env(), policy,
+        torch.zeros((1,), dtype=torch.int32, device="cuda"),
+        user_hooks=hooks)
+
+
+def build_native(hooks):
+    """The headline_fused model over the C++ batch simulator."""
+    from madrona_learn_tpu_torch.envs import NativeSimConfig, make_native_sim
+
+    return build_headline_fused(hooks, make_native_sim(NativeSimConfig(
+        num_worlds=NUM_WORLDS, episode_len=40, grid_size=8, seed=0),
+        device="cuda"))
 
 
 def build_flagship(hooks):
@@ -685,7 +917,8 @@ def _profile_update(one_update):
         log(f"    {self_ms(e):9.3f} ms {e.count:6d}x  {e.key[:100]}")
     for e in rows:
         if e.key in ("_MHA", "_MHABackward", "_LSTMSequence",
-                     "_LSTMSequenceBackward"):
+                     "_LSTMSequenceBackward", "_LSTMSequenceProj",
+                     "_LSTMSequenceProjBackward"):
             log(f"    {total_ms(e):9.3f} ms {e.count:6d}x  {e.key} "
                 f"(inclusive)")
 
@@ -728,6 +961,10 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
     clip_frac = stats["clip_fraction"].item()
     log(f"  first update, first minibatch: max |ratio - 1| {ratio_dev:.3e}, "
         f"clip fraction {clip_frac:.3e}")
+    if not ratio_dev < CLIP_COEF:
+        raise AssertionError(f"{name}: first-minibatch max |ratio - 1| "
+                             f"{ratio_dev} is not below the clip "
+                             f"coefficient {CLIP_COEF}")
 
     trial_s = []
     for _ in range(trials):
@@ -818,6 +1055,11 @@ def main():
     steps = STEPS_PER_UPDATE + 1 + NUM_MINIBATCHES
     lstm = {"gae": 1, "lstm_sequence_fwd": steps,
             "lstm_sequence_bwd": NUM_MINIBATCHES}
+    # The fused trunk: one fused_policy_step per rollout step and for the
+    # bootstrap value, the projection kernels once per minibatch.
+    fused = {"gae": 1, "fused_policy_step": STEPS_PER_UPDATE + 1,
+             "lstm_sequence_proj_fwd": NUM_MINIBATCHES,
+             "lstm_sequence_proj_bwd": NUM_MINIBATCHES}
     paths = {
         "headline": trainer_phase(card, "headline", build_headline, lstm,
                                   trials=3, timed_updates=10,
@@ -825,6 +1067,12 @@ def main():
         "flagship": trainer_phase(card, "flagship", build_flagship,
                                   dict(lstm, mha=steps), trials=3,
                                   timed_updates=5, last_rewards=5),
+        "headline_fused": trainer_phase(card, "headline_fused",
+                                        build_headline_fused, fused,
+                                        trials=3, timed_updates=10,
+                                        last_rewards=10),
+        "native": trainer_phase(card, "native", build_native, fused,
+                                trials=2, timed_updates=4, last_rewards=4),
     }
     two_hot_loss_timing(card)
     for name, (_, r) in paths.items():

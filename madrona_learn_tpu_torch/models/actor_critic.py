@@ -18,6 +18,8 @@ from typing import Callable, Dict
 import torch
 from torch import nn
 
+from ..ops.cuda.policy_step import fused_policy_step, policy_step_supported
+
 
 def _merge_time(tree, T, N):
     """[T*N, ...] -> [T, N, ...] on every tensor of a dict."""
@@ -38,12 +40,27 @@ def _merge_time_critic(critic_out, T, N):
 
 
 class RecurrentBackboneEncoder(nn.Module):
-    """net -> rnn tower with a sequence path for BPTT."""
+    """net -> rnn tower with a sequence path for BPTT.
 
-    def __init__(self, net: nn.Module, rnn: nn.Module):
+    ``use_fused_step=True`` (JAX: ``models/actor_critic.py:156-257``) runs
+    the single-step (rollout) forward as one ``fused_policy_step`` launch
+    when the tower matches the kernel: an ``MLP`` net feeding a one-layer
+    ``LSTM`` of the same width and dtype, and one rank-2 input the kernel
+    takes. Other towers take the unfused modules. The fused path only
+    reads the module parameters, so the parameter tree (and checkpoints,
+    and ``compat/from_jax.py``) is the same either way. The update pass is
+    unchanged; its LayerNorm rounds its statistics once where the fused
+    step rounds mean and variance to the storage dtype, so in bf16 the two
+    forwards differ by about a bf16 ulp and PPO's ratio starts near, not
+    at, 1 (the JAX package has the same divergence).
+    """
+
+    def __init__(self, net: nn.Module, rnn: nn.Module,
+                 use_fused_step: bool = False):
         super().__init__()
         self.net = net
         self.rnn = rnn
+        self.use_fused_step = use_fused_step
 
     def init_recurrent_state(self, N, device=None):
         return self.rnn.init_recurrent_state(N, device)
@@ -51,7 +68,41 @@ class RecurrentBackboneEncoder(nn.Module):
     def clear_recurrent_state(self, recurrent_states, should_clear):
         return self.rnn.clear_recurrent_state(recurrent_states, should_clear)
 
+    def _fused_step_applicable(self, inputs):
+        """JAX's gate: an MLP net, a one-layer LSTM, one rank-2 input, net
+        width == LSTM width, one dtype, and ``policy_step_supported``. The
+        port's LSTM always runs precise gates, so JAX's ``use_pallas or
+        float32`` clause always holds."""
+        from .common import MLP
+        from .lstm import LSTM
+
+        net, rnn = self.net, self.rnn
+        if not (isinstance(net, MLP) and isinstance(rnn, LSTM)
+                and rnn.num_layers == 1 and net.num_layers >= 1
+                and isinstance(inputs, torch.Tensor) and inputs.dim() == 2):
+            return False
+        return (net.num_channels == rnn.num_hidden_channels
+                and net.dtype == rnn.dtype
+                and policy_step_supported(rnn.num_hidden_channels,
+                                          inputs.shape[-1], rnn.dtype))
+
+    def _fused_step(self, rnn_states_in, x):
+        dt = self.rnn.dtype
+        mlp = [(getattr(self.net, f"Dense_{i}").kernel.to(dt),
+                getattr(self.net, f"LayerNorm_{i}").impl.scale,
+                getattr(self.net, f"LayerNorm_{i}").impl.bias)
+               for i in range(self.net.num_layers)]
+        cell = self.rnn.layer_0
+        wr, b = cell.packed_weights()
+        c_in, h_in = rnn_states_in  # [N, 1, H]
+        out, (c, h) = fused_policy_step(
+            x.to(dt).contiguous(), mlp, cell.input_proj.kernel.to(dt), wr, b,
+            c_in[:, 0].contiguous(), h_in[:, 0].contiguous())
+        return out, (c[:, None], h[:, None])
+
     def forward(self, rnn_states_in, inputs):
+        if self.use_fused_step and self._fused_step_applicable(inputs):
+            return self._fused_step(rnn_states_in, inputs)
         return self.rnn(rnn_states_in, self.net(inputs))
 
     def sequence(self, rnn_start_states, sequence_ends, flattened_inputs):

@@ -88,6 +88,7 @@ class MLP(nn.Module):
                  dtype, weight_init: Callable = orthogonal(math.sqrt(2)),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.num_channels = num_channels
         self.num_layers = num_layers
         self.dtype = dtype
         width = in_features

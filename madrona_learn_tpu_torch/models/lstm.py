@@ -12,7 +12,14 @@ step, ``lstm_sequence_fwd`` / ``lstm_sequence_bwd`` for the
 sequence), so on the card the two forwards share rounding points and PPO's
 ratio can start at 1. The sequence pass hoists each layer's input
 projection into one ``[T*N, F] x [F, 4H]`` product and clears the carry
-after any step whose ``seq_ends`` flag is set.
+after any step whose ``seq_ends`` flag is set. With
+``fuse_input_proj=True`` (JAX: ``models/lstm.py:134``), a layer whose input
+width passes ``lstm_proj_supported`` runs ``lstm_sequence_proj`` instead,
+which computes ``round(x . Wi)`` inside the kernel at the same rounding
+point, so the [T, N, 4H] projection never goes to device memory. Its f32
+sums run in another order than the cuBLAS product of the single step, so
+on the card a bf16 projection may differ by one rounding and PPO's ratio
+starts near, not exactly at, 1.
 """
 
 from __future__ import annotations
@@ -22,7 +29,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.cuda.lstm import lstm_sequence, lstm_step
+from ..ops.cuda.lstm import (
+    lstm_proj_supported,
+    lstm_sequence,
+    lstm_sequence_proj,
+    lstm_step,
+)
 from .common import Dense
 
 __all__ = ["LSTM"]
@@ -74,11 +86,13 @@ class _PackedLSTMLayer(nn.Module):
 class LSTM(nn.Module):
     def __init__(self, in_features: int, num_hidden_channels: int,
                  num_layers: int, dtype,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 fuse_input_proj: bool = False):
         super().__init__()
         self.num_hidden_channels = num_hidden_channels
         self.num_layers = num_layers
         self.dtype = dtype
+        self.fuse_input_proj = fuse_input_proj
         width = in_features
         for layer in range(num_layers):
             self.add_module(f"layer_{layer}", _PackedLSTMLayer(
@@ -125,10 +139,18 @@ class LSTM(nn.Module):
         layer_in = seq_x
         for layer, cell in enumerate(self._cells()):
             wr, b = cell.packed_weights()
-            x_proj = cell.project_input(layer_in).contiguous()
-            ys = lstm_sequence(x_proj, keep, wr, b,
-                               c0[:, layer].contiguous(),
-                               h0[:, layer].contiguous())
+            c0_l, h0_l = c0[:, layer].contiguous(), h0[:, layer].contiguous()
+            if self.fuse_input_proj and lstm_proj_supported(
+                    layer_in.shape[-1], self.num_hidden_channels,
+                    self.dtype):
+                # The cast is differentiable, so the gradient reaches the
+                # float32 input_proj.kernel.
+                wi = cell.input_proj.kernel.to(self.dtype).contiguous()
+                ys = lstm_sequence_proj(layer_in.to(self.dtype).contiguous(),
+                                        keep, wi, wr, b, c0_l, h0_l)
+            else:
+                x_proj = cell.project_input(layer_in).contiguous()
+                ys = lstm_sequence(x_proj, keep, wr, b, c0_l, h0_l)
             layer_in = ys
             outs.append(ys)
         return torch.cat(outs, dim=-1)

@@ -115,6 +115,15 @@ _SIGNATURES = {
     "mlt_lstm_bwd": [_I, _I] + [_P] * 17 + [_I, _I, _I, _P],
     # dtype, D, q, k, v, out, B, S, H, valid_len, scale, stream
     "mlt_mha_fwd": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # dtype, H, layers, F, N, x, (w, ln_scale, ln_bias) x 4, wi, wr, bias,
+    # c, h, feats, c_out, h_out, stream
+    "mlt_policy_step": [_I] * 5 + [_P] * 21 + [_P],
+    # dtype, H, F, x, keep, wi, wr, bias, c0, h0, ys, cs, T, N, stream
+    "mlt_lstm_proj_fwd": [_I, _I, _I] + [_P] * 9 + [_I, _I, _P],
+    # dtype, H, F, x, keep, wi, wi_t, wr, wr_t, bias, c0, h0, ys, cs, dys,
+    # dx, dg, dh0, dc0, part_wi, part_w, part_b, dwi, dwr, db, T, N,
+    # splits, stream
+    "mlt_lstm_proj_bwd": [_I, _I, _I] + [_P] * 22 + [_I, _I, _I, _P],
 }
 
 

@@ -1,22 +1,28 @@
 """lstm_sequence_fwd / lstm_sequence_bwd: the fused LSTM sequence pass as
-CUDA kernels, with plain twins.
+CUDA kernels, with plain twins; lstm_sequence_proj_fwd /
+lstm_sequence_proj_bwd: the same pass with the input projection inside the
+kernel.
 
 Replaces ``madrona_learn_tpu/ops/pallas/lstm.py:lstm_sequence`` (forward
-``_fwd_kernel``, backward ``_bwd_kernel`` with its fused dWr/db epilogue).
-``csrc/lstm.cu`` explains the Hopper design: a block owns a tile of batch
-rows and loops over time, Wr is read from L2 every step (it does not fit in
-shared memory at H = 256), and the weight gradients are per-split f32
-partials summed by a second pass instead of one accumulator shared by the
-whole grid. On this card the first version is bound by CUDA-core FMA issue,
-not by bytes.
+``_fwd_kernel``, backward ``_bwd_kernel`` with its fused dWr/db epilogue)
+and ``lstm_sequence_proj`` (``_fwd_proj_kernel``, ``_bwd_proj_kernel`` with
+its fused dWi/dWr/db epilogue). ``csrc/lstm.cu`` explains the Hopper
+design: a block owns a tile of batch rows and loops over time, Wr (and Wi)
+are read from L2 every step (they do not fit in shared memory at H = 256),
+and the weight gradients are per-split f32 partials summed by a second pass
+instead of one accumulator shared by the whole grid. On this card the first
+version is bound by CUDA-core FMA issue, not by bytes.
 
 Contract (all operands in the storage dtype, float32 or bfloat16):
 
-- ``x_proj`` [T, N, 4H] pre-projected inputs, gates (i, f, g, o);
+- ``x_proj`` [T, N, 4H] pre-projected inputs, gates (i, f, g, o); or, for
+  the projection variant, ``x`` [T, N, F] and ``wi`` [F, 4H] with
+  F % 128 == 0 and F <= 4H, and ``x_proj = round(x . Wi)`` (f32
+  accumulation, rounded to the storage dtype, as the hoisted Dense);
 - ``keep`` [T, N]: 0 clears the carry after step t;
 - ``wr`` [H, 4H], ``bias`` [4H], ``c0``/``h0`` [N, H];
 - gate math in f32, ``h . Wr`` accumulated in f32, ``ys``/``cs`` rounded to
-  the storage dtype.
+  the storage dtype; the backward rounds dgates to the storage dtype.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise.
@@ -37,6 +43,16 @@ LSTM_BWD = Kernel(
     name="lstm_sequence_bwd",
     source="madrona_learn_tpu_torch/csrc/lstm.cu",
     replaces="madrona_learn_tpu/ops/pallas/lstm.py:283",
+)
+LSTM_PROJ_FWD = Kernel(
+    name="lstm_sequence_proj_fwd",
+    source="madrona_learn_tpu_torch/csrc/lstm.cu",
+    replaces="madrona_learn_tpu/ops/pallas/lstm.py:546",
+)
+LSTM_PROJ_BWD = Kernel(
+    name="lstm_sequence_proj_bwd",
+    source="madrona_learn_tpu_torch/csrc/lstm.cu",
+    replaces="madrona_learn_tpu/ops/pallas/lstm.py:562",
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -201,3 +217,126 @@ def lstm_step(x_proj, wr, bias, c, h):
                       device=x_proj.device)
     ys, cs = lstm_sequence_fwd(x_proj.unsqueeze(0), keep, wr, bias, c, h)
     return cs[0], ys[0]
+
+
+def lstm_proj_supported(in_features, hidden, dtype):
+    """Whether the projection kernels serve this layer shape (JAX:
+    ``ops/pallas/lstm.py:369``)."""
+    return (hidden % 128 == 0 and dtype in _DTYPE_CODES
+            and in_features % 128 == 0 and in_features <= 4 * hidden)
+
+
+def lstm_sequence_proj_reference(x, keep, wi, wr, bias, c0, h0):
+    """Plain twin (JAX: ``ops/pallas/lstm.py:635``): the hoisted
+    ``round(x . Wi)`` followed by the sequence twin. Differentiable by
+    autograd."""
+    x_proj = (x.float() @ wi.float()).to(x.dtype)
+    return lstm_sequence_reference(x_proj, keep, wr, bias, c0, h0)
+
+
+def _check_proj_inputs(x, keep, wi, wr, bias, c0, h0):
+    if x.dim() != 3 or wr.dim() != 2:
+        raise ValueError(f"lstm_sequence_proj: x must be [T, N, F] and wr "
+                         f"[H, 4H], got {tuple(x.shape)}, {tuple(wr.shape)}")
+    steps, n, f_in = x.shape
+    hidden = wr.shape[0]
+    dtype = x.dtype
+    if (hidden not in _HIDDEN_SIZES
+            or not lstm_proj_supported(f_in, hidden, dtype)):
+        raise ValueError(
+            f"lstm_sequence_proj: supports float32/bfloat16, H in "
+            f"{_HIDDEN_SIZES}, F % 128 == 0 and F <= 4H; got {dtype}, "
+            f"H={hidden}, F={f_in}")
+    if steps == 0 or n == 0:
+        raise ValueError(f"lstm_sequence_proj: empty input "
+                         f"{tuple(x.shape)}")
+    _check("x", x, dtype, (steps, n, f_in))
+    _check("keep", keep, dtype, (steps, n))
+    _check("wi", wi, dtype, (f_in, 4 * hidden))
+    _check("wr", wr, dtype, (hidden, 4 * hidden))
+    _check("bias", bias, dtype, (4 * hidden,))
+    _check("c0", c0, dtype, (n, hidden))
+    _check("h0", h0, dtype, (n, hidden))
+    return steps, n, f_in, hidden
+
+
+def lstm_sequence_proj_fwd(x, keep, wi, wr, bias, c0, h0):
+    """The projection forward kernel: (ys, cs), each [T, N, H]."""
+    steps, n, f_in, hidden = _check_proj_inputs(x, keep, wi, wr, bias, c0,
+                                                h0)
+    ys = torch.empty((steps, n, hidden), dtype=x.dtype, device=x.device)
+    cs = torch.empty_like(ys)
+    err = library().mlt_lstm_proj_fwd(
+        _DTYPE_CODES[x.dtype], hidden, f_in, x.data_ptr(), keep.data_ptr(),
+        wi.data_ptr(), wr.data_ptr(), bias.data_ptr(), c0.data_ptr(),
+        h0.data_ptr(), ys.data_ptr(), cs.data_ptr(), steps, n,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "lstm_sequence_proj_fwd")
+    LSTM_PROJ_FWD.launches += 1
+    return ys, cs
+
+
+def lstm_sequence_proj_bwd(x, keep, wi, wr, bias, c0, h0, ys, cs, dys):
+    """The projection backward kernel: (dx, dwi, dwr, db, dc0, dh0) given
+    the forward's ys / cs. The rounded dgates go through a [T, N, 4H]
+    scratch to the weight-gradient pass."""
+    steps, n, f_in, hidden = _check_proj_inputs(x, keep, wi, wr, bias, c0,
+                                                h0)
+    dtype, device = x.dtype, x.device
+    _check("ys", ys, dtype, (steps, n, hidden))
+    _check("cs", cs, dtype, (steps, n, hidden))
+    _check("dys", dys, dtype, (steps, n, hidden))
+    wi_t = wi.t().contiguous()
+    wr_t = wr.t().contiguous()
+    splits = _num_splits(
+        steps, n, hidden,
+        torch.cuda.get_device_properties(device).multi_processor_count)
+    dx = torch.empty_like(x)
+    dg = torch.empty((steps, n, 4 * hidden), dtype=dtype, device=device)
+    dh0 = torch.empty_like(h0)
+    dc0 = torch.empty_like(c0)
+    part_wi = torch.empty((splits, f_in, 4 * hidden), dtype=torch.float32,
+                          device=device)
+    part_w = torch.empty((splits, hidden, 4 * hidden), dtype=torch.float32,
+                         device=device)
+    part_b = torch.empty((splits, 4 * hidden), dtype=torch.float32,
+                         device=device)
+    dwi = torch.empty_like(wi)
+    dwr = torch.empty_like(wr)
+    db = torch.empty_like(bias)
+    err = library().mlt_lstm_proj_bwd(
+        _DTYPE_CODES[dtype], hidden, f_in, x.data_ptr(), keep.data_ptr(),
+        wi.data_ptr(), wi_t.data_ptr(), wr.data_ptr(), wr_t.data_ptr(),
+        bias.data_ptr(), c0.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+        cs.data_ptr(), dys.data_ptr(), dx.data_ptr(), dg.data_ptr(),
+        dh0.data_ptr(), dc0.data_ptr(), part_wi.data_ptr(),
+        part_w.data_ptr(), part_b.data_ptr(), dwi.data_ptr(),
+        dwr.data_ptr(), db.data_ptr(), steps, n, splits,
+        torch.cuda.current_stream(device).cuda_stream)
+    check(err, "lstm_sequence_proj_bwd")
+    LSTM_PROJ_BWD.launches += 1
+    return dx, dwi, dwr, db, dc0, dh0
+
+
+class _LSTMSequenceProj(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, keep, wi, wr, bias, c0, h0):
+        ys, cs = lstm_sequence_proj_fwd(x, keep, wi, wr, bias, c0, h0)
+        ctx.save_for_backward(x, keep, wi, wr, bias, c0, h0, ys, cs)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        x, keep, wi, wr, bias, c0, h0, ys, cs = ctx.saved_tensors
+        dx, dwi, dwr, db, dc0, dh0 = lstm_sequence_proj_bwd(
+            x, keep, wi, wr, bias, c0, h0, ys, cs,
+            dys.to(x.dtype).contiguous())
+        return dx, None, dwi, dwr, db, dc0, dh0
+
+
+def lstm_sequence_proj(x, keep, wi, wr, bias, c0, h0):
+    """ys [T, N, H]: ``lstm_sequence(round(x . Wi), ...)`` with the
+    projection inside the kernel, differentiable."""
+    if x.device.type == "cpu":
+        return lstm_sequence_proj_reference(x, keep, wi, wr, bias, c0, h0)
+    return _LSTMSequenceProj.apply(x, keep, wi, wr, bias, c0, h0)

@@ -71,12 +71,12 @@ def _torch_config():
 ENV = dict(num_worlds=W, episode_len=5, grid_size=5, seed=SEED)
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """Two JAX updates, with the rollout data each one trained on."""
+def run_jax(actor_critic):
+    """Two JAX updates of ``actor_critic``, with the rollout data each one
+    trained on."""
     cfg = _jax_config()
     policy = mlt.Policy(
-        actor_critic=_jax_actor_critic(jnp.float32, H),
+        actor_critic=actor_critic,
         obs_preprocess=mlt.ObservationsEMANormalizer.create(
             decay=0.99999, dtype=jnp.float32))
     mgr = mlt.init_training(None, cfg, jax_make_toy_env(JaxToyEnvConfig(
@@ -102,6 +102,11 @@ def jax_run():
     return mgrs, data
 
 
+@pytest.fixture(scope="module")
+def jax_run():
+    return run_jax(_jax_actor_critic(jnp.float32, H))
+
+
 def _recorded_actions(data):
     """[P, B*C, T/C, 1] b-major training rows -> per-step [B, 1] actions."""
     a = np.asarray(data["actions"]["move"])
@@ -124,11 +129,11 @@ def _adam_state(jax_mgr):
     return adam
 
 
-@pytest.fixture(scope="module")
-def torch_run(jax_run):
+def run_torch(jax_run, actor_critic):
+    """Two updates of the port's ``actor_critic`` from the JAX run's start,
+    replaying its actions: (rollout data, per-update snapshots)."""
     jax_mgrs, jax_data = jax_run
     j0 = jax_mgrs[0]
-    actor_critic = _torch_actor_critic(torch.float32, H)
     actor_critic.load_state_dict({
         k: torch.from_numpy(v)
         for k, v in _flat_state(j0.state.policy_states.params).items()})
@@ -180,6 +185,11 @@ def torch_run(jax_run):
         mp.undo()
     assert not queue
     return collected, snapshots
+
+
+@pytest.fixture(scope="module")
+def torch_run(jax_run):
+    return run_torch(jax_run, _torch_actor_critic(torch.float32, H))
 
 
 def _leaves(tree, prefix=""):

@@ -15,9 +15,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    PyTorch call computes the same function, of that call; and each
    kernel's bound, the least time the card could take for the same work;
 4. models: the update pass and its gradients through the kernels on the
-   card against the same model on the CPU, for the MLP model, a small
-   flagship (entity attention) model and a small fused-trunk model (whose
-   rollout step is also compared);
+   card against the same model on the CPU, for the MLP model, a small GRU
+   model, a small flagship (entity attention) model and a small fused-trunk
+   model (the GRU's and the fused trunk's rollout step are also compared);
+   then ``LayerNorm(use_kernel=True)``, the entry point of the layer_norm
+   kernels, forward and backward at [131072, 256] bf16 and [300, 128]
+   float32, with the launches of that path counted;
 5. headline trainer: the ``bench.py`` headline configuration (16384
    worlds, 2x256 MLP, 256-wide LSTM, bf16, T=32 in 2 BPTT chunks, 1 epoch
    of 4 minibatches) built in the port, 1 warm-up update and 3 trials of 10;
@@ -30,7 +33,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    inside ``lstm_sequence_proj``), 1 warm-up update and 3 trials of 10;
 8. native trainer: the headline_fused model over the C++ batch simulator
    (``make_native_sim``, built with g++), 1 warm-up update and 2 trials
-   of 4.
+   of 4;
+9. headline_gru trainer: the headline with GRU(256, 256, 1, bf16) in the
+   LSTM's place (``gru_sequence_fwd`` / ``gru_sequence_bwd``), 1 warm-up
+   update and 3 trials of 10.
 
 Each trainer phase sets every launch count to 0 just before it and checks
 just after it that every kernel of its path launched as often as the
@@ -41,7 +47,8 @@ synchronized collect / learn split and a torch.profiler breakdown of one
 update.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
-every kernel with its launches on the main paths, error, times and bound.
+every kernel with its launches on the main paths, error, times and bound,
+and the script fails if a kernel was launched on no path.
 """
 
 from __future__ import annotations
@@ -80,6 +87,24 @@ TOL = {
     # row by about one bf16 ulp.
     ("step", "float32"): dict(atol=1e-5, rtol=1e-5),
     ("step", "bfloat16"): dict(atol=3.2e-2, rtol=0.0),
+    # gru_sequence_*: the LSTM kernels' reasons, and the plain backward also
+    # rounds the carried dh to bf16 at every step (h is stored in bf16, so
+    # its cotangent is), where the kernel carries it in f32 as the TPU
+    # kernel does.
+    ("gru_fwd", "float32"): dict(atol=1e-5, rtol=1e-5),
+    ("gru_bwd", "float32"): dict(atol=1e-4, rtol=1e-4),
+    ("gru_fwd", "bfloat16"): dict(atol=3.2e-2, rtol=0.0),
+    ("gru_bwd", "bfloat16"): dict(atol=0.0, rtol=3.2e-2),
+    # layer_norm_*: the same f32 math with row sums in another order (and
+    # the plain backward through autograd's graph of the mean and variance);
+    # in bf16 y and dx are rounded once, so a last-bit f32 difference may
+    # move one by a bf16 ulp: 2^-7 of the largest value. dw / db are f32
+    # sums over up to 131072 rows in another order.
+    ("ln_fwd", "float32"): dict(atol=1e-5, rtol=1e-5),
+    ("ln_bwd", "float32"): dict(atol=1e-5, rtol=1e-5),
+    ("ln_fwd", "bfloat16"): dict(atol=0.0, rtol=2 ** -7),
+    ("ln_bwd", "bfloat16"): dict(atol=0.0, rtol=2 ** -7),
+    "ln_dwdb": dict(atol=0.0, rtol=1e-4),
 }
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates, at the
@@ -564,6 +589,244 @@ def check_lstm_proj(results):
                 f"the carry mid-sequence)")
 
 
+def _gru_inputs(gen, T, N, H, dtype):
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(dtype)
+
+    return (rnd(T, N, 3 * H),
+            (torch.rand(T, N, device="cuda", generator=gen) > 0.2).to(dtype),
+            rnd(H, 3 * H, scale=H ** -0.5), rnd(H), rnd(N, H))
+
+
+def _gru_bounds(T, N, H, itemsize):
+    """Bytes and operations of the GRU kernels, as _lstm_bounds reckons
+    them: each input read once, each output written once (the backward's
+    dhp scratch is neither); the h . Wh products (and in the backward dhp .
+    Wh^T and h^T . dhp) on bf16 tensor cores, and about 25 f32 operations
+    of gate math per unit and step (35 backward)."""
+    seq, state = T * N * H, N * H
+    weights = 3 * H * H + H
+    fwd_bytes = itemsize * (3 * seq + T * N + weights + state + seq)
+    bwd_bytes = itemsize * (3 * seq + T * N + weights + state + 2 * seq
+                            + 3 * seq + weights + state)
+    product = 2 * T * N * H * 3 * H
+    return (bound(fwd_bytes, {"bf16_tensor": product, "f32": 25 * seq}),
+            bound(bwd_bytes, {"bf16_tensor": 2 * product, "f32": 35 * seq}))
+
+
+def cudnn_gru_check(args, ys):
+    """cuDNN's GRU (torch.nn.GRU: gates (r, z, n), linear-before-reset, b_hn
+    in bias_hh; identity input weight so that its input is x_proj) on the
+    same inputs as the forward kernel. It cannot clear the carry after a
+    step whose keep is 0, so it computes another function and the kernel has
+    no library yardstick; this prints how far it lands and its time."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.gru import gru_sequence_fwd
+
+    x_proj, keep, wh, bias_h, h0 = args
+    G, H = x_proj.shape[-1], wh.shape[0]
+    try:
+        gru = torch.nn.GRU(G, H).to(device="cuda", dtype=x_proj.dtype)
+        with torch.no_grad():
+            gru.weight_ih_l0.copy_(torch.eye(G))
+            gru.weight_hh_l0.copy_(wh.t())
+            gru.bias_ih_l0.zero_()
+            gru.bias_hh_l0.zero_()
+            gru.bias_hh_l0[2 * H:].copy_(bias_h)
+
+            def run():
+                return gru(x_proj, h0[None])[0]
+
+            got = run()
+            ones = gru_sequence_fwd(x_proj, torch.ones_like(keep), wh,
+                                    bias_h, h0)
+            err_keep = (got.float() - ys.float()).abs().max().item()
+            err_ones = (got.float() - ones.float()).abs().max().item()
+            ms = time_ms(run)
+        log(f"  cuDNN GRU on the same inputs: max |diff| from the kernel "
+            f"{err_keep:.3e} with the keep mask, {err_ones:.3e} with keep = "
+            f"1; {ms:.3f} ms (another function: library_ms null)")
+    except RuntimeError as e:
+        log(f"  cuDNN GRU on the same inputs did not run: {e}")
+
+
+def check_gru(results):
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.gru import (
+        gru_sequence_bwd, gru_sequence_fwd, gru_sequence_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    fwd = results["gru_sequence_fwd"] = {"max_abs_err": 0.0}
+    bwd = results["gru_sequence_bwd"] = {"max_abs_err": 0.0}
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (T, N, H, dtype, on the main path): the headline_gru update minibatch,
+    # its rollout step, a ragged batch, and float32 at both widths.
+    cases = [
+        (16, 8192, 256, bf16, True),
+        (1, 16384, 256, bf16, True),
+        (16, 1000, 256, bf16, False),
+        (5, 1000, 256, f32, False),
+        (4, 70, 128, f32, False),
+    ]
+    for T, N, H, dtype, main_path in cases:
+        dname = str(dtype).split(".")[-1]
+        tag = f"[{T},{N},{3 * H}] {dname}"
+        args = _gru_inputs(gen, T, N, H, dtype)
+        probe = torch.randn(T, N, H, device="cuda", generator=gen).to(dtype)
+
+        ys = gru_sequence_fwd(*args)
+        err = compare(f"gru fwd {tag}", ys, gru_sequence_reference(*args),
+                      **TOL[("gru_fwd", dname)])
+        if main_path:
+            fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
+
+        leaves = [a.detach().clone().requires_grad_(i != 1)
+                  for i, a in enumerate(args)]
+        diff = [leaves[i] for i in (0, 2, 3, 4)]
+
+        def plain_bwd():
+            out = gru_sequence_reference(*leaves)
+            return torch.autograd.grad(
+                (out.float() * probe.float()).sum(), diff)
+
+        got = gru_sequence_bwd(*args, ys, probe)
+        for name, g, w in zip(("dxp", "dwh", "dbh", "dh0"), got,
+                              plain_bwd()):
+            err = compare(f"gru bwd {name} {tag}", g, w,
+                          **TOL[("gru_bwd", dname)])
+            if main_path and T > 1:
+                bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
+
+        if main_path and T > 1:
+            fwd["ms"] = time_ms(lambda: gru_sequence_fwd(*args))
+            fwd["plain_ms"] = time_ms(lambda: gru_sequence_reference(*args))
+            bwd["ms"] = time_ms(lambda: gru_sequence_bwd(*args, ys, probe))
+            bwd["plain_ms"] = time_ms(plain_bwd)
+            fwd_bound, bwd_bound = _gru_bounds(T, N, H, 2)
+            fwd.update(library_ms=None, **fwd_bound)
+            bwd.update(library_ms=None, **bwd_bound)
+            log(f"  gru {tag}: fwd kernel {fwd['ms']:.3f} ms, plain "
+                f"{fwd['plain_ms']:.3f} ms, bound {fwd['bound_ms']:.4f} ms "
+                f"({fwd['bound_by']}); bwd kernel {bwd['ms']:.3f} ms, plain "
+                f"{bwd['plain_ms']:.3f} ms, bound {bwd['bound_ms']:.4f} ms "
+                f"({bwd['bound_by']})")
+            cudnn_gru_check(args, ys)
+        elif main_path:
+            step_ms = time_ms(lambda: gru_sequence_fwd(*args))
+            step_plain = time_ms(lambda: gru_sequence_reference(*args))
+            step_bound = _gru_bounds(T, N, H, 2)[0]
+            log(f"  gru {tag}: fwd kernel {step_ms:.3f} ms, plain "
+                f"{step_plain:.3f} ms, bound {step_bound['bound_ms']:.4f} ms")
+
+
+def _layer_norm_bounds(N, D, itemsize):
+    """x read and y written once, w / b read and mu / rsigma written once;
+    about 8 f32 operations per element. Backward: x and dy read, dx
+    written, w, mu, rsigma read and dw / db written once; about 12."""
+    elems = N * D
+    fwd = bound(2 * itemsize * elems + 8 * D + 8 * N, {"f32": 8 * elems})
+    bwd = bound(3 * itemsize * elems + 12 * D + 8 * N, {"f32": 12 * elems})
+    return fwd, bwd
+
+
+def check_layer_norm(results):
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.layer_norm import (
+        layer_norm_bwd, layer_norm_fwd, layer_norm_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    fwd = results["layer_norm_fwd"] = {"max_abs_err": 0.0}
+    bwd = results["layer_norm_bwd"] = {"max_abs_err": 0.0}
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (N, D, dtype, main): the headline trunk's rows in one update minibatch
+    # (16 x 8192) and in one rollout step, a ragged batch, and float32 at
+    # two widths, one not a multiple of 32.
+    cases = [
+        (131072, 256, bf16, True),
+        (16384, 256, bf16, False),
+        (1000, 256, bf16, False),
+        (300, 128, f32, False),
+        (64, 48, f32, False),
+    ]
+    for N, D, dtype, main_path in cases:
+        dname = str(dtype).split(".")[-1]
+        tag = f"[{N},{D}] {dname}"
+        x = (2 * torch.randn(N, D, device="cuda", generator=gen)
+             + 0.5).to(dtype)
+        w = 1 + 0.1 * torch.randn(D, device="cuda", generator=gen)
+        b = 0.1 * torch.randn(D, device="cuda", generator=gen)
+        dy = torch.randn(N, D, device="cuda", generator=gen).to(dtype)
+
+        y, mu, rsigma = layer_norm_fwd(x, w, b)
+        err = compare(f"layer_norm fwd {tag}", y,
+                      layer_norm_reference(x, w, b), **TOL[("ln_fwd", dname)])
+        if main_path:
+            fwd["max_abs_err"] = err
+
+        leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+
+        def plain_bwd():
+            out = layer_norm_reference(*leaves)
+            return torch.autograd.grad((out.float() * dy.float()).sum(),
+                                       leaves)
+
+        got = layer_norm_bwd(x, w, mu, rsigma, dy)
+        for name, g, want in zip(("dx", "dw", "db"), got, plain_bwd()):
+            tol = TOL[("ln_bwd", dname)] if name == "dx" else TOL["ln_dwdb"]
+            err = compare(f"layer_norm bwd {name} {tag}", g, want, **tol)
+            if main_path:
+                bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
+
+        if main_path:
+            fwd["ms"] = time_ms(lambda: layer_norm_fwd(x, w, b))
+            fwd["plain_ms"] = time_ms(lambda: layer_norm_reference(x, w, b))
+            bwd["ms"] = time_ms(lambda: layer_norm_bwd(x, w, mu, rsigma, dy))
+            bwd["plain_ms"] = time_ms(plain_bwd)
+            fwd_bound, bwd_bound = _layer_norm_bounds(N, D, x.element_size())
+            fwd.update(**fwd_bound)
+            bwd.update(**bwd_bound)
+            fwd["library_ms"], bwd["library_ms"] = _layer_norm_library(
+                x, w, b, dy, fwd["ms"] + bwd["ms"])
+            log(f"  layer_norm {tag}: fwd kernel {fwd['ms']:.4f} ms, plain "
+                f"{fwd['plain_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms "
+                f"({fwd['bound_by']}); bwd kernel {bwd['ms']:.4f} ms, plain "
+                f"(fwd + bwd) {bwd['plain_ms']:.4f} ms, bound "
+                f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']})")
+
+
+def _layer_norm_library(x, w, b, dy, kernels_ms):
+    """PyTorch's own layer norm: the forward with its saved statistics and
+    the backward from them, the same two functions as the kernels, and
+    F.layer_norm forward plus backward through autograd. PyTorch takes a
+    weight and bias only in x's dtype (float32 ones with a bf16 x are
+    refused), so they are cast to it: the same bytes of x, y, dy and dx,
+    with the affine rounded to x's dtype. Returns the first two times."""
+    import torch
+    import torch.nn.functional as F
+
+    D = x.shape[-1]
+    w, b = w.to(x.dtype), b.to(x.dtype)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [D], w, b, 1e-6)
+    fwd_ms = time_ms(
+        lambda: torch.ops.aten.native_layer_norm(x, [D], w, b, 1e-6))
+    bwd_ms = time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+        dy, x, [D], mean, rstd, w, b, [True, True, True]))
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+
+    def fwd_bwd():
+        out = F.layer_norm(leaves[0], [D], leaves[1], leaves[2], 1e-6)
+        return torch.autograd.grad(out, leaves, dy)
+
+    both_ms = time_ms(fwd_bwd)
+    log(f"  native_layer_norm {fwd_ms:.4f} ms, native_layer_norm_backward "
+        f"{bwd_ms:.4f} ms (weight and bias in {x.dtype}); F.layer_norm fwd "
+        f"+ bwd {both_ms:.4f} ms against the kernels' {kernels_ms:.4f} ms")
+    return fwd_ms, bwd_ms
+
+
 def kernel_phase():
     results = {}
     log("kernels against their plain versions:")
@@ -572,28 +835,34 @@ def kernel_phase():
     check_mha(results)
     check_policy_step(results)
     check_lstm_proj(results)
+    check_gru(results)
+    check_layer_norm(results)
     return results
 
 
-def _small_actor_critic(dtype, hidden, seed, fused=False):
+def _small_actor_critic(dtype, hidden, seed, fused=False, gru=False):
     """The headline's MLP + LSTM actor-critic; ``fused`` turns on the fused
-    trunk (``use_fused_step`` and ``fuse_input_proj``)."""
+    trunk (``use_fused_step`` and ``fuse_input_proj``), ``gru`` puts a GRU
+    in the LSTM's place."""
     import torch
     from madrona_learn_tpu_torch.config import DiscreteActionsConfig
     from madrona_learn_tpu_torch.models import (
-        LSTM, MLP, ActorCritic, BackboneShared, DenseLayerCritic,
+        GRU, LSTM, MLP, ActorCritic, BackboneShared, DenseLayerCritic,
         DenseLayerDiscreteActor, DictActor, RecurrentBackboneEncoder)
 
     gen = torch.Generator().manual_seed(seed)
     move = DiscreteActionsConfig(actions_num_buckets=[5])
+    net = MLP(3, hidden, 2, dtype, generator=gen)
+    if gru:
+        rnn = GRU(hidden, hidden, 1, dtype, generator=gen)
+    else:
+        rnn = LSTM(hidden, hidden, 1, dtype, generator=gen,
+                   fuse_input_proj=fused)
     return ActorCritic(
         backbone=BackboneShared(
             prefix=lambda obs: torch.cat([obs["delta"], obs["time"]], -1),
-            encoder=RecurrentBackboneEncoder(
-                net=MLP(3, hidden, 2, dtype, generator=gen),
-                rnn=LSTM(hidden, hidden, 1, dtype, generator=gen,
-                         fuse_input_proj=fused),
-                use_fused_step=fused)),
+            encoder=RecurrentBackboneEncoder(net=net, rnn=rnn,
+                                             use_fused_step=fused)),
         actor=DictActor({"move": DenseLayerDiscreteActor(
             move, hidden, dtype, generator=gen)}),
         critic=DenseLayerCritic(hidden, dtype, generator=gen))
@@ -664,11 +933,12 @@ def _card_vs_cpu(ac_cpu, obs, dones, actions, start, loss_fn):
     import copy
 
     import torch
+    from madrona_learn_tpu_torch.utils import tree_map
 
     ac_gpu = copy.deepcopy(ac_cpu).cuda()
 
     def run(ac, dev):
-        out = ac.update(tuple(s.to(dev) for s in start), dones.to(dev),
+        out = ac.update(tree_map(lambda s: s.to(dev), start), dones.to(dev),
                         {k: v.to(dev) for k, v in actions.items()},
                         {k: v.to(dev) for k, v in obs.items()})
         names, params = zip(*ac.named_parameters())
@@ -689,11 +959,84 @@ def _card_vs_cpu(ac_cpu, obs, dones, actions, start, loss_fn):
         compare(f"grad {name}", g_gpu[name].cpu(), g_cpu[name], **tol)
 
 
-def model_phase():
-    """The MLP model, a small flagship model and a small fused-trunk model,
-    float32, small input."""
+def _rollout_card_vs_cpu(ac, start, step_obs):
+    """One rollout step (the critic and the new recurrent state) on the card
+    against the CPU."""
     import copy
 
+    import torch
+    from madrona_learn_tpu_torch.utils import tree_map
+
+    with torch.no_grad():
+        out_cpu, carry_cpu = ac.rollout(None, start, step_obs,
+                                        sample_actions=False)
+        out_gpu, carry_gpu = copy.deepcopy(ac).cuda().rollout(
+            None, tree_map(lambda s: s.cuda(), start),
+            {k: v.cuda() for k, v in step_obs.items()}, sample_actions=False)
+    tol = dict(atol=1e-4, rtol=1e-4)
+    compare("rollout step critic", out_gpu["critic"].cpu(), out_cpu["critic"],
+            **tol)
+    carry_gpu = carry_gpu if isinstance(carry_gpu, tuple) else (carry_gpu,)
+    carry_cpu = carry_cpu if isinstance(carry_cpu, tuple) else (carry_cpu,)
+    for i, (g, w) in enumerate(zip(carry_gpu, carry_cpu)):
+        compare(f"rollout step state {i}", g.cpu(), w, **tol)
+
+
+def layer_norm_module_phase():
+    """LayerNorm(use_kernel=True), the entry point the layer_norm kernels
+    serve, forward and backward on the card against the CPU, at the
+    headline trunk's update rows in bf16 and a small float32 input. Returns
+    the kernel launches of this path."""
+    import torch
+    from madrona_learn_tpu_torch.models import LayerNorm
+    from madrona_learn_tpu_torch.ops.cuda import KERNELS
+
+    log("LayerNorm(use_kernel=True) module, card against CPU:")
+    gen = torch.Generator().manual_seed(12)
+    cases = [((131072, 256), torch.bfloat16), ((300, 128), torch.float32)]
+    inputs = []
+    for shape, dtype in cases:
+        ln = LayerNorm(shape[-1], dtype, use_kernel=True)
+        with torch.no_grad():
+            ln.impl.scale.add_(0.1 * torch.randn(shape[-1], generator=gen))
+            ln.impl.bias.add_(0.1 * torch.randn(shape[-1], generator=gen))
+        x = (2 * torch.randn(*shape, generator=gen) + 0.5).to(dtype)
+        dy = torch.randn(*shape, generator=gen).to(dtype)
+        inputs.append((ln, x, dy))
+
+    def run(ln, x, dy):
+        x = x.clone().requires_grad_()
+        out = ln(x)
+        grads = torch.autograd.grad((out.float() * dy.float()).sum(),
+                                    [x, ln.impl.scale, ln.impl.bias])
+        return [out, *grads]
+
+    want = [run(*case) for case in inputs]
+    for k in KERNELS:
+        k.launches = 0
+    got = [run(ln.cuda(), x.cuda(), dy.cuda()) for ln, x, dy in inputs]
+    launches = {k.name: k.launches for k in KERNELS}
+    torch.cuda.synchronize()
+    for (_, x, _), g, w in zip(inputs, got, want):
+        dname = str(x.dtype).split(".")[-1]
+        tag = f"{list(x.shape)} {dname}"
+        for name, a, b in zip(("y", "dx", "dscale", "dbias"), g, w):
+            tol = (TOL[("ln_fwd", dname)] if name == "y" else
+                   TOL[("ln_bwd", dname)] if name == "dx" else TOL["ln_dwdb"])
+            compare(f"LayerNorm module {name} {tag}", a.cpu(), b, **tol)
+    for name in ("layer_norm_fwd", "layer_norm_bwd"):
+        if launches[name] != len(cases):
+            raise AssertionError(f"LayerNorm module: {name} launched "
+                                 f"{launches[name]} times, expected "
+                                 f"{len(cases)}")
+    log(f"  launches on this path: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def model_phase():
+    """The MLP model, a small GRU model, a small flagship model and a small
+    fused-trunk model, float32, small input."""
     import torch
 
     log("model update pass, card (kernels) against CPU (plain), float32:")
@@ -712,23 +1055,23 @@ def model_phase():
 
     _card_vs_cpu(_small_actor_critic(torch.float32, H, seed=4), obs, dones,
                  actions, start, mlp_loss)
+    step_obs = {k: v[0] for k, v in obs.items()}
+
+    log("GRU model (MLP 2x128, GRU 128) rollout step and update pass, card "
+        "against CPU, float32:")
+    ac = _small_actor_critic(torch.float32, H, seed=13, gru=True)
+    # Nonzero GRU biases (zero at init), so the check sees them.
+    with torch.no_grad():
+        for p in (ac.backbone.encoder.rnn.layer_0.bias_h,
+                  ac.backbone.encoder.rnn.layer_0.input_proj.bias):
+            p.normal_(0, 0.3, generator=gen)
+    _rollout_card_vs_cpu(ac, start[1], step_obs)
+    _card_vs_cpu(ac, obs, dones, actions, start[1], mlp_loss)
 
     log("fused-trunk model (MLP 2x128, LSTM 128, fused step and input "
         "projection), card against CPU, float32:")
     ac = _small_actor_critic(torch.float32, H, seed=8, fused=True)
-    step_obs = {k: v[0] for k, v in obs.items()}
-    with torch.no_grad():
-        out_cpu, carry_cpu = ac.rollout(None, start, step_obs,
-                                        sample_actions=False)
-        ac_gpu = copy.deepcopy(ac).cuda()
-        out_gpu, carry_gpu = ac_gpu.rollout(
-            None, tuple(s.cuda() for s in start),
-            {k: v.cuda() for k, v in step_obs.items()}, sample_actions=False)
-    tol = dict(atol=1e-4, rtol=1e-4)
-    compare("rollout step critic", out_gpu["critic"].cpu(), out_cpu["critic"],
-            **tol)
-    for name, g, w in zip(("c", "h"), carry_gpu, carry_cpu):
-        compare(f"rollout step {name}", g.cpu(), w, **tol)
+    _rollout_card_vs_cpu(ac, start, step_obs)
     _card_vs_cpu(ac, obs, dones, actions, start, mlp_loss)
 
     log("flagship model (embed 32, out 64, 2 heads, LSTM 128) update pass, "
@@ -804,6 +1147,22 @@ def build_headline(hooks):
     dtype = torch.bfloat16
     policy = mlt.Policy(
         actor_critic=_small_actor_critic(dtype, CHANNELS, seed=0),
+        obs_preprocess=mlt.ObservationsEMANormalizer.create(
+            decay=0.99999, dtype=dtype))
+    return mlt.init_training(
+        "cuda", _train_config([5], dreamer_v3_critic=False), _toy_env(),
+        policy, torch.zeros((1,), dtype=torch.int32, device="cuda"),
+        user_hooks=hooks)
+
+
+def build_headline_gru(hooks):
+    """The headline with GRU(256, 256, 1, bf16) in the LSTM's place."""
+    import torch
+    import madrona_learn_tpu_torch as mlt
+
+    dtype = torch.bfloat16
+    policy = mlt.Policy(
+        actor_critic=_small_actor_critic(dtype, CHANNELS, seed=0, gru=True),
         obs_preprocess=mlt.ObservationsEMANormalizer.create(
             decay=0.99999, dtype=dtype))
     return mlt.init_training(
@@ -918,7 +1277,8 @@ def _profile_update(one_update):
     for e in rows:
         if e.key in ("_MHA", "_MHABackward", "_LSTMSequence",
                      "_LSTMSequenceBackward", "_LSTMSequenceProj",
-                     "_LSTMSequenceProjBackward"):
+                     "_LSTMSequenceProjBackward", "_GRUSequence",
+                     "_GRUSequenceBackward"):
             log(f"    {total_ms(e):9.3f} ms {e.count:6d}x  {e.key} "
                 f"(inclusive)")
 
@@ -1049,12 +1409,15 @@ def main():
     build_phase()
     results = kernel_phase()
     model_phase()
+    launches_by_path = {"layer_norm_module": layer_norm_module_phase()}
 
     # Per update: one rollout step per collect step, the bootstrap value's
     # critic step, and the sequence forward and backward of every minibatch.
     steps = STEPS_PER_UPDATE + 1 + NUM_MINIBATCHES
     lstm = {"gae": 1, "lstm_sequence_fwd": steps,
             "lstm_sequence_bwd": NUM_MINIBATCHES}
+    gru = {"gae": 1, "gru_sequence_fwd": steps,
+           "gru_sequence_bwd": NUM_MINIBATCHES}
     # The fused trunk: one fused_policy_step per rollout step and for the
     # bootstrap value, the projection kernels once per minibatch.
     fused = {"gae": 1, "fused_policy_step": STEPS_PER_UPDATE + 1,
@@ -1073,9 +1436,13 @@ def main():
                                         last_rewards=10),
         "native": trainer_phase(card, "native", build_native, fused,
                                 trials=2, timed_updates=4, last_rewards=4),
+        "headline_gru": trainer_phase(card, "headline_gru",
+                                      build_headline_gru, gru, trials=3,
+                                      timed_updates=10, last_rewards=10),
     }
     two_hot_loss_timing(card)
-    for name, (_, r) in paths.items():
+    for name, (launches, r) in paths.items():
+        launches_by_path[name] = launches
         log(f"{name}: {r['sps']:.0f} env-steps/s, max |ratio - 1| "
             f"{r['ratio_dev']:.3e}, peak {r['peak_gib']:.2f} GiB on {card}")
 
@@ -1086,7 +1453,9 @@ def main():
     for k in KERNELS:
         r = results[k.name]
         by_path = {name: launches[k.name]
-                   for name, (launches, _) in paths.items()}
+                   for name, launches in launches_by_path.items()}
+        if not sum(by_path.values()):
+            raise AssertionError(f"{k.name} was launched on no path")
         kernels.append({
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": sum(by_path.values()),

@@ -3,11 +3,15 @@
 - ``actor_critic_state_dict``: a flax ``params`` tree (nested dicts of
   arrays, already on the host) -> ``{torch parameter name: np.ndarray}`` for
   ``ActorCritic.load_state_dict``. Layouts are shared (Dense kernels
-  ``[in, out]``, LSTM gates (i, f, g, o) in ``[F, 4H]`` / ``[H, 4H]``, the
-  attention projections ``[F, heads, head_dim]`` / ``[heads, head_dim,
-  out]`` with their biases, the DreamerV3 critic's ``Dense_0``), so only
-  the names change: path components join with ``.``, and flax's
-  ``heads_<name>`` for a dict of submodules becomes ``heads.<name>``.
+  ``[in, out]``, LSTM gates (i, f, g, o) in ``[F, 4H]`` / ``[H, 4H]``; GRU
+  gates ``[r | z | n]`` in ``layer_k.input_proj.kernel`` ``[F, 3H]`` with
+  its own ``input_proj.bias`` ``[3H]``, ``layer_k.recurrent_kernel``
+  ``[H, 3H]`` and ``layer_k.bias_h`` ``[H]``, the candidate gate's
+  recurrent bias; the attention projections ``[F, heads, head_dim]`` /
+  ``[heads, head_dim, out]`` with their biases, the DreamerV3 critic's
+  ``Dense_0``), so only the names change: path components join with ``.``,
+  and flax's ``heads_<name>`` for a dict of submodules becomes
+  ``heads.<name>``.
 - ``obs_preprocess_state``: the EMA normalizer state of
   ``ObservationsEMANormalizer`` (per obs key: mu, inv_sigma, sigma,
   mu_biased, sigma_sq_biased, N) -> the same dict of numpy arrays.

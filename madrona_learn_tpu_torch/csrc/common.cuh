@@ -126,4 +126,11 @@ __device__ __forceinline__ void load_row_tile(float* a_s,
     a_s[e] = e < valid ? to_f(src[base + e]) : 0.0f;
 }
 
+// Allow a kernel more than 48 KB of dynamic shared memory.
+template <typename K>
+int set_smem(K* kernel, int bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
 }  // namespace mlt

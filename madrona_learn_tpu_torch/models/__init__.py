@@ -9,6 +9,7 @@ from .critics import (
     DictActor,
     DreamerV3Critic,
 )
+from .gru import GRU
 from .lstm import LSTM
 
 __all__ = [
@@ -20,6 +21,7 @@ __all__ = [
     "DictActor",
     "DreamerV3Critic",
     "EntitySelfAttentionNet",
+    "GRU",
     "LayerNorm",
     "LSTM",
     "MLP",

@@ -18,6 +18,8 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from ..ops.cuda.layer_norm import layer_norm
+
 
 def orthogonal(scale: float = 1.0) -> Callable:
     """Orthogonal initializer for an ``[in, out]`` kernel."""
@@ -26,6 +28,21 @@ def orthogonal(scale: float = 1.0) -> Callable:
         w = torch.empty(shape, dtype=torch.float32)
         nn.init.orthogonal_(w, gain=scale, generator=generator)
         return w
+
+    return init
+
+
+def orthogonal_gates(num_gates: int, hidden: int) -> Callable:
+    """Per-gate orthogonal ``[in, hidden]`` blocks packed along the last
+    axis (the recurrent layers' gate-packed kernels)."""
+
+    def init(shape, generator):
+        blocks = []
+        for _ in range(num_gates):
+            w = torch.empty((shape[0], hidden), dtype=torch.float32)
+            nn.init.orthogonal_(w, generator=generator)
+            blocks.append(w)
+        return torch.cat(blocks, dim=-1)
 
     return init
 
@@ -63,15 +80,26 @@ class LayerNorm(nn.Module):
     Mean and variance are float32 (variance as ``E[x^2] - E[x]^2``, clamped
     at 0), the normalize and affine run in float32, and the result is
     rounded once to the compute dtype.
+
+    ``use_kernel=True`` (JAX: ``use_pallas``) runs the ``layer_norm``
+    kernel pair instead, over x reshaped to ``[-1, D]``: a two-pass
+    variance, and the result in x's dtype, as JAX's ``_PallasLNImpl``. The
+    parameters are the same ``impl.scale`` / ``impl.bias`` either way.
     """
 
-    def __init__(self, dim: int, dtype, eps: float = 1e-6):
+    def __init__(self, dim: int, dtype, eps: float = 1e-6,
+                 use_kernel: bool = False):
         super().__init__()
         self.dtype = dtype
         self.eps = eps
+        self.use_kernel = use_kernel
         self.impl = _LayerNormParams(dim)
 
     def forward(self, x):
+        if self.use_kernel:
+            out = layer_norm(x.reshape(-1, x.shape[-1]).contiguous(),
+                             self.impl.scale, self.impl.bias, self.eps)
+            return out.reshape(x.shape)
         x32 = x.to(torch.float32)
         mean = x32.mean(dim=-1, keepdim=True)
         mean2 = (x32 * x32).mean(dim=-1, keepdim=True)

@@ -35,23 +35,9 @@ from ..ops.cuda.lstm import (
     lstm_sequence_proj,
     lstm_step,
 )
-from .common import Dense
+from .common import Dense, orthogonal_gates
 
 __all__ = ["LSTM"]
-
-
-def _orthogonal_4h(hidden: int):
-    """Per-gate orthogonal blocks packed along the last axis."""
-
-    def init(shape, generator):
-        blocks = []
-        for _ in range(4):
-            w = torch.empty((shape[0], hidden), dtype=torch.float32)
-            nn.init.orthogonal_(w, generator=generator)
-            blocks.append(w)
-        return torch.cat(blocks, dim=-1)
-
-    return init
 
 
 class _PackedLSTMLayer(nn.Module):
@@ -59,7 +45,7 @@ class _PackedLSTMLayer(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
-        init = _orthogonal_4h(hidden)
+        init = orthogonal_gates(4, hidden)
         self.input_proj = Dense(in_features, 4 * hidden, dtype,
                                 use_bias=False, kernel_init=init,
                                 generator=generator)

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled in one nvcc call into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds). The library goes into ``madrona_learn_tpu_torch/_build/<hash>/``,
-keyed by a hash of the sources and flags, so a checkout builds once and any
-edit to a source rebuilds. Nothing is built or loaded at import time: the
-first kernel launch calls :func:`library`.
+Every ``csrc/*.cu`` file is compiled by its own nvcc process, all started
+together, and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds). The library goes
+into ``madrona_learn_tpu_torch/_build/<hash>/``, keyed by a hash of the
+sources and flags, so a checkout builds once and any edit to a source
+rebuilds. Nothing is built or loaded at import time: the first kernel launch
+calls :func:`library`.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ LIB_NAME = "libmlt_kernels.so"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     # Per-kernel registers, shared memory and spills, kept in build.log.
     "--resource-usage",
 )
@@ -81,16 +82,36 @@ def build() -> Path:
         return lib_path
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp_path = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp_path),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{proc.stdout}{proc.stderr}")
+    nvcc = find_nvcc()
+    pid = os.getpid()
+    objects, cmds = [], []
+    for src in _sources():
+        if src.suffix == ".cu":
+            # nvcc reads an input's type from its suffix: keep ".o" last.
+            objects.append(out_dir / f"{src.stem}.{pid}.o")
+            cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(objects[-1]),
+                         str(src)])
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outputs = [(cmd, proc.communicate()[0], proc.returncode)
+               for cmd, proc in zip(cmds, procs)]
+    tmp_path = out_dir / f"{LIB_NAME}.{pid}.tmp"
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp_path),
+            *(str(o) for o in objects)]
+    if all(rc == 0 for _, _, rc in outputs):
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        outputs.append((link, proc.stdout, proc.returncode))
+    (out_dir / "build.log").write_text("".join(
+        " ".join(cmd) + "\n" + out for cmd, out, _ in outputs))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    failed = [(cmd, out, rc) for cmd, out, rc in outputs if rc != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "".join(
+            f"{' '.join(cmd)} (exit code {rc})\n{out}"
+            for cmd, out, rc in failed))
     os.replace(tmp_path, lib_path)
     return lib_path
 
@@ -124,6 +145,16 @@ _SIGNATURES = {
     # dx, dg, dh0, dc0, part_wi, part_w, part_b, dwi, dwr, db, T, N,
     # splits, stream
     "mlt_lstm_proj_bwd": [_I, _I, _I] + [_P] * 22 + [_I, _I, _I, _P],
+    # dtype, H, xp, keep, wh, bias_h, h0, ys, T, N, stream
+    "mlt_gru_fwd": [_I, _I] + [_P] * 6 + [_I, _I, _P],
+    # dtype, H, xp, keep, wh, wh_t, bias_h, h0, ys, dys, dxp, dhp, dh0,
+    # part_w, part_b, dwh, db3, T, N, splits, stream
+    "mlt_gru_bwd": [_I, _I] + [_P] * 15 + [_I, _I, _I, _P],
+    # dtype, D, x, w, b, y, mu, rsigma, N, eps, stream
+    "mlt_layer_norm_fwd": [_I, _I] + [_P] * 6 + [_I, _F, _P],
+    # dtype, D, x, w, mu, rsigma, dy, dx, part_w, part_b, dw, db, N,
+    # blocks, stream
+    "mlt_layer_norm_bwd": [_I, _I] + [_P] * 10 + [_I, _I, _P],
 }
 
 
@@ -136,6 +167,17 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def check_operand(kernel: str, name: str, x, dtype, shape):
+    """Raise unless ``x`` is a contiguous CUDA tensor of this dtype and
+    shape, the only operands the kernels take."""
+    if (x.device.type != "cuda" or x.dtype != dtype
+            or tuple(x.shape) != tuple(shape) or not x.is_contiguous()):
+        raise ValueError(
+            f"{kernel}: {name} must be a contiguous {dtype} CUDA tensor of "
+            f"shape {tuple(shape)}, got {x.dtype} {tuple(x.shape)} on "
+            f"{x.device} (contiguous={x.is_contiguous()})")
 
 
 def check(err: int, what: str):

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import Kernel, check, library
+from .build import Kernel, check, check_operand, library
 
 GAE = Kernel(
     name="gae",
@@ -55,12 +55,7 @@ def gae(gamma, lam, rewards, values, dones, bootstrap):
             ("values", values, torch.float32, (steps, n)),
             ("dones", dones, torch.bool, (steps, n)),
             ("bootstrap", bootstrap, torch.float32, (n,))):
-        if x.device.type != "cuda" or x.dtype != dtype or \
-                tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(
-                f"gae: {name} must be a contiguous {dtype} CUDA tensor of "
-                f"shape {shape}, got {x.dtype} {tuple(x.shape)} on "
-                f"{x.device}")
+        check_operand("gae", name, x, dtype, shape)
     if steps == 0 or n == 0:
         raise ValueError(f"gae: empty input {tuple(rewards.shape)}")
     out = torch.empty_like(rewards)

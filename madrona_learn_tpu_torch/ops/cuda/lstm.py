@@ -30,9 +30,11 @@ raise.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from .build import Kernel, check, library
+from .build import Kernel, check, check_operand, library
 
 LSTM_FWD = Kernel(
     name="lstm_sequence_fwd",
@@ -89,13 +91,7 @@ def lstm_sequence_reference(x_proj, keep, wr, bias, c0, h0):
     return torch.stack(ys)
 
 
-def _check(name, x, dtype, shape):
-    if (x.device.type != "cuda" or x.dtype != dtype
-            or tuple(x.shape) != tuple(shape) or not x.is_contiguous()):
-        raise ValueError(
-            f"lstm kernel: {name} must be a contiguous {dtype} CUDA tensor "
-            f"of shape {tuple(shape)}, got {x.dtype} {tuple(x.shape)} on "
-            f"{x.device} (contiguous={x.is_contiguous()})")
+_check = functools.partial(check_operand, "lstm kernel")
 
 
 def _check_inputs(x_proj, keep, wr, bias, c0, h0):
@@ -136,10 +132,10 @@ def lstm_sequence_fwd(x_proj, keep, wr, bias, c0, h0):
     return ys, cs
 
 
-def _num_splits(steps, n, hidden, num_sms):
-    """Row splits for the weight-gradient partials: about four blocks per
-    SM, and at least 32 rows per split."""
-    tiles = (4 * hidden // 64) * (hidden // 64)
+def _num_splits(steps, n, hidden, num_sms, gates=4):
+    """Row splits for the weight-gradient partials of an [H, gates * H]
+    weight: about four blocks per SM, and at least 32 rows per split."""
+    tiles = (gates * hidden // 64) * (hidden // 64)
     return max(1, min(-(-4 * num_sms // tiles), (steps * n) // 32))
 
 

@@ -29,9 +29,11 @@ CPU tensors take the plain version; CUDA tensors launch the kernel or raise.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from .build import Kernel, check, library
+from .build import Kernel, check, check_operand, library
 
 POLICY_STEP = Kernel(
     name="fused_policy_step",
@@ -79,14 +81,7 @@ def fused_policy_step_reference(x, mlp_params, wi, wr, bias, c, h):
     return new_h.to(dt), (new_c.to(c.dtype), new_h.to(dt))
 
 
-def _check(name, t, dtype, shape):
-    if (t.device.type != "cuda" or t.dtype != dtype
-            or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
-        raise ValueError(
-            f"fused_policy_step: {name} must be a contiguous {dtype} CUDA "
-            f"tensor of shape {tuple(shape)}, got {t.dtype} "
-            f"{tuple(t.shape)} on {t.device} "
-            f"(contiguous={t.is_contiguous()})")
+_check = functools.partial(check_operand, "fused_policy_step")
 
 
 def fused_policy_step(x, mlp_params, wi, wr, bias, c, h):

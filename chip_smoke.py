@@ -13,14 +13,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    the main paths' shapes and at ragged ones, with the stated tolerances;
    the median time of the kernel, of the plain version and, where one
    PyTorch call computes the same function, of that call; and each
-   kernel's bound, the least time the card could take for the same work;
+   kernel's bound, the least time the card could take for the same work.
+   ``mha`` and ``mha_flash`` are also run with the keys past ``valid_len``
+   poisoned, and ``mha_flash`` at the update pass's B = 4096 must equal
+   the rollout step's B = 512 bitwise on the rows they share;
 4. models: the update pass and its gradients through the kernels on the
    card against the same model on the CPU, for the MLP model, a small GRU
-   model, a small flagship (entity attention) model and a small fused-trunk
-   model (the GRU's and the fused trunk's rollout step are also compared);
-   then ``LayerNorm(use_kernel=True)``, the entry point of the layer_norm
+   model, a small fused-trunk model, a small flagship (entity attention)
+   model and the same over 281 entities (``mha_flash``) (the GRU's and the
+   fused trunk's rollout step are also compared); then
+   ``LayerNorm(use_kernel=True)``, the entry point of the layer_norm
    kernels, forward and backward at [131072, 256] bf16 and [300, 128]
-   float32, with the launches of that path counted;
+   float32, and ``grouped_matmul``, the one entry point of its kernel, at
+   the three ``benchmarks/grouped_matmul_bench.py`` shapes in bf16, each
+   with the launches of its path counted;
 5. headline trainer: the ``bench.py`` headline configuration (16384
    worlds, 2x256 MLP, 256-wide LSTM, bf16, T=32 in 2 BPTT chunks, 1 epoch
    of 4 minibatches) built in the port, 1 warm-up update and 3 trials of 10;
@@ -36,7 +42,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    of 4;
 9. headline_gru trainer: the headline with GRU(256, 256, 1, bf16) in the
    LSTM's place (``gru_sequence_fwd`` / ``gru_sequence_bwd``), 1 warm-up
-   update and 3 trials of 10.
+   update and 3 trials of 10;
+10. flagship_large trainer: the flagship over 511 entities (self, 255
+    allies, 255 enemies, padded to 512), so its attention takes
+    ``mha_flash`` (forward, and the dK/dV and dQ kernels), at 512 worlds,
+    1 warm-up update and 3 trials of 30 (its reward rises late).
 
 Each trainer phase sets every launch count to 0 just before it and checks
 just after it that every kernel of its path launched as often as the
@@ -105,6 +115,21 @@ TOL = {
     ("ln_fwd", "bfloat16"): dict(atol=0.0, rtol=2 ** -7),
     ("ln_bwd", "bfloat16"): dict(atol=0.0, rtol=2 ** -7),
     "ln_dwdb": dict(atol=0.0, rtol=1e-4),
+    # mha_flash_*: the same f32 math as the plain versions, with the softmax
+    # taken online over tiles of keys (the forward) and the gradient sums
+    # over up to 1024 rows in another order (the backward); lse in f32. In
+    # bf16 the output is held per element to 2^-7 |plain| (compare_ulp) and
+    # dq / dk / dv, each rounded once from f32 sums, to one bf16 ulp of the
+    # largest value, 2^-7 of it.
+    ("flash_fwd", "float32"): dict(atol=1e-5, rtol=1e-5),
+    ("flash_bwd", "float32"): dict(atol=1e-5, rtol=1e-4),
+    ("flash_bwd", "bfloat16"): dict(atol=0.0, rtol=2 ** -7),
+    "flash_lse": dict(atol=1e-5, rtol=1e-5),
+    # grouped_matmul: f32 sums over IN in another order, then (bf16) one
+    # rounding, which may move a value by one bf16 ulp, at most 2^-7 of the
+    # largest value.
+    ("gmm", "float32"): dict(atol=1e-5, rtol=1e-5),
+    ("gmm", "bfloat16"): dict(atol=0.0, rtol=2 ** -7),
 }
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates, at the
@@ -827,6 +852,246 @@ def _layer_norm_library(x, w, b, dy, kernels_ms):
     return fwd_ms, bwd_ms
 
 
+def _flash_bounds(B, S, H, D, valid_len, itemsize):
+    """Bytes and operations of the three mha_flash kernels: q, dO and the
+    outputs whole, the valid_len key and value rows, lse and delta (f32)
+    read or written once; the products on bf16 tensor cores (two in the
+    forward, four in dK/dV, three in dQ) and about 5, 8 and 6 f32
+    operations per score."""
+    rows, keys = B * S * H * D, B * valid_len * H * D
+    scores, stats = B * H * S * valid_len, 4 * B * H * S
+    fwd = bound(itemsize * (2 * rows + 2 * keys) + stats,
+                {"bf16_tensor": 4 * scores * D, "f32": 5 * scores})
+    dkdv = bound(itemsize * (4 * rows + 2 * keys) + 2 * stats,
+                 {"bf16_tensor": 8 * scores * D, "f32": 8 * scores})
+    dq = bound(itemsize * (3 * rows + 2 * keys) + 2 * stats,
+               {"bf16_tensor": 6 * scores * D, "f32": 6 * scores})
+    return fwd, dkdv, dq
+
+
+def _plain_chunks(fn, tensors, valid_len):
+    """A plain mha_flash version over slices of the batch, concatenated:
+    each slice's [B, H, S, S] f32 tensors stay within 2 GiB, so the update
+    shape fits."""
+    import torch
+
+    _, S, H, _ = tensors[0].shape
+    chunk = max(1, 2 ** 31 // (4 * H * S * S))
+    parts = [fn(*(t[i:i + chunk] for t in tensors), valid_len)
+             for i in range(0, tensors[0].shape[0], chunk)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def _sdpa_library(q, k, v, dout, valid_len):
+    """F.scaled_dot_product_attention with the same key mask on the same
+    inputs: its forward (with the log-sum-exp it saves for the backward),
+    and its backward, dq, dk and dv in one autograd call. Returns the two
+    times, None where PyTorch does not run it."""
+    import torch
+    import torch.nn.functional as F
+
+    S = q.shape[1]
+    mask = (torch.arange(S, device="cuda") < valid_len).expand(S, S)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    qt, kt, vt = (t.transpose(1, 2) for t in leaves)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    try:
+        fwd_ms = time_ms(fwd)
+        out = fwd()
+        g = dout.transpose(1, 2)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                                     retain_graph=True))
+    except RuntimeError as e:
+        log(f"  scaled_dot_product_attention did not run: {e}")
+        return None, None
+    return fwd_ms, bwd_ms
+
+
+def check_mha_flash(results):
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.mha_flash import (
+        mha_flash_bwd, mha_flash_bwd_reference, mha_flash_fwd,
+        mha_flash_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    fwd_r, dkdv_r, dq_r = (
+        results.setdefault(name, {"max_abs_err": 0.0})
+        for name in ("mha_flash_fwd", "mha_flash_bwd_dkdv",
+                     "mha_flash_bwd_dq"))
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (B, S, H, D, dtype, valid_len, on the main path): flagship_large's
+    # update pass, whose first 512 rows are its rollout step's shape (checked
+    # for batch invariance below); a ragged float32 problem across tile
+    # edges; D = 64 past 256 entities; S = 1024.
+    cases = [
+        (4096, 512, 4, 32, bf16, 511, True),
+        (3, 130, 2, 32, f32, 97, False),
+        (64, 304, 4, 64, f32, 300, False),
+        (256, 1024, 4, 32, bf16, 1000, False),
+    ]
+
+    def kernels(q, k, v, dout, valid_len):
+        out, lse = mha_flash_fwd(q, k, v, valid_len)
+        return (out, lse,
+                *mha_flash_bwd(q, k, v, out, lse, dout, valid_len))
+
+    for B, S, H, D, dtype, valid_len, main_path in cases:
+        dname = str(dtype).split(".")[-1]
+        tag = f"[{B},{S},{H},{D}] {dname} valid_len={valid_len}"
+        q, k, v, dout = (torch.randn(B, S, H, D, device="cuda", generator=gen)
+                         .to(dtype) for _ in range(4))
+        got = kernels(q, k, v, dout, valid_len)
+        out, lse = got[:2]
+        want_out, want_lse = _plain_chunks(mha_flash_reference, (q, k, v),
+                                           valid_len)
+        if dtype == bf16:
+            fwd_err = compare_ulp(f"mha_flash fwd out {tag}", out, want_out)
+        else:
+            fwd_err = compare(f"mha_flash fwd out {tag}", out, want_out,
+                              **TOL[("flash_fwd", dname)])
+        fwd_err = max(fwd_err, compare(f"mha_flash fwd lse {tag}", lse,
+                                       want_lse, **TOL["flash_lse"]))
+        del want_out, want_lse
+        # The plain backward from the kernel's out and lse: only the
+        # backward's arithmetic is compared.
+        want = _plain_chunks(mha_flash_bwd_reference,
+                             (q, k, v, out, lse, dout), valid_len)
+        tol = TOL[("flash_bwd", dname)]
+        dq_err = compare(f"mha_flash bwd dq {tag}", got[2], want[0], **tol)
+        dkdv_err = max(
+            compare(f"mha_flash bwd dk {tag}", got[3], want[1], **tol),
+            compare(f"mha_flash bwd dv {tag}", got[4], want[2], **tol))
+        del want
+        if main_path:
+            for r, err in ((fwd_r, fwd_err), (dkdv_r, dkdv_err),
+                           (dq_r, dq_err)):
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+        if valid_len < S:
+            # Keys past valid_len must have no effect: poison them.
+            k[:, valid_len:] = 1e4
+            v[:, valid_len:] = -1e4
+            if not all(torch.equal(a, b) for a, b in
+                       zip(kernels(q, k, v, dout, valid_len), got)):
+                raise AssertionError(f"mha_flash {tag}: masked keys changed "
+                                     f"the output or a gradient")
+            log(f"  mha_flash {tag}: keys past valid_len poisoned, out, lse, "
+                f"dq, dk, dv unchanged ok")
+        if main_path:
+            _flash_main_path(kernels, (q, k, v, dout), got, valid_len,
+                             (fwd_r, dkdv_r, dq_r))
+
+
+def _flash_main_path(kernels, inputs, got, valid_len, records):
+    """flagship_large's shapes: the rollout step (the first 512 rows) must
+    equal the update pass's rows bitwise; then the kernels' times at both
+    shapes against their bounds and the library's, and the plain versions'
+    at the rollout shape, where their [B, H, S, S] tensors fit. The record
+    holds the rollout shape's numbers, the one shape all four are taken
+    at."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.mha_flash import (
+        mha_flash_bwd_dkdv, mha_flash_bwd_dq, mha_flash_bwd_reference,
+        mha_flash_delta, mha_flash_fwd, mha_flash_reference)
+
+    rollout = [t[:512] for t in inputs]
+    if not all(torch.equal(a, b[:512]) for a, b in
+               zip(kernels(*rollout, valid_len), got)):
+        raise AssertionError("mha_flash: the first 512 rows of the update "
+                             "pass differ from the rollout step's")
+    log("  mha_flash: rows 0-511 at B=4096 equal B=512 bitwise (out, lse, "
+        "dq, dk, dv) ok")
+    for shape in ("update", "rollout"):
+        q, k, v, dout = inputs if shape == "update" else rollout
+        B, S, H, D = q.shape
+        out, lse = mha_flash_fwd(q, k, v, valid_len)
+        delta = mha_flash_delta(out, dout)
+        ms = (time_ms(lambda: mha_flash_fwd(q, k, v, valid_len)),
+              time_ms(lambda: mha_flash_bwd_dkdv(q, k, v, dout, lse, delta,
+                                                 valid_len)),
+              time_ms(lambda: mha_flash_bwd_dq(q, k, v, dout, lse, delta,
+                                               valid_len)))
+        bounds = _flash_bounds(B, S, H, D, valid_len, q.element_size())
+        lib_fwd, lib_bwd = _sdpa_library(q, k, v, dout, valid_len)
+        tag = f"[{B},{S},{H},{D}] bf16 valid_len={valid_len} ({shape})"
+        for name, t, b in zip(("fwd", "bwd_dkdv", "bwd_dq"), ms, bounds):
+            log(f"  mha_flash_{name} {tag}: kernel {t:.3f} ms, bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        log(f"  scaled_dot_product_attention {tag}: fwd {lib_fwd} ms, bwd "
+            f"(dq, dk, dv in one call) {lib_bwd} ms; kernels fwd + dkdv + dq "
+            f"{sum(ms):.3f} ms")
+        if shape == "rollout":
+            plain_fwd = time_ms(lambda: mha_flash_reference(q, k, v,
+                                                            valid_len))
+            plain_bwd = time_ms(lambda: mha_flash_bwd_reference(
+                q, k, v, out, lse, dout, valid_len))
+            log(f"  mha_flash plain {tag}: fwd {plain_fwd:.3f} ms, bwd (dq, "
+                f"dk, dv together) {plain_bwd:.3f} ms")
+            for r, t, plain, lib, b in zip(
+                    records, ms, (plain_fwd, plain_bwd, plain_bwd),
+                    (lib_fwd, lib_bwd, None), bounds):
+                r.update(ms=t, plain_ms=plain, library_ms=lib, **b)
+
+
+GMM_SHAPES = [(63, 512, 512, 39, 2048), (95, 256, 1024, 64, 2048),
+              (127, 256, 1024, 128, 1024)]
+
+
+def _gmm_inputs(gen, B, C, IN, P, OUT, dtype):
+    import torch
+
+    x = torch.randn(B, C, IN, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(P, IN, OUT, device="cuda", generator=gen)
+         * IN ** -0.5).to(dtype)
+    idx = torch.randint(0, P, (B,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    return x, w, idx
+
+
+def _gmm_bound(B, C, IN, policies_used, OUT, itemsize):
+    """x read, the weights of the policies in use read and y written once,
+    the indices read; the product on bf16 tensor cores."""
+    nbytes = (itemsize * (B * C * IN + policies_used * IN * OUT + B * C * OUT)
+              + 4 * B)
+    return bound(nbytes, {"bf16_tensor": 2 * B * C * IN * OUT})
+
+
+def check_grouped_matmul(results):
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.grouped_matmul import (
+        grouped_matmul, grouped_matmul_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    res = results["grouped_matmul"] = {"max_abs_err": 0.0}
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (B, C, IN, P, OUT, dtype, on the main path): the three shapes of
+    # benchmarks/grouped_matmul_bench.py, then float32 with no dimension a
+    # multiple of the kernel's tiles.
+    cases = [(*GMM_SHAPES[0], bf16, True), (*GMM_SHAPES[1], bf16, False),
+             (*GMM_SHAPES[2], bf16, False), (7, 100, 72, 3, 130, f32, False)]
+    for B, C, IN, P, OUT, dtype, main_path in cases:
+        dname = str(dtype).split(".")[-1]
+        tag = f"[{B}x{C}, {IN}->{OUT}, P={P}] {dname}"
+        x, w, idx = _gmm_inputs(gen, B, C, IN, P, OUT, dtype)
+        err = compare(f"grouped_matmul {tag}", grouped_matmul(x, w, idx),
+                      grouped_matmul_reference(x, w, idx),
+                      **TOL[("gmm", dname)])
+        if main_path:
+            res["max_abs_err"] = err
+            idx64 = idx.long()
+            ms = time_ms(lambda: grouped_matmul(x, w, idx))
+            plain_ms = time_ms(lambda: grouped_matmul_reference(x, w, idx))
+            library_ms = time_ms(lambda: torch.bmm(x, w[idx64]))
+            b = _gmm_bound(B, C, IN, int(idx.unique().numel()), OUT,
+                           x.element_size())
+            log(f"  grouped_matmul {tag}: kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, torch.bmm(x, W[idx]) {library_ms:.3f} "
+                f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+            res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
+
+
 def kernel_phase():
     results = {}
     log("kernels against their plain versions:")
@@ -837,6 +1102,8 @@ def kernel_phase():
     check_lstm_proj(results)
     check_gru(results)
     check_layer_norm(results)
+    check_mha_flash(results)
+    check_grouped_matmul(results)
     return results
 
 
@@ -869,9 +1136,11 @@ def _small_actor_critic(dtype, hidden, seed, fused=False, gru=False):
 
 
 # The flagship's observations (__graft_entry__.py): self [16], allies
-# [5, 12], enemies [6, 12]; its action space move [5, 3].
+# [5, 12], enemies [6, 12] (flagship_large: allies and enemies [255, 12]);
+# its action space move [5, 3].
 ENTITY_OBS = {"self": 16, "allies": 12, "enemies": 12}
 FLAGSHIP_BUCKETS = [5, 3]
+LARGE_SET = dict(allies=255, enemies=255)
 
 
 def _flagship_actor_critic(dtype, embed, out, heads, hidden, seed):
@@ -896,7 +1165,7 @@ def _flagship_actor_critic(dtype, embed, out, heads, hidden, seed):
         critic=DreamerV3Critic(hidden, dtype))
 
 
-def _entity_env(base):
+def _entity_env(base, allies=5, enemies=6):
     """The toy gridworld's obs as the flagship's entity sets: with f =
     concat(delta, time), self = f @ A_self and ally / enemy j = f @ A[j],
     the matrices drawn once from numpy's default_rng(0)."""
@@ -907,7 +1176,9 @@ def _entity_env(base):
     a_self, a_ally, a_enemy = (
         torch.from_numpy((rng.standard_normal(shape) * 3 ** -0.5)
                          .astype(np.float32)).cuda()
-        for shape in ((3, 16), (5, 3, 12), (6, 3, 12)))
+        for shape in ((3, ENTITY_OBS["self"]),
+                      (allies, 3, ENTITY_OBS["allies"]),
+                      (enemies, 3, ENTITY_OBS["enemies"])))
 
     def wrap(obs):
         f = torch.cat([obs["delta"], obs["time"]], dim=-1)
@@ -1034,6 +1305,40 @@ def layer_norm_module_phase():
     return launches
 
 
+def grouped_matmul_op_phase():
+    """grouped_matmul, the op's one entry point (the JAX package routes it
+    nowhere), at the three grouped_matmul_bench.py shapes in bf16, each
+    output checked against the plain version on the card. Returns the
+    kernel launches of this path."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda import KERNELS
+    from madrona_learn_tpu_torch.ops.cuda.grouped_matmul import (
+        grouped_matmul, grouped_matmul_reference)
+
+    log("grouped_matmul op path:")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    inputs = [_gmm_inputs(gen, *shape, torch.bfloat16)
+              for shape in GMM_SHAPES]
+    for k in KERNELS:
+        k.launches = 0
+    outs = [grouped_matmul(*args) for args in inputs]
+    launches = {k.name: k.launches for k in KERNELS}
+    torch.cuda.synchronize()
+    for (B, C, IN, P, OUT), args, y in zip(GMM_SHAPES, inputs, outs):
+        if y.shape != (B, C, OUT) or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"grouped_matmul op: output of shape "
+                                 f"{tuple(y.shape)} or not finite")
+        compare(f"grouped_matmul op [{B}x{C}, {IN}->{OUT}, P={P}] bf16", y,
+                grouped_matmul_reference(*args), **TOL[("gmm", "bfloat16")])
+    if launches["grouped_matmul"] != len(GMM_SHAPES):
+        raise AssertionError(f"grouped_matmul op: launched "
+                             f"{launches['grouped_matmul']} times, expected "
+                             f"{len(GMM_SHAPES)}")
+    log(f"  launches on this path: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
 def model_phase():
     """The MLP model, a small GRU model, a small flagship model and a small
     fused-trunk model, float32, small input."""
@@ -1076,14 +1381,28 @@ def model_phase():
 
     log("flagship model (embed 32, out 64, 2 heads, LSTM 128) update pass, "
         "card against CPU, float32:")
+    _small_flagship_card_vs_cpu(gen, T, N, H, 5, 6, seed=6)
+    log("large-entity flagship model (the same, 150 allies and 130 enemies: "
+        "281 entities through mha_flash) update pass, card against CPU, "
+        "float32:")
+    _small_flagship_card_vs_cpu(gen, T, 32, H, 150, 130, seed=17)
+
+
+def _small_flagship_card_vs_cpu(gen, T, N, H, allies, enemies, seed):
+    """A small flagship (embed 32, out 64, 2 heads, LSTM H) over random
+    entity sets: the update pass and every gradient, card against CPU."""
+    import torch
+
     obs = {"self": torch.randn(T, N, 16, generator=gen),
-           "allies": torch.randn(T, N, 5, 12, generator=gen),
-           "enemies": torch.randn(T, N, 6, 12, generator=gen)}
+           "allies": torch.randn(T, N, allies, 12, generator=gen),
+           "enemies": torch.randn(T, N, enemies, 12, generator=gen)}
+    dones = torch.rand(T, N, 1, generator=gen) < 0.2
     actions = {"move": torch.stack(
         [torch.randint(0, 5, (T, N), generator=gen),
          torch.randint(0, 3, (T, N), generator=gen)], dim=-1)}
+    start = tuple(torch.randn(N, 1, H, generator=gen) for _ in range(2))
     returns = 3 * torch.randn(T, N, 1, generator=gen)
-    ac = _flagship_actor_critic(torch.float32, 32, 64, 2, H, seed=6)
+    ac = _flagship_actor_critic(torch.float32, 32, 64, 2, H, seed=seed)
     # A critic head away from its zero init, so the check sees it.
     with torch.no_grad():
         ac.critic.Dense_0.kernel.normal_(0, 0.1, generator=gen)
@@ -1098,6 +1417,9 @@ def model_phase():
 
 
 NUM_WORLDS = 16384
+# flagship_large's worlds: one minibatch then holds 16 x 256 x 512 entity
+# rows, as many as the flagship's 16 x 8192 x 16.
+LARGE_WORLDS = 512
 STEPS_PER_UPDATE = 32
 NUM_BPTT_CHUNKS = 2
 NUM_MINIBATCHES = 4
@@ -1105,11 +1427,11 @@ CHANNELS = 256
 CLIP_COEF = 0.2
 
 
-def _train_config(actions, dreamer_v3_critic):
+def _train_config(actions, dreamer_v3_critic, num_worlds=NUM_WORLDS):
     import madrona_learn_tpu_torch as mlt
 
     return mlt.TrainConfig(
-        num_worlds=NUM_WORLDS,
+        num_worlds=num_worlds,
         num_agents_per_world=1,
         actions={"move": mlt.DiscreteActionsConfig(
             actions_num_buckets=actions)},
@@ -1122,7 +1444,7 @@ def _train_config(actions, dreamer_v3_critic):
         metrics_buffer_size=1,
         algo=mlt.PPOConfig(
             num_epochs=1,
-            minibatch_size=NUM_BPTT_CHUNKS * NUM_WORLDS // NUM_MINIBATCHES,
+            minibatch_size=NUM_BPTT_CHUNKS * num_worlds // NUM_MINIBATCHES,
             clip_coef=CLIP_COEF,
             value_loss_coef=0.5,
             entropy_coef=0.01,
@@ -1132,11 +1454,11 @@ def _train_config(actions, dreamer_v3_critic):
     )
 
 
-def _toy_env():
+def _toy_env(num_worlds=NUM_WORLDS):
     from madrona_learn_tpu_torch.envs import ToyEnvConfig, make_toy_env
 
     return make_toy_env(ToyEnvConfig(
-        num_worlds=NUM_WORLDS, episode_len=40, grid_size=8, seed=0),
+        num_worlds=num_worlds, episode_len=40, grid_size=8, seed=0),
         device="cuda")
 
 
@@ -1198,7 +1520,7 @@ def build_native(hooks):
         device="cuda"))
 
 
-def build_flagship(hooks):
+def build_flagship(hooks, num_worlds=NUM_WORLDS, allies=5, enemies=6):
     import torch
     import madrona_learn_tpu_torch as mlt
 
@@ -1207,10 +1529,17 @@ def build_flagship(hooks):
     policy = mlt.Policy(actor_critic=_flagship_actor_critic(
         torch.bfloat16, 128, 256, 4, CHANNELS, seed=0))
     return mlt.init_training(
-        "cuda", _train_config(FLAGSHIP_BUCKETS, dreamer_v3_critic=True),
-        _entity_env(_toy_env()), policy,
+        "cuda", _train_config(FLAGSHIP_BUCKETS, dreamer_v3_critic=True,
+                              num_worlds=num_worlds),
+        _entity_env(_toy_env(num_worlds), allies, enemies), policy,
         torch.zeros((1,), dtype=torch.int32, device="cuda"),
         user_hooks=hooks)
+
+
+def build_flagship_large(hooks):
+    """The flagship over 511 entities (self, 255 allies, 255 enemies), which
+    pad to 512 and take mha_flash, at LARGE_WORLDS worlds."""
+    return build_flagship(hooks, num_worlds=LARGE_WORLDS, **LARGE_SET)
 
 
 def _phase_timer():
@@ -1275,7 +1604,8 @@ def _profile_update(one_update):
     for e in kernels[:12]:
         log(f"    {self_ms(e):9.3f} ms {e.count:6d}x  {e.key[:100]}")
     for e in rows:
-        if e.key in ("_MHA", "_MHABackward", "_LSTMSequence",
+        if e.key in ("_MHA", "_MHABackward", "_MHAFlash",
+                     "_MHAFlashBackward", "_LSTMSequence",
                      "_LSTMSequenceBackward", "_LSTMSequenceProj",
                      "_LSTMSequenceProjBackward", "_GRUSequence",
                      "_GRUSequenceBackward"):
@@ -1284,7 +1614,7 @@ def _profile_update(one_update):
 
 
 def trainer_phase(card, name, build, per_update, trials, timed_updates,
-                  last_rewards):
+                  last_rewards, num_worlds=NUM_WORLDS):
     """One trainer: launch counts, finite metrics, rising reward,
     env-steps/s, memory, the ratio at the first minibatch, the phase split
     and a profile."""
@@ -1298,7 +1628,7 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
     mgr = build(timer)
     per_update = {k.name: per_update.get(k.name, 0) for k in KERNELS}
     num_updates = 1 + trials * timed_updates
-    log(f"{name} trainer: {NUM_WORLDS} worlds, bf16, T={STEPS_PER_UPDATE} "
+    log(f"{name} trainer: {num_worlds} worlds, bf16, T={STEPS_PER_UPDATE} "
         f"in {NUM_BPTT_CHUNKS} chunks, {NUM_MINIBATCHES} minibatches; "
         f"expected launches per update {per_update}")
 
@@ -1353,7 +1683,7 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
                 f"{num_updates} updates, expected {per * num_updates}")
     log(f"  launches over {num_updates} updates: {launches} (expected "
         f"{ {k: v * num_updates for k, v in per_update.items()} })")
-    env_steps = timed_updates * STEPS_PER_UPDATE * NUM_WORLDS
+    env_steps = timed_updates * STEPS_PER_UPDATE * num_worlds
     sps = [env_steps / s for s in trial_s]
     log(f"  trials: "
         f"{[f'{s * 1e3 / timed_updates:.1f} ms/update' for s in trial_s]}")
@@ -1409,7 +1739,8 @@ def main():
     build_phase()
     results = kernel_phase()
     model_phase()
-    launches_by_path = {"layer_norm_module": layer_norm_module_phase()}
+    launches_by_path = {"layer_norm_module": layer_norm_module_phase(),
+                        "grouped_matmul_op": grouped_matmul_op_phase()}
 
     # Per update: one rollout step per collect step, the bootstrap value's
     # critic step, and the sequence forward and backward of every minibatch.
@@ -1439,6 +1770,17 @@ def main():
         "headline_gru": trainer_phase(card, "headline_gru",
                                       build_headline_gru, gru, trials=3,
                                       timed_updates=10, last_rewards=10),
+        # Past 256 padded entities the attention takes mha_flash: its
+        # forward at every step, its two backward kernels per minibatch.
+        # With 32x fewer samples an update than the flagship, its mean
+        # reward first rises near update 70, so it runs 3 trials of 30.
+        "flagship_large": trainer_phase(
+            card, "flagship_large", build_flagship_large,
+            dict(lstm, mha_flash_fwd=steps,
+                 mha_flash_bwd_dkdv=NUM_MINIBATCHES,
+                 mha_flash_bwd_dq=NUM_MINIBATCHES),
+            trials=3, timed_updates=30, last_rewards=5,
+            num_worlds=LARGE_WORLDS),
     }
     two_hot_loss_timing(card)
     for name, (launches, r) in paths.items():

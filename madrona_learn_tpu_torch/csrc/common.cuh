@@ -1,5 +1,5 @@
-// Device helpers shared by the LSTM and policy-step kernels: storage-type
-// conversion, paired vector loads and the CUDA-core row-tile product.
+// Device helpers shared by the kernels: storage-type conversion, paired and
+// 16-byte vector loads and the CUDA-core row-tile product.
 //
 // Thread layout of every kernel that uses the product: a block of kThreads
 // threads owns kRows batch rows. Thread (row group rg, unit group ug) owns
@@ -63,6 +63,53 @@ __device__ __forceinline__ void load_units(const __nv_bfloat16* p,
     out[j] = v.x;
     out[j + 1] = v.y;
   }
+}
+
+// 16 bytes of the storage type <-> f32 (16 / sizeof(T) elements).
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store16(float* p, const float* in) {
+  *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* in) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// q . k for a row q in registers and a row k in shared memory (16-byte
+// aligned), in order of d.
+template <int D>
+__device__ __forceinline__ float dot_row(const float (&qr)[D],
+                                        const float* kr) {
+  float s = 0.0f;
+#pragma unroll
+  for (int d = 0; d < D; d += 4) {
+    const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+    s = fmaf(qr[d], kv.x, s);
+    s = fmaf(qr[d + 1], kv.y, s);
+    s = fmaf(qr[d + 2], kv.z, s);
+    s = fmaf(qr[d + 3], kv.w, s);
+  }
+  return s;
 }
 
 __device__ __forceinline__ float sigmoid_f(float x) {

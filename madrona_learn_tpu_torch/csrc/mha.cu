@@ -45,6 +45,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 256;
@@ -52,50 +54,9 @@ constexpr int kChunk = 8;           // keys per online-softmax step
 constexpr int kPad = 4;             // floats between problems in shared memory
 constexpr int kDefaultSmem = 48 * 1024;
 
-// 16 bytes of the storage type <-> f32.
-__device__ __forceinline__ void load16(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void store16(float* p, const float* in) {
-  *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-}
-__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* in) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
-
-template <int D>
-__device__ __forceinline__ float dot_row(const float (&qr)[D],
-                                        const float* kr) {
-  float s = 0.0f;
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 kv = *reinterpret_cast<const float4*>(kr + d);
-    s = fmaf(qr[d], kv.x, s);
-    s = fmaf(qr[d + 1], kv.y, s);
-    s = fmaf(qr[d + 2], kv.z, s);
-    s = fmaf(qr[d + 3], kv.w, s);
-  }
-  return s;
-}
+using mlt::load16;
+using mlt::store16;
+using mlt::dot_row;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kMaxThreads)

@@ -3,12 +3,16 @@
 ``SelfAttention`` pads the entity axis to a multiple of 8, runs flax's
 ``MultiHeadDotProductAttention`` layout (``query`` / ``key`` / ``value``
 projections with kernels ``[F, heads, head_dim]`` and biases, an ``out``
-projection with kernel ``[heads, head_dim, out]``) around the ``mha``
-kernel, whose static ``valid_len`` masks the padded keys, and slices the
+projection with kernel ``[heads, head_dim, out]``) around an attention
+kernel whose static ``valid_len`` masks the padded keys, and slices the
 padded rows off. Leading batch dimensions fold into the kernel's batch.
 
-The rollout step and the update pass both take this one route (the kernel
-on the card, its plain version on the CPU), so PPO's importance ratio can
+The kernel is chosen by the padded length, as the JAX package's Pallas
+route chooses it: up to 256 the single-pass ``mha`` (its backward
+recomputes through the plain version), past 256 ``mha_flash`` (online
+softmax over key tiles, with a flash backward of its own). The rollout
+step and the update pass see the same length and so take the same kernel
+(on the card; its plain version on the CPU), so PPO's importance ratio can
 start at 1. The JAX package's other route, flax's ``dot_product_attention``
 when ``use_pallas`` is off, is not ported.
 
@@ -29,7 +33,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.cuda.mha import mha
+from ..ops.cuda.mha import MAX_SEQ, mha
+from ..ops.cuda.mha_flash import mha_flash
 from .common import Dense, LayerNorm, orthogonal
 
 __all__ = ["EntitySelfAttentionNet", "SelfAttention"]
@@ -92,7 +97,9 @@ class MultiHeadDotProductAttention(nn.Module):
         def fold(t):
             return t.reshape(-1, *t.shape[-3:])
 
-        o = mha(fold(q), fold(k), fold(v), valid_len)
+        # madrona_learn_tpu/models/attention.py:76-80
+        attend = mha if q.shape[-3] <= MAX_SEQ else mha_flash
+        o = attend(fold(q), fold(k), fold(v), valid_len)
         return self.out(o.reshape(*lead, *o.shape[1:]))
 
 

@@ -155,6 +155,16 @@ _SIGNATURES = {
     # dtype, D, x, w, mu, rsigma, dy, dx, part_w, part_b, dw, db, N,
     # blocks, stream
     "mlt_layer_norm_bwd": [_I, _I] + [_P] * 10 + [_I, _I, _P],
+    # dtype, D, q, k, v, out, lse, B, S, H, valid_len, scale, stream
+    "mlt_mha_flash_fwd": [_I, _I] + [_P] * 5 + [_I] * 4 + [_F, _P],
+    # dtype, D, q, k, v, dout, lse, delta, dk, dv, B, S, H, valid_len,
+    # scale, stream
+    "mlt_mha_flash_bwd_dkdv": [_I, _I] + [_P] * 8 + [_I] * 4 + [_F, _P],
+    # dtype, D, q, k, v, dout, lse, delta, dq, B, S, H, valid_len, scale,
+    # stream
+    "mlt_mha_flash_bwd_dq": [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _P],
+    # dtype, x, weights, chunk_policy, y, B, C, IN, P, OUT, stream
+    "mlt_grouped_matmul": [_I] + [_P] * 4 + [_I] * 5 + [_P],
 }
 
 

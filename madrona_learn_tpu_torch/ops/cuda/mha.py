@@ -33,7 +33,9 @@ MHA = Kernel(
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
-_MAX_SEQ = 256
+# The longest padded set the kernel takes; SelfAttention routes longer
+# ones to mha_flash.
+MAX_SEQ = 256
 _NEG_INF = -1e30
 
 
@@ -60,9 +62,9 @@ def _check_inputs(q, k, v, valid_len):
         raise ValueError(
             f"mha kernel: supports float32/bfloat16 with D in {_HEAD_DIMS}, "
             f"got {q.dtype} D={D}")
-    if S % 8 or not 0 < S <= _MAX_SEQ:
+    if S % 8 or not 0 < S <= MAX_SEQ:
         raise ValueError(f"mha kernel: S must be a multiple of 8 up to "
-                         f"{_MAX_SEQ}, got {S}")
+                         f"{MAX_SEQ}, got {S}")
     if not 0 < valid_len <= S:
         raise ValueError(f"mha kernel: valid_len must be in [1, {S}], got "
                          f"{valid_len}")

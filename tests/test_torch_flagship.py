@@ -16,7 +16,10 @@ returns the JAX run's recorded actions (in this test only), and two
 update_iter calls must give equal rollout data, gradients, parameters and
 optimizer state. The JAX attention takes its CPU route (flax's masked
 ``dot_product_attention``); tests/test_torch_attention.py holds the port
-against the Pallas route too.
+against the Pallas route too. ``run_jax`` / ``run_torch`` and the three
+``check_*`` functions take the entity counts, so that
+tests/test_torch_mha_flash.py runs the same two updates over a set large
+enough for ``mha_flash``.
 """
 
 import inspect
@@ -61,15 +64,16 @@ def _np(x):
     return np.asarray(x)
 
 
-def _entity_mats():
+def _entity_mats(allies, enemies):
     rng = np.random.default_rng(0)
     scale = np.float32(3 ** -0.5)
     return [(rng.standard_normal(shape) * scale).astype(np.float32)
-            for shape in ((3, 16), (5, 3, 12), (6, 3, 12))]
+            for shape in ((3, 16), (allies, 3, 12), (enemies, 3, 12))]
 
 
-def _jax_entity_env(base):
-    a_self, a_ally, a_enemy = (jnp.asarray(m) for m in _entity_mats())
+def _jax_entity_env(base, allies=5, enemies=6):
+    a_self, a_ally, a_enemy = (jnp.asarray(m)
+                               for m in _entity_mats(allies, enemies))
 
     def wrap(obs):
         f = jnp.concatenate([obs["delta"], obs["time"]], axis=-1)
@@ -90,8 +94,9 @@ def _jax_entity_env(base):
     return {"init": init_fn, "step": step_fn}
 
 
-def _torch_entity_env(base):
-    a_self, a_ally, a_enemy = (torch.from_numpy(m) for m in _entity_mats())
+def _torch_entity_env(base, allies=5, enemies=6):
+    a_self, a_ally, a_enemy = (torch.from_numpy(m)
+                               for m in _entity_mats(allies, enemies))
 
     def wrap(obs):
         f = torch.cat([obs["delta"], obs["time"]], dim=-1)
@@ -167,10 +172,11 @@ def _torch_config(**kwargs):
         **kwargs)
 
 
-def _torch_manager(actor_critic, cfg=None, dev="cpu"):
+def _torch_manager(actor_critic, cfg=None, dev="cpu", allies=5, enemies=6):
     return tlt.init_training(
         dev, cfg or _torch_config(),
-        _torch_entity_env(make_toy_env(ToyEnvConfig(**ENV), device="cpu")),
+        _torch_entity_env(make_toy_env(ToyEnvConfig(**ENV), device="cpu"),
+                          allies, enemies),
         tlt.Policy(actor_critic), torch.zeros((1,), dtype=torch.int32))
 
 
@@ -311,14 +317,14 @@ def test_converted_flagship_matches_flax():
 CRITIC_BIAS = -np.abs(np.arange(63) - 31).astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """Two JAX updates of the tiny flagship, with the rollout data each one
-    trained on."""
+def run_jax(allies=5, enemies=6):
+    """Two JAX updates of the tiny flagship over ``allies`` and ``enemies``
+    entity rows, with the rollout data each one trained on."""
     cfg = _jax_config()
     policy = mlt.Policy(actor_critic=_jax_flagship(jnp.float32))
     mgr = mlt.init_training(
-        None, cfg, _jax_entity_env(jax_make_toy_env(JaxToyEnvConfig(**ENV))),
+        None, cfg, _jax_entity_env(jax_make_toy_env(JaxToyEnvConfig(**ENV)),
+                                   allies, enemies),
         policy, init_sim_ctrl=jnp.zeros((1,), jnp.int32))
     params = jax.tree_util.tree_map_with_path(
         lambda path, p: (jnp.broadcast_to(jnp.asarray(CRITIC_BIAS), p.shape)
@@ -358,8 +364,9 @@ def _recorded_actions(data):
             for c in range(CHUNKS) for t in range(TC) for h in range(heads)]
 
 
-@pytest.fixture(scope="module")
-def torch_run(jax_run):
+def run_torch(jax_run, allies=5, enemies=6):
+    """The same two updates in the port, from the JAX run's parameters and
+    start state, with its recorded actions."""
     jax_mgrs, jax_data = jax_run
     j0 = jax_mgrs[0]
     actor_critic = _torch_flagship(torch.float32)
@@ -368,7 +375,7 @@ def torch_run(jax_run):
         for k, v in _flat_state(j0.state.policy_states.params).items()})
     assert (actor_critic.critic.Dense_0.bias.detach().numpy()
             == CRITIC_BIAS).all()
-    mgr = _torch_manager(actor_critic)
+    mgr = _torch_manager(actor_critic, allies=allies, enemies=enemies)
     # Inject the JAX start state.
     mgr.rollout.sim_state = {k: torch.from_numpy(np.array(v))
                              for k, v in j0.rollout.sim_state.items()}
@@ -407,8 +414,34 @@ def torch_run(jax_run):
     return collected, snapshots
 
 
+@pytest.fixture(scope="module")
+def jax_run():
+    return run_jax()
+
+
+@pytest.fixture(scope="module")
+def torch_run(jax_run):
+    return run_torch(jax_run)
+
+
 @pytest.mark.parametrize("update", [0, 1])
 def test_flagship_rollout_data_matches_jax(jax_run, torch_run, update):
+    check_rollout_data(jax_run, torch_run, update)
+
+
+@pytest.mark.parametrize("update", [0, 1])
+def test_flagship_gradients_and_optimizer_state_match_jax(jax_run, torch_run,
+                                                          update):
+    check_gradients_and_optimizer_state(jax_run, torch_run, update)
+
+
+@pytest.mark.parametrize("update", [0, 1])
+def test_flagship_parameters_and_metrics_match_jax(jax_run, torch_run,
+                                                   update):
+    check_parameters_and_metrics(jax_run, torch_run, update)
+
+
+def check_rollout_data(jax_run, torch_run, update):
     got = dict(_leaves(torch_run[0][update]))
     want = dict(_leaves(jax_run[1][update]))
     assert sorted(got) == sorted(want)
@@ -425,9 +458,7 @@ def test_flagship_rollout_data_matches_jax(jax_run, torch_run, update):
                                        atol=1e-5, err_msg=name)
 
 
-@pytest.mark.parametrize("update", [0, 1])
-def test_flagship_gradients_and_optimizer_state_match_jax(jax_run, torch_run,
-                                                          update):
+def check_gradients_and_optimizer_state(jax_run, torch_run, update):
     snap = torch_run[1][update]
     adam = _adam_state(jax_run[0][update + 1])
     assert snap["count"] == int(np.asarray(adam.count)[0]) == update + 1
@@ -446,9 +477,7 @@ def test_flagship_gradients_and_optimizer_state_match_jax(jax_run, torch_run,
                                    rtol=1e-3, atol=1e-10, err_msg=name)
 
 
-@pytest.mark.parametrize("update", [0, 1])
-def test_flagship_parameters_and_metrics_match_jax(jax_run, torch_run,
-                                                   update):
+def check_parameters_and_metrics(jax_run, torch_run, update):
     snap = torch_run[1][update]
     j_mgr = jax_run[0][update + 1]
     want = _flat_state(j_mgr.state.policy_states.params)

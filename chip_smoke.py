@@ -134,9 +134,13 @@ TOL = {
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates, at the
 # full 700 W power limit): device memory bandwidth and the rates of the
-# operation types the kernels do.
+# operation types the kernels do. "sfu": exponentials on the
+# special-function units, 16 a clock an SM, ~3.9e12 a second (the figure
+# the FlashAttention-3 paper gives for the H100 SXM). Tensor cores, f32
+# pipes and special-function units run side by side, so a kernel's least
+# time on operations is that of its busiest unit.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "f32": 67e12, "sfu": 3.9e12}
 
 
 def log(msg):
@@ -146,9 +150,9 @@ def log(msg):
 def bound(nbytes, ops):
     """The least time the card could take for a kernel's work: the larger
     of the bytes it must move over the memory rate and its operations over
-    the peak rate of their type."""
+    the peak rate of their type, the largest of those over the types."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
+    t_ops = max(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -856,16 +860,20 @@ def _flash_bounds(B, S, H, D, valid_len, itemsize):
     """Bytes and operations of the three mha_flash kernels: q, dO and the
     outputs whole, the valid_len key and value rows, lse and delta (f32)
     read or written once; the products on bf16 tensor cores (two in the
-    forward, four in dK/dV, three in dQ) and about 5, 8 and 6 f32
-    operations per score."""
+    forward, four in dK/dV, three in dQ), one exponential per score on the
+    special-function units and about 4, 7 and 5 other f32 operations per
+    score."""
     rows, keys = B * S * H * D, B * valid_len * H * D
     scores, stats = B * H * S * valid_len, 4 * B * H * S
     fwd = bound(itemsize * (2 * rows + 2 * keys) + stats,
-                {"bf16_tensor": 4 * scores * D, "f32": 5 * scores})
+                {"bf16_tensor": 4 * scores * D, "f32": 4 * scores,
+                 "sfu": scores})
     dkdv = bound(itemsize * (4 * rows + 2 * keys) + 2 * stats,
-                 {"bf16_tensor": 8 * scores * D, "f32": 8 * scores})
+                 {"bf16_tensor": 8 * scores * D, "f32": 7 * scores,
+                  "sfu": scores})
     dq = bound(itemsize * (3 * rows + 2 * keys) + 2 * stats,
-               {"bf16_tensor": 6 * scores * D, "f32": 6 * scores})
+               {"bf16_tensor": 6 * scores * D, "f32": 5 * scores,
+                "sfu": scores})
     return fwd, dkdv, dq
 
 
@@ -924,12 +932,18 @@ def check_mha_flash(results):
     bf16, f32 = torch.bfloat16, torch.float32
     # (B, S, H, D, dtype, valid_len, on the main path): flagship_large's
     # update pass, whose first 512 rows are its rollout step's shape (checked
-    # for batch invariance below); a ragged float32 problem across tile
-    # edges; D = 64 past 256 entities; S = 1024.
+    # for batch invariance below); a ragged problem across tile edges in
+    # float32 (the CUDA-core forward) and in bf16 (the tensor-core one) at
+    # D = 32, 16 and 64; D = 64 past 256 entities (five key tiles) in both;
+    # S = 1024.
     cases = [
         (4096, 512, 4, 32, bf16, 511, True),
         (3, 130, 2, 32, f32, 97, False),
+        (3, 130, 2, 32, bf16, 97, False),
+        (3, 130, 2, 16, bf16, 97, False),
+        (3, 130, 2, 64, bf16, 97, False),
         (64, 304, 4, 64, f32, 300, False),
+        (64, 304, 4, 64, bf16, 300, False),
         (256, 1024, 4, 32, bf16, 1000, False),
     ]
 
@@ -1016,9 +1030,14 @@ def _flash_main_path(kernels, inputs, got, valid_len, records):
         bounds = _flash_bounds(B, S, H, D, valid_len, q.element_size())
         lib_fwd, lib_bwd = _sdpa_library(q, k, v, dout, valid_len)
         tag = f"[{B},{S},{H},{D}] bf16 valid_len={valid_len} ({shape})"
-        for name, t, b in zip(("fwd", "bwd_dkdv", "bwd_dq"), ms, bounds):
-            log(f"  mha_flash_{name} {tag}: kernel {t:.3f} ms, bound "
-                f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        # The C entry point runs the bf16 forward on tensor cores; the
+        # backward kernels are on CUDA cores.
+        paths = ("tensor_core", "cuda_core", "cuda_core")
+        for name, t, b, path in zip(("fwd", "bwd_dkdv", "bwd_dq"), ms,
+                                    bounds, paths):
+            log(f"  mha_flash_{name} {tag}: kernel {t:.3f} ms on the "
+                f"{path} path, bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_by']})")
         log(f"  scaled_dot_product_attention {tag}: fwd {lib_fwd} ms, bwd "
             f"(dq, dk, dv in one call) {lib_bwd} ms; kernels fwd + dkdv + dq "
             f"{sum(ms):.3f} ms")
@@ -1029,10 +1048,11 @@ def _flash_main_path(kernels, inputs, got, valid_len, records):
                 q, k, v, out, lse, dout, valid_len))
             log(f"  mha_flash plain {tag}: fwd {plain_fwd:.3f} ms, bwd (dq, "
                 f"dk, dv together) {plain_bwd:.3f} ms")
-            for r, t, plain, lib, b in zip(
+            for r, t, plain, lib, b, path in zip(
                     records, ms, (plain_fwd, plain_bwd, plain_bwd),
-                    (lib_fwd, lib_bwd, None), bounds):
-                r.update(ms=t, plain_ms=plain, library_ms=lib, **b)
+                    (lib_fwd, lib_bwd, None), bounds, paths):
+                r.update(ms=t, plain_ms=plain, library_ms=lib, path=path,
+                         **b)
 
 
 GMM_SHAPES = [(63, 512, 512, 39, 2048), (95, 256, 1024, 64, 2048),
@@ -1061,23 +1081,38 @@ def _gmm_bound(B, C, IN, policies_used, OUT, itemsize):
 def check_grouped_matmul(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.grouped_matmul import (
-        grouped_matmul, grouped_matmul_reference)
+        grouped_matmul, grouped_matmul_reference, uses_tensor_cores)
 
     gen = torch.Generator(device="cuda").manual_seed(15)
     res = results["grouped_matmul"] = {"max_abs_err": 0.0}
     bf16, f32 = torch.bfloat16, torch.float32
     # (B, C, IN, P, OUT, dtype, on the main path): the three shapes of
-    # benchmarks/grouped_matmul_bench.py, then float32 with no dimension a
-    # multiple of the kernel's tiles.
-    cases = [(*GMM_SHAPES[0], bf16, True), (*GMM_SHAPES[1], bf16, False),
-             (*GMM_SHAPES[2], bf16, False), (7, 100, 72, 3, 130, f32, False)]
-    for B, C, IN, P, OUT, dtype, main_path in cases:
+    # benchmarks/grouped_matmul_bench.py (tensor cores); ragged bf16 on the
+    # tensor-core path (C and OUT not multiples of its 128 x 128 tile, IN
+    # not of its 64-deep slice); bf16 with IN = 70, not a multiple of 8, and
+    # bf16 with x one element off a 16-byte boundary, both on the CUDA-core
+    # path; float32 with no dimension a multiple of the CUDA-core kernel's
+    # tiles. The last field shifts x's start by that many elements.
+    cases = [(*GMM_SHAPES[0], bf16, True, 0), (*GMM_SHAPES[1], bf16, False, 0),
+             (*GMM_SHAPES[2], bf16, False, 0),
+             (7, 100, 72, 3, 136, bf16, False, 0),
+             (5, 64, 70, 3, 96, bf16, False, 0),
+             (5, 64, 72, 3, 96, bf16, False, 1),
+             (7, 100, 72, 3, 130, f32, False, 0)]
+    for B, C, IN, P, OUT, dtype, main_path, shift in cases:
         dname = str(dtype).split(".")[-1]
-        tag = f"[{B}x{C}, {IN}->{OUT}, P={P}] {dname}"
         x, w, idx = _gmm_inputs(gen, B, C, IN, P, OUT, dtype)
+        if shift:
+            x = torch.cat([x.new_zeros(shift), x.flatten()])[shift:].view(
+                B, C, IN)
+        path = "tensor_core" if uses_tensor_cores(x, w) else "cuda_core"
+        tag = (f"[{B}x{C}, {IN}->{OUT}, P={P}] {dname}"
+               f"{f' x {2 * shift} bytes off' if shift else ''} ({path})")
         err = compare(f"grouped_matmul {tag}", grouped_matmul(x, w, idx),
                       grouped_matmul_reference(x, w, idx),
                       **TOL[("gmm", dname)])
+        if not main_path and B > 3:
+            _gmm_out_of_range(tag, x, w, idx)
         if main_path:
             res["max_abs_err"] = err
             idx64 = idx.long()
@@ -1089,7 +1124,27 @@ def check_grouped_matmul(results):
             log(f"  grouped_matmul {tag}: kernel {ms:.3f} ms, plain "
                 f"{plain_ms:.3f} ms, torch.bmm(x, W[idx]) {library_ms:.3f} "
                 f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-            res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
+            res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       path=path, **b)
+
+
+def _gmm_out_of_range(tag, x, w, idx):
+    """Chunks whose index lies outside [0, P) get NaN rows; the others are
+    unchanged."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.grouped_matmul import grouped_matmul
+
+    bad = idx.clone()
+    bad[1], bad[3] = w.shape[0], -1
+    got = grouped_matmul(x, w, bad)
+    keep = torch.ones(idx.shape[0], dtype=torch.bool, device="cuda")
+    keep[1] = keep[3] = False
+    if not (bool(torch.isnan(got[~keep]).all())
+            and torch.equal(got[keep], grouped_matmul(x, w, idx)[keep])):
+        raise AssertionError(f"grouped_matmul {tag}: an index outside [0, P) "
+                             f"did not give NaN rows alone")
+    log(f"  grouped_matmul {tag}: indices P and -1 give NaN rows, the other "
+        f"chunks unchanged ok")
 
 
 def kernel_phase():
@@ -1802,6 +1857,7 @@ def main():
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
+            "path": r.get("path", "cuda_core"),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -163,8 +163,9 @@ _SIGNATURES = {
     # dtype, D, q, k, v, dout, lse, delta, dq, B, S, H, valid_len, scale,
     # stream
     "mlt_mha_flash_bwd_dq": [_I, _I] + [_P] * 7 + [_I] * 4 + [_F, _P],
-    # dtype, x, weights, chunk_policy, y, B, C, IN, P, OUT, stream
-    "mlt_grouped_matmul": [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    # dtype, tensor_core, x, weights, chunk_policy, y, B, C, IN, P, OUT,
+    # stream
+    "mlt_grouped_matmul": [_I, _I] + [_P] * 4 + [_I] * 5 + [_P],
 }
 
 

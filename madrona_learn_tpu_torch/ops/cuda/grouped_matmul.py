@@ -7,14 +7,21 @@ policy-pure chunk ``c``, the grouped GEMM of multi-policy inference. The
 JAX package routes it nowhere; its one entry point is the function itself.
 ``csrc/grouped_matmul.cu`` explains the Hopper design: a block reads its
 chunk's policy index and addresses that policy's weight tiles directly, so
-no ``[B, IN, OUT]`` copy of the weights is gathered; 64 x 64 output tiles,
-f32 FMAs on CUDA cores.
+no ``[B, IN, OUT]`` copy of the weights is gathered. Two paths, picked by
+:func:`uses_tensor_cores` from the dtype, the shape and the alignment alone:
+
+- bfloat16 with IN and OUT multiples of 8 and x and weights on 16-byte
+  boundaries (16-byte rows at 16-byte addresses, which TMA needs): 128 x
+  128 output tiles on Hopper's warpgroup tensor cores (``wgmma``), fed by
+  TMA through a 3-stage ring in shared memory;
+- float32 (tensor cores would round its products), and any other bfloat16
+  operands: 64 x 64 output tiles, f32 FMAs on CUDA cores.
 
 Contract: ``x`` [B, C, IN] and ``weights`` [P, IN, OUT] in one dtype
 (float32 or bfloat16), ``chunk_policy`` [B] int32 in [0, P); the product
-summed in f32 and rounded once to x's dtype. Forward only, as in JAX (no
-VJP). CPU tensors take the plain version; CUDA tensors launch the kernel or
-raise.
+summed in f32 and rounded once to x's dtype; a chunk whose index lies
+outside [0, P) gets NaN rows. Forward only, as in JAX (no VJP). CPU tensors
+take the plain version; CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -38,6 +45,15 @@ def grouped_matmul_reference(x, weights, chunk_policy):
     batched f32 product, one rounding to x's dtype."""
     w = weights[chunk_policy.long()]   # [B, IN, OUT]
     return torch.bmm(x.float(), w.float()).to(x.dtype)
+
+
+def uses_tensor_cores(x, weights):
+    """The path rule: bfloat16 x [B, C, IN] and weights [P, IN, OUT] with IN
+    and OUT multiples of 8, both starting on a 16-byte boundary, take the
+    tensor-core kernel; everything else takes the CUDA-core one."""
+    return (x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0
+            and weights.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0
+            and weights.data_ptr() % 16 == 0)
 
 
 def _check_inputs(x, weights, chunk_policy):
@@ -66,11 +82,12 @@ def grouped_matmul(x, weights, chunk_policy):
     if x.device.type == "cpu":
         return grouped_matmul_reference(x, weights, chunk_policy)
     B, C, IN, P, OUT = _check_inputs(x, weights, chunk_policy)
+    tensor_core = uses_tensor_cores(x, weights)
     y = torch.empty((B, C, OUT), dtype=x.dtype, device=x.device)
     err = library().mlt_grouped_matmul(
-        _DTYPE_CODES[x.dtype], x.data_ptr(), weights.data_ptr(),
-        chunk_policy.data_ptr(), y.data_ptr(), B, C, IN, P, OUT,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _DTYPE_CODES[x.dtype], int(tensor_core), x.data_ptr(),
+        weights.data_ptr(), chunk_policy.data_ptr(), y.data_ptr(), B, C, IN,
+        P, OUT, torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "grouped_matmul")
     GROUPED_MATMUL.launches += 1
     return y

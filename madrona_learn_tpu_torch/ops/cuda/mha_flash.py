@@ -6,10 +6,15 @@ Replaces ``madrona_learn_tpu/ops/pallas/attention.py:mha_flash``, the route
 (``_mha_flash_kernel`` through ``_mha_flash_impl``) and the two kernels of
 its flash-structured backward (``_mha_flash_bwd_dkdv_kernel`` and
 ``_mha_flash_bwd_dq_kernel``, wired by ``_mha_flash_bwd_rule``).
-``csrc/mha_flash.cu`` explains the Hopper design: one thread per row of one
-(b, h) problem, the other operand streamed through shared memory in tiles,
-f32 FMAs on CUDA cores, each block writing only its own rows, so no
-atomics and no [B, H, S, S] tensor.
+``csrc/mha_flash.cu`` explains the Hopper design. Every kernel writes only
+its own block's rows, so no atomics and no [B, H, S, S] tensor, and runs
+each (b, h) problem the same way whatever B is (batch invariance). The
+bfloat16 forward runs on Hopper's warpgroup tensor cores (FlashAttention-2's
+shape on ``wgmma``: K and V streamed as bf16 by ``cp.async``, the online
+softmax in registers, P . V in f32 from p split into two bf16 halves); the
+float32 forward (tensor cores would round its f32 products) and both
+backward kernels keep one thread per row of one problem with f32 FMAs on
+CUDA cores. The C entry point picks the forward by dtype.
 
 Contract: ``q``, ``k``, ``v`` ``[B, S, H, D]`` in float32 or bfloat16, any
 S >= 1, D one of 16, 32, 64; f32 scores ``(q . k) * D^-0.5``; keys at

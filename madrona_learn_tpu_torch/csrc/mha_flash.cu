@@ -2,10 +2,13 @@
 // Forward (output and per-row logsumexp) and the FlashAttention-2 backward
 // as two kernels, dK/dV over query rows and dQ over key rows.
 //
-// Replaces madrona_learn_tpu/ops/pallas/attention.py:mha_flash:
-// - flash_fwd_kernel: _mha_flash_kernel through _mha_flash_impl;
-// - flash_bwd_dkdv_kernel: _mha_flash_bwd_dkdv_kernel;
-// - flash_bwd_dq_kernel: _mha_flash_bwd_dq_kernel.
+// Replaces madrona_learn_tpu/ops/pallas/attention.py:mha_flash (the bf16
+// kernel of each pair runs on tensor cores, the float32 one on CUDA cores):
+// - flash_fwd_tc_kernel, flash_fwd_kernel: _mha_flash_kernel through
+//   _mha_flash_impl;
+// - flash_bwd_dkdv_tc_kernel, flash_bwd_dkdv_kernel:
+//   _mha_flash_bwd_dkdv_kernel;
+// - flash_bwd_dq_tc_kernel, flash_bwd_dq_kernel: _mha_flash_bwd_dq_kernel.
 // The TPU kernels transpose q, k, v to [B*H, S, D], pad B*H to an 8-row
 // block and S to 128, and carry the online-softmax state (and the dK / dV /
 // dQ accumulators) in VMEM across a sequential grid axis. Those are TPU
@@ -64,11 +67,40 @@
 //   the register A operand as they stand: no trip through shared memory.
 // - out = acc / l is rounded once to bf16, staged through the Q tile's
 //   shared memory and stored 16 bytes a thread.
-// The float32 forward (flash_fwd_kernel) and both backward kernels keep the
-// first design: one thread owns one row (a query row in the forward and in
-// dQ, a key row in dK/dV) and keeps it, its other operand row and its f32
-// accumulators in registers, streaming tiles of kTile rows of the other
-// operand through shared memory as f32 (a broadcast per four FMAs).
+//
+// The bf16 backward on the same building blocks (flash_bwd_dkdv_tc_kernel,
+// flash_bwd_dq_tc_kernel):
+// - dK/dV works transposed: a block owns 128 keys (two warpgroups of 64)
+//   and streams tiles of 64 queries, each with its lse and delta, through
+//   the cp.async ring. S^T = K . Q^T and dP^T = V . dO^T take A (K, V) and
+//   B (the Q and dO tiles) K-major from shared memory by descriptor; then
+//   P^T and dS^T, as accumulators in place, are the register A operands of
+//   dV += P^T . dO and dK += dS^T . Q, with the same Q and dO tiles read
+//   MN-major. No tile makes a trip through shared memory.
+// - dQ: a block owns 128 query rows, as in the forward, and streams K and V:
+//   S = Q . K^T and dP = dO . V^T (A = Q, dO), dQ += dS . K (K MN-major).
+// - p = 2^(s scale log2(e) - lse log2(e)): one FFMA and one ex2.approx a
+//   score; dS = p (dP - delta) scale in f32. p and dS are f32 A operands
+//   split into bf16 hi + lo as the forward splits p, so dV, dK and dQ stay
+//   f32 sums of f32 products (~16 mantissa bits a term). The two score
+//   products of a tile are committed as two wgmma groups, so that P is
+//   computed while dP is still on the tensor cores; the split products of
+//   a tile as one group, waited for before the next tile.
+// - No register A operand lives across the tile loop: the block's own
+//   tiles are read by descriptor, and the split accumulators are waited
+//   for within the tile (see flash_fwd_tc_kernel: ptxas reassigned Q's
+//   fragments held across its loop at D = 64).
+// - Query rows past S are zero rows of Q and dO with lse and delta 0 (p =
+//   1 multiplies only zeros); keys at and past valid_len are zero-filled,
+//   never read, and their p is set to 0; dK and dV rows of such keys are
+//   stored as 0.
+// The float32 forward (flash_fwd_kernel) and the float32 backward
+// (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel), whose f32 products tensor
+// cores would round, keep the first design: one thread owns one row (a
+// query row in the forward and in dQ, a key row in dK/dV) and keeps it, its
+// other operand row and its f32 accumulators in registers, streaming tiles
+// of kTile rows of the other operand through shared memory as f32 (a
+// broadcast per four FMAs).
 //
 // Bound on the H100. At the update shape [4096, 512, 4, 32] bf16 with
 // valid_len 511 the forward's two products are 0.55 TFLOP (0.55 ms on bf16
@@ -79,9 +111,11 @@
 // by side. Each warp issues about ten f32 and conversion
 // instructions per score besides, and waits on each wgmma it issues; 16
 // warps an SM (two blocks, 114 registers a thread) overlap one warpgroup's
-// softmax with another's products. The backward's five products (1.4
-// TFLOP) still run as f32 FMAs on CUDA cores (67 TFLOP/s at most), tens of
-// times their bound; their tensor-core redesign is the next step.
+// softmax with another's products. The backward has the same 4.29e9
+// exponentials (>= 1.1 ms each kernel); its products are 1.1 TFLOP in
+// dK/dV and 0.8 in dQ as the contract counts them, 1.6 and 1.1 with p and
+// dS split (1.7 and 1.1 ms on tensor cores), and each score takes about
+// 12 f32 and conversion instructions in dK/dV and 10 in dQ besides.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -153,7 +187,7 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ a,
   }
 }
 
-// ------------------------------------------------ bf16 forward, tensor cores
+// -------------------------------------- bf16 kernels on tensor cores: forward
 
 using bf16 = __nv_bfloat16;
 
@@ -194,11 +228,108 @@ __device__ __forceinline__ void load_tile_async(uint32_t dst,
   }
 }
 
-// Shared memory of flash_fwd_tc_kernel: the Q tile, then a ring of
-// kTcStages (K, V) tile pairs, and 1024 bytes to align them.
+// Shared memory of the tensor-core kernels: kOwn [kTcRows][D] tiles of the
+// block's own rows, a ring of kTcStages pairs of [kTcKeys][D] streamed
+// tiles, kStats floats a stage, and 1024 bytes to align the tiles.
+template <int D, int kOwn, int kStats>
+constexpr int tc_smem_bytes() {
+  return (kOwn * kTcRows + 2 * kTcStages * kTcKeys) * D * 2 +
+         kTcStages * kStats * 4 + 1024;
+}
+
+// x (an f32 accumulator of 16 rows x 64 columns a warp) as two bf16 A
+// operands, x = hi + lo, 16 columns a step: hi = bf16(x), lo = bf16(x - hi).
+__device__ __forceinline__ void split_hi_lo(const float (&x)[32],
+                                            uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float* pr = &x[8 * kk + 2 * i];
+      hi[kk][i] = mlt::pack_bf16x2(pr[0], pr[1]);
+      lo[kk][i] = mlt::pack_bf16x2(pr[0] - mlt::bf16_lo(hi[kk][i]),
+                                   pr[1] - mlt::bf16_hi(hi[kk][i]));
+    }
+}
+
+// acc += (hi + lo) . B, with B a streamed [kTcKeys][D] tile read MN-major
+// (its rows are the 64-deep reduction), two wgmma.m64nDk16 per 16 rows.
+// The caller commits them and calls wait_split before it touches acc, hi or
+// lo again.
 template <int D>
-constexpr int fwd_tc_smem_bytes() {
-  return (kTcRows + 2 * kTcStages * kTcKeys) * D * 2 + 1024;
+__device__ __forceinline__ void accumulate_split(float (&acc)[D / 2],
+                                                 uint32_t (&hi)[4][4],
+                                                 uint32_t (&lo)[4][4],
+                                                 uint32_t b) {
+  constexpr int kRow = D * 2;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) mlt::wgmma_fence_operand(acc[i]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      mlt::wgmma_fence_operand(hi[kk][i]);
+      mlt::wgmma_fence_operand(lo[kk][i]);
+    }
+  mlt::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = mlt::wgmma_desc(b + kk * 16 * kRow, kTcKeys * kRow,
+                                        8 * kRow, kRow);
+    mlt::wgmma_rs<D, 1>(acc, hi[kk], db, 1);
+    mlt::wgmma_rs<D, 1>(acc, lo[kk], db, 1);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void wait_split(float (&acc)[D / 2],
+                                           uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4]) {
+  mlt::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) mlt::wgmma_fence_operand(acc[i]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      mlt::wgmma_fence_operand(hi[kk][i]);
+      mlt::wgmma_fence_operand(lo[kk][i]);
+    }
+}
+
+// This warp's 16 rows of an f32 accumulator, rounded once to bf16 (rows
+// `live` false as 0), staged through the warp's own rows of a [kTcRows][D]
+// tile at smem and stored 16 bytes a thread to rows r0 + 16 warp .. of one
+// problem, those below `rows`.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           const bool (&live)[2],
+                                           uint8_t* smem, bf16* __restrict__ out,
+                                           size_t base, size_t stride, int r0,
+                                           int rows) {
+  constexpr int kDB = D / 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int db = 0; db < kDB; ++db)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(
+          smem + tile_off<D>(warp * 16 + g + 8 * r, db) + 4 * t4) =
+          live[r] ? mlt::pack_bf16x2(acc[4 * db + 2 * r],
+                                     acc[4 * db + 2 * r + 1])
+                  : 0u;
+  __syncwarp();
+#pragma unroll
+  for (int e = lane; e < 16 * kDB; e += 32) {
+    const int r = e / kDB, c = e % kDB;
+    const int i = r0 + warp * 16 + r;
+    if (i < rows)
+      *reinterpret_cast<uint4*>(out + base + static_cast<size_t>(i) * stride +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(smem + tile_off<D>(warp * 16 + r, c));
+  }
 }
 
 // Grid: x over (problem, query tile), query tile fastest; kTcWarps warps,
@@ -214,7 +345,6 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     int valid_len, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   constexpr int kKV = kTcKeys * D * 2;        // bytes of one K or V tile
-  constexpr int kDB = D / 8;                  // 8-column blocks of D
   constexpr int kRow = D * 2;                 // bytes a row = swizzle width
   // Tiles start on 1024-byte boundaries, as the swizzle patterns need.
   const uint32_t raw_s = mlt::smem_u32(smem_raw);
@@ -320,7 +450,6 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
 
     float rs[4][2];
-    uint32_t hi[4][4], lo[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
@@ -330,47 +459,17 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int r = 0; r < 2; ++r)
         rs[kk][r] = (s[8 * kk + 2 * r] + s[8 * kk + 2 * r + 1]) +
                     (s[8 * kk + 4 + 2 * r] + s[8 * kk + 5 + 2 * r]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float* pr = &s[8 * kk + 2 * i];
-        hi[kk][i] = mlt::pack_bf16x2(pr[0], pr[1]);
-        lo[kk][i] = mlt::pack_bf16x2(pr[0] - mlt::bf16_lo(hi[kk][i]),
-                                     pr[1] - mlt::bf16_hi(hi[kk][i]));
-      }
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       l[r] = l[r] * alpha[r] + ((rs[0][r] + rs[1][r]) + (rs[2][r] + rs[3][r]));
 
-    // acc += p . v: MN-major B (V's rows are keys), 16 keys = 16 rows on.
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) mlt::wgmma_fence_operand(acc[i]);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        mlt::wgmma_fence_operand(hi[kk][i]);
-        mlt::wgmma_fence_operand(lo[kk][i]);
-      }
-    mlt::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dv =
-          mlt::wgmma_desc(v_s + kk * 16 * kRow, kKV, 8 * kRow, kRow);
-      mlt::wgmma_rs<D, 1>(acc, hi[kk], dv, 1);
-      mlt::wgmma_rs<D, 1>(acc, lo[kk], dv, 1);
-    }
+    // acc += p . v, V's rows being keys.
+    uint32_t hi[4][4], lo[4][4];
+    split_hi_lo(s, hi, lo);
+    accumulate_split<D>(acc, hi, lo, v_s);
     mlt::wgmma_commit();
-    mlt::wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) mlt::wgmma_fence_operand(acc[i]);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        mlt::wgmma_fence_operand(hi[kk][i]);
-        mlt::wgmma_fence_operand(lo[kk][i]);
-      }
+    wait_split<D>(acc, hi, lo);
   }
 
 #pragma unroll
@@ -380,24 +479,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float inv[2] = {1.0f / l[0], 1.0f / l[1]};
 #pragma unroll
-  for (int db = 0; db < kDB; ++db)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<uint32_t*>(
-          smem + tile_off<D>(warp * 16 + g + 8 * r, db) + 4 * t4) =
-          mlt::pack_bf16x2(acc[4 * db + 2 * r] * inv[r],
-                           acc[4 * db + 2 * r + 1] * inv[r]);
-  __syncwarp();
-#pragma unroll
-  for (int e = lane; e < 16 * kDB; e += 32) {
-    const int r = e / kDB, c = e % kDB;
-    const int i = i0 + warp * 16 + r;
-    if (i < seq)
-      *reinterpret_cast<uint4*>(o + base + static_cast<size_t>(i) * stride +
-                                c * 8) =
-          *reinterpret_cast<const uint4*>(smem +
-                                          tile_off<D>(warp * 16 + r, c));
-  }
+  for (int i = 0; i < D / 2; ++i) acc[i] *= inv[(i / 2) % 2];
+  const bool all[2] = {true, true};
+  store_rows<D>(acc, all, smem, o, base, stride, i0, seq);
   if (t4 == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -407,6 +491,293 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             (m[r] + log2f(l[r])) * kLn2;
     }
   }
+}
+
+// -------------------------------------- bf16 kernels on tensor cores: backward
+
+// The two score-shaped products of one streamed tile for this warpgroup's
+// 64 rows, both A and B K-major by descriptor: x = A1 . B1^T, y = A2 .
+// B2^T, committed as two groups so that x can be used while y runs.
+// a1 and a2 point at the warpgroup's first row of the block's own tiles,
+// b1 and b2 at the streamed tiles.
+template <int D>
+__device__ __forceinline__ void score_products(float (&x)[32], float (&y)[32],
+                                               uint32_t a1, uint32_t b1,
+                                               uint32_t a2, uint32_t b2) {
+  constexpr int kRow = D * 2;
+  // K-major: 8-row groups 8 rows apart, 16 deep = 32 bytes a step.
+  auto desc = [](uint32_t addr) {
+    return mlt::wgmma_desc(addr, 16, 8 * kRow, kRow);
+  };
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    x[i] = 0.0f;
+    y[i] = 0.0f;
+    mlt::wgmma_fence_operand(x[i]);
+    mlt::wgmma_fence_operand(y[i]);
+  }
+  mlt::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    mlt::wgmma_ss_m64n64k16(x, desc(a1 + kk * 32), desc(b1 + kk * 32),
+                            kk > 0);
+  mlt::wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    mlt::wgmma_ss_m64n64k16(y, desc(a2 + kk * 32), desc(b2 + kk * 32),
+                            kk > 0);
+  mlt::wgmma_commit();
+}
+
+// dK/dV, transposed: a block owns kTcRows keys of one (b, h) problem (two
+// warpgroups of 64) and streams tiles of kTcKeys queries, with each tile's
+// lse and delta, through the cp.async ring. Per tile, for this
+// warpgroup's keys (rows) and the tile's queries (columns):
+//   S^T = K . Q^T, dP^T = V . dO^T      (A = own K / V, B = Q / dO, K-major)
+//   P^T = 2^(S^T scale_log2 - lse log2 e), 0 for keys >= valid_len
+//   dS^T = P^T (dP^T - delta) scale
+//   dV += P^T . dO, dK += dS^T . Q      (A = accumulators split hi + lo,
+//                                        B = dO / Q, MN-major)
+// Queries past seq are zero rows of Q and dO (lse and delta 0): p = 1 there
+// but multiplies only zeros, so they add exactly 0. Grid: x over (problem,
+// key tile), key tile fastest. scale_log2 = D^-0.5 * log2(e).
+template <int D>
+__global__ void __launch_bounds__(kTcWarps * 32, D == 64 ? 1 : 2)
+flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         int seq, int heads, int valid_len, float scale,
+                         float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr int kOwn = kTcRows * D * 2;       // bytes of the K or V tile
+  constexpr int kT = kTcKeys * D * 2;         // bytes of a Q or dO tile
+  constexpr int kRow = D * 2;
+  const uint32_t raw_s = mlt::smem_u32(smem_raw);
+  const uint32_t k_s = (raw_s + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (k_s - raw_s);
+  const uint32_t v_s = k_s + kOwn;
+  const uint32_t ring_s = v_s + kOwn;
+  const uint32_t stats_s = ring_s + kTcStages * 2 * kT;
+  const float* stats =
+      reinterpret_cast<const float*>(smem + (stats_s - k_s));
+
+  const int k_tiles = (seq + kTcRows - 1) / kTcRows;
+  const int p = blockIdx.x / k_tiles;
+  const int j0 = (blockIdx.x % k_tiles) * kTcRows;
+  const int b = p / heads, h = p % heads;
+  const size_t stride = static_cast<size_t>(heads) * D;
+  const size_t base = static_cast<size_t>(b) * seq * stride + h * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const uint32_t wg_row = (warp / 4) * 64 * kRow;
+  const int n_keys = valid_len - j0;          // live keys of the block
+  const int q_tiles = (seq + kTcKeys - 1) / kTcKeys;
+  bool live[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) live[r] = warp * 16 + g + 8 * r < n_keys;
+
+  auto load_q = [&](int t) {
+    if (t < q_tiles) {
+      const int st = t % kTcStages;
+      const uint32_t q_st = ring_s + st * 2 * kT;
+      const int i0 = t * kTcKeys, n = min(kTcKeys, seq - i0);
+      load_tile_async<D, kTcKeys>(q_st, q, base, stride, i0, n);
+      load_tile_async<D, kTcKeys>(q_st + kT, dout, base, stride, i0, n);
+      if (threadIdx.x < 2 * kTcKeys) {
+        const int r = threadIdx.x % kTcKeys;
+        const bool valid = r < n;
+        const size_t i = i0 + (valid ? r : 0);
+        const float* src =
+            threadIdx.x < kTcKeys
+                ? lse + static_cast<size_t>(p) * seq + i
+                : delta + (static_cast<size_t>(b) * seq + i) * heads + h;
+        mlt::cp_async4(stats_s + (st * 2 * kTcKeys + threadIdx.x) * 4, src,
+                       valid);
+      }
+    }
+    mlt::cp_async_commit();
+  };
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dk_acc[i] = 0.0f;
+    dv_acc[i] = 0.0f;
+  }
+  // A block whose keys are all masked writes zeros only.
+  if (n_keys > 0) {
+    const int n_own = min(kTcRows, n_keys);
+    load_tile_async<D, kTcRows>(k_s, k, base, stride, j0, n_own);
+    load_tile_async<D, kTcRows>(v_s, v, base, stride, j0, n_own);
+    for (int t = 0; t < kTcStages - 1; ++t) load_q(t);
+
+    for (int t = 0; t < q_tiles; ++t) {
+      mlt::cp_async_wait<kTcStages - 2>();
+      mlt::fence_proxy_async();   // this thread's tile writes, to wgmma
+      __syncthreads();
+      load_q(t + kTcStages - 1);
+      const int st = t % kTcStages;
+      const uint32_t q_st = ring_s + st * 2 * kT;
+      const uint32_t do_st = q_st + kT;
+      const float* lse_t = stats + st * 2 * kTcKeys;
+      const float* delta_t = lse_t + kTcKeys;
+
+      float s[32], dp[32];
+      score_products<D>(s, dp, k_s + wg_row, q_st, v_s + wg_row, do_st);
+      mlt::wgmma_wait<1>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) mlt::wgmma_fence_operand(s[i]);
+      if (n_keys < kTcRows) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (!live[(i / 2) % 2]) s[i] = -INFINITY;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l =
+            *reinterpret_cast<const float2*>(lse_t + 8 * j + 2 * t4);
+        const float nl[2] = {-l.x * kLog2e, -l.y * kLog2e};
+#pragma unroll
+        for (int i = 4 * j; i < 4 * j + 4; ++i)
+          s[i] = mlt::ex2(fmaf(s[i], scale_log2, nl[i & 1]));
+      }
+      mlt::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) mlt::wgmma_fence_operand(dp[i]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d =
+            *reinterpret_cast<const float2*>(delta_t + 8 * j + 2 * t4);
+        const float dl[2] = {d.x, d.y};
+#pragma unroll
+        for (int i = 4 * j; i < 4 * j + 4; ++i)
+          dp[i] = s[i] * (dp[i] - dl[i & 1]) * scale;
+      }
+      uint32_t p_hi[4][4], p_lo[4][4], ds_hi[4][4], ds_lo[4][4];
+      split_hi_lo(s, p_hi, p_lo);
+      split_hi_lo(dp, ds_hi, ds_lo);
+      accumulate_split<D>(dv_acc, p_hi, p_lo, do_st);
+      accumulate_split<D>(dk_acc, ds_hi, ds_lo, q_st);
+      mlt::wgmma_commit();
+      wait_split<D>(dv_acc, p_hi, p_lo);
+      wait_split<D>(dk_acc, ds_hi, ds_lo);
+    }
+  }
+  __syncthreads();   // every wgmma has read its own K and V tiles
+  store_rows<D>(dk_acc, live, smem, dk, base, stride, j0, seq);
+  store_rows<D>(dv_acc, live, smem + kOwn, dv, base, stride, j0, seq);
+}
+
+// dQ: a block owns kTcRows query rows of one (b, h) problem (two
+// warpgroups of 64), as in the forward, and streams tiles of kTcKeys keys
+// (K and V) through the cp.async ring. Per tile:
+//   S = Q . K^T, dP = dO . V^T          (A = own Q / dO, B = K / V, K-major)
+//   P = 2^(S scale_log2 - lse log2 e), 0 for keys >= valid_len
+//   dS = P (dP - delta) scale
+//   dQ += dS . K                        (A = dS split hi + lo, B = K,
+//                                        MN-major)
+// Grid: x over (problem, query tile), query tile fastest.
+template <int D>
+__global__ void __launch_bounds__(kTcWarps * 32, D == 64 ? 1 : 2)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       bf16* __restrict__ dq, int seq, int heads,
+                       int valid_len, float scale, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr int kOwn = kTcRows * D * 2;       // bytes of the Q or dO tile
+  constexpr int kT = kTcKeys * D * 2;         // bytes of a K or V tile
+  constexpr int kRow = D * 2;
+  const uint32_t raw_s = mlt::smem_u32(smem_raw);
+  const uint32_t q_s = (raw_s + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (q_s - raw_s);
+  const uint32_t do_s = q_s + kOwn;
+  const uint32_t ring_s = do_s + kOwn;
+
+  const int q_tiles = (seq + kTcRows - 1) / kTcRows;
+  const int p = blockIdx.x / q_tiles;
+  const int i0 = (blockIdx.x % q_tiles) * kTcRows;
+  const int b = p / heads, h = p % heads;
+  const size_t stride = static_cast<size_t>(heads) * D;
+  const size_t base = static_cast<size_t>(b) * seq * stride + h * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const uint32_t wg_row = (warp / 4) * 64 * kRow;
+  const int n_tiles = (valid_len + kTcKeys - 1) / kTcKeys;
+
+  auto load_kv = [&](int j) {
+    if (j < n_tiles) {
+      const uint32_t st = ring_s + (j % kTcStages) * 2 * kT;
+      const int n = min(kTcKeys, valid_len - j * kTcKeys);
+      load_tile_async<D, kTcKeys>(st, k, base, stride, j * kTcKeys, n);
+      load_tile_async<D, kTcKeys>(st + kT, v, base, stride, j * kTcKeys, n);
+    }
+    mlt::cp_async_commit();
+  };
+  const int n_own = min(kTcRows, seq - i0);
+  load_tile_async<D, kTcRows>(q_s, q, base, stride, i0, n_own);
+  load_tile_async<D, kTcRows>(do_s, dout, base, stride, i0, n_own);
+  for (int j = 0; j < kTcStages - 1; ++j) load_kv(j);
+
+  // This thread's two rows: -lse log2(e) and delta (0 past seq, where
+  // nothing is stored).
+  float nl[2], dl[2];
+  bool live[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + warp * 16 + g + 8 * r;
+    live[r] = i < seq;
+    nl[r] = live[r] ? -lse[static_cast<size_t>(p) * seq + i] * kLog2e : 0.0f;
+    dl[r] = live[r]
+                ? delta[(static_cast<size_t>(b) * seq + i) * heads + h]
+                : 0.0f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    mlt::cp_async_wait<kTcStages - 2>();
+    mlt::fence_proxy_async();   // this thread's tile writes, to wgmma
+    __syncthreads();
+    load_kv(t + kTcStages - 1);
+    const uint32_t k_st = ring_s + (t % kTcStages) * 2 * kT;
+    const uint32_t v_st = k_st + kT;
+
+    float s[32], dp[32];
+    score_products<D>(s, dp, q_s + wg_row, k_st, do_s + wg_row, v_st);
+    mlt::wgmma_wait<1>();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mlt::wgmma_fence_operand(s[i]);
+    if ((t + 1) * kTcKeys > valid_len) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (t * kTcKeys + 8 * (i / 4) + 2 * t4 + (i & 1) >= valid_len)
+          s[i] = -INFINITY;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      s[i] = mlt::ex2(fmaf(s[i], scale_log2, nl[(i / 2) % 2]));
+    mlt::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      mlt::wgmma_fence_operand(dp[i]);
+      dp[i] = s[i] * (dp[i] - dl[(i / 2) % 2]) * scale;
+    }
+    uint32_t hi[4][4], lo[4][4];
+    split_hi_lo(dp, hi, lo);
+    accumulate_split<D>(acc, hi, lo, k_st);
+    mlt::wgmma_commit();
+    wait_split<D>(acc, hi, lo);
+  }
+  __syncthreads();   // every wgmma has read its own Q and dO tiles
+  store_rows<D>(acc, live, smem, dq, base, stride, i0, seq);
 }
 
 // ------------------------------------------------ CUDA-core kernels
@@ -596,7 +967,7 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
   const long long blocks = static_cast<long long>(batch) * heads *
                            ((seq + kTcRows - 1) / kTcRows);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = fwd_tc_smem_bytes<D>();
+  constexpr int smem = tc_smem_bytes<D, 1, 0>();
   const int err = mlt::set_smem(flash_fwd_tc_kernel<D>, smem);
   if (err != 0) return err;
   flash_fwd_tc_kernel<D><<<static_cast<unsigned>(blocks), kTcWarps * 32,
@@ -620,62 +991,96 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dk, void* dv,
                 int batch, int seq, int heads, int valid_len, float scale,
                 cudaStream_t stream) {
   const int threads = threads_for(seq);
-  flash_bwd_dkdv_kernel<T, D><<<grid_for(batch, heads, seq, threads), threads,
-                                0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), seq, heads, valid_len, scale);
+  flash_bwd_dkdv_kernel<float, D><<<grid_for(batch, heads, seq, threads),
+                                    threads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), seq, heads,
+      valid_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int batch,
               int seq, int heads, int valid_len, float scale,
               cudaStream_t stream) {
   const int threads = threads_for(seq);
-  flash_bwd_dq_kernel<T, D><<<grid_for(batch, heads, seq, threads), threads,
-                              0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), seq, heads, valid_len, scale);
+  flash_bwd_dq_kernel<float, D><<<grid_for(batch, heads, seq, threads),
+                                  threads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), seq, heads, valid_len, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkdv_tc(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dk, void* dv, int batch, int seq, int heads,
+                   int valid_len, float scale, cudaStream_t stream) {
+  const long long blocks = static_cast<long long>(batch) * heads *
+                           ((seq + kTcRows - 1) / kTcRows);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = tc_smem_bytes<D, 2, 2 * kTcKeys>();
+  const int err = mlt::set_smem(flash_bwd_dkdv_tc_kernel<D>, smem);
+  if (err != 0) return err;
+  flash_bwd_dkdv_tc_kernel<D><<<static_cast<unsigned>(blocks), kTcWarps * 32,
+                                smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq, heads, valid_len,
+      scale, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq_tc(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dq, int batch, int seq, int heads, int valid_len,
+                 float scale, cudaStream_t stream) {
+  const long long blocks = static_cast<long long>(batch) * heads *
+                           ((seq + kTcRows - 1) / kTcRows);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = tc_smem_bytes<D, 2, 0>();
+  const int err = mlt::set_smem(flash_bwd_dq_tc_kernel<D>, smem);
+  if (err != 0) return err;
+  flash_bwd_dq_tc_kernel<D><<<static_cast<unsigned>(blocks), kTcWarps * 32,
+                              smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+      static_cast<bf16*>(dq), seq, heads, valid_len, scale, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-#define MLT_FLASH_DISPATCH(CALL)                                             \
-  if (dtype == 0 && head_dim == 16) return CALL(float, 16);                  \
-  if (dtype == 0 && head_dim == 32) return CALL(float, 32);                  \
-  if (dtype == 0 && head_dim == 64) return CALL(float, 64);                  \
-  if (dtype == 1 && head_dim == 16) return CALL(__nv_bfloat16, 16);          \
-  if (dtype == 1 && head_dim == 32) return CALL(__nv_bfloat16, 32);          \
-  if (dtype == 1 && head_dim == 64) return CALL(__nv_bfloat16, 64);          \
+// Each entry point runs bf16 on tensor cores (the *_tc kernels) and float32
+// on CUDA cores, whose f32 products tensor cores would round.
+#define MLT_FLASH_DISPATCH(LAUNCH)                                           \
+  if (dtype == 0 && head_dim == 16) return LAUNCH<16>(MLT_ARGS);             \
+  if (dtype == 0 && head_dim == 32) return LAUNCH<32>(MLT_ARGS);             \
+  if (dtype == 0 && head_dim == 64) return LAUNCH<64>(MLT_ARGS);             \
+  if (dtype == 1 && head_dim == 16) return LAUNCH##_tc<16>(MLT_ARGS);        \
+  if (dtype == 1 && head_dim == 32) return LAUNCH##_tc<32>(MLT_ARGS);        \
+  if (dtype == 1 && head_dim == 64) return LAUNCH##_tc<64>(MLT_ARGS);        \
   return -1
 
 extern "C" int mlt_mha_flash_fwd(int dtype, int head_dim, const void* q,
                                  const void* k, const void* v, void* o,
                                  void* lse, int batch, int seq, int heads,
                                  int valid_len, float scale, void* stream) {
-  // bf16 on tensor cores (flash_fwd_tc_kernel); float32 on CUDA cores
-  // (flash_fwd_kernel), whose f32 products tensor cores would round.
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
 #define MLT_ARGS q, k, v, o, l, batch, seq, heads, valid_len, scale, s
-  if (dtype == 0 && head_dim == 16) return launch_fwd<16>(MLT_ARGS);
-  if (dtype == 0 && head_dim == 32) return launch_fwd<32>(MLT_ARGS);
-  if (dtype == 0 && head_dim == 64) return launch_fwd<64>(MLT_ARGS);
-  if (dtype == 1 && head_dim == 16) return launch_fwd_tc<16>(MLT_ARGS);
-  if (dtype == 1 && head_dim == 32) return launch_fwd_tc<32>(MLT_ARGS);
-  if (dtype == 1 && head_dim == 64) return launch_fwd_tc<64>(MLT_ARGS);
+  MLT_FLASH_DISPATCH(launch_fwd);
 #undef MLT_ARGS
-  return -1;
 }
 
 extern "C" int mlt_mha_flash_bwd_dkdv(int dtype, int head_dim, const void* q,
@@ -686,12 +1091,12 @@ extern "C" int mlt_mha_flash_bwd_dkdv(int dtype, int head_dim, const void* q,
                                       int valid_len, float scale,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MLT_CALL(T, D)                                                      \
-  launch_dkdv<T, D>(q, k, v, dout, static_cast<const float*>(lse),          \
-                    static_cast<const float*>(delta), dk, dv, batch, seq,   \
-                    heads, valid_len, scale, s)
-  MLT_FLASH_DISPATCH(MLT_CALL);
-#undef MLT_CALL
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(delta);
+#define MLT_ARGS q, k, v, dout, l, d, dk, dv, batch, seq, heads, valid_len, \
+                 scale, s
+  MLT_FLASH_DISPATCH(launch_dkdv);
+#undef MLT_ARGS
 }
 
 extern "C" int mlt_mha_flash_bwd_dq(int dtype, int head_dim, const void* q,
@@ -701,11 +1106,10 @@ extern "C" int mlt_mha_flash_bwd_dq(int dtype, int head_dim, const void* q,
                                     int seq, int heads, int valid_len,
                                     float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MLT_CALL(T, D)                                                      \
-  launch_dq<T, D>(q, k, v, dout, static_cast<const float*>(lse),            \
-                  static_cast<const float*>(delta), dq, batch, seq, heads,  \
-                  valid_len, scale, s)
-  MLT_FLASH_DISPATCH(MLT_CALL);
-#undef MLT_CALL
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(delta);
+#define MLT_ARGS q, k, v, dout, l, d, dq, batch, seq, heads, valid_len, scale, s
+  MLT_FLASH_DISPATCH(launch_dq);
+#undef MLT_ARGS
 }
 #undef MLT_FLASH_DISPATCH

@@ -8,13 +8,17 @@ its flash-structured backward (``_mha_flash_bwd_dkdv_kernel`` and
 ``_mha_flash_bwd_dq_kernel``, wired by ``_mha_flash_bwd_rule``).
 ``csrc/mha_flash.cu`` explains the Hopper design. Every kernel writes only
 its own block's rows, so no atomics and no [B, H, S, S] tensor, and runs
-each (b, h) problem the same way whatever B is (batch invariance). The
-bfloat16 forward runs on Hopper's warpgroup tensor cores (FlashAttention-2's
-shape on ``wgmma``: K and V streamed as bf16 by ``cp.async``, the online
-softmax in registers, P . V in f32 from p split into two bf16 halves); the
-float32 forward (tensor cores would round its f32 products) and both
-backward kernels keep one thread per row of one problem with f32 FMAs on
-CUDA cores. The C entry point picks the forward by dtype.
+each (b, h) problem the same way whatever B is (batch invariance). In
+bfloat16 all three run on Hopper's warpgroup tensor cores
+(FlashAttention-2's shape on ``wgmma``, the streamed operand as bf16 tiles
+filled by ``cp.async``): the forward keeps the online softmax in registers
+and takes P . V in f32 from p split into two bf16 halves; dK/dV works
+transposed, a block owning keys and streaming queries, and dQ a block
+owning queries and streaming keys, each rebuilding p with ``exp2`` and
+splitting p and dS into bf16 halves for their f32 products. In float32
+(tensor cores would round its f32 products) the kernels keep one thread
+per row of one problem with f32 FMAs on CUDA cores. Each C entry point
+picks its kernel by dtype.
 
 Contract: ``q``, ``k``, ``v`` ``[B, S, H, D]`` in float32 or bfloat16, any
 S >= 1, D one of 16, 32, 64; f32 scores ``(q . k) * D^-0.5``; keys at

@@ -286,7 +286,7 @@ def _lstm_bounds(T, N, H, itemsize):
                             + 4 * seq + 4 * H * H + 4 * H + 2 * state)
     product = 2 * T * N * H * 4 * H
     return (bound(fwd_bytes, {"bf16_tensor": product, "f32": 30 * seq}),
-            bound(bwd_bytes, {"bf16_tensor": 2 * product, "f32": 40 * seq}))
+            bound(bwd_bytes, {"bf16_tensor": 3 * product, "f32": 40 * seq}))
 
 
 def cudnn_lstm_check(args, ys):
@@ -324,6 +324,76 @@ def cudnn_lstm_check(args, ys):
         log(f"  cuDNN LSTM on the same inputs did not run: {e}")
 
 
+def _routed(name, bwd, dtype, H, *args):
+    """bwd(*args) and the route it took (``tensor_core`` where it counted a
+    tensor-core launch in TC_LAUNCHES, else ``cuda_core``), which must be
+    the one the path rule names for dtype and H."""
+    from madrona_learn_tpu_torch.ops.cuda.lstm import (
+        TC_LAUNCHES, uses_tensor_cores)
+
+    before = TC_LAUNCHES[name]
+    out = bwd(*args)
+    path = "tensor_core" if TC_LAUNCHES[name] > before else "cuda_core"
+    rule = "tensor_core" if uses_tensor_cores(dtype, H) else "cuda_core"
+    if path != rule:
+        raise AssertionError(f"{name}: took the {path} route, the path rule "
+                             f"names {rule}")
+    return out, path
+
+
+def _tc_bwd_checks(name, bwd, args, ys, cs, probe, got, row_args, row_outs,
+                   weight_outs, rows=256):
+    """The bf16 tensor-core backward at the main-path shape, beyond its
+    agreement with the plain version: two calls give bitwise equal weight
+    gradients (deterministic), and its first ``rows`` batch rows give
+    bitwise the outputs of a backward over those rows alone (batch
+    invariant). ``row_args`` / ``row_outs`` map an argument / output index
+    to its batch dimension; ``weight_outs`` lists the weight gradients."""
+    import torch
+
+    def first_rows(t, dim):
+        return t.narrow(dim, 0, rows).contiguous()
+
+    again = bwd(*args, ys, cs, probe)
+    same = all(torch.equal(got[i], again[i]) for i in weight_outs)
+    log(f"  {name}: weight gradients bitwise equal over two calls: "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{name}: weight gradients differ run to run")
+    sub = [first_rows(a, row_args[i]) if i in row_args else a
+           for i, a in enumerate(args)]
+    alone = bwd(*sub, first_rows(ys, 1), first_rows(cs, 1),
+                first_rows(probe, 1))
+    same = all(torch.equal(first_rows(got[i], d), alone[i])
+               for i, d in row_outs.items())
+    log(f"  {name}: rows 0-{rows - 1} bitwise equal to the backward at N = "
+        f"{rows}: {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{name}: not batch invariant")
+
+
+def _tc_bwd_timing(name, results, x, keep, wi, wr, bias, c0, h0, ys, cs,
+                   probe):
+    """The tensor-core backward's time split into the recurrence and the
+    weight-gradient pass (the same buffers, one pass a call)."""
+    from madrona_learn_tpu_torch.ops.cuda.lstm import (
+        _bwd_tc, _bwd_tc_buffers, tc_rows)
+
+    buffers = _bwd_tc_buffers(x, wi, wr)
+
+    def run(phases):
+        return _bwd_tc(x, keep, wi, wr, bias, c0, h0, ys, cs, probe,
+                       phases=phases, buffers=buffers)
+
+    run(3)
+    split = dict(recurrence_ms=time_ms(lambda: run(1)),
+                 weight_grad_ms=time_ms(lambda: run(2)))
+    log(f"  {name} tensor-core split (R = {tc_rows(wi is not None)} rows a "
+        f"block): recurrence {split['recurrence_ms']:.3f} ms, weight "
+        f"gradients {split['weight_grad_ms']:.3f} ms")
+    results.update(split)
+
+
 def check_lstm(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
@@ -333,18 +403,22 @@ def check_lstm(results):
     fwd = results["lstm_sequence_fwd"] = {"max_abs_err": 0.0}
     bwd = results["lstm_sequence_bwd"] = {"max_abs_err": 0.0}
     # (T, N, H, dtype, on the main path): the update minibatch, the rollout
-    # step, a ragged batch, and float32 at both instantiated widths.
+    # step, flagship_large's minibatch, a ragged batch at both widths (the
+    # bf16 backward on tensor cores), and float32 at both instantiated
+    # widths (CUDA cores).
     cases = [
         (16, 8192, 256, torch.bfloat16, True),
         (1, 16384, 256, torch.bfloat16, True),
+        (16, 256, 256, torch.bfloat16, False),
         (16, 1000, 256, torch.bfloat16, False),
+        (5, 70, 128, torch.bfloat16, False),
         (5, 1000, 256, torch.float32, False),
         (4, 70, 128, torch.float32, False),
     ]
     for T, N, H, dtype, main_path in cases:
         dname = str(dtype).split(".")[-1]
-        tag = f"[{T},{N},{4 * H}] {dname}"
         args = _lstm_inputs(gen, T, N, H, dtype)
+        tag = f"[{T},{N},{4 * H}] {dname}"
         probe = torch.randn(T, N, H, device="cuda", generator=gen).to(dtype)
 
         ys, cs = lstm_sequence_fwd(*args)
@@ -362,20 +436,31 @@ def check_lstm(results):
             return torch.autograd.grad(
                 (out.float() * probe.float()).sum(), diff)
 
-        got = lstm_sequence_bwd(*args, ys, cs, probe)
+        got, path = _routed("lstm_sequence_bwd", lstm_sequence_bwd, dtype, H,
+                            *args, ys, cs, probe)
         for name, g, w in zip(("dxp", "dwr", "db", "dc0", "dh0"), got,
                               plain_bwd()):
-            err = compare(f"lstm bwd {name} {tag}", g, w,
+            err = compare(f"lstm bwd {name} {tag} ({path})", g, w,
                           **TOL[("bwd", dname)])
             if main_path and T > 1:
                 bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
 
         if main_path and T > 1:
+            if path != "tensor_core":
+                raise AssertionError(f"lstm bwd {tag}: the main path took "
+                                     f"the {path} route")
+            bwd["path"] = path
+            _tc_bwd_checks("lstm bwd " + tag, lstm_sequence_bwd, args, ys, cs,
+                           probe, got, row_args={0: 1, 1: 1, 4: 0, 5: 0},
+                           row_outs={0: 1, 3: 0, 4: 0}, weight_outs=(1, 2))
             fwd["ms"] = time_ms(lambda: lstm_sequence_fwd(*args))
             fwd["plain_ms"] = time_ms(lambda: lstm_sequence_reference(*args))
             bwd["ms"] = time_ms(
                 lambda: lstm_sequence_bwd(*args, ys, cs, probe))
             bwd["plain_ms"] = time_ms(plain_bwd)
+            x_proj, keep, wr, bias, c0, h0 = args
+            _tc_bwd_timing("lstm bwd " + tag, bwd, x_proj, keep, None, wr,
+                           bias, c0, h0, ys, cs, probe)
             fwd_bound, bwd_bound = _lstm_bounds(T, N, H, 2)
             fwd.update(library_ms=None, **fwd_bound)
             bwd.update(library_ms=None, **bwd_bound)
@@ -555,12 +640,16 @@ def check_lstm_proj(results):
     bwd = results["lstm_sequence_proj_bwd"] = {"max_abs_err": 0.0}
     bf16, f32 = torch.bfloat16, torch.float32
     # (T, N, F, H, dtype, on the main path): the headline_fused update
-    # minibatch, float32 at the same shape, a ragged batch, F = 2H and 4H at
-    # H = 128.
+    # minibatch, float32 at the same shape, the minibatch at N = 256, ragged
+    # batches with F < H, F = 2H and F = 4H (the bf16 backward on tensor
+    # cores), F = 2H and 4H at H = 128 in float32.
     cases = [
         (16, 8192, 256, 256, bf16, True),
         (16, 8192, 256, 256, f32, False),
+        (16, 256, 256, 256, bf16, False),
         (5, 1000, 128, 256, bf16, False),
+        (4, 70, 256, 128, bf16, False),
+        (3, 300, 512, 128, bf16, False),
         (4, 70, 256, 128, f32, False),
         (3, 300, 512, 128, f32, False),
     ]
@@ -595,21 +684,31 @@ def check_lstm_proj(results):
             return torch.autograd.grad(
                 (out.float() * probe.float()).sum(), diff)
 
-        got = lstm_sequence_proj_bwd(*args, ys, cs, probe)
+        got, path = _routed("lstm_sequence_proj_bwd", lstm_sequence_proj_bwd,
+                            dtype, H, *args, ys, cs, probe)
         for name, g, w in zip(("dx", "dwi", "dwr", "db", "dc0", "dh0"), got,
                               plain_bwd()):
-            err = compare(f"lstm_proj bwd {name} {tag}", g, w,
+            err = compare(f"lstm_proj bwd {name} {tag} ({path})", g, w,
                           **TOL[("bwd", dname)])
             if main_path:
                 bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
 
         if main_path:
+            if path != "tensor_core":
+                raise AssertionError(f"lstm_proj bwd {tag}: the main path "
+                                     f"took the {path} route")
+            bwd["path"] = path
+            _tc_bwd_checks("lstm_proj bwd " + tag, lstm_sequence_proj_bwd,
+                           args, ys, cs, probe, got,
+                           row_args={0: 1, 1: 1, 5: 0, 6: 0},
+                           row_outs={0: 1, 4: 0, 5: 0}, weight_outs=(1, 2, 3))
             fwd["ms"] = time_ms(lambda: lstm_sequence_proj_fwd(*args))
             fwd["plain_ms"] = time_ms(
                 lambda: lstm_sequence_proj_reference(*args))
             bwd["ms"] = time_ms(
                 lambda: lstm_sequence_proj_bwd(*args, ys, cs, probe))
             bwd["plain_ms"] = time_ms(plain_bwd)
+            _tc_bwd_timing("lstm_proj bwd " + tag, bwd, *args, ys, cs, probe)
             fwd_bound, bwd_bound = _proj_bounds(T, N, F, H, 2)
             fwd.update(library_ms=None, **fwd_bound)
             bwd.update(library_ms=None, **bwd_bound)
@@ -1677,6 +1776,7 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
     and a profile."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda import KERNELS
+    from madrona_learn_tpu_torch.ops.cuda.lstm import TC_LAUNCHES
 
     # Start from an empty allocator cache, whatever ran before.
     gc.collect()
@@ -1698,6 +1798,8 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
 
     for k in KERNELS:
         k.launches = 0
+    for k in TC_LAUNCHES:
+        TC_LAUNCHES[k] = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     one_update()
@@ -1726,6 +1828,7 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
                 raise AssertionError(f"{name}: metric {metric} is not "
                                      f"finite")
     launches = {k.name: k.launches for k in KERNELS}
+    tc_launches = dict(TC_LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     loss_hist = torch.stack(losses).float().cpu()
@@ -1740,6 +1843,14 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
                 f"{num_updates} updates, expected {per * num_updates}")
     log(f"  launches over {num_updates} updates: {launches} (expected "
         f"{ {k: v * num_updates for k, v in per_update.items()} })")
+    # The trainers run bf16 at H = 256: every LSTM backward of the update
+    # takes the tensor-core route.
+    for kernel, tc in tc_launches.items():
+        if tc != launches[kernel]:
+            raise AssertionError(
+                f"{name}: {kernel}: {tc} of {launches[kernel]} launches on "
+                f"the tensor-core route")
+    log(f"  of those on the tensor-core route: {tc_launches}")
     env_steps = timed_updates * STEPS_PER_UPDATE * num_worlds
     sps = [env_steps / s for s in trial_s]
     log(f"  trials: "
@@ -1862,7 +1973,9 @@ def main():
             "path": r.get("path", "cuda_core"),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("recurrence_ms", "weight_grad_ms")
+               if k in r}})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

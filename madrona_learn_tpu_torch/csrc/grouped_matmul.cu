@@ -53,7 +53,7 @@
 // from a 3-stage TMA ring; the CUDA-core path is bound by f32 FMA issue (67
 // TFLOP/s at most).
 
-#include <cuda.h>   // CUtensorMap and its encoder's types; no -lcuda
+#include <cuda.h>   // CUtensorMap
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -256,7 +256,7 @@ grouped_matmul_tc_kernel(const __grid_constant__ CUtensorMap x_map,
       // A: K-major, 8-row groups 1024 bytes apart, 16 deep = 32 bytes on.
       // B: MN-major, 8-deep groups 1024 bytes apart, the two 64-column
       // boxes 8192 bytes apart, 16 deep = 2048 bytes on.
-      mlt::wgmma_m64n128k16_kn(
+      mlt::wgmma_m64n128k16_xn<0>(
           acc, mlt::wgmma_desc(a + kk * 32, 16, 1024, 128),
           mlt::wgmma_desc(b + kk * 2048, kTcBBytes / 2, 1024, 128), 1);
     }
@@ -295,49 +295,6 @@ grouped_matmul_tc_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver the runtime already loaded.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 3-D bf16 tensor map over [d2][d1][d0] (d0 innermost), boxes of
-// [1][b1][b0], 128-byte swizzle, out-of-bounds elements read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1,
-              uint64_t d2, uint32_t b0, uint32_t b1) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
-  const cuuint32_t box[3] = {b0, b1, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 int launch_tc(const void* x, const void* w, const int* chunk_policy, void* y,
               int chunks, int rows, int in, int policies, int out,
               cudaStream_t stream) {
@@ -346,8 +303,8 @@ int launch_tc(const void* x, const void* w, const int* chunk_policy, void* y,
   const long long blocks = static_cast<long long>(chunks) * m_tiles * n_tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap x_map, w_map;
-  if (!make_map(&x_map, x, in, rows, chunks, kTcK, kTcM) ||
-      !make_map(&w_map, w, out, in, policies, 64, kTcK))
+  if (!mlt::make_tma_map(&x_map, x, in, rows, chunks, kTcK, kTcM) ||
+      !mlt::make_tma_map(&w_map, w, out, in, policies, 64, kTcK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = mlt::set_smem(grouped_matmul_tc_kernel, kTcSmem);
   if (err != 0) return err;

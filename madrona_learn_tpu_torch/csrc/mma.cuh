@@ -1,7 +1,8 @@
 // Tensor-core helpers shared by the bf16 kernels: Hopper's warpgroup wgmma
 // (A from shared memory or from registers, B from shared memory by
-// descriptor), TMA loads completing on mbarriers, ldmatrix and cp.async
-// with zero-fill, and bf16 pair packing.
+// descriptor), TMA loads completing on mbarriers and the host encoding of
+// their tensor maps, ldmatrix and cp.async with zero-fill, and bf16 pair
+// packing.
 //
 // Everything here is `static` inside `mlt` rather than in an unnamed
 // namespace: nvcc names each kernel's launch stub from the global scope, so
@@ -118,6 +119,13 @@ static __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
       : "memory");
 }
 
+// Arrive once (no transactions).
+static __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
 // Block until the phase of this parity has completed.
 static __device__ __forceinline__ void mbar_wait(uint64_t* bar,
                                                  uint32_t parity) {
@@ -184,11 +192,12 @@ static __device__ __forceinline__ void wgmma_fence_operand(float& r) {
 }
 
 // d = A . B + (accumulate ? d : 0), m64n128k16, bf16 -> f32; A K-major
-// (tnspA 0) and B MN-major (tnspB 1), both read from shared memory through
-// their descriptors. Thread t of the warpgroup holds rows 16 (t / 32) +
-// (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4) (+ 1) in d[4 j .. 4 j + 3]
-// (the mma.sync C layout).
-static __device__ __forceinline__ void wgmma_m64n128k16_kn(float (&d)[64],
+// (kTransA 0) or MN-major (kTransA 1) and B MN-major (tnspB 1), both read
+// from shared memory through their descriptors. Thread t of the warpgroup
+// holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4)
+// (+ 1) in d[4 j .. 4 j + 3] (the mma.sync C layout).
+template <int kTransA>
+static __device__ __forceinline__ void wgmma_m64n128k16_xn(float (&d)[64],
                                                            uint64_t da,
                                                            uint64_t db,
                                                            int accumulate) {
@@ -205,7 +214,7 @@ static __device__ __forceinline__ void wgmma_m64n128k16_kn(float (&d)[64],
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}, %64, %65, p, 1, 1, %67, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -220,7 +229,7 @@ static __device__ __forceinline__ void wgmma_m64n128k16_kn(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA));
 }
 
 // d = A . B + (accumulate ? d : 0), m64n64k16, bf16 -> f32; A and B both
@@ -249,6 +258,44 @@ static __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d = A . B + (accumulate ? d : 0), m64nNk16 (N = 16 or 32), bf16 -> f32;
+// A and B both K-major, both read from shared memory through their
+// descriptors; d in the C layout of wgmma_rs below.
+template <int N>
+static __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2],
+                                                uint64_t da, uint64_t db,
+                                                int accumulate) {
+  static_assert(N == 16 || N == 32, "wgmma width");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
 }
 
 // d = A . B + (accumulate ? d : 0), m64nNk16 (N = 16, 32 or 64), bf16 ->
@@ -325,6 +372,53 @@ static __device__ __forceinline__ void wgmma_fence_operand(uint32_t& r) {
 // st.shared) visible to the async proxy that wgmma reads through.
 static __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------- host
+
+// cuTensorMapEncodeTiled, from the driver the runtime already loaded (so
+// the library needs no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D bf16 tensor map over [d2][d1][d0] (d0 innermost), boxes of
+// [1][b1][b0] (b0 = 64: 128 bytes), 128-byte swizzle, out-of-bounds
+// elements read as zeros.
+static bool make_tma_map(CUtensorMap* map, const void* ptr, uint64_t d0,
+                         uint64_t d1, uint64_t d2, uint32_t b0, uint32_t b1) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace mlt

@@ -166,6 +166,9 @@ _SIGNATURES = {
     # dtype, tensor_core, x, weights, chunk_policy, y, B, C, IN, P, OUT,
     # stream
     "mlt_grouped_matmul": [_I, _I] + [_P] * 4 + [_I] * 5 + [_P],
+    # H, F, phases, x, keep, wi, wi_t, wr, wr_t, bias, c0, h0, ys, cs, dys,
+    # dx, dg, hin, dh0, dc0, part_w, part_b, dw, db, T, N, splits, stream
+    "mlt_lstm_bwd_tc": [_I] * 3 + [_P] * 21 + [_I] * 3 + [_P],
 }
 
 

@@ -9,9 +9,24 @@ and ``lstm_sequence_proj`` (``_fwd_proj_kernel``, ``_bwd_proj_kernel`` with
 its fused dWi/dWr/db epilogue). ``csrc/lstm.cu`` explains the Hopper
 design: a block owns a tile of batch rows and loops over time, Wr (and Wi)
 are read from L2 every step (they do not fit in shared memory at H = 256),
-and the weight gradients are per-split f32 partials summed by a second pass
-instead of one accumulator shared by the whole grid. On this card the first
-version is bound by CUDA-core FMA issue, not by bytes.
+and the weight gradients are per-split f32 partials summed in a fixed order
+by a second pass instead of one accumulator shared by the whole grid.
+
+Two paths for each backward, picked by :func:`uses_tensor_cores` from the
+dtype and H alone (no fallback: the kernel a call is routed to runs or
+raises):
+
+- bfloat16 at H = 128 or 256: the recurrence on Hopper's warpgroup tensor
+  cores (``wgmma``, bf16 operands, f32 accumulators; the weights stream
+  through a TMA ring, :func:`tc_rows` batch rows a block), then the weight
+  gradients as a split-K ``wgmma`` product over the T * N rows; bound by
+  streaming the weights from L2. TMA and the kernel's 16-byte copies read
+  every operand on a 16-byte boundary: one that is not is copied onto one
+  first;
+- float32, whose products tensor cores would round: the CUDA-core kernels,
+  bound by f32 FMA issue.
+
+The forwards run on CUDA cores in both dtypes.
 
 Contract (all operands in the storage dtype, float32 or bfloat16):
 
@@ -133,10 +148,99 @@ def lstm_sequence_fwd(x_proj, keep, wr, bias, c0, h0):
 
 
 def _num_splits(steps, n, hidden, num_sms, gates=4):
-    """Row splits for the weight-gradient partials of an [H, gates * H]
-    weight: about four blocks per SM, and at least 32 rows per split."""
+    """Row splits for the CUDA-core weight-gradient partials of an
+    [H, gates * H] weight: about four blocks per SM, and at least 32 rows
+    per split."""
     tiles = (gates * hidden // 64) * (hidden // 64)
     return max(1, min(-(-4 * num_sms // tiles), (steps * n) // 32))
+
+
+# Launches of the two backwards that took the tensor-core route, by
+# kernel name: chip_smoke.py holds each trainer's to its launches.
+TC_LAUNCHES = {"lstm_sequence_bwd": 0, "lstm_sequence_proj_bwd": 0}
+
+
+def tc_rows(proj):
+    """Batch rows a block of the tensor-core backward owns (kTcRows in
+    csrc/lstm.cu): 16, and 32 with the projection."""
+    return 32 if proj else 16
+
+
+def uses_tensor_cores(dtype, hidden):
+    """The path rule of the two backward kernels: bfloat16 with H in
+    (128, 256) takes the tensor-core kernels (``wgmma``); float32, whose
+    products tensor cores would round, the CUDA-core ones. (The
+    projection's F rule holds on both paths.)"""
+    return dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES
+
+
+def on_16_bytes(t):
+    """t, or a contiguous copy of it on a 16-byte boundary (TMA and the
+    tensor-core kernel's 16-byte copies need one) if t is not on one."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _num_splits_tc(rows, a_width, hidden, num_sms):
+    """Row splits for the tensor-core weight-gradient partials of an
+    [a_width, 4H] weight: about two blocks of 128 x 128 per SM, and at
+    least 256 rows per split."""
+    tiles = (a_width // 128) * (4 * hidden // 128)
+    return max(1, min(-(-2 * num_sms // tiles), rows // 256))
+
+
+def _bwd_tc_buffers(x, wi, wr):
+    """Outputs and scratch of :func:`_bwd_tc` for these operands."""
+    steps, n = x.shape[:2]
+    hidden = wr.shape[0]
+    f_in = 0 if wi is None else x.shape[2]
+    dtype, device = x.dtype, x.device
+    splits = _num_splits_tc(
+        steps * n, f_in + hidden, hidden,
+        torch.cuda.get_device_properties(device).multi_processor_count)
+
+    def empty(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    dg = empty(steps, n, 4 * hidden)
+    return dict(
+        splits=splits, dg=dg, dx=dg if wi is None else torch.empty_like(x),
+        hin=empty(steps, n, hidden), dh0=empty(n, hidden),
+        dc0=empty(n, hidden),
+        part_w=empty(splits, f_in + hidden, 4 * hidden, dt=torch.float32),
+        part_b=empty(-(-n // tc_rows(wi is not None)), 4 * hidden,
+                     dt=torch.float32),
+        dw=empty(f_in + hidden, 4 * hidden), db=empty(4 * hidden))
+
+
+def _bwd_tc(x, keep, wi, wr, bias, c0, h0, ys, cs, dys, *, phases=3,
+            buffers=None):
+    """The bf16 tensor-core backward of both variants (``wi`` None: x is
+    x_proj) in its two passes, phases bit 0 the recurrence and bit 1 the
+    weight gradients; the buffers of :func:`_bwd_tc_buffers`, filled."""
+    steps, n = x.shape[:2]
+    hidden = wr.shape[0]
+    f_in = 0 if wi is None else x.shape[2]
+    x, keep, bias, c0, h0, ys, cs, dys = map(
+        on_16_bytes, (x, keep, bias, c0, h0, ys, cs, dys))
+    if buffers is None:
+        buffers = _bwd_tc_buffers(x, wi, wr)
+    b = buffers
+    # The transposed copies are new storage, on a 16-byte boundary.
+    wr_t = wr.t().contiguous()
+    wi_t = wr_t if wi is None else wi.t().contiguous()
+    wr = on_16_bytes(wr)
+    wi = wr if wi is None else on_16_bytes(wi)
+    err = library().mlt_lstm_bwd_tc(
+        hidden, f_in, phases, x.data_ptr(), keep.data_ptr(),
+        wi.data_ptr(), wi_t.data_ptr(),
+        wr.data_ptr(), wr_t.data_ptr(), bias.data_ptr(), c0.data_ptr(),
+        h0.data_ptr(), ys.data_ptr(), cs.data_ptr(), dys.data_ptr(),
+        b["dx"].data_ptr(), b["dg"].data_ptr(), b["hin"].data_ptr(),
+        b["dh0"].data_ptr(), b["dc0"].data_ptr(), b["part_w"].data_ptr(),
+        b["part_b"].data_ptr(), b["dw"].data_ptr(), b["db"].data_ptr(),
+        steps, n, b["splits"], torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "lstm_sequence_proj_bwd" if f_in else "lstm_sequence_bwd")
+    return b
 
 
 def lstm_sequence_bwd(x_proj, keep, wr, bias, c0, h0, ys, cs, dys):
@@ -147,6 +251,11 @@ def lstm_sequence_bwd(x_proj, keep, wr, bias, c0, h0, ys, cs, dys):
     _check("ys", ys, dtype, (steps, n, hidden))
     _check("cs", cs, dtype, (steps, n, hidden))
     _check("dys", dys, dtype, (steps, n, hidden))
+    if uses_tensor_cores(dtype, hidden):
+        b = _bwd_tc(x_proj, keep, None, wr, bias, c0, h0, ys, cs, dys)
+        LSTM_BWD.launches += 1
+        TC_LAUNCHES[LSTM_BWD.name] += 1
+        return b["dg"], b["dw"], b["db"], b["dc0"], b["dh0"]
     wr_t = wr.t().contiguous()
     splits = _num_splits(
         steps, n, hidden,
@@ -282,6 +391,12 @@ def lstm_sequence_proj_bwd(x, keep, wi, wr, bias, c0, h0, ys, cs, dys):
     _check("ys", ys, dtype, (steps, n, hidden))
     _check("cs", cs, dtype, (steps, n, hidden))
     _check("dys", dys, dtype, (steps, n, hidden))
+    if uses_tensor_cores(dtype, hidden):
+        b = _bwd_tc(x, keep, wi, wr, bias, c0, h0, ys, cs, dys)
+        LSTM_PROJ_BWD.launches += 1
+        TC_LAUNCHES[LSTM_PROJ_BWD.name] += 1
+        dw = b["dw"]
+        return b["dx"], dw[:f_in], dw[f_in:], b["db"], b["dc0"], b["dh0"]
     wi_t = wi.t().contiguous()
     wr_t = wr.t().contiguous()
     splits = _num_splits(

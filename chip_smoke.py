@@ -16,7 +16,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel's bound, the least time the card could take for the same work.
    ``mha`` and ``mha_flash`` are also run with the keys past ``valid_len``
    poisoned, and ``mha_flash`` at the update pass's B = 4096 must equal
-   the rollout step's B = 512 bitwise on the rows they share;
+   the rollout step's B = 512 bitwise on the rows they share; the kernels
+   with a tensor-core route (the LSTM and GRU backwards, the fused step)
+   are held to their path rules, the backwards at N = 8192 must equal N =
+   256 bitwise on the shared rows and give bitwise equal weight gradients
+   over two calls, and the fused step at N = 16384 must equal N = 512
+   bitwise on the shared rows;
 4. models: the update pass and its gradients through the kernels on the
    card against the same model on the CPU, for the MLP model, a small GRU
    model, a small fused-trunk model, a small flagship (entity attention)
@@ -50,7 +55,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Each trainer phase sets every launch count to 0 just before it and checks
 just after it that every kernel of its path launched as often as the
-configuration implies; it checks finite losses and metrics and a rising
+configuration implies and that every launch of the kernels with a
+tensor-core route took it; it checks finite losses and metrics and a rising
 mean reward and a first-minibatch max |ratio - 1| below the clip
 coefficient, and prints env-steps/s, peak memory, that ratio, a
 synchronized collect / learn split and a torch.profiler breakdown of one
@@ -324,37 +330,36 @@ def cudnn_lstm_check(args, ys):
         log(f"  cuDNN LSTM on the same inputs did not run: {e}")
 
 
-def _routed(name, bwd, dtype, H, *args):
-    """bwd(*args) and the route it took (``tensor_core`` where it counted a
-    tensor-core launch in TC_LAUNCHES, else ``cuda_core``), which must be
-    the one the path rule names for dtype and H."""
-    from madrona_learn_tpu_torch.ops.cuda.lstm import (
-        TC_LAUNCHES, uses_tensor_cores)
-
-    before = TC_LAUNCHES[name]
-    out = bwd(*args)
-    path = "tensor_core" if TC_LAUNCHES[name] > before else "cuda_core"
-    rule = "tensor_core" if uses_tensor_cores(dtype, H) else "cuda_core"
-    if path != rule:
-        raise AssertionError(f"{name}: took the {path} route, the path rule "
-                             f"names {rule}")
+def _routed(kernel, rule, fn, *args):
+    """fn(*args) and the route it took (``tensor_core`` where it counted a
+    tensor-core launch in ``kernel.tc_launches``, else ``cuda_core``), which
+    must be the one the path rule names (``rule``, a bool)."""
+    before = kernel.tc_launches
+    out = fn(*args)
+    path = "tensor_core" if kernel.tc_launches > before else "cuda_core"
+    want = "tensor_core" if rule else "cuda_core"
+    if path != want:
+        raise AssertionError(f"{kernel.name}: took the {path} route, the "
+                             f"path rule names {want}")
     return out, path
 
 
-def _tc_bwd_checks(name, bwd, args, ys, cs, probe, got, row_args, row_outs,
+def _tc_bwd_checks(name, bwd, args, states, probe, got, row_args, row_outs,
                    weight_outs, rows=256):
     """The bf16 tensor-core backward at the main-path shape, beyond its
     agreement with the plain version: two calls give bitwise equal weight
     gradients (deterministic), and its first ``rows`` batch rows give
     bitwise the outputs of a backward over those rows alone (batch
-    invariant). ``row_args`` / ``row_outs`` map an argument / output index
-    to its batch dimension; ``weight_outs`` lists the weight gradients."""
+    invariant). ``states`` are the forward's [T, N, H] outputs the backward
+    reads ((ys, cs), or (ys,)); ``row_args`` / ``row_outs`` map an argument
+    / output index to its batch dimension; ``weight_outs`` lists the weight
+    gradients."""
     import torch
 
     def first_rows(t, dim):
         return t.narrow(dim, 0, rows).contiguous()
 
-    again = bwd(*args, ys, cs, probe)
+    again = bwd(*args, *states, probe)
     same = all(torch.equal(got[i], again[i]) for i in weight_outs)
     log(f"  {name}: weight gradients bitwise equal over two calls: "
         f"{'ok' if same else 'FAIL'}")
@@ -362,7 +367,7 @@ def _tc_bwd_checks(name, bwd, args, ys, cs, probe, got, row_args, row_outs,
         raise AssertionError(f"{name}: weight gradients differ run to run")
     sub = [first_rows(a, row_args[i]) if i in row_args else a
            for i, a in enumerate(args)]
-    alone = bwd(*sub, first_rows(ys, 1), first_rows(cs, 1),
+    alone = bwd(*sub, *(first_rows(t, 1) for t in states),
                 first_rows(probe, 1))
     same = all(torch.equal(first_rows(got[i], d), alone[i])
                for i, d in row_outs.items())
@@ -397,7 +402,8 @@ def _tc_bwd_timing(name, results, x, keep, wi, wr, bias, c0, h0, ys, cs,
 def check_lstm(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
-        lstm_sequence_bwd, lstm_sequence_fwd, lstm_sequence_reference)
+        LSTM_BWD, lstm_sequence_bwd, lstm_sequence_fwd,
+        lstm_sequence_reference, uses_tensor_cores)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     fwd = results["lstm_sequence_fwd"] = {"max_abs_err": 0.0}
@@ -436,8 +442,8 @@ def check_lstm(results):
             return torch.autograd.grad(
                 (out.float() * probe.float()).sum(), diff)
 
-        got, path = _routed("lstm_sequence_bwd", lstm_sequence_bwd, dtype, H,
-                            *args, ys, cs, probe)
+        got, path = _routed(LSTM_BWD, uses_tensor_cores(dtype, H),
+                            lstm_sequence_bwd, *args, ys, cs, probe)
         for name, g, w in zip(("dxp", "dwr", "db", "dc0", "dh0"), got,
                               plain_bwd()):
             err = compare(f"lstm bwd {name} {tag} ({path})", g, w,
@@ -450,8 +456,9 @@ def check_lstm(results):
                 raise AssertionError(f"lstm bwd {tag}: the main path took "
                                      f"the {path} route")
             bwd["path"] = path
-            _tc_bwd_checks("lstm bwd " + tag, lstm_sequence_bwd, args, ys, cs,
-                           probe, got, row_args={0: 1, 1: 1, 4: 0, 5: 0},
+            _tc_bwd_checks("lstm bwd " + tag, lstm_sequence_bwd, args,
+                           (ys, cs), probe, got,
+                           row_args={0: 1, 1: 1, 4: 0, 5: 0},
                            row_outs={0: 1, 3: 0, 4: 0}, weight_outs=(1, 2))
             fwd["ms"] = time_ms(lambda: lstm_sequence_fwd(*args))
             fwd["plain_ms"] = time_ms(lambda: lstm_sequence_reference(*args))
@@ -577,39 +584,72 @@ def _step_bound(N, F, H, layers, itemsize):
 def check_policy_step(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.policy_step import (
-        fused_policy_step, fused_policy_step_reference)
+        POLICY_STEP, fused_policy_step, fused_policy_step_reference,
+        uses_tensor_cores)
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     res = results["fused_policy_step"] = {"max_abs_err": 0.0}
     bf16, f32 = torch.bfloat16, torch.float32
     # (N, F, H, layers, dtype, on the main path): the headline_fused rollout
-    # step, float32 at the same shape, ragged batches, H = 128, and F = 128.
+    # step, float32 at the same shape (CUDA cores), ragged batches at both
+    # widths on tensor cores, F = 128 with three layers, and float32 at
+    # H = 128.
     cases = [
         (16384, 3, 256, 2, bf16, True),
         (16384, 3, 256, 2, f32, False),
         (1000, 3, 256, 2, bf16, False),
-        (1000, 3, 128, 1, f32, False),
+        (1000, 3, 128, 1, bf16, False),
         (300, 128, 128, 3, bf16, False),
+        (77, 100, 256, 4, bf16, False),
+        (1000, 3, 128, 1, f32, False),
     ]
     for N, F, H, layers, dtype, main_path in cases:
         dname = str(dtype).split(".")[-1]
         tag = f"[{N},{F}->{H}x{layers},LSTM {H}] {dname}"
         args = _step_inputs(gen, N, F, H, layers, dtype)
-        got_f, (got_c, got_h) = fused_policy_step(*args)
+        (got_f, (got_c, got_h)), path = _routed(
+            POLICY_STEP, uses_tensor_cores(dtype, H, F), fused_policy_step,
+            *args)
         want_f, (want_c, want_h) = fused_policy_step_reference(*args)
         for name, g, w in (("feats", got_f, want_f), ("c'", got_c, want_c),
                            ("h'", got_h, want_h)):
-            err = compare(f"fused_policy_step {name} {tag}", g, w,
+            err = compare(f"fused_policy_step {name} {tag} ({path})", g, w,
                           **TOL[("step", dname)])
             if main_path:
                 res["max_abs_err"] = max(res["max_abs_err"], err)
         if main_path:
+            if path != "tensor_core":
+                raise AssertionError(f"fused_policy_step {tag}: the main "
+                                     f"path took the {path} route")
+            res["path"] = path
+            # Batch invariance: the first 512 rows alone give bitwise the
+            # same outputs.
+            x, mlp, wi, wr, bias, c, h = args
+            rows = 512
+            alone = fused_policy_step(x[:rows].contiguous(), mlp, wi, wr,
+                                      bias, c[:rows].contiguous(),
+                                      h[:rows].contiguous())
+            same = all(torch.equal(g[:rows], a) for g, a in zip(
+                (got_f, got_c, got_h), (alone[0], *alone[1])))
+            log(f"  fused_policy_step {tag}: rows 0-{rows - 1} bitwise equal "
+                f"to the step at N = {rows}: {'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError("fused_policy_step: not batch invariant")
             ms = time_ms(lambda: fused_policy_step(*args))
             plain_ms = time_ms(lambda: fused_policy_step_reference(*args))
+            # The host's share: the rollout loop is host-bound, so what a
+            # call costs the host (checks, TMA maps, launch) matters there.
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                fused_policy_step(*args)
+            host_us = (time.perf_counter() - t0) * 1e4
+            torch.cuda.synchronize()
             b = _step_bound(N, F, H, layers, args[0].element_size())
             log(f"  fused_policy_step {tag}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-                f"({b['bound_by']}); no single PyTorch call computes it")
+                f"({b['bound_by']}); no single PyTorch call computes it; "
+                f"host {host_us:.1f} us a call (enqueue, 100 calls)")
             res.update(ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
@@ -632,8 +672,8 @@ def _proj_bounds(T, N, F, H, itemsize):
 def check_lstm_proj(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
-        lstm_sequence_proj_bwd, lstm_sequence_proj_fwd,
-        lstm_sequence_proj_reference)
+        LSTM_PROJ_BWD, lstm_sequence_proj_bwd, lstm_sequence_proj_fwd,
+        lstm_sequence_proj_reference, uses_tensor_cores)
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     fwd = results["lstm_sequence_proj_fwd"] = {"max_abs_err": 0.0}
@@ -684,8 +724,8 @@ def check_lstm_proj(results):
             return torch.autograd.grad(
                 (out.float() * probe.float()).sum(), diff)
 
-        got, path = _routed("lstm_sequence_proj_bwd", lstm_sequence_proj_bwd,
-                            dtype, H, *args, ys, cs, probe)
+        got, path = _routed(LSTM_PROJ_BWD, uses_tensor_cores(dtype, H),
+                            lstm_sequence_proj_bwd, *args, ys, cs, probe)
         for name, g, w in zip(("dx", "dwi", "dwr", "db", "dc0", "dh0"), got,
                               plain_bwd()):
             err = compare(f"lstm_proj bwd {name} {tag} ({path})", g, w,
@@ -699,7 +739,7 @@ def check_lstm_proj(results):
                                      f"took the {path} route")
             bwd["path"] = path
             _tc_bwd_checks("lstm_proj bwd " + tag, lstm_sequence_proj_bwd,
-                           args, ys, cs, probe, got,
+                           args, (ys, cs), probe, got,
                            row_args={0: 1, 1: 1, 5: 0, 6: 0},
                            row_outs={0: 1, 4: 0, 5: 0}, weight_outs=(1, 2, 3))
             fwd["ms"] = time_ms(lambda: lstm_sequence_proj_fwd(*args))
@@ -735,9 +775,10 @@ def _gru_inputs(gen, T, N, H, dtype):
 def _gru_bounds(T, N, H, itemsize):
     """Bytes and operations of the GRU kernels, as _lstm_bounds reckons
     them: each input read once, each output written once (the backward's
-    dhp scratch is neither); the h . Wh products (and in the backward dhp .
-    Wh^T and h^T . dhp) on bf16 tensor cores, and about 25 f32 operations
-    of gate math per unit and step (35 backward)."""
+    dhp and h_in scratch are neither); the h . Wh products (and in the
+    backward the recomputed h_in . Wh, dhp . Wh^T and h_in^T . dhp) on bf16
+    tensor cores, and about 25 f32 operations of gate math per unit and
+    step (35 backward)."""
     seq, state = T * N * H, N * H
     weights = 3 * H * H + H
     fwd_bytes = itemsize * (3 * seq + T * N + weights + state + seq)
@@ -745,7 +786,7 @@ def _gru_bounds(T, N, H, itemsize):
                             + 3 * seq + weights + state)
     product = 2 * T * N * H * 3 * H
     return (bound(fwd_bytes, {"bf16_tensor": product, "f32": 25 * seq}),
-            bound(bwd_bytes, {"bf16_tensor": 2 * product, "f32": 35 * seq}))
+            bound(bwd_bytes, {"bf16_tensor": 3 * product, "f32": 35 * seq}))
 
 
 def cudnn_gru_check(args, ys):
@@ -784,21 +825,45 @@ def cudnn_gru_check(args, ys):
         log(f"  cuDNN GRU on the same inputs did not run: {e}")
 
 
+def _gru_tc_timing(results, args, ys, probe):
+    """The tensor-core GRU backward's time split into the recurrence and
+    the weight-gradient pass (the same buffers, one pass a call)."""
+    from madrona_learn_tpu_torch.ops.cuda.gru import (
+        TC_ROWS, _bwd_tc, _bwd_tc_buffers)
+
+    buffers = _bwd_tc_buffers(args[0])
+
+    def run(phases):
+        return _bwd_tc(*args, ys, probe, phases=phases, buffers=buffers)
+
+    run(3)
+    split = dict(recurrence_ms=time_ms(lambda: run(1)),
+                 weight_grad_ms=time_ms(lambda: run(2)))
+    log(f"  gru bwd tensor-core split (R = {TC_ROWS} rows a block): "
+        f"recurrence {split['recurrence_ms']:.3f} ms, weight gradients "
+        f"{split['weight_grad_ms']:.3f} ms")
+    results.update(split)
+
+
 def check_gru(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gru import (
-        gru_sequence_bwd, gru_sequence_fwd, gru_sequence_reference)
+        GRU_BWD, gru_sequence_bwd, gru_sequence_fwd, gru_sequence_reference,
+        uses_tensor_cores)
 
     gen = torch.Generator(device="cuda").manual_seed(10)
     fwd = results["gru_sequence_fwd"] = {"max_abs_err": 0.0}
     bwd = results["gru_sequence_bwd"] = {"max_abs_err": 0.0}
     bf16, f32 = torch.bfloat16, torch.float32
     # (T, N, H, dtype, on the main path): the headline_gru update minibatch,
-    # its rollout step, a ragged batch, and float32 at both widths.
+    # its rollout step, ragged batches at both widths (the bf16 backward on
+    # tensor cores), and float32 at both widths (CUDA cores).
     cases = [
         (16, 8192, 256, bf16, True),
         (1, 16384, 256, bf16, True),
         (16, 1000, 256, bf16, False),
+        (5, 70, 128, bf16, False),
+        (16, 1000, 128, bf16, False),
         (5, 1000, 256, f32, False),
         (4, 70, 128, f32, False),
     ]
@@ -823,19 +888,28 @@ def check_gru(results):
             return torch.autograd.grad(
                 (out.float() * probe.float()).sum(), diff)
 
-        got = gru_sequence_bwd(*args, ys, probe)
+        got, path = _routed(GRU_BWD, uses_tensor_cores(dtype, H),
+                            gru_sequence_bwd, *args, ys, probe)
         for name, g, w in zip(("dxp", "dwh", "dbh", "dh0"), got,
                               plain_bwd()):
-            err = compare(f"gru bwd {name} {tag}", g, w,
+            err = compare(f"gru bwd {name} {tag} ({path})", g, w,
                           **TOL[("gru_bwd", dname)])
             if main_path and T > 1:
                 bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
 
         if main_path and T > 1:
+            if path != "tensor_core":
+                raise AssertionError(f"gru bwd {tag}: the main path took "
+                                     f"the {path} route")
+            bwd["path"] = path
+            _tc_bwd_checks("gru bwd " + tag, gru_sequence_bwd, args, (ys,),
+                           probe, got, row_args={0: 1, 1: 1, 4: 0},
+                           row_outs={0: 1, 3: 0}, weight_outs=(1, 2))
             fwd["ms"] = time_ms(lambda: gru_sequence_fwd(*args))
             fwd["plain_ms"] = time_ms(lambda: gru_sequence_reference(*args))
             bwd["ms"] = time_ms(lambda: gru_sequence_bwd(*args, ys, probe))
             bwd["plain_ms"] = time_ms(plain_bwd)
+            _gru_tc_timing(bwd, args, ys, probe)
             fwd_bound, bwd_bound = _gru_bounds(T, N, H, 2)
             fwd.update(library_ms=None, **fwd_bound)
             bwd.update(library_ms=None, **bwd_bound)
@@ -1769,6 +1843,12 @@ def _profile_update(one_update):
                 f"(inclusive)")
 
 
+# The kernels whose wrappers count their tensor-core launches
+# (Kernel.tc_launches): their path rules send bf16 at H = 128 or 256 there.
+TC_ROUTED = ("lstm_sequence_bwd", "lstm_sequence_proj_bwd", "gru_sequence_bwd",
+             "fused_policy_step")
+
+
 def trainer_phase(card, name, build, per_update, trials, timed_updates,
                   last_rewards, num_worlds=NUM_WORLDS):
     """One trainer: launch counts, finite metrics, rising reward,
@@ -1776,7 +1856,6 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
     and a profile."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda import KERNELS
-    from madrona_learn_tpu_torch.ops.cuda.lstm import TC_LAUNCHES
 
     # Start from an empty allocator cache, whatever ran before.
     gc.collect()
@@ -1798,8 +1877,7 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
 
     for k in KERNELS:
         k.launches = 0
-    for k in TC_LAUNCHES:
-        TC_LAUNCHES[k] = 0
+        k.tc_launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     one_update()
@@ -1828,7 +1906,8 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
                 raise AssertionError(f"{name}: metric {metric} is not "
                                      f"finite")
     launches = {k.name: k.launches for k in KERNELS}
-    tc_launches = dict(TC_LAUNCHES)
+    tc_launches = {k.name: k.tc_launches for k in KERNELS
+                   if k.name in TC_ROUTED}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     loss_hist = torch.stack(losses).float().cpu()
@@ -1843,8 +1922,9 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
                 f"{num_updates} updates, expected {per * num_updates}")
     log(f"  launches over {num_updates} updates: {launches} (expected "
         f"{ {k: v * num_updates for k, v in per_update.items()} })")
-    # The trainers run bf16 at H = 256: every LSTM backward of the update
-    # takes the tensor-core route.
+    # The trainers run bf16 at H = 256: every launch of a kernel with a
+    # counted tensor-core route (the LSTM and GRU backwards, the fused step)
+    # takes it.
     for kernel, tc in tc_launches.items():
         if tc != launches[kernel]:
             raise AssertionError(

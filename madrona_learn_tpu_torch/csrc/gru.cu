@@ -22,7 +22,8 @@
 // in bf16 Wh is 384 KiB, more than the 227 KB of shared memory a Hopper
 // block can hold, and Hopper blocks run in parallel in no order.
 //
-// Design here (the LSTM kernels' layout, common.cuh):
+// The forward, and the backward in float32 (the LSTM kernels' layout,
+// common.cuh):
 // - One block of kThreads threads owns kRows batch rows and all H units of
 //   those rows, and loops over time. Each thread computes all three gates of
 //   its (row, unit) pairs through row_tile_product<T, 3, ...>, so the gate
@@ -40,15 +41,53 @@
 //   pass of weight_grad.cuh (f32 partials over contiguous row splits, summed
 //   in a fixed order); dbh is the last H columns of its bias sums.
 //
-// Bound on the H100: a chain of [BN, H] x [H, 3H] products (two in the
-// backward) with a dependency between steps; on CUDA cores (f32 FMA) this
-// first version is bound by FMA issue and shared/L1 load throughput, far
-// below the tensor-core rate that bounds the work itself. Memory traffic is
-// one read of x_proj and one write of ys per step, small next to the
-// products.
+// These are bound by CUDA-core FMA issue and shared/L1 load throughput,
+// far below the tensor-core rate that bounds the work itself; the backward
+// serves float32 alone.
+//
+// The backward in bfloat16 (gru_bwd_tc_kernel, then weight_grad_tc.cuh), on
+// Hopper's tensor cores: the TPU kernel's products are bf16 operands with
+// f32 accumulation (h_in . Wh; dhp rounded to the storage type before
+// dh_prev = dhp . Wh^T and dWh = h_in^T . dhp), which is what wgmma
+// computes, with only the order of the sums changed. It is lstm.cu's
+// lstm_bwd_tc_kernel with three gates in place of four; the wrapper's rule
+// (ops/cuda/gru.py: uses_tensor_cores) sends bf16 at H = 128 or 256 here.
+// - One block owns R = kGruTcRows batch rows (32: the faster of 16 and 32
+//   at the update shape on the H100) and loops over time in reverse; warpgroup w owns units 64 w .. 64 w + 63 of all three gates,
+//   so the gate math, the dh_total * z term and the f32 dh carry stay
+//   thread-local. The products run transposed, gates (or units) as wgmma's
+//   M and the block's rows as its N: hp^T = Wh^T . h_in^T (three m64nR
+//   accumulators a warpgroup), dh_prev^T = Wh . dhp^T (K = 3H).
+// - A: 64-deep slices of Wh^T, then of Wh, through a TMA ring in one fixed
+//   order every step (slice_ring.cuh). Wh is 384 KiB in bf16 at H = 256,
+//   more than a block's shared memory, so it streams from L2 every step; a
+//   block reuses each element for its R rows.
+// - B: the block's h_in and dhp tiles (K-major, 128-byte swizzle). x_proj
+//   lands in the dhp tile, which the gate math then overwrites element by
+//   element; x_n stays apart from h . W_hn + b_hn (linear before reset), so
+//   only r and z take x + h . Wh. h_in, x_proj and dys arrive by 16-byte
+//   cp.async with zero-fill, so rows past N give exact zeros in dxp and dhp.
+// - dxp = [dr_pre, dz_pre, dn_pre] and dhp = [dr_pre, dz_pre, dn_pre * r]
+//   differ in the n slice alone: dn_pre goes to a tile of its own, and both
+//   leave shared memory by 16-byte stores. h_in as each step used it goes to
+//   a [T, N, H] scratch. Then weight_grad_tc.cuh: dWh = h_in^T . dhp as
+//   split-K wgmma over the T*N rows, f32 partials per split summed in split
+//   order; dbh from per-block partials of dhp's n slice, summed in block
+//   order. Deterministic, and a row's dxp and dh0 do not depend on N or on
+//   where the row sits.
+//
+// Bound on the H100: the backward's three products take 0.16 ms on tensor
+// cores at [16, 8192, 256 -> 768], about what its bytes take; what holds
+// the recurrence is streaming Wh^T and Wh from L2, 768 KiB a block a step,
+// about 3.2 GB a call at R = 32.
+
+#include <cuda.h>   // CUtensorMap
 
 #include "common.cuh"
+#include "mma.cuh"
+#include "slice_ring.cuh"
 #include "weight_grad.cuh"
+#include "weight_grad_tc.cuh"
 
 namespace {
 
@@ -301,16 +340,339 @@ int launch_bwd(const void* xp, const void* keep, const void* wh,
   return sum_splits<T>(part_b, db3, splits, 3 * H, stream);
 }
 
+// ------------------------------------ bf16 backward on tensor cores
+
+using bf16 = __nv_bfloat16;
+
+// Batch rows a block of the tensor-core recurrence (R): 32 ran 14-17%
+// faster than 16 at [16, 8192, 256 -> 768] on the H100, though it spills
+// at H = 256. ops/cuda/gru.py:TC_ROWS mirrors it.
+constexpr int kGruTcRows = 32;
+
+// Shared memory of gru_bwd_tc_kernel, from a 1024-byte aligned base: the
+// ring of weight slices ([H rows][64] bf16 each), then the block's h_in
+// tile and its x_proj / dhp tile (K-major wgmma B operands: [K / 64]
+// subtiles of [R][64], 128-byte swizzle), its dn_pre tile (the same
+// layout) and its dys tile ([R][H], row_off).
+template <int H, int R>
+struct GruTcBwd {
+  static constexpr int kWarpgroups = H / 64;   // 64 units each
+  static constexpr int kThreads = 128 * kWarpgroups;
+  static constexpr int kWarps = 4 * kWarpgroups;
+  static constexpr int kSub = R * 128;          // one [R][64] subtile
+  static constexpr int kStageBytes = H * 128;
+  static constexpr int kTileBytes = R * H * 2;
+  static constexpr int kDgBytes = 3 * kTileBytes;
+  static constexpr int kFixed = kDgBytes + 3 * kTileBytes;
+  static constexpr int kStages =
+      min_c(4, (kSmemLimit - 2048 - kFixed) / kStageBytes);
+  static constexpr int kSmem = kStages * kStageBytes + kFixed + 1024;
+  static_assert(kStages >= 2, "a ring of at least two slices");
+};
+
+// The reverse-time recurrence of the bf16 backward (see the header). One
+// block owns R batch rows; warpgroup w owns units 64 w .. 64 w + 63 of all
+// three gates. Thread (warp v of its warpgroup, lane l) holds units
+// 64 w + 16 v + l / 4 (+ 8) and rows 8 j + 2 (l % 4) (+ 1) of each m64nR
+// accumulator: element 4 j + 2 s + e is unit + 8 s, row 8 j + 2 (l % 4) +
+// e. Outputs: dxp and dhp ([T, N, 3H]), hin (h_in as the step used it,
+// [T, N, H]), dh0 and part_b (this block's dbh partial, [blocks, H]).
+template <int H, int R>
+__global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
+    gru_bwd_tc_kernel(const __grid_constant__ CUtensorMap wht_map,
+                      const __grid_constant__ CUtensorMap wh_map,
+                      const bf16* __restrict__ xp,
+                      const bf16* __restrict__ keep,
+                      const bf16* __restrict__ bias_h,
+                      const bf16* __restrict__ h0,
+                      const bf16* __restrict__ ys,
+                      const bf16* __restrict__ dys, bf16* __restrict__ dxp,
+                      bf16* __restrict__ dhp, bf16* __restrict__ hin,
+                      bf16* __restrict__ dh0, float* __restrict__ part_b,
+                      int steps, int n_rows) {
+  using L = GruTcBwd<H, R>;
+  constexpr int G3 = 3 * H;
+  constexpr int S = L::kStages;
+  constexpr int kAcc = R / 2;
+  constexpr int kGate = (H / 64) * L::kSub;   // gate stride in the dhp tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[S];
+  __shared__ __align__(8) uint64_t empty[S];
+  const uint32_t raw_s = smem_u32(smem_raw);
+  const uint32_t ring = (raw_s + 1023) & ~1023u;
+  const uint32_t hin_s = ring + S * L::kStageBytes;
+  const uint32_t dg_s = hin_s + L::kTileBytes;
+  const uint32_t dn_s = dg_s + L::kDgBytes;
+  const uint32_t dys_s = dn_s + L::kTileBytes;
+  const uint8_t* hin_p = smem_raw + (hin_s - raw_s);
+  uint8_t* dg_p = smem_raw + (dg_s - raw_s);
+  uint8_t* dn_p = smem_raw + (dn_s - raw_s);
+  const uint8_t* dys_p = smem_raw + (dys_s - raw_s);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, lane = tid % 32;
+  const int lt = lane % 4;
+  const int unit0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+  const int block_row = blockIdx.x * R;
+
+  // The weight slices of one step, in the order the step consumes them:
+  // Wh^T by (H-chunk, gate), then Wh by 3H-chunk; the same every step.
+  constexpr int g_loads = 3 * (H / kTcK);
+  constexpr int d_loads = G3 / kTcK;
+  constexpr int step_loads = g_loads + d_loads;
+  const CUtensorMap* wht = &wht_map;
+  const CUtensorMap* whm = &wh_map;
+  auto issue = [&](int q, uint32_t dst, uint64_t* bar) {
+    const int p = q % step_loads;
+    if (p < g_loads)
+      tma_load_3d(dst, wht, bar, (p / 3) * kTcK, (p % 3) * H, 0);
+    else
+      tma_load_3d(dst, whm, bar, (p - g_loads) * kTcK, 0, 0);
+  };
+  SliceRing<S> slices{full, empty, ring, L::kStageBytes, steps * step_loads,
+                      0};
+  if (tid == 0) slices.init(L::kWarps);
+  __syncthreads();
+  if (tid == 0) slices.prime(issue);
+  const uint32_t a_off = wg * 64 * 128;
+
+  // Byte offsets of this thread's elements (rows 2 (l % 4) + e, units
+  // unit0 + 8 s) in the K-major tiles and in the dys tile: row 8 j + .. is
+  // j * 1024 (j * 16 H) bytes on, gate g of the dhp tile g * kGate.
+  uint32_t kb[2][2], rb[2][2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      kb[s][e] = kmaj_off<R>(2 * lt + e, unit0 + 8 * s);
+      rb[s][e] = row_off<H>(2 * lt + e, unit0 + 8 * s);
+    }
+  float bn[2], db[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int s = 0; s < 2; ++s) bn[s] = __bfloat162float(bias_h[unit0 + 8 * s]);
+  float dh[kAcc];   // the carried cotangent, f32
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) dh[i] = 0.0f;
+
+  for (int t = steps - 1; t >= 0; --t) {
+    const size_t trow = static_cast<size_t>(t) * n_rows;
+    const size_t prow = trow - n_rows;   // step t - 1 (t > 0)
+    // The tiles of step t, by 16-byte cp.async with zero-fill: the carry
+    // into step t (the cleared state after step t - 1, or the unmasked h0
+    // at t == 0), dys, and x_proj into the dhp tile.
+    for (int e = tid; e < R * (H / 8); e += L::kThreads) {
+      const int n = e / (H / 8), c = e % (H / 8);
+      const int row = block_row + n;
+      const bool live = row < n_rows;
+      bool kept = live;
+      const bf16* hs = h0;
+      if (live && t == 0) {
+        hs = h0 + static_cast<size_t>(row) * H + c * 8;
+      } else if (live) {
+        kept = __bfloat162float(keep[prow + row]) > 0.5f;
+        hs = ys + (prow + row) * H + c * 8;
+      }
+      cp_async16(hin_s + kmaj_off<R>(n, c * 8), hs, kept);
+      cp_async16(dys_s + row_off<H>(n, c * 8),
+                 dys + (live ? (trow + row) * H + c * 8 : 0), live);
+    }
+    for (int e = tid; e < R * (G3 / 8); e += L::kThreads) {
+      const int n = e / (G3 / 8), c = e % (G3 / 8);
+      const int row = block_row + n;
+      const bool live = row < n_rows;
+      cp_async16(dg_s + kmaj_off<R>(n, c * 8),
+                 xp + (live ? (trow + row) * G3 + c * 8 : 0), live);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+
+    // h_in as this step used it, for the weight-gradient pass.
+    for (int e = tid; e < R * (H / 8); e += L::kThreads) {
+      const int n = e / (H / 8), c = e % (H / 8);
+      const int row = block_row + n;
+      if (row < n_rows)
+        *reinterpret_cast<uint4*>(hin + (trow + row) * H + c * 8) =
+            *reinterpret_cast<const uint4*>(hin_p + kmaj_off<R>(n, c * 8));
+    }
+    uint32_t keep_prev = 0;   // bit 2 j + e: row 8 j + 2 (l % 4) + e
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = block_row + 8 * j + 2 * lt + e;
+        if (t > 0 && row < n_rows &&
+            __bfloat162float(keep[prow + row]) > 0.5f)
+          keep_prev |= 1u << (2 * j + e);
+      }
+
+    // hp^T = Wh^T . h_in^T, gates as M and rows as N.
+    float acc[3][kAcc];
+    for (int kc = 0; kc < H / kTcK; ++kc)
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        ring_product<R, 0>(slices, issue, acc[g], a_off,
+                           hin_s + kc * L::kSub, kc == 0);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) wgmma_fence_operand(acc[g][i]);
+
+    // Gate math, thread-local (ops/pallas/gru.py:_gates_fp32 and the
+    // backward's chain): dhp rounded to bf16 into the dhp tile (each thread
+    // rewrites only the x_proj elements it read), dn_pre into its tile, the
+    // dbh partial, and dh_total * z, h_in's direct path into h'.
+    float dhz[kAcc];
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * s + e;
+          const bool live = block_row + 8 * j + 2 * lt + e < n_rows;
+          uint8_t* dgo = dg_p + kb[s][e] + j * 1024;
+          const float hn_lin = acc[2][i] + bn[s];
+          const float r = sigmoid_f(ld_bf16(dgo) + acc[0][i]);
+          const float z = sigmoid_f(ld_bf16(dgo + kGate) + acc[1][i]);
+          const float nn = tanhf(ld_bf16(dgo + 2 * kGate) + r * hn_lin);
+          const float h_in = ld_bf16(hin_p + kb[s][e] + j * 1024);
+          const float dh_total =
+              ld_bf16(dys_p + rb[s][e] + j * 16 * H) + dh[i];
+          const float dn = dh_total * (1.0f - z);
+          const float dz = dh_total * (h_in - nn);
+          const float dn_pre = dn * (1.0f - nn * nn);
+          const float dr = dn_pre * hn_lin;
+          const float dhn = dn_pre * r;
+          const float dz_pre = dz * z * (1.0f - z);
+          const float dr_pre = dr * r * (1.0f - r);
+          const bf16 zero = __float2bfloat16_rn(0.0f);
+          const bf16 d_hn = live ? __float2bfloat16_rn(dhn) : zero;
+          *reinterpret_cast<bf16*>(dgo) =
+              live ? __float2bfloat16_rn(dr_pre) : zero;
+          *reinterpret_cast<bf16*>(dgo + kGate) =
+              live ? __float2bfloat16_rn(dz_pre) : zero;
+          *reinterpret_cast<bf16*>(dgo + 2 * kGate) = d_hn;
+          *reinterpret_cast<bf16*>(dn_p + kb[s][e] + j * 1024) =
+              live ? __float2bfloat16_rn(dn_pre) : zero;
+          db[s] += __bfloat162float(d_hn);
+          dhz[i] = live ? dh_total * z : 0.0f;
+        }
+    fence_proxy_async();
+    __syncthreads();
+
+    // dhp (the weight-gradient pass's B operand) and dxp, which differs
+    // from it in the n slice alone.
+    for (int e = tid; e < R * (G3 / 8); e += L::kThreads) {
+      const int n = e / (G3 / 8), c = e % (G3 / 8);
+      const int row = block_row + n;
+      if (row < n_rows) {
+        const uint4 v =
+            *reinterpret_cast<const uint4*>(dg_p + kmaj_off<R>(n, c * 8));
+        const size_t o = (trow + row) * G3 + c * 8;
+        *reinterpret_cast<uint4*>(dhp + o) = v;
+        *reinterpret_cast<uint4*>(dxp + o) =
+            c * 8 < 2 * H ? v
+                          : *reinterpret_cast<const uint4*>(
+                                dn_p + kmaj_off<R>(n, c * 8 - 2 * H));
+      }
+    }
+
+    // dh_prev^T = Wh . dhp^T: this warpgroup's 64 units, in the layout of
+    // its carry; then + dh_total * z.
+    float dhp_acc[kAcc];
+    for (int kc = 0; kc < G3 / kTcK; ++kc)
+      ring_product<R, 0>(slices, issue, dhp_acc, a_off, dg_s + kc * L::kSub,
+                         kc == 0);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) wgmma_fence_operand(dhp_acc[i]);
+
+    // dh0 at t == 0; the carried cotangent picks up the clear mask applied
+    // between the steps.
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * s + e;
+          const int row = block_row + 8 * j + 2 * lt + e;
+          const float d = dhp_acc[i] + dhz[i];
+          if (t == 0 && row < n_rows)
+            dh0[static_cast<size_t>(row) * H + unit0 + 8 * s] =
+                __float2bfloat16_rn(d);
+          dh[i] = (keep_prev >> (2 * j + e)) & 1u ? d : 0.0f;
+        }
+    __syncthreads();   // every tile of this step is consumed
+  }
+
+  // This block's dbh partial: the thread's rows and steps, then the four
+  // lanes of a unit in a fixed order.
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    float v = db[s];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    if (lt == 0)
+      part_b[static_cast<size_t>(blockIdx.x) * H + unit0 + 8 * s] = v;
+  }
+}
+
+// phases: bit 0 the recurrence, bit 1 the weight gradients (dWh from the
+// recurrence's dhp and hin, dbh from its part_b).
+template <int H>
+int launch_bwd_tc(int phases, const void* xp, const void* keep,
+                  const void* wh, const void* wh_t, const void* bias_h,
+                  const void* h0, const void* ys, const void* dys, void* dxp,
+                  void* dhp, void* hin, void* dh0, void* part_w,
+                  void* part_b, void* dwh, void* dbh, int steps, int n_rows,
+                  int splits, cudaStream_t stream) {
+  constexpr int R = kGruTcRows;
+  using L = GruTcBwd<H, R>;
+  const int blocks = (n_rows + R - 1) / R;
+  if (phases & 1) {
+    CUtensorMap wht_map, wh_map;
+    if (!make_tma_map(&wht_map, wh_t, H, 3 * H, 1, kTcK, H) ||
+        !make_tma_map(&wh_map, wh, 3 * H, H, 1, kTcK, H))
+      return static_cast<int>(cudaErrorInvalidValue);
+    int err = set_smem(gru_bwd_tc_kernel<H, R>, L::kSmem);
+    if (err != 0) return err;
+    gru_bwd_tc_kernel<H, R><<<blocks, L::kThreads, L::kSmem, stream>>>(
+        wht_map, wh_map, static_cast<const bf16*>(xp),
+        static_cast<const bf16*>(keep), static_cast<const bf16*>(bias_h),
+        static_cast<const bf16*>(h0), static_cast<const bf16*>(ys),
+        static_cast<const bf16*>(dys), static_cast<bf16*>(dxp),
+        static_cast<bf16*>(dhp), static_cast<bf16*>(hin),
+        static_cast<bf16*>(dh0), static_cast<float*>(part_b), steps, n_rows);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  if (phases & 2) {
+    const int err = weight_grad_tc(hin, H, nullptr, H, dhp, 3 * H,
+                                   steps * n_rows, splits, part_w, dwh,
+                                   stream);
+    if (err != 0) return err;
+    return sum_splits<bf16>(part_b, dbh, blocks, H, stream);
+  }
+  return 0;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Each entry point returns a cudaError_t,
-// or -1 for arguments without an instantiation.
-#define MLT_DISPATCH(CALL)                                       \
+// or -1 for arguments without an instantiation. The CUDA-core backward is
+// built for float32 alone: bfloat16 takes mlt_gru_bwd_tc.
+#define MLT_DISPATCH_F32(CALL)                                   \
   if (dtype == 0 && hidden == 128) return CALL(float, 128);      \
   if (dtype == 0 && hidden == 256) return CALL(float, 256);      \
+  return -1
+#define MLT_DISPATCH(CALL)                                       \
   if (dtype == 1 && hidden == 128) return CALL(__nv_bfloat16, 128); \
   if (dtype == 1 && hidden == 256) return CALL(__nv_bfloat16, 256); \
-  return -1
+  MLT_DISPATCH_F32(CALL)
 
 extern "C" int mlt_gru_fwd(int dtype, int hidden, const void* xp,
                            const void* keep, const void* wh,
@@ -334,8 +696,32 @@ extern "C" int mlt_gru_bwd(int dtype, int hidden, const void* xp,
 #define MLT_BWD(T, H)                                                       \
   launch_bwd<T, H>(xp, keep, wh, wh_t, bias_h, h0, ys, dys, dxp, dhp, dh0, \
                    part_w, part_b, dwh, db3, steps, n_rows, splits, s)
-  MLT_DISPATCH(MLT_BWD);
+  MLT_DISPATCH_F32(MLT_BWD);
 #undef MLT_BWD
 }
 
+// The bf16 tensor-core backward. Returns a cudaError_t, or -1 for
+// arguments without an instantiation.
+extern "C" int mlt_gru_bwd_tc(int hidden, int phases,
+                              const void* xp, const void* keep,
+                              const void* wh, const void* wh_t,
+                              const void* bias_h, const void* h0,
+                              const void* ys, const void* dys, void* dxp,
+                              void* dhp, void* hin, void* dh0, void* part_w,
+                              void* part_b, void* dwh, void* dbh, int steps,
+                              int n_rows, int splits, void* stream) {
+  if (static_cast<long long>(steps) * n_rows > 0x7fffffffLL) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MLT_BWD_TC(H)                                                      \
+  if (hidden == H)                                                         \
+  return launch_bwd_tc<H>(phases, xp, keep, wh, wh_t, bias_h, h0, ys, dys, \
+                          dxp, dhp, hin, dh0, part_w, part_b, dwh, dbh,    \
+                          steps, n_rows, splits, s)
+  MLT_BWD_TC(128);
+  MLT_BWD_TC(256);
+#undef MLT_BWD_TC
+  return -1;
+}
+
 #undef MLT_DISPATCH
+#undef MLT_DISPATCH_F32

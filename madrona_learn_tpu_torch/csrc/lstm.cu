@@ -69,9 +69,8 @@
 //   before h_in . Wr is added) and dx^T = Wi . dgates^T (rounded once),
 //   each warpgroup's result in the layout of its carries.
 // - A: 64-deep slices of the weights ([H rows][64], 128-byte swizzle)
-//   through a ring of stages (32 KB at H = 256) filled by TMA (thread 0
-//   issues, one mbarrier a stage completes it, each warp arrives on an
-//   empty barrier when its wgmma has retired the stage): Wr^T, then Wr
+//   through a ring of stages (32 KB at H = 256) filled by TMA
+//   (slice_ring.cuh, shared with gru.cu and policy_step.cu): Wr^T, then Wr
 //   each step, with Wi^T and Wi for the projection. The sequence is the
 //   same every step, so the ring prefetches across phases. Wr is 512 KiB
 //   in bf16 at H = 256, more than a block's shared memory, so it streams
@@ -102,6 +101,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "slice_ring.cuh"
 #include "weight_grad.cuh"
 #include "weight_grad_tc.cuh"
 
@@ -753,11 +753,6 @@ int launch_proj_bwd(const void* x, const void* keep, const void* wi,
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTcK = 64;             // depth of a weight slice: 128 bytes
-constexpr int kSmemLimit = 232448;   // shared memory a block can use
-
-constexpr int min_c(int a, int b) { return a < b ? a : b; }
-
 // Batch rows a block of the tensor-core recurrence (R), by variant: the
 // faster of 16 and 32 at the update shape on the H100. R = 32 halves the L2
 // weight traffic but spills at H = 256; with the projection it still wins.
@@ -784,24 +779,6 @@ struct TcBwd {
   static constexpr int kSmem = kStages * kStageBytes + kFixed + 1024;
   static_assert(kStages >= 2, "a ring of at least two slices");
 };
-
-// Byte offset of element (n, k) of a K-major [R][K] operand tile.
-template <int R>
-__device__ __forceinline__ uint32_t kmaj_off(int n, int k) {
-  return (k / 64) * (R * 128) + n * 128 + ((((k % 64) / 8) ^ (n % 8)) * 16) +
-         (k % 8) * 2;
-}
-
-// Byte offset of element (n, u) of a [R][H] tile, 16-byte chunks swizzled
-// by row so that a warp's reads of four rows hit distinct banks.
-template <int H>
-__device__ __forceinline__ uint32_t row_off(int n, int u) {
-  return n * H * 2 + (((u / 8) ^ (n % 8)) * 16) + (u % 8) * 2;
-}
-
-__device__ __forceinline__ float ld_bf16(const uint8_t* p) {
-  return __bfloat162float(*reinterpret_cast<const bf16*>(p));
-}
 
 // The reverse-time recurrence of the bf16 backward (see the header). One
 // block owns R batch rows; warpgroup w owns units 64 w .. 64 w + 63 of all
@@ -866,77 +843,37 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
   const CUtensorMap* wrm = &wr_map;
   const CUtensorMap* wim = &wi_map;
 
-  auto issue = [&](int q) {
-    const int s = q % S;
-    const uint32_t dst = ring + s * L::kStageBytes;
+  auto issue = [&](int q, uint32_t dst, uint64_t* bar) {
     int p = q % step_loads;
-    mbar_arrive_expect_tx(&full[s], L::kStageBytes);
     if (p < xp_loads) {
-      tma_load_3d(dst, wit, &full[s], (p / 4) * kTcK, (p % 4) * H, 0);
+      tma_load_3d(dst, wit, bar, (p / 4) * kTcK, (p % 4) * H, 0);
       return;
     }
     p -= xp_loads;
     if (p < g_loads) {
-      tma_load_3d(dst, wrt, &full[s], (p / 4) * kTcK, (p % 4) * H, 0);
+      tma_load_3d(dst, wrt, bar, (p / 4) * kTcK, (p % 4) * H, 0);
       return;
     }
     p -= g_loads;
     if (p < d_loads) {
-      tma_load_3d(dst, wrm, &full[s], p * kTcK, 0, 0);
+      tma_load_3d(dst, wrm, bar, p * kTcK, 0, 0);
       return;
     }
     p -= d_loads;
-    tma_load_3d(dst, wim, &full[s], (p % d_loads) * kTcK, (p / d_loads) * H,
-                0);
+    tma_load_3d(dst, wim, bar, (p % d_loads) * kTcK, (p / d_loads) * H, 0);
   };
-
-  if (tid == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], L::kWarps);
-    }
-    mbar_fence_init();
-  }
+  SliceRing<S> slices{full, empty, ring, L::kStageBytes, total, 0};
+  if (tid == 0) slices.init(L::kWarps);
   __syncthreads();
-  if (tid == 0)
-    for (int q = 0; q < min(S, total); ++q) issue(q);
+  if (tid == 0) slices.prime(issue);
 
-  // Consume slice q of the ring: acc (+)= this warpgroup's 64 rows of it .
-  // the [R][64] operand subtile at b. Then retire slice q - 1: each warp
-  // arrives on its stage's empty barrier, and thread 0 refills the stage
-  // with slice q - 1 + S once every warp has. (Every warpgroup issues every
+  // acc (+)= this warpgroup's 64 rows of the ring's next slice . the [R][64]
+  // operand subtile at b (slice_ring.cuh). Every warpgroup issues every
   // product, also where its rows of a Wi band lie past F and arrive as
-  // zeros: a product skipped by some warpgroups makes ptxas serialize them
-  // all.)
-  int q = 0;
+  // zeros.
   const uint32_t a_off = wg * 64 * 128;
   auto consume = [&](float(&acc)[kAcc], uint32_t b, bool fresh) {
-    const int s = q % S;
-    mbar_wait(&full[s], (q / S) & 1);
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) wgmma_fence_operand(acc[i]);
-    wgmma_fence();
-    const uint32_t a = ring + s * L::kStageBytes + a_off;
-#pragma unroll
-    for (int kk = 0; kk < kTcK / 16; ++kk)
-      wgmma_ss<R>(acc, wgmma_desc(a + kk * 32, 16, 1024, 128),
-                  wgmma_desc(b + kk * 32, 16, 1024, 128),
-                  fresh && kk == 0 ? 0 : 1);
-    wgmma_commit();
-    wgmma_wait<1>();
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) wgmma_fence_operand(acc[i]);
-    if (q > 0) {
-      const int sp = (q - 1) % S;
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[sp]);
-      if (tid == 0 && q - 1 + S < total) {
-        mbar_wait(&empty[sp], ((q - 1) / S) & 1);
-        issue(q - 1 + S);
-      }
-      __syncwarp();
-    }
-    ++q;
+    ring_product<R, 0>(slices, issue, acc, a_off, b, fresh);
   };
 
   // Byte offsets of this thread's elements (rows 2 (l % 4) + e, units

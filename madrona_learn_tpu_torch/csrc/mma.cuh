@@ -261,9 +261,10 @@ static __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
 }
 
 // d = A . B + (accumulate ? d : 0), m64nNk16 (N = 16 or 32), bf16 -> f32;
-// A and B both K-major, both read from shared memory through their
-// descriptors; d in the C layout of wgmma_rs below.
-template <int N>
+// A K-major (kTransA 0) or MN-major (kTransA 1) and B K-major, both read
+// from shared memory through their descriptors; d in the C layout of
+// wgmma_rs below.
+template <int N, int kTransA = 0>
 static __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2],
                                                 uint64_t da, uint64_t db,
                                                 int accumulate) {
@@ -275,11 +276,11 @@ static __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2],
         "setp.ne.b32 p, %10, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, %8, %9, p, 1, 1, 0, 0;\n"
+        "}, %8, %9, p, 1, 1, %11, 0;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(da), "l"(db), "r"(accumulate));
+        : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA));
   } else {
     asm volatile(
         "{\n"
@@ -288,13 +289,13 @@ static __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2],
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, "
         "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, 0;\n"
+        "}, %16, %17, p, 1, 1, %19, 0;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
           "+f"(d[15])
-        : "l"(da), "l"(db), "r"(accumulate));
+        : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA));
   }
 }
 

@@ -8,22 +8,6 @@
 // weight resident; the rollout's ~30 separate launches of the unfused
 // trunk become one, and the [N, H] activations never go to device memory.
 //
-// Design here (layout and product in common.cuh):
-// - A block owns kRows batch rows. Their activations stay in shared memory
-//   (f32, [kRows][H]) from the input tile through every layer to the LSTM
-//   cell; only x, c and h are read and feats, c', h' written.
-// - x [N, F] is read in place with row stride F (F <= 128): no padding of
-//   the feature axis in device memory. Rows past N are zero-filled in
-//   shared memory and never written.
-// - The weights (1 MiB of Wi + Wr at H = 256 in bf16, more than a block's
-//   shared memory) are read through L2 every step, as csrc/lstm.cu reads
-//   Wr; a block reuses each element for its kRows rows.
-// - Products are f32 FMA loops over storage-type operands converted
-//   exactly to f32 (bf16 operands, f32 accumulation).
-// - LayerNorm needs row sums over all H units, which one row group's 64
-//   threads (two warps) own: warp shuffles, then one exchange of the two
-//   warps' partials through shared memory.
-//
 // Math (the JAX twin's rounding points, ops/pallas/policy_step.py:187):
 // - Dense: f32 accumulation, rounded to the storage type T.
 // - LayerNorm: mean and E[x^2] - mean^2 in f32, both rounded to T; scale
@@ -33,13 +17,61 @@
 // - LSTM: xp = round_T(a . Wi), gates = xp + h . Wr + round_T(b) in f32,
 //   c' and h' rounded to T (the precise-gates cell of csrc/lstm.cu).
 //
+// Both kernels: a block owns a tile of batch rows, whose activations stay
+// in shared memory from the input tile through every layer to the LSTM
+// cell; only x, c and h are read and feats, c', h' written. x [N, F] is
+// read in place with row stride F (F <= 128): no padding of the feature
+// axis in device memory. Rows past N are zero-filled in shared memory and
+// never written. The weights (1 MiB of Wi + Wr at H = 256 in bf16, more
+// than a block's shared memory) are read through L2 every step; a block
+// reuses each element for its rows.
+//
+// The float32 kernel (policy_step_kernel; layout and product in
+// common.cuh): kRows rows a block, activations as f32 [kRows][H], the
+// products as f32 FMA loops, which bound it. LayerNorm's row sums over all
+// H units, which one row group's 64 threads (two warps) own: warp
+// shuffles, then one exchange of the two warps' partials through shared
+// memory.
+//
+// The bfloat16 kernel (policy_step_tc_kernel), on Hopper's tensor cores:
+// the twin's products are bf16 operands with f32 accumulation, which is
+// what wgmma computes, with only the order of the sums changed. The
+// wrapper's rule (ops/cuda/policy_step.py: uses_tensor_cores) sends bf16
+// at H = 128 or 256 here.
+// - R = kStepTcRows batch rows a block (32: 32-34% faster than 16 at the
+//   headline_fused step on the H100); warpgroup w
+//   owns units 64 w .. 64 w + 63 of every layer and of all four gates. The
+//   products run transposed, units as wgmma's M and the block's rows as its
+//   N (out^T = W^T . a^T), as in lstm.cu's backward: the gate math is
+//   thread-local, and four m64nR accumulators take 2 R of a thread's 128
+//   registers at H = 256.
+// - A: the weights as they lie in memory. A TMA box [64 k][64 units] of a
+//   row-major [K, n] weight is wgmma's MN-major A operand as it stands, so
+//   no transposed copy is made per step: 64-deep slices of W_0 .. W_{L-1},
+//   Wi and Wr stream through a ring (slice_ring.cuh) in one fixed order;
+//   layer 0's rows past F arrive as zeros (TMA's out-of-bounds fill), the
+//   x tile's columns past F are zeros.
+// - B: the activation tile (K-major, 128-byte swizzle), each layer's
+//   output written over its input once every warpgroup's product is done,
+//   and the h tile.
+// - LayerNorm's row sums over units: a thread's two units, a shuffle over
+//   the eight lanes of a row, then each warp's partial through shared
+//   memory, summed in warp order by one thread a row; a row's outputs do
+//   not depend on N or on where the row sits.
+// - h' and c' go back over h and c in shared memory, then out by 16-byte
+//   stores.
+//
 // Bound on the H100: at [16384, 3 -> 256 -> 256, LSTM 256] bf16 the step
 // does 19.35 GFLOP, 89% of it in the two [256, 1024] products, against
 // ~43 MB of bytes: bound by operations on the tensor cores (0.020 ms).
-// This first version runs the products on CUDA cores, so it is bound by
-// FMA issue; mma.sync / wgmma tiles are the later step.
+// What holds the tensor-core kernel is streaming the weights from L2,
+// 1.16 MiB a block: about 0.6 GB a step at R = 32.
+
+#include <cuda.h>   // CUtensorMap
 
 #include "common.cuh"
+#include "mma.cuh"
+#include "slice_ring.cuh"
 
 namespace {
 
@@ -224,11 +256,325 @@ StepArgs<T> make_args(int layers, int f_in, int n_rows, const void* x,
   return a;
 }
 
+// --------------------------------------------- bf16 on tensor cores
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kStepTcRows = 32;   // R, the batch rows a block
+
+// Shared memory of policy_step_tc_kernel, from a 1024-byte aligned base:
+// the ring of weight slices (one 64-deep slice of a [K, H] weight, or of
+// one gate's H columns of Wi or Wr: H / 64 TMA boxes of [64 k][64 units],
+// one a warpgroup), then the block's activation tile (x, zero-padded to
+// 64 or 128 columns, then each layer's output: the K-major B operand of
+// the next product), its h tile (K-major; h' for the copy-out after the
+// products) and its c tile ([R][H], row_off; c' after the gate math).
+template <int H, int R>
+struct StepTc {
+  static constexpr int kWarpgroups = H / 64;   // 64 units each
+  static constexpr int kThreads = 128 * kWarpgroups;
+  static constexpr int kWarps = 4 * kWarpgroups;
+  static constexpr int kSub = R * 128;          // one [R][64] subtile
+  static constexpr int kBox = 64 * 64 * 2;      // one [64 k][64 units] box
+  static constexpr int kStageBytes = H * 128;
+  static constexpr int kTileBytes = R * H * 2;
+  static constexpr int kFixed = 3 * kTileBytes;
+  // The row statistics' exchange ([warps][R][2] + [R][2] f32) and the
+  // barriers are static shared memory.
+  static constexpr int kStatic = (kWarps + 1) * R * 8 + 256;
+  static constexpr int kStages =
+      min_c(4, (kSmemLimit - 2048 - kStatic - kFixed) / kStageBytes);
+  static constexpr int kSmem = kStages * kStageBytes + kFixed + 1024;
+  static_assert(kStages >= 2, "a ring of at least two slices");
+};
+
+// One rollout step of the trunk for R batch rows a block (see the
+// header). Warpgroup w owns units 64 w .. 64 w + 63 of every layer and of
+// all four gates; thread (warp v of its warpgroup, lane l) holds units
+// 64 w + 16 v + l / 4 (+ 8) and rows 8 j + 2 (l % 4) (+ 1) of each m64nR
+// accumulator: element 4 j + 2 s + e is unit + 8 s, row 8 j + 2 (l % 4) +
+// e. The maps are TMA maps of the row-major weights (w_map[l] [F_in, H],
+// wi_map and wr_map [H, 4H]) in boxes of [64 k][64 units], the MN-major A
+// operand of wgmma as they stand; maps past p.layers are never read.
+template <int H, int R>
+__global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
+    policy_step_tc_kernel(const __grid_constant__ CUtensorMap w0_map,
+                          const __grid_constant__ CUtensorMap w1_map,
+                          const __grid_constant__ CUtensorMap w2_map,
+                          const __grid_constant__ CUtensorMap w3_map,
+                          const __grid_constant__ CUtensorMap wi_map,
+                          const __grid_constant__ CUtensorMap wr_map,
+                          const StepArgs<bf16> p) {
+  using L = StepTc<H, R>;
+  constexpr int S = L::kStages;
+  constexpr int kAcc = R / 2;
+  constexpr int kSlices = H / kTcK;   // slices of a [H, H] weight
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[S];
+  __shared__ __align__(8) uint64_t empty[S];
+  __shared__ float red_s[L::kWarps][R][2];   // per-warp row sums
+  __shared__ float stat_s[R][2];             // round(mean), rsqrt(var + eps)
+  const uint32_t raw_s = smem_u32(smem_raw);
+  const uint32_t ring = (raw_s + 1023) & ~1023u;
+  const uint32_t act_s = ring + S * L::kStageBytes;
+  const uint32_t h_s = act_s + L::kTileBytes;
+  const uint32_t c_s = h_s + L::kTileBytes;
+  uint8_t* act_p = smem_raw + (act_s - raw_s);
+  uint8_t* h_p = smem_raw + (h_s - raw_s);
+  uint8_t* c_p = smem_raw + (c_s - raw_s);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = tid / 32, lane = tid % 32;
+  const int lt = lane % 4;
+  const int unit0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+  const int block_row = blockIdx.x * R;
+
+  // The weight slices in the order the step consumes them: layer 0 by
+  // 64-row slice of its F_in (rows past F_in arrive as zeros), each later
+  // layer by slice, then Wi and Wr by (H-chunk, gate).
+  const int k0 = (p.f_in + kTcK - 1) / kTcK;
+  const int layer_loads = k0 + (p.layers - 1) * kSlices;
+  constexpr int gate_loads = 4 * kSlices;
+  const CUtensorMap* w0m = &w0_map;
+  const CUtensorMap* w1m = &w1_map;
+  const CUtensorMap* w2m = &w2_map;
+  const CUtensorMap* w3m = &w3_map;
+  const CUtensorMap* wim = &wi_map;
+  const CUtensorMap* wrm = &wr_map;
+  auto issue = [&](int q, uint32_t dst, uint64_t* bar) {
+    const CUtensorMap* m = w0m;
+    int k = q, col0 = 0;
+    if (q >= k0 && q < layer_loads) {
+      const int l = 1 + (q - k0) / kSlices;
+      m = l == 1 ? w1m : l == 2 ? w2m : w3m;
+      k = (q - k0) % kSlices;
+    } else if (q >= layer_loads) {
+      const int r = (q - layer_loads) % gate_loads;
+      m = q - layer_loads < gate_loads ? wim : wrm;
+      k = r / 4;
+      col0 = (r % 4) * H;
+    }
+    for (int w = 0; w < L::kWarpgroups; ++w)
+      tma_load_3d(dst + w * L::kBox, m, bar, col0 + w * 64, k * kTcK, 0);
+  };
+  SliceRing<S> slices{full, empty, ring, L::kStageBytes,
+                      layer_loads + 2 * gate_loads, 0};
+  if (tid == 0) slices.init(L::kWarps);
+  __syncthreads();
+  if (tid == 0) slices.prime(issue);
+
+  // The block's tiles: x into the activation tile (rows past N and columns
+  // past F_in as zeros; x's rows need not lie on 16 bytes), h and c by
+  // 16-byte cp.async with zero-fill.
+  const int xw = k0 * kTcK;
+  for (int e = tid; e < R * xw; e += L::kThreads) {
+    const int n = e / xw, k = e % xw;
+    const int row = block_row + n;
+    *reinterpret_cast<bf16*>(act_p + kmaj_off<R>(n, k)) =
+        row < p.n_rows && k < p.f_in
+            ? p.x[static_cast<size_t>(row) * p.f_in + k]
+            : __float2bfloat16_rn(0.0f);
+  }
+  for (int e = tid; e < R * (H / 8); e += L::kThreads) {
+    const int n = e / (H / 8), c = e % (H / 8);
+    const int row = block_row + n;
+    const bool live = row < p.n_rows;
+    const size_t off = live ? static_cast<size_t>(row) * H + c * 8 : 0;
+    cp_async16(h_s + kmaj_off<R>(n, c * 8), p.h + off, live);
+    cp_async16(c_s + row_off<H>(n, c * 8), p.c + off, live);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  // Byte offsets of this thread's elements (rows 2 (l % 4) + e, units
+  // unit0 + 8 s) in the K-major tiles and in the c tile: row 8 j + .. is
+  // j * 1024 (j * 16 H) bytes on.
+  uint32_t kb[2][2], rb[2][2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      kb[s][e] = kmaj_off<R>(2 * lt + e, unit0 + 8 * s);
+      rb[s][e] = row_off<H>(2 * lt + e, unit0 + 8 * s);
+    }
+  const uint32_t a_off = wg * L::kBox;
+
+  // The MLP: Dense (bf16 operands, f32 sums, rounded), LayerNorm, ReLU,
+  // each layer's output over its input in the activation tile.
+  for (int l = 0; l < p.layers; ++l) {
+    float acc[kAcc];
+    const int k_slices = l == 0 ? k0 : kSlices;
+    for (int kc = 0; kc < k_slices; ++kc)
+      ring_product<R, 1>(slices, issue, acc, a_off, act_s + kc * L::kSub,
+                         kc == 0);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) wgmma_fence_operand(acc[i]);
+
+    // Row sums of the rounded Dense output and of its squares: the
+    // thread's two units, then the eight lanes of a row within the warp,
+    // then the warps in order through shared memory.
+    float sum[R / 8][2], sq[R / 8][2];
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float a0 = round_to<bf16>(acc[4 * j + e]);
+        const float a1 = round_to<bf16>(acc[4 * j + 2 + e]);
+        acc[4 * j + e] = a0;
+        acc[4 * j + 2 + e] = a1;
+        sum[j][e] = a0 + a1;
+        sq[j][e] = fmaf(a1, a1, a0 * a0);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          sum[j][e] += __shfl_xor_sync(0xffffffffu, sum[j][e], off);
+          sq[j][e] += __shfl_xor_sync(0xffffffffu, sq[j][e], off);
+        }
+        if (lane < 4) {
+          red_s[warp][8 * j + 2 * lt + e][0] = sum[j][e];
+          red_s[warp][8 * j + 2 * lt + e][1] = sq[j][e];
+        }
+      }
+    __syncthreads();   // partials written; every product of the layer done
+    if (tid < R) {
+      float s_all = 0.0f, sq_all = 0.0f;
+      for (int w = 0; w < L::kWarps; ++w) {
+        s_all += red_s[w][tid][0];
+        sq_all += red_s[w][tid][1];
+      }
+      const float mean_f = s_all * (1.0f / H);
+      const float msq = sq_all * (1.0f / H);
+      stat_s[tid][0] = round_to<bf16>(mean_f);
+      stat_s[tid][1] = rsqrtf(
+          round_to<bf16>(__fsub_rn(msq, __fmul_rn(mean_f, mean_f))) +
+          kLnEps);
+    }
+    __syncthreads();
+    float scale[2], lbias[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      scale[s] = round_to<bf16>(p.ln_scale[l][unit0 + 8 * s]);
+      lbias[s] = round_to<bf16>(p.ln_bias[l][unit0 + 8 * s]);
+    }
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = 8 * j + 2 * lt + e;
+          const float y = __fadd_rn(
+              __fmul_rn(__fsub_rn(acc[4 * j + 2 * s + e], stat_s[n][0]),
+                        __fmul_rn(stat_s[n][1], scale[s])),
+              lbias[s]);
+          *reinterpret_cast<bf16*>(act_p + kb[s][e] + j * 1024) =
+              __float2bfloat16_rn(fmaxf(round_to<bf16>(y), 0.0f));
+        }
+    fence_proxy_async();
+    __syncthreads();   // the layer's output is the next product's B
+  }
+
+  // LSTM cell, gates as M and rows as N: xp = round(a . Wi), then h . Wr
+  // into the same accumulators.
+  float acc[4][kAcc];
+  for (int kc = 0; kc < kSlices; ++kc)
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      ring_product<R, 1>(slices, issue, acc[g], a_off, act_s + kc * L::kSub,
+                         kc == 0);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) {
+      wgmma_fence_operand(acc[g][i]);
+      acc[g][i] = round_to<bf16>(acc[g][i]);
+    }
+  for (int kc = 0; kc < kSlices; ++kc)
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      ring_product<R, 1>(slices, issue, acc[g], a_off, h_s + kc * L::kSub,
+                         false);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) wgmma_fence_operand(acc[g][i]);
+  __syncthreads();   // every warpgroup is done reading the h tile
+
+  // Gate math, thread-local: h' over h in the h tile, c' over c in the c
+  // tile (each thread rewrites only the elements it read).
+  float b[4][2];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      b[g][s] = __bfloat162float(p.bias[g * H + unit0 + 8 * s]);
+#pragma unroll
+  for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * s + e;
+        bf16* cp = reinterpret_cast<bf16*>(c_p + rb[s][e] + j * 16 * H);
+        const float new_c =
+            sigmoid_f(acc[1][i] + b[1][s]) * __bfloat162float(*cp) +
+            sigmoid_f(acc[0][i] + b[0][s]) * tanhf(acc[2][i] + b[2][s]);
+        const float new_h = sigmoid_f(acc[3][i] + b[3][s]) * tanhf(new_c);
+        *cp = __float2bfloat16_rn(new_c);
+        *reinterpret_cast<bf16*>(h_p + kb[s][e] + j * 1024) =
+            __float2bfloat16_rn(new_h);
+      }
+  __syncthreads();
+
+  // feats = h' and h_out, c_out: 16-byte stores of the block's live rows.
+  for (int e = tid; e < R * (H / 8); e += L::kThreads) {
+    const int n = e / (H / 8), c = e % (H / 8);
+    const int row = block_row + n;
+    if (row < p.n_rows) {
+      const size_t o = static_cast<size_t>(row) * H + c * 8;
+      const uint4 hv =
+          *reinterpret_cast<const uint4*>(h_p + kmaj_off<R>(n, c * 8));
+      *reinterpret_cast<uint4*>(p.feats + o) = hv;
+      *reinterpret_cast<uint4*>(p.h_out + o) = hv;
+      *reinterpret_cast<uint4*>(p.c_out + o) =
+          *reinterpret_cast<const uint4*>(c_p + row_off<H>(n, c * 8));
+    }
+  }
+}
+
+template <int H>
+int launch_step_tc(const StepArgs<bf16>& a, cudaStream_t stream) {
+  constexpr int R = kStepTcRows;
+  using L = StepTc<H, R>;
+  CUtensorMap maps[6];
+  // Layers past a.layers get a valid map over Wi that is never read.
+  for (int l = 0; l < kMaxLayers; ++l) {
+    const bool used = l < a.layers;
+    if (!make_tma_map(&maps[l], used ? a.w[l] : a.wi, used ? H : 4 * H,
+                      used ? (l == 0 ? a.f_in : H) : H, 1, 64, 64))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!make_tma_map(&maps[4], a.wi, 4 * H, H, 1, 64, 64) ||
+      !make_tma_map(&maps[5], a.wr, 4 * H, H, 1, 64, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = set_smem(policy_step_tc_kernel<H, R>, L::kSmem);
+  if (err != 0) return err;
+  const int blocks = (a.n_rows + R - 1) / R;
+  policy_step_tc_kernel<H, R><<<blocks, L::kThreads, L::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; layers 1..4, each (w_l, s_l, b_l), the
-// unused ones null. Returns a cudaError_t, or -1 for arguments without an
-// instantiation.
+// dtype: 0 = float32 (the CUDA-core kernel is built for float32 alone:
+// bfloat16 takes mlt_policy_step_tc); layers 1..4, each (w_l, s_l, b_l),
+// the unused ones null. Returns a cudaError_t, or -1 for arguments without
+// an instantiation.
 extern "C" int mlt_policy_step(
     int dtype, int hidden, int layers, int f_in, int n_rows, const void* x,
     const void* w0, const void* s0, const void* b0, const void* w1,
@@ -249,8 +595,31 @@ extern "C" int mlt_policy_step(
                     st)
   if (dtype == 0 && hidden == 128) return MLT_STEP(float, 128);
   if (dtype == 0 && hidden == 256) return MLT_STEP(float, 256);
-  if (dtype == 1 && hidden == 128) return MLT_STEP(__nv_bfloat16, 128);
-  if (dtype == 1 && hidden == 256) return MLT_STEP(__nv_bfloat16, 256);
 #undef MLT_STEP
+  return -1;
+}
+
+// The bf16 step on tensor cores: the arguments of mlt_policy_step but the
+// dtype, every pointer but x on a 16-byte boundary. Returns a cudaError_t,
+// or -1 for arguments without an instantiation.
+extern "C" int mlt_policy_step_tc(
+    int hidden, int layers, int f_in, int n_rows, const void* x,
+    const void* w0, const void* s0, const void* b0, const void* w1,
+    const void* s1, const void* b1, const void* w2, const void* s2,
+    const void* b2, const void* w3, const void* s3, const void* b3,
+    const void* wi, const void* wr, const void* bias, const void* c,
+    const void* h, void* feats, void* c_out, void* h_out, void* stream) {
+  if (layers < 1 || layers > kMaxLayers || f_in < 1 || f_in > 128 ||
+      f_in > hidden)
+    return -1;
+  const void* w[kMaxLayers] = {w0, w1, w2, w3};
+  const void* s[kMaxLayers] = {s0, s1, s2, s3};
+  const void* lb[kMaxLayers] = {b0, b1, b2, b3};
+  const StepArgs<__nv_bfloat16> args = make_args<__nv_bfloat16>(
+      layers, f_in, n_rows, x, w, s, lb, wi, wr, bias, c, h, feats, c_out,
+      h_out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hidden == 128) return launch_step_tc<128>(args, st);
+  if (hidden == 256) return launch_step_tc<256>(args, st);
   return -1;
 }

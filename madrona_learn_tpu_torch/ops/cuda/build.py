@@ -38,13 +38,16 @@ class Kernel:
     """One hand-written kernel: what it replaces and how often it ran.
 
     ``launches`` is incremented by the kernel's wrapper where, and only
-    where, it launches the kernel on the card.
+    where, it launches the kernel on the card; ``tc_launches`` as well where
+    that launch took the kernel's tensor-core route (the LSTM and GRU
+    backwards and the fused step, whose path rules send bf16 there).
     """
 
     name: str
     source: str
     replaces: str
     launches: int = 0
+    tc_launches: int = 0
 
 
 def find_nvcc() -> str:
@@ -139,6 +142,8 @@ _SIGNATURES = {
     # dtype, H, layers, F, N, x, (w, ln_scale, ln_bias) x 4, wi, wr, bias,
     # c, h, feats, c_out, h_out, stream
     "mlt_policy_step": [_I] * 5 + [_P] * 21 + [_P],
+    # as mlt_policy_step, without the dtype
+    "mlt_policy_step_tc": [_I] * 4 + [_P] * 21 + [_P],
     # dtype, H, F, x, keep, wi, wr, bias, c0, h0, ys, cs, T, N, stream
     "mlt_lstm_proj_fwd": [_I, _I, _I] + [_P] * 9 + [_I, _I, _P],
     # dtype, H, F, x, keep, wi, wi_t, wr, wr_t, bias, c0, h0, ys, cs, dys,
@@ -169,6 +174,9 @@ _SIGNATURES = {
     # H, F, phases, x, keep, wi, wi_t, wr, wr_t, bias, c0, h0, ys, cs, dys,
     # dx, dg, hin, dh0, dc0, part_w, part_b, dw, db, T, N, splits, stream
     "mlt_lstm_bwd_tc": [_I] * 3 + [_P] * 21 + [_I] * 3 + [_P],
+    # H, phases, xp, keep, wh, wh_t, bias_h, h0, ys, dys, dxp, dhp, hin,
+    # dh0, part_w, part_b, dwh, dbh, T, N, splits, stream
+    "mlt_gru_bwd_tc": [_I] * 2 + [_P] * 16 + [_I] * 3 + [_P],
 }
 
 

@@ -6,9 +6,24 @@ Replaces ``madrona_learn_tpu/ops/pallas/gru.py:gru_sequence`` (forward
 epilogue). ``csrc/gru.cu`` explains the Hopper design, which is the LSTM
 kernels': a block owns a tile of batch rows and loops over time, Wh is read
 from L2 every step (384 KiB in bf16 at H = 256, more than a block's shared
-memory), and dWh/dbh are per-split f32 partials summed in a fixed order by
-the pass the LSTM backward uses (``csrc/weight_grad.cuh``). On this card
-the first version is bound by CUDA-core FMA issue, not by bytes.
+memory), and dWh/dbh are per-split f32 partials summed in a fixed order
+instead of one accumulator shared by the whole grid.
+
+Two paths for the backward, picked by :func:`uses_tensor_cores` from the
+dtype and H alone (no fallback: the kernel a call is routed to runs or
+raises):
+
+- bfloat16 at H = 128 or 256: the recurrence on Hopper's warpgroup tensor
+  cores (``wgmma``, bf16 operands, f32 accumulators; Wh^T and Wh stream
+  through a TMA ring, :data:`TC_ROWS` batch rows a block), then dWh as a
+  split-K ``wgmma`` product over the T * N rows
+  (``csrc/weight_grad_tc.cuh``); bound by streaming Wh from L2. An operand
+  off a 16-byte boundary is copied onto one first;
+- float32, whose products tensor cores would round: the CUDA-core kernel
+  and the split-M pass of ``csrc/weight_grad.cuh``, bound by f32 FMA
+  issue.
+
+The forward runs on CUDA cores in both dtypes.
 
 Contract (all operands in the storage dtype, float32 or bfloat16):
 
@@ -33,7 +48,7 @@ import functools
 import torch
 
 from .build import Kernel, check, check_operand, library
-from .lstm import _num_splits
+from .lstm import _num_splits, _num_splits_tc, on_16_bytes
 
 GRU_FWD = Kernel(
     name="gru_sequence_fwd",
@@ -50,12 +65,23 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HIDDEN_SIZES = (128, 256)
 _check = functools.partial(check_operand, "gru kernel")
 
+# Batch rows a block of the tensor-core backward owns (kGruTcRows in
+# csrc/gru.cu), which sets the count of its per-block dbh partials.
+TC_ROWS = 32
+
 
 def gru_supported(hidden, dtype):
     """Whether the kernels serve this layer shape (JAX:
     ``ops/pallas/gru.py:47``, which takes any multiple of 128; the kernels
     here are built for 128 and 256)."""
     return hidden in _HIDDEN_SIZES and dtype in _DTYPE_CODES
+
+
+def uses_tensor_cores(dtype, hidden):
+    """The backward's path rule: bfloat16 with H in (128, 256) takes the
+    tensor-core kernel (``wgmma``); float32, whose products tensor cores
+    would round, the CUDA-core one."""
+    return dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES
 
 
 def _cell(x_proj_t, wh32, bh32, h):
@@ -127,6 +153,52 @@ def gru_sequence_fwd(x_proj, keep, wh, bias_h, h0):
     return ys
 
 
+def _bwd_tc_buffers(x_proj):
+    """Outputs and scratch of :func:`_bwd_tc` for these operands."""
+    steps, n, g3 = x_proj.shape
+    hidden = g3 // 3
+    dtype, device = x_proj.dtype, x_proj.device
+    splits = _num_splits_tc(
+        steps * n, hidden, hidden,
+        torch.cuda.get_device_properties(device).multi_processor_count,
+        gates=3)
+
+    def empty(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    return dict(
+        splits=splits, dxp=empty(steps, n, g3),
+        dhp=empty(steps, n, g3), hin=empty(steps, n, hidden),
+        dh0=empty(n, hidden),
+        part_w=empty(splits, hidden, g3, dt=torch.float32),
+        part_b=empty(-(-n // TC_ROWS), hidden, dt=torch.float32),
+        dw=empty(hidden, g3), db=empty(hidden))
+
+
+def _bwd_tc(x_proj, keep, wh, bias_h, h0, ys, dys, *, phases=3,
+            buffers=None):
+    """The bf16 tensor-core backward in its two passes, phases bit 0 the
+    recurrence and bit 1 the weight gradients; the buffers of
+    :func:`_bwd_tc_buffers`, filled."""
+    steps, n, g3 = x_proj.shape
+    x_proj, keep, bias_h, h0, ys, dys = map(
+        on_16_bytes, (x_proj, keep, bias_h, h0, ys, dys))
+    b = _bwd_tc_buffers(x_proj) if buffers is None else buffers
+    # The transposed copy is new storage, on a 16-byte boundary.
+    wh_t = wh.t().contiguous()
+    wh = on_16_bytes(wh)
+    err = library().mlt_gru_bwd_tc(
+        g3 // 3, phases, x_proj.data_ptr(), keep.data_ptr(),
+        wh.data_ptr(), wh_t.data_ptr(), bias_h.data_ptr(), h0.data_ptr(),
+        ys.data_ptr(), dys.data_ptr(), b["dxp"].data_ptr(),
+        b["dhp"].data_ptr(), b["hin"].data_ptr(), b["dh0"].data_ptr(),
+        b["part_w"].data_ptr(), b["part_b"].data_ptr(), b["dw"].data_ptr(),
+        b["db"].data_ptr(), steps, n, b["splits"],
+        torch.cuda.current_stream(x_proj.device).cuda_stream)
+    check(err, "gru_sequence_bwd")
+    return b
+
+
 def gru_sequence_bwd(x_proj, keep, wh, bias_h, h0, ys, dys):
     """The backward kernel: (dxp, dwh, dbh, dh0) given the forward's ys.
     ``dhp`` [T, N, 3H] goes through a scratch to the weight-gradient
@@ -135,6 +207,11 @@ def gru_sequence_bwd(x_proj, keep, wh, bias_h, h0, ys, dys):
     dtype, device = x_proj.dtype, x_proj.device
     _check("ys", ys, dtype, (steps, n, hidden))
     _check("dys", dys, dtype, (steps, n, hidden))
+    if uses_tensor_cores(dtype, hidden):
+        b = _bwd_tc(x_proj, keep, wh, bias_h, h0, ys, dys)
+        GRU_BWD.launches += 1
+        GRU_BWD.tc_launches += 1
+        return b["dxp"], b["dw"], b["db"], b["dh0"]
     wh_t = wh.t().contiguous()
     splits = _num_splits(
         steps, n, hidden,

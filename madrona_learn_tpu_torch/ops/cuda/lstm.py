@@ -155,11 +155,6 @@ def _num_splits(steps, n, hidden, num_sms, gates=4):
     return max(1, min(-(-4 * num_sms // tiles), (steps * n) // 32))
 
 
-# Launches of the two backwards that took the tensor-core route, by
-# kernel name: chip_smoke.py holds each trainer's to its launches.
-TC_LAUNCHES = {"lstm_sequence_bwd": 0, "lstm_sequence_proj_bwd": 0}
-
-
 def tc_rows(proj):
     """Batch rows a block of the tensor-core backward owns (kTcRows in
     csrc/lstm.cu): 16, and 32 with the projection."""
@@ -180,11 +175,11 @@ def on_16_bytes(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _num_splits_tc(rows, a_width, hidden, num_sms):
+def _num_splits_tc(rows, a_width, hidden, num_sms, gates=4):
     """Row splits for the tensor-core weight-gradient partials of an
-    [a_width, 4H] weight: about two blocks of 128 x 128 per SM, and at
-    least 256 rows per split."""
-    tiles = (a_width // 128) * (4 * hidden // 128)
+    [a_width, gates * H] weight: about two blocks of 128 x 128 per SM, and
+    at least 256 rows per split."""
+    tiles = (a_width // 128) * (gates * hidden // 128)
     return max(1, min(-(-2 * num_sms // tiles), rows // 256))
 
 
@@ -254,7 +249,7 @@ def lstm_sequence_bwd(x_proj, keep, wr, bias, c0, h0, ys, cs, dys):
     if uses_tensor_cores(dtype, hidden):
         b = _bwd_tc(x_proj, keep, None, wr, bias, c0, h0, ys, cs, dys)
         LSTM_BWD.launches += 1
-        TC_LAUNCHES[LSTM_BWD.name] += 1
+        LSTM_BWD.tc_launches += 1
         return b["dg"], b["dw"], b["db"], b["dc0"], b["dh0"]
     wr_t = wr.t().contiguous()
     splits = _num_splits(
@@ -394,7 +389,7 @@ def lstm_sequence_proj_bwd(x, keep, wi, wr, bias, c0, h0, ys, cs, dys):
     if uses_tensor_cores(dtype, hidden):
         b = _bwd_tc(x, keep, wi, wr, bias, c0, h0, ys, cs, dys)
         LSTM_PROJ_BWD.launches += 1
-        TC_LAUNCHES[LSTM_PROJ_BWD.name] += 1
+        LSTM_PROJ_BWD.tc_launches += 1
         dw = b["dw"]
         return b["dx"], dw[:f_in], dw[f_in:], b["db"], b["dc0"], b["dh0"]
     wi_t = wi.t().contiguous()

@@ -6,6 +6,17 @@ Replaces ``madrona_learn_tpu/ops/pallas/policy_step.py:fused_policy_step``.
 rows' activations in shared memory from the input through every layer to
 the LSTM cell, and streams the weights from L2.
 
+Two paths, picked by :func:`uses_tensor_cores` from the dtype, H and F
+alone (no fallback: the kernel a call is routed to runs or raises):
+
+- bfloat16 at H = 128 or 256 (F <= 128): every product on Hopper's
+  warpgroup tensor cores (``wgmma``, bf16 operands, f32 accumulators), the
+  weights streaming through a TMA ring, 32 batch rows a block.
+  TMA and the kernel's 16-byte copies read every operand but x on a
+  16-byte boundary: one that is not is copied onto one first;
+- float32, whose products tensor cores would round: the CUDA-core kernel,
+  bound by f32 FMA issue.
+
 Contract (one storage dtype ``dt``, float32 or bfloat16, for every tensor
 but the LayerNorm parameters):
 
@@ -34,6 +45,7 @@ import functools
 import torch
 
 from .build import Kernel, check, check_operand, library
+from .lstm import on_16_bytes
 
 POLICY_STEP = Kernel(
     name="fused_policy_step",
@@ -47,12 +59,21 @@ _MAX_LAYERS = 4
 _LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 
 
+
 def policy_step_supported(hidden, feat_in, dtype):
     """Whether the fused step can serve this tower shape (JAX:
     ``ops/pallas/policy_step.py:62``). A width that passes and has no
     kernel instantiation raises at launch."""
     return (hidden % 128 == 0 and feat_in <= 128
             and dtype in (torch.float32, torch.bfloat16))
+
+
+def uses_tensor_cores(dtype, hidden, feat_in):
+    """The path rule: bfloat16 with H in (128, 256) and F <= 128 takes the
+    tensor-core kernel (``wgmma``); float32, whose products tensor cores
+    would round, the CUDA-core one."""
+    return (dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES
+            and 1 <= feat_in <= 128)
 
 
 def _round(x, dt):
@@ -107,28 +128,43 @@ def fused_policy_step(x, mlp_params, wi, wr, bias, c, h):
     if n == 0:
         raise ValueError("fused_policy_step: empty batch")
     _check("x", x, dt, (n, f_in))
-    layer_ptrs = []
     fin = f_in
     for i, (w, s, lb) in enumerate(mlp_params):
         _check(f"W_{i}", w, dt, (fin, hidden))
         _check(f"ln_scale_{i}", s, torch.float32, (hidden,))
         _check(f"ln_bias_{i}", lb, torch.float32, (hidden,))
-        layer_ptrs += [w.data_ptr(), s.data_ptr(), lb.data_ptr()]
         fin = hidden
-    layer_ptrs += [None] * (3 * (_MAX_LAYERS - layers))
     _check("wi", wi, dt, (hidden, 4 * hidden))
     _check("wr", wr, dt, (hidden, 4 * hidden))
     _check("bias", bias, dt, (4 * hidden,))
     _check("c", c, dt, (n, hidden))
     _check("h", h, dt, (n, hidden))
+    if uses_tensor_cores(dt, hidden, f_in):
+        mlp_params = [tuple(map(on_16_bytes, layer)) for layer in mlp_params]
+        wi, wr, bias, c, h = map(on_16_bytes, (wi, wr, bias, c, h))
+        out = _step(library().mlt_policy_step_tc, (), x, mlp_params, wi, wr,
+                    bias, c, h)
+        POLICY_STEP.tc_launches += 1
+    else:
+        out = _step(library().mlt_policy_step, (_DTYPE_CODES[dt],), x,
+                    mlp_params, wi, wr, bias, c, h)
+    POLICY_STEP.launches += 1
+    return out
+
+
+def _step(entry, head, x, mlp_params, wi, wr, bias, c, h):
+    """One launch of a C entry point on checked operands; ``head`` holds
+    its leading arguments (the dtype's code for the CUDA-core kernel)."""
+    n, hidden = h.shape
+    layer_ptrs = [t.data_ptr() for layer in mlp_params for t in layer]
+    layer_ptrs += [None] * (3 * (_MAX_LAYERS - len(mlp_params)))
     feats = torch.empty_like(h)
     c_out = torch.empty_like(c)
     h_out = torch.empty_like(h)
-    err = library().mlt_policy_step(
-        _DTYPE_CODES[dt], hidden, layers, f_in, n, x.data_ptr(), *layer_ptrs,
-        wi.data_ptr(), wr.data_ptr(), bias.data_ptr(), c.data_ptr(),
-        h.data_ptr(), feats.data_ptr(), c_out.data_ptr(), h_out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    err = entry(
+        *head, hidden, len(mlp_params), x.shape[-1], n, x.data_ptr(),
+        *layer_ptrs, wi.data_ptr(), wr.data_ptr(), bias.data_ptr(),
+        c.data_ptr(), h.data_ptr(), feats.data_ptr(), c_out.data_ptr(),
+        h_out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "fused_policy_step")
-    POLICY_STEP.launches += 1
     return feats, (c_out, h_out)

@@ -5,6 +5,11 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --digests`` runs phases 1 and 2, then prints the
+SHA-256 of the bf16 LSTM kernels' outputs from seeded inputs, to hold two
+checkouts' kernels bitwise equal: copy the script into the other
+checkout's root and run it there too.)
+
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: requires CUDA, prints the card's name and power limit;
@@ -17,11 +22,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``mha`` and ``mha_flash`` are also run with the keys past ``valid_len``
    poisoned, and ``mha_flash`` at the update pass's B = 4096 must equal
    the rollout step's B = 512 bitwise on the rows they share; the kernels
-   with a tensor-core route (the LSTM and GRU backwards, the fused step)
-   are held to their path rules, the backwards at N = 8192 must equal N =
-   256 bitwise on the shared rows and give bitwise equal weight gradients
-   over two calls, and the fused step at N = 16384 must equal N = 512
-   bitwise on the shared rows;
+   with a tensor-core route (the two LSTM forwards and the two LSTM
+   backwards, the GRU backward, the fused step) are held to their path
+   rules, the backwards at N = 8192 must equal N = 256 bitwise on the
+   shared rows and give bitwise equal weight gradients over two calls, the
+   fused step at N = 16384 must equal N = 512 bitwise on the shared rows,
+   the LSTM forwards at N = 8192 must equal N = 256 on the shared rows and
+   the batch rolled by 5 rows bitwise, a T = 1 call from the cleared state
+   must equal the matching step of the T = 16 call bitwise, and at ragged
+   N they must write no row past N;
 4. models: the update pass and its gradients through the kernels on the
    card against the same model on the CPU, for the MLP model, a small GRU
    model, a small fused-trunk model, a small flagship (entity attention)
@@ -399,18 +408,98 @@ def _tc_bwd_timing(name, results, x, keep, wi, wr, bias, c0, h0, ys, cs,
     results.update(split)
 
 
+def _tc_fwd_checks(name, fwd, args, ys, cs, states, rows=256, roll=5):
+    """The bf16 tensor-core forward at the update shape, beyond its
+    agreement with the plain version, all bitwise: (a) a row's result
+    depends on nothing but its inputs: the first ``rows`` batch rows equal
+    a forward over those rows alone, and a forward over the batch rolled by
+    ``roll`` rows (no multiple of a block's rows) equals it rolled; (b) a
+    T = 1 call from the cleared state after step t - 1 equals step t of the
+    T-step call, the kernel-level form of PPO's ratio starting at 1. x and
+    keep lead ``args``; ``states`` are the indices of c0 and h0, last."""
+    import torch
+
+    ic, ih = states
+    batched = {0: 1, 1: 1, ic: 0, ih: 0}
+
+    def each(fn):
+        return [fn(a, batched[i]) if i in batched else a
+                for i, a in enumerate(args)]
+
+    ys_a, cs_a = fwd(*each(lambda a, d: a.narrow(d, 0, rows).contiguous()))
+    same = (torch.equal(ys[:, :rows], ys_a)
+            and torch.equal(cs[:, :rows], cs_a))
+    log(f"  {name}: rows 0-{rows - 1} of ys and cs bitwise equal to the "
+        f"forward at N = {rows}: {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{name}: not batch invariant")
+    ys_r, cs_r = fwd(*each(lambda a, d: a.roll(roll, d).contiguous()))
+    same = (torch.equal(ys_r, ys.roll(roll, 1))
+            and torch.equal(cs_r, cs.roll(roll, 1)))
+    log(f"  {name}: the batch rolled by {roll} rows gives ys and cs rolled, "
+        f"bitwise: {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{name}: a row's result depends on where it "
+                             f"sits")
+
+    keep = args[1]
+    T = keep.shape[0]
+    zero = torch.zeros((), dtype=ys.dtype, device=ys.device)
+    for t in sorted({0, 1, T // 2, T - 1}):
+        if t == 0:
+            c_in, h_in, start = args[ic], args[ih], "c0, h0"
+        else:
+            kept = keep[t - 1][:, None] > 0.5
+            c_in = torch.where(kept, cs[t - 1], zero)
+            h_in = torch.where(kept, ys[t - 1], zero)
+            start = (f"the state after step {t - 1}, "
+                     f"{int((~kept).sum())} rows cleared by keep = 0")
+        ys_1, cs_1 = fwd(args[0][t:t + 1], keep[t:t + 1], *args[2:ic],
+                         c_in, h_in)
+        same = torch.equal(ys_1[0], ys[t]) and torch.equal(cs_1[0], cs[t])
+        log(f"  {name}: T = 1 from {start}: bitwise equal to step {t}: "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"{name}: step {t} differs at T = 1")
+
+
+def _tc_fwd_guard_check(name, args, proj, ys, cs):
+    """The bf16 tensor-core forward at a batch that is no multiple of a
+    block's rows writes no row past N: outputs with 64 rows of NaN after
+    their end keep them, and equal ``ys`` / ``cs`` bitwise."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.lstm import _fwd_tc
+
+    T, N, H = ys.shape
+    size = T * N * H
+    bufs = [torch.full((size + 64 * H,), float("nan"), dtype=ys.dtype,
+                       device="cuda") for _ in range(2)]
+    out = tuple(b[:size].view(T, N, H) for b in bufs)
+    if proj:
+        _fwd_tc(*args, out=out)
+    else:
+        _fwd_tc(args[0], args[1], None, *args[2:], out=out)
+    guard = all(bool(torch.isnan(b[size:].float()).all()) for b in bufs)
+    same = torch.equal(out[0], ys) and torch.equal(out[1], cs)
+    log(f"  {name}: no row past N = {N} written, and the outputs bitwise "
+        f"the wrapper's: {'ok' if guard and same else 'FAIL'}")
+    if not (guard and same):
+        raise AssertionError(f"{name}: rows past N written, or outputs "
+                             f"differ")
+
+
 def check_lstm(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
-        LSTM_BWD, lstm_sequence_bwd, lstm_sequence_fwd,
-        lstm_sequence_reference, uses_tensor_cores)
+        LSTM_BWD, LSTM_FWD, fwd_tc_rows, lstm_sequence_bwd,
+        lstm_sequence_fwd, lstm_sequence_reference, uses_tensor_cores)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     fwd = results["lstm_sequence_fwd"] = {"max_abs_err": 0.0}
     bwd = results["lstm_sequence_bwd"] = {"max_abs_err": 0.0}
     # (T, N, H, dtype, on the main path): the update minibatch, the rollout
     # step, flagship_large's minibatch, a ragged batch at both widths (the
-    # bf16 backward on tensor cores), and float32 at both instantiated
+    # bf16 kernels on tensor cores), and float32 at both instantiated
     # widths (CUDA cores).
     cases = [
         (16, 8192, 256, torch.bfloat16, True),
@@ -427,11 +516,18 @@ def check_lstm(results):
         tag = f"[{T},{N},{4 * H}] {dname}"
         probe = torch.randn(T, N, H, device="cuda", generator=gen).to(dtype)
 
-        ys, cs = lstm_sequence_fwd(*args)
-        err = compare(f"lstm fwd {tag}", ys, lstm_sequence_reference(*args),
-                      **TOL[("fwd", dname)])
+        (ys, cs), fpath = _routed(LSTM_FWD, uses_tensor_cores(dtype, H),
+                                  lstm_sequence_fwd, *args)
+        err = compare(f"lstm fwd {tag} ({fpath})", ys,
+                      lstm_sequence_reference(*args), **TOL[("fwd", dname)])
         if main_path:
+            if fpath != "tensor_core":
+                raise AssertionError(f"lstm fwd {tag}: the main path took "
+                                     f"the {fpath} route")
             fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
+            fwd["path"] = fpath
+        elif fpath == "tensor_core" and N % fwd_tc_rows():
+            _tc_fwd_guard_check("lstm fwd " + tag, args, False, ys, cs)
 
         leaves = [a.detach().clone().requires_grad_(i != 1)
                   for i, a in enumerate(args)]
@@ -460,6 +556,8 @@ def check_lstm(results):
                            (ys, cs), probe, got,
                            row_args={0: 1, 1: 1, 4: 0, 5: 0},
                            row_outs={0: 1, 3: 0, 4: 0}, weight_outs=(1, 2))
+            _tc_fwd_checks("lstm fwd " + tag, lstm_sequence_fwd, args, ys,
+                           cs, (4, 5))
             fwd["ms"] = time_ms(lambda: lstm_sequence_fwd(*args))
             fwd["plain_ms"] = time_ms(lambda: lstm_sequence_reference(*args))
             bwd["ms"] = time_ms(
@@ -471,7 +569,8 @@ def check_lstm(results):
             fwd_bound, bwd_bound = _lstm_bounds(T, N, H, 2)
             fwd.update(library_ms=None, **fwd_bound)
             bwd.update(library_ms=None, **bwd_bound)
-            log(f"  lstm {tag}: fwd kernel {fwd['ms']:.3f} ms, plain "
+            log(f"  lstm {tag}: fwd kernel {fwd['ms']:.3f} ms (R = "
+                f"{fwd_tc_rows()}), plain "
                 f"{fwd['plain_ms']:.3f} ms, bound {fwd['bound_ms']:.4f} ms "
                 f"({fwd['bound_by']}); bwd kernel {bwd['ms']:.3f} ms, plain "
                 f"{bwd['plain_ms']:.3f} ms, bound {bwd['bound_ms']:.4f} ms "
@@ -481,8 +580,19 @@ def check_lstm(results):
             step_ms = time_ms(lambda: lstm_sequence_fwd(*args))
             step_plain = time_ms(lambda: lstm_sequence_reference(*args))
             step_bound = _lstm_bounds(T, N, H, 2)[0]
-            log(f"  lstm {tag}: fwd kernel {step_ms:.3f} ms, plain "
-                f"{step_plain:.3f} ms, bound {step_bound['bound_ms']:.4f} ms")
+            # The rollout step: what a call costs the host (checks, the
+            # transposed Wr, TMA maps, launch), as for fused_policy_step.
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                lstm_sequence_fwd(*args)
+            host_us = (time.perf_counter() - t0) * 1e4
+            torch.cuda.synchronize()
+            log(f"  lstm {tag}: fwd kernel {step_ms:.3f} ms (R = "
+                f"{fwd_tc_rows()}), plain {step_plain:.3f} ms, bound "
+                f"{step_bound['bound_ms']:.4f} ms "
+                f"({step_bound['bound_by']}); host {host_us:.1f} us a call "
+                f"(enqueue, 100 calls)")
 
 
 def _mha_bound(B, S, H, D, valid_len, itemsize):
@@ -672,8 +782,9 @@ def _proj_bounds(T, N, F, H, itemsize):
 def check_lstm_proj(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
-        LSTM_PROJ_BWD, lstm_sequence_proj_bwd, lstm_sequence_proj_fwd,
-        lstm_sequence_proj_reference, uses_tensor_cores)
+        LSTM_PROJ_BWD, LSTM_PROJ_FWD, fwd_tc_rows, lstm_sequence_proj_bwd,
+        lstm_sequence_proj_fwd, lstm_sequence_proj_reference,
+        uses_tensor_cores)
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     fwd = results["lstm_sequence_proj_fwd"] = {"max_abs_err": 0.0}
@@ -681,8 +792,9 @@ def check_lstm_proj(results):
     bf16, f32 = torch.bfloat16, torch.float32
     # (T, N, F, H, dtype, on the main path): the headline_fused update
     # minibatch, float32 at the same shape, the minibatch at N = 256, ragged
-    # batches with F < H, F = 2H and F = 4H (the bf16 backward on tensor
-    # cores), F = 2H and 4H at H = 128 in float32.
+    # batches with F < H, F = 2H and F = 4H (the bf16 kernels on tensor
+    # cores; F = 4H takes one x buffer), F = 2H and 4H at H = 128 in
+    # float32.
     cases = [
         (16, 8192, 256, 256, bf16, True),
         (16, 8192, 256, 256, f32, False),
@@ -708,12 +820,19 @@ def check_lstm_proj(results):
                 rnd(4 * H), rnd(N, H), rnd(N, H))
         probe = rnd(T, N, H)
 
-        ys, cs = lstm_sequence_proj_fwd(*args)
-        err = compare(f"lstm_proj fwd {tag}", ys,
+        (ys, cs), fpath = _routed(LSTM_PROJ_FWD, uses_tensor_cores(dtype, H),
+                                  lstm_sequence_proj_fwd, *args)
+        err = compare(f"lstm_proj fwd {tag} ({fpath})", ys,
                       lstm_sequence_proj_reference(*args),
                       **TOL[("fwd", dname)])
         if main_path:
+            if fpath != "tensor_core":
+                raise AssertionError(f"lstm_proj fwd {tag}: the main path "
+                                     f"took the {fpath} route")
             fwd["max_abs_err"] = err
+            fwd["path"] = fpath
+        elif fpath == "tensor_core" and N % fwd_tc_rows():
+            _tc_fwd_guard_check("lstm_proj fwd " + tag, args, True, ys, cs)
 
         leaves = [a.detach().clone().requires_grad_(i != 1)
                   for i, a in enumerate(args)]
@@ -742,6 +861,8 @@ def check_lstm_proj(results):
                            args, (ys, cs), probe, got,
                            row_args={0: 1, 1: 1, 5: 0, 6: 0},
                            row_outs={0: 1, 4: 0, 5: 0}, weight_outs=(1, 2, 3))
+            _tc_fwd_checks("lstm_proj fwd " + tag, lstm_sequence_proj_fwd,
+                           args, ys, cs, (5, 6))
             fwd["ms"] = time_ms(lambda: lstm_sequence_proj_fwd(*args))
             fwd["plain_ms"] = time_ms(
                 lambda: lstm_sequence_proj_reference(*args))
@@ -752,7 +873,8 @@ def check_lstm_proj(results):
             fwd_bound, bwd_bound = _proj_bounds(T, N, F, H, 2)
             fwd.update(library_ms=None, **fwd_bound)
             bwd.update(library_ms=None, **bwd_bound)
-            log(f"  lstm_proj {tag}: fwd kernel {fwd['ms']:.3f} ms, plain "
+            log(f"  lstm_proj {tag}: fwd kernel {fwd['ms']:.3f} ms (R = "
+                f"{fwd_tc_rows()}), plain "
                 f"{fwd['plain_ms']:.3f} ms, bound {fwd['bound_ms']:.4f} ms "
                 f"({fwd['bound_by']}); bwd kernel {bwd['ms']:.3f} ms, plain "
                 f"{bwd['plain_ms']:.3f} ms, bound {bwd['bound_ms']:.4f} ms "
@@ -1845,8 +1967,9 @@ def _profile_update(one_update):
 
 # The kernels whose wrappers count their tensor-core launches
 # (Kernel.tc_launches): their path rules send bf16 at H = 128 or 256 there.
-TC_ROUTED = ("lstm_sequence_bwd", "lstm_sequence_proj_bwd", "gru_sequence_bwd",
-             "fused_policy_step")
+TC_ROUTED = ("lstm_sequence_fwd", "lstm_sequence_bwd",
+             "lstm_sequence_proj_fwd", "lstm_sequence_proj_bwd",
+             "gru_sequence_bwd", "fused_policy_step")
 
 
 def trainer_phase(card, name, build, per_update, trials, timed_updates,
@@ -1923,8 +2046,8 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
     log(f"  launches over {num_updates} updates: {launches} (expected "
         f"{ {k: v * num_updates for k, v in per_update.items()} })")
     # The trainers run bf16 at H = 256: every launch of a kernel with a
-    # counted tensor-core route (the LSTM and GRU backwards, the fused step)
-    # takes it.
+    # counted tensor-core route (the four LSTM kernels, the GRU backward,
+    # the fused step) takes it.
     for kernel, tc in tc_launches.items():
         if tc != launches[kernel]:
             raise AssertionError(
@@ -1980,6 +2103,48 @@ def two_hot_loss_timing(card):
 
     log(f"two-hot loss + gradient at [{T}, {N}, 63]: "
         f"{time_ms(loss_fwd_bwd):.3f} ms on {card}")
+
+
+def digest_phase():
+    """``--digests``: the SHA-256 of each bf16 LSTM kernel's outputs at the
+    update pass's shapes, from seeded inputs, as one JSON line. Copied into
+    another checkout and run there, it holds that checkout's kernels
+    bitwise to this one's."""
+    import hashlib
+
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.lstm import (
+        lstm_sequence_bwd, lstm_sequence_fwd, lstm_sequence_proj_bwd,
+        lstm_sequence_proj_fwd)
+
+    def digest(outs):
+        h = hashlib.sha256()
+        for t in outs:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    T, N, F, H, bf16 = 16, 8192, 256, 256, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    xp, keep, wr, bias, c0, h0 = _lstm_inputs(gen, T, N, H, bf16)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(bf16)
+
+    # The backwards' ys / cs are inputs like the others: drawn, not taken
+    # from a forward, so that the forwards' digests do not reach them.
+    ys, cs, dys = rnd(T, N, H), rnd(T, N, H), rnd(T, N, H)
+    x, wi = rnd(T, N, F), rnd(F, 4 * H, scale=F ** -0.5)
+    log(json.dumps({"digests": {
+        "lstm_sequence_fwd": digest(
+            lstm_sequence_fwd(xp, keep, wr, bias, c0, h0)),
+        "lstm_sequence_bwd": digest(lstm_sequence_bwd(
+            xp, keep, wr, bias, c0, h0, ys, cs, dys)),
+        "lstm_sequence_proj_fwd": digest(
+            lstm_sequence_proj_fwd(x, keep, wi, wr, bias, c0, h0)),
+        "lstm_sequence_proj_bwd": digest(lstm_sequence_proj_bwd(
+            x, keep, wi, wr, bias, c0, h0, ys, cs, dys)),
+    }}))
 
 
 def main():
@@ -2064,4 +2229,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--digests"]:
+        device_phase()
+        build_phase()
+        digest_phase()
+    else:
+        main()

@@ -16,8 +16,7 @@
 // in no order, so neither the resident weight nor a sum carried across grid
 // steps exists.
 //
-// The forwards, and the backwards in float32 (layout and product in
-// common.cuh):
+// In float32 (layout and product in common.cuh), forwards and backwards:
 // - One block owns kRows batch rows and all H units of those rows, and
 //   loops over time inside the kernel (the TPU's sequential grid axis
 //   becomes the in-block loop). Each thread computes all four gates of its
@@ -53,49 +52,67 @@
 // These are bound by CUDA-core FMA issue and shared/L1 load throughput, far
 // below the tensor-core rate that bounds the work itself.
 //
-// The backwards in bfloat16 (lstm_bwd_tc_kernel, then weight_grad_tc.cuh),
-// on Hopper's tensor cores: the TPU kernel's products are bf16 operands
-// with f32 accumulation, which is what wgmma computes, with only the order
-// of the sums changed. The wrapper's rule (ops/cuda/lstm.py:
-// uses_tensor_cores) sends bf16 at H = 128 or 256 here (an operand off a
-// 16-byte boundary is copied onto one first), float32 to the kernels above.
-// - Row ownership as above, with R = kTcRows rows a block (16, and 32 with
-//   the projection: the faster of the two on the H100): warpgroup w
-//   owns units 64 w .. 64 w + 63 of all four gates, so the gate math and
-//   the f32 dh / dc carries stay thread-local. The products run transposed,
-//   gates (or units, or input features) as wgmma's M and the block's rows
-//   as its N: gates^T = Wr^T . h_in^T, dh_prev^T = Wr . dgates^T, and for
-//   the projection xp^T = Wi^T . x^T (rounded to bf16 in the accumulators
-//   before h_in . Wr is added) and dx^T = Wi . dgates^T (rounded once),
-//   each warpgroup's result in the layout of its carries.
-// - A: 64-deep slices of the weights ([H rows][64], 128-byte swizzle)
-//   through a ring of stages (32 KB at H = 256) filled by TMA
-//   (slice_ring.cuh, shared with gru.cu and policy_step.cu): Wr^T, then Wr
-//   each step, with Wi^T and Wi for the projection. The sequence is the
-//   same every step, so the ring prefetches across phases. Wr is 512 KiB
-//   in bf16 at H = 256, more than a block's shared memory, so it streams
-//   from L2 every step; a block reuses each element for its R rows.
-// - B: the block's h_in and dgates tiles ([R][K] bf16, K-major, the same
-//   swizzle) in shared memory; x_proj (or x) lands in the dgates tile,
-//   which the gate math then overwrites element by element (each thread
-//   rewrites only what it read). h_in, c_in (cleared by keep), cs and dys
-//   arrive by 16-byte cp.async with zero-fill, so rows past N give exact
-//   zeros; their dgates are set to 0.
-// - The kernel writes the rounded dgates (dx_proj, or a scratch), h_in as
-//   each step used it ([T, N, H] scratch) and per-block db partials. Then
-//   weight_grad_tc.cuh: dW = [x |] h_in^T . dgates as split-K wgmma over
-//   the T*N rows ([F + H, 4H] in one launch for the projection), f32
-//   partials per split, summed in split order; db from the block
-//   partials in block order. Deterministic, and a row's dgates, dx, dh0
-//   and dc0 do not depend on N or on where the row sits.
+// In bfloat16, all four on Hopper's tensor cores: the forwards
+// (lstm_fwd_tc_kernel) and the backwards (lstm_bwd_tc_kernel, then
+// weight_grad_tc.cuh). The TPU kernel's products are bf16 operands with f32
+// accumulation, which is what wgmma computes, with only the order of the
+// sums changed. The wrapper's rule (ops/cuda/lstm.py: uses_tensor_cores)
+// sends bf16 at H = 128 or 256 here (an operand off a 16-byte boundary is
+// copied onto one first), float32 to the kernels above.
+// - Row ownership as above, with R rows a block (kFwdTcRows for the
+//   forwards, kTcRows for the backwards: the fastest on the H100, PERF.md):
+//   warpgroup w owns units 64 w .. 64 w + 63 of all four gates, so the gate
+//   math and the f32 carries (c; dh / dc) stay thread-local. The products
+//   run transposed, gates (or units, or input features) as wgmma's M and
+//   the block's rows as its N: gates^T = Wr^T . h^T, dh_prev^T = Wr .
+//   dgates^T, and for the projection xp^T = Wi^T . x^T (rounded to bf16 in
+//   the accumulators before h . Wr is added) and dx^T = Wi . dgates^T
+//   (rounded once), each warpgroup's result in the layout of its carries.
+//   One helper (preactivations, gate_pre) computes the pre-activations for
+//   the forward and for the backward's recompute, so both compute them
+//   alike.
+// - A: 64-deep slices of the weights (128-byte swizzle) through a ring of
+//   stages (32 KB at H = 256) filled by TMA (slice_ring.cuh, shared with
+//   gru.cu and policy_step.cu): a forward step takes Wi then Wr as
+//   MN-major boxes of the weights as they stand ([64 k][64 units], as
+//   policy_step.cu reads its weights), so a rollout step copies no weight;
+//   a backward step takes K-major slices ([H rows][64]) of Wi^T, Wr^T, Wr
+//   and Wi, against transposed copies made once a call. The sequence is
+//   the same every step, so the ring prefetches across steps and phases.
+//   Wr is 512 KiB in bf16 at H = 256, more than a block's
+//   shared memory, so it streams from L2 every step; a block reuses each
+//   element for its R rows.
+// - B: the block's h tile (forward; h_in in the backward) and the x or
+//   dgates tile ([R][K] bf16, K-major, the same swizzle) in shared memory.
+//   The forward's gate math writes the next step's carry (h after the keep
+//   mask, already bf16) straight into the h tile, so h never goes through
+//   global memory between steps; x_proj (or x) arrives by 16-byte cp.async
+//   with zero-fill, the next step's during this step's products (x of the
+//   projection in two buffers where 2 F <= 4H), and each thread stores its
+//   own ys / cs elements. The backward's x_proj (or x) lands in
+//   the dgates tile, which the gate math then overwrites element by element
+//   (each thread rewrites only what it read); h_in, c_in (cleared by keep),
+//   cs and dys arrive the same way. Rows past N give exact zeros and are
+//   never stored; their dgates are set to 0.
+// - The backward writes the rounded dgates (dx_proj, or a scratch), h_in
+//   as each step used it ([T, N, H] scratch) and per-block db partials.
+//   Then weight_grad_tc.cuh: dW = [x |] h_in^T . dgates as split-K wgmma
+//   over the T*N rows ([F + H, 4H] in one launch for the projection), f32
+//   partials per split, summed in split order; db from the block partials
+//   in block order. Deterministic, and a row's results (ys, cs; dgates,
+//   dx, dh0, dc0) depend neither on N, nor on where the row sits, nor, in
+//   the forward, on T: the rollout step (T = 1) is step t of the update
+//   pass bitwise.
 //
 // Bound on the H100: the forward is a chain of [BN, H] x [H, 4H] products
 // (and [BN, F] x [F, 4H]) with a dependency between steps; its memory
-// traffic is one read of x or x_proj and one write of ys/cs per step. The
-// bf16 backward's products take ~0.2 ms on tensor cores at [16, 8192, 256]
-// (0.4 ms with the projection at F = 256); what holds it is streaming the
-// weights from L2 every step, 1 MiB a block a step (2 MiB with Wi), about
-// 8.6 GB per call in both variants (R = 16 without Wi, 32 with it).
+// traffic is one read of x or x_proj and one write of ys/cs per step, 0.12
+// ms at [16, 8192, 256] (0.14 ms by operations with the projection). The
+// bf16 backward's products take ~0.2 ms on tensor cores at that shape (0.4
+// ms with the projection at F = 256). What holds the tensor-core kernels is
+// streaming the weights from L2 every step: |Wr| (+ |Wi|) a block a step
+// forward, twice that backward; (N / R) T |Wr| is ~2.1 GB a forward call
+// at R = 32, ~8.6 GB a backward call.
 
 #include <cuda.h>   // CUtensorMap
 
@@ -780,6 +797,59 @@ struct TcBwd {
   static_assert(kStages >= 2, "a ring of at least two slices");
 };
 
+// The gates' pre-activations of one step on tensor cores, gates as wgmma's
+// M and the block's rows as its N, shared by the forward and the
+// backward's recompute so that both compute them alike: acc[g] =
+// round(x . Wi)^T (the hoisted Dense's rounding point) with the
+// projection, then (+)= (h . Wr)^T. The ring's next slices are Wi by
+// (F-chunk, gate), then Wr by (H-chunk, gate), as K-major slices of the
+// transposed weight (kTransA 0, the backward) or MN-major boxes of the
+// weight as it stands (kTransA 1, the forward; ring_product); x_s is the
+// K-major x tile (read with the projection only), h_s the K-major h tile,
+// a_off this warpgroup's rows of a stage.
+template <int H, int R, bool kProj, int kTransA, int S, class Issue>
+__device__ __forceinline__ void preactivations(SliceRing<S>& slices,
+                                               Issue& issue,
+                                               float (&acc)[4][R / 2],
+                                               uint32_t a_off, uint32_t x_s,
+                                               uint32_t h_s, int f_in) {
+  constexpr int kSub = R * 128;   // one [R][64] subtile
+  if constexpr (kProj) {
+    for (int kc = 0; kc < f_in / kTcK; ++kc)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        ring_product<R, kTransA>(slices, issue, acc[g], a_off, x_s + kc * kSub,
+                           kc == 0);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int i = 0; i < R / 2; ++i) {
+        wgmma_fence_operand(acc[g][i]);
+        acc[g][i] = round_to<__nv_bfloat16>(acc[g][i]);
+      }
+  }
+  for (int kc = 0; kc < H / kTcK; ++kc)
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      ring_product<R, kTransA>(slices, issue, acc[g], a_off, h_s + kc * kSub,
+                         !kProj && kc == 0);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int i = 0; i < R / 2; ++i) wgmma_fence_operand(acc[g][i]);
+}
+
+// One gate's pre-activation from its product acc: x_proj + h . Wr + b in
+// that order (x_proj the bf16 at x), or, with the projection, round(x . Wi)
+// + h . Wr (both in acc) + b.
+template <bool kProj>
+__device__ __forceinline__ float gate_pre(const uint8_t* x, float acc,
+                                          float b) {
+  return kProj ? acc + b : ld_bf16(x) + acc + b;
+}
+
 // The reverse-time recurrence of the bf16 backward (see the header). One
 // block owns R batch rows; warpgroup w owns units 64 w .. 64 w + 63 of all
 // four gates. Thread (warp v of its warpgroup, lane l) holds units
@@ -973,32 +1043,10 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
           keep_prev |= 1u << (2 * j + e);
       }
 
-    // Pre-activations, gates as M and rows as N: round(x . Wi) (the
-    // hoisted Dense's rounding point) for the projection, then h_in . Wr.
+    // Pre-activations as the forward computes them (x in the dgates tile).
     float acc[4][kAcc];
-    if constexpr (kProj) {
-      for (int kc = 0; kc < f_in / kTcK; ++kc)
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          consume(acc[g], dg_s + kc * L::kSub, kc == 0);
-      wgmma_wait<0>();
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int i = 0; i < kAcc; ++i) {
-          wgmma_fence_operand(acc[g][i]);
-          acc[g][i] = round_to<bf16>(acc[g][i]);
-        }
-    }
-    for (int kc = 0; kc < H / kTcK; ++kc)
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        consume(acc[g], hin_s + kc * L::kSub, !kProj && kc == 0);
-    wgmma_wait<0>();
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-      for (int i = 0; i < kAcc; ++i) wgmma_fence_operand(acc[g][i]);
+    preactivations<H, R, kProj, 0>(slices, issue, acc, a_off, dg_s, hin_s,
+                                   f_in);
     // The projection's x sits where the dgates go: every warpgroup is done
     // reading it.
     if constexpr (kProj) __syncthreads();
@@ -1019,8 +1067,7 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
           float pre[4];
 #pragma unroll
           for (int g = 0; g < 4; ++g)
-            pre[g] = kProj ? acc[g][i] + b[g][s]
-                           : ld_bf16(dgo + g * kGate) + acc[g][i] + b[g][s];
+            pre[g] = gate_pre<kProj>(dgo + g * kGate, acc[g][i], b[g][s]);
           const float si = sigmoid_f(pre[0]);
           const float sf = sigmoid_f(pre[1]);
           const float tg = tanhf(pre[2]);
@@ -1187,23 +1234,258 @@ int launch_bwd_tc(int phases, const void* x, const void* keep,
   return 0;
 }
 
+// ------------------------------------ bf16 forward on tensor cores
+
+// Batch rows a block of the tensor-core forward (R) in both variants, the
+// faster of 16 and 32 on the H100 (PERF.md; R = 64 would hold 128
+// accumulators a thread, the whole register budget of 512 threads);
+// mirrored by ops/cuda/lstm.py:fwd_tc_rows.
+constexpr int kFwdTcRows = 32;
+
+// Ring stages of the tensor-core forward at most (as many as fit, up to
+// this; PERF.md).
+constexpr int kFwdTcStages = 4;
+
+// Shared memory of lstm_fwd_tc_kernel, from a 1024-byte aligned base: the
+// ring of weight slices ([64 k][H units] bf16 each, as H / 64 TMA boxes of
+// [64 k][64 units]), the block's h tile (the
+// K-major B operand of h . Wr, which the gate math overwrites with the next
+// step's carry) and its x tile (K-major [R][4H]: x_proj, or x in one or two
+// buffers of [R][F]).
+template <int H, int R>
+struct TcFwd {
+  static constexpr int kWarpgroups = H / 64;   // 64 units each
+  static constexpr int kThreads = 128 * kWarpgroups;
+  static constexpr int kWarps = 4 * kWarpgroups;
+  static constexpr int kSub = R * 128;          // one [R][64] subtile
+  static constexpr int kStageBytes = H * 128;
+  static constexpr int kHBytes = R * H * 2;
+  static constexpr int kXBytes = R * 4 * H * 2;
+  static constexpr int kFixed = kHBytes + kXBytes;
+  static constexpr int kStages =
+      min_c(kFwdTcStages, (kSmemLimit - 2048 - kFixed) / kStageBytes);
+  static constexpr int kSmem = kStages * kStageBytes + kFixed + 1024;
+  static_assert(kStages >= 2, "a ring of at least two slices");
+};
+
+// The forward recurrence of both variants on tensor cores (see the header).
+// One block owns R batch rows and loops over time; warpgroup w owns units
+// 64 w .. 64 w + 63 of all four gates, in the accumulator layout of
+// lstm_bwd_tc_kernel (element 4 j + 2 s + e of an m64nR accumulator is unit
+// unit0 + 8 s, row 8 j + 2 (l % 4) + e), so the gate math and the f32 c
+// carry are thread-local. The maps are TMA maps of the row-major weights,
+// Wi [F, 4H] (wi_map; Wr again without the projection) and Wr [H, 4H]
+// (wr_map), in boxes of [64 k][64 units]: wgmma's MN-major A operand as
+// they stand, so the forward needs no transposed copy of a weight.
+template <int H, int R, bool kProj>
+__global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
+    lstm_fwd_tc_kernel(const __grid_constant__ CUtensorMap wi_map,
+                       const __grid_constant__ CUtensorMap wr_map,
+                       const bf16* __restrict__ x, const bf16* __restrict__ keep,
+                       const bf16* __restrict__ bias,
+                       const bf16* __restrict__ c0, const bf16* __restrict__ h0,
+                       bf16* __restrict__ ys, bf16* __restrict__ cs, int steps,
+                       int n_rows, int f_in) {
+  using L = TcFwd<H, R>;
+  constexpr int S = L::kStages;
+  constexpr int kAcc = R / 2;
+  constexpr int kGate = (H / 64) * L::kSub;   // gate stride of the x tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[S];
+  __shared__ __align__(8) uint64_t empty[S];
+  const uint32_t raw_s = smem_u32(smem_raw);
+  const uint32_t ring = (raw_s + 1023) & ~1023u;
+  const uint32_t h_s = ring + S * L::kStageBytes;
+  const uint32_t x_s = h_s + L::kHBytes;
+  uint8_t* h_p = smem_raw + (h_s - raw_s);
+  const uint8_t* x_p = smem_raw + (x_s - raw_s);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, lane = tid % 32;
+  const int lt = lane % 4;
+  const int unit0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+  const int block_row = blockIdx.x * R;
+
+  // The weight slices of one step, in the order the step consumes them:
+  // Wi by (F-chunk, gate), then Wr by (H-chunk, gate), each the H / 64
+  // boxes of its gate's units; the same sequence every step, so the ring
+  // prefetches across steps.
+  const int xp_loads = kProj ? 4 * (f_in / kTcK) : 0;
+  const int step_loads = xp_loads + 4 * (H / kTcK);
+  const CUtensorMap* wim = &wi_map;
+  const CUtensorMap* wrm = &wr_map;
+  auto issue = [&](int q, uint32_t dst, uint64_t* bar) {
+    int p = q % step_loads;
+    const bool xp = p < xp_loads;
+    if (!xp) p -= xp_loads;
+#pragma unroll
+    for (int w = 0; w < H / 64; ++w)
+      tma_load_3d(dst + w * 64 * 128, xp ? wim : wrm, bar,
+                  (p % 4) * H + w * 64, (p / 4) * kTcK, 0);
+  };
+  SliceRing<S> slices{full, empty, ring, L::kStageBytes, steps * step_loads,
+                      0};
+  if (tid == 0) slices.init(L::kWarps);
+  __syncthreads();
+  if (tid == 0) slices.prime(issue);
+
+  // x_proj (or x) of step t into the x tile (buffer t % x_bufs with the
+  // projection), by 16-byte cp.async with zero-fill: rows past N arrive as
+  // zeros. Two buffers of x where they fit, so that step t + 1's x arrives
+  // during step t's products; one (F > 2H) is refilled once step t's
+  // products are done.
+  const int x_width = kProj ? f_in : 4 * H;
+  const int x_bufs = kProj && 2 * f_in <= 4 * H ? 2 : 1;
+  const uint32_t x_buf_bytes = R * x_width * 2;
+  auto load_x = [&](int t) {
+    const uint32_t dst = x_s + (t % x_bufs) * x_buf_bytes;
+    const size_t trow = static_cast<size_t>(t) * n_rows;
+    for (int e = tid; e < R * (x_width / 8); e += L::kThreads) {
+      const int n = e / (x_width / 8), c = e % (x_width / 8);
+      const int row = block_row + n;
+      const bool live = row < n_rows;
+      cp_async16(dst + kmaj_off<R>(n, c * 8),
+                 x + (live ? (trow + row) * x_width + c * 8 : 0), live);
+    }
+    cp_async_commit();
+  };
+
+  // h0 into the h tile, c0 into the f32 carry (rows past N: zeros).
+  for (int e = tid; e < R * (H / 8); e += L::kThreads) {
+    const int n = e / (H / 8), c = e % (H / 8);
+    const int row = block_row + n;
+    const bool live = row < n_rows;
+    cp_async16(h_s + kmaj_off<R>(n, c * 8),
+               h0 + (live ? static_cast<size_t>(row) * H + c * 8 : 0), live);
+  }
+  load_x(0);
+  uint32_t kb[2][2];   // as in lstm_bwd_tc_kernel
+  float b[4][2];
+  float c[kAcc];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      kb[s][e] = kmaj_off<R>(2 * lt + e, unit0 + 8 * s);
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      b[g][s] = __bfloat162float(bias[g * H + unit0 + 8 * s]);
+  }
+#pragma unroll
+  for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = block_row + 8 * j + 2 * lt + e;
+        c[4 * j + 2 * s + e] =
+            row < n_rows ? __bfloat162float(
+                               c0[static_cast<size_t>(row) * H + unit0 + 8 * s])
+                         : 0.0f;
+      }
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  const uint32_t a_off = wg * 64 * 128;
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+  for (int t = 0; t < steps; ++t) {
+    const size_t trow = static_cast<size_t>(t) * n_rows;
+    uint32_t kept = 0;   // bit 2 j + e: row 8 j + 2 (l % 4) + e
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = block_row + 8 * j + 2 * lt + e;
+        if (row < n_rows && __bfloat162float(keep[trow + row]) > 0.5f)
+          kept |= 1u << (2 * j + e);
+      }
+    if (x_bufs == 2 && t + 1 < steps) load_x(t + 1);
+
+    float acc[4][kAcc];
+    preactivations<H, R, kProj, 1>(slices, issue, acc, a_off,
+                                   x_s + (t % x_bufs) * x_buf_bytes, h_s,
+                                   f_in);
+    if constexpr (!kProj) cp_async_wait<0>();   // x_proj of step t
+    // Every warpgroup is done reading the h tile (and x with the
+    // projection); x_proj of step t is in.
+    __syncthreads();
+    if (kProj && x_bufs == 1 && t + 1 < steps) load_x(t + 1);
+
+    // Gate math, thread-local; the new carry into the h tile (cleared where
+    // keep is 0), the outputs to memory (staging them in shared memory for
+    // 16-byte stores measured slower on the H100).
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * s + e;
+          const uint32_t ko = kb[s][e] + j * 1024;
+          float pre[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            pre[g] = gate_pre<kProj>(x_p + ko + g * kGate, acc[g][i], b[g][s]);
+          const float new_c =
+              sigmoid_f(pre[1]) * c[i] + sigmoid_f(pre[0]) * tanhf(pre[2]);
+          const float new_h = sigmoid_f(pre[3]) * tanhf(new_c);
+          const bf16 c_t = __float2bfloat16_rn(new_c);
+          const bf16 h_t = __float2bfloat16_rn(new_h);
+          const bool k = (kept >> (2 * j + e)) & 1u;
+          *reinterpret_cast<bf16*>(h_p + ko) = k ? h_t : zero;
+          c[i] = k ? __bfloat162float(c_t) : 0.0f;
+          const int row = block_row + 8 * j + 2 * lt + e;
+          if (row < n_rows) {
+            const size_t o = (trow + row) * H + unit0 + 8 * s;
+            ys[o] = h_t;
+            cs[o] = c_t;
+          }
+        }
+    if constexpr (kProj) cp_async_wait<0>();   // x of step t + 1
+    fence_proxy_async();
+    __syncthreads();   // the carry and next step's x are in for its products
+    // The x tile is free once the gate math has read it.
+    if (!kProj && t + 1 < steps) load_x(t + 1);
+  }
+}
+
+template <int H, bool kProj>
+int launch_fwd_tc(const void* x, const void* keep, const void* wi,
+                  const void* wr, const void* bias, const void* c0,
+                  const void* h0, void* ys, void* cs, int steps, int n_rows,
+                  int f_in, cudaStream_t stream) {
+  constexpr int R = kFwdTcRows;
+  using L = TcFwd<H, R>;
+  CUtensorMap wi_map, wr_map;
+  if (!make_tma_map(&wr_map, wr, 4 * H, H, 1, 64, kTcK) ||
+      !make_tma_map(&wi_map, kProj ? wi : wr, 4 * H, kProj ? f_in : H, 1,
+                    64, kTcK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = set_smem(lstm_fwd_tc_kernel<H, R, kProj>, L::kSmem);
+  if (err != 0) return err;
+  const int blocks = (n_rows + R - 1) / R;
+  lstm_fwd_tc_kernel<H, R, kProj><<<blocks, L::kThreads, L::kSmem, stream>>>(
+      wi_map, wr_map, static_cast<const bf16*>(x),
+      static_cast<const bf16*>(keep), static_cast<const bf16*>(bias),
+      static_cast<const bf16*>(c0), static_cast<const bf16*>(h0),
+      static_cast<bf16*>(ys), static_cast<bf16*>(cs), steps, n_rows, f_in);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool proj_width_ok(int hidden, int f_in) {
   return f_in > 0 && f_in % 128 == 0 && f_in <= 4 * hidden;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each entry point returns a cudaError_t,
-// or -1 for arguments without an instantiation. The CUDA-core backwards are
-// built for float32 alone: bfloat16 takes mlt_lstm_bwd_tc.
+// dtype: 0 = float32. Each entry point returns a cudaError_t, or -1 for
+// arguments without an instantiation. The CUDA-core kernels are built for
+// float32 alone: bfloat16 takes mlt_lstm_fwd_tc and mlt_lstm_bwd_tc.
 #define MLT_DISPATCH_F32(CALL)                                   \
   if (dtype == 0 && hidden == 128) return CALL(float, 128);      \
   if (dtype == 0 && hidden == 256) return CALL(float, 256);      \
   return -1
-#define MLT_DISPATCH(CALL)                                       \
-  if (dtype == 1 && hidden == 128) return CALL(__nv_bfloat16, 128); \
-  if (dtype == 1 && hidden == 256) return CALL(__nv_bfloat16, 256); \
-  MLT_DISPATCH_F32(CALL)
 
 extern "C" int mlt_lstm_fwd(int dtype, int hidden, const void* xp,
                             const void* keep, const void* wr,
@@ -1213,7 +1495,7 @@ extern "C" int mlt_lstm_fwd(int dtype, int hidden, const void* xp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MLT_FWD(T, H) \
   launch_fwd<T, H>(xp, keep, wr, bias, c0, h0, ys, cs, steps, n_rows, s)
-  MLT_DISPATCH(MLT_FWD);
+  MLT_DISPATCH_F32(MLT_FWD);
 #undef MLT_FWD
 }
 
@@ -1244,7 +1526,7 @@ extern "C" int mlt_lstm_proj_fwd(int dtype, int hidden, int f_in,
 #define MLT_PROJ_FWD(T, H)                                                 \
   launch_proj_fwd<T, H>(x, keep, wi, wr, bias, c0, h0, ys, cs, steps,      \
                         n_rows, f_in, s)
-  MLT_DISPATCH(MLT_PROJ_FWD);
+  MLT_DISPATCH_F32(MLT_PROJ_FWD);
 #undef MLT_PROJ_FWD
 }
 
@@ -1291,5 +1573,30 @@ extern "C" int mlt_lstm_bwd_tc(
   return -1;
 }
 
-#undef MLT_DISPATCH
+// The bf16 tensor-core forward of both variants (f_in = 0:
+// lstm_sequence_fwd, x = x_proj; else lstm_sequence_proj_fwd), from the
+// weights as they stand, Wi [F, 4H] (unread without the projection) and
+// Wr [H, 4H]. Returns a cudaError_t, or -1 for arguments without an
+// instantiation.
+extern "C" int mlt_lstm_fwd_tc(int hidden, int f_in, const void* x,
+                               const void* keep, const void* wi,
+                               const void* wr, const void* bias,
+                               const void* c0, const void* h0, void* ys,
+                               void* cs, int steps, int n_rows,
+                               void* stream) {
+  if (f_in != 0 && !proj_width_ok(hidden, f_in)) return -1;
+  if (static_cast<long long>(steps) * n_rows > 0x7fffffffLL) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MLT_FWD_TC(H, P)                                                   \
+  launch_fwd_tc<H, P>(x, keep, wi, wr, bias, c0, h0, ys, cs, steps,        \
+                      n_rows, f_in, s)
+#define MLT_FWD_TC_H(H) \
+  if (hidden == H) return f_in == 0 ? MLT_FWD_TC(H, false) : MLT_FWD_TC(H, true)
+  MLT_FWD_TC_H(128);
+  MLT_FWD_TC_H(256);
+#undef MLT_FWD_TC_H
+#undef MLT_FWD_TC
+  return -1;
+}
+
 #undef MLT_DISPATCH_F32

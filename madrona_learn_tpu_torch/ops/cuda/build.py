@@ -39,8 +39,8 @@ class Kernel:
 
     ``launches`` is incremented by the kernel's wrapper where, and only
     where, it launches the kernel on the card; ``tc_launches`` as well where
-    that launch took the kernel's tensor-core route (the LSTM and GRU
-    backwards and the fused step, whose path rules send bf16 there).
+    that launch took the kernel's tensor-core route (the four LSTM kernels,
+    the GRU backward and the fused step, whose path rules send bf16 there).
     """
 
     name: str
@@ -177,6 +177,8 @@ _SIGNATURES = {
     # H, phases, xp, keep, wh, wh_t, bias_h, h0, ys, dys, dxp, dhp, hin,
     # dh0, part_w, part_b, dwh, dbh, T, N, splits, stream
     "mlt_gru_bwd_tc": [_I] * 2 + [_P] * 16 + [_I] * 3 + [_P],
+    # H, F, x, keep, wi, wr, bias, c0, h0, ys, cs, T, N, stream
+    "mlt_lstm_fwd_tc": [_I] * 2 + [_P] * 9 + [_I] * 2 + [_P],
 }
 
 

@@ -12,21 +12,21 @@ are read from L2 every step (they do not fit in shared memory at H = 256),
 and the weight gradients are per-split f32 partials summed in a fixed order
 by a second pass instead of one accumulator shared by the whole grid.
 
-Two paths for each backward, picked by :func:`uses_tensor_cores` from the
-dtype and H alone (no fallback: the kernel a call is routed to runs or
-raises):
+Two paths for each of the four kernels, picked by :func:`uses_tensor_cores`
+from the dtype and H alone (no fallback: the kernel a call is routed to
+runs or raises):
 
 - bfloat16 at H = 128 or 256: the recurrence on Hopper's warpgroup tensor
   cores (``wgmma``, bf16 operands, f32 accumulators; the weights stream
-  through a TMA ring, :func:`tc_rows` batch rows a block), then the weight
-  gradients as a split-K ``wgmma`` product over the T * N rows; bound by
-  streaming the weights from L2. TMA and the kernel's 16-byte copies read
-  every operand on a 16-byte boundary: one that is not is copied onto one
-  first;
+  through a TMA ring, read as they stand by the forwards and from
+  transposed copies by the backwards; a block owns R batch rows, R being
+  :func:`fwd_tc_rows` for the forwards and :func:`tc_rows` for the
+  backwards); the backwards then take the weight gradients as a split-K
+  ``wgmma`` product over the T * N rows. Bound by streaming the weights
+  from L2. TMA and the kernels' 16-byte copies read every operand on a
+  16-byte boundary: one that is not is copied onto one first;
 - float32, whose products tensor cores would round: the CUDA-core kernels,
   bound by f32 FMA issue.
-
-The forwards run on CUDA cores in both dtypes.
 
 Contract (all operands in the storage dtype, float32 or bfloat16):
 
@@ -131,9 +131,36 @@ def _check_inputs(x_proj, keep, wr, bias, c0, h0):
     return steps, n, hidden
 
 
+def _fwd_tc(x, keep, wi, wr, bias, c0, h0, out=None):
+    """The bf16 tensor-core forward of both variants (``wi`` None: x is
+    x_proj): (ys, cs), into ``out`` where given."""
+    steps, n = x.shape[:2]
+    hidden = wr.shape[0]
+    f_in = 0 if wi is None else x.shape[2]
+    # x and h0 arrive by 16-byte copies, the weights by TMA.
+    x, h0, wr = on_16_bytes(x), on_16_bytes(h0), on_16_bytes(wr)
+    wi = wr if wi is None else on_16_bytes(wi)
+    if out is None:
+        ys = torch.empty((steps, n, hidden), dtype=x.dtype, device=x.device)
+        out = ys, torch.empty_like(ys)
+    ys, cs = out
+    err = library().mlt_lstm_fwd_tc(
+        hidden, f_in, x.data_ptr(), keep.data_ptr(), wi.data_ptr(),
+        wr.data_ptr(), bias.data_ptr(), c0.data_ptr(), h0.data_ptr(),
+        ys.data_ptr(), cs.data_ptr(), steps, n,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "lstm_sequence_proj_fwd" if f_in else "lstm_sequence_fwd")
+    return ys, cs
+
+
 def lstm_sequence_fwd(x_proj, keep, wr, bias, c0, h0):
     """The forward kernel: (ys, cs), each [T, N, H] in the storage dtype."""
     steps, n, hidden = _check_inputs(x_proj, keep, wr, bias, c0, h0)
+    if uses_tensor_cores(x_proj.dtype, hidden):
+        ys, cs = _fwd_tc(x_proj, keep, None, wr, bias, c0, h0)
+        LSTM_FWD.launches += 1
+        LSTM_FWD.tc_launches += 1
+        return ys, cs
     ys = torch.empty((steps, n, hidden), dtype=x_proj.dtype,
                      device=x_proj.device)
     cs = torch.empty_like(ys)
@@ -161,11 +188,17 @@ def tc_rows(proj):
     return 32 if proj else 16
 
 
+def fwd_tc_rows():
+    """Batch rows a block of the tensor-core forward owns in both variants
+    (kFwdTcRows in csrc/lstm.cu)."""
+    return 32
+
+
 def uses_tensor_cores(dtype, hidden):
-    """The path rule of the two backward kernels: bfloat16 with H in
-    (128, 256) takes the tensor-core kernels (``wgmma``); float32, whose
-    products tensor cores would round, the CUDA-core ones. (The
-    projection's F rule holds on both paths.)"""
+    """The path rule of the four kernels, forwards and backwards:
+    bfloat16 with H in (128, 256) takes the tensor-core kernels
+    (``wgmma``); float32, whose products tensor cores would round, the
+    CUDA-core ones. (The projection's F rule holds on both paths.)"""
     return dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES
 
 
@@ -364,6 +397,11 @@ def lstm_sequence_proj_fwd(x, keep, wi, wr, bias, c0, h0):
     """The projection forward kernel: (ys, cs), each [T, N, H]."""
     steps, n, f_in, hidden = _check_proj_inputs(x, keep, wi, wr, bias, c0,
                                                 h0)
+    if uses_tensor_cores(x.dtype, hidden):
+        ys, cs = _fwd_tc(x, keep, wi, wr, bias, c0, h0)
+        LSTM_PROJ_FWD.launches += 1
+        LSTM_PROJ_FWD.tc_launches += 1
+        return ys, cs
     ys = torch.empty((steps, n, hidden), dtype=x.dtype, device=x.device)
     cs = torch.empty_like(ys)
     err = library().mlt_lstm_proj_fwd(

@@ -1,0 +1,325 @@
+"""The arithmetic of the bf16 LSTM forwards on tensor cores (``csrc/lstm.cu``:
+lstm_fwd_tc_kernel), held on the CPU to the contracts that define it, and
+the rule that routes a call to it.
+
+A plain-torch emulation of the kernel's arithmetic: bf16 operands, f32
+products summed one 64-deep slice at a time in the ring's K order (each
+slice's products added in k order, element by element, so that a row's
+result depends on nothing but its own inputs), ``round(x . Wi)`` to bf16
+before ``+ h . Wr`` in the projection, then ``x_proj + acc + b``; gate math
+in f32, ys and cs rounded to bf16, the carry cleared after a step whose
+keep is 0. It is held
+
+- against ``lstm_sequence_reference`` / ``lstm_sequence_proj_reference``
+  under the chip check's forward rule in bf16 (chip_smoke.py
+  ``TOL[("fwd", "bfloat16")]``: max |diff| <= 3.2e-2);
+- against the JAX package's ``lstm_sequence`` / ``lstm_sequence_proj``
+  (the Pallas forward kernels in interpret mode) under the same rule;
+- to itself, bitwise: a T = 1 step from the cleared state equals step t of
+  the T = 16 pass, and N = 70 equals N = 16 on the rows they share.
+
+Inputs come from numpy seeds, at N = 70 (ragged against the kernel's rows
+a block), H = 128, F = 128 and 256.
+"""
+
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from madrona_learn_tpu.ops.pallas.lstm import lstm_sequence as jax_lstm_seq
+from madrona_learn_tpu.ops.pallas.lstm import (
+    lstm_sequence_proj as jax_lstm_proj,
+)
+from madrona_learn_tpu_torch.ops.cuda import KERNELS
+from madrona_learn_tpu_torch.ops.cuda import lstm as lstm_mod
+from madrona_learn_tpu_torch.ops.cuda.lstm import (
+    LSTM_FWD,
+    LSTM_PROJ_FWD,
+    _cell,
+    lstm_sequence_fwd,
+    lstm_sequence_proj_fwd,
+    lstm_sequence_proj_reference,
+    lstm_sequence_reference,
+    uses_tensor_cores,
+)
+
+torch.set_num_threads(1)
+
+BF16 = torch.bfloat16
+F32 = torch.float32
+K_SLICE = 64        # depth of a weight slice in the kernel's ring
+# The chip check's forward rule in bf16 (chip_smoke.py TOL[("fwd",
+# "bfloat16")]): max |diff| <= 3.2e-2.
+FWD_ATOL = 3.2e-2
+
+
+def _inputs(seed, T, N, H, F=None):
+    """bf16 operands (the distribution chip_smoke.py draws)."""
+    rng = np.random.default_rng(seed)
+
+    def bf(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(BF16)
+
+    width = 4 * H if F is None else F
+    return dict(
+        x=bf(rng.normal(size=(T, N, width))),
+        keep=bf(rng.random((T, N)) > 0.2),
+        wi=None if F is None else bf(rng.normal(size=(F, 4 * H)) / np.sqrt(F)),
+        wr=bf(rng.normal(size=(H, 4 * H)) / np.sqrt(H)),
+        bias=bf(rng.normal(size=(4 * H,))),
+        c0=bf(rng.normal(size=(N, H))),
+        h0=bf(rng.normal(size=(N, H))))
+
+
+def _slices(a, b, acc=None):
+    """acc (+)= a [N, K] . b [K, M] of bf16 values in f32: one K_SLICE-deep
+    slice at a time in K order, each slice's products summed in k order and
+    then added to acc."""
+    a, b = a.float(), b.float()
+    for k0 in range(0, a.shape[1], K_SLICE):
+        part = a[:, k0:k0 + 1] * b[k0]
+        for k in range(k0 + 1, min(k0 + K_SLICE, a.shape[1])):
+            part = part + a[:, k:k + 1] * b[k]
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def emulate_tc_fwd(x, keep, wi, wr, bias, c0, h0):
+    """The tensor-core forward's arithmetic: (ys, cs), each [T, N, H]."""
+    b32 = bias.float()
+    zero = torch.zeros((), dtype=BF16)
+    c, h = c0, h0
+    ys, cs = [], []
+    for t in range(x.shape[0]):
+        if wi is None:
+            pre = (x[t].float() + _slices(h, wr)) + b32
+        else:
+            xp = _slices(x[t], wi).to(BF16).float()
+            pre = _slices(h, wr, acc=xp) + b32
+        gi, gf, gg, go = pre.chunk(4, dim=-1)
+        new_c = torch.sigmoid(gf) * c.float() + torch.sigmoid(gi) * torch.tanh(
+            gg)
+        new_h = torch.sigmoid(go) * torch.tanh(new_c)
+        c_t, h_t = new_c.to(BF16), new_h.to(BF16)
+        ys.append(h_t)
+        cs.append(c_t)
+        kept = keep[t][:, None] > 0.5
+        c = torch.where(kept, c_t, zero)
+        h = torch.where(kept, h_t, zero)
+    return torch.stack(ys), torch.stack(cs)
+
+
+def _plain_states(x, keep, wi, wr, bias, c0, h0):
+    """ys and cs of the plain forward."""
+    x_proj = x if wi is None else (x.float() @ wi.float()).to(BF16)
+    c, h = c0, h0
+    ys, cs = [], []
+    for t in range(x.shape[0]):
+        new_c, new_h = _cell(x_proj[t], wr.float(), bias.float(), c, h)
+        ys.append(new_h)
+        cs.append(new_c)
+        mask = keep[t][:, None] > 0.5
+        c = torch.where(mask, new_c, torch.zeros((), dtype=BF16))
+        h = torch.where(mask, new_h, torch.zeros((), dtype=BF16))
+    return torch.stack(ys), torch.stack(cs)
+
+
+def _jax_ys(args):
+    def j(t):
+        return jnp.asarray(t.float().numpy(), jnp.bfloat16)
+
+    if args["wi"] is None:
+        ys = jax_lstm_seq(j(args["x"]), j(args["keep"]), j(args["wr"]),
+                          j(args["bias"]), j(args["c0"]), j(args["h0"]), True)
+    else:
+        ys = jax_lstm_proj(j(args["x"]), j(args["keep"]), j(args["wi"]),
+                           j(args["wr"]), j(args["bias"]), j(args["c0"]),
+                           j(args["h0"]), True)
+    return torch.from_numpy(np.asarray(ys, np.float32))
+
+
+def _within(got, want, what):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= FWD_ATOL, f"{what}: max |diff| {err:.3e} above {FWD_ATOL}"
+
+
+CASES = [(5, 70, 128, None), (4, 70, 128, 128), (4, 70, 128, 256)]
+
+
+@pytest.mark.parametrize("T,N,H,F", CASES)
+def test_tc_lstm_fwd_arithmetic_meets_the_plain_contract(T, N, H, F):
+    args = _inputs(70 + T + (F or 0), T, N, H, F)
+    ys, cs = emulate_tc_fwd(**args)
+    if F is None:
+        plain = lstm_sequence_reference(args["x"], args["keep"], args["wr"],
+                                        args["bias"], args["c0"], args["h0"])
+    else:
+        plain = lstm_sequence_proj_reference(**args)
+    _within(ys, plain, "ys vs plain")
+    want_ys, want_cs = _plain_states(**args)
+    assert torch.equal(want_ys, plain)
+    _within(cs, want_cs, "cs vs plain")
+
+
+@pytest.mark.parametrize("T,N,H,F", CASES)
+def test_tc_lstm_fwd_arithmetic_matches_the_pallas_forward(T, N, H, F):
+    args = _inputs(80 + T + (F or 0), T, N, H, F)
+    ys, _ = emulate_tc_fwd(**args)
+    _within(ys, _jax_ys(args), "ys vs Pallas")
+
+
+@pytest.mark.parametrize("F", [None, 256])
+def test_tc_lstm_fwd_step_equals_its_sequence_step(F):
+    """A T = 1 call from the cleared state after step t - 1 gives bitwise
+    step t of the T = 16 call: the rollout step and the update pass are one
+    kernel, so PPO's ratio starts at exactly 1."""
+    T, N, H = 16, 70, 128
+    args = _inputs(90 + (F or 0), T, N, H, F)
+    ys, cs = emulate_tc_fwd(**args)
+    keep = args["keep"]
+    zero = torch.zeros((), dtype=BF16)
+    after_clear = next(t for t in range(1, T) if (keep[t - 1] < 0.5).any())
+    for t in sorted({0, 1, after_clear, T // 2, T - 1}):
+        if t == 0:
+            c_in, h_in = args["c0"], args["h0"]
+        else:
+            kept = keep[t - 1][:, None] > 0.5
+            c_in = torch.where(kept, cs[t - 1], zero)
+            h_in = torch.where(kept, ys[t - 1], zero)
+        step = dict(args, x=args["x"][t:t + 1], keep=keep[t:t + 1], c0=c_in,
+                    h0=h_in)
+        ys_1, cs_1 = emulate_tc_fwd(**step)
+        assert torch.equal(ys_1[0], ys[t]), t
+        assert torch.equal(cs_1[0], cs[t]), t
+
+
+@pytest.mark.parametrize("F", [None, 256])
+def test_tc_lstm_fwd_rows_do_not_depend_on_the_batch(F):
+    """N = 70 (ragged against the kernel's rows a block) and N = 16 give
+    bitwise the same ys and cs on the rows they share."""
+    T, N, H, rows = 4, 70, 128, 16
+    args = _inputs(95 + (F or 0), T, N, H, F)
+    ys, cs = emulate_tc_fwd(**args)
+    sub = dict(args, x=args["x"][:, :rows], keep=args["keep"][:, :rows],
+               c0=args["c0"][:rows], h0=args["h0"][:rows])
+    ys_s, cs_s = emulate_tc_fwd(**sub)
+    assert torch.equal(ys[:, :rows], ys_s)
+    assert torch.equal(cs[:, :rows], cs_s)
+
+
+class _FakeLibrary:
+    """Records which forward entry point a wrapper called, and with what."""
+
+    def __init__(self):
+        self.calls = []
+        self.args = []
+
+    def __getattr__(self, name):
+        if not name.startswith("mlt_"):
+            raise AttributeError(name)
+
+        def call(*args):
+            self.calls.append(name)
+            self.args.append(args)
+            return 0
+
+        return call
+
+
+def _stand_in_card(monkeypatch):
+    """A stand-in library, operand check and stream for CPU operands."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(lstm_mod, "library", lambda: lib)
+    monkeypatch.setattr(lstm_mod, "_check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    return lib
+
+
+@pytest.mark.parametrize("dtype,H,F,tensor_core", [
+    (BF16, 256, None, True),     # the update minibatch and rollout step
+    (BF16, 128, None, True),
+    (BF16, 256, 256, True),      # the fused trunk's update minibatch
+    (BF16, 128, 512, True),      # F = 4H: one x buffer
+    (F32, 256, None, False),     # float32 stays on CUDA cores
+    (F32, 128, 256, False),
+])
+def test_lstm_fwd_path_rule(monkeypatch, dtype, H, F, tensor_core):
+    """The forward wrappers take the route the rule names, and count a
+    launch, and a tensor-core launch where they took that route. The
+    operands stand on the CPU here: the library, the operand check and the
+    stream are stand-ins."""
+    assert uses_tensor_cores(dtype, H) is tensor_core
+    lib = _stand_in_card(monkeypatch)
+    kernel = LSTM_FWD if F is None else LSTM_PROJ_FWD
+    monkeypatch.setattr(kernel, "launches", 0)
+    monkeypatch.setattr(kernel, "tc_launches", 0)
+    T, N = 2, 8
+    state = torch.zeros(N, H, dtype=dtype)
+    if F is None:
+        ys, cs = lstm_sequence_fwd(
+            torch.zeros(T, N, 4 * H, dtype=dtype),
+            torch.ones(T, N, dtype=dtype), torch.zeros(H, 4 * H, dtype=dtype),
+            torch.zeros(4 * H, dtype=dtype), state, state)
+        want = "mlt_lstm_fwd_tc" if tensor_core else "mlt_lstm_fwd"
+    else:
+        ys, cs = lstm_sequence_proj_fwd(
+            torch.zeros(T, N, F, dtype=dtype), torch.ones(T, N, dtype=dtype),
+            torch.zeros(F, 4 * H, dtype=dtype),
+            torch.zeros(H, 4 * H, dtype=dtype),
+            torch.zeros(4 * H, dtype=dtype), state, state)
+        want = "mlt_lstm_fwd_tc" if tensor_core else "mlt_lstm_proj_fwd"
+    assert lib.calls == [want]
+    assert ys.shape == cs.shape == (T, N, H) and ys.dtype == dtype
+    assert (kernel.launches, kernel.tc_launches) == (1, int(tensor_core))
+
+
+@pytest.mark.parametrize("F", [None, 256])
+def test_tc_lstm_fwd_reads_the_weights_as_they_stand(monkeypatch, F):
+    """The tensor-core forward hands the kernel the weights' own storage
+    (its TMA boxes are wgmma's MN-major A operand): a rollout step makes no
+    transposed copy of Wr (or Wi)."""
+    lib = _stand_in_card(monkeypatch)
+    T, N, H = 1, 8, 256
+    wr = torch.zeros(H, 4 * H, dtype=BF16)
+    state = torch.zeros(N, H, dtype=BF16)
+    keep = torch.ones(T, N, dtype=BF16)
+    bias = torch.zeros(4 * H, dtype=BF16)
+    if F is None:
+        lstm_sequence_fwd(torch.zeros(T, N, 4 * H, dtype=BF16), keep, wr,
+                          bias, state, state)
+        wi = wr
+    else:
+        wi = torch.zeros(F, 4 * H, dtype=BF16)
+        lstm_sequence_proj_fwd(torch.zeros(T, N, F, dtype=BF16), keep, wi,
+                               wr, bias, state, state)
+    (args,) = lib.args
+    # hidden, f_in, x, keep, wi, wr, ...
+    assert args[:2] == (H, F or 0)
+    assert args[4:6] == (wi.data_ptr(), wr.data_ptr())
+
+
+def test_lstm_fwd_wrappers_refuse_what_no_kernel_takes():
+    """Tensors off the CPU go to the forward kernel wrappers, which raise on
+    what neither path takes (meta tensors are never on the card) instead of
+    falling back."""
+    before = {k.name: (k.launches, k.tc_launches) for k in KERNELS}
+
+    def meta(*shape, dtype=BF16):
+        return torch.empty(*shape, dtype=dtype, device="meta")
+
+    T, N = 2, 8
+    for H in (256, 192):       # operand on no card; no kernel at H = 192
+        with pytest.raises(ValueError):
+            lstm_sequence_fwd(meta(T, N, 4 * H), meta(T, N), meta(H, 4 * H),
+                              meta(4 * H), meta(N, H), meta(N, H))
+    for F in (256, 192):       # operand on no card; F not a multiple of 128
+        with pytest.raises(ValueError):
+            lstm_sequence_proj_fwd(
+                meta(T, N, F), meta(T, N), meta(F, 1024), meta(256, 1024),
+                meta(1024), meta(N, 256), meta(N, 256))
+    assert {k.name: (k.launches, k.tc_launches) for k in KERNELS} == before

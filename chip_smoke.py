@@ -6,9 +6,9 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --digests`` runs phases 1 and 2, then prints the
-SHA-256 of the bf16 LSTM kernels' outputs from seeded inputs, to hold two
-checkouts' kernels bitwise equal: copy the script into the other
-checkout's root and run it there too.)
+SHA-256 of the bf16 LSTM and GRU kernels' and ``mha``'s outputs from seeded
+inputs, to hold two checkouts' kernels bitwise equal: copy the script into
+the other checkout's root and run it there too.)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -20,17 +20,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    PyTorch call computes the same function, of that call; and each
    kernel's bound, the least time the card could take for the same work.
    ``mha`` and ``mha_flash`` are also run with the keys past ``valid_len``
-   poisoned, and ``mha_flash`` at the update pass's B = 4096 must equal
-   the rollout step's B = 512 bitwise on the rows they share; the kernels
-   with a tensor-core route (the two LSTM forwards and the two LSTM
-   backwards, the GRU backward, the fused step) are held to their path
-   rules, the backwards at N = 8192 must equal N = 256 bitwise on the
-   shared rows and give bitwise equal weight gradients over two calls, the
-   fused step at N = 16384 must equal N = 512 bitwise on the shared rows,
-   the LSTM forwards at N = 8192 must equal N = 256 on the shared rows and
-   the batch rolled by 5 rows bitwise, a T = 1 call from the cleared state
-   must equal the matching step of the T = 16 call bitwise, and at ragged
-   N they must write no row past N;
+   poisoned, ``mha_flash`` at the update pass's B = 4096 must equal the
+   rollout step's B = 512 bitwise on the rows they share, and ``mha`` at
+   the update pass's B = 131072 must equal the rollout step's B = 16384
+   and give the batch rolled by 5 items rolled, bitwise; the kernels with
+   a tensor-core route (the four LSTM kernels, the two GRU kernels,
+   ``mha``, the fused step) are held to their path rules, the backwards at
+   N = 8192 must equal N = 256 bitwise on the shared rows and give bitwise
+   equal weight gradients over two calls, the fused step at N = 16384 must
+   equal N = 512 bitwise on the shared rows, the LSTM and GRU forwards at
+   N = 8192 must equal N = 256 on the shared rows and the batch rolled by
+   5 rows bitwise, a T = 1 call from the cleared state must equal the
+   matching step of the T = 16 call bitwise, and at ragged N they must
+   write no row past N; the GRU forward is also timed at each rows-a-block
+   and ring-depth pair it is built for;
 4. models: the update pass and its gradients through the kernels on the
    card against the same model on the CPU, for the MLP model, a small GRU
    model, a small fused-trunk model, a small flagship (entity attention)
@@ -408,7 +411,7 @@ def _tc_bwd_timing(name, results, x, keep, wi, wr, bias, c0, h0, ys, cs,
     results.update(split)
 
 
-def _tc_fwd_checks(name, fwd, args, ys, cs, states, rows=256, roll=5):
+def _tc_fwd_checks(name, fwd, args, outs, states, rows=256, roll=5):
     """The bf16 tensor-core forward at the update shape, beyond its
     agreement with the plain version, all bitwise: (a) a row's result
     depends on nothing but its inputs: the first ``rows`` batch rows equal
@@ -416,71 +419,68 @@ def _tc_fwd_checks(name, fwd, args, ys, cs, states, rows=256, roll=5):
     ``roll`` rows (no multiple of a block's rows) equals it rolled; (b) a
     T = 1 call from the cleared state after step t - 1 equals step t of the
     T-step call, the kernel-level form of PPO's ratio starting at 1. x and
-    keep lead ``args``; ``states`` are the indices of c0 and h0, last."""
+    keep lead ``args``; ``fwd`` returns a tuple like ``outs`` ((ys, cs), or
+    (ys,)); ``states`` maps the index of each initial state in ``args`` to
+    that of the output that carries it (c0 to cs, h0 to ys)."""
     import torch
 
-    ic, ih = states
-    batched = {0: 1, 1: 1, ic: 0, ih: 0}
+    batched = {0: 1, 1: 1, **{i: 0 for i in states}}
 
     def each(fn):
         return [fn(a, batched[i]) if i in batched else a
                 for i, a in enumerate(args)]
 
-    ys_a, cs_a = fwd(*each(lambda a, d: a.narrow(d, 0, rows).contiguous()))
-    same = (torch.equal(ys[:, :rows], ys_a)
-            and torch.equal(cs[:, :rows], cs_a))
-    log(f"  {name}: rows 0-{rows - 1} of ys and cs bitwise equal to the "
+    sub = fwd(*each(lambda a, d: a.narrow(d, 0, rows).contiguous()))
+    same = all(torch.equal(o[:, :rows], o_s) for o, o_s in zip(outs, sub))
+    log(f"  {name}: rows 0-{rows - 1} of every output bitwise equal to the "
         f"forward at N = {rows}: {'ok' if same else 'FAIL'}")
     if not same:
         raise AssertionError(f"{name}: not batch invariant")
-    ys_r, cs_r = fwd(*each(lambda a, d: a.roll(roll, d).contiguous()))
-    same = (torch.equal(ys_r, ys.roll(roll, 1))
-            and torch.equal(cs_r, cs.roll(roll, 1)))
-    log(f"  {name}: the batch rolled by {roll} rows gives ys and cs rolled, "
-        f"bitwise: {'ok' if same else 'FAIL'}")
+    rolled = fwd(*each(lambda a, d: a.roll(roll, d).contiguous()))
+    same = all(torch.equal(o_r, o.roll(roll, 1))
+               for o, o_r in zip(outs, rolled))
+    log(f"  {name}: the batch rolled by {roll} rows gives every output "
+        f"rolled, bitwise: {'ok' if same else 'FAIL'}")
     if not same:
         raise AssertionError(f"{name}: a row's result depends on where it "
                              f"sits")
 
     keep = args[1]
     T = keep.shape[0]
-    zero = torch.zeros((), dtype=ys.dtype, device=ys.device)
+    zero = torch.zeros((), dtype=outs[0].dtype, device=outs[0].device)
     for t in sorted({0, 1, T // 2, T - 1}):
         if t == 0:
-            c_in, h_in, start = args[ic], args[ih], "c0, h0"
+            carry, start = {i: args[i] for i in states}, "the initial state"
         else:
             kept = keep[t - 1][:, None] > 0.5
-            c_in = torch.where(kept, cs[t - 1], zero)
-            h_in = torch.where(kept, ys[t - 1], zero)
+            carry = {i: torch.where(kept, outs[j][t - 1], zero)
+                     for i, j in states.items()}
             start = (f"the state after step {t - 1}, "
                      f"{int((~kept).sum())} rows cleared by keep = 0")
-        ys_1, cs_1 = fwd(args[0][t:t + 1], keep[t:t + 1], *args[2:ic],
-                         c_in, h_in)
-        same = torch.equal(ys_1[0], ys[t]) and torch.equal(cs_1[0], cs[t])
+        step = fwd(args[0][t:t + 1], keep[t:t + 1],
+                   *[carry.get(i, a) for i, a in enumerate(args)][2:])
+        same = all(torch.equal(o_1[0], o[t]) for o, o_1 in zip(outs, step))
         log(f"  {name}: T = 1 from {start}: bitwise equal to step {t}: "
             f"{'ok' if same else 'FAIL'}")
         if not same:
             raise AssertionError(f"{name}: step {t} differs at T = 1")
 
 
-def _tc_fwd_guard_check(name, args, proj, ys, cs):
+def _tc_fwd_guard_check(name, run, outs):
     """The bf16 tensor-core forward at a batch that is no multiple of a
-    block's rows writes no row past N: outputs with 64 rows of NaN after
-    their end keep them, and equal ``ys`` / ``cs`` bitwise."""
+    block's rows writes no row past N: ``run(out)`` launches it into
+    outputs with 64 rows of NaN after their end, which must keep them and
+    equal ``outs`` (the wrapper's) bitwise."""
     import torch
-    from madrona_learn_tpu_torch.ops.cuda.lstm import _fwd_tc
 
-    T, N, H = ys.shape
+    T, N, H = outs[0].shape
     size = T * N * H
-    bufs = [torch.full((size + 64 * H,), float("nan"), dtype=ys.dtype,
-                       device="cuda") for _ in range(2)]
+    bufs = [torch.full((size + 64 * H,), float("nan"), dtype=outs[0].dtype,
+                       device="cuda") for _ in outs]
     out = tuple(b[:size].view(T, N, H) for b in bufs)
-    if proj:
-        _fwd_tc(*args, out=out)
-    else:
-        _fwd_tc(args[0], args[1], None, *args[2:], out=out)
+    run(out)
     guard = all(bool(torch.isnan(b[size:].float()).all()) for b in bufs)
-    same = torch.equal(out[0], ys) and torch.equal(out[1], cs)
+    same = all(torch.equal(o, w) for o, w in zip(out, outs))
     log(f"  {name}: no row past N = {N} written, and the outputs bitwise "
         f"the wrapper's: {'ok' if guard and same else 'FAIL'}")
     if not (guard and same):
@@ -491,7 +491,7 @@ def _tc_fwd_guard_check(name, args, proj, ys, cs):
 def check_lstm(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
-        LSTM_BWD, LSTM_FWD, fwd_tc_rows, lstm_sequence_bwd,
+        LSTM_BWD, LSTM_FWD, _fwd_tc, fwd_tc_rows, lstm_sequence_bwd,
         lstm_sequence_fwd, lstm_sequence_reference, uses_tensor_cores)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -527,7 +527,11 @@ def check_lstm(results):
             fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
             fwd["path"] = fpath
         elif fpath == "tensor_core" and N % fwd_tc_rows():
-            _tc_fwd_guard_check("lstm fwd " + tag, args, False, ys, cs)
+            x_proj, keep, wr, *rest = args
+            _tc_fwd_guard_check(
+                "lstm fwd " + tag,
+                lambda out: _fwd_tc(x_proj, keep, None, wr, *rest, out=out),
+                (ys, cs))
 
         leaves = [a.detach().clone().requires_grad_(i != 1)
                   for i, a in enumerate(args)]
@@ -556,8 +560,8 @@ def check_lstm(results):
                            (ys, cs), probe, got,
                            row_args={0: 1, 1: 1, 4: 0, 5: 0},
                            row_outs={0: 1, 3: 0, 4: 0}, weight_outs=(1, 2))
-            _tc_fwd_checks("lstm fwd " + tag, lstm_sequence_fwd, args, ys,
-                           cs, (4, 5))
+            _tc_fwd_checks("lstm fwd " + tag, lstm_sequence_fwd, args,
+                           (ys, cs), {4: 1, 5: 0})
             fwd["ms"] = time_ms(lambda: lstm_sequence_fwd(*args))
             fwd["plain_ms"] = time_ms(lambda: lstm_sequence_reference(*args))
             bwd["ms"] = time_ms(
@@ -604,38 +608,76 @@ def _mha_bound(B, S, H, D, valid_len, itemsize):
     return bound(nbytes, {"bf16_tensor": 4 * scores * D, "f32": 5 * scores})
 
 
+def _mha_batch_checks(tag, q, k, v, valid_len, got, rows=16384, roll=5):
+    """The bf16 kernel at the update pass, bitwise: its first ``rows``
+    batch items equal a call over those items alone (the rollout step's
+    B), and the batch rolled by ``roll`` items gives the output rolled."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.mha import mha_fwd
+
+    same = torch.equal(
+        mha_fwd(*(x[:rows].contiguous() for x in (q, k, v)), valid_len),
+        got[:rows])
+    log(f"  mha {tag}: items 0-{rows - 1} bitwise equal to the call at B = "
+        f"{rows}: {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"mha {tag}: not batch invariant")
+    same = torch.equal(
+        mha_fwd(*(x.roll(roll, 0).contiguous() for x in (q, k, v)),
+                valid_len), got.roll(roll, 0))
+    log(f"  mha {tag}: the batch rolled by {roll} items gives the output "
+        f"rolled, bitwise: {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"mha {tag}: an item's result depends on where "
+                             f"it sits")
+
+
 def check_mha(results):
     import torch
     import torch.nn.functional as F
-    from madrona_learn_tpu_torch.ops.cuda.mha import mha_fwd, mha_reference
+    from madrona_learn_tpu_torch.ops.cuda.mha import (
+        MHA, mha_fwd, mha_reference, uses_tensor_cores)
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     res = results["mha"] = {"max_abs_err": 0.0}
     bf16, f32 = torch.bfloat16, torch.float32
     # (B, S, H, D, dtype, valid_len, on the main path): the flagship's
     # rollout step and update pass, a ragged float32 batch, valid_len == S,
-    # and the other head widths (16: the small flagship of model_phase).
+    # the other head widths (16: the small flagship of model_phase), S = 256
+    # with valid_len = 200 (13 key tiles, the last partly masked) and S = 8
+    # (a half-filled 16-row query tile), in both dtypes.
     cases = [
         (16384, 16, 4, 32, bf16, 12, True),
         (131072, 16, 4, 32, bf16, 12, True),
         (1000, 24, 4, 32, f32, 20, False),
         (2048, 16, 4, 32, bf16, 16, False),
         (1000, 16, 2, 16, f32, 16, False),
+        (1000, 24, 2, 16, bf16, 20, False),
         (64, 256, 2, 64, f32, 200, False),
+        (64, 256, 2, 64, bf16, 200, False),
+        (1000, 8, 4, 32, bf16, 6, False),
     ]
     for B, S, H, D, dtype, valid_len, main_path in cases:
         dname = str(dtype).split(".")[-1]
         tag = f"[{B},{S},{H},{D}] {dname} valid_len={valid_len}"
         q, k, v = (torch.randn(B, S, H, D, device="cuda", generator=gen)
                    .to(dtype) for _ in range(3))
-        got = mha_fwd(q, k, v, valid_len)
+        got, path = _routed(MHA, uses_tensor_cores(dtype), mha_fwd, q, k, v,
+                            valid_len)
         want = mha_reference(q, k, v, valid_len)
         if dtype == bf16:
-            err = compare_ulp(f"mha {tag}", got, want)
+            err = compare_ulp(f"mha {tag} ({path})", got, want)
         else:
-            err = compare(f"mha {tag}", got, want, **TOL[("mha", dname)])
+            err = compare(f"mha {tag} ({path})", got, want,
+                          **TOL[("mha", dname)])
         if main_path:
+            if path != "tensor_core":
+                raise AssertionError(f"mha {tag}: the main path took the "
+                                     f"{path} route")
             res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["path"] = path
+            if B > 16384:
+                _mha_batch_checks(tag, q, k, v, valid_len, got)
         if valid_len < S:
             # Keys past valid_len must have no effect: poison them.
             k[:, valid_len:] = 1e4
@@ -782,9 +824,9 @@ def _proj_bounds(T, N, F, H, itemsize):
 def check_lstm_proj(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
-        LSTM_PROJ_BWD, LSTM_PROJ_FWD, fwd_tc_rows, lstm_sequence_proj_bwd,
-        lstm_sequence_proj_fwd, lstm_sequence_proj_reference,
-        uses_tensor_cores)
+        LSTM_PROJ_BWD, LSTM_PROJ_FWD, _fwd_tc, fwd_tc_rows,
+        lstm_sequence_proj_bwd, lstm_sequence_proj_fwd,
+        lstm_sequence_proj_reference, uses_tensor_cores)
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     fwd = results["lstm_sequence_proj_fwd"] = {"max_abs_err": 0.0}
@@ -832,7 +874,9 @@ def check_lstm_proj(results):
             fwd["max_abs_err"] = err
             fwd["path"] = fpath
         elif fpath == "tensor_core" and N % fwd_tc_rows():
-            _tc_fwd_guard_check("lstm_proj fwd " + tag, args, True, ys, cs)
+            _tc_fwd_guard_check("lstm_proj fwd " + tag,
+                                lambda out: _fwd_tc(*args, out=out),
+                                (ys, cs))
 
         leaves = [a.detach().clone().requires_grad_(i != 1)
                   for i, a in enumerate(args)]
@@ -862,7 +906,7 @@ def check_lstm_proj(results):
                            row_args={0: 1, 1: 1, 5: 0, 6: 0},
                            row_outs={0: 1, 4: 0, 5: 0}, weight_outs=(1, 2, 3))
             _tc_fwd_checks("lstm_proj fwd " + tag, lstm_sequence_proj_fwd,
-                           args, ys, cs, (5, 6))
+                           args, (ys, cs), {5: 1, 6: 0})
             fwd["ms"] = time_ms(lambda: lstm_sequence_proj_fwd(*args))
             fwd["plain_ms"] = time_ms(
                 lambda: lstm_sequence_proj_reference(*args))
@@ -967,19 +1011,41 @@ def _gru_tc_timing(results, args, ys, probe):
     results.update(split)
 
 
+def _gru_fwd_sweep(update_args, step_args):
+    """The tensor-core forward at each rows-a-block (R) and ring-depth pair
+    that csrc/gru.cu builds at H = 256, timed at the update minibatch and
+    the rollout step; each variant's ys against the wrapper's, bitwise."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.gru import (
+        FWD_TC_ROWS, FWD_TC_STAGES, _fwd_tc)
+
+    want = _fwd_tc(*update_args)
+    for rows, stages in ((16, 4), (32, 2), (32, 3), (32, 4)):
+        update_ms = time_ms(
+            lambda: _fwd_tc(*update_args, rows=rows, stages=stages))
+        step_ms = time_ms(
+            lambda: _fwd_tc(*step_args, rows=rows, stages=stages))
+        same = torch.equal(
+            _fwd_tc(*update_args, rows=rows, stages=stages), want)
+        log(f"  gru fwd sweep: R = {rows}, {stages} ring stages: "
+            f"{update_ms:.3f} ms at [16, 8192], {step_ms:.3f} ms at [1, "
+            f"16384]; ys bitwise equal to R = {FWD_TC_ROWS}, "
+            f"{FWD_TC_STAGES} stages: {same}")
+
+
 def check_gru(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gru import (
-        GRU_BWD, gru_sequence_bwd, gru_sequence_fwd, gru_sequence_reference,
-        uses_tensor_cores)
+        FWD_TC_ROWS, GRU_BWD, GRU_FWD, _fwd_tc, gru_sequence_bwd,
+        gru_sequence_fwd, gru_sequence_reference, uses_tensor_cores)
 
     gen = torch.Generator(device="cuda").manual_seed(10)
     fwd = results["gru_sequence_fwd"] = {"max_abs_err": 0.0}
     bwd = results["gru_sequence_bwd"] = {"max_abs_err": 0.0}
     bf16, f32 = torch.bfloat16, torch.float32
     # (T, N, H, dtype, on the main path): the headline_gru update minibatch,
-    # its rollout step, ragged batches at both widths (the bf16 backward on
-    # tensor cores), and float32 at both widths (CUDA cores).
+    # its rollout step, ragged batches at both widths (bf16 on tensor
+    # cores), and float32 at both widths (CUDA cores).
     cases = [
         (16, 8192, 256, bf16, True),
         (1, 16384, 256, bf16, True),
@@ -989,17 +1055,29 @@ def check_gru(results):
         (5, 1000, 256, f32, False),
         (4, 70, 128, f32, False),
     ]
+    main_args = {}
     for T, N, H, dtype, main_path in cases:
         dname = str(dtype).split(".")[-1]
         tag = f"[{T},{N},{3 * H}] {dname}"
         args = _gru_inputs(gen, T, N, H, dtype)
         probe = torch.randn(T, N, H, device="cuda", generator=gen).to(dtype)
 
-        ys = gru_sequence_fwd(*args)
-        err = compare(f"gru fwd {tag}", ys, gru_sequence_reference(*args),
+        ys, fpath = _routed(GRU_FWD, uses_tensor_cores(dtype, H),
+                            gru_sequence_fwd, *args)
+        err = compare(f"gru fwd {tag} ({fpath})", ys,
+                      gru_sequence_reference(*args),
                       **TOL[("gru_fwd", dname)])
         if main_path:
+            if fpath != "tensor_core":
+                raise AssertionError(f"gru fwd {tag}: the main path took "
+                                     f"the {fpath} route")
             fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
+            fwd["path"] = fpath
+            main_args[T] = args
+        elif fpath == "tensor_core" and N % FWD_TC_ROWS:
+            _tc_fwd_guard_check(
+                "gru fwd " + tag,
+                lambda out: _fwd_tc(*args, out=out[0]), (ys,))
 
         leaves = [a.detach().clone().requires_grad_(i != 1)
                   for i, a in enumerate(args)]
@@ -1027,6 +1105,9 @@ def check_gru(results):
             _tc_bwd_checks("gru bwd " + tag, gru_sequence_bwd, args, (ys,),
                            probe, got, row_args={0: 1, 1: 1, 4: 0},
                            row_outs={0: 1, 3: 0}, weight_outs=(1, 2))
+            _tc_fwd_checks("gru fwd " + tag,
+                           lambda *a: (gru_sequence_fwd(*a),), args, (ys,),
+                           {4: 0})
             fwd["ms"] = time_ms(lambda: gru_sequence_fwd(*args))
             fwd["plain_ms"] = time_ms(lambda: gru_sequence_reference(*args))
             bwd["ms"] = time_ms(lambda: gru_sequence_bwd(*args, ys, probe))
@@ -1035,18 +1116,31 @@ def check_gru(results):
             fwd_bound, bwd_bound = _gru_bounds(T, N, H, 2)
             fwd.update(library_ms=None, **fwd_bound)
             bwd.update(library_ms=None, **bwd_bound)
-            log(f"  gru {tag}: fwd kernel {fwd['ms']:.3f} ms, plain "
-                f"{fwd['plain_ms']:.3f} ms, bound {fwd['bound_ms']:.4f} ms "
-                f"({fwd['bound_by']}); bwd kernel {bwd['ms']:.3f} ms, plain "
-                f"{bwd['plain_ms']:.3f} ms, bound {bwd['bound_ms']:.4f} ms "
-                f"({bwd['bound_by']})")
+            log(f"  gru {tag}: fwd kernel {fwd['ms']:.3f} ms (R = "
+                f"{FWD_TC_ROWS}), plain {fwd['plain_ms']:.3f} ms, bound "
+                f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); bwd kernel "
+                f"{bwd['ms']:.3f} ms, plain {bwd['plain_ms']:.3f} ms, bound "
+                f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']})")
             cudnn_gru_check(args, ys)
         elif main_path:
             step_ms = time_ms(lambda: gru_sequence_fwd(*args))
             step_plain = time_ms(lambda: gru_sequence_reference(*args))
             step_bound = _gru_bounds(T, N, H, 2)[0]
-            log(f"  gru {tag}: fwd kernel {step_ms:.3f} ms, plain "
-                f"{step_plain:.3f} ms, bound {step_bound['bound_ms']:.4f} ms")
+            # The rollout step: what a call costs the host (checks, the
+            # keep mask, the TMA map, launch).
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                gru_sequence_fwd(*args)
+            host_us = (time.perf_counter() - t0) * 1e4
+            torch.cuda.synchronize()
+            log(f"  gru {tag}: fwd kernel {step_ms:.3f} ms (R = "
+                f"{FWD_TC_ROWS}), plain {step_plain:.3f} ms, bound "
+                f"{step_bound['bound_ms']:.4f} ms "
+                f"({step_bound['bound_by']}); host {host_us:.1f} us a call "
+                f"(enqueue, 100 calls)")
+            cudnn_gru_check(args, ys)
+    _gru_fwd_sweep(main_args[16], main_args[1])
 
 
 def _layer_norm_bounds(N, D, itemsize):
@@ -1966,10 +2060,12 @@ def _profile_update(one_update):
 
 
 # The kernels whose wrappers count their tensor-core launches
-# (Kernel.tc_launches): their path rules send bf16 at H = 128 or 256 there.
+# (Kernel.tc_launches): their path rules send bf16 there (the recurrences
+# and the fused step at H = 128 or 256).
 TC_ROUTED = ("lstm_sequence_fwd", "lstm_sequence_bwd",
              "lstm_sequence_proj_fwd", "lstm_sequence_proj_bwd",
-             "gru_sequence_bwd", "fused_policy_step")
+             "gru_sequence_fwd", "gru_sequence_bwd", "mha",
+             "fused_policy_step")
 
 
 def trainer_phase(card, name, build, per_update, trials, timed_updates,
@@ -2046,8 +2142,8 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
     log(f"  launches over {num_updates} updates: {launches} (expected "
         f"{ {k: v * num_updates for k, v in per_update.items()} })")
     # The trainers run bf16 at H = 256: every launch of a kernel with a
-    # counted tensor-core route (the four LSTM kernels, the GRU backward,
-    # the fused step) takes it.
+    # counted tensor-core route (the four LSTM kernels, the two GRU
+    # kernels, mha, the fused step) takes it.
     for kernel, tc in tc_launches.items():
         if tc != launches[kernel]:
             raise AssertionError(
@@ -2106,16 +2202,20 @@ def two_hot_loss_timing(card):
 
 
 def digest_phase():
-    """``--digests``: the SHA-256 of each bf16 LSTM kernel's outputs at the
+    """``--digests``: the SHA-256 of each bf16 recurrence kernel's outputs
+    (the four LSTM kernels, the two GRU kernels) and of ``mha``'s at the
     update pass's shapes, from seeded inputs, as one JSON line. Copied into
     another checkout and run there, it holds that checkout's kernels
     bitwise to this one's."""
     import hashlib
 
     import torch
+    from madrona_learn_tpu_torch.ops.cuda.gru import (
+        gru_sequence_bwd, gru_sequence_fwd)
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
         lstm_sequence_bwd, lstm_sequence_fwd, lstm_sequence_proj_bwd,
         lstm_sequence_proj_fwd)
+    from madrona_learn_tpu_torch.ops.cuda.mha import mha_fwd
 
     def digest(outs):
         h = hashlib.sha256()
@@ -2135,6 +2235,8 @@ def digest_phase():
     # from a forward, so that the forwards' digests do not reach them.
     ys, cs, dys = rnd(T, N, H), rnd(T, N, H), rnd(T, N, H)
     x, wi = rnd(T, N, F), rnd(F, 4 * H, scale=F ** -0.5)
+    gru_args = _gru_inputs(gen, T, N, H, bf16)
+    qkv = [rnd(8 * NUM_WORLDS, 16, 4, 32) for _ in range(3)]
     log(json.dumps({"digests": {
         "lstm_sequence_fwd": digest(
             lstm_sequence_fwd(xp, keep, wr, bias, c0, h0)),
@@ -2144,6 +2246,9 @@ def digest_phase():
             lstm_sequence_proj_fwd(x, keep, wi, wr, bias, c0, h0)),
         "lstm_sequence_proj_bwd": digest(lstm_sequence_proj_bwd(
             x, keep, wi, wr, bias, c0, h0, ys, cs, dys)),
+        "gru_sequence_fwd": digest([gru_sequence_fwd(*gru_args)]),
+        "gru_sequence_bwd": digest(gru_sequence_bwd(*gru_args, ys, dys)),
+        "mha": digest([mha_fwd(*qkv, 12)]),
     }}))
 
 

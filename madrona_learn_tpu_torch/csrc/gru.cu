@@ -22,8 +22,7 @@
 // in bf16 Wh is 384 KiB, more than the 227 KB of shared memory a Hopper
 // block can hold, and Hopper blocks run in parallel in no order.
 //
-// The forward, and the backward in float32 (the LSTM kernels' layout,
-// common.cuh):
+// In float32, forward and backward (the LSTM kernels' layout, common.cuh):
 // - One block of kThreads threads owns kRows batch rows and all H units of
 //   those rows, and loops over time. Each thread computes all three gates of
 //   its (row, unit) pairs through row_tile_product<T, 3, ...>, so the gate
@@ -42,18 +41,39 @@
 //   in a fixed order); dbh is the last H columns of its bias sums.
 //
 // These are bound by CUDA-core FMA issue and shared/L1 load throughput,
-// far below the tensor-core rate that bounds the work itself; the backward
-// serves float32 alone.
+// far below the tensor-core rate that bounds the work itself; they serve
+// float32 alone.
 //
-// The backward in bfloat16 (gru_bwd_tc_kernel, then weight_grad_tc.cuh), on
-// Hopper's tensor cores: the TPU kernel's products are bf16 operands with
-// f32 accumulation (h_in . Wh; dhp rounded to the storage type before
+// In bfloat16, both on Hopper's tensor cores: the forward
+// (gru_fwd_tc_kernel) and the backward (gru_bwd_tc_kernel, then
+// weight_grad_tc.cuh). The TPU kernel's products are bf16 operands with
+// f32 accumulation (h . Wh; dhp rounded to the storage type before
 // dh_prev = dhp . Wh^T and dWh = h_in^T . dhp), which is what wgmma
-// computes, with only the order of the sums changed. It is lstm.cu's
-// lstm_bwd_tc_kernel with three gates in place of four; the wrapper's rule
-// (ops/cuda/gru.py: uses_tensor_cores) sends bf16 at H = 128 or 256 here.
+// computes, with only the order of the sums changed. They are lstm.cu's
+// lstm_fwd_tc_kernel and lstm_bwd_tc_kernel with three gates in place of
+// four; the wrapper's rule (ops/cuda/gru.py: uses_tensor_cores) sends bf16
+// at H = 128 or 256 here. One helper computes h . Wh (hidden_products) and
+// one the gates (gru_gates) for the forward and the backward's recompute,
+// so the backward differentiates the forward that ran.
+//
+// The forward: one block owns R batch rows (FWD_TC_ROWS in ops/cuda/gru.py)
+// and loops over time; warpgroup w owns units 64 w .. 64 w + 63 of r, z
+// and n, the products run transposed (hp^T = Wh^T . h^T, three m64nR
+// accumulators a warpgroup) and the gate math is thread-local. A: Wh read
+// as MN-major TMA boxes ([64 k][64 units]) of the weight as it stands,
+// through the slice_ring.cuh ring, so a rollout step copies no weight. B:
+// the block's h tile, K-major with the 128-byte swizzle, which the gate
+// math overwrites with the next step's carry (bf16, after keep), so h never
+// goes through global memory between steps. x_proj arrives by 16-byte
+// cp.async with zero-fill during the step's products; each thread stores
+// its own ys elements. Rows past N give zeros and are never stored. A
+// row's ys depends neither on N, nor on where the row sits, nor on T: the
+// rollout step (T = 1) is step t of the update pass bitwise.
+//
+// The backward:
 // - One block owns R = kGruTcRows batch rows (32: the faster of 16 and 32
-//   at the update shape on the H100) and loops over time in reverse; warpgroup w owns units 64 w .. 64 w + 63 of all three gates,
+//   at the update shape on the H100) and loops over time in reverse;
+//   warpgroup w owns units 64 w .. 64 w + 63 of all three gates,
 //   so the gate math, the dh_total * z term and the f32 dh carry stay
 //   thread-local. The products run transposed, gates (or units) as wgmma's
 //   M and the block's rows as its N: hp^T = Wh^T . h_in^T (three m64nR
@@ -76,10 +96,12 @@
 //   order. Deterministic, and a row's dxp and dh0 do not depend on N or on
 //   where the row sits.
 //
-// Bound on the H100: the backward's three products take 0.16 ms on tensor
-// cores at [16, 8192, 256 -> 768], about what its bytes take; what holds
-// the recurrence is streaming Wh^T and Wh from L2, 768 KiB a block a step,
-// about 3.2 GB a call at R = 32.
+// Bound on the H100: the forward's bytes take 0.082 ms at [16, 8192, 256
+// -> 768] (its product 0.05 ms on tensor cores), the backward's three
+// products 0.16 ms, about what its bytes take; what holds the tensor-core
+// recurrences is streaming the weight from L2 every step: |Wh| (384 KiB) a
+// block a step forward, about 1.6 GB a call at R = 32, and Wh^T and Wh
+// backward, about 3.2 GB.
 
 #include <cuda.h>   // CUtensorMap
 
@@ -370,6 +392,48 @@ struct GruTcBwd {
   static_assert(kStages >= 2, "a ring of at least two slices");
 };
 
+// h . Wh of one step on tensor cores, gates as wgmma's M and the block's
+// rows as its N, shared by the forward and the backward's recompute so that
+// both compute it alike: acc[g] = (h . W_hg)^T, this warpgroup's 64 units
+// of gate g. The ring's next slices are Wh by (H-chunk, gate): K-major
+// slices of Wh^T (kTransA 0, the backward) or MN-major boxes of Wh as it
+// stands (kTransA 1, the forward; ring_product); h_s is the K-major h
+// tile, a_off this warpgroup's rows of a stage.
+template <int H, int R, int kTransA, int S, class Issue>
+__device__ __forceinline__ void hidden_products(SliceRing<S>& slices,
+                                                Issue& issue,
+                                                float (&acc)[3][R / 2],
+                                                uint32_t a_off,
+                                                uint32_t h_s) {
+  for (int kc = 0; kc < H / kTcK; ++kc)
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      ring_product<R, kTransA>(slices, issue, acc[g], a_off,
+                               h_s + kc * R * 128, kc == 0);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int i = 0; i < R / 2; ++i) wgmma_fence_operand(acc[g][i]);
+}
+
+// The gates of one (row, unit), linear before reset
+// (ops/pallas/gru.py:_gates_fp32), from x_proj's three slices (x*) and the
+// products (a*): the forward's and the backward's recompute alike.
+struct Gates {
+  float r, z, n, hn_lin;
+};
+__device__ __forceinline__ Gates gru_gates(float xr, float xz, float xn,
+                                           float ar, float az, float an,
+                                           float bn) {
+  Gates g;
+  g.hn_lin = an + bn;
+  g.r = sigmoid_f(xr + ar);
+  g.z = sigmoid_f(xz + az);
+  g.n = tanhf(xn + g.r * g.hn_lin);
+  return g;
+}
+
 // The reverse-time recurrence of the bf16 backward (see the header). One
 // block owns R batch rows; warpgroup w owns units 64 w .. 64 w + 63 of all
 // three gates. Thread (warp v of its warpgroup, lane l) holds units
@@ -509,16 +573,7 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
 
     // hp^T = Wh^T . h_in^T, gates as M and rows as N.
     float acc[3][kAcc];
-    for (int kc = 0; kc < H / kTcK; ++kc)
-#pragma unroll
-      for (int g = 0; g < 3; ++g)
-        ring_product<R, 0>(slices, issue, acc[g], a_off,
-                           hin_s + kc * L::kSub, kc == 0);
-    wgmma_wait<0>();
-#pragma unroll
-    for (int g = 0; g < 3; ++g)
-#pragma unroll
-      for (int i = 0; i < kAcc; ++i) wgmma_fence_operand(acc[g][i]);
+    hidden_products<H, R, 0>(slices, issue, acc, a_off, hin_s);
 
     // Gate math, thread-local (ops/pallas/gru.py:_gates_fp32 and the
     // backward's chain): dhp rounded to bf16 into the dhp tile (each thread
@@ -534,10 +589,11 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
           const int i = 4 * j + 2 * s + e;
           const bool live = block_row + 8 * j + 2 * lt + e < n_rows;
           uint8_t* dgo = dg_p + kb[s][e] + j * 1024;
-          const float hn_lin = acc[2][i] + bn[s];
-          const float r = sigmoid_f(ld_bf16(dgo) + acc[0][i]);
-          const float z = sigmoid_f(ld_bf16(dgo + kGate) + acc[1][i]);
-          const float nn = tanhf(ld_bf16(dgo + 2 * kGate) + r * hn_lin);
+          const Gates gt =
+              gru_gates(ld_bf16(dgo), ld_bf16(dgo + kGate),
+                        ld_bf16(dgo + 2 * kGate), acc[0][i], acc[1][i],
+                        acc[2][i], bn[s]);
+          const float hn_lin = gt.hn_lin, r = gt.r, z = gt.z, nn = gt.n;
           const float h_in = ld_bf16(hin_p + kb[s][e] + j * 1024);
           const float dh_total =
               ld_bf16(dys_p + rb[s][e] + j * 16 * H) + dh[i];
@@ -660,19 +716,199 @@ int launch_bwd_tc(int phases, const void* xp, const void* keep,
   return 0;
 }
 
+// ------------------------------------ bf16 forward on tensor cores
+
+// Shared memory of gru_fwd_tc_kernel at R rows a block and at most kStages
+// ring stages, from a 1024-byte aligned base: the ring of weight slices
+// ([64 k][H units] bf16 each, as H / 64 TMA boxes of [64 k][64 units]), the
+// block's h tile (the K-major B operand of h . Wh, which the gate math
+// overwrites with the next step's carry) and its x_proj tile (K-major
+// [R][3H]).
+template <int H, int R, int kStages>
+struct GruTcFwd {
+  static constexpr int kWarpgroups = H / 64;   // 64 units each
+  static constexpr int kThreads = 128 * kWarpgroups;
+  static constexpr int kWarps = 4 * kWarpgroups;
+  static constexpr int kSub = R * 128;          // one [R][64] subtile
+  static constexpr int kStageBytes = H * 128;
+  static constexpr int kHBytes = R * H * 2;
+  static constexpr int kXBytes = R * 3 * H * 2;
+  static constexpr int kFixed = kHBytes + kXBytes;
+  static constexpr int kRing =
+      min_c(kStages, (kSmemLimit - 2048 - kFixed) / kStageBytes);
+  static constexpr int kSmem = kRing * kStageBytes + kFixed + 1024;
+  static_assert(kRing >= 2, "a ring of at least two slices");
+};
+
+// The forward recurrence on tensor cores (see the header). One block owns R
+// batch rows and loops over time; warpgroup w owns units 64 w .. 64 w + 63
+// of r, z and n, in the accumulator layout of gru_bwd_tc_kernel (element
+// 4 j + 2 s + e of an m64nR accumulator is unit unit0 + 8 s, row
+// 8 j + 2 (l % 4) + e), so the gate math is thread-local. wh_map is a TMA
+// map of the row-major Wh [H, 3H] in boxes of [64 k][64 units]: wgmma's
+// MN-major A operand as it stands, so a call copies no weight.
+template <int H, int R, int kStages>
+__global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
+    gru_fwd_tc_kernel(const __grid_constant__ CUtensorMap wh_map,
+                      const bf16* __restrict__ xp,
+                      const bf16* __restrict__ keep,
+                      const bf16* __restrict__ bias_h,
+                      const bf16* __restrict__ h0, bf16* __restrict__ ys,
+                      int steps, int n_rows) {
+  using L = GruTcFwd<H, R, kStages>;
+  constexpr int S = L::kRing;
+  constexpr int G3 = 3 * H;
+  constexpr int kAcc = R / 2;
+  constexpr int kGate = (H / 64) * L::kSub;   // gate stride of the x tile
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[S];
+  __shared__ __align__(8) uint64_t empty[S];
+  const uint32_t raw_s = smem_u32(smem_raw);
+  const uint32_t ring = (raw_s + 1023) & ~1023u;
+  const uint32_t h_s = ring + S * L::kStageBytes;
+  const uint32_t x_s = h_s + L::kHBytes;
+  uint8_t* h_p = smem_raw + (h_s - raw_s);
+  const uint8_t* x_p = smem_raw + (x_s - raw_s);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, lane = tid % 32;
+  const int lt = lane % 4;
+  const int unit0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+  const int block_row = blockIdx.x * R;
+
+  // The weight slices of one step, in the order hidden_products consumes
+  // them: Wh by (H-chunk, gate), each the H / 64 boxes of its gate's units;
+  // the same sequence every step, so the ring prefetches across steps.
+  constexpr int step_loads = 3 * (H / kTcK);
+  const CUtensorMap* whm = &wh_map;
+  auto issue = [&](int q, uint32_t dst, uint64_t* bar) {
+    const int p = q % step_loads;
+#pragma unroll
+    for (int w = 0; w < H / 64; ++w)
+      tma_load_3d(dst + w * 64 * 128, whm, bar, (p % 3) * H + w * 64,
+                  (p / 3) * kTcK, 0);
+  };
+  SliceRing<S> slices{full, empty, ring, L::kStageBytes, steps * step_loads,
+                      0};
+  if (tid == 0) slices.init(L::kWarps);
+  __syncthreads();
+  if (tid == 0) slices.prime(issue);
+
+  // x_proj of step t into the x tile by 16-byte cp.async with zero-fill:
+  // rows past N arrive as zeros. Step t + 1's is issued once step t's gate
+  // math has read the tile, and lands while step t + 1's products run.
+  auto load_x = [&](int t) {
+    const size_t trow = static_cast<size_t>(t) * n_rows;
+    for (int e = tid; e < R * (G3 / 8); e += L::kThreads) {
+      const int n = e / (G3 / 8), c = e % (G3 / 8);
+      const int row = block_row + n;
+      const bool live = row < n_rows;
+      cp_async16(x_s + kmaj_off<R>(n, c * 8),
+                 xp + (live ? (trow + row) * G3 + c * 8 : 0), live);
+    }
+    cp_async_commit();
+  };
+
+  // h0 into the h tile (rows past N: zeros).
+  for (int e = tid; e < R * (H / 8); e += L::kThreads) {
+    const int n = e / (H / 8), c = e % (H / 8);
+    const int row = block_row + n;
+    const bool live = row < n_rows;
+    cp_async16(h_s + kmaj_off<R>(n, c * 8),
+               h0 + (live ? static_cast<size_t>(row) * H + c * 8 : 0), live);
+  }
+  load_x(0);
+  uint32_t kb[2][2];   // as in gru_bwd_tc_kernel
+  float bn[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      kb[s][e] = kmaj_off<R>(2 * lt + e, unit0 + 8 * s);
+    bn[s] = __bfloat162float(bias_h[unit0 + 8 * s]);
+  }
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  const uint32_t a_off = wg * 64 * 128;
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+  for (int t = 0; t < steps; ++t) {
+    const size_t trow = static_cast<size_t>(t) * n_rows;
+    uint32_t kept = 0;   // bit 2 j + e: row 8 j + 2 (l % 4) + e
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = block_row + 8 * j + 2 * lt + e;
+        if (row < n_rows && __bfloat162float(keep[trow + row]) > 0.5f)
+          kept |= 1u << (2 * j + e);
+      }
+
+    float acc[3][kAcc];
+    hidden_products<H, R, 1>(slices, issue, acc, a_off, h_s);
+    cp_async_wait<0>();   // x_proj of step t
+    // Every warpgroup is done reading the h tile; x_proj of step t is in.
+    __syncthreads();
+
+    // Gate math, thread-local (the contract's, gru_gates): each thread
+    // reads and rewrites only its own elements of the h tile, with the new
+    // carry (bf16, cleared where keep is 0); ys straight to memory.
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * s + e;
+          const uint32_t ko = kb[s][e] + j * 1024;
+          const Gates g =
+              gru_gates(ld_bf16(x_p + ko), ld_bf16(x_p + ko + kGate),
+                        ld_bf16(x_p + ko + 2 * kGate), acc[0][i], acc[1][i],
+                        acc[2][i], bn[s]);
+          const float h = ld_bf16(h_p + ko);
+          const bf16 h_t = __float2bfloat16_rn((1.0f - g.z) * g.n + g.z * h);
+          *reinterpret_cast<bf16*>(h_p + ko) =
+              (kept >> (2 * j + e)) & 1u ? h_t : zero;
+          const int row = block_row + 8 * j + 2 * lt + e;
+          if (row < n_rows) ys[(trow + row) * H + unit0 + 8 * s] = h_t;
+        }
+    fence_proxy_async();
+    __syncthreads();   // the carry is in for the next step's products
+    // The x tile is free once every thread's gate math has read it.
+    if (t + 1 < steps) load_x(t + 1);
+  }
+}
+
+template <int H, int R, int kStages>
+int launch_fwd_tc(const void* xp, const void* keep, const void* wh,
+                  const void* bias_h, const void* h0, void* ys, int steps,
+                  int n_rows, cudaStream_t stream) {
+  using L = GruTcFwd<H, R, kStages>;
+  CUtensorMap wh_map;
+  if (!make_tma_map(&wh_map, wh, 3 * H, H, 1, 64, kTcK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = set_smem(gru_fwd_tc_kernel<H, R, kStages>, L::kSmem);
+  if (err != 0) return err;
+  const int blocks = (n_rows + R - 1) / R;
+  gru_fwd_tc_kernel<H, R, kStages>
+      <<<blocks, L::kThreads, L::kSmem, stream>>>(
+          wh_map, static_cast<const bf16*>(xp),
+          static_cast<const bf16*>(keep), static_cast<const bf16*>(bias_h),
+          static_cast<const bf16*>(h0), static_cast<bf16*>(ys), steps,
+          n_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each entry point returns a cudaError_t,
-// or -1 for arguments without an instantiation. The CUDA-core backward is
-// built for float32 alone: bfloat16 takes mlt_gru_bwd_tc.
+// dtype: 0 = float32. Each entry point returns a cudaError_t, or -1 for
+// arguments without an instantiation. The CUDA-core kernels are built for
+// float32 alone: bfloat16 takes mlt_gru_fwd_tc and mlt_gru_bwd_tc.
 #define MLT_DISPATCH_F32(CALL)                                   \
   if (dtype == 0 && hidden == 128) return CALL(float, 128);      \
   if (dtype == 0 && hidden == 256) return CALL(float, 256);      \
   return -1
-#define MLT_DISPATCH(CALL)                                       \
-  if (dtype == 1 && hidden == 128) return CALL(__nv_bfloat16, 128); \
-  if (dtype == 1 && hidden == 256) return CALL(__nv_bfloat16, 256); \
-  MLT_DISPATCH_F32(CALL)
 
 extern "C" int mlt_gru_fwd(int dtype, int hidden, const void* xp,
                            const void* keep, const void* wh,
@@ -681,7 +917,7 @@ extern "C" int mlt_gru_fwd(int dtype, int hidden, const void* xp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MLT_FWD(T, H) \
   launch_fwd<T, H>(xp, keep, wh, bias_h, h0, ys, steps, n_rows, s)
-  MLT_DISPATCH(MLT_FWD);
+  MLT_DISPATCH_F32(MLT_FWD);
 #undef MLT_FWD
 }
 
@@ -723,5 +959,29 @@ extern "C" int mlt_gru_bwd_tc(int hidden, int phases,
   return -1;
 }
 
-#undef MLT_DISPATCH
+// The bf16 tensor-core forward, from Wh as it stands, at R rows a block and
+// a ring of at most `stages` slices: R = 32 with 4 stages (the wrapper's,
+// ops/cuda/gru.py: FWD_TC_ROWS, FWD_TC_STAGES) at H = 128 and 256, and at
+// H = 256 also R = 16, and 2 or 3 stages, for chip_smoke.py's sweep.
+// Returns a cudaError_t, or -1 for arguments without an instantiation.
+extern "C" int mlt_gru_fwd_tc(int hidden, int rows, int stages,
+                              const void* xp, const void* keep,
+                              const void* wh, const void* bias_h,
+                              const void* h0, void* ys, int steps,
+                              int n_rows, void* stream) {
+  if (static_cast<long long>(steps) * n_rows > 0x7fffffffLL) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MLT_FWD_TC(H, R, S)                                             \
+  if (hidden == H && rows == R && stages == S)                          \
+  return launch_fwd_tc<H, R, S>(xp, keep, wh, bias_h, h0, ys, steps,    \
+                                n_rows, s)
+  MLT_FWD_TC(128, 32, 4);
+  MLT_FWD_TC(256, 32, 4);
+  MLT_FWD_TC(256, 16, 4);
+  MLT_FWD_TC(256, 32, 3);
+  MLT_FWD_TC(256, 32, 2);
+#undef MLT_FWD_TC
+  return -1;
+}
+
 #undef MLT_DISPATCH_F32

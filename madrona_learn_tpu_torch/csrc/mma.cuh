@@ -64,6 +64,32 @@ static __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
       : "r"(addr));
 }
 
+// The same four matrices transposed: r[i] receives lane l's fragment of
+// matrix i's transpose, rows 2 (l % 4) and 2 (l % 4) + 1 of column l / 4 (a
+// row-major [k][n] tile read as mma.sync's "col" B operand).
+static __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                         uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a . b on one warp's tensor cores, mma.sync m16n8k16, bf16 -> f32:
+// a the 16 x 16 A fragment, b0 / b1 the 16 x 8 B fragment (B[2t .. 2t + 1]
+// and B[2t + 8 .. 2t + 9] of column l / 4), d in the C layout above.
+static __device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
+                                                    const uint32_t (&a)[4],
+                                                    uint32_t b0,
+                                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // 16 bytes global -> shared, asynchronously; zeros instead when !valid
 // (the source is then not read).
 static __device__ __forceinline__ void cp_async16(uint32_t dst,

@@ -40,7 +40,8 @@ class Kernel:
     ``launches`` is incremented by the kernel's wrapper where, and only
     where, it launches the kernel on the card; ``tc_launches`` as well where
     that launch took the kernel's tensor-core route (the four LSTM kernels,
-    the GRU backward and the fused step, whose path rules send bf16 there).
+    the two GRU kernels, ``mha`` and the fused step, whose path rules send
+    bf16 there).
     """
 
     name: str
@@ -179,6 +180,10 @@ _SIGNATURES = {
     "mlt_gru_bwd_tc": [_I] * 2 + [_P] * 16 + [_I] * 3 + [_P],
     # H, F, x, keep, wi, wr, bias, c0, h0, ys, cs, T, N, stream
     "mlt_lstm_fwd_tc": [_I] * 2 + [_P] * 9 + [_I] * 2 + [_P],
+    # H, R, stages, xp, keep, wh, bias_h, h0, ys, T, N, stream
+    "mlt_gru_fwd_tc": [_I] * 3 + [_P] * 6 + [_I] * 2 + [_P],
+    # D, q, k, v, out, B, S, H, valid_len, scale * log2(e), stream
+    "mlt_mha_fwd_tc": [_I] + [_P] * 4 + [_I] * 4 + [_F, _P],
 }
 
 

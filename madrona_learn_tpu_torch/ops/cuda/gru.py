@@ -9,21 +9,20 @@ from L2 every step (384 KiB in bf16 at H = 256, more than a block's shared
 memory), and dWh/dbh are per-split f32 partials summed in a fixed order
 instead of one accumulator shared by the whole grid.
 
-Two paths for the backward, picked by :func:`uses_tensor_cores` from the
+Two paths for each kernel, picked by :func:`uses_tensor_cores` from the
 dtype and H alone (no fallback: the kernel a call is routed to runs or
 raises):
 
-- bfloat16 at H = 128 or 256: the recurrence on Hopper's warpgroup tensor
-  cores (``wgmma``, bf16 operands, f32 accumulators; Wh^T and Wh stream
-  through a TMA ring, :data:`TC_ROWS` batch rows a block), then dWh as a
-  split-K ``wgmma`` product over the T * N rows
-  (``csrc/weight_grad_tc.cuh``); bound by streaming Wh from L2. An operand
-  off a 16-byte boundary is copied onto one first;
-- float32, whose products tensor cores would round: the CUDA-core kernel
-  and the split-M pass of ``csrc/weight_grad.cuh``, bound by f32 FMA
-  issue.
-
-The forward runs on CUDA cores in both dtypes.
+- bfloat16 at H = 128 or 256: the recurrences on Hopper's warpgroup tensor
+  cores (``wgmma``, bf16 operands, f32 accumulators). The forward reads Wh
+  as it stands through a TMA ring, :data:`FWD_TC_ROWS` batch rows a block;
+  the backward streams Wh^T and Wh the same way, :data:`TC_ROWS` rows a
+  block, then takes dWh as a split-K ``wgmma`` product over the T * N rows
+  (``csrc/weight_grad_tc.cuh``). Both are bound by streaming Wh from L2.
+  An operand off a 16-byte boundary is copied onto one first;
+- float32, whose products tensor cores would round: the CUDA-core kernels
+  (the backward with the split-M pass of ``csrc/weight_grad.cuh``), bound
+  by f32 FMA issue.
 
 Contract (all operands in the storage dtype, float32 or bfloat16):
 
@@ -68,6 +67,11 @@ _check = functools.partial(check_operand, "gru kernel")
 # Batch rows a block of the tensor-core backward owns (kGruTcRows in
 # csrc/gru.cu), which sets the count of its per-block dbh partials.
 TC_ROWS = 32
+# Batch rows a block of the tensor-core forward owns, and the stages of its
+# weight ring (gru_fwd_tc_kernel's template arguments; csrc/gru.cu also
+# builds R = 16, and 2 or 3 stages, at H = 256 for chip_smoke.py's sweep).
+FWD_TC_ROWS = 32
+FWD_TC_STAGES = 4
 
 
 def gru_supported(hidden, dtype):
@@ -78,9 +82,9 @@ def gru_supported(hidden, dtype):
 
 
 def uses_tensor_cores(dtype, hidden):
-    """The backward's path rule: bfloat16 with H in (128, 256) takes the
-    tensor-core kernel (``wgmma``); float32, whose products tensor cores
-    would round, the CUDA-core one."""
+    """The path rule of both kernels, forward and backward: bfloat16 with H
+    in (128, 256) takes the tensor-core kernels (``wgmma``); float32, whose
+    products tensor cores would round, the CUDA-core ones."""
     return dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES
 
 
@@ -138,9 +142,32 @@ def _check_inputs(x_proj, keep, wh, bias_h, h0):
     return steps, n, hidden
 
 
+def _fwd_tc(x_proj, keep, wh, bias_h, h0, rows=FWD_TC_ROWS,
+            stages=FWD_TC_STAGES, out=None):
+    """The bf16 tensor-core forward at ``rows`` batch rows a block and a
+    ring of ``stages`` weight slices: ys [T, N, H], into ``out`` where
+    given."""
+    steps, n, g3 = x_proj.shape
+    # x_proj and h0 arrive by 16-byte copies, Wh by TMA.
+    x_proj, h0, wh = on_16_bytes(x_proj), on_16_bytes(h0), on_16_bytes(wh)
+    ys = out if out is not None else torch.empty(
+        (steps, n, g3 // 3), dtype=x_proj.dtype, device=x_proj.device)
+    err = library().mlt_gru_fwd_tc(
+        g3 // 3, rows, stages, x_proj.data_ptr(), keep.data_ptr(),
+        wh.data_ptr(), bias_h.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+        steps, n, torch.cuda.current_stream(x_proj.device).cuda_stream)
+    check(err, "gru_sequence_fwd")
+    return ys
+
+
 def gru_sequence_fwd(x_proj, keep, wh, bias_h, h0):
     """The forward kernel: ys [T, N, H] in the storage dtype."""
     steps, n, hidden = _check_inputs(x_proj, keep, wh, bias_h, h0)
+    if uses_tensor_cores(x_proj.dtype, hidden):
+        ys = _fwd_tc(x_proj, keep, wh, bias_h, h0)
+        GRU_FWD.launches += 1
+        GRU_FWD.tc_launches += 1
+        return ys
     ys = torch.empty((steps, n, hidden), dtype=x_proj.dtype,
                      device=x_proj.device)
     err = library().mlt_gru_fwd(

@@ -3,11 +3,18 @@
 Replaces ``madrona_learn_tpu/ops/pallas/attention.py:mha`` (``_mha_kernel``
 through ``_mha_impl``), the single-pass kernel that ``SelfAttention`` routes
 entity sets of up to 256 (padded) to. ``csrc/mha.cu`` explains the Hopper
-design: a block stages the valid key / value rows of a tile of (batch,
-head) problems in shared memory, one thread owns one query row, and the
-softmax runs over chunks of keys with a running maximum. It reads
-``[B, S, H, D]`` in place; the TPU's transpose to ``[B*H, S, D]`` and its
-8-row padding are not needed here.
+design. It reads ``[B, S, H, D]`` in place; the TPU's transpose to
+``[B*H, S, D]`` and its 8-row padding are not needed here. Two paths,
+picked by :func:`uses_tensor_cores` from the dtype alone (no fallback: the
+kernel a call is routed to runs or raises):
+
+- bfloat16: ``mma.sync`` tensor cores. A block stages whole batch items
+  (q, and the valid rows of k and v) in shared memory as bf16 with 16-byte
+  copies, one warp owns 16 query rows of one (b, h) problem, the softmax
+  runs online over key tiles of 16 with p kept in f32 as three bf16 parts,
+  and the output leaves as coalesced 16-byte stores. Bound by bytes;
+- float32, whose products tensor cores would round: CUDA cores, one
+  thread a query row, the valid keys and values staged as f32.
 
 Contract: ``q``, ``k``, ``v`` ``[B, S, H, D]`` in float32 or bfloat16; f32
 scores ``(q . k) * D^-0.5``; keys at ``valid_len`` and above masked out; f32
@@ -37,6 +44,7 @@ _HEAD_DIMS = (16, 32, 64)
 # ones to mha_flash.
 MAX_SEQ = 256
 _NEG_INF = -1e30
+_LOG2E = 1.4426950408889634
 
 
 def mha_reference(q, k, v, valid_len=None):
@@ -82,14 +90,29 @@ def _check_inputs(q, k, v, valid_len):
     return B, S, H, D
 
 
+def uses_tensor_cores(dtype):
+    """The path rule: bfloat16 takes the tensor-core kernel (``mma.sync``)
+    at every shape the wrapper takes; float32, whose products tensor cores
+    would round, the CUDA-core one."""
+    return dtype == torch.bfloat16
+
+
 def mha_fwd(q, k, v, valid_len):
     """The kernel: [B, S, H, D] attention output in the storage dtype."""
     B, S, H, D = _check_inputs(q, k, v, valid_len)
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if uses_tensor_cores(q.dtype):
+        err = library().mlt_mha_fwd_tc(
+            D, *ptrs, B, S, H, valid_len, _LOG2E / (D ** 0.5), stream)
+        check(err, "mha")
+        MHA.launches += 1
+        MHA.tc_launches += 1
+        return out
     err = library().mlt_mha_fwd(
-        _DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, S, H, valid_len, 1.0 / (D ** 0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPE_CODES[q.dtype], D, *ptrs, B, S, H, valid_len,
+        1.0 / (D ** 0.5), stream)
     check(err, "mha")
     MHA.launches += 1
     return out

@@ -6,9 +6,14 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --digests`` runs phases 1 and 2, then prints the
-SHA-256 of the bf16 LSTM and GRU kernels' and ``mha``'s outputs from seeded
-inputs, to hold two checkouts' kernels bitwise equal: copy the script into
-the other checkout's root and run it there too.)
+SHA-256 of the bf16 LSTM and GRU kernels', ``mha``'s, ``gae``'s and
+``layer_norm_bwd``'s outputs from seeded inputs, to hold two checkouts'
+kernels bitwise equal: copy the script into the other checkout's root and
+run it there too. ``--timings`` runs phases 1 and 2, then times ``gae`` and
+``layer_norm_bwd`` at their main-path shapes three ways: between CUDA
+events, on the device alone and on the host, with
+``native_layer_norm_backward`` beside them; run from another checkout in
+the same way, it times that checkout's kernels.)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -33,7 +38,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    5 rows bitwise, a T = 1 call from the cleared state must equal the
    matching step of the T = 16 call bitwise, and at ragged N they must
    write no row past N; the GRU forward is also timed at each rows-a-block
-   and ring-depth pair it is built for;
+   and ring-depth pair it is built for; ``gae`` must equal its plain
+   version bitwise at four shapes and on the columns two calls share, and
+   is timed at each steps-a-chunk and columns-a-block pair it is built
+   for; ``layer_norm_bwd``'s dx at N = 131072 must equal N = 16384's on
+   the shared rows and its dw / db must be bitwise equal over two calls;
+   both are also timed on the device alone (torch.profiler) and on the
+   host (the enqueue), ``layer_norm_bwd`` by launch;
 4. models: the update pass and its gradients through the kernels on the
    card against the same model on the CPU, for the MLP model, a small GRU
    model, a small fused-trunk model, a small flagship (entity attention)
@@ -225,6 +236,76 @@ def time_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
+def device_split(fn, calls=20):
+    """Device time of one call by kernel, in ms: torch.profiler's kernel
+    durations summed over `calls` calls (after a warm-up call), divided by
+    `calls`. Neither the host's work nor the gaps between launches are in
+    it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            ms = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0)) / 1e3
+            split[e.key] = split.get(e.key, 0.0) + ms / calls
+    if not split:
+        raise AssertionError("the profiler recorded no device time")
+    return split
+
+
+def host_us(fn, calls=100):
+    """What one call costs the host, in us: `calls` calls enqueued from an
+    idle card, timed to the last return (the card may still be running)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def call_timings(fn):
+    """A call's time three ways: between two CUDA events (`time_ms`, the
+    kernel table's `ms`, host work included), on the device alone (the
+    profiler, by kernel) and on the host (the enqueue)."""
+    split = device_split(fn)
+    return dict(ms=time_ms(fn), device_ms=sum(split.values()),
+                device_split=split, host_us=host_us(fn))
+
+
+def _split_text(split):
+    """The profiler's kernels as "ms name", the name without its return
+    type, unnamed namespace and arguments."""
+    def short(name):
+        name = name.replace("(anonymous namespace)::", "")
+        return name.split("(")[0].removeprefix("void ")[:48]
+
+    return ", ".join(f"{ms:.4f} ms {short(name)}"
+                     for name, ms in split.items())
+
+
+def bitwise(name, got, want):
+    import torch
+
+    ok = torch.equal(got, want)
+    log(f"  {name}: bitwise {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: not bitwise equal")
+
+
 def compare(name, got, want, atol, rtol):
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
@@ -250,33 +331,84 @@ def compare_ulp(name, got, want):
     return err
 
 
+def _gae_inputs(gen, T, N):
+    import torch
+
+    r = torch.randn(T, N, device="cuda", generator=gen)
+    v = torch.randn(T, N, device="cuda", generator=gen)
+    d = torch.rand(T, N, device="cuda", generator=gen) < 0.05
+    b = torch.randn(N, device="cuda", generator=gen)
+    return r, v, d, b
+
+
 def check_gae(results):
+    """gae bitwise against its plain version at the update's [32, 16384],
+    its first 1000 columns (also bitwise those of the whole call), a long
+    [1000, 4096] and a width off 16-byte rows, [7, 70]; its three times at
+    [32, 16384] and the sweep of its chunk and block widths."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gae import gae, gae_reference
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = 0.0
-    for T, N in ((32, 16384), (32, 1000)):
-        r = torch.randn(T, N, device="cuda", generator=gen)
-        v = torch.randn(T, N, device="cuda", generator=gen)
-        d = torch.rand(T, N, device="cuda", generator=gen) < 0.05
-        b = torch.randn(N, device="cuda", generator=gen)
-        got = gae(0.99, 0.95, r, v, d, b)
-        want = gae_reference(0.99, 0.95, r, v, d, b)
+    main = _gae_inputs(gen, 32, 16384)
+    cases = {(32, 16384): main,
+             (32, 1000): [t[..., :1000].contiguous() for t in main],
+             (1000, 4096): _gae_inputs(gen, 1000, 4096),
+             (7, 70): _gae_inputs(gen, 7, 70)}
+    outs = {}
+    for (T, N), args in cases.items():
+        got = outs[(T, N)] = gae(0.99, 0.95, *args)
+        want = gae_reference(0.99, 0.95, *args)
         worst = max(worst, compare(f"gae [{T},{N}]", got, want,
                                    **TOL["gae"]))
-        if N == 16384:
-            ms = time_ms(lambda: gae(0.99, 0.95, r, v, d, b))
-            plain_ms = time_ms(
-                lambda: gae_reference(0.99, 0.95, r, v, d, b))
-            log(f"  gae [{T},{N}] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            # rewards, values, dones read and advantages written once, the
-            # bootstrap read once; five f32 operations per element. GAE is
-            # a reverse scan: no single PyTorch call computes it.
-            results["gae"] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=None,
-                **bound(T * N * (4 + 4 + 1 + 4) + 4 * N, {"f32": 5 * T * N}))
-    results["gae"]["max_abs_err"] = worst
+        bitwise(f"gae [{T},{N}] against its plain version", got, want)
+    bitwise("gae [32,16384] columns :1000 against the [32,1000] call",
+            outs[(32, 16384)][:, :1000], outs[(32, 1000)])
+
+    t = call_timings(lambda: gae(0.99, 0.95, *main))
+    plain_ms = time_ms(lambda: gae_reference(0.99, 0.95, *main))
+    log(f"  gae [32,16384] kernel {t['ms']:.4f} ms (one call between "
+        f"events), device {t['device_ms']:.4f} ms a call "
+        f"({_split_text(t['device_split'])}), host {t['host_us']:.1f} us "
+        f"a call (enqueue, 100 calls); plain {plain_ms:.4f} ms")
+    # rewards, values, dones read and advantages written once, the
+    # bootstrap read once; five f32 operations per element. GAE is a
+    # reverse scan: no single PyTorch call computes it.
+    results["gae"] = dict(
+        ms=t["ms"], device_ms=t["device_ms"], host_us=t["host_us"],
+        plain_ms=plain_ms, library_ms=None, max_abs_err=worst,
+        **bound(32 * 16384 * (4 + 4 + 1 + 4) + 4 * 16384,
+                {"f32": 5 * 32 * 16384}))
+    _gae_sweep(main, cases[(1000, 4096)])
+
+
+def _gae_sweep(update_args, long_args):
+    """gae at every steps-a-chunk and columns-a-block pair csrc/gae.cu
+    builds, device time at the update's [32, 16384] and a long [1000,
+    4096]; each pair's advantages against the wrapper's pair, bitwise."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.gae import (
+        CHUNK, CHUNKS, COLUMNS, COLUMNS_CHOICES, gae_cuda)
+
+    want = [gae_cuda(0.99, 0.95, *a) for a in (update_args, long_args)]
+    for chunk in CHUNKS:
+        for columns in COLUMNS_CHOICES:
+            def run(args):
+                return gae_cuda(0.99, 0.95, *args, chunk=chunk,
+                                columns=columns)
+
+            ms = [sum(device_split(lambda: run(a)).values())
+                  for a in (update_args, long_args)]
+            same = all(torch.equal(run(a), w)
+                       for a, w in zip((update_args, long_args), want))
+            log(f"  gae sweep: {chunk} steps a chunk, {columns} columns a "
+                f"block: device {ms[0]:.4f} ms at [32, 16384], "
+                f"{ms[1]:.4f} ms at [1000, 4096]; advantages bitwise equal "
+                f"to {CHUNK} steps, {COLUMNS} columns: {same}")
+            if not same:
+                raise AssertionError("gae sweep: a variant's advantages "
+                                     "differ from the wrapper's")
 
 
 def _lstm_inputs(gen, T, N, H, dtype):
@@ -586,16 +718,11 @@ def check_lstm(results):
             step_bound = _lstm_bounds(T, N, H, 2)[0]
             # The rollout step: what a call costs the host (checks, the
             # transposed Wr, TMA maps, launch), as for fused_policy_step.
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(100):
-                lstm_sequence_fwd(*args)
-            host_us = (time.perf_counter() - t0) * 1e4
-            torch.cuda.synchronize()
+            host = host_us(lambda: lstm_sequence_fwd(*args))
             log(f"  lstm {tag}: fwd kernel {step_ms:.3f} ms (R = "
                 f"{fwd_tc_rows()}), plain {step_plain:.3f} ms, bound "
                 f"{step_bound['bound_ms']:.4f} ms "
-                f"({step_bound['bound_by']}); host {host_us:.1f} us a call "
+                f"({step_bound['bound_by']}); host {host:.1f} us a call "
                 f"(enqueue, 100 calls)")
 
 
@@ -791,17 +918,12 @@ def check_policy_step(results):
             plain_ms = time_ms(lambda: fused_policy_step_reference(*args))
             # The host's share: the rollout loop is host-bound, so what a
             # call costs the host (checks, TMA maps, launch) matters there.
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(100):
-                fused_policy_step(*args)
-            host_us = (time.perf_counter() - t0) * 1e4
-            torch.cuda.synchronize()
+            host = host_us(lambda: fused_policy_step(*args))
             b = _step_bound(N, F, H, layers, args[0].element_size())
             log(f"  fused_policy_step {tag}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
                 f"({b['bound_by']}); no single PyTorch call computes it; "
-                f"host {host_us:.1f} us a call (enqueue, 100 calls)")
+                f"host {host:.1f} us a call (enqueue, 100 calls)")
             res.update(ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
@@ -1128,16 +1250,11 @@ def check_gru(results):
             step_bound = _gru_bounds(T, N, H, 2)[0]
             # The rollout step: what a call costs the host (checks, the
             # keep mask, the TMA map, launch).
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(100):
-                gru_sequence_fwd(*args)
-            host_us = (time.perf_counter() - t0) * 1e4
-            torch.cuda.synchronize()
+            host = host_us(lambda: gru_sequence_fwd(*args))
             log(f"  gru {tag}: fwd kernel {step_ms:.3f} ms (R = "
                 f"{FWD_TC_ROWS}), plain {step_plain:.3f} ms, bound "
                 f"{step_bound['bound_ms']:.4f} ms "
-                f"({step_bound['bound_by']}); host {host_us:.1f} us a call "
+                f"({step_bound['bound_by']}); host {host:.1f} us a call "
                 f"(enqueue, 100 calls)")
             cudnn_gru_check(args, ys)
     _gru_fwd_sweep(main_args[16], main_args[1])
@@ -1163,14 +1280,18 @@ def check_layer_norm(results):
     bwd = results["layer_norm_bwd"] = {"max_abs_err": 0.0}
     bf16, f32 = torch.bfloat16, torch.float32
     # (N, D, dtype, main): the headline trunk's rows in one update minibatch
-    # (16 x 8192) and in one rollout step, a ragged batch, and float32 at
-    # two widths, one not a multiple of 32.
+    # (16 x 8192) and in one rollout step, a ragged batch, float32 at two
+    # widths, one not a multiple of 32, a bf16 width that is no multiple of
+    # 8 (the backward's element-by-element path) and the widest rows.
     cases = [
         (131072, 256, bf16, True),
         (16384, 256, bf16, False),
         (1000, 256, bf16, False),
         (300, 128, f32, False),
         (64, 48, f32, False),
+        (300, 100, bf16, False),
+        (257, 1024, f32, False),
+        (129, 1024, bf16, False),
     ]
     for N, D, dtype, main_path in cases:
         dname = str(dtype).split(".")[-1]
@@ -1204,7 +1325,7 @@ def check_layer_norm(results):
         if main_path:
             fwd["ms"] = time_ms(lambda: layer_norm_fwd(x, w, b))
             fwd["plain_ms"] = time_ms(lambda: layer_norm_reference(x, w, b))
-            bwd["ms"] = time_ms(lambda: layer_norm_bwd(x, w, mu, rsigma, dy))
+            _layer_norm_bwd_checks(tag, (x, w, mu, rsigma, dy), got, bwd)
             bwd["plain_ms"] = time_ms(plain_bwd)
             fwd_bound, bwd_bound = _layer_norm_bounds(N, D, x.element_size())
             fwd.update(**fwd_bound)
@@ -1216,6 +1337,36 @@ def check_layer_norm(results):
                 f"({fwd['bound_by']}); bwd kernel {bwd['ms']:.4f} ms, plain "
                 f"(fwd + bwd) {bwd['plain_ms']:.4f} ms, bound "
                 f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']})")
+
+
+def _layer_norm_bwd_checks(tag, args, got, bwd, rows=16384):
+    """The backward at the update's rows: dx bitwise the [rows, D] call's
+    on the shared rows, dw / db bitwise over two calls; its three times and
+    its two launches' device times apart."""
+    from madrona_learn_tpu_torch.ops.cuda.layer_norm import (
+        _bwd, _bwd_buffers, layer_norm_bwd)
+
+    x, w, mu, rsigma, dy = args
+    sub = layer_norm_bwd(x[:rows], w, mu[:rows], rsigma[:rows], dy[:rows])
+    bitwise(f"layer_norm bwd dx {tag} rows :{rows} against the "
+            f"[{rows},{x.shape[1]}] call", got[0][:rows], sub[0])
+    again = layer_norm_bwd(*args)
+    for name, first, second in zip(("dw", "db"), got[1:], again[1:]):
+        bitwise(f"layer_norm bwd {name} {tag} over two calls", first, second)
+    t = call_timings(lambda: layer_norm_bwd(*args))
+    buffers = _bwd_buffers(x)
+    split = {name: sum(device_split(
+                 lambda: _bwd(*args, phases=phases, buffers=buffers))
+                 .values())
+             for name, phases in (("main_pass_ms", 1), ("reduction_ms", 2))}
+    bwd.update(ms=t["ms"], device_ms=t["device_ms"], host_us=t["host_us"],
+               **split)
+    log(f"  layer_norm bwd {tag}: kernel {t['ms']:.4f} ms (one call between "
+        f"events), device {t['device_ms']:.4f} ms a call "
+        f"({_split_text(t['device_split'])}), host {t['host_us']:.1f} us a "
+        f"call (enqueue, 100 calls); launched apart, main pass "
+        f"{split['main_pass_ms']:.4f} ms, reduction "
+        f"{split['reduction_ms']:.4f} ms (device)")
 
 
 def _layer_norm_library(x, w, b, dy, kernels_ms):
@@ -2249,6 +2400,62 @@ def digest_phase():
         "gru_sequence_fwd": digest([gru_sequence_fwd(*gru_args)]),
         "gru_sequence_bwd": digest(gru_sequence_bwd(*gru_args, ys, dys)),
         "mha": digest([mha_fwd(*qkv, 12)]),
+        **_cuda_core_digests(digest),
+    }}))
+
+
+def _ln_bwd_inputs(gen, N=131072, D=256):
+    """x, w, b, mu, rsigma, dy at the update's rows in bf16, mu and rsigma
+    from the forward kernel."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.layer_norm import layer_norm_fwd
+
+    x = (2 * torch.randn(N, D, device="cuda", generator=gen)
+         + 0.5).to(torch.bfloat16)
+    w = 1 + 0.1 * torch.randn(D, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(D, device="cuda", generator=gen)
+    dy = torch.randn(N, D, device="cuda", generator=gen).to(torch.bfloat16)
+    _, mu, rsigma = layer_norm_fwd(x, w, b)
+    return x, w, b, mu, rsigma, dy
+
+
+def _cuda_core_digests(digest):
+    """gae's and layer_norm_bwd's digests, from a generator of their own
+    (the other kernels' inputs stay as they were drawn before)."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.gae import gae
+    from madrona_learn_tpu_torch.ops.cuda.layer_norm import layer_norm_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    gae_args = _gae_inputs(gen, 32, 16384)
+    x, w, _, mu, rsigma, dy = _ln_bwd_inputs(gen)
+    return {"gae": digest([gae(0.99, 0.95, *gae_args)]),
+            "layer_norm_bwd": digest(layer_norm_bwd(x, w, mu, rsigma, dy))}
+
+
+def timing_phase():
+    """``--timings``: gae at [32, 16384] and layer_norm_bwd at [131072,
+    256] bf16, each timed three ways (`call_timings`), and PyTorch's
+    native_layer_norm_backward on the same inputs, as one JSON line. It
+    calls the wrappers' public signatures only, so a copy of this script
+    run in another checkout times that checkout's kernels."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.gae import gae
+    from madrona_learn_tpu_torch.ops.cuda.layer_norm import layer_norm_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    gae_args = _gae_inputs(gen, 32, 16384)
+    x, w, b, mu, rsigma, dy = _ln_bwd_inputs(gen)
+    D = x.shape[1]
+    wb = (w.to(x.dtype), b.to(x.dtype))
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [D], *wb, 1e-6)
+    log(json.dumps({"timings": {
+        "gae": call_timings(lambda: gae(0.99, 0.95, *gae_args)),
+        "layer_norm_bwd": call_timings(
+            lambda: layer_norm_bwd(x, w, mu, rsigma, dy)),
+        "native_layer_norm_backward": call_timings(
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [D], mean, rstd, *wb, [True, True, True])),
     }}))
 
 
@@ -2324,8 +2531,9 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("recurrence_ms", "weight_grad_ms")
-               if k in r}})
+            **{k: r[k] for k in ("recurrence_ms", "weight_grad_ms",
+                                 "main_pass_ms", "reduction_ms",
+                                 "device_ms", "host_us") if k in r}})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -2334,9 +2542,9 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--digests"]:
+    if sys.argv[1:] in (["--digests"], ["--timings"]):
         device_phase()
         build_phase()
-        digest_phase()
+        (digest_phase if sys.argv[1] == "--digests" else timing_phase)()
     else:
         main()

@@ -17,21 +17,20 @@
 // block into one output block. Hopper blocks run in parallel in no order, so
 // that accumulator does not exist.
 //
-// Design here: one warp per row, each lane holding D / 32 of the row's
-// values in registers, so a row is read from device memory once and its
-// sums are warp shuffles. The forward saves mu and rsigma [N] in f32. The
-// backward gives each block a contiguous range of rows; each lane keeps f32
-// dw/db sums for its columns over the rows of its warp, the block adds its
-// eight warps in order through shared memory into one f32 partial row, and
-// sum_splits (weight_grad.cuh) adds the blocks' partials in block order: a
-// fixed order, so dw and db are the same run to run, without atomics.
+// Design here. The forward: one warp per row, each lane holding D / 32 of
+// the row's values in registers, so a row is read from device memory once
+// and its sums are warp shuffles; it saves mu and rsigma [N] in f32. The
+// backward (below, at its kernels): one warp per row with each lane's
+// columns as whole 16-byte pieces and the next row's loads in flight, dw/db
+// as f32 partials over fixed 128-row blocks, then one reduction launch over
+// column tiles of both outputs, each in a fixed order: dw and db are the
+// same run to run and on any card, without atomics.
 //
 // Bound on the H100: device-memory bytes. The forward reads x and writes y
 // (plus 8 bytes a row of statistics); the backward reads x and dy and writes
 // dx, a few f32 operations per element either way.
 
 #include "common.cuh"
-#include "weight_grad.cuh"
 
 namespace {
 
@@ -89,75 +88,230 @@ __global__ void __launch_bounds__(kThreads) layer_norm_fwd_kernel(
   }
 }
 
-// Shared memory: dw [kWarps][d] then db [kWarps][d], f32.
-template <typename T, int kPerLane>
-__global__ void __launch_bounds__(kThreads) layer_norm_bwd_kernel(
+// ------------------------------------------------------------ backward
+
+// The backward is bound by bytes (x and dy read, dx written), so a warp
+// takes a row as whole 16-byte pieces: lane l holds piece j of a row,
+// columns (32 j + l) V .. (32 j + l) V + V - 1, V = 16 / sizeof(T) (one
+// piece a lane for a bf16 row of 256). Widths that are not a multiple of V,
+// or rows off a 16-byte boundary, take the same layout element by element.
+// Each warp loads its next row's pieces, mu and rsigma before it computes
+// the current one, so a row's loads are always in flight.
+//
+// dw / db: a block owns one partial of kPartRows consecutive rows, a
+// compile-time constant, so the partials, and dw / db, depend on the
+// inputs alone and not on the card. Warp w of the block takes rows w,
+// w + kBwdWarps, ... of its partial in order, each lane summing its
+// columns; the block adds its warps in order into one f32 partial row.
+// layer_norm_wgrad_kernel then adds the partials of both outputs in one
+// launch over column tiles: thread (g, lane) sums partials g, g + kRedGroups,
+// ... in order, then a fixed tree through shared memory adds the groups.
+constexpr int kBwdWarps = 8;     // warps a block of the main pass
+constexpr int kPartRows = 128;   // rows a dw / db partial (one block)
+constexpr int kRedCols = 32;     // columns a block of the reduction
+constexpr int kRedGroups = 32;   // partial strides a block of the reduction
+
+// 16 bytes of storage type T as V = 16 / sizeof(T) f32 values, and back.
+__device__ __forceinline__ void unpack(const uint4& raw, float (&out)[4]) {
+  out[0] = __uint_as_float(raw.x);
+  out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z);
+  out[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void unpack(const uint4& raw, float (&out)[8]) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+template <typename T>
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+
+// The piece of row p starting at column c (c % V == 0), zeros past d.
+template <typename T>
+__device__ __forceinline__ uint4 load_piece(const T* __restrict__ p, int c,
+                                            int d, bool vec) {
+  uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+  if (vec) {
+    if (c < d) raw = *reinterpret_cast<const uint4*>(p + c);
+  } else {
+    alignas(16) T v[kVec<T>];
+#pragma unroll
+    for (int e = 0; e < kVec<T>; ++e)
+      v[e] = c + e < d ? p[c + e] : from_f<T>(0.0f);
+    raw = *reinterpret_cast<const uint4*>(v);
+  }
+  return raw;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_piece(T* __restrict__ p, int c, int d,
+                                            bool vec,
+                                            const float (&v)[kVec<T>]) {
+  if (vec) {
+    if (c < d) store16(p + c, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kVec<T>; ++e)
+      if (c + e < d) p[c + e] = from_f<T>(v[e]);
+  }
+}
+
+// One row's operands in flight: its pieces of x and dy, mu and rsigma.
+template <int kPieces>
+struct RowLoad {
+  uint4 x[kPieces], dy[kPieces];
+  float mu, rsigma;
+};
+
+template <typename T, int kPieces>
+__device__ __forceinline__ void load_row(RowLoad<kPieces>& r,
+                                         const T* __restrict__ x,
+                                         const T* __restrict__ dy,
+                                         const float* __restrict__ mu,
+                                         const float* __restrict__ rsigma,
+                                         int row, int d, int lane, bool vec) {
+  const size_t base = static_cast<size_t>(row) * d;
+#pragma unroll
+  for (int j = 0; j < kPieces; ++j) {
+    const int c = (32 * j + lane) * kVec<T>;
+    r.x[j] = load_piece(x + base, c, d, vec);
+    r.dy[j] = load_piece(dy + base, c, d, vec);
+  }
+  r.mu = mu[row];
+  r.rsigma = rsigma[row];
+}
+
+// part: [2][partials][d] f32, dw partials then db partials. Shared memory:
+// dw [kBwdWarps][d] then db [kBwdWarps][d], f32. At one piece a lane (the
+// main path's bf16 rows of 256) ptxas fits 3 blocks an SM in 80 registers
+// without spills: ~10% ahead of 2 (86 registers) and of 4 (64, spilling)
+// on the H100 (PERF.md, section 6).
+template <typename T, int kPieces>
+__global__ void __launch_bounds__(kBwdWarps * 32, kPieces == 1 ? 3 : 1)
+    layer_norm_bwd_kernel(
     const T* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ mu, const float* __restrict__ rsigma,
-    const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part_w,
-    float* __restrict__ part_b, int n_rows, int d, int rows_per_block) {
+    const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part,
+    int n_rows, int d, bool vec) {
+  constexpr int V = kVec<T>;
+  constexpr int kPer = kPieces * V;
   extern __shared__ float smem[];
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  const int row_begin = blockIdx.x * rows_per_block;
-  const int row_end = min(row_begin + rows_per_block, n_rows);
+  const int row_end =
+      min((static_cast<int>(blockIdx.x) + 1) * kPartRows, n_rows);
 
-  float wv[kPerLane], dw_acc[kPerLane], db_acc[kPerLane];
+  // Value i = j V + e of a lane is column (32 j + lane) V + e.
+  float wv[kPer], dw_acc[kPer], db_acc[kPer];
 #pragma unroll
-  for (int k = 0; k < kPerLane; ++k) {
-    const int c = lane + 32 * k;
-    wv[k] = c < d ? w[c] : 0.0f;
-    dw_acc[k] = 0.0f;
-    db_acc[k] = 0.0f;
+  for (int i = 0; i < kPer; ++i) {
+    const int c = (32 * (i / V) + lane) * V + i % V;
+    wv[i] = c < d ? w[c] : 0.0f;
+    dw_acc[i] = 0.0f;
+    db_acc[i] = 0.0f;
   }
 
-  for (int row = row_begin + warp; row < row_end; row += kWarps) {
-    const size_t base = static_cast<size_t>(row) * d;
-    const float m = mu[row];
-    const float rs = rsigma[row];
-    float xhat[kPerLane], wdy[kPerLane], g[kPerLane];
+  RowLoad<kPieces> next;
+  int row = static_cast<int>(blockIdx.x) * kPartRows + warp;
+  if (row < row_end)
+    load_row<T>(next, x, dy, mu, rsigma, row, d, lane, vec);
+  for (; row < row_end; row += kBwdWarps) {
+    float xv[kPer], g[kPer];
+#pragma unroll
+    for (int j = 0; j < kPieces; ++j) {
+      float xp[V], gp[V];
+      unpack(next.x[j], xp);
+      unpack(next.dy[j], gp);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        xv[j * V + e] = xp[e];
+        g[j * V + e] = gp[e];
+      }
+    }
+    const float m = next.mu;
+    const float rs = next.rsigma;
+    if (row + kBwdWarps < row_end)
+      load_row<T>(next, x, dy, mu, rsigma, row + kBwdWarps, d, lane, vec);
+
+    float xhat[kPer], wdy[kPer];
     float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
-    for (int k = 0; k < kPerLane; ++k) {
-      const int c = lane + 32 * k;
-      const bool in = c < d;
-      g[k] = in ? to_f(dy[base + c]) : 0.0f;
-      xhat[k] = in ? (to_f(x[base + c]) - m) * rs : 0.0f;
-      wdy[k] = wv[k] * g[k];
-      s1 += xhat[k] * wdy[k];
-      s2 += wdy[k];
+    for (int i = 0; i < kPer; ++i) {
+      const int c = (32 * (i / V) + lane) * V + i % V;
+      xhat[i] = c < d ? (xv[i] - m) * rs : 0.0f;
+      wdy[i] = wv[i] * g[i];
+      s1 += xhat[i] * wdy[i];
+      s2 += wdy[i];
     }
     const float c1 = warp_sum(s1) / static_cast<float>(d);
     const float c2 = warp_sum(s2) / static_cast<float>(d);
+    T* dxr = dx + static_cast<size_t>(row) * d;
 #pragma unroll
-    for (int k = 0; k < kPerLane; ++k) {
-      const int c = lane + 32 * k;
-      if (c < d) dx[base + c] = from_f<T>((wdy[k] - c2 - xhat[k] * c1) * rs);
-      dw_acc[k] += g[k] * xhat[k];
-      db_acc[k] += g[k];
+    for (int j = 0; j < kPieces; ++j) {
+      float out[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int i = j * V + e;
+        out[e] = (wdy[i] - c2 - xhat[i] * c1) * rs;
+        dw_acc[i] += g[i] * xhat[i];
+        db_acc[i] += g[i];
+      }
+      store_piece<T>(dxr, (32 * j + lane) * V, d, vec, out);
     }
   }
 
   float* dw_s = smem;
-  float* db_s = smem + kWarps * d;
+  float* db_s = smem + kBwdWarps * d;
 #pragma unroll
-  for (int k = 0; k < kPerLane; ++k) {
-    const int c = lane + 32 * k;
+  for (int i = 0; i < kPer; ++i) {
+    const int c = (32 * (i / V) + lane) * V + i % V;
     if (c < d) {
-      dw_s[warp * d + c] = dw_acc[k];
-      db_s[warp * d + c] = db_acc[k];
+      dw_s[warp * d + c] = dw_acc[i];
+      db_s[warp * d + c] = db_acc[i];
     }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < d; c += kThreads) {
+  const size_t partials = gridDim.x;
+  for (int c = threadIdx.x; c < d; c += kBwdWarps * 32) {
     float sw = 0.0f, sb = 0.0f;
-    for (int k = 0; k < kWarps; ++k) {
+    for (int k = 0; k < kBwdWarps; ++k) {
       sw += dw_s[k * d + c];
       sb += db_s[k * d + c];
     }
-    part_w[static_cast<size_t>(blockIdx.x) * d + c] = sw;
-    part_b[static_cast<size_t>(blockIdx.x) * d + c] = sb;
+    part[blockIdx.x * static_cast<size_t>(d) + c] = sw;
+    part[(partials + blockIdx.x) * d + c] = sb;
   }
+}
+
+// dw (blockIdx.y 0) or db (1) over columns blockIdx.x * kRedCols .. + 31:
+// the sum of that output's partials in a fixed order.
+__global__ void __launch_bounds__(kRedCols * kRedGroups)
+    layer_norm_wgrad_kernel(const float* __restrict__ part,
+                            float* __restrict__ dw, float* __restrict__ db,
+                            int partials, int d) {
+  __shared__ float s[kRedGroups][kRedCols];
+  const int lane = threadIdx.x % kRedCols;
+  const int g = threadIdx.x / kRedCols;
+  const int c = blockIdx.x * kRedCols + lane;
+  const float* src = part + static_cast<size_t>(blockIdx.y) * partials * d;
+  float acc = 0.0f;
+  if (c < d) {
+#pragma unroll 8
+    for (int p = g; p < partials; p += kRedGroups)
+      acc += src[static_cast<size_t>(p) * d + c];
+  }
+  s[g][lane] = acc;
+  __syncthreads();
+#pragma unroll
+  for (int h = kRedGroups / 2; h > 0; h /= 2) {
+    if (g < h) s[g][lane] += s[g + h][lane];
+    __syncthreads();
+  }
+  if (g == 0 && c < d) (blockIdx.y == 0 ? dw : db)[c] = s[0][lane];
 }
 
 template <typename T, int kPerLane>
@@ -172,26 +326,41 @@ int launch_fwd(const void* x, const void* w, const void* b, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int kPerLane>
+// phases: bit 0 the main pass (dx and the partials), bit 1 the reduction
+// (dw, db from the partials).
+template <typename T, int kPieces>
 int launch_bwd(const void* x, const void* w, const void* mu,
-               const void* rsigma, const void* dy, void* dx, void* part_w,
-               void* part_b, void* dw, void* db, int n_rows, int d,
-               int blocks, cudaStream_t stream) {
-  const int smem = 2 * kWarps * d * static_cast<int>(sizeof(float));
-  int err = set_smem(layer_norm_bwd_kernel<T, kPerLane>, smem);
-  if (err != 0) return err;
-  const int rows_per_block = (n_rows + blocks - 1) / blocks;
-  layer_norm_bwd_kernel<T, kPerLane><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(mu), static_cast<const float*>(rsigma),
-      static_cast<const T*>(dy), static_cast<T*>(dx),
-      static_cast<float*>(part_w), static_cast<float*>(part_b), n_rows, d,
-      rows_per_block);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  err = sum_splits<float>(part_w, dw, blocks, d, stream);
-  if (err != 0) return err;
-  return sum_splits<float>(part_b, db, blocks, d, stream);
+               const void* rsigma, const void* dy, void* dx, void* part,
+               void* dw, void* db, int n_rows, int d, int phases,
+               cudaStream_t stream) {
+  const int partials = (n_rows + kPartRows - 1) / kPartRows;
+  if (phases & 1) {
+    const int smem = 2 * kBwdWarps * d * static_cast<int>(sizeof(float));
+    if (smem > 48 * 1024) {
+      const int err = set_smem(layer_norm_bwd_kernel<T, kPieces>, smem);
+      if (err != 0) return err;
+    }
+    const auto on16 = [](const void* p) {
+      return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    };
+    const bool vec = d % kVec<T> == 0 && on16(x) && on16(dy) && on16(dx);
+    layer_norm_bwd_kernel<T, kPieces>
+        <<<partials, kBwdWarps * 32, smem, stream>>>(
+            static_cast<const T*>(x), static_cast<const float*>(w),
+            static_cast<const float*>(mu), static_cast<const float*>(rsigma),
+            static_cast<const T*>(dy), static_cast<T*>(dx),
+            static_cast<float*>(part), n_rows, d, vec);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  if (phases & 2) {
+    const dim3 grid((d + kRedCols - 1) / kRedCols, 2);
+    layer_norm_wgrad_kernel<<<grid, kRedCols * kRedGroups, 0, stream>>>(
+        static_cast<const float*>(part), static_cast<float*>(dw),
+        static_cast<float*>(db), partials, d);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return 0;
 }
 
 }  // namespace
@@ -222,17 +391,28 @@ extern "C" int mlt_layer_norm_fwd(int dtype, int d, const void* x,
 #undef MLT_FWD
 }
 
+// partials must be ceil(n_rows / kPartRows) (the wrapper's scratch rows).
 extern "C" int mlt_layer_norm_bwd(int dtype, int d, const void* x,
                                   const void* w, const void* mu,
                                   const void* rsigma, const void* dy,
-                                  void* dx, void* part_w, void* part_b,
-                                  void* dw, void* db, int n_rows, int blocks,
+                                  void* dx, void* part, void* dw, void* db,
+                                  int n_rows, int partials, int phases,
                                   void* stream) {
+  if (n_rows <= 0 || partials != (n_rows + kPartRows - 1) / kPartRows)
+    return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MLT_BWD(T, K)                                                \
-  launch_bwd<T, K>(x, w, mu, rsigma, dy, dx, part_w, part_b, dw, db, \
-                   n_rows, d, blocks, s)
-  MLT_DISPATCH(MLT_BWD);
+  // kPieces 16-byte pieces a lane: V = 4 (f32) or 8 (bf16) columns each.
+#define MLT_BWD(T, P) \
+  launch_bwd<T, P>(x, w, mu, rsigma, dy, dx, part, dw, db, n_rows, d, \
+                   phases, s)
+  if (d <= 0) return -1;
+  if (dtype == 0 && d <= 128) return MLT_BWD(float, 1);
+  if (dtype == 0 && d <= 256) return MLT_BWD(float, 2);
+  if (dtype == 0 && d <= 1024) return MLT_BWD(float, 8);
+  if (dtype == 1 && d <= 256) return MLT_BWD(__nv_bfloat16, 1);
+  if (dtype == 1 && d <= 512) return MLT_BWD(__nv_bfloat16, 2);
+  if (dtype == 1 && d <= 1024) return MLT_BWD(__nv_bfloat16, 4);
+  return -1;
 #undef MLT_BWD
 }
 

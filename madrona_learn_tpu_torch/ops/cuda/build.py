@@ -131,8 +131,8 @@ _F = ctypes.c_float
 
 _SIGNATURES = {
     # rewards, values, dones, bootstrap, advantages, T, N, gamma,
-    # gamma * lambda, stream
-    "mlt_gae": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    # gamma * lambda, steps a chunk, columns a block, stream
+    "mlt_gae": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _P],
     # dtype, H, xp, keep, wr, bias, c0, h0, ys, cs, T, N, stream
     "mlt_lstm_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # dtype, H, xp, keep, wr, wr_t, bias, c0, h0, ys, cs, dys, dxp, dh0,
@@ -158,9 +158,9 @@ _SIGNATURES = {
     "mlt_gru_bwd": [_I, _I] + [_P] * 15 + [_I, _I, _I, _P],
     # dtype, D, x, w, b, y, mu, rsigma, N, eps, stream
     "mlt_layer_norm_fwd": [_I, _I] + [_P] * 6 + [_I, _F, _P],
-    # dtype, D, x, w, mu, rsigma, dy, dx, part_w, part_b, dw, db, N,
-    # blocks, stream
-    "mlt_layer_norm_bwd": [_I, _I] + [_P] * 10 + [_I, _I, _P],
+    # dtype, D, x, w, mu, rsigma, dy, dx, part, dw, db, N, partials,
+    # phases, stream
+    "mlt_layer_norm_bwd": [_I, _I] + [_P] * 9 + [_I, _I, _I, _P],
     # dtype, D, q, k, v, out, lse, B, S, H, valid_len, scale, stream
     "mlt_mha_flash_fwd": [_I, _I] + [_P] * 5 + [_I] * 4 + [_F, _P],
     # dtype, D, q, k, v, dout, lse, delta, dk, dv, B, S, H, valid_len,

@@ -1,12 +1,14 @@
 """gae: GAE over the trajectory store, as a CUDA kernel with a plain twin.
 
 Replaces ``madrona_learn_tpu/ops/pallas/gae.py:gae_pallas``. The kernel
-(``csrc/gae.cu``) gives one thread to each agent column and runs the reverse
-recurrence in registers; it is bound by device-memory bytes (13 per element,
-a few flops), and its layout reads and writes each element once, coalesced.
+(``csrc/gae.cu``) is bound by device-memory bytes (13 per element, a few
+flops). A block owns ``COLUMNS`` agent columns, one thread each, and takes
+time in chunks of ``CHUNK`` steps from the end, each chunk's tiles staged in
+shared memory by ``cp.async`` while the previous chunk's recurrence runs;
+the recurrence and its roundings are the plain version's, step for step.
 
 ``gae`` takes the plain version for CPU tensors and launches the kernel for
-CUDA tensors; it never falls back from one to the other.
+CUDA tensors (``gae_cuda``); it never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -44,11 +46,30 @@ def gae_reference(gamma, lam, rewards, values, dones, bootstrap):
     return out
 
 
+# Steps a chunk and agent columns a block: csrc/gae.cu builds every pair of
+# CHUNKS x COLUMNS_CHOICES (chip_smoke.py's sweep times them all); the
+# wrapper launches the kept pair, the fastest at the trainers' [32, 16384]
+# on the H100 (PERF.md, section 6).
+CHUNKS = (8, 16, 32)
+COLUMNS_CHOICES = (32, 64, 128)
+CHUNK, COLUMNS = 16, 64
+
+
 def gae(gamma, lam, rewards, values, dones, bootstrap):
     """advantages [T, N] f32 from rewards, values [T, N] f32, dones [T, N]
     bool and bootstrap [N] f32."""
     if rewards.device.type == "cpu":
         return gae_reference(gamma, lam, rewards, values, dones, bootstrap)
+    return gae_cuda(gamma, lam, rewards, values, dones, bootstrap)
+
+
+def gae_cuda(gamma, lam, rewards, values, dones, bootstrap, *, chunk=CHUNK,
+             columns=COLUMNS):
+    """The kernel, with ``chunk`` steps a chunk and ``columns`` agents a
+    block (one of the built pairs)."""
+    if chunk not in CHUNKS or columns not in COLUMNS_CHOICES:
+        raise ValueError(f"gae: no kernel built for {chunk} steps a chunk "
+                         f"and {columns} columns a block")
     steps, n = rewards.shape
     for name, x, dtype, shape in (
             ("rewards", rewards, torch.float32, (steps, n)),
@@ -62,8 +83,8 @@ def gae(gamma, lam, rewards, values, dones, bootstrap):
     err = library().mlt_gae(
         rewards.data_ptr(), values.data_ptr(), dones.data_ptr(),
         bootstrap.data_ptr(), out.data_ptr(), steps, n, float(gamma),
-        float(gamma * lam), torch.cuda.current_stream(rewards.device)
-        .cuda_stream)
+        float(gamma * lam), chunk, columns,
+        torch.cuda.current_stream(rewards.device).cuda_stream)
     check(err, "gae")
     GAE.launches += 1
     return out

@@ -5,9 +5,9 @@ Replaces ``madrona_learn_tpu/ops/pallas/layer_norm.py:layer_norm`` (forward
 ``_fwd_kernel``, backward ``_bwd_kernel`` with its dw/db accumulation).
 ``csrc/layer_norm.cu`` explains the Hopper design: one warp per row with the
 row in registers, mu and rsigma saved for the backward, and dw/db as f32
-partials per block summed in a fixed order, where the TPU kernel
-accumulated into one block across its sequential grid. The kernels are
-bound by device-memory bytes.
+partials over fixed blocks of ``BWD_PART_ROWS`` rows summed by a second
+launch in a fixed order, where the TPU kernel accumulated into one block
+across its sequential grid. The kernels are bound by device-memory bytes.
 
 Contract: ``x`` [N, D] float32 or bfloat16 with 0 < D <= 1024, ``weight``
 and ``bias`` [D] float32; statistics in float32 with a two-pass variance,
@@ -84,29 +84,53 @@ def layer_norm_fwd(x, weight, bias, eps=1e-6):
     return y, mu, rsigma
 
 
+# Rows of one dw / db partial, the main pass's block (kPartRows in
+# csrc/layer_norm.cu): a constant, so dw and db depend on the inputs alone,
+# not on the card's SM count.
+BWD_PART_ROWS = 128
+
+
+def bwd_partials(n):
+    """The dw / db partials of an [n, D] backward."""
+    return -(-n // BWD_PART_ROWS)
+
+
+def _bwd_buffers(x):
+    """Outputs and scratch of :func:`_bwd` for this x."""
+    n, d = x.shape
+    f32, device = torch.float32, x.device
+    return dict(
+        dx=torch.empty_like(x),
+        part=torch.empty((2, bwd_partials(n), d), dtype=f32, device=device),
+        dw=torch.empty((d,), dtype=f32, device=device),
+        db=torch.empty((d,), dtype=f32, device=device))
+
+
+def _bwd(x, weight, mu, rsigma, dy, *, phases=3, buffers=None):
+    """The backward in its two launches, phases bit 0 the main pass (dx and
+    the partials) and bit 1 the reduction (dw, db); the buffers of
+    :func:`_bwd_buffers`, filled."""
+    n, d = x.shape
+    b = _bwd_buffers(x) if buffers is None else buffers
+    err = library().mlt_layer_norm_bwd(
+        _DTYPE_CODES[x.dtype], d, x.data_ptr(), weight.data_ptr(),
+        mu.data_ptr(), rsigma.data_ptr(), dy.data_ptr(), b["dx"].data_ptr(),
+        b["part"].data_ptr(), b["dw"].data_ptr(), b["db"].data_ptr(), n,
+        b["part"].shape[1], phases,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "layer_norm_bwd")
+    return b
+
+
 def layer_norm_bwd(x, weight, mu, rsigma, dy):
     """The backward kernel: (dx, dw, db) given the forward's statistics."""
     n, d = _check_inputs(x, weight)
     _check("mu", mu, torch.float32, (n,))
     _check("rsigma", rsigma, torch.float32, (n,))
     _check("dy", dy, x.dtype, (n, d))
-    device = x.device
-    # Eight blocks per SM, each over a contiguous range of rows.
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks = max(1, min(8 * sms, -(-n // 8)))
-    dx = torch.empty_like(x)
-    part_w = torch.empty((blocks, d), dtype=torch.float32, device=device)
-    part_b = torch.empty_like(part_w)
-    dw = torch.empty((d,), dtype=torch.float32, device=device)
-    db = torch.empty_like(dw)
-    err = library().mlt_layer_norm_bwd(
-        _DTYPE_CODES[x.dtype], d, x.data_ptr(), weight.data_ptr(),
-        mu.data_ptr(), rsigma.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-        part_w.data_ptr(), part_b.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        n, blocks, torch.cuda.current_stream(device).cuda_stream)
-    check(err, "layer_norm_bwd")
+    b = _bwd(x, weight, mu, rsigma, dy)
     LAYER_NORM_BWD.launches += 1
-    return dx, dw, db
+    return b["dx"], b["dw"], b["db"]
 
 
 class _LayerNorm(torch.autograd.Function):

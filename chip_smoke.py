@@ -6,14 +6,15 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --digests`` runs phases 1 and 2, then prints the
-SHA-256 of the bf16 LSTM and GRU kernels', ``mha``'s, ``gae``'s and
-``layer_norm_bwd``'s outputs from seeded inputs, to hold two checkouts'
-kernels bitwise equal: copy the script into the other checkout's root and
-run it there too. ``--timings`` runs phases 1 and 2, then times ``gae`` and
-``layer_norm_bwd`` at their main-path shapes three ways: between CUDA
-events, on the device alone and on the host, with
-``native_layer_norm_backward`` beside them; run from another checkout in
-the same way, it times that checkout's kernels.)
+SHA-256 of the bf16 LSTM and GRU kernels', ``mha``'s, ``gae``'s and the
+two ``layer_norm`` kernels' outputs from seeded inputs, to hold two
+checkouts' kernels bitwise equal: copy the script into the other
+checkout's root and run it there too. ``--timings`` runs phases 1 and 2,
+then times ``gae``, ``layer_norm_fwd`` and ``layer_norm_bwd`` at their
+main-path shapes three ways: between CUDA events, on the device alone and
+on the host, with ``native_layer_norm`` and ``native_layer_norm_backward``
+beside them; run from another checkout in the same way, it times that
+checkout's kernels.)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -41,15 +42,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    and ring-depth pair it is built for; ``gae`` must equal its plain
    version bitwise at four shapes and on the columns two calls share, and
    is timed at each steps-a-chunk and columns-a-block pair it is built
-   for; ``layer_norm_bwd``'s dx at N = 131072 must equal N = 16384's on
-   the shared rows and its dw / db must be bitwise equal over two calls;
-   both are also timed on the device alone (torch.profiler) and on the
-   host (the enqueue), ``layer_norm_bwd`` by launch;
+   for; ``layer_norm_fwd``'s y and ``layer_norm_bwd``'s dx at N = 131072
+   must equal N = 16384's on the shared rows, and the forward's y, mu and
+   rsigma and the backward's dw / db must be bitwise equal over two calls;
+   the three are also timed on the device alone (torch.profiler) and on
+   the host (the enqueue), ``layer_norm_bwd`` by launch, and
+   ``native_layer_norm`` the same way;
 4. models: the update pass and its gradients through the kernels on the
    card against the same model on the CPU, for the MLP model, a small GRU
    model, a small fused-trunk model, a small flagship (entity attention)
    model and the same over 281 entities (``mha_flash``) (the GRU's and the
-   fused trunk's rollout step are also compared); then
+   fused trunk's rollout step are also compared), the MLP model with a
+   two-part HL-Gauss critic, and with a dense critic under value
+   normalization and the clipped Huber value loss (the normalizer's
+   update compared too); then
    ``LayerNorm(use_kernel=True)``, the entry point of the layer_norm
    kernels, forward and backward at [131072, 256] bf16 and [300, 128]
    float32, and ``grouped_matmul``, the one entry point of its kernel, at
@@ -58,6 +64,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. headline trainer: the ``bench.py`` headline configuration (16384
    worlds, 2x256 MLP, 256-wide LSTM, bf16, T=32 in 2 BPTT chunks, 1 epoch
    of 4 minibatches) built in the port, 1 warm-up update and 3 trials of 10;
+   headline_valuenorm trainer: the headline with value normalization
+   (decay 0.99999), the clipped value loss and the Huber value loss; its
+   value normalizer's state must be finite, folded in once a minibatch and
+   moved from mu = 0, sigma = 1;
+   headline_hlgauss trainer: the headline with ``HLGaussCritic`` (127 bins
+   over [-100, 100]) in the dense critic's place; both 1 warm-up update and
+   3 trials of 10, with the headline's launches and a first-minibatch
+   max |ratio - 1| of exactly 0;
 6. flagship trainer: the repo's flagship model (EntitySelfAttentionNet
    128 -> 256 with 4 heads, LSTM 256, [5, 3] actions, DreamerV3 critic,
    bf16) at the same rollout and PPO settings over entity observations
@@ -81,9 +95,9 @@ just after it that every kernel of its path launched as often as the
 configuration implies and that every launch of the kernels with a
 tensor-core route took it; it checks finite losses and metrics and a rising
 mean reward and a first-minibatch max |ratio - 1| below the clip
-coefficient, and prints env-steps/s, peak memory, that ratio, a
-synchronized collect / learn split and a torch.profiler breakdown of one
-update.
+coefficient, and prints env-steps/s (beside the headline's of the same
+run at the end), peak memory, that ratio, a synchronized collect / learn
+split and a torch.profiler breakdown of one update.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel with its launches on the main paths, error, times and bound,
@@ -1323,7 +1337,7 @@ def check_layer_norm(results):
                 bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
 
         if main_path:
-            fwd["ms"] = time_ms(lambda: layer_norm_fwd(x, w, b))
+            _layer_norm_fwd_checks(tag, (x, w, b), (y, mu, rsigma), fwd)
             fwd["plain_ms"] = time_ms(lambda: layer_norm_reference(x, w, b))
             _layer_norm_bwd_checks(tag, (x, w, mu, rsigma, dy), got, bwd)
             bwd["plain_ms"] = time_ms(plain_bwd)
@@ -1331,12 +1345,33 @@ def check_layer_norm(results):
             fwd.update(**fwd_bound)
             bwd.update(**bwd_bound)
             fwd["library_ms"], bwd["library_ms"] = _layer_norm_library(
-                x, w, b, dy, fwd["ms"] + bwd["ms"])
+                x, w, b, dy, fwd["ms"] + bwd["ms"], fwd)
             log(f"  layer_norm {tag}: fwd kernel {fwd['ms']:.4f} ms, plain "
                 f"{fwd['plain_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms "
                 f"({fwd['bound_by']}); bwd kernel {bwd['ms']:.4f} ms, plain "
                 f"(fwd + bwd) {bwd['plain_ms']:.4f} ms, bound "
                 f"{bwd['bound_ms']:.4f} ms ({bwd['bound_by']})")
+
+
+def _layer_norm_fwd_checks(tag, args, got, fwd, rows=16384):
+    """The forward at the update's rows: y bitwise the [rows, D] call's on
+    the shared rows, y / mu / rsigma bitwise over two calls; its three
+    times."""
+    from madrona_learn_tpu_torch.ops.cuda.layer_norm import layer_norm_fwd
+
+    x, w, b = args
+    sub = layer_norm_fwd(x[:rows], w, b)
+    bitwise(f"layer_norm fwd y {tag} rows :{rows} against the "
+            f"[{rows},{x.shape[1]}] call", got[0][:rows], sub[0])
+    again = layer_norm_fwd(*args)
+    for name, first, second in zip(("y", "mu", "rsigma"), got, again):
+        bitwise(f"layer_norm fwd {name} {tag} over two calls", first, second)
+    t = call_timings(lambda: layer_norm_fwd(*args))
+    fwd.update(ms=t["ms"], device_ms=t["device_ms"], host_us=t["host_us"])
+    log(f"  layer_norm fwd {tag}: kernel {t['ms']:.4f} ms (one call between "
+        f"events), device {t['device_ms']:.4f} ms a call "
+        f"({_split_text(t['device_split'])}), host {t['host_us']:.1f} us a "
+        f"call (enqueue, 100 calls)")
 
 
 def _layer_norm_bwd_checks(tag, args, got, bwd, rows=16384):
@@ -1369,21 +1404,28 @@ def _layer_norm_bwd_checks(tag, args, got, bwd, rows=16384):
         f"{split['reduction_ms']:.4f} ms (device)")
 
 
-def _layer_norm_library(x, w, b, dy, kernels_ms):
+def _layer_norm_library(x, w, b, dy, kernels_ms, fwd):
     """PyTorch's own layer norm: the forward with its saved statistics and
     the backward from them, the same two functions as the kernels, and
     F.layer_norm forward plus backward through autograd. PyTorch takes a
     weight and bias only in x's dtype (float32 ones with a bf16 x are
     refused), so they are cast to it: the same bytes of x, y, dy and dx,
-    with the affine rounded to x's dtype. Returns the first two times."""
+    with the affine rounded to x's dtype. The forward is timed three ways,
+    its device and host times going into ``fwd`` as ``library_device_ms``
+    and ``library_host_us``. Returns the first two event times."""
     import torch
     import torch.nn.functional as F
 
     D = x.shape[-1]
     w, b = w.to(x.dtype), b.to(x.dtype)
     _, mean, rstd = torch.ops.aten.native_layer_norm(x, [D], w, b, 1e-6)
-    fwd_ms = time_ms(
+    t = call_timings(
         lambda: torch.ops.aten.native_layer_norm(x, [D], w, b, 1e-6))
+    fwd_ms = t["ms"]
+    fwd.update(library_device_ms=t["device_ms"], library_host_us=t["host_us"])
+    log(f"  native_layer_norm: {fwd_ms:.4f} ms between events, device "
+        f"{t['device_ms']:.4f} ms a call ({_split_text(t['device_split'])}), "
+        f"host {t['host_us']:.1f} us a call")
     bwd_ms = time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
         dy, x, [D], mean, rstd, w, b, [True, True, True]))
     leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
@@ -1937,8 +1979,9 @@ def grouped_matmul_op_phase():
 
 
 def model_phase():
-    """The MLP model, a small GRU model, a small flagship model and a small
-    fused-trunk model, float32, small input."""
+    """The MLP model, a small GRU model, a small flagship model, a small
+    fused-trunk model and the value side (a two-part HL-Gauss critic and a
+    value-normalized dense critic), float32, small input."""
     import torch
 
     log("model update pass, card (kernels) against CPU (plain), float32:")
@@ -1983,6 +2026,72 @@ def model_phase():
         "281 entities through mha_flash) update pass, card against CPU, "
         "float32:")
     _small_flagship_card_vs_cpu(gen, T, 32, H, 150, 130, seed=17)
+    _value_side_card_vs_cpu(gen, obs, dones, actions, start, H)
+
+
+def _value_side_card_vs_cpu(gen, obs, dones, actions, start, H):
+    """The value side of PPO on the small MLP model: the two-part HL-Gauss
+    critic's loss, and the dense critic's value-normalized, clipped Huber
+    loss with the normalizer's update, card against CPU."""
+    import types
+
+    import torch
+    from madrona_learn_tpu_torch.models import HLGaussTwoPartCritic
+    from madrona_learn_tpu_torch.ops.ema import EMANormalizer
+    from madrona_learn_tpu_torch.ppo import PPO, _value_loss
+
+    T, N = dones.shape[:2]
+    # Targets on both sides of the two-part split at |t| = 2 and past the
+    # fine table's range.
+    returns = 5 * torch.randn(T, N, 1, generator=gen)
+    log("two-part HL-Gauss critic model (MLP 2x128, LSTM 128, "
+        "HLGaussTwoPartCritic) update pass, card against CPU, float32:")
+    ac = _small_actor_critic(torch.float32, H, seed=21)
+    ac.critic = HLGaussTwoPartCritic.create(H, torch.float32)
+    # Heads away from their zero init, so the check sees them.
+    with torch.no_grad():
+        for p in ac.critic.parameters():
+            p.normal_(0, 0.1, generator=gen)
+
+    def hlgauss_loss(out, dev):
+        return (out["log_probs"]["move"].sum()
+                + out["entropies"]["move"].sum()
+                + out["critic"].loss(returns.to(dev)).sum())
+
+    _card_vs_cpu(ac, obs, dones, actions, start, hlgauss_loss)
+
+    log("value-normalized dense critic (MLP 2x128, LSTM 128, "
+        "normalize_values, clipped Huber value loss) update pass and the "
+        "normalizer's update, card against CPU, float32:")
+    cfg = _train_config([5], dreamer_v3_critic=False, num_worlds=N,
+                        algo_kwargs=dict(clip_value_loss=True,
+                                         huber_value_loss=True),
+                        normalize_values=True)
+    norm = EMANormalizer(decay=cfg.value_normalizer_decay,
+                         norm_dtype=torch.float32)
+    # A state away from the identity, then the minibatch's update.
+    norm_state, _ = norm.normalize_and_update_estimates(
+        norm.init_estimates(returns), 2 * returns + 1)
+    old_values = 0.3 * torch.randn(T, N, 1, generator=gen)
+    hyper_params = PPO().init_hyperparams(cfg)
+    new_states = {}
+
+    def valuenorm_loss(out, dev):
+        state = types.SimpleNamespace(
+            hyper_params=hyper_params, value_normalizer=norm,
+            value_normalizer_state={k: v.to(dev)
+                                    for k, v in norm_state.items()})
+        losses, errs, new_states[dev] = _value_loss(
+            cfg, {"returns": returns.to(dev), "values": old_values.to(dev)},
+            out["critic"], state)
+        return (out["log_probs"]["move"].sum() + losses.sum()
+                + errs.square().sum())
+
+    _card_vs_cpu(_small_actor_critic(torch.float32, H, seed=22), obs, dones,
+                 actions, start, valuenorm_loss)
+    for k, want in new_states["cpu"].items():
+        compare(f"value normalizer {k}", new_states["cuda"][k].cpu(), want,
+                atol=1e-6, rtol=1e-6)
 
 
 def _small_flagship_card_vs_cpu(gen, T, N, H, allies, enemies, seed):
@@ -2024,7 +2133,10 @@ CHANNELS = 256
 CLIP_COEF = 0.2
 
 
-def _train_config(actions, dreamer_v3_critic, num_worlds=NUM_WORLDS):
+def _train_config(actions, dreamer_v3_critic, num_worlds=NUM_WORLDS,
+                  algo_kwargs=None, **kwargs):
+    """The trainers' TrainConfig; ``algo_kwargs`` go to PPOConfig and the
+    other keywords to TrainConfig."""
     import madrona_learn_tpu_torch as mlt
 
     return mlt.TrainConfig(
@@ -2046,8 +2158,10 @@ def _train_config(actions, dreamer_v3_critic, num_worlds=NUM_WORLDS):
             value_loss_coef=0.5,
             entropy_coef=0.01,
             max_grad_norm=0.5,
+            **(algo_kwargs or {}),
         ),
         dreamer_v3_critic=dreamer_v3_critic,
+        **kwargs,
     )
 
 
@@ -2071,6 +2185,49 @@ def build_headline(hooks):
     return mlt.init_training(
         "cuda", _train_config([5], dreamer_v3_critic=False), _toy_env(),
         policy, torch.zeros((1,), dtype=torch.int32, device="cuda"),
+        user_hooks=hooks)
+
+
+def build_headline_valuenorm(hooks):
+    """The headline with value normalization (decay 0.99999), the clipped
+    value loss and the Huber value loss."""
+    import torch
+    import madrona_learn_tpu_torch as mlt
+
+    dtype = torch.bfloat16
+    policy = mlt.Policy(
+        actor_critic=_small_actor_critic(dtype, CHANNELS, seed=0),
+        obs_preprocess=mlt.ObservationsEMANormalizer.create(
+            decay=0.99999, dtype=dtype))
+    cfg = _train_config([5], dreamer_v3_critic=False,
+                        algo_kwargs=dict(clip_value_loss=True,
+                                         huber_value_loss=True),
+                        normalize_values=True, value_normalizer_decay=0.99999)
+    return mlt.init_training(
+        "cuda", cfg, _toy_env(), policy,
+        torch.zeros((1,), dtype=torch.int32, device="cuda"),
+        user_hooks=hooks)
+
+
+def build_headline_hlgauss(hooks):
+    """The headline with HLGaussCritic (127 bins over [-100, 100]) in the
+    dense critic's place."""
+    import torch
+    import madrona_learn_tpu_torch as mlt
+    from madrona_learn_tpu_torch.models import HLGaussCritic
+
+    dtype = torch.bfloat16
+    ac = _small_actor_critic(dtype, CHANNELS, seed=0)
+    ac.critic = HLGaussCritic.create(CHANNELS, dtype)
+    policy = mlt.Policy(
+        actor_critic=ac,
+        obs_preprocess=mlt.ObservationsEMANormalizer.create(
+            decay=0.99999, dtype=dtype))
+    return mlt.init_training(
+        "cuda", _train_config([5], dreamer_v3_critic=False,
+                              hlgauss_critic=True),
+        _toy_env(), policy,
+        torch.zeros((1,), dtype=torch.int32, device="cuda"),
         user_hooks=hooks)
 
 
@@ -2220,10 +2377,12 @@ TC_ROUTED = ("lstm_sequence_fwd", "lstm_sequence_bwd",
 
 
 def trainer_phase(card, name, build, per_update, trials, timed_updates,
-                  last_rewards, num_worlds=NUM_WORLDS):
+                  last_rewards, num_worlds=NUM_WORLDS, ratio_zero=False,
+                  final_check=None):
     """One trainer: launch counts, finite metrics, rising reward,
-    env-steps/s, memory, the ratio at the first minibatch, the phase split
-    and a profile."""
+    env-steps/s, memory, the ratio at the first minibatch (exactly 0 with
+    ``ratio_zero``), the phase split and a profile; then
+    ``final_check(mgr, updates run)``, if given."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda import KERNELS
 
@@ -2237,11 +2396,13 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
     log(f"{name} trainer: {num_worlds} worlds, bf16, T={STEPS_PER_UPDATE} "
         f"in {NUM_BPTT_CHUNKS} chunks, {NUM_MINIBATCHES} minibatches; "
         f"expected launches per update {per_update}")
+    updates_run = [0]
 
     losses, rewards = [], []
 
     def one_update():
         mgr.update_iter()
+        updates_run[0] += 1
         losses.append(mgr.first_minibatch_stats["loss"])
         rewards.append(mgr.metrics.latest("Rewards").mean[0])
 
@@ -2262,6 +2423,10 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
         raise AssertionError(f"{name}: first-minibatch max |ratio - 1| "
                              f"{ratio_dev} is not below the clip "
                              f"coefficient {CLIP_COEF}")
+    if ratio_zero and ratio_dev != 0:
+        raise AssertionError(f"{name}: first-minibatch max |ratio - 1| "
+                             f"{ratio_dev}, not 0: the critic must not "
+                             f"touch the actor's log-probabilities")
 
     trial_s = []
     for _ in range(trials):
@@ -2326,8 +2491,31 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
     log(f"  phase split (ms, synchronized): "
         f"{ {k: [round(v, 2) for v in vs] for k, vs in spans.items()} }")
     _profile_update(one_update)
+    if final_check is not None:
+        final_check(mgr, updates_run[0])
     return launches, dict(sps=max(sps), ratio_dev=ratio_dev,
                           clip_frac=clip_frac, peak_gib=peak_gib)
+
+
+def check_value_normalizer(mgr, updates_run):
+    """headline_valuenorm: the value normalizer's state is finite, folded
+    in once a minibatch, and moved from its initial mu = 0, sigma = 1."""
+    import torch
+
+    state = mgr.state.train_states.value_normalizer_state
+    text = {k: [round(x, 6) for x in v.float().reshape(-1).tolist()]
+            for k, v in state.items()}
+    log(f"  value normalizer after {updates_run} updates: {text}")
+    for k, v in state.items():
+        if not bool(torch.isfinite(v.float()).all()):
+            raise AssertionError(f"value normalizer {k} is not finite: "
+                                 f"{text[k]}")
+    if int(state["N"]) != updates_run * NUM_MINIBATCHES:
+        raise AssertionError(f"value normalizer N = {int(state['N'])}, "
+                             f"expected {updates_run * NUM_MINIBATCHES}")
+    if not (bool((state["mu"] != 0).all())
+            and bool((state["sigma"] != 1).all())):
+        raise AssertionError(f"value normalizer did not move: {text}")
 
 
 def two_hot_loss_timing(card):
@@ -2420,28 +2608,33 @@ def _ln_bwd_inputs(gen, N=131072, D=256):
 
 
 def _cuda_core_digests(digest):
-    """gae's and layer_norm_bwd's digests, from a generator of their own
-    (the other kernels' inputs stay as they were drawn before)."""
+    """gae's and the layer_norm kernels' digests, from a generator of
+    their own (the other kernels' inputs stay as they were drawn
+    before)."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gae import gae
-    from madrona_learn_tpu_torch.ops.cuda.layer_norm import layer_norm_bwd
+    from madrona_learn_tpu_torch.ops.cuda.layer_norm import (
+        layer_norm_bwd, layer_norm_fwd)
 
     gen = torch.Generator(device="cuda").manual_seed(12)
     gae_args = _gae_inputs(gen, 32, 16384)
-    x, w, _, mu, rsigma, dy = _ln_bwd_inputs(gen)
+    x, w, b, mu, rsigma, dy = _ln_bwd_inputs(gen)
     return {"gae": digest([gae(0.99, 0.95, *gae_args)]),
+            "layer_norm_fwd": digest(layer_norm_fwd(x, w, b)),
             "layer_norm_bwd": digest(layer_norm_bwd(x, w, mu, rsigma, dy))}
 
 
 def timing_phase():
-    """``--timings``: gae at [32, 16384] and layer_norm_bwd at [131072,
-    256] bf16, each timed three ways (`call_timings`), and PyTorch's
+    """``--timings``: gae at [32, 16384] and layer_norm_fwd and
+    layer_norm_bwd at [131072, 256] bf16, each timed three ways
+    (`call_timings`), and PyTorch's native_layer_norm and
     native_layer_norm_backward on the same inputs, as one JSON line. It
     calls the wrappers' public signatures only, so a copy of this script
     run in another checkout times that checkout's kernels."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gae import gae
-    from madrona_learn_tpu_torch.ops.cuda.layer_norm import layer_norm_bwd
+    from madrona_learn_tpu_torch.ops.cuda.layer_norm import (
+        layer_norm_bwd, layer_norm_fwd)
 
     gen = torch.Generator(device="cuda").manual_seed(12)
     gae_args = _gae_inputs(gen, 32, 16384)
@@ -2451,6 +2644,9 @@ def timing_phase():
     _, mean, rstd = torch.ops.aten.native_layer_norm(x, [D], *wb, 1e-6)
     log(json.dumps({"timings": {
         "gae": call_timings(lambda: gae(0.99, 0.95, *gae_args)),
+        "layer_norm_fwd": call_timings(lambda: layer_norm_fwd(x, w, b)),
+        "native_layer_norm": call_timings(
+            lambda: torch.ops.aten.native_layer_norm(x, [D], *wb, 1e-6)),
         "layer_norm_bwd": call_timings(
             lambda: layer_norm_bwd(x, w, mu, rsigma, dy)),
         "native_layer_norm_backward": call_timings(
@@ -2483,6 +2679,15 @@ def main():
         "headline": trainer_phase(card, "headline", build_headline, lstm,
                                   trials=3, timed_updates=10,
                                   last_rewards=10),
+        # The value side of PPO on the headline: the critic changes, so
+        # do the value targets and losses, but not the kernels' path.
+        "headline_valuenorm": trainer_phase(
+            card, "headline_valuenorm", build_headline_valuenorm, lstm,
+            trials=3, timed_updates=10, last_rewards=10, ratio_zero=True,
+            final_check=check_value_normalizer),
+        "headline_hlgauss": trainer_phase(
+            card, "headline_hlgauss", build_headline_hlgauss, lstm,
+            trials=3, timed_updates=10, last_rewards=10, ratio_zero=True),
         "flagship": trainer_phase(card, "flagship", build_flagship,
                                   dict(lstm, mha=steps), trials=3,
                                   timed_updates=5, last_rewards=5),
@@ -2508,10 +2713,12 @@ def main():
             num_worlds=LARGE_WORLDS),
     }
     two_hot_loss_timing(card)
+    headline_sps = paths["headline"][1]["sps"]
     for name, (launches, r) in paths.items():
         launches_by_path[name] = launches
-        log(f"{name}: {r['sps']:.0f} env-steps/s, max |ratio - 1| "
-            f"{r['ratio_dev']:.3e}, peak {r['peak_gib']:.2f} GiB on {card}")
+        log(f"{name}: {r['sps']:.0f} env-steps/s (headline {headline_sps:.0f} "
+            f"in this run), max |ratio - 1| {r['ratio_dev']:.3e}, peak "
+            f"{r['peak_gib']:.2f} GiB on {card}")
 
     import torch
     from madrona_learn_tpu_torch.ops.cuda import KERNELS
@@ -2533,7 +2740,8 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **{k: r[k] for k in ("recurrence_ms", "weight_grad_ms",
                                  "main_pass_ms", "reduction_ms",
-                                 "device_ms", "host_us") if k in r}})
+                                 "device_ms", "host_us", "library_device_ms",
+                                 "library_host_us") if k in r}})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

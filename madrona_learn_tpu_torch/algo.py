@@ -15,6 +15,8 @@ class HyperParams:
     lr: float
     gamma: float
     gae_lambda: float
+    normalize_values: bool
+    value_normalizer_decay: float
 
 
 class AlgoBase:

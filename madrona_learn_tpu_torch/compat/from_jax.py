@@ -8,13 +8,16 @@
   its own ``input_proj.bias`` ``[3H]``, ``layer_k.recurrent_kernel``
   ``[H, 3H]`` and ``layer_k.bias_h`` ``[H]``, the candidate gate's
   recurrent bias; the attention projections ``[F, heads, head_dim]`` /
-  ``[heads, head_dim, out]`` with their biases, the DreamerV3 critic's
-  ``Dense_0``), so only the names change: path components join with ``.``,
-  and flax's ``heads_<name>`` for a dict of submodules becomes
+  ``[heads, head_dim, out]`` with their biases, the DreamerV3 and HL-Gauss
+  critics' ``Dense_0``, the two-part HL-Gauss critic's ``small`` and
+  ``large`` heads), so only the names change: path components join with
+  ``.``, and flax's ``heads_<name>`` for a dict of submodules becomes
   ``heads.<name>``.
 - ``obs_preprocess_state``: the EMA normalizer state of
   ``ObservationsEMANormalizer`` (per obs key: mu, inv_sigma, sigma,
   mu_biased, sigma_sq_biased, N) -> the same dict of numpy arrays.
+- ``ema_state``: one EMA normalizer state (the value normalizer's) -> a
+  dict of numpy arrays.
 - ``policy_slice``: strip the JAX package's leading policy axis.
 
 The caller turns the arrays into tensors (``torch.from_numpy``).
@@ -61,7 +64,11 @@ def actor_critic_state_dict(params) -> Dict[str, np.ndarray]:
             for path, value in _flatten(params)}
 
 
+def ema_state(est) -> Dict[str, np.ndarray]:
+    """One EMA normalizer state -> numpy arrays."""
+    return {name: np.array(value) for name, value in est.items()}
+
+
 def obs_preprocess_state(state) -> Dict[str, Any]:
     """EMA normalizer state of one policy -> numpy arrays per obs key."""
-    return {key: {name: np.array(value) for name, value in est.items()}
-            for key, est in state.items()}
+    return {key: ema_state(est) for key, est in state.items()}

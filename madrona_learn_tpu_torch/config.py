@@ -2,10 +2,12 @@
 
 The subset the single-policy PPO path needs: the discrete action space and
 ``TrainConfig``; mappings are plain dicts. The compute dtype lives on the
-model modules. Of the distributional critics only ``dreamer_v3_critic`` is
-ported (on by default, as in the JAX package); the PBT, mesh, HL-Gauss,
-value-normalization and minibatch-mode options of the JAX config are not
-ported yet, so they are absent rather than ignored.
+model modules. The critic options (``dreamer_v3_critic``, on by default as
+in the JAX package, and ``hlgauss_critic``), the advantage / return targets
+and their z-scoring, and value normalization are ported with the JAX
+package's defaults. The PBT, mesh, advantage-filtering, importance-sampling
+and minibatch-mode options of the JAX config are not ported yet, so they
+are absent rather than ignored.
 """
 
 from __future__ import annotations
@@ -49,6 +51,20 @@ class TrainConfig:
     # The critic returns a SymExpTwoHotDistribution (DreamerV3Critic):
     # values are its mean and the value loss is its two-hot cross entropy.
     dreamer_v3_critic: bool = True
+    # The critic returns an HLGaussDist / HLGaussTwoPartDist (HLGaussCritic,
+    # HLGaussTwoPartCritic): values are its mean and the value loss is its
+    # cross entropy against Gaussian-smoothed labels.
+    hlgauss_critic: bool = False
+    # Train on GAE advantages (z-scored per minibatch if
+    # normalize_advantages); otherwise on the discounted returns themselves
+    # (z-scored if normalize_returns), and the GAE kernel does not run.
+    compute_advantages: bool = True
+    normalize_advantages: bool = True
+    normalize_returns: bool = True
+    # A scalar critic predicts returns normalized by an EMA of their mean
+    # and variance; the rollout inverts its outputs before GAE.
+    normalize_values: bool = False
+    value_normalizer_decay: float = 0.99999
 
     @property
     def sim_batch_size(self) -> int:

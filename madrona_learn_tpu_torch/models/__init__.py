@@ -8,6 +8,10 @@ from .critics import (
     DenseLayerDiscreteActor,
     DictActor,
     DreamerV3Critic,
+    HLGaussCritic,
+    HLGaussTwoPartCritic,
+    make_hlgauss_bins,
+    make_hlgauss_two_part_bins,
 )
 from .gru import GRU
 from .lstm import LSTM
@@ -22,9 +26,13 @@ __all__ = [
     "DreamerV3Critic",
     "EntitySelfAttentionNet",
     "GRU",
+    "HLGaussCritic",
+    "HLGaussTwoPartCritic",
     "LayerNorm",
     "LSTM",
     "MLP",
     "RecurrentBackboneEncoder",
     "SelfAttention",
+    "make_hlgauss_bins",
+    "make_hlgauss_two_part_bins",
 ]

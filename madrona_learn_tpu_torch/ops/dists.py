@@ -4,13 +4,16 @@
 concatenated logits tensor; ``DictActionDistributions`` maps action names to
 such heads, the layout the simulator contract uses.
 ``SymExpTwoHotDistribution`` is the DreamerV3 critic's two-hot categorical
-over symexp-spaced bins. All log-prob and entropy math runs in float32
-whatever the compute dtype: logits are upcast before the logsumexp, which
-keeps PPO's ratio stable in bf16.
+over symexp-spaced bins; ``HLGaussDist`` is the HL-Gauss critic's
+categorical over fixed bins, trained on Gaussian-smoothed labels, and
+``HLGaussTwoPartDist`` the sum of a fine and a coarse one. All log-prob
+and entropy math runs in float32 whatever the compute dtype: logits are
+upcast before the logsumexp, which keeps PPO's ratio stable in bf16.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -169,3 +172,67 @@ class SymExpTwoHotDistribution:
         """[T*N, bins] logits -> [T, N, bins]."""
         return SymExpTwoHotDistribution(
             self.logits.reshape(T, N, self.logits.shape[-1]))
+
+
+@dataclass
+class HLGaussDist:
+    """Histogram-Gaussian return distribution ("Stop Regressing"): soft
+    labels integrate a Gaussian of sigma = smoothness x the target's bin
+    width over the bin bounds through erf CDFs. ``centers`` [K] and
+    ``bounds`` [K + 1] are float32 and mirrored about 0."""
+
+    logits: torch.Tensor
+    smoothness: float
+    centers: torch.Tensor
+    bounds: torch.Tensor
+
+    def mean(self):
+        return _symmetric_weighted_sum(torch.softmax(self.logits, dim=-1),
+                                       self.centers)
+
+    def loss(self, targets):
+        """Cross entropy against the soft labels of f32 ``targets``
+        [..., 1], clipped to the outer centers."""
+        centers, bounds = self.centers, self.bounds
+        targets = torch.minimum(torch.maximum(targets, centers[0]),
+                                centers[-1])
+        num_bounds = bounds.shape[-1]
+        lower_idx = (bounds <= targets).sum(-1) - 1
+        upper_idx = torch.clamp(lower_idx + 1, 1, num_bounds - 1)
+        lower_idx = torch.clamp(lower_idx, 0, num_bounds - 2)
+        width = bounds[upper_idx] - bounds[lower_idx]
+        sigmas = self.smoothness * width[..., None]
+        cdfs = torch.erf((bounds - targets) / (math.sqrt(2.0) * sigmas))
+        z = cdfs[..., -1:] - cdfs[..., :1]
+        soft_labels = (cdfs[..., 1:] - cdfs[..., :-1]) / z
+        return -(soft_labels * _log_softmax(self.logits)).sum(
+            -1, keepdim=True)
+
+    def merge_time(self, T: int, N: int) -> "HLGaussDist":
+        """[T*N, bins] logits -> [T, N, bins]."""
+        return HLGaussDist(self.logits.reshape(T, N, self.logits.shape[-1]),
+                           self.smoothness, self.centers, self.bounds)
+
+
+@dataclass
+class HLGaussTwoPartDist:
+    """A fine small-range and a coarse large-range HL-Gauss distribution,
+    summed: the target splits into its remainder in (-2, 2) and the rest."""
+
+    small_dist: HLGaussDist
+    large_dist: HLGaussDist
+
+    def mean(self):
+        return self.small_dist.mean() + self.large_dist.mean()
+
+    def loss(self, targets):
+        # Floored modulo by 2 with the target's sign (JAX's %), not fmod.
+        small_tgt = torch.remainder(targets,
+                                    torch.where(targets >= 0, 2.0, -2.0))
+        large_tgt = targets - small_tgt
+        return self.small_dist.loss(small_tgt) + self.large_dist.loss(
+            large_tgt)
+
+    def merge_time(self, T: int, N: int) -> "HLGaussTwoPartDist":
+        return HLGaussTwoPartDist(self.small_dist.merge_time(T, N),
+                                  self.large_dist.merge_time(T, N))

@@ -5,8 +5,9 @@
 - ``EMANormalizer``: EMA of per-feature mean and variance. Batches reduce to
   a (mean, var) pair with Chan's weighted merge, then fold into the EMA.
   Estimates are float32 whatever the data dtype; ``normalize`` casts to the
-  compute dtype. (Value normalization, which needs ``invert``, is not
-  ported yet.)
+  compute dtype and ``invert`` returns float32 (the values that enter
+  GAE). ``normalize_and_update_estimates`` is the value normalizer's step:
+  fold one batch in, then normalize it with the new estimates.
 
 Estimates are plain dicts of tensors; every function returns new tensors.
 """
@@ -55,7 +56,7 @@ class EMAEstimate:
 
 @dataclass(frozen=True)
 class EMANormalizer:
-    """EMA mean/sigma normalizer for observations."""
+    """EMA mean/sigma normalizer for observations and values."""
 
     decay: float
     norm_dtype: torch.dtype
@@ -77,6 +78,9 @@ class EMANormalizer:
         x = _as_float(x)
         out = (x - est["mu"].to(x.dtype)) * est["inv_sigma"].to(x.dtype)
         return out.to(self.norm_dtype)
+
+    def invert(self, est, x):
+        return x.to(_F32) * est["sigma"] + est["mu"]
 
     def init_input_stats(self, est):
         return torch.zeros_like(est["mu"]), torch.zeros_like(est["mu"])
@@ -133,3 +137,10 @@ class EMANormalizer:
             sigma_sq_biased=new_sigma_sq_biased,
             N=new_n,
         )
+
+    def normalize_and_update_estimates(self, est, inputs):
+        """(new estimates, ``inputs`` normalized by them)."""
+        stats = self.update_input_stats(self.init_input_stats(est), 0,
+                                        inputs)
+        est = self.update_estimates(est, stats)
+        return est, self.normalize(est, inputs)

@@ -1,12 +1,21 @@
 """PPO: clipped surrogate over collected rollouts (JAX: ppo.py).
 
-The slice ports uniform shuffled minibatches, the clipped surrogate per
-action head, the L2 value loss on unnormalized values or, with
-``dreamer_v3_critic``, the two-hot cross entropy of the critic's
-distribution, the entropy bonus, and the post-step weight-norm projection
-and LayerNorm renormalization. The port has no value clipping, huber loss
-or value normalization, which the JAX package forbids beside a
-distributional critic, so that combination cannot be configured.
+The port has uniform shuffled minibatches and the clipped surrogate per
+action head. The surrogate scores GAE advantages or, with
+``compute_advantages=False``, the returns, each z-scored per minibatch
+unless its flag is off. The critic loss is one of:
+- the two-hot cross entropy of ``dreamer_v3_critic``'s distribution;
+- the HL-Gauss cross entropy of ``hlgauss_critic``'s distribution;
+- for a scalar critic, the L2 loss (``optax.l2_loss``) or, with
+  ``huber_value_loss``, the Huber loss (``optax.huber_loss``, delta 1).
+  With ``normalize_values`` the critic predicts returns normalized by the
+  train state's EMA normalizer, which each minibatch updates. With
+  ``clip_value_loss`` the prediction is clipped to ``clip_coef`` around the
+  rollout's, in normalized space.
+The distributional critics refuse clipping, the Huber loss and value
+normalization, as the JAX package does. The entropy bonus weighs each
+action key by ``entropy_key_weights`` (default 1). After each step come the
+weight-norm projection and the LayerNorm renormalization.
 
 The optimizer is the JAX package's learning-rate-free chain,
 ``optax.clip_by_global_norm`` then ``optax.scale_by_adam``, written out in
@@ -18,7 +27,7 @@ norm, which optax does not); the step is then scaled by the live
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -40,6 +49,11 @@ class PPOConfig(AlgoConfig):
     value_loss_coef: float
     entropy_coef: float
     max_grad_norm: float
+    clip_value_loss: bool = False
+    huber_value_loss: bool = False
+    # Static per-action-key weights on the entropy bonus (missing keys
+    # weigh 1).
+    entropy_key_weights: Optional[Dict[str, float]] = None
 
     def name(self):
         return "ppo"
@@ -102,8 +116,18 @@ class ClipAdam:
 
 class PPO(AlgoBase):
     def init_hyperparams(self, cfg: TrainConfig) -> PPOHyperParams:
+        if cfg.dreamer_v3_critic or cfg.hlgauss_critic:
+            for option in ("clip_value_loss", "huber_value_loss"):
+                if getattr(cfg.algo, option):
+                    raise ValueError(f"{option} needs a scalar critic; "
+                                     "the distributional critics refuse it")
+            if cfg.normalize_values:
+                raise ValueError("normalize_values needs a scalar critic; "
+                                 "the distributional critics refuse it")
         return PPOHyperParams(
             lr=cfg.lr, gamma=cfg.gamma, gae_lambda=cfg.gae_lambda,
+            normalize_values=cfg.normalize_values,
+            value_normalizer_decay=cfg.value_normalizer_decay,
             clip_coef=cfg.algo.clip_coef,
             value_loss_coef=cfg.algo.value_loss_coef,
             entropy_coef=cfg.algo.entropy_coef,
@@ -136,7 +160,14 @@ def _ppo_update(cfg: TrainConfig, mb, policy_state, train_state,
 
     fwd = actor_critic.update(mb["rnn_start_states"], mb["dones"],
                               mb["actions"], mb["obs"])
-    advantages = zscore_data(mb["advantages"].to(_F32))
+    if cfg.compute_advantages:
+        advantages = mb["advantages"].to(_F32)
+        if cfg.normalize_advantages:
+            advantages = zscore_data(advantages)
+    else:
+        advantages = mb["returns"].to(_F32)
+        if cfg.normalize_returns:
+            advantages = zscore_data(advantages)
 
     ratios, action_objs = {}, {}
     for k, new_lp in fwd["log_probs"].items():
@@ -146,19 +177,15 @@ def _ppo_update(cfg: TrainConfig, mb, policy_state, train_state,
         action_objs[k] = torch.minimum(advantages * ratio,
                                        advantages * clipped)
 
-    if cfg.dreamer_v3_critic:
-        dist = fwd["critic"]
-        value_losses = dist.two_hot_cross_entropy_loss(mb["returns"])
-        value_errs = dist.mean() - mb["returns"]
-    else:
-        new_values = fwd["critic"]
-        value_errs = new_values - mb["returns"]
-        value_losses = 0.5 * (new_values - mb["returns"]) ** 2
+    value_losses, value_errs, new_value_norm_state = _value_loss(
+        cfg, mb, fwd["critic"], train_state)
 
+    key_weights = cfg.algo.entropy_key_weights or {}
     action_obj_avg = sum(o.to(_F32).mean() for o in action_objs.values())
     value_loss = value_losses.to(_F32).mean()
     entropy_avg = hp.entropy_coef * sum(
-        e.to(_F32).mean() for e in fwd["entropies"].values())
+        key_weights.get(k, 1.0) * e.to(_F32).mean()
+        for k, e in fwd["entropies"].items())
     loss = -action_obj_avg + hp.value_loss_coef * value_loss - entropy_avg
 
     grads = torch.autograd.grad(loss, list(params.values()),
@@ -177,6 +204,7 @@ def _ppo_update(cfg: TrainConfig, mb, policy_state, train_state,
                 new = init_norm * new / torch.linalg.vector_norm(new)
             p.copy_(new)
         _renorm_layernorms(actor_critic)
+        train_state.value_normalizer_state = new_value_norm_state
 
         metrics.record({
             "Loss": loss.detach().reshape(1),
@@ -190,6 +218,50 @@ def _ppo_update(cfg: TrainConfig, mb, policy_state, train_state,
                                  .mean() for r in ratios.values()])
     return {"max_abs_ratio_dev": dev.max(), "clip_fraction": clip_frac.mean(),
             "loss": loss.detach()}
+
+
+def _value_loss(cfg: TrainConfig, mb, critic_out, train_state):
+    """(per-element value losses, value errors in return units, the value
+    normalizer's new state or None)."""
+    if cfg.dreamer_v3_critic or cfg.hlgauss_critic:
+        value_losses = (critic_out.two_hot_cross_entropy_loss(mb["returns"])
+                        if cfg.dreamer_v3_critic
+                        else critic_out.loss(mb["returns"]))
+        return value_losses, critic_out.mean() - mb["returns"], None
+
+    value_norm = train_state.value_normalizer
+    norm_state = train_state.value_normalizer_state
+    hp = train_state.hyper_params
+    new_values_norm = critic_out
+    if value_norm is None:
+        value_errs = new_values_norm - mb["returns"]
+    else:
+        value_errs = (value_norm.invert(norm_state, new_values_norm)
+                      - mb["returns"])
+
+    if cfg.algo.clip_value_loss:
+        old_values_norm = mb["values"]
+        new_values_norm = torch.minimum(
+            torch.maximum(new_values_norm, old_values_norm - hp.clip_coef),
+            old_values_norm + hp.clip_coef)
+
+    if value_norm is None:
+        normalized_returns, new_norm_state = mb["returns"], None
+    else:
+        with torch.no_grad():
+            new_norm_state, normalized_returns = \
+                value_norm.normalize_and_update_estimates(norm_state,
+                                                          mb["returns"])
+
+    errors = new_values_norm - normalized_returns
+    if cfg.algo.huber_value_loss:
+        # optax.huber_loss with delta = 1.
+        abs_errors = errors.abs()
+        quadratic = torch.minimum(abs_errors, torch.ones_like(abs_errors))
+        value_losses = 0.5 * quadratic ** 2 + (abs_errors - quadratic)
+    else:
+        value_losses = 0.5 * errors ** 2  # optax.l2_loss
+    return value_losses, value_errs, new_norm_state
 
 
 def _renorm_layernorms(module):

@@ -20,7 +20,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from .config import DiscreteActionsConfig, TrainConfig
-from .ops.cuda.gae import compute_advantages
+from .ops.gae import compute_advantages, compute_returns
 from .ops.metrics import Metric, TrainingMetrics
 from .utils import tree_map, tree_stack
 
@@ -202,13 +202,16 @@ class RolloutManager:
                                 // train_cfg.num_bptt_chunks)
         self._gamma = train_cfg.gamma
         self._gae_lambda = train_cfg.gae_lambda
-        self._critic_outputs_distribution = train_cfg.dreamer_v3_critic
+        self._use_advantages = train_cfg.compute_advantages
+        self._critic_outputs_distribution = (
+            train_cfg.dreamer_v3_critic or train_cfg.hlgauss_critic)
 
     def add_metrics(self, metrics: Dict[str, Metric]):
-        return dict(metrics, **{
-            name: Metric.init(True)
-            for name in ("Rewards", "Est Returns", "Env Returns", "Values",
-                         "Bootstrap Values", "Advantages")})
+        names = ["Rewards", "Est Returns", "Env Returns", "Values",
+                 "Bootstrap Values"]
+        if self._use_advantages:
+            names.append("Advantages")
+        return dict(metrics, **{name: Metric.init(True) for name in names})
 
     def _compute_value_estimate(self, critic_out):
         if self._critic_outputs_distribution:
@@ -216,11 +219,12 @@ class RolloutManager:
                 # .mean() on a plain tensor would silently collapse the
                 # batch axis.
                 raise TypeError(
-                    "TrainConfig.dreamer_v3_critic is enabled, but the "
-                    "model's critic returned a plain tensor (a scalar critic "
-                    "such as DenseLayerCritic). Either set "
-                    "dreamer_v3_critic=False in TrainConfig or use a "
-                    "distributional critic (DreamerV3Critic).")
+                    "TrainConfig.dreamer_v3_critic/hlgauss_critic is "
+                    "enabled, but the model's critic returned a plain "
+                    "tensor (a scalar critic such as DenseLayerCritic). "
+                    "Either set dreamer_v3_critic=False in TrainConfig or "
+                    "use a distributional critic (DreamerV3Critic, "
+                    "HLGaussCritic).")
             return critic_out.mean()
         return critic_out
 
@@ -231,14 +235,15 @@ class RolloutManager:
         ``rollout_state``, ``metrics`` and ``train_state_mgr.user_state``
         in place."""
         rollout_data, obs_stats, user_state = self._collect_impl(
-            train_state_mgr.policy_states, train_state_mgr.user_state,
-            rollout_state, metrics, user_start_rollouts_hook,
-            user_finish_rollouts_hook, user_metrics_hook)
+            train_state_mgr.policy_states, train_state_mgr.train_states,
+            train_state_mgr.user_state, rollout_state, metrics,
+            user_start_rollouts_hook, user_finish_rollouts_hook,
+            user_metrics_hook)
         train_state_mgr.user_state = user_state
         return rollout_data, obs_stats
 
-    def _collect_impl(self, policy_state, user_state, rollout_state,
-                      metrics, user_start_rollouts_hook,
+    def _collect_impl(self, policy_state, train_state, user_state,
+                      rollout_state, metrics, user_start_rollouts_hook,
                       user_finish_rollouts_hook, user_metrics_hook):
         rollout_state, user_state = user_start_rollouts_hook(
             rollout_state, user_state)
@@ -292,6 +297,7 @@ class RolloutManager:
         bootstrap_values = self._bootstrap_values(policy_state,
                                                   rollout_state)
         rollout_data, user_state = self._finalize_rollouts(
+            train_state.value_normalizer, train_state.value_normalizer_state,
             store, rnn_start_states, bootstrap_values, metrics, user_state,
             user_finish_rollouts_hook, user_metrics_hook)
         return rollout_data, cb_state["obs_stats"], user_state
@@ -305,19 +311,35 @@ class RolloutManager:
                 rollout_state.rnn_states, preprocessed)
         return self._compute_value_estimate(out["critic"]).unsqueeze(0)
 
-    def _finalize_rollouts(self, rollouts, rnn_start_states,
-                           bootstrap_values, metrics, user_state,
-                           user_finish_rollouts_hook, user_metrics_hook):
-        values = rollouts["values"]
+    def _finalize_rollouts(self, value_normalizer, value_normalizer_state,
+                           rollouts, rnn_start_states, bootstrap_values,
+                           metrics, user_state, user_finish_rollouts_hook,
+                           user_metrics_hook):
+        # The store keeps the critic's own (normalized) outputs, which the
+        # clipped value loss compares against; GAE takes them inverted.
+        if value_normalizer is None:
+            values = rollouts["values"]
+            unnormalized_bootstrap = bootstrap_values
+        else:
+            values = value_normalizer.invert(value_normalizer_state,
+                                             rollouts["values"])
+            unnormalized_bootstrap = value_normalizer.invert(
+                value_normalizer_state, bootstrap_values)
         rollouts, user_state = user_finish_rollouts_hook(
-            rollouts, bootstrap_values, values, bootstrap_values, user_state)
+            rollouts, bootstrap_values, values, unnormalized_bootstrap,
+            user_state)
 
-        advantages = compute_advantages(
-            self._gamma, self._gae_lambda, rollouts["rewards"], values,
-            rollouts["dones"], bootstrap_values)
-        rollouts = dict(rollouts,
-                        advantages=advantages,
-                        returns=advantages + values)
+        if self._use_advantages:
+            advantages = compute_advantages(
+                self._gamma, self._gae_lambda, rollouts["rewards"], values,
+                rollouts["dones"], unnormalized_bootstrap)
+            rollouts = dict(rollouts,
+                            advantages=advantages,
+                            returns=advantages + values)
+        else:
+            rollouts = dict(rollouts, returns=compute_returns(
+                self._gamma, rollouts["rewards"], rollouts["dones"],
+                unnormalized_bootstrap))
 
         # [C, T/C, P, B, ...] -> [P, B*C, T/C, ...], rows b-major.
         def reorder_seq_data(x):
@@ -336,9 +358,10 @@ class RolloutManager:
             "Rewards": rollouts["rewards"],
             "Values": reorder_seq_data(values),
             "Est Returns": rollouts["returns"],
-            "Bootstrap Values": bootstrap_values,
-            "Advantages": rollouts["advantages"],
+            "Bootstrap Values": unnormalized_bootstrap,
         })
+        if self._use_advantages:
+            metrics.record({"Advantages": rollouts["advantages"]})
         user_metrics_hook(metrics, rollouts, user_state)
         return RolloutData(dict(rollouts,
                                 rnn_start_states=rnn_start_states)), \

@@ -4,7 +4,8 @@
   observation preprocessor with its state.
 - ``PolicyTrainState``: hyperparameters, the optimizer and its state, the
   initial L2 norm of every Dense kernel outside the actor and critic heads
-  (for the weight-norm projection), and the update RNG.
+  (for the weight-norm projection), the value normalizer and its state
+  (``None`` unless ``TrainConfig.normalize_values``), and the update RNG.
 - ``TrainStateManager``: the policy and train state of the one train policy,
   plus the user's hook state.
 
@@ -15,7 +16,7 @@ each step, as in the JAX package.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -23,6 +24,7 @@ from .algo import AlgoBase, HyperParams
 from .config import TrainConfig
 from .models.actor_critic import ActorCritic
 from .observations import ObservationsPreprocess, ObservationsPreprocessNoop
+from .ops.ema import EMANormalizer
 from .policy import Policy
 
 
@@ -40,6 +42,8 @@ class PolicyTrainState:
     opt_state: Any
     initial_weight_norms: Dict[str, torch.Tensor]
     generator: torch.Generator
+    value_normalizer: Optional[EMANormalizer] = None
+    value_normalizer_state: Optional[Dict[str, torch.Tensor]] = None
 
 
 def initial_weight_norms(actor_critic) -> Dict[str, torch.Tensor]:
@@ -51,6 +55,14 @@ def initial_weight_norms(actor_critic) -> Dict[str, torch.Tensor]:
                 for name, p in actor_critic.named_parameters()
                 if name.rsplit(".", 1)[-1] == "kernel"
                 and name.split(".", 1)[0] not in ("actor", "critic")}
+
+
+def _setup_value_normalizer(hyper_params: HyperParams, device):
+    """The normalizer of a scalar critic's float32 [..., 1] values."""
+    normalizer = EMANormalizer(decay=hyper_params.value_normalizer_decay,
+                               norm_dtype=torch.float32)
+    return normalizer, normalizer.init_estimates(
+        torch.zeros((1, 1), dtype=torch.float32, device=device))
 
 
 @dataclass
@@ -72,6 +84,10 @@ class TrainStateManager:
 
         hyper_params = algo.init_hyperparams(cfg)
         tx = algo.make_optimizer(hyper_params)
+        value_norm, value_norm_state = None, None
+        if cfg.normalize_values:
+            value_norm, value_norm_state = _setup_value_normalizer(
+                hyper_params, device)
         params = {k: p.detach()
                   for k, p in actor_critic.named_parameters()}
         return TrainStateManager(
@@ -84,6 +100,8 @@ class TrainStateManager:
                 tx=tx,
                 opt_state=tx.init(params),
                 initial_weight_norms=initial_weight_norms(actor_critic),
-                generator=generator),
+                generator=generator,
+                value_normalizer=value_norm,
+                value_normalizer_state=value_norm_state),
             user_state=init_user_state_cb(),
         )

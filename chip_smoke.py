@@ -72,6 +72,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    over [-100, 100]) in the dense critic's place; both 1 warm-up update and
    3 trials of 10, with the headline's launches and a first-minibatch
    max |ratio - 1| of exactly 0;
+   the advantage side, each 1 warm-up update and 2 trials of 5:
+   headline_importance (the headline drawing 2 of its 4 minibatches by
+   trajectory importance sampling: ``lstm_sequence_fwd`` 35 and
+   ``lstm_sequence_bwd`` 2 an update, ratio exactly 0, then the path's
+   weights and draw on one more rollout: distinct, finite and positive),
+   headline_stratified (``minibatch_stratify=4``: the headline's
+   launches, ratio exactly 0, then one epoch's index stream on the card:
+   2048 rows of each block a minibatch, block-major, every sequence
+   once), mlp_filter (the headline's MLP, actor and critic without the
+   LSTM, bf16, advantage filtering over minibatches of 131072 rows:
+   ``gae`` only; the max-|advantage| estimate moved once an update),
+   mlp_fp16 (that model in float16 with the observations cast and the
+   loss scaled: ``gae`` only; the scale backed off once a non-finite step,
+   parameters finite) and headline_continuous (the headline's trunk with
+   a 2-dim continuous head over the gridworld behind an adapter: the
+   headline's launches, its rewards logged but not held to rise);
 6. flagship trainer: the repo's flagship model (EntitySelfAttentionNet
    128 -> 256 with 4 heads, LSTM 256, [5, 3] actions, DreamerV3 critic,
    bf16) at the same rollout and PPO settings over entity observations
@@ -96,8 +112,9 @@ configuration implies and that every launch of the kernels with a
 tensor-core route took it; it checks finite losses and metrics and a rising
 mean reward and a first-minibatch max |ratio - 1| below the clip
 coefficient, and prints env-steps/s (beside the headline's of the same
-run at the end), peak memory, that ratio, a synchronized collect / learn
-split and a torch.profiler breakdown of one update.
+run at the end), peak memory, that ratio, its minibatches an epoch by
+update, a synchronized collect / learn split and a torch.profiler
+breakdown of one update.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel with its launches on the main paths, error, times and bound,
@@ -261,20 +278,25 @@ def device_split(fn, calls=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            ms = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0)) / 1e3
-            split[e.key] = split.get(e.key, 0.0) + ms / calls
-    if not split:
-        raise AssertionError("the profiler recorded no device time")
-    return split
+    # A capture of a few short kernels now and then comes back without its
+    # device events (seen once in a run of this script on an H100); take
+    # it again, and fail if three captures in a row hold none.
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        split = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                ms = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0)) / 1e3
+                split[e.key] = split.get(e.key, 0.0) + ms / calls
+        if split:
+            return split
+        log(f"  (profiler capture {attempt + 1} of 3 held no device events)")
+    raise AssertionError("the profiler recorded no device time")
 
 
 def host_us(fn, calls=100):
@@ -1746,32 +1768,64 @@ def kernel_phase():
     return results
 
 
-def _small_actor_critic(dtype, hidden, seed, fused=False, gru=False):
+def _small_actor_critic(dtype, hidden, seed, fused=False, gru=False,
+                        feed_forward=False, steer=None):
     """The headline's MLP + LSTM actor-critic; ``fused`` turns on the fused
     trunk (``use_fused_step`` and ``fuse_input_proj``), ``gru`` puts a GRU
-    in the LSTM's place."""
+    in the LSTM's place, ``feed_forward`` drops the LSTM (a
+    ``BackboneEncoder`` over the MLP), and ``steer`` (a
+    ``ContinuousActionsConfig``) puts a continuous head in the discrete
+    one's place."""
     import torch
     from madrona_learn_tpu_torch.config import DiscreteActionsConfig
     from madrona_learn_tpu_torch.models import (
-        GRU, LSTM, MLP, ActorCritic, BackboneShared, DenseLayerCritic,
-        DenseLayerDiscreteActor, DictActor, RecurrentBackboneEncoder)
+        GRU, LSTM, MLP, ActorCritic, BackboneEncoder, BackboneShared,
+        DenseLayerCritic, DenseLayerDiscreteActor, DictActor,
+        RecurrentBackboneEncoder)
 
     gen = torch.Generator().manual_seed(seed)
     move = DiscreteActionsConfig(actions_num_buckets=[5])
     net = MLP(3, hidden, 2, dtype, generator=gen)
-    if gru:
-        rnn = GRU(hidden, hidden, 1, dtype, generator=gen)
+    if feed_forward:
+        encoder = BackboneEncoder(net=net)
     else:
-        rnn = LSTM(hidden, hidden, 1, dtype, generator=gen,
-                   fuse_input_proj=fused)
+        rnn = (GRU(hidden, hidden, 1, dtype, generator=gen) if gru
+               else LSTM(hidden, hidden, 1, dtype, generator=gen,
+                         fuse_input_proj=fused))
+        encoder = RecurrentBackboneEncoder(net=net, rnn=rnn,
+                                           use_fused_step=fused)
+    head = (_steer_actor(steer, hidden, dtype, gen) if steer is not None
+            else DenseLayerDiscreteActor(move, hidden, dtype, generator=gen))
     return ActorCritic(
         backbone=BackboneShared(
             prefix=lambda obs: torch.cat([obs["delta"], obs["time"]], -1),
-            encoder=RecurrentBackboneEncoder(net=net, rnn=rnn,
-                                             use_fused_step=fused)),
-        actor=DictActor({"move": DenseLayerDiscreteActor(
-            move, hidden, dtype, generator=gen)}),
+            encoder=encoder),
+        actor=DictActor({"steer" if steer is not None else "move": head}),
         critic=DenseLayerCritic(hidden, dtype, generator=gen))
+
+
+def _steer_actor(cfg, hidden, dtype, gen):
+    """The continuous head of the JAX package's
+    ``tests/test_train_variants.py``: one Dense to the raw means and stds
+    of a ``ContinuousActionsConfig``'s dimensions."""
+    import torch
+    from madrona_learn_tpu_torch.models import Dense
+    from madrona_learn_tpu_torch.ops.dists import (
+        ContinuousActionDistributions)
+
+    class SteerActor(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.Dense_0 = Dense(hidden, 2 * cfg.num_dims, dtype,
+                                 generator=gen)
+
+        def forward(self, features):
+            out = self.Dense_0(features)
+            d = cfg.num_dims
+            return ContinuousActionDistributions(
+                [cfg], out[..., None, :d], out[..., None, d:])
+
+    return SteerActor()
 
 
 # The flagship's observations (__graft_entry__.py): self [16], allies
@@ -2135,15 +2189,22 @@ CLIP_COEF = 0.2
 
 def _train_config(actions, dreamer_v3_critic, num_worlds=NUM_WORLDS,
                   algo_kwargs=None, **kwargs):
-    """The trainers' TrainConfig; ``algo_kwargs`` go to PPOConfig and the
+    """The trainers' TrainConfig; ``actions`` are the move head's buckets
+    or a dict of action configs, ``algo_kwargs`` go to PPOConfig and the
     other keywords to TrainConfig."""
     import madrona_learn_tpu_torch as mlt
 
+    algo = dict(num_epochs=1,
+                minibatch_size=NUM_BPTT_CHUNKS * num_worlds // NUM_MINIBATCHES,
+                clip_coef=CLIP_COEF, value_loss_coef=0.5, entropy_coef=0.01,
+                max_grad_norm=0.5)
+    algo.update(algo_kwargs or {})
     return mlt.TrainConfig(
         num_worlds=num_worlds,
         num_agents_per_world=1,
-        actions={"move": mlt.DiscreteActionsConfig(
-            actions_num_buckets=actions)},
+        actions=(actions if isinstance(actions, dict) else
+                 {"move": mlt.DiscreteActionsConfig(
+                     actions_num_buckets=actions)}),
         steps_per_update=STEPS_PER_UPDATE,
         num_bptt_chunks=NUM_BPTT_CHUNKS,
         lr=1e-3,
@@ -2151,15 +2212,7 @@ def _train_config(actions, dreamer_v3_critic, num_worlds=NUM_WORLDS,
         gae_lambda=0.95,
         seed=0,
         metrics_buffer_size=1,
-        algo=mlt.PPOConfig(
-            num_epochs=1,
-            minibatch_size=NUM_BPTT_CHUNKS * num_worlds // NUM_MINIBATCHES,
-            clip_coef=CLIP_COEF,
-            value_loss_coef=0.5,
-            entropy_coef=0.01,
-            max_grad_norm=0.5,
-            **(algo_kwargs or {}),
-        ),
+        algo=mlt.PPOConfig(**algo),
         dreamer_v3_critic=dreamer_v3_critic,
         **kwargs,
     )
@@ -2173,96 +2226,155 @@ def _toy_env(num_worlds=NUM_WORLDS):
         device="cuda")
 
 
-def build_headline(hooks):
+def _headline_trainer(hooks, cfg, actor_critic=None, obs_preprocess=None,
+                      sim_fns=None):
+    """``init_training`` on the card: the headline's model, obs normalizer
+    and toy gridworld unless others are given."""
     import torch
     import madrona_learn_tpu_torch as mlt
 
     dtype = torch.bfloat16
     policy = mlt.Policy(
-        actor_critic=_small_actor_critic(dtype, CHANNELS, seed=0),
-        obs_preprocess=mlt.ObservationsEMANormalizer.create(
-            decay=0.99999, dtype=dtype))
+        actor_critic=(actor_critic if actor_critic is not None
+                      else _small_actor_critic(dtype, CHANNELS, seed=0)),
+        obs_preprocess=(obs_preprocess if obs_preprocess is not None
+                        else mlt.ObservationsEMANormalizer.create(
+                            decay=0.99999, dtype=dtype)))
     return mlt.init_training(
-        "cuda", _train_config([5], dreamer_v3_critic=False), _toy_env(),
-        policy, torch.zeros((1,), dtype=torch.int32, device="cuda"),
+        "cuda", cfg, sim_fns or _toy_env(), policy,
+        torch.zeros((1,), dtype=torch.int32, device="cuda"),
         user_hooks=hooks)
+
+
+def build_headline(hooks):
+    return _headline_trainer(hooks, _train_config([5],
+                                                  dreamer_v3_critic=False))
 
 
 def build_headline_valuenorm(hooks):
     """The headline with value normalization (decay 0.99999), the clipped
     value loss and the Huber value loss."""
-    import torch
-    import madrona_learn_tpu_torch as mlt
-
-    dtype = torch.bfloat16
-    policy = mlt.Policy(
-        actor_critic=_small_actor_critic(dtype, CHANNELS, seed=0),
-        obs_preprocess=mlt.ObservationsEMANormalizer.create(
-            decay=0.99999, dtype=dtype))
-    cfg = _train_config([5], dreamer_v3_critic=False,
-                        algo_kwargs=dict(clip_value_loss=True,
-                                         huber_value_loss=True),
-                        normalize_values=True, value_normalizer_decay=0.99999)
-    return mlt.init_training(
-        "cuda", cfg, _toy_env(), policy,
-        torch.zeros((1,), dtype=torch.int32, device="cuda"),
-        user_hooks=hooks)
+    return _headline_trainer(hooks, _train_config(
+        [5], dreamer_v3_critic=False,
+        algo_kwargs=dict(clip_value_loss=True, huber_value_loss=True),
+        normalize_values=True, value_normalizer_decay=0.99999))
 
 
 def build_headline_hlgauss(hooks):
     """The headline with HLGaussCritic (127 bins over [-100, 100]) in the
     dense critic's place."""
     import torch
-    import madrona_learn_tpu_torch as mlt
     from madrona_learn_tpu_torch.models import HLGaussCritic
 
-    dtype = torch.bfloat16
-    ac = _small_actor_critic(dtype, CHANNELS, seed=0)
-    ac.critic = HLGaussCritic.create(CHANNELS, dtype)
-    policy = mlt.Policy(
-        actor_critic=ac,
-        obs_preprocess=mlt.ObservationsEMANormalizer.create(
-            decay=0.99999, dtype=dtype))
-    return mlt.init_training(
-        "cuda", _train_config([5], dreamer_v3_critic=False,
-                              hlgauss_critic=True),
-        _toy_env(), policy,
-        torch.zeros((1,), dtype=torch.int32, device="cuda"),
-        user_hooks=hooks)
+    ac = _small_actor_critic(torch.bfloat16, CHANNELS, seed=0)
+    ac.critic = HLGaussCritic.create(CHANNELS, torch.bfloat16)
+    return _headline_trainer(
+        hooks, _train_config([5], dreamer_v3_critic=False,
+                             hlgauss_critic=True), actor_critic=ac)
 
 
 def build_headline_gru(hooks):
     """The headline with GRU(256, 256, 1, bf16) in the LSTM's place."""
     import torch
-    import madrona_learn_tpu_torch as mlt
 
-    dtype = torch.bfloat16
-    policy = mlt.Policy(
-        actor_critic=_small_actor_critic(dtype, CHANNELS, seed=0, gru=True),
-        obs_preprocess=mlt.ObservationsEMANormalizer.create(
-            decay=0.99999, dtype=dtype))
-    return mlt.init_training(
-        "cuda", _train_config([5], dreamer_v3_critic=False), _toy_env(),
-        policy, torch.zeros((1,), dtype=torch.int32, device="cuda"),
-        user_hooks=hooks)
+    return _headline_trainer(
+        hooks, _train_config([5], dreamer_v3_critic=False),
+        actor_critic=_small_actor_critic(torch.bfloat16, CHANNELS, seed=0,
+                                         gru=True))
 
 
 def build_headline_fused(hooks, sim_fns=None):
     """The headline with the fused trunk, over the toy gridworld or
     ``sim_fns``."""
     import torch
+
+    return _headline_trainer(
+        hooks, _train_config([5], dreamer_v3_critic=False),
+        actor_critic=_small_actor_critic(torch.bfloat16, CHANNELS, seed=0,
+                                         fused=True), sim_fns=sim_fns)
+
+
+# The advantage side: importance sampling draws 2 of the headline's 4
+# minibatches of sequences; stratification splits the 32768 sequences
+# into 4 blocks of 8192, each minibatch taking 2048 of each; filtering
+# works on time-flattened rows, in minibatches of the headline's 8192 x 16
+# rows, so at most 4 an epoch.
+IMPORTANCE_MINIBATCHES = 2
+STRATIFY = 4
+FILTER_MINIBATCH_ROWS = NUM_WORLDS * STEPS_PER_UPDATE // NUM_MINIBATCHES
+STEER = dict(stddev_min=0.05, stddev_max=0.5, num_dims=2)
+
+
+def build_headline_importance(hooks):
+    """The headline with trajectory importance sampling."""
+    return _headline_trainer(hooks, _train_config(
+        [5], dreamer_v3_critic=False, importance_sample_trajectories=True,
+        importance_sample_num_minibatches=IMPORTANCE_MINIBATCHES))
+
+
+def build_headline_stratified(hooks):
+    """The headline with minibatches stratified over 4 blocks."""
+    return _headline_trainer(hooks, _train_config(
+        [5], dreamer_v3_critic=False, minibatch_stratify=STRATIFY))
+
+
+def build_mlp_filter(hooks):
+    """The headline's MLP, actor and critic without the LSTM
+    (``BackboneEncoder``), bf16, with advantage filtering."""
+    import torch
+
+    return _headline_trainer(
+        hooks, _train_config(
+            [5], dreamer_v3_critic=False,
+            algo_kwargs=dict(minibatch_size=FILTER_MINIBATCH_ROWS),
+            filter_advantages=True),
+        actor_critic=_small_actor_critic(torch.bfloat16, CHANNELS, seed=0,
+                                         feed_forward=True))
+
+
+def build_mlp_fp16(hooks):
+    """The headline's MLP, actor and critic without the LSTM in float16,
+    the obs cast to float16, with dynamic loss scaling."""
+    import torch
     import madrona_learn_tpu_torch as mlt
 
-    dtype = torch.bfloat16
-    policy = mlt.Policy(
-        actor_critic=_small_actor_critic(dtype, CHANNELS, seed=0, fused=True),
-        obs_preprocess=mlt.ObservationsEMANormalizer.create(
-            decay=0.99999, dtype=dtype))
-    return mlt.init_training(
-        "cuda", _train_config([5], dreamer_v3_critic=False),
-        sim_fns or _toy_env(), policy,
-        torch.zeros((1,), dtype=torch.int32, device="cuda"),
-        user_hooks=hooks)
+    return _headline_trainer(
+        hooks, _train_config([5], dreamer_v3_critic=False,
+                             compute_dtype=torch.float16),
+        actor_critic=_small_actor_critic(torch.float16, CHANNELS, seed=0,
+                                         feed_forward=True),
+        obs_preprocess=mlt.ObservationsCaster.create(dtype=torch.float16))
+
+
+def _steer_env(base):
+    """The toy gridworld behind the JAX package's continuous-action
+    adapter (tests/test_train_variants.py): a coordinate of the [B, 1, 2]
+    action past +-0.3 moves the agent along it, x first."""
+    import torch
+
+    def step_fn(step_input):
+        cont = step_input["actions"]["steer"][:, 0, :]
+        dx = torch.where(cont[:, 0].abs() > 0.3,
+                         torch.where(cont[:, 0] > 0, 3, 4), 0)
+        dy = torch.where(cont[:, 1].abs() > 0.3,
+                         torch.where(cont[:, 1] > 0, 1, 2), 0)
+        move = torch.where(dx > 0, dx, dy).to(torch.int32)[:, None]
+        return base["step"](dict(step_input, actions={"move": move}))
+
+    return {"init": base["init"], "step": step_fn}
+
+
+def build_headline_continuous(hooks):
+    """The headline's trunk and critic with a 2-dim continuous head."""
+    import torch
+    import madrona_learn_tpu_torch as mlt
+
+    steer = mlt.ContinuousActionsConfig(**STEER)
+    return _headline_trainer(
+        hooks, _train_config({"steer": steer}, dreamer_v3_critic=False),
+        actor_critic=_small_actor_critic(torch.bfloat16, CHANNELS, seed=0,
+                                         steer=steer),
+        sim_fns=_steer_env(_toy_env()))
 
 
 def build_native(hooks):
@@ -2378,11 +2490,14 @@ TC_ROUTED = ("lstm_sequence_fwd", "lstm_sequence_bwd",
 
 def trainer_phase(card, name, build, per_update, trials, timed_updates,
                   last_rewards, num_worlds=NUM_WORLDS, ratio_zero=False,
-                  final_check=None):
-    """One trainer: launch counts, finite metrics, rising reward,
-    env-steps/s, memory, the ratio at the first minibatch (exactly 0 with
-    ``ratio_zero``), the phase split and a profile; then
-    ``final_check(mgr, updates run)``, if given."""
+                  final_check=None, setting=None, rising_reward=True):
+    """One trainer: launch counts, finite metrics, rising reward (only
+    logged without ``rising_reward``), env-steps/s, memory, the ratio at
+    the first minibatch (exactly 0 with ``ratio_zero``), the minibatches
+    of every update, the phase split and a profile; then
+    ``final_check(mgr, updates run, per-update stats)``, if given.
+    ``setting`` describes the run in its first line (default: the
+    headline's bf16 and 4 minibatches)."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda import KERNELS
 
@@ -2393,18 +2508,23 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
     mgr = build(timer)
     per_update = {k.name: per_update.get(k.name, 0) for k in KERNELS}
     num_updates = 1 + trials * timed_updates
-    log(f"{name} trainer: {num_worlds} worlds, bf16, T={STEPS_PER_UPDATE} "
-        f"in {NUM_BPTT_CHUNKS} chunks, {NUM_MINIBATCHES} minibatches; "
-        f"expected launches per update {per_update}")
+    setting = setting or f"bf16, {NUM_MINIBATCHES} minibatches"
+    log(f"{name} trainer: {num_worlds} worlds, T={STEPS_PER_UPDATE} in "
+        f"{NUM_BPTT_CHUNKS} chunks, {setting}; expected launches per "
+        f"update {per_update}")
     updates_run = [0]
 
-    losses, rewards = [], []
+    losses, rewards, update_stats = [], [], []
 
     def one_update():
         mgr.update_iter()
         updates_run[0] += 1
-        losses.append(mgr.first_minibatch_stats["loss"])
+        stats = mgr.first_minibatch_stats
+        losses.append(stats["loss"])
         rewards.append(mgr.metrics.latest("Rewards").mean[0])
+        update_stats.append({k: stats[k] for k in (
+            "num_minibatches", "nonfinite_steps", "epoch_inds",
+            "traj_weights") if k in stats})
 
     for k in KERNELS:
         k.launches = 0
@@ -2475,7 +2595,12 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
     log(f"  peak device memory: {peak_gib:.2f} GiB")
     log(f"  mean reward: update 1 {reward_hist[0]:.4f}, update "
         f"{num_updates} {reward_hist[-1]:.4f}")
-    if not reward_hist[-last_rewards:].mean() > reward_hist[:3].mean():
+    log(f"  minibatches an epoch, by update: "
+        f"{[u['num_minibatches'] for u in update_stats]}")
+    if not rising_reward:
+        log(f"  mean reward by update (logged, not held to rise): "
+            f"{[round(r, 4) for r in reward_hist.tolist()]}")
+    elif not reward_hist[-last_rewards:].mean() > reward_hist[:3].mean():
         raise AssertionError(
             f"{name}: mean reward did not rise: {reward_hist.tolist()}")
 
@@ -2492,12 +2617,12 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
         f"{ {k: [round(v, 2) for v in vs] for k, vs in spans.items()} }")
     _profile_update(one_update)
     if final_check is not None:
-        final_check(mgr, updates_run[0])
+        final_check(mgr, updates_run[0], update_stats)
     return launches, dict(sps=max(sps), ratio_dev=ratio_dev,
                           clip_frac=clip_frac, peak_gib=peak_gib)
 
 
-def check_value_normalizer(mgr, updates_run):
+def check_value_normalizer(mgr, updates_run, update_stats):
     """headline_valuenorm: the value normalizer's state is finite, folded
     in once a minibatch, and moved from its initial mu = 0, sigma = 1."""
     import torch
@@ -2516,6 +2641,121 @@ def check_value_normalizer(mgr, updates_run):
     if not (bool((state["mu"] != 0).all())
             and bool((state["sigma"] != 1).all())):
         raise AssertionError(f"value normalizer did not move: {text}")
+
+
+def check_importance(mgr, updates_run, update_stats):
+    """headline_importance: every update's first epoch drew, from the
+    sequences of its own rollout, 2 minibatches of distinct sequences, and
+    every weight is finite and positive."""
+    import torch
+
+    cfg = mgr.cfg
+    num_seqs = NUM_BPTT_CHUNKS * NUM_WORLDS
+    num_sampled = IMPORTANCE_MINIBATCHES * cfg.algo.minibatch_size
+    counts = {u["num_minibatches"] for u in update_stats}
+    if counts != {IMPORTANCE_MINIBATCHES}:
+        raise AssertionError(f"importance sampling ran {counts} "
+                             f"minibatches an update")
+    for update, u in enumerate(update_stats):
+        inds, weights = u["epoch_inds"], u["traj_weights"]
+        distinct = int(torch.unique(inds).numel())
+        in_range = bool(((inds >= 0) & (inds < num_seqs)).all())
+        if inds.numel() != num_sampled or distinct != num_sampled \
+                or not in_range:
+            raise AssertionError(
+                f"update {update}: importance sampling drew {distinct} "
+                f"distinct of {inds.numel()} indices (want {num_sampled} "
+                f"in [0, {num_seqs})), in range {in_range}")
+        if weights.shape[0] != num_seqs or not (
+                bool(torch.isfinite(weights).all())
+                and bool((weights > 0).all())):
+            raise AssertionError(f"update {update}: importance weights "
+                                 f"not finite and positive")
+    last = update_stats[-1]
+    weights, drawn = last["traj_weights"], last["traj_weights"][
+        last["epoch_inds"]]
+    log(f"  importance sampling, each of {len(update_stats)} updates' first "
+        f"epoch: {num_sampled} distinct of {num_seqs} sequences; the last "
+        f"update's weights min {weights.min().item():.6g} mean "
+        f"{weights.mean().item():.6g} max {weights.max().item():.6g}, of "
+        f"the drawn min {drawn.min().item():.6g} mean "
+        f"{drawn.mean().item():.6g} max {drawn.max().item():.6g}")
+
+
+def check_stratified(mgr, updates_run, update_stats):
+    """headline_stratified: every update's first epoch (its index stream as
+    the update drew it) visits every sequence once, and every minibatch
+    takes minibatch_size / 4 rows from each of the 4 blocks, block-major."""
+    import torch
+
+    mb = mgr.cfg.algo.minibatch_size
+    num_seqs = NUM_BPTT_CHUNKS * NUM_WORLDS
+    block_ids = torch.arange(STRATIFY, device="cuda")[None, :, None]
+    for update, u in enumerate(update_stats):
+        inds = u["epoch_inds"]
+        blocks = (inds // (num_seqs // STRATIFY)).reshape(
+            num_seqs // mb, STRATIFY, mb // STRATIFY)
+        counts = torch.stack([(blocks == b).sum(dim=(1, 2))
+                              for b in range(STRATIFY)], dim=1)
+        block_major = bool((blocks == block_ids).all())
+        visits = torch.bincount(inds, minlength=num_seqs)
+        if update == 0:
+            log(f"  stratified epoch: {STRATIFY} blocks of "
+                f"{num_seqs // STRATIFY}; rows a block by minibatch "
+                f"{counts.tolist()}, block-major {block_major}, sequences "
+                f"visited once {int((visits == 1).sum())} of {num_seqs}")
+        if not block_major or not bool((counts == mb // STRATIFY).all()):
+            raise AssertionError(f"update {update}: stratified minibatches,"
+                                 f" rows a block {counts.tolist()}, "
+                                 f"block-major {block_major}")
+        if visits.numel() != num_seqs or not bool((visits == 1).all()):
+            raise AssertionError(f"update {update}: the stratified epoch "
+                                 f"did not visit every sequence once")
+    log(f"  all {len(update_stats)} updates' first epochs stratified so")
+
+
+def check_filter(mgr, updates_run, update_stats):
+    """mlp_filter: the max-|advantage| EMA moved once an update and every
+    update ran 1 to 4 minibatches."""
+    import torch
+
+    est = mgr.state.train_states.max_advantage_est_state
+    counts = [u["num_minibatches"] for u in update_stats]
+    log(f"  max-|advantage| estimate after {updates_run} updates: mu "
+        f"{est['mu'].item():.6g}, mu_biased {est['mu_biased'].item():.6g}, "
+        f"N {int(est['N'])}")
+    if int(est["N"]) != updates_run:
+        raise AssertionError(f"max-|advantage| estimate N = "
+                             f"{int(est['N'])}, expected {updates_run}")
+    if not (bool(torch.isfinite(est["mu"]).all())
+            and est["mu"].item() > 0):
+        raise AssertionError(f"max-|advantage| estimate mu = {est['mu']}")
+    if not all(1 <= c <= NUM_MINIBATCHES for c in counts):
+        raise AssertionError(f"filtered minibatches by update: {counts}")
+
+
+def check_scaler(mgr, updates_run, update_stats):
+    """mlp_fp16: the loss scaler's state, the non-finite steps counted on
+    the card, and finite float32 parameters. Below the growth interval the
+    scale only backs off, once a non-finite step."""
+    import torch
+
+    ts = mgr.state.train_states
+    state = ts.scaler_state
+    nonfinite = sum(int(u["nonfinite_steps"]) for u in update_stats)
+    steps = sum(u["num_minibatches"] for u in update_stats)
+    scale, fin_steps = state["scale"].item(), int(state["fin_steps"])
+    log(f"  loss scaler after {steps} steps: scale {scale}, fin_steps "
+        f"{fin_steps}, non-finite steps {nonfinite}")
+    for name, p in mgr.state.policy_states.actor_critic.named_parameters():
+        if p.dtype != torch.float32 or not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"parameter {name} ({p.dtype}) is not "
+                                 f"finite float32")
+    # The scale starts at flax's 2^16.
+    if (steps < ts.scaler.growth_interval
+            and scale != 2.0 ** 16 * 0.5 ** nonfinite):
+        raise AssertionError(f"scale {scale} after {nonfinite} non-finite "
+                             f"steps of {steps}")
 
 
 def two_hot_loss_timing(card):
@@ -2688,6 +2928,39 @@ def main():
         "headline_hlgauss": trainer_phase(
             card, "headline_hlgauss", build_headline_hlgauss, lstm,
             trials=3, timed_updates=10, last_rewards=10, ratio_zero=True),
+        # The advantage side of PPO: how minibatches are chosen and
+        # weighted, float16 loss scaling and continuous actions. The MLP
+        # phases run no kernel but gae.
+        "headline_importance": trainer_phase(
+            card, "headline_importance", build_headline_importance,
+            dict(lstm, lstm_sequence_fwd=STEPS_PER_UPDATE + 1
+                 + IMPORTANCE_MINIBATCHES,
+                 lstm_sequence_bwd=IMPORTANCE_MINIBATCHES),
+            trials=2, timed_updates=5, last_rewards=5, ratio_zero=True,
+            final_check=check_importance,
+            setting=f"bf16, {IMPORTANCE_MINIBATCHES} importance-sampled "
+                    f"minibatches"),
+        "headline_stratified": trainer_phase(
+            card, "headline_stratified", build_headline_stratified, lstm,
+            trials=2, timed_updates=5, last_rewards=5, ratio_zero=True,
+            final_check=check_stratified,
+            setting=f"bf16, {NUM_MINIBATCHES} minibatches stratified over "
+                    f"{STRATIFY} blocks"),
+        "mlp_filter": trainer_phase(
+            card, "mlp_filter", build_mlp_filter, {"gae": 1}, trials=2,
+            timed_updates=5, last_rewards=5, final_check=check_filter,
+            setting=f"bf16 MLP, advantage-filtered minibatches of "
+                    f"{FILTER_MINIBATCH_ROWS} rows"),
+        "mlp_fp16": trainer_phase(
+            card, "mlp_fp16", build_mlp_fp16, {"gae": 1}, trials=2,
+            timed_updates=5, last_rewards=5, final_check=check_scaler,
+            setting=f"float16 MLP with loss scaling, {NUM_MINIBATCHES} "
+                    f"minibatches"),
+        "headline_continuous": trainer_phase(
+            card, "headline_continuous", build_headline_continuous, lstm,
+            trials=2, timed_updates=5, last_rewards=5, rising_reward=False,
+            setting=f"bf16, 2-dim continuous actions, {NUM_MINIBATCHES} "
+                    f"minibatches"),
         "flagship": trainer_phase(card, "flagship", build_flagship,
                                   dict(lstm, mha=steps), trials=3,
                                   timed_updates=5, last_rewards=5),

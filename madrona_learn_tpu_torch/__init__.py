@@ -9,14 +9,16 @@ CUDA for Hopper (``csrc/``), each with a plain PyTorch twin that CPU tensors
 take. Module names mirror the JAX package's, which stays the reference.
 """
 
-from .config import DiscreteActionsConfig, TrainConfig
-from .observations import ObservationsEMANormalizer
+from .config import ContinuousActionsConfig, DiscreteActionsConfig, TrainConfig
+from .observations import ObservationsCaster, ObservationsEMANormalizer
 from .policy import Policy
 from .ppo import PPOConfig
 from .train import TrainHooks, TrainingManager, init_training
 
 __all__ = [
+    "ContinuousActionsConfig",
     "DiscreteActionsConfig",
+    "ObservationsCaster",
     "ObservationsEMANormalizer",
     "PPOConfig",
     "Policy",

@@ -17,6 +17,7 @@ class HyperParams:
     gae_lambda: float
     normalize_values: bool
     value_normalizer_decay: float
+    max_advantage_est_decay: float
 
 
 class AlgoBase:

@@ -16,8 +16,11 @@
 - ``obs_preprocess_state``: the EMA normalizer state of
   ``ObservationsEMANormalizer`` (per obs key: mu, inv_sigma, sigma,
   mu_biased, sigma_sq_biased, N) -> the same dict of numpy arrays.
-- ``ema_state``: one EMA normalizer state (the value normalizer's) -> a
-  dict of numpy arrays.
+- ``ema_state``: one EMA state (the value normalizer's, or the
+  max-advantage estimate's mu, mu_biased and N) -> a dict of numpy arrays.
+- ``dynamic_scale_state``: flax's ``DynamicScale`` (the float16 loss
+  scaler) -> ``{"scale": float32, "fin_steps": int32}`` arrays, the port's
+  ``ops/dynamic_scale.py`` state.
 - ``policy_slice``: strip the JAX package's leading policy axis.
 
 The caller turns the arrays into tensors (``torch.from_numpy``).
@@ -65,8 +68,14 @@ def actor_critic_state_dict(params) -> Dict[str, np.ndarray]:
 
 
 def ema_state(est) -> Dict[str, np.ndarray]:
-    """One EMA normalizer state -> numpy arrays."""
+    """One EMA state -> numpy arrays."""
     return {name: np.array(value) for name, value in est.items()}
+
+
+def dynamic_scale_state(scaler) -> Dict[str, np.ndarray]:
+    """flax ``DynamicScale`` -> the port's loss-scaler state arrays."""
+    return {"scale": np.array(scaler.scale, dtype=np.float32),
+            "fin_steps": np.array(scaler.fin_steps, dtype=np.int32)}
 
 
 def obs_preprocess_state(state) -> Dict[str, Any]:

@@ -1,19 +1,23 @@
 """Configuration dataclasses of the port (JAX: madrona_learn_tpu/config.py).
 
-The subset the single-policy PPO path needs: the discrete action space and
-``TrainConfig``; mappings are plain dicts. The compute dtype lives on the
-model modules. The critic options (``dreamer_v3_critic``, on by default as
-in the JAX package, and ``hlgauss_critic``), the advantage / return targets
-and their z-scoring, and value normalization are ported with the JAX
-package's defaults. The PBT, mesh, advantage-filtering, importance-sampling
-and minibatch-mode options of the JAX config are not ported yet, so they
-are absent rather than ignored.
+The subset the single-policy PPO path needs: the discrete and continuous
+action spaces and ``TrainConfig``; mappings are plain dicts. The critic
+options (``dreamer_v3_critic``, on by default as in the JAX package, and
+``hlgauss_critic``), the advantage / return targets and their z-scoring,
+value normalization, advantage filtering, trajectory importance sampling,
+stratified minibatches and ``compute_dtype`` (float16 turns on dynamic loss
+scaling; the model modules carry their own compute dtype) are ported with
+the JAX package's defaults. The PBT and mesh options of the JAX config are
+not ported yet, so they are absent rather than ignored; with no mesh,
+``minibatch_stratify=None`` means one block.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional, Union
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -21,6 +25,18 @@ class DiscreteActionsConfig:
     """Multi-head categorical action space."""
 
     actions_num_buckets: List[int]
+
+
+@dataclass(frozen=True)
+class ContinuousActionsConfig:
+    """Tanh-mean / sigmoid-ranged-std normal action space."""
+
+    stddev_min: float
+    stddev_max: float
+    num_dims: int
+
+
+ActionsConfig = Union[DiscreteActionsConfig, ContinuousActionsConfig]
 
 
 class AlgoConfig:
@@ -39,7 +55,7 @@ class TrainConfig:
 
     num_worlds: int
     num_agents_per_world: int
-    actions: Dict[str, DiscreteActionsConfig]
+    actions: Dict[str, ActionsConfig]
     steps_per_update: int
     lr: float
     algo: AlgoConfig
@@ -65,6 +81,21 @@ class TrainConfig:
     # and variance; the rollout inverts its outputs before GAE.
     normalize_values: bool = False
     value_normalizer_decay: float = 0.99999
+    # Train only on the rows (time flattened) whose |advantage| is at least
+    # 1% of an EMA of the largest |advantage|; the minibatch count follows.
+    # The rows have no recurrent state, so this needs a feed-forward tower.
+    filter_advantages: bool = False
+    max_advantage_est_decay: float = 0.99999
+    # Sample importance_sample_num_minibatches minibatches of sequences
+    # by softmax(mean |advantage| + mean |value - return|), each weighted
+    # by (1 / num_sequences) / its probability.
+    importance_sample_trajectories: bool = False
+    importance_sample_num_minibatches: int = 0
+    # Uniform minibatches from this many equal contiguous blocks of the
+    # sequences, each shuffled on its own every epoch; None is one block.
+    minibatch_stratify: Optional[int] = None
+    # float16 scales the loss dynamically (ops/dynamic_scale.py).
+    compute_dtype: torch.dtype = torch.float32
 
     @property
     def sim_batch_size(self) -> int:

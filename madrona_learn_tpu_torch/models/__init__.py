@@ -1,6 +1,11 @@
 """Model building blocks of the port (JAX: madrona_learn_tpu/models)."""
 
-from .actor_critic import ActorCritic, BackboneShared, RecurrentBackboneEncoder
+from .actor_critic import (
+    ActorCritic,
+    BackboneEncoder,
+    BackboneShared,
+    RecurrentBackboneEncoder,
+)
 from .attention import EntitySelfAttentionNet, SelfAttention
 from .common import MLP, Dense, LayerNorm
 from .critics import (
@@ -18,6 +23,7 @@ from .lstm import LSTM
 
 __all__ = [
     "ActorCritic",
+    "BackboneEncoder",
     "BackboneShared",
     "Dense",
     "DenseLayerCritic",

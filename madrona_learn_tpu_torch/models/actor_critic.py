@@ -4,7 +4,8 @@
 ``critic_only`` and ``update`` (sequence forward that scores stored
 actions) over a backbone. The slice ports ``BackboneShared`` (one tower
 feeds both heads) with a ``RecurrentBackboneEncoder`` tower (net -> rnn,
-with a time-axis ``sequence`` path for BPTT). Recurrent-state init and
+with a time-axis ``sequence`` path for BPTT) or a feed-forward
+``BackboneEncoder`` tower, whose recurrent state is the empty tuple. Recurrent-state init and
 clear live on the modules so the rollout engine owns state placement. The
 obs dict's leaves may carry entity axes ([N, E, F], [T, N, E, F] in the
 update pass); the time axis is always the leading one. The critic returns a
@@ -37,6 +38,26 @@ def _merge_time_critic(critic_out, T, N):
     if isinstance(critic_out, torch.Tensor):
         return critic_out.reshape(T, N, *critic_out.shape[1:])
     return critic_out.merge_time(T, N)
+
+
+class BackboneEncoder(nn.Module):
+    """Feed-forward tower; recurrent state is the empty tuple."""
+
+    def __init__(self, net: nn.Module):
+        super().__init__()
+        self.net = net
+
+    def init_recurrent_state(self, N, device=None):
+        return ()
+
+    def clear_recurrent_state(self, recurrent_states, should_clear):
+        return ()
+
+    def forward(self, rnn_states_in, inputs):
+        return self.net(inputs), ()
+
+    def sequence(self, rnn_start_states, sequence_ends, flattened_inputs):
+        return self.net(flattened_inputs)
 
 
 class RecurrentBackboneEncoder(nn.Module):

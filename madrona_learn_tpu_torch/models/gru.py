@@ -64,6 +64,11 @@ class GRU(nn.Module):
                  num_layers: int, dtype,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if dtype == torch.float16:
+            # The GRU kernels take float32 or bfloat16; float16 has no
+            # route here (a float16 trainer takes a BackboneEncoder).
+            raise ValueError(f"GRU: compute dtype {dtype} is not "
+                             "supported; use float32 or bfloat16")
         self.num_hidden_channels = num_hidden_channels
         self.num_layers = num_layers
         self.dtype = dtype

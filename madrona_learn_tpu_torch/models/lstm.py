@@ -75,6 +75,11 @@ class LSTM(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  fuse_input_proj: bool = False):
         super().__init__()
+        if dtype == torch.float16:
+            # The LSTM kernels take float32 or bfloat16; float16 has no
+            # route here (a float16 trainer takes a BackboneEncoder).
+            raise ValueError(f"LSTM: compute dtype {dtype} is not "
+                             "supported; use float32 or bfloat16")
         self.num_hidden_channels = num_hidden_channels
         self.num_layers = num_layers
         self.dtype = dtype

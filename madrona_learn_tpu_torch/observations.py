@@ -91,6 +91,20 @@ class ObservationsEMANormalizer(ObservationsPreprocess):
 
 
 @dataclass(frozen=True)
+class ObservationsCaster(ObservationsPreprocess):
+    """Cast every obs entry to one dtype (e.g. float32 obs -> float16)."""
+
+    dtype: torch.dtype
+
+    @staticmethod
+    def create(dtype: torch.dtype):
+        return ObservationsCaster(dtype=dtype)
+
+    def _ops(self, ob_name):
+        return KeyOps(preprocess=lambda state, ob: ob.to(self.dtype))
+
+
+@dataclass(frozen=True)
 class ObservationsPreprocessNoop(ObservationsPreprocess):
     @staticmethod
     def create():

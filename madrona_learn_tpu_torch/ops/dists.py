@@ -1,8 +1,10 @@
 """Action and return distributions (JAX: madrona_learn_tpu/ops/dists.py).
 
 ``DiscreteActionDistributions`` is a multi-head categorical over one
-concatenated logits tensor; ``DictActionDistributions`` maps action names to
-such heads, the layout the simulator contract uses.
+concatenated logits tensor; ``ContinuousActionDistributions`` independent
+normal heads with a tanh mean and a sigmoid-ranged stddev;
+``DictActionDistributions`` maps action names to such heads, the layout the
+simulator contract uses.
 ``SymExpTwoHotDistribution`` is the DreamerV3 critic's two-hot categorical
 over symexp-spaced bins; ``HLGaussDist`` is the HL-Gauss critic's
 categorical over fixed bins, trained on Gaussian-smoothed labels, and
@@ -15,9 +17,11 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import torch
+
+from ..config import ContinuousActionsConfig
 
 from ..utils import symexp
 
@@ -71,11 +75,66 @@ class DiscreteActionDistributions:
         return torch.cat(log_probs, dim=-1), torch.cat(entropies, dim=-1)
 
 
+def normal_noise(shape, generator: Optional[torch.Generator], device):
+    """Standard normal f32 noise of ``shape``, drawn from ``generator``."""
+    return torch.randn(shape, dtype=_F32, device=device, generator=generator)
+
+
+def _normal_log_prob(x, mean, std):
+    """jax.scipy.stats.norm.logpdf's expression."""
+    var = torch.square(std)
+    return (torch.log(2 * math.pi * var)
+            + torch.square(x - mean) / var) / -2
+
+
+@dataclass
+class ContinuousActionDistributions:
+    """Independent normal heads: ``means`` and ``stds`` [..., heads, dims]
+    hold the raw outputs, the mean is their tanh and the stddev
+    ``(max - min) * sigmoid(raw + 2) + min``. Actions are float32
+    [..., heads, dims]."""
+
+    cfgs: List[ContinuousActionsConfig]
+    means: torch.Tensor
+    stds: torch.Tensor
+
+    def _head_params(self):
+        for i, cfg in enumerate(self.cfgs):
+            mean = torch.tanh(self.means[..., i:i + 1, :].to(_F32))
+            std = ((cfg.stddev_max - cfg.stddev_min)
+                   * torch.sigmoid(self.stds[..., i:i + 1, :].to(_F32) + 2.0)
+                   + cfg.stddev_min)
+            yield mean, std
+
+    def sample(self, generator):
+        actions, log_probs = [], []
+        for mean, std in self._head_params():
+            action = mean + std * normal_noise(mean.shape, generator,
+                                               mean.device)
+            actions.append(action)
+            log_probs.append(_normal_log_prob(action, mean, std))
+        return torch.cat(actions, dim=-2), torch.cat(log_probs, dim=-2)
+
+    def best(self):
+        return torch.cat([mean for mean, _ in self._head_params()], dim=-2)
+
+    def action_stats(self, all_actions):
+        """Log-probs of stored actions and the closed-form entropies."""
+        log_probs, entropies = [], []
+        for i, (mean, std) in enumerate(self._head_params()):
+            action = all_actions[..., i:i + 1, :]
+            log_probs.append(_normal_log_prob(action, mean, std))
+            entropies.append(0.5 * torch.log(2 * math.pi * torch.square(std))
+                             + 0.5)
+        return torch.cat(log_probs, dim=-2), torch.cat(entropies, dim=-2)
+
+
 @dataclass
 class DictActionDistributions:
     """Named action distributions: the actor's output."""
 
-    dists: Dict[str, DiscreteActionDistributions]
+    dists: Dict[str, Union[DiscreteActionDistributions,
+                           ContinuousActionDistributions]]
 
     def sample(self, generator):
         actions, log_probs = {}, {}

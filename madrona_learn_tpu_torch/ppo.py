@@ -1,9 +1,24 @@
 """PPO: clipped surrogate over collected rollouts (JAX: ppo.py).
 
-The port has uniform shuffled minibatches and the clipped surrogate per
-action head. The surrogate scores GAE advantages or, with
-``compute_advantages=False``, the returns, each z-scored per minibatch
-unless its flag is off. The critic loss is one of:
+Minibatches are chosen one of three ways each update:
+- uniform: every training sequence once an epoch, shuffled as one block or,
+  with ``minibatch_stratify``, as that many equal contiguous blocks each
+  shuffled on its own, every minibatch taking an equal share of each block;
+- advantage filtering (``filter_advantages``): time is flattened into rows,
+  an EMA of the largest |advantage| sets a threshold of 1% of it, and the
+  epoch shuffles the rows with the largest |advantage|, enough whole
+  minibatches to hold every row above the threshold;
+- trajectory importance sampling (``importance_sample_trajectories``):
+  ``importance_sample_num_minibatches`` minibatches of distinct sequences
+  drawn by softmax(mean |advantage| + mean |value - return|).
+Every loss term is a per-trajectory weighted mean, mean(w * x) with one
+weight a sequence: ``(1 / num_sequences) / p`` under importance sampling,
+which keeps the estimate unbiased, and 1 otherwise (``1.0 * x`` is ``x``
+bitwise, so the uniform update is unchanged by the weighting).
+
+The surrogate scores GAE advantages or, with ``compute_advantages=False``,
+the returns, each z-scored per minibatch (unweighted) unless its flag is
+off. The critic loss is one of:
 - the two-hot cross entropy of ``dreamer_v3_critic``'s distribution;
 - the HL-Gauss cross entropy of ``hlgauss_critic``'s distribution;
 - for a scalar critic, the L2 loss (``optax.l2_loss``) or, with
@@ -21,11 +36,15 @@ The optimizer is the JAX package's learning-rate-free chain,
 ``optax.clip_by_global_norm`` then ``optax.scale_by_adam``, written out in
 optax's exact form (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the
 norm, which optax does not); the step is then scaled by the live
-``-hyper_params.lr``.
+``-hyper_params.lr``. With a float16 ``compute_dtype`` the train state's
+``DynamicScale`` scales the loss, and a step whose gradients are not finite
+keeps the parameters and the optimizer state as they were
+(``torch.where``, no host synchronization).
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
@@ -35,6 +54,7 @@ from .algo import AlgoBase, HyperParams
 from .config import AlgoConfig, TrainConfig
 from .ops.gae import zscore_data
 from .ops.metrics import Metric, TrainingMetrics
+from .utils import tree_map
 
 __all__ = ["PPOConfig", "PPO"]
 
@@ -128,6 +148,7 @@ class PPO(AlgoBase):
             lr=cfg.lr, gamma=cfg.gamma, gae_lambda=cfg.gae_lambda,
             normalize_values=cfg.normalize_values,
             value_normalizer_decay=cfg.value_normalizer_decay,
+            max_advantage_est_decay=cfg.max_advantage_est_decay,
             clip_coef=cfg.algo.clip_coef,
             value_loss_coef=cfg.algo.value_loss_coef,
             entropy_coef=cfg.algo.entropy_coef,
@@ -151,9 +172,23 @@ def _flat_concat(tree):
                      dim=-1)
 
 
-def _ppo_update(cfg: TrainConfig, mb, policy_state, train_state,
+def _weighted_mean(weights, x):
+    """mean(w * x) over time-major ``x`` [T, mb, ...] with one weight a
+    trajectory, ``weights`` [mb, 1]. (JAX multiplies by the [mb, 1] weights
+    as they stand, which for the [T, mb, 1, dims] terms of continuous
+    actions broadcasts to [T, mb, mb, dims]; the two agree under uniform
+    weights.)"""
+    w = weights.reshape(weights.shape[0], *(1,) * (x.dim() - 2))
+    return (w * x.to(_F32)).mean()
+
+
+def _ppo_update(cfg: TrainConfig, mb, mb_weights, policy_state, train_state,
                 metrics: TrainingMetrics):
-    """One minibatch step; returns ratio diagnostics of the minibatch."""
+    """One minibatch step; returns ratio diagnostics of the minibatch and,
+    with a loss scaler, whether the step was finite."""
+    # A 1-D [mb] weight would broadcast against [T, mb, 1] to [T, mb, mb].
+    assert mb_weights.dim() == 2 and mb_weights.shape[-1] == 1, (
+        f"mb_weights must be [minibatch, 1], got {tuple(mb_weights.shape)}")
     hp = train_state.hyper_params
     actor_critic = policy_state.actor_critic
     params = dict(actor_critic.named_parameters())
@@ -173,31 +208,48 @@ def _ppo_update(cfg: TrainConfig, mb, policy_state, train_state,
     for k, new_lp in fwd["log_probs"].items():
         ratio = torch.exp(new_lp - mb["log_probs"][k].to(_F32))
         clipped = torch.clamp(ratio, 1.0 - hp.clip_coef, 1.0 + hp.clip_coef)
+        # Continuous heads' log-probs are [T, mb, heads, dims].
+        scores = advantages[..., None] if ratio.dim() - 2 > 1 else advantages
         ratios[k] = ratio
-        action_objs[k] = torch.minimum(advantages * ratio,
-                                       advantages * clipped)
+        action_objs[k] = torch.minimum(scores * ratio, scores * clipped)
 
     value_losses, value_errs, new_value_norm_state = _value_loss(
         cfg, mb, fwd["critic"], train_state)
 
     key_weights = cfg.algo.entropy_key_weights or {}
-    action_obj_avg = sum(o.to(_F32).mean() for o in action_objs.values())
-    value_loss = value_losses.to(_F32).mean()
+    action_obj_avg = sum(_weighted_mean(mb_weights, o)
+                         for o in action_objs.values())
+    value_loss = _weighted_mean(mb_weights, value_losses)
     entropy_avg = hp.entropy_coef * sum(
-        key_weights.get(k, 1.0) * e.to(_F32).mean()
+        key_weights.get(k, 1.0) * _weighted_mean(mb_weights, e)
         for k, e in fwd["entropies"].items())
     loss = -action_obj_avg + hp.value_loss_coef * value_loss - entropy_avg
 
-    grads = torch.autograd.grad(loss, list(params.values()),
-                                allow_unused=True)
-    grads = {k: (g if g is not None else torch.zeros_like(params[k]))
-             for k, g in zip(params, grads)}
+    scaler = train_state.scaler
+    grads = torch.autograd.grad(
+        loss if scaler is None
+        else scaler.scale_loss(train_state.scaler_state, loss),
+        list(params.values()), allow_unused=True)
+    grads = [g if g is not None else torch.zeros_like(p)
+             for g, p in zip(grads, params.values())]
+    finite = None
+    if scaler is not None:
+        train_state.scaler_state, finite, grads = scaler.unscale(
+            train_state.scaler_state, grads)
+    grads = dict(zip(params, grads))
 
     with torch.no_grad():
-        updates, train_state.opt_state = train_state.tx.update(
-            grads, train_state.opt_state)
+        old_opt_state = train_state.opt_state
+        updates, new_opt_state = train_state.tx.update(grads, old_opt_state)
+        if finite is not None:
+            new_opt_state = AdamState(**tree_map(
+                lambda new, old: torch.where(finite, new, old),
+                vars(new_opt_state), vars(old_opt_state)))
+        train_state.opt_state = new_opt_state
         for k, p in params.items():
             new = p + (-hp.lr) * updates[k]
+            if finite is not None:
+                new = torch.where(finite, new, p)
             init_norm = train_state.initial_weight_norms.get(k)
             if init_norm is not None:
                 # Project tracked kernels back to their initial L2 norm.
@@ -216,8 +268,11 @@ def _ppo_update(cfg: TrainConfig, mb, policy_state, train_state,
         dev = torch.stack([(r - 1).abs().max() for r in ratios.values()])
         clip_frac = torch.stack([((r - 1).abs() > hp.clip_coef).to(_F32)
                                  .mean() for r in ratios.values()])
-    return {"max_abs_ratio_dev": dev.max(), "clip_fraction": clip_frac.mean(),
-            "loss": loss.detach()}
+    stats = {"max_abs_ratio_dev": dev.max(),
+             "clip_fraction": clip_frac.mean(), "loss": loss.detach()}
+    if finite is not None:
+        stats["finite"] = finite
+    return stats
 
 
 def _value_loss(cfg: TrainConfig, mb, critic_out, train_state):
@@ -275,29 +330,171 @@ def _renorm_layernorms(module):
             scale.mul_(factor)
 
 
+def permutation(generator: torch.Generator, x: torch.Tensor):
+    """The rows of ``x`` in an order drawn from ``generator``."""
+    return x[torch.randperm(x.shape[0], generator=generator,
+                            device=x.device)]
+
+
+def choice(generator: torch.Generator, probs: torch.Tensor, k: int):
+    """``k`` distinct indices drawn with probabilities ``probs``. Without
+    replacement ``torch.multinomial`` takes the k largest p / Exp(1), the
+    Gumbel-top-k rule of ``jax.random.choice(..., replace=False, p=)``."""
+    return torch.multinomial(probs, k, replacement=False,
+                             generator=generator)
+
+
+def resolve_stratify(cfg: TrainConfig, num_train_seqs_per_policy: int) -> int:
+    """The number of blocks uniform minibatches are stratified over: 1
+    under advantage filtering or importance sampling (their selections are
+    global), ``minibatch_stratify`` (None is 1: the port has no mesh), and
+    1 with a warning when the blocks would not divide the sequences and
+    the minibatch evenly."""
+    if cfg.filter_advantages or cfg.importance_sample_trajectories:
+        return 1
+    stratify = max(int(cfg.minibatch_stratify or 1), 1)
+    if stratify == 1:
+        return 1
+    if (num_train_seqs_per_policy % stratify != 0
+            or cfg.algo.minibatch_size % stratify != 0):
+        warnings.warn(
+            f"minibatch stratification disabled: stratify={stratify} must "
+            f"divide both the per-policy training sequences "
+            f"({num_train_seqs_per_policy}) and minibatch_size "
+            f"({cfg.algo.minibatch_size}); falling back to the single "
+            f"global shuffle.")
+        return 1
+    return stratify
+
+
+def filter_selection(cfg: TrainConfig, train_state, advantages):
+    """Advantage filtering over time-flattened ``advantages`` [rows, 1, 1]:
+    (the rows by descending |advantage|, the first ``num_minibatches *
+    minibatch_size`` kept and the rest -1, num_minibatches, the EMA of the
+    largest |advantage| updated)."""
+    mb_size = cfg.algo.minibatch_size
+    adv_abs = advantages.abs()
+    est_state = train_state.max_advantage_est.update_estimates(
+        train_state.max_advantage_est_state, adv_abs.max())
+    adv_flat = adv_abs.reshape(-1)
+    sorted_idxs = torch.argsort(adv_flat, descending=True, stable=True)
+    num_above = (adv_flat >= 0.01 * est_state["mu"]).sum()
+    # A host synchronization, once an update: the minibatch loop is Python.
+    num_minibatches = min(int(num_above + mb_size - 1) // mb_size,
+                          adv_flat.shape[0] // mb_size)
+    rows = torch.arange(adv_flat.shape[0], device=adv_flat.device)
+    valid_inds = torch.where(rows < num_minibatches * mb_size, sorted_idxs,
+                             -1)
+    return valid_inds, num_minibatches, est_state
+
+
+def importance_weights(data):
+    """Trajectory importance sampling over sequences [num, T/C, ...]: (the
+    sampling probabilities [num], the unbiasing weights [num, 1])."""
+    advantages = data["advantages"].to(_F32)
+    num_total = advantages.shape[0]
+
+    def per_seq_mean(x):
+        return x.reshape(num_total, -1).mean(dim=1)
+
+    traj_scores = (per_seq_mean(advantages.abs())
+                   + per_seq_mean((data["values"].to(_F32)
+                                   - data["returns"].to(_F32)).abs()))
+    traj_probs = torch.softmax(traj_scores, dim=0)
+    # E_sample[w_i * loss_i] = mean_i loss_i.
+    return traj_probs, ((1.0 / num_total) / traj_probs)[:, None]
+
+
+def epoch_indices(cfg: TrainConfig, generator, valid_inds, stratify: int,
+                  num_minibatches: int):
+    """One epoch's minibatch index stream: minibatch i is the slice
+    [i * minibatch_size, (i + 1) * minibatch_size). Stratified, each of the
+    ``stratify`` contiguous blocks of ``valid_inds`` (then ``arange``) is
+    shuffled on its own and each minibatch takes ``minibatch_size /
+    stratify`` rows from every block, block-major; otherwise
+    ``valid_inds`` is shuffled as one, with filtering's -1 entries moved
+    to the back in their shuffled order."""
+    device = valid_inds.device
+    if stratify > 1:
+        block = valid_inds.shape[0] // stratify
+        per_mb = cfg.algo.minibatch_size // stratify
+        perms = torch.stack([
+            permutation(generator, torch.arange(block, device=device))
+            for _ in range(stratify)])
+        ids = torch.arange(stratify, device=device)[:, None] * block + perms
+        return ids.reshape(stratify, num_minibatches, per_mb).transpose(
+            0, 1).reshape(-1)
+    inds = permutation(generator, valid_inds)
+    if cfg.filter_advantages:
+        inds = inds[torch.argsort((inds == -1).to(torch.int32), stable=True)]
+    return inds
+
+
 def _ppo(cfg: TrainConfig, policy_state, train_state, rollout_data,
          user_metrics_cb: Callable, metrics: TrainingMetrics):
-    """Epochs of shuffled whole-sequence minibatches for one policy.
+    """Epochs of minibatches for one policy.
 
     Returns the ratio diagnostics of the first minibatch of the first
-    epoch, where the weights still equal the rollout's.
+    epoch, where the weights still equal the rollout's, with the update's
+    ``num_minibatches`` an epoch, the first epoch's index stream
+    (``epoch_inds``) and the per-trajectory weights (``traj_weights``)
+    it was drawn with, and, with a loss scaler, the count of its
+    non-finite steps (``nonfinite_steps``, on the device).
     """
-    num_trajectories = rollout_data.all()["dones"].shape[0]
     mb_size = cfg.algo.minibatch_size
-    if num_trajectories % mb_size:
-        raise ValueError(
-            f"minibatch_size ({mb_size}) must evenly divide the "
-            f"{num_trajectories} training sequences per policy "
-            f"(= num_bptt_chunks * train agents per policy)")
     gen = train_state.generator
-    first = None
+    if cfg.filter_advantages:
+        rollout_data = rollout_data.flatten_time()
+        advantages = rollout_data.all()["advantages"]
+        valid_inds, num_minibatches, \
+            train_state.max_advantage_est_state = filter_selection(
+                cfg, train_state, advantages)
+        traj_weights = torch.ones((advantages.shape[0], 1), dtype=_F32,
+                                  device=advantages.device)
+    elif cfg.importance_sample_trajectories:
+        traj_probs, traj_weights = importance_weights(rollout_data.all())
+        num_total = traj_probs.shape[0]
+        num_minibatches = cfg.importance_sample_num_minibatches
+        num_sampled = num_minibatches * mb_size
+        if not (num_sampled < num_total and num_minibatches > 0):
+            raise ValueError(
+                f"importance sampling draws importance_sample_num_minibatches"
+                f" ({num_minibatches}) x minibatch_size ({mb_size}) = "
+                f"{num_sampled} sequences, which must be more than 0 and "
+                f"fewer than the {num_total} training sequences")
+        valid_inds = choice(gen, traj_probs, num_sampled)
+    else:
+        num_trajectories = rollout_data.all()["dones"].shape[0]
+        if num_trajectories % mb_size:
+            raise ValueError(
+                f"minibatch_size ({mb_size}) must evenly divide the "
+                f"{num_trajectories} training sequences per policy "
+                f"(= num_bptt_chunks * train agents per policy)")
+        num_minibatches = num_trajectories // mb_size
+        device = rollout_data.all()["dones"].device
+        valid_inds = torch.arange(num_trajectories, device=device)
+        traj_weights = torch.ones((num_trajectories, 1), dtype=_F32,
+                                  device=device)
+    stratify = resolve_stratify(cfg, valid_inds.shape[0])
+
+    first, first_inds, nonfinite = None, None, None
     for epoch in range(cfg.algo.num_epochs):
-        perm = torch.randperm(num_trajectories, generator=gen,
-                              device=gen.device)
-        for i in range(num_trajectories // mb_size):
-            mb = rollout_data.minibatch(perm[i * mb_size:(i + 1) * mb_size])
-            stats = _ppo_update(cfg, mb, policy_state, train_state, metrics)
+        inds = epoch_indices(cfg, gen, valid_inds, stratify, num_minibatches)
+        if first_inds is None:
+            first_inds = inds
+        for i in range(num_minibatches):
+            mb_inds = inds[i * mb_size:(i + 1) * mb_size]
+            mb = rollout_data.minibatch(mb_inds)
+            stats = _ppo_update(cfg, mb, traj_weights[mb_inds],
+                                policy_state, train_state, metrics)
             if first is None:
                 first = stats
+            if "finite" in stats:
+                step = (~stats["finite"]).to(torch.int32)
+                nonfinite = step if nonfinite is None else nonfinite + step
             user_metrics_cb(metrics, epoch, mb, policy_state, train_state)
-    return first
+    out = dict(first or {}, num_minibatches=num_minibatches,
+               epoch_inds=first_inds, traj_weights=traj_weights)
+    if nonfinite is not None:
+        out["nonfinite_steps"] = nonfinite
+    return out

@@ -19,7 +19,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from .config import DiscreteActionsConfig, TrainConfig
+from .config import ActionsConfig, DiscreteActionsConfig, TrainConfig
 from .ops.gae import compute_advantages, compute_returns
 from .ops.metrics import Metric, TrainingMetrics
 from .utils import tree_map, tree_stack
@@ -32,12 +32,12 @@ _F32 = torch.float32
 class RolloutConfig:
     sim_batch_size: int
     num_worlds: int
-    actions_cfg: Dict[str, DiscreteActionsConfig]
+    actions_cfg: Dict[str, ActionsConfig]
     reward_gamma: float
 
     @staticmethod
     def setup(num_worlds: int, agents_per_world: int,
-              actions_cfg: Dict[str, DiscreteActionsConfig],
+              actions_cfg: Dict[str, ActionsConfig],
               reward_gamma: float = 1.0) -> "RolloutConfig":
         """The trivial geometry: one train policy plays every agent."""
         return RolloutConfig(
@@ -105,6 +105,20 @@ class RolloutData:
             lambda x: x[indices], self.data["rnn_start_states"])
         return mb
 
+    def flatten_time(self) -> "RolloutData":
+        """Every leaf [num_seqs, T/C, ...] -> [num_seqs * T/C, 1, ...]: one
+        step a sequence. A recurrent start state cannot follow, so this
+        serves feed-forward towers, whose state is the empty tuple."""
+        states = []
+        tree_map(states.append, self.data["rnn_start_states"])
+        if states:
+            raise ValueError(
+                "flatten_time (advantage filtering) needs a feed-forward "
+                "tower such as BackboneEncoder: recurrent start states "
+                "cannot be split into single steps")
+        return RolloutData(tree_map(
+            lambda x: x.reshape(-1, 1, *x.shape[2:]), self.data))
+
 
 def rollout_loop(rollout_state: RolloutState, policy_state, num_steps: int,
                  post_inference_cb: Callable, post_step_cb: Callable,
@@ -168,12 +182,18 @@ def rollouts_reset(rollout_state: RolloutState, policy_state):
     """Step the sim once with resets raised; clear returns and RNN state."""
     cfg = rollout_state.cfg
     device = rollout_state.sim_ctrl.device
+
+    def zero_action(action_cfg):
+        if isinstance(action_cfg, DiscreteActionsConfig):
+            return torch.zeros(
+                (cfg.sim_batch_size, len(action_cfg.actions_num_buckets)),
+                dtype=torch.int32, device=device)
+        return torch.zeros((cfg.sim_batch_size, 1, action_cfg.num_dims),
+                           dtype=_F32, device=device)
+
     step_output = rollout_state.step_fn({
         "state": rollout_state.sim_state,
-        "actions": {k: torch.zeros(
-            (cfg.sim_batch_size, len(v.actions_num_buckets)),
-            dtype=torch.int32, device=device)
-            for k, v in cfg.actions_cfg.items()},
+        "actions": {k: zero_action(v) for k, v in cfg.actions_cfg.items()},
         "resets": torch.ones((cfg.num_worlds, 1), dtype=torch.int32,
                              device=device),
         "sim_ctrl": rollout_state.sim_ctrl,

@@ -65,8 +65,10 @@ class TrainingManager:
         self.rollout_mgr = rollout_mgr
         self.user_hooks = user_hooks
         self.update_idx = update_idx
-        # Ratio diagnostics of the last update's first minibatch.
-        self.first_minibatch_stats: Optional[Dict[str, torch.Tensor]] = None
+        # Ratio diagnostics of the last update's first minibatch, with the
+        # update's minibatches an epoch and, with a loss scaler, its count
+        # of non-finite steps (ppo._ppo).
+        self.first_minibatch_stats: Optional[Dict[str, Any]] = None
 
     def update_iter(self) -> "TrainingManager":
         self.first_minibatch_stats = _update_impl(

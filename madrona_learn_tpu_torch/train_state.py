@@ -5,7 +5,10 @@
 - ``PolicyTrainState``: hyperparameters, the optimizer and its state, the
   initial L2 norm of every Dense kernel outside the actor and critic heads
   (for the weight-norm projection), the value normalizer and its state
-  (``None`` unless ``TrainConfig.normalize_values``), and the update RNG.
+  (``None`` unless ``TrainConfig.normalize_values``), the EMA of the
+  largest |advantage| (advantage filtering reads it), the float16 loss
+  scaler and its state (``None`` unless ``TrainConfig.compute_dtype`` is
+  float16), and the update RNG.
 - ``TrainStateManager``: the policy and train state of the one train policy,
   plus the user's hook state.
 
@@ -24,7 +27,8 @@ from .algo import AlgoBase, HyperParams
 from .config import TrainConfig
 from .models.actor_critic import ActorCritic
 from .observations import ObservationsPreprocess, ObservationsPreprocessNoop
-from .ops.ema import EMANormalizer
+from .ops.dynamic_scale import DynamicScale
+from .ops.ema import EMAEstimate, EMANormalizer
 from .policy import Policy
 
 
@@ -42,8 +46,12 @@ class PolicyTrainState:
     opt_state: Any
     initial_weight_norms: Dict[str, torch.Tensor]
     generator: torch.Generator
+    max_advantage_est: EMAEstimate
+    max_advantage_est_state: Dict[str, torch.Tensor]
     value_normalizer: Optional[EMANormalizer] = None
     value_normalizer_state: Optional[Dict[str, torch.Tensor]] = None
+    scaler: Optional[DynamicScale] = None
+    scaler_state: Optional[Dict[str, torch.Tensor]] = None
 
 
 def initial_weight_norms(actor_critic) -> Dict[str, torch.Tensor]:
@@ -88,6 +96,12 @@ class TrainStateManager:
         if cfg.normalize_values:
             value_norm, value_norm_state = _setup_value_normalizer(
                 hyper_params, device)
+        scaler, scaler_state = None, None
+        if cfg.compute_dtype == torch.float16:
+            scaler = DynamicScale()
+            scaler_state = scaler.init_state(device)
+        max_adv_est = EMAEstimate(
+            decay=hyper_params.max_advantage_est_decay)
         params = {k: p.detach()
                   for k, p in actor_critic.named_parameters()}
         return TrainStateManager(
@@ -101,7 +115,12 @@ class TrainStateManager:
                 opt_state=tx.init(params),
                 initial_weight_norms=initial_weight_norms(actor_critic),
                 generator=generator,
+                max_advantage_est=max_adv_est,
+                max_advantage_est_state=max_adv_est.init_estimates(
+                    torch.zeros((1,), dtype=torch.float32, device=device)),
                 value_normalizer=value_norm,
-                value_normalizer_state=value_norm_state),
+                value_normalizer_state=value_norm_state,
+                scaler=scaler,
+                scaler_state=scaler_state),
             user_state=init_user_state_cb(),
         )

@@ -9,6 +9,12 @@ minibatches, 150 updates. The configurations:
 
 - ``base``: ``DenseLayerCritic``;
 - ``valuenorm``: the same with ``normalize_values=True``;
+- ``dreamer``: ``DreamerV3Critic`` (``dreamer_v3_critic=True``);
+- ``filter``: ``filter_advantages=True`` over a feed-forward tower
+  (``BackboneEncoder`` over the MLP: filtering flattens time, which a
+  recurrent state cannot follow, in both packages);
+- ``importance``: ``importance_sample_trajectories=True`` with 2
+  minibatches drawn of the 4;
 - ``hlgauss``: ``HLGaussCritic``;
 - ``hlgauss_twopart``: ``HLGaussTwoPartCritic``.
 
@@ -20,7 +26,7 @@ is below 3 x the spread (the larger of the two seed deviations and 1e-3),
 and both runs clearly learned (final > 3 x |first update|). The results go
 to ``PARITY_CURVES_TORCH.json``; ``PARITY_CURVES.json`` is only read.
 
-    python3 scripts/torch_parity_curves.py            # all four, ~minutes
+    python3 scripts/torch_parity_curves.py            # all seven, ~minutes
     python3 scripts/torch_parity_curves.py --config hlgauss --seeds 1
 
 Exits 0 when every configuration run agrees.
@@ -41,7 +47,8 @@ sys.path.insert(0, ROOT)
 
 import numpy as np  # noqa: E402
 
-CONFIGS = ("base", "valuenorm", "hlgauss", "hlgauss_twopart")
+CONFIGS = ("base", "valuenorm", "dreamer", "filter", "importance",
+           "hlgauss", "hlgauss_twopart")
 NUM_CHANNELS = 128
 EPISODE_LEN = 40
 GRID = 8
@@ -55,30 +62,34 @@ def run_port(config: str, seed: int, num_updates: int, num_worlds: int):
     import madrona_learn_tpu_torch as mlt
     from madrona_learn_tpu_torch.envs import ToyEnvConfig, make_toy_env
     from madrona_learn_tpu_torch.models import (
-        LSTM, MLP, ActorCritic, BackboneShared, DenseLayerCritic,
-        DenseLayerDiscreteActor, DictActor, HLGaussCritic,
-        HLGaussTwoPartCritic, RecurrentBackboneEncoder)
+        LSTM, MLP, ActorCritic, BackboneEncoder, BackboneShared,
+        DenseLayerCritic, DenseLayerDiscreteActor, DictActor,
+        DreamerV3Critic, HLGaussCritic, HLGaussTwoPartCritic,
+        RecurrentBackboneEncoder)
 
     torch.set_num_threads(1)
     dtype = torch.float32
     gen = torch.Generator().manual_seed(seed)
     actions = {"move": mlt.DiscreteActionsConfig(actions_num_buckets=[5])}
     critic = {
-        "base": lambda: DenseLayerCritic(NUM_CHANNELS, dtype, generator=gen),
-        "valuenorm": lambda: DenseLayerCritic(NUM_CHANNELS, dtype,
-                                              generator=gen),
+        "dreamer": lambda: DreamerV3Critic(NUM_CHANNELS, dtype),
         "hlgauss": lambda: HLGaussCritic.create(NUM_CHANNELS, dtype),
         "hlgauss_twopart": lambda: HLGaussTwoPartCritic.create(NUM_CHANNELS,
                                                                dtype),
-    }[config]
+    }.get(config, lambda: DenseLayerCritic(NUM_CHANNELS, dtype,
+                                           generator=gen))
     net = MLP(3, NUM_CHANNELS, 2, dtype, generator=gen)
-    rnn = LSTM(NUM_CHANNELS, NUM_CHANNELS, 1, dtype, generator=gen)
+    if config == "filter":
+        encoder = BackboneEncoder(net=net)
+    else:
+        encoder = RecurrentBackboneEncoder(net=net, rnn=LSTM(
+            NUM_CHANNELS, NUM_CHANNELS, 1, dtype, generator=gen))
     actor = DictActor({"move": DenseLayerDiscreteActor(
         actions["move"], NUM_CHANNELS, dtype, generator=gen)})
     ac = ActorCritic(
         backbone=BackboneShared(
             prefix=lambda obs: torch.cat([obs["delta"], obs["time"]], -1),
-            encoder=RecurrentBackboneEncoder(net=net, rnn=rnn)),
+            encoder=encoder),
         actor=actor, critic=critic())
     policy = mlt.Policy(
         actor_critic=ac,
@@ -91,9 +102,13 @@ def run_port(config: str, seed: int, num_updates: int, num_worlds: int):
         algo=mlt.PPOConfig(
             num_epochs=2, minibatch_size=num_worlds // 2, clip_coef=0.2,
             value_loss_coef=0.5, entropy_coef=0.01, max_grad_norm=0.5),
-        dreamer_v3_critic=False,
+        dreamer_v3_critic=config == "dreamer",
         hlgauss_critic=config.startswith("hlgauss"),
-        normalize_values=config == "valuenorm")
+        normalize_values=config == "valuenorm",
+        filter_advantages=config == "filter",
+        # 2 x minibatch_size sampled sequences of 2 x num_worlds.
+        importance_sample_trajectories=config == "importance",
+        importance_sample_num_minibatches=2 if config == "importance" else 0)
     sim_fns = make_toy_env(ToyEnvConfig(
         num_worlds=num_worlds, episode_len=EPISODE_LEN, grid_size=GRID,
         seed=seed), device="cpu")
@@ -142,7 +157,7 @@ def compare(config: str, curves, reference) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config", choices=CONFIGS, action="append",
-                        help="configurations to run (default: all four)")
+                        help="configurations to run (default: all)")
     parser.add_argument("--updates", type=int, default=150)
     parser.add_argument("--worlds", type=int, default=256)
     parser.add_argument("--seeds", type=int, default=3)

@@ -1,9 +1,9 @@
 """The port's learning curves against the JAX package's recorded ones.
 
 ``scripts/torch_parity_curves.py`` trains the ``base``, ``valuenorm``,
-``hlgauss`` and ``hlgauss_twopart`` configurations of
-``scripts/parity_curves.py`` in the port on the CPU (256 worlds, 150
-updates, 3 seeds) and holds each final-quartile mean reward within
+``dreamer``, ``filter``, ``importance``, ``hlgauss`` and
+``hlgauss_twopart`` configurations of ``scripts/parity_curves.py`` in the
+port on the CPU (256 worlds, 150 updates, 3 seeds) and holds each final-quartile mean reward within
 3 x the seed spread of ``PARITY_CURVES.json``'s. Tens of minutes of CPU
 time, so it is marked slow.
 """

@@ -104,7 +104,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 10. flagship_large trainer: the flagship over 511 entities (self, 255
     allies, 255 enemies, padded to 512), so its attention takes
     ``mha_flash`` (forward, and the dK/dV and dQ kernels), at 512 worlds,
-    1 warm-up update and 3 trials of 30 (its reward rises late).
+    1 warm-up update and 3 trials of 30 (its reward rises late);
+11. headline_pbt: BASELINE config #4, population-based training (8 train
+    and 4 past policies over the bidding duel, 16384 worlds x 2 agents,
+    25% self, 50% cross and 25% past play, the headline's MLP + LSTM in
+    bf16, lr searched in log10 space, 4 minibatches of 1280 sequences a
+    policy), 1 warm-up update and 2 trials of 5, then ``eval_elo`` over 64
+    steps and ``update_population``. Besides the trainers' checks (launch
+    counts: ``lstm_sequence_fwd`` once a present policy a step, once a
+    train policy for the bootstrap value and once a minibatch,
+    ``lstm_sequence_bwd`` once a minibatch, ``gae`` once), every train
+    policy's first-minibatch |ratio - 1| is below the clip coefficient,
+    at one rollout step every row's value equals its own policy's module
+    run over all rows (and the next policy's would differ by more than
+    twice the tolerance), the eight learning rates are distinct and in
+    [1e-4, 1e-2], the assignments keep their invariants after every training step (the
+    self-play block and team 0 fixed, cross opponents other train
+    policies, past opponents past policies, 2560 train agents a policy;
+    checked on the device, read after each stage, the timed trials
+    included), the Elo ratings are finite with policy 0 at 1500 and the
+    training portions restored, and every copy of the population update
+    is bitwise, with a finite lr and the destination's own generator.
 
 Each trainer phase sets every launch count to 0 just before it and checks
 just after it that every kernel of its path launched as often as the
@@ -665,20 +685,29 @@ def check_lstm(results):
     gen = torch.Generator(device="cuda").manual_seed(2)
     fwd = results["lstm_sequence_fwd"] = {"max_abs_err": 0.0}
     bwd = results["lstm_sequence_bwd"] = {"max_abs_err": 0.0}
-    # (T, N, H, dtype, on the main path): the update minibatch, the rollout
-    # step, flagship_large's minibatch, a ragged batch at both widths (the
-    # bf16 kernels on tensor cores), and float32 at both instantiated
-    # widths (CUDA cores).
+    # (T, N, H, dtype, role on the main paths): the headline's update
+    # minibatch ("timed") and rollout step ("step"); headline_pbt's shapes
+    # ("path"): a train policy's and a past policy's ragged rows of a
+    # rollout step (each policy's count changes every step, about 900 to
+    # 4100 rows), a train policy's 2560 agents at the bootstrap value, and
+    # its update minibatch of 1280 sequences; then flagship_large's
+    # minibatch, a ragged batch at both widths (the bf16 kernels on tensor
+    # cores), and float32 at both instantiated widths (CUDA cores).
     cases = [
-        (16, 8192, 256, torch.bfloat16, True),
-        (1, 16384, 256, torch.bfloat16, True),
-        (16, 256, 256, torch.bfloat16, False),
-        (16, 1000, 256, torch.bfloat16, False),
-        (5, 70, 128, torch.bfloat16, False),
-        (5, 1000, 256, torch.float32, False),
-        (4, 70, 128, torch.float32, False),
+        (16, 8192, 256, torch.bfloat16, "timed"),
+        (1, 16384, 256, torch.bfloat16, "step"),
+        (1, 3583, 256, torch.bfloat16, "path"),
+        (1, 1021, 256, torch.bfloat16, "path"),
+        (1, PBT_TRAIN_AGENTS, 256, torch.bfloat16, "path"),
+        (16, PBT_MINIBATCH, 256, torch.bfloat16, "path"),
+        (16, 256, 256, torch.bfloat16, None),
+        (16, 1000, 256, torch.bfloat16, None),
+        (5, 70, 128, torch.bfloat16, None),
+        (5, 1000, 256, torch.float32, None),
+        (4, 70, 128, torch.float32, None),
     ]
-    for T, N, H, dtype, main_path in cases:
+    for T, N, H, dtype, role in cases:
+        main_path = role is not None
         dname = str(dtype).split(".")[-1]
         args = _lstm_inputs(gen, T, N, H, dtype)
         tag = f"[{T},{N},{4 * H}] {dname}"
@@ -694,7 +723,7 @@ def check_lstm(results):
                                      f"the {fpath} route")
             fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
             fwd["path"] = fpath
-        elif fpath == "tensor_core" and N % fwd_tc_rows():
+        if fpath == "tensor_core" and N % fwd_tc_rows():
             x_proj, keep, wr, *rest = args
             _tc_fwd_guard_check(
                 "lstm fwd " + tag,
@@ -719,10 +748,10 @@ def check_lstm(results):
             if main_path and T > 1:
                 bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
 
-        if main_path and T > 1:
-            if path != "tensor_core":
-                raise AssertionError(f"lstm bwd {tag}: the main path took "
-                                     f"the {path} route")
+        if main_path and T > 1 and path != "tensor_core":
+            raise AssertionError(f"lstm bwd {tag}: the main path took the "
+                                 f"{path} route")
+        if role == "timed":
             bwd["path"] = path
             _tc_bwd_checks("lstm bwd " + tag, lstm_sequence_bwd, args,
                            (ys, cs), probe, got,
@@ -748,7 +777,7 @@ def check_lstm(results):
                 f"{bwd['plain_ms']:.3f} ms, bound {bwd['bound_ms']:.4f} ms "
                 f"({bwd['bound_by']})")
             cudnn_lstm_check(args, ys)
-        elif main_path:
+        elif role == "step":
             step_ms = time_ms(lambda: lstm_sequence_fwd(*args))
             step_plain = time_ms(lambda: lstm_sequence_reference(*args))
             step_bound = _lstm_bounds(T, N, H, 2)[0]
@@ -2622,6 +2651,428 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
                           clip_frac=clip_frac, peak_gib=peak_gib)
 
 
+PBT_TRAIN, PBT_PAST = 8, 4
+PBT_PORTIONS = (0.25, 0.5, 0.25)
+PBT_EVAL_STEPS = 64
+# Train agents a policy: 32768 * (0.25 + 0.5 / 2 + 0.25 / 2) / 8 = 2560;
+# sequences a policy 2 x 2560, in 4 minibatches.
+PBT_TRAIN_AGENTS = 2560
+PBT_MINIBATCH = NUM_BPTT_CHUNKS * PBT_TRAIN_AGENTS // NUM_MINIBATCHES
+
+
+def _pbt_actor_critic(seed):
+    """The headline's MLP + LSTM in bf16 over the duel's 2 obs."""
+    import torch
+    from madrona_learn_tpu_torch.config import DiscreteActionsConfig
+    from madrona_learn_tpu_torch.models import (
+        LSTM, MLP, ActorCritic, BackboneShared, DenseLayerCritic,
+        DenseLayerDiscreteActor, DictActor, RecurrentBackboneEncoder)
+
+    dtype = torch.bfloat16
+    gen = torch.Generator().manual_seed(seed)
+    return ActorCritic(
+        backbone=BackboneShared(
+            prefix=lambda obs: torch.cat([obs["time"], obs["acc"]], -1),
+            encoder=RecurrentBackboneEncoder(
+                net=MLP(2, CHANNELS, 2, dtype, generator=gen),
+                rnn=LSTM(CHANNELS, CHANNELS, 1, dtype, generator=gen))),
+        actor=DictActor({"move": DenseLayerDiscreteActor(
+            DiscreteActionsConfig(actions_num_buckets=[5]), CHANNELS, dtype,
+            generator=gen)}),
+        critic=DenseLayerCritic(CHANNELS, dtype, generator=gen))
+
+
+def _duel_scores(er):
+    """(team 0, team 1) scores from the winning team (-1: a draw)."""
+    import torch
+
+    winner = er[0]
+    a = torch.where(winner == 0, 1.0, torch.where(winner == 1, 0.0, 0.5))
+    return a, 1.0 - a
+
+
+def build_headline_pbt(hooks):
+    """BASELINE config #4 as ``benchmarks/profile_pbt.py`` builds it."""
+    import torch
+    import madrona_learn_tpu_torch as mlt
+    from madrona_learn_tpu_torch.envs import ToyEnvConfig, make_duel_env
+
+    sp, cp, pp = PBT_PORTIONS
+    cfg = mlt.TrainConfig(
+        num_worlds=NUM_WORLDS, num_agents_per_world=2,
+        actions={"move": mlt.DiscreteActionsConfig(actions_num_buckets=[5])},
+        steps_per_update=STEPS_PER_UPDATE, num_bptt_chunks=NUM_BPTT_CHUNKS,
+        lr=mlt.ParamExplore(base=1e-3, min_scale=0.1, max_scale=10.0,
+                            log10_scale=True),
+        gamma=0.99, gae_lambda=0.95, seed=0, metrics_buffer_size=1,
+        algo=mlt.PPOConfig(num_epochs=1, minibatch_size=PBT_MINIBATCH,
+                           clip_coef=CLIP_COEF, value_loss_coef=0.5,
+                           entropy_coef=0.01, max_grad_norm=0.5),
+        pbt=mlt.PBTConfig(num_teams=2, team_size=1,
+                          num_train_policies=PBT_TRAIN,
+                          num_past_policies=PBT_PAST, self_play_portion=sp,
+                          cross_play_portion=cp, past_play_portion=pp,
+                          # As tests/test_pbt_e2e.py: the cull then copies
+                          # whenever the top policy is not below the
+                          # bottom one, so the copy checks run.
+                          policy_overwrite_threshold=0.5),
+        dreamer_v3_critic=False, compute_dtype=torch.bfloat16)
+    policy = mlt.Policy(
+        actor_critic=_pbt_actor_critic,
+        obs_preprocess=mlt.ObservationsCaster.create(dtype=torch.bfloat16),
+        get_episode_scores=_duel_scores)
+    sim_fns = make_duel_env(ToyEnvConfig(
+        num_worlds=NUM_WORLDS, episode_len=32, num_teams=2, team_size=1,
+        seed=0), device="cuda")
+    return mlt.init_training(
+        "cuda", cfg, sim_fns, policy,
+        torch.zeros((1,), dtype=torch.int32, device="cuda"),
+        user_hooks=hooks)
+
+
+class _AssignmentChecks:
+    """While ``active``, checks the assignments after every rollout step
+    (wrapping the rollout's ``pbt_update_matchmaking``) on the device,
+    folding the results into ``ok`` without a host synchronization
+    (``verify`` reads them), and counts the steps' ``[P]`` host copies
+    (``_PolicyRows``, one each). With ``route_pending`` set, the first
+    step of the next rollout loop that starts past step 0 is also checked
+    for which policy ran which rows (``check_routes``)."""
+
+    NAMES = ("self-play block constant", "team 0 of cross play kept",
+             "team 0 of past play kept", "cross opponents in [0, 8)",
+             "cross opponents differ from team 0",
+             "past opponents in [8, 12)", "train agents play their policy")
+
+    def __init__(self, mgr):
+        import torch
+        import madrona_learn_tpu_torch.rollouts as rollouts
+
+        self.rollouts = rollouts
+        self.active = False
+        self.steps_checked = 0
+        self.host_copies = 0
+        cfg = mgr.rollout.cfg
+        self.pbt = cfg.pbt
+        self.initial = mgr.rollout.policy_assignments.clone()
+        self.ok = torch.ones(len(self.NAMES), dtype=torch.bool,
+                             device="cuda")
+        idx = rollouts._compute_sim_to_train_indices(cfg).cuda()
+        if idx.shape != (PBT_TRAIN, PBT_TRAIN_AGENTS):
+            raise AssertionError(f"headline_pbt: train agents a policy "
+                                 f"{tuple(idx.shape)}")
+        self.train_idx = idx
+        self.policy_ids = torch.arange(PBT_TRAIN, device="cuda")[:, None]
+        self.update = rollouts.pbt_update_matchmaking
+        self.rows = rollouts._PolicyRows
+        self.loop = rollouts.population_rollout_loop
+        self.route_pending = False
+        self.route_report = None
+        checks = self
+
+        def update(assignments, dones, generator, mm_cfg):
+            out = checks.update(assignments, dones, generator, mm_cfg)
+            if checks.active:
+                checks.check(out)
+            return out
+
+        class CountedRows(self.rows):
+            def __init__(self, *args):
+                super().__init__(*args)
+                checks.host_copies += 1
+
+        def loop(rollout_state, population, num_steps, post_inference_cb,
+                 post_step_cb, cb_state, start_step_idx=0, **kwargs):
+            if checks.route_pending and start_step_idx > 0:
+                checks.route_pending = False
+                rnn = rollout_state.rnn_states
+                assignments = rollout_state.policy_assignments
+                value_fn = kwargs.get("value_fn", rollouts._value_estimate)
+                emit = post_inference_cb
+
+                def post_inference_cb(step_idx, obs, pre, out, state):
+                    if step_idx == start_step_idx:
+                        checks.check_routes(population, rnn, assignments,
+                                            pre, out["critic"], value_fn)
+                    return emit(step_idx, obs, pre, out, state)
+            return checks.loop(rollout_state, population, num_steps,
+                               post_inference_cb, post_step_cb, cb_state,
+                               start_step_idx=start_step_idx, **kwargs)
+
+        rollouts.pbt_update_matchmaking = update
+        rollouts._PolicyRows = CountedRows
+        rollouts.population_rollout_loop = loop
+
+    def restore(self):
+        self.rollouts.pbt_update_matchmaking = self.update
+        self.rollouts._PolicyRows = self.rows
+        self.rollouts.population_rollout_loop = self.loop
+
+    def check_routes(self, population, rnn, assignments, pre, values,
+                     value_fn):
+        """Every row's value at this step is its own policy's: each
+        policy's module runs over all rows (T = 1, the state before the
+        step) and row i is read from policy ``assignments[i]``'s output.
+        The check must be able to fail: the rows of every policy, read
+        from the next policy's output instead, must lie more than twice
+        the tolerance away. The launches made here are not counted."""
+        import torch
+        from madrona_learn_tpu_torch.ops.cuda import KERNELS
+
+        saved = [(k, k.launches, k.tc_launches) for k in KERNELS]
+        num_policies = PBT_TRAIN + PBT_PAST
+        with torch.no_grad():
+            outs = torch.stack([value_fn(population[q].actor_critic
+                                         .critic_only(rnn, pre)[0]["critic"])
+                                for q in range(num_policies)]).float()
+        for k, launches, tc_launches in saved:
+            k.launches, k.tc_launches = launches, tc_launches
+        a = assignments.long()
+        rows = torch.arange(a.shape[0], device=a.device)
+        values = values.float()
+        err = float((outs[a, rows] - values).abs().max())
+        wrong = (outs[(a + 1) % num_policies, rows] - values).abs()
+        sep = [float(wrong[a == p].max()) for p in range(num_policies)]
+        tol = TOL[("fwd", "bfloat16")]["atol"]
+        self.route_report = (err, min(sep))
+        log(f"  rows by policy at one rollout step: max |value - its "
+            f"policy's| {err:.3e} (tolerance {tol}); read from the next "
+            f"policy, each policy's rows would differ by at least "
+            f"{min(sep):.3e}")
+        if not err <= tol:
+            raise AssertionError(f"headline_pbt: a row's value is not its "
+                                 f"policy's ({err:.3e} > {tol})")
+        if not min(sep) > 2 * tol:
+            raise AssertionError(f"headline_pbt: the routing check cannot "
+                                 f"tell the policies apart ({sep})")
+
+    def check(self, a):
+        import torch
+
+        pbt = self.pbt
+        self_end = pbt.self_play_batch_size
+        cross_end = self_end + pbt.cross_play_batch_size
+        past_end = cross_end + pbt.past_play_batch_size
+        init = self.initial
+        cross = a[self_end:cross_end].reshape(-1, 2)
+        past = a[cross_end:past_end].reshape(-1, 2)
+        init_cross = init[self_end:cross_end].reshape(-1, 2)
+        init_past = init[cross_end:past_end].reshape(-1, 2)
+        self.ok &= torch.stack([
+            (a[:self_end] == init[:self_end]).all(),
+            (cross[:, 0] == init_cross[:, 0]).all(),
+            (past[:, 0] == init_past[:, 0]).all(),
+            ((cross[:, 1] >= 0) & (cross[:, 1] < PBT_TRAIN)).all(),
+            (cross[:, 1] != cross[:, 0]).all(),
+            ((past[:, 1] >= PBT_TRAIN)
+             & (past[:, 1] < PBT_TRAIN + PBT_PAST)).all(),
+            (a[self.train_idx] == self.policy_ids).all()])
+        self.steps_checked += 1
+
+    def verify(self):
+        failed = [name for name, ok in zip(self.NAMES, self.ok.tolist())
+                  if not ok]
+        if failed:
+            raise AssertionError(f"headline_pbt: assignments: {failed} "
+                                 f"failed within {self.steps_checked} "
+                                 f"steps")
+
+
+def pbt_phase(card):
+    """headline_pbt (phase 11 of the module docstring)."""
+    import torch
+    import madrona_learn_tpu_torch as mlt
+    from madrona_learn_tpu_torch.ops.cuda import KERNELS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    timer = _phase_timer()
+    mgr = build_headline_pbt(timer)
+    checks = _AssignmentChecks(mgr)
+    try:
+        return _pbt_phase(card, mgr, timer, checks)
+    finally:
+        checks.restore()
+
+
+def _pbt_phase(card, mgr, timer, checks):
+    import torch
+    import madrona_learn_tpu_torch as mlt
+    from madrona_learn_tpu_torch.ops.cuda import KERNELS
+
+    trials, timed_updates = 2, 5
+    num_updates = 1 + trials * timed_updates
+    present = PBT_TRAIN + PBT_PAST
+    per_update = {k.name: 0 for k in KERNELS}
+    per_update.update({
+        "gae": 1,
+        "lstm_sequence_fwd": (STEPS_PER_UPDATE * present + PBT_TRAIN
+                              + PBT_TRAIN * NUM_MINIBATCHES),
+        "lstm_sequence_bwd": PBT_TRAIN * NUM_MINIBATCHES})
+    agents = NUM_WORLDS * 2
+    log(f"headline_pbt trainer: {NUM_WORLDS} worlds x 2 agents, "
+        f"{PBT_TRAIN} train + {PBT_PAST} past policies, portions "
+        f"{PBT_PORTIONS}, T={STEPS_PER_UPDATE} in "
+        f"{NUM_BPTT_CHUNKS} chunks, bf16, {NUM_MINIBATCHES} minibatches of "
+        f"{PBT_MINIBATCH} a policy; expected launches per update "
+        f"{ {k: v for k, v in per_update.items() if v} }")
+    lrs = [float(ts.hyper_params.lr) for ts in mgr.state.train_states]
+    log(f"  learning rates drawn: {[f'{lr:.3e}' for lr in lrs]}")
+    if len(set(lrs)) != PBT_TRAIN or not all(1e-4 <= lr <= 1e-2
+                                             for lr in lrs):
+        raise AssertionError(f"headline_pbt: learning rates {lrs}")
+
+    losses, rewards = [], []
+
+    def one_update():
+        mgr.update_iter()
+        stats = mgr.first_minibatch_stats
+        losses.append(torch.stack([s["loss"] for s in stats]))
+        rewards.append(mgr.metrics.latest("Rewards").mean.mean())
+
+    for k in KERNELS:
+        k.launches = 0
+        k.tc_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    # Every training step's assignments are checked, on the device, and
+    # the warm-up's second BPTT chunk's first step for the rows each
+    # policy ran.
+    checks.active = True
+    checks.route_pending = True
+    t0 = time.perf_counter()
+    one_update()
+    torch.cuda.synchronize()
+    checks.verify()
+    if checks.route_report is None:
+        raise AssertionError("headline_pbt: the routing check did not run")
+    log(f"  warm-up update: {time.perf_counter() - t0:.3f} s")
+    ratios = [s["max_abs_ratio_dev"].item()
+              for s in mgr.first_minibatch_stats]
+    log(f"  first update, first minibatch, max |ratio - 1| by train "
+        f"policy: {[f'{r:.3e}' for r in ratios]}")
+    if not all(r < CLIP_COEF for r in ratios):
+        raise AssertionError(f"headline_pbt: first-minibatch max |ratio - "
+                             f"1| {ratios} not all below {CLIP_COEF}")
+
+    trial_s = []
+    copies_before = checks.host_copies
+    for _ in range(trials):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed_updates):
+            one_update()
+        torch.cuda.synchronize()
+        trial_s.append(time.perf_counter() - t0)
+        for metric, m in mgr.metrics.metrics.items():
+            if not bool(torch.isfinite(m.mean).all()):
+                raise AssertionError(f"headline_pbt: metric {metric} is "
+                                     f"not finite")
+    copies_per_update = ((checks.host_copies - copies_before)
+                         / (trials * timed_updates))
+    launches = {k.name: k.launches for k in KERNELS}
+    tc_launches = {k.name: k.tc_launches for k in KERNELS
+                   if k.name in TC_ROUTED}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss_hist = torch.stack(losses).float().cpu()
+    if not bool(torch.isfinite(loss_hist).all()):
+        raise AssertionError(f"headline_pbt: non-finite loss: "
+                             f"{loss_hist.tolist()}")
+    for kernel, per in per_update.items():
+        if launches[kernel] != per * num_updates:
+            raise AssertionError(
+                f"headline_pbt: {kernel}: {launches[kernel]} launches over "
+                f"{num_updates} updates, expected {per * num_updates}")
+    for kernel, tc in tc_launches.items():
+        if tc != launches[kernel]:
+            raise AssertionError(
+                f"headline_pbt: {kernel}: {tc} of {launches[kernel]} "
+                f"launches on the tensor-core route")
+    log(f"  launches over {num_updates} updates: "
+        f"{ {k: v for k, v in launches.items() if v} }, all on the "
+        f"tensor-core route where it exists")
+    checks.verify()
+    log(f"  [P] host copies a collect: {copies_per_update:.1f} (one a "
+        f"step); assignments held after each of {checks.steps_checked} "
+        f"steps")
+    counts = torch.bincount(mgr.rollout.policy_assignments.long(),
+                            minlength=PBT_TRAIN + PBT_PAST)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        counts.tolist()
+    log(f"  one [P] host copy alone, the stream idle: "
+        f"{(time.perf_counter() - t0) * 1e4:.1f} us")
+    sps = [timed_updates * STEPS_PER_UPDATE * agents / s for s in trial_s]
+    log(f"  trials: "
+        f"{[f'{s * 1e3 / timed_updates:.1f} ms/update' for s in trial_s]}")
+    log(f"  headline_pbt agent-steps/s (best of {trials}x{timed_updates}): "
+        f"{max(sps):.0f} on {card}")
+    log(f"  peak device memory: {peak_gib:.2f} GiB")
+    log(f"  mean reward by update (zero-sum, logged only): "
+        f"{[round(float(r), 4) for r in rewards]}")
+
+    timer.active = True
+    for _ in range(3):
+        one_update()
+    timer.mark("end")
+    timer.active = False
+    spans = {}
+    for (span, t), (_, t_next) in zip(timer.marks, timer.marks[1:]):
+        spans.setdefault(span, []).append((t_next - t) * 1e3)
+    log(f"  phase split (ms, synchronized): "
+        f"{ {k: [round(v, 2) for v in vs] for k, vs in spans.items()} }")
+    _profile_update(one_update)
+
+    # The tournament's static matchmaking has its own invariants.
+    checks.active = False
+    checks.verify()
+    zeros = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr, deltas = mlt.eval_elo(mgr, PBT_EVAL_STEPS, zeros, zeros)
+    torch.cuda.synchronize()
+    elos = mgr.state.policy_states.mmr.elo
+    log(f"  eval_elo over {PBT_EVAL_STEPS} steps: "
+        f"{time.perf_counter() - t0:.3f} s, Elo "
+        f"{[round(e, 2) for e in elos.tolist()]}")
+    if not bool(torch.isfinite(elos).all()) or float(elos[0]) != 1500.0:
+        raise AssertionError(f"headline_pbt: Elo {elos.tolist()}")
+    if mgr.rollout.cfg.pbt.self_play_portion != PBT_PORTIONS[0] or \
+            mgr.rollout.cfg.pbt.static_play_portion != 0.0:
+        raise AssertionError("headline_pbt: training portions not "
+                             "restored after eval_elo")
+
+    population = mgr.state.policy_states
+    gens = [ts.generator for ts in mgr.state.train_states]
+    mlt.update_population(mgr)
+    log(f"  update_population copies (source, destination): "
+        f"{mgr.population_copies}")
+    if not any(dst < PBT_TRAIN for _, dst in mgr.population_copies):
+        raise AssertionError("headline_pbt: the cull copied nothing")
+    # A copy's source is not written after it is read (the past snapshot
+    # may read the cull's destination), so it still holds what it gave.
+    for src, dst in mgr.population_copies:
+        source = dict(population[src].actor_critic.named_parameters())
+        for name, p in population[dst].actor_critic.named_parameters():
+            if not torch.equal(p, source[name]):
+                raise AssertionError(f"headline_pbt: copy {src} -> {dst}: "
+                                     f"{name} not bitwise the source's")
+        if dst < PBT_TRAIN:
+            ts = mgr.state.train_states[dst]
+            if ts.generator is not gens[dst] or not math.isfinite(
+                    float(ts.hyper_params.lr)):
+                raise AssertionError(f"headline_pbt: copy {src} -> {dst}: "
+                                     f"generator or lr")
+    # Training goes on from the restored matchmaking.
+    checks.active = True
+    one_update()
+    checks.verify()
+    log(f"  assignments held after each of {checks.steps_checked} training "
+        f"steps")
+    return launches, dict(sps=max(sps), ratio_dev=max(ratios),
+                          peak_gib=peak_gib)
+
+
 def check_value_normalizer(mgr, updates_run, update_stats):
     """headline_valuenorm: the value normalizer's state is finite, folded
     in once a minibatch, and moved from its initial mu = 0, sigma = 1."""
@@ -2992,6 +3443,12 @@ def main():
         log(f"{name}: {r['sps']:.0f} env-steps/s (headline {headline_sps:.0f} "
             f"in this run), max |ratio - 1| {r['ratio_dev']:.3e}, peak "
             f"{r['peak_gib']:.2f} GiB on {card}")
+    launches, r = pbt_phase(card)
+    launches_by_path["headline_pbt"] = launches
+    log(f"headline_pbt: {r['sps']:.0f} agent-steps/s (headline "
+        f"{headline_sps:.0f} env-steps/s in this run), max |ratio - 1| over "
+        f"the train policies {r['ratio_dev']:.3e}, peak {r['peak_gib']:.2f} "
+        f"GiB on {card}")
 
     import torch
     from madrona_learn_tpu_torch.ops.cuda import KERNELS

@@ -1,29 +1,64 @@
 """madrona_learn_tpu_torch: the PyTorch + CUDA port of madrona_learn_tpu.
 
-The port runs the single-policy PPO path on one NVIDIA GPU: BPTT-chunked
-collection from a batched simulator (the toy gridworld), GAE and clipped
-PPO, for an MLP + LSTM actor-critic with a scalar critic (the ``bench.py``
-headline) or the flagship entity self-attention + LSTM actor-critic with
-the DreamerV3 two-hot critic. Its kernels are hand-written
+The port runs PPO on one NVIDIA GPU: BPTT-chunked collection from a batched
+simulator (the toy gridworld, the bidding duel, the native sim), GAE and
+clipped PPO, for an MLP + LSTM actor-critic with a scalar critic (the
+``bench.py`` headline) or the flagship entity self-attention + LSTM
+actor-critic with the DreamerV3 two-hot critic; for one policy or, with
+``TrainConfig.pbt``, a population-based training population of train and
+past policies in matchmade self, cross and past play, ranked by Elo or
+episode-score fitness, culled and snapshotted. Its kernels are hand-written
 CUDA for Hopper (``csrc/``), each with a plain PyTorch twin that CPU tensors
 take. Module names mirror the JAX package's, which stays the reference.
 """
 
-from .config import ContinuousActionsConfig, DiscreteActionsConfig, TrainConfig
-from .observations import ObservationsCaster, ObservationsEMANormalizer
+from .config import (ContinuousActionsConfig, DiscreteActionsConfig,
+                     ParamExplore, PBTConfig, TrainConfig)
+from .observations import (ObservationsCaster, ObservationsEMANormalizer,
+                           ObservationsPreprocess,
+                           ObservationsPreprocessNoop)
+from .pbt import (PBTMatchmakeConfig, pbt_cull_update,
+                  pbt_explore_hyperparams, pbt_init_matchmaking,
+                  pbt_past_update, pbt_update_elo, pbt_update_fitness,
+                  pbt_update_matchmaking)
 from .policy import Policy
 from .ppo import PPOConfig
-from .train import TrainHooks, TrainingManager, init_training
+from .rollouts import (RolloutConfig, RolloutData, RolloutManager,
+                       RolloutState, rollout_loop, rollouts_reset)
+from .train import (TrainHooks, TrainingManager, eval_elo, init_training,
+                    update_population)
+from .train_state import TrainStateManager
 
 __all__ = [
     "ContinuousActionsConfig",
     "DiscreteActionsConfig",
     "ObservationsCaster",
     "ObservationsEMANormalizer",
+    "ObservationsPreprocess",
+    "ObservationsPreprocessNoop",
+    "PBTConfig",
+    "PBTMatchmakeConfig",
     "PPOConfig",
+    "ParamExplore",
     "Policy",
+    "RolloutConfig",
+    "RolloutData",
+    "RolloutManager",
+    "RolloutState",
     "TrainConfig",
     "TrainHooks",
+    "TrainStateManager",
     "TrainingManager",
+    "eval_elo",
     "init_training",
+    "pbt_cull_update",
+    "pbt_explore_hyperparams",
+    "pbt_init_matchmaking",
+    "pbt_past_update",
+    "pbt_update_elo",
+    "pbt_update_fitness",
+    "pbt_update_matchmaking",
+    "rollout_loop",
+    "rollouts_reset",
+    "update_population",
 ]

@@ -22,6 +22,11 @@
   scaler) -> ``{"scale": float32, "fin_steps": int32}`` arrays, the port's
   ``ops/dynamic_scale.py`` state.
 - ``policy_slice``: strip the JAX package's leading policy axis.
+- A PBT population's own state, policy by policy after ``policy_slice``
+  or whole: ``fitness`` (the ``MMR`` Elo or the ``MovingEpisodeScore``
+  mean / var / N, ``[P]`` arrays), ``reward_hyper_params`` (``[P, R]`` or
+  ``None``) and ``hyper_params`` (one train policy's hyperparameters, each
+  a numpy scalar; ``lr`` and ``entropy_coef`` are what PBT searches).
 
 The caller turns the arrays into tensors (``torch.from_numpy``).
 """
@@ -81,3 +86,25 @@ def dynamic_scale_state(scaler) -> Dict[str, np.ndarray]:
 def obs_preprocess_state(state) -> Dict[str, Any]:
     """EMA normalizer state of one policy -> numpy arrays per obs key."""
     return {key: ema_state(est) for key, est in state.items()}
+
+
+def fitness(policy_states) -> Dict[str, np.ndarray]:
+    """The population's fitness: ``{"elo"}`` or ``{"mean", "var", "N"}``."""
+    if policy_states.mmr is not None:
+        return {"elo": np.array(policy_states.mmr.elo, dtype=np.float32)}
+    score = policy_states.episode_score
+    return {"mean": np.array(score.mean, dtype=np.float32),
+            "var": np.array(score.var, dtype=np.float32),
+            "N": np.array(score.N, dtype=np.int32)}
+
+
+def reward_hyper_params(policy_states):
+    """The ``[P, R]`` reward hyperparameters, or ``None``."""
+    params = policy_states.reward_hyper_params
+    return None if params is None else np.array(params, dtype=np.float32)
+
+
+def hyper_params(hp, index: int = 0) -> Dict[str, np.ndarray]:
+    """Train policy ``index``'s hyperparameters from the stacked ones."""
+    return {name: np.asarray(value)[index]
+            for name, value in vars(hp).items()}

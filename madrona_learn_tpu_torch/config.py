@@ -7,14 +7,16 @@ options (``dreamer_v3_critic``, on by default as in the JAX package, and
 value normalization, advantage filtering, trajectory importance sampling,
 stratified minibatches and ``compute_dtype`` (float16 turns on dynamic loss
 scaling; the model modules carry their own compute dtype) are ported with
-the JAX package's defaults. The PBT and mesh options of the JAX config are
-not ported yet, so they are absent rather than ignored; with no mesh,
+the JAX package's defaults. Population-based training is
+``TrainConfig.pbt`` (a ``PBTConfig``), with ``ParamExplore`` search spaces
+for ``lr`` and PPO's ``entropy_coef``. The mesh options of the JAX config
+are not ported, so they are absent rather than ignored; with no mesh,
 ``minibatch_stratify=None`` means one block.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Union
 
 import torch
@@ -50,20 +52,69 @@ class AlgoConfig:
 
 
 @dataclass(frozen=True)
+class ParamExplore:
+    """PBT search space of one scalar hyperparameter.
+
+    ``base * [min_scale, max_scale]`` is the resample range, sampled in
+    linear, log10 or ln space. Perturbation multiplies by
+    U[perturb_rnd_min, perturb_rnd_max], optionally clipped to the range.
+    """
+
+    base: float
+    min_scale: float
+    max_scale: float
+    log10_scale: bool = False
+    ln_scale: bool = False
+    clip_perturb: bool = False
+    perturb_rnd_min: float = 0.8
+    perturb_rnd_max: float = 1.2
+
+
+@dataclass(frozen=True)
+class PBTConfig:
+    """Population-based training: ``num_train_policies`` learning policies
+    and ``num_past_policies`` frozen snapshots, matched in self, cross and
+    past play (the portions sum to 1)."""
+
+    num_teams: int
+    team_size: int
+    num_train_policies: int
+    num_past_policies: int
+    self_play_portion: float
+    cross_play_portion: float
+    past_play_portion: float
+    # A copy (cull or past snapshot) happens only if the source's expected
+    # winrate over the destination reaches this threshold.
+    policy_overwrite_threshold: float = 0.7
+    reward_hyper_params_explore: Dict[str, ParamExplore] = field(
+        default_factory=dict)
+    # The JAX package's forced policy-chunk size. The port's rollout runs
+    # each policy once over its rows and no kernel reads a chunk size, so
+    # init_training refuses any value but 0.
+    rollout_policy_chunk_size_override: int = 0
+
+
+@dataclass(frozen=True)
 class TrainConfig:
-    """Top-level training config (single train policy)."""
+    """Top-level training config: one train policy, or a PBT population
+    with ``pbt``."""
 
     num_worlds: int
     num_agents_per_world: int
     actions: Dict[str, ActionsConfig]
     steps_per_update: int
-    lr: float
+    lr: Union[float, ParamExplore]
     algo: AlgoConfig
     num_bptt_chunks: int
     gamma: float
     seed: int
     metrics_buffer_size: int
     gae_lambda: float = 1.0
+    pbt: Optional[PBTConfig] = None
+    # The policy the Elo tournament pins at 1500, and the ids of policies
+    # outside the population that the simulator plays itself.
+    baseline_policy_id: int = 0
+    custom_policy_ids: List[int] = field(default_factory=list)
     # The critic returns a SymExpTwoHotDistribution (DreamerV3Critic):
     # values are its mean and the value loss is its two-hot cross entropy.
     dreamer_v3_critic: bool = True

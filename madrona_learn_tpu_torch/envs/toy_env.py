@@ -1,12 +1,17 @@
-"""The target-chasing gridworld (JAX: madrona_learn_tpu/envs/toy_env.py).
+"""The toy environments (JAX: madrona_learn_tpu/envs/toy_env.py).
 
-Single-team variant: obs are the egocentric delta to a target and the
+``make_toy_env``, the target-chasing gridworld: obs are the egocentric delta to a target and the
 episode's time fraction; the 5 discrete actions move the agent; the reward
 is the decrease in L1 distance plus 1 for sitting on the target. Finished
 agents respawn at positions drawn by a stateless hash of (row id, tick), the
 JAX package's uint32 hash evaluated in int64 masked to 32 bits. The start
 state is drawn from a ``torch.Generator`` seeded with ``cfg.seed``; it
 cannot match ``jax.random``, so parity tests inject the JAX start state.
+
+``make_duel_env``, the two-team bidding duel of the PBT path: every agent
+bids its discrete action each step, and at the episode's end the team with
+the higher summed bids wins (+1 / -1, 0 for a draw); ``episode_results``
+name the winning team of each world (-1 for a draw).
 """
 
 from __future__ import annotations
@@ -26,11 +31,17 @@ class ToyEnvConfig:
     num_worlds: int
     episode_len: int = 40
     grid_size: int = 8
+    num_teams: int = 1
+    team_size: int = 1
     seed: int = 0
 
     @property
+    def agents_per_world(self) -> int:
+        return self.num_teams * self.team_size
+
+    @property
     def batch_size(self) -> int:
-        return self.num_worlds
+        return self.num_worlds * self.agents_per_world
 
 
 def _hash_draw2(base, salts, grid_size):
@@ -45,6 +56,8 @@ def _hash_draw2(base, salts, grid_size):
 def make_toy_env(cfg: ToyEnvConfig, device="cuda"):
     """``sim_fns`` for the gridworld, with every tensor on ``device`` (the
     CUDA card unless the caller asks for another)."""
+    if cfg.agents_per_world != 1:
+        raise ValueError("the gridworld has one agent a world")
     B = cfg.batch_size
     moves = torch.tensor(_MOVES, dtype=torch.int32, device=device)
     salts_pos = torch.tensor([_SALTS_POS], dtype=torch.int64, device=device)
@@ -100,5 +113,53 @@ def make_toy_env(cfg: ToyEnvConfig, device="cuda"):
                      "rid": rid, "tick": tick}
         return {"state": new_state, "obs": _obs(pos, target, t),
                 "rewards": reward, "dones": dones}
+
+    return {"init": init_fn, "step": step_fn}
+
+
+def make_duel_env(cfg: ToyEnvConfig, device="cuda"):
+    """``sim_fns`` for the bidding duel, with every tensor on ``device``
+    (the CUDA card unless the caller asks for another)."""
+    if cfg.num_teams != 2:
+        raise ValueError(f"the duel needs 2 teams, not {cfg.num_teams}")
+    B, A = cfg.batch_size, cfg.agents_per_world
+    win = torch.tensor([[1.0, -1.0]], device=device)
+
+    def _obs(t, acc):
+        return {"time": t.to(torch.float32) / cfg.episode_len,
+                "acc": acc.to(torch.float32) / (cfg.episode_len * 4)}
+
+    def init_fn():
+        t = torch.zeros((B, 1), dtype=torch.int32, device=device)
+        acc = torch.zeros((B, 1), dtype=torch.int32, device=device)
+        return {"state": {"t": t, "acc": acc}, "obs": _obs(t, acc)}
+
+    def step_fn(step_input):
+        state = step_input["state"]
+        action = step_input["actions"]["move"][..., 0:1]  # [B, 1], 0..4
+        resets = step_input["resets"]  # [num_worlds, 1]
+
+        acc = state["acc"] + action
+        t = state["t"] + 1
+        episode_over = t >= cfg.episode_len
+        dones = episode_over | torch.repeat_interleave(
+            resets, A, dim=0).to(torch.bool)
+
+        team_sums = acc.reshape(-1, cfg.num_teams, cfg.team_size).sum(-1)
+        team0_wins = team_sums[:, 0] > team_sums[:, 1]
+        draw = team_sums[:, 0] == team_sums[:, 1]
+        team_reward = torch.where(
+            draw[:, None], 0.0, torch.where(team0_wins[:, None], win, -win))
+        agent_reward = torch.repeat_interleave(
+            team_reward.reshape(-1, 1), cfg.team_size, dim=0)
+        reward = torch.where(episode_over, agent_reward, 0.0)
+        episode_results = torch.where(
+            draw, -1, torch.where(team0_wins, 0, 1)).to(torch.int32)[:, None]
+
+        t = torch.where(dones, 0, t)
+        acc = torch.where(dones, 0, acc)
+        return {"state": {"t": t, "acc": acc}, "obs": _obs(t, acc),
+                "rewards": reward, "dones": dones,
+                "pbt": {"episode_results": episode_results}}
 
     return {"init": init_fn, "step": step_fn}

@@ -6,10 +6,13 @@ parallel-Welford combine, so partial metrics reduce exactly. In
 ``[num_policies, buffer_size]`` and every other field ``[buffer_size]``;
 ``record`` summarizes raw arrays (leading policy axis for per-policy
 metrics) into the current slot and ``advance`` moves to the next slot.
+``for_policy(p)`` is a view whose writes land in policy p's row, the one a
+PBT train policy's PPO update records into.
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, fields, replace
 from typing import Dict
 
@@ -103,11 +106,23 @@ class TrainingMetrics:
         self.update_idx = start_update_idx
         self.cur_buffer_offset = 0
         self.buffer_size = buffer_size
+        self._policies = slice(None)
+
+    def for_policy(self, p: int) -> "TrainingMetrics":
+        """A view of these metrics that writes per-policy metrics into
+        policy ``p``'s row only."""
+        view = copy.copy(self)
+        view._policies = slice(p, p + 1)
+        return view
 
     def _write(self, name, value: Metric):
         slot = self.metrics[name]
         for field, t in value.tensors().items():
-            getattr(slot, field)[..., self.cur_buffer_offset] = t
+            dst = getattr(slot, field)
+            if slot.per_policy:
+                dst[self._policies, self.cur_buffer_offset] = t
+            else:
+                dst[..., self.cur_buffer_offset] = t
 
     def update_metrics(self, metrics: Dict[str, Metric]):
         """Write pre-built Metric values into the current slot."""

@@ -46,12 +46,12 @@ from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
 from .algo import AlgoBase, HyperParams
-from .config import AlgoConfig, TrainConfig
+from .config import AlgoConfig, ParamExplore, TrainConfig
 from .ops.gae import zscore_data
 from .ops.metrics import Metric, TrainingMetrics
 from .utils import tree_map
@@ -67,7 +67,7 @@ class PPOConfig(AlgoConfig):
     minibatch_size: int
     clip_coef: float
     value_loss_coef: float
-    entropy_coef: float
+    entropy_coef: Union[float, ParamExplore]
     max_grad_norm: float
     clip_value_loss: bool = False
     huber_value_loss: bool = False
@@ -80,6 +80,16 @@ class PPOConfig(AlgoConfig):
 
     def setup(self):
         return PPO()
+
+    def explore_hyperparams(self, generator, hyper_params,
+                            resample_chance):
+        """PBT's mutation of PPO's own hyperparameters."""
+        if isinstance(self.entropy_coef, ParamExplore):
+            from .pbt import explore_param
+            hyper_params.entropy_coef = explore_param(
+                generator, hyper_params.entropy_coef, self.entropy_coef,
+                resample_chance)
+        return hyper_params
 
 
 @dataclass
@@ -144,14 +154,19 @@ class PPO(AlgoBase):
             if cfg.normalize_values:
                 raise ValueError("normalize_values needs a scalar critic; "
                                  "the distributional critics refuse it")
+        # A searched hyperparameter starts at its base; PBT then draws it.
+        lr = cfg.lr.base if isinstance(cfg.lr, ParamExplore) else cfg.lr
+        entropy = cfg.algo.entropy_coef
+        if isinstance(entropy, ParamExplore):
+            entropy = entropy.base
         return PPOHyperParams(
-            lr=cfg.lr, gamma=cfg.gamma, gae_lambda=cfg.gae_lambda,
+            lr=lr, gamma=cfg.gamma, gae_lambda=cfg.gae_lambda,
             normalize_values=cfg.normalize_values,
             value_normalizer_decay=cfg.value_normalizer_decay,
             max_advantage_est_decay=cfg.max_advantage_est_decay,
             clip_coef=cfg.algo.clip_coef,
             value_loss_coef=cfg.algo.value_loss_coef,
-            entropy_coef=cfg.algo.entropy_coef,
+            entropy_coef=entropy,
             max_grad_norm=cfg.algo.max_grad_norm)
 
     def make_optimizer(self, hyper_params: PPOHyperParams) -> ClipAdam:

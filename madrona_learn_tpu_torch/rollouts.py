@@ -1,4 +1,4 @@
-"""The rollout engine, single-policy path (JAX: madrona_learn_tpu/rollouts.py).
+"""The rollout engine (JAX: madrona_learn_tpu/rollouts.py).
 
 Collection is a Python loop (outer over BPTT chunks, inner over steps) whose
 stacked per-step outputs form the trajectory store in the JAX package's
@@ -7,21 +7,34 @@ bootstrap value and GAE, the store is reshaped into per-policy training
 sequences ``[P, B*C, T/C, ...]`` with b-major rows (row = b*C + c), as the
 JAX package does.
 
-With one train policy and no matchmaking, sim order, policy order and train
-order coincide, so the reorder machinery of the PBT path is not needed
-here; it is ported with PBT.
+With one train policy and no matchmaking (``RolloutConfig.setup``), sim
+order, policy order and train order coincide. A PBT population
+(``RolloutConfig.setup_population``) plays matchmade matches: each step a
+stable sort of the assignments groups every policy's rows, in sim order,
+and every policy with agents in the step runs its own module once over its
+rows, so each kernel launches once per present policy per step. Which
+policies are present and how many rows each has comes to the host as one
+``[P]`` copy a step. (The padded policy-chunk layout of ``ops/reorder.py``
+joins to the same rows; it waits for a kernel that reads it.) Outputs
+return to sim order, where the recurrent state stays; the store keeps the
+train policies' team-0 agents in train order ``[P_train, A]``. Pure
+self-play across several train policies splits the batch into contiguous
+blocks, one a policy, with no sort.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from .config import ActionsConfig, DiscreteActionsConfig, TrainConfig
 from .ops.gae import compute_advantages, compute_returns
 from .ops.metrics import Metric, TrainingMetrics
+from .pbt import (PBTMatchmakeConfig, pbt_init_matchmaking,
+                  pbt_update_matchmaking)
 from .utils import tree_map, tree_stack
 
 # Rewards, returns, log-probs and advantages are stored in float32.
@@ -34,6 +47,9 @@ class RolloutConfig:
     num_worlds: int
     actions_cfg: Dict[str, ActionsConfig]
     reward_gamma: float
+    # The population's geometry (setup_population); None with one policy.
+    pbt: Optional[PBTMatchmakeConfig] = None
+    reward_dtype: torch.dtype = torch.float32
 
     @staticmethod
     def setup(num_worlds: int, agents_per_world: int,
@@ -46,6 +62,85 @@ class RolloutConfig:
             actions_cfg=actions_cfg,
             reward_gamma=reward_gamma,
         )
+
+    @staticmethod
+    def setup_population(num_current_policies: int, num_past_policies: int,
+                         num_teams: int, team_size: int, sim_batch_size: int,
+                         actions_cfg: Dict[str, ActionsConfig],
+                         self_play_portion: float, cross_play_portion: float,
+                         past_play_portion: float,
+                         static_play_portion: float,
+                         reward_gamma: float = 1.0, custom_policy_ids=(),
+                         reward_dtype: torch.dtype = torch.float32
+                         ) -> "RolloutConfig":
+        """A population's geometry: the matchmaking slices, each giving
+        every one of its policies agents."""
+        pbt = PBTMatchmakeConfig.setup(
+            num_current_policies, num_past_policies, num_teams, team_size,
+            sim_batch_size, self_play_portion, cross_play_portion,
+            past_play_portion, static_play_portion, custom_policy_ids)
+        if pbt.complex_matchmaking:
+            if num_teams < 2 or (num_current_policies < 2
+                                 and num_past_policies == 0):
+                raise ValueError(
+                    "matchmaking needs 2 teams and an opponent: more than "
+                    "one train policy or a past policy")
+            # The smallest per-policy share of any active play slice.
+            min_share = sim_batch_size // pbt.total_num_policies
+            for size, policies in (
+                    (pbt.self_play_batch_size, num_current_policies),
+                    (pbt.cross_play_batch_size, num_current_policies),
+                    (pbt.past_play_batch_size, num_past_policies),
+                    (pbt.static_play_batch_size, pbt.total_num_policies)):
+                if size > 0:
+                    min_share = min(min_share, size // policies)
+            if min_share <= 0:
+                raise ValueError("a play slice gives a policy no agents")
+        elif num_past_policies:
+            raise ValueError("past policies need cross or past play")
+        return RolloutConfig(
+            sim_batch_size=sim_batch_size,
+            num_worlds=sim_batch_size // (num_teams * team_size),
+            actions_cfg=actions_cfg,
+            reward_gamma=reward_gamma,
+            pbt=pbt,
+            reward_dtype=reward_dtype,
+        )
+
+
+class _PolicyRows:
+    """The sim rows, in sim order, that each policy present in a step runs
+    on, and the way back to sim order."""
+
+    def __init__(self, rollout_cfg: RolloutConfig,
+                 assignments: torch.Tensor):
+        pbt = rollout_cfg.pbt
+        if not pbt.complex_matchmaking:
+            n = rollout_cfg.sim_batch_size // pbt.num_current_policies
+            self.rows = [(p, slice(p * n, (p + 1) * n))
+                         for p in range(pbt.num_current_policies)]
+            self.inverse = None
+            return
+        # The step's one device-to-host copy: [P] agent counts.
+        counts = torch.bincount(assignments.long(),
+                                minlength=pbt.total_num_policies).tolist()
+        perm = torch.argsort(assignments, stable=True)
+        self.rows = [(p, rows) for p, rows in
+                     enumerate(torch.split(perm, counts)) if counts[p]]
+        self.inverse = torch.empty_like(perm)
+        self.inverse[perm] = torch.arange(perm.shape[0], device=perm.device)
+
+    def gather(self, tree, rows):
+        return tree_map(lambda x: x[rows], tree)
+
+    def to_sim(self, parts):
+        """Per-policy outputs, in ``rows`` order -> one tree in sim
+        order."""
+        def merge(*xs):
+            x = torch.cat(xs) if len(xs) > 1 else xs[0]
+            return x if self.inverse is None else x[self.inverse]
+
+        return tree_map(merge, *parts)
 
 
 @dataclass
@@ -65,10 +160,22 @@ class RolloutState:
 
     @staticmethod
     def create(rollout_cfg: RolloutConfig, sim_fns, generator, rnn_states,
-               init_sim_ctrl) -> "RolloutState":
-        init_out = sim_fns["init"]()
+               init_sim_ctrl,
+               static_play_assignments: Optional[torch.Tensor] = None
+               ) -> "RolloutState":
+        """With a population (``rollout_cfg.pbt``), the first
+        matchmaking draws from ``generator`` and the assignments are a
+        ``[sim_batch_size]`` vector; otherwise they are zeros
+        ``[sim_batch_size, 1]``."""
         device = init_sim_ctrl.device
         B = rollout_cfg.sim_batch_size
+        if rollout_cfg.pbt is None:
+            assignments = torch.zeros((B, 1), dtype=torch.int32,
+                                      device=device)
+        else:
+            assignments = pbt_init_matchmaking(
+                generator, rollout_cfg.pbt, static_play_assignments)
+        init_out = sim_fns["init"]()
         return RolloutState(
             cfg=rollout_cfg,
             step_fn=sim_fns["step"],
@@ -76,11 +183,28 @@ class RolloutState:
             cur_obs=init_out["obs"],
             generator=generator,
             rnn_states=rnn_states,
-            policy_assignments=torch.zeros((B, 1), dtype=torch.int32,
-                                           device=device),
+            policy_assignments=assignments,
             sim_ctrl=init_sim_ctrl,
-            env_returns=torch.zeros((B, 1), dtype=_F32, device=device),
+            env_returns=torch.zeros((B, 1), dtype=rollout_cfg.reward_dtype,
+                                    device=device),
         )
+
+    def update_matchmaking(self, self_play_portion: float,
+                           cross_play_portion: float,
+                           past_play_portion: float,
+                           static_play_portion: float,
+                           policy_assignments: torch.Tensor):
+        """Switch the play portions (training <-> the all-pairs Elo
+        tournament) and the assignments, in place."""
+        pbt = self.cfg.pbt
+        new_pbt = PBTMatchmakeConfig.setup(
+            pbt.num_current_policies, pbt.num_past_policies, pbt.num_teams,
+            pbt.team_size, self.cfg.sim_batch_size, self_play_portion,
+            cross_play_portion, past_play_portion, static_play_portion,
+            pbt.custom_policy_ids)
+        self.cfg = dataclasses.replace(self.cfg, pbt=new_pbt)
+        self.policy_assignments = policy_assignments
+        return self
 
 
 class RolloutData:
@@ -132,7 +256,14 @@ def rollout_loop(rollout_state: RolloutState, policy_state, num_steps: int,
 
     Returns ``(rollout_state, cb_state, (inference_emits, step_emits))``
     with the emits stacked along a leading time axis.
+
+    With a population (``rollout_state.cfg.pbt``), ``policy_state`` is the
+    ``Population`` and the loop is ``population_rollout_loop``'s.
     """
+    if rollout_state.cfg.pbt is not None:
+        return population_rollout_loop(
+            rollout_state, policy_state, num_steps, post_inference_cb,
+            post_step_cb, cb_state, start_step_idx)
     cfg = rollout_state.cfg
     actor_critic = policy_state.actor_critic
     inference_emits, step_emits = [], []
@@ -178,10 +309,116 @@ def rollout_loop(rollout_state: RolloutState, policy_state, num_steps: int,
                                      tree_stack(step_emits))
 
 
+def _value_estimate(critic_out):
+    """A distributional critic's mean, or the scalar critic's output."""
+    return (critic_out if isinstance(critic_out, torch.Tensor)
+            else critic_out.mean())
+
+
+def _pbt_inputs(population, assignments):
+    inputs = {"policy_assignments": assignments}
+    if population.reward_hyper_params is not None:
+        inputs["reward_hyper_params"] = population.reward_hyper_params
+    return inputs
+
+
+def population_rollout_loop(rollout_state: RolloutState, population,
+                            num_steps: int, post_inference_cb: Callable,
+                            post_step_cb: Callable, cb_state: Any,
+                            start_step_idx: int = 0,
+                            value_fn: Callable = _value_estimate):
+    """``rollout_loop`` over a population, everything in sim order:
+
+    - ``post_inference_cb(step_idx, obs, preprocessed_obs, policy_out,
+      cb_state) -> (cb_state, emit)``, with ``policy_out["critic"]`` the
+      values (``value_fn`` of each policy's critic output);
+    - ``post_step_cb(step_idx, rollout_state, dones, rewards,
+      episode_results, cb_state) -> (rollout_state, cb_state, emit)``,
+      after the matchmaking of the next step.
+
+    Actions are sampled from ``rollout_state.generator`` and matchmaking
+    draws from it too.
+    """
+    cfg = rollout_state.cfg
+    clear = population[0].actor_critic.clear_recurrent_state
+    inference_emits, step_emits = [], []
+    with torch.no_grad():
+        for step_idx in range(start_step_idx, start_step_idx + num_steps):
+            obs = rollout_state.cur_obs
+            batches = _PolicyRows(cfg, rollout_state.policy_assignments)
+            pre_parts, out_parts, rnn_parts = [], [], []
+            for p, rows in batches.rows:
+                policy = population[p]
+                pre = policy.obs_preprocess.preprocess(
+                    policy.obs_preprocess_state, batches.gather(obs, rows))
+                out, rnn = policy.actor_critic.rollout(
+                    rollout_state.generator,
+                    batches.gather(rollout_state.rnn_states, rows), pre)
+                out["critic"] = value_fn(out["critic"])
+                pre_parts.append(pre)
+                out_parts.append(out)
+                rnn_parts.append(rnn)
+            preprocessed = batches.to_sim(pre_parts)
+            policy_out = batches.to_sim(out_parts)
+            rnn_states = batches.to_sim(rnn_parts)
+            cb_state, emit = post_inference_cb(
+                step_idx, obs, preprocessed, policy_out, cb_state)
+            inference_emits.append(emit)
+
+            assignments = rollout_state.policy_assignments
+            step_output = rollout_state.step_fn({
+                "state": rollout_state.sim_state,
+                "actions": policy_out["actions"],
+                "resets": torch.zeros((cfg.num_worlds, 1), dtype=torch.int32,
+                                      device=assignments.device),
+                "sim_ctrl": rollout_state.sim_ctrl,
+                "pbt": _pbt_inputs(population, assignments[:, None]),
+            })
+            dones = step_output["dones"].to(torch.bool)
+            rewards = step_output["rewards"].to(cfg.reward_dtype)
+            if cfg.reward_gamma == 1.0:
+                # No float promotion: integer rewards stay exact.
+                env_returns = rewards + rollout_state.env_returns
+            else:
+                env_returns = (rewards + cfg.reward_gamma
+                               * rollout_state.env_returns).to(
+                                   cfg.reward_dtype)
+            episode_results = step_output.get("pbt", {}).get(
+                "episode_results")
+
+            if cfg.pbt.complex_matchmaking:
+                assignments = pbt_update_matchmaking(
+                    assignments, dones, rollout_state.generator, cfg.pbt)
+            rollout_state.policy_assignments = assignments
+            rollout_state.rnn_states = clear(rnn_states, dones)
+            rollout_state.sim_state = step_output["state"]
+            rollout_state.cur_obs = step_output["obs"]
+            rollout_state.env_returns = env_returns
+
+            rollout_state, cb_state, emit = post_step_cb(
+                step_idx, rollout_state, dones, rewards, episode_results,
+                cb_state)
+            step_emits.append(emit)
+            rollout_state.env_returns = torch.where(
+                dones, 0, rollout_state.env_returns)
+
+    stack = lambda emits: (tree_stack(emits) if emits[0] is not None
+                           else None)
+    return rollout_state, cb_state, (stack(inference_emits),
+                                     stack(step_emits))
+
+
 def rollouts_reset(rollout_state: RolloutState, policy_state):
-    """Step the sim once with resets raised; clear returns and RNN state."""
+    """Step the sim once with resets raised; clear returns and RNN state.
+    ``policy_state`` may be a population."""
     cfg = rollout_state.cfg
     device = rollout_state.sim_ctrl.device
+    pbt_inputs = {"policy_assignments": torch.zeros(
+        (cfg.sim_batch_size, 1), dtype=torch.int32, device=device)}
+    if cfg.pbt is not None:
+        pbt_inputs = _pbt_inputs(policy_state,
+                                 pbt_inputs["policy_assignments"])
+        policy_state = policy_state[0]
 
     def zero_action(action_cfg):
         if isinstance(action_cfg, DiscreteActionsConfig):
@@ -197,8 +434,7 @@ def rollouts_reset(rollout_state: RolloutState, policy_state):
         "resets": torch.ones((cfg.num_worlds, 1), dtype=torch.int32,
                              device=device),
         "sim_ctrl": rollout_state.sim_ctrl,
-        "pbt": {"policy_assignments": torch.zeros(
-            (cfg.sim_batch_size, 1), dtype=torch.int32, device=device)},
+        "pbt": pbt_inputs,
     })
     dones = step_output["dones"].to(torch.bool)
     rollout_state.rnn_states = \
@@ -225,6 +461,12 @@ class RolloutManager:
         self._use_advantages = train_cfg.compute_advantages
         self._critic_outputs_distribution = (
             train_cfg.dreamer_v3_critic or train_cfg.hlgauss_critic)
+        if rollout_cfg.pbt is not None:
+            self._num_train_policies = rollout_cfg.pbt.num_current_policies
+            self._num_train_agents_per_policy = \
+                _compute_num_train_agents_per_policy(rollout_cfg)
+            self._sim_to_train_idxs = _compute_sim_to_train_indices(
+                rollout_cfg)
 
     def add_metrics(self, metrics: Dict[str, Metric]):
         names = ["Rewards", "Est Returns", "Env Returns", "Values",
@@ -253,8 +495,11 @@ class RolloutManager:
                 user_finish_rollouts_hook, user_metrics_hook):
         """One collect phase: (rollout_data, obs_stats). Updates
         ``rollout_state``, ``metrics`` and ``train_state_mgr.user_state``
-        in place."""
-        rollout_data, obs_stats, user_state = self._collect_impl(
+        in place. With a population, ``obs_stats`` is a list, one entry a
+        train policy."""
+        collect = (self._collect_impl if self._cfg.pbt is None
+                   else self._collect_population)
+        rollout_data, obs_stats, user_state = collect(
             train_state_mgr.policy_states, train_state_mgr.train_states,
             train_state_mgr.user_state, rollout_state, metrics,
             user_start_rollouts_hook, user_finish_rollouts_hook,
@@ -322,6 +567,91 @@ class RolloutManager:
             user_finish_rollouts_hook, user_metrics_hook)
         return rollout_data, cb_state["obs_stats"], user_state
 
+    def _collect_population(self, population, train_states, user_state,
+                            rollout_state, metrics, user_start_rollouts_hook,
+                            user_finish_rollouts_hook, user_metrics_hook):
+        rollout_state, user_state = user_start_rollouts_hook(
+            rollout_state, user_state)
+        P = self._num_train_policies
+        train_idxs = self._sim_to_train_idxs.to(
+            rollout_state.env_returns.device)
+
+        def to_train(tree):
+            """sim order [B, ...] -> train order [P_train, A, ...]."""
+            return tree_map(lambda x: x[train_idxs], tree)
+
+        def post_inference_cb(step_idx, obs, preprocessed_obs, policy_out,
+                              cb_state):
+            emit = to_train({
+                "obs": preprocessed_obs,
+                "actions": policy_out["actions"],
+                "log_probs": {k: v.to(_F32)
+                              for k, v in policy_out["log_probs"].items()},
+                "values": policy_out["critic"],
+            })
+            train_obs = to_train(obs)
+            cb_state["obs_stats"] = [
+                population[p].obs_preprocess.update_obs_stats(
+                    population[p].obs_preprocess_state, stats, step_idx,
+                    {k: v[p] for k, v in train_obs.items()})
+                for p, stats in enumerate(cb_state["obs_stats"])]
+            return cb_state, emit
+
+        def post_step_cb(step_idx, rollout_state, dones, rewards,
+                         episode_results, cb_state):
+            train_dones = to_train(dones)
+            cb_state["env_returns_metric"] = \
+                cb_state["env_returns_metric"].merge(
+                    Metric.init_from_data_masked(
+                        True, to_train(rollout_state.env_returns),
+                        train_dones, start_dim=1))
+            return rollout_state, cb_state, {"dones": train_dones,
+                                             "rewards": to_train(rewards)}
+
+        cb_state = {
+            "obs_stats": [population[p].obs_preprocess.init_obs_stats(
+                population[p].obs_preprocess_state) for p in range(P)],
+            "env_returns_metric": Metric.init(
+                True, (P,), device=rollout_state.env_returns.device),
+        }
+        chunks, rnn_start_states = [], []
+        for chunk in range(self._num_bptt_chunks):
+            rnn_start_states.append(to_train(rollout_state.rnn_states))
+            rollout_state, cb_state, (per_step, step_data) = \
+                population_rollout_loop(
+                    rollout_state, population, self._num_bptt_steps,
+                    post_inference_cb, post_step_cb, cb_state,
+                    start_step_idx=chunk * self._num_bptt_steps,
+                    value_fn=self._compute_value_estimate)
+            chunks.append(dict(per_step, **step_data))
+        # store leaves: [C, T/C, P, A, ...]; rnn_start_states: [C, P, A, ...]
+        store = tree_stack(chunks)
+        rnn_start_states = tree_stack(rnn_start_states)
+
+        metrics.update_metrics({
+            "Env Returns": cb_state["env_returns_metric"]})
+        with torch.no_grad():
+            rnn, obs = to_train((rollout_state.rnn_states,
+                                 rollout_state.cur_obs))
+            bootstrap_values = torch.stack([
+                self._critic_value(population[p],
+                                   tree_map(lambda x: x[p], rnn),
+                                   {k: v[p] for k, v in obs.items()})
+                for p in range(P)])
+        rollout_data, user_state = self._finalize_rollouts(
+            train_states[0].value_normalizer,
+            [ts.value_normalizer_state for ts in train_states],
+            store, rnn_start_states, bootstrap_values, metrics, user_state,
+            user_finish_rollouts_hook, user_metrics_hook)
+        return rollout_data, cb_state["obs_stats"], user_state
+
+    def _critic_value(self, policy_state, rnn_states, obs):
+        preprocessed = policy_state.obs_preprocess.preprocess(
+            policy_state.obs_preprocess_state, obs)
+        out, _ = policy_state.actor_critic.critic_only(rnn_states,
+                                                       preprocessed)
+        return self._compute_value_estimate(out["critic"])
+
     def _bootstrap_values(self, policy_state, rollout_state):
         """Critic value of the state after the last step: [P, B, 1]."""
         with torch.no_grad():
@@ -340,6 +670,14 @@ class RolloutManager:
         if value_normalizer is None:
             values = rollouts["values"]
             unnormalized_bootstrap = bootstrap_values
+        elif isinstance(value_normalizer_state, list):
+            # One normalizer state a train policy (axis 2 of the store).
+            values = torch.stack([
+                value_normalizer.invert(state, rollouts["values"][:, :, p])
+                for p, state in enumerate(value_normalizer_state)], dim=2)
+            unnormalized_bootstrap = torch.stack([
+                value_normalizer.invert(state, bootstrap_values[p])
+                for p, state in enumerate(value_normalizer_state)])
         else:
             values = value_normalizer.invert(value_normalizer_state,
                                              rollouts["values"])
@@ -386,3 +724,40 @@ class RolloutManager:
         return RolloutData(dict(rollouts,
                                 rnn_start_states=rnn_start_states)), \
             user_state
+
+
+# -- Train-order index math -------------------------------------------------
+
+def _compute_num_train_agents_per_policy(rollout_cfg: RolloutConfig) -> int:
+    """Only team 0 of cross- and past-play matches trains, which keeps each
+    train policy's batch the same size every step."""
+    pbt = rollout_cfg.pbt
+    total = (pbt.self_play_batch_size
+             + pbt.cross_play_batch_size // pbt.num_teams
+             + pbt.past_play_batch_size // pbt.num_teams)
+    if total % pbt.num_current_policies:
+        raise ValueError(f"{total} train agents do not divide among "
+                         f"{pbt.num_current_policies} train policies")
+    return total // pbt.num_current_policies
+
+
+def _compute_sim_to_train_indices(rollout_cfg: RolloutConfig):
+    """int64 ``[num_train_policies, num_train_agents_per_policy]``: each
+    train policy's training agents in sim order (its self-play block, then
+    team 0 of its cross- and past-play matches)."""
+    pbt = rollout_cfg.pbt
+    indices = torch.arange(rollout_cfg.sim_batch_size)
+    P = pbt.num_current_policies
+
+    def match_indices(start, stop):
+        return indices[start:stop].reshape(P, -1, pbt.num_teams,
+                                           pbt.team_size)
+
+    self_end = pbt.self_play_batch_size
+    cross_end = self_end + pbt.cross_play_batch_size
+    past_end = cross_end + pbt.past_play_batch_size
+    return torch.cat([
+        match_indices(0, self_end).reshape(P, -1),
+        match_indices(self_end, cross_end)[:, :, 0, :].reshape(P, -1),
+        match_indices(cross_end, past_end)[:, :, 0, :].reshape(P, -1)],
+        dim=1)

@@ -4,23 +4,32 @@
 the metrics and the update step into a ``TrainingManager`` whose
 ``update_iter`` runs one update: collect rollouts -> fold the obs
 statistics into the normalizer -> PPO -> advance the metrics ring buffer.
-The port runs eagerly on one device and updates the manager's state in
-place.
+With ``TrainConfig.pbt`` the population's hyperparameters are drawn at
+init, every train policy folds its own obs statistics and runs PPO on its
+own rollout data, train state and generator, ``eval_elo`` runs the
+all-pairs Elo tournament and ``update_population`` the cull and the past
+snapshot. The port runs eagerly on one device and updates the manager's
+state in place.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from .algo import AlgoBase
 from .config import TrainConfig
 from .envs.sim_interface import as_sim_fns
 from .ops.metrics import TrainingMetrics
+from .pbt import (pbt_cull_update, pbt_explore_hyperparams, pbt_past_update,
+                  pbt_update_elo)
 from .policy import Policy
-from .rollouts import RolloutConfig, RolloutManager, RolloutState
+from .rollouts import (RolloutConfig, RolloutManager, RolloutState,
+                       rollout_loop, rollouts_reset)
 from .train_state import TrainStateManager
 
 
@@ -67,8 +76,11 @@ class TrainingManager:
         self.update_idx = update_idx
         # Ratio diagnostics of the last update's first minibatch, with the
         # update's minibatches an epoch and, with a loss scaler, its count
-        # of non-finite steps (ppo._ppo).
-        self.first_minibatch_stats: Optional[Dict[str, Any]] = None
+        # of non-finite steps (ppo._ppo); with PBT a list, one entry a train
+        # policy.
+        self.first_minibatch_stats: Any = None
+        # The (source, destination) copies of the last update_population.
+        self.population_copies: List[Tuple[int, int]] = []
 
     def update_iter(self) -> "TrainingManager":
         self.first_minibatch_stats = _update_impl(
@@ -85,6 +97,10 @@ def _update_impl(algo: AlgoBase, cfg: TrainConfig, user_hooks: TrainHooks,
     rollout_data, obs_stats = rollout_mgr.collect(
         train_state_mgr, rollout_state, metrics, user_hooks.start_rollouts,
         user_hooks.finish_rollouts, user_hooks.rollout_metrics)
+    if cfg.pbt is not None:
+        return _update_population_policies(
+            algo, cfg, user_hooks, train_state_mgr, rollout_data, obs_stats,
+            metrics)
 
     # Learning consumes obs preprocessed with the old state, so folding the
     # streamed statistics now only affects the next collect phase.
@@ -98,6 +114,24 @@ def _update_impl(algo: AlgoBase, cfg: TrainConfig, user_hooks: TrainHooks,
                         metrics)
     metrics.advance()
     return stats
+
+
+def _update_population_policies(algo, cfg, user_hooks, train_state_mgr,
+                                rollout_data, obs_stats, metrics):
+    """Every train policy folds its obs statistics and runs PPO on its own
+    rollout data, train state and generator."""
+    population = train_state_mgr.policy_states
+    train_states = train_state_mgr.train_states
+    for p, stats in enumerate(obs_stats):
+        policy = population[p]
+        policy.obs_preprocess_state = policy.obs_preprocess.update_state(
+            policy.obs_preprocess_state, stats)
+    out = [algo.update(cfg, population[p], train_states[p],
+                       rollout_data.policy(p), user_hooks.optimize_metrics,
+                       metrics.for_policy(p))
+           for p in range(len(train_states))]
+    metrics.advance()
+    return out
 
 
 def resolve_device(dev) -> torch.device:
@@ -116,6 +150,9 @@ def init_training(dev, cfg: TrainConfig, sim_fns: Dict[str, Callable],
     RNGs are ``torch.Generator``s on ``dev`` seeded from ``cfg.seed``.
     """
     dev = resolve_device(dev)
+    if cfg.pbt is not None:
+        return _init_population_training(dev, cfg, sim_fns, policy,
+                                         init_sim_ctrl, user_hooks)
     algo = cfg.algo.setup()
     rollout_cfg = RolloutConfig.setup(
         num_worlds=cfg.num_worlds,
@@ -150,3 +187,178 @@ def init_training(dev, cfg: TrainConfig, sim_fns: Dict[str, Callable],
     return TrainingManager(
         state=train_state_mgr, rollout=rollout_state, metrics=metrics,
         cfg=cfg, algo=algo, rollout_mgr=rollout_mgr, user_hooks=user_hooks)
+
+
+def _init_population_training(dev, cfg: TrainConfig, sim_fns, policy,
+                              init_sim_ctrl, user_hooks):
+    """``init_training`` of a PBT population: the matchmade rollout, the
+    population and its train states, and each train policy's drawn
+    hyperparameters (resample chance 1, from the PBT generator)."""
+    pbt = cfg.pbt
+    if pbt.num_teams * pbt.team_size != cfg.num_agents_per_world:
+        raise ValueError("num_teams * team_size must equal "
+                         "num_agents_per_world")
+    if pbt.rollout_policy_chunk_size_override:
+        raise ValueError("rollout_policy_chunk_size_override: no kernel of "
+                         "the port reads a policy-chunk size; leave it 0")
+    algo = cfg.algo.setup()
+    rollout_cfg = RolloutConfig.setup_population(
+        num_current_policies=pbt.num_train_policies,
+        num_past_policies=pbt.num_past_policies,
+        num_teams=pbt.num_teams,
+        team_size=pbt.team_size,
+        sim_batch_size=cfg.sim_batch_size,
+        actions_cfg=cfg.actions,
+        self_play_portion=pbt.self_play_portion,
+        cross_play_portion=pbt.cross_play_portion,
+        past_play_portion=pbt.past_play_portion,
+        static_play_portion=0.0,
+        reward_gamma=cfg.gamma,
+        custom_policy_ids=cfg.custom_policy_ids)
+    rollout_state = RolloutState.create(
+        rollout_cfg=rollout_cfg,
+        sim_fns=as_sim_fns(sim_fns),
+        generator=torch.Generator(device=dev).manual_seed(2 * cfg.seed),
+        rnn_states=None,
+        init_sim_ctrl=init_sim_ctrl.to(dev))
+    train_state_mgr = TrainStateManager.create_population(
+        policy=policy, cfg=cfg, algo=algo,
+        init_user_state_cb=user_hooks.init_user_state,
+        example_obs=rollout_state.cur_obs, device=dev,
+        use_competitive_mmr=rollout_cfg.pbt.complex_matchmaking)
+    population = train_state_mgr.policy_states
+    rollout_state.rnn_states = population[0].actor_critic \
+        .init_recurrent_state(rollout_cfg.sim_batch_size, dev)
+    for p, train_state in enumerate(train_state_mgr.train_states):
+        pbt_explore_hyperparams(cfg, train_state_mgr.pbt_generator,
+                                population, p, train_state, 1.0)
+
+    rollout_mgr = RolloutManager(cfg, rollout_cfg)
+    metrics = algo.add_metrics(cfg, {})
+    metrics = rollout_mgr.add_metrics(metrics)
+    metrics = user_hooks.add_metrics(metrics)
+    metrics = TrainingMetrics(metrics, cfg.metrics_buffer_size, 0,
+                              pbt.num_train_policies, dev)
+    return TrainingManager(
+        state=train_state_mgr, rollout=rollout_state, metrics=metrics,
+        cfg=cfg, algo=algo, rollout_mgr=rollout_mgr, user_hooks=user_hooks)
+
+
+# -- The PBT outer loop: the Elo tournament and the population update ------
+
+@dataclass
+class MatchmakeEvalState:
+    policy_elos: torch.Tensor
+
+
+def _build_all_pairs_assignments(num_eval_policies: int, custom_policy_ids,
+                                 sim_batch_size: int, num_teams: int,
+                                 team_size: int, pair_offset: int = 0,
+                                 device=None) -> torch.Tensor:
+    """Every (team 0, team 1) pairing of the population and the custom
+    policies, cycled from ``pair_offset`` to fill the sim batch's match
+    slots; int32 ``[sim_batch_size]``. When the batch holds fewer slots
+    than pairings it warns: advance ``pair_offset`` each tournament to
+    rotate which pairings are dropped."""
+    pairs = []
+    for a in range(num_eval_policies):
+        for b in range(num_eval_policies):
+            pairs.extend([a, b])
+        for custom_id in custom_policy_ids:
+            pairs.extend([a, custom_id])
+    for custom_id in custom_policy_ids:
+        for b in range(num_eval_policies):
+            pairs.extend([custom_id, b])
+        for other in custom_policy_ids:
+            pairs.extend([custom_id, other])
+
+    num_match_slots = sim_batch_size // (team_size * num_teams)
+    pairs_arr = np.asarray(pairs, np.int32).reshape(-1, num_teams)
+    if num_match_slots < pairs_arr.shape[0]:
+        warnings.warn(
+            f"all-pairs eval underfilled: sim batch provides "
+            f"{num_match_slots} match slots but the tournament has "
+            f"{pairs_arr.shape[0]} pairings — each cycle drops "
+            f"{pairs_arr.shape[0] - num_match_slots} pairings (a "
+            f"pair_offset-dependent contiguous run of the pair list; "
+            f"advance eval_elo's pair_offset per cycle to rotate which). "
+            f"Elo updates are partial. Increase num_worlds or reduce the "
+            f"population for full coverage.", stacklevel=2)
+    slot_idx = (np.arange(num_match_slots) + int(pair_offset)) \
+        % pairs_arr.shape[0]
+    assignments = np.repeat(pairs_arr[slot_idx].reshape(-1), team_size)
+    if assignments.shape[0] != sim_batch_size:
+        raise ValueError(f"{assignments.shape[0]} assignments for a batch "
+                         f"of {sim_batch_size}")
+    return torch.from_numpy(assignments).to(device)
+
+
+def eval_elo(training_mgr: TrainingManager, num_eval_steps: int,
+             eval_sim_ctrl: torch.Tensor, train_sim_ctrl: torch.Tensor,
+             pair_offset: int = 0):
+    """The all-pairs tournament over ``num_eval_steps`` steps of static
+    matchmaking, from Elo 1500 for every policy; the ratings are then
+    re-baselined so that ``cfg.baseline_policy_id`` reads 1500, and become
+    the population's. The rollout is reset before and after, and training's
+    play portions and assignments are restored. Returns
+    ``(training_mgr, elo_deltas)``."""
+    cfg = training_mgr.cfg
+    population = training_mgr.state.policy_states
+    rollout_state = training_mgr.rollout
+    device = rollout_state.sim_ctrl.device
+    num_eval_policies = population.mmr.elo.shape[0]
+    pbt = rollout_state.cfg.pbt
+
+    rollouts_reset(rollout_state, population)
+    saved_portions = (pbt.self_play_portion, pbt.cross_play_portion,
+                      pbt.past_play_portion, pbt.static_play_portion)
+    saved_assignments = rollout_state.policy_assignments
+    rollout_state.update_matchmaking(
+        0.0, 0.0, 0.0, 1.0, _build_all_pairs_assignments(
+            num_eval_policies, cfg.custom_policy_ids,
+            cfg.sim_batch_size, pbt.num_teams, pbt.team_size,
+            pair_offset=pair_offset, device=device))
+
+    def post_inference_cb(step_idx, obs, preprocessed_obs, policy_out,
+                          eval_state):
+        return eval_state, None
+
+    def post_step_cb(step_idx, rollout_state, dones, rewards,
+                     episode_results, eval_state):
+        eval_state.policy_elos = pbt_update_elo(
+            population.get_episode_scores_fn,
+            rollout_state.policy_assignments, dones, episode_results,
+            eval_state.policy_elos, rollout_state.cfg.pbt)
+        return rollout_state, eval_state, None
+
+    eval_state = MatchmakeEvalState(policy_elos=torch.full(
+        (num_eval_policies + len(cfg.custom_policy_ids),), 1500.0,
+        dtype=torch.float32, device=device))
+    rollout_state.sim_ctrl = eval_sim_ctrl
+    rollouts_reset(rollout_state, population)
+    rollout_loop(rollout_state, population, num_eval_steps,
+                 post_inference_cb, post_step_cb, eval_state)
+    rollout_state.sim_ctrl = train_sim_ctrl
+    rollouts_reset(rollout_state, population)
+    rollout_state.update_matchmaking(*saved_portions, saved_assignments)
+
+    if 0 <= cfg.baseline_policy_id < num_eval_policies:
+        baseline_idx = cfg.baseline_policy_id
+    else:
+        baseline_idx = num_eval_policies + list(
+            cfg.custom_policy_ids).index(cfg.baseline_policy_id)
+    new_elos = eval_state.policy_elos
+    new_elos = (new_elos - new_elos[baseline_idx] + 1500)[:num_eval_policies]
+    elo_deltas = new_elos - population.mmr.elo
+    population.mmr.elo = new_elos
+    return training_mgr, elo_deltas
+
+
+def update_population(training_mgr: TrainingManager) -> TrainingManager:
+    """The cull (the lowest-fitness train policy overwritten by a mutated
+    copy of the highest) and the past snapshot; the copies made are in
+    ``training_mgr.population_copies``."""
+    state, cfg = training_mgr.state, training_mgr.cfg
+    training_mgr.population_copies = (pbt_cull_update(cfg, state, 1)
+                                      + pbt_past_update(cfg, state))
+    return training_mgr

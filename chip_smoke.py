@@ -124,7 +124,30 @@ Phases, in order; any failure raises and the script exits non-zero:
     checked on the device, read after each stage, the timed trials
     included), the Elo ratings are finite with policy 0 at 1500 and the
     training portions restored, and every copy of the population update
-    is bitwise, with a finite lr and the destination's own generator.
+    is bitwise, with a finite lr and the destination's own generator;
+12. checkpoint_eval: checkpoints and offline evaluation at full width,
+    each run with the launch counts set to 0 just before it and read just
+    after: (a) the headline after its warm-up and 2 updates is saved
+    (``save_ckpt``; bytes and time printed), its rollout state copied and
+    one more update run; a fresh headline built with
+    ``restore_ckpt=latest_checkpoint(...)`` must hold every tensor and
+    generator state of the save bitwise, and given the copied rollout
+    state its next update must launch exactly the headline's kernels
+    (``lstm_sequence_fwd`` 37, ``lstm_sequence_bwd`` 4, ``gae`` 1) and
+    leave every parameter bitwise the uninterrupted update's (max |delta|
+    printed); (b) ``eval_policies`` of that
+    checkpoint, the deterministic policy over 16384 worlds for 64 steps,
+    twice: ``lstm_sequence_fwd`` once a step and no other kernel, the two
+    runs' actions bitwise equal, eval env-steps/s printed; (c) the trained
+    headline_pbt population (8 + 4 policies) saved and restored into a
+    fresh manager, every tensor, Elo, hyperparameter and generator state
+    bitwise; (d) ``eval_load_ckpt(train_only=True)`` and a competitive
+    ``eval_policies`` over the duel at 16384 worlds x 2 agents for 32
+    steps: ``lstm_sequence_fwd`` once a policy a step, Elo returned at
+    1500; (e) headline_pbt with ``custom_policy_ids=[100]`` over a duel
+    that plays policy 100's rows with a fixed bid, and ``eval_elo`` over
+    32 steps: ``lstm_sequence_fwd`` once a population policy a step (the
+    custom policy runs no module), Elo finite with policy 0 at 1500.
 
 Each trainer phase sets every launch count to 0 just before it and checks
 just after it that every kernel of its path launched as often as the
@@ -146,6 +169,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2256,9 +2280,10 @@ def _toy_env(num_worlds=NUM_WORLDS):
 
 
 def _headline_trainer(hooks, cfg, actor_critic=None, obs_preprocess=None,
-                      sim_fns=None):
+                      sim_fns=None, restore_ckpt=None):
     """``init_training`` on the card: the headline's model, obs normalizer
-    and toy gridworld unless others are given."""
+    and toy gridworld unless others are given; from checkpoint
+    ``restore_ckpt`` if given."""
     import torch
     import madrona_learn_tpu_torch as mlt
 
@@ -2272,12 +2297,25 @@ def _headline_trainer(hooks, cfg, actor_critic=None, obs_preprocess=None,
     return mlt.init_training(
         "cuda", cfg, sim_fns or _toy_env(), policy,
         torch.zeros((1,), dtype=torch.int32, device="cuda"),
-        user_hooks=hooks)
+        user_hooks=hooks, restore_ckpt=restore_ckpt)
 
 
-def build_headline(hooks):
+def _headline_policy():
+    """The headline's policy: its MLP + LSTM (seed 0) and obs normalizer,
+    in bf16."""
+    import torch
+    import madrona_learn_tpu_torch as mlt
+
+    return mlt.Policy(
+        actor_critic=_small_actor_critic(torch.bfloat16, CHANNELS, seed=0),
+        obs_preprocess=mlt.ObservationsEMANormalizer.create(
+            decay=0.99999, dtype=torch.bfloat16))
+
+
+def build_headline(hooks, restore_ckpt=None):
     return _headline_trainer(hooks, _train_config([5],
-                                                  dreamer_v3_critic=False))
+                                                  dreamer_v3_critic=False),
+                             restore_ckpt=restore_ckpt)
 
 
 def build_headline_valuenorm(hooks):
@@ -2691,11 +2729,31 @@ def _duel_scores(er):
     return a, 1.0 - a
 
 
-def build_headline_pbt(hooks):
-    """BASELINE config #4 as ``benchmarks/profile_pbt.py`` builds it."""
+def _pbt_policy():
     import torch
     import madrona_learn_tpu_torch as mlt
+
+    return mlt.Policy(
+        actor_critic=_pbt_actor_critic,
+        obs_preprocess=mlt.ObservationsCaster.create(dtype=torch.bfloat16),
+        get_episode_scores=_duel_scores)
+
+
+def _duel_env():
     from madrona_learn_tpu_torch.envs import ToyEnvConfig, make_duel_env
+
+    return make_duel_env(ToyEnvConfig(
+        num_worlds=NUM_WORLDS, episode_len=32, num_teams=2, team_size=1,
+        seed=0), device="cuda")
+
+
+def build_headline_pbt(hooks, restore_ckpt=None, custom_policy_ids=(),
+                       sim_fns=None):
+    """BASELINE config #4 as ``benchmarks/profile_pbt.py`` builds it; from
+    checkpoint ``restore_ckpt`` if given, with ``custom_policy_ids`` over
+    ``sim_fns`` (the duel) if given."""
+    import torch
+    import madrona_learn_tpu_torch as mlt
 
     sp, cp, pp = PBT_PORTIONS
     cfg = mlt.TrainConfig(
@@ -2716,18 +2774,12 @@ def build_headline_pbt(hooks):
                           # whenever the top policy is not below the
                           # bottom one, so the copy checks run.
                           policy_overwrite_threshold=0.5),
-        dreamer_v3_critic=False, compute_dtype=torch.bfloat16)
-    policy = mlt.Policy(
-        actor_critic=_pbt_actor_critic,
-        obs_preprocess=mlt.ObservationsCaster.create(dtype=torch.bfloat16),
-        get_episode_scores=_duel_scores)
-    sim_fns = make_duel_env(ToyEnvConfig(
-        num_worlds=NUM_WORLDS, episode_len=32, num_teams=2, team_size=1,
-        seed=0), device="cuda")
+        dreamer_v3_critic=False, compute_dtype=torch.bfloat16,
+        custom_policy_ids=list(custom_policy_ids))
     return mlt.init_training(
-        "cuda", cfg, sim_fns, policy,
+        "cuda", cfg, sim_fns or _duel_env(), _pbt_policy(),
         torch.zeros((1,), dtype=torch.int32, device="cuda"),
-        user_hooks=hooks)
+        user_hooks=hooks, restore_ckpt=restore_ckpt)
 
 
 class _AssignmentChecks:
@@ -3070,7 +3122,300 @@ def _pbt_phase(card, mgr, timer, checks):
     log(f"  assignments held after each of {checks.steps_checked} training "
         f"steps")
     return launches, dict(sps=max(sps), ratio_dev=max(ratios),
-                          peak_gib=peak_gib)
+                          peak_gib=peak_gib, mgr=mgr)
+
+
+# checkpoint_eval: the eval steps of the headline's checkpoint, of the
+# competitive eval and of the custom-policy tournament.
+CKPT_EVAL_STEPS = 64
+COMPETITIVE_EVAL_STEPS = 32
+CUSTOM_EVAL_STEPS = 32
+CUSTOM_ID, CUSTOM_BID = 100, 2
+# The resumed update must equal the uninterrupted one bitwise: every
+# kernel of the update is deterministic at fixed shapes on one card (the
+# checks of phase 3: bitwise weight gradients over two calls, batch
+# invariance), and the resume restores every input of the update.
+
+
+def _launch_counts():
+    from madrona_learn_tpu_torch.ops.cuda import KERNELS
+
+    return ({k.name: k.launches for k in KERNELS},
+            {k.name: k.tc_launches for k in KERNELS if k.name in TC_ROUTED})
+
+
+def _zero_launch_counts():
+    from madrona_learn_tpu_torch.ops.cuda import KERNELS
+
+    for k in KERNELS:
+        k.launches = 0
+        k.tc_launches = 0
+
+
+def _check_launches(what, expected):
+    """The launches since the counts were last zeroed must be
+    ``expected`` (the others 0), each on the tensor-core route where the
+    kernel has one; returns them."""
+    launches, tc = _launch_counts()
+    want = {name: expected.get(name, 0) for name in launches}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{ {k: v for k, v in want.items() if v} }")
+    for name, n in tc.items():
+        if n != launches[name]:
+            raise AssertionError(f"{what}: {name}: {n} of "
+                                 f"{launches[name]} launches on the "
+                                 f"tensor-core route")
+    log(f"  {what}: launches {({k: v for k, v in launches.items() if v})}"
+        f", on the tensor-core route")
+    return launches
+
+
+def _tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_leaves(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_leaves(v, f"{prefix}{i}/")
+    else:
+        yield prefix, tree
+
+
+def _check_restored(what, got, want):
+    """Every tensor (and generator state) and scalar of two checkpoint
+    trees bitwise equal."""
+    import torch
+
+    got, want = dict(_tree_leaves(got)), dict(_tree_leaves(want))
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: restored entries differ: "
+                             f"{sorted(set(got) ^ set(want))[:8]}")
+    tensors = 0
+    for name, w in want.items():
+        g = got[name]
+        if isinstance(w, torch.Tensor):
+            tensors += 1
+            same = g.dtype == w.dtype and torch.equal(g, w)
+        else:
+            same = g == w
+        if not same:
+            raise AssertionError(f"{what}: {name} not restored bitwise")
+    log(f"  {what}: {tensors} tensors and {len(want) - tensors} scalars "
+        f"restored bitwise, generator states included")
+
+
+def _copy_rollout(rollout):
+    """A deep copy of a rollout state, its generator's state included."""
+    import copy
+    import dataclasses
+    import torch
+
+    generator = torch.Generator(device=rollout.generator.device)
+    generator.set_state(rollout.generator.get_state())
+    state = copy.deepcopy(dataclasses.replace(rollout, generator=None))
+    return dataclasses.replace(state, generator=generator)
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _fixed_bid_duel():
+    """The duel, with every row assigned ``CUSTOM_ID`` bidding
+    ``CUSTOM_BID``: the custom policy that the simulator plays."""
+    import torch
+
+    env = _duel_env()
+    step = env["step"]
+
+    def fixed_step(step_input):
+        move = step_input["actions"]["move"]
+        assignments = step_input["pbt"]["policy_assignments"].reshape(
+            move.shape[0], 1)
+        move = torch.where(assignments == CUSTOM_ID, CUSTOM_BID, move)
+        return step(dict(step_input, actions={"move": move}))
+
+    return dict(env, step=fixed_step)
+
+
+def checkpoint_eval_phase(card, pbt_mgr):
+    """checkpoint_eval (phase 12 of the module docstring); returns the
+    launches of its runs on the main path."""
+    import shutil
+
+    ckpt_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "_checkpoint_smoke")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    try:
+        return _checkpoint_eval_phase(card, pbt_mgr, ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+
+
+def _checkpoint_eval_phase(card, pbt_mgr, ckpt_root):
+    import torch
+    import madrona_learn_tpu_torch as mlt
+    from madrona_learn_tpu_torch.train import TrainHooks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+
+    # (a) headline resume.
+    headline_dir = os.path.join(ckpt_root, "headline")
+    mgr = build_headline(TrainHooks())
+    for _ in range(3):
+        mgr.update_iter()
+    _, save_ms = _timed(lambda: mgr.save_ckpt(headline_dir))
+    path = mlt.latest_checkpoint(headline_dir)
+    saved = mgr.state.checkpoint(mgr.update_idx)
+    rollout = _copy_rollout(mgr.rollout)
+    log(f"checkpoint_eval: headline checkpoint after the warm-up and 2 "
+        f"updates: {os.path.getsize(path)} bytes, saved in {save_ms:.1f} "
+        f"ms on {card}")
+    mgr.update_iter()
+    want = {name: p.detach().clone() for name, p in
+            mgr.state.policy_states.actor_critic.named_parameters()}
+    resumed = build_headline(TrainHooks(), restore_ckpt=path)
+    if resumed.update_idx != 3 or resumed.metrics.update_idx != 3:
+        raise AssertionError(f"checkpoint_eval: resumed at update "
+                             f"{resumed.update_idx}, not 3")
+    _check_restored("headline", resumed.state.checkpoint(3), saved)
+    _, load_ms = _timed(lambda: resumed.load_ckpt(path))
+    log(f"  headline load_ckpt: {load_ms:.1f} ms")
+    resumed.rollout = rollout
+    steps = STEPS_PER_UPDATE + 1 + NUM_MINIBATCHES
+    _zero_launch_counts()
+    resumed.update_iter()
+    add(_check_launches("resumed update", {
+        "gae": 1, "lstm_sequence_fwd": steps,
+        "lstm_sequence_bwd": NUM_MINIBATCHES}))
+    got = {name: p.detach() for name, p in
+           resumed.state.policy_states.actor_critic.named_parameters()}
+    delta = max(float((got[n].float() - w.float()).abs().max())
+                for n, w in want.items())
+    differ = [n for n, w in want.items() if not torch.equal(got[n], w)]
+    log(f"  resumed update against the uninterrupted one: parameters max "
+        f"|delta| {delta:.3e}, {len(want) - len(differ)} of {len(want)} "
+        f"bitwise equal")
+    if differ:
+        raise AssertionError(f"checkpoint_eval: the resumed update is not "
+                             f"bitwise the uninterrupted one: {differ[:4]}, "
+                             f"max |delta| {delta}")
+    del mgr, resumed, rollout
+
+    # (b) headline eval: the deterministic policy, twice.
+    eval_cfg = mlt.EvalConfig(
+        num_worlds=NUM_WORLDS, num_teams=1, team_size=1,
+        num_eval_steps=CKPT_EVAL_STEPS,
+        actions={"move": mlt.DiscreteActionsConfig(actions_num_buckets=[5])},
+        reward_gamma=0.99, policy_dtype=torch.bfloat16,
+        eval_competitive=False)
+    runs = []
+    for run in range(2):
+        states, n = mlt.eval_load_ckpt(_headline_policy(), path)
+        actions = []
+
+        def step_cb(step_data):
+            actions.append(step_data["actions"]["move"].clone())
+            return step_data["sim_state"]
+
+        _zero_launch_counts()
+        result, ms = _timed(lambda: mlt.eval_policies(
+            "cuda", eval_cfg, _toy_env(), _headline_policy(),
+            torch.zeros((1,), dtype=torch.int32, device="cuda"), states,
+            step_cb))
+        add(_check_launches(f"headline eval run {run + 1} "
+                            f"({CKPT_EVAL_STEPS} steps)",
+                            {"lstm_sequence_fwd": CKPT_EVAL_STEPS}))
+        runs.append(torch.stack(actions))
+        log(f"  headline eval run {run + 1}: {NUM_WORLDS} worlds x "
+            f"{CKPT_EVAL_STEPS} steps in {ms:.1f} ms: "
+            f"{NUM_WORLDS * CKPT_EVAL_STEPS / ms * 1e3:.0f} eval "
+            f"env-steps/s on {card}")
+    if n != 1 or result.tolist() != [0.0]:
+        raise AssertionError(f"checkpoint_eval: headline eval of {n} "
+                             f"policies returned {result.tolist()}")
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError("checkpoint_eval: two deterministic evals "
+                             "gave different actions")
+    log(f"  two headline evals: actions [steps, worlds, heads] "
+        f"{tuple(runs[0].shape)} bitwise equal")
+    del runs
+
+    # (c) headline_pbt checkpoint.
+    pbt_dir = os.path.join(ckpt_root, "headline_pbt")
+    _, save_ms = _timed(lambda: pbt_mgr.save_ckpt(pbt_dir))
+    path = mlt.latest_checkpoint(pbt_dir)
+    saved = pbt_mgr.state.checkpoint(pbt_mgr.update_idx)
+    log(f"  headline_pbt checkpoint ({PBT_TRAIN} + {PBT_PAST} policies): "
+        f"{os.path.getsize(path)} bytes, saved in {save_ms:.1f} ms on "
+        f"{card}")
+    fresh = build_headline_pbt(TrainHooks(), restore_ckpt=path)
+    _check_restored("headline_pbt", fresh.state.checkpoint(
+        pbt_mgr.update_idx), saved)
+    _, load_ms = _timed(lambda: fresh.load_ckpt(path))
+    log(f"  headline_pbt load_ckpt: {load_ms:.1f} ms")
+    del fresh
+
+    # (d) competitive eval of the train policies.
+    states, n = mlt.eval_load_ckpt(_pbt_policy(), path, train_only=True)
+    if n != PBT_TRAIN or len(states) != PBT_TRAIN:
+        raise AssertionError(f"checkpoint_eval: eval_load_ckpt gave {n} "
+                             f"policies")
+    competitive = mlt.EvalConfig(
+        num_worlds=NUM_WORLDS, num_teams=2, team_size=1,
+        num_eval_steps=COMPETITIVE_EVAL_STEPS,
+        actions={"move": mlt.DiscreteActionsConfig(actions_num_buckets=[5])},
+        reward_gamma=0.99, policy_dtype=torch.bfloat16,
+        eval_competitive=True)
+    _zero_launch_counts()
+    mmr, ms = _timed(lambda: mlt.eval_policies(
+        "cuda", competitive, _duel_env(), _pbt_policy(),
+        torch.zeros((1,), dtype=torch.int32, device="cuda"), states,
+        lambda step_data: step_data["sim_state"]))
+    add(_check_launches(
+        f"competitive eval ({COMPETITIVE_EVAL_STEPS} steps)",
+        {"lstm_sequence_fwd": PBT_TRAIN * COMPETITIVE_EVAL_STEPS}))
+    log(f"  competitive eval: {NUM_WORLDS} worlds x 2 agents x "
+        f"{COMPETITIVE_EVAL_STEPS} steps in {ms:.1f} ms "
+        f"({2 * NUM_WORLDS * COMPETITIVE_EVAL_STEPS / ms * 1e3:.0f} "
+        f"agent-steps/s), Elo {mmr.elo.tolist()} on {card}")
+    if mmr.elo.tolist() != [1500.0] * PBT_TRAIN:
+        raise AssertionError(f"checkpoint_eval: competitive eval Elo "
+                             f"{mmr.elo.tolist()}")
+    del states
+
+    # (e) a custom policy in the Elo tournament.
+    mgr = build_headline_pbt(TrainHooks(), custom_policy_ids=[CUSTOM_ID],
+                             sim_fns=_fixed_bid_duel())
+    zeros = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    _zero_launch_counts()
+    (mgr, deltas), ms = _timed(lambda: mlt.eval_elo(
+        mgr, CUSTOM_EVAL_STEPS, zeros, zeros))
+    add(_check_launches(
+        f"tournament with custom policy {CUSTOM_ID} "
+        f"({CUSTOM_EVAL_STEPS} steps)",
+        {"lstm_sequence_fwd": (PBT_TRAIN + PBT_PAST) * CUSTOM_EVAL_STEPS}))
+    elos = mgr.state.policy_states.mmr.elo
+    log(f"  tournament with custom policy {CUSTOM_ID}: {ms:.1f} ms, Elo "
+        f"{[round(e, 2) for e in elos.tolist()]}")
+    if not bool(torch.isfinite(elos).all()) or float(elos[0]) != 1500.0 \
+            or not bool(torch.isfinite(deltas).all()):
+        raise AssertionError(f"checkpoint_eval: custom-policy Elo "
+                             f"{elos.tolist()}")
+    return total
 
 
 def check_value_normalizer(mgr, updates_run, update_stats):
@@ -3449,6 +3794,8 @@ def main():
         f"{headline_sps:.0f} env-steps/s in this run), max |ratio - 1| over "
         f"the train policies {r['ratio_dev']:.3e}, peak {r['peak_gib']:.2f} "
         f"GiB on {card}")
+    launches_by_path["checkpoint_eval"] = checkpoint_eval_phase(card,
+                                                                r.pop("mgr"))
 
     import torch
     from madrona_learn_tpu_torch.ops.cuda import KERNELS

@@ -7,13 +7,16 @@ clipped PPO, for an MLP + LSTM actor-critic with a scalar critic (the
 actor-critic with the DreamerV3 two-hot critic; for one policy or, with
 ``TrainConfig.pbt``, a population-based training population of train and
 past policies in matchmade self, cross and past play, ranked by Elo or
-episode-score fitness, culled and snapshotted. Its kernels are hand-written
+episode-score fitness, culled and snapshotted; with checkpoints to save,
+resume and re-slice a run, and offline evaluation of checkpointed
+policies (``eval.py``). Its kernels are hand-written
 CUDA for Hopper (``csrc/``), each with a plain PyTorch twin that CPU tensors
 take. Module names mirror the JAX package's, which stays the reference.
 """
 
 from .config import (ContinuousActionsConfig, DiscreteActionsConfig,
-                     ParamExplore, PBTConfig, TrainConfig)
+                     EvalConfig, ParamExplore, PBTConfig, TrainConfig)
+from .eval import eval_load_ckpt, eval_policies
 from .observations import (ObservationsCaster, ObservationsEMANormalizer,
                            ObservationsPreprocess,
                            ObservationsPreprocessNoop)
@@ -26,12 +29,13 @@ from .ppo import PPOConfig
 from .rollouts import (RolloutConfig, RolloutData, RolloutManager,
                        RolloutState, rollout_loop, rollouts_reset)
 from .train import (TrainHooks, TrainingManager, eval_elo, init_training,
-                    update_population)
-from .train_state import TrainStateManager
+                    latest_checkpoint, update_population)
+from .train_state import TrainStateManager, wait_for_checkpoints
 
 __all__ = [
     "ContinuousActionsConfig",
     "DiscreteActionsConfig",
+    "EvalConfig",
     "ObservationsCaster",
     "ObservationsEMANormalizer",
     "ObservationsPreprocess",
@@ -50,7 +54,10 @@ __all__ = [
     "TrainStateManager",
     "TrainingManager",
     "eval_elo",
+    "eval_load_ckpt",
+    "eval_policies",
     "init_training",
+    "latest_checkpoint",
     "pbt_cull_update",
     "pbt_explore_hyperparams",
     "pbt_init_matchmaking",
@@ -61,4 +68,5 @@ __all__ = [
     "rollout_loop",
     "rollouts_reset",
     "update_population",
+    "wait_for_checkpoints",
 ]

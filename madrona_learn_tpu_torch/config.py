@@ -11,7 +11,8 @@ the JAX package's defaults. Population-based training is
 ``TrainConfig.pbt`` (a ``PBTConfig``), with ``ParamExplore`` search spaces
 for ``lr`` and PPO's ``entropy_coef``. The mesh options of the JAX config
 are not ported, so they are absent rather than ignored; with no mesh,
-``minibatch_stratify=None`` means one block.
+``minibatch_stratify=None`` means one block. ``EvalConfig`` configures
+offline evaluation (``eval.py``).
 """
 
 from __future__ import annotations
@@ -157,3 +158,26 @@ class TrainConfig:
             raise ValueError(
                 f"steps_per_update ({self.steps_per_update}) must be "
                 f"divisible by num_bptt_chunks ({self.num_bptt_chunks})")
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """Offline evaluation (``eval.eval_policies``): ``num_worlds`` worlds
+    of ``num_teams`` teams of ``team_size`` agents for ``num_eval_steps``
+    steps; ``eval_competitive`` plays every pairing of the policies (and
+    the custom policies, which the simulator plays) in static matches, else
+    each policy plays itself. ``policy_dtype`` is the dtype the policies
+    compute in: the model layers carry their own, and ``eval_policies``
+    refuses a policy with a layer in another."""
+
+    num_worlds: int
+    num_teams: int
+    team_size: int
+    num_eval_steps: int
+    actions: Dict[str, ActionsConfig]
+    reward_gamma: float
+    policy_dtype: torch.dtype
+    eval_competitive: bool
+    use_deterministic_policy: bool = True
+    clear_fitness: bool = True
+    custom_policy_ids: List[int] = field(default_factory=list)

@@ -101,6 +101,11 @@ class PBTMatchmakeConfig:
                 raise ValueError(
                     f"the {name}-play slice of {sizes[name]} agents is not "
                     f"whole matches of {agents_per_world}")
+        total_policies = num_current_policies + num_past_policies
+        below = [i for i in custom_policy_ids if i < total_policies]
+        if below:
+            raise ValueError(f"custom policy ids {below} are not past the "
+                             f"population's {total_policies} policies")
         num_cross = cross_bs // agents_per_world
         num_past = past_bs // agents_per_world
         num_static = static_bs // agents_per_world
@@ -113,7 +118,7 @@ class PBTMatchmakeConfig:
         return PBTMatchmakeConfig(
             num_current_policies=num_current_policies,
             num_past_policies=num_past_policies,
-            total_num_policies=num_current_policies + num_past_policies,
+            total_num_policies=total_policies,
             num_teams=num_teams,
             team_size=team_size,
             self_play_portion=self_play_portion,

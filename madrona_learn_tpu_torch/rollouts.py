@@ -110,32 +110,57 @@ class RolloutConfig:
 
 class _PolicyRows:
     """The sim rows, in sim order, that each policy present in a step runs
-    on, and the way back to sim order."""
+    on, and the way back to sim order.
+
+    Rows assigned an id past the population (``custom_policy_ids``,
+    which the simulator plays itself) run no module: ``to_sim`` fills them
+    with zeros in every output, or with their rows of ``rest`` where given
+    (the recurrent state, which they keep as it was). Their ids sort after
+    every policy's, so the population's rows and outputs are those of a
+    step without them. A step must hold a row of some policy.
+    """
 
     def __init__(self, rollout_cfg: RolloutConfig,
                  assignments: torch.Tensor):
         pbt = rollout_cfg.pbt
+        self.custom = None
         if not pbt.complex_matchmaking:
             n = rollout_cfg.sim_batch_size // pbt.num_current_policies
             self.rows = [(p, slice(p * n, (p + 1) * n))
                          for p in range(pbt.num_current_policies)]
             self.inverse = None
             return
-        # The step's one device-to-host copy: [P] agent counts.
-        counts = torch.bincount(assignments.long(),
-                                minlength=pbt.total_num_policies).tolist()
+        P = pbt.total_num_policies
+        # The step's one device-to-host copy: [P + 1] agent counts, the
+        # custom ids counted together in the last.
+        counts = torch.bincount(assignments.clamp(max=P).long(),
+                                minlength=P + 1).tolist()
         perm = torch.argsort(assignments, stable=True)
+        num_rows = sum(counts[:P])
+        if not num_rows:
+            raise ValueError("every row of the step is a custom policy's")
         self.rows = [(p, rows) for p, rows in
-                     enumerate(torch.split(perm, counts)) if counts[p]]
+                     enumerate(torch.split(perm[:num_rows], counts[:P]))
+                     if counts[p]]
+        if num_rows < perm.shape[0]:
+            self.custom = perm[num_rows:]
         self.inverse = torch.empty_like(perm)
         self.inverse[perm] = torch.arange(perm.shape[0], device=perm.device)
 
     def gather(self, tree, rows):
         return tree_map(lambda x: x[rows], tree)
 
-    def to_sim(self, parts):
-        """Per-policy outputs, in ``rows`` order -> one tree in sim
-        order."""
+    def to_sim(self, parts, rest=None):
+        """Per-policy outputs, in ``rows`` order -> one tree in sim order;
+        the custom rows take zeros, or their rows of the sim-order tree
+        ``rest``."""
+        if self.custom is not None:
+            n = self.custom.shape[0]
+            parts = [*parts, (
+                self.gather(rest, self.custom) if rest is not None else
+                tree_map(lambda x: x.new_zeros((n, *x.shape[1:])),
+                         parts[0]))]
+
         def merge(*xs):
             x = torch.cat(xs) if len(xs) > 1 else xs[0]
             return x if self.inverse is None else x[self.inverse]
@@ -246,8 +271,11 @@ class RolloutData:
 
 def rollout_loop(rollout_state: RolloutState, policy_state, num_steps: int,
                  post_inference_cb: Callable, post_step_cb: Callable,
-                 cb_state: Any, start_step_idx: int = 0):
-    """Run ``num_steps`` sim steps.
+                 cb_state: Any, start_step_idx: int = 0,
+                 sample_actions: bool = True):
+    """Run ``num_steps`` sim steps, sampling actions (or, with
+    ``sample_actions=False``, taking each head's most likely action, with
+    no ``log_probs`` in the policy outputs).
 
     - ``post_inference_cb(step_idx, obs, preprocessed_obs, policy_out,
       cb_state) -> (cb_state, emit)``
@@ -263,7 +291,8 @@ def rollout_loop(rollout_state: RolloutState, policy_state, num_steps: int,
     if rollout_state.cfg.pbt is not None:
         return population_rollout_loop(
             rollout_state, policy_state, num_steps, post_inference_cb,
-            post_step_cb, cb_state, start_step_idx)
+            post_step_cb, cb_state, start_step_idx,
+            sample_actions=sample_actions)
     cfg = rollout_state.cfg
     actor_critic = policy_state.actor_critic
     inference_emits, step_emits = [], []
@@ -274,7 +303,7 @@ def rollout_loop(rollout_state: RolloutState, policy_state, num_steps: int,
                 policy_state.obs_preprocess_state, obs)
             policy_out, rnn_states = actor_critic.rollout(
                 rollout_state.generator, rollout_state.rnn_states,
-                preprocessed)
+                preprocessed, sample_actions=sample_actions)
             cb_state, emit = post_inference_cb(
                 step_idx, obs, preprocessed, policy_out, cb_state)
             inference_emits.append(emit)
@@ -326,7 +355,8 @@ def population_rollout_loop(rollout_state: RolloutState, population,
                             num_steps: int, post_inference_cb: Callable,
                             post_step_cb: Callable, cb_state: Any,
                             start_step_idx: int = 0,
-                            value_fn: Callable = _value_estimate):
+                            value_fn: Callable = _value_estimate,
+                            sample_actions: bool = True):
     """``rollout_loop`` over a population, everything in sim order:
 
     - ``post_inference_cb(step_idx, obs, preprocessed_obs, policy_out,
@@ -336,8 +366,11 @@ def population_rollout_loop(rollout_state: RolloutState, population,
       episode_results, cb_state) -> (rollout_state, cb_state, emit)``,
       after the matchmaking of the next step.
 
-    Actions are sampled from ``rollout_state.generator`` and matchmaking
-    draws from it too.
+    Actions are sampled from ``rollout_state.generator`` (or, with
+    ``sample_actions=False``, each head's most likely) and matchmaking
+    draws from it too. Rows of custom policy ids run no module: their
+    outputs and preprocessed obs are zeros and their recurrent state is
+    kept (``_PolicyRows``).
     """
     cfg = rollout_state.cfg
     clear = population[0].actor_critic.clear_recurrent_state
@@ -353,14 +386,16 @@ def population_rollout_loop(rollout_state: RolloutState, population,
                     policy.obs_preprocess_state, batches.gather(obs, rows))
                 out, rnn = policy.actor_critic.rollout(
                     rollout_state.generator,
-                    batches.gather(rollout_state.rnn_states, rows), pre)
+                    batches.gather(rollout_state.rnn_states, rows), pre,
+                    sample_actions=sample_actions)
                 out["critic"] = value_fn(out["critic"])
                 pre_parts.append(pre)
                 out_parts.append(out)
                 rnn_parts.append(rnn)
             preprocessed = batches.to_sim(pre_parts)
             policy_out = batches.to_sim(out_parts)
-            rnn_states = batches.to_sim(rnn_parts)
+            rnn_states = batches.to_sim(rnn_parts,
+                                        rest=rollout_state.rnn_states)
             cb_state, emit = post_inference_cb(
                 step_idx, obs, preprocessed, policy_out, cb_state)
             inference_emits.append(emit)

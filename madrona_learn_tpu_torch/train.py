@@ -8,15 +8,18 @@ With ``TrainConfig.pbt`` the population's hyperparameters are drawn at
 init, every train policy folds its own obs statistics and runs PPO on its
 own rollout data, train state and generator, ``eval_elo`` runs the
 all-pairs Elo tournament and ``update_population`` the cull and the past
-snapshot. The port runs eagerly on one device and updates the manager's
-state in place.
+snapshot. ``TrainingManager.save_ckpt`` / ``load_ckpt`` write and read
+checkpoints (``train_state.py``), ``latest_checkpoint`` finds the newest,
+and ``init_training(restore_ckpt=...)`` resumes from one. The port runs
+eagerly on one device and updates the manager's state in place.
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,6 +85,20 @@ class TrainingManager:
         # The (source, destination) copies of the last update_population.
         self.population_copies: List[Tuple[int, int]] = []
 
+    def save_ckpt(self, path: str, block: bool = True):
+        """Write the checkpoint ``path/<update_idx>`` (complete once it
+        exists). ``block=False`` writes it on a background thread; call
+        ``wait_for_checkpoints()`` before relying on the file."""
+        self.state.save(self.update_idx,
+                        os.path.join(path, str(self.update_idx)),
+                        block=block)
+
+    def load_ckpt(self, path: str) -> "TrainingManager":
+        """Load checkpoint ``path`` in place and continue from its update
+        index. The rollout state is this manager's own."""
+        _, self.update_idx = self.state.load(path)
+        return self
+
     def update_iter(self) -> "TrainingManager":
         self.first_minibatch_stats = _update_impl(
             self.algo, self.cfg, self.user_hooks, self.rollout,
@@ -134,6 +151,18 @@ def _update_population_policies(algo, cfg, user_hooks, train_state_mgr,
     return out
 
 
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The newest ``<update_idx>`` checkpoint under ``ckpt_dir``, or
+    ``None``: ``init_training(..., restore_ckpt=latest_checkpoint(d))``
+    resumes a crashed run."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    indexed = [d for d in os.listdir(ckpt_dir) if d.isdigit()]
+    if not indexed:
+        return None
+    return os.path.join(ckpt_dir, max(indexed, key=int))
+
+
 def resolve_device(dev) -> torch.device:
     """The training device: ``None`` means the CUDA card."""
     return torch.device("cuda" if dev is None else dev)
@@ -141,9 +170,13 @@ def resolve_device(dev) -> torch.device:
 
 def init_training(dev, cfg: TrainConfig, sim_fns: Dict[str, Callable],
                   policy: Policy, init_sim_ctrl: torch.Tensor,
-                  user_hooks: TrainHooks = TrainHooks()) -> TrainingManager:
+                  user_hooks: TrainHooks = TrainHooks(),
+                  restore_ckpt: Optional[str] = None) -> TrainingManager:
     """Build the TrainingManager on ``dev`` (a torch device; ``None`` is
-    the CUDA card, and ``"cpu"`` must be asked for).
+    the CUDA card, and ``"cpu"`` must be asked for). With
+    ``restore_ckpt``, the checkpoint is loaded (after a population's
+    hyperparameter draw) and training and its metrics resume at its update
+    index.
 
     ``sim_fns`` (a dict or a ``SimInterface``) must produce tensors on
     ``dev``. The sampling and minibatch
@@ -152,7 +185,8 @@ def init_training(dev, cfg: TrainConfig, sim_fns: Dict[str, Callable],
     dev = resolve_device(dev)
     if cfg.pbt is not None:
         return _init_population_training(dev, cfg, sim_fns, policy,
-                                         init_sim_ctrl, user_hooks)
+                                         init_sim_ctrl, user_hooks,
+                                         restore_ckpt)
     algo = cfg.algo.setup()
     rollout_cfg = RolloutConfig.setup(
         num_worlds=cfg.num_worlds,
@@ -177,20 +211,31 @@ def init_training(dev, cfg: TrainConfig, sim_fns: Dict[str, Callable],
         init_user_state_cb=user_hooks.init_user_state,
         example_obs=rollout_state.cur_obs, device=dev,
         generator=update_gen)
+    start_update_idx = _restore(train_state_mgr, restore_ckpt)
 
     rollout_mgr = RolloutManager(cfg, rollout_cfg)
     metrics = algo.add_metrics(cfg, {})
     metrics = rollout_mgr.add_metrics(metrics)
     metrics = user_hooks.add_metrics(metrics)
-    metrics = TrainingMetrics(metrics, cfg.metrics_buffer_size, 0, 1, dev)
+    metrics = TrainingMetrics(metrics, cfg.metrics_buffer_size,
+                              start_update_idx, 1, dev)
 
     return TrainingManager(
         state=train_state_mgr, rollout=rollout_state, metrics=metrics,
-        cfg=cfg, algo=algo, rollout_mgr=rollout_mgr, user_hooks=user_hooks)
+        cfg=cfg, algo=algo, rollout_mgr=rollout_mgr, user_hooks=user_hooks,
+        update_idx=start_update_idx)
+
+
+def _restore(train_state_mgr: TrainStateManager,
+             restore_ckpt: Optional[str]) -> int:
+    """Load ``restore_ckpt``, if given; the update index to start at."""
+    if restore_ckpt is None:
+        return 0
+    return train_state_mgr.load(restore_ckpt)[1]
 
 
 def _init_population_training(dev, cfg: TrainConfig, sim_fns, policy,
-                              init_sim_ctrl, user_hooks):
+                              init_sim_ctrl, user_hooks, restore_ckpt):
     """``init_training`` of a PBT population: the matchmade rollout, the
     population and its train states, and each train policy's drawn
     hyperparameters (resample chance 1, from the PBT generator)."""
@@ -232,16 +277,18 @@ def _init_population_training(dev, cfg: TrainConfig, sim_fns, policy,
     for p, train_state in enumerate(train_state_mgr.train_states):
         pbt_explore_hyperparams(cfg, train_state_mgr.pbt_generator,
                                 population, p, train_state, 1.0)
+    start_update_idx = _restore(train_state_mgr, restore_ckpt)
 
     rollout_mgr = RolloutManager(cfg, rollout_cfg)
     metrics = algo.add_metrics(cfg, {})
     metrics = rollout_mgr.add_metrics(metrics)
     metrics = user_hooks.add_metrics(metrics)
-    metrics = TrainingMetrics(metrics, cfg.metrics_buffer_size, 0,
-                              pbt.num_train_policies, dev)
+    metrics = TrainingMetrics(metrics, cfg.metrics_buffer_size,
+                              start_update_idx, pbt.num_train_policies, dev)
     return TrainingManager(
         state=train_state_mgr, rollout=rollout_state, metrics=metrics,
-        cfg=cfg, algo=algo, rollout_mgr=rollout_mgr, user_hooks=user_hooks)
+        cfg=cfg, algo=algo, rollout_mgr=rollout_mgr, user_hooks=user_hooks,
+        update_idx=start_update_idx)
 
 
 # -- The PBT outer loop: the Elo tournament and the population update ------

@@ -16,7 +16,26 @@
   tensors.
 - ``TrainStateManager``: the policy and train state of the one train
   policy, or with ``TrainConfig.pbt`` the ``Population``, one train state a
-  train policy and the PBT generator; plus the user's hook state.
+  train policy and the PBT generator; plus the user's hook state. It
+  saves and loads checkpoints, re-slices a population's checkpoint and
+  loads policies for evaluation.
+
+A checkpoint is one ``torch.save`` file of plain nested dicts and lists of
+CPU tensors and Python scalars, which ``torch.load(weights_only=True)``
+reads: ``next_update``; ``policy_states``, one entry a policy (train
+policies first), with the module's ``state_dict`` and the obs
+preprocessor's state; ``train_states``, one a train policy, with the
+hyperparameters, the Adam state, the initial weight norms, the advantage
+EMA, the value normalizer's and the loss scaler's states (or ``None``) and
+the update generator's state; ``population`` (``None`` for one policy):
+the ``[P, R]`` reward hyperparameters, the Elo ``mmr`` or the
+``episode_score``, as ``[P]`` tensors; ``pbt_generator`` (or ``None``) and
+``user_state``. As in the JAX package, the rollout state (simulator,
+recurrent state, rollout generator) is not saved. A checkpoint carried
+over from the JAX package (``compat/from_jax.py``) keeps the population
+entries and the PBT generator of a single policy too, which a
+single-policy manager does not load; there a generator entry may be an
+int, the seed of the generator.
 
 The optimizer is learning-rate free and the live ``hyper_params.lr`` scales
 each step, as in the JAX package.
@@ -25,6 +44,9 @@ each step, as in the JAX package.
 from __future__ import annotations
 
 import copy
+import dataclasses
+import os
+import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
 
@@ -39,6 +61,7 @@ from .ops.dynamic_scale import DynamicScale
 from .ops.ema import EMAEstimate, EMANormalizer
 from .pbt import _copy_tree
 from .policy import Policy
+from .ppo import AdamState
 
 
 @dataclass
@@ -140,6 +163,160 @@ class TrainStateManager:
     train_states: Any  # PolicyTrainState, or a list of them with PBT
     user_state: Any
     pbt_generator: Optional[torch.Generator] = None
+
+    # -- checkpoints ------------------------------------------------------
+
+    def _policies(self) -> List[PolicyState]:
+        states = self.policy_states
+        return states.policies if isinstance(states, Population) else [states]
+
+    def _train_state_list(self) -> List[PolicyTrainState]:
+        states = self.train_states
+        return states if isinstance(states, list) else [states]
+
+    def checkpoint(self, next_update: int) -> Dict[str, Any]:
+        """The checkpoint tree (module docstring), snapshotted to the
+        host."""
+        population = None
+        if isinstance(self.policy_states, Population):
+            pop = self.policy_states
+            population = {
+                "reward_hyper_params": pop.reward_hyper_params,
+                "mmr": None if pop.mmr is None else {"elo": pop.mmr.elo},
+                "episode_score": (None if pop.episode_score is None
+                                  else dict(vars(pop.episode_score)))}
+        return _host({
+            "next_update": int(next_update),
+            "policy_states": [
+                {"actor_critic": p.actor_critic.state_dict(),
+                 "obs_preprocess_state": p.obs_preprocess_state}
+                for p in self._policies()],
+            "train_states": [_train_state_tree(ts)
+                             for ts in self._train_state_list()],
+            "population": population,
+            "pbt_generator": (None if self.pbt_generator is None
+                              else self.pbt_generator.get_state()),
+            "user_state": self.user_state,
+        })
+
+    def save(self, next_update: int, path: str, block: bool = True):
+        """Write the checkpoint file ``path``, under a temporary name that
+        is renamed when the file is complete. The tensors are copied to the
+        host before this returns; with ``block=False`` the file is written
+        on a background thread (``wait_for_checkpoints``)."""
+        tree = self.checkpoint(next_update)
+        if block:
+            _write(tree, path)
+            return
+        thread = threading.Thread(target=_write_logged, args=(tree, path),
+                                  name="checkpoint-writer")
+        _WRITERS.append(thread)
+        thread.start()
+
+    def load(self, path: str):
+        """Copy checkpoint ``path`` into this manager's modules and
+        tensors, in place and on their devices, and set every generator's
+        state. The checkpoint must come from the same configuration; a
+        single-policy manager skips its population entries and PBT
+        generator. Returns ``(self, next_update)``."""
+        ckpt = TrainStateManager.restore_host(path)
+        policies, train_states = self._policies(), self._train_state_list()
+        if (len(ckpt["policy_states"]), len(ckpt["train_states"])) != \
+                (len(policies), len(train_states)):
+            raise ValueError(
+                f"{path}: {len(ckpt['policy_states'])} policies and "
+                f"{len(ckpt['train_states'])} train states, this manager "
+                f"{len(policies)} and {len(train_states)}")
+        for i, (policy, saved) in enumerate(zip(policies,
+                                                ckpt["policy_states"])):
+            policy.actor_critic.load_state_dict(saved["actor_critic"])
+            policy.obs_preprocess_state = _load_into(
+                policy.obs_preprocess_state, saved["obs_preprocess_state"],
+                f"policy {i} obs_preprocess_state")
+        for i, (ts, saved) in enumerate(zip(train_states,
+                                            ckpt["train_states"])):
+            _load_train_state(ts, saved, f"train state {i}")
+        if isinstance(self.policy_states, Population):
+            population = ckpt["population"]
+            if population is None:
+                raise ValueError(f"{path}: a single-policy checkpoint and a "
+                                 f"population manager")
+            pop = self.policy_states
+            pop.reward_hyper_params = _load_into(
+                pop.reward_hyper_params, population["reward_hyper_params"],
+                "reward_hyper_params")
+            pop.mmr = _load_into(pop.mmr, population["mmr"] and MMR(
+                **population["mmr"]), "mmr")
+            pop.episode_score = _load_into(
+                pop.episode_score, population["episode_score"] and
+                MovingEpisodeScore(**population["episode_score"]),
+                "episode_score")
+            _set_generator(self.pbt_generator, ckpt["pbt_generator"],
+                           "pbt_generator")
+        self.user_state = _load_into(self.user_state, ckpt["user_state"],
+                                     "user_state")
+        return self, int(ckpt["next_update"])
+
+    @staticmethod
+    def restore_host(path: str) -> Dict[str, Any]:
+        """Checkpoint ``path`` as its tree of CPU tensors."""
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    @staticmethod
+    def slice_checkpoint(src: str, dst: str, train_select, past_select):
+        """Write to ``dst`` the checkpoint ``src`` with the train policies
+        ``train_select`` (and their train states) followed by the policies
+        ``past_select`` as past policies."""
+        ckpt = TrainStateManager.restore_host(src)
+        train_select = [int(i) for i in train_select]
+        order = train_select + [int(i) for i in past_select]
+        ckpt["policy_states"] = [ckpt["policy_states"][i] for i in order]
+        ckpt["train_states"] = [ckpt["train_states"][i]
+                                for i in train_select]
+        if ckpt["population"] is not None:
+            index = torch.tensor(order, dtype=torch.long)
+            ckpt["population"] = _map_tensors(lambda x: x[index],
+                                              ckpt["population"])
+        _write(ckpt, dst)
+
+    @staticmethod
+    def load_policies(policy: Policy, path: str):
+        """The policies of checkpoint ``path``, for evaluation: a
+        ``PolicyState`` for a checkpoint without population entries (the
+        port's single-policy ones), else a ``Population`` (a checkpoint
+        carried over from the JAX package, whose fitness it keeps),
+        each module a copy of ``policy.actor_critic`` (or of
+        ``policy.actor_critic(0)`` when it builds a population's modules)
+        with the saved parameters. Returns ``(policy_states,
+        num_train_policies, total_num_policies)``."""
+        ckpt = TrainStateManager.restore_host(path)
+        saved = ckpt["policy_states"]
+        template = (policy.actor_critic
+                    if isinstance(policy.actor_critic, torch.nn.Module)
+                    else policy.actor_critic(0))
+        obs_preprocess = (policy.obs_preprocess
+                          or ObservationsPreprocessNoop.create())
+        policies = []
+        for entry in saved:
+            module = copy.deepcopy(template)
+            module.load_state_dict(entry["actor_critic"])
+            policies.append(PolicyState(
+                actor_critic=module, obs_preprocess=obs_preprocess,
+                obs_preprocess_state=entry["obs_preprocess_state"]))
+        num_train, total = len(ckpt["train_states"]), len(saved)
+        population = ckpt["population"]
+        if population is None:
+            return policies[0], num_train, total
+        return Population(
+            policies=policies,
+            reward_hyper_params=population["reward_hyper_params"],
+            get_episode_scores_fn=(policy.get_episode_scores
+                                   or (lambda er: (0.0, 0.0))),
+            episode_score=(population["episode_score"] and
+                           MovingEpisodeScore(
+                               **population["episode_score"])),
+            mmr=population["mmr"] and MMR(**population["mmr"]),
+        ), num_train, total
 
     @staticmethod
     def create(policy: Policy, cfg: TrainConfig, algo: AlgoBase,
@@ -243,3 +420,145 @@ def _make_train_state(cfg: TrainConfig, algo: AlgoBase, actor_critic,
         value_normalizer_state=value_norm_state,
         scaler=scaler,
         scaler_state=scaler_state)
+
+
+# -- Checkpoint helpers ------------------------------------------------------
+
+# Background checkpoint writes (save(..., block=False)) and their errors.
+_WRITERS: List[threading.Thread] = []
+_WRITE_ERRORS: List[BaseException] = []
+
+
+def wait_for_checkpoints():
+    """Block until every checkpoint saved with ``block=False`` is written;
+    raise the first error a write met."""
+    while _WRITERS:
+        _WRITERS.pop(0).join()
+    if _WRITE_ERRORS:
+        error = _WRITE_ERRORS[0]
+        _WRITE_ERRORS.clear()
+        raise error
+
+
+def _write(tree, path: str):
+    """``torch.save`` to a temporary name beside ``path``, synced to disk,
+    then renamed and the rename synced: ``path`` is never a partly written
+    file, after a crash of the process or of the machine."""
+    directory = os.path.dirname(os.path.abspath(path))
+    os.makedirs(directory, exist_ok=True)
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        torch.save(tree, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    fd = os.open(directory, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _write_logged(tree, path: str):
+    try:
+        _write(tree, path)
+    except Exception as error:  # raised by wait_for_checkpoints
+        _WRITE_ERRORS.append(error)
+
+
+def _map_tensors(fn, tree):
+    """``fn`` over every tensor of nested dicts, lists and tuples."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return tree
+
+
+def _host(tree):
+    """A copy of ``tree`` with every tensor detached and on the CPU."""
+    return _map_tensors(lambda x: x.detach().to("cpu", copy=True), tree)
+
+
+def _train_state_tree(ts: PolicyTrainState) -> Dict[str, Any]:
+    return {
+        "hyper_params": dict(vars(ts.hyper_params)),
+        "opt_state": dict(vars(ts.opt_state)),
+        "initial_weight_norms": ts.initial_weight_norms,
+        "max_advantage_est_state": ts.max_advantage_est_state,
+        "value_normalizer_state": ts.value_normalizer_state,
+        "scaler_state": ts.scaler_state,
+        "generator": ts.generator.get_state(),
+    }
+
+
+def _load_into(dst, src, what: str):
+    """``src`` into ``dst``: tensors copied in place (shapes must agree),
+    dicts, lists, tuples and dataclasses leaf by leaf (their structure must
+    agree); any other leaf is ``src``. Returns the loaded tree."""
+    if (dst is None) != (src is None):
+        raise ValueError(f"{what}: the checkpoint holds {type(src)}, the "
+                         f"manager {type(dst)}")
+    if isinstance(dst, torch.Tensor):
+        src = torch.as_tensor(src)
+        if src.shape != dst.shape:
+            raise ValueError(f"{what}: shape {tuple(src.shape)} in the "
+                             f"checkpoint, {tuple(dst.shape)} here")
+        with torch.no_grad():
+            dst.copy_(src)
+        return dst
+    if isinstance(dst, dict):
+        if set(src) != set(dst):
+            raise ValueError(f"{what}: keys {sorted(src)} in the "
+                             f"checkpoint, {sorted(dst)} here")
+        for k in dst:
+            dst[k] = _load_into(dst[k], src[k], f"{what}.{k}")
+        return dst
+    if isinstance(dst, (list, tuple)):
+        if len(src) != len(dst):
+            raise ValueError(f"{what}: {len(src)} entries in the "
+                             f"checkpoint, {len(dst)} here")
+        return type(dst)(_load_into(d, s, f"{what}[{i}]")
+                         for i, (d, s) in enumerate(zip(dst, src)))
+    if dataclasses.is_dataclass(dst):
+        for f in dataclasses.fields(dst):
+            setattr(dst, f.name, _load_into(
+                getattr(dst, f.name), getattr(src, f.name),
+                f"{what}.{f.name}"))
+        return dst
+    return src
+
+
+def _set_generator(generator: Optional[torch.Generator], state, what: str):
+    """Set ``generator`` to a saved state, or seed it from an int (a
+    checkpoint carried over from the JAX package)."""
+    if (generator is None) != (state is None):
+        raise ValueError(f"{what}: the checkpoint and the manager disagree "
+                         f"on whether it exists")
+    if generator is None:
+        return
+    if isinstance(state, int):
+        generator.manual_seed(state)
+    else:
+        generator.set_state(state)
+
+
+def _load_train_state(ts: PolicyTrainState, saved, what: str):
+    hp = ts.hyper_params
+    names = {f.name for f in dataclasses.fields(hp)}
+    if set(saved["hyper_params"]) != names:
+        raise ValueError(f"{what}: hyperparameters "
+                         f"{sorted(saved['hyper_params'])}, expected "
+                         f"{sorted(names)}")
+    for name, value in saved["hyper_params"].items():
+        setattr(hp, name, _load_into(getattr(hp, name), value,
+                                     f"{what} hyper_params.{name}"))
+    ts.opt_state = _load_into(ts.opt_state, AdamState(**saved["opt_state"]),
+                              f"{what} opt_state")
+    for name in ("initial_weight_norms", "max_advantage_est_state",
+                 "value_normalizer_state", "scaler_state"):
+        setattr(ts, name, _load_into(getattr(ts, name), saved[name],
+                                     f"{what} {name}"))
+    _set_generator(ts.generator, saved["generator"], f"{what} generator")

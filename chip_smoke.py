@@ -38,7 +38,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    N = 8192 must equal N = 256 on the shared rows and the batch rolled by
    5 rows bitwise, a T = 1 call from the cleared state must equal the
    matching step of the T = 16 call bitwise, and at ragged N they must
-   write no row past N; the GRU forward is also timed at each rows-a-block
+   write no row past N; the LSTM and GRU kernels' float16 instances (CUDA
+   cores) are checked, forward and backward, and timed at
+   headline_fp16's and headline_gru_fp16's update minibatch and rollout
+   step, with their bounds at 2 bytes an element; the GRU forward is also
+   timed at each rows-a-block
    and ring-depth pair it is built for; ``gae`` must equal its plain
    version bitwise at four shapes and on the columns two calls share, and
    is timed at each steps-a-chunk and columns-a-block pair it is built
@@ -149,6 +153,26 @@ Phases, in order; any failure raises and the script exits non-zero:
     32 steps: ``lstm_sequence_fwd`` once a population policy a step (the
     custom policy runs no module), Elo finite with policy 0 at 1500.
 
+13. the rest of the model zoo, five trainers at 16384 worlds with the
+    headline's width and PPO settings, each 1 warm-up update and 2 trials
+    of 5 (headline_gru_fp16: of 3; flagship_concat_self_remat: 3 of 5,
+    as the flagship): headline_separate (an MLP 2 x 256 ->
+    LSTM 256 tower for the actor and another for the critic,
+    ``BackboneSeparate``, bf16: ``lstm_sequence_fwd`` 73 an update, the
+    critic's tower alone for the bootstrap value, ``lstm_sequence_bwd``
+    8, ratio exactly 0), headline_fp16 and headline_gru_fp16 (the
+    headline and headline_gru in float16 with the observations cast and
+    the loss scaled: the headline's and headline_gru's launches, all on
+    the recurrences' CUDA-core float16 instances, the scaler checked as at
+    mlp_fp16; ratio exactly 0 at headline_fp16), headline_window
+    (``WindowAttentionMemory(256, window 16, 4 heads)`` in the LSTM's
+    place, bf16: ``gae`` alone, its ratio printed) and
+    flagship_concat_self_remat (the flagship with ``embed_concat_self``
+    and ``remat_trunk_sequence``: ``mha`` 41 an update, 4 of them the
+    backward's recomputes; then, from one saved state and rollout copy,
+    an update with the trunk rematerialized and one without must give
+    bitwise equal parameters, their peak memory printed).
+
 Each trainer phase sets every launch count to 0 just before it and checks
 just after it that every kernel of its path launched as often as the
 configuration implies and that every launch of the kernels with a
@@ -194,6 +218,11 @@ TOL = {
     ("bwd", "float32"): dict(atol=1e-4, rtol=1e-4),
     ("fwd", "bfloat16"): dict(atol=3.2e-2, rtol=0.0),
     ("bwd", "bfloat16"): dict(atol=0.0, rtol=3.2e-2),
+    # float16 (the CUDA-core instances, the same f32 math from float16
+    # operands): the bf16 rules' reasons at float16's 3 more bits, 2^-8
+    # (four float16 ulps at 1) where bf16 has 2^-5.
+    ("fwd", "float16"): dict(atol=2 ** -8, rtol=0.0),
+    ("bwd", "float16"): dict(atol=0.0, rtol=2 ** -8),
     ("mha", "float32"): dict(atol=1e-5, rtol=1e-5),
     # fused_policy_step: the same f32 math as its plain version, with row
     # sums and products in another order; in bf16 a last-bit difference can
@@ -209,6 +238,8 @@ TOL = {
     ("gru_bwd", "float32"): dict(atol=1e-4, rtol=1e-4),
     ("gru_fwd", "bfloat16"): dict(atol=3.2e-2, rtol=0.0),
     ("gru_bwd", "bfloat16"): dict(atol=0.0, rtol=3.2e-2),
+    ("gru_fwd", "float16"): dict(atol=2 ** -8, rtol=0.0),
+    ("gru_bwd", "float16"): dict(atol=0.0, rtol=2 ** -8),
     # layer_norm_*: the same f32 math with row sums in another order (and
     # the plain backward through autograd's graph of the mean and variance);
     # in bf16 y and dx are rounded once, so a last-bit f32 difference may
@@ -247,7 +278,8 @@ TOL = {
 # pipes and special-function units run side by side, so a kernel's least
 # time on operations is that of its busiest unit.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "f32": 67e12, "sfu": 3.9e12}
+PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "f16_tensor": 989e12, "f32": 67e12,
+                  "sfu": 3.9e12}
 
 
 def log(msg):
@@ -503,11 +535,12 @@ def _lstm_inputs(gen, T, N, H, dtype):
             rnd(H, 4 * H, scale=H ** -0.5), rnd(4 * H), rnd(N, H), rnd(N, H))
 
 
-def _lstm_bounds(T, N, H, itemsize):
+def _lstm_bounds(T, N, H, itemsize, tensor="bf16_tensor"):
     """Bytes and operations of the forward and backward kernels: each
     input read once, each output written once; the h . Wr products (and in
-    the backward dgates . Wr^T and h^T . dgates) on bf16 tensor cores, and
-    about 30 f32 operations of gate math per unit and step (40 backward)."""
+    the backward dgates . Wr^T and h^T . dgates) on tensor cores (bf16, or
+    ``tensor``), and about 30 f32 operations of gate math per unit and step
+    (40 backward)."""
     seq, state = T * N * H, N * H
     fwd_bytes = itemsize * (4 * seq + T * N + 4 * H * H + 4 * H + 2 * state
                             + 2 * seq)
@@ -515,8 +548,8 @@ def _lstm_bounds(T, N, H, itemsize):
                             + 3 * seq
                             + 4 * seq + 4 * H * H + 4 * H + 2 * state)
     product = 2 * T * N * H * 4 * H
-    return (bound(fwd_bytes, {"bf16_tensor": product, "f32": 30 * seq}),
-            bound(bwd_bytes, {"bf16_tensor": 3 * product, "f32": 40 * seq}))
+    return (bound(fwd_bytes, {tensor: product, "f32": 30 * seq}),
+            bound(bwd_bytes, {tensor: 3 * product, "f32": 40 * seq}))
 
 
 def cudnn_lstm_check(args, ys):
@@ -700,6 +733,34 @@ def _tc_fwd_guard_check(name, run, outs):
                              f"differ")
 
 
+def _float16_record(name, fwd, bwd, T, N, H, errs, calls, bounds):
+    """The float16 instances of a recurrence's kernels (CUDA cores) at a
+    main-path shape, checked against the plain version by the caller
+    (``errs``: the forward's and, at T > 1, the backward's max_abs_err):
+    their times, the plain versions' and the bounds at 2 bytes an element
+    go to ``fwd["float16"]`` (``step_*`` at T = 1) and, at T > 1,
+    ``bwd["float16"]``. ``calls``: the forward, its plain version, the
+    backward and its plain version."""
+    fwd_fn, fwd_plain, bwd_fn, bwd_plain = calls
+    fwd_bound, bwd_bound = bounds(T, N, H, 2, tensor="f16_tensor")
+    rec = fwd.setdefault("float16", {"max_abs_err": 0.0})
+    rec["max_abs_err"] = max(rec["max_abs_err"], errs[0])
+    key = "" if T > 1 else "step_"
+    ms, plain = time_ms(fwd_fn), time_ms(fwd_plain)
+    rec.update({key + "ms": ms, key + "plain_ms": plain,
+                key + "bound_ms": fwd_bound["bound_ms"],
+                key + "bound_by": fwd_bound["bound_by"]})
+    msg = (f"  {name} [{T},{N}] float16 (cuda_core): fwd kernel {ms:.3f} "
+           f"ms, plain {plain:.3f} ms, bound {fwd_bound['bound_ms']:.4f} ms "
+           f"({fwd_bound['bound_by']})")
+    if T > 1:
+        b = bwd["float16"] = dict(max_abs_err=errs[1], ms=time_ms(bwd_fn),
+                                  plain_ms=time_ms(bwd_plain), **bwd_bound)
+        msg += (f"; bwd kernel {b['ms']:.3f} ms, plain {b['plain_ms']:.3f} "
+                f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    log(msg)
+
+
 def check_lstm(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
@@ -716,7 +777,9 @@ def check_lstm(results):
     # 4100 rows), a train policy's 2560 agents at the bootstrap value, and
     # its update minibatch of 1280 sequences; then flagship_large's
     # minibatch, a ragged batch at both widths (the bf16 kernels on tensor
-    # cores), and float32 at both instantiated widths (CUDA cores).
+    # cores), the float16 instances (CUDA cores) at headline_fp16's update
+    # minibatch and rollout step ("fp16"), and float32 at both
+    # instantiated widths (CUDA cores).
     cases = [
         (16, 8192, 256, torch.bfloat16, "timed"),
         (1, 16384, 256, torch.bfloat16, "step"),
@@ -727,11 +790,14 @@ def check_lstm(results):
         (16, 256, 256, torch.bfloat16, None),
         (16, 1000, 256, torch.bfloat16, None),
         (5, 70, 128, torch.bfloat16, None),
+        (16, 8192, 256, torch.float16, "fp16"),
+        (1, 16384, 256, torch.float16, "fp16"),
+        (5, 70, 128, torch.float16, None),
         (5, 1000, 256, torch.float32, None),
         (4, 70, 128, torch.float32, None),
     ]
     for T, N, H, dtype, role in cases:
-        main_path = role is not None
+        main_path = role in ("timed", "step", "path")
         dname = str(dtype).split(".")[-1]
         args = _lstm_inputs(gen, T, N, H, dtype)
         tag = f"[{T},{N},{4 * H}] {dname}"
@@ -739,8 +805,9 @@ def check_lstm(results):
 
         (ys, cs), fpath = _routed(LSTM_FWD, uses_tensor_cores(dtype, H),
                                   lstm_sequence_fwd, *args)
-        err = compare(f"lstm fwd {tag} ({fpath})", ys,
-                      lstm_sequence_reference(*args), **TOL[("fwd", dname)])
+        err = fwd_err = compare(f"lstm fwd {tag} ({fpath})", ys,
+                                lstm_sequence_reference(*args),
+                                **TOL[("fwd", dname)])
         if main_path:
             if fpath != "tensor_core":
                 raise AssertionError(f"lstm fwd {tag}: the main path took "
@@ -765,12 +832,21 @@ def check_lstm(results):
 
         got, path = _routed(LSTM_BWD, uses_tensor_cores(dtype, H),
                             lstm_sequence_bwd, *args, ys, cs, probe)
+        bwd_err = 0.0
         for name, g, w in zip(("dxp", "dwr", "db", "dc0", "dh0"), got,
                               plain_bwd()):
             err = compare(f"lstm bwd {name} {tag} ({path})", g, w,
                           **TOL[("bwd", dname)])
+            bwd_err = max(bwd_err, err)
             if main_path and T > 1:
                 bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
+        if role == "fp16":
+            _float16_record(
+                "lstm", fwd, bwd, T, N, H, (fwd_err, bwd_err),
+                (lambda: lstm_sequence_fwd(*args),
+                 lambda: lstm_sequence_reference(*args),
+                 lambda: lstm_sequence_bwd(*args, ys, cs, probe), plain_bwd),
+                _lstm_bounds)
 
         if main_path and T > 1 and path != "tensor_core":
             raise AssertionError(f"lstm bwd {tag}: the main path took the "
@@ -1149,7 +1225,7 @@ def _gru_inputs(gen, T, N, H, dtype):
             rnd(H, 3 * H, scale=H ** -0.5), rnd(H), rnd(N, H))
 
 
-def _gru_bounds(T, N, H, itemsize):
+def _gru_bounds(T, N, H, itemsize, tensor="bf16_tensor"):
     """Bytes and operations of the GRU kernels, as _lstm_bounds reckons
     them: each input read once, each output written once (the backward's
     dhp and h_in scratch are neither); the h . Wh products (and in the
@@ -1162,8 +1238,8 @@ def _gru_bounds(T, N, H, itemsize):
     bwd_bytes = itemsize * (3 * seq + T * N + weights + state + 2 * seq
                             + 3 * seq + weights + state)
     product = 2 * T * N * H * 3 * H
-    return (bound(fwd_bytes, {"bf16_tensor": product, "f32": 25 * seq}),
-            bound(bwd_bytes, {"bf16_tensor": 3 * product, "f32": 35 * seq}))
+    return (bound(fwd_bytes, {tensor: product, "f32": 25 * seq}),
+            bound(bwd_bytes, {tensor: 3 * product, "f32": 35 * seq}))
 
 
 def cudnn_gru_check(args, ys):
@@ -1256,10 +1332,16 @@ def check_gru(results):
     bf16, f32 = torch.bfloat16, torch.float32
     # (T, N, H, dtype, on the main path): the headline_gru update minibatch,
     # its rollout step, ragged batches at both widths (bf16 on tensor
-    # cores), and float32 at both widths (CUDA cores).
+    # cores), the float16 instances (CUDA cores) at headline_gru_fp16's
+    # update minibatch and rollout step ("fp16"), and float32 at both
+    # widths (CUDA cores).
+    f16 = torch.float16
     cases = [
         (16, 8192, 256, bf16, True),
         (1, 16384, 256, bf16, True),
+        (16, 8192, 256, f16, "fp16"),
+        (1, 16384, 256, f16, "fp16"),
+        (5, 70, 128, f16, False),
         (16, 1000, 256, bf16, False),
         (5, 70, 128, bf16, False),
         (16, 1000, 128, bf16, False),
@@ -1267,7 +1349,8 @@ def check_gru(results):
         (4, 70, 128, f32, False),
     ]
     main_args = {}
-    for T, N, H, dtype, main_path in cases:
+    for T, N, H, dtype, role in cases:
+        main_path = role is True
         dname = str(dtype).split(".")[-1]
         tag = f"[{T},{N},{3 * H}] {dname}"
         args = _gru_inputs(gen, T, N, H, dtype)
@@ -1275,9 +1358,9 @@ def check_gru(results):
 
         ys, fpath = _routed(GRU_FWD, uses_tensor_cores(dtype, H),
                             gru_sequence_fwd, *args)
-        err = compare(f"gru fwd {tag} ({fpath})", ys,
-                      gru_sequence_reference(*args),
-                      **TOL[("gru_fwd", dname)])
+        err = fwd_err = compare(f"gru fwd {tag} ({fpath})", ys,
+                                gru_sequence_reference(*args),
+                                **TOL[("gru_fwd", dname)])
         if main_path:
             if fpath != "tensor_core":
                 raise AssertionError(f"gru fwd {tag}: the main path took "
@@ -1301,12 +1384,21 @@ def check_gru(results):
 
         got, path = _routed(GRU_BWD, uses_tensor_cores(dtype, H),
                             gru_sequence_bwd, *args, ys, probe)
+        bwd_err = 0.0
         for name, g, w in zip(("dxp", "dwh", "dbh", "dh0"), got,
                               plain_bwd()):
             err = compare(f"gru bwd {name} {tag} ({path})", g, w,
                           **TOL[("gru_bwd", dname)])
+            bwd_err = max(bwd_err, err)
             if main_path and T > 1:
                 bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
+        if role == "fp16":
+            _float16_record(
+                "gru", fwd, bwd, T, N, H, (fwd_err, bwd_err),
+                (lambda: gru_sequence_fwd(*args),
+                 lambda: gru_sequence_reference(*args),
+                 lambda: gru_sequence_bwd(*args, ys, probe), plain_bwd),
+                _gru_bounds)
 
         if main_path and T > 1:
             if path != "tensor_core":
@@ -1822,37 +1914,50 @@ def kernel_phase():
 
 
 def _small_actor_critic(dtype, hidden, seed, fused=False, gru=False,
-                        feed_forward=False, steer=None):
+                        feed_forward=False, steer=None, window=None,
+                        separate=False):
     """The headline's MLP + LSTM actor-critic; ``fused`` turns on the fused
     trunk (``use_fused_step`` and ``fuse_input_proj``), ``gru`` puts a GRU
-    in the LSTM's place, ``feed_forward`` drops the LSTM (a
-    ``BackboneEncoder`` over the MLP), and ``steer`` (a
+    in the LSTM's place, ``window`` a ``WindowAttentionMemory`` over that
+    many steps (``WINDOW_HEADS`` heads), ``feed_forward`` drops the LSTM (a
+    ``BackboneEncoder`` over the MLP), ``separate`` gives the actor and
+    the critic a tower each (``BackboneSeparate``), and ``steer`` (a
     ``ContinuousActionsConfig``) puts a continuous head in the discrete
     one's place."""
     import torch
     from madrona_learn_tpu_torch.config import DiscreteActionsConfig
     from madrona_learn_tpu_torch.models import (
-        GRU, LSTM, MLP, ActorCritic, BackboneEncoder, BackboneShared,
-        DenseLayerCritic, DenseLayerDiscreteActor, DictActor,
-        RecurrentBackboneEncoder)
+        GRU, LSTM, MLP, ActorCritic, BackboneEncoder, BackboneSeparate,
+        BackboneShared, DenseLayerCritic, DenseLayerDiscreteActor,
+        DictActor, RecurrentBackboneEncoder, WindowAttentionMemory)
 
     gen = torch.Generator().manual_seed(seed)
     move = DiscreteActionsConfig(actions_num_buckets=[5])
-    net = MLP(3, hidden, 2, dtype, generator=gen)
-    if feed_forward:
-        encoder = BackboneEncoder(net=net)
-    else:
-        rnn = (GRU(hidden, hidden, 1, dtype, generator=gen) if gru
-               else LSTM(hidden, hidden, 1, dtype, generator=gen,
-                         fuse_input_proj=fused))
-        encoder = RecurrentBackboneEncoder(net=net, rnn=rnn,
-                                           use_fused_step=fused)
+
+    def tower():
+        net = MLP(3, hidden, 2, dtype, generator=gen)
+        if feed_forward:
+            return BackboneEncoder(net=net)
+        if window is not None:
+            rnn = WindowAttentionMemory(hidden, window, WINDOW_HEADS, dtype,
+                                        generator=gen)
+        elif gru:
+            rnn = GRU(hidden, hidden, 1, dtype, generator=gen)
+        else:
+            rnn = LSTM(hidden, hidden, 1, dtype, generator=gen,
+                       fuse_input_proj=fused)
+        return RecurrentBackboneEncoder(net=net, rnn=rnn,
+                                        use_fused_step=fused)
+
+    def prefix(obs):
+        return torch.cat([obs["delta"], obs["time"]], -1)
+
+    backbone = (BackboneSeparate(prefix, tower(), tower()) if separate
+                else BackboneShared(prefix=prefix, encoder=tower()))
     head = (_steer_actor(steer, hidden, dtype, gen) if steer is not None
             else DenseLayerDiscreteActor(move, hidden, dtype, generator=gen))
     return ActorCritic(
-        backbone=BackboneShared(
-            prefix=lambda obs: torch.cat([obs["delta"], obs["time"]], -1),
-            encoder=encoder),
+        backbone=backbone,
         actor=DictActor({"steer" if steer is not None else "move": head}),
         critic=DenseLayerCritic(hidden, dtype, generator=gen))
 
@@ -1889,7 +1994,9 @@ FLAGSHIP_BUCKETS = [5, 3]
 LARGE_SET = dict(allies=255, enemies=255)
 
 
-def _flagship_actor_critic(dtype, embed, out, heads, hidden, seed):
+def _flagship_actor_critic(dtype, embed, out, heads, hidden, seed,
+                           embed_concat_self=False,
+                           remat_trunk_sequence=False):
     import torch
     from madrona_learn_tpu_torch.config import DiscreteActionsConfig
     from madrona_learn_tpu_torch.models import (
@@ -1902,9 +2009,11 @@ def _flagship_actor_critic(dtype, embed, out, heads, hidden, seed):
         backbone=BackboneShared(
             prefix=lambda obs: obs,
             encoder=RecurrentBackboneEncoder(
-                net=EntitySelfAttentionNet(ENTITY_OBS, embed, out, heads,
-                                           dtype, generator=gen),
-                rnn=LSTM(out, hidden, 1, dtype, generator=gen))),
+                net=EntitySelfAttentionNet(
+                    ENTITY_OBS, embed, out, heads, dtype, generator=gen,
+                    embed_concat_self=embed_concat_self),
+                rnn=LSTM(out, hidden, 1, dtype, generator=gen),
+                remat_trunk_sequence=remat_trunk_sequence)),
         actor=DictActor({"move": DenseLayerDiscreteActor(
             DiscreteActionsConfig(actions_num_buckets=FLAGSHIP_BUCKETS),
             hidden, dtype, generator=gen)}),
@@ -2453,14 +2562,15 @@ def build_native(hooks):
         device="cuda"))
 
 
-def build_flagship(hooks, num_worlds=NUM_WORLDS, allies=5, enemies=6):
+def build_flagship(hooks, num_worlds=NUM_WORLDS, allies=5, enemies=6,
+                   **model_kwargs):
     import torch
     import madrona_learn_tpu_torch as mlt
 
     # __graft_entry__.py's model at its published width; no obs
     # preprocessing, as there.
     policy = mlt.Policy(actor_critic=_flagship_actor_critic(
-        torch.bfloat16, 128, 256, 4, CHANNELS, seed=0))
+        torch.bfloat16, 128, 256, 4, CHANNELS, seed=0, **model_kwargs))
     return mlt.init_training(
         "cuda", _train_config(FLAGSHIP_BUCKETS, dreamer_v3_critic=True,
                               num_worlds=num_worlds),
@@ -2473,6 +2583,121 @@ def build_flagship_large(hooks):
     """The flagship over 511 entities (self, 255 allies, 255 enemies), which
     pad to 512 and take mha_flash, at LARGE_WORLDS worlds."""
     return build_flagship(hooks, num_worlds=LARGE_WORLDS, **LARGE_SET)
+
+
+# The rest of the model zoo at the headline's width and PPO settings:
+# separate actor and critic towers, float16 recurrences, the windowed
+# attention memory (its window the BPTT chunk's 16 steps) and the flagship
+# with self-concatenated entity embeddings and its trunk rematerialized in
+# the update pass.
+WINDOW = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS
+WINDOW_HEADS = 4
+
+
+def build_headline_separate(hooks):
+    """The headline with an MLP 2 x 256 -> LSTM 256 tower for the actor
+    and another for the critic (``BackboneSeparate``), bf16."""
+    import torch
+
+    return _headline_trainer(
+        hooks, _train_config([5], dreamer_v3_critic=False),
+        actor_critic=_small_actor_critic(torch.bfloat16, CHANNELS, seed=0,
+                                         separate=True))
+
+
+def _fp16_trainer(hooks, **model_kwargs):
+    """The headline's model in float16 (``model_kwargs`` as
+    ``_small_actor_critic`` takes them), the obs cast to float16, with
+    dynamic loss scaling."""
+    import torch
+    import madrona_learn_tpu_torch as mlt
+
+    return _headline_trainer(
+        hooks, _train_config([5], dreamer_v3_critic=False,
+                             compute_dtype=torch.float16),
+        actor_critic=_small_actor_critic(torch.float16, CHANNELS, seed=0,
+                                         **model_kwargs),
+        obs_preprocess=mlt.ObservationsCaster.create(dtype=torch.float16))
+
+
+def build_headline_fp16(hooks):
+    """The headline in float16: its LSTM on the float16 kernels."""
+    return _fp16_trainer(hooks)
+
+
+def build_headline_gru_fp16(hooks):
+    """headline_gru in float16: its GRU on the float16 kernels."""
+    return _fp16_trainer(hooks, gru=True)
+
+
+def build_headline_window(hooks):
+    """The headline with WindowAttentionMemory(256, window 16, 4 heads) in
+    the LSTM's place, bf16: plain PyTorch, no recurrent kernel."""
+    import torch
+
+    return _headline_trainer(
+        hooks, _train_config([5], dreamer_v3_critic=False),
+        actor_critic=_small_actor_critic(torch.bfloat16, CHANNELS, seed=0,
+                                         window=WINDOW))
+
+
+def build_flagship_concat_self_remat(hooks):
+    """The flagship with ``embed_concat_self`` (each entity's features
+    followed by the self features) and ``remat_trunk_sequence``."""
+    return build_flagship(hooks, embed_concat_self=True,
+                          remat_trunk_sequence=True)
+
+
+def check_remat(mgr, updates_run, update_stats):
+    """flagship_concat_self_remat: from one saved state and rollout copy,
+    one update with the trunk rematerialized and one without must launch
+    ``mha`` 41 and 37 times and give bitwise equal parameters; the peak
+    device memory of each is printed."""
+    import shutil
+    import torch
+
+    ckpt_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "_checkpoint_smoke")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    encoder = mgr.state.policy_states.actor_critic.backbone.encoder
+    try:
+        mgr.save_ckpt(ckpt_root)
+        path = os.path.join(ckpt_root, str(mgr.update_idx))
+        rollout = _copy_rollout(mgr.rollout)
+        runs = {}
+        for remat in (True, False):
+            mgr.load_ckpt(path)
+            mgr.rollout = _copy_rollout(rollout)
+            encoder.remat_trunk_sequence = remat
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_launch_counts()
+            (_, ms) = _timed(mgr.update_iter)
+            mha = _launch_counts()[0]["mha"]
+            want = STEPS_PER_UPDATE + 1 + NUM_MINIBATCHES * (1 + remat)
+            if mha != want:
+                raise AssertionError(f"remat={remat}: mha launched {mha} "
+                                     f"times, expected {want}")
+            runs[remat] = dict(
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, ms=ms,
+                params={k: p.detach().clone() for k, p in mgr.state
+                        .policy_states.actor_critic.named_parameters()})
+    finally:
+        encoder.remat_trunk_sequence = True
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    differ = [k for k, p in runs[True]["params"].items()
+              if not torch.equal(p, runs[False]["params"][k])]
+    log(f"  remat against no remat from one state: "
+        f"{len(runs[True]['params']) - len(differ)} of "
+        f"{len(runs[True]['params'])} parameters bitwise equal; peak "
+        f"{runs[True]['peak_gib']:.2f} GiB with remat, "
+        f"{runs[False]['peak_gib']:.2f} GiB without; update "
+        f"{runs[True]['ms']:.1f} ms with, {runs[False]['ms']:.1f} ms "
+        f"without; mha {STEPS_PER_UPDATE + 1 + 2 * NUM_MINIBATCHES} / "
+        f"{STEPS_PER_UPDATE + 1 + NUM_MINIBATCHES} launches")
+    if differ:
+        raise AssertionError(f"remat changed parameters: {differ}")
 
 
 def _phase_timer():
@@ -2557,14 +2782,17 @@ TC_ROUTED = ("lstm_sequence_fwd", "lstm_sequence_bwd",
 
 def trainer_phase(card, name, build, per_update, trials, timed_updates,
                   last_rewards, num_worlds=NUM_WORLDS, ratio_zero=False,
-                  final_check=None, setting=None, rising_reward=True):
+                  final_check=None, setting=None, rising_reward=True,
+                  tensor_cores=True):
     """One trainer: launch counts, finite metrics, rising reward (only
     logged without ``rising_reward``), env-steps/s, memory, the ratio at
     the first minibatch (exactly 0 with ``ratio_zero``), the minibatches
     of every update, the phase split and a profile; then
     ``final_check(mgr, updates run, per-update stats)``, if given.
     ``setting`` describes the run in its first line (default: the
-    headline's bf16 and 4 minibatches)."""
+    headline's bf16 and 4 minibatches). Every launch of a kernel with a
+    tensor-core route takes it, or, without ``tensor_cores`` (float16),
+    none does."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda import KERNELS
 
@@ -2646,9 +2874,10 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
         f"{ {k: v * num_updates for k, v in per_update.items()} })")
     # The trainers run bf16 at H = 256: every launch of a kernel with a
     # counted tensor-core route (the four LSTM kernels, the two GRU
-    # kernels, mha, the fused step) takes it.
+    # kernels, mha, the fused step) takes it. In float16 the recurrences
+    # take their CUDA-core instances.
     for kernel, tc in tc_launches.items():
-        if tc != launches[kernel]:
+        if tc != (launches[kernel] if tensor_cores else 0):
             raise AssertionError(
                 f"{name}: {kernel}: {tc} of {launches[kernel]} launches on "
                 f"the tensor-core route")
@@ -3796,6 +4025,54 @@ def main():
         f"GiB on {card}")
     launches_by_path["checkpoint_eval"] = checkpoint_eval_phase(card,
                                                                 r.pop("mgr"))
+    zoo = {
+        # The rest of the model zoo. Separate towers: each tower's LSTM at
+        # every rollout step and every minibatch, the critic's alone for
+        # the bootstrap value.
+        "headline_separate": trainer_phase(
+            card, "headline_separate", build_headline_separate,
+            dict(lstm, lstm_sequence_fwd=2 * STEPS_PER_UPDATE + 1
+                 + 2 * NUM_MINIBATCHES,
+                 lstm_sequence_bwd=2 * NUM_MINIBATCHES),
+            trials=2, timed_updates=5, last_rewards=5, ratio_zero=True,
+            setting=f"bf16, an MLP + LSTM tower for the actor and one for "
+                    f"the critic, {NUM_MINIBATCHES} minibatches"),
+        # Float16 recurrences: the headline's launches on the kernels'
+        # CUDA-core float16 instances.
+        "headline_fp16": trainer_phase(
+            card, "headline_fp16", build_headline_fp16, lstm, trials=2,
+            timed_updates=5, last_rewards=5, ratio_zero=True,
+            final_check=check_scaler, tensor_cores=False,
+            setting=f"float16 MLP + LSTM with loss scaling, "
+                    f"{NUM_MINIBATCHES} minibatches"),
+        "headline_gru_fp16": trainer_phase(
+            card, "headline_gru_fp16", build_headline_gru_fp16, gru,
+            trials=2, timed_updates=3, last_rewards=3,
+            final_check=check_scaler, tensor_cores=False,
+            setting=f"float16 MLP + GRU with loss scaling, "
+                    f"{NUM_MINIBATCHES} minibatches"),
+        # The windowed attention memory runs no recurrent kernel.
+        "headline_window": trainer_phase(
+            card, "headline_window", build_headline_window, {"gae": 1},
+            trials=2, timed_updates=5, last_rewards=5,
+            setting=f"bf16, WindowAttentionMemory(256, window {WINDOW}, "
+                    f"{WINDOW_HEADS} heads), {NUM_MINIBATCHES} minibatches"),
+        # Rematerialization runs the trunk's mha again in each minibatch's
+        # backward. The flagship's schedule: its reward rises slowly.
+        "flagship_concat_self_remat": trainer_phase(
+            card, "flagship_concat_self_remat",
+            build_flagship_concat_self_remat,
+            dict(lstm, mha=steps + NUM_MINIBATCHES), trials=3,
+            timed_updates=5, last_rewards=5, final_check=check_remat,
+            setting=f"bf16 flagship, entity embeds concatenating the self "
+                    f"features, trunk rematerialized, {NUM_MINIBATCHES} "
+                    f"minibatches"),
+    }
+    for name, (launches, r) in zoo.items():
+        launches_by_path[name] = launches
+        log(f"{name}: {r['sps']:.0f} env-steps/s (headline {headline_sps:.0f} "
+            f"in this run), max |ratio - 1| {r['ratio_dev']:.3e}, peak "
+            f"{r['peak_gib']:.2f} GiB on {card}")
 
     import torch
     from madrona_learn_tpu_torch.ops.cuda import KERNELS
@@ -3815,7 +4092,7 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("recurrence_ms", "weight_grad_ms",
+            **{k: r[k] for k in ("float16", "recurrence_ms", "weight_grad_ms",
                                  "main_pass_ms", "reduction_ms",
                                  "device_ms", "host_us", "library_device_ms",
                                  "library_host_us") if k in r}})

@@ -4,7 +4,9 @@ The port runs PPO on one NVIDIA GPU: BPTT-chunked collection from a batched
 simulator (the toy gridworld, the bidding duel, the native sim), GAE and
 clipped PPO, for an MLP + LSTM actor-critic with a scalar critic (the
 ``bench.py`` headline) or the flagship entity self-attention + LSTM
-actor-critic with the DreamerV3 two-hot critic; for one policy or, with
+actor-critic with the DreamerV3 two-hot critic, and the rest of the JAX
+package's model zoo (GRU or windowed-attention memory, separate actor and
+critic towers, float16 recurrences); for one policy or, with
 ``TrainConfig.pbt``, a population-based training population of train and
 past policies in matchmade self, cross and past play, ranked by Elo or
 episode-score fitness, culled and snapshotted; with checkpoints to save,
@@ -17,6 +19,8 @@ take. Module names mirror the JAX package's, which stays the reference.
 from .config import (ContinuousActionsConfig, DiscreteActionsConfig,
                      EvalConfig, ParamExplore, PBTConfig, TrainConfig)
 from .eval import eval_load_ckpt, eval_policies
+from .models import (ActorCritic, BackboneEncoder, BackboneSeparate,
+                     BackboneShared, RecurrentBackboneEncoder)
 from .observations import (ObservationsCaster, ObservationsEMANormalizer,
                            ObservationsPreprocess,
                            ObservationsPreprocessNoop)
@@ -33,6 +37,10 @@ from .train import (TrainHooks, TrainingManager, eval_elo, init_training,
 from .train_state import TrainStateManager, wait_for_checkpoints
 
 __all__ = [
+    "ActorCritic",
+    "BackboneEncoder",
+    "BackboneSeparate",
+    "BackboneShared",
     "ContinuousActionsConfig",
     "DiscreteActionsConfig",
     "EvalConfig",
@@ -45,6 +53,7 @@ __all__ = [
     "PPOConfig",
     "ParamExplore",
     "Policy",
+    "RecurrentBackboneEncoder",
     "RolloutConfig",
     "RolloutData",
     "RolloutManager",

@@ -12,7 +12,11 @@
   critics' ``Dense_0``, the two-part HL-Gauss critic's ``small`` and
   ``large`` heads), so only the names change: path components join with
   ``.``, and flax's ``heads_<name>`` for a dict of submodules becomes
-  ``heads.<name>``.
+  ``heads.<name>``. The same rule carries ``BackboneSeparate``'s towers
+  (``backbone.actor_encoder.*``, ``backbone.critic_encoder.*``) and
+  ``WindowAttentionMemory``'s ``step.{q,k,v,out}.kernel`` and
+  ``step.norm.{scale,bias}`` (flax's own LayerNorm, held by the port's
+  ``FlaxLayerNorm``).
 - ``obs_preprocess_state``: the EMA normalizer state of
   ``ObservationsEMANormalizer`` (per obs key: mu, inv_sigma, sigma,
   mu_biased, sigma_sq_biased, N) -> the same dict of numpy arrays.

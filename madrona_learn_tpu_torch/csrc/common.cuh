@@ -1,5 +1,6 @@
-// Device helpers shared by the kernels: storage-type conversion, paired and
-// 16-byte vector loads and the CUDA-core row-tile product.
+// Device helpers shared by the kernels: storage-type conversion (float32,
+// bfloat16 and float16), paired and 16-byte vector loads and the CUDA-core
+// row-tile product.
 //
 // Thread layout of every kernel that uses the product: a block of kThreads
 // threads owns kRows batch rows. Thread (row group rg, unit group ug) owns
@@ -10,6 +11,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -25,6 +27,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -35,6 +38,10 @@ __device__ __forceinline__ float from_f<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // x rounded to the storage type T and back to f32.
@@ -60,6 +67,16 @@ __device__ __forceinline__ void load_units(const __nv_bfloat16* p,
   for (int j = 0; j < UPT; j += 2) {
     const float2 v =
         __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + j));
+    out[j] = v.x;
+    out[j + 1] = v.y;
+  }
+}
+template <int UPT>
+__device__ __forceinline__ void load_units(const __half* p,
+                                           float (&out)[UPT]) {
+#pragma unroll
+  for (int j = 0; j < UPT; j += 2) {
+    const float2 v = __half22float2(*reinterpret_cast<const __half2*>(p + j));
     out[j] = v.x;
     out[j + 1] = v.y;
   }

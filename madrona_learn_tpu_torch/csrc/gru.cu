@@ -42,7 +42,8 @@
 //
 // These are bound by CUDA-core FMA issue and shared/L1 load throughput,
 // far below the tensor-core rate that bounds the work itself; they serve
-// float32 alone.
+// float32 and float16 (the same f32 math from float16 operands, h and the
+// rounded dhp stored in float16).
 //
 // In bfloat16, both on Hopper's tensor cores: the forward
 // (gru_fwd_tc_kernel) and the backward (gru_bwd_tc_kernel, then
@@ -902,12 +903,15 @@ int launch_fwd_tc(const void* xp, const void* keep, const void* wh,
 
 }  // namespace
 
-// dtype: 0 = float32. Each entry point returns a cudaError_t, or -1 for
-// arguments without an instantiation. The CUDA-core kernels are built for
-// float32 alone: bfloat16 takes mlt_gru_fwd_tc and mlt_gru_bwd_tc.
-#define MLT_DISPATCH_F32(CALL)                                   \
+// dtype: 0 = float32, 2 = float16. Each entry point returns a cudaError_t,
+// or -1 for arguments without an instantiation. The CUDA-core kernels are
+// built for float32 and float16: bfloat16 takes mlt_gru_fwd_tc and
+// mlt_gru_bwd_tc.
+#define MLT_DISPATCH_F32_F16(CALL)                               \
   if (dtype == 0 && hidden == 128) return CALL(float, 128);      \
   if (dtype == 0 && hidden == 256) return CALL(float, 256);      \
+  if (dtype == 2 && hidden == 128) return CALL(__half, 128);     \
+  if (dtype == 2 && hidden == 256) return CALL(__half, 256);     \
   return -1
 
 extern "C" int mlt_gru_fwd(int dtype, int hidden, const void* xp,
@@ -917,7 +921,7 @@ extern "C" int mlt_gru_fwd(int dtype, int hidden, const void* xp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MLT_FWD(T, H) \
   launch_fwd<T, H>(xp, keep, wh, bias_h, h0, ys, steps, n_rows, s)
-  MLT_DISPATCH_F32(MLT_FWD);
+  MLT_DISPATCH_F32_F16(MLT_FWD);
 #undef MLT_FWD
 }
 
@@ -932,7 +936,7 @@ extern "C" int mlt_gru_bwd(int dtype, int hidden, const void* xp,
 #define MLT_BWD(T, H)                                                       \
   launch_bwd<T, H>(xp, keep, wh, wh_t, bias_h, h0, ys, dys, dxp, dhp, dh0, \
                    part_w, part_b, dwh, db3, steps, n_rows, splits, s)
-  MLT_DISPATCH_F32(MLT_BWD);
+  MLT_DISPATCH_F32_F16(MLT_BWD);
 #undef MLT_BWD
 }
 
@@ -984,4 +988,4 @@ extern "C" int mlt_gru_fwd_tc(int hidden, int rows, int stages,
   return -1;
 }
 
-#undef MLT_DISPATCH_F32
+#undef MLT_DISPATCH_F32_F16

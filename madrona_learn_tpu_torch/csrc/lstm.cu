@@ -16,7 +16,8 @@
 // in no order, so neither the resident weight nor a sum carried across grid
 // steps exists.
 //
-// In float32 (layout and product in common.cuh), forwards and backwards:
+// In float32 and float16 (layout and product in common.cuh), forwards and
+// backwards (the projection variant in float32 only):
 // - One block owns kRows batch rows and all H units of those rows, and
 //   loops over time inside the kernel (the TPU's sequential grid axis
 //   becomes the in-block loop). Each thread computes all four gates of its
@@ -58,7 +59,7 @@
 // accumulation, which is what wgmma computes, with only the order of the
 // sums changed. The wrapper's rule (ops/cuda/lstm.py: uses_tensor_cores)
 // sends bf16 at H = 128 or 256 here (an operand off a 16-byte boundary is
-// copied onto one first), float32 to the kernels above.
+// copied onto one first), float32 and float16 to the kernels above.
 // - Row ownership as above, with R rows a block (kFwdTcRows for the
 //   forwards, kTcRows for the backwards: the fastest on the H100, PERF.md):
 //   warpgroup w owns units 64 w .. 64 w + 63 of all four gates, so the gate
@@ -1479,13 +1480,20 @@ bool proj_width_ok(int hidden, int f_in) {
 
 }  // namespace
 
-// dtype: 0 = float32. Each entry point returns a cudaError_t, or -1 for
-// arguments without an instantiation. The CUDA-core kernels are built for
-// float32 alone: bfloat16 takes mlt_lstm_fwd_tc and mlt_lstm_bwd_tc.
+// dtype: 0 = float32, 2 = float16. Each entry point returns a cudaError_t,
+// or -1 for arguments without an instantiation. The CUDA-core sequence
+// kernels are built for float32 and float16, the projection kernels for
+// float32 alone (float16 takes the unfused kernels, as the JAX package's
+// lstm_proj_supported sends it to its unfused route): bfloat16 takes
+// mlt_lstm_fwd_tc and mlt_lstm_bwd_tc.
 #define MLT_DISPATCH_F32(CALL)                                   \
   if (dtype == 0 && hidden == 128) return CALL(float, 128);      \
   if (dtype == 0 && hidden == 256) return CALL(float, 256);      \
   return -1
+#define MLT_DISPATCH_F32_F16(CALL)                               \
+  if (dtype == 2 && hidden == 128) return CALL(__half, 128);     \
+  if (dtype == 2 && hidden == 256) return CALL(__half, 256);     \
+  MLT_DISPATCH_F32(CALL)
 
 extern "C" int mlt_lstm_fwd(int dtype, int hidden, const void* xp,
                             const void* keep, const void* wr,
@@ -1495,7 +1503,7 @@ extern "C" int mlt_lstm_fwd(int dtype, int hidden, const void* xp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MLT_FWD(T, H) \
   launch_fwd<T, H>(xp, keep, wr, bias, c0, h0, ys, cs, steps, n_rows, s)
-  MLT_DISPATCH_F32(MLT_FWD);
+  MLT_DISPATCH_F32_F16(MLT_FWD);
 #undef MLT_FWD
 }
 
@@ -1511,7 +1519,7 @@ extern "C" int mlt_lstm_bwd(int dtype, int hidden, const void* xp,
 #define MLT_BWD(T, H)                                                      \
   launch_bwd<T, H>(xp, keep, wr, wr_t, bias, c0, h0, ys, cs, dys, dxp, dh0, \
                    dc0, part_w, part_b, dwr, db, steps, n_rows, splits, s)
-  MLT_DISPATCH_F32(MLT_BWD);
+  MLT_DISPATCH_F32_F16(MLT_BWD);
 #undef MLT_BWD
 }
 
@@ -1599,4 +1607,5 @@ extern "C" int mlt_lstm_fwd_tc(int hidden, int f_in, const void* x,
   return -1;
 }
 
+#undef MLT_DISPATCH_F32_F16
 #undef MLT_DISPATCH_F32

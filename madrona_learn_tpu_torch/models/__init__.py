@@ -3,6 +3,7 @@
 from .actor_critic import (
     ActorCritic,
     BackboneEncoder,
+    BackboneSeparate,
     BackboneShared,
     RecurrentBackboneEncoder,
 )
@@ -20,10 +21,12 @@ from .critics import (
 )
 from .gru import GRU
 from .lstm import LSTM
+from .transformer_memory import WindowAttentionMemory
 
 __all__ = [
     "ActorCritic",
     "BackboneEncoder",
+    "BackboneSeparate",
     "BackboneShared",
     "Dense",
     "DenseLayerCritic",
@@ -39,6 +42,7 @@ __all__ = [
     "MLP",
     "RecurrentBackboneEncoder",
     "SelfAttention",
+    "WindowAttentionMemory",
     "make_hlgauss_bins",
     "make_hlgauss_two_part_bins",
 ]

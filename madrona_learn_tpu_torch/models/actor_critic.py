@@ -1,15 +1,19 @@
-"""ActorCritic and its backbone (JAX: models/actor_critic.py).
+"""ActorCritic and its backbones (JAX: models/actor_critic.py).
 
 ``ActorCritic`` exposes ``rollout`` (sample or argmax actions plus value),
-``critic_only`` and ``update`` (sequence forward that scores stored
-actions) over a backbone. The slice ports ``BackboneShared`` (one tower
-feeds both heads) with a ``RecurrentBackboneEncoder`` tower (net -> rnn,
-with a time-axis ``sequence`` path for BPTT) or a feed-forward
-``BackboneEncoder`` tower, whose recurrent state is the empty tuple. Recurrent-state init and
-clear live on the modules so the rollout engine owns state placement. The
-obs dict's leaves may carry entity axes ([N, E, F], [T, N, E, F] in the
-update pass); the time axis is always the leading one. The critic returns a
-tensor or, for the DreamerV3 critic, a distribution.
+``actor_only`` (argmax actions), ``critic_only`` and ``update`` (sequence
+forward that scores stored actions) over a backbone: ``BackboneShared``
+(one tower feeds both heads) or ``BackboneSeparate`` (an actor tower and a
+critic tower over one prefix, recurrent state ``(actor_state,
+critic_state)``). A tower is a ``RecurrentBackboneEncoder`` (net -> rnn,
+with a time-axis ``sequence`` path for BPTT; the rnn an ``LSTM``, ``GRU``
+or ``WindowAttentionMemory``) or a feed-forward ``BackboneEncoder``, whose
+recurrent state is the empty tuple. Recurrent-state init and clear live on
+the modules so the rollout engine owns state placement; a state is a
+tensor or a tuple of them, nested, of any dtype. The obs dict's leaves may
+carry entity axes ([N, E, F], [T, N, E, F] in the update pass); the time
+axis is always the leading one. The critic returns a tensor or, for the
+DreamerV3 critic, a distribution.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.cuda.policy_step import fused_policy_step, policy_step_supported
@@ -74,14 +79,22 @@ class RecurrentBackboneEncoder(nn.Module):
     step rounds mean and variance to the storage dtype, so in bf16 the two
     forwards differ by about a bf16 ulp and PPO's ratio starts near, not
     at, 1 (the JAX package has the same divergence).
+
+    ``remat_trunk_sequence=True`` (JAX: ``:186``) rematerializes the trunk
+    in the update pass: ``sequence`` runs ``net`` under
+    ``torch.utils.checkpoint``, which keeps none of its activations and
+    runs its forward again in the backward. The rollout step is unchanged,
+    and so are the numbers: the recomputed forward is the first one.
     """
 
     def __init__(self, net: nn.Module, rnn: nn.Module,
-                 use_fused_step: bool = False):
+                 use_fused_step: bool = False,
+                 remat_trunk_sequence: bool = False):
         super().__init__()
         self.net = net
         self.rnn = rnn
         self.use_fused_step = use_fused_step
+        self.remat_trunk_sequence = remat_trunk_sequence
 
     def init_recurrent_state(self, N, device=None):
         return self.rnn.init_recurrent_state(N, device)
@@ -130,7 +143,11 @@ class RecurrentBackboneEncoder(nn.Module):
         # The trunk runs over the flat [T*N] batch (one big product), then
         # reshapes to [T, N] for the recurrent pass.
         T, N = sequence_ends.shape[0:2]
-        features = self.net(flattened_inputs)
+        if self.remat_trunk_sequence and torch.is_grad_enabled():
+            features = torch.utils.checkpoint.checkpoint(
+                self.net, flattened_inputs, use_reentrant=False)
+        else:
+            features = self.net(flattened_inputs)
         rnn_out = self.rnn.sequence(
             rnn_start_states, sequence_ends,
             features.reshape(T, N, *features.shape[1:]))
@@ -159,13 +176,69 @@ class BackboneShared(nn.Module):
         feats, rnn_out = self.encoder(rnn_states_in, self.prefix(obs_in))
         return feats, feats, rnn_out
 
-    def critic_only(self, rnn_states_in, obs_in):
+    def actor_only(self, rnn_states_in, obs_in):
         return self.encoder(rnn_states_in, self.prefix(obs_in))
+
+    critic_only = actor_only
 
     def sequence(self, rnn_start_states, sequence_ends, obs_in):
         feats = self.encoder.sequence(
             rnn_start_states, sequence_ends, self.prefix(_drop_time(obs_in)))
         return feats, feats
+
+
+class BackboneSeparate(nn.Module):
+    """Independent actor and critic towers over a shared prefix.
+
+    The recurrent state is the pair ``(actor_state, critic_state)``;
+    ``actor_only`` / ``critic_only`` run and advance only their tower's
+    slot and pass the other through.
+    """
+
+    def __init__(self, prefix: Callable[[Dict[str, torch.Tensor]],
+                                        torch.Tensor],
+                 actor_encoder: nn.Module, critic_encoder: nn.Module):
+        super().__init__()
+        self.prefix = prefix
+        self.actor_encoder = actor_encoder
+        self.critic_encoder = critic_encoder
+
+    def _towers(self):
+        return (self.actor_encoder, self.critic_encoder)
+
+    def init_recurrent_state(self, N, device=None):
+        return tuple(t.init_recurrent_state(N, device)
+                     for t in self._towers())
+
+    def clear_recurrent_state(self, recurrent_states, should_clear):
+        return tuple(t.clear_recurrent_state(s, should_clear)
+                     for t, s in zip(self._towers(), recurrent_states))
+
+    def forward(self, rnn_states_in, obs_in):
+        processed = self.prefix(obs_in)
+        actor_feats, actor_rnn = self.actor_encoder(rnn_states_in[0],
+                                                    processed)
+        critic_feats, critic_rnn = self.critic_encoder(rnn_states_in[1],
+                                                       processed)
+        return actor_feats, critic_feats, (actor_rnn, critic_rnn)
+
+    def _one_tower(self, slot, rnn_states_in, obs_in):
+        feats, rnn_out = self._towers()[slot](rnn_states_in[slot],
+                                              self.prefix(obs_in))
+        new_states = list(rnn_states_in)
+        new_states[slot] = rnn_out
+        return feats, tuple(new_states)
+
+    def actor_only(self, rnn_states_in, obs_in):
+        return self._one_tower(0, rnn_states_in, obs_in)
+
+    def critic_only(self, rnn_states_in, obs_in):
+        return self._one_tower(1, rnn_states_in, obs_in)
+
+    def sequence(self, rnn_start_states, sequence_ends, obs_in):
+        processed = self.prefix(_drop_time(obs_in))
+        return tuple(t.sequence(s, sequence_ends, processed)
+                     for t, s in zip(self._towers(), rnn_start_states))
 
 
 class ActorCritic(nn.Module):
@@ -196,6 +269,12 @@ class ActorCritic(nn.Module):
             results = {"actions": dists.best()}
         results["critic"] = self.critic(critic_feats)
         return results, rnn_out
+
+    def actor_only(self, rnn_states_in, obs_in):
+        """One step of the actor alone: ({actions: each head's most likely
+        action}, new recurrent state)."""
+        feats, rnn_out = self.backbone.actor_only(rnn_states_in, obs_in)
+        return {"actions": self.actor(feats).best()}, rnn_out
 
     def critic_only(self, rnn_states_in, obs_in):
         feats, rnn_out = self.backbone.critic_only(rnn_states_in, obs_in)

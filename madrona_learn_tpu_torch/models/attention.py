@@ -22,7 +22,10 @@ output is wider than the embedding), mean-pool, LayerNorm, a feed-forward
 residual and a final LayerNorm. Parameter names follow the flax tree
 (``self_embed``, ``<key>_embed``, ``LayerNorm_0..``, ``SelfAttention_0``,
 ``ff_0``, ``ff_1``), so the weight-norm projection and the LayerNorm renorm
-of the PPO update pick the same parameters as in the JAX package.
+of the PPO update pick the same parameters as in the JAX package. With
+``embed_concat_self=True`` (JAX: ``:136``) each entity set's features get
+the self features tiled along the entity axis, after them (``[entities,
+self]``), so every entity embed reads F_e + F_self features.
 """
 
 from __future__ import annotations
@@ -136,17 +139,22 @@ class EntitySelfAttentionNet(nn.Module):
     def __init__(self, obs_features: Dict[str, int], num_embed_channels: int,
                  num_out_channels: int, num_heads: int, dtype,
                  dense_init: Callable = orthogonal(math.sqrt(2)),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 embed_concat_self: bool = False):
         super().__init__()
         self.dtype = dtype
         self.num_embed_channels = num_embed_channels
         self.num_out_channels = num_out_channels
+        self.embed_concat_self = embed_concat_self
         # self first, then the entity sets in sorted key order, as flax's
         # tree_flatten_with_path visits them.
         self.entity_keys = sorted(k for k in obs_features if k != "self")
         for idx, name in enumerate(["self"] + self.entity_keys):
+            width = obs_features[name]
+            if embed_concat_self and name != "self":
+                width += obs_features["self"]
             self.add_module(f"{name}_embed", Dense(
-                obs_features[name], num_embed_channels, dtype,
+                width, num_embed_channels, dtype,
                 use_bias=False, kernel_init=dense_init, generator=generator))
             self.add_module(f"LayerNorm_{idx}",
                             LayerNorm(num_embed_channels, dtype))
@@ -171,9 +179,14 @@ class EntitySelfAttentionNet(nn.Module):
         return _leaky_relu(getattr(self, f"LayerNorm_{idx}")(x))
 
     def forward(self, x_tree):
-        embedded = [self._embed(0, "self", x_tree["self"][..., None, :])]
+        x_self = x_tree["self"][..., None, :]
+        embedded = [self._embed(0, "self", x_self)]
         for idx, name in enumerate(self.entity_keys, start=1):
-            embedded.append(self._embed(idx, name, x_tree[name]))
+            x = x_tree[name]
+            if self.embed_concat_self:
+                x = torch.cat([x, x_self.expand(*x.shape[:-1],
+                                                x_self.shape[-1])], dim=-1)
+            embedded.append(self._embed(idx, name, x))
         entities = torch.cat(embedded, dim=-2)
 
         attended = self.SelfAttention_0(entities)

@@ -67,19 +67,33 @@ class Dense(nn.Module):
         return y
 
 
-class _LayerNormParams(nn.Module):
-    def __init__(self, dim: int):
+class FlaxLayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=...)`` itself, parameters ``scale`` /
+    ``bias``: mean and variance in float32 (variance as ``E[x^2] -
+    E[x]^2``, clamped at 0), the normalize and affine in float32, and the
+    result rounded once to the compute dtype."""
+
+    def __init__(self, dim: int, dtype, eps: float = 1e-6):
         super().__init__()
+        self.dtype = dtype
+        self.eps = eps
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
+    def forward(self, x):
+        x32 = x.to(torch.float32)
+        mean = x32.mean(dim=-1, keepdim=True)
+        mean2 = (x32 * x32).mean(dim=-1, keepdim=True)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        y = (x32 - mean) * mul + self.bias
+        return y.to(self.dtype)
+
 
 class LayerNorm(nn.Module):
-    """Row LayerNorm with flax ``nn.LayerNorm``'s numerics.
-
-    Mean and variance are float32 (variance as ``E[x^2] - E[x]^2``, clamped
-    at 0), the normalize and affine run in float32, and the result is
-    rounded once to the compute dtype.
+    """Row LayerNorm with flax ``nn.LayerNorm``'s numerics, wrapped as the
+    JAX package's ``LayerNorm`` wraps it (its parameters ``impl.scale`` /
+    ``impl.bias``).
 
     ``use_kernel=True`` (JAX: ``use_pallas``) runs the ``layer_norm``
     kernel pair instead, over x reshaped to ``[-1, D]``: a two-pass
@@ -90,23 +104,15 @@ class LayerNorm(nn.Module):
     def __init__(self, dim: int, dtype, eps: float = 1e-6,
                  use_kernel: bool = False):
         super().__init__()
-        self.dtype = dtype
-        self.eps = eps
         self.use_kernel = use_kernel
-        self.impl = _LayerNormParams(dim)
+        self.impl = FlaxLayerNorm(dim, dtype, eps)
 
     def forward(self, x):
         if self.use_kernel:
             out = layer_norm(x.reshape(-1, x.shape[-1]).contiguous(),
-                             self.impl.scale, self.impl.bias, self.eps)
+                             self.impl.scale, self.impl.bias, self.impl.eps)
             return out.reshape(x.shape)
-        x32 = x.to(torch.float32)
-        mean = x32.mean(dim=-1, keepdim=True)
-        mean2 = (x32 * x32).mean(dim=-1, keepdim=True)
-        var = torch.clamp(mean2 - mean * mean, min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.impl.scale
-        y = (x32 - mean) * mul + self.impl.bias
-        return y.to(self.dtype)
+        return self.impl(x)
 
 
 class MLP(nn.Module):

@@ -20,7 +20,9 @@ rollout step (``forward``) and the update-pass ``sequence`` both go through
 card the two forwards share rounding points and PPO's ratio can start at 1.
 The sequence pass hoists each layer's input projection into one
 ``[T*N, F] x [F, 3H]`` product. There is no ``use_pallas`` switch and no
-``seq_unroll``: the kernel pass is the only route.
+``seq_unroll``: the kernel pass is the only route. The compute dtype is
+float32, bfloat16 or float16 (the kernels' CUDA-core float16 instances;
+JAX sends float16 to its jnp twin, which rounds at the same points).
 """
 
 from __future__ import annotations
@@ -64,11 +66,6 @@ class GRU(nn.Module):
                  num_layers: int, dtype,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if dtype == torch.float16:
-            # The GRU kernels take float32 or bfloat16; float16 has no
-            # route here (a float16 trainer takes a BackboneEncoder).
-            raise ValueError(f"GRU: compute dtype {dtype} is not "
-                             "supported; use float32 or bfloat16")
         self.num_hidden_channels = num_hidden_channels
         self.num_layers = num_layers
         self.dtype = dtype

@@ -20,6 +20,11 @@ point, so the [T, N, 4H] projection never goes to device memory. Its f32
 sums run in another order than the cuBLAS product of the single step, so
 on the card a bf16 projection may differ by one rounding and PPO's ratio
 starts near, not exactly at, 1.
+
+The compute dtype is float32, bfloat16 or float16. Float16 takes the
+kernels' CUDA-core float16 instances (JAX sends a float16 LSTM to its jnp
+twin, which has the same rounding points), and never the projection
+kernels, which refuse float16 as JAX's do.
 """
 
 from __future__ import annotations
@@ -75,11 +80,6 @@ class LSTM(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  fuse_input_proj: bool = False):
         super().__init__()
-        if dtype == torch.float16:
-            # The LSTM kernels take float32 or bfloat16; float16 has no
-            # route here (a float16 trainer takes a BackboneEncoder).
-            raise ValueError(f"LSTM: compute dtype {dtype} is not "
-                             "supported; use float32 or bfloat16")
         self.num_hidden_channels = num_hidden_channels
         self.num_layers = num_layers
         self.dtype = dtype

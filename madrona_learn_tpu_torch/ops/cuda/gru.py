@@ -20,11 +20,12 @@ raises):
   block, then takes dWh as a split-K ``wgmma`` product over the T * N rows
   (``csrc/weight_grad_tc.cuh``). Both are bound by streaming Wh from L2.
   An operand off a 16-byte boundary is copied onto one first;
-- float32, whose products tensor cores would round: the CUDA-core kernels
-  (the backward with the split-M pass of ``csrc/weight_grad.cuh``), bound
-  by f32 FMA issue.
+- float32, whose products tensor cores would round, and float16: the
+  CUDA-core kernels (the backward with the split-M pass of
+  ``csrc/weight_grad.cuh``), bound by f32 FMA issue.
 
-Contract (all operands in the storage dtype, float32 or bfloat16):
+Contract (all operands in the storage dtype, float32, bfloat16 or
+float16):
 
 - ``x_proj`` [T, N, 3H] pre-projected inputs including the input bias,
   gates packed ``[r | z | n]``;
@@ -60,7 +61,7 @@ GRU_BWD = Kernel(
     replaces="madrona_learn_tpu/ops/pallas/gru.py:211",
 )
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HIDDEN_SIZES = (128, 256)
 _check = functools.partial(check_operand, "gru kernel")
 
@@ -76,15 +77,16 @@ FWD_TC_STAGES = 4
 
 def gru_supported(hidden, dtype):
     """Whether the kernels serve this layer shape (JAX:
-    ``ops/pallas/gru.py:47``, which takes any multiple of 128; the kernels
-    here are built for 128 and 256)."""
+    ``ops/pallas/gru.py:47``, which takes any multiple of 128 in float32
+    or bfloat16; the kernels here are built for 128 and 256, and float16
+    too, which JAX sends to its plain twin)."""
     return hidden in _HIDDEN_SIZES and dtype in _DTYPE_CODES
 
 
 def uses_tensor_cores(dtype, hidden):
     """The path rule of both kernels, forward and backward: bfloat16 with H
     in (128, 256) takes the tensor-core kernels (``wgmma``); float32, whose
-    products tensor cores would round, the CUDA-core ones."""
+    products tensor cores would round, and float16, the CUDA-core ones."""
     return dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES
 
 
@@ -130,7 +132,7 @@ def _check_inputs(x_proj, keep, wh, bias_h, h0):
     dtype = x_proj.dtype
     if not gru_supported(hidden, dtype):
         raise ValueError(
-            f"gru kernel: supports float32/bfloat16 with H in "
+            f"gru kernel: supports float32/bfloat16/float16 with H in "
             f"{_HIDDEN_SIZES}, got {dtype} H={hidden}")
     if steps == 0 or n == 0:
         raise ValueError(f"gru kernel: empty input {tuple(x_proj.shape)}")

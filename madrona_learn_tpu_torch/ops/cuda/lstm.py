@@ -25,10 +25,13 @@ runs or raises):
   ``wgmma`` product over the T * N rows. Bound by streaming the weights
   from L2. TMA and the kernels' 16-byte copies read every operand on a
   16-byte boundary: one that is not is copied onto one first;
-- float32, whose products tensor cores would round: the CUDA-core kernels,
-  bound by f32 FMA issue.
+- float32, whose products tensor cores would round, and float16: the
+  CUDA-core kernels, bound by f32 FMA issue. Float16 is built for the two
+  sequence kernels alone: :func:`lstm_proj_supported` refuses it, as JAX's
+  does, so a float16 layer takes the unfused kernels.
 
-Contract (all operands in the storage dtype, float32 or bfloat16):
+Contract (all operands in the storage dtype, float32, bfloat16 or float16;
+the projection variant float32 or bfloat16):
 
 - ``x_proj`` [T, N, 4H] pre-projected inputs, gates (i, f, g, o); or, for
   the projection variant, ``x`` [T, N, F] and ``wi`` [F, 4H] with
@@ -72,7 +75,7 @@ LSTM_PROJ_BWD = Kernel(
     replaces="madrona_learn_tpu/ops/pallas/lstm.py:562",
 )
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HIDDEN_SIZES = (128, 256)
 
 
@@ -118,7 +121,7 @@ def _check_inputs(x_proj, keep, wr, bias, c0, h0):
     dtype = x_proj.dtype
     if dtype not in _DTYPE_CODES or hidden not in _HIDDEN_SIZES:
         raise ValueError(
-            f"lstm kernel: supports float32/bfloat16 with H in "
+            f"lstm kernel: supports float32/bfloat16/float16 with H in "
             f"{_HIDDEN_SIZES}, got {dtype} H={hidden}")
     if steps == 0 or n == 0:
         raise ValueError(f"lstm kernel: empty input {tuple(x_proj.shape)}")
@@ -197,8 +200,9 @@ def fwd_tc_rows():
 def uses_tensor_cores(dtype, hidden):
     """The path rule of the four kernels, forwards and backwards:
     bfloat16 with H in (128, 256) takes the tensor-core kernels
-    (``wgmma``); float32, whose products tensor cores would round, the
-    CUDA-core ones. (The projection's F rule holds on both paths.)"""
+    (``wgmma``); float32, whose products tensor cores would round, and
+    float16, the CUDA-core ones. (The projection's F rule holds on both
+    paths.)"""
     return dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES
 
 
@@ -354,8 +358,8 @@ def lstm_step(x_proj, wr, bias, c, h):
 
 def lstm_proj_supported(in_features, hidden, dtype):
     """Whether the projection kernels serve this layer shape (JAX:
-    ``ops/pallas/lstm.py:369``)."""
-    return (hidden % 128 == 0 and dtype in _DTYPE_CODES
+    ``ops/pallas/lstm.py:369``): float32 or bfloat16, as there."""
+    return (hidden % 128 == 0 and dtype in (torch.float32, torch.bfloat16)
             and in_features % 128 == 0 and in_features <= 4 * hidden)
 
 

@@ -15,8 +15,9 @@
   ``_ppo`` over 6 updates, one of them with a non-finite gradient (the
   backoff, the ``fin_steps`` reset, and the parameters and Adam state
   kept), at flax's growth interval and at 2 (the growth).
-- The refusals: a float16 LSTM or GRU, importance sampling that would
-  draw every sequence, and advantage filtering over a recurrent tower.
+- The refusals: a float16 LSTM or GRU off the CPU and the card,
+  importance sampling that would draw every sequence, and advantage
+  filtering over a recurrent tower.
 - Two ``update_iter`` calls in both packages (``run_two_update_iters``,
   the pattern of ``tests/test_torch_value_side.py``: the slice test's
   size, the JAX run's parameters, start state, obs-normalizer state,
@@ -568,8 +569,16 @@ def test_dynamic_scale_matches_flax(growth_interval):
 
 @pytest.mark.parametrize("module", ["LSTM", "GRU"])
 def test_float16_recurrent_module_raises(module):
+    """A float16 recurrence takes its kernels' float16 instances on any
+    device but the CPU: a tensor that is on neither the CPU nor a card is
+    refused, never sent to the plain twin."""
+    rnn = getattr(tm, module)(128, 128, 1, torch.float16).to("meta")
+    state = rnn.init_recurrent_state(8, device="meta")
     with pytest.raises(ValueError, match="float16"):
-        getattr(tm, module)(4, 32, 1, torch.float16)
+        rnn.sequence(state, torch.zeros(2, 8, 1, dtype=torch.bool,
+                                        device="meta"),
+                     torch.empty(2, 8, 128, dtype=torch.float16,
+                                 device="meta"))
 
 
 @pytest.mark.parametrize("num_minibatches", [0, WN // WMB])

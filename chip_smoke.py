@@ -172,6 +172,22 @@ Phases, in order; any failure raises and the script exits non-zero:
     backward's recomputes; then, from one saved state and rollout copy,
     an update with the trunk rematerialized and one without must give
     bitwise equal parameters, their peak memory printed).
+14. tools: the trainer's tools at the headline's width: one update under
+    torch.profiler, its launches counted (``lstm_sequence_fwd`` 37,
+    ``lstm_sequence_bwd`` 4, ``gae`` 1), every named range of the update
+    present, each launch of those three kernels inside "Collect Rollouts"
+    or "Learn" (the backward and ``gae`` in the one each belongs to), and
+    device ms / wall ms per range printed; env-steps/s with the ranges
+    enabled and disabled, no profiler active, over 5 alternating pairs of
+    3 updates, and the host's µs a range (100000 entries) times the
+    ranges of an update; the gridworld's snapshot restored bitwise on the card after
+    an update; a real update's metrics through ``log_metrics_tensorboard``
+    read back bitwise by the port's reader, CRCs checked;
+    ``examples/torch_train_toy.py`` (3 updates at 1024 worlds, TensorBoard
+    and a checkpoint) and ``examples/torch_evaluate.py`` of that
+    checkpoint over 64 steps; and the first and second ``eval_elo`` of a
+    fresh headline_pbt population after one update, timed. Its files go
+    to ``_tools_smoke/`` in the checkout, removed after.
 
 Each trainer phase sets every launch count to 0 just before it and checks
 just after it that every kernel of its path launched as often as the
@@ -2753,7 +2769,13 @@ def _profile_update(one_update):
                        getattr(e, "cuda_time_total", 0)) / 1e3
 
     rows = prof.key_averages()
-    kernels = sorted((e for e in rows if e.device_type == DeviceType.CUDA),
+    # The named ranges (utils/profile.py) also appear on the device, as
+    # annotations under their own names spanning their kernels: not
+    # kernels.
+    ops = {e.key for e in rows if e.device_type == DeviceType.CPU}
+    kernels = sorted((e for e in rows if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)
+                      and e.key not in ops),
                      key=self_ms, reverse=True)
     busy_ms = sum(self_ms(e) for e in kernels)
     log(f"  profile of one update (profiler on): kernels {busy_ms:.1f} ms "
@@ -3647,6 +3669,380 @@ def _checkpoint_eval_phase(card, pbt_mgr, ckpt_root):
     return total
 
 
+# tools: the trainer's tools on the card at the headline's width.
+# Ranges whose split the phase prints: the update's top-level ones, then
+# the collect's and the learn's inner ones.
+TOP_RANGES = ("Collect Rollouts", "Update Observations Stats", "Learn")
+INNER_RANGES = ("Policy Inference", "Obs Preprocess", "Policy Apply",
+                "Pre Step Rollout Store", "Rollout Step", "Sim Step",
+                "Post Step Rollout Store", "Cache RNN state",
+                "Bootstrap Values", "Finalize Rollouts",
+                "Compute Minibatch Indices", "Gather Minibatch", "Optimize",
+                "AC Forward", "rnn.fwd_sequence", "Record Metrics",
+                "Metrics Callback")
+# (kernel, substring of its CUDA function's name, the ranges it may run
+# in): the recurrence's forward runs in the rollout steps, the bootstrap
+# value and every minibatch, its backward and gae once each phase.
+RANGE_KERNELS = (("lstm_sequence_fwd", "lstm_fwd", ("Collect Rollouts",
+                                                    "Learn")),
+                 ("lstm_sequence_bwd", "lstm_bwd", ("Learn",)),
+                 ("gae", "gae_kernel", ("Collect Rollouts",)))
+TOOLS_PAIRS = 5
+TOOLS_UPDATES = 3
+
+
+def tools_phase(card):
+    """tools (phase 14 of the module docstring); returns the launches of
+    its profiled update."""
+    import shutil
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "_tools_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        return _tools_phase(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _range_split(prof):
+    """Per named range: its occurrences, wall ms (their CPU intervals) and
+    device ms (the device work launched inside those intervals); and, per
+    kernel of ``RANGE_KERNELS``, the top-level ranges its launches fall
+    in. A device event is matched to its launch, a CUDA runtime call, by
+    CUPTI's correlation id: the kernels launched from the port's library
+    outside any PyTorch op (the rollout step's recurrence, ``gae``) are
+    linked to no op, and the backward's launch from autograd's device
+    thread. Also returns the count of device events whose launch was not
+    found (placed after the device work before them), and of all device
+    events."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    names = ("Update Iter",) + TOP_RANGES + INNER_RANGES
+    spans = {name: [] for name in names}
+    launched_at = {}
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name in spans:
+            spans[e.name].append((e.time_range.start, e.time_range.end))
+        elif e.name.startswith("cu"):  # cudaLaunchKernel, cudaMemcpyAsync
+            launched_at[e.id] = e.time_range.start
+    # One stream runs the update, so device order is launch order: work
+    # whose launch was not found takes the launch time of the work before
+    # it on the device.
+    # The ranges' own device-side annotations are not work.
+    device_work = (e for e in events if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.name not in spans)
+    work, last = [], None
+    for e in sorted(device_work, key=lambda e: e.time_range.start):
+        t = launched_at.get(e.id)
+        work.append((t if t is not None else last, e, t is None))
+        last = t if t is not None else last
+
+    def inside(t, intervals):
+        return t is not None and any(s <= t <= u for s, u in intervals)
+
+    split = {}
+    for name, intervals in spans.items():
+        device_us = sum(e.time_range.end - e.time_range.start
+                        for t, e, _ in work if inside(t, intervals))
+        split[name] = dict(
+            count=len(intervals),
+            wall_ms=sum(u - s for s, u in intervals) / 1e3,
+            device_ms=device_us / 1e3)
+    placed = {}
+    for kernel, pattern, _ in RANGE_KERNELS:
+        where = {}
+        for t, e, _ in work:
+            if pattern in e.name:
+                homes = [r for r in TOP_RANGES if inside(t, spans[r])]
+                key = (homes[0] if len(homes) == 1 else
+                       "no launch found" if t is None else "outside")
+                where[key] = where.get(key, 0) + 1
+        placed[kernel] = where
+    unmatched = sum(inferred for _, _, inferred in work)
+    return split, placed, unmatched, len(work)
+
+
+def _tools_profiled_update(mgr, expected):
+    """One update under torch.profiler: every range present, the three
+    kernels in their ranges, the split printed; returns the launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _zero_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.update_iter()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = _check_launches("profiled update", expected)
+    split, placed, unmatched, device_events = _range_split(prof)
+    missing = [n for n, r in split.items() if not r["count"]]
+    if missing:
+        raise AssertionError(f"tools: ranges missing from the trace: "
+                             f"{missing}")
+    log(f"  ranges of one update (profiler on, {wall_ms:.1f} ms wall, "
+        f"{device_events} device events, {unmatched} with no launch "
+        f"found): device ms / wall ms / occurrences")
+    for name in ("Update Iter",) + TOP_RANGES + INNER_RANGES:
+        r = split[name]
+        log(f"    {name:28s} {r['device_ms']:9.3f} {r['wall_ms']:9.3f} "
+            f"{r['count']:5d}")
+    for kernel, _, homes in RANGE_KERNELS:
+        where = placed[kernel]
+        log(f"  {kernel} kernels by range: {where}")
+        if sum(where.values()) != launches[kernel] or \
+                set(where) - set(homes):
+            raise AssertionError(
+                f"tools: {kernel}: {launches[kernel]} launches, in the "
+                f"trace {where}; expected only in {homes}")
+    return launches, split
+
+
+def _tools_sps(mgr, card):
+    """Env-steps/s with the ranges enabled and disabled, no profiler
+    active, ``TOOLS_PAIRS`` alternating pairs of ``TOOLS_UPDATES``
+    updates."""
+    import torch
+    from madrona_learn_tpu_torch.utils.profile import profile
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TOOLS_UPDATES):
+            mgr.update_iter()
+        torch.cuda.synchronize()
+        return (TOOLS_UPDATES * STEPS_PER_UPDATE * NUM_WORLDS
+                / (time.perf_counter() - t0))
+
+    if torch.autograd._profiler_enabled():
+        raise AssertionError("tools: a profiler is active")
+    sps = {"enabled": [], "disabled": []}
+    try:
+        for pair in range(TOOLS_PAIRS):
+            for state in (("enabled", "disabled") if pair % 2 == 0
+                          else ("disabled", "enabled")):
+                (profile.enable if state == "enabled"
+                 else profile.disable)()
+                sps[state].append(run())
+    finally:
+        profile.enable()
+    med = {k: statistics.median(v) for k, v in sps.items()}
+    log(f"  env-steps/s with the ranges enabled "
+        f"{[round(x) for x in sps['enabled']]} (median "
+        f"{med['enabled']:.0f}), disabled "
+        f"{[round(x) for x in sps['disabled']]} (median "
+        f"{med['disabled']:.0f}): enabled / disabled "
+        f"{med['enabled'] / med['disabled']:.4f}, {TOOLS_PAIRS} alternating "
+        f"pairs of {TOOLS_UPDATES} updates on {card}")
+    return med
+
+
+COLLECT_RANGES = ("Collect Rollouts", "Policy Inference", "Obs Preprocess",
+                  "Policy Apply", "Pre Step Rollout Store", "Rollout Step",
+                  "Sim Step", "Post Step Rollout Store", "Cache RNN state",
+                  "Bootstrap Values", "Finalize Rollouts")
+
+
+def _tools_range_cost(split, sps):
+    """The host's cost of one range, entered and left with no profiler
+    active (NVTX pushed: CUDA is initialized), and of the ranges of one
+    update and of its collect, against the update's time at the median
+    env-steps/s with the ranges enabled."""
+    from madrona_learn_tpu_torch.utils.profile import profile
+
+    calls = 100000
+
+    def us_a_range():
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            with profile("Sim Step"):
+                pass
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    enabled = us_a_range()
+    profile.disable()
+    disabled = us_a_range()
+    profile.enable()
+    ranges = sum(r["count"] for r in split.values())
+    collect = sum(split[name]["count"] for name in COLLECT_RANGES)
+    update_ms = STEPS_PER_UPDATE * NUM_WORLDS / sps["enabled"] * 1e3
+    log(f"  a range costs the host {enabled:.3f} us enabled, "
+        f"{disabled:.3f} us disabled (no profiler); {ranges} ranges an "
+        f"update ({collect} in collect): {ranges * enabled / 1e3:.3f} ms "
+        f"an update ({collect * enabled / 1e3:.3f} ms in collect), "
+        f"{100 * ranges * enabled / 1e3 / update_ms:.2f}% of the "
+        f"{update_ms:.1f} ms update")
+
+
+def _tools_snapshot(mgr):
+    """The gridworld's snapshot of the headline's rollout, restored after
+    an update: pos / target / t and the obs bitwise, on the card."""
+    import torch
+
+    rollout = mgr.rollout
+    ckpts = rollout.get_current_checkpoints()
+    if not (ckpts.is_cuda and ckpts.dtype == torch.int32
+            and tuple(ckpts.shape) == (NUM_WORLDS, 5)):
+        raise AssertionError(f"tools: snapshot {ckpts.dtype} "
+                             f"{tuple(ckpts.shape)} on {ckpts.device}")
+    state = {k: v.clone() for k, v in rollout.sim_state.items()}
+    obs = {k: v.clone() for k, v in rollout.cur_obs.items()}
+    mgr.update_iter()
+    moved = not torch.equal(rollout.sim_state["pos"], state["pos"])
+    rollout.load_checkpoints_into_sim(ckpts)
+    for k in ("pos", "target", "t"):
+        if not torch.equal(rollout.sim_state[k], state[k]):
+            raise AssertionError(f"tools: snapshot {k} not restored")
+    for k, v in obs.items():
+        if not torch.equal(rollout.cur_obs[k], v):
+            raise AssertionError(f"tools: snapshot obs {k} not restored")
+    if rollout.sim_state["tick"].any() or not torch.equal(
+            rollout.sim_state["rid"][:, 0],
+            torch.arange(NUM_WORLDS, device="cuda", dtype=torch.int32)):
+        raise AssertionError("tools: restored rid / tick are not "
+                             "arange / 0")
+    log(f"  snapshot of {NUM_WORLDS} worlds restored bitwise after an "
+        f"update (the update moved the agents: {moved})")
+
+
+def _tools_tensorboard(mgr, root):
+    """A real update's metrics through ``log_metrics_tensorboard``, read
+    back by the port's reader (every CRC checked): every tag, step and
+    float32 value."""
+    import numpy as np
+    import madrona_learn_tpu_torch as mlt
+    from madrona_learn_tpu_torch.utils.tensorboard import read_events
+
+    writer = mlt.TensorboardWriter(os.path.join(root, "tb"))
+    mgr.log_metrics_tensorboard(writer)
+    writer.close()
+
+    class Recorder:
+        def __init__(self):
+            self.calls = []
+
+        def scalar(self, tag, value, step):
+            self.calls.append((tag, int(step),
+                               np.float32(np.asarray(value)).tobytes()))
+
+    recorder = Recorder()
+    mgr.metrics.tensorboard_log(mgr.update_idx - 1, recorder)
+    read = [(v["tag"], e["step"], np.float32(v["simple_value"]).tobytes())
+            for e in read_events(writer.path)[1:] for v in e["values"]]
+    if read != recorder.calls or not read:
+        raise AssertionError(f"tools: {len(read)} scalars read back, "
+                             f"{len(recorder.calls)} logged, not equal")
+    values = [np.frombuffer(v, np.float32)[0] for _, _, v in read]
+    if not np.isfinite(values).all():
+        raise AssertionError("tools: a logged metric is not finite")
+    log(f"  tensorboard_log: {len(read)} scalars of update "
+        f"{mgr.update_idx} read back bitwise, "
+        f"{os.path.getsize(writer.path)} bytes")
+
+
+def _tools_examples(root):
+    """``examples/torch_train_toy.py`` (3 updates, TensorBoard and a
+    checkpoint) and ``examples/torch_evaluate.py`` of that checkpoint,
+    both at their default sizes on the card."""
+    import importlib.util
+    import math as pymath
+    from madrona_learn_tpu_torch.utils.tensorboard import read_events
+
+    examples = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples")
+    sys.path.insert(0, examples)
+    try:
+        def load(name):
+            spec = importlib.util.spec_from_file_location(
+                name, os.path.join(examples, f"{name}.py"))
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            return module
+
+        t0 = time.perf_counter()
+        mgr = load("torch_train_toy").main([
+            "--num-updates", "3", "--tb-dir", os.path.join(root, "ex_tb"),
+            "--ckpt-dir", os.path.join(root, "ex_ckpt")])
+        train_s = time.perf_counter() - t0
+        (name,) = os.listdir(os.path.join(root, "ex_tb"))
+        events = read_events(os.path.join(root, "ex_tb", name))
+        t0 = time.perf_counter()
+        totals = load("torch_evaluate").main([
+            "--ckpt", os.path.join(root, "ex_ckpt", "3"),
+            "--eval-steps", "64"])
+        eval_s = time.perf_counter() - t0
+    finally:
+        sys.path.remove(examples)
+    if mgr.update_idx != 3 or len(events) < 2 or not all(
+            pymath.isfinite(v) for v in totals.values()):
+        raise AssertionError(f"tools: examples: update {mgr.update_idx}, "
+                             f"{len(events)} events, {totals}")
+    log(f"  examples: torch_train_toy.py 3 updates {train_s:.2f} s "
+        f"({len(events) - 1} scalar events), torch_evaluate.py 64 steps "
+        f"{eval_s:.2f} s ({totals['episodes']} episodes)")
+
+
+def _tools_eval_elo(card):
+    """The first and the second ``eval_elo`` of a fresh headline_pbt
+    population after one update: the first call's extra cost decides
+    whether a warm-up is worth porting."""
+    import torch
+    import madrona_learn_tpu_torch as mlt
+    from madrona_learn_tpu_torch.train import TrainHooks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mgr = build_headline_pbt(TrainHooks())
+    mgr.update_iter()
+    zeros = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    ms = []
+    for _ in range(2):
+        _, t = _timed(lambda: mlt.eval_elo(mgr, PBT_EVAL_STEPS, zeros,
+                                           zeros))
+        ms.append(t)
+    elos = mgr.state.policy_states.mmr.elo
+    if not bool(torch.isfinite(elos).all()) or float(elos[0]) != 1500.0:
+        raise AssertionError(f"tools: Elo {elos.tolist()}")
+    log(f"  eval_elo over {PBT_EVAL_STEPS} steps at headline_pbt "
+        f"({PBT_TRAIN} + {PBT_PAST} policies): first {ms[0]:.1f} ms, "
+        f"second {ms[1]:.1f} ms, first - second {ms[0] - ms[1]:.1f} ms "
+        f"on {card}")
+    return ms
+
+
+def _tools_phase(card, root):
+    import torch
+    from madrona_learn_tpu_torch.train import TrainHooks
+
+    log(f"tools: the headline ({NUM_WORLDS} worlds, bf16) with the named "
+        f"ranges, snapshots, TensorBoard, the examples and eval_elo")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+    mgr = build_headline(TrainHooks())
+    mgr.update_iter()
+    steps = STEPS_PER_UPDATE + 1 + NUM_MINIBATCHES
+    launches, split = _tools_profiled_update(
+        mgr, {"gae": 1, "lstm_sequence_fwd": steps,
+              "lstm_sequence_bwd": NUM_MINIBATCHES})
+    sps = _tools_sps(mgr, card)
+    _tools_range_cost(split, sps)
+    _tools_snapshot(mgr)
+    _tools_tensorboard(mgr, root)
+    del mgr
+    _tools_examples(root)
+    eval_elo_ms = _tools_eval_elo(card)
+    log(f"  tools phase: {time.perf_counter() - phase_t0:.1f} s")
+    return launches, dict(split=split, sps=sps, eval_elo_ms=eval_elo_ms)
+
+
 def check_value_normalizer(mgr, updates_run, update_stats):
     """headline_valuenorm: the value normalizer's state is finite, folded
     in once a minibatch, and moved from its initial mu = 0, sigma = 1."""
@@ -4073,6 +4469,7 @@ def main():
         log(f"{name}: {r['sps']:.0f} env-steps/s (headline {headline_sps:.0f} "
             f"in this run), max |ratio - 1| {r['ratio_dev']:.3e}, peak "
             f"{r['peak_gib']:.2f} GiB on {card}")
+    launches_by_path["tools"], _ = tools_phase(card)
 
     import torch
     from madrona_learn_tpu_torch.ops.cuda import KERNELS

@@ -12,6 +12,10 @@ cannot match ``jax.random``, so parity tests inject the JAX start state.
 bids its discrete action each step, and at the episode's end the team with
 the higher summed bids wins (+1 / -1, 0 for a draw); ``episode_results``
 name the winning team of each world (-1 for a draw).
+
+The gridworld has the simulator-state snapshot hooks ``get_ckpts`` /
+``load_ckpts`` (``envs/sim_interface.py``); the duel, as in the JAX
+package, has none.
 """
 
 from __future__ import annotations
@@ -114,7 +118,25 @@ def make_toy_env(cfg: ToyEnvConfig, device="cuda"):
         return {"state": new_state, "obs": _obs(pos, target, t),
                 "rewards": reward, "dones": dones}
 
-    return {"init": init_fn, "step": step_fn}
+    # Snapshots: int32 rows [pos, target, t]. Loading restarts the row ids
+    # at arange(n) and the tick at 0 as the JAX package does, so respawns
+    # after a restore differ from the uninterrupted run's.
+    def get_ckpts_fn(sim_state):
+        return torch.cat([sim_state["pos"], sim_state["target"],
+                          sim_state["t"]], dim=-1).to(torch.int32)
+
+    def load_ckpts_fn(trigger, ckpts):
+        pos, target, t = ckpts[:, 0:2], ckpts[:, 2:4], ckpts[:, 4:5]
+        n = ckpts.shape[0]
+        state = {"pos": pos, "target": target, "t": t,
+                 "rid": torch.arange(n, dtype=torch.int32,
+                                     device=ckpts.device)[:, None],
+                 "tick": torch.zeros((n, 1), dtype=torch.int32,
+                                     device=ckpts.device)}
+        return {"state": state, "obs": _obs(pos, target, t)}
+
+    return {"init": init_fn, "step": step_fn, "get_ckpts": get_ckpts_fn,
+            "load_ckpts": load_ckpts_fn}
 
 
 def make_duel_env(cfg: ToyEnvConfig, device="cuda"):

@@ -2,6 +2,7 @@
 
 from .actor_critic import (
     ActorCritic,
+    Backbone,
     BackboneEncoder,
     BackboneSeparate,
     BackboneShared,
@@ -25,6 +26,7 @@ from .transformer_memory import WindowAttentionMemory
 
 __all__ = [
     "ActorCritic",
+    "Backbone",
     "BackboneEncoder",
     "BackboneSeparate",
     "BackboneShared",

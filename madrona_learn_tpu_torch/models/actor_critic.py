@@ -2,7 +2,7 @@
 
 ``ActorCritic`` exposes ``rollout`` (sample or argmax actions plus value),
 ``actor_only`` (argmax actions), ``critic_only`` and ``update`` (sequence
-forward that scores stored actions) over a backbone: ``BackboneShared``
+forward that scores stored actions) over a ``Backbone``: ``BackboneShared``
 (one tower feeds both heads) or ``BackboneSeparate`` (an actor tower and a
 critic tower over one prefix, recurrent state ``(actor_state,
 critic_state)``). A tower is a ``RecurrentBackboneEncoder`` (net -> rnn,
@@ -25,6 +25,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.cuda.policy_step import fused_policy_step, policy_step_supported
+from ..utils.profile import profile
 
 
 def _merge_time(tree, T, N):
@@ -148,13 +149,27 @@ class RecurrentBackboneEncoder(nn.Module):
                 self.net, flattened_inputs, use_reentrant=False)
         else:
             features = self.net(flattened_inputs)
-        rnn_out = self.rnn.sequence(
-            rnn_start_states, sequence_ends,
-            features.reshape(T, N, *features.shape[1:]))
+        with profile("rnn.fwd_sequence"):
+            rnn_out = self.rnn.sequence(
+                rnn_start_states, sequence_ends,
+                features.reshape(T, N, *features.shape[1:]))
         return rnn_out.reshape(T * N, *rnn_out.shape[2:])
 
 
-class BackboneShared(nn.Module):
+class Backbone(nn.Module):
+    """Interface of a backbone: ``forward -> (actor_feats, critic_feats,
+    rnn_out)``; ``actor_only`` / ``critic_only -> (feats, rnn_out)``;
+    ``sequence -> (actor_feats, critic_feats)`` per timestep of stored
+    [T, N] batches; and the recurrent state's init and clear."""
+
+    def init_recurrent_state(self, N, device=None):
+        raise NotImplementedError
+
+    def clear_recurrent_state(self, recurrent_states, should_clear):
+        raise NotImplementedError
+
+
+class BackboneShared(Backbone):
     """One tower feeds both heads; ``prefix(obs)`` maps the obs dict to the
     tower's input tensor."""
 
@@ -187,7 +202,7 @@ class BackboneShared(nn.Module):
         return feats, feats
 
 
-class BackboneSeparate(nn.Module):
+class BackboneSeparate(Backbone):
     """Independent actor and critic towers over a shared prefix.
 
     The recurrent state is the pair ``(actor_state, critic_state)``;

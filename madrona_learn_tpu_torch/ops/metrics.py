@@ -7,7 +7,9 @@ parallel-Welford combine, so partial metrics reduce exactly. In
 ``record`` summarizes raw arrays (leading policy axis for per-policy
 metrics) into the current slot and ``advance`` moves to the next slot.
 ``for_policy(p)`` is a view whose writes land in policy p's row, the one a
-PBT train policy's PPO update records into.
+PBT train policy's PPO update records into. ``pretty_print`` and
+``tensorboard_log`` report on the host, with the JAX package's text, tags
+and steps.
 """
 
 from __future__ import annotations
@@ -141,6 +143,52 @@ class TrainingMetrics:
         self.update_idx += 1
         self.cur_buffer_offset = (self.cur_buffer_offset + 1) \
             % self.buffer_size
+
+    def _on_host(self):
+        """Every metric's fields as numpy arrays, one copy a tensor."""
+        return {name: (m.per_policy, {k: v.cpu().numpy()
+                                      for k, v in m.tensors().items()})
+                for name, m in self.metrics.items()}
+
+    def pretty_print(self, tab=2):
+        """Print the most recently recorded buffer slot of every metric."""
+        tab = " " * tab
+        last = (self.cur_buffer_offset - 1) % self.buffer_size
+
+        def fmt(x):
+            return ", ".join(f"{float(v): .3e}" for v in
+                             np.atleast_1d(x[..., last]))
+
+        lines = [tab + "TrainingMetrics"]
+        for name, (_, m) in self._on_host().items():
+            with np.errstate(invalid="ignore", divide="ignore"):
+                stddev = np.sqrt(m["m2"] / m["count"])
+            lines.append(tab * 2 + f"{name}:")
+            lines.append(tab * 3 + f"Avg: {fmt(m['mean'])}")
+            lines.append(tab * 3 + f"Min: {fmt(m['min'])}")
+            lines.append(tab * 3 + f"Max: {fmt(m['max'])}")
+            lines.append(tab * 3 + f"sigma: {fmt(stddev)}")
+        print("\n".join(lines))
+
+    def tensorboard_log(self, base_update_idx: int, writer):
+        """Every buffer slot ``i`` of every metric as the scalars
+        ``<name> Mean`` / ``sigma`` / ``Min`` / ``Max`` at step
+        ``base_update_idx + i``, per-policy metrics as ``p<i>/<name> ...``
+        for every policy."""
+        host = self._on_host()
+        with np.errstate(invalid="ignore", divide="ignore"):
+            for buf_idx in range(self.buffer_size):
+                out_idx = base_update_idx + buf_idx
+                for name, (per_policy, m) in host.items():
+                    rows = ([(f"p{i}/{name}", (i, buf_idx))
+                             for i in range(m["mean"].shape[0])]
+                            if per_policy else [(name, buf_idx)])
+                    for tag, at in rows:
+                        stddev = np.sqrt(m["m2"][at] / m["count"][at])
+                        writer.scalar(f"{tag} Mean", m["mean"][at], out_idx)
+                        writer.scalar(f"{tag} sigma", stddev, out_idx)
+                        writer.scalar(f"{tag} Min", m["min"][at], out_idx)
+                        writer.scalar(f"{tag} Max", m["max"][at], out_idx)
 
     def latest(self, name: str) -> Metric:
         """A copy of the most recently completed slot of one metric."""

@@ -30,7 +30,8 @@ off. The critic loss is one of:
 The distributional critics refuse clipping, the Huber loss and value
 normalization, as the JAX package does. The entropy bonus weighs each
 action key by ``entropy_key_weights`` (default 1). After each step come the
-weight-norm projection and the LayerNorm renormalization.
+weight-norm projection and the LayerNorm renormalization. The update opens
+the JAX package's named ranges (``utils/profile.py``).
 
 The optimizer is the JAX package's learning-rate-free chain,
 ``optax.clip_by_global_norm`` then ``optax.scale_by_adam``, written out in
@@ -54,7 +55,7 @@ from .algo import AlgoBase, HyperParams
 from .config import AlgoConfig, ParamExplore, TrainConfig
 from .ops.gae import zscore_data
 from .ops.metrics import Metric, TrainingMetrics
-from .utils import tree_map
+from .utils import profile, tree_map
 
 __all__ = ["PPOConfig", "PPO"]
 
@@ -204,75 +205,81 @@ def _ppo_update(cfg: TrainConfig, mb, mb_weights, policy_state, train_state,
     # A 1-D [mb] weight would broadcast against [T, mb, 1] to [T, mb, mb].
     assert mb_weights.dim() == 2 and mb_weights.shape[-1] == 1, (
         f"mb_weights must be [minibatch, 1], got {tuple(mb_weights.shape)}")
-    hp = train_state.hyper_params
-    actor_critic = policy_state.actor_critic
-    params = dict(actor_critic.named_parameters())
+    with profile("Optimize"):
+        hp = train_state.hyper_params
+        actor_critic = policy_state.actor_critic
+        params = dict(actor_critic.named_parameters())
 
-    fwd = actor_critic.update(mb["rnn_start_states"], mb["dones"],
-                              mb["actions"], mb["obs"])
-    if cfg.compute_advantages:
-        advantages = mb["advantages"].to(_F32)
-        if cfg.normalize_advantages:
-            advantages = zscore_data(advantages)
-    else:
-        advantages = mb["returns"].to(_F32)
-        if cfg.normalize_returns:
-            advantages = zscore_data(advantages)
+        with profile("AC Forward"):
+            fwd = actor_critic.update(mb["rnn_start_states"], mb["dones"],
+                                      mb["actions"], mb["obs"])
+        if cfg.compute_advantages:
+            advantages = mb["advantages"].to(_F32)
+            if cfg.normalize_advantages:
+                advantages = zscore_data(advantages)
+        else:
+            advantages = mb["returns"].to(_F32)
+            if cfg.normalize_returns:
+                advantages = zscore_data(advantages)
 
-    ratios, action_objs = {}, {}
-    for k, new_lp in fwd["log_probs"].items():
-        ratio = torch.exp(new_lp - mb["log_probs"][k].to(_F32))
-        clipped = torch.clamp(ratio, 1.0 - hp.clip_coef, 1.0 + hp.clip_coef)
-        # Continuous heads' log-probs are [T, mb, heads, dims].
-        scores = advantages[..., None] if ratio.dim() - 2 > 1 else advantages
-        ratios[k] = ratio
-        action_objs[k] = torch.minimum(scores * ratio, scores * clipped)
+        ratios, action_objs = {}, {}
+        for k, new_lp in fwd["log_probs"].items():
+            ratio = torch.exp(new_lp - mb["log_probs"][k].to(_F32))
+            clipped = torch.clamp(ratio, 1.0 - hp.clip_coef,
+                                  1.0 + hp.clip_coef)
+            # Continuous heads' log-probs are [T, mb, heads, dims].
+            scores = (advantages[..., None] if ratio.dim() - 2 > 1
+                      else advantages)
+            ratios[k] = ratio
+            action_objs[k] = torch.minimum(scores * ratio, scores * clipped)
 
-    value_losses, value_errs, new_value_norm_state = _value_loss(
-        cfg, mb, fwd["critic"], train_state)
+        value_losses, value_errs, new_value_norm_state = _value_loss(
+            cfg, mb, fwd["critic"], train_state)
 
-    key_weights = cfg.algo.entropy_key_weights or {}
-    action_obj_avg = sum(_weighted_mean(mb_weights, o)
-                         for o in action_objs.values())
-    value_loss = _weighted_mean(mb_weights, value_losses)
-    entropy_avg = hp.entropy_coef * sum(
-        key_weights.get(k, 1.0) * _weighted_mean(mb_weights, e)
-        for k, e in fwd["entropies"].items())
-    loss = -action_obj_avg + hp.value_loss_coef * value_loss - entropy_avg
+        key_weights = cfg.algo.entropy_key_weights or {}
+        action_obj_avg = sum(_weighted_mean(mb_weights, o)
+                             for o in action_objs.values())
+        value_loss = _weighted_mean(mb_weights, value_losses)
+        entropy_avg = hp.entropy_coef * sum(
+            key_weights.get(k, 1.0) * _weighted_mean(mb_weights, e)
+            for k, e in fwd["entropies"].items())
+        loss = -action_obj_avg + hp.value_loss_coef * value_loss - entropy_avg
 
-    scaler = train_state.scaler
-    grads = torch.autograd.grad(
-        loss if scaler is None
-        else scaler.scale_loss(train_state.scaler_state, loss),
-        list(params.values()), allow_unused=True)
-    grads = [g if g is not None else torch.zeros_like(p)
-             for g, p in zip(grads, params.values())]
-    finite = None
-    if scaler is not None:
-        train_state.scaler_state, finite, grads = scaler.unscale(
-            train_state.scaler_state, grads)
-    grads = dict(zip(params, grads))
+        scaler = train_state.scaler
+        grads = torch.autograd.grad(
+            loss if scaler is None
+            else scaler.scale_loss(train_state.scaler_state, loss),
+            list(params.values()), allow_unused=True)
+        grads = [g if g is not None else torch.zeros_like(p)
+                 for g, p in zip(grads, params.values())]
+        finite = None
+        if scaler is not None:
+            train_state.scaler_state, finite, grads = scaler.unscale(
+                train_state.scaler_state, grads)
+        grads = dict(zip(params, grads))
 
-    with torch.no_grad():
-        old_opt_state = train_state.opt_state
-        updates, new_opt_state = train_state.tx.update(grads, old_opt_state)
-        if finite is not None:
-            new_opt_state = AdamState(**tree_map(
-                lambda new, old: torch.where(finite, new, old),
-                vars(new_opt_state), vars(old_opt_state)))
-        train_state.opt_state = new_opt_state
-        for k, p in params.items():
-            new = p + (-hp.lr) * updates[k]
+        with torch.no_grad():
+            old_opt_state = train_state.opt_state
+            updates, new_opt_state = train_state.tx.update(grads,
+                                                           old_opt_state)
             if finite is not None:
-                new = torch.where(finite, new, p)
-            init_norm = train_state.initial_weight_norms.get(k)
-            if init_norm is not None:
-                # Project tracked kernels back to their initial L2 norm.
-                new = init_norm * new / torch.linalg.vector_norm(new)
-            p.copy_(new)
-        _renorm_layernorms(actor_critic)
-        train_state.value_normalizer_state = new_value_norm_state
+                new_opt_state = AdamState(**tree_map(
+                    lambda new, old: torch.where(finite, new, old),
+                    vars(new_opt_state), vars(old_opt_state)))
+            train_state.opt_state = new_opt_state
+            for k, p in params.items():
+                new = p + (-hp.lr) * updates[k]
+                if finite is not None:
+                    new = torch.where(finite, new, p)
+                init_norm = train_state.initial_weight_norms.get(k)
+                if init_norm is not None:
+                    # Project tracked kernels back to their initial L2 norm.
+                    new = init_norm * new / torch.linalg.vector_norm(new)
+                p.copy_(new)
+            _renorm_layernorms(actor_critic)
+            train_state.value_normalizer_state = new_value_norm_state
 
+    with profile("Record Metrics"), torch.no_grad():
         metrics.record({
             "Loss": loss.detach().reshape(1),
             "Action Obj": _flat_concat(action_objs)[None],
@@ -494,20 +501,26 @@ def _ppo(cfg: TrainConfig, policy_state, train_state, rollout_data,
 
     first, first_inds, nonfinite = None, None, None
     for epoch in range(cfg.algo.num_epochs):
-        inds = epoch_indices(cfg, gen, valid_inds, stratify, num_minibatches)
+        with profile("Compute Minibatch Indices"):
+            inds = epoch_indices(cfg, gen, valid_inds, stratify,
+                                 num_minibatches)
         if first_inds is None:
             first_inds = inds
         for i in range(num_minibatches):
-            mb_inds = inds[i * mb_size:(i + 1) * mb_size]
-            mb = rollout_data.minibatch(mb_inds)
-            stats = _ppo_update(cfg, mb, traj_weights[mb_inds],
-                                policy_state, train_state, metrics)
+            with profile("Gather Minibatch"):
+                mb_inds = inds[i * mb_size:(i + 1) * mb_size]
+                mb = rollout_data.minibatch(mb_inds)
+                mb_weights = traj_weights[mb_inds]
+            stats = _ppo_update(cfg, mb, mb_weights, policy_state,
+                                train_state, metrics)
             if first is None:
                 first = stats
             if "finite" in stats:
                 step = (~stats["finite"]).to(torch.int32)
                 nonfinite = step if nonfinite is None else nonfinite + step
-            user_metrics_cb(metrics, epoch, mb, policy_state, train_state)
+            with profile("Metrics Callback"):
+                user_metrics_cb(metrics, epoch, mb, policy_state,
+                                train_state)
     out = dict(first or {}, num_minibatches=num_minibatches,
                epoch_inds=first_inds, traj_weights=traj_weights)
     if nonfinite is not None:

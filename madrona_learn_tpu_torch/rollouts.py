@@ -20,11 +20,18 @@ return to sim order, where the recurrent state stays; the store keeps the
 train policies' team-0 agents in train order ``[P_train, A]``. Pure
 self-play across several train policies splits the batch into contiguous
 blocks, one a policy, with no sort.
+
+The loops and the collect phase open the JAX package's named ranges
+(``utils/profile.py``). "Gather Chunk Weights" and "RNN Chunk Remap"
+belong to the padded chunk layout, which the port does not run, and have
+no counterpart. ``RolloutState.get_current_checkpoints`` /
+``load_checkpoints_into_sim`` pass simulator-state snapshots through.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
@@ -35,7 +42,7 @@ from .ops.gae import compute_advantages, compute_returns
 from .ops.metrics import Metric, TrainingMetrics
 from .pbt import (PBTMatchmakeConfig, pbt_init_matchmaking,
                   pbt_update_matchmaking)
-from .utils import tree_map, tree_stack
+from .utils import profile, tree_map, tree_stack
 
 # Rewards, returns, log-probs and advantages are stored in float32.
 _F32 = torch.float32
@@ -182,6 +189,9 @@ class RolloutState:
     policy_assignments: torch.Tensor
     sim_ctrl: torch.Tensor
     env_returns: torch.Tensor
+    # The simulator's optional snapshot hooks (envs/sim_interface.py).
+    get_ckpts_fn: Optional[Callable] = None
+    load_ckpts_fn: Optional[Callable] = None
 
     @staticmethod
     def create(rollout_cfg: RolloutConfig, sim_fns, generator, rnn_states,
@@ -212,6 +222,8 @@ class RolloutState:
             sim_ctrl=init_sim_ctrl,
             env_returns=torch.zeros((B, 1), dtype=rollout_cfg.reward_dtype,
                                     device=device),
+            get_ckpts_fn=sim_fns.get("get_ckpts"),
+            load_ckpts_fn=sim_fns.get("load_ckpts"),
         )
 
     def update_matchmaking(self, self_play_portion: float,
@@ -229,6 +241,30 @@ class RolloutState:
             pbt.custom_policy_ids)
         self.cfg = dataclasses.replace(self.cfg, pbt=new_pbt)
         self.policy_assignments = policy_assignments
+        return self
+
+    # Simulator-state snapshots. A functional sim's hooks take and return
+    # the state; a stateful engine's take none and return only the obs.
+    def get_current_checkpoints(self):
+        """The simulator's snapshot of its current state."""
+        if inspect.signature(self.get_ckpts_fn).parameters:
+            return self.get_ckpts_fn(self.sim_state)
+        return self.get_ckpts_fn()
+
+    def load_checkpoints_into_sim(self, ckpts):
+        """Load the snapshot ``ckpts`` ``[sim_batch, ...]`` into the
+        simulator: the sim state (of a functional sim) and the current obs
+        are set in place."""
+        if ckpts.dim() != 2:
+            raise ValueError(f"checkpoints must be [sim_batch, size], not "
+                             f"{tuple(ckpts.shape)}")
+        trigger = torch.ones((ckpts.shape[0], 1), dtype=torch.int32,
+                             device=ckpts.device)
+        out = self.load_ckpts_fn(trigger, ckpts)
+        if isinstance(out, dict) and "state" in out:
+            self.sim_state = out["state"]
+            out = out["obs"]
+        self.cur_obs = out
         return self
 
 
@@ -299,40 +335,46 @@ def rollout_loop(rollout_state: RolloutState, policy_state, num_steps: int,
     with torch.no_grad():
         for step_idx in range(start_step_idx, start_step_idx + num_steps):
             obs = rollout_state.cur_obs
-            preprocessed = policy_state.obs_preprocess.preprocess(
-                policy_state.obs_preprocess_state, obs)
-            policy_out, rnn_states = actor_critic.rollout(
-                rollout_state.generator, rollout_state.rnn_states,
-                preprocessed, sample_actions=sample_actions)
-            cb_state, emit = post_inference_cb(
-                step_idx, obs, preprocessed, policy_out, cb_state)
-            inference_emits.append(emit)
+            with profile("Policy Inference"):
+                with profile("Obs Preprocess"):
+                    preprocessed = policy_state.obs_preprocess.preprocess(
+                        policy_state.obs_preprocess_state, obs)
+                with profile("Policy Apply"):
+                    policy_out, rnn_states = actor_critic.rollout(
+                        rollout_state.generator, rollout_state.rnn_states,
+                        preprocessed, sample_actions=sample_actions)
+                cb_state, emit = post_inference_cb(
+                    step_idx, obs, preprocessed, policy_out, cb_state)
+                inference_emits.append(emit)
 
-            step_output = rollout_state.step_fn({
-                "state": rollout_state.sim_state,
-                "actions": policy_out["actions"],
-                "resets": torch.zeros((cfg.num_worlds, 1), dtype=torch.int32,
-                                      device=rollout_state.sim_ctrl.device),
-                "sim_ctrl": rollout_state.sim_ctrl,
-                "pbt": {"policy_assignments":
-                        rollout_state.policy_assignments},
-            })
-            dones = step_output["dones"].to(torch.bool)
-            rewards = step_output["rewards"].to(_F32)
-            env_returns = (rewards
-                           + cfg.reward_gamma * rollout_state.env_returns)
+            with profile("Rollout Step"):
+                with profile("Sim Step"):
+                    step_output = rollout_state.step_fn({
+                        "state": rollout_state.sim_state,
+                        "actions": policy_out["actions"],
+                        "resets": torch.zeros(
+                            (cfg.num_worlds, 1), dtype=torch.int32,
+                            device=rollout_state.sim_ctrl.device),
+                        "sim_ctrl": rollout_state.sim_ctrl,
+                        "pbt": {"policy_assignments":
+                                rollout_state.policy_assignments},
+                    })
+                dones = step_output["dones"].to(torch.bool)
+                rewards = step_output["rewards"].to(_F32)
+                env_returns = (rewards
+                               + cfg.reward_gamma * rollout_state.env_returns)
 
-            rollout_state.rnn_states = actor_critic.clear_recurrent_state(
-                rnn_states, dones)
-            rollout_state.sim_state = step_output["state"]
-            rollout_state.cur_obs = step_output["obs"]
-            rollout_state.env_returns = env_returns
+                rollout_state.rnn_states = \
+                    actor_critic.clear_recurrent_state(rnn_states, dones)
+                rollout_state.sim_state = step_output["state"]
+                rollout_state.cur_obs = step_output["obs"]
+                rollout_state.env_returns = env_returns
 
-            rollout_state, cb_state, emit = post_step_cb(
-                step_idx, rollout_state, dones, rewards, cb_state)
-            step_emits.append(emit)
-            rollout_state.env_returns = torch.where(
-                dones, 0, rollout_state.env_returns)
+                rollout_state, cb_state, emit = post_step_cb(
+                    step_idx, rollout_state, dones, rewards, cb_state)
+                step_emits.append(emit)
+                rollout_state.env_returns = torch.where(
+                    dones, 0, rollout_state.env_returns)
 
     return rollout_state, cb_state, (tree_stack(inference_emits),
                                      tree_stack(step_emits))
@@ -378,64 +420,80 @@ def population_rollout_loop(rollout_state: RolloutState, population,
     with torch.no_grad():
         for step_idx in range(start_step_idx, start_step_idx + num_steps):
             obs = rollout_state.cur_obs
-            batches = _PolicyRows(cfg, rollout_state.policy_assignments)
-            pre_parts, out_parts, rnn_parts = [], [], []
-            for p, rows in batches.rows:
-                policy = population[p]
-                pre = policy.obs_preprocess.preprocess(
-                    policy.obs_preprocess_state, batches.gather(obs, rows))
-                out, rnn = policy.actor_critic.rollout(
-                    rollout_state.generator,
-                    batches.gather(rollout_state.rnn_states, rows), pre,
-                    sample_actions=sample_actions)
-                out["critic"] = value_fn(out["critic"])
-                pre_parts.append(pre)
-                out_parts.append(out)
-                rnn_parts.append(rnn)
-            preprocessed = batches.to_sim(pre_parts)
-            policy_out = batches.to_sim(out_parts)
-            rnn_states = batches.to_sim(rnn_parts,
-                                        rest=rollout_state.rnn_states)
-            cb_state, emit = post_inference_cb(
-                step_idx, obs, preprocessed, policy_out, cb_state)
-            inference_emits.append(emit)
+            # The step's rows of each policy, from the assignments the last
+            # step's matchmaking left (JAX computes its reorder state at
+            # the end of a step, inside "Rollout Step").
+            with profile("Compute Reorder State"):
+                batches = _PolicyRows(cfg, rollout_state.policy_assignments)
+            with profile("Policy Inference"):
+                pre_parts, out_parts, rnn_parts = [], [], []
+                for p, rows in batches.rows:
+                    policy = population[p]
+                    with profile("Reorder To Policy"):
+                        policy_obs = batches.gather(obs, rows)
+                        policy_rnn = batches.gather(rollout_state.rnn_states,
+                                                    rows)
+                    with profile("Obs Preprocess"):
+                        pre = policy.obs_preprocess.preprocess(
+                            policy.obs_preprocess_state, policy_obs)
+                    with profile("Policy Apply"):
+                        out, rnn = policy.actor_critic.rollout(
+                            rollout_state.generator, policy_rnn, pre,
+                            sample_actions=sample_actions)
+                        out["critic"] = value_fn(out["critic"])
+                    pre_parts.append(pre)
+                    out_parts.append(out)
+                    rnn_parts.append(rnn)
+                with profile("Reorder To Sim"):
+                    preprocessed = batches.to_sim(pre_parts)
+                    policy_out = batches.to_sim(out_parts)
+                    rnn_states = batches.to_sim(
+                        rnn_parts, rest=rollout_state.rnn_states)
+                cb_state, emit = post_inference_cb(
+                    step_idx, obs, preprocessed, policy_out, cb_state)
+                inference_emits.append(emit)
 
-            assignments = rollout_state.policy_assignments
-            step_output = rollout_state.step_fn({
-                "state": rollout_state.sim_state,
-                "actions": policy_out["actions"],
-                "resets": torch.zeros((cfg.num_worlds, 1), dtype=torch.int32,
-                                      device=assignments.device),
-                "sim_ctrl": rollout_state.sim_ctrl,
-                "pbt": _pbt_inputs(population, assignments[:, None]),
-            })
-            dones = step_output["dones"].to(torch.bool)
-            rewards = step_output["rewards"].to(cfg.reward_dtype)
-            if cfg.reward_gamma == 1.0:
-                # No float promotion: integer rewards stay exact.
-                env_returns = rewards + rollout_state.env_returns
-            else:
-                env_returns = (rewards + cfg.reward_gamma
-                               * rollout_state.env_returns).to(
-                                   cfg.reward_dtype)
-            episode_results = step_output.get("pbt", {}).get(
-                "episode_results")
+            with profile("Rollout Step"):
+                assignments = rollout_state.policy_assignments
+                with profile("Sim Step"):
+                    step_output = rollout_state.step_fn({
+                        "state": rollout_state.sim_state,
+                        "actions": policy_out["actions"],
+                        "resets": torch.zeros(
+                            (cfg.num_worlds, 1), dtype=torch.int32,
+                            device=assignments.device),
+                        "sim_ctrl": rollout_state.sim_ctrl,
+                        "pbt": _pbt_inputs(population, assignments[:, None]),
+                    })
+                dones = step_output["dones"].to(torch.bool)
+                rewards = step_output["rewards"].to(cfg.reward_dtype)
+                if cfg.reward_gamma == 1.0:
+                    # No float promotion: integer rewards stay exact.
+                    env_returns = rewards + rollout_state.env_returns
+                else:
+                    env_returns = (rewards + cfg.reward_gamma
+                                   * rollout_state.env_returns).to(
+                                       cfg.reward_dtype)
+                episode_results = step_output.get("pbt", {}).get(
+                    "episode_results")
 
-            if cfg.pbt.complex_matchmaking:
-                assignments = pbt_update_matchmaking(
-                    assignments, dones, rollout_state.generator, cfg.pbt)
-            rollout_state.policy_assignments = assignments
-            rollout_state.rnn_states = clear(rnn_states, dones)
-            rollout_state.sim_state = step_output["state"]
-            rollout_state.cur_obs = step_output["obs"]
-            rollout_state.env_returns = env_returns
+                if cfg.pbt.complex_matchmaking:
+                    with profile("Matchmaking"):
+                        assignments = pbt_update_matchmaking(
+                            assignments, dones, rollout_state.generator,
+                            cfg.pbt)
+                rollout_state.policy_assignments = assignments
+                rollout_state.rnn_states = clear(rnn_states, dones)
+                rollout_state.sim_state = step_output["state"]
+                rollout_state.cur_obs = step_output["obs"]
+                rollout_state.env_returns = env_returns
 
-            rollout_state, cb_state, emit = post_step_cb(
-                step_idx, rollout_state, dones, rewards, episode_results,
-                cb_state)
-            step_emits.append(emit)
-            rollout_state.env_returns = torch.where(
-                dones, 0, rollout_state.env_returns)
+                rollout_state, cb_state, emit = post_step_cb(
+                    step_idx, rollout_state, dones, rewards,
+                    episode_results, cb_state)
+                step_emits.append(emit)
+                rollout_state.env_returns = torch.where(
+                    dones, 0, rollout_state.env_returns)
 
     stack = lambda emits: (tree_stack(emits) if emits[0] is not None
                            else None)
@@ -552,26 +610,28 @@ class RolloutManager:
 
         def post_inference_cb(step_idx, obs, preprocessed_obs, policy_out,
                               cb_state):
-            emit = {
-                "obs": preprocessed_obs,
-                "actions": policy_out["actions"],
-                "log_probs": {k: v.to(_F32)
-                              for k, v in policy_out["log_probs"].items()},
-                "values": self._compute_value_estimate(
-                    policy_out["critic"]),
-            }
-            cb_state["obs_stats"] = obs_preprocess.update_obs_stats(
-                obs_state, cb_state["obs_stats"], step_idx, obs)
-            return cb_state, emit
+            with profile("Pre Step Rollout Store"):
+                emit = {
+                    "obs": preprocessed_obs,
+                    "actions": policy_out["actions"],
+                    "log_probs": {k: v.to(_F32) for k, v in
+                                  policy_out["log_probs"].items()},
+                    "values": self._compute_value_estimate(
+                        policy_out["critic"]),
+                }
+                cb_state["obs_stats"] = obs_preprocess.update_obs_stats(
+                    obs_state, cb_state["obs_stats"], step_idx, obs)
+                return cb_state, emit
 
         def post_step_cb(step_idx, rollout_state, dones, rewards, cb_state):
-            new_metric = Metric.init_from_data_masked(
-                True, rollout_state.env_returns[None], dones[None],
-                start_dim=1)
-            cb_state["env_returns_metric"] = \
-                cb_state["env_returns_metric"].merge(new_metric)
-            return rollout_state, cb_state, {"dones": dones,
-                                             "rewards": rewards}
+            with profile("Post Step Rollout Store"):
+                new_metric = Metric.init_from_data_masked(
+                    True, rollout_state.env_returns[None], dones[None],
+                    start_dim=1)
+                cb_state["env_returns_metric"] = \
+                    cb_state["env_returns_metric"].merge(new_metric)
+                return rollout_state, cb_state, {"dones": dones,
+                                                 "rewards": rewards}
 
         cb_state = {
             "obs_stats": obs_preprocess.init_obs_stats(obs_state),
@@ -580,8 +640,9 @@ class RolloutManager:
         }
         chunks, rnn_start_states = [], []
         for chunk in range(self._num_bptt_chunks):
-            rnn_start_states.append(_with_policy_axis(
-                rollout_state.rnn_states))
+            with profile("Cache RNN state"):
+                rnn_start_states.append(_with_policy_axis(
+                    rollout_state.rnn_states))
             rollout_state, cb_state, (per_step, step_data) = rollout_loop(
                 rollout_state, policy_state, self._num_bptt_steps,
                 post_inference_cb, post_step_cb, cb_state,
@@ -594,12 +655,15 @@ class RolloutManager:
 
         metrics.update_metrics({
             "Env Returns": cb_state["env_returns_metric"]})
-        bootstrap_values = self._bootstrap_values(policy_state,
-                                                  rollout_state)
-        rollout_data, user_state = self._finalize_rollouts(
-            train_state.value_normalizer, train_state.value_normalizer_state,
-            store, rnn_start_states, bootstrap_values, metrics, user_state,
-            user_finish_rollouts_hook, user_metrics_hook)
+        with profile("Bootstrap Values"):
+            bootstrap_values = self._bootstrap_values(policy_state,
+                                                      rollout_state)
+        with profile("Finalize Rollouts"):
+            rollout_data, user_state = self._finalize_rollouts(
+                train_state.value_normalizer,
+                train_state.value_normalizer_state, store, rnn_start_states,
+                bootstrap_values, metrics, user_state,
+                user_finish_rollouts_hook, user_metrics_hook)
         return rollout_data, cb_state["obs_stats"], user_state
 
     def _collect_population(self, population, train_states, user_state,
@@ -617,31 +681,33 @@ class RolloutManager:
 
         def post_inference_cb(step_idx, obs, preprocessed_obs, policy_out,
                               cb_state):
-            emit = to_train({
-                "obs": preprocessed_obs,
-                "actions": policy_out["actions"],
-                "log_probs": {k: v.to(_F32)
-                              for k, v in policy_out["log_probs"].items()},
-                "values": policy_out["critic"],
-            })
-            train_obs = to_train(obs)
-            cb_state["obs_stats"] = [
-                population[p].obs_preprocess.update_obs_stats(
-                    population[p].obs_preprocess_state, stats, step_idx,
-                    {k: v[p] for k, v in train_obs.items()})
-                for p, stats in enumerate(cb_state["obs_stats"])]
-            return cb_state, emit
+            with profile("Pre Step Rollout Store"):
+                emit = to_train({
+                    "obs": preprocessed_obs,
+                    "actions": policy_out["actions"],
+                    "log_probs": {k: v.to(_F32) for k, v in
+                                  policy_out["log_probs"].items()},
+                    "values": policy_out["critic"],
+                })
+                train_obs = to_train(obs)
+                cb_state["obs_stats"] = [
+                    population[p].obs_preprocess.update_obs_stats(
+                        population[p].obs_preprocess_state, stats, step_idx,
+                        {k: v[p] for k, v in train_obs.items()})
+                    for p, stats in enumerate(cb_state["obs_stats"])]
+                return cb_state, emit
 
         def post_step_cb(step_idx, rollout_state, dones, rewards,
                          episode_results, cb_state):
-            train_dones = to_train(dones)
-            cb_state["env_returns_metric"] = \
-                cb_state["env_returns_metric"].merge(
-                    Metric.init_from_data_masked(
-                        True, to_train(rollout_state.env_returns),
-                        train_dones, start_dim=1))
-            return rollout_state, cb_state, {"dones": train_dones,
-                                             "rewards": to_train(rewards)}
+            with profile("Post Step Rollout Store"):
+                train_dones = to_train(dones)
+                cb_state["env_returns_metric"] = \
+                    cb_state["env_returns_metric"].merge(
+                        Metric.init_from_data_masked(
+                            True, to_train(rollout_state.env_returns),
+                            train_dones, start_dim=1))
+                return rollout_state, cb_state, {
+                    "dones": train_dones, "rewards": to_train(rewards)}
 
         cb_state = {
             "obs_stats": [population[p].obs_preprocess.init_obs_stats(
@@ -651,7 +717,8 @@ class RolloutManager:
         }
         chunks, rnn_start_states = [], []
         for chunk in range(self._num_bptt_chunks):
-            rnn_start_states.append(to_train(rollout_state.rnn_states))
+            with profile("Cache RNN state"):
+                rnn_start_states.append(to_train(rollout_state.rnn_states))
             rollout_state, cb_state, (per_step, step_data) = \
                 population_rollout_loop(
                     rollout_state, population, self._num_bptt_steps,
@@ -665,7 +732,7 @@ class RolloutManager:
 
         metrics.update_metrics({
             "Env Returns": cb_state["env_returns_metric"]})
-        with torch.no_grad():
+        with torch.no_grad(), profile("Bootstrap Values"):
             rnn, obs = to_train((rollout_state.rnn_states,
                                  rollout_state.cur_obs))
             bootstrap_values = torch.stack([
@@ -673,11 +740,12 @@ class RolloutManager:
                                    tree_map(lambda x: x[p], rnn),
                                    {k: v[p] for k, v in obs.items()})
                 for p in range(P)])
-        rollout_data, user_state = self._finalize_rollouts(
-            train_states[0].value_normalizer,
-            [ts.value_normalizer_state for ts in train_states],
-            store, rnn_start_states, bootstrap_values, metrics, user_state,
-            user_finish_rollouts_hook, user_metrics_hook)
+        with profile("Finalize Rollouts"):
+            rollout_data, user_state = self._finalize_rollouts(
+                train_states[0].value_normalizer,
+                [ts.value_normalizer_state for ts in train_states],
+                store, rnn_start_states, bootstrap_values, metrics,
+                user_state, user_finish_rollouts_hook, user_metrics_hook)
         return rollout_data, cb_state["obs_stats"], user_state
 
     def _critic_value(self, policy_state, rnn_states, obs):

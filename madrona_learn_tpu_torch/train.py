@@ -12,6 +12,17 @@ snapshot. ``TrainingManager.save_ckpt`` / ``load_ckpt`` write and read
 checkpoints (``train_state.py``), ``latest_checkpoint`` finds the newest,
 and ``init_training(restore_ckpt=...)`` resumes from one. The port runs
 eagerly on one device and updates the manager's state in place.
+
+An update opens the JAX package's named ranges ("Update Iter",
+"Collect Rollouts", "Update Observations Stats", "Learn";
+``utils/profile.py``). JAX's "Set New Policy States" writes the train
+policies back into the stacked population; the port updates them in
+place, so it has no such step and no range. JAX's
+``init_training(profile_port=...)`` starts an XProf server; its
+counterpart here is ``init_training(profile_dir=...)``, which runs a
+``torch.profiler`` trace of the whole run that ``stop_training`` writes
+into ``profile_dir``. ``TrainingManager.log_metrics_tensorboard`` writes
+the metrics' ring buffer through a ``TensorboardWriter``.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from .policy import Policy
 from .rollouts import (RolloutConfig, RolloutManager, RolloutState,
                        rollout_loop, rollouts_reset)
 from .train_state import TrainStateManager
+from .utils.profile import profile
 
 
 @dataclass(frozen=True)
@@ -68,7 +80,8 @@ class TrainingManager:
     def __init__(self, state: TrainStateManager, rollout: RolloutState,
                  metrics: TrainingMetrics, cfg: TrainConfig,
                  algo: AlgoBase, rollout_mgr: RolloutManager,
-                 user_hooks: TrainHooks, update_idx: int = 0):
+                 user_hooks: TrainHooks, update_idx: int = 0,
+                 profile_dir: Optional[str] = None):
         self.state = state
         self.rollout = rollout
         self.metrics = metrics
@@ -84,6 +97,12 @@ class TrainingManager:
         self.first_minibatch_stats: Any = None
         # The (source, destination) copies of the last update_population.
         self.population_copies: List[Tuple[int, int]] = []
+        # The run's torch.profiler trace, written by stop_training.
+        self.profile_dir = profile_dir
+        self.profiler = None
+        if profile_dir is not None:
+            self.profiler = _start_profiler(
+                rollout.sim_ctrl.device.type == "cuda")
 
     def save_ckpt(self, path: str, block: bool = True):
         """Write the checkpoint ``path/<update_idx>`` (complete once it
@@ -106,31 +125,69 @@ class TrainingManager:
         self.update_idx += 1
         return self
 
+    def log_metrics_tensorboard(self, tb_writer):
+        """The metrics' ring buffer through ``tb_writer``, slot ``i`` at
+        step ``update_idx - 1 + i`` (``TrainingMetrics.tensorboard_log``)."""
+        self.metrics.tensorboard_log(self.update_idx - 1, tb_writer)
+
+
+def _start_profiler(cuda: bool):
+    from torch.profiler import ProfilerActivity
+
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def stop_training(training_mgr: TrainingManager) -> Optional[str]:
+    """End a run started with ``init_training(..., profile_dir=...)``:
+    stop its profiler and write the trace to ``<profile_dir>/trace.json``
+    (Chrome's trace format; ``chrome://tracing`` or Perfetto read it).
+    Returns the trace's path, or ``None`` without a profiler."""
+    profiler = training_mgr.profiler
+    if profiler is None:
+        return None
+    training_mgr.profiler = None
+    profiler.stop()
+    os.makedirs(training_mgr.profile_dir, exist_ok=True)
+    path = os.path.join(training_mgr.profile_dir, "trace.json")
+    profiler.export_chrome_trace(path)
+    return path
+
 
 def _update_impl(algo: AlgoBase, cfg: TrainConfig, user_hooks: TrainHooks,
                  rollout_state: RolloutState, rollout_mgr: RolloutManager,
                  train_state_mgr: TrainStateManager,
                  metrics: TrainingMetrics):
-    rollout_data, obs_stats = rollout_mgr.collect(
-        train_state_mgr, rollout_state, metrics, user_hooks.start_rollouts,
-        user_hooks.finish_rollouts, user_hooks.rollout_metrics)
-    if cfg.pbt is not None:
-        return _update_population_policies(
-            algo, cfg, user_hooks, train_state_mgr, rollout_data, obs_stats,
-            metrics)
+    with profile("Update Iter"):
+        with profile("Collect Rollouts"):
+            rollout_data, obs_stats = rollout_mgr.collect(
+                train_state_mgr, rollout_state, metrics,
+                user_hooks.start_rollouts, user_hooks.finish_rollouts,
+                user_hooks.rollout_metrics)
+        if cfg.pbt is not None:
+            return _update_population_policies(
+                algo, cfg, user_hooks, train_state_mgr, rollout_data,
+                obs_stats, metrics)
 
-    # Learning consumes obs preprocessed with the old state, so folding the
-    # streamed statistics now only affects the next collect phase.
-    policy_state = train_state_mgr.policy_states
-    policy_state.obs_preprocess_state = \
-        policy_state.obs_preprocess.update_state(
-            policy_state.obs_preprocess_state, obs_stats)
+        # Learning consumes obs preprocessed with the old state, so folding
+        # the streamed statistics now only affects the next collect phase.
+        policy_state = train_state_mgr.policy_states
+        with profile("Update Observations Stats"):
+            policy_state.obs_preprocess_state = \
+                policy_state.obs_preprocess.update_state(
+                    policy_state.obs_preprocess_state, obs_stats)
 
-    stats = algo.update(cfg, policy_state, train_state_mgr.train_states,
-                        rollout_data.policy(0), user_hooks.optimize_metrics,
-                        metrics)
-    metrics.advance()
-    return stats
+        with profile("Learn"):
+            stats = algo.update(cfg, policy_state,
+                                train_state_mgr.train_states,
+                                rollout_data.policy(0),
+                                user_hooks.optimize_metrics, metrics)
+        metrics.advance()
+        return stats
 
 
 def _update_population_policies(algo, cfg, user_hooks, train_state_mgr,
@@ -139,14 +196,16 @@ def _update_population_policies(algo, cfg, user_hooks, train_state_mgr,
     rollout data, train state and generator."""
     population = train_state_mgr.policy_states
     train_states = train_state_mgr.train_states
-    for p, stats in enumerate(obs_stats):
-        policy = population[p]
-        policy.obs_preprocess_state = policy.obs_preprocess.update_state(
-            policy.obs_preprocess_state, stats)
-    out = [algo.update(cfg, population[p], train_states[p],
-                       rollout_data.policy(p), user_hooks.optimize_metrics,
-                       metrics.for_policy(p))
-           for p in range(len(train_states))]
+    with profile("Update Observations Stats"):
+        for p, stats in enumerate(obs_stats):
+            policy = population[p]
+            policy.obs_preprocess_state = policy.obs_preprocess.update_state(
+                policy.obs_preprocess_state, stats)
+    with profile("Learn"):
+        out = [algo.update(cfg, population[p], train_states[p],
+                           rollout_data.policy(p),
+                           user_hooks.optimize_metrics, metrics.for_policy(p))
+               for p in range(len(train_states))]
     metrics.advance()
     return out
 
@@ -171,12 +230,16 @@ def resolve_device(dev) -> torch.device:
 def init_training(dev, cfg: TrainConfig, sim_fns: Dict[str, Callable],
                   policy: Policy, init_sim_ctrl: torch.Tensor,
                   user_hooks: TrainHooks = TrainHooks(),
-                  restore_ckpt: Optional[str] = None) -> TrainingManager:
+                  restore_ckpt: Optional[str] = None,
+                  profile_dir: Optional[str] = None) -> TrainingManager:
     """Build the TrainingManager on ``dev`` (a torch device; ``None`` is
     the CUDA card, and ``"cpu"`` must be asked for). With
     ``restore_ckpt``, the checkpoint is loaded (after a population's
     hyperparameter draw) and training and its metrics resume at its update
-    index.
+    index. With ``profile_dir`` (the counterpart of the JAX package's
+    ``profile_port``), a ``torch.profiler`` trace of the CPU and, on the
+    card, CUDA activity runs from here until ``stop_training(mgr)`` writes
+    it to ``<profile_dir>/trace.json``.
 
     ``sim_fns`` (a dict or a ``SimInterface``) must produce tensors on
     ``dev``. The sampling and minibatch
@@ -186,7 +249,7 @@ def init_training(dev, cfg: TrainConfig, sim_fns: Dict[str, Callable],
     if cfg.pbt is not None:
         return _init_population_training(dev, cfg, sim_fns, policy,
                                          init_sim_ctrl, user_hooks,
-                                         restore_ckpt)
+                                         restore_ckpt, profile_dir)
     algo = cfg.algo.setup()
     rollout_cfg = RolloutConfig.setup(
         num_worlds=cfg.num_worlds,
@@ -223,7 +286,7 @@ def init_training(dev, cfg: TrainConfig, sim_fns: Dict[str, Callable],
     return TrainingManager(
         state=train_state_mgr, rollout=rollout_state, metrics=metrics,
         cfg=cfg, algo=algo, rollout_mgr=rollout_mgr, user_hooks=user_hooks,
-        update_idx=start_update_idx)
+        update_idx=start_update_idx, profile_dir=profile_dir)
 
 
 def _restore(train_state_mgr: TrainStateManager,
@@ -235,7 +298,8 @@ def _restore(train_state_mgr: TrainStateManager,
 
 
 def _init_population_training(dev, cfg: TrainConfig, sim_fns, policy,
-                              init_sim_ctrl, user_hooks, restore_ckpt):
+                              init_sim_ctrl, user_hooks, restore_ckpt,
+                              profile_dir):
     """``init_training`` of a PBT population: the matchmade rollout, the
     population and its train states, and each train policy's drawn
     hyperparameters (resample chance 1, from the PBT generator)."""
@@ -288,7 +352,7 @@ def _init_population_training(dev, cfg: TrainConfig, sim_fns, policy,
     return TrainingManager(
         state=train_state_mgr, rollout=rollout_state, metrics=metrics,
         cfg=cfg, algo=algo, rollout_mgr=rollout_mgr, user_hooks=user_hooks,
-        update_idx=start_update_idx)
+        update_idx=start_update_idx, profile_dir=profile_dir)
 
 
 # -- The PBT outer loop: the Elo tournament and the population update ------

@@ -51,7 +51,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    rsigma and the backward's dw / db must be bitwise equal over two calls;
    the three are also timed on the device alone (torch.profiler) and on
    the host (the enqueue), ``layer_norm_bwd`` by launch, and
-   ``native_layer_norm`` the same way;
+   ``native_layer_norm`` the same way; ``grouped_matmul`` is also run and
+   timed at headline_pbt's batched-pass shapes (75 chunks of 512 rows, 12
+   policies: 2 -> 256, 256 -> 256, 256 -> 1024); and
+   ``lstm_sequence_fwd_chunked`` (the chunk-indexed instance of the LSTM
+   forward, on tensor cores in bf16) at headline_pbt's collect step (the
+   chunk size and count init_training derives) and at chunks of 100 rows
+   in bf16 and float32: against its plain twin, every row bitwise
+   ``lstm_sequence_fwd``'s with its policy's weights, the first 8 chunks
+   alone and the chunks rolled bitwise, chunks of index P and -1 skipped
+   (NaN rows, the others unchanged), and timed against one
+   ``lstm_sequence_fwd`` a policy over the same rows;
 4. models: the update pass and its gradients through the kernels on the
    card against the same model on the CPU, for the MLP model, a small GRU
    model, a small fused-trunk model, a small flagship (entity attention)
@@ -114,14 +124,20 @@ Phases, in order; any failure raises and the script exits non-zero:
     25% self, 50% cross and 25% past play, the headline's MLP + LSTM in
     bf16, lr searched in log10 space, 4 minibatches of 1280 sequences a
     policy), 1 warm-up update and 2 trials of 5, then ``eval_elo`` over 64
-    steps and ``update_population``. Besides the trainers' checks (launch
-    counts: ``lstm_sequence_fwd`` once a present policy a step, once a
-    train policy for the bootstrap value and once a minibatch,
+    steps and ``update_population``, the population in the rollout's
+    policy-chunk layout (12 policies, 75 chunks of 512 rows). Besides the
+    trainers' checks (launch counts: ``lstm_sequence_fwd_chunked`` once a
+    step and once for the batched bootstrap value, ``grouped_matmul`` 5
+    times a step and 4 for the bootstrap, ``lstm_sequence_fwd`` and
     ``lstm_sequence_bwd`` once a minibatch, ``gae`` once), every train
-    policy's first-minibatch |ratio - 1| is below the clip coefficient,
-    at one rollout step every row's value equals its own policy's module
-    run over all rows (and the next policy's would differ by more than
-    twice the tolerance), the eight learning rates are distinct and in
+    policy's first-minibatch |ratio - 1| is below 1e-3, no step copies
+    policy counts to the host, at one rollout step every row's value
+    equals its own policy's module run over all rows (and the next
+    policy's would differ by more than twice the tolerance), one collect
+    from one rollout state through the chunked path, through the
+    per-policy loop and with ``chunkwise_rnn`` (bitwise the chunked
+    one's) is timed and profiled (launches a collect step, kernel time,
+    idle share), the eight learning rates are distinct and in
     [1e-4, 1e-2], the assignments keep their invariants after every training step (the
     self-play block and team 0 fixed, cross opponents other train
     policies, past opponents past policies, 2560 train agents a policy;
@@ -141,17 +157,20 @@ Phases, in order; any failure raises and the script exits non-zero:
     leave every parameter bitwise the uninterrupted update's (max |delta|
     printed); (b) ``eval_policies`` of that
     checkpoint, the deterministic policy over 16384 worlds for 64 steps,
-    twice: ``lstm_sequence_fwd`` once a step and no other kernel, the two
+    twice: the policy-chunk layout's ``lstm_sequence_fwd_chunked`` once a
+    step and ``grouped_matmul`` 5 times, no other kernel, the two
     runs' actions bitwise equal, eval env-steps/s printed; (c) the trained
     headline_pbt population (8 + 4 policies) saved and restored into a
     fresh manager, every tensor, Elo, hyperparameter and generator state
     bitwise; (d) ``eval_load_ckpt(train_only=True)`` and a competitive
     ``eval_policies`` over the duel at 16384 worlds x 2 agents for 32
-    steps: ``lstm_sequence_fwd`` once a policy a step, Elo returned at
+    steps: ``lstm_sequence_fwd_chunked`` once a step and
+    ``grouped_matmul`` 5 times, Elo returned at
     1500; (e) headline_pbt with ``custom_policy_ids=[100]`` over a duel
     that plays policy 100's rows with a fixed bid, and ``eval_elo`` over
-    32 steps: ``lstm_sequence_fwd`` once a population policy a step (the
-    custom policy runs no module), Elo finite with policy 0 at 1500.
+    32 steps: ``lstm_sequence_fwd_chunked`` once a step and
+    ``grouped_matmul`` 5 times (the custom policy's chunks read no
+    weights), Elo finite with policy 0 at 1500.
 
 13. the rest of the model zoo, five trainers at 16384 worlds with the
     headline's width and PPO settings, each 1 warm-up update and 2 trials
@@ -1914,6 +1933,203 @@ def _gmm_out_of_range(tag, x, w, idx):
         f"chunks unchanged ok")
 
 
+def _pbt_chunk_geometry():
+    """headline_pbt's policy-chunk layout, as ``init_training`` derives it
+    for its 32768 rows: (policies, chunk size C, chunks B)."""
+    from madrona_learn_tpu_torch.rollouts import RolloutConfig
+
+    sp, cp, pp = PBT_PORTIONS
+    cfg = RolloutConfig.setup_population(
+        num_current_policies=PBT_TRAIN, num_past_policies=PBT_PAST,
+        num_teams=2, team_size=1, sim_batch_size=2 * NUM_WORLDS,
+        actions_cfg={}, self_play_portion=sp, cross_play_portion=cp,
+        past_play_portion=pp, static_play_portion=0.0)
+    return (cfg.pbt.total_num_policies, cfg.policy_chunk_size,
+            cfg.num_policy_chunks)
+
+
+def _chunked_lstm_inputs(gen, T, B, C, H, P, dtype):
+    """x_proj, keep, the [P, H, 4H] / [P, 4H] stacks, chunk_policy [B] (in
+    [0, P), every policy present), c0, h0."""
+    import torch
+
+    x, keep, _, _, c0, h0 = _lstm_inputs(gen, T, B * C, H, dtype)
+    wr = (torch.randn(P, H, 4 * H, device="cuda", generator=gen)
+          * H ** -0.5).to(dtype)
+    bias = torch.randn(P, 4 * H, device="cuda", generator=gen).to(dtype)
+    idx = torch.randint(0, P, (B,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    idx[:P] = torch.arange(P, device="cuda", dtype=torch.int32)
+    return x, keep, wr, bias, idx, c0, h0
+
+
+def _chunked_lstm_bound(T, B, C, H, policies_used, itemsize):
+    """The forward's bytes and operations over its B * C rows: x_proj and
+    keep read, the weights of the policies in use read, c0 and h0 read,
+    ys and cs written, the chunk indices read; the h . Wr products on
+    tensor cores and ~30 f32 operations of gate math per unit and step."""
+    N = B * C
+    seq = T * N * H
+    nbytes = (itemsize * (4 * seq + T * N + policies_used * (4 * H * H + 4 * H)
+                          + 2 * N * H + 2 * seq) + 4 * B)
+    return bound(nbytes, {"bf16_tensor": 2 * T * N * H * 4 * H,
+                          "f32": 30 * seq})
+
+
+def _policy_rows(idx, C, P):
+    """Each policy's rows of a chunk layout: [(p, int64 rows)]."""
+    import torch
+
+    out = []
+    for p in range(P):
+        chunks = torch.nonzero(idx == p).flatten()
+        if chunks.numel():
+            rows = (chunks[:, None] * C + torch.arange(
+                C, device=idx.device)).flatten()
+            out.append((p, rows))
+    return out
+
+
+def check_lstm_chunked(results):
+    """lstm_sequence_fwd_chunked at headline_pbt's collect step (the chunk
+    size and count init_training derives) and at chunks of 100 rows (not a
+    multiple of the 32-row tile), bf16 on tensor cores and f32 on CUDA
+    cores: against its plain twin; row for row bitwise
+    ``lstm_sequence_fwd`` with the row's policy's weights (each policy's
+    chunks in one call); batch invariance (the first chunks alone, and
+    the chunks rolled); chunks of index P and -1 NaN, the others
+    unchanged; its time against one ``lstm_sequence_fwd`` a policy over
+    the same rows (the per-policy loop's launches) and its bound."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.lstm import (
+        lstm_sequence_fwd, lstm_sequence_fwd_chunked,
+        lstm_sequence_fwd_chunked_reference, uses_tensor_cores)
+
+    P, C, B = _pbt_chunk_geometry()
+    H, T = CHANNELS, 1
+    log(f"lstm_sequence_fwd_chunked at headline_pbt's collect step: "
+        f"{P} policies, chunks of C = {C} rows, B = {B} chunks "
+        f"(RolloutConfig.setup_population for {2 * NUM_WORLDS} rows: "
+        f"ceil({2 * NUM_WORLDS} / {C}) + {P} - 1), H = {H}, T = 1")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    res = results["lstm_sequence_fwd_chunked"] = {"max_abs_err": 0.0}
+    bf16, f32 = torch.bfloat16, torch.float32
+    for dtype, chunk, chunks, main_path in ((bf16, C, B, True),
+                                            (bf16, 100, 41, False),
+                                            (f32, 100, 41, False)):
+        dname = str(dtype).split(".")[-1]
+        path = ("tensor_core" if uses_tensor_cores(dtype, H)
+                else "cuda_core")
+        tag = f"[{T}, {chunks} x {chunk}, {4 * H}] P={P} {dname} ({path})"
+        args = _chunked_lstm_inputs(gen, T, chunks, chunk, H, P, dtype)
+        x, keep, wr, bias, idx, c0, h0 = args
+        ys, cs = lstm_sequence_fwd_chunked(*args)
+        want = lstm_sequence_fwd_chunked_reference(*args)
+        tol = TOL[("fwd", dname)]
+        err = max(compare(f"lstm_sequence_fwd_chunked {tag} ys", ys,
+                          want[0], **tol),
+                  compare(f"lstm_sequence_fwd_chunked {tag} cs", cs,
+                          want[1], **tol))
+        by_policy = _policy_rows(idx, chunk, P)
+        for p, rows in by_policy:
+            y1, c1 = lstm_sequence_fwd(
+                x[:, rows].contiguous(), keep[:, rows].contiguous(), wr[p],
+                bias[p], c0[rows], h0[rows])
+            if not (torch.equal(y1, ys[:, rows])
+                    and torch.equal(c1, cs[:, rows])):
+                raise AssertionError(f"lstm_sequence_fwd_chunked {tag}: "
+                                     f"policy {p}'s rows differ from "
+                                     f"lstm_sequence_fwd's")
+        log(f"  lstm_sequence_fwd_chunked {tag}: every row bitwise "
+            f"lstm_sequence_fwd's with its policy's weights ({P} calls) ok")
+        # Batch invariance: the first 8 chunks alone, and the chunks
+        # rolled by 5.
+        n8 = 8 * chunk
+        sub = lstm_sequence_fwd_chunked(
+            x[:, :n8].contiguous(), keep[:, :n8].contiguous(), wr, bias,
+            idx[:8].contiguous(), c0[:n8], h0[:n8])
+        roll = lambda t, dim: torch.roll(t, 5 * chunk, dims=dim)
+        rolled = lstm_sequence_fwd_chunked(
+            roll(x, 1), roll(keep, 1), wr, bias, torch.roll(idx, 5),
+            roll(c0, 0), roll(h0, 0))
+        for name, got, ref in (("8 chunks", sub[0], ys[:, :n8]),
+                               ("8 chunks cs", sub[1], cs[:, :n8]),
+                               ("rolled", rolled[0], roll(ys, 1)),
+                               ("rolled cs", rolled[1], roll(cs, 1))):
+            bitwise(f"lstm_sequence_fwd_chunked {tag} {name}", got, ref)
+        if not main_path:
+            bad = idx.clone()
+            bad[1], bad[3] = P, -1
+            yb, cb = lstm_sequence_fwd_chunked(x, keep, wr, bias, bad, c0,
+                                               h0)
+            skipped = torch.zeros(chunks, dtype=torch.bool, device="cuda")
+            skipped[1] = skipped[3] = True
+            rows = skipped.repeat_interleave(chunk)
+            if not (bool(yb[:, rows].isnan().all())
+                    and bool(cb[:, rows].isnan().all())
+                    and torch.equal(yb[:, ~rows], ys[:, ~rows])
+                    and torch.equal(cb[:, ~rows], cs[:, ~rows])):
+                raise AssertionError(f"lstm_sequence_fwd_chunked {tag}: a "
+                                     f"chunk of index P or -1 was not "
+                                     f"skipped alone")
+            log(f"  lstm_sequence_fwd_chunked {tag}: chunks of index P and "
+                f"-1 NaN, the others unchanged ok")
+            continue
+        res["max_abs_err"] = err
+        per_policy = [(x[:, rows].contiguous(), keep[:, rows].contiguous(),
+                       wr[p], bias[p], c0[rows], h0[rows])
+                      for p, rows in by_policy]
+        ms = time_ms(lambda: lstm_sequence_fwd_chunked(*args))
+        loop_ms = time_ms(lambda: [lstm_sequence_fwd(*a)
+                                   for a in per_policy])
+        plain_ms = time_ms(lambda: lstm_sequence_fwd_chunked_reference(
+            *args), reps=3, warmup=1)
+        b = _chunked_lstm_bound(T, chunks, chunk, H, len(by_policy),
+                                x.element_size())
+        log(f"  lstm_sequence_fwd_chunked {tag}: kernel {ms:.4f} ms, "
+            f"{len(per_policy)} lstm_sequence_fwd over the same rows "
+            f"{loop_ms:.4f} ms, plain {plain_ms:.3f} ms, no library call "
+            f"(cuDNN's LSTM takes one weight a call), bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        res.update(ms=ms, plain_ms=plain_ms, library_ms=None, path=path,
+                   per_policy_ms=loop_ms, chunk=chunk, chunks=chunks,
+                   policies=P, **b)
+
+
+def check_grouped_matmul_pbt(results):
+    """grouped_matmul at the batched pass's shapes of headline_pbt's
+    collect step (B chunks of C rows, 12 policies, bf16): the MLP's first
+    layer (IN = 2, the CUDA-core route), its second (256 -> 256) and the
+    LSTM's input projection (256 -> 1024); each against its plain version,
+    timed beside ``torch.bmm(x, W[idx])``, with its bound."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.grouped_matmul import (
+        grouped_matmul, grouped_matmul_reference, uses_tensor_cores)
+
+    P, C, B = _pbt_chunk_geometry()
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows = results["grouped_matmul"].setdefault("pbt_shapes", [])
+    for IN, OUT in ((2, CHANNELS), (CHANNELS, CHANNELS),
+                    (CHANNELS, 4 * CHANNELS)):
+        x, w, idx = _gmm_inputs(gen, B, C, IN, P, OUT, torch.bfloat16)
+        path = "tensor_core" if uses_tensor_cores(x, w) else "cuda_core"
+        tag = f"[{B}x{C}, {IN}->{OUT}, P={P}] bfloat16 ({path})"
+        err = compare(f"grouped_matmul headline_pbt {tag}",
+                      grouped_matmul(x, w, idx),
+                      grouped_matmul_reference(x, w, idx),
+                      **TOL[("gmm", "bfloat16")])
+        idx64 = idx.long()
+        ms = time_ms(lambda: grouped_matmul(x, w, idx))
+        library_ms = time_ms(lambda: torch.bmm(x, w[idx64]))
+        b = _gmm_bound(B, C, IN, int(idx.unique().numel()), OUT,
+                       x.element_size())
+        log(f"  grouped_matmul headline_pbt {tag}: kernel {ms:.4f} ms, "
+            f"torch.bmm(x, W[idx]) {library_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        rows.append(dict(shape=[B, C, IN, P, OUT], path=path,
+                         max_abs_err=err, ms=ms, library_ms=library_ms, **b))
+
+
 def kernel_phase():
     results = {}
     log("kernels against their plain versions:")
@@ -1926,6 +2142,8 @@ def kernel_phase():
     check_layer_norm(results)
     check_mha_flash(results)
     check_grouped_matmul(results)
+    check_grouped_matmul_pbt(results)
+    check_lstm_chunked(results)
     return results
 
 
@@ -2799,7 +3017,7 @@ def _profile_update(one_update):
 TC_ROUTED = ("lstm_sequence_fwd", "lstm_sequence_bwd",
              "lstm_sequence_proj_fwd", "lstm_sequence_proj_bwd",
              "gru_sequence_fwd", "gru_sequence_bwd", "mha",
-             "fused_policy_step")
+             "fused_policy_step", "lstm_sequence_fwd_chunked")
 
 
 def trainer_phase(card, name, build, per_update, trials, timed_updates,
@@ -3037,10 +3255,11 @@ class _AssignmentChecks:
     """While ``active``, checks the assignments after every rollout step
     (wrapping the rollout's ``pbt_update_matchmaking``) on the device,
     folding the results into ``ok`` without a host synchronization
-    (``verify`` reads them), and counts the steps' ``[P]`` host copies
-    (``_PolicyRows``, one each). With ``route_pending`` set, the first
-    step of the next rollout loop that starts past step 0 is also checked
-    for which policy ran which rows (``check_routes``)."""
+    (``verify`` reads them), and counts the per-policy loop's ``[P]`` host
+    copies (``_PolicyRows``, one a step there; none on the chunked path).
+    With ``route_pending`` set, the first step of the next chunked rollout
+    loop that starts past step 0 is also checked for which policy ran
+    which rows (``check_routes``)."""
 
     NAMES = ("self-play block constant", "team 0 of cross play kept",
              "team 0 of past play kept", "cross opponents in [0, 8)",
@@ -3068,7 +3287,7 @@ class _AssignmentChecks:
         self.policy_ids = torch.arange(PBT_TRAIN, device="cuda")[:, None]
         self.update = rollouts.pbt_update_matchmaking
         self.rows = rollouts._PolicyRows
-        self.loop = rollouts.population_rollout_loop
+        self.loop = rollouts.chunked_rollout_loop
         self.route_pending = False
         self.route_report = None
         checks = self
@@ -3104,12 +3323,12 @@ class _AssignmentChecks:
 
         rollouts.pbt_update_matchmaking = update
         rollouts._PolicyRows = CountedRows
-        rollouts.population_rollout_loop = loop
+        rollouts.chunked_rollout_loop = loop
 
     def restore(self):
         self.rollouts.pbt_update_matchmaking = self.update
         self.rollouts._PolicyRows = self.rows
-        self.rollouts.population_rollout_loop = self.loop
+        self.rollouts.chunked_rollout_loop = self.loop
 
     def check_routes(self, population, rnn, assignments, pre, values,
                      value_fn):
@@ -3205,12 +3424,25 @@ def _pbt_phase(card, mgr, timer, checks):
 
     trials, timed_updates = 2, 5
     num_updates = 1 + trials * timed_updates
-    present = PBT_TRAIN + PBT_PAST
+    _log_population_path("headline_pbt", mgr.rollout.cfg)
+    if not mgr.rollout.cfg.policy_chunked:
+        raise AssertionError("headline_pbt: the population does not take "
+                             "the policy-chunk layout")
     per_update = {k.name: 0 for k in KERNELS}
     per_update.update({
         "gae": 1,
-        "lstm_sequence_fwd": (STEPS_PER_UPDATE * present + PBT_TRAIN
-                              + PBT_TRAIN * NUM_MINIBATCHES),
+        # Collect, in the policy-chunk layout: one batched pass a rollout
+        # step over every chunk, and one batched critic_only over the
+        # train policies' rows for the bootstrap value. Each runs the LSTM
+        # recurrence once, on the chunk-indexed kernel; grouped_matmul runs
+        # every product: the MLP's two Dense layers, the LSTM's input
+        # projection, the actor's head and the critic's (5 a step), the
+        # bootstrap without the actor's head (4).
+        "lstm_sequence_fwd_chunked": STEPS_PER_UPDATE + 1,
+        "grouped_matmul": 5 * STEPS_PER_UPDATE + 4,
+        # Learn, policy by policy: the sequence forward and backward once a
+        # minibatch of each train policy.
+        "lstm_sequence_fwd": PBT_TRAIN * NUM_MINIBATCHES,
         "lstm_sequence_bwd": PBT_TRAIN * NUM_MINIBATCHES})
     agents = NUM_WORLDS * 2
     log(f"headline_pbt trainer: {NUM_WORLDS} worlds x 2 agents, "
@@ -3252,10 +3484,13 @@ def _pbt_phase(card, mgr, timer, checks):
     ratios = [s["max_abs_ratio_dev"].item()
               for s in mgr.first_minibatch_stats]
     log(f"  first update, first minibatch, max |ratio - 1| by train "
-        f"policy: {[f'{r:.3e}' for r in ratios]}")
-    if not all(r < CLIP_COEF for r in ratios):
+        f"policy: {[f'{r:.3e}' for r in ratios]} (the per-policy loop "
+        f"read 7.2e-7 to 2.4e-5 on an H100 80GB HBM3 at 700 W; the "
+        f"rollout's products now round in grouped_matmul, learn's in "
+        f"cuBLAS)")
+    if not all(r < PBT_RATIO_DEV for r in ratios):
         raise AssertionError(f"headline_pbt: first-minibatch max |ratio - "
-                             f"1| {ratios} not all below {CLIP_COEF}")
+                             f"1| {ratios} not all below {PBT_RATIO_DEV}")
 
     trial_s = []
     copies_before = checks.host_copies
@@ -3294,9 +3529,12 @@ def _pbt_phase(card, mgr, timer, checks):
         f"{ {k: v for k, v in launches.items() if v} }, all on the "
         f"tensor-core route where it exists")
     checks.verify()
-    log(f"  [P] host copies a collect: {copies_per_update:.1f} (one a "
-        f"step); assignments held after each of {checks.steps_checked} "
-        f"steps")
+    log(f"  [P] host copies a collect: {copies_per_update:.1f} (the "
+        f"chunked path's layout stays on the device); assignments held "
+        f"after each of {checks.steps_checked} steps")
+    if copies_per_update:
+        raise AssertionError("headline_pbt: the chunked path copied "
+                             "policy counts to the host")
     counts = torch.bincount(mgr.rollout.policy_assignments.long(),
                             minlength=PBT_TRAIN + PBT_PAST)
     torch.cuda.synchronize()
@@ -3329,6 +3567,7 @@ def _pbt_phase(card, mgr, timer, checks):
     # The tournament's static matchmaking has its own invariants.
     checks.active = False
     checks.verify()
+    ab = _pbt_collect_ab(card, mgr)
     zeros = torch.zeros((1,), dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3373,7 +3612,111 @@ def _pbt_phase(card, mgr, timer, checks):
     log(f"  assignments held after each of {checks.steps_checked} training "
         f"steps")
     return launches, dict(sps=max(sps), ratio_dev=max(ratios),
-                          peak_gib=peak_gib, mgr=mgr)
+                          peak_gib=peak_gib, mgr=mgr, **ab)
+
+
+# The first minibatch's max |ratio - 1| a headline_pbt train policy may
+# show: the rollout's products round in grouped_matmul and learn's in
+# cuBLAS, each once to bf16, so a logit may differ by a bf16 ulp.
+PBT_RATIO_DEV = 1e-3
+
+
+def _count_launches(fn):
+    """fn's kernel launches and kernel ms (torch.profiler) and its wall
+    ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = prof.key_averages()
+    ops = {e.key for e in rows if e.device_type == DeviceType.CPU}
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.key not in ops]
+    busy_ms = sum(getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0))
+                  for e in kernels) / 1e3
+    return out, sum(e.count for e in kernels), busy_ms, wall_ms
+
+
+def _pbt_collect_ab(card, mgr):
+    """One collect of the trained population, from copies of one rollout
+    state and of the metrics, through the chunked path, through the
+    per-policy loop (``population_rollout_loop`` called in the chunked
+    loop's place: the same collect, store and bootstrap around it) and
+    with ``chunkwise_rnn`` on: each timed (synchronized) and once more
+    under the profiler for its launches and kernel time. The chunkwise
+    collect must give the chunked one's rollout data bitwise."""
+    import copy
+    import torch
+    import madrona_learn_tpu_torch.rollouts as rollouts
+
+    env = "MADRONA_LEARN_TPU_CHUNKWISE_RNN"
+    hooks = mgr.user_hooks
+    start = _copy_rollout(mgr.rollout)
+    chunked_loop = rollouts.chunked_rollout_loop
+
+    def per_policy_loop(rollout_state, population, *args, stack=None,
+                        chunkwise_rnn=False, **kwargs):
+        return rollouts.population_rollout_loop(rollout_state, population,
+                                                *args, **kwargs)
+
+    def collect(path):
+        os.environ[env] = "1" if path == "chunkwise" else "0"
+        rollouts.chunked_rollout_loop = (per_policy_loop
+                                         if path == "per-policy loop"
+                                         else chunked_loop)
+        try:
+            state = _copy_rollout(start)
+            data, _ = mgr.rollout_mgr.collect(
+                mgr.state, state, copy.deepcopy(mgr.metrics),
+                hooks.start_rollouts, hooks.finish_rollouts,
+                hooks.rollout_metrics)
+            return data.all(), state
+        finally:
+            rollouts.chunked_rollout_loop = chunked_loop
+            os.environ.pop(env, None)
+
+    agents = 2 * NUM_WORLDS
+    out = {}
+    runs = {}
+    for path in ("chunked", "per-policy loop", "chunkwise"):
+        collect(path)   # warm-up
+        runs[path], ms = _timed(lambda: collect(path))
+        _, n, busy_ms, wall_ms = _count_launches(lambda: collect(path))
+        out[path] = dict(collect_ms=ms,
+                         agent_steps_per_s=STEPS_PER_UPDATE * agents / ms
+                         * 1e3,
+                         launches_per_step=n / STEPS_PER_UPDATE,
+                         kernel_ms=busy_ms, profiled_wall_ms=wall_ms,
+                         idle=1 - busy_ms / wall_ms)
+        log(f"  collect through the {path}: {ms:.1f} ms "
+            f"({out[path]['agent_steps_per_s']:.0f} agent-steps/s); "
+            f"profiled: {n} launches ({n / STEPS_PER_UPDATE:.0f} a collect "
+            f"step), kernels {busy_ms:.1f} ms of {wall_ms:.1f} ms, idle "
+            f"{out[path]['idle']:.1%} on {card}")
+    (data, state), (want, want_state) = runs["chunkwise"], runs["chunked"]
+    for name, x in _tree_leaves(want):
+        if not torch.equal(x, dict(_tree_leaves(data))[name]):
+            raise AssertionError(f"headline_pbt: chunkwise_rnn changed the "
+                                 f"rollout data's {name}")
+    for x, y in zip(state.rnn_states, want_state.rnn_states):
+        if not torch.equal(x, y):
+            raise AssertionError("headline_pbt: chunkwise_rnn changed the "
+                                 "recurrent state")
+    log(f"  chunkwise_rnn on: rollout data and recurrent state bitwise "
+        f"the chunked collect's ok")
+    ratio = (out["per-policy loop"]["collect_ms"]
+             / out["chunked"]["collect_ms"])
+    log(f"  collect ms, per-policy loop / chunked: {ratio:.2f}")
+    return dict(collect_ab=out)
 
 
 # checkpoint_eval: the eval steps of the headline's checkpoint, of the
@@ -3386,6 +3729,25 @@ CUSTOM_ID, CUSTOM_BID = 100, 2
 # kernel of the update is deterministic at fixed shapes on one card (the
 # checks of phase 3: bitwise weight gradients over two calls, batch
 # invariance), and the resume restores every input of the update.
+
+
+def _log_population_path(what, cfg):
+    """Which rollout path a population's phase runs (init_training's
+    rule), and the chunk layout's sizes."""
+    log(f"  {what}: the population runs "
+        + (f"the policy-chunk layout (chunked_rollout_loop), chunks of "
+           f"{cfg.policy_chunk_size} rows, {cfg.num_policy_chunks} chunks"
+           if cfg.policy_chunked else
+           "the per-policy loop (population_rollout_loop)"))
+
+
+def _chunked_step_launches(steps):
+    """The launches of ``steps`` steps of the headline's MLP + LSTM in the
+    policy-chunk layout, whatever the policies and chunks: one batched
+    pass a step, its recurrence one chunk-indexed forward and its five
+    products (the MLP's two Dense layers, the LSTM's input projection, the
+    actor's and the critic's heads) grouped_matmul's."""
+    return {"lstm_sequence_fwd_chunked": steps, "grouped_matmul": 5 * steps}
 
 
 def _launch_counts():
@@ -3513,6 +3875,7 @@ def checkpoint_eval_phase(card, pbt_mgr):
 def _checkpoint_eval_phase(card, pbt_mgr, ckpt_root):
     import torch
     import madrona_learn_tpu_torch as mlt
+    import madrona_learn_tpu_torch.rollouts as rollouts
     from madrona_learn_tpu_torch.train import TrainHooks
 
     gc.collect()
@@ -3587,9 +3950,12 @@ def _checkpoint_eval_phase(card, pbt_mgr, ckpt_root):
             "cuda", eval_cfg, _toy_env(), _headline_policy(),
             torch.zeros((1,), dtype=torch.int32, device="cuda"), states,
             step_cb))
+        # eval_policies takes the policy-chunk layout (one chunk here):
+        # the chunk-indexed forward once a step, grouped_matmul for the
+        # five products of a step.
         add(_check_launches(f"headline eval run {run + 1} "
                             f"({CKPT_EVAL_STEPS} steps)",
-                            {"lstm_sequence_fwd": CKPT_EVAL_STEPS}))
+                            _chunked_step_launches(CKPT_EVAL_STEPS)))
         runs.append(torch.stack(actions))
         log(f"  headline eval run {run + 1}: {NUM_WORLDS} worlds x "
             f"{CKPT_EVAL_STEPS} steps in {ms:.1f} ms: "
@@ -3631,6 +3997,12 @@ def _checkpoint_eval_phase(card, pbt_mgr, ckpt_root):
         actions={"move": mlt.DiscreteActionsConfig(actions_num_buckets=[5])},
         reward_gamma=0.99, policy_dtype=torch.bfloat16,
         eval_competitive=True)
+    path = rollouts.chunked_path_missing(states[0].actor_critic,
+                                         states[0].obs_preprocess)
+    path = ("the policy-chunk layout" if path is None
+            else "the per-policy loop")
+    log(f"  competitive eval: the population runs {path} (eval_policies, "
+        f"init_training's rule)")
     _zero_launch_counts()
     mmr, ms = _timed(lambda: mlt.eval_policies(
         "cuda", competitive, _duel_env(), _pbt_policy(),
@@ -3638,7 +4010,7 @@ def _checkpoint_eval_phase(card, pbt_mgr, ckpt_root):
         lambda step_data: step_data["sim_state"]))
     add(_check_launches(
         f"competitive eval ({COMPETITIVE_EVAL_STEPS} steps)",
-        {"lstm_sequence_fwd": PBT_TRAIN * COMPETITIVE_EVAL_STEPS}))
+        _chunked_step_launches(COMPETITIVE_EVAL_STEPS)))
     log(f"  competitive eval: {NUM_WORLDS} worlds x 2 agents x "
         f"{COMPETITIVE_EVAL_STEPS} steps in {ms:.1f} ms "
         f"({2 * NUM_WORLDS * COMPETITIVE_EVAL_STEPS / ms * 1e3:.0f} "
@@ -3651,6 +4023,8 @@ def _checkpoint_eval_phase(card, pbt_mgr, ckpt_root):
     # (e) a custom policy in the Elo tournament.
     mgr = build_headline_pbt(TrainHooks(), custom_policy_ids=[CUSTOM_ID],
                              sim_fns=_fixed_bid_duel())
+    _log_population_path(f"tournament with custom policy {CUSTOM_ID}",
+                         mgr.rollout.cfg)
     zeros = torch.zeros((1,), dtype=torch.int32, device="cuda")
     _zero_launch_counts()
     (mgr, deltas), ms = _timed(lambda: mlt.eval_elo(
@@ -3658,7 +4032,7 @@ def _checkpoint_eval_phase(card, pbt_mgr, ckpt_root):
     add(_check_launches(
         f"tournament with custom policy {CUSTOM_ID} "
         f"({CUSTOM_EVAL_STEPS} steps)",
-        {"lstm_sequence_fwd": (PBT_TRAIN + PBT_PAST) * CUSTOM_EVAL_STEPS}))
+        _chunked_step_launches(CUSTOM_EVAL_STEPS)))
     elos = mgr.state.policy_states.mmr.elo
     log(f"  tournament with custom policy {CUSTOM_ID}: {ms:.1f} ms, Elo "
         f"{[round(e, 2) for e in elos.tolist()]}")
@@ -4492,7 +4866,8 @@ def main():
             **{k: r[k] for k in ("float16", "recurrence_ms", "weight_grad_ms",
                                  "main_pass_ms", "reduction_ms",
                                  "device_ms", "host_us", "library_device_ms",
-                                 "library_host_us") if k in r}})
+                                 "library_host_us", "per_policy_ms",
+                                 "pbt_shapes") if k in r}})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

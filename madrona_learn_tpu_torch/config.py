@@ -89,9 +89,10 @@ class PBTConfig:
     policy_overwrite_threshold: float = 0.7
     reward_hyper_params_explore: Dict[str, ParamExplore] = field(
         default_factory=dict)
-    # The JAX package's forced policy-chunk size. The port's rollout runs
-    # each policy once over its rows and no kernel reads a chunk size, so
-    # init_training refuses any value but 0.
+    # A forced policy-chunk size of the rollout's policy-chunk layout
+    # (0: JAX's heuristic, rollouts.RolloutConfig.setup_population). A
+    # population whose model has no policy-batched form runs the per-policy
+    # loop and refuses any value but 0.
     rollout_policy_chunk_size_override: int = 0
 
 

@@ -105,6 +105,20 @@
 //   the forward, on T: the rollout step (T = 1) is step t of the update
 //   pass bitwise.
 //
+// The chunk-indexed instance of the forward (lstm_sequence_fwd_chunked, both
+// paths) is the rollout step of a population in the policy-chunk layout:
+// JAX vmaps the forward's pallas_call over [B, C] chunks of one policy each
+// (madrona_learn_tpu/rollouts.py:580), every program reading its chunk's
+// weights. Here the rows are [B][C], a block owns one row tile of one chunk
+// (fwd_rows: no block straddles two policies, and C need not be a multiple
+// of R), and reads its policy's slice of the [P, H, 4H] / [P, 4H] stacks:
+// by a pointer offset on CUDA cores, by the third coordinate of one TMA map
+// over the whole stack on tensor cores (no map a policy, no gathered copy
+// of the weights). A row's arithmetic is the single-policy kernel's, so
+// every row equals lstm_sequence_fwd's with its policy's weights bitwise.
+// Bound as the forward: streaming each block's policy's Wr from L2 a step;
+// the 12 policies' 6 MiB stay resident.
+//
 // Bound on the H100: the forward is a chain of [BN, H] x [H, 4H] products
 // (and [BN, F] x [F, 4H]) with a dependency between steps; its memory
 // traffic is one read of x or x_proj and one write of ys/cs per step, 0.12
@@ -127,23 +141,77 @@ namespace {
 
 using namespace mlt;
 
+// The rows a block of a forward owns and the policy whose weights it reads.
+// Without chunks (chunk_policy null) block i owns rows [i R, (i + 1) R) of
+// the n_rows and reads policy 0's weights. The chunk-indexed instance
+// (lstm_sequence_fwd_chunked) takes the rows as [num_chunks][chunk], each
+// chunk of one policy: block i owns row tile i % tiles of chunk i / tiles,
+// tiles = ceil(chunk / R), so that no block straddles two chunks (chunk
+// need not be a multiple of R), and reads the weights of policy
+// chunk_policy[chunk] at an offset into the [P, H, 4H] / [P, 4H] stacks.
+// Rows past the chunk's end are treated as rows past N: zero-filled and
+// never stored. A row's arithmetic is the same in both: it depends only on
+// its own inputs and its policy's weights.
+struct FwdRows {
+  int first;    // the block's first row
+  int end;      // rows from here on are not the block's chunk's
+  int policy;
+};
+
+__device__ __forceinline__ FwdRows fwd_rows(const int* chunk_policy,
+                                            int chunk, int rows_per_block,
+                                            int n_rows) {
+  if (chunk_policy == nullptr)
+    return {static_cast<int>(blockIdx.x) * rows_per_block, n_rows, 0};
+  const int tiles = (chunk + rows_per_block - 1) / rows_per_block;
+  const int c = static_cast<int>(blockIdx.x) / tiles;
+  return {c * chunk + (static_cast<int>(blockIdx.x) % tiles) * rows_per_block,
+          min(c * chunk + chunk, n_rows), chunk_policy[c]};
+}
+
+// A chunk whose policy lies outside [0, P) (custom policies, which the
+// simulator plays) runs no step and reads no weight: its rows' ys and cs
+// are NaN at every step, as grouped_matmul writes NaN rows for it.
+template <typename T>
+__device__ void fill_nan_rows(T* ys, T* cs, int steps, int n_rows,
+                              int hidden, FwdRows rows, int rows_per_block) {
+  const int count = min(rows.first + rows_per_block, rows.end) - rows.first;
+  const T nan = from_f<T>(__int_as_float(0x7fc00000));
+  for (int t = 0; t < steps; ++t)
+    for (int e = threadIdx.x; e < count * hidden; e += blockDim.x) {
+      const size_t o =
+          (static_cast<size_t>(t) * n_rows + rows.first) * hidden + e;
+      ys[o] = nan;
+      cs[o] = nan;
+    }
+}
+
 template <typename T, int H>
 __global__ void __launch_bounds__(kThreads)
     lstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ keep,
                     const T* __restrict__ wr, const T* __restrict__ bias,
                     const T* __restrict__ c0, const T* __restrict__ h0,
                     T* __restrict__ ys, T* __restrict__ cs, int steps,
-                    int n_rows) {
+                    int n_rows, const int* __restrict__ chunk_policy,
+                    int chunk, int num_policies) {
   constexpr int UPT = H / kUnitGroups;
   constexpr int RPT = kRowsPerThread;
   constexpr int G4 = 4 * H;
   __shared__ float h_s[kRows * H];
 
+  const FwdRows rows = fwd_rows(chunk_policy, chunk, kRows, n_rows);
+  if (rows.policy < 0 || rows.policy >= num_policies) {
+    fill_nan_rows(ys, cs, steps, n_rows, H, rows, kRows);
+    return;
+  }
+  wr += static_cast<size_t>(rows.policy) * H * G4;
+  bias += static_cast<size_t>(rows.policy) * G4;
+
   const int ug = threadIdx.x % kUnitGroups;
   const int rg = threadIdx.x / kUnitGroups;
   const int u0 = ug * UPT;
   const int row_base = rg * RPT;
-  const int block_row = blockIdx.x * kRows;
+  const int block_row = rows.first;
 
   float b[4][UPT];
 #pragma unroll
@@ -158,8 +226,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < UPT; ++j) {
       const size_t idx = static_cast<size_t>(n) * H + u0 + j;
-      c[i][j] = n < n_rows ? to_f(c0[idx]) : 0.0f;
-      h_s[(row_base + i) * H + u0 + j] = n < n_rows ? to_f(h0[idx]) : 0.0f;
+      c[i][j] = n < rows.end ? to_f(c0[idx]) : 0.0f;
+      h_s[(row_base + i) * H + u0 + j] = n < rows.end ? to_f(h0[idx]) : 0.0f;
     }
   }
   __syncthreads();
@@ -172,7 +240,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int n = block_row + row_base + i;
-      if (n >= n_rows) continue;
+      if (n >= rows.end) continue;
       const size_t row = static_cast<size_t>(t) * n_rows + n;
       const T* x = xp + row * G4 + u0;
       const bool kept = to_f(keep[row]) > 0.5f;
@@ -671,16 +739,30 @@ int launch_dwr(const void* dg, const void* ys, const void* keep,
   return sum_splits<T>(part_b, db, splits, 4 * H, stream);
 }
 
+// Blocks of a forward: ceil(n_rows / R), or, with chunks, ceil(chunk / R)
+// a chunk (fwd_rows).
+int fwd_blocks(const void* chunk_policy, int num_chunks, int chunk,
+               int n_rows, int rows_per_block) {
+  return chunk_policy == nullptr
+             ? (n_rows + rows_per_block - 1) / rows_per_block
+             : num_chunks * ((chunk + rows_per_block - 1) / rows_per_block);
+}
+
+// chunk_policy null: one policy; else the chunk-indexed instance (fwd_rows).
 template <typename T, int H>
 int launch_fwd(const void* xp, const void* keep, const void* wr,
                const void* bias, const void* c0, const void* h0, void* ys,
-               void* cs, int steps, int n_rows, cudaStream_t stream) {
-  const int blocks = (n_rows + kRows - 1) / kRows;
+               void* cs, int steps, int n_rows, cudaStream_t stream,
+               const void* chunk_policy = nullptr, int num_chunks = 0,
+               int chunk = 0, int num_policies = 1) {
+  const int blocks =
+      fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, kRows);
   lstm_fwd_kernel<T, H><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(xp), static_cast<const T*>(keep),
       static_cast<const T*>(wr), static_cast<const T*>(bias),
       static_cast<const T*>(c0), static_cast<const T*>(h0),
-      static_cast<T*>(ys), static_cast<T*>(cs), steps, n_rows);
+      static_cast<T*>(ys), static_cast<T*>(cs), steps, n_rows,
+      static_cast<const int*>(chunk_policy), chunk, num_policies);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1286,7 +1368,8 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
                        const bf16* __restrict__ bias,
                        const bf16* __restrict__ c0, const bf16* __restrict__ h0,
                        bf16* __restrict__ ys, bf16* __restrict__ cs, int steps,
-                       int n_rows, int f_in) {
+                       int n_rows, int f_in, const int* __restrict__ chunk_policy,
+                       int chunk, int num_policies) {
   using L = TcFwd<H, R>;
   constexpr int S = L::kStages;
   constexpr int kAcc = R / 2;
@@ -1301,16 +1384,27 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
   uint8_t* h_p = smem_raw + (h_s - raw_s);
   const uint8_t* x_p = smem_raw + (x_s - raw_s);
 
+  // The block's rows and policy (fwd_rows); a chunk of no policy is
+  // skipped before any barrier, so the whole block leaves together.
+  const FwdRows rows = fwd_rows(chunk_policy, chunk, R, n_rows);
+  if (rows.policy < 0 || rows.policy >= num_policies) {
+    fill_nan_rows(ys, cs, steps, n_rows, H, rows, R);
+    return;
+  }
+  bias += static_cast<size_t>(rows.policy) * 4 * H;
+  const int row_end = rows.end;
+
   const int tid = threadIdx.x;
   const int wg = tid / 128, lane = tid % 32;
   const int lt = lane % 4;
   const int unit0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
-  const int block_row = blockIdx.x * R;
+  const int block_row = rows.first;
 
   // The weight slices of one step, in the order the step consumes them:
   // Wi by (F-chunk, gate), then Wr by (H-chunk, gate), each the H / 64
   // boxes of its gate's units; the same sequence every step, so the ring
-  // prefetches across steps.
+  // prefetches across steps. The maps span the [P, H, 4H] stack (P = 1
+  // without chunks); the block's policy is the third coordinate.
   const int xp_loads = kProj ? 4 * (f_in / kTcK) : 0;
   const int step_loads = xp_loads + 4 * (H / kTcK);
   const CUtensorMap* wim = &wi_map;
@@ -1322,7 +1416,7 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
 #pragma unroll
     for (int w = 0; w < H / 64; ++w)
       tma_load_3d(dst + w * 64 * 128, xp ? wim : wrm, bar,
-                  (p % 4) * H + w * 64, (p / 4) * kTcK, 0);
+                  (p % 4) * H + w * 64, (p / 4) * kTcK, rows.policy);
   };
   SliceRing<S> slices{full, empty, ring, L::kStageBytes, steps * step_loads,
                       0};
@@ -1344,7 +1438,7 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
     for (int e = tid; e < R * (x_width / 8); e += L::kThreads) {
       const int n = e / (x_width / 8), c = e % (x_width / 8);
       const int row = block_row + n;
-      const bool live = row < n_rows;
+      const bool live = row < row_end;
       cp_async16(dst + kmaj_off<R>(n, c * 8),
                  x + (live ? (trow + row) * x_width + c * 8 : 0), live);
     }
@@ -1355,7 +1449,7 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
   for (int e = tid; e < R * (H / 8); e += L::kThreads) {
     const int n = e / (H / 8), c = e % (H / 8);
     const int row = block_row + n;
-    const bool live = row < n_rows;
+    const bool live = row < row_end;
     cp_async16(h_s + kmaj_off<R>(n, c * 8),
                h0 + (live ? static_cast<size_t>(row) * H + c * 8 : 0), live);
   }
@@ -1380,7 +1474,7 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
       for (int e = 0; e < 2; ++e) {
         const int row = block_row + 8 * j + 2 * lt + e;
         c[4 * j + 2 * s + e] =
-            row < n_rows ? __bfloat162float(
+            row < row_end ? __bfloat162float(
                                c0[static_cast<size_t>(row) * H + unit0 + 8 * s])
                          : 0.0f;
       }
@@ -1398,7 +1492,7 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = block_row + 8 * j + 2 * lt + e;
-        if (row < n_rows && __bfloat162float(keep[trow + row]) > 0.5f)
+        if (row < row_end && __bfloat162float(keep[trow + row]) > 0.5f)
           kept |= 1u << (2 * j + e);
       }
     if (x_bufs == 2 && t + 1 < steps) load_x(t + 1);
@@ -1437,7 +1531,7 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
           *reinterpret_cast<bf16*>(h_p + ko) = k ? h_t : zero;
           c[i] = k ? __bfloat162float(c_t) : 0.0f;
           const int row = block_row + 8 * j + 2 * lt + e;
-          if (row < n_rows) {
+          if (row < row_end) {
             const size_t o = (trow + row) * H + unit0 + 8 * s;
             ys[o] = h_t;
             cs[o] = c_t;
@@ -1451,26 +1545,32 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
   }
 }
 
+// chunk_policy null: one policy (lstm_sequence_fwd, _proj_fwd); else the
+// chunk-indexed instance over [num_policies, H, 4H] and [num_policies, 4H]
+// stacks (no projection), one TMA map over the whole stack.
 template <int H, bool kProj>
 int launch_fwd_tc(const void* x, const void* keep, const void* wi,
                   const void* wr, const void* bias, const void* c0,
                   const void* h0, void* ys, void* cs, int steps, int n_rows,
-                  int f_in, cudaStream_t stream) {
+                  int f_in, cudaStream_t stream,
+                  const void* chunk_policy = nullptr, int num_chunks = 0,
+                  int chunk = 0, int num_policies = 1) {
   constexpr int R = kFwdTcRows;
   using L = TcFwd<H, R>;
   CUtensorMap wi_map, wr_map;
-  if (!make_tma_map(&wr_map, wr, 4 * H, H, 1, 64, kTcK) ||
-      !make_tma_map(&wi_map, kProj ? wi : wr, 4 * H, kProj ? f_in : H, 1,
-                    64, kTcK))
+  if (!make_tma_map(&wr_map, wr, 4 * H, H, num_policies, 64, kTcK) ||
+      !make_tma_map(&wi_map, kProj ? wi : wr, 4 * H, kProj ? f_in : H,
+                    kProj ? 1 : num_policies, 64, kTcK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = set_smem(lstm_fwd_tc_kernel<H, R, kProj>, L::kSmem);
   if (err != 0) return err;
-  const int blocks = (n_rows + R - 1) / R;
+  const int blocks = fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, R);
   lstm_fwd_tc_kernel<H, R, kProj><<<blocks, L::kThreads, L::kSmem, stream>>>(
       wi_map, wr_map, static_cast<const bf16*>(x),
       static_cast<const bf16*>(keep), static_cast<const bf16*>(bias),
       static_cast<const bf16*>(c0), static_cast<const bf16*>(h0),
-      static_cast<bf16*>(ys), static_cast<bf16*>(cs), steps, n_rows, f_in);
+      static_cast<bf16*>(ys), static_cast<bf16*>(cs), steps, n_rows, f_in,
+      static_cast<const int*>(chunk_policy), chunk, num_policies);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1605,6 +1705,44 @@ extern "C" int mlt_lstm_fwd_tc(int hidden, int f_in, const void* x,
 #undef MLT_FWD_TC_H
 #undef MLT_FWD_TC
   return -1;
+}
+
+// lstm_sequence_fwd_chunked: the forward over [num_chunks * chunk] rows,
+// chunk c with the weights of policy chunk_policy[c] of the [num_policies,
+// H, 4H] / [num_policies, 4H] stacks (a chunk of no policy is skipped, its
+// rows NaN). tensor_core 1 takes the bf16 tensor-core kernel, 0 the
+// CUDA-core one (float32, float16). Returns a cudaError_t, or -1 for
+// arguments without an instantiation.
+extern "C" int mlt_lstm_fwd_chunked(int tensor_core, int dtype, int hidden,
+                                    const void* xp, const void* keep,
+                                    const void* wr, const void* bias,
+                                    const void* chunk_policy, const void* c0,
+                                    const void* h0, void* ys, void* cs,
+                                    int steps, int num_chunks, int chunk,
+                                    int num_policies, void* stream) {
+  const long long n = static_cast<long long>(num_chunks) * chunk;
+  if (num_chunks <= 0 || chunk <= 0 || num_policies <= 0 ||
+      n * steps > 0x7fffffffLL)
+    return -1;
+  const int n_rows = static_cast<int>(n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_core) {
+    if (dtype != 1) return -1;
+#define MLT_FWD_CHUNKED_TC(H)                                               \
+  if (hidden == H)                                                         \
+    return launch_fwd_tc<H, false>(xp, keep, wr, wr, bias, c0, h0, ys, cs, \
+                                   steps, n_rows, 0, s, chunk_policy,      \
+                                   num_chunks, chunk, num_policies)
+    MLT_FWD_CHUNKED_TC(128);
+    MLT_FWD_CHUNKED_TC(256);
+#undef MLT_FWD_CHUNKED_TC
+    return -1;
+  }
+#define MLT_FWD_CHUNKED(T, H)                                              \
+  launch_fwd<T, H>(xp, keep, wr, bias, c0, h0, ys, cs, steps, n_rows, s,    \
+                   chunk_policy, num_chunks, chunk, num_policies)
+  MLT_DISPATCH_F32_F16(MLT_FWD_CHUNKED);
+#undef MLT_FWD_CHUNKED
 }
 
 #undef MLT_DISPATCH_F32_F16

@@ -16,6 +16,11 @@ Fake dynamics:
 
 The start obs come from a ``torch.Generator`` seeded with ``obs_seed``;
 they cannot match ``jax.random``'s, and the oracle reads them back.
+
+The fake modules have policy-batched forms (``chunked``,
+``models/common.py``), so a population of them takes the rollout's
+policy-chunk layout: ``FakeNet`` reads each chunk's bias from the stacked
+population, the others have no parameters.
 """
 
 from __future__ import annotations
@@ -112,9 +117,17 @@ class FakeNet(nn.Module):
                                  requires_grad=False)
 
     def forward(self, obs):
+        return self._features(obs, self.bias)
+
+    def chunked(self, params, layout, obs):
+        return self._features(
+            obs, params.per_chunk("bias", None, layout, obs["o"].dim()))
+
+    @staticmethod
+    def _features(obs, bias):
         inputs = obs["o"]
-        return torch.cat([inputs + self.bias,
-                          self.bias.expand(inputs.shape), obs["c"]], dim=-1)
+        return torch.cat([inputs + bias, bias.expand(inputs.shape),
+                          obs["c"]], dim=-1)
 
 
 class FakeRNN(nn.Module):
@@ -133,6 +146,9 @@ class FakeRNN(nn.Module):
                        new_hiddens], dim=-1)
         return y, new_hiddens
 
+    def chunked(self, params, layout, cur_hiddens, in_features):
+        return self(cur_hiddens, in_features)
+
     def sequence(self, start_hiddens, seq_ends, seq_x):
         carry, outs = start_hiddens, []
         for x, end in zip(seq_x, seq_ends):
@@ -148,9 +164,15 @@ class FakeActor(nn.Module):
     def forward(self, features):
         return FakeActionDist(features[..., 0:3])
 
+    def chunked(self, params, layout, features):
+        return self(features)
+
 
 class FakeCritic(nn.Module):
     """Value = the recurrent state (int32, exactly predictable)."""
 
     def forward(self, features):
         return features[..., 3:4]
+
+    def chunked(self, params, layout, features):
+        return self(features)

@@ -4,12 +4,16 @@ madrona_learn_tpu/eval.py).
 - ``eval_load_ckpt``: the policies of a checkpoint, on the CPU: one of
   them, the train policies, or the whole population.
 - ``eval_policies``: runs them over a simulator for
-  ``EvalConfig.num_eval_steps`` steps, each policy's module once a step
-  over its rows. Without ``eval_competitive`` (or with one policy) every
-  policy plays itself in its own block of the sim batch; with it, every
-  pairing of the policies and the custom policies plays static matches
+  ``EvalConfig.num_eval_steps`` steps, through the rollout's policy-chunk
+  layout (one batched pass a step over every policy,
+  ``rollouts.chunked_rollout_loop``) where the model has policy-batched
+  forms, else each policy's module once a step over its rows
+  (``rollouts.population_rollout_loop``): the rule of ``init_training``.
+  Without ``eval_competitive`` (or with one policy) every policy plays
+  itself in its own block of the sim batch; with it, every pairing of the
+  policies and the custom policies plays static matches
   (``train._build_all_pairs_assignments``), the custom policies' rows run
-  no module (``rollouts._PolicyRows``). ``step_cb`` sees every step.
+  no module. ``step_cb`` sees every step.
 
 The XLA-only parts of the JAX version (checkify, printing the lowered
 program, ahead-of-time compilation) have no counterpart here.
@@ -24,7 +28,8 @@ import torch
 from .config import EvalConfig
 from .envs.sim_interface import as_sim_fns
 from .policy import Policy
-from .rollouts import RolloutConfig, RolloutState, population_rollout_loop
+from .rollouts import (RolloutConfig, RolloutState, chunked_path_missing,
+                       rollout_loop)
 from .train import _build_all_pairs_assignments, resolve_device
 from .train_state import (MMR, MovingEpisodeScore, PolicyState, Population,
                           TrainStateManager)
@@ -138,7 +143,10 @@ def eval_policies(dev, eval_cfg: EvalConfig, sim_fns: Dict[str, Callable],
         cross_play_portion=0.0, past_play_portion=0.0,
         static_play_portion=1.0 if competitive else 0.0,
         reward_gamma=eval_cfg.reward_gamma,
-        custom_policy_ids=eval_cfg.custom_policy_ids)
+        custom_policy_ids=eval_cfg.custom_policy_ids,
+        policy_chunked=chunked_path_missing(
+            population[0].actor_critic,
+            population[0].obs_preprocess) is None)
     static_play_assignments = None
     if competitive:
         static_play_assignments = _build_all_pairs_assignments(
@@ -165,10 +173,9 @@ def eval_policies(dev, eval_cfg: EvalConfig, sim_fns: Dict[str, Callable],
             rnn_states=rollout_state.rnn_states))
         return rollout_state, cb_state, None
 
-    population_rollout_loop(
-        rollout_state, population, eval_cfg.num_eval_steps,
-        post_inference_cb, post_step_cb, {},
-        sample_actions=not eval_cfg.use_deterministic_policy)
+    rollout_loop(rollout_state, population, eval_cfg.num_eval_steps,
+                 post_inference_cb, post_step_cb, {},
+                 sample_actions=not eval_cfg.use_deterministic_policy)
 
     if eval_cfg.eval_competitive and population.mmr is not None:
         return population.mmr

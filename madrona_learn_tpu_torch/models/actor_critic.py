@@ -10,7 +10,11 @@ with a time-axis ``sequence`` path for BPTT; the rnn an ``LSTM``, ``GRU``
 or ``WindowAttentionMemory``) or a feed-forward ``BackboneEncoder``, whose
 recurrent state is the empty tuple. Recurrent-state init and clear live on
 the modules so the rollout engine owns state placement; a state is a
-tensor or a tuple of them, nested, of any dtype. The obs dict's leaves may
+tensor or a tuple of them, nested, of any dtype. ``rollout_chunked`` and
+``critic_only_chunked`` are the policy-batched forms of ``rollout`` and
+``critic_only`` over a population's chunks (``models/common.py``), for
+``BackboneShared`` over ``BackboneEncoder`` or ``RecurrentBackboneEncoder``
+(without the fused step). The obs dict's leaves may
 carry entity axes ([N, E, F], [T, N, E, F] in the update pass); the time
 axis is always the leading one. The critic returns a tensor or, for the
 DreamerV3 critic, a distribution.
@@ -61,6 +65,9 @@ class BackboneEncoder(nn.Module):
 
     def forward(self, rnn_states_in, inputs):
         return self.net(inputs), ()
+
+    def chunked(self, params, layout, rnn_states_in, inputs):
+        return self.net.chunked(params.child("net"), layout, inputs), ()
 
     def sequence(self, rnn_start_states, sequence_ends, flattened_inputs):
         return self.net(flattened_inputs)
@@ -140,6 +147,15 @@ class RecurrentBackboneEncoder(nn.Module):
             return self._fused_step(rnn_states_in, inputs)
         return self.rnn(rnn_states_in, self.net(inputs))
 
+    def chunked_supported(self):
+        # The fused step is one policy's kernel.
+        return not self.use_fused_step
+
+    def chunked(self, params, layout, rnn_states_in, inputs):
+        features = self.net.chunked(params.child("net"), layout, inputs)
+        return self.rnn.chunked(params.child("rnn"), layout, rnn_states_in,
+                                features)
+
     def sequence(self, rnn_start_states, sequence_ends, flattened_inputs):
         # The trunk runs over the flat [T*N] batch (one big product), then
         # reshapes to [T, N] for the recurrent pass.
@@ -195,6 +211,15 @@ class BackboneShared(Backbone):
         return self.encoder(rnn_states_in, self.prefix(obs_in))
 
     critic_only = actor_only
+
+    def critic_only_chunked(self, params, layout, rnn_states_in, obs_in):
+        return self.encoder.chunked(params.child("encoder"), layout,
+                                    rnn_states_in, self.prefix(obs_in))
+
+    def chunked(self, params, layout, rnn_states_in, obs_in):
+        feats, rnn_out = self.critic_only_chunked(params, layout,
+                                                  rnn_states_in, obs_in)
+        return feats, feats, rnn_out
 
     def sequence(self, rnn_start_states, sequence_ends, obs_in):
         feats = self.encoder.sequence(
@@ -284,6 +309,31 @@ class ActorCritic(nn.Module):
             results = {"actions": dists.best()}
         results["critic"] = self.critic(critic_feats)
         return results, rnn_out
+
+    def rollout_chunked(self, params, layout, generator, rnn_states_in,
+                        obs_in, sample_actions=True):
+        """``rollout`` over a population's chunks ([B, C, ...]), with the
+        ``StackedParams`` ``params``; actions are sampled per row from
+        ``generator``."""
+        actor_feats, critic_feats, rnn_out = self.backbone.chunked(
+            params.child("backbone"), layout, rnn_states_in, obs_in)
+        dists = self.actor.chunked(params.child("actor"), layout,
+                                   actor_feats)
+        if sample_actions:
+            actions, log_probs = dists.sample(generator)
+            results = {"actions": actions, "log_probs": log_probs}
+        else:
+            results = {"actions": dists.best()}
+        results["critic"] = self.critic.chunked(params.child("critic"),
+                                                layout, critic_feats)
+        return results, rnn_out
+
+    def critic_only_chunked(self, params, layout, rnn_states_in, obs_in):
+        """``critic_only`` over a population's chunks."""
+        feats, rnn_out = self.backbone.critic_only_chunked(
+            params.child("backbone"), layout, rnn_states_in, obs_in)
+        return {"critic": self.critic.chunked(params.child("critic"), layout,
+                                              feats)}, rnn_out
 
     def actor_only(self, rnn_states_in, obs_in):
         """One step of the actor alone: ({actions: each head's most likely

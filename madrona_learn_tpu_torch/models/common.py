@@ -8,6 +8,19 @@ and names so the two packages compare like with like: Dense kernels are
 compute dtype every layer casts its operands to, as flax's ``dtype=`` does.
 Unlike flax, torch modules are shaped eagerly, so each takes its input
 width.
+
+Policy-batched forms (JAX: the ``vmap`` of a policy over its population's
+chunks, ``rollouts.py:580-591``): a module's ``chunked(params, layout,
+...)`` runs the module over chunk-order inputs ``[B, C, ...]`` (B chunks of
+C rows, each of one policy) with the parameters of ``params``, a
+``StackedParams`` of the population (this module's own parameters are not
+read: it gives the structure only), chunk b with policy
+``layout.chunk_policy[b]``'s. Products go through ``grouped_matmul``,
+which indexes the weight stacks by chunk; per-policy vectors (biases,
+LayerNorm scale and shift) are gathered per chunk and broadcast over its
+rows; the arithmetic is the per-policy forward's, op for op.
+``chunked_form_missing`` names the first module of a tree without such a
+form.
 """
 
 from __future__ import annotations
@@ -18,7 +31,73 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from ..ops.cuda.grouped_matmul import grouped_matmul
 from ..ops.cuda.layer_norm import layer_norm
+from ..utils.profile import profile
+
+# The compute dtypes of the policy-batched forms: grouped_matmul's.
+CHUNKED_DTYPES = (torch.float32, torch.bfloat16)
+
+
+class StackedParams:
+    """A population's parameters as ``[P, ...]`` stacks, one a parameter
+    path of ``named_parameters``, seen from one module (``child``).
+
+    ``stack`` casts a stack to a compute dtype on first use and keeps the
+    cast, so a stacked view built once per collect casts each weight once;
+    ``per_chunk`` gathers each chunk's row of a stack by the layout's
+    ``chunk_index``, shaped to broadcast over the chunk's rows.
+    """
+
+    def __init__(self, leaves, prefix: str = "", casts=None):
+        self.leaves = leaves
+        self.prefix = prefix
+        self.casts = {} if casts is None else casts
+
+    @staticmethod
+    def of(modules) -> "StackedParams":
+        """One ``torch.stack`` a parameter over ``modules``, copies."""
+        named = [dict(m.named_parameters()) for m in modules]
+        with torch.no_grad():
+            return StackedParams({name: torch.stack([n[name] for n in named])
+                                  for name in named[0]})
+
+    def child(self, name: str) -> "StackedParams":
+        return StackedParams(self.leaves, f"{self.prefix}{name}.",
+                             self.casts)
+
+    def stack(self, name: str, dtype=None) -> torch.Tensor:
+        """The ``[P, ...]`` stack of parameter ``name``, in ``dtype``."""
+        key = (self.prefix + name, dtype)
+        x = self.casts.get(key)
+        if x is None:
+            x = self.leaves[self.prefix + name]
+            x = self.casts[key] = (x if dtype is None
+                                   else x.to(dtype)).contiguous()
+        return x
+
+    def per_chunk(self, name: str, dtype, layout, ndim: int) -> torch.Tensor:
+        """Each chunk's ``name``, ``[B, 1, ..., *shape]`` with ``ndim``
+        dims in all, to broadcast over a ``[B, C, ...]`` tensor."""
+        with profile("Gather Chunk Weights"):
+            x = self.stack(name, dtype)[layout.chunk_index]
+        return x.reshape(x.shape[0], *[1] * (ndim - x.dim()), *x.shape[1:])
+
+
+def chunked_form_missing(module: nn.Module) -> Optional[str]:
+    """The first module of ``module``'s tree (path and class) without a
+    policy-batched form, or ``None`` if every one has one. A module has one
+    when its class defines ``chunked`` (``rollout_chunked`` for the
+    actor-critic) and ``chunked_supported()``, where defined, is true."""
+    for name, m in module.named_modules():
+        if isinstance(m, (nn.ModuleDict, nn.ModuleList)):
+            continue
+        has_form = any(hasattr(type(m), f) for f in ("chunked",
+                                                       "rollout_chunked"))
+        supported = getattr(m, "chunked_supported", lambda: True)
+        if not (has_form and supported()):
+            return f"{name or 'the actor-critic'} ({type(m).__name__})"
+    return None
 
 
 def orthogonal(scale: float = 1.0) -> Callable:
@@ -66,6 +145,21 @@ class Dense(nn.Module):
             y = y + self.bias.to(self.dtype)
         return y
 
+    def chunked_supported(self):
+        return self.dtype in CHUNKED_DTYPES
+
+    def chunked(self, params, layout, x):
+        """``x`` [B, C, ..., in] -> [B, C, ..., out]: the product through
+        ``grouped_matmul``, then the chunk's bias."""
+        lead = x.shape[:-1]
+        x3 = x.to(self.dtype).reshape(lead[0], -1, x.shape[-1]).contiguous()
+        y = grouped_matmul(x3, params.stack("kernel", self.dtype),
+                           layout.chunk_policy)
+        y = y.reshape(*lead, y.shape[-1])
+        if self.bias is not None:
+            y = y + params.per_chunk("bias", self.dtype, layout, y.dim())
+        return y
+
 
 class FlaxLayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=...)`` itself, parameters ``scale`` /
@@ -81,13 +175,22 @@ class FlaxLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
+        return self._normalize(x, self.scale, self.bias)
+
+    def _normalize(self, x, scale, bias):
         x32 = x.to(torch.float32)
         mean = x32.mean(dim=-1, keepdim=True)
         mean2 = (x32 * x32).mean(dim=-1, keepdim=True)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.scale
-        y = (x32 - mean) * mul + self.bias
+        mul = torch.rsqrt(var + self.eps) * scale
+        y = (x32 - mean) * mul + bias
         return y.to(self.dtype)
+
+    def chunked(self, params, layout, x):
+        """The forward's arithmetic with each chunk's scale and bias."""
+        return self._normalize(
+            x, params.per_chunk("scale", None, layout, x.dim()),
+            params.per_chunk("bias", None, layout, x.dim()))
 
 
 class LayerNorm(nn.Module):
@@ -114,6 +217,13 @@ class LayerNorm(nn.Module):
             return out.reshape(x.shape)
         return self.impl(x)
 
+    def chunked_supported(self):
+        # The layer_norm kernel takes one scale and bias a call.
+        return not self.use_kernel
+
+    def chunked(self, params, layout, x):
+        return self.impl.chunked(params.child("impl"), layout, x)
+
 
 class MLP(nn.Module):
     """Dense (no bias) -> LayerNorm -> ReLU stack, orthogonal init."""
@@ -137,5 +247,12 @@ class MLP(nn.Module):
         for i in range(self.num_layers):
             x = getattr(self, f"Dense_{i}")(x)
             x = getattr(self, f"LayerNorm_{i}")(x)
+            x = torch.relu(x)
+        return x
+
+    def chunked(self, params, layout, x):
+        for i in range(self.num_layers):
+            for name in (f"Dense_{i}", f"LayerNorm_{i}"):
+                x = getattr(self, name).chunked(params.child(name), layout, x)
             x = torch.relu(x)
         return x

@@ -40,6 +40,11 @@ class DenseLayerDiscreteActor(nn.Module):
         return DiscreteActionDistributions(
             self.cfg.actions_num_buckets, self.impl(features))
 
+    def chunked(self, params, layout, features):
+        return DiscreteActionDistributions(
+            self.cfg.actions_num_buckets,
+            self.impl.chunked(params.child("impl"), layout, features))
+
 
 class DictActor(nn.Module):
     """One head per ``TrainConfig.actions`` key; samples come back as a
@@ -53,6 +58,12 @@ class DictActor(nn.Module):
         return DictActionDistributions(
             {name: head(features) for name, head in self.heads.items()})
 
+    def chunked(self, params, layout, features):
+        heads = params.child("heads")
+        return DictActionDistributions(
+            {name: head.chunked(heads.child(name), layout, features)
+             for name, head in self.heads.items()})
+
 
 class DenseLayerCritic(nn.Module):
     def __init__(self, in_features: int, dtype,
@@ -64,6 +75,10 @@ class DenseLayerCritic(nn.Module):
 
     def forward(self, features):
         return self.Dense_0(features).to(torch.float32)
+
+    def chunked(self, params, layout, features):
+        return self.Dense_0.chunked(params.child("Dense_0"), layout,
+                                    features).to(torch.float32)
 
 
 def _zeros(shape, generator):

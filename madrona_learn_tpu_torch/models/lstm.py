@@ -21,6 +21,13 @@ sums run in another order than the cuBLAS product of the single step, so
 on the card a bf16 projection may differ by one rounding and PPO's ratio
 starts near, not exactly at, 1.
 
+The policy-batched step (``chunked``, ``models/common.py``) takes the
+state as ``[B, C, num_layers, H]`` chunks: each layer's input projection
+through ``grouped_matmul``, its recurrence through
+``lstm_step_chunked``, the chunk-indexed instance of the forward at T = 1,
+whose rows equal ``lstm_sequence_fwd``'s. Float32 and bfloat16 (the fused
+projection and float16 keep the per-policy step).
+
 The compute dtype is float32, bfloat16 or float16. Float16 takes the
 kernels' CUDA-core float16 instances (JAX sends a float16 LSTM to its jnp
 twin, which has the same rounding points), and never the projection
@@ -39,8 +46,9 @@ from ..ops.cuda.lstm import (
     lstm_sequence,
     lstm_sequence_proj,
     lstm_step,
+    lstm_step_chunked,
 )
-from .common import Dense, orthogonal_gates
+from .common import CHUNKED_DTYPES, Dense, orthogonal_gates
 
 __all__ = ["LSTM"]
 
@@ -71,6 +79,20 @@ class _PackedLSTMLayer(nn.Module):
         wr, b = self.packed_weights()
         new_c, new_h = lstm_step(self.project_input(x).contiguous(), wr, b,
                                  c.contiguous(), h.contiguous())
+        return (new_c, new_h), new_h
+
+    def chunked(self, params, layout, carry, x):
+        """``forward`` over [B, C, ...] chunks."""
+        c, h = carry
+        x_proj = self.input_proj.chunked(params.child("input_proj"), layout,
+                                         x)
+        B, C = x_proj.shape[:2]
+        rows = lambda t: t.reshape(B * C, t.shape[-1]).contiguous()
+        new_c, new_h = lstm_step_chunked(
+            rows(x_proj), params.stack("recurrent_kernel", self.dtype),
+            params.stack("bias", self.dtype), layout.chunk_policy, rows(c),
+            rows(h))
+        new_c, new_h = new_c.reshape(B, C, -1), new_h.reshape(B, C, -1)
         return (new_c, new_h), new_h
 
 
@@ -117,6 +139,25 @@ class LSTM(nn.Module):
             hs.append(h)
             outs.append(out)
         carry = (torch.stack(cs, dim=1), torch.stack(hs, dim=1))
+        return torch.cat(outs, dim=-1), carry
+
+    def chunked_supported(self):
+        return not self.fuse_input_proj and self.dtype in CHUNKED_DTYPES
+
+    def chunked(self, params, layout, cur_hiddens, in_features):
+        """``forward`` over [B, C, ...] chunks, the state [B, C, L, H]."""
+        c_in, h_in = cur_hiddens
+        cs, hs, outs = [], [], []
+        layer_in = in_features
+        for layer, cell in enumerate(self._cells()):
+            (c, h), out = cell.chunked(
+                params.child(f"layer_{layer}"), layout,
+                (c_in[:, :, layer], h_in[:, :, layer]), layer_in)
+            layer_in = h
+            cs.append(c)
+            hs.append(h)
+            outs.append(out)
+        carry = (torch.stack(cs, dim=2), torch.stack(hs, dim=2))
         return torch.cat(outs, dim=-1), carry
 
     def sequence(self, start_hiddens, seq_ends, seq_x):

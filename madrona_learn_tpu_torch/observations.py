@@ -12,6 +12,10 @@ dict:
 
 Per-step calls only accumulate batch statistics; the EMA fold runs once per
 update, so normalization stays frozen within a collect phase.
+
+``preprocess_chunked`` is the policy-batched ``preprocess`` of a
+population's chunks: each chunk's state is gathered by its policy from the
+``[P, ...]`` stacks of ``stack_states`` and broadcast over its rows.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Callable
 import torch
 
 from .ops.ema import EMANormalizer
+from .utils import profile, tree_map
 
 _NOOP = lambda *args: None
 
@@ -50,6 +55,31 @@ class ObservationsPreprocess:
 
     def preprocess(self, states, obs):
         return self._apply("preprocess", states, obs)
+
+    @staticmethod
+    def stack_states(states):
+        """A population's states (a list, one a policy) as ``[P, ...]``
+        stacks, leaf by leaf; stateless keys stay ``None``."""
+        return tree_map(lambda *xs: None if xs[0] is None
+                        else torch.stack(xs), *states)
+
+    def preprocess_chunked(self, stacked_states, obs, layout):
+        """``preprocess`` over chunk-order ``obs`` [B, C, ...], chunk b
+        with policy ``layout.chunk_policy[b]``'s state."""
+        def per_chunk(state, ob):
+            def gather(x):
+                if x is None:
+                    return None
+                with profile("Gather Chunk Weights"):
+                    x = x[layout.chunk_index]
+                return x.reshape(x.shape[0], *[1] * (ob.dim() - x.dim()),
+                                 *x.shape[1:])
+
+            return tree_map(gather, state)
+
+        return {name: self._ops(name).preprocess(
+                    per_chunk(state, obs[name]), obs[name])
+                for name, state in stacked_states.items()}
 
     def init_state(self, obs):
         return self._apply("init_state", obs)

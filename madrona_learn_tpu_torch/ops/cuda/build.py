@@ -180,6 +180,9 @@ _SIGNATURES = {
     "mlt_gru_bwd_tc": [_I] * 2 + [_P] * 16 + [_I] * 3 + [_P],
     # H, F, x, keep, wi, wr, bias, c0, h0, ys, cs, T, N, stream
     "mlt_lstm_fwd_tc": [_I] * 2 + [_P] * 9 + [_I] * 2 + [_P],
+    # tensor_core, dtype, H, xp, keep, wr, bias, chunk_policy, c0, h0, ys,
+    # cs, T, chunks, C, P, stream
+    "mlt_lstm_fwd_chunked": [_I] * 3 + [_P] * 9 + [_I] * 4 + [_P],
     # H, R, stages, xp, keep, wh, bias_h, h0, ys, T, N, stream
     "mlt_gru_fwd_tc": [_I] * 3 + [_P] * 6 + [_I] * 2 + [_P],
     # D, q, k, v, out, B, S, H, valid_len, scale * log2(e), stream

@@ -3,8 +3,10 @@ kernel with its plain version.
 
 Replaces ``madrona_learn_tpu/ops/pallas/grouped_matmul.py:grouped_matmul``
 (``_kernel``): ``y[c] = x[c] . weights[chunk_policy[c]]`` for each
-policy-pure chunk ``c``, the grouped GEMM of multi-policy inference. The
-JAX package routes it nowhere; its one entry point is the function itself.
+policy-pure chunk ``c``, the grouped GEMM of multi-policy inference.
+Every product of the population rollout's batched pass goes through it
+(the policy-batched forms of ``models/common.py``); the JAX package routes
+it nowhere.
 ``csrc/grouped_matmul.cu`` explains the Hopper design: a block reads its
 chunk's policy index and addresses that policy's weight tiles directly, so
 no ``[B, IN, OUT]`` copy of the weights is gathered. Two paths, picked by
@@ -42,9 +44,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def grouped_matmul_reference(x, weights, chunk_policy):
     """Plain version of ``grouped_matmul_reference``
     (ops/pallas/grouped_matmul.py:74): gather each chunk's weights, a
-    batched f32 product, one rounding to x's dtype."""
-    w = weights[chunk_policy.long()]   # [B, IN, OUT]
-    return torch.bmm(x.float(), w.float()).to(x.dtype)
+    batched f32 product, one rounding to x's dtype; NaN rows for a chunk
+    whose index lies outside [0, P), as the kernel."""
+    P = weights.shape[0]
+    idx = chunk_policy.long()
+    valid = (idx >= 0) & (idx < P)
+    w = weights[idx.clamp(0, P - 1)]   # [B, IN, OUT]
+    y = torch.bmm(x.float(), w.float())
+    return torch.where(valid[:, None, None], y, float("nan")).to(x.dtype)
 
 
 def uses_tensor_cores(x, weights):

@@ -42,6 +42,16 @@ the projection variant float32 or bfloat16):
 - gate math in f32, ``h . Wr`` accumulated in f32, ``ys``/``cs`` rounded to
   the storage dtype; the backward rounds dgates to the storage dtype.
 
+``lstm_sequence_fwd_chunked`` is the chunk-indexed instance of the
+forward (both paths), the policy-batched rollout step of a population
+(JAX ``vmap``s the ``pallas_call`` over policy chunks,
+``madrona_learn_tpu/rollouts.py:580``): ``x_proj`` holds B chunks of C
+rows, ``wr`` / ``bias`` are ``[P, H, 4H]`` / ``[P, 4H]`` stacks, and chunk
+b runs with policy ``chunk_policy[b]``'s weights, each row bitwise
+``lstm_sequence_fwd``'s with them (a chunk whose policy lies outside
+[0, P) is skipped, its rows NaN). Its plain twin runs
+``lstm_sequence_reference``'s arithmetic chunk by chunk.
+
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise.
 """
@@ -63,6 +73,13 @@ LSTM_BWD = Kernel(
     name="lstm_sequence_bwd",
     source="madrona_learn_tpu_torch/csrc/lstm.cu",
     replaces="madrona_learn_tpu/ops/pallas/lstm.py:283",
+)
+# The chunk-indexed instance of the forward: the policy-batched rollout
+# step over a population's chunk layout (rollouts.chunked_rollout_loop).
+LSTM_FWD_CHUNKED = Kernel(
+    name="lstm_sequence_fwd_chunked",
+    source="madrona_learn_tpu_torch/csrc/lstm.cu",
+    replaces="madrona_learn_tpu/ops/pallas/lstm.py:264",
 )
 LSTM_PROJ_FWD = Kernel(
     name="lstm_sequence_proj_fwd",
@@ -89,15 +106,11 @@ def _cell(x_proj_t, wr32, b32, c, h):
     return new_c.to(x_proj_t.dtype), new_h.to(x_proj_t.dtype)
 
 
-def lstm_sequence_reference(x_proj, keep, wr, bias, c0, h0):
-    """Plain twin of ``lstm_sequence_reference`` (ops/pallas/lstm.py:643).
-
-    Differentiable by autograd; its gradients are the plain version of
-    ``lstm_sequence_bwd``.
-    """
+def _sequence(x_proj, keep, wr, bias, c0, h0):
+    """The forward's (ys, cs), each [T, N, H]."""
     wr32, b32 = wr.float(), bias.float()
     c, h = c0, h0
-    ys = []
+    ys, cs = [], []
     for t in range(x_proj.shape[0]):
         new_c, new_h = _cell(x_proj[t], wr32, b32, c, h)
         mask = keep[t][:, None] > 0.5
@@ -106,7 +119,37 @@ def lstm_sequence_reference(x_proj, keep, wr, bias, c0, h0):
         h = torch.where(mask, new_h, torch.zeros((), dtype=new_h.dtype,
                                                  device=new_h.device))
         ys.append(new_h)
-    return torch.stack(ys)
+        cs.append(new_c)
+    return torch.stack(ys), torch.stack(cs)
+
+
+def lstm_sequence_reference(x_proj, keep, wr, bias, c0, h0):
+    """Plain twin of ``lstm_sequence_reference`` (ops/pallas/lstm.py:643).
+
+    Differentiable by autograd; its gradients are the plain version of
+    ``lstm_sequence_bwd``.
+    """
+    return _sequence(x_proj, keep, wr, bias, c0, h0)[0]
+
+
+def lstm_sequence_fwd_chunked_reference(x_proj, keep, wr, bias,
+                                        chunk_policy, c0, h0):
+    """Plain twin of ``lstm_sequence_fwd_chunked``: each chunk's rows
+    through ``lstm_sequence_reference``'s arithmetic with that chunk's
+    policy's weights, gathered; (ys, cs). A chunk whose policy lies outside
+    [0, P) gets NaN rows."""
+    B, P = chunk_policy.shape[0], wr.shape[0]
+    C = x_proj.shape[1] // B
+    ys = torch.full((*x_proj.shape[:2], wr.shape[1]), float("nan"),
+                    dtype=x_proj.dtype, device=x_proj.device)
+    cs = ys.clone()
+    for b, p in enumerate(chunk_policy.tolist()):
+        if 0 <= p < P:
+            rows = slice(b * C, (b + 1) * C)
+            ys[:, rows], cs[:, rows] = _sequence(
+                x_proj[:, rows], keep[:, rows], wr[p], bias[p], c0[rows],
+                h0[rows])
+    return ys, cs
 
 
 _check = functools.partial(check_operand, "lstm kernel")
@@ -175,6 +218,72 @@ def lstm_sequence_fwd(x_proj, keep, wr, bias, c0, h0):
     check(err, "lstm_sequence_fwd")
     LSTM_FWD.launches += 1
     return ys, cs
+
+
+def lstm_sequence_fwd_chunked(x_proj, keep, wr, bias, chunk_policy, c0,
+                              h0):
+    """The chunk-indexed forward kernel: ``x_proj`` [T, B * C, 4H] and
+    ``keep`` [T, B * C] of B chunks of C rows, ``wr`` [P, H, 4H] and
+    ``bias`` [P, 4H] stacks, ``chunk_policy`` [B] int32, ``c0`` / ``h0``
+    [B * C, H] -> (ys, cs), each [T, B * C, H]; chunk b runs with policy
+    ``chunk_policy[b]``'s weights, and every row equals
+    ``lstm_sequence_fwd``'s row with those weights bitwise. A chunk whose
+    policy lies outside [0, P) is skipped: its rows are NaN. Same path
+    rule as ``lstm_sequence_fwd``; float32 or bfloat16."""
+    if wr.dim() != 3 or chunk_policy.dim() != 1 or x_proj.dim() != 3:
+        raise ValueError(
+            f"lstm_sequence_fwd_chunked: wr must be [P, H, 4H], "
+            f"chunk_policy [B] and x_proj [T, B * C, 4H], got "
+            f"{tuple(wr.shape)}, {tuple(chunk_policy.shape)}, "
+            f"{tuple(x_proj.shape)}")
+    P, B = wr.shape[0], chunk_policy.shape[0]
+    if x_proj.dtype not in (torch.float32, torch.bfloat16) or B == 0 or \
+            x_proj.shape[1] % B or P == 0:
+        raise ValueError(
+            f"lstm_sequence_fwd_chunked: supports float32/bfloat16 over "
+            f"whole chunks, got {x_proj.dtype}, {tuple(x_proj.shape)} rows "
+            f"in {B} chunks of {P} policies")
+    steps, n, hidden = _check_inputs(x_proj, keep, wr[0], bias[0], c0, h0)
+    _check("wr", wr, x_proj.dtype, (P, hidden, 4 * hidden))
+    _check("bias", bias, x_proj.dtype, (P, 4 * hidden))
+    _check("chunk_policy", chunk_policy, torch.int32, (B,))
+    tensor_core = uses_tensor_cores(x_proj.dtype, hidden)
+    if tensor_core:
+        # x_proj and h0 arrive by 16-byte copies, the weights by TMA.
+        x_proj, h0, wr = map(on_16_bytes, (x_proj, h0, wr))
+    ys = torch.empty((steps, n, hidden), dtype=x_proj.dtype,
+                     device=x_proj.device)
+    cs = torch.empty_like(ys)
+    err = library().mlt_lstm_fwd_chunked(
+        int(tensor_core), _DTYPE_CODES[x_proj.dtype], hidden,
+        x_proj.data_ptr(), keep.data_ptr(), wr.data_ptr(), bias.data_ptr(),
+        chunk_policy.data_ptr(), c0.data_ptr(), h0.data_ptr(),
+        ys.data_ptr(), cs.data_ptr(), steps, B, n // B, P,
+        torch.cuda.current_stream(x_proj.device).cuda_stream)
+    check(err, "lstm_sequence_fwd_chunked")
+    LSTM_FWD_CHUNKED.launches += 1
+    LSTM_FWD_CHUNKED.tc_launches += int(tensor_core)
+    return ys, cs
+
+
+def lstm_step_chunked(x_proj, wr, bias, chunk_policy, c, h):
+    """The policy-batched rollout step, (new_c, new_h) [B * C, H], no
+    clearing: ``lstm_step`` for every chunk of B at once, chunk b with
+    policy ``chunk_policy[b]``'s weights of the [P, H, 4H] / [P, 4H]
+    stacks. On the card, ``lstm_sequence_fwd_chunked`` with T = 1, whose
+    rows equal ``lstm_sequence_fwd``'s: the rollout step and the update
+    pass share gate math and rounding points, as for one policy."""
+    if x_proj.device.type == "cpu":
+        ys, cs = lstm_sequence_fwd_chunked_reference(
+            x_proj.unsqueeze(0), torch.ones((1, x_proj.shape[0]),
+                                            dtype=x_proj.dtype),
+            wr, bias, chunk_policy, c, h)
+        return cs[0], ys[0]
+    keep = torch.ones((1, x_proj.shape[0]), dtype=x_proj.dtype,
+                      device=x_proj.device)
+    ys, cs = lstm_sequence_fwd_chunked(x_proj.unsqueeze(0), keep, wr, bias,
+                                       chunk_policy, c, h)
+    return cs[0], ys[0]
 
 
 def _num_splits(steps, n, hidden, num_sms, gates=4):

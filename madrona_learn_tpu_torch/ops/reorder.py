@@ -15,10 +15,18 @@ hold any assignment. The indices equal the JAX package's bitwise, from the
 counting sort for P <= 64 and from a stable argsort above that. The
 data-sharded variant (``compute_reorder_chunks_sharded``) is not ported.
 
-The rollout does not build this layout: a policy's full chunks joined to
-its partial chunk are its rows in sim order, which a stable sort of the
-assignments gives directly (``rollouts._PolicyRows``). The layout is for a
-policy-batched kernel that reads each chunk's weights by index.
+A population whose model has a policy-batched form runs in this layout
+(``rollouts.chunked_rollout_loop``): each step, after matchmaking, the
+rollout computes the next step's ``PolicyBatchReorderState`` on the device
+(with each chunk's policy, ``chunk_policy``), gathers the obs and the
+recurrent state into chunks, runs one batched pass of the policy whose
+kernels (``grouped_matmul``, ``lstm_sequence_fwd_chunked``) read each
+chunk's weights by its index, and gathers the outputs back to sim order.
+Rows of custom policy ids (past the population) fill chunks of their own,
+whose index lies outside [0, P): no weights are read for them. Other
+models keep the per-policy loop (``rollouts._PolicyRows``): a policy's full
+chunks joined to its partial chunk are its rows in sim order, which a
+stable sort of the assignments gives directly.
 """
 
 from __future__ import annotations
@@ -114,28 +122,74 @@ class PolicyBatchReorderState:
     """Gathers between sim order and policy-chunk order. With trivial
     matchmaking (pure self-play, block-constant assignments) both index
     sets are ``None`` and the transforms are reshapes. ``policy_counts``
-    holds each policy's agent count ([P] int32) where the indices exist."""
+    holds each policy's agent count ([P] int32) where the indices exist.
+
+    The rollout's layout (``rollouts.compute_policy_chunks``) also holds
+    each chunk's policy, ``chunk_policy`` [B] int32 for the kernels (a
+    chunk of custom ids has the index P, outside the population) and
+    ``chunk_index`` [B] int64 clamped into [0, P) for gathers of per-policy
+    tensors; ``custom_rows`` [N] and ``custom_chunks`` [B] bool, the sim
+    rows and the chunks of custom ids (None without them), and the
+    ``assignments`` it was computed from."""
 
     to_policy_idxs: Optional[torch.Tensor]
     to_sim_idxs: Optional[torch.Tensor]
     policy_dims: Tuple[int, ...]
     sim_dims: Tuple[int, ...]
     policy_counts: Optional[torch.Tensor] = None
+    chunk_policy: Optional[torch.Tensor] = None
+    chunk_index: Optional[torch.Tensor] = None
+    custom_rows: Optional[torch.Tensor] = None
+    custom_chunks: Optional[torch.Tensor] = None
+    assignments: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        # The gathers' int64 indices, made once; the clip resolves the
+        # sentinel of empty chunks.
+        self._to_policy = self._to_sim = None
+        if self.to_policy_idxs is not None:
+            n = self.to_sim_idxs.shape[0]
+            self._to_policy = self.to_policy_idxs.clamp(max=n - 1).long()
+            self._to_sim = self.to_sim_idxs.long()
 
     def to_policy(self, data):
         def txfm(x):
-            if self.to_policy_idxs is None:
+            if self._to_policy is None:
                 return x.reshape(*self.policy_dims, *x.shape[1:])
-            # The clipped gather resolves the sentinel of empty chunks.
-            return x[self.to_policy_idxs.clamp(max=x.shape[0] - 1).long()]
+            return x[self._to_policy]
 
         return tree_map(txfm, data)
 
     def to_sim(self, data):
         def txfm(x):
-            if self.to_sim_idxs is None:
+            if self._to_sim is None:
                 return x.reshape(*self.sim_dims, *x.shape[2:])
-            flat = x.reshape(-1, *x.shape[2:])
-            return flat[self.to_sim_idxs.long()]
+            return x.reshape(-1, *x.shape[2:])[self._to_sim]
 
         return tree_map(txfm, data)
+
+    def drop_custom(self, data, rest=None):
+        """Sim-order ``data`` with the custom rows set to zeros, or to their
+        rows of the sim-order tree ``rest`` where given."""
+        if self.custom_rows is None:
+            return data
+
+        def txfm(x, *r):
+            mask = self.custom_rows.reshape(-1, *[1] * (x.dim() - 1))
+            return torch.where(mask, r[0] if r else torch.zeros(
+                (), dtype=x.dtype, device=x.device), x)
+
+        return (tree_map(txfm, data) if rest is None
+                else tree_map(txfm, data, rest))
+
+    def keep_custom_chunks(self, new, old):
+        """Chunk-order ``new`` with the rows of the custom chunks taken from
+        ``old``."""
+        if self.custom_chunks is None:
+            return new
+
+        def txfm(x, y):
+            mask = self.custom_chunks.reshape(-1, *[1] * (x.dim() - 1))
+            return torch.where(mask, y, x)
+
+        return tree_map(txfm, new, old)

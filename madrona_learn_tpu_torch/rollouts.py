@@ -9,22 +9,41 @@ JAX package does.
 
 With one train policy and no matchmaking (``RolloutConfig.setup``), sim
 order, policy order and train order coincide. A PBT population
-(``RolloutConfig.setup_population``) plays matchmade matches: each step a
-stable sort of the assignments groups every policy's rows, in sim order,
-and every policy with agents in the step runs its own module once over its
-rows, so each kernel launches once per present policy per step. Which
-policies are present and how many rows each has comes to the host as one
-``[P]`` copy a step. (The padded policy-chunk layout of ``ops/reorder.py``
-joins to the same rows; it waits for a kernel that reads it.) Outputs
-return to sim order, where the recurrent state stays; the store keeps the
-train policies' team-0 agents in train order ``[P_train, A]``. Pure
-self-play across several train policies splits the batch into contiguous
-blocks, one a policy, with no sort.
+(``RolloutConfig.setup_population``) plays matchmade matches, by one of two
+paths, chosen once by ``chunked_form_missing`` (``init_training``,
+``eval_policies``):
+
+- the policy-chunk layout (``chunked_rollout_loop``; JAX's design): when
+  every module of the policy has a policy-batched form
+  (``models/common.py``), each step gathers the sim rows into ``[B, C]``
+  chunks of one policy each (``ops/reorder.py``; C is
+  ``RolloutConfig.policy_chunk_size``, JAX's, or
+  ``rollout_policy_chunk_size_override``), runs one batched pass of the
+  policy over every chunk, chunk b with its policy's weights of the
+  population's stacked view (``Population.stacked``, built once per
+  collect), and gathers the outputs back to sim order. The layout of the
+  next step is computed on the device at the end of each step, after
+  matchmaking, and kept in ``RolloutState.reorder_state``: no step copies
+  anything to the host. ``chunkwise_rnn`` (``MADRONA_LEARN_TPU_CHUNKWISE_
+  RNN=1`` in collect, as in JAX) keeps the recurrent state in chunk order
+  across steps: resets go through ``to_policy(dones)`` and the old and new
+  layouts are joined by one composed gather (``_chunk_remap``);
+- otherwise the per-policy loop (``population_rollout_loop``): each step a
+  stable sort of the assignments groups every policy's rows, in sim
+  order, and every policy with agents in the step runs its own module once
+  over its rows; which policies are present and how many rows each has
+  comes to the host as one ``[P]`` copy a step.
+
+Rows of custom policy ids (past the population, played by the simulator)
+run no module on either path: their outputs and preprocessed obs are zeros
+and their recurrent state is kept. Outputs return to sim order, where the
+recurrent state stays; the store keeps the train policies' team-0 agents
+in train order ``[P_train, A]``, and the bootstrap value is one batched
+``critic_only`` over them on the chunked path (JAX ``vmap``s it).
 
 The loops and the collect phase open the JAX package's named ranges
-(``utils/profile.py``). "Gather Chunk Weights" and "RNN Chunk Remap"
-belong to the padded chunk layout, which the port does not run, and have
-no counterpart. ``RolloutState.get_current_checkpoints`` /
+(``utils/profile.py``), "Gather Chunk Weights" where a stacked view is
+indexed by chunk. ``RolloutState.get_current_checkpoints`` /
 ``load_checkpoints_into_sim`` pass simulator-state snapshots through.
 """
 
@@ -32,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
@@ -40,6 +60,8 @@ import torch
 from .config import ActionsConfig, DiscreteActionsConfig, TrainConfig
 from .ops.gae import compute_advantages, compute_returns
 from .ops.metrics import Metric, TrainingMetrics
+from .ops.reorder import (PolicyBatchReorderState, compute_reorder_chunks,
+                          heuristic_policy_chunk_size)
 from .pbt import (PBTMatchmakeConfig, pbt_init_matchmaking,
                   pbt_update_matchmaking)
 from .utils import profile, tree_map, tree_stack
@@ -57,6 +79,13 @@ class RolloutConfig:
     # The population's geometry (setup_population); None with one policy.
     pbt: Optional[PBTMatchmakeConfig] = None
     reward_dtype: torch.dtype = torch.float32
+    # The policy-chunk layout's sizes, as the JAX package derives them
+    # (one data shard), and whether the population runs in it
+    # (chunked_rollout_loop) or in the per-policy loop.
+    policy_chunk_size: int = 0
+    num_policy_chunks: int = 0
+    total_policy_batch_size: int = 0
+    policy_chunked: bool = False
 
     @staticmethod
     def setup(num_worlds: int, agents_per_world: int,
@@ -78,10 +107,18 @@ class RolloutConfig:
                          past_play_portion: float,
                          static_play_portion: float,
                          reward_gamma: float = 1.0, custom_policy_ids=(),
-                         reward_dtype: torch.dtype = torch.float32
-                         ) -> "RolloutConfig":
+                         reward_dtype: torch.dtype = torch.float32,
+                         policy_chunk_size_override: int = 0,
+                         policy_chunked: bool = False) -> "RolloutConfig":
         """A population's geometry: the matchmaking slices, each giving
-        every one of its policies agents."""
+        every one of its policies agents, and the policy-chunk layout's
+        sizes (JAX: ``RolloutConfig.setup``, one data shard): with
+        matchmaking, a power-of-two chunk from the smallest per-policy
+        share of any active play slice (``heuristic_policy_chunk_size``)
+        and ``ceil(N / C) + P - 1`` chunks, one partial chunk reserved a
+        policy; in pure self-play, JAX's reshape to ``[P, N / P]``.
+        ``policy_chunk_size_override`` > 0 forces C. ``policy_chunked``:
+        the population runs in the layout (``chunked_rollout_loop``)."""
         pbt = PBTMatchmakeConfig.setup(
             num_current_policies, num_past_policies, num_teams, team_size,
             sim_batch_size, self_play_portion, cross_play_portion,
@@ -103,8 +140,28 @@ class RolloutConfig:
                     min_share = min(min_share, size // policies)
             if min_share <= 0:
                 raise ValueError("a play slice gives a policy no agents")
+            chunk = heuristic_policy_chunk_size(
+                sim_batch_size, pbt.total_num_policies, min_share)
         elif num_past_policies:
             raise ValueError("past policies need cross or past play")
+        else:
+            chunk = sim_batch_size // num_current_policies
+        if policy_chunk_size_override < 0:
+            raise ValueError(f"policy_chunk_size_override "
+                             f"{policy_chunk_size_override} is negative")
+        if policy_chunk_size_override:
+            if not pbt.complex_matchmaking and \
+                    policy_chunk_size_override != chunk:
+                # The layout is the reshape to [P, N / P] (as in JAX,
+                # where another size does not reshape).
+                raise ValueError(
+                    f"rollout_policy_chunk_size_override "
+                    f"{policy_chunk_size_override}: pure self-play lays "
+                    f"each policy's block out as one chunk of {chunk}")
+            chunk = policy_chunk_size_override
+        num_chunks = -(-sim_batch_size // chunk)
+        if pbt.complex_matchmaking:
+            num_chunks += pbt.total_num_policies - 1
         return RolloutConfig(
             sim_batch_size=sim_batch_size,
             num_worlds=sim_batch_size // (num_teams * team_size),
@@ -112,7 +169,61 @@ class RolloutConfig:
             reward_gamma=reward_gamma,
             pbt=pbt,
             reward_dtype=reward_dtype,
+            policy_chunk_size=chunk,
+            num_policy_chunks=num_chunks,
+            total_policy_batch_size=num_chunks * chunk,
+            policy_chunked=policy_chunked,
         )
+
+
+def chunked_path_missing(actor_critic, obs_preprocess) -> Optional[str]:
+    """The rule for which path a population takes: the policy-chunk layout
+    when every module of its actor-critic has a policy-batched form and its
+    obs preprocessor a ``preprocess_chunked`` (returns ``None``), else the
+    per-policy loop (returns the first module without a form)."""
+    from .models.common import chunked_form_missing
+
+    if not hasattr(obs_preprocess, "preprocess_chunked"):
+        return type(obs_preprocess).__name__
+    return chunked_form_missing(actor_critic)
+
+
+def compute_policy_chunks(assignments: torch.Tensor,
+                          rollout_cfg: RolloutConfig
+                          ) -> PolicyBatchReorderState:
+    """The policy-chunk layout of ``assignments`` [N] (JAX:
+    ``_compute_reorder_state``), on their device, with each chunk's
+    policy (JAX's "Gather Chunk Weights" reads it from the chunk's first
+    row). With matchmaking, ``compute_reorder_chunks`` over C =
+    ``policy_chunk_size``; custom ids (past the population) count as one
+    more policy, id P, whose chunks run no policy and whose rows are
+    ``custom_rows``. In pure self-play the reshape to ``[P, N / P]``."""
+    pbt = rollout_cfg.pbt
+    N = assignments.shape[0]
+    P = pbt.total_num_policies
+    if not pbt.complex_matchmaking:
+        chunks = assignments.reshape(pbt.num_current_policies, -1)
+        ids = chunks[:, 0].to(torch.int32).contiguous()
+        return PolicyBatchReorderState(
+            to_policy_idxs=None, to_sim_idxs=None,
+            policy_dims=tuple(chunks.shape), sim_dims=(N,),
+            chunk_policy=ids, chunk_index=ids.long(),
+            assignments=assignments)
+    C = rollout_cfg.policy_chunk_size
+    custom = bool(pbt.custom_policy_ids)
+    ids = assignments.clamp(max=P) if custom else assignments
+    buckets = P + custom
+    B = -(-N // C) + buckets - 1
+    to_policy, to_sim = compute_reorder_chunks(ids, buckets, C, B)
+    chunk_policy = ids[to_policy[:, 0].clamp(max=N - 1).long()].to(
+        torch.int32)
+    return PolicyBatchReorderState(
+        to_policy_idxs=to_policy, to_sim_idxs=to_sim, policy_dims=(B, C),
+        sim_dims=(N,), chunk_policy=chunk_policy,
+        chunk_index=chunk_policy.clamp(max=P - 1).long(),
+        custom_rows=(assignments >= P) if custom else None,
+        custom_chunks=(chunk_policy >= P) if custom else None,
+        assignments=assignments)
 
 
 class _PolicyRows:
@@ -192,6 +303,9 @@ class RolloutState:
     # The simulator's optional snapshot hooks (envs/sim_interface.py).
     get_ckpts_fn: Optional[Callable] = None
     load_ckpts_fn: Optional[Callable] = None
+    # The policy-chunk layout of ``policy_assignments`` (the chunked path),
+    # computed at the end of each step; None until a chunked loop runs.
+    reorder_state: Optional[PolicyBatchReorderState] = None
 
     @staticmethod
     def create(rollout_cfg: RolloutConfig, sim_fns, generator, rnn_states,
@@ -241,6 +355,7 @@ class RolloutState:
             pbt.custom_policy_ids)
         self.cfg = dataclasses.replace(self.cfg, pbt=new_pbt)
         self.policy_assignments = policy_assignments
+        self.reorder_state = None
         return self
 
     # Simulator-state snapshots. A functional sim's hooks take and return
@@ -322,13 +437,15 @@ def rollout_loop(rollout_state: RolloutState, policy_state, num_steps: int,
     with the emits stacked along a leading time axis.
 
     With a population (``rollout_state.cfg.pbt``), ``policy_state`` is the
-    ``Population`` and the loop is ``population_rollout_loop``'s.
+    ``Population`` and the loop is ``chunked_rollout_loop``'s or
+    ``population_rollout_loop``'s, as ``cfg.policy_chunked`` says.
     """
     if rollout_state.cfg.pbt is not None:
-        return population_rollout_loop(
-            rollout_state, policy_state, num_steps, post_inference_cb,
-            post_step_cb, cb_state, start_step_idx,
-            sample_actions=sample_actions)
+        loop = (chunked_rollout_loop if rollout_state.cfg.policy_chunked
+                else population_rollout_loop)
+        return loop(rollout_state, policy_state, num_steps,
+                    post_inference_cb, post_step_cb, cb_state,
+                    start_step_idx, sample_actions=sample_actions)
     cfg = rollout_state.cfg
     actor_critic = policy_state.actor_critic
     inference_emits, step_emits = [], []
@@ -393,6 +510,33 @@ def _pbt_inputs(population, assignments):
     return inputs
 
 
+def _population_sim_step(rollout_state: RolloutState, population, actions):
+    """The sim step of a population's rollout step, under the step's
+    assignments: (step output, dones, rewards, env returns, episode
+    results)."""
+    cfg = rollout_state.cfg
+    assignments = rollout_state.policy_assignments
+    with profile("Sim Step"):
+        step_output = rollout_state.step_fn({
+            "state": rollout_state.sim_state,
+            "actions": actions,
+            "resets": torch.zeros((cfg.num_worlds, 1), dtype=torch.int32,
+                                  device=assignments.device),
+            "sim_ctrl": rollout_state.sim_ctrl,
+            "pbt": _pbt_inputs(population, assignments[:, None]),
+        })
+    dones = step_output["dones"].to(torch.bool)
+    rewards = step_output["rewards"].to(cfg.reward_dtype)
+    if cfg.reward_gamma == 1.0:
+        # No float promotion: integer rewards stay exact.
+        env_returns = rewards + rollout_state.env_returns
+    else:
+        env_returns = (rewards + cfg.reward_gamma
+                       * rollout_state.env_returns).to(cfg.reward_dtype)
+    episode_results = step_output.get("pbt", {}).get("episode_results")
+    return step_output, dones, rewards, env_returns, episode_results
+
+
 def population_rollout_loop(rollout_state: RolloutState, population,
                             num_steps: int, post_inference_cb: Callable,
                             post_step_cb: Callable, cb_state: Any,
@@ -455,27 +599,9 @@ def population_rollout_loop(rollout_state: RolloutState, population,
 
             with profile("Rollout Step"):
                 assignments = rollout_state.policy_assignments
-                with profile("Sim Step"):
-                    step_output = rollout_state.step_fn({
-                        "state": rollout_state.sim_state,
-                        "actions": policy_out["actions"],
-                        "resets": torch.zeros(
-                            (cfg.num_worlds, 1), dtype=torch.int32,
-                            device=assignments.device),
-                        "sim_ctrl": rollout_state.sim_ctrl,
-                        "pbt": _pbt_inputs(population, assignments[:, None]),
-                    })
-                dones = step_output["dones"].to(torch.bool)
-                rewards = step_output["rewards"].to(cfg.reward_dtype)
-                if cfg.reward_gamma == 1.0:
-                    # No float promotion: integer rewards stay exact.
-                    env_returns = rewards + rollout_state.env_returns
-                else:
-                    env_returns = (rewards + cfg.reward_gamma
-                                   * rollout_state.env_returns).to(
-                                       cfg.reward_dtype)
-                episode_results = step_output.get("pbt", {}).get(
-                    "episode_results")
+                (step_output, dones, rewards, env_returns,
+                 episode_results) = _population_sim_step(
+                     rollout_state, population, policy_out["actions"])
 
                 if cfg.pbt.complex_matchmaking:
                     with profile("Matchmaking"):
@@ -499,6 +625,130 @@ def population_rollout_loop(rollout_state: RolloutState, population,
                            else None)
     return rollout_state, cb_state, (stack(inference_emits),
                                      stack(step_emits))
+
+
+def _current_layout(rollout_state: RolloutState) -> PolicyBatchReorderState:
+    """The policy-chunk layout of the current assignments: the one the last
+    step left, or, where the assignments were set since, a new one."""
+    layout = rollout_state.reorder_state
+    if (layout is None
+            or layout.assignments is not rollout_state.policy_assignments):
+        with profile("Compute Reorder State"):
+            layout = compute_policy_chunks(rollout_state.policy_assignments,
+                                           rollout_state.cfg)
+        rollout_state.reorder_state = layout
+    return layout
+
+
+def _chunk_remap(old: PolicyBatchReorderState,
+                 new: PolicyBatchReorderState, data):
+    """Chunk-order ``data`` of layout ``old`` gathered straight into layout
+    ``new`` (JAX: ``chunk_remap``): new slot (b, c) holds sim row
+    ``new.to_policy_idxs[b, c]``, which sits at old flat slot
+    ``old.to_sim_idxs[row]``; one gather a leaf on the composed indices.
+    The sentinel of empty chunks resolves by the clip, as in the two-step
+    path."""
+    n = old.to_sim_idxs.shape[0]
+    idx = old.to_sim_idxs[new.to_policy_idxs.clamp(max=n - 1).long()].long()
+    return tree_map(lambda x: x.reshape(-1, *x.shape[2:])[idx], data)
+
+
+def chunked_rollout_loop(rollout_state: RolloutState, population,
+                         num_steps: int, post_inference_cb: Callable,
+                         post_step_cb: Callable, cb_state: Any,
+                         start_step_idx: int = 0,
+                         value_fn: Callable = _value_estimate,
+                         sample_actions: bool = True, stack=None,
+                         chunkwise_rnn: bool = False):
+    """``population_rollout_loop`` in the policy-chunk layout (JAX:
+    ``rollout_loop``), with the same callbacks, in sim order. Each step:
+    "Reorder To Policy" gathers the obs (and the recurrent state) into the
+    step's chunks, "Obs Preprocess" and "Policy Apply" run one batched pass
+    of the policy over every chunk (``PopulationStack``; ``stack`` is
+    ``population.stacked()``, built here if not given), "Reorder To Sim"
+    gathers the outputs back, the custom rows zeroed and their recurrent
+    state kept; after the sim step and matchmaking, "Compute Reorder State"
+    lays out the next step on the device. Actions are sampled per row from
+    ``rollout_state.generator``. With ``chunkwise_rnn`` (matchmaking only)
+    the recurrent state stays in chunk order within the loop (in
+    ``rollout_state.rnn_states`` too, as in JAX), joined across layouts by
+    ``_chunk_remap``; the outputs are bitwise those without it.
+    """
+    cfg = rollout_state.cfg
+    if stack is None:
+        stack = population.stacked()
+    chunkwise = chunkwise_rnn and cfg.pbt.complex_matchmaking
+    clear = stack.actor_critic.clear_recurrent_state
+    layout = _current_layout(rollout_state)
+    if chunkwise:
+        rollout_state.rnn_states = layout.to_policy(rollout_state.rnn_states)
+    inference_emits, step_emits = [], []
+    with torch.no_grad():
+        for step_idx in range(start_step_idx, start_step_idx + num_steps):
+            obs = rollout_state.cur_obs
+            with profile("Policy Inference"):
+                with profile("Reorder To Policy"):
+                    policy_obs = layout.to_policy(obs)
+                    rnn_in = (rollout_state.rnn_states if chunkwise else
+                              layout.to_policy(rollout_state.rnn_states))
+                with profile("Obs Preprocess"):
+                    pre = stack.preprocess(layout, policy_obs)
+                with profile("Policy Apply"):
+                    out, rnn = stack.rollout(
+                        layout, rollout_state.generator, rnn_in, pre,
+                        sample_actions=sample_actions)
+                    out["critic"] = value_fn(out["critic"])
+                with profile("Reorder To Sim"):
+                    preprocessed = layout.drop_custom(layout.to_sim(pre))
+                    policy_out = layout.drop_custom(layout.to_sim(out))
+                    if chunkwise:
+                        rnn = layout.keep_custom_chunks(rnn, rnn_in)
+                    else:
+                        rnn = layout.drop_custom(layout.to_sim(rnn),
+                                                 rest=rollout_state.rnn_states)
+                cb_state, emit = post_inference_cb(
+                    step_idx, obs, preprocessed, policy_out, cb_state)
+                inference_emits.append(emit)
+
+            with profile("Rollout Step"):
+                assignments = rollout_state.policy_assignments
+                (step_output, dones, rewards, env_returns,
+                 episode_results) = _population_sim_step(
+                     rollout_state, population, policy_out["actions"])
+
+                rnn = clear(rnn, layout.to_policy(dones) if chunkwise
+                            else dones)
+                if cfg.pbt.complex_matchmaking:
+                    with profile("Matchmaking"):
+                        assignments = pbt_update_matchmaking(
+                            assignments, dones, rollout_state.generator,
+                            cfg.pbt)
+                    with profile("Compute Reorder State"):
+                        new_layout = compute_policy_chunks(assignments, cfg)
+                    if chunkwise:
+                        with profile("RNN Chunk Remap"):
+                            rnn = _chunk_remap(layout, new_layout, rnn)
+                    layout = new_layout
+                rollout_state.policy_assignments = assignments
+                rollout_state.reorder_state = layout
+                rollout_state.rnn_states = rnn
+                rollout_state.sim_state = step_output["state"]
+                rollout_state.cur_obs = step_output["obs"]
+                rollout_state.env_returns = env_returns
+
+                rollout_state, cb_state, emit = post_step_cb(
+                    step_idx, rollout_state, dones, rewards,
+                    episode_results, cb_state)
+                step_emits.append(emit)
+                rollout_state.env_returns = torch.where(
+                    dones, 0, rollout_state.env_returns)
+
+    if chunkwise:
+        rollout_state.rnn_states = layout.to_sim(rollout_state.rnn_states)
+    stack_emits = lambda emits: (tree_stack(emits) if emits[0] is not None
+                                 else None)
+    return rollout_state, cb_state, (stack_emits(inference_emits),
+                                     stack_emits(step_emits))
 
 
 def rollouts_reset(rollout_state: RolloutState, policy_state):
@@ -715,16 +965,24 @@ class RolloutManager:
             "env_returns_metric": Metric.init(
                 True, (P,), device=rollout_state.env_returns.device),
         }
+        # The chunked path reads the population's stacked view, built once
+        # a collect; the loops are looked up here, when they run.
+        if self._cfg.policy_chunked:
+            stack = population.stacked()
+            loop = chunked_rollout_loop
+            loop_kwargs = dict(stack=stack, chunkwise_rnn=os.environ.get(
+                "MADRONA_LEARN_TPU_CHUNKWISE_RNN") == "1")
+        else:
+            stack, loop, loop_kwargs = None, population_rollout_loop, {}
         chunks, rnn_start_states = [], []
         for chunk in range(self._num_bptt_chunks):
             with profile("Cache RNN state"):
                 rnn_start_states.append(to_train(rollout_state.rnn_states))
-            rollout_state, cb_state, (per_step, step_data) = \
-                population_rollout_loop(
-                    rollout_state, population, self._num_bptt_steps,
-                    post_inference_cb, post_step_cb, cb_state,
-                    start_step_idx=chunk * self._num_bptt_steps,
-                    value_fn=self._compute_value_estimate)
+            rollout_state, cb_state, (per_step, step_data) = loop(
+                rollout_state, population, self._num_bptt_steps,
+                post_inference_cb, post_step_cb, cb_state,
+                start_step_idx=chunk * self._num_bptt_steps,
+                value_fn=self._compute_value_estimate, **loop_kwargs)
             chunks.append(dict(per_step, **step_data))
         # store leaves: [C, T/C, P, A, ...]; rnn_start_states: [C, P, A, ...]
         store = tree_stack(chunks)
@@ -735,11 +993,26 @@ class RolloutManager:
         with torch.no_grad(), profile("Bootstrap Values"):
             rnn, obs = to_train((rollout_state.rnn_states,
                                  rollout_state.cur_obs))
-            bootstrap_values = torch.stack([
-                self._critic_value(population[p],
-                                   tree_map(lambda x: x[p], rnn),
-                                   {k: v[p] for k, v in obs.items()})
-                for p in range(P)])
+            if stack is not None:
+                # One batched critic_only: the train order's [P, A] rows
+                # are P chunks of A rows, chunk p policy p's.
+                ids = torch.arange(P, dtype=torch.int32,
+                                   device=train_idxs.device)
+                layout = PolicyBatchReorderState(
+                    to_policy_idxs=None, to_sim_idxs=None,
+                    policy_dims=tuple(train_idxs.shape),
+                    sim_dims=(train_idxs.numel(),), chunk_policy=ids,
+                    chunk_index=ids.long())
+                out, _ = stack.critic_only(layout, rnn,
+                                           stack.preprocess(layout, obs))
+                bootstrap_values = self._compute_value_estimate(
+                    out["critic"])
+            else:
+                bootstrap_values = torch.stack([
+                    self._critic_value(population[p],
+                                       tree_map(lambda x: x[p], rnn),
+                                       {k: v[p] for k, v in obs.items()})
+                    for p in range(P)])
         with profile("Finalize Rollouts"):
             rollout_data, user_state = self._finalize_rollouts(
                 train_states[0].value_normalizer,

@@ -27,6 +27,7 @@ the metrics' ring buffer through a ``TensorboardWriter``.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import warnings
 from dataclasses import dataclass
@@ -43,7 +44,7 @@ from .pbt import (pbt_cull_update, pbt_explore_hyperparams, pbt_past_update,
                   pbt_update_elo)
 from .policy import Policy
 from .rollouts import (RolloutConfig, RolloutManager, RolloutState,
-                       rollout_loop, rollouts_reset)
+                       chunked_path_missing, rollout_loop, rollouts_reset)
 from .train_state import TrainStateManager
 from .utils.profile import profile
 
@@ -302,14 +303,18 @@ def _init_population_training(dev, cfg: TrainConfig, sim_fns, policy,
                               profile_dir):
     """``init_training`` of a PBT population: the matchmade rollout, the
     population and its train states, and each train policy's drawn
-    hyperparameters (resample chance 1, from the PBT generator)."""
+    hyperparameters (resample chance 1, from the PBT generator).
+
+    The population's path is chosen here, once, by
+    ``rollouts.chunked_path_missing`` on policy 0's actor-critic and obs
+    preprocessor: the policy-chunk layout when every module has a
+    policy-batched form, else the per-policy loop. A population on the
+    per-policy loop refuses ``rollout_policy_chunk_size_override``, naming
+    the module without a form."""
     pbt = cfg.pbt
     if pbt.num_teams * pbt.team_size != cfg.num_agents_per_world:
         raise ValueError("num_teams * team_size must equal "
                          "num_agents_per_world")
-    if pbt.rollout_policy_chunk_size_override:
-        raise ValueError("rollout_policy_chunk_size_override: no kernel of "
-                         "the port reads a policy-chunk size; leave it 0")
     algo = cfg.algo.setup()
     rollout_cfg = RolloutConfig.setup_population(
         num_current_policies=pbt.num_train_policies,
@@ -323,7 +328,8 @@ def _init_population_training(dev, cfg: TrainConfig, sim_fns, policy,
         past_play_portion=pbt.past_play_portion,
         static_play_portion=0.0,
         reward_gamma=cfg.gamma,
-        custom_policy_ids=cfg.custom_policy_ids)
+        custom_policy_ids=cfg.custom_policy_ids,
+        policy_chunk_size_override=pbt.rollout_policy_chunk_size_override)
     rollout_state = RolloutState.create(
         rollout_cfg=rollout_cfg,
         sim_fns=as_sim_fns(sim_fns),
@@ -336,6 +342,16 @@ def _init_population_training(dev, cfg: TrainConfig, sim_fns, policy,
         example_obs=rollout_state.cur_obs, device=dev,
         use_competitive_mmr=rollout_cfg.pbt.complex_matchmaking)
     population = train_state_mgr.policy_states
+    missing = chunked_path_missing(population[0].actor_critic,
+                                   population[0].obs_preprocess)
+    if missing is not None and pbt.rollout_policy_chunk_size_override:
+        raise ValueError(
+            f"rollout_policy_chunk_size_override: {missing} has no "
+            f"policy-batched form, so the population runs the per-policy "
+            f"loop, which reads no chunk size; leave it 0")
+    rollout_cfg = dataclasses.replace(rollout_cfg,
+                                      policy_chunked=missing is None)
+    rollout_state.cfg = rollout_cfg
     rollout_state.rnn_states = population[0].actor_critic \
         .init_recurrent_state(rollout_cfg.sim_batch_size, dev)
     for p, train_state in enumerate(train_state_mgr.train_states):

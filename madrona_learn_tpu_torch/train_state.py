@@ -13,7 +13,8 @@
   the past policies, the ``[P, R]`` reward hyperparameters, the
   episode-score function and the fitness, an Elo ``MMR`` (competitive
   populations) or a ``MovingEpisodeScore`` (the others), as ``[P]``
-  tensors.
+  tensors. ``Population.stacked()`` gives the ``PopulationStack`` that
+  the policy-batched rollout reads.
 - ``TrainStateManager``: the policy and train state of the one train
   policy, or with ``TrainConfig.pbt`` the ``Population``, one train state a
   train policy and the PBT generator; plus the user's hook state. It
@@ -56,6 +57,7 @@ import torch
 from .algo import AlgoBase, HyperParams
 from .config import TrainConfig
 from .models.actor_critic import ActorCritic
+from .models.common import StackedParams
 from .observations import ObservationsPreprocess, ObservationsPreprocessNoop
 from .ops.dynamic_scale import DynamicScale
 from .ops.ema import EMAEstimate, EMANormalizer
@@ -99,6 +101,20 @@ class Population:
     def __getitem__(self, index: int) -> PolicyState:
         return self.policies[index]
 
+    def stacked(self) -> "PopulationStack":
+        """The stacked view of the population, train then past policies:
+        one ``torch.stack`` a parameter and a leaf of obs-preprocess state.
+        A copy, built once per collect or evaluation: learning,
+        ``copy_policy``, checkpoint loads and population surgery write the
+        modules' parameters in place, which no stack built before sees."""
+        first = self.policies[0]
+        return PopulationStack(
+            population=self, actor_critic=first.actor_critic,
+            obs_preprocess=first.obs_preprocess,
+            params=StackedParams.of([p.actor_critic for p in self.policies]),
+            obs_states=first.obs_preprocess.stack_states(
+                [p.obs_preprocess_state for p in self.policies]))
+
     def copy_policy(self, src: int, dst: int):
         """Policy ``src`` into ``dst`` in place: parameters, obs-normalizer
         state, reward hyperparameters and fitness."""
@@ -117,6 +133,36 @@ class Population:
             for table in tables:
                 if table is not None:
                     table[dst] = table[src]
+
+
+@dataclass
+class PopulationStack:
+    """A population as its policy-batched forms read it
+    (``Population.stacked``): ``params`` and ``obs_states`` hold every
+    policy's as ``[P, ...]`` stacks; ``actor_critic`` and
+    ``obs_preprocess`` (policy 0's) give the structure, their own
+    parameters unread. Each method runs over chunk-order inputs, chunk b
+    with policy ``layout.chunk_policy[b]``'s weights."""
+
+    population: Population
+    actor_critic: ActorCritic
+    obs_preprocess: ObservationsPreprocess
+    params: StackedParams
+    obs_states: Dict[str, Any]
+
+    def preprocess(self, layout, obs):
+        return self.obs_preprocess.preprocess_chunked(self.obs_states, obs,
+                                                      layout)
+
+    def rollout(self, layout, generator, rnn_states, obs,
+                sample_actions=True):
+        return self.actor_critic.rollout_chunked(
+            self.params, layout, generator, rnn_states, obs,
+            sample_actions=sample_actions)
+
+    def critic_only(self, layout, rnn_states, obs):
+        return self.actor_critic.critic_only_chunked(self.params, layout,
+                                                     rnn_states, obs)
 
 
 @dataclass

@@ -5,8 +5,9 @@ itself, in the port's matchmade rollout and in the Elo tournament.
   trainer, in both packages, over a duel that plays every row assigned
   policy 100 with a fixed bid. The port takes the JAX population's weights
   and replays the JAX tournament's sampled actions (the JAX sim step
-  reports them through an ordered ``jax.debug.callback``; the port's
-  ``categorical`` returns each policy's rows of the step, as
+  reports them through an ordered ``jax.debug.callback``; the port runs
+  the tournament in the policy-chunk layout and its ``categorical``
+  returns the step's actions gathered into the step's chunks, as
   ``tests/test_torch_pbt_slice.py`` replays them). The population's Elo
   must agree to 1e-5 relative.
 - ``rollouts._PolicyRows``: no module runs on a custom row, a custom row's
@@ -28,6 +29,7 @@ import madrona_learn_tpu as mlt
 import madrona_learn_tpu_torch as tlt
 import madrona_learn_tpu_torch.ops.dists as t_dists
 import madrona_learn_tpu_torch.rollouts as t_rollouts
+import madrona_learn_tpu_torch.train_state as t_train_state
 from madrona_learn_tpu.envs import make_duel_env as jax_make_duel_env
 from madrona_learn_tpu.ops.reorder import compute_reorder_chunks
 from madrona_learn_tpu_torch.envs import ToyEnvConfig, make_duel_env
@@ -91,18 +93,17 @@ def jax_run():
 def torch_run(jax_run):
     steps = list(jax_run["steps"])
     pending, custom_rows = [], []
+    real_rollout = t_train_state.PopulationStack.rollout
 
-    class ReplayRows(t_rollouts._PolicyRows):
-        def __init__(self, *args):
-            super().__init__(*args)
-            actions = steps.pop(0)
-            pending[:] = [torch.from_numpy(actions[rows.numpy()].astype(
-                np.int64)) for _, rows in self.rows]
-            custom_rows.append(0 if self.custom is None
-                               else self.custom.shape[0])
+    def replay_rollout(self, layout, *args, **kwargs):
+        actions = torch.from_numpy(steps.pop(0).astype(np.int64))
+        pending[:] = [layout.to_policy(actions)]
+        custom_rows.append(0 if layout.custom_rows is None
+                           else int(layout.custom_rows.sum()))
+        return real_rollout(self, layout, *args, **kwargs)
 
     mp = pytest.MonkeyPatch()
-    mp.setattr(t_rollouts, "_PolicyRows", ReplayRows)
+    mp.setattr(t_train_state.PopulationStack, "rollout", replay_rollout)
     mp.setattr(t_dists, "categorical",
                lambda logits, generator: pending.pop(0))
     try:
@@ -117,6 +118,7 @@ def torch_run(jax_run):
                                          seed=SEED), device="cpu")
         mgr = tlt.init_training("cpu", cfg, fixed_bid(env, torch), policy,
                                 torch.zeros((1,), dtype=torch.int32))
+        assert mgr.rollout.cfg.policy_chunked
         population = mgr.state.policy_states
         j0 = jax_run["mgr"]
         for p in range(NUM_POLICIES):

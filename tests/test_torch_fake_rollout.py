@@ -5,10 +5,14 @@ The oracle of ``tests/test_rollouts.py``: the fake sim and the fake policy
 bias, is the policy's index, so every action names the policy that took
 it. A numpy recomputation of every agent's trajectory must equal the
 port's actions, values, rewards, dones and recurrent states exactly, over
-the non-slow sweep of teams, team sizes, batches and play portions
-(``tests/test_rollouts.py:CONFIGS``); assignments may change only where an
-episode ended, and satisfy the matchmaking invariants after every step.
-No agreement with the JAX package's random draws is needed.
+the non-slow sweep of teams, team sizes, batches, play portions and
+policy-chunk size overrides (``tests/test_rollouts.py:CONFIGS``);
+assignments may change only where an episode ended, and satisfy the
+matchmaking invariants after every step. The fake modules have
+policy-batched forms, so the sweep runs through the rollout's policy-chunk
+layout (``chunked_rollout_loop``), with the recurrent state in chunk order
+too, and again through the per-policy loop. No agreement with the JAX
+package's random draws is needed.
 """
 
 import numpy as np
@@ -33,6 +37,7 @@ from madrona_learn_tpu_torch.observations import ObservationsPreprocessNoop
 from madrona_learn_tpu_torch.rollouts import (
     RolloutConfig,
     RolloutState,
+    chunked_rollout_loop,
     rollout_loop,
 )
 from madrona_learn_tpu_torch.train_state import Population, PolicyState
@@ -60,14 +65,18 @@ def fake_population(num_policies):
 
 def run_fake_rollout(seed, num_steps, episode_len, num_current_policies,
                      num_past_policies, num_teams, team_size, batch_size,
-                     self_play, cross_play, past_play):
+                     self_play, cross_play, past_play,
+                     policy_chunk_size_override=0, chunked=True,
+                     chunkwise_rnn=False):
     rollout_cfg = RolloutConfig.setup_population(
         num_current_policies=num_current_policies,
         num_past_policies=num_past_policies, num_teams=num_teams,
         team_size=team_size, sim_batch_size=batch_size,
         actions_cfg={"fake": None}, self_play_portion=self_play,
         cross_play_portion=cross_play, past_play_portion=past_play,
-        static_play_portion=0.0, reward_dtype=torch.int32)
+        static_play_portion=0.0, reward_dtype=torch.int32,
+        policy_chunk_size_override=policy_chunk_size_override,
+        policy_chunked=chunked)
     sim_cfg = FakeSimConfig(batch_size=batch_size, episode_len=episode_len,
                             num_teams=num_teams, team_size=team_size)
     population = fake_population(rollout_cfg.pbt.total_num_policies)
@@ -86,13 +95,23 @@ def run_fake_rollout(seed, num_steps, episode_len, num_current_policies,
 
     def post_step_cb(step_idx, rollout_state, dones, rewards,
                      episode_results, cb_state):
+        rnn = rollout_state.rnn_states
+        if chunkwise_rnn:
+            # Chunk order within the loop: the layout of the next step.
+            rnn = rollout_state.reorder_state.to_sim(rnn)
         return rollout_state, cb_state, {
             "dones": dones, "rewards": rewards,
             "post_assignments": rollout_state.policy_assignments.clone(),
-            "rnn_states": rollout_state.rnn_states.clone()}
+            "rnn_states": rnn.clone()}
 
-    _, _, (inf, step) = rollout_loop(state, population, num_steps,
-                                     post_inference_cb, post_step_cb, None)
+    if chunkwise_rnn:
+        _, _, (inf, step) = chunked_rollout_loop(
+            state, population, num_steps, post_inference_cb, post_step_cb,
+            None, chunkwise_rnn=True)
+    else:
+        _, _, (inf, step) = rollout_loop(state, population, num_steps,
+                                         post_inference_cb, post_step_cb,
+                                         None)
     to_np = lambda tree: {k: v.numpy() for k, v in tree.items()}
     return (sim_cfg, rollout_cfg, to_np(init_obs), init_assignments.numpy(),
             to_np(inf), to_np(step))
@@ -165,27 +184,32 @@ def check_assignments(rollout_cfg, assignments):
 
 
 # tests/test_rollouts.py:CONFIGS: (num_steps, episode_len, n_cur, n_past,
-# teams, team_size, batch, self, cross, past); the JAX cases' chunk-size
-# overrides are dropped, as the port's rollout reads no chunk size.
+# teams, team_size, batch, self, cross, past, chunk_override), and one more
+# batch of 512.
 CONFIGS = [
-    (8, 3, 1, 0, 1, 1, 4, 1.0, 0.0, 0.0),
-    (16, 5, 4, 0, 1, 1, 32, 1.0, 0.0, 0.0),
-    (16, 5, 4, 0, 2, 2, 64, 1.0, 0.0, 0.0),
-    (16, 4, 4, 0, 2, 1, 64, 0.5, 0.5, 0.0),
-    (16, 4, 4, 2, 2, 1, 64, 0.5, 0.25, 0.25),
-    (20, 7, 8, 7, 2, 2, 256, 0.25, 0.5, 0.25),
-    (10, 3, 2, 1, 2, 2, 32, 0.0, 0.5, 0.5),
-    (12, 5, 4, 2, 2, 1, 512, 0.25, 0.5, 0.25),
+    (8, 3, 1, 0, 1, 1, 4, 1.0, 0.0, 0.0, 0),
+    (16, 5, 4, 0, 1, 1, 32, 1.0, 0.0, 0.0, 0),
+    (16, 5, 4, 0, 2, 2, 64, 1.0, 0.0, 0.0, 0),
+    (16, 4, 4, 0, 2, 1, 64, 0.5, 0.5, 0.0, 8),
+    (16, 4, 4, 2, 2, 1, 64, 0.5, 0.25, 0.25, 8),
+    (20, 7, 8, 7, 2, 2, 256, 0.25, 0.5, 0.25, 16),
+    (10, 3, 2, 1, 2, 2, 32, 0.0, 0.5, 0.5, 4),
+    (12, 5, 4, 2, 2, 1, 512, 0.25, 0.5, 0.25, 0),
 ]
 
 
 @pytest.mark.parametrize("cfg_tuple", CONFIGS)
-def test_fake_rollout_exact(cfg_tuple):
+def test_fake_rollout_exact(cfg_tuple, chunked=True, chunkwise_rnn=False):
+    """The policy-chunk layout (the path of every population whose modules
+    have batched forms), at the chunk size of the override."""
     (num_steps, episode_len, n_cur, n_past, teams, team_size, batch,
-     self_p, cross_p, past_p) = cfg_tuple
+     self_p, cross_p, past_p, chunk) = cfg_tuple
     sim_cfg, rollout_cfg, init_obs, init_assignments, inf, step = \
         run_fake_rollout(7, num_steps, episode_len, n_cur, n_past, teams,
-                         team_size, batch, self_p, cross_p, past_p)
+                         team_size, batch, self_p, cross_p, past_p, chunk,
+                         chunked, chunkwise_rnn)
+    if chunk:
+        assert rollout_cfg.policy_chunk_size == chunk
     check_assignments(rollout_cfg, init_assignments)
     verify_rollout_data(sim_cfg, init_obs, init_assignments, inf, step)
     for post in step["post_assignments"]:
@@ -193,3 +217,17 @@ def test_fake_rollout_exact(cfg_tuple):
     if (cross_p and n_cur > 2) or (past_p and n_past > 1):
         # Where an opponent has a choice, matchmaking drew new ones.
         assert (step["post_assignments"] != init_assignments).any()
+
+
+@pytest.mark.parametrize("cfg_tuple", CONFIGS)
+def test_fake_rollout_exact_per_policy_loop(cfg_tuple):
+    """The per-policy loop (``population_rollout_loop``), which models
+    without batched forms take."""
+    test_fake_rollout_exact(cfg_tuple, chunked=False)
+
+
+@pytest.mark.parametrize("cfg_tuple", [c for c in CONFIGS if c[7] < 1.0])
+def test_fake_rollout_exact_chunkwise_rnn(cfg_tuple):
+    """The recurrent state kept in chunk order across steps
+    (``chunkwise_rnn``, matchmaking only)."""
+    test_fake_rollout_exact(cfg_tuple, chunkwise_rnn=True)

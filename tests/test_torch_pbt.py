@@ -737,26 +737,80 @@ def test_self_play_population_trains_each_policy_on_its_block():
     assert not torch.equal(states[0]["mu"], states[1]["mu"])
 
 
-def test_chunk_size_override_refused():
-    """No kernel of the port reads a policy-chunk size, so init_training
-    refuses a forced one rather than ignore it."""
-    from madrona_learn_tpu_torch.envs import ToyEnvConfig, make_duel_env
-
-    cfg = tlt.TrainConfig(
+def _override_cfg(override):
+    return tlt.TrainConfig(
         num_worlds=8, num_agents_per_world=2,
         actions={"move": tlt.DiscreteActionsConfig(actions_num_buckets=[5])},
         steps_per_update=4, num_bptt_chunks=1, lr=1e-3, gamma=0.99,
         seed=1, metrics_buffer_size=1,
-        algo=tlt.PPOConfig(num_epochs=1, minibatch_size=4, clip_coef=0.2,
+        algo=tlt.PPOConfig(num_epochs=1, minibatch_size=3, clip_coef=0.2,
                            value_loss_coef=0.5, entropy_coef=0.01,
                            max_grad_norm=0.5),
         pbt=tlt.PBTConfig(num_teams=2, team_size=1, num_train_policies=2,
                           num_past_policies=1, self_play_portion=0.5,
                           cross_play_portion=0.25, past_play_portion=0.25,
-                          rollout_policy_chunk_size_override=64),
+                          rollout_policy_chunk_size_override=override),
         dreamer_v3_critic=False)
-    with pytest.raises(ValueError, match="rollout_policy_chunk_size"):
-        tlt.init_training("cpu", cfg, make_duel_env(
-            ToyEnvConfig(num_worlds=8, episode_len=4, num_teams=2,
-                         team_size=1, seed=1), device="cpu"),
-            None, torch.zeros((1,), dtype=torch.int32))
+
+
+def _override_trainer(override, rnn):
+    """A duel population over 8 worlds whose tower is an MLP of 16 and
+    ``rnn(16)``."""
+    from madrona_learn_tpu_torch.envs import ToyEnvConfig, make_duel_env
+    import madrona_learn_tpu_torch.models as tm
+
+    def actor_critic(p):
+        return tm.ActorCritic(
+            backbone=tm.BackboneShared(
+                prefix=lambda obs: torch.cat([obs["time"], obs["acc"]], -1),
+                encoder=tm.RecurrentBackboneEncoder(
+                    net=tm.MLP(2, 16, 1, torch.float32), rnn=rnn(16))),
+            actor=tm.DictActor({"move": tm.DenseLayerDiscreteActor(
+                tlt.DiscreteActionsConfig(actions_num_buckets=[5]), 16,
+                torch.float32)}),
+            critic=tm.DenseLayerCritic(16, torch.float32))
+
+    policy = tlt.Policy(actor_critic,
+                        tlt.ObservationsCaster.create(torch.float32),
+                        lambda er: (er[0].float(), 1.0 - er[0].float()))
+    return tlt.init_training("cpu", _override_cfg(override), make_duel_env(
+        ToyEnvConfig(num_worlds=8, episode_len=4, num_teams=2, team_size=1,
+                     seed=1), device="cpu"),
+        policy, torch.zeros((1,), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("override", [0, 4, 3])
+def test_chunk_size_override_honoured(override):
+    """``rollout_policy_chunk_size_override`` sets the policy-chunk size of
+    an MLP + LSTM population, as in JAX (0: the heuristic's 16, the whole
+    batch here), and the rollout's layout uses it: ceil(16 / C) + 3 - 1
+    chunks of C."""
+    import madrona_learn_tpu_torch.models as tm
+
+    mgr = _override_trainer(
+        override, lambda h: tm.LSTM(h, h, 1, torch.float32))
+    cfg = mgr.rollout.cfg
+    C = override or 16
+    assert cfg.policy_chunked
+    assert (cfg.policy_chunk_size, cfg.num_policy_chunks) == \
+        (C, -(-16 // C) + 2)
+    mgr.update_iter()
+    layout = mgr.rollout.reorder_state
+    assert layout.to_policy_idxs.shape == (cfg.num_policy_chunks, C)
+    assert layout.assignments is mgr.rollout.policy_assignments
+    for stats in mgr.first_minibatch_stats:
+        assert float(stats["max_abs_ratio_dev"]) < 1e-5
+
+
+def test_chunk_size_override_refused_without_a_batched_form():
+    """A GRU has no policy-batched form: the population keeps the
+    per-policy loop, which reads no chunk size, and init_training refuses
+    a forced one, naming the module."""
+    import madrona_learn_tpu_torch.models as tm
+
+    gru = lambda h: tm.GRU(h, h, 1, torch.float32)
+    with pytest.raises(ValueError, match=r"rollout_policy_chunk_size"
+                       r"_override: backbone\.encoder\.rnn \(GRU\)"):
+        _override_trainer(8, gru)
+    mgr = _override_trainer(0, gru)
+    assert not mgr.rollout.cfg.policy_chunked

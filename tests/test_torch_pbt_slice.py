@@ -9,9 +9,10 @@ config #4's tower). The port gets the JAX population's weights, policy by policy
 and replays the JAX run's draws, in this test only:
 
 - actions: the JAX sim step reports its sim-order actions through an
-  ordered ``jax.debug.callback``; the port's ``categorical`` returns, for
-  each policy's rows of the step (read from the rollout's
-  ``_PolicyRows``), those rows' actions;
+  ordered ``jax.debug.callback``; the port's population runs in the
+  policy-chunk layout (``rollouts.chunked_rollout_loop``), and its
+  ``categorical`` returns the step's actions gathered into the step's
+  chunks (read from the layout that ``PopulationStack.rollout`` is given);
 - matchmaking and the past snapshot's source: ``random.randint`` as
   ``madrona_learn_tpu.pbt`` calls it reports through an ordered callback,
   and the port's ``pbt.randint`` returns the draws;
@@ -23,7 +24,8 @@ and replays the JAX run's draws, in this test only:
 Two ``update_iter`` calls must then give equal rollout data, per-policy
 parameters, optimizer state and metrics (float32; the slice test's
 tolerances), then ``eval_elo`` equal Elo (1e-5 relative) and
-``update_population`` the same copies, bitwise within the port.
+``update_population`` the same copies, bitwise within the port, all
+through the chunked path.
 """
 
 import warnings
@@ -44,7 +46,7 @@ import madrona_learn_tpu_torch.models as tm
 import madrona_learn_tpu_torch.ops.dists as t_dists
 import madrona_learn_tpu_torch.pbt as t_pbt
 import madrona_learn_tpu_torch.ppo as t_ppo
-import madrona_learn_tpu_torch.rollouts as t_rollouts
+import madrona_learn_tpu_torch.train_state as t_train_state
 from madrona_learn_tpu.envs import make_duel_env as jax_make_duel_env
 from madrona_learn_tpu.train import TrainHooks as JaxTrainHooks
 from madrona_learn_tpu_torch.compat.from_jax import (
@@ -249,15 +251,14 @@ def _install_replays(mp, jax_run):
     """The port's draws return the JAX run's (see the module docstring)."""
     steps = list(jax_run["steps"])
     pending = []
+    real_rollout = t_train_state.PopulationStack.rollout
 
-    class ReplayRows(t_rollouts._PolicyRows):
-        def __init__(self, *args):
-            super().__init__(*args)
-            actions = steps.pop(0)
-            pending[:] = [torch.from_numpy(actions[rows.numpy()].astype(
-                np.int64)) for _, rows in self.rows]
+    def replay_rollout(self, layout, *args, **kwargs):
+        actions = torch.from_numpy(steps.pop(0).astype(np.int64))
+        pending[:] = [layout.to_policy(actions)]
+        return real_rollout(self, layout, *args, **kwargs)
 
-    mp.setattr(t_rollouts, "_PolicyRows", ReplayRows)
+    mp.setattr(t_train_state.PopulationStack, "rollout", replay_rollout)
     mp.setattr(t_dists, "categorical",
                lambda logits, generator: pending.pop(0))
 
@@ -311,6 +312,7 @@ def torch_run(model, jax_run):
                                        team_size=1, seed=SEED),
                           device="cpu"),
             policy, torch.zeros((1,), dtype=torch.int32))
+        assert mgr.rollout.cfg.policy_chunked
         population = mgr.state.policy_states
         for p in range(NUM_POLICIES):
             population[p].actor_critic.load_state_dict({

@@ -61,7 +61,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``lstm_sequence_fwd``'s with its policy's weights, the first 8 chunks
    alone and the chunks rolled bitwise, chunks of index P and -1 skipped
    (NaN rows, the others unchanged), and timed against one
-   ``lstm_sequence_fwd`` a policy over the same rows;
+   ``lstm_sequence_fwd`` a policy over the same rows; and
+   ``lstm_sequence_bwd_chunked`` (the chunk-indexed backward) at
+   headline_pbt's learn step (8 train policies, one chunk of a minibatch's
+   1280 sequences each, T = 16, bf16) and at chunks of 37 rows in a
+   shuffled order (one policy of two chunks, one of none) in bf16 and
+   float32: against its twin's autograd, every chunk's dx_proj / dh0 /
+   dc0 bitwise ``lstm_sequence_bwd``'s on its rows, each policy's dwr / db
+   within the backward's tolerance of that kernel's, bitwise over two
+   calls and, for a policy of one chunk, bitwise its chunk alone, chunks
+   of index P and -1 NaN and in no policy's gradients, and timed against
+   one ``lstm_sequence_bwd`` a policy over the same rows;
 4. models: the update pass and its gradients through the kernels on the
    card against the same model on the CPU, for the MLP model, a small GRU
    model, a small fused-trunk model, a small flagship (entity attention)
@@ -125,11 +135,13 @@ Phases, in order; any failure raises and the script exits non-zero:
     bf16, lr searched in log10 space, 4 minibatches of 1280 sequences a
     policy), 1 warm-up update and 2 trials of 5, then ``eval_elo`` over 64
     steps and ``update_population``, the population in the rollout's
-    policy-chunk layout (12 policies, 75 chunks of 512 rows). Besides the
-    trainers' checks (launch counts: ``lstm_sequence_fwd_chunked`` once a
-    step and once for the batched bootstrap value, ``grouped_matmul`` 5
-    times a step and 4 for the bootstrap, ``lstm_sequence_fwd`` and
-    ``lstm_sequence_bwd`` once a minibatch, ``gae`` once), every train
+    policy-chunk layout (12 policies, 75 chunks of 512 rows) and the
+    batched learn (one PPO step a minibatch over the 8 train policies).
+    Besides the trainers' checks (launch counts: ``lstm_sequence_fwd_
+    chunked`` once a step, once for the batched bootstrap value and once
+    a minibatch, ``lstm_sequence_bwd_chunked`` once a minibatch,
+    ``grouped_matmul`` 5 times a step and 4 for the bootstrap, ``gae``
+    once, no single-policy LSTM kernel), every train
     policy's first-minibatch |ratio - 1| is below 1e-3, no step copies
     policy counts to the host, at one rollout step every row's value
     equals its own policy's module run over all rows (and the next
@@ -137,7 +149,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     from one rollout state through the chunked path, through the
     per-policy loop and with ``chunkwise_rnn`` (bitwise the chunked
     one's) is timed and profiled (launches a collect step, kernel time,
-    idle share), the eight learning rates are distinct and in
+    idle share), one update's learn from one state batched and through the
+    per-policy loop is timed with its launches and profiled (the largest
+    parameter difference at most twice the loop's largest move), the
+    eight learning rates are distinct and in
     [1e-4, 1e-2], the assignments keep their invariants after every training step (the
     self-play block and team 0 fixed, cross opponents other train
     policies, past opponents past policies, 2560 train agents a policy;
@@ -2096,6 +2111,188 @@ def check_lstm_chunked(results):
                    policies=P, **b)
 
 
+def _chunked_lstm_bwd_bound(T, B, C, H, policies_used, itemsize):
+    """The backward's bytes and operations over its B * C rows (as
+    ``_lstm_bounds``' backward, with the weights of the policies in use):
+    x_proj, keep, ys, cs, dys, c0 and h0 read, each used policy's Wr and
+    bias read and its dWr and db written, dx_proj, dh0 and dc0 written, the
+    chunk indices read; three times the forward's products on tensor cores
+    and ~40 f32 operations of gate math per unit and step."""
+    N = B * C
+    seq, state = T * N * H, N * H
+    weights = policies_used * (4 * H * H + 4 * H)
+    nbytes = (itemsize * (4 * seq + T * N + 3 * seq + 2 * state + weights
+                          + 4 * seq + 2 * state + weights) + 4 * B)
+    return bound(nbytes, {"bf16_tensor": 3 * 2 * T * N * H * 4 * H,
+                          "f32": 40 * seq})
+
+
+def check_lstm_bwd_chunked(results):
+    """lstm_sequence_bwd_chunked at headline_pbt's learn step (8 train
+    policies, one chunk of a minibatch's 1280 sequences each, T = 16, bf16
+    on tensor cores) and at chunks of 37 rows (no multiple of a tile) in a
+    shuffled order with a policy owning two chunks and one owning none, in
+    bf16 and f32 (CUDA cores): against its plain twin's autograd; every
+    chunk's dx_proj / dh0 / dc0 bitwise ``lstm_sequence_bwd``'s on that
+    chunk's rows with its policy's weights, and each policy's dwr / db
+    within the backward's tolerance of that kernel's (summed over its
+    chunks); dwr / db bitwise over two calls and, for a policy of one
+    chunk, bitwise the call over that chunk alone; a chunk of index P or -1
+    NaN and adding to no policy; the time against the per-policy loop's
+    lstm_sequence_bwd launches over the same rows, and its bound."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.lstm import (
+        LSTM_BWD_CHUNKED, lstm_sequence_bwd, lstm_sequence_bwd_chunked,
+        lstm_sequence_chunked_reference, lstm_sequence_fwd_chunked,
+        uses_tensor_cores)
+
+    H, T, P = CHANNELS, STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, PBT_TRAIN
+    log(f"lstm_sequence_bwd_chunked at headline_pbt's learn step: {P} train "
+        f"policies, one chunk of a minibatch's C = {PBT_MINIBATCH} "
+        f"sequences each, T = {T}, H = {H}")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    res = results["lstm_sequence_bwd_chunked"] = {"max_abs_err": 0.0}
+    bf16, f32 = torch.bfloat16, torch.float32
+    shuffled = [2, 0, 3, 2, 1, 0]      # policy 4 of 5 owns no chunk
+    for dtype, T_c, C, order, main_path in (
+            (bf16, T, PBT_MINIBATCH, list(range(P)), True),
+            (bf16, 5, 37, shuffled, False), (f32, 5, 37, shuffled, False)):
+        P_c = P if main_path else 5
+        B = len(order)
+        dname = str(dtype).split(".")[-1]
+        args = list(_chunked_lstm_inputs(gen, T_c, B, C, H, P_c, dtype))
+        args[4] = torch.tensor(order, dtype=torch.int32, device="cuda")
+        x, keep, wr, bias, idx, c0, h0 = args
+        tag = (f"[{T_c}, {B} x {C}, {4 * H}] P={P_c} {dname} chunks "
+               f"{order}")
+        ys, cs = lstm_sequence_fwd_chunked(*args)
+        probe = torch.randn(T_c, B * C, H, device="cuda",
+                            generator=gen).to(dtype)
+        got, path = _routed(LSTM_BWD_CHUNKED, uses_tensor_cores(dtype, H),
+                            lstm_sequence_bwd_chunked, *args, ys, cs, probe)
+        tag += f" ({path})"
+        if main_path and path != "tensor_core":
+            raise AssertionError(f"lstm_sequence_bwd_chunked {tag}: the "
+                                 f"main path took the {path} route")
+        leaves = [a.detach().clone().requires_grad_(i in (0, 2, 3, 5, 6))
+                  for i, a in enumerate(args)]
+        diff = [leaves[i] for i in (0, 2, 3, 5, 6)]
+
+        def plain_bwd():
+            out = lstm_sequence_chunked_reference(*leaves)
+            return torch.autograd.grad(
+                (out.float() * probe.float()).sum(), diff)
+
+        tol = TOL[("bwd", dname)]
+        err = 0.0
+        for name, g, w in zip(("dxp", "dwr", "db", "dc0", "dh0"), got,
+                              plain_bwd()):
+            err = max(err, compare(f"lstm_sequence_bwd_chunked {name} {tag}",
+                                   g, w, **tol))
+        dxp, dwr, db, dc0, dh0 = got
+        # Row for row, the single-policy backward on each chunk's rows.
+        sums = {}
+        for b, p in enumerate(order):
+            rows = slice(b * C, (b + 1) * C)
+            one = lstm_sequence_bwd(
+                *(t[:, rows].contiguous() for t in (x, keep)), wr[p],
+                bias[p], c0[rows], h0[rows],
+                *(t[:, rows].contiguous() for t in (ys, cs, probe)))
+            if not (torch.equal(one[0], dxp[:, rows])
+                    and torch.equal(one[3], dc0[rows])
+                    and torch.equal(one[4], dh0[rows])):
+                raise AssertionError(f"lstm_sequence_bwd_chunked {tag}: chunk "
+                                     f"{b}'s rows differ from "
+                                     f"lstm_sequence_bwd's")
+            dw1, db1 = sums.get(p, (0.0, 0.0))
+            sums[p] = (dw1 + one[1].float(), db1 + one[2].float())
+        log(f"  lstm_sequence_bwd_chunked {tag}: every chunk's dxp / dc0 / "
+            f"dh0 bitwise lstm_sequence_bwd's on its rows ({B} calls) ok")
+        for p in range(P_c):
+            want_w, want_b = sums.get(p, (torch.zeros_like(dwr[p]),
+                                          torch.zeros_like(db[p])))
+            compare(f"lstm_sequence_bwd_chunked dwr[{p}] {tag} vs "
+                    f"lstm_sequence_bwd", dwr[p], want_w, **tol)
+            compare(f"lstm_sequence_bwd_chunked db[{p}] {tag} vs "
+                    f"lstm_sequence_bwd", db[p], want_b, **tol)
+            if p not in sums and (dwr[p].any() or db[p].any()):
+                raise AssertionError(f"lstm_sequence_bwd_chunked {tag}: "
+                                     f"policy {p} owns no chunk and got a "
+                                     f"gradient")
+        again = lstm_sequence_bwd_chunked(*args, ys, cs, probe)
+        for i, name in enumerate(("dxp", "dwr", "db", "dc0", "dh0")):
+            bitwise(f"lstm_sequence_bwd_chunked {tag} {name} over two calls",
+                    again[i], got[i])
+        # A policy of one chunk: its chunk alone gives the same dwr / db.
+        alone = [p for p in set(order) if order.count(p) == 1]
+        for p in sorted(alone):
+            b = order.index(p)
+            rows = slice(b * C, (b + 1) * C)
+            one = lstm_sequence_bwd_chunked(
+                *(t[:, rows].contiguous() for t in (x, keep)), wr, bias,
+                idx[b:b + 1].contiguous(), c0[rows], h0[rows],
+                *(t[:, rows].contiguous() for t in (ys, cs, probe)))
+            if not (torch.equal(one[1][p], dwr[p])
+                    and torch.equal(one[2][p], db[p])):
+                raise AssertionError(f"lstm_sequence_bwd_chunked {tag}: "
+                                     f"policy {p}'s dwr / db differ from "
+                                     f"its chunk's alone")
+        log(f"  lstm_sequence_bwd_chunked {tag}: dwr / db of policies "
+            f"{sorted(alone)} bitwise their chunk's alone ok")
+        if not main_path:
+            bad = idx.clone()
+            bad[1], bad[3] = P_c, -1
+            yb, cb = lstm_sequence_fwd_chunked(x, keep, wr, bias, bad, c0,
+                                               h0)
+            gb = lstm_sequence_bwd_chunked(x, keep, wr, bias, bad, c0, h0,
+                                           yb, cb, probe)
+            skipped = torch.zeros(B, dtype=torch.bool, device="cuda")
+            skipped[1] = skipped[3] = True
+            rows = skipped.repeat_interleave(C)
+            if not (bool(gb[0][:, rows].isnan().all())
+                    and bool(gb[3][rows].isnan().all())
+                    and bool(gb[4][rows].isnan().all())
+                    and torch.equal(gb[0][:, ~rows], dxp[:, ~rows])
+                    and torch.equal(gb[3][~rows], dc0[~rows])
+                    and torch.equal(gb[4][~rows], dh0[~rows])
+                    and bool(torch.isfinite(gb[1]).all())
+                    and bool(torch.isfinite(gb[2]).all())):
+                raise AssertionError(f"lstm_sequence_bwd_chunked {tag}: a "
+                                     f"chunk of index P or -1 was not "
+                                     f"skipped alone")
+            log(f"  lstm_sequence_bwd_chunked {tag}: chunks of index P and "
+                f"-1 NaN and in no policy's dwr / db, the others unchanged "
+                f"ok")
+            continue
+        res["max_abs_err"] = err
+        res["path"] = path
+        per_policy = [((x[:, b * C:(b + 1) * C].contiguous(),
+                        keep[:, b * C:(b + 1) * C].contiguous(), wr[p],
+                        bias[p], c0[b * C:(b + 1) * C],
+                        h0[b * C:(b + 1) * C])
+                       + tuple(t[:, b * C:(b + 1) * C].contiguous()
+                               for t in (ys, cs, probe)))
+                      for b, p in enumerate(order)]
+        same = all(torch.equal(lstm_sequence_bwd(*a)[1], dwr[p])
+                   for a, p in zip(per_policy, order))
+        log(f"  lstm_sequence_bwd_chunked {tag}: dwr bitwise "
+            f"lstm_sequence_bwd's a policy (64 divides C: the same boxes "
+            f"and splits): {'yes' if same else 'no'}")
+        ms = time_ms(lambda: lstm_sequence_bwd_chunked(*args, ys, cs, probe))
+        loop_ms = time_ms(lambda: [lstm_sequence_bwd(*a)
+                                   for a in per_policy])
+        plain_ms = time_ms(plain_bwd, reps=3, warmup=1)
+        b = _chunked_lstm_bwd_bound(T_c, B, C, H, P_c, x.element_size())
+        log(f"  lstm_sequence_bwd_chunked {tag}: kernel {ms:.4f} ms, {B} "
+            f"lstm_sequence_bwd over the same rows {loop_ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, no library call (cuDNN's LSTM takes one "
+            f"weight a call and no keep mask), bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})")
+        res.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                   per_policy_ms=loop_ms, chunk=C, chunks=B, policies=P_c,
+                   dwr_bitwise_single=same, **b)
+
+
 def check_grouped_matmul_pbt(results):
     """grouped_matmul at the batched pass's shapes of headline_pbt's
     collect step (B chunks of C rows, 12 policies, bf16): the MLP's first
@@ -2144,6 +2341,7 @@ def kernel_phase():
     check_grouped_matmul(results)
     check_grouped_matmul_pbt(results)
     check_lstm_chunked(results)
+    check_lstm_bwd_chunked(results)
     return results
 
 
@@ -3004,7 +3202,8 @@ def _profile_update(one_update):
     for e in rows:
         if e.key in ("_MHA", "_MHABackward", "_MHAFlash",
                      "_MHAFlashBackward", "_LSTMSequence",
-                     "_LSTMSequenceBackward", "_LSTMSequenceProj",
+                     "_LSTMSequenceBackward", "_LSTMSequenceChunked",
+                     "_LSTMSequenceChunkedBackward", "_LSTMSequenceProj",
                      "_LSTMSequenceProjBackward", "_GRUSequence",
                      "_GRUSequenceBackward"):
             log(f"    {total_ms(e):9.3f} ms {e.count:6d}x  {e.key} "
@@ -3017,7 +3216,8 @@ def _profile_update(one_update):
 TC_ROUTED = ("lstm_sequence_fwd", "lstm_sequence_bwd",
              "lstm_sequence_proj_fwd", "lstm_sequence_proj_bwd",
              "gru_sequence_fwd", "gru_sequence_bwd", "mha",
-             "fused_policy_step", "lstm_sequence_fwd_chunked")
+             "fused_policy_step", "lstm_sequence_fwd_chunked",
+             "lstm_sequence_bwd_chunked")
 
 
 def trainer_phase(card, name, build, per_update, trials, timed_updates,
@@ -3428,6 +3628,12 @@ def _pbt_phase(card, mgr, timer, checks):
     if not mgr.rollout.cfg.policy_chunked:
         raise AssertionError("headline_pbt: the population does not take "
                              "the policy-chunk layout")
+    log(f"  headline_pbt: the population learns "
+        f"{'batched' if mgr.batched_learn else 'on the per-policy loop'} "
+        f"(init_training's rule, rollouts.batched_learn_missing)")
+    if not mgr.batched_learn:
+        raise AssertionError("headline_pbt: the population does not take "
+                             "the batched learn")
     per_update = {k.name: 0 for k in KERNELS}
     per_update.update({
         "gae": 1,
@@ -3438,12 +3644,13 @@ def _pbt_phase(card, mgr, timer, checks):
         # every product: the MLP's two Dense layers, the LSTM's input
         # projection, the actor's head and the critic's (5 a step), the
         # bootstrap without the actor's head (4).
-        "lstm_sequence_fwd_chunked": STEPS_PER_UPDATE + 1,
-        "grouped_matmul": 5 * STEPS_PER_UPDATE + 4,
-        # Learn, policy by policy: the sequence forward and backward once a
-        # minibatch of each train policy.
-        "lstm_sequence_fwd": PBT_TRAIN * NUM_MINIBATCHES,
-        "lstm_sequence_bwd": PBT_TRAIN * NUM_MINIBATCHES})
+        # Learn, batched: one sequence forward and backward a minibatch
+        # over every train policy, each policy's minibatch one chunk of the
+        # chunk-indexed kernels (the MLP's and heads' products in torch.bmm,
+        # no grouped_matmul); no single-policy LSTM kernel.
+        "lstm_sequence_fwd_chunked": STEPS_PER_UPDATE + 1 + NUM_MINIBATCHES,
+        "lstm_sequence_bwd_chunked": NUM_MINIBATCHES,
+        "grouped_matmul": 5 * STEPS_PER_UPDATE + 4})
     agents = NUM_WORLDS * 2
     log(f"headline_pbt trainer: {NUM_WORLDS} worlds x 2 agents, "
         f"{PBT_TRAIN} train + {PBT_PAST} past policies, portions "
@@ -3484,10 +3691,9 @@ def _pbt_phase(card, mgr, timer, checks):
     ratios = [s["max_abs_ratio_dev"].item()
               for s in mgr.first_minibatch_stats]
     log(f"  first update, first minibatch, max |ratio - 1| by train "
-        f"policy: {[f'{r:.3e}' for r in ratios]} (the per-policy loop "
-        f"read 7.2e-7 to 2.4e-5 on an H100 80GB HBM3 at 700 W; the "
-        f"rollout's products now round in grouped_matmul, learn's in "
-        f"cuBLAS)")
+        f"policy: {[f'{r:.3e}' for r in ratios]} (the rollout's products "
+        f"round in grouped_matmul, learn's in cuBLAS's batched products; "
+        f"both pass the recurrence through the chunk-indexed kernels)")
     if not all(r < PBT_RATIO_DEV for r in ratios):
         raise AssertionError(f"headline_pbt: first-minibatch max |ratio - "
                              f"1| {ratios} not all below {PBT_RATIO_DEV}")
@@ -3568,6 +3774,7 @@ def _pbt_phase(card, mgr, timer, checks):
     checks.active = False
     checks.verify()
     ab = _pbt_collect_ab(card, mgr)
+    ab.update(_pbt_learn_ab(card, mgr))
     zeros = torch.zeros((1,), dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3619,6 +3826,100 @@ def _pbt_phase(card, mgr, timer, checks):
 # show: the rollout's products round in grouped_matmul and learn's in
 # cuBLAS, each once to bf16, so a logit may differ by a bf16 ulp.
 PBT_RATIO_DEV = 1e-3
+
+
+def _pbt_learn_ab(card, mgr):
+    """One update's learn of the trained population, from one collect's
+    rollout data and copies of one learn state: batched (the stacks,
+    ``ppo._ppo_population``, the write-back) and on the per-policy loop
+    (``ppo._ppo`` a train policy), each timed (synchronized) with its
+    launches by kernel, and once more under the profiler; then the largest
+    parameter difference between the two. The learn state is restored
+    after."""
+    import copy
+    import torch
+    from madrona_learn_tpu_torch.train_state import StackedTrainState
+
+    hooks, cfg, algo = mgr.user_hooks, mgr.cfg, mgr.algo
+    population = mgr.state.policy_states
+    train_states = mgr.state.train_states
+    P = len(train_states)
+    data, _ = mgr.rollout_mgr.collect(
+        mgr.state, _copy_rollout(mgr.rollout), copy.deepcopy(mgr.metrics),
+        hooks.start_rollouts, hooks.finish_rollouts, hooks.rollout_metrics)
+
+    def snapshot():
+        return [({k: v.detach().clone() for k, v in
+                  population[p].actor_critic.named_parameters()},
+                 copy.deepcopy(ts.opt_state), ts.generator.get_state())
+                for p, ts in enumerate(train_states)]
+
+    def restore(saved):
+        with torch.no_grad():
+            for p, (params, opt, gen) in enumerate(saved):
+                for k, v in population[p].actor_critic.named_parameters():
+                    v.copy_(params[k])
+                train_states[p].opt_state = copy.deepcopy(opt)
+                train_states[p].generator.set_state(gen)
+
+    start = snapshot()
+
+    def learn(path, metrics):
+        if path == "batched":
+            stacked = StackedTrainState.stack(population.policies[:P],
+                                              train_states)
+            algo.update_population(cfg, stacked, data,
+                                   hooks.optimize_metrics, metrics)
+            stacked.write_back()
+        else:
+            for p in range(P):
+                algo.update(cfg, population[p], train_states[p],
+                            data.policy(p), hooks.optimize_metrics,
+                            metrics.for_policy(p))
+
+    def fresh():
+        """The learn state restored, and a copy of the metrics."""
+        restore(start)
+        return copy.deepcopy(mgr.metrics)
+
+    out, after = {}, {}
+    for path in ("batched", "per-policy loop"):
+        learn(path, fresh())   # warm-up
+        metrics = fresh()
+        _zero_launch_counts()
+        _, ms = _timed(lambda: learn(path, metrics))
+        launches = {k: v for k, v in _launch_counts()[0].items() if v}
+        after[path] = snapshot()
+        metrics = fresh()
+        _, n, busy_ms, wall_ms = _count_launches(
+            lambda: learn(path, metrics))
+        out[path] = dict(learn_ms=ms, launches=launches, kernel_ms=busy_ms,
+                         all_launches=n, profiled_wall_ms=wall_ms)
+        log(f"  learn ({path}): {ms:.1f} ms, launches {launches}; "
+            f"profiled: {n} launches, kernels {busy_ms:.1f} ms of "
+            f"{wall_ms:.1f} ms on {card}")
+    restore(start)
+    diff = max((a[k].float() - b[k].float()).abs().max().item()
+               for (a, _, _), (b, _, _) in zip(after["batched"],
+                                               after["per-policy loop"])
+               for k in a)
+    moved = max((a[k].float() - b[k].float()).abs().max().item()
+                for (a, _, _), (b, _, _) in zip(after["per-policy loop"],
+                                                start)
+                for k in a)
+    speedup = out["per-policy loop"]["learn_ms"] / out["batched"]["learn_ms"]
+    log(f"  learn, batched vs per-policy loop: largest parameter "
+        f"difference {diff:.3e} (the loop moved a parameter by up to "
+        f"{moved:.3e}); learn ms, per-policy loop / batched: "
+        f"{speedup:.2f}")
+    # Adam's first steps are about lr * sign(g): where a gradient is near
+    # 0, bf16 products in another order may flip its sign, and the entry
+    # moves the other way; never more than twice the largest move.
+    if not math.isfinite(diff) or diff > 2 * moved:
+        raise AssertionError(f"headline_pbt: the batched learn and the "
+                             f"per-policy loop differ by {diff}, more than "
+                             f"twice the loop's largest move ({moved})")
+    return dict(learn_ab=dict(out, max_param_diff=diff, max_param_move=moved))
 
 
 def _count_launches(fn):

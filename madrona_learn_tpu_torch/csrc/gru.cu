@@ -355,7 +355,7 @@ int launch_bwd(const void* xp, const void* keep, const void* wh,
       static_cast<const T*>(dhp), static_cast<const T*>(ys),
       static_cast<const T*>(keep), static_cast<const T*>(h0),
       static_cast<float*>(part_w), static_cast<float*>(part_b), steps,
-      n_rows, H, 3 * H, rows_per_split);
+      n_rows, H, 3 * H, rows_per_split, n_rows, splits);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   err = sum_splits<T>(part_w, dwh, splits, H * 3 * H, stream);

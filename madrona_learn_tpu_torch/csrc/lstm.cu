@@ -119,6 +119,23 @@
 // Bound as the forward: streaming each block's policy's Wr from L2 a step;
 // the 12 policies' 6 MiB stay resident.
 //
+// The chunk-indexed instance of the backward (lstm_sequence_bwd_chunked,
+// both paths) is the learn step of a population: JAX vmaps algo.update, and
+// with it the backward's pallas_call, over the train policies
+// (madrona_learn_tpu/train.py:315), one chunk a policy's minibatch. The
+// recurrence takes the forward's rows (fwd_rows) and reads its policy's Wr
+// and Wr^T (a [P, 4H, H] stack, one transposed copy a call) the same way,
+// so each row's dx_proj, dh0 and dc0 equal lstm_sequence_bwd's bitwise. A
+// policy's rows t * N + n are not contiguous, so the weight-gradient pass
+// splits each chunk's own T * chunk rows: the tensor-core pass reads them
+// through maps of [T * chunks] slices of [chunk][K] (weight_grad_tc.cuh),
+// the CUDA-core pass by index (weight_grad.cuh), each chunk's splits by the
+// single-policy rule over its rows, and sum_by_policy adds a policy's
+// chunks' partials (db: its chunks' block partials) in chunk order. So a
+// policy's dWr / db do not depend on the other chunks: alone or among 8
+// they are the same bitwise, and where 64 divides the chunk they are the
+// single-policy backward's over the same rows.
+//
 // Bound on the H100: the forward is a chain of [BN, H] x [H, 4H] products
 // (and [BN, F] x [F, 4H]) with a dependency between steps; its memory
 // traffic is one read of x or x_proj and one write of ys/cs per step, 0.12
@@ -169,21 +186,36 @@ __device__ __forceinline__ FwdRows fwd_rows(const int* chunk_policy,
           min(c * chunk + chunk, n_rows), chunk_policy[c]};
 }
 
-// A chunk whose policy lies outside [0, P) (custom policies, which the
-// simulator plays) runs no step and reads no weight: its rows' ys and cs
-// are NaN at every step, as grouped_matmul writes NaN rows for it.
+// NaN into the block's rows of each of the `steps` slices of a [steps,
+// n_rows, width] tensor.
 template <typename T>
-__device__ void fill_nan_rows(T* ys, T* cs, int steps, int n_rows,
-                              int hidden, FwdRows rows, int rows_per_block) {
+__device__ void fill_nan(T* out, int steps, int n_rows, int width,
+                         FwdRows rows, int rows_per_block) {
   const int count = min(rows.first + rows_per_block, rows.end) - rows.first;
   const T nan = from_f<T>(__int_as_float(0x7fc00000));
   for (int t = 0; t < steps; ++t)
-    for (int e = threadIdx.x; e < count * hidden; e += blockDim.x) {
-      const size_t o =
-          (static_cast<size_t>(t) * n_rows + rows.first) * hidden + e;
-      ys[o] = nan;
-      cs[o] = nan;
-    }
+    for (int e = threadIdx.x; e < count * width; e += blockDim.x)
+      out[(static_cast<size_t>(t) * n_rows + rows.first) * width + e] = nan;
+}
+
+// A chunk whose policy lies outside [0, P) (custom policies, which the
+// simulator plays) runs no step and reads no weight: its rows' ys and cs
+// are NaN at every step, as grouped_matmul writes NaN rows for it; in the
+// backward its dx_proj, dh0 and dc0, and it adds to no policy's dWr / db.
+template <typename T>
+__device__ void fill_nan_rows(T* ys, T* cs, int steps, int n_rows,
+                              int hidden, FwdRows rows, int rows_per_block) {
+  fill_nan(ys, steps, n_rows, hidden, rows, rows_per_block);
+  fill_nan(cs, steps, n_rows, hidden, rows, rows_per_block);
+}
+
+template <typename T>
+__device__ void fill_nan_bwd_rows(T* dx, T* dh0, T* dc0, int steps,
+                                  int n_rows, int hidden, FwdRows rows,
+                                  int rows_per_block) {
+  fill_nan(dx, steps, n_rows, 4 * hidden, rows, rows_per_block);
+  fill_nan(dh0, 1, n_rows, hidden, rows, rows_per_block);
+  fill_nan(dc0, 1, n_rows, hidden, rows, rows_per_block);
 }
 
 template <typename T, int H>
@@ -479,7 +511,8 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
     const T* __restrict__ bias, const T* __restrict__ c0,
     const T* __restrict__ h0, const T* __restrict__ ys,
     const T* __restrict__ cs, const T* __restrict__ dys, T* __restrict__ dxp,
-    T* __restrict__ dh0, T* __restrict__ dc0, int steps, int n_rows) {
+    T* __restrict__ dh0, T* __restrict__ dc0, int steps, int n_rows,
+    const int* __restrict__ chunk_policy, int chunk, int num_policies) {
   constexpr int UPT = H / kUnitGroups;
   constexpr int RPT = kRowsPerThread;
   constexpr int G4 = 4 * H;
@@ -487,11 +520,22 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
   float* hin_s = smem;                 // [BN][H]  h entering step t
   float* dg_s = smem + kRows * H;      // [BN][4H] dgates of step t
 
+  // The block's rows and policy, as the forward's (fwd_rows).
+  const FwdRows rows = fwd_rows(chunk_policy, chunk, kRows, n_rows);
+  if (rows.policy < 0 || rows.policy >= num_policies) {
+    fill_nan_bwd_rows(dxp, dh0, dc0, steps, n_rows, H, rows, kRows);
+    return;
+  }
+  wr += static_cast<size_t>(rows.policy) * H * G4;
+  wr_t += static_cast<size_t>(rows.policy) * G4 * H;
+  bias += static_cast<size_t>(rows.policy) * G4;
+  const int row_end = rows.end;
+
   const int ug = threadIdx.x % kUnitGroups;
   const int rg = threadIdx.x / kUnitGroups;
   const int u0 = ug * UPT;
   const int row_base = rg * RPT;
-  const int block_row = blockIdx.x * kRows;
+  const int block_row = rows.first;
 
   float b[4][UPT];
 #pragma unroll
@@ -518,13 +562,13 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
     for (int i = 0; i < RPT; ++i) {
       const int n = block_row + row_base + i;
       keep_prev[i] = false;
-      if (n < n_rows && t > 0)
+      if (n < row_end && t > 0)
         keep_prev[i] =
             to_f(keep[static_cast<size_t>(t - 1) * n_rows + n]) > 0.5f;
 #pragma unroll
       for (int j = 0; j < UPT; ++j) {
         float h_v = 0.0f, c_v = 0.0f;
-        if (n < n_rows) {
+        if (n < row_end) {
           if (t == 0) {
             const size_t idx = static_cast<size_t>(n) * H + u0 + j;
             h_v = to_f(h0[idx]);
@@ -551,7 +595,7 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
     for (int i = 0; i < RPT; ++i) {
       const int n = block_row + row_base + i;
       const int r = row_base + i;
-      if (n >= n_rows) {
+      if (n >= row_end) {
 #pragma unroll
         for (int j = 0; j < UPT; ++j) {
 #pragma unroll
@@ -602,7 +646,7 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
       const int n = block_row + row_base + i;
 #pragma unroll
       for (int j = 0; j < UPT; ++j) {
-        if (t == 0 && n < n_rows) {
+        if (t == 0 && n < row_end) {
           const size_t idx = static_cast<size_t>(n) * H + u0 + j;
           dh0[idx] = from_f<T>(dh_prev[i][0][j]);
           dc0[idx] = from_f<T>(dc_prev[i][j]);
@@ -719,21 +763,33 @@ __global__ void __launch_bounds__(kThreads) lstm_proj_bwd_kernel(
 }
 
 // dWr and db from the dgates of the whole sequence: partials, then sums.
+// With chunks (chunk_policy non-null), `splits` partials a chunk over its
+// own T * chunk rows, and each policy's sums over its chunks
+// ([num_policies, H, 4H] and [num_policies, 4H]).
 template <typename T, int H>
 int launch_dwr(const void* dg, const void* ys, const void* keep,
                const void* h0, void* part_w, void* part_b, void* dwr,
                void* db, int steps, int n_rows, int splits,
-               cudaStream_t stream) {
-  const long long total = static_cast<long long>(steps) * n_rows;
+               cudaStream_t stream, const void* chunk_policy = nullptr,
+               int num_chunks = 1, int chunk = 0, int num_policies = 1) {
+  if (chunk_policy == nullptr) chunk = n_rows;
+  const long long total = static_cast<long long>(steps) * chunk;
   const int rows_per_split = static_cast<int>((total + splits - 1) / splits);
-  const dim3 grid(4 * H / kTileJ, H / kTileI, splits);
+  const dim3 grid(4 * H / kTileJ, H / kTileI, num_chunks * splits);
   weight_grad_partial_kernel<T, true><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(dg), static_cast<const T*>(ys),
       static_cast<const T*>(keep), static_cast<const T*>(h0),
       static_cast<float*>(part_w), static_cast<float*>(part_b), steps,
-      n_rows, H, 4 * H, rows_per_split);
+      n_rows, H, 4 * H, rows_per_split, chunk, splits);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
+  if (chunk_policy != nullptr) {
+    err = sum_by_policy<T>(part_w, dwr, chunk_policy, num_chunks, splits,
+                           num_policies, H * 4 * H, stream);
+    if (err != 0) return err;
+    return sum_by_policy<T>(part_b, db, chunk_policy, num_chunks, splits,
+                            num_policies, 4 * H, stream);
+  }
   err = sum_splits<T>(part_w, dwr, splits, H * 4 * H, stream);
   if (err != 0) return err;
   return sum_splits<T>(part_b, db, splits, 4 * H, stream);
@@ -766,17 +822,22 @@ int launch_fwd(const void* xp, const void* keep, const void* wr,
   return static_cast<int>(cudaGetLastError());
 }
 
+// chunk_policy null: one policy; else the chunk-indexed instance
+// (lstm_sequence_bwd_chunked), `splits` weight-gradient partials a chunk.
 template <typename T, int H>
 int launch_bwd(const void* xp, const void* keep, const void* wr,
                const void* wr_t, const void* bias, const void* c0,
                const void* h0, const void* ys, const void* cs,
                const void* dys, void* dxp, void* dh0, void* dc0,
                void* part_w, void* part_b, void* dwr, void* db, int steps,
-               int n_rows, int splits, cudaStream_t stream) {
+               int n_rows, int splits, cudaStream_t stream,
+               const void* chunk_policy = nullptr, int num_chunks = 1,
+               int chunk = 0, int num_policies = 1) {
   const int smem = kRows * 5 * H * static_cast<int>(sizeof(float));
   int err = set_smem(lstm_bwd_kernel<T, H>, smem);
   if (err != 0) return err;
-  const int blocks = (n_rows + kRows - 1) / kRows;
+  const int blocks =
+      fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, kRows);
   lstm_bwd_kernel<T, H><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(xp), static_cast<const T*>(keep),
       static_cast<const T*>(wr), static_cast<const T*>(wr_t),
@@ -784,11 +845,13 @@ int launch_bwd(const void* xp, const void* keep, const void* wr,
       static_cast<const T*>(h0), static_cast<const T*>(ys),
       static_cast<const T*>(cs), static_cast<const T*>(dys),
       static_cast<T*>(dxp), static_cast<T*>(dh0), static_cast<T*>(dc0),
-      steps, n_rows);
+      steps, n_rows, static_cast<const int*>(chunk_policy), chunk,
+      num_policies);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   return launch_dwr<T, H>(dxp, ys, keep, h0, part_w, part_b, dwr, db, steps,
-                          n_rows, splits, stream);
+                          n_rows, splits, stream, chunk_policy, num_chunks,
+                          chunk, num_policies);
 }
 
 template <typename T, int H>
@@ -843,7 +906,7 @@ int launch_proj_bwd(const void* x, const void* keep, const void* wi,
   weight_grad_partial_kernel<T, false><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(dg), static_cast<const T*>(x), nullptr, nullptr,
       static_cast<float*>(part_wi), nullptr, steps, n_rows, f_in, 4 * H,
-      rows_per_split);
+      rows_per_split, n_rows, splits);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   return sum_splits<T>(part_wi, dwi, splits, f_in * 4 * H, stream);
@@ -955,7 +1018,8 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
                        bf16* __restrict__ dg, bf16* __restrict__ hin,
                        bf16* __restrict__ dh0, bf16* __restrict__ dc0,
                        float* __restrict__ part_b, int steps, int n_rows,
-                       int f_in) {
+                       int f_in, const int* __restrict__ chunk_policy,
+                       int chunk, int num_policies) {
   using L = TcBwd<H, R>;
   constexpr int G4 = 4 * H;
   constexpr int S = L::kStages;
@@ -976,11 +1040,24 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
   const uint32_t dys_s = cs_s + L::kTileBytes;
   const uint32_t cin_s = dys_s + L::kTileBytes;
 
+  // The block's rows and policy (fwd_rows, as the chunked forward's); a
+  // chunk of no policy is skipped before any barrier. The maps span the
+  // [P, ...] stacks (P = 1 without chunks); the policy is the third
+  // coordinate.
+  const FwdRows rows = fwd_rows(chunk_policy, chunk, R, n_rows);
+  if (rows.policy < 0 || rows.policy >= num_policies) {
+    fill_nan_bwd_rows(dg, dh0, dc0, steps, n_rows, H, rows, R);
+    return;
+  }
+  bias += static_cast<size_t>(rows.policy) * G4;
+  const int row_end = rows.end;
+  const int pol = rows.policy;
+
   const int tid = threadIdx.x;
   const int wg = tid / 128, lane = tid % 32;
   const int lt = lane % 4;
   const int unit0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
-  const int block_row = blockIdx.x * R;
+  const int block_row = rows.first;
 
   // The weight slices of one step, in the order the step consumes them:
   // Wi^T by (F-chunk, gate), Wr^T by (H-chunk, gate), Wr by 4H-chunk, Wi by
@@ -999,21 +1076,22 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
   auto issue = [&](int q, uint32_t dst, uint64_t* bar) {
     int p = q % step_loads;
     if (p < xp_loads) {
-      tma_load_3d(dst, wit, bar, (p / 4) * kTcK, (p % 4) * H, 0);
+      tma_load_3d(dst, wit, bar, (p / 4) * kTcK, (p % 4) * H, pol);
       return;
     }
     p -= xp_loads;
     if (p < g_loads) {
-      tma_load_3d(dst, wrt, bar, (p / 4) * kTcK, (p % 4) * H, 0);
+      tma_load_3d(dst, wrt, bar, (p / 4) * kTcK, (p % 4) * H, pol);
       return;
     }
     p -= g_loads;
     if (p < d_loads) {
-      tma_load_3d(dst, wrm, bar, p * kTcK, 0, 0);
+      tma_load_3d(dst, wrm, bar, p * kTcK, 0, pol);
       return;
     }
     p -= d_loads;
-    tma_load_3d(dst, wim, bar, (p % d_loads) * kTcK, (p / d_loads) * H, 0);
+    tma_load_3d(dst, wim, bar, (p % d_loads) * kTcK, (p / d_loads) * H,
+                pol);
   };
   SliceRing<S> slices{full, empty, ring, L::kStageBytes, total, 0};
   if (tid == 0) slices.init(L::kWarps);
@@ -1067,7 +1145,7 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
     for (int e = tid; e < R * (H / 8); e += L::kThreads) {
       const int n = e / (H / 8), c = e % (H / 8);
       const int row = block_row + n;
-      const bool live = row < n_rows;
+      const bool live = row < row_end;
       bool kept = live;
       const bf16* hs = h0;
       const bf16* cp = c0;
@@ -1092,7 +1170,7 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
     for (int e = tid; e < R * (x_width / 8); e += L::kThreads) {
       const int n = e / (x_width / 8), c = e % (x_width / 8);
       const int row = block_row + n;
-      const bool live = row < n_rows;
+      const bool live = row < row_end;
       cp_async16(dg_s + kmaj_off<R>(n, c * 8),
                  x + (live ? (trow + row) * x_width + c * 8 : 0), live);
     }
@@ -1111,7 +1189,7 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
     for (int e = tid; e < R * (H / 8); e += L::kThreads) {
       const int n = e / (H / 8), c = e % (H / 8);
       const int row = block_row + n;
-      if (row < n_rows)
+      if (row < row_end)
         *reinterpret_cast<uint4*>(hin + (trow + row) * H + c * 8) =
             *reinterpret_cast<const uint4*>(hin_p + kmaj_off<R>(n, c * 8));
     }
@@ -1121,7 +1199,7 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = block_row + 8 * j + 2 * lt + e;
-        if (t > 0 && row < n_rows &&
+        if (t > 0 && row < row_end &&
             __bfloat162float(keep[prow + row]) > 0.5f)
           keep_prev |= 1u << (2 * j + e);
       }
@@ -1143,7 +1221,7 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int i = 4 * j + 2 * s + e;
-          const bool live = block_row + 8 * j + 2 * lt + e < n_rows;
+          const bool live = block_row + 8 * j + 2 * lt + e < row_end;
           uint8_t* dgo = dg_p + kb[s][e] + j * 1024;
           const uint32_t ro = rb[s][e] + j * 16 * H;
           constexpr int kGate = (H / 64) * L::kSub;   // gate stride
@@ -1186,7 +1264,7 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
     for (int e = tid; e < R * (G4 / 8); e += L::kThreads) {
       const int n = e / (G4 / 8), c = e % (G4 / 8);
       const int row = block_row + n;
-      if (row < n_rows)
+      if (row < row_end)
         *reinterpret_cast<uint4*>(dg + (trow + row) * G4 + c * 8) =
             *reinterpret_cast<const uint4*>(dg_p + kmaj_off<R>(n, c * 8));
     }
@@ -1219,7 +1297,7 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
                 const int row = block_row + 8 * j + 2 * lt + e;
-                if (row < n_rows)
+                if (row < row_end)
                   dx[(trow + row) * f_in + f0 + (unit0 % 64) + 8 * s] =
                       __float2bfloat16_rn(dxa[4 * j + 2 * s + e]);
               }
@@ -1238,7 +1316,7 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
           const int i = 4 * j + 2 * s + e;
           const int row = block_row + 8 * j + 2 * lt + e;
           const size_t idx = static_cast<size_t>(row) * H + unit0 + 8 * s;
-          if (t == 0 && row < n_rows) {
+          if (t == 0 && row < row_end) {
             dh0[idx] = __float2bfloat16_rn(dhp[i]);
             dc0[idx] = __float2bfloat16_rn(dc[i]);
           }
@@ -1274,19 +1352,22 @@ int launch_bwd_tc(int phases, const void* x, const void* keep,
                   const void* dys, void* dx, void* dg, void* hin, void* dh0,
                   void* dc0, void* part_w, void* part_b, void* dw, void* db,
                   int steps, int n_rows, int f_in, int splits,
-                  cudaStream_t stream) {
+                  cudaStream_t stream, const void* chunk_policy = nullptr,
+                  int num_chunks = 1, int chunk = 0, int num_policies = 1) {
   constexpr int R = kTcRows<kProj>;
   using L = TcBwd<H, R>;
-  const int blocks = (n_rows + R - 1) / R;
+  const int blocks = fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, R);
   const int total_rows = steps * n_rows;
+  // Without the projection, wit / wi alias Wr^T / Wr and are never read.
+  const int wi_stack = kProj ? 1 : num_policies;
   if (phases & 1) {
     CUtensorMap wit_map, wrt_map, wr_map, wi_map;
-    if (!make_tma_map(&wrt_map, wr_t, H, 4 * H, 1, kTcK, H) ||
-        !make_tma_map(&wr_map, wr, 4 * H, H, 1, kTcK, H) ||
+    if (!make_tma_map(&wrt_map, wr_t, H, 4 * H, num_policies, kTcK, H) ||
+        !make_tma_map(&wr_map, wr, 4 * H, H, num_policies, kTcK, H) ||
         !make_tma_map(&wit_map, kProj ? wi_t : wr_t, kProj ? f_in : H, 4 * H,
-                      1, kTcK, H) ||
-        !make_tma_map(&wi_map, kProj ? wi : wr, 4 * H, kProj ? f_in : H, 1,
-                      kTcK, H))
+                      wi_stack, kTcK, H) ||
+        !make_tma_map(&wi_map, kProj ? wi : wr, 4 * H, kProj ? f_in : H,
+                      wi_stack, kTcK, H))
       return static_cast<int>(cudaErrorInvalidValue);
     int err = set_smem(lstm_bwd_tc_kernel<H, R, kProj>, L::kSmem);
     if (err != 0) return err;
@@ -1299,9 +1380,25 @@ int launch_bwd_tc(int phases, const void* x, const void* keep,
         static_cast<const bf16*>(dys), static_cast<bf16*>(dx),
         static_cast<bf16*>(dg), static_cast<bf16*>(hin),
         static_cast<bf16*>(dh0), static_cast<bf16*>(dc0),
-        static_cast<float*>(part_b), steps, n_rows, f_in);
+        static_cast<float*>(part_b), steps, n_rows, f_in,
+        static_cast<const int*>(chunk_policy), chunk, num_policies);
     err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
+  }
+  if ((phases & 2) && chunk_policy != nullptr) {
+    // dWr of each policy from its chunks' own splits of boxes (never a box
+    // of two chunks: weight_grad_tc.cuh), db from its chunks' blocks.
+    int used = 0;
+    int err = weight_grad_tc_partials(hin, H, nullptr, H, dg, 4 * H, steps,
+                                      chunk, num_chunks, splits, part_w,
+                                      &used, stream);
+    if (err != 0) return err;
+    err = sum_by_policy<bf16>(part_w, dw, chunk_policy, num_chunks, used,
+                              num_policies, H * 4 * H, stream);
+    if (err != 0) return err;
+    return sum_by_policy<bf16>(part_b, db, chunk_policy, num_chunks,
+                               blocks / num_chunks, num_policies, 4 * H,
+                               stream);
   }
   if (phases & 2) {
     // dW = [x | h_in]^T . dg ([F + H, 4H], dWi over dWr) for the
@@ -1743,6 +1840,54 @@ extern "C" int mlt_lstm_fwd_chunked(int tensor_core, int dtype, int hidden,
                    chunk_policy, num_chunks, chunk, num_policies)
   MLT_DISPATCH_F32_F16(MLT_FWD_CHUNKED);
 #undef MLT_FWD_CHUNKED
+}
+
+// lstm_sequence_bwd_chunked: the backward of lstm_sequence_fwd_chunked over
+// [num_chunks * chunk] rows, chunk c with the weights of policy
+// chunk_policy[c] of the [num_policies, H, 4H] stacks wr and wr_t (Wr^T a
+// policy, [num_policies, 4H, H]) and [num_policies, 4H] bias: dxp, dh0, dc0
+// a row, each row's bitwise lstm_sequence_bwd's with its policy's weights
+// (a chunk of no policy: NaN rows), and dwr [num_policies, H, 4H] / db
+// [num_policies, 4H], a policy's summed over its chunks' `splits` partials
+// each (0 for a policy without a chunk). tensor_core 1 takes the bf16
+// tensor-core recurrence and weight-gradient pass (hin: [T, N, H] scratch;
+// part_w [num_chunks * splits, H, 4H], part_b [num_chunks * ceil(chunk /
+// 16), 4H]), 0 the float32 CUDA-core kernels (hin unused; part_w and
+// part_b [num_chunks * splits, ...]). Returns a cudaError_t, or -1 for
+// arguments without an instantiation.
+extern "C" int mlt_lstm_bwd_chunked(
+    int tensor_core, int dtype, int hidden, const void* xp, const void* keep,
+    const void* wr, const void* wr_t, const void* bias,
+    const void* chunk_policy, const void* c0, const void* h0, const void* ys,
+    const void* cs, const void* dys, void* dxp, void* hin, void* dh0,
+    void* dc0, void* part_w, void* part_b, void* dwr, void* db, int steps,
+    int num_chunks, int chunk, int num_policies, int splits, void* stream) {
+  const long long n = static_cast<long long>(num_chunks) * chunk;
+  if (num_chunks <= 0 || chunk <= 0 || num_policies <= 0 || splits <= 0 ||
+      num_policies > 65535 || n * steps > 0x7fffffffLL)
+    return -1;
+  const int n_rows = static_cast<int>(n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_core) {
+    if (dtype != 1) return -1;
+#define MLT_BWD_CHUNKED_TC(H)                                               \
+  if (hidden == H)                                                         \
+    return launch_bwd_tc<H, false>(3, xp, keep, wr, wr_t, wr, wr_t, bias,   \
+                                   c0, h0, ys, cs, dys, dxp, dxp, hin, dh0, \
+                                   dc0, part_w, part_b, dwr, db, steps,     \
+                                   n_rows, 0, splits, s, chunk_policy,      \
+                                   num_chunks, chunk, num_policies)
+    MLT_BWD_CHUNKED_TC(128);
+    MLT_BWD_CHUNKED_TC(256);
+#undef MLT_BWD_CHUNKED_TC
+    return -1;
+  }
+#define MLT_BWD_CHUNKED(T, H)                                              \
+  launch_bwd<T, H>(xp, keep, wr, wr_t, bias, c0, h0, ys, cs, dys, dxp, dh0, \
+                   dc0, part_w, part_b, dwr, db, steps, n_rows, splits, s,  \
+                   chunk_policy, num_chunks, chunk, num_policies)
+  MLT_DISPATCH_F32(MLT_BWD_CHUNKED);
+#undef MLT_BWD_CHUNKED
 }
 
 #undef MLT_DISPATCH_F32_F16

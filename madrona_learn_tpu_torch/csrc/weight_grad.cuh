@@ -1,11 +1,14 @@
 // The split-M weight-gradient pass shared by the recurrent backward
 // kernels (lstm.cu, gru.cu): f32 partials of a^T . dg over contiguous
 // splits of the T*N rows, then a fixed-order sum over the splits, so the
-// result is the same run to run. Each .cu file is its own translation
-// unit, so the templates live here, static (one private copy per file, as
-// when they were defined in lstm.cu's unnamed namespace; an unnamed
-// namespace here, inside mlt, makes nvcc's launch stubs ambiguous in files
-// that have their own).
+// result is the same run to run. The chunk-indexed LSTM backward
+// (lstm_sequence_bwd_chunked) takes the N rows as chunks of one policy
+// each: every chunk's T*chunk rows are split on their own, and
+// sum_by_policy adds a policy's chunks' partials in chunk order. Each .cu
+// file is its own translation unit, so the templates live here, static
+// (one private copy per file, as when they were defined in lstm.cu's
+// unnamed namespace; an unnamed namespace here, inside mlt, makes nvcc's
+// launch stubs ambiguous in files that have their own).
 
 #pragma once
 
@@ -20,6 +23,10 @@ namespace mlt {
 // recurrence saw it (a_width = H); else a is a row-major [M, a_width]
 // matrix (x of the projection). Tile: 64 (i) x 64 (j) per block, 4 x 4 per
 // thread, rows staged through shared memory kTileM at a time.
+// The rows are taken as chunks of `chunk` of the N (chunk = N: one chunk),
+// each split over its own T * chunk rows, j = t * chunk + n in step order:
+// grid z = chunk index * chunk_splits + split, and part_w / part_b hold
+// one partial a z.
 constexpr int kTileI = 64;
 constexpr int kTileJ = 64;
 constexpr int kTileM = 32;
@@ -29,13 +36,15 @@ static __global__ void __launch_bounds__(kThreads) weight_grad_partial_kernel(
     const T* __restrict__ dg, const T* __restrict__ a,
     const T* __restrict__ keep, const T* __restrict__ h0,
     float* __restrict__ part_w, float* __restrict__ part_b, int steps,
-    int n_rows, int a_width, int g4, int rows_per_split) {
+    int n_rows, int a_width, int g4, int rows_per_split, int chunk,
+    int chunk_splits) {
   __shared__ __align__(16) float a_s[kTileM][kTileI];
   __shared__ __align__(16) float b_s[kTileM][kTileJ];
   const int j0 = blockIdx.x * kTileJ;
   const int i0 = blockIdx.y * kTileI;
-  const int split = blockIdx.z;
-  const long long total = static_cast<long long>(steps) * n_rows;
+  const int split = blockIdx.z % chunk_splits;
+  const int first_row = (blockIdx.z / chunk_splits) * chunk;
+  const long long total = static_cast<long long>(steps) * chunk;
   const long long m_begin = static_cast<long long>(split) * rows_per_split;
   long long m_end = m_begin + rows_per_split;
   if (m_end > total) m_end = total;
@@ -58,20 +67,21 @@ static __global__ void __launch_bounds__(kThreads) weight_grad_partial_kernel(
       const long long m = m0 + mm;
       float av = 0.0f, gv = 0.0f;
       if (m < m_end) {
+        const int t = static_cast<int>(m / chunk);
+        const int n = first_row + static_cast<int>(m % chunk);
+        const size_t row = static_cast<size_t>(t) * n_rows + n;
         if (kHin) {
-          const int t = static_cast<int>(m / n_rows);
-          const int n = static_cast<int>(m % n_rows);
           if (t == 0) {
             av = to_f(h0[static_cast<size_t>(n) * a_width + i0 + col]);
           } else {
-            const size_t prev = static_cast<size_t>(t - 1) * n_rows + n;
+            const size_t prev = row - n_rows;
             if (to_f(keep[prev]) > 0.5f)
               av = to_f(a[prev * a_width + i0 + col]);
           }
         } else {
-          av = to_f(a[static_cast<size_t>(m) * a_width + i0 + col]);
+          av = to_f(a[row * a_width + i0 + col]);
         }
-        gv = to_f(dg[static_cast<size_t>(m) * g4 + j0 + col]);
+        gv = to_f(dg[row * g4 + j0 + col]);
       }
       a_s[mm][col] = av;
       b_s[mm][col] = gv;
@@ -95,7 +105,7 @@ static __global__ void __launch_bounds__(kThreads) weight_grad_partial_kernel(
     __syncthreads();
   }
 
-  float* out = part_w + static_cast<size_t>(split) * a_width * g4;
+  float* out = part_w + static_cast<size_t>(blockIdx.z) * a_width * g4;
 #pragma unroll
   for (int p = 0; p < 4; ++p)
 #pragma unroll
@@ -105,7 +115,8 @@ static __global__ void __launch_bounds__(kThreads) weight_grad_partial_kernel(
   if (part_b != nullptr && blockIdx.y == 0 && ti == 0) {
 #pragma unroll
     for (int q = 0; q < 4; ++q)
-      part_b[static_cast<size_t>(split) * g4 + j0 + tj * 4 + q] = acc_b[q];
+      part_b[static_cast<size_t>(blockIdx.z) * g4 + j0 + tj * 4 + q] =
+          acc_b[q];
   }
 }
 
@@ -127,6 +138,39 @@ static int sum_splits(const void* part, void* out, int splits, int count,
   sum_splits_kernel<T><<<(count + kThreads - 1) / kThreads, kThreads, 0,
                          stream>>>(static_cast<const float*>(part),
                                    static_cast<T*>(out), splits, count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[p][e] (p < num_policies) = the sum over the chunks c of policy p
+// (chunk_policy[c] == p), in chunk order, of their per_chunk partials
+// part[c * per_chunk + k][e] in order; 0 for a policy that owns no chunk.
+// With one chunk this is sum_splits over its partials, bitwise.
+template <typename T>
+static __global__ void sum_by_policy_kernel(const float* __restrict__ part,
+                                            T* __restrict__ out,
+                                            const int* __restrict__ chunk_policy,
+                                            int num_chunks, int per_chunk,
+                                            int count) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const int p = blockIdx.y;
+  if (e >= count) return;
+  float s = 0.0f;
+  for (int c = 0; c < num_chunks; ++c) {
+    if (chunk_policy[c] != p) continue;
+    for (int k = 0; k < per_chunk; ++k)
+      s += part[(static_cast<size_t>(c) * per_chunk + k) * count + e];
+  }
+  out[static_cast<size_t>(p) * count + e] = from_f<T>(s);
+}
+
+template <typename T>
+static int sum_by_policy(const void* part, void* out, const void* chunk_policy,
+                         int num_chunks, int per_chunk, int num_policies,
+                         int count, cudaStream_t stream) {
+  const dim3 grid((count + kThreads - 1) / kThreads, num_policies);
+  sum_by_policy_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<T*>(out),
+      static_cast<const int*>(chunk_policy), num_chunks, per_chunk, count);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -52,24 +52,26 @@ constexpr int kWgStageBytes = 2 * kWgABytes;    // a and dg slices
 constexpr int kWgSmem = kWgStages * kWgStageBytes + 1024;   // + alignment
 static_assert(2 * (kWgSmem + 1024) <= 233472, "two blocks an SM");
 
-// Grid: (G / 128 j-tiles, a_width / 128 i-tiles, splits).
+// Grid: (G / 128 j-tiles, a_width / 128 i-tiles, chunks * splits).
 static __global__ void __launch_bounds__(kWgThreads, 2)
     weight_grad_tc_kernel(const __grid_constant__ CUtensorMap a0_map,
                           const __grid_constant__ CUtensorMap a1_map,
                           const __grid_constant__ CUtensorMap dg_map,
                           float* __restrict__ part, int a0_width,
-                          int a_width, int g, int total_rows,
-                          int rows_per_split) {
+                          int a_width, int g, int chunk_tiles, int k_total,
+                          int tiles_per_split, int num_chunks) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kWgStages];
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
 
   const int j0 = blockIdx.x * kWgTile;
   const int i0 = blockIdx.y * kWgTile;
-  const int split = blockIdx.z;
-  const int m_begin = split * rows_per_split;
-  const int m_end = min(total_rows, m_begin + rows_per_split);
-  const int k_tiles = (m_end - m_begin + kWgK - 1) / kWgK;
+  // Chunk c's split: its k-tiles [k_begin, k_begin + k_tiles); k-tile q is
+  // rows 64 (q % chunk_tiles) .. of the chunk at step q / chunk_tiles.
+  const int splits = gridDim.z / num_chunks;
+  const int c = blockIdx.z / splits;
+  const int k_begin = (blockIdx.z % splits) * tiles_per_split;
+  const int k_tiles = min(k_total, k_begin + tiles_per_split) - k_begin;
   const bool from_a0 = i0 < a0_width;
   const CUtensorMap* am = from_a0 ? &a0_map : &a1_map;
   const int ai0 = from_a0 ? i0 : i0 - a0_width;
@@ -86,12 +88,14 @@ static __global__ void __launch_bounds__(kWgThreads, 2)
     const int s = kt % kWgStages;
     const uint32_t a = ring + s * kWgStageBytes;
     const uint32_t b = a + kWgABytes;
-    const int m0 = m_begin + kt * kWgK;
+    const int q = k_begin + kt;
+    const int r0 = (q % chunk_tiles) * kWgK;
+    const int z = (q / chunk_tiles) * num_chunks + c;
     mbar_arrive_expect_tx(&full[s], kWgStageBytes);
-    tma_load_3d(a, am, &full[s], ai0, m0, 0);
-    tma_load_3d(a + kWgABytes / 2, am, &full[s], ai0 + 64, m0, 0);
-    tma_load_3d(b, gm, &full[s], j0, m0, 0);
-    tma_load_3d(b + kWgABytes / 2, gm, &full[s], j0 + 64, m0, 0);
+    tma_load_3d(a, am, &full[s], ai0, r0, z);
+    tma_load_3d(a + kWgABytes / 2, am, &full[s], ai0 + 64, r0, z);
+    tma_load_3d(b, gm, &full[s], j0, r0, z);
+    tma_load_3d(b + kWgABytes / 2, gm, &full[s], j0 + 64, r0, z);
   };
   if (tid == 0)
     for (int kt = 0; kt < min(kWgStages, k_tiles); ++kt) issue(kt);
@@ -130,7 +134,7 @@ static __global__ void __launch_bounds__(kWgThreads, 2)
   // Rows i0 + 64 wg + 16 w + l / 4 (+ 8), columns 8 j + 2 (l % 4) (+ 1).
   const int lane = tid % 32;
   const int r0 = i0 + wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
-  float* out = part + static_cast<size_t>(split) * a_width * g;
+  float* out = part + static_cast<size_t>(blockIdx.z) * a_width * g;
 #pragma unroll
   for (int j = 0; j < kWgTile / 8; ++j)
 #pragma unroll
@@ -141,30 +145,48 @@ static __global__ void __launch_bounds__(kWgThreads, 2)
                                         acc[4 * j + 2 * h + 1]);
 }
 
+// The split partials part [num_chunks * used, a_width, g] (f32 scratch) of
+// rows laid out [steps][num_chunks][chunk] (kernel comment), each chunk's
+// boxes in `splits` splits; `used` (<= splits) of them hold boxes.
+static int weight_grad_tc_partials(const void* a0, int a0_width,
+                                   const void* a1, int a_width,
+                                   const void* dg, int g, int steps,
+                                   int chunk, int num_chunks, int splits,
+                                   void* part, int* used,
+                                   cudaStream_t stream) {
+  const int chunk_tiles = (chunk + kWgK - 1) / kWgK;
+  const int k_total = steps * chunk_tiles;
+  const int tiles_per_split = (k_total + splits - 1) / splits;
+  *used = (k_total + tiles_per_split - 1) / tiles_per_split;
+  const int slices = steps * num_chunks;
+  CUtensorMap a0_map, a1_map, dg_map;
+  const int a1_width = a_width - a0_width;
+  if (!make_tma_map(&a0_map, a0, a0_width, chunk, slices, 64, kWgK) ||
+      !make_tma_map(&a1_map, a1 != nullptr ? a1 : a0,
+                    a1 != nullptr ? a1_width : a0_width, chunk, slices, 64,
+                    kWgK) ||
+      !make_tma_map(&dg_map, dg, g, chunk, slices, 64, kWgK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = set_smem(weight_grad_tc_kernel, kWgSmem);
+  if (err != 0) return err;
+  const dim3 grid(g / kWgTile, a_width / kWgTile, num_chunks * *used);
+  weight_grad_tc_kernel<<<grid, kWgThreads, kWgSmem, stream>>>(
+      a0_map, a1_map, dg_map, static_cast<float*>(part), a0_width, a_width,
+      g, chunk_tiles, k_total, tiles_per_split, num_chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // dW [a_width, g] (bf16) from the split partials part [splits, a_width, g]
-// (f32 scratch): the products, then the fixed-order sum.
+// (f32 scratch) over all total_rows rows: the products, then the
+// fixed-order sum.
 static int weight_grad_tc(const void* a0, int a0_width, const void* a1,
                           int a_width, const void* dg, int g, int total_rows,
                           int splits, void* part, void* dw,
                           cudaStream_t stream) {
-  const int rows_per_split =
-      ((total_rows + splits - 1) / splits + kWgK - 1) / kWgK * kWgK;
-  const int used = (total_rows + rows_per_split - 1) / rows_per_split;
-  CUtensorMap a0_map, a1_map, dg_map;
-  const int a1_width = a_width - a0_width;
-  if (!make_tma_map(&a0_map, a0, a0_width, total_rows, 1, 64, kWgK) ||
-      !make_tma_map(&a1_map, a1 != nullptr ? a1 : a0,
-                    a1 != nullptr ? a1_width : a0_width, total_rows, 1, 64,
-                    kWgK) ||
-      !make_tma_map(&dg_map, dg, g, total_rows, 1, 64, kWgK))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int err = set_smem(weight_grad_tc_kernel, kWgSmem);
-  if (err != 0) return err;
-  const dim3 grid(g / kWgTile, a_width / kWgTile, used);
-  weight_grad_tc_kernel<<<grid, kWgThreads, kWgSmem, stream>>>(
-      a0_map, a1_map, dg_map, static_cast<float*>(part), a0_width, a_width,
-      g, total_rows, rows_per_split);
-  err = static_cast<int>(cudaGetLastError());
+  int used = 0;
+  const int err = weight_grad_tc_partials(a0, a0_width, a1, a_width, dg, g,
+                                          1, total_rows, 1, splits, part,
+                                          &used, stream);
   if (err != 0) return err;
   return sum_splits<__nv_bfloat16>(part, dw, used, a_width * g, stream);
 }

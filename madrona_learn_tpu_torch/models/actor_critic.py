@@ -14,8 +14,10 @@ tensor or a tuple of them, nested, of any dtype. ``rollout_chunked`` and
 ``critic_only_chunked`` are the policy-batched forms of ``rollout`` and
 ``critic_only`` over a population's chunks (``models/common.py``), for
 ``BackboneShared`` over ``BackboneEncoder`` or ``RecurrentBackboneEncoder``
-(without the fused step). The obs dict's leaves may
-carry entity axes ([N, E, F], [T, N, E, F] in the update pass); the time
+(without the fused step). ``update_batched`` is the policy-batched form of
+``update`` over the train policies' minibatches (``models/common.py``), for
+the same backbones, without trunk rematerialization. The obs dict's leaves
+may carry entity axes ([N, E, F], [T, N, E, F] in the update pass); the time
 axis is always the leading one. The critic returns a tensor or, for the
 DreamerV3 critic, a distribution.
 """
@@ -32,9 +34,10 @@ from ..ops.cuda.policy_step import fused_policy_step, policy_step_supported
 from ..utils.profile import profile
 
 
-def _merge_time(tree, T, N):
-    """[T*N, ...] -> [T, N, ...] on every tensor of a dict."""
-    return {k: v.reshape(T, N, *v.shape[1:]) for k, v in tree.items()}
+def _merge_time(tree, *lead):
+    """[T*N, ...] -> [T, N, ...] (or [P*T*N, ...] -> [P, T, N, ...]) on
+    every tensor of a dict."""
+    return {k: v.reshape(*lead, *v.shape[1:]) for k, v in tree.items()}
 
 
 def _drop_time(tree):
@@ -68,6 +71,9 @@ class BackboneEncoder(nn.Module):
 
     def chunked(self, params, layout, rnn_states_in, inputs):
         return self.net.chunked(params.child("net"), layout, inputs), ()
+
+    def batched(self, params, rnn_start_states, sequence_ends, inputs):
+        return self.net.batched(params.child("net"), inputs)
 
     def sequence(self, rnn_start_states, sequence_ends, flattened_inputs):
         return self.net(flattened_inputs)
@@ -156,6 +162,20 @@ class RecurrentBackboneEncoder(nn.Module):
         return self.rnn.chunked(params.child("rnn"), layout, rnn_states_in,
                                 features)
 
+    def batched_supported(self):
+        return self.chunked_supported() and not self.remat_trunk_sequence
+
+    def batched(self, params, rnn_start_states, sequence_ends, inputs):
+        """``sequence`` over the train policies: ``inputs`` [P, T * mb,
+        ...] -> [P, T * mb, ...], ``sequence_ends`` [P, T, mb, ...]."""
+        P, T, mb = sequence_ends.shape[0:3]
+        features = self.net.batched(params.child("net"), inputs)
+        with profile("rnn.fwd_sequence"):
+            rnn_out = self.rnn.batched(
+                params.child("rnn"), rnn_start_states, sequence_ends,
+                features.reshape(P, T, mb, *features.shape[2:]))
+        return rnn_out.reshape(P, T * mb, *rnn_out.shape[3:])
+
     def sequence(self, rnn_start_states, sequence_ends, flattened_inputs):
         # The trunk runs over the flat [T*N] batch (one big product), then
         # reshapes to [T, N] for the recurrent pass.
@@ -224,6 +244,18 @@ class BackboneShared(Backbone):
     def sequence(self, rnn_start_states, sequence_ends, obs_in):
         feats = self.encoder.sequence(
             rnn_start_states, sequence_ends, self.prefix(_drop_time(obs_in)))
+        return feats, feats
+
+    def batched(self, params, rnn_start_states, sequence_ends, obs_in):
+        """``sequence`` over the train policies' [P, T, mb, ...] obs: the
+        prefix over every row at once, the tower's ``batched``;
+        [P, T * mb, ...] features."""
+        P = sequence_ends.shape[0]
+        x = self.prefix({k: v.reshape(-1, *v.shape[3:])
+                         for k, v in obs_in.items()})
+        feats = self.encoder.batched(params.child("encoder"),
+                                     rnn_start_states, sequence_ends,
+                                     x.reshape(P, -1, *x.shape[1:]))
         return feats, feats
 
 
@@ -344,6 +376,27 @@ class ActorCritic(nn.Module):
     def critic_only(self, rnn_states_in, obs_in):
         feats, rnn_out = self.backbone.critic_only(rnn_states_in, obs_in)
         return {"critic": self.critic(feats)}, rnn_out
+
+    def update_batched(self, params, rnn_states, sequence_breaks,
+                       rollout_actions, obs):
+        """``update`` over the train policies at once: every input with a
+        leading policy axis ([P, T, mb, ...]; the recurrent state [P, mb,
+        ...]), policy p's rows with its parameters of the ``StackedParams``
+        ``params``; log-probs, entropies and critic outputs [P, T, mb,
+        ...]."""
+        P, T, mb = sequence_breaks.shape[0:3]
+        actor_feats, critic_feats = self.backbone.batched(
+            params.child("backbone"), rnn_states, sequence_breaks, obs)
+        dists = self.actor.batched(params.child("actor"), actor_feats)
+        log_probs, entropies = dists.action_stats(
+            {k: v.reshape(-1, *v.shape[3:])
+             for k, v in rollout_actions.items()})
+        critic = self.critic.batched(params.child("critic"), critic_feats)
+        return {
+            "log_probs": _merge_time(log_probs, P, T, mb),
+            "entropies": _merge_time(entropies, P, T, mb),
+            "critic": critic.reshape(P, T, mb, *critic.shape[2:]),
+        }
 
     def update(self, rnn_states, sequence_breaks, rollout_actions, obs):
         """Score stored [T, N] sequences: time-major log-probs and

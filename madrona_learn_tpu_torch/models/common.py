@@ -21,6 +21,18 @@ LayerNorm scale and shift) are gathered per chunk and broadcast over its
 rows; the arithmetic is the per-policy forward's, op for op.
 ``chunked_form_missing`` names the first module of a tree without such a
 form.
+
+Policy-batched learn forms (JAX: the ``vmap`` of ``algo.update`` over the
+train policies, ``train.py:315``): a module's ``batched(params, ...)``
+runs the module's update-pass forward over policy-major inputs ``[P, rows,
+...]``, policy p's rows with policy p's parameters of ``params``, a
+``StackedParams`` of the train policies whose leaves require grad (a
+fresh one a minibatch, so that no cast outlives an optimizer step).
+Every train policy has the same rows in learn, so products are ``torch.bmm`` over ``[P, rows, in] x [P, in, out]``
+(JAX's ``vmap`` of ``Dense`` is a batched ``dot_general``) and per-policy
+vectors broadcast over the rows; LayerNorm stays plain PyTorch, as on the
+single-policy learn path. ``batched_form_missing`` names the first module
+without one.
 """
 
 from __future__ import annotations
@@ -83,21 +95,44 @@ class StackedParams:
             x = self.stack(name, dtype)[layout.chunk_index]
         return x.reshape(x.shape[0], *[1] * (ndim - x.dim()), *x.shape[1:])
 
+    def per_policy(self, name: str, dtype, ndim: int) -> torch.Tensor:
+        """The ``[P, ...]`` stack of ``name``, ``[P, 1, ..., *shape]`` with
+        ``ndim`` dims in all, to broadcast over a ``[P, rows, ...]``
+        tensor."""
+        x = self.stack(name, dtype)
+        return x.reshape(x.shape[0], *[1] * (ndim - x.dim()), *x.shape[1:])
+
+
+def _form_missing(module: nn.Module, forms, supported_attr) -> Optional[str]:
+    """The first module of ``module``'s tree (path and class) whose class
+    defines none of ``forms``, or whose ``supported_attr()``, where
+    defined, is false; ``None`` if there is none."""
+    for name, m in module.named_modules():
+        if isinstance(m, (nn.ModuleDict, nn.ModuleList)):
+            continue
+        has_form = any(hasattr(type(m), f) for f in forms)
+        supported = getattr(m, supported_attr, lambda: True)
+        if not (has_form and supported()):
+            return f"{name or 'the actor-critic'} ({type(m).__name__})"
+    return None
+
 
 def chunked_form_missing(module: nn.Module) -> Optional[str]:
     """The first module of ``module``'s tree (path and class) without a
     policy-batched form, or ``None`` if every one has one. A module has one
     when its class defines ``chunked`` (``rollout_chunked`` for the
     actor-critic) and ``chunked_supported()``, where defined, is true."""
-    for name, m in module.named_modules():
-        if isinstance(m, (nn.ModuleDict, nn.ModuleList)):
-            continue
-        has_form = any(hasattr(type(m), f) for f in ("chunked",
-                                                       "rollout_chunked"))
-        supported = getattr(m, "chunked_supported", lambda: True)
-        if not (has_form and supported()):
-            return f"{name or 'the actor-critic'} ({type(m).__name__})"
-    return None
+    return _form_missing(module, ("chunked", "rollout_chunked"),
+                         "chunked_supported")
+
+
+def batched_form_missing(module: nn.Module) -> Optional[str]:
+    """The first module of ``module``'s tree without a policy-batched learn
+    form, or ``None``: a module has one when its class defines ``batched``
+    (``update_batched`` for the actor-critic) and ``batched_supported()``,
+    where defined, is true."""
+    return _form_missing(module, ("batched", "update_batched"),
+                         "batched_supported")
 
 
 def orthogonal(scale: float = 1.0) -> Callable:
@@ -160,6 +195,19 @@ class Dense(nn.Module):
             y = y + params.per_chunk("bias", self.dtype, layout, y.dim())
         return y
 
+    batched_supported = chunked_supported
+
+    def batched(self, params, x):
+        """``x`` [P, ..., in] -> [P, ..., out]: ``torch.bmm`` against the
+        ``[P, in, out]`` kernel stack, then each policy's bias."""
+        lead = x.shape[:-1]
+        y = torch.bmm(x.to(self.dtype).reshape(lead[0], -1, x.shape[-1]),
+                      params.stack("kernel", self.dtype))
+        y = y.reshape(*lead, y.shape[-1])
+        if self.bias is not None:
+            y = y + params.per_policy("bias", self.dtype, y.dim())
+        return y
+
 
 class FlaxLayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=...)`` itself, parameters ``scale`` /
@@ -191,6 +239,11 @@ class FlaxLayerNorm(nn.Module):
         return self._normalize(
             x, params.per_chunk("scale", None, layout, x.dim()),
             params.per_chunk("bias", None, layout, x.dim()))
+
+    def batched(self, params, x):
+        """The forward's arithmetic with each policy's scale and bias."""
+        return self._normalize(x, params.per_policy("scale", None, x.dim()),
+                               params.per_policy("bias", None, x.dim()))
 
 
 class LayerNorm(nn.Module):
@@ -224,6 +277,11 @@ class LayerNorm(nn.Module):
     def chunked(self, params, layout, x):
         return self.impl.chunked(params.child("impl"), layout, x)
 
+    batched_supported = chunked_supported
+
+    def batched(self, params, x):
+        return self.impl.batched(params.child("impl"), x)
+
 
 class MLP(nn.Module):
     """Dense (no bias) -> LayerNorm -> ReLU stack, orthogonal init."""
@@ -254,5 +312,12 @@ class MLP(nn.Module):
         for i in range(self.num_layers):
             for name in (f"Dense_{i}", f"LayerNorm_{i}"):
                 x = getattr(self, name).chunked(params.child(name), layout, x)
+            x = torch.relu(x)
+        return x
+
+    def batched(self, params, x):
+        for i in range(self.num_layers):
+            for name in (f"Dense_{i}", f"LayerNorm_{i}"):
+                x = getattr(self, name).batched(params.child(name), x)
             x = torch.relu(x)
         return x

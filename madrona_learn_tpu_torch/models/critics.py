@@ -45,6 +45,14 @@ class DenseLayerDiscreteActor(nn.Module):
             self.cfg.actions_num_buckets,
             self.impl.chunked(params.child("impl"), layout, features))
 
+    def batched(self, params, features):
+        """The distributions of [P, rows, ...] features, their logits
+        flattened to [P * rows, ...]."""
+        logits = self.impl.batched(params.child("impl"), features)
+        return DiscreteActionDistributions(
+            self.cfg.actions_num_buckets,
+            logits.reshape(-1, logits.shape[-1]))
+
 
 class DictActor(nn.Module):
     """One head per ``TrainConfig.actions`` key; samples come back as a
@@ -64,6 +72,12 @@ class DictActor(nn.Module):
             {name: head.chunked(heads.child(name), layout, features)
              for name, head in self.heads.items()})
 
+    def batched(self, params, features):
+        heads = params.child("heads")
+        return DictActionDistributions(
+            {name: head.batched(heads.child(name), features)
+             for name, head in self.heads.items()})
+
 
 class DenseLayerCritic(nn.Module):
     def __init__(self, in_features: int, dtype,
@@ -78,6 +92,10 @@ class DenseLayerCritic(nn.Module):
 
     def chunked(self, params, layout, features):
         return self.Dense_0.chunked(params.child("Dense_0"), layout,
+                                    features).to(torch.float32)
+
+    def batched(self, params, features):
+        return self.Dense_0.batched(params.child("Dense_0"),
                                     features).to(torch.float32)
 
 

@@ -28,6 +28,14 @@ through ``grouped_matmul``, its recurrence through
 whose rows equal ``lstm_sequence_fwd``'s. Float32 and bfloat16 (the fused
 projection and float16 keep the per-policy step).
 
+The policy-batched update pass (``batched``, ``models/common.py``) takes
+policy-major inputs ``[P, T, mb, ...]`` and every train policy's
+minibatch as one chunk of a ``[T, P * mb]`` time-major batch: each
+layer's input projection through ``torch.bmm``, its recurrence through
+``lstm_sequence_chunked`` (``lstm_sequence_fwd_chunked`` and
+``lstm_sequence_bwd_chunked`` on the card), the kernel family of the
+chunked rollout step, so a row keeps the rollout's rounding points.
+
 The compute dtype is float32, bfloat16 or float16. Float16 takes the
 kernels' CUDA-core float16 instances (JAX sends a float16 LSTM to its jnp
 twin, which has the same rounding points), and never the projection
@@ -44,6 +52,7 @@ from torch import nn
 from ..ops.cuda.lstm import (
     lstm_proj_supported,
     lstm_sequence,
+    lstm_sequence_chunked,
     lstm_sequence_proj,
     lstm_step,
     lstm_step_chunked,
@@ -94,6 +103,20 @@ class _PackedLSTMLayer(nn.Module):
             rows(h))
         new_c, new_h = new_c.reshape(B, C, -1), new_h.reshape(B, C, -1)
         return (new_c, new_h), new_h
+
+    def batched(self, params, keep, c0, h0, x):
+        """The layer's update pass over the train policies: ``x`` [P, T,
+        mb, F] -> ys [P, T, mb, H], policy p's minibatch chunk p of the
+        [T, P * mb] sequence (``keep`` [T, P * mb]; ``c0`` / ``h0`` [P *
+        mb, H])."""
+        P, T, mb = x.shape[:3]
+        x_proj = self.input_proj.batched(params.child("input_proj"), x)
+        x_proj = x_proj.transpose(0, 1).reshape(T, P * mb, -1).contiguous()
+        ys = lstm_sequence_chunked(
+            x_proj, keep, params.stack("recurrent_kernel", self.dtype),
+            params.stack("bias", self.dtype),
+            torch.arange(P, dtype=torch.int32, device=x.device), c0, h0)
+        return ys.reshape(T, P, mb, -1).transpose(0, 1)
 
 
 class LSTM(nn.Module):
@@ -159,6 +182,26 @@ class LSTM(nn.Module):
             outs.append(out)
         carry = (torch.stack(cs, dim=2), torch.stack(hs, dim=2))
         return torch.cat(outs, dim=-1), carry
+
+    batched_supported = chunked_supported
+
+    def batched(self, params, start_hiddens, seq_ends, seq_x):
+        """``sequence`` over the train policies: ``seq_x`` [P, T, mb, F]
+        -> [P, T, mb, L*H], the state [P, mb, L, H] and ``seq_ends`` [P,
+        T, mb, ...]."""
+        c0, h0 = start_hiddens
+        P, T, mb = seq_x.shape[:3]
+        zero = torch.zeros((), dtype=self.dtype, device=seq_x.device)
+        keep = torch.where(seq_ends.reshape(P, T, mb).transpose(0, 1),
+                           zero, zero + 1).reshape(T, P * mb).contiguous()
+        outs = []
+        layer_in = seq_x
+        for layer, cell in enumerate(self._cells()):
+            rows = lambda s: s[:, :, layer].reshape(P * mb, -1).contiguous()
+            layer_in = cell.batched(params.child(f"layer_{layer}"), keep,
+                                    rows(c0), rows(h0), layer_in)
+            outs.append(layer_in)
+        return torch.cat(outs, dim=-1)
 
     def sequence(self, start_hiddens, seq_ends, seq_x):
         """[T, N, F] features -> [T, N, L*H], clearing the carry after any

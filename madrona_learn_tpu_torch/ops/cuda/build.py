@@ -183,6 +183,10 @@ _SIGNATURES = {
     # tensor_core, dtype, H, xp, keep, wr, bias, chunk_policy, c0, h0, ys,
     # cs, T, chunks, C, P, stream
     "mlt_lstm_fwd_chunked": [_I] * 3 + [_P] * 9 + [_I] * 4 + [_P],
+    # tensor_core, dtype, H, xp, keep, wr, wr_t, bias, chunk_policy, c0, h0,
+    # ys, cs, dys, dxp, hin, dh0, dc0, part_w, part_b, dwr, db, T, chunks,
+    # C, P, splits a chunk, stream
+    "mlt_lstm_bwd_chunked": [_I] * 3 + [_P] * 19 + [_I] * 5 + [_P],
     # H, R, stages, xp, keep, wh, bias_h, h0, ys, T, N, stream
     "mlt_gru_fwd_tc": [_I] * 3 + [_P] * 6 + [_I] * 2 + [_P],
     # D, q, k, v, out, B, S, H, valid_len, scale * log2(e), stream

@@ -51,6 +51,18 @@ b runs with policy ``chunk_policy[b]``'s weights, each row bitwise
 ``lstm_sequence_fwd``'s with them (a chunk whose policy lies outside
 [0, P) is skipped, its rows NaN). Its plain twin runs
 ``lstm_sequence_reference``'s arithmetic chunk by chunk.
+``lstm_sequence_bwd_chunked`` is the chunk-indexed instance of the
+backward (both paths), the population's learn step over every train
+policy at once (JAX ``vmap``s ``algo.update``, and with it the backward's
+``pallas_call``, over policies, ``madrona_learn_tpu/train.py:315``): each
+row's dx_proj / dh0 / dc0 bitwise ``lstm_sequence_bwd``'s with its
+chunk's policy's weights, and ``dwr[p]`` / ``db[p]`` summed over the rows
+of policy p's chunks in f32 and rounded once (zeros for a policy without
+a chunk). Its split rule takes only a chunk's own rows and the SM count,
+so a policy's weight gradients are the same whether its chunk comes alone
+or among others. ``lstm_sequence_chunked`` is the differentiable pair
+(``lstm_sequence_chunked_reference`` on the CPU, whose autograd defines
+the backward).
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise.
@@ -80,6 +92,13 @@ LSTM_FWD_CHUNKED = Kernel(
     name="lstm_sequence_fwd_chunked",
     source="madrona_learn_tpu_torch/csrc/lstm.cu",
     replaces="madrona_learn_tpu/ops/pallas/lstm.py:264",
+)
+# The chunk-indexed instance of the backward: the population's learn step
+# over every train policy, one chunk a policy (ppo._ppo_population).
+LSTM_BWD_CHUNKED = Kernel(
+    name="lstm_sequence_bwd_chunked",
+    source="madrona_learn_tpu_torch/csrc/lstm.cu",
+    replaces="madrona_learn_tpu/ops/pallas/lstm.py:301",
 )
 LSTM_PROJ_FWD = Kernel(
     name="lstm_sequence_proj_fwd",
@@ -150,6 +169,29 @@ def lstm_sequence_fwd_chunked_reference(x_proj, keep, wr, bias,
                 x_proj[:, rows], keep[:, rows], wr[p], bias[p], c0[rows],
                 h0[rows])
     return ys, cs
+
+
+def lstm_sequence_chunked_reference(x_proj, keep, wr, bias, chunk_policy,
+                                    c0, h0):
+    """Plain twin of ``lstm_sequence_chunked``: ys [T, B * C, H], each
+    chunk through ``lstm_sequence_reference`` with its policy's weights
+    (NaN rows for a chunk of no policy). Differentiable by autograd, whose
+    gradients are the plain version of ``lstm_sequence_bwd_chunked``: a
+    policy's ``wr`` / ``bias`` gradients sum over its chunks' rows, and a
+    policy without a chunk gets zeros."""
+    B, P = chunk_policy.shape[0], wr.shape[0]
+    C = x_proj.shape[1] // B
+    parts = []
+    for b, p in enumerate(chunk_policy.tolist()):
+        rows = slice(b * C, (b + 1) * C)
+        if 0 <= p < P:
+            parts.append(_sequence(x_proj[:, rows], keep[:, rows], wr[p],
+                                   bias[p], c0[rows], h0[rows])[0])
+        else:
+            parts.append(torch.full((x_proj.shape[0], C, wr.shape[1]),
+                                    float("nan"), dtype=x_proj.dtype,
+                                    device=x_proj.device))
+    return torch.cat(parts, dim=1)
 
 
 _check = functools.partial(check_operand, "lstm kernel")
@@ -230,23 +272,9 @@ def lstm_sequence_fwd_chunked(x_proj, keep, wr, bias, chunk_policy, c0,
     ``lstm_sequence_fwd``'s row with those weights bitwise. A chunk whose
     policy lies outside [0, P) is skipped: its rows are NaN. Same path
     rule as ``lstm_sequence_fwd``; float32 or bfloat16."""
-    if wr.dim() != 3 or chunk_policy.dim() != 1 or x_proj.dim() != 3:
-        raise ValueError(
-            f"lstm_sequence_fwd_chunked: wr must be [P, H, 4H], "
-            f"chunk_policy [B] and x_proj [T, B * C, 4H], got "
-            f"{tuple(wr.shape)}, {tuple(chunk_policy.shape)}, "
-            f"{tuple(x_proj.shape)}")
-    P, B = wr.shape[0], chunk_policy.shape[0]
-    if x_proj.dtype not in (torch.float32, torch.bfloat16) or B == 0 or \
-            x_proj.shape[1] % B or P == 0:
-        raise ValueError(
-            f"lstm_sequence_fwd_chunked: supports float32/bfloat16 over "
-            f"whole chunks, got {x_proj.dtype}, {tuple(x_proj.shape)} rows "
-            f"in {B} chunks of {P} policies")
-    steps, n, hidden = _check_inputs(x_proj, keep, wr[0], bias[0], c0, h0)
-    _check("wr", wr, x_proj.dtype, (P, hidden, 4 * hidden))
-    _check("bias", bias, x_proj.dtype, (P, 4 * hidden))
-    _check("chunk_policy", chunk_policy, torch.int32, (B,))
+    steps, n, hidden, B, _, P = _check_chunked(
+        "lstm_sequence_fwd_chunked", x_proj, keep, wr, bias, chunk_policy,
+        c0, h0)
     tensor_core = uses_tensor_cores(x_proj.dtype, hidden)
     if tensor_core:
         # x_proj and h0 arrive by 16-byte copies, the weights by TMA.
@@ -284,6 +312,114 @@ def lstm_step_chunked(x_proj, wr, bias, chunk_policy, c, h):
     ys, cs = lstm_sequence_fwd_chunked(x_proj.unsqueeze(0), keep, wr, bias,
                                        chunk_policy, c, h)
     return cs[0], ys[0]
+
+
+def _check_chunked(what, x_proj, keep, wr, bias, chunk_policy, c0, h0):
+    """The chunked instances' operand checks: (T, N, H, B, C, P)."""
+    if wr.dim() != 3 or chunk_policy.dim() != 1 or x_proj.dim() != 3:
+        raise ValueError(
+            f"{what}: wr must be [P, H, 4H], chunk_policy [B] and x_proj "
+            f"[T, B * C, 4H], got {tuple(wr.shape)}, "
+            f"{tuple(chunk_policy.shape)}, {tuple(x_proj.shape)}")
+    P, B = wr.shape[0], chunk_policy.shape[0]
+    if x_proj.dtype not in (torch.float32, torch.bfloat16) or B == 0 or \
+            x_proj.shape[1] % B or P == 0:
+        raise ValueError(
+            f"{what}: supports float32/bfloat16 over whole chunks, got "
+            f"{x_proj.dtype}, {tuple(x_proj.shape)} rows in {B} chunks of "
+            f"{P} policies")
+    steps, n, hidden = _check_inputs(x_proj, keep, wr[0], bias[0], c0, h0)
+    _check("wr", wr, x_proj.dtype, (P, hidden, 4 * hidden))
+    _check("bias", bias, x_proj.dtype, (P, 4 * hidden))
+    _check("chunk_policy", chunk_policy, torch.int32, (B,))
+    return steps, n, hidden, B, n // B, P
+
+
+def lstm_sequence_bwd_chunked(x_proj, keep, wr, bias, chunk_policy, c0, h0,
+                              ys, cs, dys):
+    """The chunk-indexed backward kernel, given ``lstm_sequence_fwd_chunked``'s
+    ys / cs: (dx_proj [T, B * C, 4H], dwr [P, H, 4H], db [P, 4H], dc0, dh0
+    [B * C, H]). Chunk b runs with policy ``chunk_policy[b]``'s weights:
+    every row's dx_proj / dh0 / dc0 equal ``lstm_sequence_bwd``'s on that
+    chunk's rows bitwise, and ``dwr[p]`` / ``db[p]`` sum over the rows of
+    policy p's chunks in f32, rounded once; zeros for a policy without a
+    chunk (a chunk whose policy lies outside [0, P) gets NaN rows and adds
+    to no policy). The weight gradients split each chunk's rows by the
+    single-policy rule applied to the chunk alone. Same path rule as
+    ``lstm_sequence_bwd``; float32 or bfloat16."""
+    what = "lstm_sequence_bwd_chunked"
+    steps, n, hidden, B, C, P = _check_chunked(what, x_proj, keep, wr, bias,
+                                               chunk_policy, c0, h0)
+    dtype, device = x_proj.dtype, x_proj.device
+    _check("ys", ys, dtype, (steps, n, hidden))
+    _check("cs", cs, dtype, (steps, n, hidden))
+    _check("dys", dys, dtype, (steps, n, hidden))
+    tensor_core = uses_tensor_cores(dtype, hidden)
+    num_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    g4 = 4 * hidden
+
+    def empty(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    # Wr^T of every policy, [P, 4H, H]: one copy a call, on a 16-byte
+    # boundary as new storage.
+    wr_t = wr.transpose(1, 2).contiguous()
+    if tensor_core:
+        x_proj, keep, wr, bias, c0, h0, ys, cs, dys = map(
+            on_16_bytes, (x_proj, keep, wr, bias, c0, h0, ys, cs, dys))
+        splits = _num_splits_tc(steps * C, hidden, hidden, num_sms)
+        hin = empty(steps, n, hidden)
+        part_b = empty(B * -(-C // tc_rows(False)), g4, dt=torch.float32)
+    else:
+        splits = _num_splits(steps, C, hidden, num_sms)
+        hin = None
+        part_b = empty(B * splits, g4, dt=torch.float32)
+    part_w = empty(B * splits, hidden, g4, dt=torch.float32)
+    dxp, dh0, dc0 = empty(steps, n, g4), empty(n, hidden), empty(n, hidden)
+    dwr, db = empty(P, hidden, g4), empty(P, g4)
+    err = library().mlt_lstm_bwd_chunked(
+        int(tensor_core), _DTYPE_CODES[dtype], hidden, x_proj.data_ptr(),
+        keep.data_ptr(), wr.data_ptr(), wr_t.data_ptr(), bias.data_ptr(),
+        chunk_policy.data_ptr(), c0.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+        cs.data_ptr(), dys.data_ptr(), dxp.data_ptr(),
+        0 if hin is None else hin.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+        part_w.data_ptr(), part_b.data_ptr(), dwr.data_ptr(), db.data_ptr(),
+        steps, B, C, P, splits, torch.cuda.current_stream(device).cuda_stream)
+    check(err, what)
+    LSTM_BWD_CHUNKED.launches += 1
+    LSTM_BWD_CHUNKED.tc_launches += int(tensor_core)
+    return dxp, dwr, db, dc0, dh0
+
+
+class _LSTMSequenceChunked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_proj, keep, wr, bias, chunk_policy, c0, h0):
+        ys, cs = lstm_sequence_fwd_chunked(x_proj, keep, wr, bias,
+                                           chunk_policy, c0, h0)
+        ctx.save_for_backward(x_proj, keep, wr, bias, chunk_policy, c0, h0,
+                              ys, cs)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        x_proj, keep, wr, bias, chunk_policy, c0, h0, ys, cs = \
+            ctx.saved_tensors
+        dxp, dwr, db, dc0, dh0 = lstm_sequence_bwd_chunked(
+            x_proj, keep, wr, bias, chunk_policy, c0, h0, ys, cs,
+            dys.to(x_proj.dtype).contiguous())
+        return dxp, None, dwr, db, None, dc0, dh0
+
+
+def lstm_sequence_chunked(x_proj, keep, wr, bias, chunk_policy, c0, h0):
+    """ys [T, B * C, H]: the chunk-indexed sequence pass, differentiable,
+    chunk b with policy ``chunk_policy[b]``'s weights of the [P, H, 4H] /
+    [P, 4H] stacks (the contract of ``lstm_sequence_fwd_chunked`` and
+    ``lstm_sequence_bwd_chunked``). CPU tensors take the plain twin."""
+    if x_proj.device.type == "cpu":
+        return lstm_sequence_chunked_reference(x_proj, keep, wr, bias,
+                                               chunk_policy, c0, h0)
+    return _LSTMSequenceChunked.apply(x_proj, keep, wr, bias, chunk_policy,
+                                      c0, h0)
 
 
 def _num_splits(steps, n, hidden, num_sms, gates=4):

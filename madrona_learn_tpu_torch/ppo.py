@@ -41,12 +41,27 @@ norm, which optax does not); the step is then scaled by the live
 ``DynamicScale`` scales the loss, and a step whose gradients are not finite
 keeps the parameters and the optimizer state as they were
 (``torch.where``, no host synchronization).
+
+A population whose model has policy-batched learn forms
+(``rollouts.batched_learn_missing``) learns all its train policies at once,
+as JAX ``vmap``s ``algo.update`` over them (``train.py:315``):
+``_ppo_population`` takes one PPO step a minibatch over every train
+policy, on the ``[P, ...]`` stacks of ``train_state.StackedTrainState``.
+Each policy draws its minibatches from its own generator, in the order the
+per-policy loop draws them; one gather takes every policy's minibatch; one
+batched forward and backward (``ActorCritic.update_batched``) feed each
+policy's loss, mapped over the policies by ``torch.func.vmap`` from the
+per-policy code (``_loss_terms``) and summed for one ``autograd.grad``, so
+each policy's gradient is its own; the Adam step clips each policy's
+gradients by its own global norm, and the weight-norm projection and the
+LayerNorm renormalization run per policy.
 """
 
 from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Callable, Dict, Optional, Union
 
 import torch
@@ -54,6 +69,7 @@ import torch
 from .algo import AlgoBase, HyperParams
 from .config import AlgoConfig, ParamExplore, TrainConfig
 from .ops.gae import zscore_data
+from .models.common import StackedParams
 from .ops.metrics import Metric, TrainingMetrics
 from .utils import profile, tree_map
 
@@ -125,9 +141,24 @@ class ClipAdam:
             nu={k: torch.zeros_like(p) for k, p in params.items()})
 
     def update(self, grads: Dict[str, torch.Tensor], state: AdamState):
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        """(updates, new state). With a ``[P]`` count the gradients and the
+        state are a population's ``[P, ...]`` stacks, and each policy's
+        gradients are clipped by their own global norm."""
+        stacked = state.count.dim() == 1
+        if stacked:
+            g_norm = torch.sqrt(sum((g * g).reshape(g.shape[0], -1).sum(1)
+                                    for g in grads.values()))
+        else:
+            g_norm = torch.sqrt(sum(torch.sum(g * g)
+                                    for g in grads.values()))
+
+        def per(x, like):
+            """A per-policy ``x`` [P] shaped to broadcast over ``like``."""
+            return x.reshape(-1, *[1] * (like.dim() - 1)) if stacked else x
+
         trigger = g_norm < self.max_norm
-        grads = {k: torch.where(trigger, g, (g / g_norm) * self.max_norm)
+        grads = {k: torch.where(per(trigger, g), g,
+                                (g / per(g_norm, g)) * self.max_norm)
                  for k, g in grads.items()}
 
         mu = {k: (1 - self.b1) * g + self.b1 * state.mu[k]
@@ -140,7 +171,8 @@ class ClipAdam:
                                          device=count.device), count_f)
         bc2 = 1 - torch.pow(torch.tensor(self.b2, dtype=_F32,
                                          device=count.device), count_f)
-        updates = {k: (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)
+        updates = {k: (mu[k] / per(bc1, mu[k]))
+                   / (torch.sqrt(nu[k] / per(bc2, nu[k])) + self.eps)
                    for k in grads}
         return updates, AdamState(count=count, mu=mu, nu=nu)
 
@@ -176,6 +208,9 @@ class PPO(AlgoBase):
     def update(self, *args, **kwargs):
         return _ppo(*args, **kwargs)
 
+    def update_population(self, *args, **kwargs):
+        return _ppo_population(*args, **kwargs)
+
     def add_metrics(self, cfg: TrainConfig, metrics: Dict[str, Metric]):
         return dict(metrics, **{
             name: Metric.init(True)
@@ -198,6 +233,58 @@ def _weighted_mean(weights, x):
     return (w * x.to(_F32)).mean()
 
 
+def _loss_terms(cfg: TrainConfig, mb, mb_weights, fwd, train_state,
+                entropy_coef):
+    """One policy's loss from its update pass ``fwd`` over the minibatch
+    ``mb``: (loss, ratios, action objectives, value losses, value errors,
+    the value normalizer's new state or None). Reads ``train_state``'s
+    hyperparameters and value normalizer and changes nothing, so
+    ``_ppo_population`` maps it over the train policies with
+    ``torch.func.vmap``."""
+    hp = train_state.hyper_params
+    if cfg.compute_advantages:
+        advantages = mb["advantages"].to(_F32)
+        if cfg.normalize_advantages:
+            advantages = zscore_data(advantages)
+    else:
+        advantages = mb["returns"].to(_F32)
+        if cfg.normalize_returns:
+            advantages = zscore_data(advantages)
+
+    ratios, action_objs = {}, {}
+    for k, new_lp in fwd["log_probs"].items():
+        ratio = torch.exp(new_lp - mb["log_probs"][k].to(_F32))
+        clipped = torch.clamp(ratio, 1.0 - hp.clip_coef, 1.0 + hp.clip_coef)
+        # Continuous heads' log-probs are [T, mb, heads, dims].
+        scores = (advantages[..., None] if ratio.dim() - 2 > 1
+                  else advantages)
+        ratios[k] = ratio
+        action_objs[k] = torch.minimum(scores * ratio, scores * clipped)
+
+    value_losses, value_errs, new_value_norm_state = _value_loss(
+        cfg, mb, fwd["critic"], train_state)
+
+    key_weights = cfg.algo.entropy_key_weights or {}
+    action_obj_avg = sum(_weighted_mean(mb_weights, o)
+                         for o in action_objs.values())
+    value_loss = _weighted_mean(mb_weights, value_losses)
+    entropy_avg = entropy_coef * sum(
+        key_weights.get(k, 1.0) * _weighted_mean(mb_weights, e)
+        for k, e in fwd["entropies"].items())
+    loss = -action_obj_avg + hp.value_loss_coef * value_loss - entropy_avg
+    return (loss, ratios, action_objs, value_losses, value_errs,
+            new_value_norm_state)
+
+
+def _ratio_stats(ratios, clip_coef, dims):
+    """max |ratio - 1| and the clipped fraction over ``dims`` of every
+    action key's ratios, the fraction averaged over the keys."""
+    dev = torch.stack([(r - 1).abs().amax(dim=dims) for r in ratios.values()])
+    clip_frac = torch.stack([((r - 1).abs() > clip_coef).to(_F32)
+                             .mean(dim=dims) for r in ratios.values()])
+    return dev.amax(0), clip_frac.mean(0)
+
+
 def _ppo_update(cfg: TrainConfig, mb, mb_weights, policy_state, train_state,
                 metrics: TrainingMetrics):
     """One minibatch step; returns ratio diagnostics of the minibatch and,
@@ -213,37 +300,9 @@ def _ppo_update(cfg: TrainConfig, mb, mb_weights, policy_state, train_state,
         with profile("AC Forward"):
             fwd = actor_critic.update(mb["rnn_start_states"], mb["dones"],
                                       mb["actions"], mb["obs"])
-        if cfg.compute_advantages:
-            advantages = mb["advantages"].to(_F32)
-            if cfg.normalize_advantages:
-                advantages = zscore_data(advantages)
-        else:
-            advantages = mb["returns"].to(_F32)
-            if cfg.normalize_returns:
-                advantages = zscore_data(advantages)
-
-        ratios, action_objs = {}, {}
-        for k, new_lp in fwd["log_probs"].items():
-            ratio = torch.exp(new_lp - mb["log_probs"][k].to(_F32))
-            clipped = torch.clamp(ratio, 1.0 - hp.clip_coef,
-                                  1.0 + hp.clip_coef)
-            # Continuous heads' log-probs are [T, mb, heads, dims].
-            scores = (advantages[..., None] if ratio.dim() - 2 > 1
-                      else advantages)
-            ratios[k] = ratio
-            action_objs[k] = torch.minimum(scores * ratio, scores * clipped)
-
-        value_losses, value_errs, new_value_norm_state = _value_loss(
-            cfg, mb, fwd["critic"], train_state)
-
-        key_weights = cfg.algo.entropy_key_weights or {}
-        action_obj_avg = sum(_weighted_mean(mb_weights, o)
-                             for o in action_objs.values())
-        value_loss = _weighted_mean(mb_weights, value_losses)
-        entropy_avg = hp.entropy_coef * sum(
-            key_weights.get(k, 1.0) * _weighted_mean(mb_weights, e)
-            for k, e in fwd["entropies"].items())
-        loss = -action_obj_avg + hp.value_loss_coef * value_loss - entropy_avg
+        (loss, ratios, action_objs, value_losses, value_errs,
+         new_value_norm_state) = _loss_terms(cfg, mb, mb_weights, fwd,
+                                             train_state, hp.entropy_coef)
 
         scaler = train_state.scaler
         grads = torch.autograd.grad(
@@ -287,11 +346,9 @@ def _ppo_update(cfg: TrainConfig, mb, mb_weights, policy_state, train_state,
             "Value Errors": value_errs.abs()[None],
             "Entropy": _flat_concat(fwd["entropies"])[None],
         })
-        dev = torch.stack([(r - 1).abs().max() for r in ratios.values()])
-        clip_frac = torch.stack([((r - 1).abs() > hp.clip_coef).to(_F32)
-                                 .mean() for r in ratios.values()])
-    stats = {"max_abs_ratio_dev": dev.max(),
-             "clip_fraction": clip_frac.mean(), "loss": loss.detach()}
+        dev, clip_frac = _ratio_stats(ratios, hp.clip_coef, None)
+    stats = {"max_abs_ratio_dev": dev, "clip_fraction": clip_frac,
+             "loss": loss.detach()}
     if finite is not None:
         stats["finite"] = finite
     return stats
@@ -348,6 +405,19 @@ def _renorm_layernorms(module):
             scale, bias = child.impl.scale, child.impl.bias
             factor = torch.sqrt(scale.shape[-1] / (
                 torch.dot(bias, bias) + torch.dot(scale, scale)))
+            bias.mul_(factor)
+            scale.mul_(factor)
+
+
+def _renorm_layernorms_stacked(module, leaves):
+    """``_renorm_layernorms`` of every policy of the ``[P, dim]`` stacks
+    ``leaves``, each policy's to its own joint norm."""
+    for name, _ in module.named_modules():
+        if name.rsplit(".", 1)[-1].startswith("LayerNorm"):
+            scale = leaves[f"{name}.impl.scale"]
+            bias = leaves[f"{name}.impl.bias"]
+            factor = torch.sqrt(scale.shape[-1] / (
+                (bias * bias).sum(-1) + (scale * scale).sum(-1)))[:, None]
             bias.mul_(factor)
             scale.mul_(factor)
 
@@ -463,6 +533,45 @@ def _ppo(cfg: TrainConfig, policy_state, train_state, rollout_data,
     it was drawn with, and, with a loss scaler, the count of its
     non-finite steps (``nonfinite_steps``, on the device).
     """
+    rollout_data, valid_inds, num_minibatches, traj_weights, stratify = \
+        _selection(cfg, train_state, rollout_data)
+    mb_size = cfg.algo.minibatch_size
+    gen = train_state.generator
+    first, first_inds, nonfinite = None, None, None
+    for epoch in range(cfg.algo.num_epochs):
+        with profile("Compute Minibatch Indices"):
+            inds = epoch_indices(cfg, gen, valid_inds, stratify,
+                                 num_minibatches)
+        if first_inds is None:
+            first_inds = inds
+        for i in range(num_minibatches):
+            with profile("Gather Minibatch"):
+                mb_inds = inds[i * mb_size:(i + 1) * mb_size]
+                mb = rollout_data.minibatch(mb_inds)
+                mb_weights = traj_weights[mb_inds]
+            stats = _ppo_update(cfg, mb, mb_weights, policy_state,
+                                train_state, metrics)
+            if first is None:
+                first = stats
+            if "finite" in stats:
+                step = (~stats["finite"]).to(torch.int32)
+                nonfinite = step if nonfinite is None else nonfinite + step
+            with profile("Metrics Callback"):
+                user_metrics_cb(metrics, epoch, mb, policy_state,
+                                train_state)
+    out = dict(first or {}, num_minibatches=num_minibatches,
+               epoch_inds=first_inds, traj_weights=traj_weights)
+    if nonfinite is not None:
+        out["nonfinite_steps"] = nonfinite
+    return out
+
+
+def _selection(cfg: TrainConfig, train_state, rollout_data):
+    """What one policy's epochs choose from: (the rollout data, flattened
+    to single steps under advantage filtering; the valid sequence indices;
+    the minibatches an epoch; the per-trajectory weights [num, 1]; the
+    stratification's blocks). Importance sampling draws its sequences from
+    the policy's generator, and filtering updates its advantage EMA."""
     mb_size = cfg.algo.minibatch_size
     gen = train_state.generator
     if cfg.filter_advantages:
@@ -497,32 +606,130 @@ def _ppo(cfg: TrainConfig, policy_state, train_state, rollout_data,
         valid_inds = torch.arange(num_trajectories, device=device)
         traj_weights = torch.ones((num_trajectories, 1), dtype=_F32,
                                   device=device)
-    stratify = resolve_stratify(cfg, valid_inds.shape[0])
+    return (rollout_data, valid_inds, num_minibatches, traj_weights,
+            resolve_stratify(cfg, valid_inds.shape[0]))
 
-    first, first_inds, nonfinite = None, None, None
+
+def _ppo_population(cfg: TrainConfig, stacked, rollout_data,
+                    user_metrics_cb: Callable, metrics: TrainingMetrics):
+    """Epochs of minibatches for every train policy at once, on the
+    ``[P, ...]`` stacks of ``stacked`` (``train_state.StackedTrainState``);
+    ``rollout_data`` holds the P policies' sequences. Uniform, stratified
+    and importance-sampled minibatches (the same count for every policy);
+    advantage filtering and float16 loss scaling take the per-policy loop
+    (``rollouts.batched_learn_missing``).
+
+    Returns one dict a train policy, as ``_ppo`` does for one: its first
+    minibatch's ratio diagnostics, ``num_minibatches``, its first epoch's
+    index stream and its per-trajectory weights."""
+    P = len(stacked.train_states)
+    mb_size = cfg.algo.minibatch_size
+    selections, streams = [], []
+    with profile("Compute Minibatch Indices"):
+        # Each policy's draws from its own generator, in the per-policy
+        # loop's order: its selection, then its epochs'.
+        for p, ts in enumerate(stacked.train_states):
+            _, valid_inds, num_minibatches, traj_weights, stratify = \
+                _selection(cfg, ts, rollout_data.policy(p))
+            selections.append((num_minibatches, traj_weights))
+            streams.append([epoch_indices(cfg, ts.generator, valid_inds,
+                                          stratify, num_minibatches)
+                            for _ in range(cfg.algo.num_epochs)])
+    num_minibatches = selections[0][0]
+    traj_weights = torch.stack([w for _, w in selections])
+    policies = torch.arange(P, device=traj_weights.device)[:, None]
+
+    first = None
     for epoch in range(cfg.algo.num_epochs):
-        with profile("Compute Minibatch Indices"):
-            inds = epoch_indices(cfg, gen, valid_inds, stratify,
-                                 num_minibatches)
-        if first_inds is None:
-            first_inds = inds
         for i in range(num_minibatches):
             with profile("Gather Minibatch"):
-                mb_inds = inds[i * mb_size:(i + 1) * mb_size]
-                mb = rollout_data.minibatch(mb_inds)
-                mb_weights = traj_weights[mb_inds]
-            stats = _ppo_update(cfg, mb, mb_weights, policy_state,
-                                train_state, metrics)
+                mb_inds = torch.stack([s[epoch][i * mb_size:(i + 1) * mb_size]
+                                       for s in streams])
+                mb = rollout_data.minibatch_stacked(mb_inds)
+                mb_weights = traj_weights[policies, mb_inds]
+            stats = _ppo_update_population(cfg, mb, mb_weights, stacked,
+                                           metrics)
             if first is None:
                 first = stats
-            if "finite" in stats:
-                step = (~stats["finite"]).to(torch.int32)
-                nonfinite = step if nonfinite is None else nonfinite + step
             with profile("Metrics Callback"):
-                user_metrics_cb(metrics, epoch, mb, policy_state,
-                                train_state)
-    out = dict(first or {}, num_minibatches=num_minibatches,
-               epoch_inds=first_inds, traj_weights=traj_weights)
-    if nonfinite is not None:
-        out["nonfinite_steps"] = nonfinite
-    return out
+                for p in range(P):
+                    user_metrics_cb(metrics.for_policy(p), epoch,
+                                    tree_map(lambda x, p=p: x[p], mb),
+                                    stacked.policies[p],
+                                    stacked.train_states[p])
+    return [dict({k: v[p] for k, v in first.items()},
+                 num_minibatches=num_minibatches,
+                 epoch_inds=streams[p][0], traj_weights=traj_weights[p])
+            for p in range(P)]
+
+
+def _ppo_update_population(cfg: TrainConfig, mb, mb_weights, stacked,
+                           metrics: TrainingMetrics):
+    """One minibatch step of every train policy (``mb`` [P, T, mb, ...],
+    ``mb_weights`` [P, mb, 1]): the batched forward and backward, each
+    policy's loss and gradient, the stacked Adam step, the per-policy
+    projections; [P] ratio diagnostics of the minibatch."""
+    with profile("Optimize"):
+        leaves = stacked.leaves
+        actor_critic = stacked.actor_critic
+        with profile("AC Forward"):
+            fwd = actor_critic.update_batched(
+                StackedParams(leaves), mb["rnn_start_states"], mb["dones"],
+                mb["actions"], mb["obs"])
+
+        def policy_terms(mb_p, weights_p, fwd_p, norm_state_p, entropy_p):
+            train_state = SimpleNamespace(
+                hyper_params=stacked.hyper_params,
+                value_normalizer=stacked.value_normalizer,
+                value_normalizer_state=norm_state_p or None)
+            out = _loss_terms(cfg, mb_p, weights_p, fwd_p, train_state,
+                              entropy_p)
+            return out[:-1] + (out[-1] or {},)
+
+        (loss, ratios, action_objs, value_losses, value_errs,
+         new_value_norm_state) = torch.func.vmap(policy_terms)(
+            mb, mb_weights, fwd, stacked.value_normalizer_state or {},
+            stacked.entropy_coef)
+        grads = torch.autograd.grad(loss.sum(), list(leaves.values()),
+                                    allow_unused=True)
+        grads = {k: g if g is not None else torch.zeros_like(p)
+                 for (k, p), g in zip(leaves.items(), grads)}
+
+        with torch.no_grad():
+            updates, stacked.opt_state = stacked.tx.update(
+                grads, stacked.opt_state)
+            lr = stacked.lr
+            for k, p in leaves.items():
+                per = lambda x, p=p: x.reshape(-1, *[1] * (p.dim() - 1))
+                new = p + per(-lr) * updates[k]
+                init_norm = stacked.initial_weight_norms.get(k)
+                if init_norm is not None:
+                    # Project tracked kernels back to their initial L2 norm,
+                    # policy by policy.
+                    norm = torch.linalg.vector_norm(
+                        new.reshape(new.shape[0], -1), dim=1)
+                    new = per(init_norm) * new / per(norm)
+                p.copy_(new)
+            _renorm_layernorms_stacked(actor_critic, leaves)
+            if stacked.value_normalizer is not None:
+                stacked.value_normalizer_state = new_value_norm_state
+
+    hp = stacked.hyper_params
+    P = loss.shape[0]
+    with profile("Record Metrics"), torch.no_grad():
+        metrics.record({
+            "Loss": loss.detach().reshape(P, 1),
+            "Action Obj": torch.cat(
+                [x.reshape(P, -1, x.shape[-1]) for x in action_objs.values()],
+                dim=-1),
+            "Value Loss": value_losses,
+            "Value Errors": value_errs.abs(),
+            "Entropy": torch.cat(
+                [x.reshape(P, -1, x.shape[-1])
+                 for x in fwd["entropies"].values()], dim=-1),
+        })
+        dev, clip_frac = _ratio_stats(
+            ratios, hp.clip_coef,
+            tuple(range(1, next(iter(ratios.values())).dim())))
+    return {"max_abs_ratio_dev": dev, "clip_fraction": clip_frac,
+            "loss": loss.detach()}

@@ -188,6 +188,24 @@ def chunked_path_missing(actor_critic, obs_preprocess) -> Optional[str]:
     return chunked_form_missing(actor_critic)
 
 
+def batched_learn_missing(cfg: TrainConfig, actor_critic) -> Optional[str]:
+    """The rule for which path a population's learn takes: one PPO step a
+    minibatch over every train policy (``ppo._ppo_population``) when every
+    module of its actor-critic has a policy-batched learn form and no PPO
+    option needs each policy on its own (returns ``None``), else the
+    per-policy loop (returns what needs it: the option, or the first
+    module without a form). Advantage filtering (each policy's own
+    minibatch count) and float16 loss scaling (each policy's own scaler
+    and finite test) take the loop."""
+    from .models.common import batched_form_missing
+
+    if cfg.filter_advantages:
+        return "filter_advantages"
+    if cfg.compute_dtype == torch.float16:
+        return "compute_dtype=float16 (loss scaling)"
+    return batched_form_missing(actor_critic)
+
+
 def compute_policy_chunks(assignments: torch.Tensor,
                           rollout_cfg: RolloutConfig
                           ) -> PolicyBatchReorderState:
@@ -403,6 +421,19 @@ class RolloutData:
         mb = tree_map(lambda x: x[indices].transpose(0, 1).contiguous(), mb)
         mb["rnn_start_states"] = tree_map(
             lambda x: x[indices], self.data["rnn_start_states"])
+        return mb
+
+    def minibatch_stacked(self, indices):
+        """Rows ``indices`` [P, mb] of every policy's sequences in one
+        gather: [P, T/C, mb, ...] (each policy's time-major), the recurrent
+        start states [P, mb, ...]."""
+        policies = torch.arange(indices.shape[0],
+                                device=indices.device)[:, None]
+        mb = {k: v for k, v in self.data.items() if k != "rnn_start_states"}
+        mb = tree_map(lambda x: x[policies, indices].transpose(1, 2)
+                      .contiguous(), mb)
+        mb["rnn_start_states"] = tree_map(
+            lambda x: x[policies, indices], self.data["rnn_start_states"])
         return mb
 
     def flatten_time(self) -> "RolloutData":

@@ -13,11 +13,17 @@ checkpoints (``train_state.py``), ``latest_checkpoint`` finds the newest,
 and ``init_training(restore_ckpt=...)`` resumes from one. The port runs
 eagerly on one device and updates the manager's state in place.
 
+A population learns on one of two paths, chosen once at init by
+``rollouts.batched_learn_missing``: JAX's ``vmap`` of the update over the
+train policies (``ppo._ppo_population``, one PPO step a minibatch over every
+train policy, on ``StackedTrainState``'s stacks), or the per-policy loop,
+one ``_ppo`` a train policy in turn, which the init logs naming the module
+or option that needs it.
+
 An update opens the JAX package's named ranges ("Update Iter",
-"Collect Rollouts", "Update Observations Stats", "Learn";
-``utils/profile.py``). JAX's "Set New Policy States" writes the train
-policies back into the stacked population; the port updates them in
-place, so it has no such step and no range. JAX's
+"Collect Rollouts", "Update Observations Stats", "Learn"; on the batched
+learn "Set New Policy States", which writes the stacks back into the
+modules and train states; ``utils/profile.py``). JAX's
 ``init_training(profile_port=...)`` starts an XProf server; its
 counterpart here is ``init_training(profile_dir=...)``, which runs a
 ``torch.profiler`` trace of the whole run that ``stop_training`` writes
@@ -28,6 +34,7 @@ the metrics' ring buffer through a ``TensorboardWriter``.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import warnings
 from dataclasses import dataclass
@@ -44,9 +51,12 @@ from .pbt import (pbt_cull_update, pbt_explore_hyperparams, pbt_past_update,
                   pbt_update_elo)
 from .policy import Policy
 from .rollouts import (RolloutConfig, RolloutManager, RolloutState,
-                       chunked_path_missing, rollout_loop, rollouts_reset)
-from .train_state import TrainStateManager
+                       batched_learn_missing, chunked_path_missing,
+                       rollout_loop, rollouts_reset)
+from .train_state import StackedTrainState, TrainStateManager
 from .utils.profile import profile
+
+_LOG = logging.getLogger(__name__)
 
 
 @dataclass(frozen=True)
@@ -73,7 +83,10 @@ class TrainHooks:
 
     def optimize_metrics(self, metrics, epoch_idx, minibatch, policy_state,
                          train_state):
-        """Called once per minibatch, after its optimizer step."""
+        """Called once per minibatch, after its optimizer step (once a
+        train policy, with its own views, on a population's batched learn,
+        where the policy's module and train state hold what they held at
+        the learn's start until the learn writes the stacks back)."""
         return metrics
 
 
@@ -82,7 +95,8 @@ class TrainingManager:
                  metrics: TrainingMetrics, cfg: TrainConfig,
                  algo: AlgoBase, rollout_mgr: RolloutManager,
                  user_hooks: TrainHooks, update_idx: int = 0,
-                 profile_dir: Optional[str] = None):
+                 profile_dir: Optional[str] = None,
+                 batched_learn: bool = False):
         self.state = state
         self.rollout = rollout
         self.metrics = metrics
@@ -98,6 +112,9 @@ class TrainingManager:
         self.first_minibatch_stats: Any = None
         # The (source, destination) copies of the last update_population.
         self.population_copies: List[Tuple[int, int]] = []
+        # A population's learn path, chosen at init: every train policy
+        # in one batched PPO step a minibatch, or the per-policy loop.
+        self.batched_learn = batched_learn
         # The run's torch.profiler trace, written by stop_training.
         self.profile_dir = profile_dir
         self.profiler = None
@@ -122,7 +139,7 @@ class TrainingManager:
     def update_iter(self) -> "TrainingManager":
         self.first_minibatch_stats = _update_impl(
             self.algo, self.cfg, self.user_hooks, self.rollout,
-            self.rollout_mgr, self.state, self.metrics)
+            self.rollout_mgr, self.state, self.metrics, self.batched_learn)
         self.update_idx += 1
         return self
 
@@ -162,7 +179,7 @@ def stop_training(training_mgr: TrainingManager) -> Optional[str]:
 def _update_impl(algo: AlgoBase, cfg: TrainConfig, user_hooks: TrainHooks,
                  rollout_state: RolloutState, rollout_mgr: RolloutManager,
                  train_state_mgr: TrainStateManager,
-                 metrics: TrainingMetrics):
+                 metrics: TrainingMetrics, batched_learn: bool = False):
     with profile("Update Iter"):
         with profile("Collect Rollouts"):
             rollout_data, obs_stats = rollout_mgr.collect(
@@ -172,7 +189,7 @@ def _update_impl(algo: AlgoBase, cfg: TrainConfig, user_hooks: TrainHooks,
         if cfg.pbt is not None:
             return _update_population_policies(
                 algo, cfg, user_hooks, train_state_mgr, rollout_data,
-                obs_stats, metrics)
+                obs_stats, metrics, batched_learn)
 
         # Learning consumes obs preprocessed with the old state, so folding
         # the streamed statistics now only affects the next collect phase.
@@ -192,9 +209,11 @@ def _update_impl(algo: AlgoBase, cfg: TrainConfig, user_hooks: TrainHooks,
 
 
 def _update_population_policies(algo, cfg, user_hooks, train_state_mgr,
-                                rollout_data, obs_stats, metrics):
+                                rollout_data, obs_stats, metrics,
+                                batched_learn):
     """Every train policy folds its obs statistics and runs PPO on its own
-    rollout data, train state and generator."""
+    rollout data, train state and generator: all at once on the batched
+    learn, else one after another."""
     population = train_state_mgr.policy_states
     train_states = train_state_mgr.train_states
     with profile("Update Observations Stats"):
@@ -202,11 +221,22 @@ def _update_population_policies(algo, cfg, user_hooks, train_state_mgr,
             policy = population[p]
             policy.obs_preprocess_state = policy.obs_preprocess.update_state(
                 policy.obs_preprocess_state, stats)
-    with profile("Learn"):
-        out = [algo.update(cfg, population[p], train_states[p],
-                           rollout_data.policy(p),
-                           user_hooks.optimize_metrics, metrics.for_policy(p))
-               for p in range(len(train_states))]
+    if batched_learn:
+        with profile("Learn"):
+            stacked = StackedTrainState.stack(
+                population.policies[:len(train_states)], train_states)
+            out = algo.update_population(cfg, stacked, rollout_data,
+                                         user_hooks.optimize_metrics,
+                                         metrics)
+        with profile("Set New Policy States"):
+            stacked.write_back()
+    else:
+        with profile("Learn"):
+            out = [algo.update(cfg, population[p], train_states[p],
+                               rollout_data.policy(p),
+                               user_hooks.optimize_metrics,
+                               metrics.for_policy(p))
+                   for p in range(len(train_states))]
     metrics.advance()
     return out
 
@@ -305,12 +335,16 @@ def _init_population_training(dev, cfg: TrainConfig, sim_fns, policy,
     population and its train states, and each train policy's drawn
     hyperparameters (resample chance 1, from the PBT generator).
 
-    The population's path is chosen here, once, by
+    The population's paths are chosen here, once. The collect's by
     ``rollouts.chunked_path_missing`` on policy 0's actor-critic and obs
     preprocessor: the policy-chunk layout when every module has a
     policy-batched form, else the per-policy loop. A population on the
     per-policy loop refuses ``rollout_policy_chunk_size_override``, naming
-    the module without a form."""
+    the module without a form. The learn's by
+    ``rollouts.batched_learn_missing`` on the configuration and policy 0's
+    actor-critic: every train policy in one batched PPO step a minibatch,
+    else the per-policy loop, logged with the module or option that
+    needs it."""
     pbt = cfg.pbt
     if pbt.num_teams * pbt.team_size != cfg.num_agents_per_world:
         raise ValueError("num_teams * team_size must equal "
@@ -354,6 +388,10 @@ def _init_population_training(dev, cfg: TrainConfig, sim_fns, policy,
     rollout_state.cfg = rollout_cfg
     rollout_state.rnn_states = population[0].actor_critic \
         .init_recurrent_state(rollout_cfg.sim_batch_size, dev)
+    learn_missing = batched_learn_missing(cfg, population[0].actor_critic)
+    if learn_missing is not None:
+        _LOG.info("the population learns on the per-policy loop, which %s "
+                  "needs", learn_missing)
     for p, train_state in enumerate(train_state_mgr.train_states):
         pbt_explore_hyperparams(cfg, train_state_mgr.pbt_generator,
                                 population, p, train_state, 1.0)
@@ -368,7 +406,8 @@ def _init_population_training(dev, cfg: TrainConfig, sim_fns, policy,
     return TrainingManager(
         state=train_state_mgr, rollout=rollout_state, metrics=metrics,
         cfg=cfg, algo=algo, rollout_mgr=rollout_mgr, user_hooks=user_hooks,
-        update_idx=start_update_idx, profile_dir=profile_dir)
+        update_idx=start_update_idx, profile_dir=profile_dir,
+        batched_learn=learn_missing is None)
 
 
 # -- The PBT outer loop: the Elo tournament and the population update ------

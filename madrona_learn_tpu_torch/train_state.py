@@ -15,6 +15,9 @@
   populations) or a ``MovingEpisodeScore`` (the others), as ``[P]``
   tensors. ``Population.stacked()`` gives the ``PopulationStack`` that
   the policy-batched rollout reads.
+- ``StackedTrainState`` (PBT, the batched learn): the train policies'
+  parameters, Adam states and per-policy train state as ``[P, ...]``
+  stacks for the length of one learn phase, then written back.
 - ``TrainStateManager``: the policy and train state of the one train
   policy, or with ``TrainConfig.pbt`` the ``Population``, one train state a
   train policy and the PBT generator; plus the user's hook state. It
@@ -64,6 +67,7 @@ from .ops.ema import EMAEstimate, EMANormalizer
 from .pbt import _copy_tree
 from .policy import Policy
 from .ppo import AdamState
+from .utils import tree_map, tree_stack
 
 
 @dataclass
@@ -178,6 +182,89 @@ class PolicyTrainState:
     value_normalizer_state: Optional[Dict[str, torch.Tensor]] = None
     scaler: Optional[DynamicScale] = None
     scaler_state: Optional[Dict[str, torch.Tensor]] = None
+
+
+@dataclass
+class StackedTrainState:
+    """The train policies' learn state as ``[P, ...]`` stacks, which
+    ``ppo._ppo_population`` updates in place (JAX keeps a population's train
+    state stacked throughout; the port stacks it at the start of "Learn"
+    and ``write_back`` returns it to the modules and ``PolicyTrainState``s
+    under "Set New Policy States", so checkpoints, ``copy_policy``, surgery
+    and the collect's ``Population.stacked()`` see the same objects as
+    ever): ``leaves``, every parameter path's stack, requiring grad; the
+    Adam state (count ``[P]``); the searched ``lr`` and ``entropy_coef`` as
+    ``[P]`` tensors; the initial weight norms ``[P]`` and the value
+    normalizer's state. ``actor_critic`` (policy 0's) gives the structure;
+    ``hyper_params``, ``tx`` and ``value_normalizer`` (policy 0's) the
+    rest, which is the configuration's and the same for every policy."""
+
+    policies: List[PolicyState]
+    train_states: List[PolicyTrainState]
+    actor_critic: ActorCritic
+    hyper_params: HyperParams
+    tx: Any
+    leaves: Dict[str, torch.Tensor]
+    opt_state: AdamState
+    lr: torch.Tensor
+    entropy_coef: torch.Tensor
+    initial_weight_norms: Dict[str, torch.Tensor]
+    value_normalizer: Optional[EMANormalizer]
+    value_normalizer_state: Optional[Dict[str, torch.Tensor]]
+
+    @staticmethod
+    def stack(policies: List[PolicyState],
+              train_states: List[PolicyTrainState]) -> "StackedTrainState":
+        first, hp = train_states[0], train_states[0].hyper_params
+        for i, ts in enumerate(train_states):
+            for name in ("clip_coef", "value_loss_coef", "max_grad_norm"):
+                if getattr(ts.hyper_params, name) != getattr(hp, name):
+                    raise ValueError(
+                        f"the batched learn takes one {name} for every "
+                        f"train policy; policy {i} has "
+                        f"{getattr(ts.hyper_params, name)}, policy 0 "
+                        f"{getattr(hp, name)}")
+        device = first.opt_state.count.device
+
+        def stack(trees):
+            return tree_stack(trees) if trees[0] is not None else None
+
+        def per_policy(name):
+            return torch.stack([torch.as_tensor(
+                getattr(ts.hyper_params, name), dtype=torch.float32,
+                device=device) for ts in train_states])
+
+        with torch.no_grad():
+            named = [dict(p.actor_critic.named_parameters())
+                     for p in policies]
+            leaves = {k: torch.stack([n[k] for n in named]).requires_grad_()
+                      for k in named[0]}
+            opts = [vars(ts.opt_state) for ts in train_states]
+            return StackedTrainState(
+                policies=policies, train_states=train_states,
+                actor_critic=policies[0].actor_critic, hyper_params=hp,
+                tx=first.tx, leaves=leaves, opt_state=AdamState(**stack(opts)),
+                lr=per_policy("lr"), entropy_coef=per_policy("entropy_coef"),
+                initial_weight_norms=stack(
+                    [ts.initial_weight_norms for ts in train_states]),
+                value_normalizer=first.value_normalizer,
+                value_normalizer_state=stack(
+                    [ts.value_normalizer_state for ts in train_states]))
+
+    def write_back(self):
+        """Each policy's row of the stacks into its module's parameters
+        (in place) and its train state (views of the stacks)."""
+        with torch.no_grad():
+            for p, (policy, ts) in enumerate(zip(self.policies,
+                                                 self.train_states)):
+                for name, param in policy.actor_critic.named_parameters():
+                    param.copy_(self.leaves[name][p])
+                ts.opt_state = AdamState(**tree_map(
+                    lambda x, p=p: x[p], vars(self.opt_state)))
+                if self.value_normalizer_state is not None:
+                    ts.value_normalizer_state = {
+                        k: v[p] for k, v in
+                        self.value_normalizer_state.items()}
 
 
 def initial_weight_norms(actor_critic) -> Dict[str, torch.Tensor]:

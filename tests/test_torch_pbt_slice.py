@@ -25,7 +25,9 @@ Two ``update_iter`` calls must then give equal rollout data, per-policy
 parameters, optimizer state and metrics (float32; the slice test's
 tolerances), then ``eval_elo`` equal Elo (1e-5 relative) and
 ``update_population`` the same copies, bitwise within the port, all
-through the chunked path.
+through the chunked path. The port's side runs on both learn paths
+(``learn``): the batched learn its models take, and the per-policy loop,
+forced by the path rule; the JAX run is computed once a model for both.
 """
 
 import warnings
@@ -153,6 +155,11 @@ def _jax_lstm_policy(actions):
 
 @pytest.fixture(scope="module", params=["mlp", "lstm"])
 def model(request):
+    return request.param
+
+
+@pytest.fixture(scope="module", params=["batched", "loop"])
+def learn(request):
     return request.param
 
 
@@ -296,10 +303,13 @@ def _install_replays(mp, jax_run):
 
 
 @pytest.fixture(scope="module")
-def torch_run(model, jax_run):
+def torch_run(model, learn, jax_run):
     j0 = jax_run["mgrs"][0]
     mp = pytest.MonkeyPatch()
     queues = _install_replays(mp, jax_run)
+    if learn == "loop":
+        mp.setattr(tlt.train, "batched_learn_missing",
+                   lambda cfg, actor_critic: "the test")
     snapshots = []
     try:
         policy = tlt.Policy(lambda p: _torch_model(model),
@@ -313,6 +323,7 @@ def torch_run(model, jax_run):
                           device="cpu"),
             policy, torch.zeros((1,), dtype=torch.int32))
         assert mgr.rollout.cfg.policy_chunked
+        assert mgr.batched_learn == (learn == "batched")
         population = mgr.state.policy_states
         for p in range(NUM_POLICIES):
             population[p].actor_critic.load_state_dict({

@@ -6,8 +6,9 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --digests`` runs phases 1 and 2, then prints the
-SHA-256 of the bf16 LSTM and GRU kernels', ``mha``'s, ``gae``'s and the
-two ``layer_norm`` kernels' outputs from seeded inputs, to hold two
+SHA-256 of the bf16 LSTM and GRU kernels' (the chunk-indexed ones
+included), ``mha``'s, ``gae``'s and the two ``layer_norm`` kernels'
+outputs from seeded inputs, to hold two
 checkouts' kernels bitwise equal: copy the script into the other
 checkout's root and run it there too. ``--timings`` runs phases 1 and 2,
 then times ``gae``, ``layer_norm_fwd`` and ``layer_norm_bwd`` at their
@@ -71,7 +72,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    within the backward's tolerance of that kernel's, bitwise over two
    calls and, for a policy of one chunk, bitwise its chunk alone, chunks
    of index P and -1 NaN and in no policy's gradients, and timed against
-   one ``lstm_sequence_bwd`` a policy over the same rows;
+   one ``lstm_sequence_bwd`` a policy over the same rows; and the GRU's
+   chunk-indexed instances the same way: ``gru_sequence_fwd_chunked`` at
+   headline_pbt_gru's collect step (T = 1, 75 chunks of 512 rows, 12
+   policies) and learn step (T = 16, 8 chunks of 1280, 8 policies), and
+   ``gru_sequence_bwd_chunked`` at the learn step, both also at chunks of
+   37 rows in a shuffled order in bf16 and float32 (every row bitwise the
+   single-policy kernel's, bitwise over two calls and for a chunk alone,
+   chunks of index P and -1 NaN, each policy's dwh / dbh within the
+   tolerance of the single-policy backward's sum and, where 64 divides
+   the chunk, bitwise it), each timed against one single-policy launch a
+   policy;
 4. models: the update pass and its gradients through the kernels on the
    card against the same model on the CPU, for the MLP model, a small GRU
    model, a small fused-trunk model, a small flagship (entity attention)
@@ -186,6 +197,20 @@ Phases, in order; any failure raises and the script exits non-zero:
     32 steps: ``lstm_sequence_fwd_chunked`` once a step and
     ``grouped_matmul`` 5 times (the custom policy's chunks read no
     weights), Elo finite with policy 0 at 1500.
+12b. headline_pbt's population (16384 duel worlds x 2 agents, 8 train +
+    4 past policies, the same portions and PPO settings) with other
+    models, each in the policy-chunk layout and the batched learn, one
+    warm-up update whose first minibatch's max |ratio - 1| is below 1e-3
+    for every train policy, then timed updates (agent-steps/s), the
+    launches exact, then ``_pbt_learn_ab``'s learn A/B:
+    headline_pbt_gru (GRU(256, 256, 1, bf16) in the LSTM's place, 3 timed
+    updates: ``gru_sequence_fwd_chunked`` 37 an update, 33 in collect and
+    4 in learn, ``gru_sequence_bwd_chunked`` 4, ``grouped_matmul`` 164,
+    ``gae`` 1, no single-policy GRU kernel; and ``_pbt_collect_ab``'s
+    collect A/B), headline_pbt_dreamer (the DreamerV3 critic, 1 timed
+    update: the LSTM's chunk-indexed 37 and 4, ``grouped_matmul`` 164) and
+    headline_pbt_hlgauss (the two-part HL-Gauss critic, 1 timed update:
+    ``grouped_matmul`` 197, its two heads a step and for the bootstrap).
 
 13. the rest of the model zoo, five trainers at 16384 worlds with the
     headline's width and PPO settings, each 1 warm-up update and 2 trials
@@ -2293,6 +2318,306 @@ def check_lstm_bwd_chunked(results):
                    dwr_bitwise_single=same, **b)
 
 
+def _chunked_gru_inputs(gen, T, B, C, H, P, dtype):
+    """x_proj, keep, the [P, H, 3H] / [P, H] stacks, chunk_policy [B] (in
+    [0, P), every policy present), h0."""
+    import torch
+
+    x, keep, _, _, h0 = _gru_inputs(gen, T, B * C, H, dtype)
+    wh = (torch.randn(P, H, 3 * H, device="cuda", generator=gen)
+          * H ** -0.5).to(dtype)
+    bias_h = torch.randn(P, H, device="cuda", generator=gen).to(dtype)
+    idx = torch.randint(0, P, (B,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    idx[:P] = torch.arange(P, device="cuda", dtype=torch.int32)
+    return x, keep, wh, bias_h, idx, h0
+
+
+def _chunked_gru_bounds(T, B, C, H, policies_used, itemsize):
+    """``_gru_bounds`` over the B * C rows with the weights of the policies
+    in use (read, and backward their dWh / dbh written) and the chunk
+    indices read: (forward, backward)."""
+    N = B * C
+    seq, state = T * N * H, N * H
+    weights = policies_used * (3 * H * H + H)
+    fwd_bytes = itemsize * (3 * seq + T * N + weights + state + seq) + 4 * B
+    bwd_bytes = (itemsize * (3 * seq + T * N + weights + state + 2 * seq
+                             + 3 * seq + weights + state) + 4 * B)
+    product = 2 * T * N * H * 3 * H
+    return (bound(fwd_bytes, {"bf16_tensor": product, "f32": 25 * seq}),
+            bound(bwd_bytes, {"bf16_tensor": 3 * product, "f32": 35 * seq}))
+
+
+def _skipped_rows(B, C, bad=(1, 3)):
+    """The rows of chunks ``bad``, as a [B * C] mask."""
+    import torch
+
+    skipped = torch.zeros(B, dtype=torch.bool, device="cuda")
+    skipped[list(bad)] = True
+    return skipped.repeat_interleave(C)
+
+
+def check_gru_chunked(results):
+    """gru_sequence_fwd_chunked at headline_pbt_gru's collect step (T = 1,
+    the chunk size and count init_training derives, 12 policies) and its
+    learn step (T = 16, 8 train policies, one chunk of a minibatch's 1280
+    sequences each), bf16 on tensor cores, and at chunks of 37 rows (no
+    multiple of a tile) in a shuffled order, in bf16 and f32 (CUDA cores):
+    against its plain twin; row for row bitwise ``gru_sequence_fwd`` with
+    the row's policy's weights (each policy's rows in one call); bitwise
+    over two calls and for the first chunk alone; chunks of index P and -1
+    NaN, the others unchanged; its time against one ``gru_sequence_fwd`` a
+    policy over the same rows (the per-policy loop's launches) and its
+    bound."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.gru import (
+        GRU_FWD_CHUNKED, gru_sequence_fwd, gru_sequence_fwd_chunked,
+        gru_sequence_fwd_chunked_reference, uses_tensor_cores)
+
+    P, C, B = _pbt_chunk_geometry()
+    H, T = CHANNELS, STEPS_PER_UPDATE // NUM_BPTT_CHUNKS
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    res = results["gru_sequence_fwd_chunked"] = {"max_abs_err": 0.0}
+    bf16, f32 = torch.bfloat16, torch.float32
+    shuffled = [2, 0, 3, 2, 1, 0]      # policy 4 of 5 owns no chunk
+    # (T, chunks, C, P, dtype, role): the collect step, the learn step,
+    # then the ragged, shuffled chunks.
+    for T_c, chunks, chunk, P_c, dtype, role in (
+            (1, B, C, P, bf16, "collect"),
+            (T, PBT_TRAIN, PBT_MINIBATCH, PBT_TRAIN, bf16, "learn"),
+            (5, len(shuffled), 37, 5, bf16, None),
+            (5, len(shuffled), 37, 5, f32, None)):
+        dname = str(dtype).split(".")[-1]
+        args = list(_chunked_gru_inputs(gen, T_c, chunks, chunk, H, P_c,
+                                        dtype))
+        if role == "learn":
+            args[4] = torch.arange(P_c, dtype=torch.int32, device="cuda")
+        elif role is None:
+            args[4] = torch.tensor(shuffled, dtype=torch.int32,
+                                   device="cuda")
+        x, keep, wh, bias_h, idx, h0 = args
+        ys, path = _routed(GRU_FWD_CHUNKED, uses_tensor_cores(dtype, H),
+                           gru_sequence_fwd_chunked, *args)
+        tag = (f"[{T_c}, {chunks} x {chunk}, {3 * H}] P={P_c} {dname} "
+               f"({path})")
+        if role and path != "tensor_core":
+            raise AssertionError(f"gru_sequence_fwd_chunked {tag}: the main "
+                                 f"path took the {path} route")
+        err = compare(f"gru_sequence_fwd_chunked {tag}", ys,
+                      gru_sequence_fwd_chunked_reference(*args),
+                      **TOL[("gru_fwd", dname)])
+        by_policy = _policy_rows(idx, chunk, P_c)
+        for p, rows in by_policy:
+            y1 = gru_sequence_fwd(x[:, rows].contiguous(),
+                                  keep[:, rows].contiguous(), wh[p],
+                                  bias_h[p], h0[rows])
+            if not torch.equal(y1, ys[:, rows]):
+                raise AssertionError(f"gru_sequence_fwd_chunked {tag}: "
+                                     f"policy {p}'s rows differ from "
+                                     f"gru_sequence_fwd's")
+        log(f"  gru_sequence_fwd_chunked {tag}: every row bitwise "
+            f"gru_sequence_fwd's with its policy's weights "
+            f"({len(by_policy)} calls) ok")
+        bitwise(f"gru_sequence_fwd_chunked {tag} over two calls",
+                gru_sequence_fwd_chunked(*args), ys)
+        bitwise(f"gru_sequence_fwd_chunked {tag} the first chunk alone",
+                gru_sequence_fwd_chunked(
+                    x[:, :chunk].contiguous(), keep[:, :chunk].contiguous(),
+                    wh, bias_h, idx[:1].contiguous(), h0[:chunk]),
+                ys[:, :chunk])
+        if role is None:
+            bad = idx.clone()
+            bad[1], bad[3] = P_c, -1
+            yb = gru_sequence_fwd_chunked(x, keep, wh, bias_h, bad, h0)
+            rows = _skipped_rows(chunks, chunk)
+            if not (bool(yb[:, rows].isnan().all())
+                    and torch.equal(yb[:, ~rows], ys[:, ~rows])):
+                raise AssertionError(f"gru_sequence_fwd_chunked {tag}: a "
+                                     f"chunk of index P or -1 was not "
+                                     f"skipped alone")
+            log(f"  gru_sequence_fwd_chunked {tag}: chunks of index P and "
+                f"-1 NaN, the others unchanged ok")
+            continue
+        per_policy = [(x[:, rows].contiguous(), keep[:, rows].contiguous(),
+                       wh[p], bias_h[p], h0[rows]) for p, rows in by_policy]
+        ms = time_ms(lambda: gru_sequence_fwd_chunked(*args))
+        loop_ms = time_ms(lambda: [gru_sequence_fwd(*a) for a in per_policy])
+        plain_ms = time_ms(lambda: gru_sequence_fwd_chunked_reference(
+            *args), reps=3, warmup=1)
+        b = _chunked_gru_bounds(T_c, chunks, chunk, H, len(by_policy),
+                                x.element_size())[0]
+        log(f"  gru_sequence_fwd_chunked {tag}: kernel {ms:.4f} ms, "
+            f"{len(per_policy)} gru_sequence_fwd over the same rows "
+            f"{loop_ms:.4f} ms, plain {plain_ms:.3f} ms, no library call "
+            f"(cuDNN's GRU takes one weight a call), bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                      library_ms=None, path=path, per_policy_ms=loop_ms,
+                      shape=[T_c, chunks, chunk, 3 * H], policies=P_c, **b)
+        if role == "collect":
+            res.update(record)     # 33 of the 37 launches an update
+        else:
+            res["learn_shape"] = record
+
+
+def check_gru_bwd_chunked(results):
+    """gru_sequence_bwd_chunked at headline_pbt_gru's learn step (8 train
+    policies, one chunk of a minibatch's 1280 sequences each, T = 16, bf16
+    on tensor cores) and at chunks of 37 rows in a shuffled order with a
+    policy owning two chunks and one owning none, in bf16 and f32 (CUDA
+    cores): against its plain twin's autograd; every chunk's dx_proj /
+    dh0 bitwise ``gru_sequence_bwd``'s on that chunk's rows with its
+    policy's weights, and each policy's dwh / dbh within the backward's
+    tolerance of that kernel's (summed over its chunks); bitwise over two
+    calls and, for a policy of one chunk, bitwise the call over that chunk
+    alone; a chunk of index P or -1 NaN and adding to no policy; the time
+    against the per-policy loop's gru_sequence_bwd launches over the same
+    rows, and its bound."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.gru import (
+        GRU_BWD_CHUNKED, gru_sequence_bwd, gru_sequence_bwd_chunked,
+        gru_sequence_chunked_reference, gru_sequence_fwd_chunked,
+        uses_tensor_cores)
+
+    H, T, P = CHANNELS, STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, PBT_TRAIN
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    res = results["gru_sequence_bwd_chunked"] = {"max_abs_err": 0.0}
+    bf16, f32 = torch.bfloat16, torch.float32
+    shuffled = [2, 0, 3, 2, 1, 0]      # policy 4 of 5 owns no chunk
+    for dtype, T_c, C, order, main_path in (
+            (bf16, T, PBT_MINIBATCH, list(range(P)), True),
+            (bf16, 5, 37, shuffled, False), (f32, 5, 37, shuffled, False)):
+        P_c = P if main_path else 5
+        B = len(order)
+        dname = str(dtype).split(".")[-1]
+        args = list(_chunked_gru_inputs(gen, T_c, B, C, H, P_c, dtype))
+        args[4] = torch.tensor(order, dtype=torch.int32, device="cuda")
+        x, keep, wh, bias_h, idx, h0 = args
+        ys = gru_sequence_fwd_chunked(*args)
+        probe = torch.randn(T_c, B * C, H, device="cuda",
+                            generator=gen).to(dtype)
+        got, path = _routed(GRU_BWD_CHUNKED, uses_tensor_cores(dtype, H),
+                            gru_sequence_bwd_chunked, *args, ys, probe)
+        tag = (f"[{T_c}, {B} x {C}, {3 * H}] P={P_c} {dname} chunks "
+               f"{order} ({path})")
+        if main_path and path != "tensor_core":
+            raise AssertionError(f"gru_sequence_bwd_chunked {tag}: the main "
+                                 f"path took the {path} route")
+        leaves = [a.detach().clone().requires_grad_(i in (0, 2, 3, 5))
+                  for i, a in enumerate(args)]
+        diff = [leaves[i] for i in (0, 2, 3, 5)]
+
+        def plain_bwd():
+            out = gru_sequence_chunked_reference(*leaves)
+            return torch.autograd.grad(
+                (out.float() * probe.float()).sum(), diff)
+
+        tol = TOL[("gru_bwd", dname)]
+        err = 0.0
+        for name, g, w in zip(("dxp", "dwh", "dbh", "dh0"), got,
+                              plain_bwd()):
+            err = max(err, compare(f"gru_sequence_bwd_chunked {name} {tag}",
+                                   g, w, **tol))
+        dxp, dwh, dbh, dh0 = got
+        # Row for row, the single-policy backward on each chunk's rows.
+        sums = {}
+        for b, p in enumerate(order):
+            rows = slice(b * C, (b + 1) * C)
+            one = gru_sequence_bwd(
+                *(t[:, rows].contiguous() for t in (x, keep)), wh[p],
+                bias_h[p], h0[rows],
+                *(t[:, rows].contiguous() for t in (ys, probe)))
+            if not (torch.equal(one[0], dxp[:, rows])
+                    and torch.equal(one[3], dh0[rows])):
+                raise AssertionError(f"gru_sequence_bwd_chunked {tag}: chunk "
+                                     f"{b}'s rows differ from "
+                                     f"gru_sequence_bwd's")
+            dw1, db1 = sums.get(p, (0.0, 0.0))
+            sums[p] = (dw1 + one[1].float(), db1 + one[2].float())
+        log(f"  gru_sequence_bwd_chunked {tag}: every chunk's dxp / dh0 "
+            f"bitwise gru_sequence_bwd's on its rows ({B} calls) ok")
+        for p in range(P_c):
+            want_w, want_b = sums.get(p, (torch.zeros_like(dwh[p]),
+                                          torch.zeros_like(dbh[p])))
+            compare(f"gru_sequence_bwd_chunked dwh[{p}] {tag} vs "
+                    f"gru_sequence_bwd", dwh[p], want_w, **tol)
+            compare(f"gru_sequence_bwd_chunked dbh[{p}] {tag} vs "
+                    f"gru_sequence_bwd", dbh[p], want_b, **tol)
+            if p not in sums and (dwh[p].any() or dbh[p].any()):
+                raise AssertionError(f"gru_sequence_bwd_chunked {tag}: "
+                                     f"policy {p} owns no chunk and got a "
+                                     f"gradient")
+        again = gru_sequence_bwd_chunked(*args, ys, probe)
+        for i, name in enumerate(("dxp", "dwh", "dbh", "dh0")):
+            bitwise(f"gru_sequence_bwd_chunked {tag} {name} over two calls",
+                    again[i], got[i])
+        # A policy of one chunk: its chunk alone gives the same dwh / dbh.
+        alone = [p for p in set(order) if order.count(p) == 1]
+        for p in sorted(alone):
+            b = order.index(p)
+            rows = slice(b * C, (b + 1) * C)
+            one = gru_sequence_bwd_chunked(
+                *(t[:, rows].contiguous() for t in (x, keep)), wh, bias_h,
+                idx[b:b + 1].contiguous(), h0[rows],
+                *(t[:, rows].contiguous() for t in (ys, probe)))
+            if not (torch.equal(one[1][p], dwh[p])
+                    and torch.equal(one[2][p], dbh[p])):
+                raise AssertionError(f"gru_sequence_bwd_chunked {tag}: "
+                                     f"policy {p}'s dwh / dbh differ from "
+                                     f"its chunk's alone")
+        log(f"  gru_sequence_bwd_chunked {tag}: dwh / dbh of policies "
+            f"{sorted(alone)} bitwise their chunk's alone ok")
+        if not main_path:
+            bad = idx.clone()
+            bad[1], bad[3] = P_c, -1
+            yb = gru_sequence_fwd_chunked(x, keep, wh, bias_h, bad, h0)
+            gb = gru_sequence_bwd_chunked(x, keep, wh, bias_h, bad, h0, yb,
+                                          probe)
+            rows = _skipped_rows(B, C)
+            if not (bool(gb[0][:, rows].isnan().all())
+                    and bool(gb[3][rows].isnan().all())
+                    and torch.equal(gb[0][:, ~rows], dxp[:, ~rows])
+                    and torch.equal(gb[3][~rows], dh0[~rows])
+                    and bool(torch.isfinite(gb[1]).all())
+                    and bool(torch.isfinite(gb[2]).all())):
+                raise AssertionError(f"gru_sequence_bwd_chunked {tag}: a "
+                                     f"chunk of index P or -1 was not "
+                                     f"skipped alone")
+            log(f"  gru_sequence_bwd_chunked {tag}: chunks of index P and "
+                f"-1 NaN and in no policy's dwh / dbh, the others unchanged "
+                f"ok")
+            continue
+        per_policy = [((x[:, b * C:(b + 1) * C].contiguous(),
+                        keep[:, b * C:(b + 1) * C].contiguous(), wh[p],
+                        bias_h[p], h0[b * C:(b + 1) * C])
+                       + tuple(t[:, b * C:(b + 1) * C].contiguous()
+                               for t in (ys, probe)))
+                      for b, p in enumerate(order)]
+        same = all(torch.equal(gru_sequence_bwd(*a)[1], dwh[p])
+                   and torch.equal(gru_sequence_bwd(*a)[2], dbh[p])
+                   for a, p in zip(per_policy, order))
+        log(f"  gru_sequence_bwd_chunked {tag}: dwh / dbh bitwise "
+            f"gru_sequence_bwd's a policy (64 divides C: the same boxes "
+            f"and splits): {'yes' if same else 'no'}")
+        if not same:
+            raise AssertionError(f"gru_sequence_bwd_chunked {tag}: 64 "
+                                 f"divides C, and a policy's dwh / dbh "
+                                 f"are not the single-policy pass's")
+        ms = time_ms(lambda: gru_sequence_bwd_chunked(*args, ys, probe))
+        loop_ms = time_ms(lambda: [gru_sequence_bwd(*a)
+                                   for a in per_policy])
+        plain_ms = time_ms(plain_bwd, reps=3, warmup=1)
+        b = _chunked_gru_bounds(T_c, B, C, H, P_c, x.element_size())[1]
+        log(f"  gru_sequence_bwd_chunked {tag}: kernel {ms:.4f} ms, {B} "
+            f"gru_sequence_bwd over the same rows {loop_ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, no library call (cuDNN's GRU takes one "
+            f"weight a call and no keep mask), bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})")
+        res.update(max_abs_err=err, path=path, ms=ms, plain_ms=plain_ms,
+                   library_ms=None, per_policy_ms=loop_ms, chunk=C,
+                   chunks=B, policies=P_c, dwh_bitwise_single=same, **b)
+
+
 def check_grouped_matmul_pbt(results):
     """grouped_matmul at the batched pass's shapes of headline_pbt's
     collect step (B chunks of C rows, 12 policies, bf16): the MLP's first
@@ -2342,6 +2667,8 @@ def kernel_phase():
     check_grouped_matmul_pbt(results)
     check_lstm_chunked(results)
     check_lstm_bwd_chunked(results)
+    check_gru_chunked(results)
+    check_gru_bwd_chunked(results)
     return results
 
 
@@ -3205,7 +3532,8 @@ def _profile_update(one_update):
                      "_LSTMSequenceBackward", "_LSTMSequenceChunked",
                      "_LSTMSequenceChunkedBackward", "_LSTMSequenceProj",
                      "_LSTMSequenceProjBackward", "_GRUSequence",
-                     "_GRUSequenceBackward"):
+                     "_GRUSequenceBackward", "_GRUSequenceChunked",
+                     "_GRUSequenceChunkedBackward"):
             log(f"    {total_ms(e):9.3f} ms {e.count:6d}x  {e.key} "
                 f"(inclusive)")
 
@@ -3217,7 +3545,8 @@ TC_ROUTED = ("lstm_sequence_fwd", "lstm_sequence_bwd",
              "lstm_sequence_proj_fwd", "lstm_sequence_proj_bwd",
              "gru_sequence_fwd", "gru_sequence_bwd", "mha",
              "fused_policy_step", "lstm_sequence_fwd_chunked",
-             "lstm_sequence_bwd_chunked")
+             "lstm_sequence_bwd_chunked", "gru_sequence_fwd_chunked",
+             "gru_sequence_bwd_chunked")
 
 
 def trainer_phase(card, name, build, per_update, trials, timed_updates,
@@ -3367,26 +3696,36 @@ PBT_TRAIN_AGENTS = 2560
 PBT_MINIBATCH = NUM_BPTT_CHUNKS * PBT_TRAIN_AGENTS // NUM_MINIBATCHES
 
 
-def _pbt_actor_critic(seed):
-    """The headline's MLP + LSTM in bf16 over the duel's 2 obs."""
+def _pbt_actor_critic(seed, rnn="lstm", critic="dense"):
+    """The headline's MLP + LSTM in bf16 over the duel's 2 obs; with
+    ``rnn="gru"`` GRU(256, 256, 1, bf16) in the LSTM's place, with
+    ``critic`` "dreamer" or "hlgauss_two_part" that distributional critic
+    in the dense critic's place."""
     import torch
     from madrona_learn_tpu_torch.config import DiscreteActionsConfig
     from madrona_learn_tpu_torch.models import (
-        LSTM, MLP, ActorCritic, BackboneShared, DenseLayerCritic,
-        DenseLayerDiscreteActor, DictActor, RecurrentBackboneEncoder)
+        GRU, LSTM, MLP, ActorCritic, BackboneShared, DenseLayerCritic,
+        DenseLayerDiscreteActor, DictActor, DreamerV3Critic,
+        HLGaussTwoPartCritic, RecurrentBackboneEncoder)
 
     dtype = torch.bfloat16
     gen = torch.Generator().manual_seed(seed)
+    net = MLP(2, CHANNELS, 2, dtype, generator=gen)
+    recurrence = {"lstm": LSTM, "gru": GRU}[rnn](CHANNELS, CHANNELS, 1, dtype,
+                                                generator=gen)
+    actor = DictActor({"move": DenseLayerDiscreteActor(
+        DiscreteActionsConfig(actions_num_buckets=[5]), CHANNELS, dtype,
+        generator=gen)})
+    critics = {
+        "dense": lambda: DenseLayerCritic(CHANNELS, dtype, generator=gen),
+        "dreamer": lambda: DreamerV3Critic(CHANNELS, dtype),
+        "hlgauss_two_part": lambda: HLGaussTwoPartCritic.create(CHANNELS,
+                                                                dtype)}
     return ActorCritic(
         backbone=BackboneShared(
             prefix=lambda obs: torch.cat([obs["time"], obs["acc"]], -1),
-            encoder=RecurrentBackboneEncoder(
-                net=MLP(2, CHANNELS, 2, dtype, generator=gen),
-                rnn=LSTM(CHANNELS, CHANNELS, 1, dtype, generator=gen))),
-        actor=DictActor({"move": DenseLayerDiscreteActor(
-            DiscreteActionsConfig(actions_num_buckets=[5]), CHANNELS, dtype,
-            generator=gen)}),
-        critic=DenseLayerCritic(CHANNELS, dtype, generator=gen))
+            encoder=RecurrentBackboneEncoder(net=net, rnn=recurrence)),
+        actor=actor, critic=critics[critic]())
 
 
 def _duel_scores(er):
@@ -3398,12 +3737,12 @@ def _duel_scores(er):
     return a, 1.0 - a
 
 
-def _pbt_policy():
+def _pbt_policy(**model):
     import torch
     import madrona_learn_tpu_torch as mlt
 
     return mlt.Policy(
-        actor_critic=_pbt_actor_critic,
+        actor_critic=lambda seed: _pbt_actor_critic(seed, **model),
         obs_preprocess=mlt.ObservationsCaster.create(dtype=torch.bfloat16),
         get_episode_scores=_duel_scores)
 
@@ -3417,10 +3756,12 @@ def _duel_env():
 
 
 def build_headline_pbt(hooks, restore_ckpt=None, custom_policy_ids=(),
-                       sim_fns=None):
+                       sim_fns=None, **model):
     """BASELINE config #4 as ``benchmarks/profile_pbt.py`` builds it; from
     checkpoint ``restore_ckpt`` if given, with ``custom_policy_ids`` over
-    ``sim_fns`` (the duel) if given."""
+    ``sim_fns`` (the duel) if given; ``model`` picks the recurrence and the
+    critic (``_pbt_actor_critic``), a distributional critic under its
+    TrainConfig flag."""
     import torch
     import madrona_learn_tpu_torch as mlt
 
@@ -3443,10 +3784,12 @@ def build_headline_pbt(hooks, restore_ckpt=None, custom_policy_ids=(),
                           # whenever the top policy is not below the
                           # bottom one, so the copy checks run.
                           policy_overwrite_threshold=0.5),
-        dreamer_v3_critic=False, compute_dtype=torch.bfloat16,
+        dreamer_v3_critic=model.get("critic") == "dreamer",
+        hlgauss_critic=model.get("critic") == "hlgauss_two_part",
+        compute_dtype=torch.bfloat16,
         custom_policy_ids=list(custom_policy_ids))
     return mlt.init_training(
-        "cuda", cfg, sim_fns or _duel_env(), _pbt_policy(),
+        "cuda", cfg, sim_fns or _duel_env(), _pbt_policy(**model),
         torch.zeros((1,), dtype=torch.int32, device="cuda"),
         user_hooks=hooks, restore_ckpt=restore_ckpt)
 
@@ -3945,6 +4288,85 @@ def _count_launches(fn):
                           getattr(e, "self_cuda_time_total", 0))
                   for e in kernels) / 1e3
     return out, sum(e.count for e in kernels), busy_ms, wall_ms
+
+
+def pbt_variant_phase(card, name, model, per_update, timed_updates,
+                      collect_ab):
+    """headline_pbt's population with another model (``model``, the
+    keywords of ``_pbt_actor_critic``): it must take the policy-chunk
+    layout and the batched learn; one warm-up update, whose first
+    minibatch's max |ratio - 1| must stay below PBT_RATIO_DEV for every
+    train policy, and ``timed_updates`` timed ones (agent-steps/s), with
+    the launches exact (``per_update``, every other kernel 0), finite
+    losses and metrics; then, with ``collect_ab``, the collect A/B, and
+    the learn A/B (``_pbt_collect_ab``, ``_pbt_learn_ab``)."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda import KERNELS
+    from madrona_learn_tpu_torch.train import TrainHooks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mgr = build_headline_pbt(TrainHooks(), **model)
+    cfg = mgr.rollout.cfg
+    _log_population_path(name, cfg)
+    if not (cfg.policy_chunked and mgr.batched_learn):
+        raise AssertionError(f"{name}: the population does not take the "
+                             f"policy-chunk layout and the batched learn")
+    expected = {k.name: 0 for k in KERNELS}
+    expected.update(per_update)
+    log(f"{name} trainer: headline_pbt's population with {model}, bf16; "
+        f"expected launches per update "
+        f"{ {k: v for k, v in expected.items() if v} }")
+    _zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mgr.update_iter()
+    torch.cuda.synchronize()
+    log(f"  warm-up update: {time.perf_counter() - t0:.3f} s")
+    ratios = [s["max_abs_ratio_dev"].item()
+              for s in mgr.first_minibatch_stats]
+    log(f"  first update, first minibatch, max |ratio - 1| by train "
+        f"policy: {[f'{r:.3e}' for r in ratios]}")
+    if not all(r < PBT_RATIO_DEV for r in ratios):
+        raise AssertionError(f"{name}: first-minibatch max |ratio - 1| "
+                             f"{ratios} not all below {PBT_RATIO_DEV}")
+    losses = [torch.stack([s["loss"] for s in mgr.first_minibatch_stats])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed_updates):
+        mgr.update_iter()
+        losses.append(torch.stack([s["loss"]
+                                   for s in mgr.first_minibatch_stats]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    num_updates = 1 + timed_updates
+    launches, tc = _launch_counts()
+    want = {k: v * num_updates for k, v in expected.items()}
+    if launches != want:
+        raise AssertionError(f"{name}: launches over {num_updates} updates "
+                             f"{launches}, expected {want}")
+    for kernel, n in tc.items():
+        if n != launches[kernel]:
+            raise AssertionError(f"{name}: {kernel}: {n} of "
+                                 f"{launches[kernel]} launches on the "
+                                 f"tensor-core route")
+    log(f"  launches over {num_updates} updates: "
+        f"{ {k: v for k, v in launches.items() if v} }, all on the "
+        f"tensor-core route where it exists")
+    if not bool(torch.isfinite(torch.stack(losses)).all()):
+        raise AssertionError(f"{name}: non-finite loss")
+    for metric, m in mgr.metrics.metrics.items():
+        if not bool(torch.isfinite(m.mean).all()):
+            raise AssertionError(f"{name}: metric {metric} is not finite")
+    sps = timed_updates * STEPS_PER_UPDATE * 2 * NUM_WORLDS / seconds
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  {name} agent-steps/s ({timed_updates} updates, "
+        f"{seconds * 1e3 / timed_updates:.1f} ms/update): {sps:.0f} on "
+        f"{card}; peak {peak_gib:.2f} GiB")
+    ab = _pbt_collect_ab(card, mgr) if collect_ab else {}
+    ab.update(_pbt_learn_ab(card, mgr))
+    return launches, dict(sps=sps, ratio_dev=max(ratios), peak_gib=peak_gib,
+                          **ab)
 
 
 def _pbt_collect_ab(card, mgr):
@@ -4925,7 +5347,48 @@ def digest_phase():
         "gru_sequence_bwd": digest(gru_sequence_bwd(*gru_args, ys, dys)),
         "mha": digest([mha_fwd(*qkv, 12)]),
         **_cuda_core_digests(digest),
+        **_chunked_digests(digest),
     }}))
+
+
+def _chunked_digests(digest):
+    """The chunk-indexed recurrences' digests at headline_pbt's collect
+    step (T = 1, 12 policies) and learn step (T = 16, 8 policies of one
+    chunk each), bf16, from a generator of their own. The GRU's are left
+    out where the checkout has no chunk-indexed GRU kernels."""
+    import torch
+    import madrona_learn_tpu_torch.ops.cuda.gru as gru
+    from madrona_learn_tpu_torch.ops.cuda.lstm import (
+        lstm_sequence_bwd_chunked, lstm_sequence_fwd_chunked)
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    P, C, B = _pbt_chunk_geometry()
+    H, T, bf16 = CHANNELS, STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, torch.bfloat16
+    learn_idx = torch.arange(PBT_TRAIN, dtype=torch.int32, device="cuda")
+
+    def rnd(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(bf16)
+
+    step = _chunked_lstm_inputs(gen, 1, B, C, H, P, bf16)
+    learn = list(_chunked_lstm_inputs(gen, T, PBT_TRAIN, PBT_MINIBATCH, H,
+                                      PBT_TRAIN, bf16))
+    learn[4] = learn_idx
+    ys, cs, dys = (rnd(T, PBT_TRAIN * PBT_MINIBATCH, H) for _ in range(3))
+    out = {
+        "lstm_sequence_fwd_chunked": digest(lstm_sequence_fwd_chunked(*step)),
+        "lstm_sequence_bwd_chunked": digest(lstm_sequence_bwd_chunked(
+            *learn, ys, cs, dys)),
+    }
+    if hasattr(gru, "gru_sequence_fwd_chunked"):
+        step = _chunked_gru_inputs(gen, 1, B, C, H, P, bf16)
+        learn = list(_chunked_gru_inputs(gen, T, PBT_TRAIN, PBT_MINIBATCH, H,
+                                         PBT_TRAIN, bf16))
+        learn[4] = learn_idx
+        out["gru_sequence_fwd_chunked"] = digest(
+            [gru.gru_sequence_fwd_chunked(*step)])
+        out["gru_sequence_bwd_chunked"] = digest(
+            gru.gru_sequence_bwd_chunked(*learn, ys, dys))
+    return out
 
 
 def _ln_bwd_inputs(gen, N=131072, D=256):
@@ -5090,12 +5553,39 @@ def main():
             f"{r['peak_gib']:.2f} GiB on {card}")
     launches, r = pbt_phase(card)
     launches_by_path["headline_pbt"] = launches
+    paths_pbt_sps = r["sps"]
     log(f"headline_pbt: {r['sps']:.0f} agent-steps/s (headline "
         f"{headline_sps:.0f} env-steps/s in this run), max |ratio - 1| over "
         f"the train policies {r['ratio_dev']:.3e}, peak {r['peak_gib']:.2f} "
         f"GiB on {card}")
     launches_by_path["checkpoint_eval"] = checkpoint_eval_phase(card,
                                                                 r.pop("mgr"))
+    # headline_pbt's population with the GRU, and with each
+    # distributional critic: one batched pass a rollout step (five
+    # products a step, four for the bootstrap; the two-part critic has two
+    # heads) and one batched learn step a minibatch, on the chunk-indexed
+    # recurrence kernels.
+    steps = STEPS_PER_UPDATE + 1 + NUM_MINIBATCHES
+    pbt_lstm = {"gae": 1, "lstm_sequence_fwd_chunked": steps,
+                "lstm_sequence_bwd_chunked": NUM_MINIBATCHES,
+                "grouped_matmul": 5 * STEPS_PER_UPDATE + 4}
+    for name, model, per_update, timed, collect_ab in (
+            ("headline_pbt_gru", dict(rnn="gru"),
+             {"gae": 1, "gru_sequence_fwd_chunked": steps,
+              "gru_sequence_bwd_chunked": NUM_MINIBATCHES,
+              "grouped_matmul": 5 * STEPS_PER_UPDATE + 4}, 3, True),
+            ("headline_pbt_dreamer", dict(critic="dreamer"), pbt_lstm, 1,
+             False),
+            ("headline_pbt_hlgauss", dict(critic="hlgauss_two_part"),
+             dict(pbt_lstm, grouped_matmul=6 * STEPS_PER_UPDATE + 5), 1,
+             False)):
+        launches, r = pbt_variant_phase(card, name, model, per_update, timed,
+                                        collect_ab)
+        launches_by_path[name] = launches
+        log(f"{name}: {r['sps']:.0f} agent-steps/s (headline_pbt "
+            f"{paths_pbt_sps:.0f} in this run), max |ratio - 1| over the "
+            f"train policies {r['ratio_dev']:.3e}, peak {r['peak_gib']:.2f} "
+            f"GiB on {card}")
     zoo = {
         # The rest of the model zoo. Separate towers: each tower's LSTM at
         # every rollout step and every minibatch, the critic's alone for
@@ -5168,7 +5658,7 @@ def main():
                                  "main_pass_ms", "reduction_ms",
                                  "device_ms", "host_us", "library_device_ms",
                                  "library_host_us", "per_policy_ms",
-                                 "pbt_shapes") if k in r}})
+                                 "pbt_shapes", "learn_shape") if k in r}})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -97,6 +97,28 @@
 //   order. Deterministic, and a row's dxp and dh0 do not depend on N or on
 //   where the row sits.
 //
+// The chunk-indexed instances (gru_sequence_fwd_chunked and
+// gru_sequence_bwd_chunked, both paths) are the GRU's policy-batched passes
+// of a population: JAX vmaps a model's apply over policy chunks in collect
+// (madrona_learn_tpu/rollouts.py:580) and algo.update over the train
+// policies in learn (madrona_learn_tpu/train.py:315), and with them this
+// kernel's pallas_calls, every program reading its own policy's Wh. Here
+// the rows are [num_chunks][chunk], each chunk of one policy; a block owns
+// one row tile of one chunk (fwd_rows, chunk_rows.cuh) and reads its
+// policy's slice of the [P, H, 3H] / [P, H] stacks: by a pointer offset on
+// CUDA cores, by the third coordinate of one TMA map over the whole stack
+// on tensor cores (Wh, and the backward's [P, 3H, H] Wh^T stack). A row's
+// arithmetic is the single-policy kernel's, so every row equals
+// gru_sequence_fwd's / _bwd's with its policy's weights bitwise; a chunk of
+// no policy (index P or -1) writes NaN rows and reads no weight. The
+// backward's weight gradients split each chunk's own T * chunk rows (the
+// tensor-core pass through maps of [T * chunks] slices of [chunk][K] of
+// h_in and dhp, weight_grad_tc.cuh; the CUDA-core pass by index,
+// weight_grad.cuh), and sum_by_policy adds a policy's partials (dbh: its
+// chunks' block partials) in chunk order: a policy's dWh / dbh do not
+// depend on the other chunks, and where 64 divides the chunk they are the
+// single-policy backward's over the same rows bitwise.
+//
 // Bound on the H100: the forward's bytes take 0.082 ms at [16, 8192, 256
 // -> 768] (its product 0.05 ms on tensor cores), the backward's three
 // products 0.16 ms, about what its bytes take; what holds the tensor-core
@@ -106,6 +128,7 @@
 
 #include <cuda.h>   // CUtensorMap
 
+#include "chunk_rows.cuh"
 #include "common.cuh"
 #include "mma.cuh"
 #include "slice_ring.cuh"
@@ -121,17 +144,28 @@ __global__ void __launch_bounds__(kThreads)
     gru_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ keep,
                    const T* __restrict__ wh, const T* __restrict__ bias_h,
                    const T* __restrict__ h0, T* __restrict__ ys, int steps,
-                   int n_rows) {
+                   int n_rows, const int* __restrict__ chunk_policy,
+                   int chunk, int num_policies) {
   constexpr int UPT = H / kUnitGroups;
   constexpr int RPT = kRowsPerThread;
   constexpr int G3 = 3 * H;
   __shared__ float h_s[kRows * H];
 
+  // The block's rows and policy (fwd_rows); a chunk of no policy writes NaN.
+  const FwdRows rows = fwd_rows(chunk_policy, chunk, kRows, n_rows);
+  if (rows.policy < 0 || rows.policy >= num_policies) {
+    fill_nan(ys, steps, n_rows, H, rows, kRows);
+    return;
+  }
+  wh += static_cast<size_t>(rows.policy) * H * G3;
+  bias_h += static_cast<size_t>(rows.policy) * H;
+  const int row_end = rows.end;
+
   const int ug = threadIdx.x % kUnitGroups;
   const int rg = threadIdx.x / kUnitGroups;
   const int u0 = ug * UPT;
   const int row_base = rg * RPT;
-  const int block_row = blockIdx.x * kRows;
+  const int block_row = rows.first;
 
   float bn[UPT];
 #pragma unroll
@@ -143,7 +177,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < UPT; ++j)
       h_s[(row_base + i) * H + u0 + j] =
-          n < n_rows ? to_f(h0[static_cast<size_t>(n) * H + u0 + j]) : 0.0f;
+          n < row_end ? to_f(h0[static_cast<size_t>(n) * H + u0 + j]) : 0.0f;
   }
   __syncthreads();
 
@@ -155,7 +189,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int n = block_row + row_base + i;
-      if (n >= n_rows) continue;
+      if (n >= row_end) continue;
       const size_t row = static_cast<size_t>(t) * n_rows + n;
       const T* x = xp + row * G3 + u0;
       const bool kept = to_f(keep[row]) > 0.5f;
@@ -184,7 +218,8 @@ __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(
     const T* __restrict__ wh, const T* __restrict__ wh_t,
     const T* __restrict__ bias_h, const T* __restrict__ h0,
     const T* __restrict__ ys, const T* __restrict__ dys, T* __restrict__ dxp,
-    T* __restrict__ dhp, T* __restrict__ dh0, int steps, int n_rows) {
+    T* __restrict__ dhp, T* __restrict__ dh0, int steps, int n_rows,
+    const int* __restrict__ chunk_policy, int chunk, int num_policies) {
   constexpr int UPT = H / kUnitGroups;
   constexpr int RPT = kRowsPerThread;
   constexpr int G3 = 3 * H;
@@ -192,11 +227,24 @@ __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(
   float* hin_s = smem;
   float* dg_s = smem + kRows * H;
 
+  // The block's rows and policy, as the forward's (fwd_rows).
+  const FwdRows rows = fwd_rows(chunk_policy, chunk, kRows, n_rows);
+  if (rows.policy < 0 || rows.policy >= num_policies) {
+    fill_nan(dxp, steps, n_rows, G3, rows, kRows);
+    fill_nan(dhp, steps, n_rows, G3, rows, kRows);
+    fill_nan(dh0, 1, n_rows, H, rows, kRows);
+    return;
+  }
+  wh += static_cast<size_t>(rows.policy) * H * G3;
+  wh_t += static_cast<size_t>(rows.policy) * G3 * H;
+  bias_h += static_cast<size_t>(rows.policy) * H;
+  const int row_end = rows.end;
+
   const int ug = threadIdx.x % kUnitGroups;
   const int rg = threadIdx.x / kUnitGroups;
   const int u0 = ug * UPT;
   const int row_base = rg * RPT;
-  const int block_row = blockIdx.x * kRows;
+  const int block_row = rows.first;
 
   float bn[UPT];
 #pragma unroll
@@ -217,13 +265,13 @@ __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(
     for (int i = 0; i < RPT; ++i) {
       const int n = block_row + row_base + i;
       keep_prev[i] = false;
-      if (n < n_rows && t > 0)
+      if (n < row_end && t > 0)
         keep_prev[i] =
             to_f(keep[static_cast<size_t>(t - 1) * n_rows + n]) > 0.5f;
 #pragma unroll
       for (int j = 0; j < UPT; ++j) {
         float h_v = 0.0f;
-        if (n < n_rows) {
+        if (n < row_end) {
           if (t == 0)
             h_v = to_f(h0[static_cast<size_t>(n) * H + u0 + j]);
           else if (keep_prev[i])
@@ -244,7 +292,7 @@ __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(
     for (int i = 0; i < RPT; ++i) {
       const int n = block_row + row_base + i;
       const int r_s = row_base + i;
-      if (n >= n_rows) {
+      if (n >= row_end) {
 #pragma unroll
         for (int j = 0; j < UPT; ++j) {
 #pragma unroll
@@ -301,7 +349,7 @@ __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(
 #pragma unroll
       for (int j = 0; j < UPT; ++j) {
         const float d = dh_prev[i][0][j] + dh_z[i][j];
-        if (t == 0 && n < n_rows)
+        if (t == 0 && n < row_end)
           dh0[static_cast<size_t>(n) * H + u0 + j] = from_f<T>(d);
         // The cotangent flowing into the stored step-(t-1) state picks up
         // the clear mask applied between the steps.
@@ -314,50 +362,71 @@ __global__ void __launch_bounds__(kThreads) gru_bwd_kernel(
   }
 }
 
+// chunk_policy null: one policy; else the chunk-indexed instance over the
+// [num_policies, ...] stacks (fwd_rows).
 template <typename T, int H>
 int launch_fwd(const void* xp, const void* keep, const void* wh,
                const void* bias_h, const void* h0, void* ys, int steps,
-               int n_rows, cudaStream_t stream) {
-  const int blocks = (n_rows + kRows - 1) / kRows;
+               int n_rows, cudaStream_t stream,
+               const void* chunk_policy = nullptr, int num_chunks = 0,
+               int chunk = 0, int num_policies = 1) {
+  const int blocks =
+      fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, kRows);
   gru_fwd_kernel<T, H><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(xp), static_cast<const T*>(keep),
       static_cast<const T*>(wh), static_cast<const T*>(bias_h),
-      static_cast<const T*>(h0), static_cast<T*>(ys), steps, n_rows);
+      static_cast<const T*>(h0), static_cast<T*>(ys), steps, n_rows,
+      static_cast<const int*>(chunk_policy), chunk, num_policies);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The recurrence, then dWh / db3 from the split-M pass: db3 gets the sums
-// of all 3H columns of dhp, and dbh is its last H entries.
+// of all 3H columns of dhp, and dbh is its last H entries. With chunks
+// (chunk_policy non-null), `splits` partials a chunk over its own T *
+// chunk rows, and each policy's sums over its chunks ([num_policies, H,
+// 3H] and [num_policies, 3H]).
 template <typename T, int H>
 int launch_bwd(const void* xp, const void* keep, const void* wh,
                const void* wh_t, const void* bias_h, const void* h0,
                const void* ys, const void* dys, void* dxp, void* dhp,
                void* dh0, void* part_w, void* part_b, void* dwh, void* db3,
-               int steps, int n_rows, int splits, cudaStream_t stream) {
+               int steps, int n_rows, int splits, cudaStream_t stream,
+               const void* chunk_policy = nullptr, int num_chunks = 1,
+               int chunk = 0, int num_policies = 1) {
   const int smem = kRows * 4 * H * static_cast<int>(sizeof(float));
   int err = set_smem(gru_bwd_kernel<T, H>, smem);
   if (err != 0) return err;
-  const int blocks = (n_rows + kRows - 1) / kRows;
+  const int blocks =
+      fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, kRows);
   gru_bwd_kernel<T, H><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(xp), static_cast<const T*>(keep),
       static_cast<const T*>(wh), static_cast<const T*>(wh_t),
       static_cast<const T*>(bias_h), static_cast<const T*>(h0),
       static_cast<const T*>(ys), static_cast<const T*>(dys),
       static_cast<T*>(dxp), static_cast<T*>(dhp), static_cast<T*>(dh0),
-      steps, n_rows);
+      steps, n_rows, static_cast<const int*>(chunk_policy), chunk,
+      num_policies);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
 
-  const long long total = static_cast<long long>(steps) * n_rows;
+  if (chunk_policy == nullptr) chunk = n_rows;
+  const long long total = static_cast<long long>(steps) * chunk;
   const int rows_per_split = static_cast<int>((total + splits - 1) / splits);
-  const dim3 grid(3 * H / kTileJ, H / kTileI, splits);
+  const dim3 grid(3 * H / kTileJ, H / kTileI, num_chunks * splits);
   weight_grad_partial_kernel<T, true><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(dhp), static_cast<const T*>(ys),
       static_cast<const T*>(keep), static_cast<const T*>(h0),
       static_cast<float*>(part_w), static_cast<float*>(part_b), steps,
-      n_rows, H, 3 * H, rows_per_split, n_rows, splits);
+      n_rows, H, 3 * H, rows_per_split, chunk, splits);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
+  if (chunk_policy != nullptr) {
+    err = sum_by_policy<T>(part_w, dwh, chunk_policy, num_chunks, splits,
+                           num_policies, H * 3 * H, stream);
+    if (err != 0) return err;
+    return sum_by_policy<T>(part_b, db3, chunk_policy, num_chunks, splits,
+                            num_policies, 3 * H, stream);
+  }
   err = sum_splits<T>(part_w, dwh, splits, H * 3 * H, stream);
   if (err != 0) return err;
   return sum_splits<T>(part_b, db3, splits, 3 * H, stream);
@@ -454,7 +523,9 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
                       const bf16* __restrict__ dys, bf16* __restrict__ dxp,
                       bf16* __restrict__ dhp, bf16* __restrict__ hin,
                       bf16* __restrict__ dh0, float* __restrict__ part_b,
-                      int steps, int n_rows) {
+                      int steps, int n_rows,
+                      const int* __restrict__ chunk_policy, int chunk,
+                      int num_policies) {
   using L = GruTcBwd<H, R>;
   constexpr int G3 = 3 * H;
   constexpr int S = L::kStages;
@@ -474,11 +545,25 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
   uint8_t* dn_p = smem_raw + (dn_s - raw_s);
   const uint8_t* dys_p = smem_raw + (dys_s - raw_s);
 
+  // The block's rows and policy (fwd_rows); a chunk of no policy is skipped
+  // before any barrier. The maps span the [P, ...] stacks (P = 1 without
+  // chunks); the policy is the third coordinate.
+  const FwdRows rows = fwd_rows(chunk_policy, chunk, R, n_rows);
+  if (rows.policy < 0 || rows.policy >= num_policies) {
+    fill_nan(dxp, steps, n_rows, G3, rows, R);
+    fill_nan(dhp, steps, n_rows, G3, rows, R);
+    fill_nan(dh0, 1, n_rows, H, rows, R);
+    return;
+  }
+  bias_h += static_cast<size_t>(rows.policy) * H;
+  const int row_end = rows.end;
+  const int pol = rows.policy;
+
   const int tid = threadIdx.x;
   const int wg = tid / 128, lane = tid % 32;
   const int lt = lane % 4;
   const int unit0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
-  const int block_row = blockIdx.x * R;
+  const int block_row = rows.first;
 
   // The weight slices of one step, in the order the step consumes them:
   // Wh^T by (H-chunk, gate), then Wh by 3H-chunk; the same every step.
@@ -490,9 +575,9 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
   auto issue = [&](int q, uint32_t dst, uint64_t* bar) {
     const int p = q % step_loads;
     if (p < g_loads)
-      tma_load_3d(dst, wht, bar, (p / 3) * kTcK, (p % 3) * H, 0);
+      tma_load_3d(dst, wht, bar, (p / 3) * kTcK, (p % 3) * H, pol);
     else
-      tma_load_3d(dst, whm, bar, (p - g_loads) * kTcK, 0, 0);
+      tma_load_3d(dst, whm, bar, (p - g_loads) * kTcK, 0, pol);
   };
   SliceRing<S> slices{full, empty, ring, L::kStageBytes, steps * step_loads,
                       0};
@@ -528,7 +613,7 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
     for (int e = tid; e < R * (H / 8); e += L::kThreads) {
       const int n = e / (H / 8), c = e % (H / 8);
       const int row = block_row + n;
-      const bool live = row < n_rows;
+      const bool live = row < row_end;
       bool kept = live;
       const bf16* hs = h0;
       if (live && t == 0) {
@@ -544,7 +629,7 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
     for (int e = tid; e < R * (G3 / 8); e += L::kThreads) {
       const int n = e / (G3 / 8), c = e % (G3 / 8);
       const int row = block_row + n;
-      const bool live = row < n_rows;
+      const bool live = row < row_end;
       cp_async16(dg_s + kmaj_off<R>(n, c * 8),
                  xp + (live ? (trow + row) * G3 + c * 8 : 0), live);
     }
@@ -557,7 +642,7 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
     for (int e = tid; e < R * (H / 8); e += L::kThreads) {
       const int n = e / (H / 8), c = e % (H / 8);
       const int row = block_row + n;
-      if (row < n_rows)
+      if (row < row_end)
         *reinterpret_cast<uint4*>(hin + (trow + row) * H + c * 8) =
             *reinterpret_cast<const uint4*>(hin_p + kmaj_off<R>(n, c * 8));
     }
@@ -567,7 +652,7 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = block_row + 8 * j + 2 * lt + e;
-        if (t > 0 && row < n_rows &&
+        if (t > 0 && row < row_end &&
             __bfloat162float(keep[prow + row]) > 0.5f)
           keep_prev |= 1u << (2 * j + e);
       }
@@ -588,7 +673,7 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int i = 4 * j + 2 * s + e;
-          const bool live = block_row + 8 * j + 2 * lt + e < n_rows;
+          const bool live = block_row + 8 * j + 2 * lt + e < row_end;
           uint8_t* dgo = dg_p + kb[s][e] + j * 1024;
           const Gates gt =
               gru_gates(ld_bf16(dgo), ld_bf16(dgo + kGate),
@@ -625,7 +710,7 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
     for (int e = tid; e < R * (G3 / 8); e += L::kThreads) {
       const int n = e / (G3 / 8), c = e % (G3 / 8);
       const int row = block_row + n;
-      if (row < n_rows) {
+      if (row < row_end) {
         const uint4 v =
             *reinterpret_cast<const uint4*>(dg_p + kmaj_off<R>(n, c * 8));
         const size_t o = (trow + row) * G3 + c * 8;
@@ -658,7 +743,7 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
           const int i = 4 * j + 2 * s + e;
           const int row = block_row + 8 * j + 2 * lt + e;
           const float d = dhp_acc[i] + dhz[i];
-          if (t == 0 && row < n_rows)
+          if (t == 0 && row < row_end)
             dh0[static_cast<size_t>(row) * H + unit0 + 8 * s] =
                 __float2bfloat16_rn(d);
           dh[i] = (keep_prev >> (2 * j + e)) & 1u ? d : 0.0f;
@@ -679,21 +764,26 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
 }
 
 // phases: bit 0 the recurrence, bit 1 the weight gradients (dWh from the
-// recurrence's dhp and hin, dbh from its part_b).
+// recurrence's dhp and hin, dbh from its part_b). chunk_policy null: one
+// policy; else the chunk-indexed instance over the [num_policies, H, 3H]
+// stacks wh and wh_t (Wh^T a policy, [num_policies, 3H, H]), `splits`
+// weight-gradient splits a chunk.
 template <int H>
 int launch_bwd_tc(int phases, const void* xp, const void* keep,
                   const void* wh, const void* wh_t, const void* bias_h,
                   const void* h0, const void* ys, const void* dys, void* dxp,
                   void* dhp, void* hin, void* dh0, void* part_w,
                   void* part_b, void* dwh, void* dbh, int steps, int n_rows,
-                  int splits, cudaStream_t stream) {
+                  int splits, cudaStream_t stream,
+                  const void* chunk_policy = nullptr, int num_chunks = 1,
+                  int chunk = 0, int num_policies = 1) {
   constexpr int R = kGruTcRows;
   using L = GruTcBwd<H, R>;
-  const int blocks = (n_rows + R - 1) / R;
+  const int blocks = fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, R);
   if (phases & 1) {
     CUtensorMap wht_map, wh_map;
-    if (!make_tma_map(&wht_map, wh_t, H, 3 * H, 1, kTcK, H) ||
-        !make_tma_map(&wh_map, wh, 3 * H, H, 1, kTcK, H))
+    if (!make_tma_map(&wht_map, wh_t, H, 3 * H, num_policies, kTcK, H) ||
+        !make_tma_map(&wh_map, wh, 3 * H, H, num_policies, kTcK, H))
       return static_cast<int>(cudaErrorInvalidValue);
     int err = set_smem(gru_bwd_tc_kernel<H, R>, L::kSmem);
     if (err != 0) return err;
@@ -703,9 +793,24 @@ int launch_bwd_tc(int phases, const void* xp, const void* keep,
         static_cast<const bf16*>(h0), static_cast<const bf16*>(ys),
         static_cast<const bf16*>(dys), static_cast<bf16*>(dxp),
         static_cast<bf16*>(dhp), static_cast<bf16*>(hin),
-        static_cast<bf16*>(dh0), static_cast<float*>(part_b), steps, n_rows);
+        static_cast<bf16*>(dh0), static_cast<float*>(part_b), steps, n_rows,
+        static_cast<const int*>(chunk_policy), chunk, num_policies);
     err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
+  }
+  if ((phases & 2) && chunk_policy != nullptr) {
+    // dWh of each policy from its chunks' own splits of boxes (never a box
+    // of two chunks: weight_grad_tc.cuh), dbh from its chunks' blocks.
+    int used = 0;
+    int err = weight_grad_tc_partials(hin, H, nullptr, H, dhp, 3 * H, steps,
+                                      chunk, num_chunks, splits, part_w,
+                                      &used, stream);
+    if (err != 0) return err;
+    err = sum_by_policy<bf16>(part_w, dwh, chunk_policy, num_chunks, used,
+                              num_policies, H * 3 * H, stream);
+    if (err != 0) return err;
+    return sum_by_policy<bf16>(part_b, dbh, chunk_policy, num_chunks,
+                               blocks / num_chunks, num_policies, H, stream);
   }
   if (phases & 2) {
     const int err = weight_grad_tc(hin, H, nullptr, H, dhp, 3 * H,
@@ -755,7 +860,9 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
                       const bf16* __restrict__ keep,
                       const bf16* __restrict__ bias_h,
                       const bf16* __restrict__ h0, bf16* __restrict__ ys,
-                      int steps, int n_rows) {
+                      int steps, int n_rows,
+                      const int* __restrict__ chunk_policy, int chunk,
+                      int num_policies) {
   using L = GruTcFwd<H, R, kStages>;
   constexpr int S = L::kRing;
   constexpr int G3 = 3 * H;
@@ -771,15 +878,27 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
   uint8_t* h_p = smem_raw + (h_s - raw_s);
   const uint8_t* x_p = smem_raw + (x_s - raw_s);
 
+  // The block's rows and policy (fwd_rows); a chunk of no policy is
+  // skipped before any barrier, so the whole block leaves together.
+  const FwdRows rows = fwd_rows(chunk_policy, chunk, R, n_rows);
+  if (rows.policy < 0 || rows.policy >= num_policies) {
+    fill_nan(ys, steps, n_rows, H, rows, R);
+    return;
+  }
+  bias_h += static_cast<size_t>(rows.policy) * H;
+  const int row_end = rows.end;
+
   const int tid = threadIdx.x;
   const int wg = tid / 128, lane = tid % 32;
   const int lt = lane % 4;
   const int unit0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
-  const int block_row = blockIdx.x * R;
+  const int block_row = rows.first;
 
   // The weight slices of one step, in the order hidden_products consumes
   // them: Wh by (H-chunk, gate), each the H / 64 boxes of its gate's units;
-  // the same sequence every step, so the ring prefetches across steps.
+  // the same sequence every step, so the ring prefetches across steps. The
+  // map spans the [P, H, 3H] stack (P = 1 without chunks); the block's
+  // policy is the third coordinate.
   constexpr int step_loads = 3 * (H / kTcK);
   const CUtensorMap* whm = &wh_map;
   auto issue = [&](int q, uint32_t dst, uint64_t* bar) {
@@ -787,7 +906,7 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
 #pragma unroll
     for (int w = 0; w < H / 64; ++w)
       tma_load_3d(dst + w * 64 * 128, whm, bar, (p % 3) * H + w * 64,
-                  (p / 3) * kTcK, 0);
+                  (p / 3) * kTcK, rows.policy);
   };
   SliceRing<S> slices{full, empty, ring, L::kStageBytes, steps * step_loads,
                       0};
@@ -803,7 +922,7 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
     for (int e = tid; e < R * (G3 / 8); e += L::kThreads) {
       const int n = e / (G3 / 8), c = e % (G3 / 8);
       const int row = block_row + n;
-      const bool live = row < n_rows;
+      const bool live = row < row_end;
       cp_async16(x_s + kmaj_off<R>(n, c * 8),
                  xp + (live ? (trow + row) * G3 + c * 8 : 0), live);
     }
@@ -814,7 +933,7 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
   for (int e = tid; e < R * (H / 8); e += L::kThreads) {
     const int n = e / (H / 8), c = e % (H / 8);
     const int row = block_row + n;
-    const bool live = row < n_rows;
+    const bool live = row < row_end;
     cp_async16(h_s + kmaj_off<R>(n, c * 8),
                h0 + (live ? static_cast<size_t>(row) * H + c * 8 : 0), live);
   }
@@ -842,7 +961,7 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = block_row + 8 * j + 2 * lt + e;
-        if (row < n_rows && __bfloat162float(keep[trow + row]) > 0.5f)
+        if (row < row_end && __bfloat162float(keep[trow + row]) > 0.5f)
           kept |= 1u << (2 * j + e);
       }
 
@@ -872,7 +991,7 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
           *reinterpret_cast<bf16*>(h_p + ko) =
               (kept >> (2 * j + e)) & 1u ? h_t : zero;
           const int row = block_row + 8 * j + 2 * lt + e;
-          if (row < n_rows) ys[(trow + row) * H + unit0 + 8 * s] = h_t;
+          if (row < row_end) ys[(trow + row) * H + unit0 + 8 * s] = h_t;
         }
     fence_proxy_async();
     __syncthreads();   // the carry is in for the next step's products
@@ -881,23 +1000,29 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
   }
 }
 
+// chunk_policy null: one policy; else the chunk-indexed instance over the
+// [num_policies, H, 3H] / [num_policies, H] stacks, one TMA map over the
+// whole stack.
 template <int H, int R, int kStages>
 int launch_fwd_tc(const void* xp, const void* keep, const void* wh,
                   const void* bias_h, const void* h0, void* ys, int steps,
-                  int n_rows, cudaStream_t stream) {
+                  int n_rows, cudaStream_t stream,
+                  const void* chunk_policy = nullptr, int num_chunks = 0,
+                  int chunk = 0, int num_policies = 1) {
   using L = GruTcFwd<H, R, kStages>;
   CUtensorMap wh_map;
-  if (!make_tma_map(&wh_map, wh, 3 * H, H, 1, 64, kTcK))
+  if (!make_tma_map(&wh_map, wh, 3 * H, H, num_policies, 64, kTcK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = set_smem(gru_fwd_tc_kernel<H, R, kStages>, L::kSmem);
   if (err != 0) return err;
-  const int blocks = (n_rows + R - 1) / R;
+  const int blocks = fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, R);
   gru_fwd_tc_kernel<H, R, kStages>
       <<<blocks, L::kThreads, L::kSmem, stream>>>(
           wh_map, static_cast<const bf16*>(xp),
           static_cast<const bf16*>(keep), static_cast<const bf16*>(bias_h),
           static_cast<const bf16*>(h0), static_cast<bf16*>(ys), steps,
-          n_rows);
+          n_rows, static_cast<const int*>(chunk_policy), chunk,
+          num_policies);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -985,6 +1110,103 @@ extern "C" int mlt_gru_fwd_tc(int hidden, int rows, int stages,
   MLT_FWD_TC(256, 32, 3);
   MLT_FWD_TC(256, 32, 2);
 #undef MLT_FWD_TC
+  return -1;
+}
+
+// gru_sequence_fwd_chunked: the forward over [num_chunks * chunk] rows,
+// chunk c with the weights of policy chunk_policy[c] of the [num_policies,
+// H, 3H] / [num_policies, H] stacks (a chunk of no policy is skipped, its
+// rows NaN). tensor_core 1 takes the bf16 tensor-core kernel (R = 32, 4
+// stages: the wrapper's FWD_TC_ROWS, FWD_TC_STAGES), 0 the float32
+// CUDA-core one. Returns a cudaError_t, or -1 for arguments without an
+// instantiation.
+extern "C" int mlt_gru_fwd_chunked(int tensor_core, int dtype, int hidden,
+                                   const void* xp, const void* keep,
+                                   const void* wh, const void* bias_h,
+                                   const void* chunk_policy, const void* h0,
+                                   void* ys, int steps, int num_chunks,
+                                   int chunk, int num_policies,
+                                   void* stream) {
+  const long long n = static_cast<long long>(num_chunks) * chunk;
+  if (num_chunks <= 0 || chunk <= 0 || num_policies <= 0 ||
+      num_policies > 65535 || n * steps > 0x7fffffffLL)
+    return -1;
+  const int n_rows = static_cast<int>(n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_core) {
+    if (dtype != 1) return -1;
+#define MLT_FWD_CHUNKED_TC(H)                                             \
+  if (hidden == H)                                                        \
+    return launch_fwd_tc<H, 32, 4>(xp, keep, wh, bias_h, h0, ys, steps,   \
+                                   n_rows, s, chunk_policy, num_chunks,   \
+                                   chunk, num_policies)
+    MLT_FWD_CHUNKED_TC(128);
+    MLT_FWD_CHUNKED_TC(256);
+#undef MLT_FWD_CHUNKED_TC
+    return -1;
+  }
+  if (dtype != 0) return -1;
+  if (hidden == 128)
+    return launch_fwd<float, 128>(xp, keep, wh, bias_h, h0, ys, steps,
+                                  n_rows, s, chunk_policy, num_chunks, chunk,
+                                  num_policies);
+  if (hidden == 256)
+    return launch_fwd<float, 256>(xp, keep, wh, bias_h, h0, ys, steps,
+                                  n_rows, s, chunk_policy, num_chunks, chunk,
+                                  num_policies);
+  return -1;
+}
+
+// gru_sequence_bwd_chunked: the backward of gru_sequence_fwd_chunked over
+// [num_chunks * chunk] rows, chunk c with the weights of policy
+// chunk_policy[c] of the [num_policies, H, 3H] stacks wh and wh_t (Wh^T a
+// policy, [num_policies, 3H, H]) and [num_policies, H] bias_h: dxp, dhp
+// and dh0 a row, each row's bitwise gru_sequence_bwd's with its policy's
+// weights (a chunk of no policy: NaN rows), and dwh [num_policies, H, 3H]
+// and db, a policy's summed over its chunks' `splits` partials each (0 for
+// a policy without a chunk). tensor_core 1 takes the bf16 tensor-core
+// recurrence and weight-gradient pass (hin: [T, N, H] scratch; part_w
+// [num_chunks * splits, H, 3H], part_b [num_chunks * ceil(chunk / 32), H];
+// db is dbh [num_policies, H]), 0 the float32 CUDA-core kernels (hin
+// unused; part_w and part_b [num_chunks * splits, ...]; db is db3
+// [num_policies, 3H], whose last H columns are dbh). Returns a
+// cudaError_t, or -1 for arguments without an instantiation.
+extern "C" int mlt_gru_bwd_chunked(
+    int tensor_core, int dtype, int hidden, const void* xp, const void* keep,
+    const void* wh, const void* wh_t, const void* bias_h,
+    const void* chunk_policy, const void* h0, const void* ys,
+    const void* dys, void* dxp, void* dhp, void* hin, void* dh0,
+    void* part_w, void* part_b, void* dwh, void* db, int steps,
+    int num_chunks, int chunk, int num_policies, int splits, void* stream) {
+  const long long n = static_cast<long long>(num_chunks) * chunk;
+  if (num_chunks <= 0 || chunk <= 0 || num_policies <= 0 || splits <= 0 ||
+      num_policies > 65535 || n * steps > 0x7fffffffLL)
+    return -1;
+  const int n_rows = static_cast<int>(n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_core) {
+    if (dtype != 1) return -1;
+#define MLT_BWD_CHUNKED_TC(H)                                               \
+  if (hidden == H)                                                         \
+    return launch_bwd_tc<H>(3, xp, keep, wh, wh_t, bias_h, h0, ys, dys,     \
+                            dxp, dhp, hin, dh0, part_w, part_b, dwh, db,    \
+                            steps, n_rows, splits, s, chunk_policy,         \
+                            num_chunks, chunk, num_policies)
+    MLT_BWD_CHUNKED_TC(128);
+    MLT_BWD_CHUNKED_TC(256);
+#undef MLT_BWD_CHUNKED_TC
+    return -1;
+  }
+  if (dtype != 0) return -1;
+#define MLT_BWD_CHUNKED(H)                                                  \
+  if (hidden == H)                                                         \
+    return launch_bwd<float, H>(xp, keep, wh, wh_t, bias_h, h0, ys, dys,    \
+                                dxp, dhp, dh0, part_w, part_b, dwh, db,     \
+                                steps, n_rows, splits, s, chunk_policy,     \
+                                num_chunks, chunk, num_policies)
+  MLT_BWD_CHUNKED(128);
+  MLT_BWD_CHUNKED(256);
+#undef MLT_BWD_CHUNKED
   return -1;
 }
 

@@ -110,8 +110,8 @@
 // JAX vmaps the forward's pallas_call over [B, C] chunks of one policy each
 // (madrona_learn_tpu/rollouts.py:580), every program reading its chunk's
 // weights. Here the rows are [B][C], a block owns one row tile of one chunk
-// (fwd_rows: no block straddles two policies, and C need not be a multiple
-// of R), and reads its policy's slice of the [P, H, 4H] / [P, 4H] stacks:
+// (fwd_rows, chunk_rows.cuh: no block straddles two policies, and C need
+// not be a multiple of R), and reads its policy's slice of the [P, H, 4H] / [P, 4H] stacks:
 // by a pointer offset on CUDA cores, by the third coordinate of one TMA map
 // over the whole stack on tensor cores (no map a policy, no gathered copy
 // of the weights). A row's arithmetic is the single-policy kernel's, so
@@ -148,6 +148,7 @@
 
 #include <cuda.h>   // CUtensorMap
 
+#include "chunk_rows.cuh"
 #include "common.cuh"
 #include "mma.cuh"
 #include "slice_ring.cuh"
@@ -157,46 +158,6 @@
 namespace {
 
 using namespace mlt;
-
-// The rows a block of a forward owns and the policy whose weights it reads.
-// Without chunks (chunk_policy null) block i owns rows [i R, (i + 1) R) of
-// the n_rows and reads policy 0's weights. The chunk-indexed instance
-// (lstm_sequence_fwd_chunked) takes the rows as [num_chunks][chunk], each
-// chunk of one policy: block i owns row tile i % tiles of chunk i / tiles,
-// tiles = ceil(chunk / R), so that no block straddles two chunks (chunk
-// need not be a multiple of R), and reads the weights of policy
-// chunk_policy[chunk] at an offset into the [P, H, 4H] / [P, 4H] stacks.
-// Rows past the chunk's end are treated as rows past N: zero-filled and
-// never stored. A row's arithmetic is the same in both: it depends only on
-// its own inputs and its policy's weights.
-struct FwdRows {
-  int first;    // the block's first row
-  int end;      // rows from here on are not the block's chunk's
-  int policy;
-};
-
-__device__ __forceinline__ FwdRows fwd_rows(const int* chunk_policy,
-                                            int chunk, int rows_per_block,
-                                            int n_rows) {
-  if (chunk_policy == nullptr)
-    return {static_cast<int>(blockIdx.x) * rows_per_block, n_rows, 0};
-  const int tiles = (chunk + rows_per_block - 1) / rows_per_block;
-  const int c = static_cast<int>(blockIdx.x) / tiles;
-  return {c * chunk + (static_cast<int>(blockIdx.x) % tiles) * rows_per_block,
-          min(c * chunk + chunk, n_rows), chunk_policy[c]};
-}
-
-// NaN into the block's rows of each of the `steps` slices of a [steps,
-// n_rows, width] tensor.
-template <typename T>
-__device__ void fill_nan(T* out, int steps, int n_rows, int width,
-                         FwdRows rows, int rows_per_block) {
-  const int count = min(rows.first + rows_per_block, rows.end) - rows.first;
-  const T nan = from_f<T>(__int_as_float(0x7fc00000));
-  for (int t = 0; t < steps; ++t)
-    for (int e = threadIdx.x; e < count * width; e += blockDim.x)
-      out[(static_cast<size_t>(t) * n_rows + rows.first) * width + e] = nan;
-}
 
 // A chunk whose policy lies outside [0, P) (custom policies, which the
 // simulator plays) runs no step and reads no weight: its rows' ys and cs
@@ -793,15 +754,6 @@ int launch_dwr(const void* dg, const void* ys, const void* keep,
   err = sum_splits<T>(part_w, dwr, splits, H * 4 * H, stream);
   if (err != 0) return err;
   return sum_splits<T>(part_b, db, splits, 4 * H, stream);
-}
-
-// Blocks of a forward: ceil(n_rows / R), or, with chunks, ceil(chunk / R)
-// a chunk (fwd_rows).
-int fwd_blocks(const void* chunk_policy, int num_chunks, int chunk,
-               int n_rows, int rows_per_block) {
-  return chunk_policy == nullptr
-             ? (n_rows + rows_per_block - 1) / rows_per_block
-             : num_chunks * ((chunk + rows_per_block - 1) / rows_per_block);
 }
 
 // chunk_policy null: one policy; else the chunk-indexed instance (fwd_rows).

@@ -31,6 +31,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.cuda.policy_step import fused_policy_step, policy_step_supported
+from ..ops.dists import critic_parts
+from ..utils import tree_map
 from ..utils.profile import profile
 
 
@@ -391,11 +393,14 @@ class ActorCritic(nn.Module):
         log_probs, entropies = dists.action_stats(
             {k: v.reshape(-1, *v.shape[3:])
              for k, v in rollout_actions.items()})
-        critic = self.critic.batched(params.child("critic"), critic_feats)
+        # A tensor, or a distribution whose logits are reshaped.
+        critic, rebuild = critic_parts(
+            self.critic.batched(params.child("critic"), critic_feats))
         return {
             "log_probs": _merge_time(log_probs, P, T, mb),
             "entropies": _merge_time(entropies, P, T, mb),
-            "critic": critic.reshape(P, T, mb, *critic.shape[2:]),
+            "critic": rebuild(tree_map(
+                lambda x: x.reshape(P, T, mb, *x.shape[2:]), critic)),
         }
 
     def update(self, rnn_states, sequence_breaks, rollout_actions, obs):

@@ -5,6 +5,13 @@ scalar dense critic, the DreamerV3 two-hot critic, the HL-Gauss critic
 (linear bins) and the two-part HL-Gauss critic (bins spaced like a tiny
 float format). Bin tables are built in numpy, bitwise the JAX package's,
 and kept on each critic as buffers outside its state dict.
+
+Every head has the policy-batched forms of ``models/common.py``: its Dense
+layers through ``Dense.chunked`` (``grouped_matmul``) over a population's
+chunks and ``Dense.batched`` (``torch.bmm``) over the train policies, the
+distributions built over the batched logits as the per-policy forward
+builds them. The bin tables are the configuration's, the same for every
+policy: they are shared, not stacked.
 """
 
 from __future__ import annotations
@@ -115,6 +122,14 @@ class DreamerV3Critic(nn.Module):
     def forward(self, features):
         return SymExpTwoHotDistribution.create(self.Dense_0(features))
 
+    def chunked(self, params, layout, features):
+        return SymExpTwoHotDistribution.create(
+            self.Dense_0.chunked(params.child("Dense_0"), layout, features))
+
+    def batched(self, params, features):
+        return SymExpTwoHotDistribution.create(
+            self.Dense_0.batched(params.child("Dense_0"), features))
+
 
 def make_hlgauss_bins(num_bins: int = 127, min_bound: float = -100,
                       max_bound: float = 100):
@@ -189,9 +204,20 @@ class HLGaussCritic(nn.Module):
         centers, bounds = make_hlgauss_bins(num_bins, min_bound, max_bound)
         return HLGaussCritic(in_features, dtype, centers, bounds, smoothness)
 
+    def _dist(self, logits):
+        return HLGaussDist(logits.to(torch.float32), self.smoothness,
+                           self.centers, self.bounds)
+
     def forward(self, features):
-        return HLGaussDist(self.Dense_0(features).to(torch.float32),
-                           self.smoothness, self.centers, self.bounds)
+        return self._dist(self.Dense_0(features))
+
+    def chunked(self, params, layout, features):
+        return self._dist(self.Dense_0.chunked(params.child("Dense_0"),
+                                               layout, features))
+
+    def batched(self, params, features):
+        return self._dist(self.Dense_0.batched(params.child("Dense_0"),
+                                               features))
 
 
 class HLGaussTwoPartCritic(nn.Module):
@@ -219,11 +245,23 @@ class HLGaussTwoPartCritic(nn.Module):
         return HLGaussTwoPartCritic(in_features, dtype, sc, sb, lc, lb,
                                     smoothness)
 
-    def forward(self, features):
+    def _dist(self, small_logits, large_logits):
         return HLGaussTwoPartDist(
-            small_dist=HLGaussDist(self.small(features).to(torch.float32),
+            small_dist=HLGaussDist(small_logits.to(torch.float32),
                                    self.smoothness, self.small_centers,
                                    self.small_bounds),
-            large_dist=HLGaussDist(self.large(features).to(torch.float32),
+            large_dist=HLGaussDist(large_logits.to(torch.float32),
                                    self.smoothness, self.large_centers,
                                    self.large_bounds))
+
+    def forward(self, features):
+        return self._dist(self.small(features), self.large(features))
+
+    def chunked(self, params, layout, features):
+        return self._dist(
+            self.small.chunked(params.child("small"), layout, features),
+            self.large.chunked(params.child("large"), layout, features))
+
+    def batched(self, params, features):
+        return self._dist(self.small.batched(params.child("small"), features),
+                          self.large.batched(params.child("large"), features))

@@ -23,6 +23,19 @@ The sequence pass hoists each layer's input projection into one
 ``seq_unroll``: the kernel pass is the only route. The compute dtype is
 float32, bfloat16 or float16 (the kernels' CUDA-core float16 instances;
 JAX sends float16 to its jnp twin, which rounds at the same points).
+
+The policy-batched step (``chunked``, ``models/common.py``) takes the state
+as ``[B, C, num_layers, H]`` chunks: each layer's input projection through
+``Dense.chunked`` (``grouped_matmul``), its recurrence through
+``gru_step_chunked``, the chunk-indexed instance of the forward at T = 1,
+whose rows equal ``gru_sequence_fwd``'s. The policy-batched update pass
+(``batched``) takes policy-major inputs ``[P, T, mb, ...]`` and every
+train policy's minibatch as one chunk of a ``[T, P * mb]`` time-major
+batch: each layer's input projection through ``Dense.batched``
+(``torch.bmm``), its recurrence through ``gru_sequence_chunked``
+(``gru_sequence_fwd_chunked`` and ``gru_sequence_bwd_chunked`` on the
+card). Both take float32 and bfloat16 at the hidden sizes the kernels take
+(``gru_supported``); float16 keeps the per-policy loop.
 """
 
 from __future__ import annotations
@@ -32,8 +45,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.cuda.gru import gru_sequence, gru_step
-from .common import Dense, orthogonal_gates
+from ..ops.cuda.gru import (
+    gru_sequence,
+    gru_sequence_chunked,
+    gru_step,
+    gru_step_chunked,
+    gru_supported,
+)
+from .common import CHUNKED_DTYPES, Dense, orthogonal_gates
 
 __all__ = ["GRU"]
 
@@ -59,6 +78,34 @@ class _PackedGRULayer(nn.Module):
         wh, bh = self.packed_weights()
         return gru_step(self.input_proj(x).contiguous(), wh, bh,
                         h.contiguous())
+
+    def _stacks(self, params):
+        """The [P, H, 3H] / [P, H] weight stacks in the compute dtype (the
+        rounding point of ``packed_weights``)."""
+        return (params.stack("recurrent_kernel", self.dtype),
+                params.stack("bias_h", self.dtype))
+
+    def chunked(self, params, layout, h, x):
+        """``forward`` over [B, C, ...] chunks: the new h [B, C, H]."""
+        x_proj = self.input_proj.chunked(params.child("input_proj"), layout,
+                                         x)
+        B, C = x_proj.shape[:2]
+        rows = lambda t: t.reshape(B * C, t.shape[-1]).contiguous()
+        new_h = gru_step_chunked(rows(x_proj), *self._stacks(params),
+                                 layout.chunk_policy, rows(h))
+        return new_h.reshape(B, C, -1)
+
+    def batched(self, params, keep, h0, x):
+        """The layer's update pass over the train policies: ``x`` [P, T,
+        mb, F] -> ys [P, T, mb, H], policy p's minibatch chunk p of the
+        [T, P * mb] sequence (``keep`` [T, P * mb]; ``h0`` [P * mb, H])."""
+        P, T, mb = x.shape[:3]
+        x_proj = self.input_proj.batched(params.child("input_proj"), x)
+        x_proj = x_proj.transpose(0, 1).reshape(T, P * mb, -1).contiguous()
+        ys = gru_sequence_chunked(
+            x_proj, keep, *self._stacks(params),
+            torch.arange(P, dtype=torch.int32, device=x.device), h0)
+        return ys.reshape(T, P, mb, -1).transpose(0, 1)
 
 
 class GRU(nn.Module):
@@ -96,6 +143,39 @@ class GRU(nn.Module):
             layer_in = cell(cur_hiddens[:, layer], layer_in)
             hs.append(layer_in)
         return torch.cat(hs, dim=-1), torch.stack(hs, dim=1)
+
+    def chunked_supported(self):
+        return (self.dtype in CHUNKED_DTYPES
+                and gru_supported(self.num_hidden_channels, self.dtype))
+
+    def chunked(self, params, layout, cur_hiddens, in_features):
+        """``forward`` over [B, C, ...] chunks, the state [B, C, L, H]."""
+        hs = []
+        layer_in = in_features
+        for layer, cell in enumerate(self._cells()):
+            layer_in = cell.chunked(params.child(f"layer_{layer}"), layout,
+                                    cur_hiddens[:, :, layer], layer_in)
+            hs.append(layer_in)
+        return torch.cat(hs, dim=-1), torch.stack(hs, dim=2)
+
+    batched_supported = chunked_supported
+
+    def batched(self, params, start_hiddens, seq_ends, seq_x):
+        """``sequence`` over the train policies: ``seq_x`` [P, T, mb, F]
+        -> [P, T, mb, L*H], the state [P, mb, L, H] and ``seq_ends`` [P,
+        T, mb, ...]."""
+        P, T, mb = seq_x.shape[:3]
+        zero = torch.zeros((), dtype=self.dtype, device=seq_x.device)
+        keep = torch.where(seq_ends.reshape(P, T, mb).transpose(0, 1),
+                           zero, zero + 1).reshape(T, P * mb).contiguous()
+        outs = []
+        layer_in = seq_x
+        for layer, cell in enumerate(self._cells()):
+            h0 = start_hiddens[:, :, layer].reshape(P * mb, -1).contiguous()
+            layer_in = cell.batched(params.child(f"layer_{layer}"), keep, h0,
+                                    layer_in)
+            outs.append(layer_in)
+        return torch.cat(outs, dim=-1)
 
     def sequence(self, start_hiddens, seq_ends, seq_x):
         """[T, N, F] features -> [T, N, L*H], clearing the state after any

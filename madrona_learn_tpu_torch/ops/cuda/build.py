@@ -39,8 +39,8 @@ class Kernel:
 
     ``launches`` is incremented by the kernel's wrapper where, and only
     where, it launches the kernel on the card; ``tc_launches`` as well where
-    that launch took the kernel's tensor-core route (the four LSTM kernels,
-    the two GRU kernels, ``mha`` and the fused step, whose path rules send
+    that launch took the kernel's tensor-core route (the LSTM kernels,
+    the GRU kernels, ``mha`` and the fused step, whose path rules send
     bf16 there).
     """
 
@@ -189,6 +189,13 @@ _SIGNATURES = {
     "mlt_lstm_bwd_chunked": [_I] * 3 + [_P] * 19 + [_I] * 5 + [_P],
     # H, R, stages, xp, keep, wh, bias_h, h0, ys, T, N, stream
     "mlt_gru_fwd_tc": [_I] * 3 + [_P] * 6 + [_I] * 2 + [_P],
+    # tensor_core, dtype, H, xp, keep, wh, bias_h, chunk_policy, h0, ys, T,
+    # chunks, C, P, stream
+    "mlt_gru_fwd_chunked": [_I] * 3 + [_P] * 7 + [_I] * 4 + [_P],
+    # tensor_core, dtype, H, xp, keep, wh, wh_t, bias_h, chunk_policy, h0,
+    # ys, dys, dxp, dhp, hin, dh0, part_w, part_b, dwh, db, T, chunks, C, P,
+    # splits a chunk, stream
+    "mlt_gru_bwd_chunked": [_I] * 3 + [_P] * 17 + [_I] * 5 + [_P],
     # D, q, k, v, out, B, S, H, valid_len, scale * log2(e), stream
     "mlt_mha_fwd_tc": [_I] + [_P] * 4 + [_I] * 4 + [_F, _P],
 }

@@ -37,6 +37,24 @@ float16):
   dtype; the backward rounds ``dxp`` and ``dhp`` to the storage dtype and
   returns ``dwh`` / ``dbh`` in it.
 
+``gru_sequence_fwd_chunked`` and ``gru_sequence_bwd_chunked`` are the
+chunk-indexed instances of the two kernels (both paths), the policy-batched
+passes of a population: JAX ``vmap``s a model's apply over policy chunks in
+collect (``madrona_learn_tpu/rollouts.py:580``) and ``algo.update`` over
+the train policies in learn (``madrona_learn_tpu/train.py:315``), and with
+them the ``pallas_call``s. ``x_proj`` holds B chunks of C rows, ``wh`` /
+``bias_h`` are ``[P, H, 3H]`` / ``[P, H]`` stacks, and chunk b runs with
+policy ``chunk_policy[b]``'s weights, each row bitwise the single-policy
+kernel's with them (a chunk whose policy lies outside [0, P) is skipped,
+its rows NaN); ``dwh[p]`` / ``dbh[p]`` sum over the rows of policy p's
+chunks in f32 and are rounded once (zeros for a policy without a chunk),
+split by the single-policy rule over each chunk's rows alone.
+``gru_step_chunked`` is the rollout step (the forward at T = 1) and
+``gru_sequence_chunked`` the differentiable pair, whose plain twin
+``gru_sequence_chunked_reference`` runs ``gru_sequence_reference``'s
+arithmetic chunk by chunk (its autograd defines the backward). Float32 and
+bfloat16 only: float16, or a hidden size no kernel takes, raises.
+
 CPU tensors take the plain version; CUDA tensors launch the kernels or
 raise.
 """
@@ -57,6 +75,20 @@ GRU_FWD = Kernel(
 )
 GRU_BWD = Kernel(
     name="gru_sequence_bwd",
+    source="madrona_learn_tpu_torch/csrc/gru.cu",
+    replaces="madrona_learn_tpu/ops/pallas/gru.py:211",
+)
+# The chunk-indexed instance of the forward: the policy-batched rollout
+# step (T = 1) and the batched learn's forward (T = 16) of a GRU population.
+GRU_FWD_CHUNKED = Kernel(
+    name="gru_sequence_fwd_chunked",
+    source="madrona_learn_tpu_torch/csrc/gru.cu",
+    replaces="madrona_learn_tpu/ops/pallas/gru.py:192",
+)
+# The chunk-indexed instance of the backward: the population's learn step
+# over every train policy, one chunk a policy (ppo._ppo_population).
+GRU_BWD_CHUNKED = Kernel(
+    name="gru_sequence_bwd_chunked",
     source="madrona_learn_tpu_torch/csrc/gru.cu",
     replaces="madrona_learn_tpu/ops/pallas/gru.py:211",
 )
@@ -121,6 +153,39 @@ def gru_sequence_reference(x_proj, keep, wh, bias_h, h0):
                                                  device=new_h.device))
         ys.append(new_h)
     return torch.stack(ys)
+
+
+def gru_sequence_chunked_reference(x_proj, keep, wh, bias_h, chunk_policy,
+                                   h0):
+    """Plain twin of ``gru_sequence_chunked``: ys [T, B * C, H], each chunk
+    through ``gru_sequence_reference`` with its policy's weights of the
+    [P, H, 3H] / [P, H] stacks (NaN rows for a chunk of no policy).
+    Differentiable by autograd, whose gradients are the plain version of
+    ``gru_sequence_bwd_chunked``: a policy's ``wh`` / ``bias_h`` gradients
+    sum over its chunks' rows, and a policy without a chunk gets zeros."""
+    B, P = chunk_policy.shape[0], wh.shape[0]
+    C = x_proj.shape[1] // B
+    parts = []
+    for b, p in enumerate(chunk_policy.tolist()):
+        rows = slice(b * C, (b + 1) * C)
+        if 0 <= p < P:
+            parts.append(gru_sequence_reference(
+                x_proj[:, rows], keep[:, rows], wh[p], bias_h[p], h0[rows]))
+        else:
+            parts.append(torch.full((x_proj.shape[0], C, wh.shape[1]),
+                                    float("nan"), dtype=x_proj.dtype,
+                                    device=x_proj.device))
+    return torch.cat(parts, dim=1)
+
+
+def gru_sequence_fwd_chunked_reference(x_proj, keep, wh, bias_h,
+                                       chunk_policy, h0):
+    """Plain twin of ``gru_sequence_fwd_chunked``: the arithmetic of
+    ``gru_sequence_chunked_reference``, without autograd; ys [T, B * C,
+    H]."""
+    with torch.no_grad():
+        return gru_sequence_chunked_reference(x_proj, keep, wh, bias_h,
+                                              chunk_policy, h0)
 
 
 def _check_inputs(x_proj, keep, wh, bias_h, h0):
@@ -308,3 +373,158 @@ def gru_step(x_proj, wh, bias_h, h):
     keep = torch.ones((1, x_proj.shape[0]), dtype=x_proj.dtype,
                       device=x_proj.device)
     return gru_sequence_fwd(x_proj.unsqueeze(0), keep, wh, bias_h, h)[0]
+
+
+def _check_chunked(what, x_proj, keep, wh, bias_h, chunk_policy, h0):
+    """The chunked instances' operand checks: (T, N, H, B, C, P)."""
+    if wh.dim() != 3 or chunk_policy.dim() != 1 or x_proj.dim() != 3:
+        raise ValueError(
+            f"{what}: wh must be [P, H, 3H], chunk_policy [B] and x_proj "
+            f"[T, B * C, 3H], got {tuple(wh.shape)}, "
+            f"{tuple(chunk_policy.shape)}, {tuple(x_proj.shape)}")
+    P, B = wh.shape[0], chunk_policy.shape[0]
+    if x_proj.dtype not in (torch.float32, torch.bfloat16) or B == 0 or \
+            x_proj.shape[1] % B or P == 0:
+        raise ValueError(
+            f"{what}: supports float32/bfloat16 over whole chunks, got "
+            f"{x_proj.dtype}, {tuple(x_proj.shape)} rows in {B} chunks of "
+            f"{P} policies")
+    steps, n, hidden = _check_inputs(x_proj, keep, wh[0], bias_h[0], h0)
+    _check("wh", wh, x_proj.dtype, (P, hidden, 3 * hidden))
+    _check("bias_h", bias_h, x_proj.dtype, (P, hidden))
+    _check("chunk_policy", chunk_policy, torch.int32, (B,))
+    return steps, n, hidden, B, n // B, P
+
+
+def gru_sequence_fwd_chunked(x_proj, keep, wh, bias_h, chunk_policy, h0):
+    """The chunk-indexed forward kernel: ``x_proj`` [T, B * C, 3H] and
+    ``keep`` [T, B * C] of B chunks of C rows, ``wh`` [P, H, 3H] and
+    ``bias_h`` [P, H] stacks, ``chunk_policy`` [B] int32, ``h0`` [B * C,
+    H] -> ys [T, B * C, H]; chunk b runs with policy ``chunk_policy[b]``'s
+    weights, and every row equals ``gru_sequence_fwd``'s row with those
+    weights bitwise. A chunk whose policy lies outside [0, P) is skipped:
+    its rows are NaN. Same path rule as ``gru_sequence_fwd``; float32 or
+    bfloat16."""
+    steps, n, hidden, B, _, P = _check_chunked(
+        "gru_sequence_fwd_chunked", x_proj, keep, wh, bias_h, chunk_policy,
+        h0)
+    tensor_core = uses_tensor_cores(x_proj.dtype, hidden)
+    if tensor_core:
+        # x_proj and h0 arrive by 16-byte copies, the weights by TMA.
+        x_proj, h0, wh = map(on_16_bytes, (x_proj, h0, wh))
+    ys = torch.empty((steps, n, hidden), dtype=x_proj.dtype,
+                     device=x_proj.device)
+    err = library().mlt_gru_fwd_chunked(
+        int(tensor_core), _DTYPE_CODES[x_proj.dtype], hidden,
+        x_proj.data_ptr(), keep.data_ptr(), wh.data_ptr(), bias_h.data_ptr(),
+        chunk_policy.data_ptr(), h0.data_ptr(), ys.data_ptr(), steps, B,
+        n // B, P, torch.cuda.current_stream(x_proj.device).cuda_stream)
+    check(err, "gru_sequence_fwd_chunked")
+    GRU_FWD_CHUNKED.launches += 1
+    GRU_FWD_CHUNKED.tc_launches += int(tensor_core)
+    return ys
+
+
+def gru_step_chunked(x_proj, wh, bias_h, chunk_policy, h):
+    """The policy-batched rollout step, new h [B * C, H], no clearing:
+    ``gru_step`` for every chunk of B at once, chunk b with policy
+    ``chunk_policy[b]``'s weights of the [P, H, 3H] / [P, H] stacks. On
+    the card, ``gru_sequence_fwd_chunked`` with T = 1, whose rows equal
+    ``gru_sequence_fwd``'s: the rollout step and the update pass share gate
+    math and rounding points, as for one policy."""
+    keep = torch.ones((1, x_proj.shape[0]), dtype=x_proj.dtype,
+                      device=x_proj.device)
+    if x_proj.device.type == "cpu":
+        return gru_sequence_fwd_chunked_reference(
+            x_proj.unsqueeze(0), keep, wh, bias_h, chunk_policy, h)[0]
+    return gru_sequence_fwd_chunked(x_proj.unsqueeze(0), keep, wh, bias_h,
+                                    chunk_policy, h)[0]
+
+
+def gru_sequence_bwd_chunked(x_proj, keep, wh, bias_h, chunk_policy, h0,
+                             ys, dys):
+    """The chunk-indexed backward kernel, given ``gru_sequence_fwd_chunked``'s
+    ys: (dx_proj [T, B * C, 3H], dwh [P, H, 3H], dbh [P, H], dh0 [B * C,
+    H]). Chunk b runs with policy ``chunk_policy[b]``'s weights: every
+    row's dx_proj / dh0 equal ``gru_sequence_bwd``'s on that chunk's rows
+    bitwise, and ``dwh[p]`` / ``dbh[p]`` sum over the rows of policy p's
+    chunks in f32, rounded once; zeros for a policy without a chunk (a
+    chunk whose policy lies outside [0, P) gets NaN rows and adds to no
+    policy). The weight gradients split each chunk's rows by the
+    single-policy rule applied to the chunk alone. Same path rule as
+    ``gru_sequence_bwd``; float32 or bfloat16."""
+    what = "gru_sequence_bwd_chunked"
+    steps, n, hidden, B, C, P = _check_chunked(what, x_proj, keep, wh,
+                                               bias_h, chunk_policy, h0)
+    dtype, device = x_proj.dtype, x_proj.device
+    _check("ys", ys, dtype, (steps, n, hidden))
+    _check("dys", dys, dtype, (steps, n, hidden))
+    tensor_core = uses_tensor_cores(dtype, hidden)
+    num_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    g3 = 3 * hidden
+
+    def empty(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    # Wh^T of every policy, [P, 3H, H]: one copy a call, on a 16-byte
+    # boundary as new storage.
+    wh_t = wh.transpose(1, 2).contiguous()
+    if tensor_core:
+        x_proj, keep, wh, bias_h, h0, ys, dys = map(
+            on_16_bytes, (x_proj, keep, wh, bias_h, h0, ys, dys))
+        splits = _num_splits_tc(steps * C, hidden, hidden, num_sms, gates=3)
+        hin = empty(steps, n, hidden)
+        part_b = empty(B * -(-C // TC_ROWS), hidden, dt=torch.float32)
+        db = empty(P, hidden)
+    else:
+        splits = _num_splits(steps, C, hidden, num_sms, gates=3)
+        hin = None
+        part_b = empty(B * splits, g3, dt=torch.float32)
+        db = empty(P, g3)
+    part_w = empty(B * splits, hidden, g3, dt=torch.float32)
+    dxp, dhp, dh0 = empty(steps, n, g3), empty(steps, n, g3), empty(n, hidden)
+    dwh = empty(P, hidden, g3)
+    err = library().mlt_gru_bwd_chunked(
+        int(tensor_core), _DTYPE_CODES[dtype], hidden, x_proj.data_ptr(),
+        keep.data_ptr(), wh.data_ptr(), wh_t.data_ptr(), bias_h.data_ptr(),
+        chunk_policy.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+        dys.data_ptr(), dxp.data_ptr(), dhp.data_ptr(),
+        0 if hin is None else hin.data_ptr(), dh0.data_ptr(),
+        part_w.data_ptr(), part_b.data_ptr(), dwh.data_ptr(), db.data_ptr(),
+        steps, B, C, P, splits, torch.cuda.current_stream(device).cuda_stream)
+    check(err, what)
+    GRU_BWD_CHUNKED.launches += 1
+    GRU_BWD_CHUNKED.tc_launches += int(tensor_core)
+    # bias_h feeds only the candidate gate: its cotangent is dhp's n slice
+    # (the CUDA-core pass sums all 3H columns).
+    dbh = db if tensor_core else db[:, 2 * hidden:].contiguous()
+    return dxp, dwh, dbh, dh0
+
+
+class _GRUSequenceChunked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_proj, keep, wh, bias_h, chunk_policy, h0):
+        ys = gru_sequence_fwd_chunked(x_proj, keep, wh, bias_h, chunk_policy,
+                                      h0)
+        ctx.save_for_backward(x_proj, keep, wh, bias_h, chunk_policy, h0, ys)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        x_proj, keep, wh, bias_h, chunk_policy, h0, ys = ctx.saved_tensors
+        dxp, dwh, dbh, dh0 = gru_sequence_bwd_chunked(
+            x_proj, keep, wh, bias_h, chunk_policy, h0, ys,
+            dys.to(x_proj.dtype).contiguous())
+        return dxp, None, dwh, dbh, None, dh0
+
+
+def gru_sequence_chunked(x_proj, keep, wh, bias_h, chunk_policy, h0):
+    """ys [T, B * C, H]: the chunk-indexed sequence pass, differentiable,
+    chunk b with policy ``chunk_policy[b]``'s weights of the [P, H, 3H] /
+    [P, H] stacks (the contract of ``gru_sequence_fwd_chunked`` and
+    ``gru_sequence_bwd_chunked``). CPU tensors take the plain twin."""
+    if x_proj.device.type == "cpu":
+        return gru_sequence_chunked_reference(x_proj, keep, wh, bias_h,
+                                              chunk_policy, h0)
+    return _GRUSequenceChunked.apply(x_proj, keep, wh, bias_h, chunk_policy,
+                                     h0)

@@ -15,6 +15,7 @@ upcast before the logsumexp, which keeps PPO's ratio stable in bf16.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Union
@@ -295,3 +296,20 @@ class HLGaussTwoPartDist:
     def merge_time(self, T: int, N: int) -> "HLGaussTwoPartDist":
         return HLGaussTwoPartDist(self.small_dist.merge_time(T, N),
                                   self.large_dist.merge_time(T, N))
+
+
+def critic_parts(critic_out):
+    """A critic's output as (its tensors: the output itself, a
+    distribution's logits, or the two-part distribution's pair of them; a
+    function that rebuilds the output from tensors of that structure). A
+    distributional critic's output carried through ``torch.func.vmap``,
+    which maps tensors only, or reshaped, keeps its bins and smoothness."""
+    if isinstance(critic_out, torch.Tensor):
+        return critic_out, lambda t: t
+    if isinstance(critic_out, HLGaussTwoPartDist):
+        small, large = critic_out.small_dist, critic_out.large_dist
+        return (small.logits, large.logits), lambda t: HLGaussTwoPartDist(
+            dataclasses.replace(small, logits=t[0]),
+            dataclasses.replace(large, logits=t[1]))
+    return critic_out.logits, lambda t: dataclasses.replace(critic_out,
+                                                            logits=t)

@@ -70,6 +70,7 @@ from .algo import AlgoBase, HyperParams
 from .config import AlgoConfig, ParamExplore, TrainConfig
 from .ops.gae import zscore_data
 from .models.common import StackedParams
+from .ops.dists import critic_parts
 from .ops.metrics import Metric, TrainingMetrics
 from .utils import profile, tree_map
 
@@ -652,11 +653,13 @@ def _ppo_population(cfg: TrainConfig, stacked, rollout_data,
             if first is None:
                 first = stats
             with profile("Metrics Callback"):
+                # Each policy's state after this minibatch's step, as JAX
+                # and the per-policy loop hand it over: views of its rows
+                # of the stacks.
                 for p in range(P):
                     user_metrics_cb(metrics.for_policy(p), epoch,
                                     tree_map(lambda x, p=p: x[p], mb),
-                                    stacked.policies[p],
-                                    stacked.train_states[p])
+                                    *stacked.policy_views(p))
     return [dict({k: v[p] for k, v in first.items()},
                  num_minibatches=num_minibatches,
                  epoch_inds=streams[p][0], traj_weights=traj_weights[p])
@@ -677,19 +680,26 @@ def _ppo_update_population(cfg: TrainConfig, mb, mb_weights, stacked,
                 StackedParams(leaves), mb["rnn_start_states"], mb["dones"],
                 mb["actions"], mb["obs"])
 
-        def policy_terms(mb_p, weights_p, fwd_p, norm_state_p, entropy_p):
+        # vmap maps tensors only: a distributional critic's output goes
+        # through as its logits and is rebuilt inside.
+        critic, rebuild_critic = critic_parts(fwd["critic"])
+        actor_fwd = {k: v for k, v in fwd.items() if k != "critic"}
+
+        def policy_terms(mb_p, weights_p, actor_fwd_p, critic_p, norm_state_p,
+                         entropy_p):
             train_state = SimpleNamespace(
                 hyper_params=stacked.hyper_params,
                 value_normalizer=stacked.value_normalizer,
                 value_normalizer_state=norm_state_p or None)
+            fwd_p = dict(actor_fwd_p, critic=rebuild_critic(critic_p))
             out = _loss_terms(cfg, mb_p, weights_p, fwd_p, train_state,
                               entropy_p)
             return out[:-1] + (out[-1] or {},)
 
         (loss, ratios, action_objs, value_losses, value_errs,
          new_value_norm_state) = torch.func.vmap(policy_terms)(
-            mb, mb_weights, fwd, stacked.value_normalizer_state or {},
-            stacked.entropy_coef)
+            mb, mb_weights, actor_fwd, critic,
+            stacked.value_normalizer_state or {}, stacked.entropy_coef)
         grads = torch.autograd.grad(loss.sum(), list(leaves.values()),
                                     allow_unused=True)
         grads = {k: g if g is not None else torch.zeros_like(p)

@@ -83,10 +83,10 @@ class TrainHooks:
 
     def optimize_metrics(self, metrics, epoch_idx, minibatch, policy_state,
                          train_state):
-        """Called once per minibatch, after its optimizer step (once a
-        train policy, with its own views, on a population's batched learn,
-        where the policy's module and train state hold what they held at
-        the learn's start until the learn writes the stacks back)."""
+        """Called once per minibatch, after its optimizer step, with the
+        policy's state after that step (once a train policy on a
+        population's batched learn, with views of its rows of the stacks:
+        ``StackedTrainState.policy_views``)."""
         return metrics
 
 

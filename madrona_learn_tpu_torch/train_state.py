@@ -192,10 +192,13 @@ class StackedTrainState:
     and ``write_back`` returns it to the modules and ``PolicyTrainState``s
     under "Set New Policy States", so checkpoints, ``copy_policy``, surgery
     and the collect's ``Population.stacked()`` see the same objects as
-    ever): ``leaves``, every parameter path's stack, requiring grad; the
-    Adam state (count ``[P]``); the searched ``lr`` and ``entropy_coef`` as
-    ``[P]`` tensors; the initial weight norms ``[P]`` and the value
-    normalizer's state. ``actor_critic`` (policy 0's) gives the structure;
+    ever). While the learn runs, each train policy's module parameters are
+    views of its rows of ``leaves``, so ``policy_views`` hands the
+    ``optimize_metrics`` hook every policy's current state, as JAX and the
+    per-policy loop do, without a copy. ``leaves``, every parameter path's
+    stack, requiring grad; the Adam state (count ``[P]``); the searched
+    ``lr`` and ``entropy_coef`` as ``[P]`` tensors; the initial weight
+    norms ``[P]`` and the value normalizer's state. ``actor_critic`` (policy 0's) gives the structure;
     ``hyper_params``, ``tx`` and ``value_normalizer`` (policy 0's) the
     rest, which is the configuration's and the same for every policy."""
 
@@ -239,6 +242,10 @@ class StackedTrainState:
                      for p in policies]
             leaves = {k: torch.stack([n[k] for n in named]).requires_grad_()
                       for k in named[0]}
+            # Each module's parameters become views of its rows.
+            for p, n in enumerate(named):
+                for k, param in n.items():
+                    param.data = leaves[k].detach()[p]
             opts = [vars(ts.opt_state) for ts in train_states]
             return StackedTrainState(
                 policies=policies, train_states=train_states,
@@ -251,20 +258,37 @@ class StackedTrainState:
                 value_normalizer_state=stack(
                     [ts.value_normalizer_state for ts in train_states]))
 
+    def _state_rows(self, p):
+        """Views of row p of the Adam and value-normalizer stacks."""
+        norm = self.value_normalizer_state
+        return dict(
+            opt_state=AdamState(**tree_map(lambda x: x[p],
+                                           vars(self.opt_state))),
+            value_normalizer_state=(None if norm is None else
+                                    {k: v[p] for k, v in norm.items()}))
+
+    def policy_views(self, p):
+        """Train policy p's current learn state, as the per-policy loop hands
+        it to the ``optimize_metrics`` hook: its ``PolicyState`` (whose
+        module's parameters are its rows of ``leaves`` while the learn
+        runs) and a ``PolicyTrainState`` whose Adam and value-normalizer
+        state are views of its rows of the stacks; its hyperparameters are
+        the ones its rows were stacked from, which the learn does not
+        change."""
+        return self.policies[p], dataclasses.replace(self.train_states[p],
+                                                     **self._state_rows(p))
+
     def write_back(self):
-        """Each policy's row of the stacks into its module's parameters
-        (in place) and its train state (views of the stacks)."""
+        """Each policy's module parameters own their storage again (a copy
+        of their rows of the stacks) and its train state takes views of its
+        rows."""
         with torch.no_grad():
             for p, (policy, ts) in enumerate(zip(self.policies,
                                                  self.train_states)):
-                for name, param in policy.actor_critic.named_parameters():
-                    param.copy_(self.leaves[name][p])
-                ts.opt_state = AdamState(**tree_map(
-                    lambda x, p=p: x[p], vars(self.opt_state)))
-                if self.value_normalizer_state is not None:
-                    ts.value_normalizer_state = {
-                        k: v[p] for k, v in
-                        self.value_normalizer_state.items()}
+                for param in policy.actor_critic.parameters():
+                    param.data = param.data.clone()
+                for name, rows in self._state_rows(p).items():
+                    setattr(ts, name, rows)
 
 
 def initial_weight_norms(actor_critic) -> Dict[str, torch.Tensor]:

@@ -381,6 +381,10 @@ def _zoo(kind):
     towers = {
         "gru": lambda: tm.RecurrentBackboneEncoder(
             net=net, rnn=tm.GRU(128, 128, 1, F32)),
+        "gru_float16": lambda: tm.RecurrentBackboneEncoder(
+            net=net, rnn=tm.GRU(128, 128, 1, torch.float16)),
+        "gru_h96": lambda: tm.RecurrentBackboneEncoder(
+            net=net, rnn=tm.GRU(128, 96, 1, F32)),
         "fused": lambda: tm.RecurrentBackboneEncoder(
             net=tm.MLP(2, 128, 1, BF16), rnn=tm.LSTM(128, 128, 1, BF16),
             use_fused_step=True),
@@ -400,6 +404,8 @@ def _zoo(kind):
                                     tm.BackboneEncoder(net))
                 if kind == "separate" else tm.BackboneShared(prefix, tower()))
     critics = {"hlgauss": lambda: tm.HLGaussCritic.create(128, F32),
+               "hlgauss_two_part":
+                   lambda: tm.HLGaussTwoPartCritic.create(128, F32),
                "dreamer": lambda: tm.DreamerV3Critic(128, F32)}
     return tm.ActorCritic(
         backbone=backbone,
@@ -416,15 +422,17 @@ def _zoo(kind):
     ("mlp", dict(filter_advantages=True), "filter_advantages"),
     ("lstm", dict(compute_dtype=torch.float16),
      "compute_dtype=float16 (loss scaling)"),
-    ("gru", {}, "backbone.encoder.rnn (GRU)"),
+    ("gru", {}, None),
+    ("gru_float16", {}, "backbone.encoder.rnn (GRU)"),
+    ("gru_h96", {}, "backbone.encoder.rnn (GRU)"),
     ("fused", {}, "backbone.encoder (RecurrentBackboneEncoder)"),
     ("remat", {}, "backbone.encoder (RecurrentBackboneEncoder)"),
     ("float16", {}, "backbone.encoder.net.Dense_0 (Dense)"),
     ("proj", {}, "backbone.encoder.rnn (LSTM)"),
     ("window", {}, "backbone.encoder.rnn (WindowAttentionMemory)"),
     ("separate", {}, "backbone (BackboneSeparate)"),
-    ("hlgauss", {}, "critic (HLGaussCritic)"),
-    ("dreamer", {}, "critic (DreamerV3Critic)"),
+    ("hlgauss", {}, None), ("hlgauss_two_part", {}, None),
+    ("dreamer", {}, None),
 ])
 def test_which_populations_take_the_batched_learn(kind, options, missing):
     """``batched_learn_missing``: None (the batched learn) where every

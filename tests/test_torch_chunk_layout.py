@@ -321,6 +321,12 @@ def _tower(kind):
     if kind == "gru":
         return tm.RecurrentBackboneEncoder(net=net,
                                            rnn=tm.GRU(128, 128, 1, F32))
+    if kind == "gru_float16":
+        return tm.RecurrentBackboneEncoder(
+            net=net, rnn=tm.GRU(128, 128, 1, torch.float16))
+    if kind == "gru_h96":
+        return tm.RecurrentBackboneEncoder(net=net,
+                                           rnn=tm.GRU(128, 96, 1, F32))
     if kind == "fused":
         return tm.RecurrentBackboneEncoder(
             net=tm.MLP(2, 128, 1, BF16), rnn=tm.LSTM(128, 128, 1, BF16),
@@ -336,21 +342,25 @@ def _tower(kind):
 
 
 @pytest.mark.parametrize("kind,missing", [
-    ("mlp", None), ("lstm", None),
-    ("gru", "backbone.encoder.rnn (GRU)"),
+    ("mlp", None), ("lstm", None), ("gru", None),
+    ("gru_float16", "backbone.encoder.rnn (GRU)"),
+    ("gru_h96", "backbone.encoder.rnn (GRU)"),
     ("fused", "backbone.encoder (RecurrentBackboneEncoder)"),
     ("float16", "backbone.encoder.net.Dense_0 (Dense)"),
     ("proj", "backbone.encoder.rnn (LSTM)"),
     ("separate", "backbone (BackboneSeparate)"),
-    ("hlgauss", "critic (HLGaussCritic)"),
+    ("hlgauss", None), ("hlgauss_two_part", None), ("dreamer", None),
 ])
 def test_which_populations_take_the_chunked_path(kind, missing):
     prefix = lambda obs: obs["x"]
     backbone = (tm.BackboneSeparate(prefix, _tower("mlp"), _tower("mlp"))
                 if kind == "separate"
                 else tm.BackboneShared(prefix, _tower(kind)))
-    critic = (tm.HLGaussCritic.create(128, F32) if kind == "hlgauss"
-              else tm.DenseLayerCritic(128, F32))
+    critics = {"hlgauss": lambda: tm.HLGaussCritic.create(128, F32),
+               "hlgauss_two_part":
+                   lambda: tm.HLGaussTwoPartCritic.create(128, F32),
+               "dreamer": lambda: tm.DreamerV3Critic(128, F32)}
+    critic = critics.get(kind, lambda: tm.DenseLayerCritic(128, F32))()
     model = tm.ActorCritic(
         backbone=backbone,
         actor=tm.DictActor({"move": tm.DenseLayerDiscreteActor(

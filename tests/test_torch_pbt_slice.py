@@ -4,9 +4,14 @@ package's.
 ``tests/test_pbt_e2e.py``'s trainer (4 train + 2 past policies, 32 duel
 worlds, 16 steps in 2 BPTT chunks, an MLP of 32 in float32, 25% self, 50%
 cross and 25% past play, lr searched in log10 space) is built in both
-packages, as it stands and with an LSTM of 32 after the MLP (BASELINE
-config #4's tower). The port gets the JAX population's weights, policy by policy,
-and replays the JAX run's draws, in this test only:
+packages, as it stands, with an LSTM of 32 after the MLP (BASELINE
+config #4's tower), with a GRU of 128 after the MLP (``gru``: the
+chunk-indexed GRU kernels' widths) and with the DreamerV3 two-hot critic
+in the dense critic's place (``dreamer``; its head's kernel drawn small
+and its bias falling off from the middle bin, as the flagship slice test
+sets it, so that its values differ between rows). The port gets the JAX
+population's weights, policy by policy, and replays the JAX run's draws,
+in this test only:
 
 - actions: the JAX sim step reports its sim-order actions through an
   ordered ``jax.debug.callback``; the port's population runs in the
@@ -28,8 +33,12 @@ tolerances), then ``eval_elo`` equal Elo (1e-5 relative) and
 through the chunked path. The port's side runs on both learn paths
 (``learn``): the batched learn its models take, and the per-policy loop,
 forced by the path rule; the JAX run is computed once a model for both.
+On both, the ``optimize_metrics`` hook records a parameter and the Adam
+count of each train policy after every minibatch's step, as JAX's hook
+(reporting through an ordered ``jax.debug.callback``) records them.
 """
 
+import dataclasses
 import warnings
 
 import jax
@@ -71,11 +80,15 @@ from test_pbt_e2e import (
     make_policy,
 )
 from test_torch_pbt import _UniformReplay
+from test_torch_flagship import CRITIC_BIAS
 from test_torch_slice import _leaves, _np
 
 torch.set_num_threads(1)
 
 SEED, H, LR = 3, 32, 1e-3
+# The GRU's width: the chunk-indexed GRU kernels take H = 128 or 256, so a
+# GRU of 32 would take the per-policy loop.
+GRU_H = 128
 STEPS, CHUNKS, MINIBATCH = 16, 2, 10
 # Train agents a policy: 64 * (0.25 + 0.5 / 2 + 0.25 / 2) / 4 = 10.
 NUM_SEQS = CHUNKS * 10
@@ -109,13 +122,27 @@ class _OrderedRandint:
 
 
 class _CaptureRollouts(JaxTrainHooks):
-    def __init__(self, sink):
+    def __init__(self, sink, hook_sink):
         self.sink = sink
+        self.hook_sink = hook_sink
 
     def rollout_metrics(self, metrics, rollouts, user_state):
         jax.debug.callback(
             lambda r: self.sink.append(jax.tree.map(np.asarray, r)),
             rollouts)
+        return metrics
+
+    def optimize_metrics(self, metrics, epoch_idx, minibatch, policy_state,
+                         train_state):
+        """The critic's middle bias entry and the Adam count after the
+        minibatch's step: once a train policy, in policy order, inside
+        JAX's vmap of the update."""
+        params = policy_state.params
+        bias = params.get("params", params)["critic"]["Dense_0"]["bias"]
+        jax.debug.callback(
+            lambda b, c: self.hook_sink.append((float(b), int(c))),
+            bias[bias.shape[0] // 2],
+            _adam_state(train_state.opt_state).count, ordered=True)
         return metrics
 
 
@@ -134,26 +161,51 @@ def _recording_env(env, sink):
     return dict(env, step=recording_step)
 
 
-def _jax_lstm_policy(actions):
-    """test_pbt_e2e's policy with an LSTM of 32 after its MLP."""
+def _jax_policy(model, actions):
+    """test_pbt_e2e's policy with an LSTM of 32 or a GRU of 128 after its
+    MLP, or with the DreamerV3 critic."""
     dtype = jnp.float32
+    net = jm.MLP(num_channels=H, num_layers=1, dtype=dtype)
+    rnn = (jm.LSTM(num_hidden_channels=H, num_layers=1, dtype=dtype,
+                   use_pallas=True) if model == "lstm" else
+           jm.GRU(num_hidden_channels=GRU_H, num_layers=1, dtype=dtype,
+                  use_pallas=True) if model == "gru" else None)
     return mlt.Policy(
         actor_critic=jm.ActorCritic(
             backbone=jm.BackboneShared(
                 prefix=lambda obs, train: jnp.concatenate(
                     [obs["time"], obs["acc"]], axis=-1),
-                encoder=jm.RecurrentBackboneEncoder(
-                    net=jm.MLP(num_channels=H, num_layers=1, dtype=dtype),
-                    rnn=jm.LSTM(num_hidden_channels=H, num_layers=1,
-                                dtype=dtype, use_pallas=True))),
+                encoder=(jm.BackboneEncoder(net=net) if rnn is None else
+                         jm.RecurrentBackboneEncoder(net=net, rnn=rnn))),
             actor=jm.DictActor(heads={"move": jm.DenseLayerDiscreteActor(
                 cfg=actions["move"], dtype=dtype)}),
-            critic=jm.DenseLayerCritic(dtype=dtype)),
+            critic=(jm.DreamerV3Critic(dtype=dtype) if model == "dreamer"
+                    else jm.DenseLayerCritic(dtype=dtype))),
         obs_preprocess=mlt.ObservationsCaster.create(dtype=dtype),
         get_episode_scores=get_episode_scores)
 
 
-@pytest.fixture(scope="module", params=["mlp", "lstm"])
+def _dreamer_critic_params(mgr):
+    """The population's two-hot heads: the bias falling off from the
+    middle bin (test_torch_flagship's CRITIC_BIAS) and the kernel drawn
+    with scale 0.05, so that values differ between rows and policies."""
+    rng = np.random.default_rng(SEED)
+
+    def head(path, p):
+        keys = [k.key for k in path[-3:]]
+        if keys == ["critic", "Dense_0", "bias"]:
+            return jnp.broadcast_to(jnp.asarray(CRITIC_BIAS), p.shape)
+        if keys == ["critic", "Dense_0", "kernel"]:
+            return jnp.asarray(0.05 * rng.normal(size=p.shape), p.dtype)
+        return p
+
+    params = jax.tree_util.tree_map_with_path(
+        head, mgr.state.policy_states.params)
+    return mgr.replace(state=mgr.state.replace(
+        policy_states=mgr.state.policy_states.replace(params=params)))
+
+
+@pytest.fixture(scope="module", params=["mlp", "lstm", "gru", "dreamer"])
 def model(request):
     return request.param
 
@@ -165,19 +217,29 @@ def learn(request):
 
 @pytest.fixture(scope="module")
 def jax_run(model):
-    records = dict(steps=[], randint=[], data=[])
+    records = dict(steps=[], randint=[], data=[], hook=[])
     mp = pytest.MonkeyPatch()
     mp.setattr(j_pbt, "random", _OrderedRandint(records["randint"]))
     mp.setattr("test_pbt_e2e.make_policy",
-               make_policy if model == "mlp" else _jax_lstm_policy)
+               make_policy if model == "mlp" else
+               lambda actions: _jax_policy(model, actions))
     mp.setattr("test_pbt_e2e.make_duel_env",
                lambda cfg: _recording_env(jax_make_duel_env(cfg),
                                           records["steps"]))
     real_init = mlt.init_training
-    mp.setattr(mlt, "init_training", lambda *a, **kw: real_init(
-        *a, **dict(kw, user_hooks=_CaptureRollouts(records["data"]))))
+
+    def init(model_, cfg, *a, **kw):
+        if model == "dreamer":
+            cfg = dataclasses.replace(cfg, dreamer_v3_critic=True)
+        return real_init(model_, cfg, *a, **dict(
+            kw, user_hooks=_CaptureRollouts(records["data"],
+                                            records["hook"])))
+
+    mp.setattr(mlt, "init_training", init)
     try:
         mgr = build_training_mgr(seed=SEED)
+        if model == "dreamer":
+            mgr = _dreamer_critic_params(mgr)
         update = jax.jit(lambda m: m.update_iter())
         mgrs = [mgr]
         for _ in range(2):
@@ -203,16 +265,38 @@ def jax_run(model):
 
 def _torch_model(model):
     move = DiscreteActionsConfig(actions_num_buckets=[5])
-    net = tm.MLP(2, H, 1, torch.float32)
+    f32 = torch.float32
+    net = tm.MLP(2, H, 1, f32)
+    rnn = {"lstm": lambda: tm.LSTM(H, H, 1, f32),
+           "gru": lambda: tm.GRU(H, GRU_H, 1, f32)}.get(model)
+    out = GRU_H if model == "gru" else H
     return tm.ActorCritic(
         backbone=tm.BackboneShared(
             prefix=lambda obs: torch.cat([obs["time"], obs["acc"]], -1),
-            encoder=(tm.BackboneEncoder(net=net) if model == "mlp" else
-                     tm.RecurrentBackboneEncoder(
-                         net=net, rnn=tm.LSTM(H, H, 1, torch.float32)))),
+            encoder=(tm.BackboneEncoder(net=net) if rnn is None else
+                     tm.RecurrentBackboneEncoder(net=net, rnn=rnn()))),
         actor=tm.DictActor({"move": tm.DenseLayerDiscreteActor(
-            move, H, torch.float32)}),
-        critic=tm.DenseLayerCritic(H, torch.float32))
+            move, out, f32)}),
+        critic=(tm.DreamerV3Critic(out, f32) if model == "dreamer" else
+                tm.DenseLayerCritic(out, f32)))
+
+
+def _recording_hooks(sink, generators):
+    """Hooks whose ``optimize_metrics`` records (train policy, the critic's
+    middle bias entry, the Adam count) after every minibatch's step; the
+    policy is known by its generator (``generators``, filled once the
+    trainer is built)."""
+
+    class Recording(tlt.TrainHooks):
+        def optimize_metrics(self, metrics, epoch_idx, minibatch,
+                             policy_state, train_state):
+            p = [g is train_state.generator for g in generators].index(True)
+            bias = policy_state.actor_critic.critic.Dense_0.bias.detach()
+            sink.append((p, float(bias[bias.shape[0] // 2]),
+                         int(train_state.opt_state.count)))
+            return metrics
+
+    return Recording()
 
 
 def _get_episode_scores(er):
@@ -222,7 +306,7 @@ def _get_episode_scores(er):
     return a_score, 1.0 - a_score
 
 
-def _torch_cfg():
+def _torch_cfg(model="mlp"):
     return tlt.TrainConfig(
         num_worlds=NUM_WORLDS, num_agents_per_world=2,
         actions={"move": DiscreteActionsConfig(actions_num_buckets=[5])},
@@ -239,7 +323,7 @@ def _torch_cfg():
                           self_play_portion=0.25, cross_play_portion=0.5,
                           past_play_portion=0.25,
                           policy_overwrite_threshold=0.5),
-        dreamer_v3_critic=False)
+        dreamer_v3_critic=model == "dreamer")
 
 
 def _policy_params(tree, p):
@@ -247,11 +331,14 @@ def _policy_params(tree, p):
         policy_slice(tree, p)).items()}
 
 
-def _adam(j_mgr):
+def _adam_state(opt_state):
     return [s for s in jax.tree.leaves(
-        j_mgr.state.train_states.opt_state,
-        is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
         if isinstance(s, optax.ScaleByAdamState)][0]
+
+
+def _adam(j_mgr):
+    return _adam_state(j_mgr.state.train_states.opt_state)
 
 
 def _install_replays(mp, jax_run):
@@ -310,18 +397,20 @@ def torch_run(model, learn, jax_run):
     if learn == "loop":
         mp.setattr(tlt.train, "batched_learn_missing",
                    lambda cfg, actor_critic: "the test")
-    snapshots = []
+    snapshots, hook_records, generators = [], [], []
     try:
         policy = tlt.Policy(lambda p: _torch_model(model),
                             tlt.ObservationsCaster.create(torch.float32),
                             _get_episode_scores)
         mgr = tlt.init_training(
-            "cpu", _torch_cfg(),
+            "cpu", _torch_cfg(model),
             make_duel_env(ToyEnvConfig(num_worlds=NUM_WORLDS,
                                        episode_len=EPISODE_LEN, num_teams=2,
                                        team_size=1, seed=SEED),
                           device="cpu"),
-            policy, torch.zeros((1,), dtype=torch.int32))
+            policy, torch.zeros((1,), dtype=torch.int32),
+            user_hooks=_recording_hooks(hook_records, generators))
+        generators.extend(ts.generator for ts in mgr.state.train_states)
         assert mgr.rollout.cfg.policy_chunked
         assert mgr.batched_learn == (learn == "batched")
         population = mgr.state.policy_states
@@ -377,7 +466,7 @@ def torch_run(model, learn, jax_run):
         mp.undo()
     return dict(mgr=mgr, lrs=lrs, collected=collected, snapshots=snapshots,
                 deltas=deltas, elos=elos, before=before, gens=gens,
-                queues=queues)
+                queues=queues, hook=hook_records)
 
 
 def test_hyperparameters_drawn_as_jax(jax_run, torch_run):
@@ -544,3 +633,29 @@ def test_update_population_matches_jax(jax_run, torch_run):
     queues = torch_run["queues"]
     assert not queues["steps"] and not queues["randints"]
     assert not queues["perms"]
+
+
+def test_optimize_metrics_hook_sees_each_step_as_jax(jax_run, torch_run):
+    """The ``optimize_metrics`` hook after every minibatch's step, on both
+    learn paths: each train policy's middle critic bias entry as the step
+    left it (within the parameter test's tolerance of JAX's: 2 lr) and its
+    Adam count, one more each call (1 to 4 over the two updates of two
+    minibatches), as JAX's hook sees them."""
+    got = {}
+    for p, bias, count in torch_run["hook"]:
+        got.setdefault(p, []).append((bias, count))
+    want = {}
+    # JAX calls the hook inside its vmap over the train policies: each
+    # minibatch's calls come in policy order.
+    for i, (bias, count) in enumerate(jax_run["hook"]):
+        want.setdefault(i % NUM_TRAIN, []).append((bias, count))
+    assert sorted(got) == sorted(want) == list(range(NUM_TRAIN))
+    for p in range(NUM_TRAIN):
+        assert [c for _, c in got[p]] == [c for _, c in want[p]] == [
+            1, 2, 3, 4]
+        lr = torch_run["lrs"][p]
+        np.testing.assert_allclose([b for b, _ in got[p]],
+                                   [b for b, _ in want[p]], rtol=0,
+                                   atol=2 * lr + 1e-5, err_msg=f"policy {p}")
+        # Each record is the step's own: the bias moves every minibatch.
+        assert len({b for b, _ in got[p]}) == 4, got[p]

@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
 
 (``python3 chip_smoke.py --digests`` runs phases 1 and 2, then prints the
 SHA-256 of the bf16 LSTM and GRU kernels' (the chunk-indexed ones
-included), ``mha``'s, ``gae``'s and the two ``layer_norm`` kernels'
+included, and the fused step's), ``mha``'s, ``gae``'s and the two ``layer_norm`` kernels'
 outputs from seeded inputs, to hold two
 checkouts' kernels bitwise equal: copy the script into the other
 checkout's root and run it there too. ``--timings`` runs phases 1 and 2,
@@ -82,7 +82,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    chunks of index P and -1 NaN, each policy's dwh / dbh within the
    tolerance of the single-policy backward's sum and, where 64 divides
    the chunk, bitwise it), each timed against one single-policy launch a
-   policy;
+   policy; and the fused trunk's chunk-indexed instances the same way:
+   ``fused_policy_step_chunked`` at headline_pbt_fused's collect step (75
+   chunks of 512 rows, 12 policies, F = 2, bf16 on tensor cores) and at
+   chunks of 37 rows in a shuffled order (bf16 at H = 256 and 128, f32),
+   ``lstm_sequence_proj_fwd_chunked`` / ``_bwd_chunked`` at its learn
+   step ([16, 8 x 1280, 256 -> 1024], one chunk a train policy) and at
+   chunks of 37 rows (bf16 at H = 256 and 128, f32): every row bitwise
+   the single-policy kernel's, each policy's dwi / dwr / db within the
+   tolerance of the single-policy backward's sum and, at C = 1280,
+   bitwise it;
 4. models: the update pass and its gradients through the kernels on the
    card against the same model on the CPU, for the MLP model, a small GRU
    model, a small fused-trunk model, a small flagship (entity attention)
@@ -210,7 +219,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     collect A/B), headline_pbt_dreamer (the DreamerV3 critic, 1 timed
     update: the LSTM's chunk-indexed 37 and 4, ``grouped_matmul`` 164) and
     headline_pbt_hlgauss (the two-part HL-Gauss critic, 1 timed update:
-    ``grouped_matmul`` 197, its two heads a step and for the bootstrap).
+    ``grouped_matmul`` 197, its two heads a step and for the bootstrap)
+    and headline_pbt_fused (headline_fused's tower, ``use_fused_step`` and
+    ``fuse_input_proj``, 1 timed update: ``fused_policy_step_chunked`` 33
+    an update, 32 steps and the bootstrap, ``lstm_sequence_proj_fwd_
+    chunked`` and ``_bwd_chunked`` 4 each, ``grouped_matmul`` 65, the
+    heads', ``gae`` 1, no single-policy kernel; and both A/Bs).
 
 13. the rest of the model zoo, five trainers at 16384 worlds with the
     headline's width and PPO settings, each 1 warm-up update and 2 trials
@@ -2618,6 +2632,390 @@ def check_gru_bwd_chunked(results):
                    chunks=B, policies=P_c, dwh_bitwise_single=same, **b)
 
 
+def _chunked_step_inputs(gen, B, C, F, H, layers, P, dtype):
+    """fused_policy_step_chunked operands: ``_step_inputs``' draws as
+    [P, ...] stacks (the LayerNorm affines f32), chunk_policy [B] (in
+    [0, P), every policy present), x, c and h over the B * C rows."""
+    import torch
+
+    def rnd(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(dt)
+
+    mlp, fin = [], F
+    for _ in range(layers):
+        mlp.append((rnd(P, fin, H, scale=(2 / fin) ** 0.5),
+                    1 + rnd(P, H, scale=0.1, dt=torch.float32),
+                    rnd(P, H, scale=0.1, dt=torch.float32)))
+        fin = H
+    idx = torch.randint(0, P, (B,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    idx[:P] = torch.arange(P, device="cuda", dtype=torch.int32)
+    N = B * C
+    return (rnd(N, F), mlp, rnd(P, H, 4 * H, scale=H ** -0.5),
+            rnd(P, H, 4 * H, scale=H ** -0.5), rnd(P, 4 * H, scale=0.1), idx,
+            rnd(N, H, scale=0.5), rnd(N, H, scale=0.5))
+
+
+def _chunked_step_bound(N, F, H, layers, policies_used, B, itemsize):
+    """``_step_bound`` over N rows with the weights of the policies in use
+    read and the chunk indices read."""
+    weights = F * H + (layers - 1) * H * H + 8 * H * H + 4 * H
+    nbytes = (itemsize * (N * F + policies_used * weights + 5 * N * H)
+              + policies_used * 8 * H * layers + 4 * B)
+    product = 2 * N * (F * H + (layers - 1) * H * H + 8 * H * H)
+    return bound(nbytes, {"bf16_tensor": product,
+                          "f32": 10 * N * H * layers + 30 * N * H})
+
+
+def _one_policy(mlp, p):
+    """Policy p's (W, ln_scale, ln_bias) layers of the stacks."""
+    return [tuple(t[p] for t in layer) for layer in mlp]
+
+
+def check_policy_step_chunked(results):
+    """fused_policy_step_chunked at headline_pbt_fused's collect step (the
+    chunk size and count init_training derives for headline_pbt, 12
+    policies, F = 2: layer 0's W a [12, 2, 256] stack, whose rows past F
+    must arrive as zeros for every policy), bf16 on tensor cores, and at
+    chunks of 37 rows (no multiple of the 32-row tile) in a shuffled order
+    in bf16 at both widths and in f32 (CUDA cores): against its plain
+    twin; row for row bitwise ``fused_policy_step`` with the row's policy's
+    weights (each policy's rows in one call); bitwise over two calls and
+    for the first chunk alone; chunks of index P and -1 NaN, the others
+    unchanged; its time against one ``fused_policy_step`` a policy over the
+    same rows (the per-policy loop's launches) and its bound."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.policy_step import (
+        POLICY_STEP_CHUNKED, fused_policy_step, fused_policy_step_chunked,
+        fused_policy_step_chunked_reference, uses_tensor_cores)
+
+    P, C, B = _pbt_chunk_geometry()
+    H, F, layers = CHANNELS, 2, 2
+    log(f"fused_policy_step_chunked at headline_pbt_fused's collect step: "
+        f"{P} policies, {B} chunks of C = {C} rows, F = {F}, MLP {layers} x "
+        f"{H}, LSTM {H}")
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    res = results["fused_policy_step_chunked"] = {"max_abs_err": 0.0}
+    bf16, f32 = torch.bfloat16, torch.float32
+    shuffled = [2, 0, 3, 2, 1, 0]      # policy 4 of 5 owns no chunk
+    # (chunks, C, P, F, H, layers, dtype, on the main path).
+    for chunks, chunk, P_c, F_c, H_c, layers_c, dtype, main_path in (
+            (B, C, P, F, H, layers, bf16, True),
+            (len(shuffled), 37, 5, F, H, layers, bf16, False),
+            (len(shuffled), 37, 5, 3, 128, 1, bf16, False),
+            (len(shuffled), 37, 5, F, H, layers, f32, False)):
+        dname = str(dtype).split(".")[-1]
+        args = list(_chunked_step_inputs(gen, chunks, chunk, F_c, H_c,
+                                         layers_c, P_c, dtype))
+        if not main_path:
+            args[5] = torch.tensor(shuffled, dtype=torch.int32,
+                                   device="cuda")
+        x, mlp, wi, wr, bias, idx, c, h = args
+        (feats, (c1, h1)), path = _routed(
+            POLICY_STEP_CHUNKED, uses_tensor_cores(dtype, H_c, F_c),
+            fused_policy_step_chunked, *args)
+        tag = (f"[{chunks} x {chunk}, {F_c}->{H_c}x{layers_c}, LSTM {H_c}] "
+               f"P={P_c} {dname} ({path})")
+        if main_path and path != "tensor_core":
+            raise AssertionError(f"fused_policy_step_chunked {tag}: the main "
+                                 f"path took the {path} route")
+        want = fused_policy_step_chunked_reference(*args)
+        err = 0.0
+        for name, g, w in (("feats", feats, want[0]), ("c'", c1, want[1][0]),
+                           ("h'", h1, want[1][1])):
+            err = max(err, compare(f"fused_policy_step_chunked {name} {tag}",
+                                   g, w, **TOL[("step", dname)]))
+        by_policy = _policy_rows(idx, chunk, P_c)
+        for p, rows in by_policy:
+            f1, (c_1, h_1) = fused_policy_step(
+                x[rows].contiguous(), _one_policy(mlp, p), wi[p], wr[p],
+                bias[p], c[rows], h[rows])
+            if not (torch.equal(f1, feats[rows]) and torch.equal(c_1, c1[rows])
+                    and torch.equal(h_1, h1[rows])):
+                raise AssertionError(f"fused_policy_step_chunked {tag}: "
+                                     f"policy {p}'s rows differ from "
+                                     f"fused_policy_step's")
+        log(f"  fused_policy_step_chunked {tag}: every row bitwise "
+            f"fused_policy_step's with its policy's weights "
+            f"({len(by_policy)} calls) ok")
+        again = fused_policy_step_chunked(*args)
+        bitwise(f"fused_policy_step_chunked {tag} over two calls",
+                torch.stack([again[0], *again[1]]),
+                torch.stack([feats, c1, h1]))
+        alone = fused_policy_step_chunked(
+            x[:chunk].contiguous(), mlp, wi, wr, bias, idx[:1].contiguous(),
+            c[:chunk], h[:chunk])
+        bitwise(f"fused_policy_step_chunked {tag} the first chunk alone",
+                torch.stack([alone[0], *alone[1]]),
+                torch.stack([feats[:chunk], c1[:chunk], h1[:chunk]]))
+        if not main_path:
+            bad = idx.clone()
+            bad[1], bad[3] = P_c, -1
+            out = fused_policy_step_chunked(x, mlp, wi, wr, bias, bad, c, h)
+            rows = _skipped_rows(chunks, chunk)
+            got = torch.stack([out[0], *out[1]])
+            ref = torch.stack([feats, c1, h1])
+            if not (bool(got[:, rows].isnan().all())
+                    and torch.equal(got[:, ~rows], ref[:, ~rows])):
+                raise AssertionError(f"fused_policy_step_chunked {tag}: a "
+                                     f"chunk of index P or -1 was not "
+                                     f"skipped alone")
+            log(f"  fused_policy_step_chunked {tag}: chunks of index P and "
+                f"-1 NaN, the others unchanged ok")
+            continue
+        per_policy = [(x[rows].contiguous(), _one_policy(mlp, p), wi[p],
+                       wr[p], bias[p], c[rows], h[rows])
+                      for p, rows in by_policy]
+        ms = time_ms(lambda: fused_policy_step_chunked(*args))
+        loop_ms = time_ms(lambda: [fused_policy_step(*a) for a in per_policy])
+        plain_ms = time_ms(lambda: fused_policy_step_chunked_reference(*args),
+                           reps=3, warmup=1)
+        b = _chunked_step_bound(chunks * chunk, F_c, H_c, layers_c,
+                                len(by_policy), chunks, x.element_size())
+        log(f"  fused_policy_step_chunked {tag}: kernel {ms:.4f} ms, "
+            f"{len(per_policy)} fused_policy_step over the same rows "
+            f"{loop_ms:.4f} ms, plain {plain_ms:.3f} ms, no library call "
+            f"(no single PyTorch call computes the trunk), bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        res.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=None, path=path, per_policy_ms=loop_ms,
+                   chunk=chunk, chunks=chunks, policies=P_c, **b)
+
+
+def _chunked_proj_bounds(T, B, C, F, H, policies_used, itemsize):
+    """``_proj_bounds`` over the B * C rows with the weights of the
+    policies in use (read, and backward their dWi / dWr / db written) and
+    the chunk indices read: (forward, backward)."""
+    N = B * C
+    seq, state, rows = T * N * H, N * H, T * N
+    weights = policies_used * (F * 4 * H + 4 * H * H + 4 * H)
+    fwd_bytes = (itemsize * (rows * F + rows + weights + 2 * state + 2 * seq)
+                 + 4 * B)
+    bwd_bytes = (itemsize * (rows * F + rows + weights + 2 * state + 3 * seq
+                             + rows * F + weights + 2 * state) + 4 * B)
+    products = 2 * rows * 4 * H * (F + H)
+    return (bound(fwd_bytes, {"bf16_tensor": products, "f32": 30 * seq}),
+            bound(bwd_bytes, {"bf16_tensor": 3 * products, "f32": 40 * seq}))
+
+
+def check_lstm_proj_chunked(results):
+    """lstm_sequence_proj_fwd_chunked and lstm_sequence_proj_bwd_chunked at
+    headline_pbt_fused's learn step (8 train policies, one chunk of a
+    minibatch's 1280 sequences each, T = 16, F = 256 -> 4H = 1024, bf16 on
+    tensor cores) and at chunks of 37 rows in a shuffled order with a
+    policy owning two chunks and one owning none, in bf16 and f32 (CUDA
+    cores): against their plain twins (the backward against its twin's
+    autograd); every row's ys / cs bitwise ``lstm_sequence_proj_fwd``'s
+    with its policy's weights, every chunk's dx / dh0 / dc0 bitwise
+    ``lstm_sequence_proj_bwd``'s on its rows, each policy's dwi / dwr / db
+    within the backward's tolerance of that kernel's (summed over its
+    chunks) and, at C = 1280 (64 divides it), bitwise it; bitwise over two
+    calls and, for a policy of one chunk, its dwi / dwr / db bitwise its
+    chunk alone; chunks of index P and -1 NaN and in no policy's
+    gradients; the times against one single-policy launch a policy over
+    the same rows, and the bounds."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.lstm import (
+        LSTM_PROJ_BWD_CHUNKED, LSTM_PROJ_FWD_CHUNKED,
+        lstm_sequence_proj_bwd, lstm_sequence_proj_bwd_chunked,
+        lstm_sequence_proj_chunked_reference, lstm_sequence_proj_fwd,
+        lstm_sequence_proj_fwd_chunked,
+        lstm_sequence_proj_fwd_chunked_reference, uses_tensor_cores)
+
+    H, T, P = CHANNELS, STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, PBT_TRAIN
+    log(f"lstm_sequence_proj_*_chunked at headline_pbt_fused's learn step: "
+        f"{P} train policies, one chunk of a minibatch's C = {PBT_MINIBATCH} "
+        f"sequences each, T = {T}, F = {H} -> {4 * H}")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    fwd = results["lstm_sequence_proj_fwd_chunked"] = {"max_abs_err": 0.0}
+    bwd = results["lstm_sequence_proj_bwd_chunked"] = {"max_abs_err": 0.0}
+    bf16, f32 = torch.bfloat16, torch.float32
+    shuffled = [2, 0, 3, 2, 1, 0]      # policy 4 of 5 owns no chunk
+    for dtype, T_c, C, F, H_c, order, main_path in (
+            (bf16, T, PBT_MINIBATCH, H, H, list(range(P)), True),
+            (bf16, 5, 37, H, H, shuffled, False),
+            (bf16, 4, 37, 256, 128, shuffled, False),
+            (f32, 5, 37, H, H, shuffled, False)):
+        P_c = P if main_path else 5
+        B = len(order)
+        dname = str(dtype).split(".")[-1]
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, device="cuda", generator=gen)
+                    * scale).to(dtype)
+
+        N = B * C
+        args = [rnd(T_c, N, F),
+                (torch.rand(T_c, N, device="cuda", generator=gen) > 0.2)
+                .to(dtype),
+                rnd(P_c, F, 4 * H_c, scale=F ** -0.5),
+                rnd(P_c, H_c, 4 * H_c, scale=H_c ** -0.5),
+                rnd(P_c, 4 * H_c),
+                torch.tensor(order, dtype=torch.int32, device="cuda"),
+                rnd(N, H_c), rnd(N, H_c)]
+        x, keep, wi, wr, bias, idx, c0, h0 = args
+        probe = rnd(T_c, N, H_c)
+        (ys, cs), fpath = _routed(
+            LSTM_PROJ_FWD_CHUNKED, uses_tensor_cores(dtype, H_c),
+            lstm_sequence_proj_fwd_chunked, *args)
+        got, path = _routed(
+            LSTM_PROJ_BWD_CHUNKED, uses_tensor_cores(dtype, H_c),
+            lstm_sequence_proj_bwd_chunked, *args, ys, cs, probe)
+        tag = (f"[{T_c}, {B} x {C}, {F}->{4 * H_c}] P={P_c} {dname} chunks "
+               f"{order if not main_path else 'arange'} ({path})")
+        if main_path and not fpath == path == "tensor_core":
+            raise AssertionError(f"lstm_sequence_proj_*_chunked {tag}: the "
+                                 f"main path took the {fpath} / {path} "
+                                 f"routes")
+        want = lstm_sequence_proj_fwd_chunked_reference(*args)
+        tol = TOL[("fwd", dname)]
+        f_err = max(compare(f"lstm_sequence_proj_fwd_chunked {tag} ys", ys,
+                            want[0], **tol),
+                    compare(f"lstm_sequence_proj_fwd_chunked {tag} cs", cs,
+                            want[1], **tol))
+        leaves = [a.detach().clone().requires_grad_(i in (0, 2, 3, 4, 6, 7))
+                  for i, a in enumerate(args)]
+        diff = [leaves[i] for i in (0, 2, 3, 4, 6, 7)]
+
+        def plain_bwd():
+            out = lstm_sequence_proj_chunked_reference(*leaves)
+            return torch.autograd.grad(
+                (out.float() * probe.float()).sum(), diff)
+
+        tol = TOL[("bwd", dname)]
+        b_err = 0.0
+        for name, g, w in zip(("dx", "dwi", "dwr", "db", "dc0", "dh0"), got,
+                              plain_bwd()):
+            b_err = max(b_err, compare(
+                f"lstm_sequence_proj_bwd_chunked {name} {tag}", g, w, **tol))
+        dx, dwi, dwr, db, dc0, dh0 = got
+        # Row for row, the single-policy kernels on each chunk's rows.
+        sums, singles = {}, {}
+        for b, p in enumerate(order):
+            rows = slice(b * C, (b + 1) * C)
+            sub = (x[:, rows].contiguous(), keep[:, rows].contiguous(),
+                   wi[p], wr[p], bias[p], c0[rows], h0[rows])
+            y1, c_1 = lstm_sequence_proj_fwd(*sub)
+            one = lstm_sequence_proj_bwd(
+                *sub, *(t[:, rows].contiguous() for t in (ys, cs, probe)))
+            if not (torch.equal(y1, ys[:, rows]) and torch.equal(c_1, cs[:, rows])
+                    and torch.equal(one[0], dx[:, rows])
+                    and torch.equal(one[4], dc0[rows])
+                    and torch.equal(one[5], dh0[rows])):
+                raise AssertionError(f"lstm_sequence_proj_*_chunked {tag}: "
+                                     f"chunk {b}'s rows differ from the "
+                                     f"single-policy kernels'")
+            singles[p] = one
+            acc = sums.get(p, (0.0, 0.0, 0.0))
+            sums[p] = tuple(a + o.float() for a, o in zip(acc, one[1:4]))
+        log(f"  lstm_sequence_proj_*_chunked {tag}: every chunk's ys / cs "
+            f"and dx / dc0 / dh0 bitwise the single-policy kernels' on its "
+            f"rows ({B} calls each) ok")
+        for p in range(P_c):
+            for name, g in (("dwi", dwi[p]), ("dwr", dwr[p]), ("db", db[p])):
+                w = (sums[p][("dwi", "dwr", "db").index(name)] if p in sums
+                     else torch.zeros_like(g))
+                compare(f"lstm_sequence_proj_bwd_chunked {name}[{p}] {tag} "
+                        f"vs lstm_sequence_proj_bwd", g, w, **tol)
+                if p not in sums and g.any():
+                    raise AssertionError(f"lstm_sequence_proj_bwd_chunked "
+                                         f"{tag}: policy {p} owns no chunk "
+                                         f"and got a gradient")
+        again = lstm_sequence_proj_fwd_chunked(*args)
+        bitwise(f"lstm_sequence_proj_fwd_chunked {tag} over two calls",
+                torch.stack(again), torch.stack((ys, cs)))
+        again = lstm_sequence_proj_bwd_chunked(*args, ys, cs, probe)
+        for i, name in enumerate(("dx", "dwi", "dwr", "db", "dc0", "dh0")):
+            bitwise(f"lstm_sequence_proj_bwd_chunked {tag} {name} over two "
+                    f"calls", again[i], got[i])
+        # A policy of one chunk: its chunk alone gives the same gradients.
+        alone = sorted(p for p in set(order) if order.count(p) == 1)
+        for p in alone:
+            b = order.index(p)
+            rows = slice(b * C, (b + 1) * C)
+            one = lstm_sequence_proj_bwd_chunked(
+                *(t[:, rows].contiguous() for t in (x, keep)), wi, wr, bias,
+                idx[b:b + 1].contiguous(), c0[rows], h0[rows],
+                *(t[:, rows].contiguous() for t in (ys, cs, probe)))
+            if not all(torch.equal(one[i][p], got[i][p]) for i in (1, 2, 3)):
+                raise AssertionError(f"lstm_sequence_proj_bwd_chunked {tag}: "
+                                     f"policy {p}'s weight gradients differ "
+                                     f"from its chunk's alone")
+        log(f"  lstm_sequence_proj_bwd_chunked {tag}: dwi / dwr / db of "
+            f"policies {alone} bitwise their chunk's alone ok")
+        if not main_path:
+            bad = idx.clone()
+            bad[1], bad[3] = P_c, -1
+            yb, cb = lstm_sequence_proj_fwd_chunked(x, keep, wi, wr, bias,
+                                                    bad, c0, h0)
+            gb = lstm_sequence_proj_bwd_chunked(x, keep, wi, wr, bias, bad,
+                                                c0, h0, yb, cb, probe)
+            rows = _skipped_rows(B, C)
+            nan_rows = (bool(yb[:, rows].isnan().all())
+                        and bool(cb[:, rows].isnan().all())
+                        and bool(gb[0][:, rows].isnan().all())
+                        and bool(gb[4][rows].isnan().all())
+                        and bool(gb[5][rows].isnan().all()))
+            others = (torch.equal(yb[:, ~rows], ys[:, ~rows])
+                      and torch.equal(cb[:, ~rows], cs[:, ~rows])
+                      and torch.equal(gb[0][:, ~rows], dx[:, ~rows])
+                      and torch.equal(gb[4][~rows], dc0[~rows])
+                      and torch.equal(gb[5][~rows], dh0[~rows])
+                      and all(bool(torch.isfinite(gb[i]).all())
+                              for i in (1, 2, 3)))
+            if not (nan_rows and others):
+                raise AssertionError(f"lstm_sequence_proj_*_chunked {tag}: a "
+                                     f"chunk of index P or -1 was not "
+                                     f"skipped alone")
+            log(f"  lstm_sequence_proj_*_chunked {tag}: chunks of index P "
+                f"and -1 NaN and in no policy's dwi / dwr / db, the others "
+                f"unchanged ok")
+            continue
+        same = all(torch.equal(singles[p][i], got[i][p])
+                   for p in range(P_c) for i in (1, 2, 3))
+        log(f"  lstm_sequence_proj_bwd_chunked {tag}: dwi / dwr / db bitwise "
+            f"lstm_sequence_proj_bwd's a policy (64 divides C: the same "
+            f"boxes and splits): {'yes' if same else 'no'}")
+        if not same:
+            raise AssertionError(f"lstm_sequence_proj_bwd_chunked {tag}: 64 "
+                                 f"divides C, and a policy's dwi / dwr / db "
+                                 f"are not the single-policy pass's")
+        per_policy = [(x[:, b * C:(b + 1) * C].contiguous(),
+                       keep[:, b * C:(b + 1) * C].contiguous(), wi[p], wr[p],
+                       bias[p], c0[b * C:(b + 1) * C], h0[b * C:(b + 1) * C])
+                      for b, p in enumerate(order)]
+        per_states = [tuple(t[:, b * C:(b + 1) * C].contiguous()
+                            for t in (ys, cs, probe)) for b in range(B)]
+        f_ms = time_ms(lambda: lstm_sequence_proj_fwd_chunked(*args))
+        f_loop = time_ms(lambda: [lstm_sequence_proj_fwd(*a)
+                                  for a in per_policy])
+        f_plain = time_ms(lambda: lstm_sequence_proj_fwd_chunked_reference(
+            *args), reps=3, warmup=1)
+        b_ms = time_ms(lambda: lstm_sequence_proj_bwd_chunked(*args, ys, cs,
+                                                              probe))
+        b_loop = time_ms(lambda: [lstm_sequence_proj_bwd(*a, *s) for a, s in
+                                  zip(per_policy, per_states)])
+        b_plain = time_ms(plain_bwd, reps=3, warmup=1)
+        f_b, b_b = _chunked_proj_bounds(T_c, B, C, F, H_c, P_c,
+                                        x.element_size())
+        log(f"  lstm_sequence_proj_*_chunked {tag}: fwd kernel {f_ms:.4f} ms, "
+            f"{B} lstm_sequence_proj_fwd over the same rows {f_loop:.4f} ms, "
+            f"plain {f_plain:.3f} ms, bound {f_b['bound_ms']:.4f} ms "
+            f"({f_b['bound_by']}); bwd kernel {b_ms:.4f} ms, {B} "
+            f"lstm_sequence_proj_bwd {b_loop:.4f} ms, plain {b_plain:.3f} "
+            f"ms, bound {b_b['bound_ms']:.4f} ms ({b_b['bound_by']}); no "
+            f"library call (cuDNN's LSTM takes one weight a call and no "
+            f"keep mask)")
+        common = dict(library_ms=None, path=path, chunk=C, chunks=B,
+                      policies=P_c)
+        fwd.update(max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
+                   per_policy_ms=f_loop, **common, **f_b)
+        bwd.update(max_abs_err=b_err, ms=b_ms, plain_ms=b_plain,
+                   per_policy_ms=b_loop, dw_bitwise_single=same, **common,
+                   **b_b)
+
+
 def check_grouped_matmul_pbt(results):
     """grouped_matmul at the batched pass's shapes of headline_pbt's
     collect step (B chunks of C rows, 12 policies, bf16): the MLP's first
@@ -2669,6 +3067,8 @@ def kernel_phase():
     check_lstm_bwd_chunked(results)
     check_gru_chunked(results)
     check_gru_bwd_chunked(results)
+    check_policy_step_chunked(results)
+    check_lstm_proj_chunked(results)
     return results
 
 
@@ -3546,7 +3946,9 @@ TC_ROUTED = ("lstm_sequence_fwd", "lstm_sequence_bwd",
              "gru_sequence_fwd", "gru_sequence_bwd", "mha",
              "fused_policy_step", "lstm_sequence_fwd_chunked",
              "lstm_sequence_bwd_chunked", "gru_sequence_fwd_chunked",
-             "gru_sequence_bwd_chunked")
+             "gru_sequence_bwd_chunked", "fused_policy_step_chunked",
+             "lstm_sequence_proj_fwd_chunked",
+             "lstm_sequence_proj_bwd_chunked")
 
 
 def trainer_phase(card, name, build, per_update, trials, timed_updates,
@@ -3696,11 +4098,13 @@ PBT_TRAIN_AGENTS = 2560
 PBT_MINIBATCH = NUM_BPTT_CHUNKS * PBT_TRAIN_AGENTS // NUM_MINIBATCHES
 
 
-def _pbt_actor_critic(seed, rnn="lstm", critic="dense"):
+def _pbt_actor_critic(seed, rnn="lstm", critic="dense", fused=False):
     """The headline's MLP + LSTM in bf16 over the duel's 2 obs; with
     ``rnn="gru"`` GRU(256, 256, 1, bf16) in the LSTM's place, with
     ``critic`` "dreamer" or "hlgauss_two_part" that distributional critic
-    in the dense critic's place."""
+    in the dense critic's place, with ``fused`` the headline_fused tower
+    (``use_fused_step`` and ``fuse_input_proj``, as
+    ``_small_actor_critic(fused=True)`` builds it)."""
     import torch
     from madrona_learn_tpu_torch.config import DiscreteActionsConfig
     from madrona_learn_tpu_torch.models import (
@@ -3711,8 +4115,10 @@ def _pbt_actor_critic(seed, rnn="lstm", critic="dense"):
     dtype = torch.bfloat16
     gen = torch.Generator().manual_seed(seed)
     net = MLP(2, CHANNELS, 2, dtype, generator=gen)
-    recurrence = {"lstm": LSTM, "gru": GRU}[rnn](CHANNELS, CHANNELS, 1, dtype,
-                                                generator=gen)
+    recurrence = (LSTM(CHANNELS, CHANNELS, 1, dtype, generator=gen,
+                       fuse_input_proj=True) if fused else
+                  {"lstm": LSTM, "gru": GRU}[rnn](CHANNELS, CHANNELS, 1,
+                                                  dtype, generator=gen))
     actor = DictActor({"move": DenseLayerDiscreteActor(
         DiscreteActionsConfig(actions_num_buckets=[5]), CHANNELS, dtype,
         generator=gen)})
@@ -3724,7 +4130,8 @@ def _pbt_actor_critic(seed, rnn="lstm", critic="dense"):
     return ActorCritic(
         backbone=BackboneShared(
             prefix=lambda obs: torch.cat([obs["time"], obs["acc"]], -1),
-            encoder=RecurrentBackboneEncoder(net=net, rnn=recurrence)),
+            encoder=RecurrentBackboneEncoder(net=net, rnn=recurrence,
+                                             use_fused_step=fused)),
         actor=actor, critic=critics[critic]())
 
 
@@ -5358,6 +5765,7 @@ def _chunked_digests(digest):
     out where the checkout has no chunk-indexed GRU kernels."""
     import torch
     import madrona_learn_tpu_torch.ops.cuda.gru as gru
+    import madrona_learn_tpu_torch.ops.cuda.lstm as lstm
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
         lstm_sequence_bwd_chunked, lstm_sequence_fwd_chunked)
 
@@ -5388,7 +5796,49 @@ def _chunked_digests(digest):
             [gru.gru_sequence_fwd_chunked(*step)])
         out["gru_sequence_bwd_chunked"] = digest(
             gru.gru_sequence_bwd_chunked(*learn, ys, dys))
+    if hasattr(lstm, "lstm_sequence_proj_fwd_chunked"):
+        out.update(_fused_chunked_digests(digest))
     return out
+
+
+def _fused_chunked_digests(digest):
+    """The fused trunk's chunk-indexed kernels' digests, from a generator
+    of their own: ``fused_policy_step_chunked`` at headline_pbt_fused's
+    collect step, the projection instances at its learn step."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.lstm import (
+        lstm_sequence_proj_bwd_chunked, lstm_sequence_proj_fwd_chunked)
+    from madrona_learn_tpu_torch.ops.cuda.policy_step import (
+        fused_policy_step_chunked)
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    P, C, B = _pbt_chunk_geometry()
+    H, T, bf16 = CHANNELS, STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, torch.bfloat16
+    N = PBT_TRAIN * PBT_MINIBATCH
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(bf16)
+
+    x, mlp, wi, wr, bias, idx, c, h = _chunked_step_inputs(
+        gen, B, C, 2, H, 2, P, bf16)
+    feats, (c1, h1) = fused_policy_step_chunked(x, mlp, wi, wr, bias, idx, c,
+                                                h)
+    learn = (rnd(T, N, H), (torch.rand(T, N, device="cuda", generator=gen)
+                            > 0.2).to(bf16),
+             rnd(PBT_TRAIN, H, 4 * H, scale=H ** -0.5),
+             rnd(PBT_TRAIN, H, 4 * H, scale=H ** -0.5),
+             rnd(PBT_TRAIN, 4 * H),
+             torch.arange(PBT_TRAIN, dtype=torch.int32, device="cuda"),
+             rnd(N, H), rnd(N, H))
+    ys, cs, dys = (rnd(T, N, H) for _ in range(3))
+    return {
+        "fused_policy_step_chunked": digest([feats, c1, h1]),
+        "lstm_sequence_proj_fwd_chunked": digest(
+            lstm_sequence_proj_fwd_chunked(*learn)),
+        "lstm_sequence_proj_bwd_chunked": digest(
+            lstm_sequence_proj_bwd_chunked(*learn, ys, cs, dys)),
+    }
 
 
 def _ln_bwd_inputs(gen, N=131072, D=256):
@@ -5560,11 +6010,14 @@ def main():
         f"GiB on {card}")
     launches_by_path["checkpoint_eval"] = checkpoint_eval_phase(card,
                                                                 r.pop("mgr"))
-    # headline_pbt's population with the GRU, and with each
-    # distributional critic: one batched pass a rollout step (five
-    # products a step, four for the bootstrap; the two-part critic has two
-    # heads) and one batched learn step a minibatch, on the chunk-indexed
-    # recurrence kernels.
+    # headline_pbt's population with the GRU, with each distributional
+    # critic and with the fused trunk: one batched pass a rollout step
+    # (five products a step, four for the bootstrap; the two-part critic
+    # has two heads; the fused trunk's step is one fused_policy_step_chunked
+    # launch, its heads two products a step and the critic's one for the
+    # bootstrap) and one batched learn step a minibatch, on the
+    # chunk-indexed recurrence kernels (the fused trunk's on the projection
+    # kernels').
     steps = STEPS_PER_UPDATE + 1 + NUM_MINIBATCHES
     pbt_lstm = {"gae": 1, "lstm_sequence_fwd_chunked": steps,
                 "lstm_sequence_bwd_chunked": NUM_MINIBATCHES,
@@ -5578,7 +6031,12 @@ def main():
              False),
             ("headline_pbt_hlgauss", dict(critic="hlgauss_two_part"),
              dict(pbt_lstm, grouped_matmul=6 * STEPS_PER_UPDATE + 5), 1,
-             False)):
+             False),
+            ("headline_pbt_fused", dict(fused=True),
+             {"gae": 1, "fused_policy_step_chunked": STEPS_PER_UPDATE + 1,
+              "lstm_sequence_proj_fwd_chunked": NUM_MINIBATCHES,
+              "lstm_sequence_proj_bwd_chunked": NUM_MINIBATCHES,
+              "grouped_matmul": 2 * STEPS_PER_UPDATE + 1}, 1, True)):
         launches, r = pbt_variant_phase(card, name, model, per_update, timed,
                                         collect_ab)
         launches_by_path[name] = launches

@@ -136,6 +136,19 @@
 // they are the same bitwise, and where 64 divides the chunk they are the
 // single-policy backward's over the same rows.
 //
+// The projection kernels have the same two instances
+// (lstm_sequence_proj_{fwd,bwd}_chunked, both paths), for a population
+// whose LSTM computes its input projection in the kernel (fuse_input_proj):
+// JAX vmaps lstm_sequence_proj's pallas_calls with algo.update over the
+// train policies. Wi joins the stacks ([P, F, 4H], and [P, 4H, F] of Wi^T
+// for the backward, one transposed copy a call), read like Wr; the
+// backward's dx is a row's own, and each policy's dWi / dWr / db are its
+// chunks' partials summed in chunk order: on tensor cores one pass over
+// [x | h_in] of each chunk's [T * chunks] slices gives [F + H, 4H] a split,
+// as the single-policy pass gives it over all rows. Where 64 divides the
+// chunk, a policy's weight gradients are the single-policy backward's over
+// its rows bitwise.
+//
 // Bound on the H100: the forward is a chain of [BN, H] x [H, 4H] products
 // (and [BN, F] x [F, 4H]) with a dependency between steps; its memory
 // traffic is one read of x or x_proj and one write of ys/cs per step, 0.12
@@ -260,14 +273,17 @@ __global__ void __launch_bounds__(kThreads)
 
 // Projection forward: as lstm_fwd_kernel with the gate pre-activations
 // round(x_t . Wi) + h . Wr + b. Shared memory: h_s [kRows][H] then
-// x_s [kRows][F].
+// x_s [kRows][F]. With chunks (lstm_sequence_proj_fwd_chunked), the rows
+// and policy of fwd_rows and that policy's Wi, Wr and bias at an offset
+// into the [P, F, 4H], [P, H, 4H] and [P, 4H] stacks.
 template <typename T, int H>
 __global__ void __launch_bounds__(kThreads) lstm_proj_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ keep,
     const T* __restrict__ wi, const T* __restrict__ wr,
     const T* __restrict__ bias, const T* __restrict__ c0,
     const T* __restrict__ h0, T* __restrict__ ys, T* __restrict__ cs,
-    int steps, int n_rows, int f_in) {
+    int steps, int n_rows, int f_in, const int* __restrict__ chunk_policy,
+    int chunk, int num_policies) {
   constexpr int UPT = H / kUnitGroups;
   constexpr int RPT = kRowsPerThread;
   constexpr int G4 = 4 * H;
@@ -275,11 +291,21 @@ __global__ void __launch_bounds__(kThreads) lstm_proj_fwd_kernel(
   float* h_s = smem;
   float* x_s = smem + kRows * H;
 
+  const FwdRows rows = fwd_rows(chunk_policy, chunk, kRows, n_rows);
+  if (rows.policy < 0 || rows.policy >= num_policies) {
+    fill_nan_rows(ys, cs, steps, n_rows, H, rows, kRows);
+    return;
+  }
+  wi += static_cast<size_t>(rows.policy) * f_in * G4;
+  wr += static_cast<size_t>(rows.policy) * H * G4;
+  bias += static_cast<size_t>(rows.policy) * G4;
+  const int row_end = rows.end;
+
   const int ug = threadIdx.x % kUnitGroups;
   const int rg = threadIdx.x / kUnitGroups;
   const int u0 = ug * UPT;
   const int row_base = rg * RPT;
-  const int block_row = blockIdx.x * kRows;
+  const int block_row = rows.first;
 
   float b[4][UPT];
 #pragma unroll
@@ -294,14 +320,14 @@ __global__ void __launch_bounds__(kThreads) lstm_proj_fwd_kernel(
 #pragma unroll
     for (int j = 0; j < UPT; ++j) {
       const size_t idx = static_cast<size_t>(n) * H + u0 + j;
-      c[i][j] = n < n_rows ? to_f(c0[idx]) : 0.0f;
-      h_s[(row_base + i) * H + u0 + j] = n < n_rows ? to_f(h0[idx]) : 0.0f;
+      c[i][j] = n < row_end ? to_f(c0[idx]) : 0.0f;
+      h_s[(row_base + i) * H + u0 + j] = n < row_end ? to_f(h0[idx]) : 0.0f;
     }
   }
 
   for (int t = 0; t < steps; ++t) {
     load_row_tile<T>(x_s, x + static_cast<size_t>(t) * n_rows * f_in,
-                     block_row, n_rows, f_in);
+                     block_row, row_end, f_in);
     __syncthreads();  // x_s and h_s of this step are complete
 
     float acc[RPT][4][UPT];
@@ -320,7 +346,7 @@ __global__ void __launch_bounds__(kThreads) lstm_proj_fwd_kernel(
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int n = block_row + row_base + i;
-      if (n >= n_rows) continue;
+      if (n >= row_end) continue;
       const size_t row = static_cast<size_t>(t) * n_rows + n;
       const bool kept = to_f(keep[row]) > 0.5f;
 #pragma unroll
@@ -352,24 +378,26 @@ __global__ void __launch_bounds__(kThreads) lstm_proj_fwd_kernel(
 
 // The carry into step t of rows row_base.. of this block: the cleared
 // state after step t-1, or the unmasked initial state at t == 0. h_in goes
-// to hin_s, c_in to registers.
+// to hin_s, c_in to registers. Rows from row_end on are not the block's
+// (past N, or past its chunk); n_rows strides the [T, N] tensors.
 template <typename T, int H, int RPT, int UPT>
 __device__ __forceinline__ void load_carry_in(
     const T* __restrict__ keep, const T* __restrict__ ys,
     const T* __restrict__ cs, const T* __restrict__ h0,
-    const T* __restrict__ c0, int t, int n_rows, int block_row, int row_base,
-    int u0, float* hin_s, float (&c_in)[RPT][UPT], bool (&keep_prev)[RPT]) {
+    const T* __restrict__ c0, int t, int n_rows, int row_end, int block_row,
+    int row_base, int u0, float* hin_s, float (&c_in)[RPT][UPT],
+    bool (&keep_prev)[RPT]) {
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int n = block_row + row_base + i;
     keep_prev[i] = false;
-    if (n < n_rows && t > 0)
+    if (n < row_end && t > 0)
       keep_prev[i] =
           to_f(keep[static_cast<size_t>(t - 1) * n_rows + n]) > 0.5f;
 #pragma unroll
     for (int j = 0; j < UPT; ++j) {
       float h_v = 0.0f, c_v = 0.0f;
-      if (n < n_rows) {
+      if (n < row_end) {
         if (t == 0) {
           const size_t idx = static_cast<size_t>(n) * H + u0 + j;
           h_v = to_f(h0[idx]);
@@ -390,21 +418,21 @@ __device__ __forceinline__ void load_carry_in(
 // dgates of step t from the recomputed pre-activations pre (without the
 // bias) and the carried cotangents, rounded to the storage type. Written to
 // dg (global, [T, N, 4H]) and dg_s (shared, [kRows][4H]); dc_prev gets
-// dc_total * f. Rows past n_rows get zero dgates.
+// dc_total * f. Rows from row_end on get zero dgates.
 template <typename T, int H, int RPT, int UPT>
 __device__ __forceinline__ void gate_cotangents(
     const float (&pre)[RPT][4][UPT], const float (&b)[4][UPT],
     const float (&c_in)[RPT][UPT], const float (&dh)[RPT][UPT],
     const float (&dc)[RPT][UPT], const T* __restrict__ cs,
     const T* __restrict__ dys, T* __restrict__ dg, float* dg_s, int t,
-    int n_rows, int block_row, int row_base, int u0,
+    int n_rows, int row_end, int block_row, int row_base, int u0,
     float (&dc_prev)[RPT][UPT]) {
   constexpr int G4 = 4 * H;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int n = block_row + row_base + i;
     const int r = row_base + i;
-    if (n >= n_rows) {
+    if (n >= row_end) {
 #pragma unroll
       for (int j = 0; j < UPT; ++j) {
 #pragma unroll
@@ -625,7 +653,9 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
 }
 
 // Projection backward. Shared memory: hin_s [kRows][H], dg_s [kRows][4H],
-// x_s [kRows][F].
+// x_s [kRows][F]. With chunks (lstm_sequence_proj_bwd_chunked), the rows
+// and policy of fwd_rows, and that policy's Wi, Wi^T, Wr, Wr^T and bias at
+// an offset into their [P, ...] stacks.
 template <typename T, int H>
 __global__ void __launch_bounds__(kThreads) lstm_proj_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ keep,
@@ -635,7 +665,8 @@ __global__ void __launch_bounds__(kThreads) lstm_proj_bwd_kernel(
     const T* __restrict__ h0, const T* __restrict__ ys,
     const T* __restrict__ cs, const T* __restrict__ dys, T* __restrict__ dx,
     T* __restrict__ dg, T* __restrict__ dh0, T* __restrict__ dc0, int steps,
-    int n_rows, int f_in) {
+    int n_rows, int f_in, const int* __restrict__ chunk_policy, int chunk,
+    int num_policies) {
   constexpr int UPT = H / kUnitGroups;
   constexpr int RPT = kRowsPerThread;
   constexpr int G4 = 4 * H;
@@ -645,11 +676,26 @@ __global__ void __launch_bounds__(kThreads) lstm_proj_bwd_kernel(
   float* dg_s = smem + kRows * H;
   float* x_s = smem + kRows * 5 * H;
 
+  const FwdRows rows = fwd_rows(chunk_policy, chunk, kRows, n_rows);
+  if (rows.policy < 0 || rows.policy >= num_policies) {
+    fill_nan(dx, steps, n_rows, f_in, rows, kRows);
+    fill_nan(dh0, 1, n_rows, H, rows, kRows);
+    fill_nan(dc0, 1, n_rows, H, rows, kRows);
+    return;
+  }
+  const size_t pol = rows.policy;
+  wi += pol * f_in * G4;
+  wi_t += pol * G4 * f_in;
+  wr += pol * H * G4;
+  wr_t += pol * G4 * H;
+  bias += pol * G4;
+  const int row_end = rows.end;
+
   const int ug = threadIdx.x % kUnitGroups;
   const int rg = threadIdx.x / kUnitGroups;
   const int u0 = ug * UPT;
   const int row_base = rg * RPT;
-  const int block_row = blockIdx.x * kRows;
+  const int block_row = rows.first;
 
   float b[4][UPT];
 #pragma unroll
@@ -670,10 +716,11 @@ __global__ void __launch_bounds__(kThreads) lstm_proj_bwd_kernel(
   for (int t = steps - 1; t >= 0; --t) {
     float c_in[RPT][UPT];
     bool keep_prev[RPT];
-    load_carry_in<T, H, RPT, UPT>(keep, ys, cs, h0, c0, t, n_rows, block_row,
-                                  row_base, u0, hin_s, c_in, keep_prev);
+    load_carry_in<T, H, RPT, UPT>(keep, ys, cs, h0, c0, t, n_rows, row_end,
+                                  block_row, row_base, u0, hin_s, c_in,
+                                  keep_prev);
     load_row_tile<T>(x_s, x + static_cast<size_t>(t) * n_rows * f_in,
-                     block_row, n_rows, f_in);
+                     block_row, row_end, f_in);
     __syncthreads();
 
     // Pre-activations round(x . Wi) + h . Wr, as the forward computes them.
@@ -690,8 +737,8 @@ __global__ void __launch_bounds__(kThreads) lstm_proj_bwd_kernel(
 
     float dc_prev[RPT][UPT];
     gate_cotangents<T, H, RPT, UPT>(acc, b, c_in, dh, dc, cs, dys, dg, dg_s,
-                                    t, n_rows, block_row, row_base, u0,
-                                    dc_prev);
+                                    t, n_rows, row_end, block_row, row_base,
+                                    u0, dc_prev);
     __syncthreads();
 
     float dh_prev[RPT][1][UPT];
@@ -707,7 +754,7 @@ __global__ void __launch_bounds__(kThreads) lstm_proj_bwd_kernel(
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         const int n = block_row + row_base + i;
-        if (n >= n_rows) continue;
+        if (n >= row_end) continue;
         T* out = dx + (static_cast<size_t>(t) * n_rows + n) * f_in + f0 +
                  ug * 2;
         out[0] = from_f<T>(dxa[i][0][0]);
@@ -716,7 +763,8 @@ __global__ void __launch_bounds__(kThreads) lstm_proj_bwd_kernel(
     }
 
     carry_cotangents<T, H, RPT, UPT>(dh_prev, dc_prev, keep_prev, dh0, dc0, t,
-                                     n_rows, block_row, row_base, u0, dh, dc);
+                                     row_end, block_row, row_base, u0, dh,
+                                     dc);
     // As in lstm_bwd_kernel: hin_s and x_s are rewritten before the next
     // first barrier and read by no thread after the second; dg_s is
     // rewritten only after the next first barrier.
@@ -806,24 +854,33 @@ int launch_bwd(const void* xp, const void* keep, const void* wr,
                           chunk, num_policies);
 }
 
+// chunk_policy null: one policy; else the chunk-indexed instance
+// (lstm_sequence_proj_fwd_chunked, fwd_rows).
 template <typename T, int H>
 int launch_proj_fwd(const void* x, const void* keep, const void* wi,
                     const void* wr, const void* bias, const void* c0,
                     const void* h0, void* ys, void* cs, int steps,
-                    int n_rows, int f_in, cudaStream_t stream) {
+                    int n_rows, int f_in, cudaStream_t stream,
+                    const void* chunk_policy = nullptr, int num_chunks = 0,
+                    int chunk = 0, int num_policies = 1) {
   const int smem = kRows * (H + f_in) * static_cast<int>(sizeof(float));
   int err = set_smem(lstm_proj_fwd_kernel<T, H>, smem);
   if (err != 0) return err;
-  const int blocks = (n_rows + kRows - 1) / kRows;
+  const int blocks =
+      fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, kRows);
   lstm_proj_fwd_kernel<T, H><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(keep),
       static_cast<const T*>(wi), static_cast<const T*>(wr),
       static_cast<const T*>(bias), static_cast<const T*>(c0),
       static_cast<const T*>(h0), static_cast<T*>(ys), static_cast<T*>(cs),
-      steps, n_rows, f_in);
+      steps, n_rows, f_in, static_cast<const int*>(chunk_policy), chunk,
+      num_policies);
   return static_cast<int>(cudaGetLastError());
 }
 
+// chunk_policy null: one policy; else the chunk-indexed instance
+// (lstm_sequence_proj_bwd_chunked), `splits` weight-gradient partials a
+// chunk over its own T * chunk rows, summed by policy in chunk order.
 template <typename T, int H>
 int launch_proj_bwd(const void* x, const void* keep, const void* wi,
                     const void* wi_t, const void* wr, const void* wr_t,
@@ -832,11 +889,13 @@ int launch_proj_bwd(const void* x, const void* keep, const void* wi,
                     void* dx, void* dg, void* dh0, void* dc0, void* part_wi,
                     void* part_w, void* part_b, void* dwi, void* dwr,
                     void* db, int steps, int n_rows, int f_in, int splits,
-                    cudaStream_t stream) {
+                    cudaStream_t stream, const void* chunk_policy = nullptr,
+                    int num_chunks = 1, int chunk = 0, int num_policies = 1) {
   const int smem = kRows * (5 * H + f_in) * static_cast<int>(sizeof(float));
   int err = set_smem(lstm_proj_bwd_kernel<T, H>, smem);
   if (err != 0) return err;
-  const int blocks = (n_rows + kRows - 1) / kRows;
+  const int blocks =
+      fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, kRows);
   lstm_proj_bwd_kernel<T, H><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(keep),
       static_cast<const T*>(wi), static_cast<const T*>(wi_t),
@@ -845,22 +904,28 @@ int launch_proj_bwd(const void* x, const void* keep, const void* wi,
       static_cast<const T*>(h0), static_cast<const T*>(ys),
       static_cast<const T*>(cs), static_cast<const T*>(dys),
       static_cast<T*>(dx), static_cast<T*>(dg), static_cast<T*>(dh0),
-      static_cast<T*>(dc0), steps, n_rows, f_in);
+      static_cast<T*>(dc0), steps, n_rows, f_in,
+      static_cast<const int*>(chunk_policy), chunk, num_policies);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
 
   err = launch_dwr<T, H>(dg, ys, keep, h0, part_w, part_b, dwr, db, steps,
-                         n_rows, splits, stream);
+                         n_rows, splits, stream, chunk_policy, num_chunks,
+                         chunk, num_policies);
   if (err != 0) return err;
-  const long long total = static_cast<long long>(steps) * n_rows;
+  if (chunk_policy == nullptr) chunk = n_rows;
+  const long long total = static_cast<long long>(steps) * chunk;
   const int rows_per_split = static_cast<int>((total + splits - 1) / splits);
-  const dim3 grid(4 * H / kTileJ, f_in / kTileI, splits);
+  const dim3 grid(4 * H / kTileJ, f_in / kTileI, num_chunks * splits);
   weight_grad_partial_kernel<T, false><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(dg), static_cast<const T*>(x), nullptr, nullptr,
       static_cast<float*>(part_wi), nullptr, steps, n_rows, f_in, 4 * H,
-      rows_per_split, n_rows, splits);
+      rows_per_split, chunk, splits);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
+  if (chunk_policy != nullptr)
+    return sum_by_policy<T>(part_wi, dwi, chunk_policy, num_chunks, splits,
+                            num_policies, f_in * 4 * H, stream);
   return sum_splits<T>(part_wi, dwi, splits, f_in * 4 * H, stream);
 }
 
@@ -993,12 +1058,13 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
   const uint32_t cin_s = dys_s + L::kTileBytes;
 
   // The block's rows and policy (fwd_rows, as the chunked forward's); a
-  // chunk of no policy is skipped before any barrier. The maps span the
-  // [P, ...] stacks (P = 1 without chunks); the policy is the third
-  // coordinate.
+  // chunk of no policy is skipped before any barrier (its dgates NaN, and
+  // with the projection its dx). The maps span the [P, ...] stacks (P = 1
+  // without chunks); the policy is the third coordinate.
   const FwdRows rows = fwd_rows(chunk_policy, chunk, R, n_rows);
   if (rows.policy < 0 || rows.policy >= num_policies) {
     fill_nan_bwd_rows(dg, dh0, dc0, steps, n_rows, H, rows, R);
+    if constexpr (kProj) fill_nan(dx, steps, n_rows, f_in, rows, R);
     return;
   }
   bias += static_cast<size_t>(rows.policy) * G4;
@@ -1310,16 +1376,17 @@ int launch_bwd_tc(int phases, const void* x, const void* keep,
   using L = TcBwd<H, R>;
   const int blocks = fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, R);
   const int total_rows = steps * n_rows;
-  // Without the projection, wit / wi alias Wr^T / Wr and are never read.
-  const int wi_stack = kProj ? 1 : num_policies;
+  // Every map spans the [P, ...] stack (P = 1 without chunks: Wi^T
+  // [P, 4H, F] and Wi [P, F, 4H] with the projection). Without the
+  // projection, wit / wi alias Wr^T / Wr and are never read.
   if (phases & 1) {
     CUtensorMap wit_map, wrt_map, wr_map, wi_map;
     if (!make_tma_map(&wrt_map, wr_t, H, 4 * H, num_policies, kTcK, H) ||
         !make_tma_map(&wr_map, wr, 4 * H, H, num_policies, kTcK, H) ||
         !make_tma_map(&wit_map, kProj ? wi_t : wr_t, kProj ? f_in : H, 4 * H,
-                      wi_stack, kTcK, H) ||
+                      num_policies, kTcK, H) ||
         !make_tma_map(&wi_map, kProj ? wi : wr, 4 * H, kProj ? f_in : H,
-                      wi_stack, kTcK, H))
+                      num_policies, kTcK, H))
       return static_cast<int>(cudaErrorInvalidValue);
     int err = set_smem(lstm_bwd_tc_kernel<H, R, kProj>, L::kSmem);
     if (err != 0) return err;
@@ -1338,15 +1405,19 @@ int launch_bwd_tc(int phases, const void* x, const void* keep,
     if (err != 0) return err;
   }
   if ((phases & 2) && chunk_policy != nullptr) {
-    // dWr of each policy from its chunks' own splits of boxes (never a box
-    // of two chunks: weight_grad_tc.cuh), db from its chunks' blocks.
+    // dW of each policy ([F + H, 4H], dWi over dWr, with the projection;
+    // dWr [H, 4H] without) from its chunks' own splits of boxes (never a
+    // box of two chunks: weight_grad_tc.cuh), db from its chunks' blocks.
     int used = 0;
-    int err = weight_grad_tc_partials(hin, H, nullptr, H, dg, 4 * H, steps,
-                                      chunk, num_chunks, splits, part_w,
-                                      &used, stream);
+    int err = kProj ? weight_grad_tc_partials(x, f_in, hin, f_in + H, dg,
+                                              4 * H, steps, chunk, num_chunks,
+                                              splits, part_w, &used, stream)
+                    : weight_grad_tc_partials(hin, H, nullptr, H, dg, 4 * H,
+                                              steps, chunk, num_chunks,
+                                              splits, part_w, &used, stream);
     if (err != 0) return err;
     err = sum_by_policy<bf16>(part_w, dw, chunk_policy, num_chunks, used,
-                              num_policies, H * 4 * H, stream);
+                              num_policies, (f_in + H) * 4 * H, stream);
     if (err != 0) return err;
     return sum_by_policy<bf16>(part_b, db, chunk_policy, num_chunks,
                                blocks / num_chunks, num_policies, 4 * H,
@@ -1596,7 +1667,8 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
 
 // chunk_policy null: one policy (lstm_sequence_fwd, _proj_fwd); else the
 // chunk-indexed instance over [num_policies, H, 4H] and [num_policies, 4H]
-// stacks (no projection), one TMA map over the whole stack.
+// stacks (and [num_policies, F, 4H] of Wi with the projection), one TMA map
+// over each whole stack.
 template <int H, bool kProj>
 int launch_fwd_tc(const void* x, const void* keep, const void* wi,
                   const void* wr, const void* bias, const void* c0,
@@ -1609,7 +1681,7 @@ int launch_fwd_tc(const void* x, const void* keep, const void* wi,
   CUtensorMap wi_map, wr_map;
   if (!make_tma_map(&wr_map, wr, 4 * H, H, num_policies, 64, kTcK) ||
       !make_tma_map(&wi_map, kProj ? wi : wr, 4 * H, kProj ? f_in : H,
-                    kProj ? 1 : num_policies, 64, kTcK))
+                    num_policies, 64, kTcK))
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = set_smem(lstm_fwd_tc_kernel<H, R, kProj>, L::kSmem);
   if (err != 0) return err;
@@ -1840,6 +1912,100 @@ extern "C" int mlt_lstm_bwd_chunked(
                    chunk_policy, num_chunks, chunk, num_policies)
   MLT_DISPATCH_F32(MLT_BWD_CHUNKED);
 #undef MLT_BWD_CHUNKED
+}
+
+// lstm_sequence_proj_fwd_chunked: the projection forward over [num_chunks *
+// chunk] rows, chunk c with the weights of policy chunk_policy[c] of the
+// [num_policies, F, 4H] / [num_policies, H, 4H] / [num_policies, 4H]
+// stacks wi, wr and bias (a chunk of no policy is skipped, its rows NaN).
+// tensor_core 1 takes the bf16 tensor-core kernel, 0 the float32
+// CUDA-core one. Returns a cudaError_t, or -1 for arguments without an
+// instantiation.
+extern "C" int mlt_lstm_proj_fwd_chunked(
+    int tensor_core, int dtype, int hidden, int f_in, const void* x,
+    const void* keep, const void* wi, const void* wr, const void* bias,
+    const void* chunk_policy, const void* c0, const void* h0, void* ys,
+    void* cs, int steps, int num_chunks, int chunk, int num_policies,
+    void* stream) {
+  const long long n = static_cast<long long>(num_chunks) * chunk;
+  if (!proj_width_ok(hidden, f_in) || num_chunks <= 0 || chunk <= 0 ||
+      num_policies <= 0 || n * steps > 0x7fffffffLL)
+    return -1;
+  const int n_rows = static_cast<int>(n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_core) {
+    if (dtype != 1) return -1;
+#define MLT_PROJ_FWD_CHUNKED_TC(H)                                          \
+  if (hidden == H)                                                         \
+    return launch_fwd_tc<H, true>(x, keep, wi, wr, bias, c0, h0, ys, cs,   \
+                                  steps, n_rows, f_in, s, chunk_policy,    \
+                                  num_chunks, chunk, num_policies)
+    MLT_PROJ_FWD_CHUNKED_TC(128);
+    MLT_PROJ_FWD_CHUNKED_TC(256);
+#undef MLT_PROJ_FWD_CHUNKED_TC
+    return -1;
+  }
+#define MLT_PROJ_FWD_CHUNKED(T, H)                                         \
+  launch_proj_fwd<T, H>(x, keep, wi, wr, bias, c0, h0, ys, cs, steps,      \
+                        n_rows, f_in, s, chunk_policy, num_chunks, chunk,  \
+                        num_policies)
+  MLT_DISPATCH_F32(MLT_PROJ_FWD_CHUNKED);
+#undef MLT_PROJ_FWD_CHUNKED
+}
+
+// lstm_sequence_proj_bwd_chunked: the backward of
+// lstm_sequence_proj_fwd_chunked over [num_chunks * chunk] rows, chunk c
+// with the weights of policy chunk_policy[c] of the stacks wi [P, F, 4H],
+// wi_t [P, 4H, F] (Wi^T a policy), wr [P, H, 4H], wr_t [P, 4H, H] and bias
+// [P, 4H]: dx, dh0, dc0 a row, each row's bitwise lstm_sequence_proj_bwd's
+// with its policy's weights (a chunk of no policy: NaN rows), and a
+// policy's weight gradients summed over its chunks' `splits` partials each
+// (0 for a policy without a chunk). dg is the rounded dgates' [T, N, 4H]
+// scratch. tensor_core 1 takes the bf16 tensor-core recurrence and
+// weight-gradient pass: hin [T, N, H] scratch, part_w [num_chunks *
+// splits, F + H, 4H], part_b [num_chunks * ceil(chunk / 32), 4H], and dwr
+// receives [P, F + H, 4H], dWi over dWr (dwi and part_wi unused); 0 the
+// float32 CUDA-core kernels: hin unused, part_wi [num_chunks * splits, F,
+// 4H], part_w [.., H, 4H] and part_b [.., 4H], dwi [P, F, 4H] and dwr
+// [P, H, 4H]. Returns a cudaError_t, or -1 for arguments without an
+// instantiation.
+extern "C" int mlt_lstm_proj_bwd_chunked(
+    int tensor_core, int dtype, int hidden, int f_in, const void* x,
+    const void* keep, const void* wi, const void* wi_t, const void* wr,
+    const void* wr_t, const void* bias, const void* chunk_policy,
+    const void* c0, const void* h0, const void* ys, const void* cs,
+    const void* dys, void* dx, void* dg, void* hin, void* dh0, void* dc0,
+    void* part_wi, void* part_w, void* part_b, void* dwi, void* dwr,
+    void* db, int steps, int num_chunks, int chunk, int num_policies,
+    int splits, void* stream) {
+  const long long n = static_cast<long long>(num_chunks) * chunk;
+  if (!proj_width_ok(hidden, f_in) || num_chunks <= 0 || chunk <= 0 ||
+      num_policies <= 0 || splits <= 0 || num_policies > 65535 ||
+      n * steps > 0x7fffffffLL)
+    return -1;
+  const int n_rows = static_cast<int>(n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_core) {
+    if (dtype != 1) return -1;
+#define MLT_PROJ_BWD_CHUNKED_TC(H)                                          \
+  if (hidden == H)                                                         \
+    return launch_bwd_tc<H, true>(3, x, keep, wi, wi_t, wr, wr_t, bias, c0, \
+                                  h0, ys, cs, dys, dx, dg, hin, dh0, dc0,   \
+                                  part_w, part_b, dwr, db, steps, n_rows,   \
+                                  f_in, splits, s, chunk_policy,            \
+                                  num_chunks, chunk, num_policies)
+    MLT_PROJ_BWD_CHUNKED_TC(128);
+    MLT_PROJ_BWD_CHUNKED_TC(256);
+#undef MLT_PROJ_BWD_CHUNKED_TC
+    return -1;
+  }
+#define MLT_PROJ_BWD_CHUNKED(T, H)                                         \
+  launch_proj_bwd<T, H>(x, keep, wi, wi_t, wr, wr_t, bias, c0, h0, ys, cs, \
+                        dys, dx, dg, dh0, dc0, part_wi, part_w, part_b,    \
+                        dwi, dwr, db, steps, n_rows, f_in, splits, s,      \
+                        chunk_policy, num_chunks, chunk, num_policies)
+  MLT_DISPATCH_F32(MLT_PROJ_BWD_CHUNKED);
+#undef MLT_PROJ_BWD_CHUNKED
 }
 
 #undef MLT_DISPATCH_F32_F16

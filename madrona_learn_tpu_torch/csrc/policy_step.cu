@@ -61,6 +61,24 @@
 // - h' and c' go back over h and c in shared memory, then out by 16-byte
 //   stores.
 //
+// The chunk-indexed instance of both kernels (fused_policy_step_chunked)
+// is the rollout step of a population in the policy-chunk layout: JAX vmaps
+// the fused step's pallas_call over [B, C] chunks of one policy each
+// (madrona_learn_tpu/rollouts.py:580, models/actor_critic.py:229). The rows
+// are [B][C], a block owns one row tile of one chunk (fwd_rows,
+// chunk_rows.cuh: no block straddles two policies, and C need not be a
+// multiple of the block's rows), and reads its policy's slice of the
+// [P, ...] stacks: the f32 LayerNorm affines and the bias by a pointer
+// offset, the weights by a pointer offset on CUDA cores and by the third
+// coordinate of one TMA map over each [P, K, n] stack on tensor cores. A
+// map bounds each policy's K on its own, so layer 0's rows past F still
+// arrive as zeros, never as the next policy's rows. A row's arithmetic is
+// the single-policy kernel's, so every row equals fused_policy_step's with
+// its policy's weights bitwise; a chunk whose policy lies outside [0, P)
+// (custom policies, which the simulator plays) reads no weight and writes
+// NaN rows. Bound as the step: the 12 policies' 15 MiB of weights stay
+// resident in L2, each block streams its own policy's.
+//
 // Bound on the H100: at [16384, 3 -> 256 -> 256, LSTM 256] bf16 the step
 // does 19.35 GFLOP, 89% of it in the two [256, 1024] products, against
 // ~43 MB of bytes: bound by operations on the tensor cores (0.020 ms).
@@ -69,6 +87,7 @@
 
 #include <cuda.h>   // CUtensorMap
 
+#include "chunk_rows.cuh"
 #include "common.cuh"
 #include "mma.cuh"
 #include "slice_ring.cuh"
@@ -97,7 +116,29 @@ struct StepArgs {
   T* c_out;
   T* h_out;
   int n_rows;
+  // The chunk-indexed instance (fwd_rows): null for one policy; else the
+  // rows are [num_chunks][chunk], chunk c with policy chunk_policy[c]'s
+  // weights of the [num_policies, ...] stacks above.
+  const int* chunk_policy;
+  int chunk;
+  int num_policies;
 };
+
+// Chunks of the chunk-indexed instance (0 without chunks).
+template <typename T>
+int chunk_count(const StepArgs<T>& a) {
+  return a.chunk_policy != nullptr ? a.n_rows / a.chunk : 0;
+}
+
+// NaN into the block's rows of feats, c' and h': its chunk's policy lies
+// outside [0, P).
+template <typename T, int H>
+__device__ void fill_nan_step(const StepArgs<T>& p, FwdRows rows,
+                              int rows_per_block) {
+  fill_nan(p.feats, 1, p.n_rows, H, rows, rows_per_block);
+  fill_nan(p.c_out, 1, p.n_rows, H, rows, rows_per_block);
+  fill_nan(p.h_out, 1, p.n_rows, H, rows, rows_per_block);
+}
 
 template <typename T, int H>
 __global__ void __launch_bounds__(kThreads)
@@ -111,23 +152,32 @@ __global__ void __launch_bounds__(kThreads)
   float* h_s = smem + kRows * H;  // [kRows][H]
   __shared__ float red_s[kWarps][RPT][2];
 
+  // The block's rows and policy (fwd_rows); the policy's weights at an
+  // offset into the stacks (policy 0 without chunks).
+  const FwdRows rows = fwd_rows(p.chunk_policy, p.chunk, kRows, p.n_rows);
+  if (rows.policy < 0 || rows.policy >= p.num_policies) {
+    fill_nan_step<T, H>(p, rows, kRows);
+    return;
+  }
+  const size_t pol = rows.policy;
+
   const int ug = threadIdx.x % kUnitGroups;
   const int rg = threadIdx.x / kUnitGroups;
   const int u0 = ug * UPT;
   const int row_base = rg * RPT;
-  const int block_row = blockIdx.x * kRows;
+  const int block_row = rows.first;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
-  load_row_tile<T>(act_s, p.x, block_row, p.n_rows, p.f_in);
-  load_row_tile<T>(h_s, p.h, block_row, p.n_rows, H);
+  load_row_tile<T>(act_s, p.x, block_row, rows.end, p.f_in);
+  load_row_tile<T>(h_s, p.h, block_row, rows.end, H);
   __syncthreads();
 
   int k_in = p.f_in;
   for (int l = 0; l < p.layers; ++l) {
     float acc[RPT][1][UPT];
-    row_tile_product<T, 1, RPT, UPT>(act_s, k_in, p.w[l], H, 0, row_base, u0,
-                                     acc);
+    row_tile_product<T, 1, RPT, UPT>(act_s, k_in, p.w[l] + pol * k_in * H, H,
+                                     0, row_base, u0, acc);
     float s[RPT], sq[RPT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -158,8 +208,8 @@ __global__ void __launch_bounds__(kThreads)
     float scale[UPT], lbias[UPT];
 #pragma unroll
     for (int j = 0; j < UPT; ++j) {
-      scale[j] = round_to<T>(p.ln_scale[l][u0 + j]);
-      lbias[j] = round_to<T>(p.ln_bias[l][u0 + j]);
+      scale[j] = round_to<T>(p.ln_scale[l][pol * H + u0 + j]);
+      lbias[j] = round_to<T>(p.ln_bias[l][pol * H + u0 + j]);
     }
     const int w0 = 2 * rg;  // the two warps of this row group
 #pragma unroll
@@ -184,25 +234,28 @@ __global__ void __launch_bounds__(kThreads)
 
   // LSTM cell: xp = round(a . Wi), then + h . Wr in the same accumulators.
   float acc[RPT][4][UPT];
-  row_tile_product<T, 4, RPT, UPT>(act_s, H, p.wi, G4, H, row_base, u0, acc);
+  row_tile_product<T, 4, RPT, UPT>(act_s, H, p.wi + pol * H * G4, G4, H,
+                                   row_base, u0, acc);
 #pragma unroll
   for (int i = 0; i < RPT; ++i)
 #pragma unroll
     for (int g = 0; g < 4; ++g)
 #pragma unroll
       for (int j = 0; j < UPT; ++j) acc[i][g][j] = round_to<T>(acc[i][g][j]);
-  row_tile_fma<T, 4, RPT, UPT>(h_s, H, p.wr, G4, H, row_base, u0, acc);
+  row_tile_fma<T, 4, RPT, UPT>(h_s, H, p.wr + pol * H * G4, G4, H, row_base,
+                               u0, acc);
 
   float b[4][UPT];
 #pragma unroll
   for (int g = 0; g < 4; ++g)
 #pragma unroll
-    for (int j = 0; j < UPT; ++j) b[g][j] = to_f(p.bias[g * H + u0 + j]);
+    for (int j = 0; j < UPT; ++j)
+      b[g][j] = to_f(p.bias[pol * G4 + g * H + u0 + j]);
 
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int n = block_row + row_base + i;
-    if (n >= p.n_rows) continue;
+    if (n >= rows.end) continue;
 #pragma unroll
     for (int j = 0; j < UPT; ++j) {
       const size_t idx = static_cast<size_t>(n) * H + u0 + j;
@@ -224,7 +277,9 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int H>
 int launch_step(const StepArgs<T>& args, cudaStream_t stream) {
   const int smem = kRows * 2 * H * static_cast<int>(sizeof(float));
-  const int blocks = (args.n_rows + kRows - 1) / kRows;
+  const int blocks =
+      fwd_blocks(args.chunk_policy, chunk_count(args), args.chunk,
+                 args.n_rows, kRows);
   policy_step_kernel<T, H><<<blocks, kThreads, smem, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
@@ -234,7 +289,9 @@ StepArgs<T> make_args(int layers, int f_in, int n_rows, const void* x,
                       const void* const* w, const void* const* s,
                       const void* const* lb, const void* wi, const void* wr,
                       const void* bias, const void* c, const void* h,
-                      void* feats, void* c_out, void* h_out) {
+                      void* feats, void* c_out, void* h_out,
+                      const void* chunk_policy = nullptr, int chunk = 0,
+                      int num_policies = 1) {
   StepArgs<T> a{};
   a.x = static_cast<const T*>(x);
   a.f_in = f_in;
@@ -253,6 +310,9 @@ StepArgs<T> make_args(int layers, int f_in, int n_rows, const void* x,
   a.c_out = static_cast<T*>(c_out);
   a.h_out = static_cast<T*>(h_out);
   a.n_rows = n_rows;
+  a.chunk_policy = static_cast<const int*>(chunk_policy);
+  a.chunk = chunk;
+  a.num_policies = num_policies;
   return a;
 }
 
@@ -295,7 +355,9 @@ struct StepTc {
 // accumulator: element 4 j + 2 s + e is unit + 8 s, row 8 j + 2 (l % 4) +
 // e. The maps are TMA maps of the row-major weights (w_map[l] [F_in, H],
 // wi_map and wr_map [H, 4H]) in boxes of [64 k][64 units], the MN-major A
-// operand of wgmma as they stand; maps past p.layers are never read.
+// operand of wgmma as they stand, each over the [P, K, n] stack of the
+// chunk-indexed instance (P = 1 without chunks), the block's policy the
+// third coordinate; maps past p.layers are never read.
 template <int H, int R>
 __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
     policy_step_tc_kernel(const __grid_constant__ CUtensorMap w0_map,
@@ -323,11 +385,21 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
   uint8_t* h_p = smem_raw + (h_s - raw_s);
   uint8_t* c_p = smem_raw + (c_s - raw_s);
 
+  // The block's rows and policy (fwd_rows); a chunk of no policy is
+  // skipped before any barrier, so the whole block leaves together.
+  const FwdRows rows = fwd_rows(p.chunk_policy, p.chunk, R, p.n_rows);
+  if (rows.policy < 0 || rows.policy >= p.num_policies) {
+    fill_nan_step<bf16, H>(p, rows, R);
+    return;
+  }
+  const int pol = rows.policy;
+  const int row_end = rows.end;
+
   const int tid = threadIdx.x;
   const int wg = tid / 128, warp = tid / 32, lane = tid % 32;
   const int lt = lane % 4;
   const int unit0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
-  const int block_row = blockIdx.x * R;
+  const int block_row = rows.first;
 
   // The weight slices in the order the step consumes them: layer 0 by
   // 64-row slice of its F_in (rows past F_in arrive as zeros), each later
@@ -355,7 +427,7 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
       col0 = (r % 4) * H;
     }
     for (int w = 0; w < L::kWarpgroups; ++w)
-      tma_load_3d(dst + w * L::kBox, m, bar, col0 + w * 64, k * kTcK, 0);
+      tma_load_3d(dst + w * L::kBox, m, bar, col0 + w * 64, k * kTcK, pol);
   };
   SliceRing<S> slices{full, empty, ring, L::kStageBytes,
                       layer_loads + 2 * gate_loads, 0};
@@ -371,14 +443,14 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
     const int n = e / xw, k = e % xw;
     const int row = block_row + n;
     *reinterpret_cast<bf16*>(act_p + kmaj_off<R>(n, k)) =
-        row < p.n_rows && k < p.f_in
+        row < row_end && k < p.f_in
             ? p.x[static_cast<size_t>(row) * p.f_in + k]
             : __float2bfloat16_rn(0.0f);
   }
   for (int e = tid; e < R * (H / 8); e += L::kThreads) {
     const int n = e / (H / 8), c = e % (H / 8);
     const int row = block_row + n;
-    const bool live = row < p.n_rows;
+    const bool live = row < row_end;
     const size_t off = live ? static_cast<size_t>(row) * H + c * 8 : 0;
     cp_async16(h_s + kmaj_off<R>(n, c * 8), p.h + off, live);
     cp_async16(c_s + row_off<H>(n, c * 8), p.c + off, live);
@@ -455,8 +527,8 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
     float scale[2], lbias[2];
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
-      scale[s] = round_to<bf16>(p.ln_scale[l][unit0 + 8 * s]);
-      lbias[s] = round_to<bf16>(p.ln_bias[l][unit0 + 8 * s]);
+      scale[s] = round_to<bf16>(p.ln_scale[l][pol * H + unit0 + 8 * s]);
+      lbias[s] = round_to<bf16>(p.ln_bias[l][pol * H + unit0 + 8 * s]);
     }
 #pragma unroll
     for (int j = 0; j < R / 8; ++j)
@@ -511,7 +583,7 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
   for (int g = 0; g < 4; ++g)
 #pragma unroll
     for (int s = 0; s < 2; ++s)
-      b[g][s] = __bfloat162float(p.bias[g * H + unit0 + 8 * s]);
+      b[g][s] = __bfloat162float(p.bias[(pol * 4 + g) * H + unit0 + 8 * s]);
 #pragma unroll
   for (int j = 0; j < R / 8; ++j)
 #pragma unroll
@@ -534,7 +606,7 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
   for (int e = tid; e < R * (H / 8); e += L::kThreads) {
     const int n = e / (H / 8), c = e % (H / 8);
     const int row = block_row + n;
-    if (row < p.n_rows) {
+    if (row < row_end) {
       const size_t o = static_cast<size_t>(row) * H + c * 8;
       const uint4 hv =
           *reinterpret_cast<const uint4*>(h_p + kmaj_off<R>(n, c * 8));
@@ -551,19 +623,24 @@ int launch_step_tc(const StepArgs<bf16>& a, cudaStream_t stream) {
   constexpr int R = kStepTcRows;
   using L = StepTc<H, R>;
   CUtensorMap maps[6];
-  // Layers past a.layers get a valid map over Wi that is never read.
+  // One map over each [P, K, n] stack (P = 1 without chunks), K its own
+  // dimension, so that layer 0's rows past F arrive as zeros for every
+  // policy. Layers past a.layers get a valid map over Wi that is never
+  // read.
+  const int P = a.num_policies;
   for (int l = 0; l < kMaxLayers; ++l) {
     const bool used = l < a.layers;
     if (!make_tma_map(&maps[l], used ? a.w[l] : a.wi, used ? H : 4 * H,
-                      used ? (l == 0 ? a.f_in : H) : H, 1, 64, 64))
+                      used ? (l == 0 ? a.f_in : H) : H, P, 64, 64))
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!make_tma_map(&maps[4], a.wi, 4 * H, H, 1, 64, 64) ||
-      !make_tma_map(&maps[5], a.wr, 4 * H, H, 1, 64, 64))
+  if (!make_tma_map(&maps[4], a.wi, 4 * H, H, P, 64, 64) ||
+      !make_tma_map(&maps[5], a.wr, 4 * H, H, P, 64, 64))
     return static_cast<int>(cudaErrorInvalidValue);
   int err = set_smem(policy_step_tc_kernel<H, R>, L::kSmem);
   if (err != 0) return err;
-  const int blocks = (a.n_rows + R - 1) / R;
+  const int blocks =
+      fwd_blocks(a.chunk_policy, chunk_count(a), a.chunk, a.n_rows, R);
   policy_step_tc_kernel<H, R><<<blocks, L::kThreads, L::kSmem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], a);
   return static_cast<int>(cudaGetLastError());
@@ -621,5 +698,51 @@ extern "C" int mlt_policy_step_tc(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hidden == 128) return launch_step_tc<128>(args, st);
   if (hidden == 256) return launch_step_tc<256>(args, st);
+  return -1;
+}
+
+// fused_policy_step_chunked: the step over [num_chunks * chunk] rows, chunk
+// c with the weights of policy chunk_policy[c] of the [num_policies, ...]
+// stacks (w_l [P, F_in, H], s_l / b_l [P, H] f32, wi / wr [P, H, 4H], bias
+// [P, 4H]); a chunk of no policy is skipped, its rows NaN. tensor_core 1
+// takes the bf16 tensor-core kernel (every pointer but x on a 16-byte
+// boundary), 0 the float32 CUDA-core one (dtype 0). Returns a
+// cudaError_t, or -1 for arguments without an instantiation.
+extern "C" int mlt_policy_step_chunked(
+    int tensor_core, int dtype, int hidden, int layers, int f_in,
+    int num_chunks, int chunk, int num_policies, const void* chunk_policy,
+    const void* x, const void* w0, const void* s0, const void* b0,
+    const void* w1, const void* s1, const void* b1, const void* w2,
+    const void* s2, const void* b2, const void* w3, const void* s3,
+    const void* b3, const void* wi, const void* wr, const void* bias,
+    const void* c, const void* h, void* feats, void* c_out, void* h_out,
+    void* stream) {
+  const long long n = static_cast<long long>(num_chunks) * chunk;
+  if (layers < 1 || layers > kMaxLayers || f_in < 1 || f_in > 128 ||
+      f_in > hidden || num_chunks <= 0 || chunk <= 0 || num_policies <= 0 ||
+      n * hidden > 0x7fffffffLL)
+    return -1;
+  const int n_rows = static_cast<int>(n);
+  const void* w[kMaxLayers] = {w0, w1, w2, w3};
+  const void* s[kMaxLayers] = {s0, s1, s2, s3};
+  const void* lb[kMaxLayers] = {b0, b1, b2, b3};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tensor_core) {
+    if (dtype != 1) return -1;
+    const StepArgs<__nv_bfloat16> args = make_args<__nv_bfloat16>(
+        layers, f_in, n_rows, x, w, s, lb, wi, wr, bias, c, h, feats, c_out,
+        h_out, chunk_policy, chunk, num_policies);
+    if (hidden == 128) return launch_step_tc<128>(args, st);
+    if (hidden == 256) return launch_step_tc<256>(args, st);
+    return -1;
+  }
+#define MLT_STEP_CHUNKED(T, H)                                             \
+  launch_step<T, H>(make_args<T>(layers, f_in, n_rows, x, w, s, lb, wi, wr, \
+                                 bias, c, h, feats, c_out, h_out,           \
+                                 chunk_policy, chunk, num_policies),        \
+                    st)
+  if (dtype == 0 && hidden == 128) return MLT_STEP_CHUNKED(float, 128);
+  if (dtype == 0 && hidden == 256) return MLT_STEP_CHUNKED(float, 256);
+#undef MLT_STEP_CHUNKED
   return -1;
 }

@@ -14,7 +14,7 @@ tensor or a tuple of them, nested, of any dtype. ``rollout_chunked`` and
 ``critic_only_chunked`` are the policy-batched forms of ``rollout`` and
 ``critic_only`` over a population's chunks (``models/common.py``), for
 ``BackboneShared`` over ``BackboneEncoder`` or ``RecurrentBackboneEncoder``
-(without the fused step). ``update_batched`` is the policy-batched form of
+(the fused step too). ``update_batched`` is the policy-batched form of
 ``update`` over the train policies' minibatches (``models/common.py``), for
 the same backbones, without trunk rematerialization. The obs dict's leaves
 may carry entity axes ([N, E, F], [T, N, E, F] in the update pass); the time
@@ -30,7 +30,9 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from ..ops.cuda.policy_step import fused_policy_step, policy_step_supported
+from ..ops.cuda.policy_step import (fused_policy_step,
+                                    fused_policy_step_chunked,
+                                    policy_step_supported)
 from ..ops.dists import critic_parts
 from ..utils import tree_map
 from ..utils.profile import profile
@@ -94,7 +96,11 @@ class RecurrentBackboneEncoder(nn.Module):
     unchanged; its LayerNorm rounds its statistics once where the fused
     step rounds mean and variance to the storage dtype, so in bf16 the two
     forwards differ by about a bf16 ulp and PPO's ratio starts near, not
-    at, 1 (the JAX package has the same divergence).
+    at, 1 (the JAX package has the same divergence). In a population's
+    policy-chunk layout (``chunked``) the fused step is one
+    ``fused_policy_step_chunked`` launch over every chunk, each with its
+    policy's stacked trunk and cell weights, as JAX ``vmap``s the fused
+    step over policy chunks.
 
     ``remat_trunk_sequence=True`` (JAX: ``:186``) rematerializes the trunk
     in the update pass: ``sequence`` runs ``net`` under
@@ -155,17 +161,37 @@ class RecurrentBackboneEncoder(nn.Module):
             return self._fused_step(rnn_states_in, inputs)
         return self.rnn(rnn_states_in, self.net(inputs))
 
-    def chunked_supported(self):
-        # The fused step is one policy's kernel.
-        return not self.use_fused_step
+    def _fused_step_chunked(self, params, layout, rnn_states_in, x):
+        """``_fused_step`` over [B, C, ...] chunks: the trunk's Dense and
+        LayerNorm stacks (the affines in float32, rounded in the kernel as
+        for one policy) and the cell's Wi / Wr / b stacks of ``params``."""
+        dt = self.rnn.dtype
+        net, cell = params.child("net"), params.child("rnn").child("layer_0")
+        mlp = [(net.child(f"Dense_{i}").stack("kernel", dt),
+                net.child(f"LayerNorm_{i}").child("impl").stack("scale"),
+                net.child(f"LayerNorm_{i}").child("impl").stack("bias"))
+               for i in range(self.net.num_layers)]
+        B, C = x.shape[:2]
+        rows = lambda t: t.reshape(B * C, t.shape[-1]).contiguous()
+        c_in, h_in = rnn_states_in  # [B, C, 1, H]
+        out, (c, h) = fused_policy_step_chunked(
+            rows(x.to(dt)), mlp, cell.child("input_proj").stack("kernel", dt),
+            cell.stack("recurrent_kernel", dt), cell.stack("bias", dt),
+            layout.chunk_policy, rows(c_in), rows(h_in))
+        chunks = lambda t: t.reshape(B, C, *t.shape[1:])
+        return chunks(out), (chunks(c)[:, :, None], chunks(h)[:, :, None])
 
     def chunked(self, params, layout, rnn_states_in, inputs):
+        if self.use_fused_step and isinstance(inputs, torch.Tensor) and \
+                self._fused_step_applicable(inputs.flatten(0, 1)):
+            return self._fused_step_chunked(params, layout, rnn_states_in,
+                                            inputs)
         features = self.net.chunked(params.child("net"), layout, inputs)
         return self.rnn.chunked(params.child("rnn"), layout, rnn_states_in,
                                 features)
 
     def batched_supported(self):
-        return self.chunked_supported() and not self.remat_trunk_sequence
+        return not self.remat_trunk_sequence
 
     def batched(self, params, rnn_start_states, sequence_ends, inputs):
         """``sequence`` over the train policies: ``inputs`` [P, T * mb,

@@ -25,8 +25,9 @@ The policy-batched step (``chunked``, ``models/common.py``) takes the
 state as ``[B, C, num_layers, H]`` chunks: each layer's input projection
 through ``grouped_matmul``, its recurrence through
 ``lstm_step_chunked``, the chunk-indexed instance of the forward at T = 1,
-whose rows equal ``lstm_sequence_fwd``'s. Float32 and bfloat16 (the fused
-projection and float16 keep the per-policy step).
+whose rows equal ``lstm_sequence_fwd``'s. With ``fuse_input_proj`` too, as
+the single-policy step takes its projection from a product and
+``lstm_step``. Float32 and bfloat16 (float16 keeps the per-policy step).
 
 The policy-batched update pass (``batched``, ``models/common.py``) takes
 policy-major inputs ``[P, T, mb, ...]`` and every train policy's
@@ -34,7 +35,11 @@ minibatch as one chunk of a ``[T, P * mb]`` time-major batch: each
 layer's input projection through ``torch.bmm``, its recurrence through
 ``lstm_sequence_chunked`` (``lstm_sequence_fwd_chunked`` and
 ``lstm_sequence_bwd_chunked`` on the card), the kernel family of the
-chunked rollout step, so a row keeps the rollout's rounding points.
+chunked rollout step, so a row keeps the rollout's rounding points. With
+``fuse_input_proj``, a layer that ``sequence`` sends to
+``lstm_sequence_proj`` takes ``lstm_sequence_proj_chunked`` (the
+projection kernels' chunk-indexed instances) with the ``[P, F, 4H]``
+stack of its input kernel.
 
 The compute dtype is float32, bfloat16 or float16. Float16 takes the
 kernels' CUDA-core float16 instances (JAX sends a float16 LSTM to its jnp
@@ -54,6 +59,7 @@ from ..ops.cuda.lstm import (
     lstm_sequence,
     lstm_sequence_chunked,
     lstm_sequence_proj,
+    lstm_sequence_proj_chunked,
     lstm_step,
     lstm_step_chunked,
 )
@@ -104,18 +110,27 @@ class _PackedLSTMLayer(nn.Module):
         new_c, new_h = new_c.reshape(B, C, -1), new_h.reshape(B, C, -1)
         return (new_c, new_h), new_h
 
-    def batched(self, params, keep, c0, h0, x):
+    def batched(self, params, keep, c0, h0, x, fuse_input_proj=False):
         """The layer's update pass over the train policies: ``x`` [P, T,
         mb, F] -> ys [P, T, mb, H], policy p's minibatch chunk p of the
         [T, P * mb] sequence (``keep`` [T, P * mb]; ``c0`` / ``h0`` [P *
-        mb, H])."""
+        mb, H]); with ``fuse_input_proj``, the projection inside the
+        kernels."""
         P, T, mb = x.shape[:3]
-        x_proj = self.input_proj.batched(params.child("input_proj"), x)
-        x_proj = x_proj.transpose(0, 1).reshape(T, P * mb, -1).contiguous()
-        ys = lstm_sequence_chunked(
-            x_proj, keep, params.stack("recurrent_kernel", self.dtype),
-            params.stack("bias", self.dtype),
-            torch.arange(P, dtype=torch.int32, device=x.device), c0, h0)
+        time_major = lambda t: t.transpose(0, 1).reshape(
+            T, P * mb, -1).contiguous()
+        wr = params.stack("recurrent_kernel", self.dtype)
+        b = params.stack("bias", self.dtype)
+        chunk_policy = torch.arange(P, dtype=torch.int32, device=x.device)
+        if fuse_input_proj:
+            ys = lstm_sequence_proj_chunked(
+                time_major(x.to(self.dtype)), keep,
+                params.child("input_proj").stack("kernel", self.dtype), wr,
+                b, chunk_policy, c0, h0)
+        else:
+            x_proj = self.input_proj.batched(params.child("input_proj"), x)
+            ys = lstm_sequence_chunked(time_major(x_proj), keep, wr, b,
+                                       chunk_policy, c0, h0)
         return ys.reshape(T, P, mb, -1).transpose(0, 1)
 
 
@@ -165,7 +180,13 @@ class LSTM(nn.Module):
         return torch.cat(outs, dim=-1), carry
 
     def chunked_supported(self):
-        return not self.fuse_input_proj and self.dtype in CHUNKED_DTYPES
+        return self.dtype in CHUNKED_DTYPES
+
+    def _fuses_proj(self, in_features):
+        """Whether ``sequence`` runs a layer of this input width through
+        the projection kernels."""
+        return self.fuse_input_proj and lstm_proj_supported(
+            in_features, self.num_hidden_channels, self.dtype)
 
     def chunked(self, params, layout, cur_hiddens, in_features):
         """``forward`` over [B, C, ...] chunks, the state [B, C, L, H]."""
@@ -199,7 +220,8 @@ class LSTM(nn.Module):
         for layer, cell in enumerate(self._cells()):
             rows = lambda s: s[:, :, layer].reshape(P * mb, -1).contiguous()
             layer_in = cell.batched(params.child(f"layer_{layer}"), keep,
-                                    rows(c0), rows(h0), layer_in)
+                                    rows(c0), rows(h0), layer_in,
+                                    self._fuses_proj(layer_in.shape[-1]))
             outs.append(layer_in)
         return torch.cat(outs, dim=-1)
 
@@ -215,9 +237,7 @@ class LSTM(nn.Module):
         for layer, cell in enumerate(self._cells()):
             wr, b = cell.packed_weights()
             c0_l, h0_l = c0[:, layer].contiguous(), h0[:, layer].contiguous()
-            if self.fuse_input_proj and lstm_proj_supported(
-                    layer_in.shape[-1], self.num_hidden_channels,
-                    self.dtype):
+            if self._fuses_proj(layer_in.shape[-1]):
                 # The cast is differentiable, so the gradient reaches the
                 # float32 input_proj.kernel.
                 wi = cell.input_proj.kernel.to(self.dtype).contiguous()

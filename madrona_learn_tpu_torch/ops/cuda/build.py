@@ -198,6 +198,17 @@ _SIGNATURES = {
     "mlt_gru_bwd_chunked": [_I] * 3 + [_P] * 17 + [_I] * 5 + [_P],
     # D, q, k, v, out, B, S, H, valid_len, scale * log2(e), stream
     "mlt_mha_fwd_tc": [_I] + [_P] * 4 + [_I] * 4 + [_F, _P],
+    # tensor_core, dtype, H, layers, F, chunks, C, P, chunk_policy, x,
+    # (w, ln_scale, ln_bias) x 4, wi, wr, bias, c, h, feats, c_out, h_out,
+    # stream
+    "mlt_policy_step_chunked": [_I] * 8 + [_P] * 22 + [_P],
+    # tensor_core, dtype, H, F, x, keep, wi, wr, bias, chunk_policy, c0, h0,
+    # ys, cs, T, chunks, C, P, stream
+    "mlt_lstm_proj_fwd_chunked": [_I] * 4 + [_P] * 10 + [_I] * 4 + [_P],
+    # tensor_core, dtype, H, F, x, keep, wi, wi_t, wr, wr_t, bias,
+    # chunk_policy, c0, h0, ys, cs, dys, dx, dg, hin, dh0, dc0, part_wi,
+    # part_w, part_b, dwi, dwr, db, T, chunks, C, P, splits a chunk, stream
+    "mlt_lstm_proj_bwd_chunked": [_I] * 4 + [_P] * 24 + [_I] * 5 + [_P],
 }
 
 

@@ -62,7 +62,16 @@ a chunk). Its split rule takes only a chunk's own rows and the SM count,
 so a policy's weight gradients are the same whether its chunk comes alone
 or among others. ``lstm_sequence_chunked`` is the differentiable pair
 (``lstm_sequence_chunked_reference`` on the CPU, whose autograd defines
-the backward).
+the backward). ``lstm_sequence_proj_fwd_chunked`` /
+``lstm_sequence_proj_bwd_chunked`` are the projection kernels' instances
+under the same ``vmap`` over the train policies: ``wi`` joins the stacks
+as ``[P, F, 4H]``, each row's ys / cs and dx / dh0 / dc0 are bitwise the
+single-policy projection kernels' with its chunk's policy's weights, and
+``dwi[p]`` / ``dwr[p]`` / ``db[p]`` sum over policy p's chunks, split by
+the single-policy rule over each chunk's rows alone;
+``lstm_sequence_proj_chunked`` is their differentiable pair, whose plain
+twin ``lstm_sequence_proj_chunked_reference`` runs
+``lstm_sequence_proj_reference`` chunk by chunk.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise.
@@ -109,6 +118,18 @@ LSTM_PROJ_BWD = Kernel(
     name="lstm_sequence_proj_bwd",
     source="madrona_learn_tpu_torch/csrc/lstm.cu",
     replaces="madrona_learn_tpu/ops/pallas/lstm.py:562",
+)
+# The chunk-indexed instances of the projection kernels: the learn step of
+# a fused-trunk population over every train policy (ppo._ppo_population).
+LSTM_PROJ_FWD_CHUNKED = Kernel(
+    name="lstm_sequence_proj_fwd_chunked",
+    source="madrona_learn_tpu_torch/csrc/lstm.cu",
+    replaces="madrona_learn_tpu/ops/pallas/lstm.py:516",
+)
+LSTM_PROJ_BWD_CHUNKED = Kernel(
+    name="lstm_sequence_proj_bwd_chunked",
+    source="madrona_learn_tpu_torch/csrc/lstm.cu",
+    replaces="madrona_learn_tpu/ops/pallas/lstm.py:581",
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -733,3 +754,197 @@ def lstm_sequence_proj(x, keep, wi, wr, bias, c0, h0):
     if x.device.type == "cpu":
         return lstm_sequence_proj_reference(x, keep, wi, wr, bias, c0, h0)
     return _LSTMSequenceProj.apply(x, keep, wi, wr, bias, c0, h0)
+
+
+def _project_chunks(x, wi, chunk_policy):
+    """x_proj [T, B * C, 4H]: each chunk's ``round(x . Wi)`` with its
+    policy's Wi of the [P, F, 4H] stack (the hoisted Dense's rounding
+    point), zeros for a chunk of no policy. Differentiable."""
+    B, P = chunk_policy.shape[0], wi.shape[0]
+    C = x.shape[1] // B
+    parts = []
+    for b, p in enumerate(chunk_policy.tolist()):
+        xb = x[:, b * C:(b + 1) * C]
+        parts.append((xb.float() @ wi[p].float()).to(x.dtype) if 0 <= p < P
+                     else xb.new_zeros((*xb.shape[:2], wi.shape[2])))
+    return torch.cat(parts, dim=1)
+
+
+def lstm_sequence_proj_fwd_chunked_reference(x, keep, wi, wr, bias,
+                                             chunk_policy, c0, h0):
+    """Plain twin of ``lstm_sequence_proj_fwd_chunked``: each chunk's rows
+    through ``lstm_sequence_proj_reference``'s arithmetic with that chunk's
+    policy's weights, gathered; (ys, cs). A chunk whose policy lies
+    outside [0, P) gets NaN rows."""
+    return lstm_sequence_fwd_chunked_reference(
+        _project_chunks(x, wi, chunk_policy), keep, wr, bias, chunk_policy,
+        c0, h0)
+
+
+def lstm_sequence_proj_chunked_reference(x, keep, wi, wr, bias,
+                                         chunk_policy, c0, h0):
+    """Plain twin of ``lstm_sequence_proj_chunked``: ys [T, B * C, H], each
+    chunk through ``lstm_sequence_proj_reference`` with its policy's
+    weights (NaN rows for a chunk of no policy). Differentiable by
+    autograd, whose gradients are the plain version of
+    ``lstm_sequence_proj_bwd_chunked``: a policy's ``wi`` / ``wr`` /
+    ``bias`` gradients sum over its chunks' rows, and a policy without a
+    chunk gets zeros."""
+    return lstm_sequence_chunked_reference(
+        _project_chunks(x, wi, chunk_policy), keep, wr, bias, chunk_policy,
+        c0, h0)
+
+
+def _check_proj_chunked(what, x, keep, wi, wr, bias, chunk_policy, c0, h0):
+    """The chunked projection instances' operand checks: (T, N, F, H, B,
+    C, P)."""
+    if (wi.dim() != 3 or wr.dim() != 3 or chunk_policy.dim() != 1
+            or x.dim() != 3):
+        raise ValueError(
+            f"{what}: wi must be [P, F, 4H], wr [P, H, 4H], chunk_policy "
+            f"[B] and x [T, B * C, F], got {tuple(wi.shape)}, "
+            f"{tuple(wr.shape)}, {tuple(chunk_policy.shape)}, "
+            f"{tuple(x.shape)}")
+    P, B = wr.shape[0], chunk_policy.shape[0]
+    if B == 0 or P == 0 or x.shape[1] % B:
+        raise ValueError(f"{what}: {x.shape[1]} rows are not {B} whole "
+                         f"chunks of {P} policies")
+    steps, n, f_in, hidden = _check_proj_inputs(x, keep, wi[0], wr[0],
+                                                bias[0], c0, h0)
+    _check("wi", wi, x.dtype, (P, f_in, 4 * hidden))
+    _check("wr", wr, x.dtype, (P, hidden, 4 * hidden))
+    _check("bias", bias, x.dtype, (P, 4 * hidden))
+    _check("chunk_policy", chunk_policy, torch.int32, (B,))
+    return steps, n, f_in, hidden, B, n // B, P
+
+
+def lstm_sequence_proj_fwd_chunked(x, keep, wi, wr, bias, chunk_policy, c0,
+                                   h0):
+    """The chunk-indexed projection forward kernel: ``x`` [T, B * C, F]
+    and ``keep`` [T, B * C] of B chunks of C rows, ``wi`` [P, F, 4H],
+    ``wr`` [P, H, 4H] and ``bias`` [P, 4H] stacks, ``chunk_policy`` [B]
+    int32, ``c0`` / ``h0`` [B * C, H] -> (ys, cs), each [T, B * C, H];
+    chunk b runs with policy ``chunk_policy[b]``'s weights, and every row
+    equals ``lstm_sequence_proj_fwd``'s row with them bitwise. A chunk
+    whose policy lies outside [0, P) is skipped: its rows are NaN. Same
+    path rule as ``lstm_sequence_proj_fwd``."""
+    steps, n, f_in, hidden, B, C, P = _check_proj_chunked(
+        "lstm_sequence_proj_fwd_chunked", x, keep, wi, wr, bias,
+        chunk_policy, c0, h0)
+    tensor_core = uses_tensor_cores(x.dtype, hidden)
+    if tensor_core:
+        # x and h0 arrive by 16-byte copies, the weights by TMA.
+        x, h0, wi, wr = map(on_16_bytes, (x, h0, wi, wr))
+    ys = torch.empty((steps, n, hidden), dtype=x.dtype, device=x.device)
+    cs = torch.empty_like(ys)
+    err = library().mlt_lstm_proj_fwd_chunked(
+        int(tensor_core), _DTYPE_CODES[x.dtype], hidden, f_in, x.data_ptr(),
+        keep.data_ptr(), wi.data_ptr(), wr.data_ptr(), bias.data_ptr(),
+        chunk_policy.data_ptr(), c0.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+        cs.data_ptr(), steps, B, C, P,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "lstm_sequence_proj_fwd_chunked")
+    LSTM_PROJ_FWD_CHUNKED.launches += 1
+    LSTM_PROJ_FWD_CHUNKED.tc_launches += int(tensor_core)
+    return ys, cs
+
+
+def lstm_sequence_proj_bwd_chunked(x, keep, wi, wr, bias, chunk_policy, c0,
+                                   h0, ys, cs, dys):
+    """The chunk-indexed projection backward kernel, given
+    ``lstm_sequence_proj_fwd_chunked``'s ys / cs: (dx [T, B * C, F], dwi
+    [P, F, 4H], dwr [P, H, 4H], db [P, 4H], dc0, dh0 [B * C, H]). Chunk b
+    runs with policy ``chunk_policy[b]``'s weights: every row's dx / dh0 /
+    dc0 equal ``lstm_sequence_proj_bwd``'s on that chunk's rows bitwise,
+    and ``dwi[p]`` / ``dwr[p]`` / ``db[p]`` sum over the rows of policy
+    p's chunks in f32, rounded once; zeros for a policy without a chunk (a
+    chunk whose policy lies outside [0, P) gets NaN rows and adds to no
+    policy). The weight gradients split each chunk's rows by the
+    single-policy rule applied to the chunk alone. On tensor cores dwi and
+    dwr are views of one [P, F + H, 4H] result. Same path rule as
+    ``lstm_sequence_proj_bwd``."""
+    what = "lstm_sequence_proj_bwd_chunked"
+    steps, n, f_in, hidden, B, C, P = _check_proj_chunked(
+        what, x, keep, wi, wr, bias, chunk_policy, c0, h0)
+    dtype, device = x.dtype, x.device
+    _check("ys", ys, dtype, (steps, n, hidden))
+    _check("cs", cs, dtype, (steps, n, hidden))
+    _check("dys", dys, dtype, (steps, n, hidden))
+    tensor_core = uses_tensor_cores(dtype, hidden)
+    num_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    g4 = 4 * hidden
+
+    def empty(*shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    # Wi^T and Wr^T of every policy, [P, 4H, F] / [P, 4H, H]: one copy each
+    # a call, on a 16-byte boundary as new storage.
+    wi_t = wi.transpose(1, 2).contiguous()
+    wr_t = wr.transpose(1, 2).contiguous()
+    if tensor_core:
+        x, keep, wi, wr, bias, c0, h0, ys, cs, dys = map(
+            on_16_bytes, (x, keep, wi, wr, bias, c0, h0, ys, cs, dys))
+        splits = _num_splits_tc(steps * C, f_in + hidden, hidden, num_sms)
+        hin = empty(steps, n, hidden)
+        part_wi = None
+        part_w = empty(B * splits, f_in + hidden, g4, dt=torch.float32)
+        part_b = empty(B * -(-C // tc_rows(True)), g4, dt=torch.float32)
+        dw = empty(P, f_in + hidden, g4)
+        dwi, dwr = dw[:, :f_in], dw[:, f_in:]
+    else:
+        splits = _num_splits(steps, C, hidden, num_sms)
+        hin = None
+        part_wi = empty(B * splits, f_in, g4, dt=torch.float32)
+        part_w = empty(B * splits, hidden, g4, dt=torch.float32)
+        part_b = empty(B * splits, g4, dt=torch.float32)
+        dw, dwi, dwr = None, empty(P, f_in, g4), empty(P, hidden, g4)
+    dx, dg = empty(steps, n, f_in), empty(steps, n, g4)
+    dh0, dc0, db = empty(n, hidden), empty(n, hidden), empty(P, g4)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    err = library().mlt_lstm_proj_bwd_chunked(
+        int(tensor_core), _DTYPE_CODES[dtype], hidden, f_in, x.data_ptr(),
+        keep.data_ptr(), wi.data_ptr(), wi_t.data_ptr(), wr.data_ptr(),
+        wr_t.data_ptr(), bias.data_ptr(), chunk_policy.data_ptr(),
+        c0.data_ptr(), h0.data_ptr(), ys.data_ptr(), cs.data_ptr(),
+        dys.data_ptr(), dx.data_ptr(), dg.data_ptr(), ptr(hin),
+        dh0.data_ptr(), dc0.data_ptr(), ptr(part_wi), part_w.data_ptr(),
+        part_b.data_ptr(), 0 if tensor_core else dwi.data_ptr(),
+        (dw if tensor_core else dwr).data_ptr(), db.data_ptr(), steps, B, C,
+        P, splits, torch.cuda.current_stream(device).cuda_stream)
+    check(err, what)
+    LSTM_PROJ_BWD_CHUNKED.launches += 1
+    LSTM_PROJ_BWD_CHUNKED.tc_launches += int(tensor_core)
+    return dx, dwi, dwr, db, dc0, dh0
+
+
+class _LSTMSequenceProjChunked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, keep, wi, wr, bias, chunk_policy, c0, h0):
+        ys, cs = lstm_sequence_proj_fwd_chunked(x, keep, wi, wr, bias,
+                                                chunk_policy, c0, h0)
+        ctx.save_for_backward(x, keep, wi, wr, bias, chunk_policy, c0, h0,
+                              ys, cs)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        x, keep, wi, wr, bias, chunk_policy, c0, h0, ys, cs = \
+            ctx.saved_tensors
+        dx, dwi, dwr, db, dc0, dh0 = lstm_sequence_proj_bwd_chunked(
+            x, keep, wi, wr, bias, chunk_policy, c0, h0, ys, cs,
+            dys.to(x.dtype).contiguous())
+        return dx, None, dwi, dwr, db, None, dc0, dh0
+
+
+def lstm_sequence_proj_chunked(x, keep, wi, wr, bias, chunk_policy, c0, h0):
+    """ys [T, B * C, H]: ``lstm_sequence_chunked(round(x . Wi), ...)`` with
+    the projection inside the kernel, differentiable, chunk b with policy
+    ``chunk_policy[b]``'s weights of the [P, F, 4H] / [P, H, 4H] / [P, 4H]
+    stacks (the contract of ``lstm_sequence_proj_fwd_chunked`` and
+    ``lstm_sequence_proj_bwd_chunked``). CPU tensors take the plain
+    twin."""
+    if x.device.type == "cpu":
+        return lstm_sequence_proj_chunked_reference(x, keep, wi, wr, bias,
+                                                    chunk_policy, c0, h0)
+    return _LSTMSequenceProjChunked.apply(x, keep, wi, wr, bias,
+                                          chunk_policy, c0, h0)

@@ -35,6 +35,18 @@ rounded to ``dt`` before the f32 gate math. The affine multiplies by
 left to right (an f32-rounding difference). Inference only: there is no
 backward.
 
+``fused_policy_step_chunked`` is the chunk-indexed instance of the kernel
+(both paths), the policy-batched rollout step of a population: JAX
+``vmap``s the fused step, and with it its ``pallas_call``, over policy
+chunks (``madrona_learn_tpu/rollouts.py:580``). ``x`` holds B chunks of C
+rows, every weight is a ``[P, ...]`` stack (the LayerNorm affines f32
+``[P, H]``, rounded to ``dt`` in the kernel as for one policy), and chunk
+b runs with policy ``chunk_policy[b]``'s weights, each row bitwise
+``fused_policy_step``'s with them (a chunk whose policy lies outside
+[0, P) is skipped, its rows NaN). Its plain twin
+``fused_policy_step_chunked_reference`` runs
+``fused_policy_step_reference`` chunk by chunk.
+
 CPU tensors take the plain version; CUDA tensors launch the kernel or raise.
 """
 
@@ -52,12 +64,19 @@ POLICY_STEP = Kernel(
     source="madrona_learn_tpu_torch/csrc/policy_step.cu",
     replaces="madrona_learn_tpu/ops/pallas/policy_step.py:119",
 )
+# The chunk-indexed instance: the policy-batched rollout step of a
+# fused-trunk population (rollouts.chunked_rollout_loop), JAX's vmap of the
+# pallas_call over policy chunks.
+POLICY_STEP_CHUNKED = Kernel(
+    name="fused_policy_step_chunked",
+    source="madrona_learn_tpu_torch/csrc/policy_step.cu",
+    replaces="madrona_learn_tpu/ops/pallas/policy_step.py:168",
+)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HIDDEN_SIZES = (128, 256)
 _MAX_LAYERS = 4
 _LN_EPS = 1e-6  # flax.linen.LayerNorm's default
-
 
 
 def policy_step_supported(hidden, feat_in, dtype):
@@ -102,18 +121,40 @@ def fused_policy_step_reference(x, mlp_params, wi, wr, bias, c, h):
     return new_h.to(dt), (new_c.to(c.dtype), new_h.to(dt))
 
 
+def fused_policy_step_chunked_reference(x, mlp_stacks, wi, wr, bias,
+                                        chunk_policy, c, h):
+    """Plain twin of ``fused_policy_step_chunked``: each chunk's rows
+    through ``fused_policy_step_reference`` with that chunk's policy's
+    weights, gathered; (feats, (c', h')), each [B * C, H]. A chunk whose
+    policy lies outside [0, P) gets NaN rows."""
+    B, P = chunk_policy.shape[0], wi.shape[0]
+    C = x.shape[0] // B
+    feats = torch.full(h.shape, float("nan"), dtype=h.dtype, device=h.device)
+    c_out = torch.full(c.shape, float("nan"), dtype=c.dtype, device=c.device)
+    h_out = feats.clone()
+    for b, p in enumerate(chunk_policy.tolist()):
+        if 0 <= p < P:
+            rows = slice(b * C, (b + 1) * C)
+            feats[rows], (c_out[rows], h_out[rows]) = \
+                fused_policy_step_reference(
+                    x[rows], [tuple(t[p] for t in layer)
+                              for layer in mlp_stacks],
+                    wi[p], wr[p], bias[p], c[rows], h[rows])
+    return feats, (c_out, h_out)
+
+
 _check = functools.partial(check_operand, "fused_policy_step")
 
 
-def fused_policy_step(x, mlp_params, wi, wr, bias, c, h):
-    """One trunk step: (feats [N, H], (c' [N, H], h' [N, H]))."""
-    if x.device.type == "cpu":
-        return fused_policy_step_reference(x, mlp_params, wi, wr, bias, c, h)
-    operands = [x, wi, wr, bias, c, h] + [p for layer in mlp_params
-                                          for p in layer]
+def _no_grad(what, operands):
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-        raise RuntimeError("fused_policy_step has no backward; run the "
-                           "rollout step under torch.no_grad()")
+        raise RuntimeError(f"{what} has no backward; run the rollout step "
+                           f"under torch.no_grad()")
+
+
+def _check_step(what, x, mlp_params, wi, wr, bias, c, h, stack=()):
+    """The step's operand checks, every weight with the leading dims
+    ``stack`` (``(P,)`` for the chunk-indexed instance): (N, F, H)."""
     dt = h.dtype
     n, hidden = h.shape
     f_in = x.shape[-1] if x.dim() == 2 else -1
@@ -121,50 +162,119 @@ def fused_policy_step(x, mlp_params, wi, wr, bias, c, h):
     if (dt not in _DTYPE_CODES or hidden not in _HIDDEN_SIZES
             or not 1 <= f_in <= 128 or not 1 <= layers <= _MAX_LAYERS):
         raise ValueError(
-            f"fused_policy_step: supports float32/bfloat16, H in "
+            f"{what}: supports float32/bfloat16, H in "
             f"{_HIDDEN_SIZES}, x [N, F <= 128] and 1 to {_MAX_LAYERS} MLP "
             f"layers; got {dt}, H={hidden}, x {tuple(x.shape)}, "
             f"{layers} layers")
     if n == 0:
-        raise ValueError("fused_policy_step: empty batch")
+        raise ValueError(f"{what}: empty batch")
     _check("x", x, dt, (n, f_in))
     fin = f_in
     for i, (w, s, lb) in enumerate(mlp_params):
-        _check(f"W_{i}", w, dt, (fin, hidden))
-        _check(f"ln_scale_{i}", s, torch.float32, (hidden,))
-        _check(f"ln_bias_{i}", lb, torch.float32, (hidden,))
+        _check(f"W_{i}", w, dt, (*stack, fin, hidden))
+        _check(f"ln_scale_{i}", s, torch.float32, (*stack, hidden))
+        _check(f"ln_bias_{i}", lb, torch.float32, (*stack, hidden))
         fin = hidden
-    _check("wi", wi, dt, (hidden, 4 * hidden))
-    _check("wr", wr, dt, (hidden, 4 * hidden))
-    _check("bias", bias, dt, (4 * hidden,))
+    _check("wi", wi, dt, (*stack, hidden, 4 * hidden))
+    _check("wr", wr, dt, (*stack, hidden, 4 * hidden))
+    _check("bias", bias, dt, (*stack, 4 * hidden))
     _check("c", c, dt, (n, hidden))
     _check("h", h, dt, (n, hidden))
-    if uses_tensor_cores(dt, hidden, f_in):
+    return n, f_in, hidden
+
+
+def _aligned(tensor_core, mlp_params, wi, wr, bias, c, h):
+    """The operands the kernel reads by TMA or 16-byte copies on a 16-byte
+    boundary (the tensor-core route; x is read as it lies)."""
+    if tensor_core:
         mlp_params = [tuple(map(on_16_bytes, layer)) for layer in mlp_params]
         wi, wr, bias, c, h = map(on_16_bytes, (wi, wr, bias, c, h))
-        out = _step(library().mlt_policy_step_tc, (), x, mlp_params, wi, wr,
-                    bias, c, h)
-        POLICY_STEP.tc_launches += 1
+    return mlp_params, wi, wr, bias, c, h
+
+
+def fused_policy_step(x, mlp_params, wi, wr, bias, c, h):
+    """One trunk step: (feats [N, H], (c' [N, H], h' [N, H]))."""
+    if x.device.type == "cpu":
+        return fused_policy_step_reference(x, mlp_params, wi, wr, bias, c, h)
+    _no_grad("fused_policy_step", [x, wi, wr, bias, c, h] + [
+        p for layer in mlp_params for p in layer])
+    n, f_in, hidden = _check_step("fused_policy_step", x, mlp_params, wi, wr,
+                                  bias, c, h)
+    dt = h.dtype
+    tensor_core = uses_tensor_cores(dt, hidden, f_in)
+    mlp_params, wi, wr, bias, c, h = _aligned(tensor_core, mlp_params, wi,
+                                              wr, bias, c, h)
+    head = (hidden, len(mlp_params), f_in, n)
+    if tensor_core:
+        entry = library().mlt_policy_step_tc
     else:
-        out = _step(library().mlt_policy_step, (_DTYPE_CODES[dt],), x,
-                    mlp_params, wi, wr, bias, c, h)
+        entry, head = library().mlt_policy_step, (_DTYPE_CODES[dt], *head)
+    out = _step(entry, head, "fused_policy_step", x, mlp_params, wi, wr,
+                bias, c, h)
     POLICY_STEP.launches += 1
+    POLICY_STEP.tc_launches += int(tensor_core)
     return out
 
 
-def _step(entry, head, x, mlp_params, wi, wr, bias, c, h):
+def fused_policy_step_chunked(x, mlp_stacks, wi, wr, bias, chunk_policy, c,
+                              h):
+    """The chunk-indexed step: ``x`` [B * C, F] of B chunks of C rows,
+    ``mlp_stacks`` 1 to 4 layers ``(W [P, F_in, H], ln_scale [P, H] f32,
+    ln_bias [P, H] f32)``, ``wi`` / ``wr`` [P, H, 4H], ``bias`` [P, 4H],
+    ``chunk_policy`` [B] int32, ``c`` / ``h`` [B * C, H] -> (feats, (c',
+    h')), each [B * C, H]; chunk b runs with policy ``chunk_policy[b]``'s
+    weights, and every row equals ``fused_policy_step``'s row with them
+    bitwise. A chunk whose policy lies outside [0, P) is skipped: its rows
+    are NaN. Same path rule as ``fused_policy_step``. CPU tensors take the
+    plain twin."""
+    if x.device.type == "cpu":
+        return fused_policy_step_chunked_reference(x, mlp_stacks, wi, wr,
+                                                   bias, chunk_policy, c, h)
+    return _launch_chunked(x, mlp_stacks, wi, wr, bias, chunk_policy, c, h)
+
+
+def _launch_chunked(x, mlp_stacks, wi, wr, bias, chunk_policy, c, h):
+    """The kernel launch of ``fused_policy_step_chunked``: checks, route,
+    launch and counts, whatever device the operands report."""
+    what = "fused_policy_step_chunked"
+    _no_grad(what, [x, wi, wr, bias, c, h] + [
+        p for layer in mlp_stacks for p in layer])
+    if wi.dim() != 3 or chunk_policy.dim() != 1:
+        raise ValueError(f"{what}: wi must be [P, H, 4H] and chunk_policy "
+                         f"[B], got {tuple(wi.shape)}, "
+                         f"{tuple(chunk_policy.shape)}")
+    P, B = wi.shape[0], chunk_policy.shape[0]
+    n, f_in, hidden = _check_step(what, x, mlp_stacks, wi, wr, bias, c, h,
+                                  stack=(P,))
+    if P == 0 or B == 0 or n % B:
+        raise ValueError(f"{what}: {n} rows are not {B} whole chunks of "
+                         f"{P} policies")
+    _check("chunk_policy", chunk_policy, torch.int32, (B,))
+    dt = h.dtype
+    tensor_core = uses_tensor_cores(dt, hidden, f_in)
+    mlp_stacks, wi, wr, bias, c, h = _aligned(tensor_core, mlp_stacks, wi,
+                                              wr, bias, c, h)
+    head = (int(tensor_core), _DTYPE_CODES[dt], hidden, len(mlp_stacks),
+            f_in, B, n // B, P, chunk_policy.data_ptr())
+    out = _step(library().mlt_policy_step_chunked, head, what, x,
+                mlp_stacks, wi, wr, bias, c, h)
+    POLICY_STEP_CHUNKED.launches += 1
+    POLICY_STEP_CHUNKED.tc_launches += int(tensor_core)
+    return out
+
+
+def _step(entry, head, what, x, mlp_params, wi, wr, bias, c, h):
     """One launch of a C entry point on checked operands; ``head`` holds
-    its leading arguments (the dtype's code for the CUDA-core kernel)."""
-    n, hidden = h.shape
+    its leading arguments, up to x."""
     layer_ptrs = [t.data_ptr() for layer in mlp_params for t in layer]
     layer_ptrs += [None] * (3 * (_MAX_LAYERS - len(mlp_params)))
     feats = torch.empty_like(h)
     c_out = torch.empty_like(c)
     h_out = torch.empty_like(h)
     err = entry(
-        *head, hidden, len(mlp_params), x.shape[-1], n, x.data_ptr(),
-        *layer_ptrs, wi.data_ptr(), wr.data_ptr(), bias.data_ptr(),
-        c.data_ptr(), h.data_ptr(), feats.data_ptr(), c_out.data_ptr(),
-        h_out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    check(err, "fused_policy_step")
+        *head, x.data_ptr(), *layer_ptrs, wi.data_ptr(), wr.data_ptr(),
+        bias.data_ptr(), c.data_ptr(), h.data_ptr(), feats.data_ptr(),
+        c_out.data_ptr(), h_out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, what)
     return feats, (c_out, h_out)

@@ -11,7 +11,10 @@ minibatch over every train policy, on the chunk-indexed LSTM backward.
   its refusals;
 - a population of 4 train and 2 past policies (MLP 32 + LSTM 32,
   float32) learning on the batched path against the per-policy loop from
-  the same state, for every batched PPO variant;
+  the same state, for every batched PPO variant, and a fused-trunk one
+  (``fused``: MLP 128 + LSTM 128 with the fused step and
+  ``fuse_input_proj``, whose learn takes ``lstm_sequence_proj_chunked``)
+  under uniform minibatches;
 - the learn path rule over the model zoo and the PPO options.
 """
 
@@ -223,21 +226,31 @@ VARIANTS = {
                        cfg=dict(normalize_values=True)),
     "huber": dict(algo=dict(huber_value_loss=True)),
     "entropy_weights": dict(algo=dict(entropy_key_weights={"move": 0.5})),
+    # Uniform minibatches over the fused trunk.
+    "fused": dict(tower="fused"),
 }
+# The fused trunk's width: the fused step and the projection kernels take
+# H = 128 or 256.
+FUSED_H = 128
 
 
 def _actor_critic(p, tower="lstm", dtype=F32):
-    net = tm.MLP(2, H, 1, dtype)
-    encoder = (tm.RecurrentBackboneEncoder(net=net,
-                                           rnn=tm.LSTM(H, H, 1, dtype))
-               if tower == "lstm" else tm.BackboneEncoder(net=net))
+    """MLP + LSTM ("lstm"), MLP ("mlp") or the fused trunk ("fused")."""
+    fused = tower == "fused"
+    width = FUSED_H if fused else H
+    net = tm.MLP(2, width, 1, dtype)
+    encoder = (tm.RecurrentBackboneEncoder(
+        net=net, rnn=tm.LSTM(width, width, 1, dtype, fuse_input_proj=fused),
+        use_fused_step=fused)
+               if tower != "mlp" else tm.BackboneEncoder(net=net))
     return tm.ActorCritic(
         backbone=tm.BackboneShared(
             prefix=lambda obs: torch.cat([obs["time"], obs["acc"]], -1),
             encoder=encoder),
         actor=tm.DictActor({"move": tm.DenseLayerDiscreteActor(
-            tlt.DiscreteActionsConfig(actions_num_buckets=[5]), H, dtype)}),
-        critic=tm.DenseLayerCritic(H, dtype))
+            tlt.DiscreteActionsConfig(actions_num_buckets=[5]), width,
+            dtype)}),
+        critic=tm.DenseLayerCritic(width, dtype))
 
 
 def _cfg(variant, tower="lstm"):
@@ -245,8 +258,8 @@ def _cfg(variant, tower="lstm"):
     return tlt.TrainConfig(
         num_worlds=NUM_WORLDS, num_agents_per_world=2,
         actions={"move": tlt.DiscreteActionsConfig(actions_num_buckets=[5])},
-        steps_per_update=8 if tower == "lstm" else 2,
-        num_bptt_chunks=2 if tower == "lstm" else 1,
+        steps_per_update=8 if tower != "mlp" else 2,
+        num_bptt_chunks=2 if tower != "mlp" else 1,
         lr=tlt.ParamExplore(base=1e-3, min_scale=0.1, max_scale=10.0,
                             log10_scale=True),
         gamma=0.99, gae_lambda=0.95, seed=4, metrics_buffer_size=1,
@@ -284,8 +297,9 @@ def _learned(variant, loop):
     if loop:
         mp.setattr(tlt.train, "batched_learn_missing",
                    lambda cfg, actor_critic: "the test")
+    tower = VARIANTS[variant].get("tower", "lstm")
     try:
-        mgr = _trainer(_cfg(variant))
+        mgr = _trainer(_cfg(variant, tower), tower)
         assert mgr.batched_learn is not loop
         before = [{k: v.detach().clone() for k, v in
                    policy.actor_critic.named_parameters()}
@@ -425,10 +439,10 @@ def _zoo(kind):
     ("gru", {}, None),
     ("gru_float16", {}, "backbone.encoder.rnn (GRU)"),
     ("gru_h96", {}, "backbone.encoder.rnn (GRU)"),
-    ("fused", {}, "backbone.encoder (RecurrentBackboneEncoder)"),
+    ("fused", {}, None),
     ("remat", {}, "backbone.encoder (RecurrentBackboneEncoder)"),
     ("float16", {}, "backbone.encoder.net.Dense_0 (Dense)"),
-    ("proj", {}, "backbone.encoder.rnn (LSTM)"),
+    ("proj", {}, None),
     ("window", {}, "backbone.encoder.rnn (WindowAttentionMemory)"),
     ("separate", {}, "backbone (BackboneSeparate)"),
     ("hlgauss", {}, None), ("hlgauss_two_part", {}, None),

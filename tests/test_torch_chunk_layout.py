@@ -9,8 +9,10 @@ the port's per-policy loop.
 - The chunked rollout equals the per-policy loop step by step (actions,
   preprocessed obs and custom rows bitwise; values, log-probs and the
   recurrent state within 1e-6 in float32, where the products are summed
-  in another order), on an MLP and an MLP + LSTM population with
-  per-policy obs normalizers, under matchmaking and under a static
+  in another order), on an MLP, an MLP + LSTM and a fused-trunk (MLP 128
+  + LSTM 128 with the fused step and ``fuse_input_proj``: the chunked step
+  through ``fused_policy_step_chunked``) population with per-policy obs
+  normalizers, under matchmaking and under a static
   tournament with custom policy rows; actions are each row's most likely
   (``categorical`` replaced by an argmax), so both paths draw alike.
 - ``chunkwise_rnn`` on and off are bitwise equal.
@@ -85,21 +87,30 @@ def test_chunk_sizes_match_jax(cfg):
 
 H, NUM_TRAIN, NUM_PAST, WORLDS, CUSTOM = 32, 4, 2, 32, 100
 NUM_POLICIES = NUM_TRAIN + NUM_PAST
+# The fused trunk's width: the fused step and the projection kernels take
+# H = 128 or 256, so a fused tower of 32 would run unfused.
+FUSED_H = 128
 
 
 def _model(lstm, seed):
+    """An MLP (``lstm`` False), MLP + LSTM (True) or fused-trunk ("fused")
+    actor-critic."""
     gen = torch.Generator().manual_seed(seed)
-    net = tm.MLP(2, H, 1, F32, generator=gen)
+    fused = lstm == "fused"
+    width = FUSED_H if fused else H
+    net = tm.MLP(2, width, 1, F32, generator=gen)
     return tm.ActorCritic(
         backbone=tm.BackboneShared(
             prefix=lambda obs: torch.cat([obs["time"], obs["acc"]], -1),
             encoder=(tm.RecurrentBackboneEncoder(
-                net=net, rnn=tm.LSTM(H, H, 1, F32, generator=gen))
+                net=net, rnn=tm.LSTM(width, width, 1, F32, generator=gen,
+                                     fuse_input_proj=fused),
+                use_fused_step=fused)
                 if lstm else tm.BackboneEncoder(net=net))),
         actor=tm.DictActor({"move": tm.DenseLayerDiscreteActor(
-            tlt.DiscreteActionsConfig(actions_num_buckets=[5]), H, F32,
+            tlt.DiscreteActionsConfig(actions_num_buckets=[5]), width, F32,
             weight_init=tm.common.orthogonal(1.0), generator=gen)}),
-        critic=tm.DenseLayerCritic(H, F32, generator=gen))
+        critic=tm.DenseLayerCritic(width, F32, generator=gen))
 
 
 def _population(lstm):
@@ -199,7 +210,8 @@ def _run(lstm, chunked, static, chunkwise_rnn=False, chunk_override=0,
 
 @pytest.mark.parametrize("static", [False, True], ids=["matchmade",
                                                        "custom"])
-@pytest.mark.parametrize("lstm", [False, True], ids=["mlp", "lstm"])
+@pytest.mark.parametrize("lstm", [False, True, "fused"],
+                         ids=["mlp", "lstm", "fused"])
 def test_chunked_rollout_equals_the_per_policy_loop(lstm, static):
     got, got_state = _run(lstm, True, static)
     want, _ = _run(lstm, False, static)
@@ -345,9 +357,9 @@ def _tower(kind):
     ("mlp", None), ("lstm", None), ("gru", None),
     ("gru_float16", "backbone.encoder.rnn (GRU)"),
     ("gru_h96", "backbone.encoder.rnn (GRU)"),
-    ("fused", "backbone.encoder (RecurrentBackboneEncoder)"),
+    ("fused", None),
     ("float16", "backbone.encoder.net.Dense_0 (Dense)"),
-    ("proj", "backbone.encoder.rnn (LSTM)"),
+    ("proj", None),
     ("separate", "backbone (BackboneSeparate)"),
     ("hlgauss", None), ("hlgauss_two_part", None), ("dreamer", None),
 ])

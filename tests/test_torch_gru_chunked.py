@@ -296,7 +296,7 @@ def test_chunked_wrappers_refuse_what_no_kernel_takes():
     rows that are not whole chunks) and count no launch; the kernels are
     registered against the Pallas GRU's forward and backward."""
     assert GRU_FWD_CHUNKED in KERNELS and GRU_BWD_CHUNKED in KERNELS
-    assert len(KERNELS) == 19
+    assert len(KERNELS) == 22
     assert GRU_FWD_CHUNKED.replaces == \
         "madrona_learn_tpu/ops/pallas/gru.py:192"
     assert GRU_BWD_CHUNKED.replaces == \

@@ -6,7 +6,12 @@ worlds, 16 steps in 2 BPTT chunks, an MLP of 32 in float32, 25% self, 50%
 cross and 25% past play, lr searched in log10 space) is built in both
 packages, as it stands, with an LSTM of 32 after the MLP (BASELINE
 config #4's tower), with a GRU of 128 after the MLP (``gru``: the
-chunk-indexed GRU kernels' widths) and with the DreamerV3 two-hot critic
+chunk-indexed GRU kernels' widths), as the fused trunk (``fused``: an MLP
+of 128 into an LSTM of 128 with ``use_fused_step`` and
+``fuse_input_proj``, the widths the fused step and the projection kernels
+take; the port's rollout step through ``fused_policy_step_chunked`` and
+its batched learn through ``lstm_sequence_proj_chunked``, JAX's through
+their jnp twins) and with the DreamerV3 two-hot critic
 in the dense critic's place (``dreamer``; its head's kernel drawn small
 and its bias falling off from the middle bin, as the flagship slice test
 sets it, so that its values differ between rows). The port gets the JAX
@@ -87,8 +92,9 @@ torch.set_num_threads(1)
 
 SEED, H, LR = 3, 32, 1e-3
 # The GRU's width: the chunk-indexed GRU kernels take H = 128 or 256, so a
-# GRU of 32 would take the per-policy loop.
-GRU_H = 128
+# GRU of 32 would take the per-policy loop. The fused trunk's likewise: a
+# fused tower of 32 would run unfused.
+GRU_H = FUSED_H = 128
 STEPS, CHUNKS, MINIBATCH = 16, 2, 10
 # Train agents a policy: 64 * (0.25 + 0.5 / 2 + 0.25 / 2) / 4 = 10.
 NUM_SEQS = CHUNKS * 10
@@ -163,11 +169,15 @@ def _recording_env(env, sink):
 
 def _jax_policy(model, actions):
     """test_pbt_e2e's policy with an LSTM of 32 or a GRU of 128 after its
-    MLP, or with the DreamerV3 critic."""
+    MLP, as the fused trunk of 128, or with the DreamerV3 critic."""
     dtype = jnp.float32
-    net = jm.MLP(num_channels=H, num_layers=1, dtype=dtype)
+    fused = model == "fused"
+    net = jm.MLP(num_channels=FUSED_H if fused else H, num_layers=1,
+                 dtype=dtype)
     rnn = (jm.LSTM(num_hidden_channels=H, num_layers=1, dtype=dtype,
                    use_pallas=True) if model == "lstm" else
+           jm.LSTM(num_hidden_channels=FUSED_H, num_layers=1, dtype=dtype,
+                   use_pallas=True, fuse_input_proj=True) if fused else
            jm.GRU(num_hidden_channels=GRU_H, num_layers=1, dtype=dtype,
                   use_pallas=True) if model == "gru" else None)
     return mlt.Policy(
@@ -176,7 +186,8 @@ def _jax_policy(model, actions):
                 prefix=lambda obs, train: jnp.concatenate(
                     [obs["time"], obs["acc"]], axis=-1),
                 encoder=(jm.BackboneEncoder(net=net) if rnn is None else
-                         jm.RecurrentBackboneEncoder(net=net, rnn=rnn))),
+                         jm.RecurrentBackboneEncoder(
+                             net=net, rnn=rnn, use_fused_step=fused))),
             actor=jm.DictActor(heads={"move": jm.DenseLayerDiscreteActor(
                 cfg=actions["move"], dtype=dtype)}),
             critic=(jm.DreamerV3Critic(dtype=dtype) if model == "dreamer"
@@ -205,7 +216,8 @@ def _dreamer_critic_params(mgr):
         policy_states=mgr.state.policy_states.replace(params=params)))
 
 
-@pytest.fixture(scope="module", params=["mlp", "lstm", "gru", "dreamer"])
+@pytest.fixture(scope="module",
+                params=["mlp", "lstm", "gru", "dreamer", "fused"])
 def model(request):
     return request.param
 
@@ -266,15 +278,19 @@ def jax_run(model):
 def _torch_model(model):
     move = DiscreteActionsConfig(actions_num_buckets=[5])
     f32 = torch.float32
-    net = tm.MLP(2, H, 1, f32)
+    fused = model == "fused"
+    net = tm.MLP(2, FUSED_H if fused else H, 1, f32)
     rnn = {"lstm": lambda: tm.LSTM(H, H, 1, f32),
+           "fused": lambda: tm.LSTM(FUSED_H, FUSED_H, 1, f32,
+                                    fuse_input_proj=True),
            "gru": lambda: tm.GRU(H, GRU_H, 1, f32)}.get(model)
-    out = GRU_H if model == "gru" else H
+    out = GRU_H if model == "gru" else FUSED_H if fused else H
     return tm.ActorCritic(
         backbone=tm.BackboneShared(
             prefix=lambda obs: torch.cat([obs["time"], obs["acc"]], -1),
             encoder=(tm.BackboneEncoder(net=net) if rnn is None else
-                     tm.RecurrentBackboneEncoder(net=net, rnn=rnn()))),
+                     tm.RecurrentBackboneEncoder(net=net, rnn=rnn(),
+                                                 use_fused_step=fused))),
         actor=tm.DictActor({"move": tm.DenseLayerDiscreteActor(
             move, out, f32)}),
         critic=(tm.DreamerV3Critic(out, f32) if model == "dreamer" else

@@ -224,7 +224,23 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``fuse_input_proj``, 1 timed update: ``fused_policy_step_chunked`` 33
     an update, 32 steps and the bootstrap, ``lstm_sequence_proj_fwd_
     chunked`` and ``_bwd_chunked`` 4 each, ``grouped_matmul`` 65, the
-    heads', ``gae`` 1, no single-policy kernel; and both A/Bs).
+    heads', ``gae`` 1, no single-policy kernel; and both A/Bs) and
+    headline_pbt_flagship (the flagship's model, EntitySelfAttentionNet
+    (128, 256, 4 heads) -> LSTM 256 -> [5, 3] actor and the DreamerV3
+    critic, over the duel's [time, acc] as entity sets, 1 timed update:
+    ``mha`` 37 an update over every chunk's (in learn every policy's)
+    entities folded into its batch, ``lstm_sequence_fwd_chunked`` 37,
+    ``_bwd_chunked`` 4, ``grouped_matmul`` 395, 12 a step and 11 for the
+    bootstrap, ``gae`` 1; both A/Bs) and headline_pbt_separate
+    (headline_separate's two MLP 2 x 256 -> LSTM 256 towers, 1 timed
+    update: ``lstm_sequence_fwd_chunked`` 73, ``_bwd_chunked`` 8,
+    ``grouped_matmul`` 260, ``gae`` 1; the learn A/B); then
+    entity_large_set: the flagship net of 3 policies over 511 entities
+    (padded past 256), its ``chunked`` form over 6 shuffled chunks of 64
+    rows, one of no policy (NaN), and its ``batched`` form forward and
+    backward, each chunk's and policy's output within 3.2e-2 of its
+    policy's own forward, launches exact: ``mha_flash_fwd`` 2, the two
+    flash backward kernels 1 each, ``grouped_matmul`` 9, ``mha`` 0.
 
 13. the rest of the model zoo, five trainers at 16384 worlds with the
     headline's width and PPO settings, each 1 warm-up update and 2 trials
@@ -3179,23 +3195,25 @@ def _flagship_actor_critic(dtype, embed, out, heads, hidden, seed,
         critic=DreamerV3Critic(hidden, dtype))
 
 
-def _entity_env(base, allies=5, enemies=6):
-    """The toy gridworld's obs as the flagship's entity sets: with f =
-    concat(delta, time), self = f @ A_self and ally / enemy j = f @ A[j],
+def _entity_env(base, allies=5, enemies=6, keys=("delta", "time"),
+                width=3):
+    """A toy env's obs as the flagship's entity sets: with f the ``width``
+    features of ``keys`` concatenated (the gridworld's delta and time; the
+    duel's time and acc), self = f @ A_self and ally / enemy j = f @ A[j],
     the matrices drawn once from numpy's default_rng(0)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(0)
     a_self, a_ally, a_enemy = (
-        torch.from_numpy((rng.standard_normal(shape) * 3 ** -0.5)
+        torch.from_numpy((rng.standard_normal(shape) * width ** -0.5)
                          .astype(np.float32)).cuda()
-        for shape in ((3, ENTITY_OBS["self"]),
-                      (allies, 3, ENTITY_OBS["allies"]),
-                      (enemies, 3, ENTITY_OBS["enemies"])))
+        for shape in ((width, ENTITY_OBS["self"]),
+                      (allies, width, ENTITY_OBS["allies"]),
+                      (enemies, width, ENTITY_OBS["enemies"])))
 
     def wrap(obs):
-        f = torch.cat([obs["delta"], obs["time"]], dim=-1)
+        f = torch.cat([obs[k] for k in keys], dim=-1)
         return {"self": f @ a_self,
                 "allies": torch.einsum("bf,jfe->bje", f, a_ally),
                 "enemies": torch.einsum("bf,jfe->bje", f, a_enemy)}
@@ -4098,27 +4116,42 @@ PBT_TRAIN_AGENTS = 2560
 PBT_MINIBATCH = NUM_BPTT_CHUNKS * PBT_TRAIN_AGENTS // NUM_MINIBATCHES
 
 
-def _pbt_actor_critic(seed, rnn="lstm", critic="dense", fused=False):
+def _pbt_actor_critic(seed, rnn="lstm", critic="dense", fused=False,
+                      separate=False, flagship=False):
     """The headline's MLP + LSTM in bf16 over the duel's 2 obs; with
     ``rnn="gru"`` GRU(256, 256, 1, bf16) in the LSTM's place, with
     ``critic`` "dreamer" or "hlgauss_two_part" that distributional critic
     in the dense critic's place, with ``fused`` the headline_fused tower
     (``use_fused_step`` and ``fuse_input_proj``, as
-    ``_small_actor_critic(fused=True)`` builds it)."""
+    ``_small_actor_critic(fused=True)`` builds it), with ``separate`` an
+    MLP 2 x 256 -> LSTM 256 tower for the actor and another for the
+    critic (headline_separate's ``BackboneSeparate``); with ``flagship``
+    the flagship's model (``_flagship_actor_critic`` at its published
+    width) over the duel's obs as entity sets (``_entity_env``)."""
     import torch
     from madrona_learn_tpu_torch.config import DiscreteActionsConfig
     from madrona_learn_tpu_torch.models import (
-        GRU, LSTM, MLP, ActorCritic, BackboneShared, DenseLayerCritic,
-        DenseLayerDiscreteActor, DictActor, DreamerV3Critic,
-        HLGaussTwoPartCritic, RecurrentBackboneEncoder)
+        GRU, LSTM, MLP, ActorCritic, BackboneSeparate, BackboneShared,
+        DenseLayerCritic, DenseLayerDiscreteActor, DictActor,
+        DreamerV3Critic, HLGaussTwoPartCritic, RecurrentBackboneEncoder)
 
     dtype = torch.bfloat16
+    if flagship:
+        return _flagship_actor_critic(dtype, 128, 256, 4, CHANNELS, seed)
     gen = torch.Generator().manual_seed(seed)
-    net = MLP(2, CHANNELS, 2, dtype, generator=gen)
-    recurrence = (LSTM(CHANNELS, CHANNELS, 1, dtype, generator=gen,
-                       fuse_input_proj=True) if fused else
-                  {"lstm": LSTM, "gru": GRU}[rnn](CHANNELS, CHANNELS, 1,
-                                                  dtype, generator=gen))
+
+    def tower():
+        net = MLP(2, CHANNELS, 2, dtype, generator=gen)
+        recurrence = (LSTM(CHANNELS, CHANNELS, 1, dtype, generator=gen,
+                           fuse_input_proj=True) if fused else
+                      {"lstm": LSTM, "gru": GRU}[rnn](
+                          CHANNELS, CHANNELS, 1, dtype, generator=gen))
+        return RecurrentBackboneEncoder(net=net, rnn=recurrence,
+                                        use_fused_step=fused)
+
+    prefix = lambda obs: torch.cat([obs["time"], obs["acc"]], -1)
+    backbone = (BackboneSeparate(prefix, tower(), tower()) if separate
+                else BackboneShared(prefix=prefix, encoder=tower()))
     actor = DictActor({"move": DenseLayerDiscreteActor(
         DiscreteActionsConfig(actions_num_buckets=[5]), CHANNELS, dtype,
         generator=gen)})
@@ -4127,12 +4160,8 @@ def _pbt_actor_critic(seed, rnn="lstm", critic="dense", fused=False):
         "dreamer": lambda: DreamerV3Critic(CHANNELS, dtype),
         "hlgauss_two_part": lambda: HLGaussTwoPartCritic.create(CHANNELS,
                                                                 dtype)}
-    return ActorCritic(
-        backbone=BackboneShared(
-            prefix=lambda obs: torch.cat([obs["time"], obs["acc"]], -1),
-            encoder=RecurrentBackboneEncoder(net=net, rnn=recurrence,
-                                             use_fused_step=fused)),
-        actor=actor, critic=critics[critic]())
+    return ActorCritic(backbone=backbone, actor=actor,
+                       critic=critics[critic]())
 
 
 def _duel_scores(er):
@@ -4168,14 +4197,20 @@ def build_headline_pbt(hooks, restore_ckpt=None, custom_policy_ids=(),
     checkpoint ``restore_ckpt`` if given, with ``custom_policy_ids`` over
     ``sim_fns`` (the duel) if given; ``model`` picks the recurrence and the
     critic (``_pbt_actor_critic``), a distributional critic under its
-    TrainConfig flag."""
+    TrainConfig flag. The flagship (``flagship=True``) plays the duel
+    through its entity sets, with its action space and critic."""
     import torch
     import madrona_learn_tpu_torch as mlt
 
     sp, cp, pp = PBT_PORTIONS
+    flagship = model.get("flagship", False)
+    if flagship and sim_fns is None:
+        sim_fns = _entity_env(_duel_env(), keys=("time", "acc"), width=2)
+    buckets = FLAGSHIP_BUCKETS if flagship else [5]
     cfg = mlt.TrainConfig(
         num_worlds=NUM_WORLDS, num_agents_per_world=2,
-        actions={"move": mlt.DiscreteActionsConfig(actions_num_buckets=[5])},
+        actions={"move": mlt.DiscreteActionsConfig(
+            actions_num_buckets=buckets)},
         steps_per_update=STEPS_PER_UPDATE, num_bptt_chunks=NUM_BPTT_CHUNKS,
         lr=mlt.ParamExplore(base=1e-3, min_scale=0.1, max_scale=10.0,
                             log10_scale=True),
@@ -4191,7 +4226,7 @@ def build_headline_pbt(hooks, restore_ckpt=None, custom_policy_ids=(),
                           # whenever the top policy is not below the
                           # bottom one, so the copy checks run.
                           policy_overwrite_threshold=0.5),
-        dreamer_v3_critic=model.get("critic") == "dreamer",
+        dreamer_v3_critic=flagship or model.get("critic") == "dreamer",
         hlgauss_critic=model.get("critic") == "hlgauss_two_part",
         compute_dtype=torch.bfloat16,
         custom_policy_ids=list(custom_policy_ids))
@@ -4776,6 +4811,86 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
                           **ab)
 
 
+def entity_large_set_check(card):
+    """The flagship net (EntitySelfAttentionNet(128, 256, 4 heads), bf16)
+    of a population of 3 over LARGE_SET's entities (511 with self: padded
+    to 512, past 256, so mha_flash): its ``chunked`` form over 6 chunks of
+    64 rows in a shuffled order, one of them of no policy (index 3), and
+    its ``batched`` form over the 3 policies' 128 rows, forward and
+    backward, with the launches counted: ``mha_flash_fwd`` 2,
+    ``mha_flash_bwd_dkdv`` and ``_dq`` 1 each, ``grouped_matmul`` 9 (the
+    chunked form's 3 embeds, q, k, v, out, ff_0 and ff_1), every other
+    kernel 0. Each chunk's and policy's output against its policy's own
+    forward on the card within check_routes' tolerance (3.2e-2), the chunk
+    of no policy all NaN, the gradients finite."""
+    import types
+
+    import torch
+    from madrona_learn_tpu_torch.models import EntitySelfAttentionNet
+    from madrona_learn_tpu_torch.models.common import StackedParams
+
+    P, C = 3, 64
+    order = [2, 0, P, 1, 2, 0]
+    gen = torch.Generator().manual_seed(23)
+    nets = [EntitySelfAttentionNet(ENTITY_OBS, 128, 256, 4, torch.bfloat16,
+                                   generator=gen).cuda() for _ in range(P)]
+    # LayerNorm affines and attention biases moved off their init.
+    with torch.no_grad():
+        for net in nets:
+            for name, param in net.named_parameters():
+                if "LayerNorm" in name or name.endswith("bias"):
+                    param.add_(0.3 * torch.randn(param.shape,
+                                                 generator=gen).cuda())
+
+    def obs(*lead):
+        return {k: torch.randn(*lead, *([LARGE_SET[k]] if k in LARGE_SET
+                                        else []), w, generator=gen).cuda()
+                for k, w in ENTITY_OBS.items()}
+
+    idx = torch.tensor(order, dtype=torch.int32, device="cuda")
+    layout = types.SimpleNamespace(chunk_policy=idx,
+                                   chunk_index=idx.clamp(max=P - 1).long())
+    chunk_obs, policy_obs = obs(len(order), C), obs(P, 2 * C)
+    leaves = {k: v.requires_grad_() for k, v in
+              StackedParams.of(nets).leaves.items()}
+    _zero_launch_counts()
+    with torch.no_grad():
+        chunked = nets[0].chunked(StackedParams.of(nets), layout, chunk_obs)
+    batched = nets[0].batched(StackedParams(leaves), policy_obs)
+    grads = torch.autograd.grad(batched.float().square().mean(),
+                                list(leaves.values()))
+    torch.cuda.synchronize()
+    launches = _check_launches(
+        "entity_large_set", {"mha_flash_fwd": 2, "mha_flash_bwd_dkdv": 1,
+                             "mha_flash_bwd_dq": 1, "grouped_matmul": 9})
+    tol = TOL[("fwd", "bfloat16")]["atol"]
+    errs = []
+    with torch.no_grad():
+        for b, p in enumerate(order):
+            if p == P:
+                if not bool(torch.isnan(chunked[b]).all()):
+                    raise AssertionError("entity_large_set: a chunk of no "
+                                         "policy gave numbers")
+                continue
+            want = nets[p]({k: v[b] for k, v in chunk_obs.items()})
+            errs.append(float((chunked[b].float() - want.float()).abs()
+                              .max()))
+        for p in range(P):
+            want = nets[p]({k: v[p] for k, v in policy_obs.items()})
+            errs.append(float((batched[p].float() - want.float()).abs()
+                              .max()))
+    if not all(e <= tol for e in errs):
+        raise AssertionError(f"entity_large_set: max |form - its policy's "
+                             f"forward| {errs} (tolerance {tol})")
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("entity_large_set: non-finite gradients")
+    log(f"entity_large_set: flagship net, 3 policies, 511 entities "
+        f"(mha_flash): max |form - its policy's forward| by chunk, then by "
+        f"policy {[f'{e:.3e}' for e in errs]} (tolerance {tol}); the chunk "
+        f"of no policy NaN; gradients finite on {card}")
+    return launches
+
+
 def _pbt_collect_ab(card, mgr):
     """One collect of the trained population, from copies of one rollout
     state and of the metrics, through the chunked path, through the
@@ -4837,7 +4952,8 @@ def _pbt_collect_ab(card, mgr):
         if not torch.equal(x, dict(_tree_leaves(data))[name]):
             raise AssertionError(f"headline_pbt: chunkwise_rnn changed the "
                                  f"rollout data's {name}")
-    for x, y in zip(state.rnn_states, want_state.rnn_states):
+    for (_, x), (_, y) in zip(_tree_leaves(state.rnn_states),
+                              _tree_leaves(want_state.rnn_states)):
         if not torch.equal(x, y):
             raise AssertionError("headline_pbt: chunkwise_rnn changed the "
                                  "recurrent state")
@@ -5218,7 +5334,8 @@ def _range_split(prof):
     outside any PyTorch op (the rollout step's recurrence, ``gae``) are
     linked to no op, and the backward's launch from autograd's device
     thread. Also returns the count of device events whose launch was not
-    found (placed after the device work before them), and of all device
+    found (placed after the device work before them), of the kernel
+    launches whose device event is not in the trace, and of all device
     events."""
     from torch.autograd import DeviceType
 
@@ -5268,12 +5385,36 @@ def _range_split(prof):
                 where[key] = where.get(key, 0) + 1
         placed[kernel] = where
     unmatched = sum(inferred for _, _, inferred in work)
-    return split, placed, unmatched, len(work)
+    # Kernel launches whose device work is not in the trace: records the
+    # profiler lost.
+    worked = {e.id for _, e, _ in work}
+    lost = sum(1 for e in events if e.device_type == DeviceType.CPU
+               and e.name.startswith(("cudaLaunch", "cuLaunch"))
+               and e.id not in worked)
+    return split, placed, unmatched, lost, len(work)
 
 
 def _tools_profiled_update(mgr, expected):
     """One update under torch.profiler: every range present, the three
     kernels in their ranges, the split printed; returns the launches."""
+    # A trace of ~10,000 kernels now and then lacks one of them (seen once
+    # in a run of this script on an H100: 37 launches counted, 36 in the
+    # trace). A trace that holds fewer launches of a kernel than its count
+    # is taken again, and three such traces in a row fail; a launch
+    # outside its ranges, or more in the trace than counted, fails at
+    # once.
+    for attempt in range(3):
+        launches, split, short = _tools_trace_update(mgr, expected)
+        if not short:
+            return launches, split
+        log(f"  (trace {attempt + 1} of 3 lacks launches: {short})")
+    raise AssertionError(f"tools: three traces in a row lack launches: "
+                         f"{short}")
+
+
+def _tools_trace_update(mgr, expected):
+    """One traced update; returns its launches, its split, and the kernels
+    of ``RANGE_KERNELS`` with fewer launches in the trace than counted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -5286,27 +5427,31 @@ def _tools_profiled_update(mgr, expected):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     launches = _check_launches("profiled update", expected)
-    split, placed, unmatched, device_events = _range_split(prof)
+    split, placed, unmatched, lost, device_events = _range_split(prof)
     missing = [n for n, r in split.items() if not r["count"]]
     if missing:
         raise AssertionError(f"tools: ranges missing from the trace: "
                              f"{missing}")
     log(f"  ranges of one update (profiler on, {wall_ms:.1f} ms wall, "
         f"{device_events} device events, {unmatched} with no launch "
-        f"found): device ms / wall ms / occurrences")
+        f"found, {lost} launches with no device event): device ms / "
+        f"wall ms / occurrences")
     for name in ("Update Iter",) + TOP_RANGES + INNER_RANGES:
         r = split[name]
         log(f"    {name:28s} {r['device_ms']:9.3f} {r['wall_ms']:9.3f} "
             f"{r['count']:5d}")
+    short = {}
     for kernel, _, homes in RANGE_KERNELS:
         where = placed[kernel]
         log(f"  {kernel} kernels by range: {where}")
-        if sum(where.values()) != launches[kernel] or \
-                set(where) - set(homes):
+        if set(where) - set(homes) or \
+                sum(where.values()) > launches[kernel]:
             raise AssertionError(
                 f"tools: {kernel}: {launches[kernel]} launches, in the "
                 f"trace {where}; expected only in {homes}")
-    return launches, split
+        if sum(where.values()) < launches[kernel]:
+            short[kernel] = (launches[kernel], where)
+    return launches, split, short
 
 
 def _tools_sps(mgr, card):
@@ -6036,7 +6181,25 @@ def main():
              {"gae": 1, "fused_policy_step_chunked": STEPS_PER_UPDATE + 1,
               "lstm_sequence_proj_fwd_chunked": NUM_MINIBATCHES,
               "lstm_sequence_proj_bwd_chunked": NUM_MINIBATCHES,
-              "grouped_matmul": 2 * STEPS_PER_UPDATE + 1}, 1, True)):
+              "grouped_matmul": 2 * STEPS_PER_UPDATE + 1}, 1, True),
+            # The flagship: mha over every chunk's entities once a step,
+            # for the bootstrap and a minibatch (the chunk and policy axes
+            # folded into its batch); grouped_matmul 12 times a step (3
+            # embeds, q, k, v, out, ff_0, ff_1, the LSTM's input
+            # projection, the actor's and the critic's heads), 11 for the
+            # bootstrap (no actor).
+            ("headline_pbt_flagship", dict(flagship=True),
+             dict(pbt_lstm, mha=steps,
+                  grouped_matmul=12 * STEPS_PER_UPDATE + 11), 1, True),
+            # Separate towers: each tower's LSTM a step and a minibatch,
+            # the critic's alone for the bootstrap; grouped_matmul 8 times
+            # a step (each tower's two Dense layers and input projection,
+            # the two heads), 4 for the bootstrap.
+            ("headline_pbt_separate", dict(separate=True),
+             {"gae": 1, "lstm_sequence_fwd_chunked": 2 * STEPS_PER_UPDATE
+              + 1 + 2 * NUM_MINIBATCHES,
+              "lstm_sequence_bwd_chunked": 2 * NUM_MINIBATCHES,
+              "grouped_matmul": 8 * STEPS_PER_UPDATE + 4}, 1, False)):
         launches, r = pbt_variant_phase(card, name, model, per_update, timed,
                                         collect_ab)
         launches_by_path[name] = launches
@@ -6044,6 +6207,7 @@ def main():
             f"{paths_pbt_sps:.0f} in this run), max |ratio - 1| over the "
             f"train policies {r['ratio_dev']:.3e}, peak {r['peak_gib']:.2f} "
             f"GiB on {card}")
+    launches_by_path["entity_large_set"] = entity_large_set_check(card)
     zoo = {
         # The rest of the model zoo. Separate towers: each tower's LSTM at
         # every rollout step and every minibatch, the critic's alone for

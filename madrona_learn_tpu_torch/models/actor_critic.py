@@ -13,13 +13,15 @@ the modules so the rollout engine owns state placement; a state is a
 tensor or a tuple of them, nested, of any dtype. ``rollout_chunked`` and
 ``critic_only_chunked`` are the policy-batched forms of ``rollout`` and
 ``critic_only`` over a population's chunks (``models/common.py``), for
-``BackboneShared`` over ``BackboneEncoder`` or ``RecurrentBackboneEncoder``
-(the fused step too). ``update_batched`` is the policy-batched form of
-``update`` over the train policies' minibatches (``models/common.py``), for
-the same backbones, without trunk rematerialization. The obs dict's leaves
-may carry entity axes ([N, E, F], [T, N, E, F] in the update pass); the time
-axis is always the leading one. The critic returns a tensor or, for the
-DreamerV3 critic, a distribution.
+``BackboneShared`` and ``BackboneSeparate`` over ``BackboneEncoder`` or
+``RecurrentBackboneEncoder`` towers (the fused step too).
+``update_batched`` is the policy-batched form of ``update`` over the train
+policies' minibatches (``models/common.py``), for the same backbones,
+without trunk rematerialization. A prefix maps the obs dict to a tensor or
+to a dict (the entity net's sets), which the towers hand to their net as
+it is. The obs dict's leaves may carry entity axes ([N, E, F], [T, N, E,
+F] in the update pass); the time axis is always the leading one. The
+critic returns a tensor or, for the DreamerV3 critic, a distribution.
 """
 
 from __future__ import annotations
@@ -47,6 +49,14 @@ def _merge_time(tree, *lead):
 def _drop_time(tree):
     """[T, N, ...] -> [T*N, ...] on every tensor of a dict."""
     return {k: v.reshape(-1, *v.shape[2:]) for k, v in tree.items()}
+
+
+def _prefix_batched(prefix, obs_in, P):
+    """``prefix`` over the train policies' [P, T, mb, ...] obs, every row
+    at once; each leaf of what it returns (a tensor or a dict) [P, T * mb,
+    ...]."""
+    x = prefix({k: v.reshape(-1, *v.shape[3:]) for k, v in obs_in.items()})
+    return tree_map(lambda t: t.reshape(P, -1, *t.shape[1:]), x)
 
 
 def _merge_time_critic(critic_out, T, N):
@@ -278,12 +288,9 @@ class BackboneShared(Backbone):
         """``sequence`` over the train policies' [P, T, mb, ...] obs: the
         prefix over every row at once, the tower's ``batched``;
         [P, T * mb, ...] features."""
-        P = sequence_ends.shape[0]
-        x = self.prefix({k: v.reshape(-1, *v.shape[3:])
-                         for k, v in obs_in.items()})
-        feats = self.encoder.batched(params.child("encoder"),
-                                     rnn_start_states, sequence_ends,
-                                     x.reshape(P, -1, *x.shape[1:]))
+        feats = self.encoder.batched(
+            params.child("encoder"), rnn_start_states, sequence_ends,
+            _prefix_batched(self.prefix, obs_in, sequence_ends.shape[0]))
         return feats, feats
 
 
@@ -292,8 +299,12 @@ class BackboneSeparate(Backbone):
 
     The recurrent state is the pair ``(actor_state, critic_state)``;
     ``actor_only`` / ``critic_only`` run and advance only their tower's
-    slot and pass the other through.
+    slot and pass the other through. ``chunked`` and ``batched`` run each
+    tower's form over the one prefix; ``critic_only_chunked`` the critic's
+    alone, the actor's slot passed through.
     """
+
+    TOWERS = ("actor_encoder", "critic_encoder")
 
     def __init__(self, prefix: Callable[[Dict[str, torch.Tensor]],
                                         torch.Tensor],
@@ -304,7 +315,7 @@ class BackboneSeparate(Backbone):
         self.critic_encoder = critic_encoder
 
     def _towers(self):
-        return (self.actor_encoder, self.critic_encoder)
+        return tuple(getattr(self, name) for name in self.TOWERS)
 
     def init_recurrent_state(self, N, device=None):
         return tuple(t.init_recurrent_state(N, device)
@@ -339,6 +350,30 @@ class BackboneSeparate(Backbone):
         processed = self.prefix(_drop_time(obs_in))
         return tuple(t.sequence(s, sequence_ends, processed)
                      for t, s in zip(self._towers(), rnn_start_states))
+
+    def chunked(self, params, layout, rnn_states_in, obs_in):
+        processed = self.prefix(obs_in)
+        (actor_feats, actor_rnn), (critic_feats, critic_rnn) = (
+            t.chunked(params.child(name), layout, s, processed)
+            for name, t, s in zip(self.TOWERS, self._towers(),
+                                  rnn_states_in))
+        return actor_feats, critic_feats, (actor_rnn, critic_rnn)
+
+    def critic_only_chunked(self, params, layout, rnn_states_in, obs_in):
+        feats, rnn_out = self.critic_encoder.chunked(
+            params.child("critic_encoder"), layout, rnn_states_in[1],
+            self.prefix(obs_in))
+        return feats, (rnn_states_in[0], rnn_out)
+
+    def batched(self, params, rnn_start_states, sequence_ends, obs_in):
+        """``sequence`` over the train policies' [P, T, mb, ...] obs: the
+        prefix over every row at once, each tower's ``batched``."""
+        processed = _prefix_batched(self.prefix, obs_in,
+                                    sequence_ends.shape[0])
+        return tuple(t.batched(params.child(name), s, sequence_ends,
+                               processed)
+                     for name, t, s in zip(self.TOWERS, self._towers(),
+                                           rnn_start_states))
 
 
 class ActorCritic(nn.Module):

@@ -56,9 +56,10 @@ class StackedParams:
     path of ``named_parameters``, seen from one module (``child``).
 
     ``stack`` casts a stack to a compute dtype on first use and keeps the
-    cast, so a stacked view built once per collect casts each weight once;
-    ``per_chunk`` gathers each chunk's row of a stack by the layout's
-    ``chunk_index``, shaped to broadcast over the chunk's rows.
+    cast (and a reshaped view of it, where asked), so a stacked view built
+    once per collect casts and reshapes each weight once; ``per_chunk``
+    gathers each chunk's row of a stack by the layout's ``chunk_index``,
+    shaped to broadcast over the chunk's rows.
     """
 
     def __init__(self, leaves, prefix: str = "", casts=None):
@@ -78,28 +79,36 @@ class StackedParams:
         return StackedParams(self.leaves, f"{self.prefix}{name}.",
                              self.casts)
 
-    def stack(self, name: str, dtype=None) -> torch.Tensor:
-        """The ``[P, ...]`` stack of parameter ``name``, in ``dtype``."""
-        key = (self.prefix + name, dtype)
+    def stack(self, name: str, dtype=None, shape=None) -> torch.Tensor:
+        """The ``[P, ...]`` stack of parameter ``name``, in ``dtype``, seen
+        as ``[P, *shape]`` where ``shape`` is given."""
+        key = (self.prefix + name, dtype, shape)
         x = self.casts.get(key)
         if x is None:
-            x = self.leaves[self.prefix + name]
-            x = self.casts[key] = (x if dtype is None
-                                   else x.to(dtype)).contiguous()
+            if shape is None:
+                x = self.leaves[self.prefix + name]
+                x = (x if dtype is None else x.to(dtype)).contiguous()
+            else:
+                x = self.stack(name, dtype)
+                x = x.reshape(x.shape[0], *shape)
+            self.casts[key] = x
         return x
 
-    def per_chunk(self, name: str, dtype, layout, ndim: int) -> torch.Tensor:
-        """Each chunk's ``name``, ``[B, 1, ..., *shape]`` with ``ndim``
-        dims in all, to broadcast over a ``[B, C, ...]`` tensor."""
+    def per_chunk(self, name: str, dtype, layout, ndim: int,
+                  shape=None) -> torch.Tensor:
+        """Each chunk's ``name`` (seen as ``shape`` where given), ``[B, 1,
+        ..., *shape]`` with ``ndim`` dims in all, to broadcast over a
+        ``[B, C, ...]`` tensor."""
         with profile("Gather Chunk Weights"):
-            x = self.stack(name, dtype)[layout.chunk_index]
+            x = self.stack(name, dtype, shape)[layout.chunk_index]
         return x.reshape(x.shape[0], *[1] * (ndim - x.dim()), *x.shape[1:])
 
-    def per_policy(self, name: str, dtype, ndim: int) -> torch.Tensor:
-        """The ``[P, ...]`` stack of ``name``, ``[P, 1, ..., *shape]`` with
-        ``ndim`` dims in all, to broadcast over a ``[P, rows, ...]``
-        tensor."""
-        x = self.stack(name, dtype)
+    def per_policy(self, name: str, dtype, ndim: int,
+                   shape=None) -> torch.Tensor:
+        """The ``[P, ...]`` stack of ``name`` (seen as ``shape`` where
+        given), ``[P, 1, ..., *shape]`` with ``ndim`` dims in all, to
+        broadcast over a ``[P, rows, ...]`` tensor."""
+        x = self.stack(name, dtype, shape)
         return x.reshape(x.shape[0], *[1] * (ndim - x.dim()), *x.shape[1:])
 
 

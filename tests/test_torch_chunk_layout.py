@@ -51,6 +51,7 @@ from madrona_learn_tpu_torch.ops.cuda.lstm import (
 from madrona_learn_tpu_torch.train import _build_all_pairs_assignments
 from madrona_learn_tpu_torch.train_state import (MMR, PolicyState,
                                                  Population)
+from madrona_learn_tpu_torch.utils import tree_map
 from test_rollouts import CONFIGS as JAX_CONFIGS
 from test_rollouts import LARGE_CONFIGS as JAX_LARGE_CONFIGS
 from test_torch_lstm_fwd_tc_numerics import _stand_in_card
@@ -167,6 +168,13 @@ def _rollout_state(population, chunked, static, chunk_override=0):
         static_play_assignments=static_assignments)
 
 
+def _leaves(tree):
+    """A recurrent state's tensors (a tensor, a tuple of them, nested)."""
+    leaves = []
+    tree_map(leaves.append, tree)
+    return leaves
+
+
 def _run(lstm, chunked, static, chunkwise_rnn=False, chunk_override=0,
          steps=7):
     """Every step's outputs, preprocessed obs, recurrent state and
@@ -187,7 +195,7 @@ def _run(lstm, chunked, static, chunkwise_rnn=False, chunk_override=0,
         if chunkwise_rnn:
             rnn = rollout_state.reorder_state.to_sim(rnn)
         records[-1].update(
-            rnn=[x.clone() for x in rnn],
+            rnn=[x.clone() for x in _leaves(rnn)],
             assignments=rollout_state.policy_assignments.clone())
         return rollout_state, cb, None
 
@@ -250,7 +258,8 @@ def test_chunkwise_rnn_is_bitwise_the_sim_order_carry(static):
         for x, y in zip(g["rnn"], w["rnn"]):
             assert torch.equal(x, y), t
     # Back in sim order once the loop ends.
-    for x, y in zip(got_state.rnn_states, want_state.rnn_states):
+    for x, y in zip(_leaves(got_state.rnn_states),
+                    _leaves(want_state.rnn_states)):
         assert torch.equal(x, y)
 
 
@@ -350,6 +359,14 @@ def _tower(kind):
     if kind == "proj":
         return tm.RecurrentBackboneEncoder(
             net=net, rnn=tm.LSTM(128, 128, 1, F32, fuse_input_proj=True))
+    if kind.startswith("entity"):
+        net = tm.EntitySelfAttentionNet(
+            {"self": 16, "allies": 12}, 64, 128, 4, F32,
+            embed_concat_self=kind == "entity_concat_self")
+        if kind == "entity_ff":
+            return tm.BackboneEncoder(net=net)
+        return tm.RecurrentBackboneEncoder(net=net,
+                                           rnn=tm.LSTM(128, 128, 1, F32))
     return tm.BackboneEncoder(net=net)
 
 
@@ -360,11 +377,13 @@ def _tower(kind):
     ("fused", None),
     ("float16", "backbone.encoder.net.Dense_0 (Dense)"),
     ("proj", None),
-    ("separate", "backbone (BackboneSeparate)"),
+    ("separate", None),
     ("hlgauss", None), ("hlgauss_two_part", None), ("dreamer", None),
+    ("entity", None), ("entity_concat_self", None), ("entity_ff", None),
 ])
 def test_which_populations_take_the_chunked_path(kind, missing):
-    prefix = lambda obs: obs["x"]
+    prefix = ((lambda obs: obs) if kind.startswith("entity")
+              else (lambda obs: obs["x"]))
     backbone = (tm.BackboneSeparate(prefix, _tower("mlp"), _tower("mlp"))
                 if kind == "separate"
                 else tm.BackboneShared(prefix, _tower(kind)))

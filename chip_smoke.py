@@ -91,7 +91,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    chunks of 37 rows (bf16 at H = 256 and 128, f32): every row bitwise
    the single-policy kernel's, each policy's dwi / dwr / db within the
    tolerance of the single-policy backward's sum and, at C = 1280,
-   bitwise it;
+   bitwise it; and the float16 instances (CUDA cores) of
+   ``grouped_matmul`` at headline_pbt's three pass shapes, of
+   ``lstm_sequence_fwd_chunked`` / ``gru_sequence_fwd_chunked`` at the
+   collect step and of their backwards at the learn step: against the
+   plain twins (the recurrences within 2^-8, ``grouped_matmul`` within
+   one float16 ulp of the largest value), every row bitwise one
+   single-policy float16 launch a policy over the same rows, chunks of
+   index P and -1 NaN, and timed against those launches (the
+   ``kernels`` line's ``float16`` entries);
 4. models: the update pass and its gradients through the kernels on the
    card against the same model on the CPU, for the MLP model, a small GRU
    model, a small fused-trunk model, a small flagship (entity attention)
@@ -168,10 +176,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     policy's would differ by more than twice the tolerance), one collect
     from one rollout state through the chunked path, through the
     per-policy loop and with ``chunkwise_rnn`` (bitwise the chunked
-    one's) is timed and profiled (launches a collect step, kernel time,
-    idle share), one update's learn from one state batched and through the
-    per-policy loop is timed with its launches and profiled (the largest
-    parameter difference at most twice the loop's largest move), the
+    one's) is timed, the chunked one also profiled (launches a collect
+    step, kernel time, idle share), one update's learn from one state
+    batched and through the per-policy loop is timed with its launches,
+    the batched one also profiled (the largest parameter difference at
+    most twice the loop's largest move), the
     eight learning rates are distinct and in
     [1e-4, 1e-2], the assignments keep their invariants after every training step (the
     self-play block and team 0 fixed, cross opponents other train
@@ -234,7 +243,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     bootstrap, ``gae`` 1; both A/Bs) and headline_pbt_separate
     (headline_separate's two MLP 2 x 256 -> LSTM 256 towers, 1 timed
     update: ``lstm_sequence_fwd_chunked`` 73, ``_bwd_chunked`` 8,
-    ``grouped_matmul`` 260, ``gae`` 1; the learn A/B); then
+    ``grouped_matmul`` 260, ``gae`` 1; the learn A/B) and
+    headline_pbt_fp16 (the headline's model in float16, the obs cast to
+    float16, ``compute_dtype=float16``: one loss scaler a train policy;
+    headline_pbt's launches, 37 / 4 / 164 / 1, none on tensor cores; both
+    A/Bs), headline_pbt_gru_fp16 (the GRU in float16: 37 / 4 / 164 / 1;
+    the learn A/B) and headline_pbt_window (headline_window's
+    WindowAttentionMemory(256, window 16, 4 heads), bf16: ``grouped_matmul``
+    263, 8 a step and 7 for the bootstrap, ``gae`` 1, no recurrent
+    kernel; both A/Bs); the float16 phases print each policy's loss scale
+    and non-finite steps and run the learn A/B again with train policy 1's
+    scale forced to 2^40 (its Adam state bitwise kept, its parameters
+    kept but for the per-step projections' rounding, its scale halved a
+    minibatch, every scaler the loop's); then
     entity_large_set: the flagship net of 3 policies over 511 entities
     (padded past 256), its ``chunked`` form over 6 shuffled chunks of 64
     rows, one of no policy (NaN), and its ``batched`` form forward and
@@ -262,7 +283,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     an update with the trunk rematerialized and one without must give
     bitwise equal parameters, their peak memory printed).
 14. tools: the trainer's tools at the headline's width: one update under
-    torch.profiler, its launches counted (``lstm_sequence_fwd`` 37,
+    torch.profiler (after one traced and discarded, the profiler's
+    warm-up step), its launches counted (``lstm_sequence_fwd`` 37,
     ``lstm_sequence_bwd`` 4, ``gae`` 1), every named range of the update
     present, each launch of those three kernels inside "Collect Rollouts"
     or "Learn" (the backward and ``gae`` in the one each belongs to), and
@@ -373,6 +395,9 @@ TOL = {
     # largest value.
     ("gmm", "float32"): dict(atol=1e-5, rtol=1e-5),
     ("gmm", "bfloat16"): dict(atol=0.0, rtol=2 ** -7),
+    # float16 (CUDA cores): the same f32 sums and one rounding, at most one
+    # float16 ulp of the largest value.
+    ("gmm", "float16"): dict(atol=0.0, rtol=2 ** -10),
 }
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates, at the
@@ -2064,12 +2089,14 @@ def check_lstm_chunked(results):
     """lstm_sequence_fwd_chunked at headline_pbt's collect step (the chunk
     size and count init_training derives) and at chunks of 100 rows (not a
     multiple of the 32-row tile), bf16 on tensor cores and f32 on CUDA
-    cores: against its plain twin; row for row bitwise
-    ``lstm_sequence_fwd`` with the row's policy's weights (each policy's
-    chunks in one call); batch invariance (the first chunks alone, and
-    the chunks rolled); chunks of index P and -1 NaN, the others
-    unchanged; its time against one ``lstm_sequence_fwd`` a policy over
-    the same rows (the per-policy loop's launches) and its bound."""
+    cores, and its float16 instance (CUDA cores) at the collect step:
+    against its plain twin; row for row bitwise ``lstm_sequence_fwd`` with
+    the row's policy's weights (each policy's chunks in one call); batch
+    invariance (the first chunks alone, and the chunks rolled); chunks of
+    index P and -1 NaN, the others unchanged; its time against one
+    ``lstm_sequence_fwd`` a policy over the same rows (the per-policy
+    loop's launches) and its bound (the float16 instance's into
+    ``float16``)."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
         lstm_sequence_fwd, lstm_sequence_fwd_chunked,
@@ -2083,8 +2110,11 @@ def check_lstm_chunked(results):
         f"ceil({2 * NUM_WORLDS} / {C}) + {P} - 1), H = {H}, T = 1")
     gen = torch.Generator(device="cuda").manual_seed(21)
     res = results["lstm_sequence_fwd_chunked"] = {"max_abs_err": 0.0}
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    # main_path: True for the bf16 collect step, "float16" for its float16
+    # instance (timed into res["float16"]), False for the ragged checks.
     for dtype, chunk, chunks, main_path in ((bf16, C, B, True),
+                                            (f16, C, B, "float16"),
                                             (bf16, 100, 41, False),
                                             (f32, 100, 41, False)):
         dname = str(dtype).split(".")[-1]
@@ -2127,7 +2157,7 @@ def check_lstm_chunked(results):
                                ("rolled", rolled[0], roll(ys, 1)),
                                ("rolled cs", rolled[1], roll(cs, 1))):
             bitwise(f"lstm_sequence_fwd_chunked {tag} {name}", got, ref)
-        if not main_path:
+        if main_path is not True:
             bad = idx.clone()
             bad[1], bad[3] = P, -1
             yb, cb = lstm_sequence_fwd_chunked(x, keep, wr, bias, bad, c0,
@@ -2144,8 +2174,10 @@ def check_lstm_chunked(results):
                                      f"skipped alone")
             log(f"  lstm_sequence_fwd_chunked {tag}: chunks of index P and "
                 f"-1 NaN, the others unchanged ok")
-            continue
-        res["max_abs_err"] = err
+            if not main_path:
+                continue
+        rec = res if main_path is True else res.setdefault("float16", {})
+        rec["max_abs_err"] = err
         per_policy = [(x[:, rows].contiguous(), keep[:, rows].contiguous(),
                        wr[p], bias[p], c0[rows], h0[rows])
                       for p, rows in by_policy]
@@ -2161,7 +2193,7 @@ def check_lstm_chunked(results):
             f"{loop_ms:.4f} ms, plain {plain_ms:.3f} ms, no library call "
             f"(cuDNN's LSTM takes one weight a call), bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-        res.update(ms=ms, plain_ms=plain_ms, library_ms=None, path=path,
+        rec.update(ms=ms, plain_ms=plain_ms, library_ms=None, path=path,
                    per_policy_ms=loop_ms, chunk=chunk, chunks=chunks,
                    policies=P, **b)
 
@@ -2194,7 +2226,9 @@ def check_lstm_bwd_chunked(results):
     chunks); dwr / db bitwise over two calls and, for a policy of one
     chunk, bitwise the call over that chunk alone; a chunk of index P or -1
     NaN and adding to no policy; the time against the per-policy loop's
-    lstm_sequence_bwd launches over the same rows, and its bound."""
+    lstm_sequence_bwd launches over the same rows, and its bound. Its
+    float16 instance (CUDA cores) at the learn step the same way, its
+    times and bound into ``float16``."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
         LSTM_BWD_CHUNKED, lstm_sequence_bwd, lstm_sequence_bwd_chunked,
@@ -2207,10 +2241,13 @@ def check_lstm_bwd_chunked(results):
         f"sequences each, T = {T}, H = {H}")
     gen = torch.Generator(device="cuda").manual_seed(23)
     res = results["lstm_sequence_bwd_chunked"] = {"max_abs_err": 0.0}
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     shuffled = [2, 0, 3, 2, 1, 0]      # policy 4 of 5 owns no chunk
+    # main_path: True for the bf16 learn step, "float16" for its float16
+    # instance (timed into res["float16"]), False for the ragged checks.
     for dtype, T_c, C, order, main_path in (
             (bf16, T, PBT_MINIBATCH, list(range(P)), True),
+            (f16, T, PBT_MINIBATCH, list(range(P)), "float16"),
             (bf16, 5, 37, shuffled, False), (f32, 5, 37, shuffled, False)):
         P_c = P if main_path else 5
         B = len(order)
@@ -2226,7 +2263,7 @@ def check_lstm_bwd_chunked(results):
         got, path = _routed(LSTM_BWD_CHUNKED, uses_tensor_cores(dtype, H),
                             lstm_sequence_bwd_chunked, *args, ys, cs, probe)
         tag += f" ({path})"
-        if main_path and path != "tensor_core":
+        if main_path is True and path != "tensor_core":
             raise AssertionError(f"lstm_sequence_bwd_chunked {tag}: the "
                                  f"main path took the {path} route")
         leaves = [a.detach().clone().requires_grad_(i in (0, 2, 3, 5, 6))
@@ -2294,7 +2331,7 @@ def check_lstm_bwd_chunked(results):
                                      f"its chunk's alone")
         log(f"  lstm_sequence_bwd_chunked {tag}: dwr / db of policies "
             f"{sorted(alone)} bitwise their chunk's alone ok")
-        if not main_path:
+        if main_path is not True:
             bad = idx.clone()
             bad[1], bad[3] = P_c, -1
             yb, cb = lstm_sequence_fwd_chunked(x, keep, wr, bias, bad, c0,
@@ -2318,9 +2355,11 @@ def check_lstm_bwd_chunked(results):
             log(f"  lstm_sequence_bwd_chunked {tag}: chunks of index P and "
                 f"-1 NaN and in no policy's dwr / db, the others unchanged "
                 f"ok")
-            continue
-        res["max_abs_err"] = err
-        res["path"] = path
+            if not main_path:
+                continue
+        rec = res if main_path is True else res.setdefault("float16", {})
+        rec["max_abs_err"] = err
+        rec["path"] = path
         per_policy = [((x[:, b * C:(b + 1) * C].contiguous(),
                         keep[:, b * C:(b + 1) * C].contiguous(), wr[p],
                         bias[p], c0[b * C:(b + 1) * C],
@@ -2343,7 +2382,7 @@ def check_lstm_bwd_chunked(results):
             f"{plain_ms:.3f} ms, no library call (cuDNN's LSTM takes one "
             f"weight a call and no keep mask), bound {b['bound_ms']:.4f} ms "
             f"({b['bound_by']})")
-        res.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+        rec.update(ms=ms, plain_ms=plain_ms, library_ms=None,
                    per_policy_ms=loop_ms, chunk=C, chunks=B, policies=P_c,
                    dwr_bitwise_single=same, **b)
 
@@ -2398,7 +2437,8 @@ def check_gru_chunked(results):
     over two calls and for the first chunk alone; chunks of index P and -1
     NaN, the others unchanged; its time against one ``gru_sequence_fwd`` a
     policy over the same rows (the per-policy loop's launches) and its
-    bound."""
+    bound. Its float16 instance (CUDA cores) at the collect step the same
+    way, with the NaN chunks, its times and bound into ``float16``."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gru import (
         GRU_FWD_CHUNKED, gru_sequence_fwd, gru_sequence_fwd_chunked,
@@ -2408,13 +2448,14 @@ def check_gru_chunked(results):
     H, T = CHANNELS, STEPS_PER_UPDATE // NUM_BPTT_CHUNKS
     gen = torch.Generator(device="cuda").manual_seed(24)
     res = results["gru_sequence_fwd_chunked"] = {"max_abs_err": 0.0}
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     shuffled = [2, 0, 3, 2, 1, 0]      # policy 4 of 5 owns no chunk
     # (T, chunks, C, P, dtype, role): the collect step, the learn step,
-    # then the ragged, shuffled chunks.
+    # the float16 collect step, then the ragged, shuffled chunks.
     for T_c, chunks, chunk, P_c, dtype, role in (
             (1, B, C, P, bf16, "collect"),
             (T, PBT_TRAIN, PBT_MINIBATCH, PBT_TRAIN, bf16, "learn"),
+            (1, B, C, P, f16, "float16"),
             (5, len(shuffled), 37, 5, bf16, None),
             (5, len(shuffled), 37, 5, f32, None)):
         dname = str(dtype).split(".")[-1]
@@ -2430,7 +2471,7 @@ def check_gru_chunked(results):
                            gru_sequence_fwd_chunked, *args)
         tag = (f"[{T_c}, {chunks} x {chunk}, {3 * H}] P={P_c} {dname} "
                f"({path})")
-        if role and path != "tensor_core":
+        if role in ("collect", "learn") and path != "tensor_core":
             raise AssertionError(f"gru_sequence_fwd_chunked {tag}: the main "
                                  f"path took the {path} route")
         err = compare(f"gru_sequence_fwd_chunked {tag}", ys,
@@ -2455,7 +2496,7 @@ def check_gru_chunked(results):
                     x[:, :chunk].contiguous(), keep[:, :chunk].contiguous(),
                     wh, bias_h, idx[:1].contiguous(), h0[:chunk]),
                 ys[:, :chunk])
-        if role is None:
+        if role in (None, "float16"):
             bad = idx.clone()
             bad[1], bad[3] = P_c, -1
             yb = gru_sequence_fwd_chunked(x, keep, wh, bias_h, bad, h0)
@@ -2467,7 +2508,8 @@ def check_gru_chunked(results):
                                      f"skipped alone")
             log(f"  gru_sequence_fwd_chunked {tag}: chunks of index P and "
                 f"-1 NaN, the others unchanged ok")
-            continue
+            if role is None:
+                continue
         per_policy = [(x[:, rows].contiguous(), keep[:, rows].contiguous(),
                        wh[p], bias_h[p], h0[rows]) for p, rows in by_policy]
         ms = time_ms(lambda: gru_sequence_fwd_chunked(*args))
@@ -2486,6 +2528,8 @@ def check_gru_chunked(results):
                       shape=[T_c, chunks, chunk, 3 * H], policies=P_c, **b)
         if role == "collect":
             res.update(record)     # 33 of the 37 launches an update
+        elif role == "float16":
+            res["float16"] = record
         else:
             res["learn_shape"] = record
 
@@ -2502,7 +2546,9 @@ def check_gru_bwd_chunked(results):
     calls and, for a policy of one chunk, bitwise the call over that chunk
     alone; a chunk of index P or -1 NaN and adding to no policy; the time
     against the per-policy loop's gru_sequence_bwd launches over the same
-    rows, and its bound."""
+    rows, and its bound. Its float16 instance (CUDA cores) at the learn
+    step the same way, with the NaN chunks, its times and bound into
+    ``float16``."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gru import (
         GRU_BWD_CHUNKED, gru_sequence_bwd, gru_sequence_bwd_chunked,
@@ -2512,10 +2558,13 @@ def check_gru_bwd_chunked(results):
     H, T, P = CHANNELS, STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, PBT_TRAIN
     gen = torch.Generator(device="cuda").manual_seed(25)
     res = results["gru_sequence_bwd_chunked"] = {"max_abs_err": 0.0}
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     shuffled = [2, 0, 3, 2, 1, 0]      # policy 4 of 5 owns no chunk
+    # main_path: True for the bf16 learn step, "float16" for its float16
+    # instance (timed into res["float16"]), False for the ragged checks.
     for dtype, T_c, C, order, main_path in (
             (bf16, T, PBT_MINIBATCH, list(range(P)), True),
+            (f16, T, PBT_MINIBATCH, list(range(P)), "float16"),
             (bf16, 5, 37, shuffled, False), (f32, 5, 37, shuffled, False)):
         P_c = P if main_path else 5
         B = len(order)
@@ -2530,7 +2579,7 @@ def check_gru_bwd_chunked(results):
                             gru_sequence_bwd_chunked, *args, ys, probe)
         tag = (f"[{T_c}, {B} x {C}, {3 * H}] P={P_c} {dname} chunks "
                f"{order} ({path})")
-        if main_path and path != "tensor_core":
+        if main_path is True and path != "tensor_core":
             raise AssertionError(f"gru_sequence_bwd_chunked {tag}: the main "
                                  f"path took the {path} route")
         leaves = [a.detach().clone().requires_grad_(i in (0, 2, 3, 5))
@@ -2597,7 +2646,7 @@ def check_gru_bwd_chunked(results):
                                      f"its chunk's alone")
         log(f"  gru_sequence_bwd_chunked {tag}: dwh / dbh of policies "
             f"{sorted(alone)} bitwise their chunk's alone ok")
-        if not main_path:
+        if main_path is not True:
             bad = idx.clone()
             bad[1], bad[3] = P_c, -1
             yb = gru_sequence_fwd_chunked(x, keep, wh, bias_h, bad, h0)
@@ -2616,7 +2665,8 @@ def check_gru_bwd_chunked(results):
             log(f"  gru_sequence_bwd_chunked {tag}: chunks of index P and "
                 f"-1 NaN and in no policy's dwh / dbh, the others unchanged "
                 f"ok")
-            continue
+            if not main_path:
+                continue
         per_policy = [((x[:, b * C:(b + 1) * C].contiguous(),
                         keep[:, b * C:(b + 1) * C].contiguous(), wh[p],
                         bias_h[p], h0[b * C:(b + 1) * C])
@@ -2643,9 +2693,13 @@ def check_gru_bwd_chunked(results):
             f"{plain_ms:.3f} ms, no library call (cuDNN's GRU takes one "
             f"weight a call and no keep mask), bound {b['bound_ms']:.4f} ms "
             f"({b['bound_by']})")
-        res.update(max_abs_err=err, path=path, ms=ms, plain_ms=plain_ms,
-                   library_ms=None, per_policy_ms=loop_ms, chunk=C,
-                   chunks=B, policies=P_c, dwh_bitwise_single=same, **b)
+        record = dict(max_abs_err=err, path=path, ms=ms, plain_ms=plain_ms,
+                      library_ms=None, per_policy_ms=loop_ms, chunk=C,
+                      chunks=B, policies=P_c, dwh_bitwise_single=same, **b)
+        if main_path is True:
+            res.update(record)
+        else:
+            res["float16"] = record
 
 
 def _chunked_step_inputs(gen, B, C, F, H, layers, P, dtype):
@@ -3037,33 +3091,83 @@ def check_grouped_matmul_pbt(results):
     collect step (B chunks of C rows, 12 policies, bf16): the MLP's first
     layer (IN = 2, the CUDA-core route), its second (256 -> 256) and the
     LSTM's input projection (256 -> 1024); each against its plain version,
-    timed beside ``torch.bmm(x, W[idx])``, with its bound."""
+    timed beside ``torch.bmm(x, W[idx])``, with its bound. Then its
+    float16 instance (CUDA cores) at the same shapes (headline_pbt_fp16's
+    collect step): against its plain version, every policy's rows bitwise
+    one single-policy launch over that policy's chunks, timed beside those
+    12 launches, its plain version and ``torch.bmm``, into ``float16``
+    (the 256 -> 1024 projection's times, and every shape's rows in
+    ``float16["pbt_shapes"]``)."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.grouped_matmul import (
         grouped_matmul, grouped_matmul_reference, uses_tensor_cores)
 
     P, C, B = _pbt_chunk_geometry()
     gen = torch.Generator(device="cuda").manual_seed(22)
-    rows = results["grouped_matmul"].setdefault("pbt_shapes", [])
-    for IN, OUT in ((2, CHANNELS), (CHANNELS, CHANNELS),
-                    (CHANNELS, 4 * CHANNELS)):
-        x, w, idx = _gmm_inputs(gen, B, C, IN, P, OUT, torch.bfloat16)
-        path = "tensor_core" if uses_tensor_cores(x, w) else "cuda_core"
-        tag = f"[{B}x{C}, {IN}->{OUT}, P={P}] bfloat16 ({path})"
-        err = compare(f"grouped_matmul headline_pbt {tag}",
-                      grouped_matmul(x, w, idx),
-                      grouped_matmul_reference(x, w, idx),
-                      **TOL[("gmm", "bfloat16")])
-        idx64 = idx.long()
-        ms = time_ms(lambda: grouped_matmul(x, w, idx))
-        library_ms = time_ms(lambda: torch.bmm(x, w[idx64]))
-        b = _gmm_bound(B, C, IN, int(idx.unique().numel()), OUT,
-                       x.element_size())
-        log(f"  grouped_matmul headline_pbt {tag}: kernel {ms:.4f} ms, "
-            f"torch.bmm(x, W[idx]) {library_ms:.4f} ms, bound "
-            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-        rows.append(dict(shape=[B, C, IN, P, OUT], path=path,
-                         max_abs_err=err, ms=ms, library_ms=library_ms, **b))
+    res = results["grouped_matmul"]
+    for dtype in (torch.bfloat16, torch.float16):
+        dname = str(dtype).split(".")[-1]
+        half = dtype == torch.float16
+        rows = (res.setdefault("float16", {}) if half
+                else res).setdefault("pbt_shapes", [])
+        for IN, OUT in ((2, CHANNELS), (CHANNELS, CHANNELS),
+                        (CHANNELS, 4 * CHANNELS)):
+            x, w, idx = _gmm_inputs(gen, B, C, IN, P, OUT, dtype)
+            path = "tensor_core" if uses_tensor_cores(x, w) else "cuda_core"
+            tag = f"[{B}x{C}, {IN}->{OUT}, P={P}] {dname} ({path})"
+            y = grouped_matmul(x, w, idx)
+            err = compare(f"grouped_matmul headline_pbt {tag}", y,
+                          grouped_matmul_reference(x, w, idx),
+                          **TOL[("gmm", dname)])
+            idx64 = idx.long()
+            ms = time_ms(lambda: grouped_matmul(x, w, idx))
+            library_ms = time_ms(lambda: torch.bmm(x, w[idx64]))
+            b = _gmm_bound(B, C, IN, int(idx.unique().numel()), OUT,
+                           x.element_size())
+            row = dict(shape=[B, C, IN, P, OUT], path=path, max_abs_err=err,
+                       ms=ms, library_ms=library_ms, **b)
+            msg = (f"  grouped_matmul headline_pbt {tag}: kernel {ms:.4f} "
+                   f"ms, torch.bmm(x, W[idx]) {library_ms:.4f} ms, bound "
+                   f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+            if half:
+                if path != "cuda_core":
+                    raise AssertionError(f"grouped_matmul {tag}: float16 "
+                                         f"took the {path} route")
+                # One single-policy launch a policy over its chunks.
+                one = torch.zeros(1, dtype=torch.int32, device="cuda")
+                per_policy = []
+                for p in range(P):
+                    chunks = torch.nonzero(idx == p).flatten()
+                    if chunks.numel():
+                        per_policy.append((x[chunks].contiguous(),
+                                           w[p:p + 1], chunks))
+                ones = [one.expand(xp.shape[0]).contiguous()
+                        for xp, _, _ in per_policy]
+                for (xp, wp, chunks), o in zip(per_policy, ones):
+                    if not torch.equal(grouped_matmul(xp, wp, o),
+                                       y[chunks]):
+                        raise AssertionError(
+                            f"grouped_matmul {tag}: a policy's rows differ "
+                            f"from its own launch's")
+                loop_ms = time_ms(lambda: [
+                    grouped_matmul(xp, wp, o)
+                    for (xp, wp, _), o in zip(per_policy, ones)])
+                plain_ms = time_ms(lambda: grouped_matmul_reference(
+                    x, w, idx))
+                row.update(per_policy_ms=loop_ms, plain_ms=plain_ms)
+                msg += (f"; every policy's rows bitwise its own launch, "
+                        f"{len(per_policy)} launches {loop_ms:.4f} ms, "
+                        f"plain {plain_ms:.4f} ms")
+                if OUT == 4 * CHANNELS:
+                    rec = res["float16"]
+                    rec.update({k: row[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "library_ms",
+                        "per_policy_ms", "bound_ms", "bound_by", "path",
+                        "shape")})
+                    rec["max_abs_err"] = max(r["max_abs_err"]
+                                             for r in rows + [row])
+            log(msg)
+            rows.append(row)
 
 
 def kernel_phase():
@@ -4117,9 +4221,12 @@ PBT_MINIBATCH = NUM_BPTT_CHUNKS * PBT_TRAIN_AGENTS // NUM_MINIBATCHES
 
 
 def _pbt_actor_critic(seed, rnn="lstm", critic="dense", fused=False,
-                      separate=False, flagship=False):
-    """The headline's MLP + LSTM in bf16 over the duel's 2 obs; with
-    ``rnn="gru"`` GRU(256, 256, 1, bf16) in the LSTM's place, with
+                      separate=False, flagship=False, dtype=None,
+                      window=None):
+    """The headline's MLP + LSTM in bf16 (or ``dtype``: headline_fp16's
+    model in float16) over the duel's 2 obs; with ``window``
+    headline_window's WindowAttentionMemory(256, window, WINDOW_HEADS) in
+    the LSTM's place; with ``rnn="gru"`` GRU(256, 256, 1) in its place, with
     ``critic`` "dreamer" or "hlgauss_two_part" that distributional critic
     in the dense critic's place, with ``fused`` the headline_fused tower
     (``use_fused_step`` and ``fuse_input_proj``, as
@@ -4133,19 +4240,26 @@ def _pbt_actor_critic(seed, rnn="lstm", critic="dense", fused=False,
     from madrona_learn_tpu_torch.models import (
         GRU, LSTM, MLP, ActorCritic, BackboneSeparate, BackboneShared,
         DenseLayerCritic, DenseLayerDiscreteActor, DictActor,
-        DreamerV3Critic, HLGaussTwoPartCritic, RecurrentBackboneEncoder)
+        DreamerV3Critic, HLGaussTwoPartCritic, RecurrentBackboneEncoder,
+        WindowAttentionMemory)
 
-    dtype = torch.bfloat16
+    dtype = dtype or torch.bfloat16
     if flagship:
         return _flagship_actor_critic(dtype, 128, 256, 4, CHANNELS, seed)
     gen = torch.Generator().manual_seed(seed)
 
     def tower():
         net = MLP(2, CHANNELS, 2, dtype, generator=gen)
-        recurrence = (LSTM(CHANNELS, CHANNELS, 1, dtype, generator=gen,
-                           fuse_input_proj=True) if fused else
-                      {"lstm": LSTM, "gru": GRU}[rnn](
-                          CHANNELS, CHANNELS, 1, dtype, generator=gen))
+        if window is not None:
+            recurrence = WindowAttentionMemory(CHANNELS, window,
+                                               WINDOW_HEADS, dtype,
+                                               generator=gen)
+        elif fused:
+            recurrence = LSTM(CHANNELS, CHANNELS, 1, dtype, generator=gen,
+                              fuse_input_proj=True)
+        else:
+            recurrence = {"lstm": LSTM, "gru": GRU}[rnn](
+                CHANNELS, CHANNELS, 1, dtype, generator=gen)
         return RecurrentBackboneEncoder(net=net, rnn=recurrence,
                                         use_fused_step=fused)
 
@@ -4174,12 +4288,14 @@ def _duel_scores(er):
 
 
 def _pbt_policy(**model):
+    """The obs cast to the model's dtype."""
     import torch
     import madrona_learn_tpu_torch as mlt
 
     return mlt.Policy(
         actor_critic=lambda seed: _pbt_actor_critic(seed, **model),
-        obs_preprocess=mlt.ObservationsCaster.create(dtype=torch.bfloat16),
+        obs_preprocess=mlt.ObservationsCaster.create(
+            dtype=model.get("dtype") or torch.bfloat16),
         get_episode_scores=_duel_scores)
 
 
@@ -4195,10 +4311,12 @@ def build_headline_pbt(hooks, restore_ckpt=None, custom_policy_ids=(),
                        sim_fns=None, **model):
     """BASELINE config #4 as ``benchmarks/profile_pbt.py`` builds it; from
     checkpoint ``restore_ckpt`` if given, with ``custom_policy_ids`` over
-    ``sim_fns`` (the duel) if given; ``model`` picks the recurrence and the
-    critic (``_pbt_actor_critic``), a distributional critic under its
-    TrainConfig flag. The flagship (``flagship=True``) plays the duel
-    through its entity sets, with its action space and critic."""
+    ``sim_fns`` (the duel) if given; ``model`` picks the recurrence, the
+    critic and the dtype (``_pbt_actor_critic``), a distributional critic
+    under its TrainConfig flag, a float16 model with
+    ``compute_dtype=float16`` (dynamic loss scaling). The flagship
+    (``flagship=True``) plays the duel through its entity sets, with its
+    action space and critic."""
     import torch
     import madrona_learn_tpu_torch as mlt
 
@@ -4228,7 +4346,7 @@ def build_headline_pbt(hooks, restore_ckpt=None, custom_policy_ids=(),
                           policy_overwrite_threshold=0.5),
         dreamer_v3_critic=flagship or model.get("critic") == "dreamer",
         hlgauss_critic=model.get("critic") == "hlgauss_two_part",
-        compute_dtype=torch.bfloat16,
+        compute_dtype=model.get("dtype") or torch.bfloat16,
         custom_policy_ids=list(custom_policy_ids))
     return mlt.init_training(
         "cuda", cfg, sim_fns or _duel_env(), _pbt_policy(**model),
@@ -4613,14 +4731,25 @@ def _pbt_phase(card, mgr, timer, checks):
 PBT_RATIO_DEV = 1e-3
 
 
-def _pbt_learn_ab(card, mgr):
+def _pbt_learn_ab(card, mgr, force=None):
     """One update's learn of the trained population, from one collect's
     rollout data and copies of one learn state: batched (the stacks,
     ``ppo._ppo_population``, the write-back) and on the per-policy loop
     (``ppo._ppo`` a train policy), each timed (synchronized) with its
-    launches by kernel, and once more under the profiler; then the largest
-    parameter difference between the two. The learn state is restored
-    after."""
+    launches by kernel, the batched one once more under the profiler (the
+    loop's ~20,000-90,000 launches are no longer traced, as in
+    ``_pbt_collect_ab``); then the largest parameter difference between
+    the two. The learn state (the loss
+    scalers' too) is restored after.
+
+    With ``force`` (a train policy, float16 populations), each path runs
+    once, unprofiled, with that policy's loss scale set to 2^40 first, so
+    that its float16 backward overflows at every minibatch: on the
+    batched path its Adam state must stay bitwise as it was, its
+    parameters too where no per-step projection applies again (the
+    tracked kernels and the LayerNorm affines within 1e-6 relative), its
+    scale halve a minibatch; every policy's scaler must equal the loop's
+    bitwise and every parameter the loop's by the usual rule."""
     import copy
     import torch
     from madrona_learn_tpu_torch.train_state import StackedTrainState
@@ -4633,19 +4762,29 @@ def _pbt_learn_ab(card, mgr):
         mgr.state, _copy_rollout(mgr.rollout), copy.deepcopy(mgr.metrics),
         hooks.start_rollouts, hooks.finish_rollouts, hooks.rollout_metrics)
 
+    def scaler_copy(ts):
+        return (None if ts.scaler_state is None else
+                {k: v.clone() for k, v in ts.scaler_state.items()})
+
     def snapshot():
         return [({k: v.detach().clone() for k, v in
                   population[p].actor_critic.named_parameters()},
-                 copy.deepcopy(ts.opt_state), ts.generator.get_state())
+                 copy.deepcopy(ts.opt_state), ts.generator.get_state(),
+                 scaler_copy(ts))
                 for p, ts in enumerate(train_states)]
 
     def restore(saved):
         with torch.no_grad():
-            for p, (params, opt, gen) in enumerate(saved):
+            for p, (params, opt, gen, scaler) in enumerate(saved):
                 for k, v in population[p].actor_critic.named_parameters():
                     v.copy_(params[k])
                 train_states[p].opt_state = copy.deepcopy(opt)
                 train_states[p].generator.set_state(gen)
+                if scaler is not None:
+                    train_states[p].scaler_state = {
+                        k: v.clone() for k, v in scaler.items()}
+                    if p == force:
+                        train_states[p].scaler_state["scale"].fill_(2.0 ** 40)
 
     start = snapshot()
 
@@ -4669,12 +4808,18 @@ def _pbt_learn_ab(card, mgr):
 
     out, after = {}, {}
     for path in ("batched", "per-policy loop"):
-        learn(path, fresh())   # warm-up
+        if force is None:
+            learn(path, fresh())   # warm-up
         metrics = fresh()
         _zero_launch_counts()
         _, ms = _timed(lambda: learn(path, metrics))
         launches = {k: v for k, v in _launch_counts()[0].items() if v}
         after[path] = snapshot()
+        if force is not None or path != "batched":
+            out[path] = dict(learn_ms=ms, launches=launches)
+            log(f"  learn ({path}): {ms:.1f} ms, launches {launches} on "
+                f"{card}")
+            continue
         metrics = fresh()
         _, n, busy_ms, wall_ms = _count_launches(
             lambda: learn(path, metrics))
@@ -4683,17 +4828,19 @@ def _pbt_learn_ab(card, mgr):
         log(f"  learn ({path}): {ms:.1f} ms, launches {launches}; "
             f"profiled: {n} launches, kernels {busy_ms:.1f} ms of "
             f"{wall_ms:.1f} ms on {card}")
+    force, forced = None, force
     restore(start)
     diff = max((a[k].float() - b[k].float()).abs().max().item()
-               for (a, _, _), (b, _, _) in zip(after["batched"],
-                                               after["per-policy loop"])
+               for (a, *_), (b, *_) in zip(after["batched"],
+                                           after["per-policy loop"])
                for k in a)
     moved = max((a[k].float() - b[k].float()).abs().max().item()
-                for (a, _, _), (b, _, _) in zip(after["per-policy loop"],
-                                                start)
+                for (a, *_), (b, *_) in zip(after["per-policy loop"], start)
                 for k in a)
     speedup = out["per-policy loop"]["learn_ms"] / out["batched"]["learn_ms"]
-    log(f"  learn, batched vs per-policy loop: largest parameter "
+    what = ("" if forced is None
+            else f" (train policy {forced}'s scale forced to 2^40)")
+    log(f"  learn{what}, batched vs per-policy loop: largest parameter "
         f"difference {diff:.3e} (the loop moved a parameter by up to "
         f"{moved:.3e}); learn ms, per-policy loop / batched: "
         f"{speedup:.2f}")
@@ -4704,7 +4851,59 @@ def _pbt_learn_ab(card, mgr):
         raise AssertionError(f"headline_pbt: the batched learn and the "
                              f"per-policy loop differ by {diff}, more than "
                              f"twice the loop's largest move ({moved})")
-    return dict(learn_ab=dict(out, max_param_diff=diff, max_param_move=moved))
+    if forced is None:
+        return dict(learn_ab=dict(out, max_param_diff=diff,
+                                  max_param_move=moved))
+    _check_forced_nonfinite(forced, train_states[forced], start[forced],
+                            after)
+    return dict(nonfinite_ab=dict(out, policy=forced, max_param_diff=diff,
+                                  max_param_move=moved))
+
+
+def _check_forced_nonfinite(p, train_state, start, after):
+    """``_pbt_learn_ab``'s checks of policy p, whose scale was 2^40 at the
+    start of the learn (``start``: its parameters, Adam state, generator
+    and scaler before; ``after``: every policy's after each path)."""
+    import torch
+
+    params0, opt0, _, _ = start
+    params, opt, _, scaler = after["batched"][p]
+    new = dict(_tree_leaves(vars(opt)))
+    for name, v in _tree_leaves(vars(opt0)):
+        if not torch.equal(v, new[name]):
+            raise AssertionError(f"forced non-finite policy {p}: Adam "
+                                 f"{name} changed")
+    projected = set(train_state.initial_weight_norms)
+    worst = 0.0
+    for name, v in params0.items():
+        if name in projected or "LayerNorm" in name:
+            rel = ((params[name] - v).abs().max()
+                   / v.abs().max().clamp(min=1e-30)).item()
+            worst = max(worst, rel)
+            if not rel <= 1e-6:
+                raise AssertionError(f"forced non-finite policy {p}: {name} "
+                                     f"moved by {rel:.3e} of its largest "
+                                     f"value")
+        elif not torch.equal(params[name], v):
+            raise AssertionError(f"forced non-finite policy {p}: {name} "
+                                 f"changed")
+    want_scale = 2.0 ** 40 * 0.5 ** NUM_MINIBATCHES
+    if float(scaler["scale"]) != want_scale or int(scaler["fin_steps"]):
+        raise AssertionError(f"forced non-finite policy {p}: scaler "
+                             f"{ {k: v.item() for k, v in scaler.items()} }, "
+                             f"expected scale {want_scale} and fin_steps 0")
+    for q, (b, l) in enumerate(zip(after["batched"],
+                                   after["per-policy loop"])):
+        for k in b[3]:
+            if not torch.equal(b[3][k], l[3][k]):
+                raise AssertionError(f"policy {q}: scaler {k} "
+                                     f"{b[3][k].item()} batched, "
+                                     f"{l[3][k].item()} on the loop")
+    log(f"  forced non-finite policy {p} (scale 2^40 before the learn): "
+        f"Adam state bitwise kept, parameters bitwise kept (the projected "
+        f"ones within {worst:.1e} relative), scale {want_scale:.0f} after "
+        f"{NUM_MINIBATCHES} minibatches; every policy's scaler bitwise the "
+        f"loop's ok")
 
 
 def _count_launches(fn):
@@ -4741,7 +4940,11 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
     train policy, and ``timed_updates`` timed ones (agent-steps/s), with
     the launches exact (``per_update``, every other kernel 0), finite
     losses and metrics; then, with ``collect_ab``, the collect A/B, and
-    the learn A/B (``_pbt_collect_ab``, ``_pbt_learn_ab``)."""
+    the learn A/B (``_pbt_collect_ab``, ``_pbt_learn_ab``). A float16
+    model (``dtype``) must launch nothing on tensor cores; each policy's
+    loss scale and non-finite steps are printed after the updates, and
+    the learn A/B runs again with train policy 1's scale forced to 2^40
+    (``_pbt_learn_ab(force=1)``)."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda import KERNELS
     from madrona_learn_tpu_torch.train import TrainHooks
@@ -4756,8 +4959,10 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
                              f"policy-chunk layout and the batched learn")
     expected = {k.name: 0 for k in KERNELS}
     expected.update(per_update)
-    log(f"{name} trainer: headline_pbt's population with {model}, bf16; "
-        f"expected launches per update "
+    dtype = model.get("dtype") or torch.bfloat16
+    half = dtype == torch.float16
+    log(f"{name} trainer: headline_pbt's population with {model}, "
+        f"{str(dtype).split('.')[-1]}; expected launches per update "
         f"{ {k: v for k, v in expected.items() if v} }")
     _zero_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -4788,13 +4993,14 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
         raise AssertionError(f"{name}: launches over {num_updates} updates "
                              f"{launches}, expected {want}")
     for kernel, n in tc.items():
-        if n != launches[kernel]:
+        if n != (0 if half else launches[kernel]):
             raise AssertionError(f"{name}: {kernel}: {n} of "
                                  f"{launches[kernel]} launches on the "
                                  f"tensor-core route")
     log(f"  launches over {num_updates} updates: "
-        f"{ {k: v for k, v in launches.items() if v} }, all on the "
-        f"tensor-core route where it exists")
+        f"{ {k: v for k, v in launches.items() if v} }, "
+        + ("none on tensor cores (the float16 instances)" if half else
+           "all on the tensor-core route where it exists"))
     if not bool(torch.isfinite(torch.stack(losses)).all()):
         raise AssertionError(f"{name}: non-finite loss")
     for metric, m in mgr.metrics.metrics.items():
@@ -4805,8 +5011,17 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
     log(f"  {name} agent-steps/s ({timed_updates} updates, "
         f"{seconds * 1e3 / timed_updates:.1f} ms/update): {sps:.0f} on "
         f"{card}; peak {peak_gib:.2f} GiB")
+    if half:
+        scales = [(ts.scaler_state["scale"].item(),
+                   int(s["nonfinite_steps"]))
+                  for ts, s in zip(mgr.state.train_states,
+                                   mgr.first_minibatch_stats)]
+        log(f"  loss scale and the last update's non-finite steps by train "
+            f"policy: {scales}")
     ab = _pbt_collect_ab(card, mgr) if collect_ab else {}
     ab.update(_pbt_learn_ab(card, mgr))
+    if half:
+        ab.update(_pbt_learn_ab(card, mgr, force=1))
     return launches, dict(sps=sps, ratio_dev=max(ratios), peak_gib=peak_gib,
                           **ab)
 
@@ -4896,9 +5111,12 @@ def _pbt_collect_ab(card, mgr):
     state and of the metrics, through the chunked path, through the
     per-policy loop (``population_rollout_loop`` called in the chunked
     loop's place: the same collect, store and bootstrap around it) and
-    with ``chunkwise_rnn`` on: each timed (synchronized) and once more
-    under the profiler for its launches and kernel time. The chunkwise
-    collect must give the chunked one's rollout data bitwise."""
+    with ``chunkwise_rnn`` on: each timed (synchronized), the chunked
+    collect once more under the profiler for its launches and kernel
+    time. The chunkwise collect must give the chunked one's rollout data
+    bitwise. (The profiler's processing takes ~0.6 ms a launch on the
+    host, so the per-policy loop's ~35,000-90,000 launches a collect are
+    no longer traced: its launches are in PERF.md from earlier runs.)"""
     import copy
     import torch
     import madrona_learn_tpu_torch.rollouts as rollouts
@@ -4935,18 +5153,20 @@ def _pbt_collect_ab(card, mgr):
     for path in ("chunked", "per-policy loop", "chunkwise"):
         collect(path)   # warm-up
         runs[path], ms = _timed(lambda: collect(path))
-        _, n, busy_ms, wall_ms = _count_launches(lambda: collect(path))
         out[path] = dict(collect_ms=ms,
                          agent_steps_per_s=STEPS_PER_UPDATE * agents / ms
-                         * 1e3,
-                         launches_per_step=n / STEPS_PER_UPDATE,
-                         kernel_ms=busy_ms, profiled_wall_ms=wall_ms,
-                         idle=1 - busy_ms / wall_ms)
-        log(f"  collect through the {path}: {ms:.1f} ms "
-            f"({out[path]['agent_steps_per_s']:.0f} agent-steps/s); "
-            f"profiled: {n} launches ({n / STEPS_PER_UPDATE:.0f} a collect "
-            f"step), kernels {busy_ms:.1f} ms of {wall_ms:.1f} ms, idle "
-            f"{out[path]['idle']:.1%} on {card}")
+                         * 1e3)
+        msg = (f"  collect through the {path}: {ms:.1f} ms "
+               f"({out[path]['agent_steps_per_s']:.0f} agent-steps/s)")
+        if path == "chunked":
+            _, n, busy_ms, wall_ms = _count_launches(lambda: collect(path))
+            out[path].update(launches_per_step=n / STEPS_PER_UPDATE,
+                             kernel_ms=busy_ms, profiled_wall_ms=wall_ms,
+                             idle=1 - busy_ms / wall_ms)
+            msg += (f"; profiled: {n} launches ({n / STEPS_PER_UPDATE:.0f} "
+                    f"a collect step), kernels {busy_ms:.1f} ms of "
+                    f"{wall_ms:.1f} ms, idle {out[path]['idle']:.1%}")
+        log(f"{msg} on {card}")
     (data, state), (want, want_state) = runs["chunkwise"], runs["chunked"]
     for name, x in _tree_leaves(want):
         if not torch.equal(x, dict(_tree_leaves(data))[name]):
@@ -5334,9 +5554,9 @@ def _range_split(prof):
     outside any PyTorch op (the rollout step's recurrence, ``gae``) are
     linked to no op, and the backward's launch from autograd's device
     thread. Also returns the count of device events whose launch was not
-    found (placed after the device work before them), of the kernel
-    launches whose device event is not in the trace, and of all device
-    events."""
+    found (placed after the device work before them), the positions in
+    launch order of the kernel launches whose device event is not in the
+    trace, and the count of all device events."""
     from torch.autograd import DeviceType
 
     events = prof.events()
@@ -5388,9 +5608,10 @@ def _range_split(prof):
     # Kernel launches whose device work is not in the trace: records the
     # profiler lost.
     worked = {e.id for _, e, _ in work}
-    lost = sum(1 for e in events if e.device_type == DeviceType.CPU
-               and e.name.startswith(("cudaLaunch", "cuLaunch"))
-               and e.id not in worked)
+    launches = sorted((e for e in events if e.device_type == DeviceType.CPU
+                       and e.name.startswith(("cudaLaunch", "cuLaunch"))),
+                      key=lambda e: e.time_range.start)
+    lost = [i for i, e in enumerate(launches) if e.id not in worked]
     return split, placed, unmatched, lost, len(work)
 
 
@@ -5416,26 +5637,37 @@ def _tools_trace_update(mgr, expected):
     """One traced update; returns its launches, its split, and the kernels
     of ``RANGE_KERNELS`` with fewer launches in the trace than counted."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    _zero_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # A trace can lack device records (a whole script's run on an H100
+    # lost ~80 launches' in each of three traces in a row, one counted
+    # lstm_sequence_fwd among them), so the profiler first traces one
+    # update and discards it (its warm-up step), then traces the one
+    # checked here; the lost launches' positions are printed.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        mgr.update_iter()
         torch.cuda.synchronize()
+        prof.step()
+        _zero_launch_counts()
         t0 = time.perf_counter()
         mgr.update_iter()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
     launches = _check_launches("profiled update", expected)
     split, placed, unmatched, lost, device_events = _range_split(prof)
     missing = [n for n, r in split.items() if not r["count"]]
     if missing:
         raise AssertionError(f"tools: ranges missing from the trace: "
                              f"{missing}")
+    where = (f", launches {lost[0]}-{lost[-1]} of the update's" if lost
+             else "")
     log(f"  ranges of one update (profiler on, {wall_ms:.1f} ms wall, "
         f"{device_events} device events, {unmatched} with no launch "
-        f"found, {lost} launches with no device event): device ms / "
-        f"wall ms / occurrences")
+        f"found, {len(lost)} launches with no device event{where}): device "
+        f"ms / wall ms / occurrences")
     for name in ("Update Iter",) + TOP_RANGES + INNER_RANGES:
         r = split[name]
         log(f"    {name:28s} {r['device_ms']:9.3f} {r['wall_ms']:9.3f} "
@@ -6050,9 +6282,17 @@ def timing_phase():
 
 
 def main():
+    import torch
+
+    t0 = time.perf_counter()
+
+    def elapsed(what):
+        log(f"elapsed after {what}: {time.perf_counter() - t0:.0f} s")
+
     card = device_phase()
     build_phase()
     results = kernel_phase()
+    elapsed("the kernel checks")
     model_phase()
     launches_by_path = {"layer_norm_module": layer_norm_module_phase(),
                         "grouped_matmul_op": grouped_matmul_op_phase()}
@@ -6140,6 +6380,7 @@ def main():
             num_worlds=LARGE_WORLDS),
     }
     two_hot_loss_timing(card)
+    elapsed("the single-policy trainer phases")
     headline_sps = paths["headline"][1]["sps"]
     for name, (launches, r) in paths.items():
         launches_by_path[name] = launches
@@ -6155,6 +6396,7 @@ def main():
         f"GiB on {card}")
     launches_by_path["checkpoint_eval"] = checkpoint_eval_phase(card,
                                                                 r.pop("mgr"))
+    elapsed("headline_pbt and checkpoint_eval")
     # headline_pbt's population with the GRU, with each distributional
     # critic and with the fused trunk: one batched pass a rollout step
     # (five products a step, four for the bootstrap; the two-part critic
@@ -6199,9 +6441,26 @@ def main():
              {"gae": 1, "lstm_sequence_fwd_chunked": 2 * STEPS_PER_UPDATE
               + 1 + 2 * NUM_MINIBATCHES,
               "lstm_sequence_bwd_chunked": 2 * NUM_MINIBATCHES,
-              "grouped_matmul": 8 * STEPS_PER_UPDATE + 4}, 1, False)):
+              "grouped_matmul": 8 * STEPS_PER_UPDATE + 4}, 1, False),
+            # The headline's model in float16 (headline_fp16's) and the GRU
+            # in float16: headline_pbt's and headline_pbt_gru's launches on
+            # the CUDA-core float16 instances, loss scaling a policy.
+            ("headline_pbt_fp16", dict(dtype=torch.float16), pbt_lstm, 1,
+             True),
+            ("headline_pbt_gru_fp16", dict(rnn="gru", dtype=torch.float16),
+             {"gae": 1, "gru_sequence_fwd_chunked": steps,
+              "gru_sequence_bwd_chunked": NUM_MINIBATCHES,
+              "grouped_matmul": 5 * STEPS_PER_UPDATE + 4}, 1, False),
+            # headline_window's memory: no recurrent kernel; grouped_matmul
+            # 8 times a step (the MLP's two Dense layers, q, k, v, out, the
+            # two heads), 7 for the bootstrap (no actor). The learn's
+            # products are torch.bmm.
+            ("headline_pbt_window", dict(window=WINDOW),
+             {"gae": 1, "grouped_matmul": 8 * STEPS_PER_UPDATE + 7}, 1,
+             True)):
         launches, r = pbt_variant_phase(card, name, model, per_update, timed,
                                         collect_ab)
+        elapsed(name)
         launches_by_path[name] = launches
         log(f"{name}: {r['sps']:.0f} agent-steps/s (headline_pbt "
             f"{paths_pbt_sps:.0f} in this run), max |ratio - 1| over the "
@@ -6256,9 +6515,10 @@ def main():
         log(f"{name}: {r['sps']:.0f} env-steps/s (headline {headline_sps:.0f} "
             f"in this run), max |ratio - 1| {r['ratio_dev']:.3e}, peak "
             f"{r['peak_gib']:.2f} GiB on {card}")
+    elapsed("the model zoo")
     launches_by_path["tools"], _ = tools_phase(card)
+    elapsed("tools")
 
-    import torch
     from madrona_learn_tpu_torch.ops.cuda import KERNELS
 
     kernels = []

@@ -9,7 +9,8 @@
 //
 // Contract (the plain version is ops/cuda/grouped_matmul.py:
 // grouped_matmul_reference): x [B, C, IN] and weights [P, IN, OUT] in one
-// storage type (float32 or bfloat16), chunk_policy [B] int32 in [0, P); the
+// storage type (float32, bfloat16 or float16), chunk_policy [B] int32 in
+// [0, P); the
 // product summed in f32 over IN and rounded once to the storage type. A
 // chunk whose index lies outside [0, P) gets NaN rows instead of a read out
 // of bounds.
@@ -36,8 +37,9 @@
 //   bit), both read by descriptor from shared memory.
 // - The f32 accumulators are rounded once to bf16, staged through shared
 //   memory and stored 16 bytes a thread. No split over IN: deterministic.
-// float32, and bf16 with IN or OUT not a multiple of 8 or x or W off a
-// 16-byte boundary (rows TMA cannot address), take grouped_matmul_kernel: the classic CUDA-core tiled
+// float32, float16, and bf16 with IN or OUT not a multiple of 8 or x or W
+// off a 16-byte boundary (rows TMA cannot address), take
+// grouped_matmul_kernel: the classic CUDA-core tiled
 // product. A block of 256 threads owns a 64 x 64 tile of one chunk's
 // output; it stages 16-deep slices of the chunk's rows and of the policy's
 // weight columns in shared memory as f32, and each thread accumulates a 4 x
@@ -317,8 +319,9 @@ int launch_tc(const void* x, const void* w, const int* chunk_policy, void* y,
 
 }  // namespace
 
-// tensor_core: 1 for the bf16 tensor-core path (IN and OUT multiples of 8),
-// 0 for the CUDA-core path; the wrapper's rule picks it.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. tensor_core: 1 for the
+// bf16 tensor-core path (IN and OUT multiples of 8), 0 for the CUDA-core
+// path; the wrapper's rule picks it.
 extern "C" int mlt_grouped_matmul(int dtype, int tensor_core, const void* x,
                                   const void* w, const void* chunk_policy,
                                   void* y, int chunks, int rows, int in,
@@ -337,5 +340,7 @@ extern "C" int mlt_grouped_matmul(int dtype, int tensor_core, const void* x,
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, w, idx, y, chunks, rows, in, policies,
                                  out, s);
+  if (dtype == 2)
+    return launch<__half>(x, w, idx, y, chunks, rows, in, policies, out, s);
   return -1;
 }

@@ -106,9 +106,10 @@
 // the rows are [num_chunks][chunk], each chunk of one policy; a block owns
 // one row tile of one chunk (fwd_rows, chunk_rows.cuh) and reads its
 // policy's slice of the [P, H, 3H] / [P, H] stacks: by a pointer offset on
-// CUDA cores, by the third coordinate of one TMA map over the whole stack
-// on tensor cores (Wh, and the backward's [P, 3H, H] Wh^T stack). A row's
-// arithmetic is the single-policy kernel's, so every row equals
+// CUDA cores (float32, float16), by the third coordinate of one TMA map
+// over the whole stack on tensor cores (bf16: Wh, and the backward's
+// [P, 3H, H] Wh^T stack). A row's arithmetic is the single-policy
+// kernel's, so every row equals
 // gru_sequence_fwd's / _bwd's with its policy's weights bitwise; a chunk of
 // no policy (index P or -1) writes NaN rows and reads no weight. The
 // backward's weight gradients split each chunk's own T * chunk rows (the
@@ -1117,8 +1118,8 @@ extern "C" int mlt_gru_fwd_tc(int hidden, int rows, int stages,
 // chunk c with the weights of policy chunk_policy[c] of the [num_policies,
 // H, 3H] / [num_policies, H] stacks (a chunk of no policy is skipped, its
 // rows NaN). tensor_core 1 takes the bf16 tensor-core kernel (R = 32, 4
-// stages: the wrapper's FWD_TC_ROWS, FWD_TC_STAGES), 0 the float32
-// CUDA-core one. Returns a cudaError_t, or -1 for arguments without an
+// stages: the wrapper's FWD_TC_ROWS, FWD_TC_STAGES), 0 the CUDA-core one
+// (float32, float16). Returns a cudaError_t, or -1 for arguments without an
 // instantiation.
 extern "C" int mlt_gru_fwd_chunked(int tensor_core, int dtype, int hidden,
                                    const void* xp, const void* keep,
@@ -1145,16 +1146,11 @@ extern "C" int mlt_gru_fwd_chunked(int tensor_core, int dtype, int hidden,
 #undef MLT_FWD_CHUNKED_TC
     return -1;
   }
-  if (dtype != 0) return -1;
-  if (hidden == 128)
-    return launch_fwd<float, 128>(xp, keep, wh, bias_h, h0, ys, steps,
-                                  n_rows, s, chunk_policy, num_chunks, chunk,
-                                  num_policies);
-  if (hidden == 256)
-    return launch_fwd<float, 256>(xp, keep, wh, bias_h, h0, ys, steps,
-                                  n_rows, s, chunk_policy, num_chunks, chunk,
-                                  num_policies);
-  return -1;
+#define MLT_FWD_CHUNKED(T, H)                                              \
+  launch_fwd<T, H>(xp, keep, wh, bias_h, h0, ys, steps, n_rows, s,          \
+                   chunk_policy, num_chunks, chunk, num_policies)
+  MLT_DISPATCH_F32_F16(MLT_FWD_CHUNKED);
+#undef MLT_FWD_CHUNKED
 }
 
 // gru_sequence_bwd_chunked: the backward of gru_sequence_fwd_chunked over
@@ -1167,7 +1163,8 @@ extern "C" int mlt_gru_fwd_chunked(int tensor_core, int dtype, int hidden,
 // a policy without a chunk). tensor_core 1 takes the bf16 tensor-core
 // recurrence and weight-gradient pass (hin: [T, N, H] scratch; part_w
 // [num_chunks * splits, H, 3H], part_b [num_chunks * ceil(chunk / 32), H];
-// db is dbh [num_policies, H]), 0 the float32 CUDA-core kernels (hin
+// db is dbh [num_policies, H]), 0 the CUDA-core kernels (float32,
+// float16; hin
 // unused; part_w and part_b [num_chunks * splits, ...]; db is db3
 // [num_policies, 3H], whose last H columns are dbh). Returns a
 // cudaError_t, or -1 for arguments without an instantiation.
@@ -1197,17 +1194,12 @@ extern "C" int mlt_gru_bwd_chunked(
 #undef MLT_BWD_CHUNKED_TC
     return -1;
   }
-  if (dtype != 0) return -1;
-#define MLT_BWD_CHUNKED(H)                                                  \
-  if (hidden == H)                                                         \
-    return launch_bwd<float, H>(xp, keep, wh, wh_t, bias_h, h0, ys, dys,    \
-                                dxp, dhp, dh0, part_w, part_b, dwh, db,     \
-                                steps, n_rows, splits, s, chunk_policy,     \
-                                num_chunks, chunk, num_policies)
-  MLT_BWD_CHUNKED(128);
-  MLT_BWD_CHUNKED(256);
+#define MLT_BWD_CHUNKED(T, H)                                              \
+  launch_bwd<T, H>(xp, keep, wh, wh_t, bias_h, h0, ys, dys, dxp, dhp, dh0,  \
+                   part_w, part_b, dwh, db, steps, n_rows, splits, s,       \
+                   chunk_policy, num_chunks, chunk, num_policies)
+  MLT_DISPATCH_F32_F16(MLT_BWD_CHUNKED);
 #undef MLT_BWD_CHUNKED
-  return -1;
 }
 
 #undef MLT_DISPATCH_F32_F16

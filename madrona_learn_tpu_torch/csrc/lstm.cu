@@ -112,9 +112,9 @@
 // weights. Here the rows are [B][C], a block owns one row tile of one chunk
 // (fwd_rows, chunk_rows.cuh: no block straddles two policies, and C need
 // not be a multiple of R), and reads its policy's slice of the [P, H, 4H] / [P, 4H] stacks:
-// by a pointer offset on CUDA cores, by the third coordinate of one TMA map
-// over the whole stack on tensor cores (no map a policy, no gathered copy
-// of the weights). A row's arithmetic is the single-policy kernel's, so
+// by a pointer offset on CUDA cores (float32, float16), by the third
+// coordinate of one TMA map over the whole stack on tensor cores (no map
+// a policy, no gathered copy of the weights). A row's arithmetic is the single-policy kernel's, so
 // every row equals lstm_sequence_fwd's with its policy's weights bitwise.
 // Bound as the forward: streaming each block's policy's Wr from L2 a step;
 // the 12 policies' 6 MiB stay resident.
@@ -129,7 +129,8 @@
 // policy's rows t * N + n are not contiguous, so the weight-gradient pass
 // splits each chunk's own T * chunk rows: the tensor-core pass reads them
 // through maps of [T * chunks] slices of [chunk][K] (weight_grad_tc.cuh),
-// the CUDA-core pass by index (weight_grad.cuh), each chunk's splits by the
+// the CUDA-core pass (float32 and float16) by index (weight_grad.cuh),
+// each chunk's splits by the
 // single-policy rule over its rows, and sum_by_policy adds a policy's
 // chunks' partials (db: its chunks' block partials) in chunk order. So a
 // policy's dWr / db do not depend on the other chunks: alone or among 8
@@ -1876,8 +1877,8 @@ extern "C" int mlt_lstm_fwd_chunked(int tensor_core, int dtype, int hidden,
 // each (0 for a policy without a chunk). tensor_core 1 takes the bf16
 // tensor-core recurrence and weight-gradient pass (hin: [T, N, H] scratch;
 // part_w [num_chunks * splits, H, 4H], part_b [num_chunks * ceil(chunk /
-// 16), 4H]), 0 the float32 CUDA-core kernels (hin unused; part_w and
-// part_b [num_chunks * splits, ...]). Returns a cudaError_t, or -1 for
+// 16), 4H]), 0 the float32 or float16 CUDA-core kernels (hin unused;
+// part_w and part_b [num_chunks * splits, ...]). Returns a cudaError_t, or -1 for
 // arguments without an instantiation.
 extern "C" int mlt_lstm_bwd_chunked(
     int tensor_core, int dtype, int hidden, const void* xp, const void* keep,
@@ -1910,7 +1911,7 @@ extern "C" int mlt_lstm_bwd_chunked(
   launch_bwd<T, H>(xp, keep, wr, wr_t, bias, c0, h0, ys, cs, dys, dxp, dh0, \
                    dc0, part_w, part_b, dwr, db, steps, n_rows, splits, s,  \
                    chunk_policy, num_chunks, chunk, num_policies)
-  MLT_DISPATCH_F32(MLT_BWD_CHUNKED);
+  MLT_DISPATCH_F32_F16(MLT_BWD_CHUNKED);
 #undef MLT_BWD_CHUNKED
 }
 

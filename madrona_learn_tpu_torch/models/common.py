@@ -48,7 +48,7 @@ from ..ops.cuda.layer_norm import layer_norm
 from ..utils.profile import profile
 
 # The compute dtypes of the policy-batched forms: grouped_matmul's.
-CHUNKED_DTYPES = (torch.float32, torch.bfloat16)
+CHUNKED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 class StackedParams:

@@ -34,8 +34,8 @@ train policy's minibatch as one chunk of a ``[T, P * mb]`` time-major
 batch: each layer's input projection through ``Dense.batched``
 (``torch.bmm``), its recurrence through ``gru_sequence_chunked``
 (``gru_sequence_fwd_chunked`` and ``gru_sequence_bwd_chunked`` on the
-card). Both take float32 and bfloat16 at the hidden sizes the kernels take
-(``gru_supported``); float16 keeps the per-policy loop.
+card). Both take float32, bfloat16 and float16 at the hidden sizes the
+kernels take (``gru_supported``); another width keeps the per-policy loop.
 """
 
 from __future__ import annotations

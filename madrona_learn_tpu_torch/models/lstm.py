@@ -27,7 +27,8 @@ through ``grouped_matmul``, its recurrence through
 ``lstm_step_chunked``, the chunk-indexed instance of the forward at T = 1,
 whose rows equal ``lstm_sequence_fwd``'s. With ``fuse_input_proj`` too, as
 the single-policy step takes its projection from a product and
-``lstm_step``. Float32 and bfloat16 (float16 keeps the per-policy step).
+``lstm_step``. Float32, bfloat16 and float16 (the kernels' CUDA-core
+float16 instances, as for one policy).
 
 The policy-batched update pass (``batched``, ``models/common.py``) takes
 policy-major inputs ``[P, T, mb, ...]`` and every train policy's

@@ -16,12 +16,13 @@ no ``[B, IN, OUT]`` copy of the weights is gathered. Two paths, picked by
   boundaries (16-byte rows at 16-byte addresses, which TMA needs): 128 x
   128 output tiles on Hopper's warpgroup tensor cores (``wgmma``), fed by
   TMA through a 3-stage ring in shared memory;
-- float32 (tensor cores would round its products), and any other bfloat16
+- float32 (tensor cores would round its products), float16 (on CUDA cores
+  like every float16 instance of the port), and any other bfloat16
   operands: 64 x 64 output tiles, f32 FMAs on CUDA cores.
 
 Contract: ``x`` [B, C, IN] and ``weights`` [P, IN, OUT] in one dtype
-(float32 or bfloat16), ``chunk_policy`` [B] int32 in [0, P); the product
-summed in f32 and rounded once to x's dtype; a chunk whose index lies
+(float32, bfloat16 or float16), ``chunk_policy`` [B] int32 in [0, P); the
+product summed in f32 and rounded once to x's dtype; a chunk whose index lies
 outside [0, P) gets NaN rows. Forward only, as in JAX (no VJP). CPU tensors
 take the plain version; CUDA tensors launch the kernel or raise.
 """
@@ -38,7 +39,7 @@ GROUPED_MATMUL = Kernel(
     replaces="madrona_learn_tpu/ops/pallas/grouped_matmul.py:36",
 )
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def grouped_matmul_reference(x, weights, chunk_policy):
@@ -72,8 +73,8 @@ def _check_inputs(x, weights, chunk_policy):
     P, _, OUT = weights.shape
     if x.dtype not in _DTYPE_CODES or min(B, C, IN, P, OUT) == 0:
         raise ValueError(
-            f"grouped_matmul kernel: supports non-empty float32/bfloat16 "
-            f"operands, got {x.dtype} x {tuple(x.shape)}, weights "
+            f"grouped_matmul kernel: supports non-empty float32/bfloat16/"
+            f"float16 operands, got {x.dtype} x {tuple(x.shape)}, weights "
             f"{tuple(weights.shape)}")
     check_operand("grouped_matmul kernel", "x", x, x.dtype, (B, C, IN))
     check_operand("grouped_matmul kernel", "weights", weights, x.dtype,

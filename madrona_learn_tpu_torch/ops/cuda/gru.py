@@ -52,8 +52,9 @@ split by the single-policy rule over each chunk's rows alone.
 ``gru_step_chunked`` is the rollout step (the forward at T = 1) and
 ``gru_sequence_chunked`` the differentiable pair, whose plain twin
 ``gru_sequence_chunked_reference`` runs ``gru_sequence_reference``'s
-arithmetic chunk by chunk (its autograd defines the backward). Float32 and
-bfloat16 only: float16, or a hidden size no kernel takes, raises.
+arithmetic chunk by chunk (its autograd defines the backward). Float32,
+bfloat16 and float16 (on the CUDA-core kernels, as for one policy); a
+hidden size no kernel takes raises.
 
 CPU tensors take the plain version; CUDA tensors launch the kernels or
 raise.
@@ -383,12 +384,12 @@ def _check_chunked(what, x_proj, keep, wh, bias_h, chunk_policy, h0):
             f"[T, B * C, 3H], got {tuple(wh.shape)}, "
             f"{tuple(chunk_policy.shape)}, {tuple(x_proj.shape)}")
     P, B = wh.shape[0], chunk_policy.shape[0]
-    if x_proj.dtype not in (torch.float32, torch.bfloat16) or B == 0 or \
-            x_proj.shape[1] % B or P == 0:
+    if x_proj.dtype not in _DTYPE_CODES or B == 0 or x_proj.shape[1] % B \
+            or P == 0:
         raise ValueError(
-            f"{what}: supports float32/bfloat16 over whole chunks, got "
-            f"{x_proj.dtype}, {tuple(x_proj.shape)} rows in {B} chunks of "
-            f"{P} policies")
+            f"{what}: supports float32/bfloat16/float16 over whole chunks, "
+            f"got {x_proj.dtype}, {tuple(x_proj.shape)} rows in {B} chunks "
+            f"of {P} policies")
     steps, n, hidden = _check_inputs(x_proj, keep, wh[0], bias_h[0], h0)
     _check("wh", wh, x_proj.dtype, (P, hidden, 3 * hidden))
     _check("bias_h", bias_h, x_proj.dtype, (P, hidden))
@@ -403,8 +404,8 @@ def gru_sequence_fwd_chunked(x_proj, keep, wh, bias_h, chunk_policy, h0):
     H] -> ys [T, B * C, H]; chunk b runs with policy ``chunk_policy[b]``'s
     weights, and every row equals ``gru_sequence_fwd``'s row with those
     weights bitwise. A chunk whose policy lies outside [0, P) is skipped:
-    its rows are NaN. Same path rule as ``gru_sequence_fwd``; float32 or
-    bfloat16."""
+    its rows are NaN. Same path rule as ``gru_sequence_fwd``; float32,
+    bfloat16 or float16."""
     steps, n, hidden, B, _, P = _check_chunked(
         "gru_sequence_fwd_chunked", x_proj, keep, wh, bias_h, chunk_policy,
         h0)
@@ -452,7 +453,7 @@ def gru_sequence_bwd_chunked(x_proj, keep, wh, bias_h, chunk_policy, h0,
     chunk whose policy lies outside [0, P) gets NaN rows and adds to no
     policy). The weight gradients split each chunk's rows by the
     single-policy rule applied to the chunk alone. Same path rule as
-    ``gru_sequence_bwd``; float32 or bfloat16."""
+    ``gru_sequence_bwd``; float32, bfloat16 or float16."""
     what = "gru_sequence_bwd_chunked"
     steps, n, hidden, B, C, P = _check_chunked(what, x_proj, keep, wh,
                                                bias_h, chunk_policy, h0)

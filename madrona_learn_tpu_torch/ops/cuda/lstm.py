@@ -292,7 +292,7 @@ def lstm_sequence_fwd_chunked(x_proj, keep, wr, bias, chunk_policy, c0,
     ``chunk_policy[b]``'s weights, and every row equals
     ``lstm_sequence_fwd``'s row with those weights bitwise. A chunk whose
     policy lies outside [0, P) is skipped: its rows are NaN. Same path
-    rule as ``lstm_sequence_fwd``; float32 or bfloat16."""
+    rule as ``lstm_sequence_fwd``; float32, bfloat16 or float16."""
     steps, n, hidden, B, _, P = _check_chunked(
         "lstm_sequence_fwd_chunked", x_proj, keep, wr, bias, chunk_policy,
         c0, h0)
@@ -343,12 +343,12 @@ def _check_chunked(what, x_proj, keep, wr, bias, chunk_policy, c0, h0):
             f"[T, B * C, 4H], got {tuple(wr.shape)}, "
             f"{tuple(chunk_policy.shape)}, {tuple(x_proj.shape)}")
     P, B = wr.shape[0], chunk_policy.shape[0]
-    if x_proj.dtype not in (torch.float32, torch.bfloat16) or B == 0 or \
-            x_proj.shape[1] % B or P == 0:
+    if x_proj.dtype not in _DTYPE_CODES or B == 0 or x_proj.shape[1] % B \
+            or P == 0:
         raise ValueError(
-            f"{what}: supports float32/bfloat16 over whole chunks, got "
-            f"{x_proj.dtype}, {tuple(x_proj.shape)} rows in {B} chunks of "
-            f"{P} policies")
+            f"{what}: supports float32/bfloat16/float16 over whole chunks, "
+            f"got {x_proj.dtype}, {tuple(x_proj.shape)} rows in {B} chunks "
+            f"of {P} policies")
     steps, n, hidden = _check_inputs(x_proj, keep, wr[0], bias[0], c0, h0)
     _check("wr", wr, x_proj.dtype, (P, hidden, 4 * hidden))
     _check("bias", bias, x_proj.dtype, (P, 4 * hidden))
@@ -367,7 +367,7 @@ def lstm_sequence_bwd_chunked(x_proj, keep, wr, bias, chunk_policy, c0, h0,
     chunk (a chunk whose policy lies outside [0, P) gets NaN rows and adds
     to no policy). The weight gradients split each chunk's rows by the
     single-policy rule applied to the chunk alone. Same path rule as
-    ``lstm_sequence_bwd``; float32 or bfloat16."""
+    ``lstm_sequence_bwd``; float32, bfloat16 or float16."""
     what = "lstm_sequence_bwd_chunked"
     steps, n, hidden, B, C, P = _check_chunked(what, x_proj, keep, wr, bias,
                                                chunk_policy, c0, h0)

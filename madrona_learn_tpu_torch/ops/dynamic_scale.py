@@ -19,6 +19,14 @@ The state is a dict of two device tensors, ``scale`` (float32) and
 ``fin_steps`` (int32), so a step needs no host synchronization; the caller
 keeps or reverts its parameter update with ``torch.where`` on the
 returned ``finite``.
+
+A population's batched learn keeps one scaler a train policy (JAX
+``vmap``s the scaled update over the policies): ``scale`` and
+``fin_steps`` stacked as ``[P]``, and ``unscale_stacked`` takes the
+``[P, ...]`` gradients of the sum of each policy's scaled loss, each row
+divided by its own scale, a ``[P]`` finite test and each row's state
+stepped by the same rule; every row is bitwise what ``unscale`` gives
+that policy alone.
 """
 
 from __future__ import annotations
@@ -60,7 +68,29 @@ class DynamicScale:
         finite = torch.ones((), dtype=torch.bool, device=scale.device)
         for g in grads:
             finite = finite & torch.isfinite(g).all()
+        return self._step(state, finite), finite, grads
 
+    def unscale_stacked(self, state, grads: List[torch.Tensor]
+                        ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
+                                   List[torch.Tensor]]:
+        """``unscale`` for P policies at once: ``state`` of ``[P]``
+        stacks, ``grads`` ``[P, ...]`` whose row p is the gradient of
+        policy p's scaled loss; (new state, finite [P], float32 gradients
+        of the unscaled losses), row p bitwise ``unscale``'s for policy
+        p."""
+        scale = state["scale"]
+        grads = [g.to(_F32) / scale.reshape(-1, *[1] * (g.dim() - 1))
+                 for g in grads]
+        finite = torch.ones_like(scale, dtype=torch.bool)
+        for g in grads:
+            finite = finite & torch.isfinite(g).reshape(
+                g.shape[0], -1).all(dim=1)
+        return self._step(state, finite), finite, grads
+
+    def _step(self, state, finite):
+        """flax's rule: the next state after a step that was ``finite``
+        (elementwise over stacked states)."""
+        scale = state["scale"]
         grow = state["fin_steps"] == self.growth_interval
         fin_scale = torch.where(
             grow & finite,
@@ -72,4 +102,4 @@ class DynamicScale:
             fin_steps=torch.where(grow | ~finite,
                                   torch.zeros_like(state["fin_steps"]),
                                   state["fin_steps"] + 1))
-        return new_state, finite, grads
+        return new_state

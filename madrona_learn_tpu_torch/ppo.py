@@ -54,7 +54,12 @@ policy's loss, mapped over the policies by ``torch.func.vmap`` from the
 per-policy code (``_loss_terms``) and summed for one ``autograd.grad``, so
 each policy's gradient is its own; the Adam step clips each policy's
 gradients by its own global norm, and the weight-norm projection and the
-LayerNorm renormalization run per policy.
+LayerNorm renormalization run per policy. Under float16 loss scaling each
+train policy keeps its own scaler (``DynamicScale.unscale_stacked``): its
+loss is scaled by its own scale before the one ``autograd.grad``, its
+gradient rows unscaled by it, and a policy whose step was not finite keeps
+its parameters and Adam state (``torch.where`` per policy) while the
+others step.
 """
 
 from __future__ import annotations
@@ -616,13 +621,14 @@ def _ppo_population(cfg: TrainConfig, stacked, rollout_data,
     """Epochs of minibatches for every train policy at once, on the
     ``[P, ...]`` stacks of ``stacked`` (``train_state.StackedTrainState``);
     ``rollout_data`` holds the P policies' sequences. Uniform, stratified
-    and importance-sampled minibatches (the same count for every policy);
-    advantage filtering and float16 loss scaling take the per-policy loop
-    (``rollouts.batched_learn_missing``).
+    and importance-sampled minibatches (the same count for every policy),
+    and float16 loss scaling with one scaler a policy; advantage filtering
+    takes the per-policy loop (``rollouts.batched_learn_missing``).
 
     Returns one dict a train policy, as ``_ppo`` does for one: its first
     minibatch's ratio diagnostics, ``num_minibatches``, its first epoch's
-    index stream and its per-trajectory weights."""
+    index stream, its per-trajectory weights and, with a loss scaler, the
+    count of its non-finite steps (``nonfinite_steps``)."""
     P = len(stacked.train_states)
     mb_size = cfg.algo.minibatch_size
     selections, streams = [], []
@@ -640,7 +646,7 @@ def _ppo_population(cfg: TrainConfig, stacked, rollout_data,
     traj_weights = torch.stack([w for _, w in selections])
     policies = torch.arange(P, device=traj_weights.device)[:, None]
 
-    first = None
+    first, nonfinite = None, None
     for epoch in range(cfg.algo.num_epochs):
         for i in range(num_minibatches):
             with profile("Gather Minibatch"):
@@ -652,6 +658,9 @@ def _ppo_population(cfg: TrainConfig, stacked, rollout_data,
                                            metrics)
             if first is None:
                 first = stats
+            if "finite" in stats:
+                step = (~stats["finite"]).to(torch.int32)
+                nonfinite = step if nonfinite is None else nonfinite + step
             with profile("Metrics Callback"):
                 # Each policy's state after this minibatch's step, as JAX
                 # and the per-policy loop hand it over: views of its rows
@@ -660,10 +669,14 @@ def _ppo_population(cfg: TrainConfig, stacked, rollout_data,
                     user_metrics_cb(metrics.for_policy(p), epoch,
                                     tree_map(lambda x, p=p: x[p], mb),
                                     *stacked.policy_views(p))
-    return [dict({k: v[p] for k, v in first.items()},
-                 num_minibatches=num_minibatches,
-                 epoch_inds=streams[p][0], traj_weights=traj_weights[p])
-            for p in range(P)]
+    out = [dict({k: v[p] for k, v in first.items()},
+                num_minibatches=num_minibatches,
+                epoch_inds=streams[p][0], traj_weights=traj_weights[p])
+           for p in range(P)]
+    if nonfinite is not None:
+        for p, o in enumerate(out):
+            o["nonfinite_steps"] = nonfinite[p]
+    return out
 
 
 def _ppo_update_population(cfg: TrainConfig, mb, mb_weights, stacked,
@@ -700,18 +713,41 @@ def _ppo_update_population(cfg: TrainConfig, mb, mb_weights, stacked,
          new_value_norm_state) = torch.func.vmap(policy_terms)(
             mb, mb_weights, actor_fwd, critic,
             stacked.value_normalizer_state or {}, stacked.entropy_coef)
-        grads = torch.autograd.grad(loss.sum(), list(leaves.values()),
-                                    allow_unused=True)
-        grads = {k: g if g is not None else torch.zeros_like(p)
-                 for (k, p), g in zip(leaves.items(), grads)}
+        scaler = stacked.scaler
+        # Each policy's loss scaled by its own scale: a policy's rows of
+        # the leaves reach its loss alone, so they get its scale alone.
+        grads = torch.autograd.grad(
+            (loss if scaler is None
+             else scaler.scale_loss(stacked.scaler_state, loss)).sum(),
+            list(leaves.values()), allow_unused=True)
+        grads = [g if g is not None else torch.zeros_like(p)
+                 for g, p in zip(grads, leaves.values())]
+        finite = None
+        if scaler is not None:
+            stacked.scaler_state, finite, grads = scaler.unscale_stacked(
+                stacked.scaler_state, grads)
+        grads = dict(zip(leaves, grads))
 
         with torch.no_grad():
-            updates, stacked.opt_state = stacked.tx.update(
-                grads, stacked.opt_state)
+            old_opt_state = stacked.opt_state
+            updates, new_opt_state = stacked.tx.update(grads, old_opt_state)
+            if finite is not None:
+                # A policy whose step was not finite keeps its Adam state
+                # and its parameters (before the projections below, as on
+                # the per-policy loop and in JAX); its value normalizer
+                # advances, as there.
+                new_opt_state = AdamState(**tree_map(
+                    lambda new, old: torch.where(
+                        finite.reshape(-1, *[1] * (new.dim() - 1)), new,
+                        old),
+                    vars(new_opt_state), vars(old_opt_state)))
+            stacked.opt_state = new_opt_state
             lr = stacked.lr
             for k, p in leaves.items():
                 per = lambda x, p=p: x.reshape(-1, *[1] * (p.dim() - 1))
                 new = p + per(-lr) * updates[k]
+                if finite is not None:
+                    new = torch.where(per(finite), new, p)
                 init_norm = stacked.initial_weight_norms.get(k)
                 if init_norm is not None:
                     # Project tracked kernels back to their initial L2 norm,
@@ -741,5 +777,8 @@ def _ppo_update_population(cfg: TrainConfig, mb, mb_weights, stacked,
         dev, clip_frac = _ratio_stats(
             ratios, hp.clip_coef,
             tuple(range(1, next(iter(ratios.values())).dim())))
-    return {"max_abs_ratio_dev": dev, "clip_fraction": clip_frac,
-            "loss": loss.detach()}
+    stats = {"max_abs_ratio_dev": dev, "clip_fraction": clip_frac,
+             "loss": loss.detach()}
+    if finite is not None:
+        stats["finite"] = finite
+    return stats

@@ -195,14 +195,12 @@ def batched_learn_missing(cfg: TrainConfig, actor_critic) -> Optional[str]:
     option needs each policy on its own (returns ``None``), else the
     per-policy loop (returns what needs it: the option, or the first
     module without a form). Advantage filtering (each policy's own
-    minibatch count) and float16 loss scaling (each policy's own scaler
-    and finite test) take the loop."""
+    minibatch count) takes the loop; float16 loss scaling keeps a scaler a
+    policy on the batched learn."""
     from .models.common import batched_form_missing
 
     if cfg.filter_advantages:
         return "filter_advantages"
-    if cfg.compute_dtype == torch.float16:
-        return "compute_dtype=float16 (loss scaling)"
     return batched_form_missing(actor_critic)
 
 

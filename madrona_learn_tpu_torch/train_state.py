@@ -198,9 +198,12 @@ class StackedTrainState:
     per-policy loop do, without a copy. ``leaves``, every parameter path's
     stack, requiring grad; the Adam state (count ``[P]``); the searched
     ``lr`` and ``entropy_coef`` as ``[P]`` tensors; the initial weight
-    norms ``[P]`` and the value normalizer's state. ``actor_critic`` (policy 0's) gives the structure;
-    ``hyper_params``, ``tx`` and ``value_normalizer`` (policy 0's) the
-    rest, which is the configuration's and the same for every policy."""
+    norms ``[P]``, the value normalizer's state and, under float16 loss
+    scaling, each policy's own scaler state (``scale`` / ``fin_steps``
+    ``[P]``). ``actor_critic`` (policy 0's) gives the structure;
+    ``hyper_params``, ``tx``, ``value_normalizer`` and ``scaler`` (policy
+    0's) the rest, which is the configuration's and the same for every
+    policy."""
 
     policies: List[PolicyState]
     train_states: List[PolicyTrainState]
@@ -214,6 +217,8 @@ class StackedTrainState:
     initial_weight_norms: Dict[str, torch.Tensor]
     value_normalizer: Optional[EMANormalizer]
     value_normalizer_state: Optional[Dict[str, torch.Tensor]]
+    scaler: Optional[DynamicScale] = None
+    scaler_state: Optional[Dict[str, torch.Tensor]] = None
 
     @staticmethod
     def stack(policies: List[PolicyState],
@@ -256,25 +261,29 @@ class StackedTrainState:
                     [ts.initial_weight_norms for ts in train_states]),
                 value_normalizer=first.value_normalizer,
                 value_normalizer_state=stack(
-                    [ts.value_normalizer_state for ts in train_states]))
+                    [ts.value_normalizer_state for ts in train_states]),
+                scaler=first.scaler,
+                scaler_state=stack([ts.scaler_state for ts in train_states]))
 
     def _state_rows(self, p):
-        """Views of row p of the Adam and value-normalizer stacks."""
-        norm = self.value_normalizer_state
+        """Views of row p of the Adam, value-normalizer and scaler
+        stacks."""
+        rows = lambda tree: (None if tree is None else
+                             {k: v[p] for k, v in tree.items()})
         return dict(
             opt_state=AdamState(**tree_map(lambda x: x[p],
                                            vars(self.opt_state))),
-            value_normalizer_state=(None if norm is None else
-                                    {k: v[p] for k, v in norm.items()}))
+            value_normalizer_state=rows(self.value_normalizer_state),
+            scaler_state=rows(self.scaler_state))
 
     def policy_views(self, p):
         """Train policy p's current learn state, as the per-policy loop hands
         it to the ``optimize_metrics`` hook: its ``PolicyState`` (whose
         module's parameters are its rows of ``leaves`` while the learn
-        runs) and a ``PolicyTrainState`` whose Adam and value-normalizer
-        state are views of its rows of the stacks; its hyperparameters are
-        the ones its rows were stacked from, which the learn does not
-        change."""
+        runs) and a ``PolicyTrainState`` whose Adam, value-normalizer and
+        scaler states are views of its rows of the stacks; its
+        hyperparameters are the ones its rows were stacked from, which the
+        learn does not change."""
         return self.policies[p], dataclasses.replace(self.train_states[p],
                                                      **self._state_rows(p))
 

@@ -58,7 +58,7 @@ from test_torch_lstm_fwd_tc_numerics import _stand_in_card
 
 torch.set_num_threads(1)
 
-BF16, F32 = torch.bfloat16, torch.float32
+BF16, F32, F16 = torch.bfloat16, torch.float32, torch.float16
 
 # headline_pbt: 16384 duel worlds x 2 agents, 8 train + 4 past policies.
 HEADLINE_PBT = (32, 32, 8, 4, 2, 1, 32768, 0.25, 0.5, 0.25, 0)
@@ -359,6 +359,9 @@ def _tower(kind):
     if kind == "proj":
         return tm.RecurrentBackboneEncoder(
             net=net, rnn=tm.LSTM(128, 128, 1, F32, fuse_input_proj=True))
+    if kind == "window":
+        return tm.RecurrentBackboneEncoder(
+            net=net, rnn=tm.WindowAttentionMemory(128, 8, 4, F32))
     if kind.startswith("entity"):
         net = tm.EntitySelfAttentionNet(
             {"self": 16, "allies": 12}, 64, 128, 4, F32,
@@ -372,11 +375,12 @@ def _tower(kind):
 
 @pytest.mark.parametrize("kind,missing", [
     ("mlp", None), ("lstm", None), ("gru", None),
-    ("gru_float16", "backbone.encoder.rnn (GRU)"),
+    ("gru_float16", None),
     ("gru_h96", "backbone.encoder.rnn (GRU)"),
     ("fused", None),
-    ("float16", "backbone.encoder.net.Dense_0 (Dense)"),
+    ("float16", None),
     ("proj", None),
+    ("window", None),
     ("separate", None),
     ("hlgauss", None), ("hlgauss_two_part", None), ("dreamer", None),
     ("entity", None), ("entity_concat_self", None), ("entity_ff", None),
@@ -453,7 +457,7 @@ def test_chunked_lstm_twin_is_each_chunks_reference():
 
 @pytest.mark.parametrize("dtype,H,tensor_core", [
     (BF16, 256, True), (BF16, 128, True), (F32, 256, False),
-    (F32, 128, False)])
+    (F32, 128, False), (F16, 256, False), (F16, 128, False)])
 def test_chunked_lstm_wrapper_routes(monkeypatch, dtype, H, tensor_core):
     """The wrapper takes the route of ``lstm_sequence_fwd``'s rule, hands
     the kernel the stacks' own storage, the chunk count, the chunk size
@@ -473,7 +477,8 @@ def test_chunked_lstm_wrapper_routes(monkeypatch, dtype, H, tensor_core):
         torch.zeros(B, dtype=torch.int32), state, state)
     assert lib.calls == ["mlt_lstm_fwd_chunked"]
     (args,) = lib.args
-    assert args[:3] == (int(tensor_core), {F32: 0, BF16: 1}[dtype], H)
+    assert args[:3] == (int(tensor_core), {F32: 0, BF16: 1, F16: 2}[dtype],
+                        H)
     assert args[5:7] == (wr.data_ptr(), bias.data_ptr())
     assert args[12:16] == (1, B, C, P)
     assert ys.shape == cs.shape == (1, B * C, H) and ys.dtype == dtype
@@ -483,19 +488,20 @@ def test_chunked_lstm_wrapper_routes(monkeypatch, dtype, H, tensor_core):
 
 def test_chunked_lstm_wrapper_refuses_what_no_kernel_takes():
     """Off the CPU, the kernel path raises on what it cannot take (meta
-    tensors are on no card; float16; rows that are not whole chunks)."""
+    tensors are on no card; float16 at a hidden size no instance takes;
+    rows that are not whole chunks)."""
     before = (LSTM_FWD_CHUNKED.launches, LSTM_FWD_CHUNKED.tc_launches)
 
     def meta(*shape, dtype=BF16):
         return torch.empty(*shape, dtype=dtype, device="meta")
 
     idx = meta(3, dtype=torch.int32)
-    for rows, dtype in ((96, BF16), (96, torch.float16), (95, BF16)):
+    for rows, H, dtype in ((96, 256, BF16), (96, 96, F16), (95, 256, BF16)):
         with pytest.raises(ValueError):
             lstm_sequence_fwd_chunked(
-                meta(1, rows, 1024, dtype=dtype), meta(1, rows, dtype=dtype),
-                meta(2, 256, 1024, dtype=dtype), meta(2, 1024, dtype=dtype),
-                idx, meta(rows, 256, dtype=dtype),
-                meta(rows, 256, dtype=dtype))
+                meta(1, rows, 4 * H, dtype=dtype),
+                meta(1, rows, dtype=dtype),
+                meta(2, H, 4 * H, dtype=dtype), meta(2, 4 * H, dtype=dtype),
+                idx, meta(rows, H, dtype=dtype), meta(rows, H, dtype=dtype))
     assert (LSTM_FWD_CHUNKED.launches,
             LSTM_FWD_CHUNKED.tc_launches) == before

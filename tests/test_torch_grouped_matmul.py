@@ -86,8 +86,8 @@ def test_grouped_matmul_wrapper_refuses_what_the_kernel_cannot_take():
     idx = meta(4, dtype=torch.int32)
     for x, w, i in (
             (meta(4, 8, 16), meta(3, 16, 32), idx),       # not on the card
-            (meta(4, 8, 16, dtype=torch.float16),
-             meta(3, 16, 32, dtype=torch.float16), idx),  # dtype
+            (meta(4, 8, 16, dtype=torch.float64),
+             meta(3, 16, 32, dtype=torch.float64), idx),  # dtype
             (meta(4, 8, 16), meta(3, 16, 32, dtype=torch.bfloat16),
              idx),                                          # mixed dtypes
             (meta(4, 8, 16), meta(3, 12, 32), idx),       # IN differs

@@ -44,7 +44,7 @@ from test_torch_lstm_fwd_tc_numerics import _FakeLibrary
 
 torch.set_num_threads(1)
 
-F32, BF16 = torch.float32, torch.bfloat16
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 
 
 def _chunked_inputs(seed, T, B, C, H, P):
@@ -219,7 +219,7 @@ def _stand_in_card(monkeypatch):
 
 
 ROUTES = [(BF16, 256, True), (BF16, 128, True), (F32, 256, False),
-          (F32, 128, False)]
+          (F32, 128, False), (F16, 256, False), (F16, 128, False)]
 
 
 @pytest.mark.parametrize("dtype,H,tensor_core", ROUTES)
@@ -240,7 +240,8 @@ def test_chunked_forward_wrapper_routes(monkeypatch, dtype, H, tensor_core):
     assert ys.shape == (T, B * C, H)
     assert lib.calls == ["mlt_gru_fwd_chunked"]
     (args,) = lib.args
-    assert args[:3] == (int(tensor_core), {F32: 0, BF16: 1}[dtype], H)
+    assert args[:3] == (int(tensor_core), {F32: 0, BF16: 1, F16: 2}[dtype],
+                        H)
     assert args[5] == wh.data_ptr() and args[6] == bias_h.data_ptr()
     assert args[7] == idx.data_ptr()
     assert args[10:14] == (T, B, C, P)
@@ -274,7 +275,8 @@ def test_chunked_backward_wrapper_routes(monkeypatch, dtype, H, tensor_core):
         torch.zeros(B * C, H, dtype=dtype), seq, seq)
     assert lib.calls == ["mlt_gru_bwd_chunked"]
     (args,) = lib.args
-    assert args[:3] == (int(tensor_core), {F32: 0, BF16: 1}[dtype], H)
+    assert args[:3] == (int(tensor_core), {F32: 0, BF16: 1, F16: 2}[dtype],
+                        H)
     assert args[5] == wh.data_ptr() and args[7] == bias_h.data_ptr()
     assert args[6] != wh.data_ptr()   # Wh^T of every policy, a copy
     splits = (gru_mod._num_splits_tc(T * C, H, H, 132, gates=3)
@@ -292,9 +294,10 @@ def test_chunked_backward_wrapper_routes(monkeypatch, dtype, H, tensor_core):
 
 def test_chunked_wrappers_refuse_what_no_kernel_takes():
     """Off the CPU, both wrappers raise on what no kernel takes (meta
-    tensors are on no card; float16; a hidden size other than 128 or 256;
-    rows that are not whole chunks) and count no launch; the kernels are
-    registered against the Pallas GRU's forward and backward."""
+    tensors are on no card; float16 or float32 at a hidden size other than
+    128 or 256; rows that are not whole chunks) and count no launch; the
+    kernels are registered against the Pallas GRU's forward and
+    backward."""
     assert GRU_FWD_CHUNKED in KERNELS and GRU_BWD_CHUNKED in KERNELS
     assert len(KERNELS) == 22
     assert GRU_FWD_CHUNKED.replaces == \
@@ -308,7 +311,7 @@ def test_chunked_wrappers_refuse_what_no_kernel_takes():
         return torch.empty(*shape, dtype=dtype, device="meta")
 
     idx = meta(3, dtype=torch.int32)
-    for rows, H, dtype in ((96, 256, BF16), (96, 256, torch.float16),
+    for rows, H, dtype in ((96, 256, BF16), (96, 96, F16),
                            (95, 256, BF16), (96, 96, F32)):
         x = meta(2, rows, 3 * H, dtype=dtype)
         keep, seq = meta(2, rows, dtype=dtype), meta(2, rows, H, dtype=dtype)

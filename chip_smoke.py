@@ -99,7 +99,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    one float16 ulp of the largest value), every row bitwise one
    single-policy float16 launch a policy over the same rows, chunks of
    index P and -1 NaN, and timed against those launches (the
-   ``kernels`` line's ``float16`` entries);
+   ``kernels`` line's ``float16`` entries); and the same four checks of
+   the chunk-indexed recurrences again at H = 384 and 512 (CUDA cores in
+   every dtype), with infer_512's step for the LSTM at 512: every check
+   above at those widths (batch invariance, bitwise rows, a one-chunk
+   policy's dW / db bitwise the single-policy kernel's on CUDA cores, the
+   forwards' T = 1 steps bitwise their sequence's steps at every width),
+   and the single-policy kernels at those widths against their twins,
+   timed (the ``kernels`` line's ``wide`` entries); and
+   ``layer_norm_fwd_chunked`` / ``_bwd_chunked`` at
+   headline_pbt_lnkernel's collect and learn rows and at ragged chunks:
+   against the twin, every row (y, mu, rsigma, dx) bitwise one
+   single-policy launch's, dscale / dbias bitwise over two calls and
+   within the f32 sums' tolerance of each policy's ``layer_norm_bwd``,
+   chunks of index P and -1 NaN, timed against a launch a policy and
+   ``native_layer_norm`` (and its backward) with one policy's weight;
 4. models: the update pass and its gradients through the kernels on the
    card against the same model on the CPU, for the MLP model, a small GRU
    model, a small fused-trunk model, a small flagship (entity attention)
@@ -262,6 +276,29 @@ Phases, in order; any failure raises and the script exits non-zero:
     backward, each chunk's and policy's output within 3.2e-2 of its
     policy's own forward, launches exact: ``mha_flash_fwd`` 2, the two
     flash backward kernels 1 each, ``grouped_matmul`` 9, ``mha`` 0.
+12c. every width the JAX package takes: infer_512
+    (``benchmarks/infer_bench.py``'s shape: 32 policies x 16384 agents,
+    MLP 2 x 512 over 64 features -> LSTM 512, bf16, a fresh random
+    assignment every step through ``compute_policy_chunks``, chunks of 256
+    from ``heuristic_policy_chunk_size``, 95 chunks, 200 steps of
+    ``rollout_chunked``: ``lstm_sequence_fwd_chunked`` once and
+    ``grouped_matmul`` 5 times a step, none on tensor cores, no step on the
+    plain twin, four chunks' critic and new state within the step rule of
+    their policy alone; agent-steps/s); then headline_pbt's population
+    with the model at 512 channels (headline_pbt_512: headline_pbt's
+    launches, 37 / 4 / 164 / 1, on the 512-wide CUDA-core instances, 2
+    timed updates, the learn A/B), at 32 (headline_pbt_h32: no recurrent
+    kernel, the LSTM on its plain twins as JAX takes its jnp twin, on the
+    card one gathered batched product a step over the chunks,
+    ``grouped_matmul`` 164, ``gae`` 1; one collect step and one learn pass
+    of the trained population on the card against the CPU,
+    ``_population_card_vs_cpu``; the collect and learn A/Bs) and with
+    each MLP
+    LayerNorm replaced by ``LayerNorm(use_kernel=True)``
+    (headline_pbt_lnkernel: headline_pbt's launches and
+    ``layer_norm_fwd_chunked`` 74, ``layer_norm_bwd_chunked`` 8 an update;
+    the learn A/B), each 1 warm-up update whose train policies' ratios
+    are below 1e-3, finite losses.
 
 13. the rest of the model zoo, five trainers at 16384 worlds with the
     headline's width and PPO settings, each 1 warm-up update and 2 trials
@@ -325,6 +362,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 # Tolerances, max |kernel - plain| <= atol + rtol * max |plain|:
 # - float32: the kernels and the plain versions do the same f32 math and
@@ -2085,52 +2123,107 @@ def _policy_rows(idx, C, P):
     return out
 
 
-def check_lstm_chunked(results):
-    """lstm_sequence_fwd_chunked at headline_pbt's collect step (the chunk
-    size and count init_training derives) and at chunks of 100 rows (not a
-    multiple of the 32-row tile), bf16 on tensor cores and f32 on CUDA
-    cores, and its float16 instance (CUDA cores) at the collect step:
-    against its plain twin; row for row bitwise ``lstm_sequence_fwd`` with
-    the row's policy's weights (each policy's chunks in one call); batch
-    invariance (the first chunks alone, and the chunks rolled); chunks of
-    index P and -1 NaN, the others unchanged; its time against one
-    ``lstm_sequence_fwd`` a policy over the same rows (the per-policy
-    loop's launches) and its bound (the float16 instance's into
-    ``float16``)."""
+def _step_checks(tag, fwd, x, keep, w, b, idx, states, outs, carried):
+    """The rollout step is the sequence forward: a T = 1 call of ``fwd``
+    from the state after step t - 1 (``carried``: each state's [T, N, H]
+    sequence, in the states' order, cleared where keep is 0) bitwise step
+    t of the T-step call's ``outs``, at the first, middle and last step."""
+    import torch
+
+    zero = torch.zeros((), dtype=x.dtype, device="cuda")
+    T = x.shape[0]
+    for t in sorted({0, T // 2, T - 1}):
+        st = (states if t == 0 else
+              [torch.where(keep[t - 1][:, None] > 0.5, s[t - 1], zero)
+               for s in carried])
+        step = fwd(x[t:t + 1].contiguous(), keep[t:t + 1].contiguous(), w, b,
+                   idx, *st)
+        step = step if isinstance(step, tuple) else (step,)
+        if not all(torch.equal(o[0], seq[t]) for o, seq in zip(step, outs)):
+            raise AssertionError(f"{tag}: the T = 1 step from the state "
+                                 f"after step {t - 1} differs from step {t}")
+    log(f"  {tag}: T = 1 steps bitwise steps of the sequence ok")
+
+
+def _wide_single(results, name, H, dname, label, run, plain, tol, b):
+    """The single-policy kernel ``name`` at H = 384 or 512 on one policy's
+    rows: ``run()``'s outputs against ``plain()``'s, both timed, into
+    results[name]["wide"] with the bound ``b``."""
+    err = max(compare(f"{name} H={H} {dname} {label} out {i}", o, r, **tol)
+              for i, (o, r) in enumerate(zip(run(), plain())))
+    ms = time_ms(run)
+    plain_ms = time_ms(plain, reps=3, warmup=1)
+    log(f"  {name} H={H} {dname} at the {label} shape: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}), no library call (cuDNN takes one weight a "
+        f"call and cannot clear the carry mid-sequence)")
+    _wide_record(results, name, H, dname, label, max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, library_ms=None, path="cuda_core", **b)
+
+
+def _wide_record(results, name, H, dname, label, **rec):
+    """An instance's numbers at one path's shape (``label``: collect,
+    learn, infer or ragged) into results[name]["wide"][H][dtype][label]."""
+    wide = results.setdefault(name, {}).setdefault("wide", {})
+    wide.setdefault(str(H), {}).setdefault(dname, {})[label] = rec
+
+
+def check_lstm_chunked(results, H):
+    """lstm_sequence_fwd_chunked at width H (the model's 256, and the
+    CUDA-core instances at 384 and 512, whose numbers go under the
+    record's ``wide``) at headline_pbt's collect step (the chunk size and
+    count init_training derives) and at chunks of 100 rows (not a multiple
+    of the 32-row tile), bf16 (on tensor cores where ``uses_tensor_cores``
+    says) and f32 on CUDA cores, its float16 instance (CUDA cores) at the
+    collect step and, at 512, infer_512's step (95 chunks of 256 rows, 32
+    policies): against its plain twin; row for row bitwise
+    ``lstm_sequence_fwd`` with the row's policy's weights (each policy's
+    chunks in one call); batch invariance (the first chunks alone, and the
+    chunks rolled); chunks of index P and -1 NaN, the others unchanged;
+    its time against one ``lstm_sequence_fwd`` a policy over the same rows
+    (the per-policy loop's launches) and its bound (the float16 instance's
+    into ``float16``). At 384 and 512 also ``lstm_sequence_fwd`` on one
+    policy's rows against its twin, timed."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
-        lstm_sequence_fwd, lstm_sequence_fwd_chunked,
-        lstm_sequence_fwd_chunked_reference, uses_tensor_cores)
+        LSTM_FWD_CHUNKED, _sequence, lstm_sequence_fwd,
+        lstm_sequence_fwd_chunked, lstm_sequence_fwd_chunked_reference,
+        uses_tensor_cores)
 
     P, C, B = _pbt_chunk_geometry()
-    H, T = CHANNELS, 1
+    T, wide = 1, H != CHANNELS
     log(f"lstm_sequence_fwd_chunked at headline_pbt's collect step: "
         f"{P} policies, chunks of C = {C} rows, B = {B} chunks "
         f"(RolloutConfig.setup_population for {2 * NUM_WORLDS} rows: "
         f"ceil({2 * NUM_WORLDS} / {C}) + {P} - 1), H = {H}, T = 1")
-    gen = torch.Generator(device="cuda").manual_seed(21)
-    res = results["lstm_sequence_fwd_chunked"] = {"max_abs_err": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(21 + wide * H)
+    res = results.setdefault("lstm_sequence_fwd_chunked",
+                             {"max_abs_err": 0.0})
     bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
-    # main_path: True for the bf16 collect step, "float16" for its float16
-    # instance (timed into res["float16"]), False for the ragged checks.
-    for dtype, chunk, chunks, main_path in ((bf16, C, B, True),
-                                            (f16, C, B, "float16"),
-                                            (bf16, 100, 41, False),
-                                            (f32, 100, 41, False)):
+    # role: "collect" for the bf16 collect step, "float16" for its float16
+    # instance (timed into res["float16"]), "infer" for infer_512's step,
+    # None for the ragged checks.
+    cases = [(bf16, C, B, P, "collect"), (f16, C, B, P, "float16"),
+             (bf16, 100, 41, P, None), (f32, 100, 41, P, None)]
+    if H == INFER_CHANNELS:
+        infer_c, infer_b = _infer_geometry()
+        cases.append((bf16, infer_c, infer_b, INFER_POLICIES, "infer"))
+    for dtype, chunk, chunks, P_c, role in cases:
         dname = str(dtype).split(".")[-1]
-        path = ("tensor_core" if uses_tensor_cores(dtype, H)
-                else "cuda_core")
-        tag = f"[{T}, {chunks} x {chunk}, {4 * H}] P={P} {dname} ({path})"
-        args = _chunked_lstm_inputs(gen, T, chunks, chunk, H, P, dtype)
+        args = _chunked_lstm_inputs(gen, T, chunks, chunk, H, P_c, dtype)
         x, keep, wr, bias, idx, c0, h0 = args
-        ys, cs = lstm_sequence_fwd_chunked(*args)
+        (ys, cs), path = _routed(LSTM_FWD_CHUNKED,
+                                 uses_tensor_cores(dtype, H),
+                                 lstm_sequence_fwd_chunked, *args)
+        tag = (f"[{T}, {chunks} x {chunk}, {4 * H}] P={P_c} {dname} "
+               f"({path})")
         want = lstm_sequence_fwd_chunked_reference(*args)
         tol = TOL[("fwd", dname)]
         err = max(compare(f"lstm_sequence_fwd_chunked {tag} ys", ys,
                           want[0], **tol),
                   compare(f"lstm_sequence_fwd_chunked {tag} cs", cs,
                           want[1], **tol))
-        by_policy = _policy_rows(idx, chunk, P)
+        by_policy = _policy_rows(idx, chunk, P_c)
         for p, rows in by_policy:
             y1, c1 = lstm_sequence_fwd(
                 x[:, rows].contiguous(), keep[:, rows].contiguous(), wr[p],
@@ -2141,7 +2234,8 @@ def check_lstm_chunked(results):
                                      f"policy {p}'s rows differ from "
                                      f"lstm_sequence_fwd's")
         log(f"  lstm_sequence_fwd_chunked {tag}: every row bitwise "
-            f"lstm_sequence_fwd's with its policy's weights ({P} calls) ok")
+            f"lstm_sequence_fwd's with its policy's weights "
+            f"({len(by_policy)} calls) ok")
         # Batch invariance: the first 8 chunks alone, and the chunks
         # rolled by 5.
         n8 = 8 * chunk
@@ -2157,14 +2251,12 @@ def check_lstm_chunked(results):
                                ("rolled", rolled[0], roll(ys, 1)),
                                ("rolled cs", rolled[1], roll(cs, 1))):
             bitwise(f"lstm_sequence_fwd_chunked {tag} {name}", got, ref)
-        if main_path is not True:
+        if role not in ("collect", "infer"):
             bad = idx.clone()
-            bad[1], bad[3] = P, -1
+            bad[1], bad[3] = P_c, -1
             yb, cb = lstm_sequence_fwd_chunked(x, keep, wr, bias, bad, c0,
                                                h0)
-            skipped = torch.zeros(chunks, dtype=torch.bool, device="cuda")
-            skipped[1] = skipped[3] = True
-            rows = skipped.repeat_interleave(chunk)
+            rows = _skipped_rows(chunks, chunk)
             if not (bool(yb[:, rows].isnan().all())
                     and bool(cb[:, rows].isnan().all())
                     and torch.equal(yb[:, ~rows], ys[:, ~rows])
@@ -2174,10 +2266,11 @@ def check_lstm_chunked(results):
                                      f"skipped alone")
             log(f"  lstm_sequence_fwd_chunked {tag}: chunks of index P and "
                 f"-1 NaN, the others unchanged ok")
-            if not main_path:
+            if role is None:
+                if wide:
+                    _wide_record(results, "lstm_sequence_fwd_chunked", H,
+                                 dname, "ragged", max_abs_err=err, shape=tag)
                 continue
-        rec = res if main_path is True else res.setdefault("float16", {})
-        rec["max_abs_err"] = err
         per_policy = [(x[:, rows].contiguous(), keep[:, rows].contiguous(),
                        wr[p], bias[p], c0[rows], h0[rows])
                       for p, rows in by_policy]
@@ -2193,9 +2286,21 @@ def check_lstm_chunked(results):
             f"{loop_ms:.4f} ms, plain {plain_ms:.3f} ms, no library call "
             f"(cuDNN's LSTM takes one weight a call), bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-        rec.update(ms=ms, plain_ms=plain_ms, library_ms=None, path=path,
-                   per_policy_ms=loop_ms, chunk=chunk, chunks=chunks,
-                   policies=P, **b)
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=None, path=path, per_policy_ms=loop_ms,
+                   chunk=chunk, chunks=chunks, policies=P_c, **b)
+        if not wide:
+            (res if role == "collect" else
+             res.setdefault("float16", {})).update(rec)
+            continue
+        label = "infer" if role == "infer" else "collect"
+        _wide_record(results, "lstm_sequence_fwd_chunked", H, dname, label,
+                     shape=tag, **rec)
+        a1 = per_policy[0]
+        _wide_single(results, "lstm_sequence_fwd", H, dname, label,
+                     lambda: lstm_sequence_fwd(*a1), lambda: _sequence(*a1),
+                     tol, _lstm_bounds(T, a1[0].shape[1], H,
+                                       x.element_size())[0])
 
 
 def _chunked_lstm_bwd_bound(T, B, C, H, policies_used, itemsize):
@@ -2214,34 +2319,42 @@ def _chunked_lstm_bwd_bound(T, B, C, H, policies_used, itemsize):
                           "f32": 40 * seq})
 
 
-def check_lstm_bwd_chunked(results):
-    """lstm_sequence_bwd_chunked at headline_pbt's learn step (8 train
-    policies, one chunk of a minibatch's 1280 sequences each, T = 16, bf16
-    on tensor cores) and at chunks of 37 rows (no multiple of a tile) in a
-    shuffled order with a policy owning two chunks and one owning none, in
-    bf16 and f32 (CUDA cores): against its plain twin's autograd; every
-    chunk's dx_proj / dh0 / dc0 bitwise ``lstm_sequence_bwd``'s on that
-    chunk's rows with its policy's weights, and each policy's dwr / db
-    within the backward's tolerance of that kernel's (summed over its
-    chunks); dwr / db bitwise over two calls and, for a policy of one
-    chunk, bitwise the call over that chunk alone; a chunk of index P or -1
-    NaN and adding to no policy; the time against the per-policy loop's
-    lstm_sequence_bwd launches over the same rows, and its bound. Its
-    float16 instance (CUDA cores) at the learn step the same way, its
-    times and bound into ``float16``."""
+def check_lstm_bwd_chunked(results, H):
+    """lstm_sequence_bwd_chunked at width H (256, and the CUDA-core
+    instances at 384 and 512, under the record's ``wide``) at
+    headline_pbt's learn step (8 train policies, one chunk of a
+    minibatch's 1280 sequences each, T = 16, bf16 on tensor cores where
+    ``uses_tensor_cores`` says) and at chunks of 37 rows (no multiple of a
+    tile) in a shuffled order with a policy owning two chunks and one
+    owning none, in bf16 and f32 (CUDA cores): the forward's T = 1 steps
+    bitwise steps of its sequence; against its plain twin's autograd;
+    every chunk's dx_proj / dh0 / dc0 bitwise ``lstm_sequence_bwd``'s on
+    that chunk's rows with its policy's weights, and each policy's dwr /
+    db within the backward's tolerance of that kernel's (summed over its
+    chunks), bitwise it for a policy of one chunk on CUDA cores; dwr / db
+    bitwise over two calls and, for a policy of one chunk, bitwise the call
+    over that chunk alone; a chunk of index P or -1 NaN and adding to no
+    policy; the time against the per-policy loop's lstm_sequence_bwd
+    launches over the same rows, and its bound. Its float16 instance (CUDA
+    cores) at the learn step the same way, its times and bound into
+    ``float16``. At 384 and 512 also ``lstm_sequence_bwd`` on one chunk's
+    rows against its twin's autograd, timed."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
         LSTM_BWD_CHUNKED, lstm_sequence_bwd, lstm_sequence_bwd_chunked,
         lstm_sequence_chunked_reference, lstm_sequence_fwd_chunked,
-        uses_tensor_cores)
+        lstm_sequence_reference, uses_tensor_cores)
 
-    H, T, P = CHANNELS, STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, PBT_TRAIN
+    T, P = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, PBT_TRAIN
+    wide = H != CHANNELS
     log(f"lstm_sequence_bwd_chunked at headline_pbt's learn step: {P} train "
         f"policies, one chunk of a minibatch's C = {PBT_MINIBATCH} "
         f"sequences each, T = {T}, H = {H}")
-    gen = torch.Generator(device="cuda").manual_seed(23)
-    res = results["lstm_sequence_bwd_chunked"] = {"max_abs_err": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(23 + wide * H)
+    res = results.setdefault("lstm_sequence_bwd_chunked",
+                             {"max_abs_err": 0.0})
     bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    main_route = "tensor_core" if uses_tensor_cores(bf16, H) else "cuda_core"
     shuffled = [2, 0, 3, 2, 1, 0]      # policy 4 of 5 owns no chunk
     # main_path: True for the bf16 learn step, "float16" for its float16
     # instance (timed into res["float16"]), False for the ragged checks.
@@ -2258,12 +2371,15 @@ def check_lstm_bwd_chunked(results):
         tag = (f"[{T_c}, {B} x {C}, {4 * H}] P={P_c} {dname} chunks "
                f"{order}")
         ys, cs = lstm_sequence_fwd_chunked(*args)
+        _step_checks(f"lstm_sequence_fwd_chunked {tag}",
+                     lstm_sequence_fwd_chunked, x, keep, wr, bias, idx,
+                     (c0, h0), (ys, cs), (cs, ys))
         probe = torch.randn(T_c, B * C, H, device="cuda",
                             generator=gen).to(dtype)
         got, path = _routed(LSTM_BWD_CHUNKED, uses_tensor_cores(dtype, H),
                             lstm_sequence_bwd_chunked, *args, ys, cs, probe)
         tag += f" ({path})"
-        if main_path is True and path != "tensor_core":
+        if main_path is True and path != main_route:
             raise AssertionError(f"lstm_sequence_bwd_chunked {tag}: the "
                                  f"main path took the {path} route")
         leaves = [a.detach().clone().requires_grad_(i in (0, 2, 3, 5, 6))
@@ -2282,7 +2398,8 @@ def check_lstm_bwd_chunked(results):
             err = max(err, compare(f"lstm_sequence_bwd_chunked {name} {tag}",
                                    g, w, **tol))
         dxp, dwr, db, dc0, dh0 = got
-        # Row for row, the single-policy backward on each chunk's rows.
+        # Row for row, the single-policy backward on each chunk's rows; on
+        # CUDA cores a policy of one chunk's dwr / db bitwise too.
         sums = {}
         for b, p in enumerate(order):
             rows = slice(b * C, (b + 1) * C)
@@ -2295,6 +2412,12 @@ def check_lstm_bwd_chunked(results):
                     and torch.equal(one[4], dh0[rows])):
                 raise AssertionError(f"lstm_sequence_bwd_chunked {tag}: chunk "
                                      f"{b}'s rows differ from "
+                                     f"lstm_sequence_bwd's")
+            if (path == "cuda_core" and order.count(p) == 1
+                    and not (torch.equal(one[1], dwr[p])
+                             and torch.equal(one[2], db[p]))):
+                raise AssertionError(f"lstm_sequence_bwd_chunked {tag}: "
+                                     f"policy {p}'s dwr / db differ from "
                                      f"lstm_sequence_bwd's")
             dw1, db1 = sums.get(p, (0.0, 0.0))
             sums[p] = (dw1 + one[1].float(), db1 + one[2].float())
@@ -2338,9 +2461,7 @@ def check_lstm_bwd_chunked(results):
                                                h0)
             gb = lstm_sequence_bwd_chunked(x, keep, wr, bias, bad, c0, h0,
                                            yb, cb, probe)
-            skipped = torch.zeros(B, dtype=torch.bool, device="cuda")
-            skipped[1] = skipped[3] = True
-            rows = skipped.repeat_interleave(C)
+            rows = _skipped_rows(B, C)
             if not (bool(gb[0][:, rows].isnan().all())
                     and bool(gb[3][rows].isnan().all())
                     and bool(gb[4][rows].isnan().all())
@@ -2356,10 +2477,10 @@ def check_lstm_bwd_chunked(results):
                 f"-1 NaN and in no policy's dwr / db, the others unchanged "
                 f"ok")
             if not main_path:
+                if wide:
+                    _wide_record(results, "lstm_sequence_bwd_chunked", H,
+                                 dname, "ragged", max_abs_err=err, shape=tag)
                 continue
-        rec = res if main_path is True else res.setdefault("float16", {})
-        rec["max_abs_err"] = err
-        rec["path"] = path
         per_policy = [((x[:, b * C:(b + 1) * C].contiguous(),
                         keep[:, b * C:(b + 1) * C].contiguous(), wr[p],
                         bias[p], c0[b * C:(b + 1) * C],
@@ -2382,9 +2503,28 @@ def check_lstm_bwd_chunked(results):
             f"{plain_ms:.3f} ms, no library call (cuDNN's LSTM takes one "
             f"weight a call and no keep mask), bound {b['bound_ms']:.4f} ms "
             f"({b['bound_by']})")
-        rec.update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                   per_policy_ms=loop_ms, chunk=C, chunks=B, policies=P_c,
-                   dwr_bitwise_single=same, **b)
+        rec = dict(max_abs_err=err, path=path, ms=ms, plain_ms=plain_ms,
+                   library_ms=None, per_policy_ms=loop_ms, chunk=C, chunks=B,
+                   policies=P_c, dwr_bitwise_single=same, **b)
+        if not wide:
+            (res if main_path is True else
+             res.setdefault("float16", {})).update(rec)
+            continue
+        _wide_record(results, "lstm_sequence_bwd_chunked", H, dname, "learn",
+                     shape=tag, **rec)
+        a1 = per_policy[0]
+        one_leaves = [t.detach().clone().requires_grad_()
+                      for t in (a1[0], *a1[2:6])]
+
+        def plain_one():
+            out = lstm_sequence_reference(one_leaves[0], a1[1],
+                                          *one_leaves[1:])
+            return torch.autograd.grad(
+                (out.float() * a1[8].float()).sum(), one_leaves)
+
+        _wide_single(results, "lstm_sequence_bwd", H, dname, "learn",
+                     lambda: lstm_sequence_bwd(*a1), plain_one, tol,
+                     _lstm_bounds(T_c, C, H, x.element_size())[1])
 
 
 def _chunked_gru_inputs(gen, T, B, C, H, P, dtype):
@@ -2426,29 +2566,36 @@ def _skipped_rows(B, C, bad=(1, 3)):
     return skipped.repeat_interleave(C)
 
 
-def check_gru_chunked(results):
-    """gru_sequence_fwd_chunked at headline_pbt_gru's collect step (T = 1,
-    the chunk size and count init_training derives, 12 policies) and its
-    learn step (T = 16, 8 train policies, one chunk of a minibatch's 1280
-    sequences each), bf16 on tensor cores, and at chunks of 37 rows (no
-    multiple of a tile) in a shuffled order, in bf16 and f32 (CUDA cores):
-    against its plain twin; row for row bitwise ``gru_sequence_fwd`` with
-    the row's policy's weights (each policy's rows in one call); bitwise
-    over two calls and for the first chunk alone; chunks of index P and -1
-    NaN, the others unchanged; its time against one ``gru_sequence_fwd`` a
-    policy over the same rows (the per-policy loop's launches) and its
-    bound. Its float16 instance (CUDA cores) at the collect step the same
-    way, with the NaN chunks, its times and bound into ``float16``."""
+def check_gru_chunked(results, H):
+    """gru_sequence_fwd_chunked at width H (256, and the CUDA-core
+    instances at 384 and 512, under the record's ``wide``) at
+    headline_pbt_gru's collect step (T = 1, the chunk size and count
+    init_training derives, 12 policies) and its learn step (T = 16, 8
+    train policies, one chunk of a minibatch's 1280 sequences each), bf16
+    on tensor cores where ``uses_tensor_cores`` says, and at chunks of 37
+    rows (no multiple of a tile) in a shuffled order, in bf16 and f32
+    (CUDA cores): against its plain twin; row for row bitwise
+    ``gru_sequence_fwd`` with the row's policy's weights (each policy's
+    rows in one call); bitwise over two calls and for the first chunk
+    alone; chunks of index P and -1 NaN, the others unchanged; its time
+    against one ``gru_sequence_fwd`` a policy over the same rows (the
+    per-policy loop's launches) and its bound. Its float16 instance (CUDA
+    cores) at the collect step the same way, with the NaN chunks, its
+    times and bound into ``float16``. At 384 and 512 also
+    ``gru_sequence_fwd`` on one policy's rows against its twin, timed."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gru import (
         GRU_FWD_CHUNKED, gru_sequence_fwd, gru_sequence_fwd_chunked,
-        gru_sequence_fwd_chunked_reference, uses_tensor_cores)
+        gru_sequence_fwd_chunked_reference, gru_sequence_reference,
+        uses_tensor_cores)
 
     P, C, B = _pbt_chunk_geometry()
-    H, T = CHANNELS, STEPS_PER_UPDATE // NUM_BPTT_CHUNKS
-    gen = torch.Generator(device="cuda").manual_seed(24)
-    res = results["gru_sequence_fwd_chunked"] = {"max_abs_err": 0.0}
+    T = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS
+    wide = H != CHANNELS
+    gen = torch.Generator(device="cuda").manual_seed(24 + wide * H)
+    res = results.setdefault("gru_sequence_fwd_chunked", {"max_abs_err": 0.0})
     bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    main_route = "tensor_core" if uses_tensor_cores(bf16, H) else "cuda_core"
     shuffled = [2, 0, 3, 2, 1, 0]      # policy 4 of 5 owns no chunk
     # (T, chunks, C, P, dtype, role): the collect step, the learn step,
     # the float16 collect step, then the ragged, shuffled chunks.
@@ -2471,12 +2618,12 @@ def check_gru_chunked(results):
                            gru_sequence_fwd_chunked, *args)
         tag = (f"[{T_c}, {chunks} x {chunk}, {3 * H}] P={P_c} {dname} "
                f"({path})")
-        if role in ("collect", "learn") and path != "tensor_core":
+        if role in ("collect", "learn") and path != main_route:
             raise AssertionError(f"gru_sequence_fwd_chunked {tag}: the main "
                                  f"path took the {path} route")
+        tol = TOL[("gru_fwd", dname)]
         err = compare(f"gru_sequence_fwd_chunked {tag}", ys,
-                      gru_sequence_fwd_chunked_reference(*args),
-                      **TOL[("gru_fwd", dname)])
+                      gru_sequence_fwd_chunked_reference(*args), **tol)
         by_policy = _policy_rows(idx, chunk, P_c)
         for p, rows in by_policy:
             y1 = gru_sequence_fwd(x[:, rows].contiguous(),
@@ -2509,6 +2656,9 @@ def check_gru_chunked(results):
             log(f"  gru_sequence_fwd_chunked {tag}: chunks of index P and "
                 f"-1 NaN, the others unchanged ok")
             if role is None:
+                if wide:
+                    _wide_record(results, "gru_sequence_fwd_chunked", H,
+                                 dname, "ragged", max_abs_err=err, shape=tag)
                 continue
         per_policy = [(x[:, rows].contiguous(), keep[:, rows].contiguous(),
                        wh[p], bias_h[p], h0[rows]) for p, rows in by_policy]
@@ -2526,7 +2676,17 @@ def check_gru_chunked(results):
         record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                       library_ms=None, path=path, per_policy_ms=loop_ms,
                       shape=[T_c, chunks, chunk, 3 * H], policies=P_c, **b)
-        if role == "collect":
+        if wide:
+            label = "learn" if role == "learn" else "collect"
+            _wide_record(results, "gru_sequence_fwd_chunked", H, dname,
+                         label, **record)
+            a1 = per_policy[0]
+            _wide_single(results, "gru_sequence_fwd", H, dname, label,
+                         lambda: (gru_sequence_fwd(*a1),),
+                         lambda: (gru_sequence_reference(*a1),), tol,
+                         _gru_bounds(T_c, a1[0].shape[1], H,
+                                     x.element_size())[0])
+        elif role == "collect":
             res.update(record)     # 33 of the 37 launches an update
         elif role == "float16":
             res["float16"] = record
@@ -2534,31 +2694,38 @@ def check_gru_chunked(results):
             res["learn_shape"] = record
 
 
-def check_gru_bwd_chunked(results):
-    """gru_sequence_bwd_chunked at headline_pbt_gru's learn step (8 train
-    policies, one chunk of a minibatch's 1280 sequences each, T = 16, bf16
-    on tensor cores) and at chunks of 37 rows in a shuffled order with a
-    policy owning two chunks and one owning none, in bf16 and f32 (CUDA
-    cores): against its plain twin's autograd; every chunk's dx_proj /
+def check_gru_bwd_chunked(results, H):
+    """gru_sequence_bwd_chunked at width H (256, and the CUDA-core
+    instances at 384 and 512, under the record's ``wide``) at
+    headline_pbt_gru's learn step (8 train policies, one chunk of a
+    minibatch's 1280 sequences each, T = 16, bf16 on tensor cores where
+    ``uses_tensor_cores`` says) and at chunks of 37 rows in a shuffled
+    order with a policy owning two chunks and one owning none, in bf16 and
+    f32 (CUDA cores): the forward's T = 1 steps bitwise steps of its
+    sequence; against its plain twin's autograd; every chunk's dx_proj /
     dh0 bitwise ``gru_sequence_bwd``'s on that chunk's rows with its
     policy's weights, and each policy's dwh / dbh within the backward's
-    tolerance of that kernel's (summed over its chunks); bitwise over two
-    calls and, for a policy of one chunk, bitwise the call over that chunk
-    alone; a chunk of index P or -1 NaN and adding to no policy; the time
-    against the per-policy loop's gru_sequence_bwd launches over the same
-    rows, and its bound. Its float16 instance (CUDA cores) at the learn
-    step the same way, with the NaN chunks, its times and bound into
-    ``float16``."""
+    tolerance of that kernel's (summed over its chunks), bitwise it for a
+    policy of one chunk on CUDA cores; bitwise over two calls and, for a
+    policy of one chunk, bitwise the call over that chunk alone; a chunk
+    of index P or -1 NaN and adding to no policy; the time against the
+    per-policy loop's gru_sequence_bwd launches over the same rows, and
+    its bound. Its float16 instance (CUDA cores) at the learn step the
+    same way, with the NaN chunks, its times and bound into ``float16``.
+    At 384 and 512 also ``gru_sequence_bwd`` on one chunk's rows against
+    its twin's autograd, timed."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gru import (
         GRU_BWD_CHUNKED, gru_sequence_bwd, gru_sequence_bwd_chunked,
         gru_sequence_chunked_reference, gru_sequence_fwd_chunked,
-        uses_tensor_cores)
+        gru_sequence_reference, uses_tensor_cores)
 
-    H, T, P = CHANNELS, STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, PBT_TRAIN
-    gen = torch.Generator(device="cuda").manual_seed(25)
-    res = results["gru_sequence_bwd_chunked"] = {"max_abs_err": 0.0}
+    T, P = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, PBT_TRAIN
+    wide = H != CHANNELS
+    gen = torch.Generator(device="cuda").manual_seed(25 + wide * H)
+    res = results.setdefault("gru_sequence_bwd_chunked", {"max_abs_err": 0.0})
     bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    main_route = "tensor_core" if uses_tensor_cores(bf16, H) else "cuda_core"
     shuffled = [2, 0, 3, 2, 1, 0]      # policy 4 of 5 owns no chunk
     # main_path: True for the bf16 learn step, "float16" for its float16
     # instance (timed into res["float16"]), False for the ragged checks.
@@ -2573,13 +2740,17 @@ def check_gru_bwd_chunked(results):
         args[4] = torch.tensor(order, dtype=torch.int32, device="cuda")
         x, keep, wh, bias_h, idx, h0 = args
         ys = gru_sequence_fwd_chunked(*args)
+        _step_checks(f"gru_sequence_fwd_chunked [{T_c}, {B} x {C}, {3 * H}] "
+                     f"P={P_c} {dname} chunks {order}",
+                     gru_sequence_fwd_chunked, x, keep, wh, bias_h, idx,
+                     (h0,), (ys,), (ys,))
         probe = torch.randn(T_c, B * C, H, device="cuda",
                             generator=gen).to(dtype)
         got, path = _routed(GRU_BWD_CHUNKED, uses_tensor_cores(dtype, H),
                             gru_sequence_bwd_chunked, *args, ys, probe)
         tag = (f"[{T_c}, {B} x {C}, {3 * H}] P={P_c} {dname} chunks "
                f"{order} ({path})")
-        if main_path is True and path != "tensor_core":
+        if main_path is True and path != main_route:
             raise AssertionError(f"gru_sequence_bwd_chunked {tag}: the main "
                                  f"path took the {path} route")
         leaves = [a.detach().clone().requires_grad_(i in (0, 2, 3, 5))
@@ -2598,7 +2769,8 @@ def check_gru_bwd_chunked(results):
             err = max(err, compare(f"gru_sequence_bwd_chunked {name} {tag}",
                                    g, w, **tol))
         dxp, dwh, dbh, dh0 = got
-        # Row for row, the single-policy backward on each chunk's rows.
+        # Row for row, the single-policy backward on each chunk's rows; on
+        # CUDA cores a policy of one chunk's dwh / dbh bitwise too.
         sums = {}
         for b, p in enumerate(order):
             rows = slice(b * C, (b + 1) * C)
@@ -2610,6 +2782,12 @@ def check_gru_bwd_chunked(results):
                     and torch.equal(one[3], dh0[rows])):
                 raise AssertionError(f"gru_sequence_bwd_chunked {tag}: chunk "
                                      f"{b}'s rows differ from "
+                                     f"gru_sequence_bwd's")
+            if (path == "cuda_core" and order.count(p) == 1
+                    and not (torch.equal(one[1], dwh[p])
+                             and torch.equal(one[2], dbh[p]))):
+                raise AssertionError(f"gru_sequence_bwd_chunked {tag}: "
+                                     f"policy {p}'s dwh / dbh differ from "
                                      f"gru_sequence_bwd's")
             dw1, db1 = sums.get(p, (0.0, 0.0))
             sums[p] = (dw1 + one[1].float(), db1 + one[2].float())
@@ -2666,6 +2844,9 @@ def check_gru_bwd_chunked(results):
                 f"-1 NaN and in no policy's dwh / dbh, the others unchanged "
                 f"ok")
             if not main_path:
+                if wide:
+                    _wide_record(results, "gru_sequence_bwd_chunked", H,
+                                 dname, "ragged", max_abs_err=err, shape=tag)
                 continue
         per_policy = [((x[:, b * C:(b + 1) * C].contiguous(),
                         keep[:, b * C:(b + 1) * C].contiguous(), wh[p],
@@ -2696,10 +2877,27 @@ def check_gru_bwd_chunked(results):
         record = dict(max_abs_err=err, path=path, ms=ms, plain_ms=plain_ms,
                       library_ms=None, per_policy_ms=loop_ms, chunk=C,
                       chunks=B, policies=P_c, dwh_bitwise_single=same, **b)
-        if main_path is True:
-            res.update(record)
-        else:
-            res["float16"] = record
+        if not wide:
+            if main_path is True:
+                res.update(record)
+            else:
+                res["float16"] = record
+            continue
+        _wide_record(results, "gru_sequence_bwd_chunked", H, dname, "learn",
+                     shape=tag, **record)
+        a1 = per_policy[0]
+        one_leaves = [t.detach().clone().requires_grad_()
+                      for t in (a1[0], *a1[2:5])]
+
+        def plain_one():
+            out = gru_sequence_reference(one_leaves[0], a1[1],
+                                         *one_leaves[1:])
+            return torch.autograd.grad(
+                (out.float() * a1[6].float()).sum(), one_leaves)
+
+        _wide_single(results, "gru_sequence_bwd", H, dname, "learn",
+                     lambda: gru_sequence_bwd(*a1), plain_one, tol,
+                     _gru_bounds(T_c, C, H, x.element_size())[1])
 
 
 def _chunked_step_inputs(gen, B, C, F, H, layers, P, dtype):
@@ -3170,6 +3368,444 @@ def check_grouped_matmul_pbt(results):
             rows.append(row)
 
 
+# The recurrences' widths past the model's: their CUDA-core instances.
+WIDE_HIDDEN = (384, 512)
+
+
+# -- layer_norm's chunk-indexed pair ------------------------------------------
+
+def _ln_chunked_inputs(gen, B, C, D, P, dtype, order=None):
+    """x [B * C, D], the f32 [P, D] scale (near 1) and bias stacks,
+    chunk_policy [B] (every policy present, or ``order``), dy."""
+    import torch
+
+    x = (2 * torch.randn(B * C, D, device="cuda", generator=gen)
+         + 0.5).to(dtype)
+    scale = 1 + 0.1 * torch.randn(P, D, device="cuda", generator=gen)
+    bias = 0.1 * torch.randn(P, D, device="cuda", generator=gen)
+    if order is None:
+        idx = torch.randint(0, P, (B,), device="cuda", generator=gen,
+                            dtype=torch.int32)
+        idx[:P] = torch.arange(P, device="cuda", dtype=torch.int32)
+    else:
+        idx = torch.tensor(order, device="cuda", dtype=torch.int32)
+    dy = torch.randn(B * C, D, device="cuda", generator=gen).to(dtype)
+    return x, scale, bias, idx, dy
+
+
+def _check_layer_norm_chunked_case(results, B, C, D, P, dtype, order=None,
+                                   main=None):
+    """The pair over B chunks of C rows of P policies: y / mu / rsigma
+    against the twin and each policy's rows bitwise one ``layer_norm_fwd``
+    call with its weights; dx, dscale and dbias against the twin's
+    autograd, dx rows bitwise ``layer_norm_bwd``'s, dscale / dbias bitwise
+    over two calls and within the f32 sums' tolerance of the single-policy
+    backward's; a chunk of index P and -1 NaN, a policy without a chunk
+    zero gradients. ``main`` "fwd" or "bwd": that kernel's times."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.layer_norm import (
+        layer_norm_bwd, layer_norm_bwd_chunked, layer_norm_chunked_reference,
+        layer_norm_fwd, layer_norm_fwd_chunked)
+
+    dname = str(dtype).split(".")[-1]
+    tag = f"[{B} x {C}, {D}] P={P} {dname}"
+    gen = torch.Generator(device="cuda").manual_seed(B + C + D)
+    x, scale, bias, idx, dy = _ln_chunked_inputs(gen, B, C, D, P, dtype,
+                                                 order)
+    live = ((idx >= 0) & (idx < P)).repeat_interleave(C)
+    y, mu, rsigma = layer_norm_fwd_chunked(x, scale, bias, idx)
+    err_f = compare(f"layer_norm_fwd_chunked {tag}", y[live],
+                    layer_norm_chunked_reference(x, scale, bias, idx)[live],
+                    **TOL[("ln_fwd", dname)])
+    again = layer_norm_fwd_chunked(x, scale, bias, idx)
+    for name, a, b_ in zip(("y", "mu", "rsigma"), again, (y, mu, rsigma)):
+        bitwise(f"layer_norm_fwd_chunked {tag} {name} over two calls", a, b_)
+    by_policy = _policy_rows(idx, C, P)
+    for p, rows in by_policy:
+        y1, mu1, rs1 = layer_norm_fwd(x[rows], scale[p], bias[p])
+        if not (torch.equal(y1, y[rows]) and torch.equal(mu1, mu[rows])
+                and torch.equal(rs1, rsigma[rows])):
+            raise AssertionError(f"layer_norm_fwd_chunked {tag}: policy "
+                                 f"{p}'s rows differ from layer_norm_fwd's")
+    log(f"  layer_norm_fwd_chunked {tag}: every row's y, mu and rsigma "
+        f"bitwise one layer_norm_fwd call's with its policy's weights ok")
+    dx, dscale, dbias = layer_norm_bwd_chunked(x, scale, idx, mu, rsigma, dy)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, scale, bias)]
+
+    def plain_bwd():
+        out = layer_norm_chunked_reference(*leaves, idx)
+        return torch.autograd.grad(
+            (out[live].float() * dy[live].float()).sum(), leaves)
+
+    pdx, pds, pdb = plain_bwd()
+    err_b = max(compare(f"layer_norm_bwd_chunked {tag} dx", dx[live],
+                        pdx[live], **TOL[("ln_bwd", dname)]),
+                compare(f"layer_norm_bwd_chunked {tag} dscale", dscale, pds,
+                        **TOL["ln_dwdb"]),
+                compare(f"layer_norm_bwd_chunked {tag} dbias", dbias, pdb,
+                        **TOL["ln_dwdb"]))
+    again = layer_norm_bwd_chunked(x, scale, idx, mu, rsigma, dy)
+    for name, a, b_ in zip(("dx", "dscale", "dbias"), again,
+                           (dx, dscale, dbias)):
+        bitwise(f"layer_norm_bwd_chunked {tag} {name} over two calls", a, b_)
+    present = {p for p, _ in by_policy}
+    for p in set(range(P)) - present:
+        if dscale[p].any() or dbias[p].any():
+            raise AssertionError(f"layer_norm_bwd_chunked {tag}: policy {p} "
+                                 f"owns no chunk but has nonzero gradients")
+    for p, rows in by_policy:
+        dx1, dw1, db1 = layer_norm_bwd(x[rows], scale[p], mu[rows],
+                                       rsigma[rows], dy[rows])
+        if not torch.equal(dx1, dx[rows]):
+            raise AssertionError(f"layer_norm_bwd_chunked {tag}: policy "
+                                 f"{p}'s dx rows differ from "
+                                 f"layer_norm_bwd's")
+        err_b = max(err_b, compare(
+            f"layer_norm_bwd_chunked {tag} policy {p} dscale / dbias "
+            f"against layer_norm_bwd", torch.stack([dscale[p], dbias[p]]),
+            torch.stack([dw1, db1]), **TOL["ln_dwdb"]))
+    log(f"  layer_norm_bwd_chunked {tag}: every row's dx bitwise "
+        f"layer_norm_bwd's with its policy's weights ok")
+    bad = idx.clone()
+    bad[0], bad[-1] = P, -1
+    skipped = torch.zeros(B, dtype=torch.bool, device="cuda")
+    skipped[0] = skipped[-1] = True
+    rows_bad = skipped.repeat_interleave(C)
+    yb, mub, rsb = layer_norm_fwd_chunked(x, scale, bias, bad)
+    dxb, _, _ = layer_norm_bwd_chunked(x, scale, bad, mu, rsigma, dy)
+    if not (bool(yb[rows_bad].isnan().all())
+            and bool(mub[rows_bad].isnan().all())
+            and bool(dxb[rows_bad].isnan().all())
+            and torch.equal(yb[~rows_bad], y[~rows_bad])
+            and torch.equal(dxb[~rows_bad], dx[~rows_bad])):
+        raise AssertionError(f"layer_norm chunked {tag}: a chunk of index P "
+                             f"or -1 was not skipped alone")
+    log(f"  layer_norm chunked {tag}: chunks of index P and -1 NaN, the "
+        f"others unchanged ok")
+    if main is None:
+        return
+    rec = results.setdefault(f"layer_norm_{main}_chunked", {})
+    # _layer_norm_bounds' bytes with the scale and bias of the policies in
+    # use (read; dscale / dbias written backward) and the chunk indices.
+    elems, item, used = B * C * D, x.element_size(), len(by_policy)
+    fwd_b = bound(2 * item * elems + 8 * D * used + 8 * B * C + 4 * B,
+                  {"f32": 8 * elems})
+    bwd_b = bound(3 * item * elems + 12 * D * used + 8 * B * C + 4 * B,
+                  {"f32": 12 * elems})
+    per_policy = [(x[rows].contiguous(), scale[p], bias[p], mu[rows],
+                   rsigma[rows], dy[rows].contiguous())
+                  for p, rows in by_policy]
+    # No one call computes LayerNorm with a weight a row: the yardstick is
+    # native_layer_norm (and its backward) over the same rows with one
+    # policy's weight, the same work but the weights' gather.
+    # (PyTorch takes the affine only in x's dtype.)
+    w0, b0 = scale[0].to(x.dtype), bias[0].to(x.dtype)
+    _, lmu, lrs = torch.ops.aten.native_layer_norm(x, [D], w0, b0, 1e-6)
+    if main == "fwd":
+        ms = time_ms(lambda: layer_norm_fwd_chunked(x, scale, bias, idx))
+        loop_ms = time_ms(lambda: [layer_norm_fwd(a[0], a[1], a[2])
+                                   for a in per_policy])
+        plain_ms = time_ms(lambda: layer_norm_chunked_reference(
+            x, scale, bias, idx))
+        lib_ms = time_ms(lambda: torch.ops.aten.native_layer_norm(
+            x, [D], w0, b0, 1e-6))
+        b_ = fwd_b
+        rec.update(max_abs_err=err_f, **b_)
+    else:
+        ms = time_ms(lambda: layer_norm_bwd_chunked(x, scale, idx, mu,
+                                                    rsigma, dy))
+        loop_ms = time_ms(lambda: [layer_norm_bwd(a[0], a[1], a[3], a[4],
+                                                  a[5]) for a in per_policy])
+        plain_ms = time_ms(plain_bwd)
+        lib_ms = time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [D], lmu, lrs, w0, b0, [True, True, True]))
+        b_ = bwd_b
+        rec.update(max_abs_err=err_b, **b_)
+    rec.update(ms=ms, per_policy_ms=loop_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, path="cuda_core", shape=tag)
+    log(f"  layer_norm_{main}_chunked {tag}: kernel {ms:.4f} ms, one "
+        f"layer_norm_{main} a policy over the same rows {loop_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, native_layer_norm"
+        f"{'' if main == 'fwd' else '_backward'} with one policy's weight "
+        f"{lib_ms:.4f} ms, bound {b_['bound_ms']:.4f} ms ({b_['bound_by']})")
+
+
+def check_layer_norm_chunked(results):
+    """layer_norm_{fwd,bwd}_chunked at headline_pbt_lnkernel's shapes, bf16
+    D = 256: the collect step's rows (75 chunks of 512, 12 policies; the
+    forward's times) and a learn minibatch's (8 chunks of 16 x 1280 rows, 8
+    policies; the backward's times), and ragged chunks of 37 rows in a
+    shuffled order in float32 and bf16 (D = 48 and 100, the backward's
+    element-by-element path) (``_check_layer_norm_chunked_case``)."""
+    import torch
+
+    P, C, B = _pbt_chunk_geometry()
+    bf16, f32 = torch.bfloat16, torch.float32
+    log(f"layer_norm_fwd_chunked / _bwd_chunked at headline_pbt_lnkernel's "
+        f"shapes and ragged chunks:")
+    _check_layer_norm_chunked_case(results, B, C, CHANNELS, P, bf16,
+                                   main="fwd")
+    _check_layer_norm_chunked_case(results, PBT_TRAIN, 16 * PBT_MINIBATCH,
+                                   CHANNELS, PBT_TRAIN, bf16, main="bwd")
+    # Policy 2 owns two chunks, 3 none (of P = 4).
+    for D, dtype in ((48, f32), (100, bf16)):
+        _check_layer_norm_chunked_case(results, 5, 37, D, 4, dtype,
+                                       order=[2, 0, 1, 2, 0])
+
+
+# -- infer_512: multi-policy inference at 512 channels ----------------------
+
+# benchmarks/infer_bench.py's defaults (BASELINE.md:49, "Multi-policy
+# inference, 32 policies x 16k agents, 512ch LSTM"): 16384 agents served by
+# 32 policies, a fresh random assignment every step, 200 steps, MLP 2 x 512
+# over 64 features -> LSTM 1 x 512, a 5-way actor and a dense critic, in
+# bf16 (the bench's dtype on the TPU).
+INFER_POLICIES, INFER_AGENTS, INFER_STEPS = 32, 16384, 200
+INFER_CHANNELS, INFER_FEATURES = 512, 64
+
+
+def _infer_geometry():
+    """infer_bench.py's chunk size, the port's heuristic_policy_chunk_size
+    over its agents and policies (256), and chunk count (95)."""
+    from madrona_learn_tpu_torch.ops.reorder import \
+        heuristic_policy_chunk_size
+
+    C = heuristic_policy_chunk_size(INFER_AGENTS, INFER_POLICIES,
+                                    INFER_AGENTS // INFER_POLICIES)
+    return C, -(-INFER_AGENTS // C) + INFER_POLICIES - 1
+
+
+def _infer_actor_critic(seed, channels, dtype):
+    """infer_bench.py's model: MLP 2 x channels over the 64 features ->
+    LSTM 1 x channels, a 5-way actor and a dense critic."""
+    import torch
+    from madrona_learn_tpu_torch.config import DiscreteActionsConfig
+    from madrona_learn_tpu_torch.models import (
+        LSTM, MLP, ActorCritic, BackboneShared, DenseLayerCritic,
+        DenseLayerDiscreteActor, DictActor, RecurrentBackboneEncoder)
+
+    gen = torch.Generator().manual_seed(seed)
+    return ActorCritic(
+        backbone=BackboneShared(
+            prefix=lambda obs: obs["feat"],
+            encoder=RecurrentBackboneEncoder(
+                net=MLP(INFER_FEATURES, channels, 2, dtype, generator=gen),
+                rnn=LSTM(channels, channels, 1, dtype, generator=gen))),
+        actor=DictActor({"move": DenseLayerDiscreteActor(
+            DiscreteActionsConfig(actions_num_buckets=[5]), channels, dtype,
+            generator=gen)}),
+        critic=DenseLayerCritic(channels, dtype, generator=gen))
+
+
+def _infer_loop(device, policies, agents, channels, chunk, dtype, seed=0):
+    """The bench's loop in the port: the population, and ``step()``, which
+    draws a fresh assignment, computes its policy-chunk layout
+    (``compute_policy_chunks``), gathers the obs and the recurrent state
+    into it, runs ``rollout_chunked`` (sampled actions) and gathers the new
+    state and the actions back; it returns the layout and the step's
+    chunk-order inputs."""
+    import torch
+    from madrona_learn_tpu_torch.models.common import StackedParams
+    from madrona_learn_tpu_torch.rollouts import compute_policy_chunks
+
+    acs = [_infer_actor_critic(seed + p, channels, dtype).to(device)
+           for p in range(policies)]
+    params = StackedParams.of(acs)
+    cfg = types.SimpleNamespace(
+        policy_chunk_size=chunk,
+        pbt=types.SimpleNamespace(
+            total_num_policies=policies, num_current_policies=policies,
+            complex_matchmaking=True, custom_policy_ids=()))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    obs = {"feat": torch.randn(agents, INFER_FEATURES, device=device,
+                               generator=gen).to(dtype)}
+    state = {"rnn": acs[0].init_recurrent_state(agents, device)}
+
+    def step():
+        assignments = torch.randint(0, policies, (agents,), device=device,
+                                    generator=gen, dtype=torch.int32)
+        layout = compute_policy_chunks(assignments, cfg)
+        rnn_in, obs_in = layout.to_policy(state["rnn"]), layout.to_policy(obs)
+        with torch.no_grad():
+            out, rnn = acs[0].rollout_chunked(params, layout, gen, rnn_in,
+                                              obs_in)
+        state["rnn"] = layout.to_sim(rnn)
+        state["actions"] = layout.to_sim(out["actions"]["move"])
+        return layout, rnn_in, obs_in
+
+    return acs, params, step
+
+
+def infer_phase(card):
+    """infer_512: benchmarks/infer_bench.py's shape in the port (32
+    policies x 16384 agents, 512-channel LSTM, bf16, a fresh random
+    assignment every step, 200 steps of ``rollout_chunked``): launches
+    exact (one ``lstm_sequence_fwd_chunked`` at H = 512 and five
+    ``grouped_matmul`` a step, none other, no launch on tensor cores: the
+    512-wide instances are CUDA-core ones) and no step on the plain twin;
+    then, at one more step, four chunks' critic values and new state
+    against each chunk's policy alone (``ActorCritic.rollout``, its LSTM a
+    single-policy ``lstm_sequence_fwd`` launch) within the step rule;
+    agent-steps/s."""
+    import torch
+    import madrona_learn_tpu_torch.models.lstm as lstm_model
+    from madrona_learn_tpu_torch.utils import tree_map
+
+    C, B = _infer_geometry()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"infer_512: {INFER_POLICIES} policies x {INFER_AGENTS} agents, "
+        f"MLP 2 x {INFER_CHANNELS} over {INFER_FEATURES} features -> LSTM "
+        f"{INFER_CHANNELS}, bf16, chunks of {C} (heuristic_policy_chunk_size)"
+        f", {B} chunks, {INFER_STEPS} steps, a fresh assignment a step")
+    acs, params, step = _infer_loop("cuda", INFER_POLICIES, INFER_AGENTS,
+                                    INFER_CHANNELS, C, torch.bfloat16)
+    plain = [0]
+    twin = lstm_model.lstm_step_chunked_reference
+
+    def counted(*args):
+        plain[0] += 1
+        return twin(*args)
+
+    lstm_model.lstm_step_chunked_reference = counted
+    try:
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(INFER_STEPS):
+            step()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        lstm_model.lstm_step_chunked_reference = twin
+    launches = _check_launches("infer_512",
+                               _chunked_step_launches(INFER_STEPS),
+                               tensor_cores=False)
+    if plain[0]:
+        raise AssertionError(f"infer_512: {plain[0]} steps on the plain twin")
+    log(f"  infer_512: 0 steps on the plain twin")
+    layout, rnn_in, obs_in = step()
+    with torch.no_grad():
+        out, rnn = acs[0].rollout_chunked(params, layout, None, rnn_in,
+                                          obs_in, sample_actions=False)
+        seen = set()
+        for b, p in enumerate(layout.chunk_policy.tolist()):
+            if p in seen or len(seen) == 4:
+                continue
+            seen.add(p)
+            one, new = acs[p].rollout(
+                None, tree_map(lambda s: s[b], rnn_in),
+                {"feat": obs_in["feat"][b]}, sample_actions=False)
+            tol = TOL[("step", "bfloat16")]
+            compare(f"infer_512 chunk {b} (policy {p}) critic against its "
+                    f"policy alone", out["critic"][b], one["critic"], **tol)
+            compare(f"infer_512 chunk {b} (policy {p}) new h against its "
+                    f"policy alone", rnn[1][b], new[1], **tol)
+    sps = INFER_STEPS * INFER_AGENTS / seconds
+    log(f"  infer_512: {sps:.0f} agent-steps/s ({seconds * 1e3 / INFER_STEPS:.3f} "
+        f"ms a step) on {card}")
+    return launches, dict(sps=sps, ms_per_step=seconds * 1e3 / INFER_STEPS)
+
+
+def _population_card_vs_cpu(name, mgr):
+    """A trained population's policy-batched passes on the card against the
+    CPU, from the same parameters and inputs: one collect step
+    (``rollout_chunked`` over 16 chunks of 64 rows of every policy, the
+    chunks' policies shuffled; the critic and the new state) and one learn
+    pass (``update_batched`` over the train policies' [16, 256]
+    minibatches; log-probs and critic values, and the gradients of their
+    sum). Outputs within the bf16 step rule (3.2e-2 absolute); gradients
+    within 3.2e-2 of their norm (bf16 products rounded in another order,
+    through 16 recurrent steps)."""
+    import copy
+    import torch
+    from madrona_learn_tpu_torch.models.common import StackedParams
+    from madrona_learn_tpu_torch.ops.reorder import PolicyBatchReorderState
+    from madrona_learn_tpu_torch.utils import tree_map
+
+    pop = mgr.state.policy_states
+    Pall, P = len(pop), len(mgr.state.train_states)
+    ac = pop[0].actor_critic
+    ac_cpu = copy.deepcopy(ac).cpu()
+    gen = torch.Generator().manual_seed(17)
+    dtype = torch.bfloat16
+    tol = TOL[("step", "bfloat16")]
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dtype)
+
+    def state(*lead):
+        return tree_map(lambda s: 0.5 * rnd(*lead, *s.shape[1:]),
+                        ac_cpu.init_recurrent_state(1))
+
+    def leaves(policies, device):
+        with torch.no_grad():
+            stacked = StackedParams.of([pop[p].actor_critic
+                                        for p in policies])
+        return {k: v.detach().to(device).clone().requires_grad_()
+                for k, v in stacked.leaves.items()}
+
+    # One collect step.
+    B, C = 16, 64
+    idx = torch.randperm(B, generator=gen) % Pall
+    obs = {k: rnd(B, C, 1) for k in ("time", "acc")}
+    rnn = state(B, C)
+    outs = {}
+    for dev, model in (("cuda", ac), ("cpu", ac_cpu)):
+        cp = idx.to(dev, torch.int32)
+        layout = PolicyBatchReorderState(
+            to_policy_idxs=None, to_sim_idxs=None, policy_dims=(B, C),
+            sim_dims=(B * C,), chunk_policy=cp, chunk_index=cp.long())
+        with torch.no_grad():
+            outs[dev] = model.rollout_chunked(
+                StackedParams(leaves(range(Pall), dev)), layout, None,
+                tree_map(lambda t: t.to(dev), rnn),
+                tree_map(lambda t: t.to(dev), obs), sample_actions=False)
+    (o_g, r_g), (o_c, r_c) = outs["cuda"], outs["cpu"]
+    compare(f"{name} collect step critic, card vs CPU", o_g["critic"].cpu(),
+            o_c["critic"], **tol)
+    as_tuple = lambda r: r if isinstance(r, tuple) else (r,)
+    for i, (g, c) in enumerate(zip(as_tuple(r_g), as_tuple(r_c))):
+        compare(f"{name} collect step state {i}, card vs CPU", g.cpu(), c,
+                **tol)
+    # One learn pass.
+    T, mb = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, 256
+    obs = {k: rnd(P, T, mb, 1) for k in ("time", "acc")}
+    rnn = state(P, mb)
+    ends = torch.rand(P, T, mb, 1, generator=gen) < 0.1
+    actions = {"move": torch.randint(0, 5, (P, T, mb, 1), generator=gen,
+                                     dtype=torch.int32)}
+    res = {}
+    for dev, model in (("cuda", ac), ("cpu", ac_cpu)):
+        lv = leaves(range(P), dev)
+        mv = lambda t: t.to(dev)
+        out = model.update_batched(StackedParams(lv), tree_map(mv, rnn),
+                                   mv(ends), tree_map(mv, actions),
+                                   tree_map(mv, obs))
+        # The log-probs of the move head and the critic values.
+        out = {"log_probs": out["log_probs"]["move"], "critic": out["critic"]}
+        loss = out["log_probs"].float().sum() + out["critic"].float().sum()
+        grads = torch.autograd.grad(loss, list(lv.values()))
+        res[dev] = (out, dict(zip(lv, grads)))
+    (o_g, g_g), (o_c, g_c) = res["cuda"], res["cpu"]
+    for k in ("log_probs", "critic"):
+        compare(f"{name} learn pass {k}, card vs CPU", o_g[k].detach().cpu(),
+                o_c[k].detach(), **tol)
+    worst = 0.0
+    for k in g_c:
+        rel = ((g_g[k].cpu().float() - g_c[k].float()).norm()
+               / g_c[k].float().norm().clamp_min(1e-30)).item()
+        worst = max(worst, rel)
+        if not rel <= 3.2e-2:
+            raise AssertionError(f"{name}: gradient {k} on the card is "
+                                 f"{rel:.3e} of its norm away from the CPU's")
+    log(f"  {name} learn pass gradients, card vs CPU: the largest relative "
+        f"difference {worst:.3e} over {len(g_c)} stacked parameters (tol "
+        f"3.2e-2 of the norm) ok")
+
+
 def kernel_phase():
     results = {}
     log("kernels against their plain versions:")
@@ -3183,12 +3819,14 @@ def kernel_phase():
     check_mha_flash(results)
     check_grouped_matmul(results)
     check_grouped_matmul_pbt(results)
-    check_lstm_chunked(results)
-    check_lstm_bwd_chunked(results)
-    check_gru_chunked(results)
-    check_gru_bwd_chunked(results)
+    for H in (CHANNELS, *WIDE_HIDDEN):
+        check_lstm_chunked(results, H)
+        check_lstm_bwd_chunked(results, H)
+        check_gru_chunked(results, H)
+        check_gru_bwd_chunked(results, H)
     check_policy_step_chunked(results)
     check_lstm_proj_chunked(results)
+    check_layer_norm_chunked(results)
     return results
 
 
@@ -4222,7 +4860,7 @@ PBT_MINIBATCH = NUM_BPTT_CHUNKS * PBT_TRAIN_AGENTS // NUM_MINIBATCHES
 
 def _pbt_actor_critic(seed, rnn="lstm", critic="dense", fused=False,
                       separate=False, flagship=False, dtype=None,
-                      window=None):
+                      window=None, channels=CHANNELS, ln_kernel=False):
     """The headline's MLP + LSTM in bf16 (or ``dtype``: headline_fp16's
     model in float16) over the duel's 2 obs; with ``window``
     headline_window's WindowAttentionMemory(256, window, WINDOW_HEADS) in
@@ -4234,14 +4872,20 @@ def _pbt_actor_critic(seed, rnn="lstm", critic="dense", fused=False,
     MLP 2 x 256 -> LSTM 256 tower for the actor and another for the
     critic (headline_separate's ``BackboneSeparate``); with ``flagship``
     the flagship's model (``_flagship_actor_critic`` at its published
-    width) over the duel's obs as entity sets (``_entity_env``)."""
+    width) over the duel's obs as entity sets (``_entity_env``); with
+    ``channels`` another width of the MLP, the recurrence and the heads
+    (512: infer_bench.py's; 32: a width the recurrent kernels are not
+    built for, JAX's jnp-twin route); with ``ln_kernel`` each MLP LayerNorm
+    replaced after construction by ``LayerNorm(use_kernel=True)`` with the
+    same parameters (JAX's ``MLP`` has no such option: the kernel
+    LayerNorm's population is built here)."""
     import torch
     from madrona_learn_tpu_torch.config import DiscreteActionsConfig
     from madrona_learn_tpu_torch.models import (
         GRU, LSTM, MLP, ActorCritic, BackboneSeparate, BackboneShared,
         DenseLayerCritic, DenseLayerDiscreteActor, DictActor,
-        DreamerV3Critic, HLGaussTwoPartCritic, RecurrentBackboneEncoder,
-        WindowAttentionMemory)
+        DreamerV3Critic, HLGaussTwoPartCritic, LayerNorm,
+        RecurrentBackboneEncoder, WindowAttentionMemory)
 
     dtype = dtype or torch.bfloat16
     if flagship:
@@ -4249,17 +4893,23 @@ def _pbt_actor_critic(seed, rnn="lstm", critic="dense", fused=False,
     gen = torch.Generator().manual_seed(seed)
 
     def tower():
-        net = MLP(2, CHANNELS, 2, dtype, generator=gen)
+        net = MLP(2, channels, 2, dtype, generator=gen)
+        if ln_kernel:
+            for i in range(net.num_layers):
+                old = getattr(net, f"LayerNorm_{i}")
+                new = LayerNorm(channels, dtype, use_kernel=True)
+                new.load_state_dict(old.state_dict())
+                setattr(net, f"LayerNorm_{i}", new)
         if window is not None:
-            recurrence = WindowAttentionMemory(CHANNELS, window,
+            recurrence = WindowAttentionMemory(channels, window,
                                                WINDOW_HEADS, dtype,
                                                generator=gen)
         elif fused:
-            recurrence = LSTM(CHANNELS, CHANNELS, 1, dtype, generator=gen,
+            recurrence = LSTM(channels, channels, 1, dtype, generator=gen,
                               fuse_input_proj=True)
         else:
             recurrence = {"lstm": LSTM, "gru": GRU}[rnn](
-                CHANNELS, CHANNELS, 1, dtype, generator=gen)
+                channels, channels, 1, dtype, generator=gen)
         return RecurrentBackboneEncoder(net=net, rnn=recurrence,
                                         use_fused_step=fused)
 
@@ -4267,12 +4917,12 @@ def _pbt_actor_critic(seed, rnn="lstm", critic="dense", fused=False,
     backbone = (BackboneSeparate(prefix, tower(), tower()) if separate
                 else BackboneShared(prefix=prefix, encoder=tower()))
     actor = DictActor({"move": DenseLayerDiscreteActor(
-        DiscreteActionsConfig(actions_num_buckets=[5]), CHANNELS, dtype,
+        DiscreteActionsConfig(actions_num_buckets=[5]), channels, dtype,
         generator=gen)})
     critics = {
-        "dense": lambda: DenseLayerCritic(CHANNELS, dtype, generator=gen),
-        "dreamer": lambda: DreamerV3Critic(CHANNELS, dtype),
-        "hlgauss_two_part": lambda: HLGaussTwoPartCritic.create(CHANNELS,
+        "dense": lambda: DenseLayerCritic(channels, dtype, generator=gen),
+        "dreamer": lambda: DreamerV3Critic(channels, dtype),
+        "hlgauss_two_part": lambda: HLGaussTwoPartCritic.create(channels,
                                                                 dtype)}
     return ActorCritic(backbone=backbone, actor=actor,
                        critic=critics[critic]())
@@ -4932,7 +5582,7 @@ def _count_launches(fn):
 
 
 def pbt_variant_phase(card, name, model, per_update, timed_updates,
-                      collect_ab):
+                      collect_ab, final_check=None):
     """headline_pbt's population with another model (``model``, the
     keywords of ``_pbt_actor_critic``): it must take the policy-chunk
     layout and the batched learn; one warm-up update, whose first
@@ -4944,9 +5594,13 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
     model (``dtype``) must launch nothing on tensor cores; each policy's
     loss scale and non-finite steps are printed after the updates, and
     the learn A/B runs again with train policy 1's scale forced to 2^40
-    (``_pbt_learn_ab(force=1)``)."""
+    (``_pbt_learn_ab(force=1)``). A model at a width without the
+    tensor-core instances (``channels``: 384, 512) must launch nothing on
+    tensor cores either. ``final_check(name, mgr)``, where given, runs
+    last."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda import KERNELS
+    from madrona_learn_tpu_torch.ops.cuda.lstm import uses_tensor_cores
     from madrona_learn_tpu_torch.train import TrainHooks
 
     gc.collect()
@@ -4961,6 +5615,9 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
     expected.update(per_update)
     dtype = model.get("dtype") or torch.bfloat16
     half = dtype == torch.float16
+    # Every kernel with a tensor-core route takes it, but in float16 and at
+    # a width without the wgmma instances.
+    tensor_cores = uses_tensor_cores(dtype, model.get("channels", CHANNELS))
     log(f"{name} trainer: headline_pbt's population with {model}, "
         f"{str(dtype).split('.')[-1]}; expected launches per update "
         f"{ {k: v for k, v in expected.items() if v} }")
@@ -4993,14 +5650,14 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
         raise AssertionError(f"{name}: launches over {num_updates} updates "
                              f"{launches}, expected {want}")
     for kernel, n in tc.items():
-        if n != (0 if half else launches[kernel]):
+        if n != (launches[kernel] if tensor_cores else 0):
             raise AssertionError(f"{name}: {kernel}: {n} of "
                                  f"{launches[kernel]} launches on the "
                                  f"tensor-core route")
     log(f"  launches over {num_updates} updates: "
         f"{ {k: v for k, v in launches.items() if v} }, "
-        + ("none on tensor cores (the float16 instances)" if half else
-           "all on the tensor-core route where it exists"))
+        + ("all on the tensor-core route where it exists" if tensor_cores
+           else "none on tensor cores (CUDA-core instances)"))
     if not bool(torch.isfinite(torch.stack(losses)).all()):
         raise AssertionError(f"{name}: non-finite loss")
     for metric, m in mgr.metrics.metrics.items():
@@ -5022,6 +5679,8 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
     ab.update(_pbt_learn_ab(card, mgr))
     if half:
         ab.update(_pbt_learn_ab(card, mgr, force=1))
+    if final_check is not None:
+        final_check(name, mgr)
     return launches, dict(sps=sps, ratio_dev=max(ratios), peak_gib=peak_gib,
                           **ab)
 
@@ -5231,22 +5890,23 @@ def _zero_launch_counts():
         k.tc_launches = 0
 
 
-def _check_launches(what, expected):
+def _check_launches(what, expected, tensor_cores=True):
     """The launches since the counts were last zeroed must be
     ``expected`` (the others 0), each on the tensor-core route where the
-    kernel has one; returns them."""
+    kernel has one, or, without ``tensor_cores`` (the 384 / 512-wide
+    instances, float16), none on it; returns them."""
     launches, tc = _launch_counts()
     want = {name: expected.get(name, 0) for name in launches}
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, expected "
                              f"{ {k: v for k, v in want.items() if v} }")
     for name, n in tc.items():
-        if n != launches[name]:
+        if n != (launches[name] if tensor_cores else 0):
             raise AssertionError(f"{what}: {name}: {n} of "
                                  f"{launches[name]} launches on the "
                                  f"tensor-core route")
     log(f"  {what}: launches {({k: v for k, v in launches.items() if v})}"
-        f", on the tensor-core route")
+        f", {'on the tensor-core route' if tensor_cores else 'none on tensor cores'}")
     return launches
 
 
@@ -6467,6 +7127,37 @@ def main():
             f"train policies {r['ratio_dev']:.3e}, peak {r['peak_gib']:.2f} "
             f"GiB on {card}")
     launches_by_path["entity_large_set"] = entity_large_set_check(card)
+    # Every width the JAX package takes (the 384 / 512 instances, JAX's
+    # twin route below 128) and the kernel LayerNorm's population.
+    launches_by_path["infer_512"], r = infer_phase(card)
+    elapsed("infer_512")
+    for name, model, per_update, timed, collect_ab, check in (
+            # infer_bench.py's width: the recurrence on the 512-wide
+            # CUDA-core instances, headline_pbt's launches.
+            ("headline_pbt_512", dict(channels=INFER_CHANNELS), pbt_lstm, 2,
+             False, None),
+            # A width no recurrent kernel is built for: the LSTM on its
+            # plain twins, as JAX takes its jnp twin; the card against the
+            # CPU, and the chunked collect (the twins' gathered batched
+            # product) against the per-policy loop.
+            ("headline_pbt_h32", dict(channels=32),
+             {"gae": 1, "grouped_matmul": 5 * STEPS_PER_UPDATE + 4}, 1,
+             True, _population_card_vs_cpu),
+            # Each MLP LayerNorm on the kernel: two layer_norm_fwd_chunked
+            # a trunk pass (a rollout step, the bootstrap, a minibatch), two
+            # layer_norm_bwd_chunked a minibatch.
+            ("headline_pbt_lnkernel", dict(ln_kernel=True),
+             dict(pbt_lstm, layer_norm_fwd_chunked=2 * steps,
+                  layer_norm_bwd_chunked=2 * NUM_MINIBATCHES), 1, False,
+             None)):
+        launches, r = pbt_variant_phase(card, name, model, per_update, timed,
+                                        collect_ab, final_check=check)
+        elapsed(name)
+        launches_by_path[name] = launches
+        log(f"{name}: {r['sps']:.0f} agent-steps/s (headline_pbt "
+            f"{paths_pbt_sps:.0f} in this run), max |ratio - 1| over the "
+            f"train policies {r['ratio_dev']:.3e}, peak {r['peak_gib']:.2f} "
+            f"GiB on {card}")
     zoo = {
         # The rest of the model zoo. Separate towers: each tower's LSTM at
         # every rollout step and every minibatch, the critic's alone for
@@ -6540,7 +7231,8 @@ def main():
                                  "main_pass_ms", "reduction_ms",
                                  "device_ms", "host_us", "library_device_ms",
                                  "library_host_us", "per_policy_ms",
-                                 "pbt_shapes", "learn_shape") if k in r}})
+                                 "pbt_shapes", "learn_shape", "wide",
+                                 "shape") if k in r}})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

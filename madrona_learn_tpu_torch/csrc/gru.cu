@@ -42,7 +42,8 @@
 //
 // These are bound by CUDA-core FMA issue and shared/L1 load throughput,
 // far below the tensor-core rate that bounds the work itself; they serve
-// float32 and float16 (the same f32 math from float16 operands, h and the
+// float32 and float16, and bfloat16 at H = 384 and 512 (the same f32 math
+// from float16 or bfloat16 operands, h and the
 // rounded dhp stored in float16).
 //
 // In bfloat16, both on Hopper's tensor cores: the forward
@@ -106,7 +107,8 @@
 // the rows are [num_chunks][chunk], each chunk of one policy; a block owns
 // one row tile of one chunk (fwd_rows, chunk_rows.cuh) and reads its
 // policy's slice of the [P, H, 3H] / [P, H] stacks: by a pointer offset on
-// CUDA cores (float32, float16), by the third coordinate of one TMA map
+// CUDA cores (float32, float16; bfloat16 at H = 384 and 512), by the
+// third coordinate of one TMA map
 // over the whole stack on tensor cores (bf16: Wh, and the backward's
 // [P, 3H, H] Wh^T stack). A row's arithmetic is the single-policy
 // kernel's, so every row equals
@@ -1029,11 +1031,22 @@ int launch_fwd_tc(const void* xp, const void* keep, const void* wh,
 
 }  // namespace
 
-// dtype: 0 = float32, 2 = float16. Each entry point returns a cudaError_t,
-// or -1 for arguments without an instantiation. The CUDA-core kernels are
-// built for float32 and float16: bfloat16 takes mlt_gru_fwd_tc and
-// mlt_gru_bwd_tc.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Each entry point returns a
+// cudaError_t, or -1 for arguments without an instantiation. The CUDA-core
+// kernels are built for float32 and float16 at H = 128 and 256 (bfloat16
+// there takes mlt_gru_fwd_tc and mlt_gru_bwd_tc), and for all three at
+// H = 384 and 512, where the tensor-core design does not fit, for lstm.cu's
+// reasons ("Wider layers" at its dispatch: H / 64 warpgroups leave 80 or 64
+// registers a thread, and the backward's K-major slices of Wh^T are TMA
+// boxes of H rows, past 256): the same templates, with the narrower
+// instances' contracts (ops/cuda/gru.py: uses_tensor_cores states it).
+#define MLT_DISPATCH_WIDE(CALL, H)                               \
+  if (dtype == 0 && hidden == H) return CALL(float, H);          \
+  if (dtype == 1 && hidden == H) return CALL(__nv_bfloat16, H);  \
+  if (dtype == 2 && hidden == H) return CALL(__half, H)
 #define MLT_DISPATCH_F32_F16(CALL)                               \
+  MLT_DISPATCH_WIDE(CALL, 384);                                  \
+  MLT_DISPATCH_WIDE(CALL, 512);                                  \
   if (dtype == 0 && hidden == 128) return CALL(float, 128);      \
   if (dtype == 0 && hidden == 256) return CALL(float, 256);      \
   if (dtype == 2 && hidden == 128) return CALL(__half, 128);     \
@@ -1119,7 +1132,8 @@ extern "C" int mlt_gru_fwd_tc(int hidden, int rows, int stages,
 // H, 3H] / [num_policies, H] stacks (a chunk of no policy is skipped, its
 // rows NaN). tensor_core 1 takes the bf16 tensor-core kernel (R = 32, 4
 // stages: the wrapper's FWD_TC_ROWS, FWD_TC_STAGES), 0 the CUDA-core one
-// (float32, float16). Returns a cudaError_t, or -1 for arguments without an
+// (float32, float16; bfloat16 at H = 384 and 512). Returns a cudaError_t,
+// or -1 for arguments without an
 // instantiation.
 extern "C" int mlt_gru_fwd_chunked(int tensor_core, int dtype, int hidden,
                                    const void* xp, const void* keep,
@@ -1164,7 +1178,7 @@ extern "C" int mlt_gru_fwd_chunked(int tensor_core, int dtype, int hidden,
 // recurrence and weight-gradient pass (hin: [T, N, H] scratch; part_w
 // [num_chunks * splits, H, 3H], part_b [num_chunks * ceil(chunk / 32), H];
 // db is dbh [num_policies, H]), 0 the CUDA-core kernels (float32,
-// float16; hin
+// float16; bfloat16 at H = 384 and 512; hin
 // unused; part_w and part_b [num_chunks * splits, ...]; db is db3
 // [num_policies, 3H], whose last H columns are dbh). Returns a
 // cudaError_t, or -1 for arguments without an instantiation.
@@ -1203,3 +1217,4 @@ extern "C" int mlt_gru_bwd_chunked(
 }
 
 #undef MLT_DISPATCH_F32_F16
+#undef MLT_DISPATCH_WIDE

@@ -29,8 +29,26 @@
 // Bound on the H100: device-memory bytes. The forward reads x and writes y
 // (plus 8 bytes a row of statistics); the backward reads x and dy and writes
 // dx, a few f32 operations per element either way.
+//
+// The chunk-indexed instances (layer_norm_fwd_chunked, layer_norm_bwd_chunked)
+// are the LayerNorm of a population's policy-batched passes: JAX vmaps the
+// kernel-backed LayerNorm, and with it these pallas_calls, over policy chunks
+// in collect (madrona_learn_tpu/rollouts.py:580) and over the train policies
+// in learn (madrona_learn_tpu/train.py:315). The rows are [num_chunks][chunk],
+// each chunk of one policy, and the f32 scale and bias are [P, D] stacks.
+// They are the kernels above with the policy read per row: the forward's
+// warp reads its row's chunk's policy and that policy's scale and bias at an
+// offset into the stacks, so every row is bitwise one layer_norm_fwd call's
+// with its policy's weights; a chunk whose policy lies outside [0, P) writes
+// NaN (y, mu, rsigma; dx in the backward). The backward's block owns up to
+// kPartRows rows of one chunk (ceil(chunk / kPartRows) blocks a chunk, so no
+// partial straddles two policies), its dx rows a row's own, and
+// sum_by_policy (weight_grad.cuh) adds each policy's chunks' partials in
+// chunk order into dscale / dbias [P, D]: fixed partials in a fixed order,
+// so they do not depend on the card's SM count and are the same run to run.
 
 #include "common.cuh"
+#include "weight_grad.cuh"
 
 namespace {
 
@@ -51,11 +69,25 @@ template <typename T, int kPerLane>
 __global__ void __launch_bounds__(kThreads) layer_norm_fwd_kernel(
     const T* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ b, T* __restrict__ y, float* __restrict__ mu,
-    float* __restrict__ rsigma, int n_rows, int d, float eps) {
+    float* __restrict__ rsigma, int n_rows, int d, float eps,
+    const int* __restrict__ chunk_policy, int chunk, int num_policies) {
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kWarps + threadIdx.x / 32;
   if (row >= n_rows) return;  // whole warps
   const T* xr = x + static_cast<size_t>(row) * d;
+  if (chunk_policy != nullptr) {
+    // The chunk-indexed instance: the row's policy's scale and bias.
+    const int p = chunk_policy[row / chunk];
+    if (p < 0 || p >= num_policies) {
+      const float nan = __int_as_float(0x7fc00000);
+      for (int c = lane; c < d; c += 32)
+        y[static_cast<size_t>(row) * d + c] = from_f<T>(nan);
+      if (lane == 0) mu[row] = rsigma[row] = nan;
+      return;
+    }
+    w += static_cast<size_t>(p) * d;
+    b += static_cast<size_t>(p) * d;
+  }
 
   float v[kPerLane];
   float sum = 0.0f;
@@ -196,14 +228,38 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kPieces == 1 ? 3 : 1)
     const T* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ mu, const float* __restrict__ rsigma,
     const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part,
-    int n_rows, int d, bool vec) {
+    int n_rows, int d, bool vec, const int* __restrict__ chunk_policy,
+    int chunk, int num_policies) {
   constexpr int V = kVec<T>;
   constexpr int kPer = kPieces * V;
   extern __shared__ float smem[];
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  const int row_end =
-      min((static_cast<int>(blockIdx.x) + 1) * kPartRows, n_rows);
+  const size_t partials = gridDim.x;
+  int first = static_cast<int>(blockIdx.x) * kPartRows;
+  int row_end = min(first + kPartRows, n_rows);
+  if (chunk_policy != nullptr) {
+    // The chunk-indexed instance: up to kPartRows rows of one chunk, with
+    // that chunk's policy's scale; a chunk of no policy writes NaN dx and
+    // a zero partial, which no policy's sum reads.
+    const int tiles = (chunk + kPartRows - 1) / kPartRows;
+    const int c = static_cast<int>(blockIdx.x) / tiles;
+    first = c * chunk + (static_cast<int>(blockIdx.x) % tiles) * kPartRows;
+    row_end = min(first + kPartRows, c * chunk + chunk);
+    const int p = chunk_policy[c];
+    if (p < 0 || p >= num_policies) {
+      const T nan = from_f<T>(__int_as_float(0x7fc00000));
+      for (int e = threadIdx.x; e < (row_end - first) * d;
+           e += kBwdWarps * 32)
+        dx[static_cast<size_t>(first) * d + e] = nan;
+      for (int col = threadIdx.x; col < d; col += kBwdWarps * 32) {
+        part[blockIdx.x * static_cast<size_t>(d) + col] = 0.0f;
+        part[(partials + blockIdx.x) * d + col] = 0.0f;
+      }
+      return;
+    }
+    w += static_cast<size_t>(p) * d;
+  }
 
   // Value i = j V + e of a lane is column (32 j + lane) V + e.
   float wv[kPer], dw_acc[kPer], db_acc[kPer];
@@ -216,7 +272,7 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kPieces == 1 ? 3 : 1)
   }
 
   RowLoad<kPieces> next;
-  int row = static_cast<int>(blockIdx.x) * kPartRows + warp;
+  int row = first + warp;
   if (row < row_end)
     load_row<T>(next, x, dy, mu, rsigma, row, d, lane, vec);
   for (; row < row_end; row += kBwdWarps) {
@@ -275,7 +331,6 @@ __global__ void __launch_bounds__(kBwdWarps * 32, kPieces == 1 ? 3 : 1)
     }
   }
   __syncthreads();
-  const size_t partials = gridDim.x;
   for (int c = threadIdx.x; c < d; c += kBwdWarps * 32) {
     float sw = 0.0f, sb = 0.0f;
     for (int k = 0; k < kBwdWarps; ++k) {
@@ -314,26 +369,39 @@ __global__ void __launch_bounds__(kRedCols * kRedGroups)
   if (g == 0 && c < d) (blockIdx.y == 0 ? dw : db)[c] = s[0][lane];
 }
 
+// chunk_policy null: one scale and bias; else the chunk-indexed instance
+// over [num_policies, d] stacks, rows in chunks of `chunk`.
 template <typename T, int kPerLane>
 int launch_fwd(const void* x, const void* w, const void* b, void* y,
                void* mu, void* rsigma, int n_rows, int d, float eps,
-               cudaStream_t stream) {
+               cudaStream_t stream, const void* chunk_policy = nullptr,
+               int chunk = 0, int num_policies = 1) {
   const int blocks = (n_rows + kWarps - 1) / kWarps;
   layer_norm_fwd_kernel<T, kPerLane><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w),
       static_cast<const float*>(b), static_cast<T*>(y),
-      static_cast<float*>(mu), static_cast<float*>(rsigma), n_rows, d, eps);
+      static_cast<float*>(mu), static_cast<float*>(rsigma), n_rows, d, eps,
+      static_cast<const int*>(chunk_policy), chunk, num_policies);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Partials of an [n_rows, d] backward: one a kPartRows rows, or, with
+// chunks, ceil(chunk / kPartRows) a chunk.
+int bwd_partials(const void* chunk_policy, int n_rows, int chunk) {
+  if (chunk_policy == nullptr) return (n_rows + kPartRows - 1) / kPartRows;
+  return (n_rows / chunk) * ((chunk + kPartRows - 1) / kPartRows);
+}
+
 // phases: bit 0 the main pass (dx and the partials), bit 1 the reduction
-// (dw, db from the partials).
+// (dw, db from the partials: [num_policies, d] each with chunks, summed by
+// policy in chunk order).
 template <typename T, int kPieces>
 int launch_bwd(const void* x, const void* w, const void* mu,
                const void* rsigma, const void* dy, void* dx, void* part,
                void* dw, void* db, int n_rows, int d, int phases,
-               cudaStream_t stream) {
-  const int partials = (n_rows + kPartRows - 1) / kPartRows;
+               cudaStream_t stream, const void* chunk_policy = nullptr,
+               int chunk = 0, int num_policies = 1) {
+  const int partials = bwd_partials(chunk_policy, n_rows, chunk);
   if (phases & 1) {
     const int smem = 2 * kBwdWarps * d * static_cast<int>(sizeof(float));
     if (smem > 48 * 1024) {
@@ -349,9 +417,21 @@ int launch_bwd(const void* x, const void* w, const void* mu,
             static_cast<const T*>(x), static_cast<const float*>(w),
             static_cast<const float*>(mu), static_cast<const float*>(rsigma),
             static_cast<const T*>(dy), static_cast<T*>(dx),
-            static_cast<float*>(part), n_rows, d, vec);
+            static_cast<float*>(part), n_rows, d, vec,
+            static_cast<const int*>(chunk_policy), chunk, num_policies);
     const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
+  }
+  if ((phases & 2) && chunk_policy != nullptr) {
+    const int num_chunks = n_rows / chunk;
+    const int per_chunk = partials / num_chunks;
+    const float* p = static_cast<const float*>(part);
+    const int err = sum_by_policy<float>(p, dw, chunk_policy, num_chunks,
+                                         per_chunk, num_policies, d, stream);
+    if (err != 0) return err;
+    return sum_by_policy<float>(p + static_cast<size_t>(partials) * d, db,
+                                chunk_policy, num_chunks, per_chunk,
+                                num_policies, d, stream);
   }
   if (phases & 2) {
     const dim3 grid((d + kRedCols - 1) / kRedCols, 2);
@@ -379,6 +459,16 @@ int launch_bwd(const void* x, const void* w, const void* mu,
   if (dtype == 1 && d <= 256) return CALL(__nv_bfloat16, 8);          \
   if (dtype == 1 && d <= 1024) return CALL(__nv_bfloat16, 32);        \
   return -1
+// kPieces 16-byte pieces a lane: V = 4 (f32) or 8 (bf16) columns each.
+#define MLT_DISPATCH_BWD(CALL)                                        \
+  if (d <= 0) return -1;                                              \
+  if (dtype == 0 && d <= 128) return CALL(float, 1);                  \
+  if (dtype == 0 && d <= 256) return CALL(float, 2);                  \
+  if (dtype == 0 && d <= 1024) return CALL(float, 8);                 \
+  if (dtype == 1 && d <= 256) return CALL(__nv_bfloat16, 1);          \
+  if (dtype == 1 && d <= 512) return CALL(__nv_bfloat16, 2);          \
+  if (dtype == 1 && d <= 1024) return CALL(__nv_bfloat16, 4);         \
+  return -1
 
 extern "C" int mlt_layer_norm_fwd(int dtype, int d, const void* x,
                                   const void* w, const void* b, void* y,
@@ -398,22 +488,59 @@ extern "C" int mlt_layer_norm_bwd(int dtype, int d, const void* x,
                                   void* dx, void* part, void* dw, void* db,
                                   int n_rows, int partials, int phases,
                                   void* stream) {
-  if (n_rows <= 0 || partials != (n_rows + kPartRows - 1) / kPartRows)
+  if (n_rows <= 0 || partials != bwd_partials(nullptr, n_rows, 0))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // kPieces 16-byte pieces a lane: V = 4 (f32) or 8 (bf16) columns each.
 #define MLT_BWD(T, P) \
   launch_bwd<T, P>(x, w, mu, rsigma, dy, dx, part, dw, db, n_rows, d, \
                    phases, s)
-  if (d <= 0) return -1;
-  if (dtype == 0 && d <= 128) return MLT_BWD(float, 1);
-  if (dtype == 0 && d <= 256) return MLT_BWD(float, 2);
-  if (dtype == 0 && d <= 1024) return MLT_BWD(float, 8);
-  if (dtype == 1 && d <= 256) return MLT_BWD(__nv_bfloat16, 1);
-  if (dtype == 1 && d <= 512) return MLT_BWD(__nv_bfloat16, 2);
-  if (dtype == 1 && d <= 1024) return MLT_BWD(__nv_bfloat16, 4);
-  return -1;
+  MLT_DISPATCH_BWD(MLT_BWD);
 #undef MLT_BWD
 }
+
+// layer_norm_fwd_chunked: the forward over [num_chunks * chunk] rows, chunk
+// c with row chunk_policy[c] of the [num_policies, d] f32 scale and bias
+// stacks (a chunk of no policy: NaN y, mu and rsigma).
+extern "C" int mlt_layer_norm_fwd_chunked(
+    int dtype, int d, const void* x, const void* w, const void* b,
+    const void* chunk_policy, void* y, void* mu, void* rsigma,
+    int num_chunks, int chunk, int num_policies, float eps, void* stream) {
+  const long long n = static_cast<long long>(num_chunks) * chunk;
+  if (num_chunks <= 0 || chunk <= 0 || num_policies <= 0 || n > 0x7fffffffLL)
+    return -1;
+  const int n_rows = static_cast<int>(n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MLT_FWD(T, K)                                                     \
+  launch_fwd<T, K>(x, w, b, y, mu, rsigma, n_rows, d, eps, s, chunk_policy, \
+                   chunk, num_policies)
+  MLT_DISPATCH(MLT_FWD);
+#undef MLT_FWD
+}
+
+// layer_norm_bwd_chunked: the backward of layer_norm_fwd_chunked: dx a row
+// (NaN for a chunk of no policy), dw / db [num_policies, d], each policy's
+// the sum of its chunks' partials in chunk order (0 for a policy without a
+// chunk). partials must be num_chunks * ceil(chunk / kPartRows) (the
+// wrapper's scratch rows), part [2][partials][d].
+extern "C" int mlt_layer_norm_bwd_chunked(
+    int dtype, int d, const void* x, const void* w, const void* chunk_policy,
+    const void* mu, const void* rsigma, const void* dy, void* dx, void* part,
+    void* dw, void* db, int num_chunks, int chunk, int num_policies,
+    int partials, void* stream) {
+  const long long n = static_cast<long long>(num_chunks) * chunk;
+  if (num_chunks <= 0 || chunk <= 0 || num_policies <= 0 ||
+      num_policies > 65535 || n > 0x7fffffffLL)
+    return -1;
+  const int n_rows = static_cast<int>(n);
+  if (partials != bwd_partials(chunk_policy, n_rows, chunk)) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MLT_BWD(T, P)                                                     \
+  launch_bwd<T, P>(x, w, mu, rsigma, dy, dx, part, dw, db, n_rows, d, 3, s, \
+                   chunk_policy, chunk, num_policies)
+  MLT_DISPATCH_BWD(MLT_BWD);
+#undef MLT_BWD
+}
+
+#undef MLT_DISPATCH_BWD
 
 #undef MLT_DISPATCH

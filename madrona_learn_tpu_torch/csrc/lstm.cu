@@ -16,7 +16,8 @@
 // in no order, so neither the resident weight nor a sum carried across grid
 // steps exists.
 //
-// In float32 and float16 (layout and product in common.cuh), forwards and
+// In float32 and float16, and in bfloat16 at H = 384 and 512 (layout and
+// product in common.cuh), forwards and
 // backwards (the projection variant in float32 only):
 // - One block owns kRows batch rows and all H units of those rows, and
 //   loops over time inside the kernel (the TPU's sequential grid axis
@@ -59,7 +60,8 @@
 // accumulation, which is what wgmma computes, with only the order of the
 // sums changed. The wrapper's rule (ops/cuda/lstm.py: uses_tensor_cores)
 // sends bf16 at H = 128 or 256 here (an operand off a 16-byte boundary is
-// copied onto one first), float32 and float16 to the kernels above.
+// copied onto one first), float32 and float16, and bf16 at H = 384 and
+// 512 ("Wider layers", at the dispatch), to the kernels above.
 // - Row ownership as above, with R rows a block (kFwdTcRows for the
 //   forwards, kTcRows for the backwards: the fastest on the H100, PERF.md):
 //   warpgroup w owns units 64 w .. 64 w + 63 of all four gates, so the gate
@@ -112,7 +114,8 @@
 // weights. Here the rows are [B][C], a block owns one row tile of one chunk
 // (fwd_rows, chunk_rows.cuh: no block straddles two policies, and C need
 // not be a multiple of R), and reads its policy's slice of the [P, H, 4H] / [P, 4H] stacks:
-// by a pointer offset on CUDA cores (float32, float16), by the third
+// by a pointer offset on CUDA cores (float32, float16; bfloat16 at H = 384
+// and 512), by the third
 // coordinate of one TMA map over the whole stack on tensor cores (no map
 // a policy, no gathered copy of the weights). A row's arithmetic is the single-policy kernel's, so
 // every row equals lstm_sequence_fwd's with its policy's weights bitwise.
@@ -129,7 +132,8 @@
 // policy's rows t * N + n are not contiguous, so the weight-gradient pass
 // splits each chunk's own T * chunk rows: the tensor-core pass reads them
 // through maps of [T * chunks] slices of [chunk][K] (weight_grad_tc.cuh),
-// the CUDA-core pass (float32 and float16) by index (weight_grad.cuh),
+// the CUDA-core pass (float32 and float16; bfloat16 at H = 384 and 512) by
+// index (weight_grad.cuh),
 // each chunk's splits by the
 // single-policy rule over its rows, and sum_by_policy adds a policy's
 // chunks' partials (db: its chunks' block partials) in chunk order. So a
@@ -1702,12 +1706,28 @@ bool proj_width_ok(int hidden, int f_in) {
 
 }  // namespace
 
-// dtype: 0 = float32, 2 = float16. Each entry point returns a cudaError_t,
-// or -1 for arguments without an instantiation. The CUDA-core sequence
-// kernels are built for float32 and float16, the projection kernels for
-// float32 alone (float16 takes the unfused kernels, as the JAX package's
-// lstm_proj_supported sends it to its unfused route): bfloat16 takes
-// mlt_lstm_fwd_tc and mlt_lstm_bwd_tc.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Each entry point returns a
+// cudaError_t, or -1 for arguments without an instantiation. The CUDA-core
+// sequence kernels are built for float32 and float16 at H = 128 and 256
+// (bfloat16 there takes mlt_lstm_fwd_tc and mlt_lstm_bwd_tc), and for all
+// three at H = 384 and 512, where the tensor-core design does not fit (see
+// "Wider layers" below); the projection kernels for float32 alone, at 128
+// and 256 (float16 takes the unfused kernels, as the JAX package's
+// lstm_proj_supported sends it to its unfused route).
+//
+// Wider layers (H = 384, 512). The tensor-core kernels give each warpgroup
+// 64 units of all four gates, so a block has H / 64 warpgroups: 768 threads
+// at H = 384 and 1024 at H = 512, which leaves each thread 80 and 64
+// registers, where the H = 256 instances already take 128 and spill; and
+// the backwards' K-major weight slices are single TMA boxes of H rows,
+// past TMA's 256 elements a box dimension. So bfloat16 takes the CUDA-core
+// kernels at these widths, the same templates as float32 and float16 (one
+// row's arithmetic whatever the dtype: storage-type operands converted
+// exactly to f32, f32 sums, the carry rounded to the storage type), with
+// every contract of the narrower instances: the rollout step is the
+// sequence forward's step, a chunked row is the single-policy kernel's, a
+// chunk of no policy writes NaN, a policy's dWr / db sum its chunks' split
+// partials in chunk order. ops/cuda/lstm.py: uses_tensor_cores states it.
 #define MLT_DISPATCH_F32(CALL)                                   \
   if (dtype == 0 && hidden == 128) return CALL(float, 128);      \
   if (dtype == 0 && hidden == 256) return CALL(float, 256);      \
@@ -1716,6 +1736,15 @@ bool proj_width_ok(int hidden, int f_in) {
   if (dtype == 2 && hidden == 128) return CALL(__half, 128);     \
   if (dtype == 2 && hidden == 256) return CALL(__half, 256);     \
   MLT_DISPATCH_F32(CALL)
+// The sequence kernels: the above, and every dtype at H = 384 and 512.
+#define MLT_DISPATCH_WIDE(CALL, H)                               \
+  if (dtype == 0 && hidden == H) return CALL(float, H);          \
+  if (dtype == 1 && hidden == H) return CALL(__nv_bfloat16, H);  \
+  if (dtype == 2 && hidden == H) return CALL(__half, H)
+#define MLT_DISPATCH_SEQ(CALL)                                   \
+  MLT_DISPATCH_WIDE(CALL, 384);                                  \
+  MLT_DISPATCH_WIDE(CALL, 512);                                  \
+  MLT_DISPATCH_F32_F16(CALL)
 
 extern "C" int mlt_lstm_fwd(int dtype, int hidden, const void* xp,
                             const void* keep, const void* wr,
@@ -1725,7 +1754,7 @@ extern "C" int mlt_lstm_fwd(int dtype, int hidden, const void* xp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MLT_FWD(T, H) \
   launch_fwd<T, H>(xp, keep, wr, bias, c0, h0, ys, cs, steps, n_rows, s)
-  MLT_DISPATCH_F32_F16(MLT_FWD);
+  MLT_DISPATCH_SEQ(MLT_FWD);
 #undef MLT_FWD
 }
 
@@ -1741,7 +1770,7 @@ extern "C" int mlt_lstm_bwd(int dtype, int hidden, const void* xp,
 #define MLT_BWD(T, H)                                                      \
   launch_bwd<T, H>(xp, keep, wr, wr_t, bias, c0, h0, ys, cs, dys, dxp, dh0, \
                    dc0, part_w, part_b, dwr, db, steps, n_rows, splits, s)
-  MLT_DISPATCH_F32_F16(MLT_BWD);
+  MLT_DISPATCH_SEQ(MLT_BWD);
 #undef MLT_BWD
 }
 
@@ -1833,7 +1862,8 @@ extern "C" int mlt_lstm_fwd_tc(int hidden, int f_in, const void* x,
 // chunk c with the weights of policy chunk_policy[c] of the [num_policies,
 // H, 4H] / [num_policies, 4H] stacks (a chunk of no policy is skipped, its
 // rows NaN). tensor_core 1 takes the bf16 tensor-core kernel, 0 the
-// CUDA-core one (float32, float16). Returns a cudaError_t, or -1 for
+// CUDA-core one (float32, float16; bfloat16 at H = 384 and 512). Returns a
+// cudaError_t, or -1 for
 // arguments without an instantiation.
 extern "C" int mlt_lstm_fwd_chunked(int tensor_core, int dtype, int hidden,
                                     const void* xp, const void* keep,
@@ -1863,7 +1893,7 @@ extern "C" int mlt_lstm_fwd_chunked(int tensor_core, int dtype, int hidden,
 #define MLT_FWD_CHUNKED(T, H)                                              \
   launch_fwd<T, H>(xp, keep, wr, bias, c0, h0, ys, cs, steps, n_rows, s,    \
                    chunk_policy, num_chunks, chunk, num_policies)
-  MLT_DISPATCH_F32_F16(MLT_FWD_CHUNKED);
+  MLT_DISPATCH_SEQ(MLT_FWD_CHUNKED);
 #undef MLT_FWD_CHUNKED
 }
 
@@ -1877,7 +1907,8 @@ extern "C" int mlt_lstm_fwd_chunked(int tensor_core, int dtype, int hidden,
 // each (0 for a policy without a chunk). tensor_core 1 takes the bf16
 // tensor-core recurrence and weight-gradient pass (hin: [T, N, H] scratch;
 // part_w [num_chunks * splits, H, 4H], part_b [num_chunks * ceil(chunk /
-// 16), 4H]), 0 the float32 or float16 CUDA-core kernels (hin unused;
+// 16), 4H]), 0 the CUDA-core kernels (float32, float16; bfloat16 at H =
+// 384 and 512; hin unused;
 // part_w and part_b [num_chunks * splits, ...]). Returns a cudaError_t, or -1 for
 // arguments without an instantiation.
 extern "C" int mlt_lstm_bwd_chunked(
@@ -1911,7 +1942,7 @@ extern "C" int mlt_lstm_bwd_chunked(
   launch_bwd<T, H>(xp, keep, wr, wr_t, bias, c0, h0, ys, cs, dys, dxp, dh0, \
                    dc0, part_w, part_b, dwr, db, steps, n_rows, splits, s,  \
                    chunk_policy, num_chunks, chunk, num_policies)
-  MLT_DISPATCH_F32_F16(MLT_BWD_CHUNKED);
+  MLT_DISPATCH_SEQ(MLT_BWD_CHUNKED);
 #undef MLT_BWD_CHUNKED
 }
 
@@ -2009,5 +2040,7 @@ extern "C" int mlt_lstm_proj_bwd_chunked(
 #undef MLT_PROJ_BWD_CHUNKED
 }
 
+#undef MLT_DISPATCH_SEQ
+#undef MLT_DISPATCH_WIDE
 #undef MLT_DISPATCH_F32_F16
 #undef MLT_DISPATCH_F32

@@ -31,8 +31,10 @@ fresh one a minibatch, so that no cast outlives an optimizer step).
 Every train policy has the same rows in learn, so products are ``torch.bmm`` over ``[P, rows, in] x [P, in, out]``
 (JAX's ``vmap`` of ``Dense`` is a batched ``dot_general``) and per-policy
 vectors broadcast over the rows; LayerNorm stays plain PyTorch, as on the
-single-policy learn path. ``batched_form_missing`` names the first module
-without one.
+single-policy learn path, but ``LayerNorm(use_kernel=True)``, whose
+chunked and batched forms run the ``layer_norm`` kernels' chunk-indexed
+instances (JAX ``vmap``s its Pallas LayerNorm). ``batched_form_missing``
+names the first module without one.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import torch
 from torch import nn
 
 from ..ops.cuda.grouped_matmul import grouped_matmul
-from ..ops.cuda.layer_norm import layer_norm
+from ..ops.cuda.layer_norm import layer_norm, layer_norm_chunked
 from ..utils.profile import profile
 
 # The compute dtypes of the policy-batched forms: grouped_matmul's.
@@ -263,7 +265,11 @@ class LayerNorm(nn.Module):
     ``use_kernel=True`` (JAX: ``use_pallas``) runs the ``layer_norm``
     kernel pair instead, over x reshaped to ``[-1, D]``: a two-pass
     variance, and the result in x's dtype, as JAX's ``_PallasLNImpl``. The
-    parameters are the same ``impl.scale`` / ``impl.bias`` either way.
+    parameters are the same ``impl.scale`` / ``impl.bias`` either way. Its
+    policy-batched forms run the pair's chunk-indexed instances
+    (``layer_norm_chunked``): ``chunked`` over the chunks' rows, each with
+    its chunk's policy's scale and bias, ``batched`` over the train
+    policies' rows as one chunk a policy.
     """
 
     def __init__(self, dim: int, dtype, eps: float = 1e-6,
@@ -279,16 +285,25 @@ class LayerNorm(nn.Module):
             return out.reshape(x.shape)
         return self.impl(x)
 
-    def chunked_supported(self):
-        # The layer_norm kernel takes one scale and bias a call.
-        return not self.use_kernel
+    def _kernel_chunks(self, params, x, chunk_policy):
+        """``x`` [B, ...] of B chunks through ``layer_norm_chunked``, chunk
+        b with policy ``chunk_policy[b]``'s scale and bias."""
+        impl = params.child("impl")
+        out = layer_norm_chunked(x.reshape(-1, x.shape[-1]).contiguous(),
+                                 impl.stack("scale"), impl.stack("bias"),
+                                 chunk_policy, self.impl.eps)
+        return out.reshape(x.shape)
 
     def chunked(self, params, layout, x):
+        if self.use_kernel:
+            return self._kernel_chunks(params, x, layout.chunk_policy)
         return self.impl.chunked(params.child("impl"), layout, x)
 
-    batched_supported = chunked_supported
-
     def batched(self, params, x):
+        if self.use_kernel:
+            return self._kernel_chunks(
+                params, x, torch.arange(x.shape[0], dtype=torch.int32,
+                                        device=x.device))
         return self.impl.batched(params.child("impl"), x)
 
 

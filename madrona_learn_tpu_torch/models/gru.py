@@ -34,8 +34,20 @@ train policy's minibatch as one chunk of a ``[T, P * mb]`` time-major
 batch: each layer's input projection through ``Dense.batched``
 (``torch.bmm``), its recurrence through ``gru_sequence_chunked``
 (``gru_sequence_fwd_chunked`` and ``gru_sequence_bwd_chunked`` on the
-card). Both take float32, bfloat16 and float16 at the hidden sizes the
-kernels take (``gru_supported``); another width keeps the per-policy loop.
+card). Both take float32, bfloat16 and float16.
+
+Every route is picked from the layer's width and dtype before any launch,
+by JAX's gate (``models/gru.py:142``, ``H % 128 == 0``; float16 as
+float32): ``gru_kernel_route`` sends the step, the sequence and both
+policy-batched forms of a multiple of 128 to the kernels, which are built
+at H = 128, 256, 384 and 512 (``gru_supported``) and raise on the card at
+a wider one, and any other width (H = 64 in
+``tests/test_sequence_consistency.py``, 96) to the kernels' plain twins,
+on the card as on the CPU, as JAX sends it to its jnp twin:
+``gru_step_reference``, ``gru_sequence_reference``,
+``gru_step_chunked_reference`` and ``gru_sequence_chunked_reference`` (on
+the card one gathered batched product a step over the chunks). So a
+population of any width takes the chunked rollout and the batched learn.
 """
 
 from __future__ import annotations
@@ -46,11 +58,15 @@ import torch
 from torch import nn
 
 from ..ops.cuda.gru import (
+    gru_kernel_route,
     gru_sequence,
     gru_sequence_chunked,
+    gru_sequence_chunked_reference,
+    gru_sequence_reference,
     gru_step,
     gru_step_chunked,
-    gru_supported,
+    gru_step_chunked_reference,
+    gru_step_reference,
 )
 from .common import CHUNKED_DTYPES, Dense, orthogonal_gates
 
@@ -62,6 +78,9 @@ class _PackedGRULayer(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
+        # The route, JAX's: the kernels, or their plain twins (JAX's jnp
+        # twin) at a width that is no multiple of 128.
+        self.use_kernels = gru_kernel_route(hidden, dtype)
         init = orthogonal_gates(3, hidden)
         self.input_proj = Dense(in_features, 3 * hidden, dtype,
                                 use_bias=True, kernel_init=init,
@@ -76,8 +95,8 @@ class _PackedGRULayer(nn.Module):
 
     def forward(self, h, x):
         wh, bh = self.packed_weights()
-        return gru_step(self.input_proj(x).contiguous(), wh, bh,
-                        h.contiguous())
+        step = gru_step if self.use_kernels else gru_step_reference
+        return step(self.input_proj(x).contiguous(), wh, bh, h.contiguous())
 
     def _stacks(self, params):
         """The [P, H, 3H] / [P, H] weight stacks in the compute dtype (the
@@ -91,8 +110,10 @@ class _PackedGRULayer(nn.Module):
                                          x)
         B, C = x_proj.shape[:2]
         rows = lambda t: t.reshape(B * C, t.shape[-1]).contiguous()
-        new_h = gru_step_chunked(rows(x_proj), *self._stacks(params),
-                                 layout.chunk_policy, rows(h))
+        step = (gru_step_chunked if self.use_kernels
+                else gru_step_chunked_reference)
+        new_h = step(rows(x_proj), *self._stacks(params), layout.chunk_policy,
+                     rows(h))
         return new_h.reshape(B, C, -1)
 
     def batched(self, params, keep, h0, x):
@@ -102,7 +123,9 @@ class _PackedGRULayer(nn.Module):
         P, T, mb = x.shape[:3]
         x_proj = self.input_proj.batched(params.child("input_proj"), x)
         x_proj = x_proj.transpose(0, 1).reshape(T, P * mb, -1).contiguous()
-        ys = gru_sequence_chunked(
+        sequence = (gru_sequence_chunked if self.use_kernels
+                    else gru_sequence_chunked_reference)
+        ys = sequence(
             x_proj, keep, *self._stacks(params),
             torch.arange(P, dtype=torch.int32, device=x.device), h0)
         return ys.reshape(T, P, mb, -1).transpose(0, 1)
@@ -145,8 +168,9 @@ class GRU(nn.Module):
         return torch.cat(hs, dim=-1), torch.stack(hs, dim=1)
 
     def chunked_supported(self):
-        return (self.dtype in CHUNKED_DTYPES
-                and gru_supported(self.num_hidden_channels, self.dtype))
+        # Every width: one that is no multiple of 128 takes the plain
+        # twins, as JAX's jnp twin.
+        return self.dtype in CHUNKED_DTYPES
 
     def chunked(self, params, layout, cur_hiddens, in_features):
         """``forward`` over [B, C, ...] chunks, the state [B, C, L, H]."""
@@ -187,8 +211,10 @@ class GRU(nn.Module):
         layer_in = seq_x
         for layer, cell in enumerate(self._cells()):
             wh, bh = cell.packed_weights()
-            ys = gru_sequence(cell.input_proj(layer_in).contiguous(), keep,
-                              wh, bh, start_hiddens[:, layer].contiguous())
+            run = (gru_sequence if cell.use_kernels
+                   else gru_sequence_reference)
+            ys = run(cell.input_proj(layer_in).contiguous(), keep, wh, bh,
+                     start_hiddens[:, layer].contiguous())
             layer_in = ys
             outs.append(ys)
         return torch.cat(outs, dim=-1)

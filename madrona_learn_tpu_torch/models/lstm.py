@@ -46,6 +46,21 @@ The compute dtype is float32, bfloat16 or float16. Float16 takes the
 kernels' CUDA-core float16 instances (JAX sends a float16 LSTM to its jnp
 twin, which has the same rounding points), and never the projection
 kernels, which refuse float16 as JAX's do.
+
+Every route is picked from the layer's width and dtype before any launch,
+by JAX's gate (``models/lstm.py:240``, ``H % 128 == 0``; float16 as
+float32): ``lstm_kernel_route`` sends the step, the sequence and both
+policy-batched forms of a multiple of 128 to the kernels, which are built
+at H = 128, 256, 384 and 512 (``lstm_supported``) and raise on the card at
+a wider one, and any other width (H = 32 in ``examples/train_sharded.py``)
+to the kernels' plain twins, on the card as on the CPU, as JAX sends it to
+its jnp twin: ``lstm_step_reference``, ``lstm_sequence_reference``,
+``lstm_step_chunked_reference`` and ``lstm_sequence_chunked_reference``
+(on the card one gathered batched product a step over the chunks). So a
+population of any width takes the chunked rollout and the batched learn.
+The projection kernels are built at H = 128 and 256
+(``lstm_proj_supported``): with ``fuse_input_proj`` a wider layer takes
+the unfused sequence kernels.
 """
 
 from __future__ import annotations
@@ -56,13 +71,18 @@ import torch
 from torch import nn
 
 from ..ops.cuda.lstm import (
+    lstm_kernel_route,
     lstm_proj_supported,
     lstm_sequence,
     lstm_sequence_chunked,
+    lstm_sequence_chunked_reference,
     lstm_sequence_proj,
     lstm_sequence_proj_chunked,
+    lstm_sequence_reference,
     lstm_step,
     lstm_step_chunked,
+    lstm_step_chunked_reference,
+    lstm_step_reference,
 )
 from .common import CHUNKED_DTYPES, Dense, orthogonal_gates
 
@@ -74,6 +94,9 @@ class _PackedLSTMLayer(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
+        # The route, JAX's: the kernels, or their plain twins (JAX's jnp
+        # twin) at a width that is no multiple of 128.
+        self.use_kernels = lstm_kernel_route(hidden, dtype)
         init = orthogonal_gates(4, hidden)
         self.input_proj = Dense(in_features, 4 * hidden, dtype,
                                 use_bias=False, kernel_init=init,
@@ -93,8 +116,9 @@ class _PackedLSTMLayer(nn.Module):
     def forward(self, carry, x):
         c, h = carry
         wr, b = self.packed_weights()
-        new_c, new_h = lstm_step(self.project_input(x).contiguous(), wr, b,
-                                 c.contiguous(), h.contiguous())
+        step = lstm_step if self.use_kernels else lstm_step_reference
+        new_c, new_h = step(self.project_input(x).contiguous(), wr, b,
+                            c.contiguous(), h.contiguous())
         return (new_c, new_h), new_h
 
     def chunked(self, params, layout, carry, x):
@@ -104,7 +128,9 @@ class _PackedLSTMLayer(nn.Module):
                                          x)
         B, C = x_proj.shape[:2]
         rows = lambda t: t.reshape(B * C, t.shape[-1]).contiguous()
-        new_c, new_h = lstm_step_chunked(
+        step = (lstm_step_chunked if self.use_kernels
+                else lstm_step_chunked_reference)
+        new_c, new_h = step(
             rows(x_proj), params.stack("recurrent_kernel", self.dtype),
             params.stack("bias", self.dtype), layout.chunk_policy, rows(c),
             rows(h))
@@ -130,8 +156,10 @@ class _PackedLSTMLayer(nn.Module):
                 b, chunk_policy, c0, h0)
         else:
             x_proj = self.input_proj.batched(params.child("input_proj"), x)
-            ys = lstm_sequence_chunked(time_major(x_proj), keep, wr, b,
-                                       chunk_policy, c0, h0)
+            sequence = (lstm_sequence_chunked if self.use_kernels
+                        else lstm_sequence_chunked_reference)
+            ys = sequence(time_major(x_proj), keep, wr, b, chunk_policy, c0,
+                          h0)
         return ys.reshape(T, P, mb, -1).transpose(0, 1)
 
 
@@ -181,11 +209,14 @@ class LSTM(nn.Module):
         return torch.cat(outs, dim=-1), carry
 
     def chunked_supported(self):
+        # Every width: one that is no multiple of 128 takes the plain
+        # twins, as JAX's jnp twin.
         return self.dtype in CHUNKED_DTYPES
 
     def _fuses_proj(self, in_features):
         """Whether ``sequence`` runs a layer of this input width through
-        the projection kernels."""
+        the projection kernels (``lstm_proj_supported``: H = 128 or 256,
+        float32 or bfloat16)."""
         return self.fuse_input_proj and lstm_proj_supported(
             in_features, self.num_hidden_channels, self.dtype)
 
@@ -246,7 +277,9 @@ class LSTM(nn.Module):
                                         keep, wi, wr, b, c0_l, h0_l)
             else:
                 x_proj = cell.project_input(layer_in).contiguous()
-                ys = lstm_sequence(x_proj, keep, wr, b, c0_l, h0_l)
+                run = (lstm_sequence if cell.use_kernels
+                       else lstm_sequence_reference)
+                ys = run(x_proj, keep, wr, b, c0_l, h0_l)
             layer_in = ys
             outs.append(ys)
         return torch.cat(outs, dim=-1)

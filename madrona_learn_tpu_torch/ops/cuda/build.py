@@ -209,6 +209,12 @@ _SIGNATURES = {
     # chunk_policy, c0, h0, ys, cs, dys, dx, dg, hin, dh0, dc0, part_wi,
     # part_w, part_b, dwi, dwr, db, T, chunks, C, P, splits a chunk, stream
     "mlt_lstm_proj_bwd_chunked": [_I] * 4 + [_P] * 24 + [_I] * 5 + [_P],
+    # dtype, D, x, scale, bias, chunk_policy, y, mu, rsigma, chunks, C, P,
+    # eps, stream
+    "mlt_layer_norm_fwd_chunked": [_I, _I] + [_P] * 7 + [_I] * 3 + [_F, _P],
+    # dtype, D, x, scale, chunk_policy, mu, rsigma, dy, dx, part, dscale,
+    # dbias, chunks, C, P, partials, stream
+    "mlt_layer_norm_bwd_chunked": [_I, _I] + [_P] * 10 + [_I] * 4 + [_P],
 }
 
 

@@ -9,6 +9,16 @@ from L2 every step (384 KiB in bf16 at H = 256, more than a block's shared
 memory), and dWh/dbh are per-split f32 partials summed in a fixed order
 instead of one accumulator shared by the whole grid.
 
+The kernels are built at H = 128, 256, 384 and 512 in float32, bfloat16
+and float16: :func:`gru_supported` is true exactly there, which for
+float32 and bfloat16 is JAX's gate (``H % 128 == 0``,
+``ops/pallas/gru.py:47``) over H from 32 to 512; float16 is the port's
+choice (JAX sends it to its jnp twin). The modules route a layer by
+JAX's gate (:func:`gru_kernel_route`): a width that is no multiple of 128
+to the plain twins, on the card too, as JAX routes it to its jnp twin; the
+wrappers raise on operands no kernel takes (a multiple of 128 past 512
+among them).
+
 Two paths for each kernel, picked by :func:`uses_tensor_cores` from the
 dtype and H alone (no fallback: the kernel a call is routed to runs or
 raises):
@@ -20,9 +30,11 @@ raises):
   block, then takes dWh as a split-K ``wgmma`` product over the T * N rows
   (``csrc/weight_grad_tc.cuh``). Both are bound by streaming Wh from L2.
   An operand off a 16-byte boundary is copied onto one first;
-- float32, whose products tensor cores would round, and float16: the
-  CUDA-core kernels (the backward with the split-M pass of
-  ``csrc/weight_grad.cuh``), bound by f32 FMA issue.
+- float32, whose products tensor cores would round, float16, and
+  bfloat16 at H = 384 and 512 (where the tensor-core design does not fit,
+  for ``csrc/lstm.cu``'s reasons, "Wider layers"): the CUDA-core kernels
+  (the backward with the split-M pass of ``csrc/weight_grad.cuh``), bound
+  by f32 FMA issue.
 
 Contract (all operands in the storage dtype, float32, bfloat16 or
 float16):
@@ -53,8 +65,8 @@ split by the single-policy rule over each chunk's rows alone.
 ``gru_sequence_chunked`` the differentiable pair, whose plain twin
 ``gru_sequence_chunked_reference`` runs ``gru_sequence_reference``'s
 arithmetic chunk by chunk (its autograd defines the backward). Float32,
-bfloat16 and float16 (on the CUDA-core kernels, as for one policy); a
-hidden size no kernel takes raises.
+bfloat16 and float16 (on the CUDA-core kernels, as for one policy); the
+wrappers raise on a hidden size no kernel takes.
 
 CPU tensors take the plain version; CUDA tensors launch the kernels or
 raise.
@@ -67,7 +79,7 @@ import functools
 import torch
 
 from .build import Kernel, check, check_operand, library
-from .lstm import _num_splits, _num_splits_tc, on_16_bytes
+from .lstm import _chunked, _num_splits, _num_splits_tc, on_16_bytes
 
 GRU_FWD = Kernel(
     name="gru_sequence_fwd",
@@ -95,7 +107,10 @@ GRU_BWD_CHUNKED = Kernel(
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HIDDEN_SIZES = (128, 256)
+# The widths the kernels are built for (every dtype), and those of the
+# bfloat16 tensor-core instances.
+_HIDDEN_SIZES = (128, 256, 384, 512)
+_TC_HIDDEN_SIZES = (128, 256)
 _check = functools.partial(check_operand, "gru kernel")
 
 # Batch rows a block of the tensor-core backward owns (kGruTcRows in
@@ -109,18 +124,30 @@ FWD_TC_STAGES = 4
 
 
 def gru_supported(hidden, dtype):
-    """Whether the kernels serve this layer shape (JAX:
-    ``ops/pallas/gru.py:47``, which takes any multiple of 128 in float32
-    or bfloat16; the kernels here are built for 128 and 256, and float16
-    too, which JAX sends to its plain twin)."""
+    """Whether the kernels serve this layer shape: true exactly for the
+    (H, dtype) pairs with a kernel instance. In float32 and bfloat16 that
+    is JAX's gate (``ops/pallas/gru.py:47``, ``H % 128 == 0``) for H up to
+    512; float16 too, on CUDA cores, where JAX takes its jnp twin."""
     return hidden in _HIDDEN_SIZES and dtype in _DTYPE_CODES
+
+
+def gru_kernel_route(hidden, dtype):
+    """The modules' route for a layer of this shape: the kernels (True) or
+    their plain twins (False), by JAX's choice between its Pallas kernel
+    and its jnp twin (``H % 128 == 0``, ``ops/pallas/gru.py:47``), float16
+    going to the kernels as float32 does. True wherever
+    :func:`gru_supported` is, and also at a multiple of 128 past 512,
+    where no instance is built: such a layer raises on the card (the
+    wrappers' operand check) instead of leaving the route JAX takes."""
+    return hidden % 128 == 0 and dtype in _DTYPE_CODES
 
 
 def uses_tensor_cores(dtype, hidden):
     """The path rule of both kernels, forward and backward: bfloat16 with H
     in (128, 256) takes the tensor-core kernels (``wgmma``); float32, whose
-    products tensor cores would round, and float16, the CUDA-core ones."""
-    return dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES
+    products tensor cores would round, float16, and bfloat16 at H = 384 and
+    512, the CUDA-core ones."""
+    return dtype == torch.bfloat16 and hidden in _TC_HIDDEN_SIZES
 
 
 def _cell(x_proj_t, wh32, bh32, h):
@@ -142,41 +169,54 @@ def gru_sequence_reference(x_proj, keep, wh, bias_h, h0):
     """Plain twin of ``gru_sequence_reference`` (ops/pallas/gru.py:272).
 
     Differentiable by autograd; its gradients are the plain version of
-    ``gru_sequence_bwd``.
+    ``gru_sequence_bwd``. Over chunks (x_proj [T, B, C, 3H], keep
+    [T, B, C], wh [B, H, 3H], bias_h [B, 1, H], h0 [B, C, H]) each chunk
+    runs with its own weights.
     """
     wh32, bh32 = wh.float(), bias_h.float()
     h = h0
     ys = []
     for t in range(x_proj.shape[0]):
         new_h = _cell(x_proj[t], wh32, bh32, h)
-        mask = keep[t][:, None] > 0.5
+        mask = keep[t][..., None] > 0.5
         h = torch.where(mask, new_h, torch.zeros((), dtype=new_h.dtype,
                                                  device=new_h.device))
         ys.append(new_h)
     return torch.stack(ys)
 
 
+def _sequence(*args):
+    """``gru_sequence_reference`` as a 1-tuple, for ``lstm._chunked``."""
+    return (gru_sequence_reference(*args),)
+
+
 def gru_sequence_chunked_reference(x_proj, keep, wh, bias_h, chunk_policy,
                                    h0):
     """Plain twin of ``gru_sequence_chunked``: ys [T, B * C, H], each chunk
     through ``gru_sequence_reference`` with its policy's weights of the
-    [P, H, 3H] / [P, H] stacks (NaN rows for a chunk of no policy).
-    Differentiable by autograd, whose gradients are the plain version of
-    ``gru_sequence_bwd_chunked``: a policy's ``wh`` / ``bias_h`` gradients
-    sum over its chunks' rows, and a policy without a chunk gets zeros."""
-    B, P = chunk_policy.shape[0], wh.shape[0]
-    C = x_proj.shape[1] // B
-    parts = []
-    for b, p in enumerate(chunk_policy.tolist()):
-        rows = slice(b * C, (b + 1) * C)
-        if 0 <= p < P:
-            parts.append(gru_sequence_reference(
-                x_proj[:, rows], keep[:, rows], wh[p], bias_h[p], h0[rows]))
-        else:
-            parts.append(torch.full((x_proj.shape[0], C, wh.shape[1]),
-                                    float("nan"), dtype=x_proj.dtype,
-                                    device=x_proj.device))
-    return torch.cat(parts, dim=1)
+    [P, H, 3H] / [P, H] stacks (NaN rows for a chunk of no policy): a loop
+    over the chunks on the CPU, one gathered batched product a step on the
+    card (``lstm._chunked``). Differentiable by autograd, whose gradients
+    are the plain version of ``gru_sequence_bwd_chunked``: a policy's
+    ``wh`` / ``bias_h`` gradients sum over its chunks' rows, and a policy
+    without a chunk gets zeros."""
+    return _chunked(_sequence, x_proj, keep, (wh, bias_h), chunk_policy,
+                    (h0,))[0]
+
+
+def gru_step_reference(x_proj, wh, bias_h, h):
+    """Plain twin of ``gru_step``: one step of the GRU cell, new h,
+    differentiable."""
+    return _cell(x_proj, wh.float(), bias_h.float(), h)
+
+
+def gru_step_chunked_reference(x_proj, wh, bias_h, chunk_policy, h):
+    """Plain twin of ``gru_step_chunked``: ``gru_sequence_fwd_chunked``'s
+    twin at T = 1, new h [B * C, H]."""
+    keep = torch.ones((1, x_proj.shape[0]), dtype=x_proj.dtype,
+                      device=x_proj.device)
+    return gru_sequence_fwd_chunked_reference(
+        x_proj.unsqueeze(0), keep, wh, bias_h, chunk_policy, h)[0]
 
 
 def gru_sequence_fwd_chunked_reference(x_proj, keep, wh, bias_h,
@@ -366,7 +406,7 @@ def gru_step(x_proj, wh, bias_h, h):
     rounding points and PPO's ratio can start at 1.
     """
     if x_proj.device.type == "cpu":
-        return _cell(x_proj, wh.float(), bias_h.float(), h)
+        return gru_step_reference(x_proj, wh, bias_h, h)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x_proj, wh, bias_h, h)):
         raise RuntimeError("gru_step has no backward on CUDA; run the "
@@ -433,11 +473,11 @@ def gru_step_chunked(x_proj, wh, bias_h, chunk_policy, h):
     the card, ``gru_sequence_fwd_chunked`` with T = 1, whose rows equal
     ``gru_sequence_fwd``'s: the rollout step and the update pass share gate
     math and rounding points, as for one policy."""
+    if x_proj.device.type == "cpu":
+        return gru_step_chunked_reference(x_proj, wh, bias_h, chunk_policy,
+                                          h)
     keep = torch.ones((1, x_proj.shape[0]), dtype=x_proj.dtype,
                       device=x_proj.device)
-    if x_proj.device.type == "cpu":
-        return gru_sequence_fwd_chunked_reference(
-            x_proj.unsqueeze(0), keep, wh, bias_h, chunk_policy, h)[0]
     return gru_sequence_fwd_chunked(x_proj.unsqueeze(0), keep, wh, bias_h,
                                     chunk_policy, h)[0]
 

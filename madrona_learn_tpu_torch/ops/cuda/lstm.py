@@ -12,6 +12,18 @@ are read from L2 every step (they do not fit in shared memory at H = 256),
 and the weight gradients are per-split f32 partials summed in a fixed order
 by a second pass instead of one accumulator shared by the whole grid.
 
+The sequence kernels (``lstm_sequence_fwd`` / ``_bwd`` and their
+chunk-indexed instances) are built at H = 128, 256, 384 and 512 in
+float32, bfloat16 and float16: :func:`lstm_supported` is true exactly
+there, which for float32 and bfloat16 is JAX's gate (``H % 128 == 0``,
+``ops/pallas/lstm.py:83``) over H from 32 to 512; float16 is the port's
+choice (JAX sends it to its jnp twin). The projection kernels are built at
+H = 128 and 256 (:func:`lstm_proj_supported`). The modules route a layer
+by JAX's gate (:func:`lstm_kernel_route`): a width that is no multiple of
+128 to the plain twins, on the card too, as JAX routes it to its jnp twin;
+the wrappers raise on operands no kernel takes (a multiple of 128 past
+512 among them).
+
 Two paths for each of the four kernels, picked by :func:`uses_tensor_cores`
 from the dtype and H alone (no fallback: the kernel a call is routed to
 runs or raises):
@@ -25,10 +37,14 @@ runs or raises):
   ``wgmma`` product over the T * N rows. Bound by streaming the weights
   from L2. TMA and the kernels' 16-byte copies read every operand on a
   16-byte boundary: one that is not is copied onto one first;
-- float32, whose products tensor cores would round, and float16: the
-  CUDA-core kernels, bound by f32 FMA issue. Float16 is built for the two
-  sequence kernels alone: :func:`lstm_proj_supported` refuses it, as JAX's
-  does, so a float16 layer takes the unfused kernels.
+- float32, whose products tensor cores would round, float16, and
+  bfloat16 at H = 384 and 512 (where the tensor-core design does not fit:
+  H / 64 warpgroups a block leave 80 or 64 registers a thread, and the
+  backwards' weight slices are TMA boxes of H rows, past 256; ``csrc/
+  lstm.cu``, "Wider layers"): the CUDA-core kernels, bound by f32 FMA
+  issue. Float16 is built for the two sequence kernels alone:
+  :func:`lstm_proj_supported` refuses it, as JAX's does, so a float16
+  layer takes the unfused kernels.
 
 Contract (all operands in the storage dtype, float32, bfloat16 or float16;
 the projection variant float32 or bfloat16):
@@ -133,7 +149,32 @@ LSTM_PROJ_BWD_CHUNKED = Kernel(
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HIDDEN_SIZES = (128, 256)
+# The widths the sequence kernels are built for (every dtype; bfloat16 on
+# tensor cores at the first two), and those the projection kernels and the
+# tensor-core instances are built for.
+_HIDDEN_SIZES = (128, 256, 384, 512)
+_TC_HIDDEN_SIZES = (128, 256)
+
+
+def lstm_supported(hidden, dtype):
+    """Whether the sequence kernels serve this layer shape: true exactly for
+    the (H, dtype) pairs with a kernel instance. In float32 and bfloat16
+    that is JAX's gate (``ops/pallas/lstm.py:83``, ``H % 128 == 0``) for
+    H up to 512; float16 too, on CUDA cores, where JAX takes its jnp twin
+    (as in ``models/lstm.py``)."""
+    return hidden in _HIDDEN_SIZES and dtype in _DTYPE_CODES
+
+
+def lstm_kernel_route(hidden, dtype):
+    """The modules' route for a layer of this shape: the sequence kernels
+    (True) or their plain twins (False), by JAX's choice between its
+    Pallas kernel and its jnp twin (``H % 128 == 0``,
+    ``ops/pallas/lstm.py:83``), float16 going to the kernels as float32
+    does. True wherever :func:`lstm_supported` is, and also at a multiple
+    of 128 past 512, where no instance is built: such a layer raises on
+    the card (the wrappers' operand check) instead of leaving the route
+    JAX takes."""
+    return hidden % 128 == 0 and dtype in _DTYPE_CODES
 
 
 def _cell(x_proj_t, wr32, b32, c, h):
@@ -147,13 +188,15 @@ def _cell(x_proj_t, wr32, b32, c, h):
 
 
 def _sequence(x_proj, keep, wr, bias, c0, h0):
-    """The forward's (ys, cs), each [T, N, H]."""
+    """The forward's (ys, cs), each [T, N, H]; or, over chunks (x_proj
+    [T, B, C, 4H], keep [T, B, C], wr [B, H, 4H], bias [B, 1, 4H], states
+    [B, C, H]), each chunk with its own weights, [T, B, C, H]."""
     wr32, b32 = wr.float(), bias.float()
     c, h = c0, h0
     ys, cs = [], []
     for t in range(x_proj.shape[0]):
         new_c, new_h = _cell(x_proj[t], wr32, b32, c, h)
-        mask = keep[t][:, None] > 0.5
+        mask = keep[t][..., None] > 0.5
         c = torch.where(mask, new_c, torch.zeros((), dtype=new_c.dtype,
                                                  device=new_c.device))
         h = torch.where(mask, new_h, torch.zeros((), dtype=new_h.dtype,
@@ -161,6 +204,54 @@ def _sequence(x_proj, keep, wr, bias, c0, h0):
         ys.append(new_h)
         cs.append(new_c)
     return torch.stack(ys), torch.stack(cs)
+
+
+def _chunked(fn, x_proj, keep, weights, chunk_policy, states):
+    """``fn`` (``_sequence``, or the GRU's sequence as a 1-tuple) over B
+    chunks of ``x_proj`` [T, B * C, .], each chunk with its policy's
+    ``weights`` (rows of their [P, ...] stacks); a chunk of no policy gets
+    NaN rows. Returns fn's outputs as [T, B * C, H]. On the CPU a loop over
+    the chunks, each chunk's rows (and their gradients) bitwise ``fn`` on
+    them alone; on the card ``_chunk_batch``, with no host sync."""
+    if x_proj.device.type != "cpu":
+        return _chunk_batch(fn, x_proj, keep, weights, chunk_policy, states)
+    B, P = chunk_policy.shape[0], weights[0].shape[0]
+    C = x_proj.shape[1] // B
+    parts = []
+    for b, p in enumerate(chunk_policy.tolist()):
+        rows = slice(b * C, (b + 1) * C)
+        if 0 <= p < P:
+            parts.append(fn(x_proj[:, rows], keep[:, rows],
+                            *(w[p] for w in weights),
+                            *(s[rows] for s in states)))
+        else:
+            # One output a carried state: (ys, cs) or (ys,).
+            parts.append(tuple(
+                torch.full((x_proj.shape[0], C, weights[0].shape[1]),
+                           float("nan"), dtype=x_proj.dtype,
+                           device=x_proj.device) for _ in states))
+    return tuple(torch.cat(outs, dim=1) for outs in zip(*parts))
+
+
+def _chunk_batch(fn, x_proj, keep, weights, chunk_policy, states):
+    """``_chunked`` as one batched product a step over [B, C, .]: each
+    chunk's weights gathered by ``chunk_policy`` (biases as [B, 1, .]), a
+    chunk of no policy run on zeros with policy 0's weights and its rows
+    set to NaN after. The same arithmetic as the loop, the products' sums
+    in cuBLAS's order for a batch."""
+    B = chunk_policy.shape[0]
+    steps, n = x_proj.shape[:2]
+    live = (chunk_policy >= 0) & (chunk_policy < weights[0].shape[0])
+    idx = torch.where(live, chunk_policy, 0).long()
+    w, bias = (t[idx] for t in weights)
+    rows = live.repeat_interleave(n // B)[:, None]
+    zero = torch.zeros((), dtype=x_proj.dtype, device=x_proj.device)
+    split = lambda t: t.reshape(*t.shape[:-2], B, n // B, t.shape[-1])
+    outs = fn(split(torch.where(rows, x_proj, zero)),
+              keep.reshape(steps, B, n // B), w, bias[:, None],
+              *(split(torch.where(rows, s, zero)) for s in states))
+    return tuple(torch.where(rows, o.reshape(steps, n, o.shape[-1]),
+                             float("nan")) for o in outs)
 
 
 def lstm_sequence_reference(x_proj, keep, wr, bias, c0, h0):
@@ -172,47 +263,33 @@ def lstm_sequence_reference(x_proj, keep, wr, bias, c0, h0):
     return _sequence(x_proj, keep, wr, bias, c0, h0)[0]
 
 
+def lstm_step_reference(x_proj, wr, bias, c, h):
+    """Plain twin of ``lstm_step``: one step of the precise-gates cell,
+    (new_c, new_h), differentiable."""
+    return _cell(x_proj, wr.float(), bias.float(), c, h)
+
+
 def lstm_sequence_fwd_chunked_reference(x_proj, keep, wr, bias,
                                         chunk_policy, c0, h0):
     """Plain twin of ``lstm_sequence_fwd_chunked``: each chunk's rows
     through ``lstm_sequence_reference``'s arithmetic with that chunk's
-    policy's weights, gathered; (ys, cs). A chunk whose policy lies outside
-    [0, P) gets NaN rows."""
-    B, P = chunk_policy.shape[0], wr.shape[0]
-    C = x_proj.shape[1] // B
-    ys = torch.full((*x_proj.shape[:2], wr.shape[1]), float("nan"),
-                    dtype=x_proj.dtype, device=x_proj.device)
-    cs = ys.clone()
-    for b, p in enumerate(chunk_policy.tolist()):
-        if 0 <= p < P:
-            rows = slice(b * C, (b + 1) * C)
-            ys[:, rows], cs[:, rows] = _sequence(
-                x_proj[:, rows], keep[:, rows], wr[p], bias[p], c0[rows],
-                h0[rows])
-    return ys, cs
+    policy's weights (a loop over the chunks on the CPU, one gathered
+    batched product a step on the card: ``_chunked``); (ys, cs). A chunk
+    whose policy lies outside [0, P) gets NaN rows."""
+    return _chunked(_sequence, x_proj, keep, (wr, bias), chunk_policy,
+                    (c0, h0))
 
 
 def lstm_sequence_chunked_reference(x_proj, keep, wr, bias, chunk_policy,
                                     c0, h0):
     """Plain twin of ``lstm_sequence_chunked``: ys [T, B * C, H], each
     chunk through ``lstm_sequence_reference`` with its policy's weights
-    (NaN rows for a chunk of no policy). Differentiable by autograd, whose
-    gradients are the plain version of ``lstm_sequence_bwd_chunked``: a
-    policy's ``wr`` / ``bias`` gradients sum over its chunks' rows, and a
-    policy without a chunk gets zeros."""
-    B, P = chunk_policy.shape[0], wr.shape[0]
-    C = x_proj.shape[1] // B
-    parts = []
-    for b, p in enumerate(chunk_policy.tolist()):
-        rows = slice(b * C, (b + 1) * C)
-        if 0 <= p < P:
-            parts.append(_sequence(x_proj[:, rows], keep[:, rows], wr[p],
-                                   bias[p], c0[rows], h0[rows])[0])
-        else:
-            parts.append(torch.full((x_proj.shape[0], C, wr.shape[1]),
-                                    float("nan"), dtype=x_proj.dtype,
-                                    device=x_proj.device))
-    return torch.cat(parts, dim=1)
+    (NaN rows for a chunk of no policy), as ``_chunked`` runs it.
+    Differentiable by autograd, whose gradients are the plain version of
+    ``lstm_sequence_bwd_chunked``: a policy's ``wr`` / ``bias`` gradients
+    sum over its chunks' rows, and a policy without a chunk gets zeros."""
+    return _chunked(_sequence, x_proj, keep, (wr, bias), chunk_policy,
+                    (c0, h0))[0]
 
 
 _check = functools.partial(check_operand, "lstm kernel")
@@ -225,7 +302,7 @@ def _check_inputs(x_proj, keep, wr, bias, c0, h0):
     steps, n, g4 = x_proj.shape
     hidden = g4 // 4
     dtype = x_proj.dtype
-    if dtype not in _DTYPE_CODES or hidden not in _HIDDEN_SIZES:
+    if not lstm_supported(hidden, dtype):
         raise ValueError(
             f"lstm kernel: supports float32/bfloat16/float16 with H in "
             f"{_HIDDEN_SIZES}, got {dtype} H={hidden}")
@@ -323,15 +400,22 @@ def lstm_step_chunked(x_proj, wr, bias, chunk_policy, c, h):
     rows equal ``lstm_sequence_fwd``'s: the rollout step and the update
     pass share gate math and rounding points, as for one policy."""
     if x_proj.device.type == "cpu":
-        ys, cs = lstm_sequence_fwd_chunked_reference(
-            x_proj.unsqueeze(0), torch.ones((1, x_proj.shape[0]),
-                                            dtype=x_proj.dtype),
-            wr, bias, chunk_policy, c, h)
-        return cs[0], ys[0]
+        return lstm_step_chunked_reference(x_proj, wr, bias, chunk_policy, c,
+                                           h)
     keep = torch.ones((1, x_proj.shape[0]), dtype=x_proj.dtype,
                       device=x_proj.device)
     ys, cs = lstm_sequence_fwd_chunked(x_proj.unsqueeze(0), keep, wr, bias,
                                        chunk_policy, c, h)
+    return cs[0], ys[0]
+
+
+def lstm_step_chunked_reference(x_proj, wr, bias, chunk_policy, c, h):
+    """Plain twin of ``lstm_step_chunked``: ``lstm_sequence_fwd_chunked``'s
+    twin at T = 1, (new_c, new_h)."""
+    keep = torch.ones((1, x_proj.shape[0]), dtype=x_proj.dtype,
+                      device=x_proj.device)
+    ys, cs = lstm_sequence_fwd_chunked_reference(
+        x_proj.unsqueeze(0), keep, wr, bias, chunk_policy, c, h)
     return cs[0], ys[0]
 
 
@@ -466,10 +550,11 @@ def fwd_tc_rows():
 def uses_tensor_cores(dtype, hidden):
     """The path rule of the four kernels, forwards and backwards:
     bfloat16 with H in (128, 256) takes the tensor-core kernels
-    (``wgmma``); float32, whose products tensor cores would round, and
-    float16, the CUDA-core ones. (The projection's F rule holds on both
-    paths.)"""
-    return dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES
+    (``wgmma``); float32, whose products tensor cores would round,
+    float16, and bfloat16 at H = 384 and 512, where the tensor-core design
+    does not fit (``csrc/lstm.cu``, "Wider layers"), the CUDA-core ones.
+    (The projection's F rule holds on both paths.)"""
+    return dtype == torch.bfloat16 and hidden in _TC_HIDDEN_SIZES
 
 
 def on_16_bytes(t):
@@ -611,7 +696,7 @@ def lstm_step(x_proj, wr, bias, c, h):
     rounding points and PPO's ratio can start at 1.
     """
     if x_proj.device.type == "cpu":
-        return _cell(x_proj, wr.float(), bias.float(), c, h)
+        return lstm_step_reference(x_proj, wr, bias, c, h)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x_proj, wr, bias, c, h)):
         raise RuntimeError("lstm_step has no backward on CUDA; run the "
@@ -624,8 +709,13 @@ def lstm_step(x_proj, wr, bias, c, h):
 
 def lstm_proj_supported(in_features, hidden, dtype):
     """Whether the projection kernels serve this layer shape (JAX:
-    ``ops/pallas/lstm.py:369``): float32 or bfloat16, as there."""
-    return (hidden % 128 == 0 and dtype in (torch.float32, torch.bfloat16)
+    ``ops/pallas/lstm.py:369``): float32 or bfloat16, as there, at the
+    widths they are built for, H = 128 and 256. JAX takes every H % 128 ==
+    0; at H = 384 and 512 the port runs such a layer on the unfused
+    sequence kernels instead (``fuse_input_proj`` hoists nothing in the
+    kernel there)."""
+    return (hidden in _TC_HIDDEN_SIZES
+            and dtype in (torch.float32, torch.bfloat16)
             and in_features % 128 == 0 and in_features <= 4 * hidden)
 
 
@@ -644,11 +734,10 @@ def _check_proj_inputs(x, keep, wi, wr, bias, c0, h0):
     steps, n, f_in = x.shape
     hidden = wr.shape[0]
     dtype = x.dtype
-    if (hidden not in _HIDDEN_SIZES
-            or not lstm_proj_supported(f_in, hidden, dtype)):
+    if not lstm_proj_supported(f_in, hidden, dtype):
         raise ValueError(
             f"lstm_sequence_proj: supports float32/bfloat16, H in "
-            f"{_HIDDEN_SIZES}, F % 128 == 0 and F <= 4H; got {dtype}, "
+            f"{_TC_HIDDEN_SIZES}, F % 128 == 0 and F <= 4H; got {dtype}, "
             f"H={hidden}, F={f_in}")
     if steps == 0 or n == 0:
         raise ValueError(f"lstm_sequence_proj: empty input "

@@ -81,9 +81,11 @@ _LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 
 def policy_step_supported(hidden, feat_in, dtype):
     """Whether the fused step can serve this tower shape (JAX:
-    ``ops/pallas/policy_step.py:62``). A width that passes and has no
-    kernel instantiation raises at launch."""
-    return (hidden % 128 == 0 and feat_in <= 128
+    ``ops/pallas/policy_step.py:62``, which takes every H % 128 == 0): true
+    exactly where the kernel is built, H = 128 and 256, F <= 128, float32
+    or bfloat16. At H = 384 and 512 the port runs the tower unfused (the
+    MLP, then the LSTM's sequence kernels), where JAX would fuse it."""
+    return (hidden in _HIDDEN_SIZES and feat_in <= 128
             and dtype in (torch.float32, torch.bfloat16))
 
 

@@ -378,7 +378,7 @@ def test_chunked_wrappers_refuse_what_no_kernel_takes():
     Pallas kernels' pallas_calls."""
     kernels = (POLICY_STEP_CHUNKED, LSTM_PROJ_FWD_CHUNKED,
                LSTM_PROJ_BWD_CHUNKED)
-    assert all(k in KERNELS for k in kernels) and len(KERNELS) == 22
+    assert all(k in KERNELS for k in kernels) and len(KERNELS) == 24
     assert [k.replaces for k in kernels] == [
         "madrona_learn_tpu/ops/pallas/policy_step.py:168",
         "madrona_learn_tpu/ops/pallas/lstm.py:516",

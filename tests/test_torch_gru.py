@@ -166,8 +166,12 @@ def test_kernel_wrappers_never_fall_back():
 def test_gru_supported():
     assert gru_supported(128, torch.float32)
     assert gru_supported(256, torch.bfloat16)
+    # JAX's gate, H % 128 == 0, up to the widest instance: a GRU of another
+    # width takes the kernels' plain twins, on the card too.
     assert not gru_supported(96, torch.float32)     # no instantiation
-    assert not gru_supported(384, torch.bfloat16)   # no instantiation
+    assert gru_supported(384, torch.bfloat16)       # CUDA-core instance
+    assert gru_supported(512, torch.float32)
+    assert not gru_supported(640, torch.float32)    # no instantiation
     # The float16 instances (CUDA cores); JAX's gate sends float16 to its
     # jnp twin instead.
     assert gru_supported(256, torch.float16)
@@ -308,7 +312,8 @@ def test_converted_gru_tree_loads_strictly():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gru_model_hands_the_kernels_valid_operands(monkeypatch, dtype):
     """Minibatch slices are transposed views; the GRU model must still pass
-    the kernel wrappers contiguous operands of one dtype."""
+    the kernel wrappers contiguous operands of one dtype (at H = 128, a
+    width the kernels take: at another the model takes the plain twins)."""
     from madrona_learn_tpu_torch.rollouts import RolloutData
 
     seen = []
@@ -324,9 +329,9 @@ def test_gru_model_hands_the_kernels_valid_operands(monkeypatch, dtype):
     monkeypatch.setattr(gru_mod, "gru_sequence",
                         record(gru_mod.gru_sequence, "sequence"))
     monkeypatch.setattr(gru_mod, "gru_step", record(gru_mod.gru_step, "step"))
-    ac = _torch_gru_actor_critic(dtype, 32)
+    ac = _torch_gru_actor_critic(dtype, 128)
     rng = np.random.default_rng(34)
-    S, TC, H = 6, 4, 32
+    S, TC, H = 6, 4, 128
     data = RolloutData({
         "obs": {k: torch.from_numpy(v) for k, v in _obs(rng, S, TC).items()},
         "dones": torch.from_numpy(rng.random((S, TC, 1)) < 0.3),

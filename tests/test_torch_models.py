@@ -299,13 +299,25 @@ def test_models_hand_the_kernels_valid_operands(monkeypatch, dtype):
     import madrona_learn_tpu_torch.models.lstm as lstm_mod
     from madrona_learn_tpu_torch.rollouts import RolloutData
 
+    seen = []
+
+    def record(fn, kind):
+        checked = _checking(fn, kind)
+
+        def wrapped(*args):
+            seen.append(kind)
+            return checked(*args)
+        return wrapped
+
+    # H = 128, a width the kernels take (at another the model takes the
+    # plain twins and hands the wrappers nothing).
     monkeypatch.setattr(lstm_mod, "lstm_sequence",
-                        _checking(lstm_mod.lstm_sequence, "sequence"))
+                        record(lstm_mod.lstm_sequence, "sequence"))
     monkeypatch.setattr(lstm_mod, "lstm_step",
-                        _checking(lstm_mod.lstm_step, "step"))
-    ac = _torch_actor_critic(dtype, 32)
+                        record(lstm_mod.lstm_step, "step"))
+    ac = _torch_actor_critic(dtype, 128)
     rng = np.random.default_rng(8)
-    S, TC, H = 6, 4, 32
+    S, TC, H = 6, 4, 128
     data = RolloutData({
         "obs": {k: torch.from_numpy(v) for k, v in _obs(rng, S, TC).items()},
         "dones": torch.from_numpy(rng.random((S, TC, 1)) < 0.3),
@@ -322,3 +334,4 @@ def test_models_hand_the_kernels_valid_operands(monkeypatch, dtype):
         ac.rollout(torch.Generator().manual_seed(0),
                    ac.init_recurrent_state(3),
                    {k: v[0] for k, v in mb["obs"].items()})
+    assert seen == ["sequence", "step"]

@@ -803,12 +803,14 @@ def test_chunk_size_override_honoured(override):
 
 
 def test_chunk_size_override_refused_without_a_batched_form():
-    """A GRU has no policy-batched form: the population keeps the
-    per-policy loop, which reads no chunk size, and init_training refuses
-    a forced one, naming the module."""
+    """A float64 GRU has no policy-batched form (the batched forms take
+    float32, bfloat16 and float16; a GRU of any width has one since its
+    plain twins serve the widths no kernel is built for): the population
+    keeps the per-policy loop, which reads no chunk size, and
+    init_training refuses a forced one, naming the module."""
     import madrona_learn_tpu_torch.models as tm
 
-    gru = lambda h: tm.GRU(h, h, 1, torch.float32)
+    gru = lambda h: tm.GRU(h, h, 1, torch.float64)
     with pytest.raises(ValueError, match=r"rollout_policy_chunk_size"
                        r"_override: backbone\.encoder\.rnn \(GRU\)"):
         _override_trainer(8, gru)

@@ -14,8 +14,9 @@ minibatch over every train policy, as JAX ``vmap``s them.
   batched path as on the loop (``test_torch_batched_learn``'s check);
   the GRU's one-tensor state also in chunk order across steps
   (``chunkwise_rnn``), bitwise the sim-order carry.
-  The GRU is 128 wide because the chunk-indexed GRU kernels take H = 128
-  or 256 (``gru_supported``): a narrower GRU takes the per-policy loop.
+  The GRU is 128 wide, a width the chunk-indexed GRU kernels take
+  (``gru_supported``); a GRU of another width takes their plain twins
+  (``test_torch_widths.py``).
 """
 
 import dataclasses

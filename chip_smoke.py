@@ -91,17 +91,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    chunks of 37 rows (bf16 at H = 256 and 128, f32): every row bitwise
    the single-policy kernel's, each policy's dwi / dwr / db within the
    tolerance of the single-policy backward's sum and, at C = 1280,
-   bitwise it; and the float16 instances (CUDA cores) of
-   ``grouped_matmul`` at headline_pbt's three pass shapes, of
-   ``lstm_sequence_fwd_chunked`` / ``gru_sequence_fwd_chunked`` at the
-   collect step and of their backwards at the learn step: against the
+   bitwise it; and the float16 instances of ``grouped_matmul`` at
+   headline_pbt's three pass shapes (tensor cores at 256 -> 256 and 256 ->
+   1024, CUDA cores at IN = 2), of ``lstm_sequence_fwd_chunked`` /
+   ``gru_sequence_fwd_chunked`` at the collect step and of their
+   backwards at the learn step (CUDA cores): against the
    plain twins (the recurrences within 2^-8, ``grouped_matmul`` within
    one float16 ulp of the largest value), every row bitwise one
    single-policy float16 launch a policy over the same rows, chunks of
    index P and -1 NaN, and timed against those launches (the
    ``kernels`` line's ``float16`` entries); and the same four checks of
    the chunk-indexed recurrences again at H = 384 and 512 (CUDA cores in
-   every dtype), with infer_512's step for the LSTM at 512: every check
+   every dtype but the bf16 LSTM forward's two-block cluster on tensor
+   cores), with infer_512's step and the learn step for the LSTM forward:
+   every check
    above at those widths (batch invariance, bitwise rows, a one-chunk
    policy's dW / db bitwise the single-policy kernel's on CUDA cores, the
    forwards' T = 1 steps bitwise their sequence's steps at every width),
@@ -260,9 +263,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``grouped_matmul`` 260, ``gae`` 1; the learn A/B) and
     headline_pbt_fp16 (the headline's model in float16, the obs cast to
     float16, ``compute_dtype=float16``: one loss scaler a train policy;
-    headline_pbt's launches, 37 / 4 / 164 / 1, none on tensor cores; both
-    A/Bs), headline_pbt_gru_fp16 (the GRU in float16: 37 / 4 / 164 / 1;
-    the learn A/B) and headline_pbt_window (headline_window's
+    headline_pbt's launches, 37 / 4 / 164 / 1, the recurrences none on
+    tensor cores, ``grouped_matmul`` 66 of its 164 on them (the products
+    with IN and OUT multiples of 8); both A/Bs), headline_pbt_gru_fp16
+    (the GRU in float16: 37 / 4 / 164 / 1, 66 likewise; the learn A/B) and headline_pbt_window (headline_window's
     WindowAttentionMemory(256, window 16, 4 heads), bf16: ``grouped_matmul``
     263, 8 a step and 7 for the bootstrap, ``gae`` 1, no recurrent
     kernel; both A/Bs); the float16 phases print each policy's loss scale
@@ -282,12 +286,13 @@ Phases, in order; any failure raises and the script exits non-zero:
     assignment every step through ``compute_policy_chunks``, chunks of 256
     from ``heuristic_policy_chunk_size``, 95 chunks, 200 steps of
     ``rollout_chunked``: ``lstm_sequence_fwd_chunked`` once and
-    ``grouped_matmul`` 5 times a step, none on tensor cores, no step on the
-    plain twin, four chunks' critic and new state within the step rule of
+    ``grouped_matmul`` 5 times a step, the LSTM's on tensor cores (its
+    two-block cluster), no step on the plain twin, four chunks' critic and new state within the step rule of
     their policy alone; agent-steps/s); then headline_pbt's population
     with the model at 512 channels (headline_pbt_512: headline_pbt's
-    launches, 37 / 4 / 164 / 1, on the 512-wide CUDA-core instances, 2
-    timed updates, the learn A/B), at 32 (headline_pbt_h32: no recurrent
+    launches, 37 / 4 / 164 / 1, the LSTM forward on its 512-wide
+    tensor-core instance and the backward on its CUDA-core one, 2 timed
+    updates, the learn A/B), at 32 (headline_pbt_h32: no recurrent
     kernel, the LSTM on its plain twins as JAX takes its jnp twin, on the
     card one gathered batched product a step over the chunks,
     ``grouped_matmul`` 164, ``gae`` 1; one collect step and one learn pass
@@ -433,8 +438,9 @@ TOL = {
     # largest value.
     ("gmm", "float32"): dict(atol=1e-5, rtol=1e-5),
     ("gmm", "bfloat16"): dict(atol=0.0, rtol=2 ** -7),
-    # float16 (CUDA cores): the same f32 sums and one rounding, at most one
-    # float16 ulp of the largest value.
+    # float16 (tensor cores at aligned shapes, else CUDA cores): f32 sums
+    # in another order and one rounding, at most one float16 ulp of the
+    # largest value.
     ("gmm", "float16"): dict(atol=0.0, rtol=2 ** -10),
 }
 
@@ -2000,23 +2006,27 @@ def _gmm_bound(B, C, IN, policies_used, OUT, itemsize):
 def check_grouped_matmul(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.grouped_matmul import (
-        grouped_matmul, grouped_matmul_reference, uses_tensor_cores)
+        GROUPED_MATMUL, grouped_matmul, grouped_matmul_reference,
+        uses_tensor_cores)
 
     gen = torch.Generator(device="cuda").manual_seed(15)
     res = results["grouped_matmul"] = {"max_abs_err": 0.0}
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     # (B, C, IN, P, OUT, dtype, on the main path): the three shapes of
-    # benchmarks/grouped_matmul_bench.py (tensor cores); ragged bf16 on the
-    # tensor-core path (C and OUT not multiples of its 128 x 128 tile, IN
-    # not of its 64-deep slice); bf16 with IN = 70, not a multiple of 8, and
-    # bf16 with x one element off a 16-byte boundary, both on the CUDA-core
-    # path; float32 with no dimension a multiple of the CUDA-core kernel's
-    # tiles. The last field shifts x's start by that many elements.
+    # benchmarks/grouped_matmul_bench.py (tensor cores); ragged bf16 and
+    # float16 on the tensor-core path (C and OUT not multiples of its 128 x
+    # 128 tile, IN not of its 64-deep slice); bf16 with IN = 70, not a
+    # multiple of 8, and bf16 and float16 with x one element off a 16-byte
+    # boundary, on the CUDA-core path; float32 with no dimension a multiple
+    # of the CUDA-core kernel's tiles. The last field shifts x's start by
+    # that many elements.
     cases = [(*GMM_SHAPES[0], bf16, True, 0), (*GMM_SHAPES[1], bf16, False, 0),
              (*GMM_SHAPES[2], bf16, False, 0),
              (7, 100, 72, 3, 136, bf16, False, 0),
+             (7, 100, 72, 3, 136, f16, False, 0),
              (5, 64, 70, 3, 96, bf16, False, 0),
              (5, 64, 72, 3, 96, bf16, False, 1),
+             (5, 64, 72, 3, 96, f16, False, 1),
              (7, 100, 72, 3, 130, f32, False, 0)]
     for B, C, IN, P, OUT, dtype, main_path, shift in cases:
         dname = str(dtype).split(".")[-1]
@@ -2024,10 +2034,11 @@ def check_grouped_matmul(results):
         if shift:
             x = torch.cat([x.new_zeros(shift), x.flatten()])[shift:].view(
                 B, C, IN)
-        path = "tensor_core" if uses_tensor_cores(x, w) else "cuda_core"
+        y, path = _routed(GROUPED_MATMUL, uses_tensor_cores(x, w),
+                          grouped_matmul, x, w, idx)
         tag = (f"[{B}x{C}, {IN}->{OUT}, P={P}] {dname}"
                f"{f' x {2 * shift} bytes off' if shift else ''} ({path})")
-        err = compare(f"grouped_matmul {tag}", grouped_matmul(x, w, idx),
+        err = compare(f"grouped_matmul {tag}", y,
                       grouped_matmul_reference(x, w, idx),
                       **TOL[("gmm", dname)])
         if not main_path and B > 3:
@@ -2145,10 +2156,11 @@ def _step_checks(tag, fwd, x, keep, w, b, idx, states, outs, carried):
     log(f"  {tag}: T = 1 steps bitwise steps of the sequence ok")
 
 
-def _wide_single(results, name, H, dname, label, run, plain, tol, b):
+def _wide_single(results, name, H, dname, label, run, plain, tol, b,
+                 path="cuda_core"):
     """The single-policy kernel ``name`` at H = 384 or 512 on one policy's
-    rows: ``run()``'s outputs against ``plain()``'s, both timed, into
-    results[name]["wide"] with the bound ``b``."""
+    rows, on route ``path``: ``run()``'s outputs against ``plain()``'s,
+    both timed, into results[name]["wide"] with the bound ``b``."""
     err = max(compare(f"{name} H={H} {dname} {label} out {i}", o, r, **tol)
               for i, (o, r) in enumerate(zip(run(), plain())))
     ms = time_ms(run)
@@ -2158,7 +2170,7 @@ def _wide_single(results, name, H, dname, label, run, plain, tol, b):
         f"({b['bound_by']}), no library call (cuDNN takes one weight a "
         f"call and cannot clear the carry mid-sequence)")
     _wide_record(results, name, H, dname, label, max_abs_err=err, ms=ms,
-                 plain_ms=plain_ms, library_ms=None, path="cuda_core", **b)
+                 plain_ms=plain_ms, library_ms=None, path=path, **b)
 
 
 def _wide_record(results, name, H, dname, label, **rec):
@@ -2170,28 +2182,30 @@ def _wide_record(results, name, H, dname, label, **rec):
 
 def check_lstm_chunked(results, H):
     """lstm_sequence_fwd_chunked at width H (the model's 256, and the
-    CUDA-core instances at 384 and 512, whose numbers go under the
+    two-block-cluster instances at 384 and 512, whose numbers go under the
     record's ``wide``) at headline_pbt's collect step (the chunk size and
-    count init_training derives) and at chunks of 100 rows (not a multiple
-    of the 32-row tile), bf16 (on tensor cores where ``uses_tensor_cores``
-    says) and f32 on CUDA cores, its float16 instance (CUDA cores) at the
-    collect step and, at 512, infer_512's step (95 chunks of 256 rows, 32
-    policies): against its plain twin; row for row bitwise
+    count init_training derives), at its learn step (T = 16, 8 chunks of
+    1280, one a train policy) and at chunks of 100 rows (not a multiple of
+    the 32-row tile), bf16 (on tensor cores, as ``fwd_uses_tensor_cores``
+    says at every width) and f32 on CUDA cores, its float16 instance (CUDA
+    cores) at the collect step and, at 512, infer_512's step (95 chunks of
+    256 rows, 32 policies): against its plain twin; row for row bitwise
     ``lstm_sequence_fwd`` with the row's policy's weights (each policy's
     chunks in one call); batch invariance (the first chunks alone, and the
     chunks rolled); chunks of index P and -1 NaN, the others unchanged;
     its time against one ``lstm_sequence_fwd`` a policy over the same rows
     (the per-policy loop's launches) and its bound (the float16 instance's
-    into ``float16``). At 384 and 512 also ``lstm_sequence_fwd`` on one
-    policy's rows against its twin, timed."""
+    into ``float16``, the learn step's into ``learn_shape``). At 384 and 512
+    also ``lstm_sequence_fwd`` on one policy's rows against its twin,
+    timed."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
-        LSTM_FWD_CHUNKED, _sequence, lstm_sequence_fwd,
-        lstm_sequence_fwd_chunked, lstm_sequence_fwd_chunked_reference,
-        uses_tensor_cores)
+        LSTM_FWD, LSTM_FWD_CHUNKED, _sequence, fwd_uses_tensor_cores,
+        lstm_sequence_fwd, lstm_sequence_fwd_chunked,
+        lstm_sequence_fwd_chunked_reference)
 
     P, C, B = _pbt_chunk_geometry()
-    T, wide = 1, H != CHANNELS
+    wide = H != CHANNELS
     log(f"lstm_sequence_fwd_chunked at headline_pbt's collect step: "
         f"{P} policies, chunks of C = {C} rows, B = {B} chunks "
         f"(RolloutConfig.setup_population for {2 * NUM_WORLDS} rows: "
@@ -2200,21 +2214,33 @@ def check_lstm_chunked(results, H):
     res = results.setdefault("lstm_sequence_fwd_chunked",
                              {"max_abs_err": 0.0})
     bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
-    # role: "collect" for the bf16 collect step, "float16" for its float16
-    # instance (timed into res["float16"]), "infer" for infer_512's step,
-    # None for the ragged checks.
-    cases = [(bf16, C, B, P, "collect"), (f16, C, B, P, "float16"),
-             (bf16, 100, 41, P, None), (f32, 100, 41, P, None)]
+    # role: "collect" for the bf16 collect step, "learn" for the bf16
+    # learn step (timed into res["learn_shape"]), "float16" for the
+    # collect step's float16 instance (timed into res["float16"]), "infer"
+    # for infer_512's step, None for the ragged checks.
+    learn_T = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS
+    cases = [(bf16, 1, C, B, P, "collect"),
+             (bf16, learn_T, PBT_MINIBATCH, PBT_TRAIN, PBT_TRAIN, "learn"),
+             (f16, 1, C, B, P, "float16"),
+             (bf16, 1, 100, 41, P, None), (f32, 1, 100, 41, P, None)]
     if H == INFER_CHANNELS:
         infer_c, infer_b = _infer_geometry()
-        cases.append((bf16, infer_c, infer_b, INFER_POLICIES, "infer"))
-    for dtype, chunk, chunks, P_c, role in cases:
+        cases.append((bf16, 1, infer_c, infer_b, INFER_POLICIES, "infer"))
+    main_route = ("tensor_core" if fwd_uses_tensor_cores(bf16, H)
+                  else "cuda_core")
+    for dtype, T, chunk, chunks, P_c, role in cases:
         dname = str(dtype).split(".")[-1]
         args = _chunked_lstm_inputs(gen, T, chunks, chunk, H, P_c, dtype)
+        if role == "learn":
+            args = (*args[:4], torch.arange(P_c, dtype=torch.int32,
+                                            device="cuda"), *args[5:])
         x, keep, wr, bias, idx, c0, h0 = args
         (ys, cs), path = _routed(LSTM_FWD_CHUNKED,
-                                 uses_tensor_cores(dtype, H),
+                                 fwd_uses_tensor_cores(dtype, H),
                                  lstm_sequence_fwd_chunked, *args)
+        if dtype == bf16 and path != main_route:
+            raise AssertionError(f"lstm_sequence_fwd_chunked H={H} bf16: "
+                                 f"took the {path} route")
         tag = (f"[{T}, {chunks} x {chunk}, {4 * H}] P={P_c} {dname} "
                f"({path})")
         want = lstm_sequence_fwd_chunked_reference(*args)
@@ -2251,7 +2277,7 @@ def check_lstm_chunked(results, H):
                                ("rolled", rolled[0], roll(ys, 1)),
                                ("rolled cs", rolled[1], roll(cs, 1))):
             bitwise(f"lstm_sequence_fwd_chunked {tag} {name}", got, ref)
-        if role not in ("collect", "infer"):
+        if role not in ("collect", "infer", "learn"):
             bad = idx.clone()
             bad[1], bad[3] = P_c, -1
             yb, cb = lstm_sequence_fwd_chunked(x, keep, wr, bias, bad, c0,
@@ -2290,17 +2316,21 @@ def check_lstm_chunked(results, H):
                    library_ms=None, path=path, per_policy_ms=loop_ms,
                    chunk=chunk, chunks=chunks, policies=P_c, **b)
         if not wide:
-            (res if role == "collect" else
-             res.setdefault("float16", {})).update(rec)
+            key = {"collect": None, "float16": "float16",
+                   "learn": "learn_shape"}[role]
+            (res if key is None else res.setdefault(key, {})).update(rec)
             continue
-        label = "infer" if role == "infer" else "collect"
+        label = "collect" if role == "float16" else role
         _wide_record(results, "lstm_sequence_fwd_chunked", H, dname, label,
                      shape=tag, **rec)
         a1 = per_policy[0]
+        _, single_path = _routed(LSTM_FWD, fwd_uses_tensor_cores(dtype, H),
+                                 lstm_sequence_fwd, *a1)
         _wide_single(results, "lstm_sequence_fwd", H, dname, label,
                      lambda: lstm_sequence_fwd(*a1), lambda: _sequence(*a1),
                      tol, _lstm_bounds(T, a1[0].shape[1], H,
-                                       x.element_size())[0])
+                                       x.element_size())[0],
+                     path=single_path)
 
 
 def _chunked_lstm_bwd_bound(T, B, C, H, policies_used, itemsize):
@@ -3290,15 +3320,18 @@ def check_grouped_matmul_pbt(results):
     layer (IN = 2, the CUDA-core route), its second (256 -> 256) and the
     LSTM's input projection (256 -> 1024); each against its plain version,
     timed beside ``torch.bmm(x, W[idx])``, with its bound. Then its
-    float16 instance (CUDA cores) at the same shapes (headline_pbt_fp16's
-    collect step): against its plain version, every policy's rows bitwise
-    one single-policy launch over that policy's chunks, timed beside those
-    12 launches, its plain version and ``torch.bmm``, into ``float16``
-    (the 256 -> 1024 projection's times, and every shape's rows in
-    ``float16["pbt_shapes"]``)."""
+    float16 instance at the same shapes (headline_pbt_fp16's collect
+    step; on tensor cores at 256 -> 256 and 256 -> 1024, on CUDA cores at
+    IN = 2, as ``tc_launches`` must show): against its plain version,
+    every policy's rows bitwise one single-policy launch over that
+    policy's chunks, indices P and -1 giving NaN rows alone, timed beside
+    those 12 launches, its plain version and
+    ``torch.bmm``, into ``float16`` (the 256 -> 1024 projection's times,
+    and every shape's rows in ``float16["pbt_shapes"]``)."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.grouped_matmul import (
-        grouped_matmul, grouped_matmul_reference, uses_tensor_cores)
+        GROUPED_MATMUL, grouped_matmul, grouped_matmul_reference,
+        uses_tensor_cores)
 
     P, C, B = _pbt_chunk_geometry()
     gen = torch.Generator(device="cuda").manual_seed(22)
@@ -3311,9 +3344,12 @@ def check_grouped_matmul_pbt(results):
         for IN, OUT in ((2, CHANNELS), (CHANNELS, CHANNELS),
                         (CHANNELS, 4 * CHANNELS)):
             x, w, idx = _gmm_inputs(gen, B, C, IN, P, OUT, dtype)
-            path = "tensor_core" if uses_tensor_cores(x, w) else "cuda_core"
+            y, path = _routed(GROUPED_MATMUL, uses_tensor_cores(x, w),
+                              grouped_matmul, x, w, idx)
             tag = f"[{B}x{C}, {IN}->{OUT}, P={P}] {dname} ({path})"
-            y = grouped_matmul(x, w, idx)
+            if path != ("cuda_core" if IN % 8 else "tensor_core"):
+                raise AssertionError(f"grouped_matmul {tag}: took the {path} "
+                                     f"route")
             err = compare(f"grouped_matmul headline_pbt {tag}", y,
                           grouped_matmul_reference(x, w, idx),
                           **TOL[("gmm", dname)])
@@ -3328,9 +3364,6 @@ def check_grouped_matmul_pbt(results):
                    f"ms, torch.bmm(x, W[idx]) {library_ms:.4f} ms, bound "
                    f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
             if half:
-                if path != "cuda_core":
-                    raise AssertionError(f"grouped_matmul {tag}: float16 "
-                                         f"took the {path} route")
                 # One single-policy launch a policy over its chunks.
                 one = torch.zeros(1, dtype=torch.int32, device="cuda")
                 per_policy = []
@@ -3347,6 +3380,7 @@ def check_grouped_matmul_pbt(results):
                         raise AssertionError(
                             f"grouped_matmul {tag}: a policy's rows differ "
                             f"from its own launch's")
+                _gmm_out_of_range(tag, x, w, idx)
                 loop_ms = time_ms(lambda: [
                     grouped_matmul(xp, wp, o)
                     for (xp, wp, _), o in zip(per_policy, ones)])
@@ -3368,7 +3402,8 @@ def check_grouped_matmul_pbt(results):
             rows.append(row)
 
 
-# The recurrences' widths past the model's: their CUDA-core instances.
+# The recurrences' widths past the model's: their CUDA-core instances, and
+# the bf16 LSTM forward's two-block-cluster tensor-core instance.
 WIDE_HIDDEN = (384, 512)
 
 
@@ -3641,8 +3676,8 @@ def infer_phase(card):
     policies x 16384 agents, 512-channel LSTM, bf16, a fresh random
     assignment every step, 200 steps of ``rollout_chunked``): launches
     exact (one ``lstm_sequence_fwd_chunked`` at H = 512 and five
-    ``grouped_matmul`` a step, none other, no launch on tensor cores: the
-    512-wide instances are CUDA-core ones) and no step on the plain twin;
+    ``grouped_matmul`` a step, none other; the LSTM's on tensor cores, its
+    two-block cluster) and no step on the plain twin;
     then, at one more step, four chunks' critic values and new state
     against each chunk's policy alone (``ActorCritic.rollout``, its LSTM a
     single-policy ``lstm_sequence_fwd`` launch) within the step rule;
@@ -3682,7 +3717,8 @@ def infer_phase(card):
         lstm_model.lstm_step_chunked_reference = twin
     launches = _check_launches("infer_512",
                                _chunked_step_launches(INFER_STEPS),
-                               tensor_cores=False)
+                               tensor_cores=_tc_kernels(torch.bfloat16,
+                                                        INFER_CHANNELS))
     if plain[0]:
         raise AssertionError(f"infer_512: {plain[0]} steps on the plain twin")
     log(f"  infer_512: 0 steps on the plain twin")
@@ -4711,6 +4747,21 @@ TC_ROUTED = ("lstm_sequence_fwd", "lstm_sequence_bwd",
              "lstm_sequence_proj_bwd_chunked")
 
 
+def _tc_kernels(dtype, hidden):
+    """The kernels of TC_ROUTED whose launches take the tensor-core route
+    in a model of this dtype and recurrent width: in bfloat16 every one at
+    H = 128 and 256, and at 384 and 512 the two LSTM forwards alone (their
+    two-block cluster; the backwards and the GRU stay on CUDA cores); none
+    in float16."""
+    from madrona_learn_tpu_torch.ops.cuda.lstm import (
+        fwd_uses_tensor_cores, uses_tensor_cores)
+
+    forwards = ("lstm_sequence_fwd", "lstm_sequence_fwd_chunked")
+    return {name for name in TC_ROUTED
+            if (fwd_uses_tensor_cores if name in forwards
+                else uses_tensor_cores)(dtype, hidden)}
+
+
 def trainer_phase(card, name, build, per_update, trials, timed_updates,
                   last_rewards, num_worlds=NUM_WORLDS, ratio_zero=False,
                   final_check=None, setting=None, rising_reward=True,
@@ -5582,7 +5633,7 @@ def _count_launches(fn):
 
 
 def pbt_variant_phase(card, name, model, per_update, timed_updates,
-                      collect_ab, final_check=None):
+                      collect_ab, final_check=None, gmm_tc=None):
     """headline_pbt's population with another model (``model``, the
     keywords of ``_pbt_actor_critic``): it must take the policy-chunk
     layout and the batched learn; one warm-up update, whose first
@@ -5590,17 +5641,20 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
     train policy, and ``timed_updates`` timed ones (agent-steps/s), with
     the launches exact (``per_update``, every other kernel 0), finite
     losses and metrics; then, with ``collect_ab``, the collect A/B, and
-    the learn A/B (``_pbt_collect_ab``, ``_pbt_learn_ab``). A float16
-    model (``dtype``) must launch nothing on tensor cores; each policy's
-    loss scale and non-finite steps are printed after the updates, and
-    the learn A/B runs again with train policy 1's scale forced to 2^40
-    (``_pbt_learn_ab(force=1)``). A model at a width without the
-    tensor-core instances (``channels``: 384, 512) must launch nothing on
-    tensor cores either. ``final_check(name, mgr)``, where given, runs
-    last."""
+    the learn A/B (``_pbt_collect_ab``, ``_pbt_learn_ab``). Each kernel
+    with a tensor-core route takes it on every launch or on none, as
+    ``_tc_kernels`` says for the model's dtype and width: a float16 model
+    none; at 384 and 512 (``channels``) the LSTM forward alone. With
+    ``gmm_tc``, ``grouped_matmul``'s tensor-core launches an update must be
+    exactly that many (the products with IN and OUT multiples of 8). A
+    float16 model's policies' loss scales and non-finite steps are printed
+    after the updates, and the learn A/B runs again with train policy 1's
+    scale forced to 2^40 (``_pbt_learn_ab(force=1)``). ``final_check(name,
+    mgr)``, where given, runs last."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda import KERNELS
-    from madrona_learn_tpu_torch.ops.cuda.lstm import uses_tensor_cores
+    from madrona_learn_tpu_torch.ops.cuda.grouped_matmul import \
+        GROUPED_MATMUL
     from madrona_learn_tpu_torch.train import TrainHooks
 
     gc.collect()
@@ -5615,9 +5669,8 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
     expected.update(per_update)
     dtype = model.get("dtype") or torch.bfloat16
     half = dtype == torch.float16
-    # Every kernel with a tensor-core route takes it, but in float16 and at
-    # a width without the wgmma instances.
-    tensor_cores = uses_tensor_cores(dtype, model.get("channels", CHANNELS))
+    # Every kernel with a tensor-core route takes it where _tc_kernels says.
+    tensor_cores = _tc_kernels(dtype, model.get("channels", CHANNELS))
     log(f"{name} trainer: headline_pbt's population with {model}, "
         f"{str(dtype).split('.')[-1]}; expected launches per update "
         f"{ {k: v for k, v in expected.items() if v} }")
@@ -5644,20 +5697,19 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     num_updates = 1 + timed_updates
-    launches, tc = _launch_counts()
-    want = {k: v * num_updates for k, v in expected.items()}
-    if launches != want:
-        raise AssertionError(f"{name}: launches over {num_updates} updates "
-                             f"{launches}, expected {want}")
-    for kernel, n in tc.items():
-        if n != (launches[kernel] if tensor_cores else 0):
-            raise AssertionError(f"{name}: {kernel}: {n} of "
-                                 f"{launches[kernel]} launches on the "
-                                 f"tensor-core route")
-    log(f"  launches over {num_updates} updates: "
-        f"{ {k: v for k, v in launches.items() if v} }, "
-        + ("all on the tensor-core route where it exists" if tensor_cores
-           else "none on tensor cores (CUDA-core instances)"))
+    launches = _check_launches(
+        f"{name} over {num_updates} updates",
+        {k: v * num_updates for k, v in expected.items()}, tensor_cores)
+    if gmm_tc is not None:
+        if GROUPED_MATMUL.tc_launches != gmm_tc * num_updates:
+            raise AssertionError(
+                f"{name}: grouped_matmul: {GROUPED_MATMUL.tc_launches} "
+                f"launches on tensor cores over {num_updates} updates, "
+                f"expected {gmm_tc * num_updates}")
+        log(f"  grouped_matmul on tensor cores: "
+            f"{GROUPED_MATMUL.tc_launches} of "
+            f"{launches['grouped_matmul']} launches, {gmm_tc} an update "
+            f"(the products with IN and OUT multiples of 8)")
     if not bool(torch.isfinite(torch.stack(losses)).all()):
         raise AssertionError(f"{name}: non-finite loss")
     for metric, m in mgr.metrics.metrics.items():
@@ -5890,23 +5942,25 @@ def _zero_launch_counts():
         k.tc_launches = 0
 
 
-def _check_launches(what, expected, tensor_cores=True):
+def _check_launches(what, expected, tensor_cores=TC_ROUTED):
     """The launches since the counts were last zeroed must be
-    ``expected`` (the others 0), each on the tensor-core route where the
-    kernel has one, or, without ``tensor_cores`` (the 384 / 512-wide
-    instances, float16), none on it; returns them."""
+    ``expected`` (the others 0), every launch of a kernel named in
+    ``tensor_cores`` on the tensor-core route and none of the other
+    kernels' (``_tc_kernels``: at 384 / 512 the LSTM forwards alone);
+    returns them."""
     launches, tc = _launch_counts()
     want = {name: expected.get(name, 0) for name in launches}
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, expected "
                              f"{ {k: v for k, v in want.items() if v} }")
     for name, n in tc.items():
-        if n != (launches[name] if tensor_cores else 0):
+        if n != (launches[name] if name in tensor_cores else 0):
             raise AssertionError(f"{what}: {name}: {n} of "
                                  f"{launches[name]} launches on the "
                                  f"tensor-core route")
+    on_tc = sorted(k for k in tensor_cores if launches[k])
     log(f"  {what}: launches {({k: v for k, v in launches.items() if v})}"
-        f", {'on the tensor-core route' if tensor_cores else 'none on tensor cores'}")
+        f", on tensor cores: {on_tc or 'none'}")
     return launches
 
 
@@ -6914,9 +6968,13 @@ def timing_phase():
     """``--timings``: gae at [32, 16384] and layer_norm_fwd and
     layer_norm_bwd at [131072, 256] bf16, each timed three ways
     (`call_timings`), and PyTorch's native_layer_norm and
-    native_layer_norm_backward on the same inputs, as one JSON line. It
-    calls the wrappers' public signatures only, so a copy of this script
-    run in another checkout times that checkout's kernels."""
+    native_layer_norm_backward on the same inputs; then (`_route_timings`)
+    the float16 grouped_matmul at headline_pbt_fp16's pass shapes beside
+    ``torch.bmm(x, W[idx])``, and the bf16 lstm_sequence_fwd_chunked at H =
+    384 and 512 at infer_512's step, headline_pbt's collect step and its
+    learn step, with their bounds; as one JSON line. It calls the
+    wrappers' public signatures only, so a copy of this script run in
+    another checkout times that checkout's kernels."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gae import gae
     from madrona_learn_tpu_torch.ops.cuda.layer_norm import (
@@ -6938,7 +6996,54 @@ def timing_phase():
         "native_layer_norm_backward": call_timings(
             lambda: torch.ops.aten.native_layer_norm_backward(
                 dy, x, [D], mean, rstd, *wb, [True, True, True])),
+        **_route_timings(),
     }}))
+
+
+def _route_timings():
+    """The kernels whose route a checkout may change at the shapes their
+    paths run, each a median of CUDA-event timings (`time_ms`) with its
+    bound: the float16 grouped_matmul at headline_pbt_fp16's three pass
+    shapes (12 policies, 75 chunks of 512 rows) beside
+    ``torch.bmm(x, W[idx])``, and lstm_sequence_fwd_chunked in bf16 at H =
+    512 and 384 at infer_512's step (512 only: 95 chunks of 256, 32
+    policies), headline_pbt's collect step (T = 1, 75 x 512, 12 policies)
+    and its learn step (T = 16, 8 x 1280, 8 policies)."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.grouped_matmul import \
+        grouped_matmul
+    from madrona_learn_tpu_torch.ops.cuda.lstm import \
+        lstm_sequence_fwd_chunked
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    P, C, B = _pbt_chunk_geometry()
+    out = {}
+    for IN, OUT in ((2, CHANNELS), (CHANNELS, CHANNELS),
+                    (CHANNELS, 4 * CHANNELS)):
+        x, w, idx = _gmm_inputs(gen, B, C, IN, P, OUT, torch.float16)
+        idx64 = idx.long()
+        b = _gmm_bound(B, C, IN, int(idx.unique().numel()), OUT, 2)
+        out[f"grouped_matmul float16 [{B}x{C}, {IN}->{OUT}, P={P}]"] = dict(
+            ms=time_ms(lambda: grouped_matmul(x, w, idx)),
+            library_ms=time_ms(lambda: torch.bmm(x, w[idx64])),
+            bound_ms=b["bound_ms"])
+    infer_c, infer_b = _infer_geometry()
+    learn_T = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS
+    for H in (INFER_CHANNELS, 384):
+        shapes = [("collect", 1, B, C, P),
+                  ("learn", learn_T, PBT_TRAIN, PBT_MINIBATCH, PBT_TRAIN)]
+        if H == INFER_CHANNELS:
+            shapes.insert(0, ("infer", 1, infer_b, infer_c, INFER_POLICIES))
+        for label, T, chunks, chunk, P_c in shapes:
+            args = _chunked_lstm_inputs(gen, T, chunks, chunk, H, P_c,
+                                        torch.bfloat16)
+            b = _chunked_lstm_bound(T, chunks, chunk, H,
+                                    int(args[4].unique().numel()), 2)
+            out[f"lstm_sequence_fwd_chunked bf16 H={H} {label} "
+                f"[{T}, {chunks} x {chunk}] P={P_c}"] = dict(
+                    ms=time_ms(lambda: lstm_sequence_fwd_chunked(*args)),
+                    bound_ms=b["bound_ms"])
+    return out
 
 
 def main():
@@ -7069,6 +7174,13 @@ def main():
     pbt_lstm = {"gae": 1, "lstm_sequence_fwd_chunked": steps,
                 "lstm_sequence_bwd_chunked": NUM_MINIBATCHES,
                 "grouped_matmul": 5 * STEPS_PER_UPDATE + 4}
+    # The float16 models' grouped_matmul launches on tensor cores: of the
+    # five products a step (2 -> 256, 256 -> 256, the recurrence's input
+    # projection 256 -> 1024 or 768, the actor's 256 -> 5 and the critic's
+    # 256 -> 1), the two with IN and OUT multiples of 8; two of the
+    # bootstrap's four (no actor).
+    gmm_tc = {name: 2 * STEPS_PER_UPDATE + 2
+              for name in ("headline_pbt_fp16", "headline_pbt_gru_fp16")}
     for name, model, per_update, timed, collect_ab in (
             ("headline_pbt_gru", dict(rnn="gru"),
              {"gae": 1, "gru_sequence_fwd_chunked": steps,
@@ -7103,8 +7215,10 @@ def main():
               "lstm_sequence_bwd_chunked": 2 * NUM_MINIBATCHES,
               "grouped_matmul": 8 * STEPS_PER_UPDATE + 4}, 1, False),
             # The headline's model in float16 (headline_fp16's) and the GRU
-            # in float16: headline_pbt's and headline_pbt_gru's launches on
-            # the CUDA-core float16 instances, loss scaling a policy.
+            # in float16: headline_pbt's and headline_pbt_gru's launches, the
+            # recurrences on their CUDA-core float16 instances and
+            # grouped_matmul on tensor cores at its aligned products (gmm_tc),
+            # loss scaling a policy.
             ("headline_pbt_fp16", dict(dtype=torch.float16), pbt_lstm, 1,
              True),
             ("headline_pbt_gru_fp16", dict(rnn="gru", dtype=torch.float16),
@@ -7119,7 +7233,8 @@ def main():
              {"gae": 1, "grouped_matmul": 8 * STEPS_PER_UPDATE + 7}, 1,
              True)):
         launches, r = pbt_variant_phase(card, name, model, per_update, timed,
-                                        collect_ab)
+                                        collect_ab,
+                                        gmm_tc=gmm_tc.get(name))
         elapsed(name)
         launches_by_path[name] = launches
         log(f"{name}: {r['sps']:.0f} agent-steps/s (headline_pbt "
@@ -7132,8 +7247,9 @@ def main():
     launches_by_path["infer_512"], r = infer_phase(card)
     elapsed("infer_512")
     for name, model, per_update, timed, collect_ab, check in (
-            # infer_bench.py's width: the recurrence on the 512-wide
-            # CUDA-core instances, headline_pbt's launches.
+            # infer_bench.py's width: headline_pbt's launches, the LSTM
+            # forward on its 512-wide tensor-core instance (a two-block
+            # cluster), the backward on its CUDA-core one.
             ("headline_pbt_512", dict(channels=INFER_CHANNELS), pbt_lstm, 2,
              False, None),
             # A width no recurrent kernel is built for: the LSTM on its

@@ -27,16 +27,25 @@ struct FwdRows {
   int policy;
 };
 
+// Row tile `tile` (blockIdx.x, or a cluster's index where the blocks of a
+// cluster share their rows).
+static __device__ __forceinline__ FwdRows fwd_rows(const int* chunk_policy,
+                                                   int chunk,
+                                                   int rows_per_block,
+                                                   int n_rows, int tile) {
+  if (chunk_policy == nullptr) return {tile * rows_per_block, n_rows, 0};
+  const int tiles = (chunk + rows_per_block - 1) / rows_per_block;
+  const int c = tile / tiles;
+  return {c * chunk + (tile % tiles) * rows_per_block,
+          min(c * chunk + chunk, n_rows), chunk_policy[c]};
+}
+
 static __device__ __forceinline__ FwdRows fwd_rows(const int* chunk_policy,
                                                    int chunk,
                                                    int rows_per_block,
                                                    int n_rows) {
-  if (chunk_policy == nullptr)
-    return {static_cast<int>(blockIdx.x) * rows_per_block, n_rows, 0};
-  const int tiles = (chunk + rows_per_block - 1) / rows_per_block;
-  const int c = static_cast<int>(blockIdx.x) / tiles;
-  return {c * chunk + (static_cast<int>(blockIdx.x) % tiles) * rows_per_block,
-          min(c * chunk + chunk, n_rows), chunk_policy[c]};
+  return fwd_rows(chunk_policy, chunk, rows_per_block, n_rows,
+                  static_cast<int>(blockIdx.x));
 }
 
 // NaN into the block's rows of each of the `steps` slices of a [steps,
@@ -52,8 +61,9 @@ static __device__ void fill_nan(T* out, int steps, int n_rows, int width,
       out[(static_cast<size_t>(t) * n_rows + rows.first) * width + e] = nan;
 }
 
-// Blocks of a pass: ceil(n_rows / R), or, with chunks, ceil(chunk / R) a
-// chunk (fwd_rows).
+// Row tiles of a pass: ceil(n_rows / R), or, with chunks, ceil(chunk / R)
+// a chunk (fwd_rows); a block each, or a cluster each where a cluster's
+// blocks split the tile's work.
 static inline int fwd_blocks(const void* chunk_policy, int num_chunks,
                              int chunk, int n_rows, int rows_per_block) {
   return chunk_policy == nullptr

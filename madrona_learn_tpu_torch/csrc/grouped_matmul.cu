@@ -15,8 +15,9 @@
 // chunk whose index lies outside [0, P) gets NaN rows instead of a read out
 // of bounds.
 //
-// Design, bf16 with IN and OUT multiples of 8 and x and W on 16-byte
-// boundaries (grouped_matmul_tc_kernel, Hopper's warpgroup tensor cores):
+// Design, bf16 and float16 with IN and OUT multiples of 8 and x and W on
+// 16-byte boundaries (grouped_matmul_tc_kernel<T>, Hopper's warpgroup
+// tensor cores):
 // - A block of two warpgroups owns a 128 x 128 output tile of one chunk,
 //   64 rows a warpgroup. It reads its chunk's policy index itself and, for
 //   an index in range, addresses that policy's weights through TMA.
@@ -30,15 +31,20 @@
 //   map [P, IN, OUT] at the policy's index, as two 64-column boxes. Both use
 //   the 128-byte swizzle. The maps are encoded on the host for each call
 //   (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
-//   the library needs no -lcuda) and passed as __grid_constant__
-//   parameters.
-// - wgmma.m64n128k16 (bf16 -> f32): x's [128, 64] slice is the K-major A
-//   operand, W's [64, 128] slice the MN-major B operand (the transpose
-//   bit), both read by descriptor from shared memory.
-// - The f32 accumulators are rounded once to bf16, staged through shared
-//   memory and stored 16 bytes a thread. No split over IN: deterministic.
-// float32, float16, and bf16 with IN or OUT not a multiple of 8 or x or W
-// off a 16-byte boundary (rows TMA cannot address), take
+//   the library needs no -lcuda), of the operands' type, and passed as
+//   __grid_constant__ parameters.
+// - wgmma.m64n128k16 (bf16 or f16 -> f32): x's [128, 64] slice is the
+//   K-major A operand, W's [64, 128] slice the MN-major B operand (the
+//   transpose bit), both read by descriptor from shared memory. The two
+//   types share the layouts and the schedule; only the instruction's
+//   operand type and the tensor maps' element type differ.
+// - The f32 accumulators are rounded once to the storage type (the
+//   __floats2*2_rn intrinsics), staged through shared memory and stored 16
+//   bytes a thread. No split over IN: deterministic, and a chunk's rows do
+//   not depend on the other chunks.
+// float32 (tensor cores would round its products), and bf16 or float16 with
+// IN or OUT not a multiple of 8 or x or W off a 16-byte boundary (rows TMA
+// cannot address: the IN = 2 first layer, heads of 5 or 1 outputs), take
 // grouped_matmul_kernel: the classic CUDA-core tiled
 // product. A block of 256 threads owns a 64 x 64 tile of one chunk's
 // output; it stages 16-deep slices of the chunk's rows and of the policy's
@@ -57,9 +63,12 @@
 
 #include <cuda.h>   // CUtensorMap
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -161,32 +170,33 @@ int launch(const void* x, const void* w, const int* chunk_policy, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------ bf16 on tensor cores
-
-using bf16 = __nv_bfloat16;
+// ------------------------------------ bf16 and f16 on tensor cores
 
 constexpr int kTcThreads = 256;   // two warpgroups, 64 output rows each
 constexpr int kTcM = 128;         // chunk rows a block
 constexpr int kTcN = 128;         // output columns a block
-constexpr int kTcK = 64;          // depth of a slice: 128 bytes of bf16
+constexpr int kTcK = 64;          // depth of a slice: 128 bytes
 constexpr int kTcStages = 3;
 constexpr int kTcABytes = kTcM * kTcK * 2;             // x slice, 16 KB
 constexpr int kTcBBytes = kTcK * kTcN * 2;             // W slice, 16 KB
 constexpr int kTcStageBytes = kTcABytes + kTcBBytes;
-constexpr int kTcOutPitch = kTcN + 8;   // bf16 a staged output row
+constexpr int kTcOutPitch = kTcN + 8;   // elements a staged output row
 constexpr int kTcSmem = kTcStages * kTcStageBytes + 1024;   // + alignment
 static_assert(kTcM * kTcOutPitch * 2 <= kTcStages * kTcStageBytes,
               "the staged output tile reuses the ring");
 // Two blocks an SM: 2 x (97 KB + 1 KB reserved) of its 228 KB.
 static_assert(2 * (kTcSmem + 1024) <= 233472, "two blocks an SM");
 
-// Grid: x over (chunk, row tile, column tile), column tile fastest.
+// Grid: x over (chunk, row tile, column tile), column tile fastest. T is
+// __nv_bfloat16 or __half: the operands' type and the output's.
+template <typename T>
 __global__ void __launch_bounds__(kTcThreads, 2)
 grouped_matmul_tc_kernel(const __grid_constant__ CUtensorMap x_map,
                          const __grid_constant__ CUtensorMap w_map,
                          const int* __restrict__ chunk_policy,
-                         bf16* __restrict__ y, int rows, int in,
+                         T* __restrict__ y, int rows, int in,
                          int policies, int out, int m_tiles, int n_tiles) {
+  constexpr bool kHalf = std::is_same<T, __half>::value;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kTcStages];
   // The 128-byte swizzle wants 1024-byte aligned tiles.
@@ -201,11 +211,11 @@ grouped_matmul_tc_kernel(const __grid_constant__ CUtensorMap x_map,
   const int c = static_cast<int>(t / m_tiles);
   const int pol = chunk_policy[c];
   const int tid = threadIdx.x;
-  bf16* yc = y + static_cast<size_t>(c) * rows * out;
+  T* yc = y + static_cast<size_t>(c) * rows * out;
 
   if (pol < 0 || pol >= policies) {   // NaN rows; nothing is read
-    const uint4 nan = make_uint4(0x7fc07fc0u, 0x7fc07fc0u, 0x7fc07fc0u,
-                                 0x7fc07fc0u);
+    const uint32_t nan2 = kHalf ? 0x7e007e00u : 0x7fc07fc0u;
+    const uint4 nan = make_uint4(nan2, nan2, nan2, nan2);
     for (int e = tid; e < kTcM * (kTcN / 8); e += kTcThreads) {
       const int r = m0 + e / (kTcN / 8), col = n0 + (e % (kTcN / 8)) * 8;
       if (r < rows && col < out)
@@ -258,9 +268,13 @@ grouped_matmul_tc_kernel(const __grid_constant__ CUtensorMap x_map,
       // A: K-major, 8-row groups 1024 bytes apart, 16 deep = 32 bytes on.
       // B: MN-major, 8-deep groups 1024 bytes apart, the two 64-column
       // boxes 8192 bytes apart, 16 deep = 2048 bytes on.
-      mlt::wgmma_m64n128k16_xn<0>(
-          acc, mlt::wgmma_desc(a + kk * 32, 16, 1024, 128),
-          mlt::wgmma_desc(b + kk * 2048, kTcBBytes / 2, 1024, 128), 1);
+      const uint64_t da = mlt::wgmma_desc(a + kk * 32, 16, 1024, 128);
+      const uint64_t db =
+          mlt::wgmma_desc(b + kk * 2048, kTcBBytes / 2, 1024, 128);
+      if constexpr (kHalf)
+        mlt::wgmma_m64n128k16_xn_f16<0>(acc, da, db, 1);
+      else
+        mlt::wgmma_m64n128k16_xn<0>(acc, da, db, 1);
     }
     mlt::wgmma_commit();
     mlt::wgmma_wait<1>();   // slice kt - 1 is retired
@@ -279,14 +293,16 @@ grouped_matmul_tc_kernel(const __grid_constant__ CUtensorMap x_map,
   // (+ 8), columns 8 j + 2 (l % 4) (+ 1) in acc[4 j ..].
   const int lane = tid % 32;
   const int r0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
-  bf16* stage = reinterpret_cast<bf16*>(ring_p);
+  T* stage = reinterpret_cast<T*>(ring_p);
 #pragma unroll
   for (int j = 0; j < kTcN / 8; ++j)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int h = 0; h < 2; ++h) {
+      const float lo = acc[4 * j + 2 * h], hi = acc[4 * j + 2 * h + 1];
       *reinterpret_cast<uint32_t*>(
           stage + (r0 + 8 * h) * kTcOutPitch + 8 * j + 2 * (lane % 4)) =
-          mlt::pack_bf16x2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          kHalf ? mlt::pack_f16x2(lo, hi) : mlt::pack_bf16x2(lo, hi);
+    }
   __syncthreads();
   for (int e = tid; e < kTcM * (kTcN / 8); e += kTcThreads) {
     const int r = e / (kTcN / 8), cc = (e % (kTcN / 8)) * 8;
@@ -297,22 +313,26 @@ grouped_matmul_tc_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
+template <typename T>
 int launch_tc(const void* x, const void* w, const int* chunk_policy, void* y,
               int chunks, int rows, int in, int policies, int out,
               cudaStream_t stream) {
+  const CUtensorMapDataType dtype = std::is_same<T, __half>::value
+                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const int m_tiles = (rows + kTcM - 1) / kTcM;
   const int n_tiles = (out + kTcN - 1) / kTcN;
   const long long blocks = static_cast<long long>(chunks) * m_tiles * n_tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap x_map, w_map;
-  if (!mlt::make_tma_map(&x_map, x, in, rows, chunks, kTcK, kTcM) ||
-      !mlt::make_tma_map(&w_map, w, out, in, policies, 64, kTcK))
+  if (!mlt::make_tma_map(&x_map, x, in, rows, chunks, kTcK, kTcM, dtype) ||
+      !mlt::make_tma_map(&w_map, w, out, in, policies, 64, kTcK, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int err = mlt::set_smem(grouped_matmul_tc_kernel, kTcSmem);
+  const int err = mlt::set_smem(grouped_matmul_tc_kernel<T>, kTcSmem);
   if (err != 0) return err;
-  grouped_matmul_tc_kernel<<<static_cast<unsigned>(blocks), kTcThreads,
-                             kTcSmem, stream>>>(
-      x_map, w_map, chunk_policy, static_cast<bf16*>(y), rows, in, policies,
+  grouped_matmul_tc_kernel<T><<<static_cast<unsigned>(blocks), kTcThreads,
+                                kTcSmem, stream>>>(
+      x_map, w_map, chunk_policy, static_cast<T*>(y), rows, in, policies,
       out, m_tiles, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }
@@ -320,8 +340,9 @@ int launch_tc(const void* x, const void* w, const int* chunk_policy, void* y,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. tensor_core: 1 for the
-// bf16 tensor-core path (IN and OUT multiples of 8), 0 for the CUDA-core
-// path; the wrapper's rule picks it.
+// tensor-core path (bf16 or f16, IN and OUT multiples of 8, x and W on
+// 16-byte boundaries), 0 for the CUDA-core path; the wrapper's rule picks
+// it.
 extern "C" int mlt_grouped_matmul(int dtype, int tensor_core, const void* x,
                                   const void* w, const void* chunk_policy,
                                   void* y, int chunks, int rows, int in,
@@ -331,10 +352,16 @@ extern "C" int mlt_grouped_matmul(int dtype, int tensor_core, const void* x,
   const bool aligned =
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16 ==
       0;
-  if (tensor_core)
-    return dtype == 1 && in % 8 == 0 && out % 8 == 0 && aligned
-               ? launch_tc(x, w, idx, y, chunks, rows, in, policies, out, s)
-               : -1;
+  if (tensor_core) {
+    if (in % 8 != 0 || out % 8 != 0 || !aligned) return -1;
+    if (dtype == 1)
+      return launch_tc<__nv_bfloat16>(x, w, idx, y, chunks, rows, in,
+                                      policies, out, s);
+    if (dtype == 2)
+      return launch_tc<__half>(x, w, idx, y, chunks, rows, in, policies, out,
+                               s);
+    return -1;
+  }
   if (dtype == 0)
     return launch<float>(x, w, idx, y, chunks, rows, in, policies, out, s);
   if (dtype == 1)

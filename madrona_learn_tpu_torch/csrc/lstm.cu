@@ -16,9 +16,9 @@
 // in no order, so neither the resident weight nor a sum carried across grid
 // steps exists.
 //
-// In float32 and float16, and in bfloat16 at H = 384 and 512 (layout and
-// product in common.cuh), forwards and
-// backwards (the projection variant in float32 only):
+// In float32 and float16, and the bfloat16 backwards at H = 384 and 512
+// (layout and product in common.cuh), forwards and backwards (the
+// projection variant in float32 only):
 // - One block owns kRows batch rows and all H units of those rows, and
 //   loops over time inside the kernel (the TPU's sequential grid axis
 //   becomes the in-block loop). Each thread computes all four gates of its
@@ -58,10 +58,13 @@
 // (lstm_fwd_tc_kernel) and the backwards (lstm_bwd_tc_kernel, then
 // weight_grad_tc.cuh). The TPU kernel's products are bf16 operands with f32
 // accumulation, which is what wgmma computes, with only the order of the
-// sums changed. The wrapper's rule (ops/cuda/lstm.py: uses_tensor_cores)
-// sends bf16 at H = 128 or 256 here (an operand off a 16-byte boundary is
-// copied onto one first), float32 and float16, and bf16 at H = 384 and
-// 512 ("Wider layers", at the dispatch), to the kernels above.
+// sums changed. The wrappers' rules (ops/cuda/lstm.py: fwd_uses_tensor_cores,
+// uses_tensor_cores) send the bf16 forwards at every width and the bf16
+// backwards at H = 128 or 256 here (an operand off a 16-byte boundary is
+// copied onto one first), float32 and float16, and the bf16 backwards at
+// H = 384 and 512, to the kernels above. At 384 and 512 the forward's
+// units are split over a cluster of two blocks ("Wider layers", at the
+// dispatch).
 // - Row ownership as above, with R rows a block (kFwdTcRows for the
 //   forwards, kTcRows for the backwards: the fastest on the H100, PERF.md):
 //   warpgroup w owns units 64 w .. 64 w + 63 of all four gates, so the gate
@@ -73,7 +76,8 @@
 //   (rounded once), each warpgroup's result in the layout of its carries.
 //   One helper (preactivations, gate_pre) computes the pre-activations for
 //   the forward and for the backward's recompute, so both compute them
-//   alike.
+//   alike (at H = 128 and 256; the wider backwards recompute them on CUDA
+//   cores).
 // - A: 64-deep slices of the weights (128-byte swizzle) through a ring of
 //   stages (32 KB at H = 256) filled by TMA (slice_ring.cuh, shared with
 //   gru.cu and policy_step.cu): a forward step takes Wi then Wr as
@@ -114,10 +118,11 @@
 // weights. Here the rows are [B][C], a block owns one row tile of one chunk
 // (fwd_rows, chunk_rows.cuh: no block straddles two policies, and C need
 // not be a multiple of R), and reads its policy's slice of the [P, H, 4H] / [P, 4H] stacks:
-// by a pointer offset on CUDA cores (float32, float16; bfloat16 at H = 384
-// and 512), by the third
+// by a pointer offset on CUDA cores (float32, float16), by the third
 // coordinate of one TMA map over the whole stack on tensor cores (no map
-// a policy, no gathered copy of the weights). A row's arithmetic is the single-policy kernel's, so
+// a policy, no gathered copy of the weights; at 384 and 512 both blocks of
+// a cluster share the row tile and its policy). A row's arithmetic is the
+// single-policy kernel's, so
 // every row equals lstm_sequence_fwd's with its policy's weights bitwise.
 // Bound as the forward: streaming each block's policy's Wr from L2 a step;
 // the 12 policies' 6 MiB stay resident.
@@ -1454,21 +1459,29 @@ constexpr int kFwdTcRows = 32;
 // this; PERF.md).
 constexpr int kFwdTcStages = 4;
 
+// Blocks of a cluster that split the units of the tensor-core forward
+// (kSplit): one at H = 128 and 256; two at H = 384 and 512 ("Wider
+// layers", at the dispatch), each owning H / 2 units of the same rows.
+template <int H>
+constexpr int kFwdSplit = H > 256 ? 2 : 1;
+
 // Shared memory of lstm_fwd_tc_kernel, from a 1024-byte aligned base: the
-// ring of weight slices ([64 k][H units] bf16 each, as H / 64 TMA boxes of
-// [64 k][64 units]), the block's h tile (the
-// K-major B operand of h . Wr, which the gate math overwrites with the next
-// step's carry) and its x tile (K-major [R][4H]: x_proj, or x in one or two
-// buffers of [R][F]).
-template <int H, int R>
+// ring of weight slices ([64 k][U units] bf16 each, U = H / kSplit the
+// block's units, as U / 64 TMA boxes of [64 k][64 units]), the block's h
+// tile (the K-major B operand of h . Wr over all H units, which the gate
+// math overwrites with the next step's carry) and its x tile (K-major
+// [R][4U]: the x_proj columns of its units, or x in one or two buffers of
+// [R][F]).
+template <int H, int R, int kSplit>
 struct TcFwd {
-  static constexpr int kWarpgroups = H / 64;   // 64 units each
+  static constexpr int kUnits = H / kSplit;
+  static constexpr int kWarpgroups = kUnits / 64;   // 64 units each
   static constexpr int kThreads = 128 * kWarpgroups;
   static constexpr int kWarps = 4 * kWarpgroups;
   static constexpr int kSub = R * 128;          // one [R][64] subtile
-  static constexpr int kStageBytes = H * 128;
+  static constexpr int kStageBytes = kUnits * 128;
   static constexpr int kHBytes = R * H * 2;
-  static constexpr int kXBytes = R * 4 * H * 2;
+  static constexpr int kXBytes = R * 4 * kUnits * 2;
   static constexpr int kFixed = kHBytes + kXBytes;
   static constexpr int kStages =
       min_c(kFwdTcStages, (kSmemLimit - 2048 - kFixed) / kStageBytes);
@@ -1485,8 +1498,23 @@ struct TcFwd {
 // Wi [F, 4H] (wi_map; Wr again without the projection) and Wr [H, 4H]
 // (wr_map), in boxes of [64 k][64 units]: wgmma's MN-major A operand as
 // they stand, so the forward needs no transposed copy of a weight.
-template <int H, int R, bool kProj>
-__global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
+//
+// With kSplit = 2 (H = 384, 512; no projection) the two blocks of a
+// cluster own the same R rows and H / 2 units each (rank r: units r H / 2
+// ..), so a block keeps the H = 192 / 256 instance's warpgroups and
+// registers. Each streams its units' columns of Wr, stages its units'
+// x_proj columns, and holds the whole h tile (the product's K = H). After
+// the gate math a thread writes its carry into its own h tile and its
+// peer's (distributed shared memory). Two cluster barriers a step keep the
+// tiles right: the first after both blocks' products, so that no write
+// reaches an h tile that wgmma still reads; the second after the writes
+// (release / acquire, then fence.proxy.async on both sides), so that the
+// next step's products read both halves. A block never exits while its
+// peer can still write into it: the last write is before the last step's
+// second barrier, and a chunk of no policy is skipped by both blocks of
+// its cluster together (they share its rows, so its policy).
+template <int H, int R, bool kProj, int kSplit>
+__global__ void __launch_bounds__(TcFwd<H, R, kSplit>::kThreads, 1)
     lstm_fwd_tc_kernel(const __grid_constant__ CUtensorMap wi_map,
                        const __grid_constant__ CUtensorMap wr_map,
                        const bf16* __restrict__ x, const bf16* __restrict__ keep,
@@ -1495,10 +1523,12 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
                        bf16* __restrict__ ys, bf16* __restrict__ cs, int steps,
                        int n_rows, int f_in, const int* __restrict__ chunk_policy,
                        int chunk, int num_policies) {
-  using L = TcFwd<H, R>;
+  static_assert(kSplit == 1 || !kProj, "the projection is not split");
+  using L = TcFwd<H, R, kSplit>;
   constexpr int S = L::kStages;
+  constexpr int U = L::kUnits;
   constexpr int kAcc = R / 2;
-  constexpr int kGate = (H / 64) * L::kSub;   // gate stride of the x tile
+  constexpr int kGate = (U / 64) * L::kSub;   // gate stride of the x tile
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[S];
   __shared__ __align__(8) uint64_t empty[S];
@@ -1509,11 +1539,14 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
   uint8_t* h_p = smem_raw + (h_s - raw_s);
   const uint8_t* x_p = smem_raw + (x_s - raw_s);
 
-  // The block's rows and policy (fwd_rows); a chunk of no policy is
-  // skipped before any barrier, so the whole block leaves together.
-  const FwdRows rows = fwd_rows(chunk_policy, chunk, R, n_rows);
+  // The block's rows and policy (fwd_rows: the cluster's row tile); a chunk
+  // of no policy is skipped before any barrier, so the whole block (the
+  // whole cluster) leaves together.
+  const int rank = kSplit == 1 ? 0 : static_cast<int>(cluster_rank());
+  const FwdRows rows = fwd_rows(chunk_policy, chunk, R, n_rows,
+                                static_cast<int>(blockIdx.x) / kSplit);
   if (rows.policy < 0 || rows.policy >= num_policies) {
-    fill_nan_rows(ys, cs, steps, n_rows, H, rows, R);
+    if (rank == 0) fill_nan_rows(ys, cs, steps, n_rows, H, rows, R);
     return;
   }
   bias += static_cast<size_t>(rows.policy) * 4 * H;
@@ -1522,14 +1555,21 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
   const int tid = threadIdx.x;
   const int wg = tid / 128, lane = tid % 32;
   const int lt = lane % 4;
+  // unit0 counts the block's own units (the ring's and the x tile's
+  // columns); unit_base + unit0 is the unit of the layer.
+  const int unit_base = rank * U;
   const int unit0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
   const int block_row = rows.first;
+  // The h tile's byte offset of unit u + unit_base over unit u's (U is a
+  // multiple of 64: whole [R][64] subtiles).
+  const uint32_t h_shift = (unit_base / 64) * L::kSub;
 
   // The weight slices of one step, in the order the step consumes them:
-  // Wi by (F-chunk, gate), then Wr by (H-chunk, gate), each the H / 64
-  // boxes of its gate's units; the same sequence every step, so the ring
-  // prefetches across steps. The maps span the [P, H, 4H] stack (P = 1
-  // without chunks); the block's policy is the third coordinate.
+  // Wi by (F-chunk, gate), then Wr by (H-chunk, gate), each the U / 64
+  // boxes of its gate's units of this block; the same sequence every step,
+  // so the ring prefetches across steps. The maps span the [P, H, 4H]
+  // stack (P = 1 without chunks); the block's policy is the third
+  // coordinate.
   const int xp_loads = kProj ? 4 * (f_in / kTcK) : 0;
   const int step_loads = xp_loads + 4 * (H / kTcK);
   const CUtensorMap* wim = &wi_map;
@@ -1539,9 +1579,10 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
     const bool xp = p < xp_loads;
     if (!xp) p -= xp_loads;
 #pragma unroll
-    for (int w = 0; w < H / 64; ++w)
+    for (int w = 0; w < U / 64; ++w)
       tma_load_3d(dst + w * 64 * 128, xp ? wim : wrm, bar,
-                  (p % 4) * H + w * 64, (p / 4) * kTcK, rows.policy);
+                  (p % 4) * H + unit_base + w * 64, (p / 4) * kTcK,
+                  rows.policy);
   };
   SliceRing<S> slices{full, empty, ring, L::kStageBytes, steps * step_loads,
                       0};
@@ -1553,24 +1594,29 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
   // projection), by 16-byte cp.async with zero-fill: rows past N arrive as
   // zeros. Two buffers of x where they fit, so that step t + 1's x arrives
   // during step t's products; one (F > 2H) is refilled once step t's
-  // products are done.
-  const int x_width = kProj ? f_in : 4 * H;
+  // products are done. Without the projection the tile holds the block's
+  // units of each gate, column g U + u of it column g H + unit_base + u of
+  // x_proj.
+  const int x_stride = kProj ? f_in : 4 * H;
+  const int x_width = kProj ? f_in : 4 * U;
   const int x_bufs = kProj && 2 * f_in <= 4 * H ? 2 : 1;
   const uint32_t x_buf_bytes = R * x_width * 2;
   auto load_x = [&](int t) {
     const uint32_t dst = x_s + (t % x_bufs) * x_buf_bytes;
     const size_t trow = static_cast<size_t>(t) * n_rows;
     for (int e = tid; e < R * (x_width / 8); e += L::kThreads) {
-      const int n = e / (x_width / 8), c = e % (x_width / 8);
+      const int n = e / (x_width / 8), c = (e % (x_width / 8)) * 8;
+      const int col = kSplit == 1 ? c : (c / U) * H + unit_base + c % U;
       const int row = block_row + n;
       const bool live = row < row_end;
-      cp_async16(dst + kmaj_off<R>(n, c * 8),
-                 x + (live ? (trow + row) * x_width + c * 8 : 0), live);
+      cp_async16(dst + kmaj_off<R>(n, c),
+                 x + (live ? (trow + row) * x_stride + col : 0), live);
     }
     cp_async_commit();
   };
 
-  // h0 into the h tile, c0 into the f32 carry (rows past N: zeros).
+  // h0 into the h tile (all H units), c0 into the f32 carry (rows past N:
+  // zeros).
   for (int e = tid; e < R * (H / 8); e += L::kThreads) {
     const int n = e / (H / 8), c = e % (H / 8);
     const int row = block_row + n;
@@ -1589,7 +1635,7 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
       kb[s][e] = kmaj_off<R>(2 * lt + e, unit0 + 8 * s);
 #pragma unroll
     for (int g = 0; g < 4; ++g)
-      b[g][s] = __bfloat162float(bias[g * H + unit0 + 8 * s]);
+      b[g][s] = __bfloat162float(bias[g * H + unit_base + unit0 + 8 * s]);
   }
 #pragma unroll
   for (int j = 0; j < R / 8; ++j)
@@ -1599,13 +1645,17 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
       for (int e = 0; e < 2; ++e) {
         const int row = block_row + 8 * j + 2 * lt + e;
         c[4 * j + 2 * s + e] =
-            row < row_end ? __bfloat162float(
-                               c0[static_cast<size_t>(row) * H + unit0 + 8 * s])
-                         : 0.0f;
+            row < row_end
+                ? __bfloat162float(c0[static_cast<size_t>(row) * H +
+                                      unit_base + unit0 + 8 * s])
+                : 0.0f;
       }
   cp_async_wait<0>();
   fence_proxy_async();
   __syncthreads();
+  // The peer's h tile, where this block writes its half of each carry.
+  const uint32_t peer_h =
+      kSplit == 1 ? 0 : map_cluster_rank(h_s, static_cast<uint32_t>(rank ^ 1));
 
   const uint32_t a_off = wg * 64 * 128;
   const bf16 zero = __float2bfloat16_rn(0.0f);
@@ -1628,13 +1678,18 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
                                    f_in);
     if constexpr (!kProj) cp_async_wait<0>();   // x_proj of step t
     // Every warpgroup is done reading the h tile (and x with the
-    // projection); x_proj of step t is in.
-    __syncthreads();
+    // projection); x_proj of step t is in. With a cluster: the peer's
+    // warpgroups too, before this block writes into its h tile.
+    if constexpr (kSplit == 1)
+      __syncthreads();
+    else
+      cluster_sync();
     if (kProj && x_bufs == 1 && t + 1 < steps) load_x(t + 1);
 
     // Gate math, thread-local; the new carry into the h tile (cleared where
-    // keep is 0), the outputs to memory (staging them in shared memory for
-    // 16-byte stores measured slower on the H100).
+    // keep is 0; with a cluster into the peer's too), the outputs to memory
+    // (staging them in shared memory for 16-byte stores measured slower on
+    // the H100).
 #pragma unroll
     for (int j = 0; j < R / 8; ++j)
 #pragma unroll
@@ -1653,18 +1708,29 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
           const bf16 c_t = __float2bfloat16_rn(new_c);
           const bf16 h_t = __float2bfloat16_rn(new_h);
           const bool k = (kept >> (2 * j + e)) & 1u;
-          *reinterpret_cast<bf16*>(h_p + ko) = k ? h_t : zero;
+          const bf16 h_next = k ? h_t : zero;
+          *reinterpret_cast<bf16*>(h_p + ko + h_shift) = h_next;
+          if constexpr (kSplit > 1)
+            st_cluster_u16(peer_h + ko + h_shift, __bfloat16_as_ushort(h_next));
           c[i] = k ? __bfloat162float(c_t) : 0.0f;
           const int row = block_row + 8 * j + 2 * lt + e;
           if (row < row_end) {
-            const size_t o = (trow + row) * H + unit0 + 8 * s;
+            const size_t o = (trow + row) * H + unit_base + unit0 + 8 * s;
             ys[o] = h_t;
             cs[o] = c_t;
           }
         }
     if constexpr (kProj) cp_async_wait<0>();   // x of step t + 1
-    fence_proxy_async();
-    __syncthreads();   // the carry and next step's x are in for its products
+    // The carry and next step's x are in for its products: this block's
+    // writes, and with a cluster the peer's, visible to wgmma.
+    if constexpr (kSplit == 1) {
+      fence_proxy_async();
+      __syncthreads();
+    } else {
+      fence_proxy_async_all();
+      cluster_sync();
+      fence_proxy_async_all();
+    }
     // The x tile is free once the gate math has read it.
     if (!kProj && t + 1 < steps) load_x(t + 1);
   }
@@ -1673,7 +1739,9 @@ __global__ void __launch_bounds__(TcFwd<H, R>::kThreads, 1)
 // chunk_policy null: one policy (lstm_sequence_fwd, _proj_fwd); else the
 // chunk-indexed instance over [num_policies, H, 4H] and [num_policies, 4H]
 // stacks (and [num_policies, F, 4H] of Wi with the projection), one TMA map
-// over each whole stack.
+// over each whole stack. At H = 384 and 512, clusters of two blocks
+// (kFwdSplit), launched with their cluster dimension by cudaLaunchKernelEx;
+// a refused launch returns its error.
 template <int H, bool kProj>
 int launch_fwd_tc(const void* x, const void* keep, const void* wi,
                   const void* wr, const void* bias, const void* c0,
@@ -1682,21 +1750,36 @@ int launch_fwd_tc(const void* x, const void* keep, const void* wi,
                   const void* chunk_policy = nullptr, int num_chunks = 0,
                   int chunk = 0, int num_policies = 1) {
   constexpr int R = kFwdTcRows;
-  using L = TcFwd<H, R>;
+  constexpr int kSplit = kFwdSplit<H>;
+  using L = TcFwd<H, R, kSplit>;
+  const auto kernel = lstm_fwd_tc_kernel<H, R, kProj, kSplit>;
   CUtensorMap wi_map, wr_map;
   if (!make_tma_map(&wr_map, wr, 4 * H, H, num_policies, 64, kTcK) ||
       !make_tma_map(&wi_map, kProj ? wi : wr, 4 * H, kProj ? f_in : H,
                     num_policies, 64, kTcK))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int err = set_smem(lstm_fwd_tc_kernel<H, R, kProj>, L::kSmem);
+  const int err = set_smem(kernel, L::kSmem);
   if (err != 0) return err;
-  const int blocks = fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, R);
-  lstm_fwd_tc_kernel<H, R, kProj><<<blocks, L::kThreads, L::kSmem, stream>>>(
-      wi_map, wr_map, static_cast<const bf16*>(x),
+  const int tiles = fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, R);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles) * kSplit);
+  cfg.blockDim = dim3(L::kThreads);
+  cfg.dynamicSmemBytes = L::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = kSplit;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = kSplit > 1 ? 1 : 0;
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &cfg, kernel, wi_map, wr_map, static_cast<const bf16*>(x),
       static_cast<const bf16*>(keep), static_cast<const bf16*>(bias),
       static_cast<const bf16*>(c0), static_cast<const bf16*>(h0),
       static_cast<bf16*>(ys), static_cast<bf16*>(cs), steps, n_rows, f_in,
       static_cast<const int*>(chunk_policy), chunk, num_policies);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1708,26 +1791,40 @@ bool proj_width_ok(int hidden, int f_in) {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. Each entry point returns a
 // cudaError_t, or -1 for arguments without an instantiation. The CUDA-core
-// sequence kernels are built for float32 and float16 at H = 128 and 256
-// (bfloat16 there takes mlt_lstm_fwd_tc and mlt_lstm_bwd_tc), and for all
-// three at H = 384 and 512, where the tensor-core design does not fit (see
-// "Wider layers" below); the projection kernels for float32 alone, at 128
-// and 256 (float16 takes the unfused kernels, as the JAX package's
+// sequence kernels are built for float32 and float16 at H = 128, 256, 384
+// and 512, and the CUDA-core backwards for bfloat16 too at 384 and 512
+// (bfloat16 takes mlt_lstm_fwd_tc at every width and mlt_lstm_bwd_tc at
+// 128 and 256); the projection kernels for float32 alone, at 128 and 256
+// (float16 takes the unfused kernels, as the JAX package's
 // lstm_proj_supported sends it to its unfused route).
 //
 // Wider layers (H = 384, 512). The tensor-core kernels give each warpgroup
-// 64 units of all four gates, so a block has H / 64 warpgroups: 768 threads
-// at H = 384 and 1024 at H = 512, which leaves each thread 80 and 64
-// registers, where the H = 256 instances already take 128 and spill; and
-// the backwards' K-major weight slices are single TMA boxes of H rows,
-// past TMA's 256 elements a box dimension. So bfloat16 takes the CUDA-core
-// kernels at these widths, the same templates as float32 and float16 (one
-// row's arithmetic whatever the dtype: storage-type operands converted
-// exactly to f32, f32 sums, the carry rounded to the storage type), with
-// every contract of the narrower instances: the rollout step is the
-// sequence forward's step, a chunked row is the single-policy kernel's, a
-// chunk of no policy writes NaN, a policy's dWr / db sum its chunks' split
-// partials in chunk order. ops/cuda/lstm.py: uses_tensor_cores states it.
+// 64 units of all four gates, so one block would need H / 64 warpgroups:
+// 768 threads at H = 384 and 1024 at H = 512, which leaves each thread 80
+// and 64 registers (acc alone is 64 at R = 32), where the H = 256 instances
+// already take 128 and spill; and 288 KiB of shared memory at 512, past
+// the 227 KiB a block can use. The bf16 forwards split the units over a
+// cluster of two blocks instead (lstm_fwd_tc_kernel with kSplit = 2): each
+// block keeps 3 or 4 warpgroups and the H = 192 / 256 register layout,
+// streams the Wr columns of its H / 2 units (L2 traffic stays |Wr| per R
+// rows a step), stages its units' x_proj, and holds the whole h tile,
+// into which both blocks write their halves of each carry through
+// distributed shared memory (224 KiB at 512 with a 4-stage ring). A
+// single block of 4 warpgroups x 128 units at R = 16 would also fit, but
+// it doubles Wr's L2 traffic a row, which bounds this kernel; the cluster
+// was taken. The backwards' K-major weight slices are single TMA boxes of
+// H rows, past TMA's 256 elements a box dimension, so bfloat16's backwards
+// stay on the CUDA-core kernels at these widths, the same templates as
+// float32 and float16 (storage-type operands converted exactly to f32, f32
+// sums, the carry rounded to the storage type). Their recompute of the
+// pre-activations then sums in another order than the forward that wrote
+// ys / cs: "both compute them alike" (the header) holds at 128 and 256
+// only, and the wide backward is held to its plain twin (3.2e-2 of the
+// largest value), as before. Every contract of the narrower instances
+// holds: the rollout step is the sequence forward's step, a chunked row is
+// the single-policy kernel's, a chunk of no policy writes NaN, a policy's
+// dWr / db sum its chunks' split partials in chunk order.
+// ops/cuda/lstm.py: fwd_uses_tensor_cores and uses_tensor_cores state it.
 #define MLT_DISPATCH_F32(CALL)                                   \
   if (dtype == 0 && hidden == 128) return CALL(float, 128);      \
   if (dtype == 0 && hidden == 256) return CALL(float, 256);      \
@@ -1736,14 +1833,21 @@ bool proj_width_ok(int hidden, int f_in) {
   if (dtype == 2 && hidden == 128) return CALL(__half, 128);     \
   if (dtype == 2 && hidden == 256) return CALL(__half, 256);     \
   MLT_DISPATCH_F32(CALL)
-// The sequence kernels: the above, and every dtype at H = 384 and 512.
-#define MLT_DISPATCH_WIDE(CALL, H)                               \
+// The CUDA-core forwards: float32 and float16 at every width.
+#define MLT_DISPATCH_WIDE_FWD(CALL, H)                           \
   if (dtype == 0 && hidden == H) return CALL(float, H);          \
-  if (dtype == 1 && hidden == H) return CALL(__nv_bfloat16, H);  \
   if (dtype == 2 && hidden == H) return CALL(__half, H)
-#define MLT_DISPATCH_SEQ(CALL)                                   \
-  MLT_DISPATCH_WIDE(CALL, 384);                                  \
-  MLT_DISPATCH_WIDE(CALL, 512);                                  \
+#define MLT_DISPATCH_FWD(CALL)                                   \
+  MLT_DISPATCH_WIDE_FWD(CALL, 384);                              \
+  MLT_DISPATCH_WIDE_FWD(CALL, 512);                              \
+  MLT_DISPATCH_F32_F16(CALL)
+// The CUDA-core backwards: every dtype at H = 384 and 512.
+#define MLT_DISPATCH_WIDE_BWD(CALL, H)                           \
+  MLT_DISPATCH_WIDE_FWD(CALL, H);                                \
+  if (dtype == 1 && hidden == H) return CALL(__nv_bfloat16, H)
+#define MLT_DISPATCH_BWD(CALL)                                   \
+  MLT_DISPATCH_WIDE_BWD(CALL, 384);                              \
+  MLT_DISPATCH_WIDE_BWD(CALL, 512);                              \
   MLT_DISPATCH_F32_F16(CALL)
 
 extern "C" int mlt_lstm_fwd(int dtype, int hidden, const void* xp,
@@ -1754,7 +1858,7 @@ extern "C" int mlt_lstm_fwd(int dtype, int hidden, const void* xp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MLT_FWD(T, H) \
   launch_fwd<T, H>(xp, keep, wr, bias, c0, h0, ys, cs, steps, n_rows, s)
-  MLT_DISPATCH_SEQ(MLT_FWD);
+  MLT_DISPATCH_FWD(MLT_FWD);
 #undef MLT_FWD
 }
 
@@ -1770,7 +1874,7 @@ extern "C" int mlt_lstm_bwd(int dtype, int hidden, const void* xp,
 #define MLT_BWD(T, H)                                                      \
   launch_bwd<T, H>(xp, keep, wr, wr_t, bias, c0, h0, ys, cs, dys, dxp, dh0, \
                    dc0, part_w, part_b, dwr, db, steps, n_rows, splits, s)
-  MLT_DISPATCH_SEQ(MLT_BWD);
+  MLT_DISPATCH_BWD(MLT_BWD);
 #undef MLT_BWD
 }
 
@@ -1833,10 +1937,10 @@ extern "C" int mlt_lstm_bwd_tc(
 }
 
 // The bf16 tensor-core forward of both variants (f_in = 0:
-// lstm_sequence_fwd, x = x_proj; else lstm_sequence_proj_fwd), from the
-// weights as they stand, Wi [F, 4H] (unread without the projection) and
-// Wr [H, 4H]. Returns a cudaError_t, or -1 for arguments without an
-// instantiation.
+// lstm_sequence_fwd, x = x_proj, at H = 128, 256, 384 and 512; else
+// lstm_sequence_proj_fwd, at 128 and 256), from the weights as they stand,
+// Wi [F, 4H] (unread without the projection) and Wr [H, 4H]. Returns a
+// cudaError_t, or -1 for arguments without an instantiation.
 extern "C" int mlt_lstm_fwd_tc(int hidden, int f_in, const void* x,
                                const void* keep, const void* wi,
                                const void* wr, const void* bias,
@@ -1853,6 +1957,8 @@ extern "C" int mlt_lstm_fwd_tc(int hidden, int f_in, const void* x,
   if (hidden == H) return f_in == 0 ? MLT_FWD_TC(H, false) : MLT_FWD_TC(H, true)
   MLT_FWD_TC_H(128);
   MLT_FWD_TC_H(256);
+  if (f_in == 0 && hidden == 384) return MLT_FWD_TC(384, false);
+  if (f_in == 0 && hidden == 512) return MLT_FWD_TC(512, false);
 #undef MLT_FWD_TC_H
 #undef MLT_FWD_TC
   return -1;
@@ -1861,10 +1967,9 @@ extern "C" int mlt_lstm_fwd_tc(int hidden, int f_in, const void* x,
 // lstm_sequence_fwd_chunked: the forward over [num_chunks * chunk] rows,
 // chunk c with the weights of policy chunk_policy[c] of the [num_policies,
 // H, 4H] / [num_policies, 4H] stacks (a chunk of no policy is skipped, its
-// rows NaN). tensor_core 1 takes the bf16 tensor-core kernel, 0 the
-// CUDA-core one (float32, float16; bfloat16 at H = 384 and 512). Returns a
-// cudaError_t, or -1 for
-// arguments without an instantiation.
+// rows NaN). tensor_core 1 takes the bf16 tensor-core kernel (every
+// width), 0 the CUDA-core one (float32, float16). Returns a cudaError_t, or
+// -1 for arguments without an instantiation.
 extern "C" int mlt_lstm_fwd_chunked(int tensor_core, int dtype, int hidden,
                                     const void* xp, const void* keep,
                                     const void* wr, const void* bias,
@@ -1887,13 +1992,15 @@ extern "C" int mlt_lstm_fwd_chunked(int tensor_core, int dtype, int hidden,
                                    num_chunks, chunk, num_policies)
     MLT_FWD_CHUNKED_TC(128);
     MLT_FWD_CHUNKED_TC(256);
+    MLT_FWD_CHUNKED_TC(384);
+    MLT_FWD_CHUNKED_TC(512);
 #undef MLT_FWD_CHUNKED_TC
     return -1;
   }
 #define MLT_FWD_CHUNKED(T, H)                                              \
   launch_fwd<T, H>(xp, keep, wr, bias, c0, h0, ys, cs, steps, n_rows, s,    \
                    chunk_policy, num_chunks, chunk, num_policies)
-  MLT_DISPATCH_SEQ(MLT_FWD_CHUNKED);
+  MLT_DISPATCH_FWD(MLT_FWD_CHUNKED);
 #undef MLT_FWD_CHUNKED
 }
 
@@ -1942,7 +2049,7 @@ extern "C" int mlt_lstm_bwd_chunked(
   launch_bwd<T, H>(xp, keep, wr, wr_t, bias, c0, h0, ys, cs, dys, dxp, dh0, \
                    dc0, part_w, part_b, dwr, db, steps, n_rows, splits, s,  \
                    chunk_policy, num_chunks, chunk, num_policies)
-  MLT_DISPATCH_SEQ(MLT_BWD_CHUNKED);
+  MLT_DISPATCH_BWD(MLT_BWD_CHUNKED);
 #undef MLT_BWD_CHUNKED
 }
 
@@ -2040,7 +2147,9 @@ extern "C" int mlt_lstm_proj_bwd_chunked(
 #undef MLT_PROJ_BWD_CHUNKED
 }
 
-#undef MLT_DISPATCH_SEQ
-#undef MLT_DISPATCH_WIDE
+#undef MLT_DISPATCH_BWD
+#undef MLT_DISPATCH_WIDE_BWD
+#undef MLT_DISPATCH_FWD
+#undef MLT_DISPATCH_WIDE_FWD
 #undef MLT_DISPATCH_F32_F16
 #undef MLT_DISPATCH_F32

@@ -1,8 +1,9 @@
-// Tensor-core helpers shared by the bf16 kernels: Hopper's warpgroup wgmma
-// (A from shared memory or from registers, B from shared memory by
-// descriptor), TMA loads completing on mbarriers and the host encoding of
-// their tensor maps, ldmatrix and cp.async with zero-fill, and bf16 pair
-// packing.
+// Tensor-core helpers shared by the bf16 kernels (and grouped_matmul's f16
+// instance): Hopper's warpgroup wgmma (A from shared memory or from
+// registers, B from shared memory by descriptor), TMA loads completing on
+// mbarriers and the host encoding of their tensor maps, ldmatrix and
+// cp.async with zero-fill, bf16 / f16 pair packing, and the cluster
+// barrier and distributed shared-memory stores of a cluster of blocks.
 //
 // Everything here is `static` inside `mlt` rather than in an unnamed
 // namespace: nvcc names each kernel's launch stub from the global scope, so
@@ -20,6 +21,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,6 +34,12 @@ static __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // Two f32 rounded to bf16 (round to nearest even), lo in the low half.
 static __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The same for f16.
+static __device__ __forceinline__ uint32_t pack_f16x2(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
@@ -222,41 +230,53 @@ static __device__ __forceinline__ void wgmma_fence_operand(float& r) {
 // from shared memory through their descriptors. Thread t of the warpgroup
 // holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4)
 // (+ 1) in d[4 j .. 4 j + 3] (the mma.sync C layout).
+#define MLT_WGMMA_M64N128K16(TYPES)                                        \
+  asm volatile(                                                           \
+      "{\n"                                                               \
+      ".reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %66, 0;\n"                                          \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPES " {"           \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                  \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                            \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                          \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                          \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                          \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                          \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                          \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                            \
+      "}, %64, %65, p, 1, 1, %67, 1;\n"                                   \
+      "}\n"                                                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),  \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),  \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),  \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),  \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                \
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA))
+
 template <int kTransA>
 static __device__ __forceinline__ void wgmma_m64n128k16_xn(float (&d)[64],
                                                            uint64_t da,
                                                            uint64_t db,
                                                            int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA));
+  MLT_WGMMA_M64N128K16("bf16.bf16");
 }
+
+// The same product with f16 operands (f32 accumulators).
+template <int kTransA>
+static __device__ __forceinline__ void wgmma_m64n128k16_xn_f16(
+    float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  MLT_WGMMA_M64N128K16("f16.f16");
+}
+
+#undef MLT_WGMMA_M64N128K16
 
 // d = A . B + (accumulate ? d : 0), m64n64k16, bf16 -> f32; A and B both
 // K-major (tnspA 0, tnspB 0), both read from shared memory through their
@@ -401,6 +421,48 @@ static __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// ---------------------------------------------------------------- cluster
+
+// This block's rank in its cluster.
+static __device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives, then waits for all
+// (release on arrival, acquire on the wait: a thread's earlier writes to
+// any block's shared memory are visible to every thread after it).
+static __device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of shared address `addr` (a __cvta_generic_
+// to_shared value) in the block of cluster rank `rank`.
+static __device__ __forceinline__ uint32_t map_cluster_rank(uint32_t addr,
+                                                            uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Two bytes into another block's shared memory (distributed shared memory).
+static __device__ __forceinline__ void st_cluster_u16(uint32_t addr,
+                                                      uint16_t v) {
+  asm volatile("st.shared::cluster.u16 [%0], %1;\n" ::"r"(addr), "h"(v)
+               : "memory");
+}
+
+// fence_proxy_async for every state space: generic-proxy writes into this
+// block's or another block's shared memory before the async proxy reads
+// them.
+static __device__ __forceinline__ void fence_proxy_async_all() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------- host
 
 // cuTensorMapEncodeTiled, from the driver the runtime already loaded (so
@@ -430,18 +492,21 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D bf16 tensor map over [d2][d1][d0] (d0 innermost), boxes of
-// [1][b1][b0] (b0 = 64: 128 bytes), 128-byte swizzle, out-of-bounds
+// A 3-D tensor map of 2-byte elements (bf16, or f16 with
+// CU_TENSOR_MAP_DATA_TYPE_FLOAT16) over [d2][d1][d0] (d0 innermost), boxes
+// of [1][b1][b0] (b0 = 64: 128 bytes), 128-byte swizzle, out-of-bounds
 // elements read as zeros.
-static bool make_tma_map(CUtensorMap* map, const void* ptr, uint64_t d0,
-                         uint64_t d1, uint64_t d2, uint32_t b0, uint32_t b1) {
+static bool make_tma_map(
+    CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
+    uint32_t b0, uint32_t b1,
+    CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
   const cuuint32_t box[3] = {b0, b1, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  return encode(map, dtype, 3,
                 const_cast<void*>(ptr), dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -41,7 +41,8 @@ class Kernel:
     where, it launches the kernel on the card; ``tc_launches`` as well where
     that launch took the kernel's tensor-core route (the LSTM kernels,
     the GRU kernels, ``mha`` and the fused step, whose path rules send
-    bf16 there).
+    bf16 there, and ``grouped_matmul``, which sends bf16 and float16 there
+    at aligned shapes).
     """
 
     name: str

@@ -12,13 +12,13 @@ chunk's policy index and addresses that policy's weight tiles directly, so
 no ``[B, IN, OUT]`` copy of the weights is gathered. Two paths, picked by
 :func:`uses_tensor_cores` from the dtype, the shape and the alignment alone:
 
-- bfloat16 with IN and OUT multiples of 8 and x and weights on 16-byte
-  boundaries (16-byte rows at 16-byte addresses, which TMA needs): 128 x
-  128 output tiles on Hopper's warpgroup tensor cores (``wgmma``), fed by
-  TMA through a 3-stage ring in shared memory;
-- float32 (tensor cores would round its products), float16 (on CUDA cores
-  like every float16 instance of the port), and any other bfloat16
-  operands: 64 x 64 output tiles, f32 FMAs on CUDA cores.
+- bfloat16 or float16 with IN and OUT multiples of 8 and x and weights on
+  16-byte boundaries (16-byte rows at 16-byte addresses, which TMA needs):
+  128 x 128 output tiles on Hopper's warpgroup tensor cores (``wgmma``,
+  f32 accumulators), fed by TMA through a 3-stage ring in shared memory;
+- float32 (tensor cores would round its products), and any other bfloat16
+  or float16 operands (the IN = 2 first layer, heads of 5 or 1 outputs):
+  64 x 64 output tiles, f32 FMAs on CUDA cores.
 
 Contract: ``x`` [B, C, IN] and ``weights`` [P, IN, OUT] in one dtype
 (float32, bfloat16 or float16), ``chunk_policy`` [B] int32 in [0, P); the
@@ -56,10 +56,12 @@ def grouped_matmul_reference(x, weights, chunk_policy):
 
 
 def uses_tensor_cores(x, weights):
-    """The path rule: bfloat16 x [B, C, IN] and weights [P, IN, OUT] with IN
-    and OUT multiples of 8, both starting on a 16-byte boundary, take the
-    tensor-core kernel; everything else takes the CUDA-core one."""
-    return (x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0
+    """The path rule: bfloat16 or float16 x [B, C, IN] and weights [P, IN,
+    OUT] with IN and OUT multiples of 8, both starting on a 16-byte
+    boundary, take the tensor-core kernel; everything else takes the
+    CUDA-core one."""
+    return (x.dtype in (torch.bfloat16, torch.float16)
+            and x.shape[-1] % 8 == 0
             and weights.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0
             and weights.data_ptr() % 16 == 0)
 
@@ -89,6 +91,12 @@ def grouped_matmul(x, weights, chunk_policy):
     OUT] with ``y[i] = x[i] @ weights[chunk_policy[i]]``."""
     if x.device.type == "cpu":
         return grouped_matmul_reference(x, weights, chunk_policy)
+    return _launch(x, weights, chunk_policy)
+
+
+def _launch(x, weights, chunk_policy):
+    """The kernel launch of :func:`grouped_matmul` for operands on the
+    card, on the route :func:`uses_tensor_cores` names."""
     B, C, IN, P, OUT = _check_inputs(x, weights, chunk_policy)
     tensor_core = uses_tensor_cores(x, weights)
     y = torch.empty((B, C, OUT), dtype=x.dtype, device=x.device)
@@ -98,4 +106,5 @@ def grouped_matmul(x, weights, chunk_policy):
         P, OUT, torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "grouped_matmul")
     GROUPED_MATMUL.launches += 1
+    GROUPED_MATMUL.tc_launches += int(tensor_core)
     return y

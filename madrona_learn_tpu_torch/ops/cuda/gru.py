@@ -31,8 +31,9 @@ raises):
   (``csrc/weight_grad_tc.cuh``). Both are bound by streaming Wh from L2.
   An operand off a 16-byte boundary is copied onto one first;
 - float32, whose products tensor cores would round, float16, and
-  bfloat16 at H = 384 and 512 (where the tensor-core design does not fit,
-  for ``csrc/lstm.cu``'s reasons, "Wider layers"): the CUDA-core kernels
+  bfloat16 at H = 384 and 512 (one block would need H / 64 warpgroups,
+  ``csrc/lstm.cu``, "Wider layers"; the LSTM forward's two-block cluster
+  is not built for the GRU yet): the CUDA-core kernels
   (the backward with the split-M pass of ``csrc/weight_grad.cuh``), bound
   by f32 FMA issue.
 

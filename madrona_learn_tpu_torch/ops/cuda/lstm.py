@@ -24,24 +24,27 @@ by JAX's gate (:func:`lstm_kernel_route`): a width that is no multiple of
 the wrappers raise on operands no kernel takes (a multiple of 128 past
 512 among them).
 
-Two paths for each of the four kernels, picked by :func:`uses_tensor_cores`
-from the dtype and H alone (no fallback: the kernel a call is routed to
-runs or raises):
+Two paths for each of the four kernels, picked from the dtype and H alone
+by :func:`fwd_uses_tensor_cores` (the sequence forward, its chunk-indexed
+instance, and the rollout steps that run them) and :func:`uses_tensor_cores`
+(the backwards and the projection kernels); no fallback: the kernel a call
+is routed to runs or raises:
 
-- bfloat16 at H = 128 or 256: the recurrence on Hopper's warpgroup tensor
-  cores (``wgmma``, bf16 operands, f32 accumulators; the weights stream
-  through a TMA ring, read as they stand by the forwards and from
-  transposed copies by the backwards; a block owns R batch rows, R being
-  :func:`fwd_tc_rows` for the forwards and :func:`tc_rows` for the
-  backwards); the backwards then take the weight gradients as a split-K
-  ``wgmma`` product over the T * N rows. Bound by streaming the weights
-  from L2. TMA and the kernels' 16-byte copies read every operand on a
-  16-byte boundary: one that is not is copied onto one first;
-- float32, whose products tensor cores would round, float16, and
-  bfloat16 at H = 384 and 512 (where the tensor-core design does not fit:
-  H / 64 warpgroups a block leave 80 or 64 registers a thread, and the
-  backwards' weight slices are TMA boxes of H rows, past 256; ``csrc/
-  lstm.cu``, "Wider layers"): the CUDA-core kernels, bound by f32 FMA
+- bfloat16, the forwards at every width and the backwards and the
+  projection kernels at H = 128 or 256: the recurrence on Hopper's
+  warpgroup tensor cores (``wgmma``, bf16 operands, f32 accumulators; the
+  weights stream through a TMA ring, read as they stand by the forwards
+  and from transposed copies by the backwards; a block owns R batch rows,
+  R being :func:`fwd_tc_rows` for the forwards and :func:`tc_rows` for the
+  backwards, and at H = 384 and 512 a cluster of two blocks splits the
+  forward's units, ``csrc/lstm.cu``, "Wider layers"); the backwards then
+  take the weight gradients as a split-K ``wgmma`` product over the T * N
+  rows. Bound by streaming the weights from L2. TMA and the kernels'
+  16-byte copies read every operand on a 16-byte boundary: one that is not
+  is copied onto one first;
+- float32, whose products tensor cores would round, float16, and the
+  bfloat16 backwards at H = 384 and 512 (their weight slices would be TMA
+  boxes of H rows, past 256): the CUDA-core kernels, bound by f32 FMA
   issue. Float16 is built for the two sequence kernels alone:
   :func:`lstm_proj_supported` refuses it, as JAX's does, so a float16
   layer takes the unfused kernels.
@@ -149,9 +152,10 @@ LSTM_PROJ_BWD_CHUNKED = Kernel(
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# The widths the sequence kernels are built for (every dtype; bfloat16 on
-# tensor cores at the first two), and those the projection kernels and the
-# tensor-core instances are built for.
+# The widths the sequence kernels are built for (every dtype; the bfloat16
+# forwards on tensor cores at all four, the bfloat16 backwards at the first
+# two), and those the projection kernels and the tensor-core backwards are
+# built for.
 _HIDDEN_SIZES = (128, 256, 384, 512)
 _TC_HIDDEN_SIZES = (128, 256)
 
@@ -342,7 +346,7 @@ def _fwd_tc(x, keep, wi, wr, bias, c0, h0, out=None):
 def lstm_sequence_fwd(x_proj, keep, wr, bias, c0, h0):
     """The forward kernel: (ys, cs), each [T, N, H] in the storage dtype."""
     steps, n, hidden = _check_inputs(x_proj, keep, wr, bias, c0, h0)
-    if uses_tensor_cores(x_proj.dtype, hidden):
+    if fwd_uses_tensor_cores(x_proj.dtype, hidden):
         ys, cs = _fwd_tc(x_proj, keep, None, wr, bias, c0, h0)
         LSTM_FWD.launches += 1
         LSTM_FWD.tc_launches += 1
@@ -373,7 +377,7 @@ def lstm_sequence_fwd_chunked(x_proj, keep, wr, bias, chunk_policy, c0,
     steps, n, hidden, B, _, P = _check_chunked(
         "lstm_sequence_fwd_chunked", x_proj, keep, wr, bias, chunk_policy,
         c0, h0)
-    tensor_core = uses_tensor_cores(x_proj.dtype, hidden)
+    tensor_core = fwd_uses_tensor_cores(x_proj.dtype, hidden)
     if tensor_core:
         # x_proj and h0 arrive by 16-byte copies, the weights by TMA.
         x_proj, h0, wr = map(on_16_bytes, (x_proj, h0, wr))
@@ -548,13 +552,23 @@ def fwd_tc_rows():
 
 
 def uses_tensor_cores(dtype, hidden):
-    """The path rule of the four kernels, forwards and backwards:
-    bfloat16 with H in (128, 256) takes the tensor-core kernels
-    (``wgmma``); float32, whose products tensor cores would round,
-    float16, and bfloat16 at H = 384 and 512, where the tensor-core design
-    does not fit (``csrc/lstm.cu``, "Wider layers"), the CUDA-core ones.
-    (The projection's F rule holds on both paths.)"""
+    """The path rule of the backwards (``lstm_sequence_bwd`` and its
+    chunk-indexed instance) and of the projection kernels: bfloat16 with H
+    in (128, 256) takes the tensor-core kernels (``wgmma``); float32, whose
+    products tensor cores would round, float16, and bfloat16 at H = 384
+    and 512, whose backward weight slices would be TMA boxes of H rows,
+    past 256 (``csrc/lstm.cu``, "Wider layers"), the CUDA-core ones. (The
+    projection's F rule holds on both paths.)"""
     return dtype == torch.bfloat16 and hidden in _TC_HIDDEN_SIZES
+
+
+def fwd_uses_tensor_cores(dtype, hidden):
+    """The path rule of the sequence forward and its chunk-indexed instance
+    (and so of ``lstm_step`` / ``lstm_step_chunked``): bfloat16 at every
+    width the kernels are built for takes the tensor-core kernel, split
+    over a cluster of two blocks at H = 384 and 512; float32 and float16
+    the CUDA-core one."""
+    return dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES
 
 
 def on_16_bytes(t):

@@ -18,8 +18,17 @@ keep is 0. It is held
 - to itself, bitwise: a T = 1 step from the cleared state equals step t of
   the T = 16 pass, and N = 70 equals N = 16 on the rows they share.
 
+At H = 384 and 512 the kernel splits the units over a cluster of two
+blocks, each summing the full K = H of h . Wr in the same slice order, so
+a row's arithmetic is the same emulation; the wide cases hold it to the
+plain forward and to JAX at T <= 4, to itself bitwise (the T = 1 step
+against step t of T = 8, N = 70 against N = 16, a chunk's rows of the
+chunk-indexed form against the single-policy form), and the wrappers'
+routes: the forwards on the tensor-core entry points, the backwards on
+the CUDA-core ones.
+
 Inputs come from numpy seeds, at N = 70 (ragged against the kernel's rows
-a block), H = 128, F = 128 and 256.
+a block), H = 128, 384 and 512, F = 128 and 256.
 """
 
 import types
@@ -36,10 +45,18 @@ from madrona_learn_tpu.ops.pallas.lstm import (
 from madrona_learn_tpu_torch.ops.cuda import KERNELS
 from madrona_learn_tpu_torch.ops.cuda import lstm as lstm_mod
 from madrona_learn_tpu_torch.ops.cuda.lstm import (
+    LSTM_BWD,
+    LSTM_BWD_CHUNKED,
     LSTM_FWD,
+    LSTM_FWD_CHUNKED,
     LSTM_PROJ_FWD,
     _cell,
+    fwd_uses_tensor_cores,
+    lstm_sequence_bwd,
+    lstm_sequence_bwd_chunked,
     lstm_sequence_fwd,
+    lstm_sequence_fwd_chunked,
+    lstm_sequence_fwd_chunked_reference,
     lstm_sequence_proj_fwd,
     lstm_sequence_proj_reference,
     lstm_sequence_reference,
@@ -146,7 +163,8 @@ def _within(got, want, what):
     assert err <= FWD_ATOL, f"{what}: max |diff| {err:.3e} above {FWD_ATOL}"
 
 
-CASES = [(5, 70, 128, None), (4, 70, 128, 128), (4, 70, 128, 256)]
+CASES = [(5, 70, 128, None), (4, 70, 128, 128), (4, 70, 128, 256),
+         (4, 70, 384, None), (3, 70, 512, None)]
 
 
 @pytest.mark.parametrize("T,N,H,F", CASES)
@@ -171,13 +189,8 @@ def test_tc_lstm_fwd_arithmetic_matches_the_pallas_forward(T, N, H, F):
     _within(ys, _jax_ys(args), "ys vs Pallas")
 
 
-@pytest.mark.parametrize("F", [None, 256])
-def test_tc_lstm_fwd_step_equals_its_sequence_step(F):
-    """A T = 1 call from the cleared state after step t - 1 gives bitwise
-    step t of the T = 16 call: the rollout step and the update pass are one
-    kernel, so PPO's ratio starts at exactly 1."""
-    T, N, H = 16, 70, 128
-    args = _inputs(90 + (F or 0), T, N, H, F)
+def _step_equals_sequence_step(T, N, H, F, seed):
+    args = _inputs(seed, T, N, H, F)
     ys, cs = emulate_tc_fwd(**args)
     keep = args["keep"]
     zero = torch.zeros((), dtype=BF16)
@@ -197,17 +210,91 @@ def test_tc_lstm_fwd_step_equals_its_sequence_step(F):
 
 
 @pytest.mark.parametrize("F", [None, 256])
-def test_tc_lstm_fwd_rows_do_not_depend_on_the_batch(F):
-    """N = 70 (ragged against the kernel's rows a block) and N = 16 give
-    bitwise the same ys and cs on the rows they share."""
-    T, N, H, rows = 4, 70, 128, 16
-    args = _inputs(95 + (F or 0), T, N, H, F)
+def test_tc_lstm_fwd_step_equals_its_sequence_step(F):
+    """A T = 1 call from the cleared state after step t - 1 gives bitwise
+    step t of the T = 16 call: the rollout step and the update pass are one
+    kernel, so PPO's ratio starts at exactly 1."""
+    _step_equals_sequence_step(16, 70, 128, F, 90 + (F or 0))
+
+
+@pytest.mark.parametrize("H", [384, 512])
+def test_tc_lstm_fwd_wide_step_equals_its_sequence_step(H):
+    """The same at H = 384 and 512 (the two-block cluster's rows), T = 8."""
+    _step_equals_sequence_step(8, 70, H, None, 90 + H)
+
+
+def _rows_do_not_depend_on_the_batch(H, F, seed):
+    T, N, rows = 4, 70, 16
+    args = _inputs(seed, T, N, H, F)
     ys, cs = emulate_tc_fwd(**args)
     sub = dict(args, x=args["x"][:, :rows], keep=args["keep"][:, :rows],
                c0=args["c0"][:rows], h0=args["h0"][:rows])
     ys_s, cs_s = emulate_tc_fwd(**sub)
     assert torch.equal(ys[:, :rows], ys_s)
     assert torch.equal(cs[:, :rows], cs_s)
+
+
+@pytest.mark.parametrize("F", [None, 256])
+def test_tc_lstm_fwd_rows_do_not_depend_on_the_batch(F):
+    """N = 70 (ragged against the kernel's rows a block) and N = 16 give
+    bitwise the same ys and cs on the rows they share."""
+    _rows_do_not_depend_on_the_batch(128, F, 95 + (F or 0))
+
+
+@pytest.mark.parametrize("H", [384, 512])
+def test_tc_lstm_fwd_wide_rows_do_not_depend_on_the_batch(H):
+    _rows_do_not_depend_on_the_batch(H, None, 95 + H)
+
+
+def emulate_tc_fwd_chunked(x, keep, wr, bias, idx, c0, h0):
+    """The chunk-indexed forward's arithmetic: chunk b of C rows through
+    ``emulate_tc_fwd`` with policy idx[b]'s weights, NaN rows for an index
+    outside [0, P)."""
+    C = x.shape[1] // idx.shape[0]
+    ys = torch.full((x.shape[0], x.shape[1], wr.shape[1]), float("nan"),
+                    dtype=BF16)
+    cs = ys.clone()
+    for b, p in enumerate(idx.tolist()):
+        if not 0 <= p < wr.shape[0]:
+            continue
+        r = slice(b * C, (b + 1) * C)
+        ys[:, r], cs[:, r] = emulate_tc_fwd(x[:, r], keep[:, r], None, wr[p],
+                                            bias[p], c0[r], h0[r])
+    return ys, cs
+
+
+@pytest.mark.parametrize("H", [384, 512])
+def test_tc_lstm_fwd_wide_chunked_rows_are_single_rows(H):
+    """The chunk-indexed form at H = 384 / 512 (chunks of 35 rows, ragged
+    against the 32-row tile, a chunk of index P): within the forward rule of
+    its plain twin, its NaN chunk NaN in both, and every other chunk's rows
+    bitwise the single-policy emulation over that chunk alone."""
+    T, C, P = 3, 35, 2
+    order = [1, 0, P, 1]
+    rng = np.random.default_rng(H)
+
+    def bf(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(BF16)
+
+    N = C * len(order)
+    x, keep = bf(rng.normal(size=(T, N, 4 * H))), bf(rng.random((T, N)) > 0.2)
+    wr = bf(rng.normal(size=(P, H, 4 * H)) / np.sqrt(H))
+    bias = bf(rng.normal(size=(P, 4 * H)))
+    c0, h0 = bf(rng.normal(size=(N, H))), bf(rng.normal(size=(N, H)))
+    idx = torch.tensor(order, dtype=torch.int32)
+    ys, cs = emulate_tc_fwd_chunked(x, keep, wr, bias, idx, c0, h0)
+    want = lstm_sequence_fwd_chunked_reference(x, keep, wr, bias, idx, c0, h0)
+    bad = torch.tensor([p == P for p in order]).repeat_interleave(C)
+    for got, ref in zip((ys, cs), want):
+        assert got[:, bad].isnan().all() and ref[:, bad].isnan().all()
+        _within(got[:, ~bad], ref[:, ~bad], "chunked vs plain")
+    for b, p in enumerate(order):
+        if p == P:
+            continue
+        r = slice(b * C, (b + 1) * C)
+        one = emulate_tc_fwd(x[:, r], keep[:, r], None, wr[p], bias[p],
+                             c0[r], h0[r])
+        assert torch.equal(one[0], ys[:, r]) and torch.equal(one[1], cs[:, r])
 
 
 class _FakeLibrary:
@@ -247,13 +334,18 @@ def _stand_in_card(monkeypatch):
     (BF16, 128, 512, True),      # F = 4H: one x buffer
     (F32, 256, None, False),     # float32 stays on CUDA cores
     (F32, 128, 256, False),
+    (BF16, 384, None, True),     # the two-block cluster
+    (BF16, 512, None, True),     # infer_512's rollout step
+    (F32, 512, None, False),
+    (torch.float16, 384, None, False),
 ])
 def test_lstm_fwd_path_rule(monkeypatch, dtype, H, F, tensor_core):
     """The forward wrappers take the route the rule names, and count a
     launch, and a tensor-core launch where they took that route. The
     operands stand on the CPU here: the library, the operand check and the
     stream are stand-ins."""
-    assert uses_tensor_cores(dtype, H) is tensor_core
+    rule = fwd_uses_tensor_cores if F is None else uses_tensor_cores
+    assert rule(dtype, H) is tensor_core
     lib = _stand_in_card(monkeypatch)
     kernel = LSTM_FWD if F is None else LSTM_PROJ_FWD
     monkeypatch.setattr(kernel, "launches", 0)
@@ -323,3 +415,48 @@ def test_lstm_fwd_wrappers_refuse_what_no_kernel_takes():
                 meta(T, N, F), meta(T, N), meta(F, 1024), meta(256, 1024),
                 meta(1024), meta(N, 256), meta(N, 256))
     assert {k.name: (k.launches, k.tc_launches) for k in KERNELS} == before
+
+
+@pytest.mark.parametrize("H", [384, 512])
+def test_wide_bf16_forwards_take_tensor_cores_backwards_cuda_cores(
+        monkeypatch, H):
+    """At H = 384 and 512 in bf16 the two forwards launch their
+    tensor-core entry points (the chunk-indexed one with tensor_core 1) and
+    count a tensor-core launch each; the two backwards launch their
+    CUDA-core entry points (dtype code 1) and count none. Operands stand on
+    the CPU: the library, the operand check, the SM count and the stream
+    are stand-ins."""
+    lib = _stand_in_card(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device=None: types.SimpleNamespace(
+                            multi_processor_count=132))
+    kernels = (LSTM_FWD, LSTM_FWD_CHUNKED, LSTM_BWD, LSTM_BWD_CHUNKED)
+    for k in kernels:
+        monkeypatch.setattr(k, "launches", 0)
+        monkeypatch.setattr(k, "tc_launches", 0)
+    assert fwd_uses_tensor_cores(BF16, H) and not uses_tensor_cores(BF16, H)
+    T, N, P = 2, 8, 2
+
+    def z(*shape):
+        return torch.zeros(*shape, dtype=BF16)
+
+    idx = torch.tensor([1, 0], dtype=torch.int32)
+    seq = z(T, N, H)
+    lstm_sequence_fwd(z(T, N, 4 * H), z(T, N), z(H, 4 * H), z(4 * H),
+                      z(N, H), z(N, H))
+    lstm_sequence_fwd_chunked(z(T, N, 4 * H), z(T, N), z(P, H, 4 * H),
+                              z(P, 4 * H), idx, z(N, H), z(N, H))
+    lstm_sequence_bwd(z(T, N, 4 * H), z(T, N), z(H, 4 * H), z(4 * H),
+                      z(N, H), z(N, H), seq, seq, seq)
+    lstm_sequence_bwd_chunked(z(T, N, 4 * H), z(T, N), z(P, H, 4 * H),
+                              z(P, 4 * H), idx, z(N, H), z(N, H), seq, seq,
+                              seq)
+    assert lib.calls == ["mlt_lstm_fwd_tc", "mlt_lstm_fwd_chunked",
+                         "mlt_lstm_bwd", "mlt_lstm_bwd_chunked"]
+    fwd_tc, fwd_chunked, bwd, bwd_chunked = lib.args
+    assert fwd_tc[:2] == (H, 0)
+    assert fwd_chunked[:3] == (1, 1, H)
+    assert bwd[:2] == (1, H)
+    assert bwd_chunked[:3] == (0, 1, H)
+    assert [(k.launches, k.tc_launches) for k in kernels] == [
+        (1, 1), (1, 1), (1, 0), (1, 0)]

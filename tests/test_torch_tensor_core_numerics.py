@@ -20,7 +20,8 @@ to them.
   cancels to near 0 (hi + lo keeps ~16 bits), so the chip check does not
   hold the backward to it; rounding p or dS to bf16 alone misses it by
   more.
-- ``grouped_matmul``'s path rule, by dtype, shape and alignment.
+- ``grouped_matmul``'s path rule, by dtype (bfloat16 and float16 alike),
+  shape and alignment.
 - The wrappers still raise ``ValueError`` on what neither path can take.
 
 Inputs come from numpy seeds.
@@ -256,6 +257,9 @@ def _aligned_at(shape, dtype, shift):
     (torch.bfloat16, 72, 136, 1, 0, False),     # x off a 16-byte boundary
     (torch.bfloat16, 72, 136, 0, 4, False),     # weights off one
     (torch.float32, 512, 2048, 0, 0, False),    # f32 stays on CUDA cores
+    (torch.float16, 512, 2048, 0, 0, True),     # float16 like bf16
+    (torch.float16, 70, 96, 0, 0, False),       # IN not a multiple of 8
+    (torch.float16, 72, 136, 1, 0, False),      # x off a 16-byte boundary
 ])
 def test_grouped_matmul_path_rule(dtype, IN, OUT, x_shift, w_shift,
                                   tensor_core):

@@ -20,7 +20,8 @@ wider layers, which then take the unfused sequence kernels.
 - The chunked twins' card form (one gathered batched product a step, no
   host sync) against their CPU form (a loop over the chunks).
 - The wrappers' operand checks take H = 384 and 512 in every dtype, and
-  their launches go to the CUDA-core entry points (a stand-in library);
+  their launches go to the CUDA-core entry points (a stand-in library),
+  but for the bfloat16 LSTM forwards, which take their tensor-core ones;
   a width without an instance is refused.
 - An H = 96 GRU and an H = 384 LSTM (float32), carried over from flax
   (``compat/from_jax.py``): the rollout step and the sequence against the
@@ -64,6 +65,7 @@ from madrona_learn_tpu_torch.models.common import StackedParams
 from madrona_learn_tpu_torch.ops.cuda import KERNELS
 from madrona_learn_tpu_torch.ops.cuda.gru import gru_supported
 from madrona_learn_tpu_torch.ops.cuda.lstm import (
+    fwd_uses_tensor_cores,
     lstm_proj_supported,
     lstm_supported,
     uses_tensor_cores,
@@ -102,7 +104,10 @@ def test_gates_are_jaxs(H, dtype):
         assert policy_step_supported(H, f_in, tdt) is (
             H in (128, 256)
             and bool(jax_policy_step_supported(H, f_in, jdt)))
-    # bfloat16 takes tensor cores where the wgmma instances are built.
+    # bfloat16 takes tensor cores where the wgmma instances are built: the
+    # LSTM forwards at every instance's width, the backwards (and the
+    # GRU) at 128 and 256.
+    assert fwd_uses_tensor_cores(tdt, H) is (tdt == BF16 and H in INSTANCES)
     assert uses_tensor_cores(tdt, H) is (tdt == BF16 and H in (128, 256))
     assert gru_mod.uses_tensor_cores(tdt, H) is (tdt == BF16
                                                  and H in (128, 256))
@@ -321,10 +326,12 @@ def test_wide_launches_take_the_cuda_core_entry_points(monkeypatch, H,
                                                        dtype):
     """At H = 384 and 512 each of the eight wrappers launches its
     CUDA-core entry point with the tensor's dtype code (bfloat16 1: the
-    bf16 CUDA-core instance), never a tensor-core one, and counts the
-    launch, none on tensor cores. The operands stand on the CPU here: the
-    library, the operand check, the SM count and the stream are
-    stand-ins."""
+    bf16 CUDA-core instance) and counts the launch, none on tensor cores;
+    but in bfloat16 the two LSTM forwards, which launch their tensor-core
+    entry points (the two-block cluster; the chunk-indexed one with
+    tensor_core 1) and count a tensor-core launch each. The operands stand
+    on the CPU here: the library, the operand check, the SM count and the
+    stream are stand-ins."""
     tdt = DTYPES[dtype][0]
     code = {F32: 0, BF16: 1, F16: 2}[tdt]
     lib = _Lib()
@@ -368,18 +375,25 @@ def test_wide_launches_take_the_cuda_core_entry_points(monkeypatch, H,
     gru_mod.gru_sequence_bwd_chunked(z(T, N, 3 * H), z(T, N),
                                      z(P, H, 3 * H), z(P, H), idx, z(N, H),
                                      seq, seq)
+    tc_fwd = tdt == BF16
     assert [c[0] for c in lib.calls] == [
-        "mlt_lstm_fwd", "mlt_lstm_bwd", "mlt_lstm_fwd_chunked",
-        "mlt_lstm_bwd_chunked", "mlt_gru_fwd", "mlt_gru_bwd",
-        "mlt_gru_fwd_chunked", "mlt_gru_bwd_chunked"]
+        "mlt_lstm_fwd_tc" if tc_fwd else "mlt_lstm_fwd", "mlt_lstm_bwd",
+        "mlt_lstm_fwd_chunked", "mlt_lstm_bwd_chunked", "mlt_gru_fwd",
+        "mlt_gru_bwd", "mlt_gru_fwd_chunked", "mlt_gru_bwd_chunked"]
     for name, args in lib.calls:
+        if name == "mlt_lstm_fwd_tc":       # (hidden, f_in, ...)
+            assert args[:2] == (H, 0), name
+            continue
         # (dtype, hidden, ...) or, chunked, (tensor_core, dtype, hidden).
         head = args[1:3] if name.endswith("_chunked") else args[:2]
         assert head == (code, H), name
         if name.endswith("_chunked"):
-            assert args[0] == 0, name
+            on_tc = tc_fwd and name == "mlt_lstm_fwd_chunked"
+            assert args[0] == int(on_tc), name
+    tc_names = (("lstm_sequence_fwd", "lstm_sequence_fwd_chunked")
+                if tc_fwd else ())
     assert {n: (k.launches, k.tc_launches) for n, k in kernels.items()} == \
-        {n: (1, 0) for n in names}
+        {n: (1, int(n in tc_names)) for n in names}
 
 
 # -- An H = 96 GRU and an H = 384 LSTM against JAX ------------------------------

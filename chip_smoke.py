@@ -907,14 +907,15 @@ def _tc_fwd_guard_check(name, run, outs):
                              f"differ")
 
 
-def _float16_record(name, fwd, bwd, T, N, H, errs, calls, bounds):
-    """The float16 instances of a recurrence's kernels (CUDA cores) at a
-    main-path shape, checked against the plain version by the caller
-    (``errs``: the forward's and, at T > 1, the backward's max_abs_err):
-    their times, the plain versions' and the bounds at 2 bytes an element
-    go to ``fwd["float16"]`` (``step_*`` at T = 1) and, at T > 1,
-    ``bwd["float16"]``. ``calls``: the forward, its plain version, the
-    backward and its plain version."""
+def _float16_record(name, fwd, bwd, T, N, H, errs, calls, bounds,
+                    paths=("cuda_core", "cuda_core")):
+    """The float16 instances of a recurrence's kernels at a main-path
+    shape, on the routes ``paths`` (the forward's, the backward's), checked
+    against the plain version by the caller (``errs``: the forward's and,
+    at T > 1, the backward's max_abs_err): their times, the plain versions'
+    and the bounds at 2 bytes an element go to ``fwd["float16"]``
+    (``step_*`` at T = 1) and, at T > 1, ``bwd["float16"]``. ``calls``: the
+    forward, its plain version, the backward and its plain version."""
     fwd_fn, fwd_plain, bwd_fn, bwd_plain = calls
     fwd_bound, bwd_bound = bounds(T, N, H, 2, tensor="f16_tensor")
     rec = fwd.setdefault("float16", {"max_abs_err": 0.0})
@@ -923,23 +924,26 @@ def _float16_record(name, fwd, bwd, T, N, H, errs, calls, bounds):
     ms, plain = time_ms(fwd_fn), time_ms(fwd_plain)
     rec.update({key + "ms": ms, key + "plain_ms": plain,
                 key + "bound_ms": fwd_bound["bound_ms"],
-                key + "bound_by": fwd_bound["bound_by"]})
-    msg = (f"  {name} [{T},{N}] float16 (cuda_core): fwd kernel {ms:.3f} "
+                key + "bound_by": fwd_bound["bound_by"], "path": paths[0]})
+    msg = (f"  {name} [{T},{N}] float16: fwd kernel ({paths[0]}) {ms:.3f} "
            f"ms, plain {plain:.3f} ms, bound {fwd_bound['bound_ms']:.4f} ms "
            f"({fwd_bound['bound_by']})")
     if T > 1:
-        b = bwd["float16"] = dict(max_abs_err=errs[1], ms=time_ms(bwd_fn),
-                                  plain_ms=time_ms(bwd_plain), **bwd_bound)
-        msg += (f"; bwd kernel {b['ms']:.3f} ms, plain {b['plain_ms']:.3f} "
-                f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        b = bwd.setdefault("float16", {})
+        b.update(max_abs_err=errs[1], ms=time_ms(bwd_fn),
+                 plain_ms=time_ms(bwd_plain), path=paths[1], **bwd_bound)
+        msg += (f"; bwd kernel ({paths[1]}) {b['ms']:.3f} ms, plain "
+                f"{b['plain_ms']:.3f} ms, bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_by']})")
     log(msg)
 
 
 def check_lstm(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
-        LSTM_BWD, LSTM_FWD, _fwd_tc, fwd_tc_rows, lstm_sequence_bwd,
-        lstm_sequence_fwd, lstm_sequence_reference, uses_tensor_cores)
+        LSTM_BWD, LSTM_FWD, _fwd_tc, bwd_uses_tensor_cores, fwd_tc_rows,
+        fwd_uses_tensor_cores, lstm_sequence_bwd, lstm_sequence_fwd,
+        lstm_sequence_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     fwd = results["lstm_sequence_fwd"] = {"max_abs_err": 0.0}
@@ -951,8 +955,9 @@ def check_lstm(results):
     # 4100 rows), a train policy's 2560 agents at the bootstrap value, and
     # its update minibatch of 1280 sequences; then flagship_large's
     # minibatch, a ragged batch at both widths (the bf16 kernels on tensor
-    # cores), the float16 instances (CUDA cores) at headline_fp16's update
-    # minibatch and rollout step ("fp16"), and float32 at both
+    # cores), the float16 instances (the forward on CUDA cores, the
+    # backward on tensor cores) at headline_fp16's update minibatch and
+    # rollout step ("fp16") and ragged at 128, and float32 at both
     # instantiated widths (CUDA cores).
     cases = [
         (16, 8192, 256, torch.bfloat16, "timed"),
@@ -977,7 +982,7 @@ def check_lstm(results):
         tag = f"[{T},{N},{4 * H}] {dname}"
         probe = torch.randn(T, N, H, device="cuda", generator=gen).to(dtype)
 
-        (ys, cs), fpath = _routed(LSTM_FWD, uses_tensor_cores(dtype, H),
+        (ys, cs), fpath = _routed(LSTM_FWD, fwd_uses_tensor_cores(dtype, H),
                                   lstm_sequence_fwd, *args)
         err = fwd_err = compare(f"lstm fwd {tag} ({fpath})", ys,
                                 lstm_sequence_reference(*args),
@@ -1004,7 +1009,7 @@ def check_lstm(results):
             return torch.autograd.grad(
                 (out.float() * probe.float()).sum(), diff)
 
-        got, path = _routed(LSTM_BWD, uses_tensor_cores(dtype, H),
+        got, path = _routed(LSTM_BWD, bwd_uses_tensor_cores(dtype, H),
                             lstm_sequence_bwd, *args, ys, cs, probe)
         bwd_err = 0.0
         for name, g, w in zip(("dxp", "dwr", "db", "dc0", "dh0"), got,
@@ -1014,13 +1019,28 @@ def check_lstm(results):
             bwd_err = max(bwd_err, err)
             if main_path and T > 1:
                 bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
+        if role == "fp16" and T > 1:
+            # The float16 backward's main route: tensor cores,
+            # deterministic and batch invariant as the bf16 one.
+            if path != "tensor_core":
+                raise AssertionError(f"lstm bwd {tag}: the main path took "
+                                     f"the {path} route")
+            _tc_bwd_checks("lstm bwd " + tag, lstm_sequence_bwd, args,
+                           (ys, cs), probe, got,
+                           row_args={0: 1, 1: 1, 4: 0, 5: 0},
+                           row_outs={0: 1, 3: 0, 4: 0}, weight_outs=(1, 2))
+            x_proj, keep, wr, bias, c0, h0 = args
+            split = {}
+            _tc_bwd_timing("lstm bwd " + tag, split, x_proj, keep, None, wr,
+                           bias, c0, h0, ys, cs, probe)
+            bwd.setdefault("float16", {}).update(split)
         if role == "fp16":
             _float16_record(
                 "lstm", fwd, bwd, T, N, H, (fwd_err, bwd_err),
                 (lambda: lstm_sequence_fwd(*args),
                  lambda: lstm_sequence_reference(*args),
                  lambda: lstm_sequence_bwd(*args, ys, cs, probe), plain_bwd),
-                _lstm_bounds)
+                _lstm_bounds, paths=(fpath, path))
 
         if main_path and T > 1 and path != "tensor_core":
             raise AssertionError(f"lstm bwd {tag}: the main path took the "
@@ -2350,13 +2370,14 @@ def _chunked_lstm_bwd_bound(T, B, C, H, policies_used, itemsize):
 
 
 def check_lstm_bwd_chunked(results, H):
-    """lstm_sequence_bwd_chunked at width H (256, and the CUDA-core
+    """lstm_sequence_bwd_chunked at width H (256, and the two-block-cluster
     instances at 384 and 512, under the record's ``wide``) at
     headline_pbt's learn step (8 train policies, one chunk of a
-    minibatch's 1280 sequences each, T = 16, bf16 on tensor cores where
-    ``uses_tensor_cores`` says) and at chunks of 37 rows (no multiple of a
-    tile) in a shuffled order with a policy owning two chunks and one
-    owning none, in bf16 and f32 (CUDA cores): the forward's T = 1 steps
+    minibatch's 1280 sequences each, T = 16, bf16 on tensor cores at every
+    width, as ``bwd_uses_tensor_cores`` says) and at chunks of 37 rows (no
+    multiple of a tile) in a shuffled order with a policy owning two chunks
+    and one owning none, in bf16 and f32 (CUDA cores): the forward's T = 1
+    steps
     bitwise steps of its sequence; against its plain twin's autograd;
     every chunk's dx_proj / dh0 / dc0 bitwise ``lstm_sequence_bwd``'s on
     that chunk's rows with its policy's weights, and each policy's dwr /
@@ -2365,15 +2386,16 @@ def check_lstm_bwd_chunked(results, H):
     bitwise over two calls and, for a policy of one chunk, bitwise the call
     over that chunk alone; a chunk of index P or -1 NaN and adding to no
     policy; the time against the per-policy loop's lstm_sequence_bwd
-    launches over the same rows, and its bound. Its float16 instance (CUDA
-    cores) at the learn step the same way, its times and bound into
-    ``float16``. At 384 and 512 also ``lstm_sequence_bwd`` on one chunk's
-    rows against its twin's autograd, timed."""
+    launches over the same rows, and its bound. Its float16 instance (on
+    tensor cores at 256, CUDA cores at 384 and 512) at the learn step the
+    same way, with the NaN chunks, its times and bound into ``float16``. At
+    384 and 512 also ``lstm_sequence_bwd`` on one chunk's rows against its
+    twin's autograd, timed."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
-        LSTM_BWD_CHUNKED, lstm_sequence_bwd, lstm_sequence_bwd_chunked,
-        lstm_sequence_chunked_reference, lstm_sequence_fwd_chunked,
-        lstm_sequence_reference, uses_tensor_cores)
+        LSTM_BWD, LSTM_BWD_CHUNKED, bwd_uses_tensor_cores, lstm_sequence_bwd,
+        lstm_sequence_bwd_chunked, lstm_sequence_chunked_reference,
+        lstm_sequence_fwd_chunked, lstm_sequence_reference)
 
     T, P = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, PBT_TRAIN
     wide = H != CHANNELS
@@ -2384,7 +2406,6 @@ def check_lstm_bwd_chunked(results, H):
     res = results.setdefault("lstm_sequence_bwd_chunked",
                              {"max_abs_err": 0.0})
     bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
-    main_route = "tensor_core" if uses_tensor_cores(bf16, H) else "cuda_core"
     shuffled = [2, 0, 3, 2, 1, 0]      # policy 4 of 5 owns no chunk
     # main_path: True for the bf16 learn step, "float16" for its float16
     # instance (timed into res["float16"]), False for the ragged checks.
@@ -2406,10 +2427,14 @@ def check_lstm_bwd_chunked(results, H):
                      (c0, h0), (ys, cs), (cs, ys))
         probe = torch.randn(T_c, B * C, H, device="cuda",
                             generator=gen).to(dtype)
-        got, path = _routed(LSTM_BWD_CHUNKED, uses_tensor_cores(dtype, H),
+        got, path = _routed(LSTM_BWD_CHUNKED, bwd_uses_tensor_cores(dtype, H),
                             lstm_sequence_bwd_chunked, *args, ys, cs, probe)
         tag += f" ({path})"
-        if main_path is True and path != main_route:
+        # The main paths' routes: bf16 on tensor cores at every width,
+        # float16 there at 128 and 256.
+        main_route = ("tensor_core" if dtype == bf16 or H in (128, 256)
+                      else "cuda_core")
+        if main_path and path != main_route:
             raise AssertionError(f"lstm_sequence_bwd_chunked {tag}: the "
                                  f"main path took the {path} route")
         leaves = [a.detach().clone().requires_grad_(i in (0, 2, 3, 5, 6))
@@ -2552,9 +2577,16 @@ def check_lstm_bwd_chunked(results, H):
             return torch.autograd.grad(
                 (out.float() * a1[8].float()).sum(), one_leaves)
 
+        single = ("tensor_core" if bwd_uses_tensor_cores(dtype, H)
+                  else "cuda_core")
+        before = LSTM_BWD.tc_launches
         _wide_single(results, "lstm_sequence_bwd", H, dname, "learn",
                      lambda: lstm_sequence_bwd(*a1), plain_one, tol,
-                     _lstm_bounds(T_c, C, H, x.element_size())[1])
+                     _lstm_bounds(T_c, C, H, x.element_size())[1],
+                     path=single)
+        if (LSTM_BWD.tc_launches > before) != (single == "tensor_core"):
+            raise AssertionError(f"lstm_sequence_bwd H={H} {dname}: did not "
+                                 f"take the {single} route")
 
 
 def _chunked_gru_inputs(gen, T, B, C, H, P, dtype):
@@ -4750,31 +4782,34 @@ TC_ROUTED = ("lstm_sequence_fwd", "lstm_sequence_bwd",
 def _tc_kernels(dtype, hidden):
     """The kernels of TC_ROUTED whose launches take the tensor-core route
     in a model of this dtype and recurrent width: in bfloat16 every one at
-    H = 128 and 256, and at 384 and 512 the two LSTM forwards alone (their
-    two-block cluster; the backwards and the GRU stay on CUDA cores); none
-    in float16."""
+    H = 128 and 256, and at 384 and 512 the four LSTM sequence kernels
+    alone (their two-block cluster; the GRU stays on CUDA cores); in
+    float16 the two LSTM backwards at 128 and 256 alone."""
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
-        fwd_uses_tensor_cores, uses_tensor_cores)
+        bwd_uses_tensor_cores, fwd_uses_tensor_cores, uses_tensor_cores)
 
-    forwards = ("lstm_sequence_fwd", "lstm_sequence_fwd_chunked")
+    rules = {"lstm_sequence_fwd": fwd_uses_tensor_cores,
+             "lstm_sequence_fwd_chunked": fwd_uses_tensor_cores,
+             "lstm_sequence_bwd": bwd_uses_tensor_cores,
+             "lstm_sequence_bwd_chunked": bwd_uses_tensor_cores}
     return {name for name in TC_ROUTED
-            if (fwd_uses_tensor_cores if name in forwards
-                else uses_tensor_cores)(dtype, hidden)}
+            if rules.get(name, uses_tensor_cores)(dtype, hidden)}
 
 
 def trainer_phase(card, name, build, per_update, trials, timed_updates,
                   last_rewards, num_worlds=NUM_WORLDS, ratio_zero=False,
                   final_check=None, setting=None, rising_reward=True,
-                  tensor_cores=True):
+                  tensor_cores=TC_ROUTED):
     """One trainer: launch counts, finite metrics, rising reward (only
     logged without ``rising_reward``), env-steps/s, memory, the ratio at
     the first minibatch (exactly 0 with ``ratio_zero``), the minibatches
     of every update, the phase split and a profile; then
     ``final_check(mgr, updates run, per-update stats)``, if given.
     ``setting`` describes the run in its first line (default: the
-    headline's bf16 and 4 minibatches). Every launch of a kernel with a
-    tensor-core route takes it, or, without ``tensor_cores`` (float16),
-    none does."""
+    headline's bf16 and 4 minibatches). Every launch of a kernel that
+    ``tensor_cores`` names takes the tensor-core route (by default every
+    kernel with one; ``_tc_kernels`` of a float16 model), and no launch of
+    the others does."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda import KERNELS
 
@@ -4856,10 +4891,11 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
         f"{ {k: v * num_updates for k, v in per_update.items()} })")
     # The trainers run bf16 at H = 256: every launch of a kernel with a
     # counted tensor-core route (the four LSTM kernels, the two GRU
-    # kernels, mha, the fused step) takes it. In float16 the recurrences
-    # take their CUDA-core instances.
+    # kernels, mha, the fused step) takes it. In float16 the LSTM
+    # backwards take theirs, the other recurrences their CUDA-core
+    # instances.
     for kernel, tc in tc_launches.items():
-        if tc != (launches[kernel] if tensor_cores else 0):
+        if tc != (launches[kernel] if kernel in tensor_cores else 0):
             raise AssertionError(
                 f"{name}: {kernel}: {tc} of {launches[kernel]} launches on "
                 f"the tensor-core route")
@@ -5644,7 +5680,8 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
     the learn A/B (``_pbt_collect_ab``, ``_pbt_learn_ab``). Each kernel
     with a tensor-core route takes it on every launch or on none, as
     ``_tc_kernels`` says for the model's dtype and width: a float16 model
-    none; at 384 and 512 (``channels``) the LSTM forward alone. With
+    the LSTM backward alone; at 384 and 512 (``channels``) the
+    LSTM forward and backward. With
     ``gmm_tc``, ``grouped_matmul``'s tensor-core launches an update must be
     exactly that many (the products with IN and OUT multiples of 8). A
     float16 model's policies' loss scales and non-finite steps are printed
@@ -6846,7 +6883,55 @@ def digest_phase():
         "mha": digest([mha_fwd(*qkv, 12)]),
         **_cuda_core_digests(digest),
         **_chunked_digests(digest),
+        **_bwd_route_digests(digest),
     }}))
+
+
+def _bwd_route_inputs(gen, dtype, H, T=16, N=None, chunks=None):
+    """The LSTM backward's operands at width H: lstm_sequence_bwd's
+    (x_proj, keep, wr, bias, c0, h0, ys, cs, dys) over N rows, or, with
+    ``chunks``, lstm_sequence_bwd_chunked's over that many chunks of
+    PBT_MINIBATCH rows, one a policy. ys / cs / dys are drawn, not taken
+    from a forward."""
+    import torch
+
+    if chunks is None:
+        args = list(_lstm_inputs(gen, T, N, H, dtype))
+        n = N
+    else:
+        args = list(_chunked_lstm_inputs(gen, T, chunks, PBT_MINIBATCH, H,
+                                         chunks, dtype))
+        args[4] = torch.arange(chunks, dtype=torch.int32, device="cuda")
+        n = chunks * PBT_MINIBATCH
+    return args + [torch.randn(T, n, H, device="cuda",
+                               generator=gen).to(dtype) for _ in range(3)]
+
+
+def _bwd_route_digests(digest):
+    """The LSTM backward's digests at its tensor-core instances beyond
+    bf16 at 256, from a generator of their own: bf16 at H = 128, bf16 at
+    384 and 512 (the two-block cluster) and float16 at 128 and 256 (f16
+    wgmma), single-policy and chunk-indexed at headline_pbt's learn
+    step."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.lstm import (
+        lstm_sequence_bwd, lstm_sequence_bwd_chunked)
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    bf16, f16 = torch.bfloat16, torch.float16
+    out = {}
+    for dtype, H, N in ((bf16, 128, 2048), (bf16, 384, PBT_MINIBATCH),
+                        (bf16, 512, PBT_MINIBATCH), (f16, 128, 2048),
+                        (f16, 256, 8192)):
+        dname = str(dtype).split(".")[-1]
+        out[f"lstm_sequence_bwd {dname} H={H}"] = digest(lstm_sequence_bwd(
+            *_bwd_route_inputs(gen, dtype, H, N=N)))
+    for dtype, H in ((bf16, 384), (bf16, 512), (f16, 256)):
+        dname = str(dtype).split(".")[-1]
+        out[f"lstm_sequence_bwd_chunked {dname} H={H}"] = digest(
+            lstm_sequence_bwd_chunked(*_bwd_route_inputs(
+                gen, dtype, H, chunks=PBT_TRAIN)))
+    return out
 
 
 def _chunked_digests(digest):
@@ -6970,11 +7055,12 @@ def timing_phase():
     (`call_timings`), and PyTorch's native_layer_norm and
     native_layer_norm_backward on the same inputs; then (`_route_timings`)
     the float16 grouped_matmul at headline_pbt_fp16's pass shapes beside
-    ``torch.bmm(x, W[idx])``, and the bf16 lstm_sequence_fwd_chunked at H =
+    ``torch.bmm(x, W[idx])``, the bf16 lstm_sequence_fwd_chunked at H =
     384 and 512 at infer_512's step, headline_pbt's collect step and its
-    learn step, with their bounds; as one JSON line. It calls the
-    wrappers' public signatures only, so a copy of this script run in
-    another checkout times that checkout's kernels."""
+    learn step, and the LSTM backward's bf16 384 / 512 and float16
+    instances at their learn shapes, with their bounds; as one JSON line.
+    It calls the wrappers' public signatures only, so a copy of this
+    script run in another checkout times that checkout's kernels."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gae import gae
     from madrona_learn_tpu_torch.ops.cuda.layer_norm import (
@@ -7008,12 +7094,17 @@ def _route_timings():
     ``torch.bmm(x, W[idx])``, and lstm_sequence_fwd_chunked in bf16 at H =
     512 and 384 at infer_512's step (512 only: 95 chunks of 256, 32
     policies), headline_pbt's collect step (T = 1, 75 x 512, 12 policies)
-    and its learn step (T = 16, 8 x 1280, 8 policies)."""
+    and its learn step (T = 16, 8 x 1280, 8 policies); and the LSTM
+    backward's tensor-core instances: lstm_sequence_bwd_chunked bf16 at
+    H = 512 and 384 and float16 at 256 at headline_pbt's learn step,
+    lstm_sequence_bwd bf16 at 512 on one policy's [16, 1280] and float16
+    at 256 at headline_fp16's minibatch [16, 8192]."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.grouped_matmul import \
         grouped_matmul
-    from madrona_learn_tpu_torch.ops.cuda.lstm import \
-        lstm_sequence_fwd_chunked
+    from madrona_learn_tpu_torch.ops.cuda.lstm import (
+        lstm_sequence_bwd, lstm_sequence_bwd_chunked,
+        lstm_sequence_fwd_chunked)
 
     gen = torch.Generator(device="cuda").manual_seed(26)
     P, C, B = _pbt_chunk_geometry()
@@ -7043,6 +7134,24 @@ def _route_timings():
                 f"[{T}, {chunks} x {chunk}] P={P_c}"] = dict(
                     ms=time_ms(lambda: lstm_sequence_fwd_chunked(*args)),
                     bound_ms=b["bound_ms"])
+    bf16, f16 = torch.bfloat16, torch.float16
+    for dtype, H in ((bf16, INFER_CHANNELS), (bf16, 384), (f16, CHANNELS)):
+        args = _bwd_route_inputs(gen, dtype, H, T=learn_T, chunks=PBT_TRAIN)
+        b = _chunked_lstm_bwd_bound(learn_T, PBT_TRAIN, PBT_MINIBATCH, H,
+                                    PBT_TRAIN, 2)
+        out[f"lstm_sequence_bwd_chunked {str(dtype).split('.')[-1]} H={H} "
+            f"learn [{learn_T}, {PBT_TRAIN} x {PBT_MINIBATCH}] "
+            f"P={PBT_TRAIN}"] = dict(
+                ms=time_ms(lambda: lstm_sequence_bwd_chunked(*args)),
+                bound_ms=b["bound_ms"])
+    for dtype, H, N in ((bf16, INFER_CHANNELS, PBT_MINIBATCH),
+                        (f16, CHANNELS, 8192)):
+        args = _bwd_route_inputs(gen, dtype, H, T=learn_T, N=N)
+        b = _lstm_bounds(learn_T, N, H, 2)[1]
+        out[f"lstm_sequence_bwd {str(dtype).split('.')[-1]} H={H} "
+            f"[{learn_T}, {N}]"] = dict(
+                ms=time_ms(lambda: lstm_sequence_bwd(*args)),
+                bound_ms=b["bound_ms"])
     return out
 
 
@@ -7216,7 +7325,8 @@ def main():
               "grouped_matmul": 8 * STEPS_PER_UPDATE + 4}, 1, False),
             # The headline's model in float16 (headline_fp16's) and the GRU
             # in float16: headline_pbt's and headline_pbt_gru's launches, the
-            # recurrences on their CUDA-core float16 instances and
+            # recurrences on their float16 instances (the LSTM backward on
+            # tensor cores, the rest on CUDA cores) and
             # grouped_matmul on tensor cores at its aligned products (gmm_tc),
             # loss scaling a policy.
             ("headline_pbt_fp16", dict(dtype=torch.float16), pbt_lstm, 1,
@@ -7248,8 +7358,8 @@ def main():
     elapsed("infer_512")
     for name, model, per_update, timed, collect_ab, check in (
             # infer_bench.py's width: headline_pbt's launches, the LSTM
-            # forward on its 512-wide tensor-core instance (a two-block
-            # cluster), the backward on its CUDA-core one.
+            # forward and backward on their 512-wide
+            # tensor-core instances (two-block clusters).
             ("headline_pbt_512", dict(channels=INFER_CHANNELS), pbt_lstm, 2,
              False, None),
             # A width no recurrent kernel is built for: the LSTM on its
@@ -7287,17 +7397,20 @@ def main():
             setting=f"bf16, an MLP + LSTM tower for the actor and one for "
                     f"the critic, {NUM_MINIBATCHES} minibatches"),
         # Float16 recurrences: the headline's launches on the kernels'
-        # CUDA-core float16 instances.
+        # float16 instances, the LSTM backward's on tensor cores,
+        # the forwards' and the GRU's on CUDA cores.
         "headline_fp16": trainer_phase(
             card, "headline_fp16", build_headline_fp16, lstm, trials=2,
             timed_updates=5, last_rewards=5, ratio_zero=True,
-            final_check=check_scaler, tensor_cores=False,
+            final_check=check_scaler,
+            tensor_cores=_tc_kernels(torch.float16, CHANNELS),
             setting=f"float16 MLP + LSTM with loss scaling, "
                     f"{NUM_MINIBATCHES} minibatches"),
         "headline_gru_fp16": trainer_phase(
             card, "headline_gru_fp16", build_headline_gru_fp16, gru,
             trials=2, timed_updates=3, last_rewards=3,
-            final_check=check_scaler, tensor_cores=False,
+            final_check=check_scaler,
+            tensor_cores=_tc_kernels(torch.float16, CHANNELS),
             setting=f"float16 MLP + GRU with loss scaling, "
                     f"{NUM_MINIBATCHES} minibatches"),
         # The windowed attention memory runs no recurrent kernel.

@@ -16,9 +16,9 @@
 // in no order, so neither the resident weight nor a sum carried across grid
 // steps exists.
 //
-// In float32 and float16, and the bfloat16 backwards at H = 384 and 512
-// (layout and product in common.cuh), forwards and backwards (the
-// projection variant in float32 only):
+// In float32, and float16 but for its backward at H = 128 and 256 (layout
+// and product in common.cuh), forwards and backwards (the projection
+// variant in float32 only):
 // - One block owns kRows batch rows and all H units of those rows, and
 //   loops over time inside the kernel (the TPU's sequential grid axis
 //   becomes the in-block loop). Each thread computes all four gates of its
@@ -59,12 +59,19 @@
 // weight_grad_tc.cuh). The TPU kernel's products are bf16 operands with f32
 // accumulation, which is what wgmma computes, with only the order of the
 // sums changed. The wrappers' rules (ops/cuda/lstm.py: fwd_uses_tensor_cores,
-// uses_tensor_cores) send the bf16 forwards at every width and the bf16
-// backwards at H = 128 or 256 here (an operand off a 16-byte boundary is
-// copied onto one first), float32 and float16, and the bf16 backwards at
-// H = 384 and 512, to the kernels above. At 384 and 512 the forward's
-// units are split over a cluster of two blocks ("Wider layers", at the
-// dispatch).
+// bwd_uses_tensor_cores, uses_tensor_cores for the projection) send the
+// bf16 sequence kernels at every width and the bf16 projection kernels at
+// H = 128 or 256 here (an operand off a 16-byte boundary is copied onto one
+// first), and float32 to the kernels above. At 384 and 512 the units are
+// split over a cluster of two blocks ("Wider layers", at the dispatch).
+// The float16 backward (lstm_sequence_bwd and its chunk-indexed instance,
+// the port's own: JAX sends float16 to its jnp twin) takes the same
+// kernels at H = 128 and 256 with f16 operands (wgmma .f16, f32 sums;
+// dgates, dx_proj, dh0, dc0, dWr and db rounded once to f16, where the
+// CUDA-core kernel and the plain twin round them). The float16 forwards
+// stay on CUDA cores, so the float16 backward recomputes the
+// pre-activations in another order than the forward that wrote ys / cs,
+// and is held to its plain twin (2^-8 of the largest value).
 // - Row ownership as above, with R rows a block (kFwdTcRows for the
 //   forwards, kTcRows for the backwards: the fastest on the H100, PERF.md):
 //   warpgroup w owns units 64 w .. 64 w + 63 of all four gates, so the gate
@@ -76,15 +83,16 @@
 //   (rounded once), each warpgroup's result in the layout of its carries.
 //   One helper (preactivations, gate_pre) computes the pre-activations for
 //   the forward and for the backward's recompute, so both compute them
-//   alike (at H = 128 and 256; the wider backwards recompute them on CUDA
+//   alike, at every width (in bf16: the float16 forward runs on CUDA
 //   cores).
 // - A: 64-deep slices of the weights (128-byte swizzle) through a ring of
 //   stages (32 KB at H = 256) filled by TMA (slice_ring.cuh, shared with
 //   gru.cu and policy_step.cu): a forward step takes Wi then Wr as
 //   MN-major boxes of the weights as they stand ([64 k][64 units], as
 //   policy_step.cu reads its weights), so a rollout step copies no weight;
-//   a backward step takes K-major slices ([H rows][64]) of Wi^T, Wr^T, Wr
-//   and Wi, against transposed copies made once a call. The sequence is
+//   a backward step takes K-major slices ([U rows][64], U the block's
+//   units) of Wi^T, Wr^T, Wr and Wi, against transposed copies made once a
+//   call. The sequence is
 //   the same every step, so the ring prefetches across steps and phases.
 //   Wr is 512 KiB in bf16 at H = 256, more than a block's
 //   shared memory, so it streams from L2 every step; a block reuses each
@@ -137,8 +145,8 @@
 // policy's rows t * N + n are not contiguous, so the weight-gradient pass
 // splits each chunk's own T * chunk rows: the tensor-core pass reads them
 // through maps of [T * chunks] slices of [chunk][K] (weight_grad_tc.cuh),
-// the CUDA-core pass (float32 and float16; bfloat16 at H = 384 and 512) by
-// index (weight_grad.cuh),
+// the CUDA-core pass (float32; float16 at H = 384 and 512) by index
+// (weight_grad.cuh),
 // each chunk's splits by the
 // single-policy rule over its rows, and sum_by_policy adds a policy's
 // chunks' partials (db: its chunks' block partials) in chunk order. So a
@@ -939,7 +947,7 @@ int launch_proj_bwd(const void* x, const void* keep, const void* wi,
   return sum_splits<T>(part_wi, dwi, splits, f_in * 4 * H, stream);
 }
 
-// ------------------------------------ bf16 backward on tensor cores
+// ------------------------------------ bf16 and f16 backward on tensor cores
 
 using bf16 = __nv_bfloat16;
 
@@ -949,20 +957,36 @@ using bf16 = __nv_bfloat16;
 template <bool kProj>
 constexpr int kTcRows = kProj ? 32 : 16;
 
+// Blocks of a cluster that split the units of the tensor-core recurrences
+// (kSplit), forward and backward: one at H = 128 and 256; two at H = 384
+// and 512 ("Wider layers", at the dispatch), each owning H / 2 units of the
+// same rows.
+template <int H>
+constexpr int kTcSplit = H > 256 ? 2 : 1;
+
+// The bits of an element of E (__nv_bfloat16 or __half), for a store into
+// another block's shared memory.
+template <typename E>
+__device__ __forceinline__ uint16_t elem_bits(E v) {
+  return *reinterpret_cast<const uint16_t*>(&v);
+}
+
 // Shared memory of lstm_bwd_tc_kernel, from a 1024-byte aligned base: the
-// ring of weight slices ([H rows][64] bf16 each), the block's h_in tile
-// and its dgates tile (K-major wgmma B operands: [K / 64] subtiles of
-// [R][64], 128-byte swizzle), then its cs, dys and c_in tiles ([R][H]).
-template <int H, int R>
+// ring of weight slices ([U rows][64] each, U = H / kSplit the block's
+// units), the block's h_in tile and its dgates tile (K-major wgmma B
+// operands over all H units and 4H gates: [K / 64] subtiles of [R][64],
+// 128-byte swizzle), then its cs, dys and c_in tiles ([R][U], its units).
+template <int H, int R, int kSplit = 1>
 struct TcBwd {
-  static constexpr int kWarpgroups = H / 64;   // 64 units each
+  static constexpr int kUnits = H / kSplit;
+  static constexpr int kWarpgroups = kUnits / 64;   // 64 units each
   static constexpr int kThreads = 128 * kWarpgroups;
   static constexpr int kWarps = 4 * kWarpgroups;
   static constexpr int kSub = R * 128;          // one [R][64] subtile
-  static constexpr int kStageBytes = H * 128;
+  static constexpr int kStageBytes = kUnits * 128;
   static constexpr int kHinBytes = R * H * 2;
   static constexpr int kDgBytes = R * 4 * H * 2;
-  static constexpr int kTileBytes = R * H * 2;
+  static constexpr int kTileBytes = R * kUnits * 2;
   static constexpr int kFixed = kHinBytes + kDgBytes + 3 * kTileBytes;
   static constexpr int kStages =
       min_c(4, (kSmemLimit - 2048 - kFixed) / kStageBytes);
@@ -975,12 +999,15 @@ struct TcBwd {
 // backward's recompute so that both compute them alike: acc[g] =
 // round(x . Wi)^T (the hoisted Dense's rounding point) with the
 // projection, then (+)= (h . Wr)^T. The ring's next slices are Wi by
-// (F-chunk, gate), then Wr by (H-chunk, gate), as K-major slices of the
+// (F-chunk, gate), then Wr by (H-chunk, gate), each the block's units of
+// its gate (all H, or H / 2 in a cluster of two), as K-major slices of the
 // transposed weight (kTransA 0, the backward) or MN-major boxes of the
 // weight as it stands (kTransA 1, the forward; ring_product); x_s is the
-// K-major x tile (read with the projection only), h_s the K-major h tile,
-// a_off this warpgroup's rows of a stage.
-template <int H, int R, bool kProj, int kTransA, int S, class Issue>
+// K-major x tile (read with the projection only), h_s the K-major h tile
+// over all H units, a_off this warpgroup's rows of a stage. E: the
+// operands' type (bf16; f16 in the float16 backward).
+template <int H, int R, bool kProj, int kTransA, typename E, int S,
+          class Issue>
 __device__ __forceinline__ void preactivations(SliceRing<S>& slices,
                                                Issue& issue,
                                                float (&acc)[4][R / 2],
@@ -991,22 +1018,22 @@ __device__ __forceinline__ void preactivations(SliceRing<S>& slices,
     for (int kc = 0; kc < f_in / kTcK; ++kc)
 #pragma unroll
       for (int g = 0; g < 4; ++g)
-        ring_product<R, kTransA>(slices, issue, acc[g], a_off, x_s + kc * kSub,
-                           kc == 0);
+        ring_product<R, kTransA, E>(slices, issue, acc[g], a_off,
+                                    x_s + kc * kSub, kc == 0);
     wgmma_wait<0>();
 #pragma unroll
     for (int g = 0; g < 4; ++g)
 #pragma unroll
       for (int i = 0; i < R / 2; ++i) {
         wgmma_fence_operand(acc[g][i]);
-        acc[g][i] = round_to<__nv_bfloat16>(acc[g][i]);
+        acc[g][i] = round_to<E>(acc[g][i]);
       }
   }
   for (int kc = 0; kc < H / kTcK; ++kc)
 #pragma unroll
     for (int g = 0; g < 4; ++g)
-      ring_product<R, kTransA>(slices, issue, acc[g], a_off, h_s + kc * kSub,
-                         !kProj && kc == 0);
+      ring_product<R, kTransA, E>(slices, issue, acc[g], a_off,
+                                  h_s + kc * kSub, !kProj && kc == 0);
   wgmma_wait<0>();
 #pragma unroll
   for (int g = 0; g < 4; ++g)
@@ -1015,40 +1042,61 @@ __device__ __forceinline__ void preactivations(SliceRing<S>& slices,
 }
 
 // One gate's pre-activation from its product acc: x_proj + h . Wr + b in
-// that order (x_proj the bf16 at x), or, with the projection, round(x . Wi)
+// that order (x_proj the E at x), or, with the projection, round(x . Wi)
 // + h . Wr (both in acc) + b.
-template <bool kProj>
+template <bool kProj, typename E>
 __device__ __forceinline__ float gate_pre(const uint8_t* x, float acc,
                                           float b) {
-  return kProj ? acc + b : ld_bf16(x) + acc + b;
+  return kProj ? acc + b : ld_elem<E>(x) + acc + b;
 }
 
-// The reverse-time recurrence of the bf16 backward (see the header). One
-// block owns R batch rows; warpgroup w owns units 64 w .. 64 w + 63 of all
-// four gates. Thread (warp v of its warpgroup, lane l) holds units
-// 64 w + 16 v + l / 4 (+ 8) and rows 8 j + 2 (l % 4) (+ 1) of each
-// m64nR accumulator: element 4 j + 2 s + e is unit + 8 s, row 8 j +
-// 2 (l % 4) + e. Outputs: dg (rounded dgates [T, N, 4H]), hin (h_in as the
-// step used it, [T, N, H]), dx (projection), dh0, dc0 and part_b (this
-// block's db partial, [blocks, 4H]).
-template <int H, int R, bool kProj>
-__global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
+// The reverse-time recurrence of the tensor-core backward (see the header),
+// E the storage type: bf16, or f16 (the float16 instance, without the
+// projection). One block owns R batch rows; warpgroup w owns units
+// 64 w .. 64 w + 63 of all four gates. Thread (warp v of its warpgroup,
+// lane l) holds units 64 w + 16 v + l / 4 (+ 8) and rows 8 j + 2 (l % 4)
+// (+ 1) of each m64nR accumulator: element 4 j + 2 s + e is unit + 8 s,
+// row 8 j + 2 (l % 4) + e. Outputs: dg (rounded dgates [T, N, 4H]), hin
+// (h_in as the step used it, [T, N, H]), dx (projection), dh0, dc0 and
+// part_b (this row tile's db partial, [tiles, 4H]).
+//
+// With kSplit = 2 (H = 384, 512; no projection) the two blocks of a
+// cluster own the same R rows and H / 2 units each (rank r: units r H / 2
+// ..), as the forward's do, so a block keeps the H = 192 / 256 instance's
+// warpgroups and registers. Each loads the whole h_in tile (from ys / h0,
+// no exchange), recomputes its units' pre-activations from the Wr^T
+// slices of its units in the forward's slice order, and streams the Wr
+// rows of its units for dh_prev^T = Wr . dgates^T, whose K is all 4H
+// gates: so after the gate math a thread writes its dgates into its own
+// dgates tile and its peer's (distributed shared memory). Two cluster
+// barriers a step keep the tiles right: the first after both blocks'
+// pre-activations, so that no write reaches a dgates tile that the peer's
+// dh_prev product of the step before still reads; the second after the
+// writes (release / acquire, then fence.proxy.async on both sides), so
+// that both blocks' products read both halves. A block never exits while
+// its peer can still write into it: the last write is before the last
+// step's second barrier, and a chunk of no policy is skipped by both blocks
+// of its cluster together (they share its rows, so its policy).
+template <typename E, int H, int R, bool kProj, int kSplit>
+__global__ void __launch_bounds__(TcBwd<H, R, kSplit>::kThreads, 1)
     lstm_bwd_tc_kernel(const __grid_constant__ CUtensorMap wit_map,
                        const __grid_constant__ CUtensorMap wrt_map,
                        const __grid_constant__ CUtensorMap wr_map,
                        const __grid_constant__ CUtensorMap wi_map,
-                       const bf16* __restrict__ x, const bf16* __restrict__ keep,
-                       const bf16* __restrict__ bias,
-                       const bf16* __restrict__ c0, const bf16* __restrict__ h0,
-                       const bf16* __restrict__ ys, const bf16* __restrict__ cs,
-                       const bf16* __restrict__ dys, bf16* __restrict__ dx,
-                       bf16* __restrict__ dg, bf16* __restrict__ hin,
-                       bf16* __restrict__ dh0, bf16* __restrict__ dc0,
-                       float* __restrict__ part_b, int steps, int n_rows,
-                       int f_in, const int* __restrict__ chunk_policy,
-                       int chunk, int num_policies) {
-  using L = TcBwd<H, R>;
+                       const E* __restrict__ x, const E* __restrict__ keep,
+                       const E* __restrict__ bias, const E* __restrict__ c0,
+                       const E* __restrict__ h0, const E* __restrict__ ys,
+                       const E* __restrict__ cs, const E* __restrict__ dys,
+                       E* __restrict__ dx, E* __restrict__ dg,
+                       E* __restrict__ hin, E* __restrict__ dh0,
+                       E* __restrict__ dc0, float* __restrict__ part_b,
+                       int steps, int n_rows, int f_in,
+                       const int* __restrict__ chunk_policy, int chunk,
+                       int num_policies) {
+  static_assert(kSplit == 1 || !kProj, "the projection is not split");
+  using L = TcBwd<H, R, kSplit>;
   constexpr int G4 = 4 * H;
+  constexpr int U = L::kUnits;
   constexpr int S = L::kStages;
   constexpr int kAcc = R / 2;
   extern __shared__ uint8_t smem_raw[];
@@ -1067,14 +1115,19 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
   const uint32_t dys_s = cs_s + L::kTileBytes;
   const uint32_t cin_s = dys_s + L::kTileBytes;
 
-  // The block's rows and policy (fwd_rows, as the chunked forward's); a
-  // chunk of no policy is skipped before any barrier (its dgates NaN, and
-  // with the projection its dx). The maps span the [P, ...] stacks (P = 1
-  // without chunks); the policy is the third coordinate.
-  const FwdRows rows = fwd_rows(chunk_policy, chunk, R, n_rows);
+  // The block's rows and policy (fwd_rows, as the chunked forward's: the
+  // cluster's row tile); a chunk of no policy is skipped before any
+  // barrier, by the whole cluster (its dgates NaN, and with the projection
+  // its dx). The maps span the [P, ...] stacks (P = 1 without chunks); the
+  // policy is the third coordinate.
+  const int rank = kSplit == 1 ? 0 : static_cast<int>(cluster_rank());
+  const int tile = static_cast<int>(blockIdx.x) / kSplit;
+  const FwdRows rows = fwd_rows(chunk_policy, chunk, R, n_rows, tile);
   if (rows.policy < 0 || rows.policy >= num_policies) {
-    fill_nan_bwd_rows(dg, dh0, dc0, steps, n_rows, H, rows, R);
-    if constexpr (kProj) fill_nan(dx, steps, n_rows, f_in, rows, R);
+    if (rank == 0) {
+      fill_nan_bwd_rows(dg, dh0, dc0, steps, n_rows, H, rows, R);
+      if constexpr (kProj) fill_nan(dx, steps, n_rows, f_in, rows, R);
+    }
     return;
   }
   bias += static_cast<size_t>(rows.policy) * G4;
@@ -1084,12 +1137,16 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
   const int tid = threadIdx.x;
   const int wg = tid / 128, lane = tid % 32;
   const int lt = lane % 4;
+  // unit0 counts the block's own units (the ring's rows, the row tiles'
+  // columns); unit_base + unit0 is the unit of the layer.
+  const int unit_base = rank * U;
   const int unit0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
   const int block_row = rows.first;
 
   // The weight slices of one step, in the order the step consumes them:
   // Wi^T by (F-chunk, gate), Wr^T by (H-chunk, gate), Wr by 4H-chunk, Wi by
-  // (band of H rows, 4H-chunk); the same sequence every step.
+  // (band of H rows, 4H-chunk), each the U rows of the block's units; the
+  // same sequence every step.
   const int xp_loads = kProj ? 4 * (f_in / kTcK) : 0;
   const int g_loads = 4 * (H / kTcK);
   const int d_loads = G4 / kTcK;
@@ -1109,12 +1166,13 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
     }
     p -= xp_loads;
     if (p < g_loads) {
-      tma_load_3d(dst, wrt, bar, (p / 4) * kTcK, (p % 4) * H, pol);
+      tma_load_3d(dst, wrt, bar, (p / 4) * kTcK, (p % 4) * H + unit_base,
+                  pol);
       return;
     }
     p -= g_loads;
     if (p < d_loads) {
-      tma_load_3d(dst, wrm, bar, p * kTcK, 0, pol);
+      tma_load_3d(dst, wrm, bar, p * kTcK, unit_base, pol);
       return;
     }
     p -= d_loads;
@@ -1132,27 +1190,27 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
   // zeros.
   const uint32_t a_off = wg * 64 * 128;
   auto consume = [&](float(&acc)[kAcc], uint32_t b, bool fresh) {
-    ring_product<R, 0>(slices, issue, acc, a_off, b, fresh);
+    ring_product<R, 0, E>(slices, issue, acc, a_off, b, fresh);
   };
 
   // Byte offsets of this thread's elements (rows 2 (l % 4) + e, units
   // unit0 + 8 s) in the K-major tiles and in the row tiles: row 8 j + .. is
-  // j * 1024 (j * 16 H) bytes on, gate g of the dgates tile g (H / 64)
+  // j * 1024 (j * 16 U) bytes on, gate g of the dgates tile g (H / 64)
   // subtiles on.
   uint32_t kb[2][2], rb[2][2];
 #pragma unroll
   for (int s = 0; s < 2; ++s)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      kb[s][e] = kmaj_off<R>(2 * lt + e, unit0 + 8 * s);
-      rb[s][e] = row_off<H>(2 * lt + e, unit0 + 8 * s);
+      kb[s][e] = kmaj_off<R>(2 * lt + e, unit_base + unit0 + 8 * s);
+      rb[s][e] = row_off<U>(2 * lt + e, unit0 + 8 * s);
     }
   float b[4][2];
 #pragma unroll
   for (int g = 0; g < 4; ++g)
 #pragma unroll
     for (int s = 0; s < 2; ++s)
-      b[g][s] = __bfloat162float(bias[g * H + unit0 + 8 * s]);
+      b[g][s] = to_f(bias[g * H + unit_base + unit0 + 8 * s]);
   float dh[kAcc], dc[kAcc];   // carried cotangents
   float db[4][2];
 #pragma unroll
@@ -1163,10 +1221,17 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
 #pragma unroll
   for (int g = 0; g < 4; ++g) db[g][0] = db[g][1] = 0.0f;
 
-  const int x_width = kProj ? f_in : G4;
+  // Column c of the block's 4U gate columns (its units of each gate) is
+  // column g H + unit_base + u of the layer's 4H.
+  auto gate_col = [&](int c) {
+    return kSplit == 1 ? c : (c / U) * H + unit_base + c % U;
+  };
+  const int x_stride = kProj ? f_in : G4;
+  const int x_width = kProj ? f_in : 4 * U;
   // The row tiles of step t, by 16-byte cp.async with zero-fill: the carry
-  // into step t (h_in, c_in: the cleared state after step t - 1, or the
-  // unmasked initial state at t == 0), cs and dys.
+  // into step t (h_in over all H units; c_in of the block's: the cleared
+  // state after step t - 1, or the unmasked initial state at t == 0), cs
+  // and dys of the block's units.
   auto load_rows = [&](int t) {
     const size_t trow = static_cast<size_t>(t) * n_rows;
     const size_t prow = trow - n_rows;
@@ -1175,34 +1240,44 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
       const int row = block_row + n;
       const bool live = row < row_end;
       bool kept = live;
-      const bf16* hs = h0;
-      const bf16* cp = c0;
+      const E* hs = h0;
+      const E* cp = c0;
+      const int cu = unit_base + c * 8;   // the c_in / cs / dys column
       if (live && t == 0) {
         hs = h0 + static_cast<size_t>(row) * H + c * 8;
-        cp = c0 + static_cast<size_t>(row) * H + c * 8;
+        cp = c0 + static_cast<size_t>(row) * H + cu;
       } else if (live) {
-        kept = __bfloat162float(keep[prow + row]) > 0.5f;
+        kept = to_f(keep[prow + row]) > 0.5f;
         hs = ys + (prow + row) * H + c * 8;
-        cp = cs + (prow + row) * H + c * 8;
+        cp = cs + (prow + row) * H + cu;
       }
       cp_async16(hin_s + kmaj_off<R>(n, c * 8), kept ? hs : h0, kept);
-      cp_async16(cin_s + row_off<H>(n, c * 8), kept ? cp : c0, kept);
-      const size_t off = live ? (trow + row) * H + c * 8 : 0;
-      cp_async16(cs_s + row_off<H>(n, c * 8), cs + off, live);
-      cp_async16(dys_s + row_off<H>(n, c * 8), dys + off, live);
+      if (c < U / 8) {
+        cp_async16(cin_s + row_off<U>(n, c * 8), kept ? cp : c0, kept);
+        const size_t off = live ? (trow + row) * H + cu : 0;
+        cp_async16(cs_s + row_off<U>(n, c * 8), cs + off, live);
+        cp_async16(dys_s + row_off<U>(n, c * 8), dys + off, live);
+      }
     }
   };
-  // x_proj (or x) of step t into the dgates tile, free until the gate math.
+  // x_proj (or x) of step t into the dgates tile, free until the gate math:
+  // without the projection the block's own gate columns.
   auto load_x = [&](int t) {
     const size_t trow = static_cast<size_t>(t) * n_rows;
     for (int e = tid; e < R * (x_width / 8); e += L::kThreads) {
-      const int n = e / (x_width / 8), c = e % (x_width / 8);
+      const int n = e / (x_width / 8);
+      const int col = kProj ? (e % (x_width / 8)) * 8
+                            : gate_col((e % (x_width / 8)) * 8);
       const int row = block_row + n;
       const bool live = row < row_end;
-      cp_async16(dg_s + kmaj_off<R>(n, c * 8),
-                 x + (live ? (trow + row) * x_width + c * 8 : 0), live);
+      cp_async16(dg_s + kmaj_off<R>(n, col),
+                 x + (live ? (trow + row) * x_stride + col : 0), live);
     }
   };
+  // The peer's dgates tile, where this block writes its units' dgates.
+  const uint32_t peer_dg =
+      kSplit == 1 ? 0
+                  : map_cluster_rank(dg_s, static_cast<uint32_t>(rank ^ 1));
   for (int t = steps - 1; t >= 0; --t) {
     const size_t trow = static_cast<size_t>(t) * n_rows;
     const size_t prow = trow - n_rows;   // step t - 1 (t > 0)
@@ -1213,13 +1288,14 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
     fence_proxy_async();
     __syncthreads();
 
-    // h_in as this step used it, for the weight-gradient pass.
-    for (int e = tid; e < R * (H / 8); e += L::kThreads) {
-      const int n = e / (H / 8), c = e % (H / 8);
+    // h_in as this step used it, for the weight-gradient pass (the block's
+    // units' columns).
+    for (int e = tid; e < R * (U / 8); e += L::kThreads) {
+      const int n = e / (U / 8), c = unit_base + (e % (U / 8)) * 8;
       const int row = block_row + n;
       if (row < row_end)
-        *reinterpret_cast<uint4*>(hin + (trow + row) * H + c * 8) =
-            *reinterpret_cast<const uint4*>(hin_p + kmaj_off<R>(n, c * 8));
+        *reinterpret_cast<uint4*>(hin + (trow + row) * H + c) =
+            *reinterpret_cast<const uint4*>(hin_p + kmaj_off<R>(n, c));
     }
     uint32_t keep_prev = 0;   // bit 2 j + e: row 8 j + 2 (l % 4) + e
 #pragma unroll
@@ -1227,21 +1303,25 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = block_row + 8 * j + 2 * lt + e;
-        if (t > 0 && row < row_end &&
-            __bfloat162float(keep[prow + row]) > 0.5f)
+        if (t > 0 && row < row_end && to_f(keep[prow + row]) > 0.5f)
           keep_prev |= 1u << (2 * j + e);
       }
 
     // Pre-activations as the forward computes them (x in the dgates tile).
     float acc[4][kAcc];
-    preactivations<H, R, kProj, 0>(slices, issue, acc, a_off, dg_s, hin_s,
-                                   f_in);
+    preactivations<H, R, kProj, 0, E>(slices, issue, acc, a_off, dg_s,
+                                      hin_s, f_in);
     // The projection's x sits where the dgates go: every warpgroup is done
-    // reading it.
-    if constexpr (kProj) __syncthreads();
+    // reading it. With a cluster: the peer's dh_prev product of step t + 1
+    // is done, before this block writes into its dgates tile.
+    if constexpr (kProj)
+      __syncthreads();
+    else if constexpr (kSplit > 1)
+      cluster_sync();
 
-    // Gate math, thread-local: dgates rounded to bf16 into the dgates tile
-    // (each thread rewrites only the x_proj elements it read), db, dc_prev.
+    // Gate math, thread-local: dgates rounded to E into the dgates tile
+    // (each thread rewrites only the x_proj elements it read; with a
+    // cluster into the peer's too), db, dc_prev.
 #pragma unroll
     for (int j = 0; j < R / 8; ++j)
 #pragma unroll
@@ -1250,55 +1330,62 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
         for (int e = 0; e < 2; ++e) {
           const int i = 4 * j + 2 * s + e;
           const bool live = block_row + 8 * j + 2 * lt + e < row_end;
-          uint8_t* dgo = dg_p + kb[s][e] + j * 1024;
-          const uint32_t ro = rb[s][e] + j * 16 * H;
+          const uint32_t ko = kb[s][e] + j * 1024;
+          uint8_t* dgo = dg_p + ko;
+          const uint32_t ro = rb[s][e] + j * 16 * U;
           constexpr int kGate = (H / 64) * L::kSub;   // gate stride
           float pre[4];
 #pragma unroll
           for (int g = 0; g < 4; ++g)
-            pre[g] = gate_pre<kProj>(dgo + g * kGate, acc[g][i], b[g][s]);
+            pre[g] = gate_pre<kProj, E>(dgo + g * kGate, acc[g][i], b[g][s]);
           const float si = sigmoid_f(pre[0]);
           const float sf = sigmoid_f(pre[1]);
           const float tg = tanhf(pre[2]);
           const float so = sigmoid_f(pre[3]);
-          const float tanh_c = tanhf(ld_bf16(cs_p + ro));
-          const float c_in = ld_bf16(cin_p + ro);
-          const float dh_total = ld_bf16(dys_p + ro) + dh[i];
+          const float tanh_c = tanhf(ld_elem<E>(cs_p + ro));
+          const float c_in = ld_elem<E>(cin_p + ro);
+          const float dh_total = ld_elem<E>(dys_p + ro) + dh[i];
           const float dc_total =
               dc[i] + dh_total * so * (1.0f - tanh_c * tanh_c);
-          const bf16 zero = __float2bfloat16_rn(0.0f);
-          const bf16 d[4] = {
-              live ? __float2bfloat16_rn(dc_total * tg * si * (1.0f - si))
-                   : zero,
-              live ? __float2bfloat16_rn(dc_total * c_in * sf * (1.0f - sf))
-                   : zero,
-              live ? __float2bfloat16_rn(dc_total * si * (1.0f - tg * tg))
-                   : zero,
-              live ? __float2bfloat16_rn(dh_total * tanh_c * so * (1.0f - so))
-                   : zero,
+          const E zero = from_f<E>(0.0f);
+          const E d[4] = {
+              live ? from_f<E>(dc_total * tg * si * (1.0f - si)) : zero,
+              live ? from_f<E>(dc_total * c_in * sf * (1.0f - sf)) : zero,
+              live ? from_f<E>(dc_total * si * (1.0f - tg * tg)) : zero,
+              live ? from_f<E>(dh_total * tanh_c * so * (1.0f - so)) : zero,
           };
 #pragma unroll
           for (int g = 0; g < 4; ++g) {
-            *reinterpret_cast<bf16*>(dgo + g * kGate) = d[g];
-            db[g][s] += __bfloat162float(d[g]);
+            *reinterpret_cast<E*>(dgo + g * kGate) = d[g];
+            if constexpr (kSplit > 1)
+              st_cluster_u16(peer_dg + ko + g * kGate, elem_bits(d[g]));
+            db[g][s] += to_f(d[g]);
           }
           dc[i] = live ? dc_total * sf : 0.0f;   // dc_prev, masked below
         }
-    fence_proxy_async();
-    __syncthreads();
+    // The dgates tile is whole for the products: this block's writes, and
+    // with a cluster the peer's, visible to wgmma.
+    if constexpr (kSplit == 1) {
+      fence_proxy_async();
+      __syncthreads();
+    } else {
+      fence_proxy_async_all();
+      cluster_sync();
+      fence_proxy_async_all();
+    }
 
-    // The rounded dgates: an output (dx_proj), and the weight-gradient
-    // pass's B operand.
-    for (int e = tid; e < R * (G4 / 8); e += L::kThreads) {
-      const int n = e / (G4 / 8), c = e % (G4 / 8);
+    // The rounded dgates of the block's units: an output (dx_proj), and
+    // the weight-gradient pass's B operand.
+    for (int e = tid; e < R * (4 * U / 8); e += L::kThreads) {
+      const int n = e / (4 * U / 8), c = gate_col((e % (4 * U / 8)) * 8);
       const int row = block_row + n;
       if (row < row_end)
-        *reinterpret_cast<uint4*>(dg + (trow + row) * G4 + c * 8) =
-            *reinterpret_cast<const uint4*>(dg_p + kmaj_off<R>(n, c * 8));
+        *reinterpret_cast<uint4*>(dg + (trow + row) * G4 + c) =
+            *reinterpret_cast<const uint4*>(dg_p + kmaj_off<R>(n, c));
     }
 
     // dh_prev^T = Wr . dgates^T: this warpgroup's 64 units, in the layout
-    // of its carries.
+    // of its carries, over all 4H gates.
     float dhp[kAcc];
     for (int kc = 0; kc < G4 / kTcK; ++kc)
       consume(dhp, dg_s + kc * L::kSub, kc == 0);
@@ -1307,7 +1394,7 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
     for (int i = 0; i < kAcc; ++i) wgmma_fence_operand(dhp[i]);
 
     // dx^T = Wi . dgates^T, a band of H input features at a time, rounded
-    // once to bf16.
+    // once to E.
     if constexpr (kProj) {
       for (int band = 0; band < bands; ++band) {
         const int f0 = band * H + wg * 64;
@@ -1327,7 +1414,7 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
                 const int row = block_row + 8 * j + 2 * lt + e;
                 if (row < row_end)
                   dx[(trow + row) * f_in + f0 + (unit0 % 64) + 8 * s] =
-                      __float2bfloat16_rn(dxa[4 * j + 2 * s + e]);
+                      from_f<E>(dxa[4 * j + 2 * s + e]);
               }
         }
       }
@@ -1343,10 +1430,11 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
         for (int e = 0; e < 2; ++e) {
           const int i = 4 * j + 2 * s + e;
           const int row = block_row + 8 * j + 2 * lt + e;
-          const size_t idx = static_cast<size_t>(row) * H + unit0 + 8 * s;
+          const size_t idx =
+              static_cast<size_t>(row) * H + unit_base + unit0 + 8 * s;
           if (t == 0 && row < row_end) {
-            dh0[idx] = __float2bfloat16_rn(dhp[i]);
-            dc0[idx] = __float2bfloat16_rn(dc[i]);
+            dh0[idx] = from_f<E>(dhp[i]);
+            dc0[idx] = from_f<E>(dc[i]);
           }
           const bool kept = (keep_prev >> (2 * j + e)) & 1u;
           dh[i] = kept ? dhp[i] : 0.0f;
@@ -1355,8 +1443,8 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
     __syncthreads();   // every tile of this step is consumed
   }
 
-  // This block's db partial: the thread's rows and steps, then the four
-  // lanes of a unit in a fixed order.
+  // This row tile's db partial over the block's units: the thread's rows
+  // and steps, then the four lanes of a unit in a fixed order.
 #pragma unroll
   for (int g = 0; g < 4; ++g)
 #pragma unroll
@@ -1365,14 +1453,17 @@ __global__ void __launch_bounds__(TcBwd<H, R>::kThreads, 1)
       v += __shfl_xor_sync(0xffffffffu, v, 1);
       v += __shfl_xor_sync(0xffffffffu, v, 2);
       if (lt == 0)
-        part_b[static_cast<size_t>(blockIdx.x) * G4 + g * H + unit0 + 8 * s] =
-            v;
+        part_b[static_cast<size_t>(tile) * G4 + g * H + unit_base + unit0 +
+               8 * s] = v;
     }
 }
 
 // phases: bit 0 the recurrence, bit 1 the weight gradients (dW from the
-// recurrence's dg and hin, db from its part_b).
-template <int H, bool kProj>
+// recurrence's dg and hin, db from its part_b). E: __nv_bfloat16, or
+// __half without the projection. At H = 384 and 512, clusters of two
+// blocks (kTcSplit), launched with their cluster dimension by
+// cudaLaunchKernelEx; a refused launch returns its error.
+template <typename E, int H, bool kProj>
 int launch_bwd_tc(int phases, const void* x, const void* keep,
                   const void* wi, const void* wi_t, const void* wr,
                   const void* wr_t, const void* bias, const void* c0,
@@ -1383,66 +1474,85 @@ int launch_bwd_tc(int phases, const void* x, const void* keep,
                   cudaStream_t stream, const void* chunk_policy = nullptr,
                   int num_chunks = 1, int chunk = 0, int num_policies = 1) {
   constexpr int R = kTcRows<kProj>;
-  using L = TcBwd<H, R>;
-  const int blocks = fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, R);
+  constexpr int kSplit = kTcSplit<H>;
+  constexpr int U = H / kSplit;
+  using L = TcBwd<H, R, kSplit>;
+  const int tiles = fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, R);
   const int total_rows = steps * n_rows;
+  const CUtensorMapDataType dt = std::is_same<E, __half>::value
+                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   // Every map spans the [P, ...] stack (P = 1 without chunks: Wi^T
-  // [P, 4H, F] and Wi [P, F, 4H] with the projection). Without the
-  // projection, wit / wi alias Wr^T / Wr and are never read.
+  // [P, 4H, F] and Wi [P, F, 4H] with the projection), in boxes of the U
+  // rows of a block's units (at most 256: TMA's limit of a box dimension).
+  // Without the projection, wit / wi alias Wr^T / Wr and are never read.
   if (phases & 1) {
     CUtensorMap wit_map, wrt_map, wr_map, wi_map;
-    if (!make_tma_map(&wrt_map, wr_t, H, 4 * H, num_policies, kTcK, H) ||
-        !make_tma_map(&wr_map, wr, 4 * H, H, num_policies, kTcK, H) ||
+    if (!make_tma_map(&wrt_map, wr_t, H, 4 * H, num_policies, kTcK, U, dt) ||
+        !make_tma_map(&wr_map, wr, 4 * H, H, num_policies, kTcK, U, dt) ||
         !make_tma_map(&wit_map, kProj ? wi_t : wr_t, kProj ? f_in : H, 4 * H,
-                      num_policies, kTcK, H) ||
+                      num_policies, kTcK, U, dt) ||
         !make_tma_map(&wi_map, kProj ? wi : wr, 4 * H, kProj ? f_in : H,
-                      num_policies, kTcK, H))
+                      num_policies, kTcK, U, dt))
       return static_cast<int>(cudaErrorInvalidValue);
-    int err = set_smem(lstm_bwd_tc_kernel<H, R, kProj>, L::kSmem);
+    const auto kernel = lstm_bwd_tc_kernel<E, H, R, kProj, kSplit>;
+    int err = set_smem(kernel, L::kSmem);
     if (err != 0) return err;
-    lstm_bwd_tc_kernel<H, R, kProj><<<blocks, L::kThreads, L::kSmem,
-                                      stream>>>(
-        wit_map, wrt_map, wr_map, wi_map, static_cast<const bf16*>(x),
-        static_cast<const bf16*>(keep), static_cast<const bf16*>(bias),
-        static_cast<const bf16*>(c0), static_cast<const bf16*>(h0),
-        static_cast<const bf16*>(ys), static_cast<const bf16*>(cs),
-        static_cast<const bf16*>(dys), static_cast<bf16*>(dx),
-        static_cast<bf16*>(dg), static_cast<bf16*>(hin),
-        static_cast<bf16*>(dh0), static_cast<bf16*>(dc0),
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(tiles) * kSplit);
+    cfg.blockDim = dim3(L::kThreads);
+    cfg.dynamicSmemBytes = L::kSmem;
+    cfg.stream = stream;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = kSplit;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cfg.attrs = cluster;
+    cfg.numAttrs = kSplit > 1 ? 1 : 0;
+    const cudaError_t launched = cudaLaunchKernelEx(
+        &cfg, kernel, wit_map, wrt_map, wr_map, wi_map,
+        static_cast<const E*>(x), static_cast<const E*>(keep),
+        static_cast<const E*>(bias), static_cast<const E*>(c0),
+        static_cast<const E*>(h0), static_cast<const E*>(ys),
+        static_cast<const E*>(cs), static_cast<const E*>(dys),
+        static_cast<E*>(dx), static_cast<E*>(dg), static_cast<E*>(hin),
+        static_cast<E*>(dh0), static_cast<E*>(dc0),
         static_cast<float*>(part_b), steps, n_rows, f_in,
         static_cast<const int*>(chunk_policy), chunk, num_policies);
+    if (launched != cudaSuccess) return static_cast<int>(launched);
     err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
   }
   if ((phases & 2) && chunk_policy != nullptr) {
     // dW of each policy ([F + H, 4H], dWi over dWr, with the projection;
     // dWr [H, 4H] without) from its chunks' own splits of boxes (never a
-    // box of two chunks: weight_grad_tc.cuh), db from its chunks' blocks.
+    // box of two chunks: weight_grad_tc.cuh), db from its chunks' row
+    // tiles.
     int used = 0;
-    int err = kProj ? weight_grad_tc_partials(x, f_in, hin, f_in + H, dg,
-                                              4 * H, steps, chunk, num_chunks,
-                                              splits, part_w, &used, stream)
-                    : weight_grad_tc_partials(hin, H, nullptr, H, dg, 4 * H,
-                                              steps, chunk, num_chunks,
-                                              splits, part_w, &used, stream);
+    int err = kProj ? weight_grad_tc_partials<E>(
+                          x, f_in, hin, f_in + H, dg, 4 * H, steps, chunk,
+                          num_chunks, splits, part_w, &used, stream)
+                    : weight_grad_tc_partials<E>(
+                          hin, H, nullptr, H, dg, 4 * H, steps, chunk,
+                          num_chunks, splits, part_w, &used, stream);
     if (err != 0) return err;
-    err = sum_by_policy<bf16>(part_w, dw, chunk_policy, num_chunks, used,
-                              num_policies, (f_in + H) * 4 * H, stream);
+    err = sum_by_policy<E>(part_w, dw, chunk_policy, num_chunks, used,
+                           num_policies, (f_in + H) * 4 * H, stream);
     if (err != 0) return err;
-    return sum_by_policy<bf16>(part_b, db, chunk_policy, num_chunks,
-                               blocks / num_chunks, num_policies, 4 * H,
-                               stream);
+    return sum_by_policy<E>(part_b, db, chunk_policy, num_chunks,
+                            tiles / num_chunks, num_policies, 4 * H, stream);
   }
   if (phases & 2) {
     // dW = [x | h_in]^T . dg ([F + H, 4H], dWi over dWr) for the
     // projection, h_in^T . dg ([H, 4H]) without.
     const int err =
-        kProj ? weight_grad_tc(x, f_in, hin, f_in + H, dg, 4 * H, total_rows,
-                               splits, part_w, dw, stream)
-              : weight_grad_tc(hin, H, nullptr, H, dg, 4 * H, total_rows,
-                               splits, part_w, dw, stream);
+        kProj ? weight_grad_tc<E>(x, f_in, hin, f_in + H, dg, 4 * H,
+                                  total_rows, splits, part_w, dw, stream)
+              : weight_grad_tc<E>(hin, H, nullptr, H, dg, 4 * H, total_rows,
+                                  splits, part_w, dw, stream);
     if (err != 0) return err;
-    return sum_splits<bf16>(part_b, db, blocks, 4 * H, stream);
+    return sum_splits<E>(part_b, db, tiles, 4 * H, stream);
   }
   return 0;
 }
@@ -1458,12 +1568,6 @@ constexpr int kFwdTcRows = 32;
 // Ring stages of the tensor-core forward at most (as many as fit, up to
 // this; PERF.md).
 constexpr int kFwdTcStages = 4;
-
-// Blocks of a cluster that split the units of the tensor-core forward
-// (kSplit): one at H = 128 and 256; two at H = 384 and 512 ("Wider
-// layers", at the dispatch), each owning H / 2 units of the same rows.
-template <int H>
-constexpr int kFwdSplit = H > 256 ? 2 : 1;
 
 // Shared memory of lstm_fwd_tc_kernel, from a 1024-byte aligned base: the
 // ring of weight slices ([64 k][U units] bf16 each, U = H / kSplit the
@@ -1673,9 +1777,9 @@ __global__ void __launch_bounds__(TcFwd<H, R, kSplit>::kThreads, 1)
     if (x_bufs == 2 && t + 1 < steps) load_x(t + 1);
 
     float acc[4][kAcc];
-    preactivations<H, R, kProj, 1>(slices, issue, acc, a_off,
-                                   x_s + (t % x_bufs) * x_buf_bytes, h_s,
-                                   f_in);
+    preactivations<H, R, kProj, 1, bf16>(slices, issue, acc, a_off,
+                                         x_s + (t % x_bufs) * x_buf_bytes,
+                                         h_s, f_in);
     if constexpr (!kProj) cp_async_wait<0>();   // x_proj of step t
     // Every warpgroup is done reading the h tile (and x with the
     // projection); x_proj of step t is in. With a cluster: the peer's
@@ -1701,7 +1805,8 @@ __global__ void __launch_bounds__(TcFwd<H, R, kSplit>::kThreads, 1)
           float pre[4];
 #pragma unroll
           for (int g = 0; g < 4; ++g)
-            pre[g] = gate_pre<kProj>(x_p + ko + g * kGate, acc[g][i], b[g][s]);
+            pre[g] = gate_pre<kProj, bf16>(x_p + ko + g * kGate, acc[g][i],
+                                           b[g][s]);
           const float new_c =
               sigmoid_f(pre[1]) * c[i] + sigmoid_f(pre[0]) * tanhf(pre[2]);
           const float new_h = sigmoid_f(pre[3]) * tanhf(new_c);
@@ -1740,7 +1845,7 @@ __global__ void __launch_bounds__(TcFwd<H, R, kSplit>::kThreads, 1)
 // chunk-indexed instance over [num_policies, H, 4H] and [num_policies, 4H]
 // stacks (and [num_policies, F, 4H] of Wi with the projection), one TMA map
 // over each whole stack. At H = 384 and 512, clusters of two blocks
-// (kFwdSplit), launched with their cluster dimension by cudaLaunchKernelEx;
+// (kTcSplit), launched with their cluster dimension by cudaLaunchKernelEx;
 // a refused launch returns its error.
 template <int H, bool kProj>
 int launch_fwd_tc(const void* x, const void* keep, const void* wi,
@@ -1750,7 +1855,7 @@ int launch_fwd_tc(const void* x, const void* keep, const void* wi,
                   const void* chunk_policy = nullptr, int num_chunks = 0,
                   int chunk = 0, int num_policies = 1) {
   constexpr int R = kFwdTcRows;
-  constexpr int kSplit = kFwdSplit<H>;
+  constexpr int kSplit = kTcSplit<H>;
   using L = TcFwd<H, R, kSplit>;
   const auto kernel = lstm_fwd_tc_kernel<H, R, kProj, kSplit>;
   CUtensorMap wi_map, wr_map;
@@ -1791,40 +1896,46 @@ bool proj_width_ok(int hidden, int f_in) {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. Each entry point returns a
 // cudaError_t, or -1 for arguments without an instantiation. The CUDA-core
-// sequence kernels are built for float32 and float16 at H = 128, 256, 384
-// and 512, and the CUDA-core backwards for bfloat16 too at 384 and 512
-// (bfloat16 takes mlt_lstm_fwd_tc at every width and mlt_lstm_bwd_tc at
-// 128 and 256); the projection kernels for float32 alone, at 128 and 256
-// (float16 takes the unfused kernels, as the JAX package's
-// lstm_proj_supported sends it to its unfused route).
+// forwards are built for float32 and float16 at H = 128, 256, 384 and 512,
+// the CUDA-core backwards for float32 at those widths and float16 at 384
+// and 512 (bfloat16 takes mlt_lstm_fwd_tc and mlt_lstm_bwd_tc at every
+// width, float16's backward mlt_lstm_bwd_tc at 128 and 256); the
+// projection kernels for float32 alone, at 128 and 256 (float16 takes the
+// unfused kernels, as the JAX package's lstm_proj_supported sends it to its
+// unfused route).
 //
 // Wider layers (H = 384, 512). The tensor-core kernels give each warpgroup
 // 64 units of all four gates, so one block would need H / 64 warpgroups:
 // 768 threads at H = 384 and 1024 at H = 512, which leaves each thread 80
 // and 64 registers (acc alone is 64 at R = 32), where the H = 256 instances
-// already take 128 and spill; and 288 KiB of shared memory at 512, past
-// the 227 KiB a block can use. The bf16 forwards split the units over a
-// cluster of two blocks instead (lstm_fwd_tc_kernel with kSplit = 2): each
-// block keeps 3 or 4 warpgroups and the H = 192 / 256 register layout,
-// streams the Wr columns of its H / 2 units (L2 traffic stays |Wr| per R
-// rows a step), stages its units' x_proj, and holds the whole h tile,
-// into which both blocks write their halves of each carry through
-// distributed shared memory (224 KiB at 512 with a 4-stage ring). A
-// single block of 4 warpgroups x 128 units at R = 16 would also fit, but
-// it doubles Wr's L2 traffic a row, which bounds this kernel; the cluster
-// was taken. The backwards' K-major weight slices are single TMA boxes of
-// H rows, past TMA's 256 elements a box dimension, so bfloat16's backwards
-// stay on the CUDA-core kernels at these widths, the same templates as
-// float32 and float16 (storage-type operands converted exactly to f32, f32
-// sums, the carry rounded to the storage type). Their recompute of the
-// pre-activations then sums in another order than the forward that wrote
-// ys / cs: "both compute them alike" (the header) holds at 128 and 256
-// only, and the wide backward is held to its plain twin (3.2e-2 of the
-// largest value), as before. Every contract of the narrower instances
-// holds: the rollout step is the sequence forward's step, a chunked row is
-// the single-policy kernel's, a chunk of no policy writes NaN, a policy's
-// dWr / db sum its chunks' split partials in chunk order.
-// ops/cuda/lstm.py: fwd_uses_tensor_cores and uses_tensor_cores state it.
+// already take 128 and spill; 288 KiB of shared memory at 512 for the
+// forward, past the 227 KiB a block can use (the backward's tiles alone
+// leave no room for two ring stages); and the backward's K-major weight
+// slices would be TMA boxes of H rows, past TMA's 256 elements a box
+// dimension. The bf16 kernels split the units over a cluster of two blocks
+// instead (kTcSplit = 2): each block keeps 3 or 4 warpgroups and the H =
+// 192 / 256 register layout and streams the weight slices of its H / 2
+// units (L2 traffic stays |Wr| per R rows a step, twice that backward;
+// boxes of H / 2 <= 256 rows). The forward (lstm_fwd_tc_kernel) stages its
+// units' x_proj and holds the whole h tile, into which both blocks write
+// their halves of each carry through distributed shared memory (224 KiB at
+// 512 with a 4-stage ring). The backward (lstm_bwd_tc_kernel) loads the
+// whole h_in tile from ys / h0 (no exchange), recomputes its units'
+// pre-activations through the forward's helper in the forward's slice
+// order, so that "both compute them alike" (the header) holds at every
+// width, and writes its units' dgates into both blocks' dgates tiles
+// through distributed shared memory, so that each computes dh_prev of its
+// units over all 4H gates (200 KiB at 512 with a 3-stage ring, 175 KiB at
+// 384 with 4). A single block of 4 warpgroups x 128 units at R = 16 would
+// also fit the forward, but it doubles Wr's L2 traffic a row, which bounds
+// these kernels; the cluster was taken. float32, and float16 at these
+// widths, stay on the CUDA-core kernels (storage-type operands converted
+// exactly to f32, f32 sums, the carry rounded to the storage type). Every
+// contract of the narrower instances holds: the rollout step is the
+// sequence forward's step, a chunked row is the single-policy kernel's, a
+// chunk of no policy writes NaN, a policy's dWr / db sum its chunks' split
+// partials in chunk order. ops/cuda/lstm.py: fwd_uses_tensor_cores and
+// bwd_uses_tensor_cores state it.
 #define MLT_DISPATCH_F32(CALL)                                   \
   if (dtype == 0 && hidden == 128) return CALL(float, 128);      \
   if (dtype == 0 && hidden == 256) return CALL(float, 256);      \
@@ -1833,22 +1944,21 @@ bool proj_width_ok(int hidden, int f_in) {
   if (dtype == 2 && hidden == 128) return CALL(__half, 128);     \
   if (dtype == 2 && hidden == 256) return CALL(__half, 256);     \
   MLT_DISPATCH_F32(CALL)
-// The CUDA-core forwards: float32 and float16 at every width.
-#define MLT_DISPATCH_WIDE_FWD(CALL, H)                           \
+// The CUDA-core kernels at H = 384 and 512: float32 and float16.
+#define MLT_DISPATCH_WIDE(CALL, H)                               \
   if (dtype == 0 && hidden == H) return CALL(float, H);          \
   if (dtype == 2 && hidden == H) return CALL(__half, H)
+// The CUDA-core forwards: float32 and float16 at every width.
 #define MLT_DISPATCH_FWD(CALL)                                   \
-  MLT_DISPATCH_WIDE_FWD(CALL, 384);                              \
-  MLT_DISPATCH_WIDE_FWD(CALL, 512);                              \
+  MLT_DISPATCH_WIDE(CALL, 384);                                  \
+  MLT_DISPATCH_WIDE(CALL, 512);                                  \
   MLT_DISPATCH_F32_F16(CALL)
-// The CUDA-core backwards: every dtype at H = 384 and 512.
-#define MLT_DISPATCH_WIDE_BWD(CALL, H)                           \
-  MLT_DISPATCH_WIDE_FWD(CALL, H);                                \
-  if (dtype == 1 && hidden == H) return CALL(__nv_bfloat16, H)
+// The CUDA-core backwards: float32 at every width, float16 at 384 and 512
+// (at 128 and 256 it takes the tensor cores).
 #define MLT_DISPATCH_BWD(CALL)                                   \
-  MLT_DISPATCH_WIDE_BWD(CALL, 384);                              \
-  MLT_DISPATCH_WIDE_BWD(CALL, 512);                              \
-  MLT_DISPATCH_F32_F16(CALL)
+  MLT_DISPATCH_WIDE(CALL, 384);                                  \
+  MLT_DISPATCH_WIDE(CALL, 512);                                  \
+  MLT_DISPATCH_F32(CALL)
 
 extern "C" int mlt_lstm_fwd(int dtype, int hidden, const void* xp,
                             const void* keep, const void* wr,
@@ -1910,11 +2020,13 @@ extern "C" int mlt_lstm_proj_bwd(
 #undef MLT_PROJ_BWD
 }
 
-// The bf16 tensor-core backward of both variants (f_in = 0: lstm_sequence_bwd,
-// with x = x_proj and dg = dx_proj; else lstm_sequence_proj_bwd). Returns a
-// cudaError_t, or -1 for arguments without an instantiation.
+// The tensor-core backward of both variants (f_in = 0: lstm_sequence_bwd,
+// with x = x_proj and dg = dx_proj; else lstm_sequence_proj_bwd): bfloat16
+// (dtype 1) at H = 128, 256, 384 and 512 (the projection at 128 and 256),
+// float16 (dtype 2, no projection) at 128 and 256. Returns a cudaError_t,
+// or -1 for arguments without an instantiation.
 extern "C" int mlt_lstm_bwd_tc(
-    int hidden, int f_in, int phases, const void* x,
+    int dtype, int hidden, int f_in, int phases, const void* x,
     const void* keep, const void* wi, const void* wi_t, const void* wr,
     const void* wr_t, const void* bias, const void* c0, const void* h0,
     const void* ys, const void* cs, const void* dys, void* dx, void* dg,
@@ -1923,14 +2035,23 @@ extern "C" int mlt_lstm_bwd_tc(
   if (f_in != 0 && !proj_width_ok(hidden, f_in)) return -1;
   if (static_cast<long long>(steps) * n_rows > 0x7fffffffLL) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MLT_BWD_TC(H, P)                                                   \
-  launch_bwd_tc<H, P>(phases, x, keep, wi, wi_t, wr, wr_t, bias, c0, h0, ys, \
-                      cs, dys, dx, dg, hin, dh0, dc0, part_w, part_b, dw, db, \
-                      steps, n_rows, f_in, splits, s)
-#define MLT_BWD_TC_H(H) \
-  if (hidden == H) return f_in == 0 ? MLT_BWD_TC(H, false) : MLT_BWD_TC(H, true)
-  MLT_BWD_TC_H(128);
-  MLT_BWD_TC_H(256);
+#define MLT_BWD_TC(E, H, P)                                                 \
+  launch_bwd_tc<E, H, P>(phases, x, keep, wi, wi_t, wr, wr_t, bias, c0, h0, \
+                         ys, cs, dys, dx, dg, hin, dh0, dc0, part_w, part_b, \
+                         dw, db, steps, n_rows, f_in, splits, s)
+#define MLT_BWD_TC_H(H)                                                    \
+  if (hidden == H)                                                         \
+    return f_in == 0 ? MLT_BWD_TC(bf16, H, false) : MLT_BWD_TC(bf16, H, true)
+  if (dtype == 1) {
+    MLT_BWD_TC_H(128);
+    MLT_BWD_TC_H(256);
+    if (f_in == 0 && hidden == 384) return MLT_BWD_TC(bf16, 384, false);
+    if (f_in == 0 && hidden == 512) return MLT_BWD_TC(bf16, 512, false);
+  }
+  if (dtype == 2 && f_in == 0) {
+    if (hidden == 128) return MLT_BWD_TC(__half, 128, false);
+    if (hidden == 256) return MLT_BWD_TC(__half, 256, false);
+  }
 #undef MLT_BWD_TC_H
 #undef MLT_BWD_TC
   return -1;
@@ -2012,12 +2133,12 @@ extern "C" int mlt_lstm_fwd_chunked(int tensor_core, int dtype, int hidden,
 // (a chunk of no policy: NaN rows), and dwr [num_policies, H, 4H] / db
 // [num_policies, 4H], a policy's summed over its chunks' `splits` partials
 // each (0 for a policy without a chunk). tensor_core 1 takes the bf16
-// tensor-core recurrence and weight-gradient pass (hin: [T, N, H] scratch;
-// part_w [num_chunks * splits, H, 4H], part_b [num_chunks * ceil(chunk /
-// 16), 4H]), 0 the CUDA-core kernels (float32, float16; bfloat16 at H =
-// 384 and 512; hin unused;
-// part_w and part_b [num_chunks * splits, ...]). Returns a cudaError_t, or -1 for
-// arguments without an instantiation.
+// tensor-core recurrence and weight-gradient pass (bfloat16 at every width,
+// float16 at 128 and 256; hin: [T, N, H] scratch; part_w [num_chunks *
+// splits, H, 4H], part_b [num_chunks * ceil(chunk / 16), 4H]), 0 the
+// CUDA-core kernels (float32; float16 at H = 384 and 512; hin unused;
+// part_w and part_b [num_chunks * splits, ...]). Returns a cudaError_t, or
+// -1 for arguments without an instantiation.
 extern "C" int mlt_lstm_bwd_chunked(
     int tensor_core, int dtype, int hidden, const void* xp, const void* keep,
     const void* wr, const void* wr_t, const void* bias,
@@ -2032,16 +2153,18 @@ extern "C" int mlt_lstm_bwd_chunked(
   const int n_rows = static_cast<int>(n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tensor_core) {
-    if (dtype != 1) return -1;
-#define MLT_BWD_CHUNKED_TC(H)                                               \
-  if (hidden == H)                                                         \
-    return launch_bwd_tc<H, false>(3, xp, keep, wr, wr_t, wr, wr_t, bias,   \
-                                   c0, h0, ys, cs, dys, dxp, dxp, hin, dh0, \
-                                   dc0, part_w, part_b, dwr, db, steps,     \
-                                   n_rows, 0, splits, s, chunk_policy,      \
-                                   num_chunks, chunk, num_policies)
-    MLT_BWD_CHUNKED_TC(128);
-    MLT_BWD_CHUNKED_TC(256);
+#define MLT_BWD_CHUNKED_TC(E, H)                                            \
+  return launch_bwd_tc<E, H, false>(3, xp, keep, wr, wr_t, wr, wr_t, bias,  \
+                                    c0, h0, ys, cs, dys, dxp, dxp, hin, dh0, \
+                                    dc0, part_w, part_b, dwr, db, steps,     \
+                                    n_rows, 0, splits, s, chunk_policy,      \
+                                    num_chunks, chunk, num_policies)
+    if (dtype == 1 && hidden == 128) MLT_BWD_CHUNKED_TC(bf16, 128);
+    if (dtype == 1 && hidden == 256) MLT_BWD_CHUNKED_TC(bf16, 256);
+    if (dtype == 1 && hidden == 384) MLT_BWD_CHUNKED_TC(bf16, 384);
+    if (dtype == 1 && hidden == 512) MLT_BWD_CHUNKED_TC(bf16, 512);
+    if (dtype == 2 && hidden == 128) MLT_BWD_CHUNKED_TC(__half, 128);
+    if (dtype == 2 && hidden == 256) MLT_BWD_CHUNKED_TC(__half, 256);
 #undef MLT_BWD_CHUNKED_TC
     return -1;
   }
@@ -2128,11 +2251,10 @@ extern "C" int mlt_lstm_proj_bwd_chunked(
     if (dtype != 1) return -1;
 #define MLT_PROJ_BWD_CHUNKED_TC(H)                                          \
   if (hidden == H)                                                         \
-    return launch_bwd_tc<H, true>(3, x, keep, wi, wi_t, wr, wr_t, bias, c0, \
-                                  h0, ys, cs, dys, dx, dg, hin, dh0, dc0,   \
-                                  part_w, part_b, dwr, db, steps, n_rows,   \
-                                  f_in, splits, s, chunk_policy,            \
-                                  num_chunks, chunk, num_policies)
+    return launch_bwd_tc<bf16, H, true>(                                   \
+        3, x, keep, wi, wi_t, wr, wr_t, bias, c0, h0, ys, cs, dys, dx, dg,  \
+        hin, dh0, dc0, part_w, part_b, dwr, db, steps, n_rows, f_in, splits, \
+        s, chunk_policy, num_chunks, chunk, num_policies)
     MLT_PROJ_BWD_CHUNKED_TC(128);
     MLT_PROJ_BWD_CHUNKED_TC(256);
 #undef MLT_PROJ_BWD_CHUNKED_TC
@@ -2148,8 +2270,7 @@ extern "C" int mlt_lstm_proj_bwd_chunked(
 }
 
 #undef MLT_DISPATCH_BWD
-#undef MLT_DISPATCH_WIDE_BWD
 #undef MLT_DISPATCH_FWD
-#undef MLT_DISPATCH_WIDE_FWD
+#undef MLT_DISPATCH_WIDE
 #undef MLT_DISPATCH_F32_F16
 #undef MLT_DISPATCH_F32

@@ -1,9 +1,10 @@
-// Tensor-core helpers shared by the bf16 kernels (and grouped_matmul's f16
-// instance): Hopper's warpgroup wgmma (A from shared memory or from
-// registers, B from shared memory by descriptor), TMA loads completing on
-// mbarriers and the host encoding of their tensor maps, ldmatrix and
-// cp.async with zero-fill, bf16 / f16 pair packing, and the cluster
-// barrier and distributed shared-memory stores of a cluster of blocks.
+// Tensor-core helpers shared by the bf16 kernels (and the f16 instances of
+// grouped_matmul and the LSTM backward): Hopper's warpgroup wgmma (A from
+// shared memory or from registers, B from shared memory by descriptor), TMA
+// loads completing on mbarriers and the host encoding of their tensor maps,
+// ldmatrix and cp.async with zero-fill, bf16 / f16 pair packing, and the
+// cluster barrier and distributed shared-memory stores of a cluster of
+// blocks.
 //
 // Everything here is `static` inside `mlt` rather than in an unnamed
 // namespace: nvcc names each kernel's launch stub from the global scope, so
@@ -24,6 +25,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace mlt {
 
@@ -306,44 +309,59 @@ static __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d = A . B + (accumulate ? d : 0), m64nNk16 (N = 16 or 32), bf16 -> f32;
-// A K-major (kTransA 0) or MN-major (kTransA 1) and B K-major, both read
-// from shared memory through their descriptors; d in the C layout of
-// wgmma_rs below.
-template <int N, int kTransA = 0>
+// d = A . B + (accumulate ? d : 0), m64nNk16 (N = 16 or 32), E -> f32 (E
+// __nv_bfloat16 or __half); A K-major (kTransA 0) or MN-major (kTransA 1)
+// and B K-major, both read from shared memory through their descriptors; d
+// in the C layout of wgmma_rs below.
+#define MLT_WGMMA_SS16(TYPES)                                              \
+  asm volatile(                                                           \
+      "{\n"                                                               \
+      ".reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %10, 0;\n"                                          \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TYPES " {"            \
+      "%0, %1, %2, %3, %4, %5, %6, %7"                                    \
+      "}, %8, %9, p, 1, 1, %11, 0;\n"                                     \
+      "}\n"                                                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])                                \
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA))
+#define MLT_WGMMA_SS32(TYPES)                                              \
+  asm volatile(                                                           \
+      "{\n"                                                               \
+      ".reg .pred p;\n"                                                   \
+      "setp.ne.b32 p, %18, 0;\n"                                          \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TYPES " {"            \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                  \
+      "%8, %9, %10, %11, %12, %13, %14, %15"                              \
+      "}, %16, %17, p, 1, 1, %19, 0;\n"                                   \
+      "}\n"                                                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+        "+f"(d[15])                                                       \
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA))
+
+template <int N, int kTransA = 0, typename E = __nv_bfloat16>
 static __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2],
                                                 uint64_t da, uint64_t db,
                                                 int accumulate) {
   static_assert(N == 16 || N == 32, "wgmma width");
-  if constexpr (N == 16) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, %8, %9, p, 1, 1, %11, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA));
+  constexpr bool kHalf = std::is_same<E, __half>::value;
+  static_assert(kHalf || std::is_same<E, __nv_bfloat16>::value,
+                "bf16 or f16 operands");
+  if constexpr (N == 16 && kHalf) {
+    MLT_WGMMA_SS16("f16.f16");
+  } else if constexpr (N == 16) {
+    MLT_WGMMA_SS16("bf16.bf16");
+  } else if constexpr (kHalf) {
+    MLT_WGMMA_SS32("f16.f16");
   } else {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, %19, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA));
+    MLT_WGMMA_SS32("bf16.bf16");
   }
 }
+
+#undef MLT_WGMMA_SS16
+#undef MLT_WGMMA_SS32
 
 // d = A . B + (accumulate ? d : 0), m64nNk16 (N = 16, 32 or 64), bf16 ->
 // f32, A from registers and B from shared memory through its descriptor,

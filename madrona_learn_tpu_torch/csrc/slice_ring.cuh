@@ -1,5 +1,5 @@
-// The weight-slice ring and the operand-tile layouts shared by the bf16
-// tensor-core kernels that stream their weights from L2 every step:
+// The weight-slice ring and the operand-tile layouts shared by the bf16 (and
+// f16) tensor-core kernels that stream their weights from L2 every step:
 // lstm.cu's and gru.cu's backward recurrences and policy_step.cu's rollout
 // step.
 //
@@ -25,6 +25,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "common.cuh"
 #include "mma.cuh"
 
 namespace mlt {
@@ -50,6 +51,12 @@ static __device__ __forceinline__ uint32_t row_off(int n, int u) {
 
 static __device__ __forceinline__ float ld_bf16(const uint8_t* p) {
   return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+}
+
+// The same for an element of type E (__nv_bfloat16 or __half).
+template <typename E>
+static __device__ __forceinline__ float ld_elem(const uint8_t* p) {
+  return to_f(*reinterpret_cast<const E*>(p));
 }
 
 // S stages of stage_bytes each from `base` (1024-byte aligned); `total`
@@ -119,9 +126,10 @@ struct SliceRing {
 // release: A is this warpgroup's 64 rows of the stage, a_off bytes into it,
 // K-major [64][64] (kTransA 0: the k16 steps 32 bytes apart) or MN-major
 // [64 k][64 rows] as a TMA box of a row-major weight lands (kTransA 1: 2048
-// bytes apart); B the K-major [R][64] subtile at b. Every warpgroup issues
-// every product: one skipped by some makes ptxas serialize all wgmmas.
-template <int R, int kTransA, int S, class Issue>
+// bytes apart); B the K-major [R][64] subtile at b; both of element type E
+// (bf16 or f16). Every warpgroup issues every product: one skipped by some
+// makes ptxas serialize all wgmmas.
+template <int R, int kTransA, typename E = __nv_bfloat16, int S, class Issue>
 static __device__ __forceinline__ void ring_product(SliceRing<S>& ring,
                                                     Issue& issue,
                                                     float (&acc)[R / 2],
@@ -133,7 +141,7 @@ static __device__ __forceinline__ void ring_product(SliceRing<S>& ring,
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kTcK / 16; ++kk)
-    wgmma_ss<R, kTransA>(
+    wgmma_ss<R, kTransA, E>(
         acc,
         wgmma_desc(a + kk * (kTransA ? 2048 : 32), kTransA ? 8192 : 16, 1024,
                    128),

@@ -1,5 +1,6 @@
-// The bf16 weight-gradient pass of the LSTM backward on Hopper's tensor
-// cores (lstm.cu's tensor-core path): split-K wgmma partials of
+// The bf16 (and f16) weight-gradient pass of the recurrent backwards on
+// Hopper's tensor cores (lstm.cu's and gru.cu's tensor-core paths): split-K
+// wgmma partials of
 //   dW[i][j] = sum_m a[m][i] * dg[m][j]
 // over the M = T*N rows, then weight_grad.cuh's fixed-order sum over the
 // splits, so the result is the same run to run. a is [x | h_in]: columns
@@ -24,7 +25,9 @@
 //   128-byte swizzle; rows past M arrive as zeros. A split's rows are a
 //   multiple of 64, so no slice straddles two splits.
 // - bf16 products summed in f32 (the TPU's preferred_element_type=f32),
-//   each split in one fixed order, written as f32 partials.
+//   each split in one fixed order, written as f32 partials. The f16
+//   instance (E = __half: the float16 LSTM backward, the port's own) is the
+//   same kernel with f16 operands and f16 maps.
 //
 // Bound on the H100: the products, 2 M (F + H) 4H operations (at M =
 // 131072, F = H = 256: 0.14 TFLOP, 0.14 ms at 989 TFLOP/s), against ~0.4
@@ -37,6 +40,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma.cuh"
 #include "weight_grad.cuh"
@@ -52,7 +57,9 @@ constexpr int kWgStageBytes = 2 * kWgABytes;    // a and dg slices
 constexpr int kWgSmem = kWgStages * kWgStageBytes + 1024;   // + alignment
 static_assert(2 * (kWgSmem + 1024) <= 233472, "two blocks an SM");
 
-// Grid: (G / 128 j-tiles, a_width / 128 i-tiles, chunks * splits).
+// Grid: (G / 128 j-tiles, a_width / 128 i-tiles, chunks * splits); E the
+// operands' type, __nv_bfloat16 or __half.
+template <typename E>
 static __global__ void __launch_bounds__(kWgThreads, 2)
     weight_grad_tc_kernel(const __grid_constant__ CUtensorMap a0_map,
                           const __grid_constant__ CUtensorMap a1_map,
@@ -116,9 +123,14 @@ static __global__ void __launch_bounds__(kWgThreads, 2)
     for (int i = 0; i < 64; ++i) wgmma_fence_operand(acc[i]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kWgK / 16; ++kk)
-      wgmma_m64n128k16_xn<1>(acc, wgmma_desc(a + kk * 2048, 8192, 1024, 128),
-                             wgmma_desc(b + kk * 2048, 8192, 1024, 128), 1);
+    for (int kk = 0; kk < kWgK / 16; ++kk) {
+      const uint64_t da = wgmma_desc(a + kk * 2048, 8192, 1024, 128);
+      const uint64_t db = wgmma_desc(b + kk * 2048, 8192, 1024, 128);
+      if constexpr (std::is_same<E, __half>::value)
+        wgmma_m64n128k16_xn_f16<1>(acc, da, db, 1);
+      else
+        wgmma_m64n128k16_xn<1>(acc, da, db, 1);
+    }
     wgmma_commit();
     wgmma_wait<1>();   // slice kt - 1 is retired
 #pragma unroll
@@ -148,6 +160,7 @@ static __global__ void __launch_bounds__(kWgThreads, 2)
 // The split partials part [num_chunks * used, a_width, g] (f32 scratch) of
 // rows laid out [steps][num_chunks][chunk] (kernel comment), each chunk's
 // boxes in `splits` splits; `used` (<= splits) of them hold boxes.
+template <typename E = __nv_bfloat16>
 static int weight_grad_tc_partials(const void* a0, int a0_width,
                                    const void* a1, int a_width,
                                    const void* dg, int g, int steps,
@@ -161,34 +174,38 @@ static int weight_grad_tc_partials(const void* a0, int a0_width,
   const int slices = steps * num_chunks;
   CUtensorMap a0_map, a1_map, dg_map;
   const int a1_width = a_width - a0_width;
-  if (!make_tma_map(&a0_map, a0, a0_width, chunk, slices, 64, kWgK) ||
+  const CUtensorMapDataType dt = std::is_same<E, __half>::value
+                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!make_tma_map(&a0_map, a0, a0_width, chunk, slices, 64, kWgK, dt) ||
       !make_tma_map(&a1_map, a1 != nullptr ? a1 : a0,
                     a1 != nullptr ? a1_width : a0_width, chunk, slices, 64,
-                    kWgK) ||
-      !make_tma_map(&dg_map, dg, g, chunk, slices, 64, kWgK))
+                    kWgK, dt) ||
+      !make_tma_map(&dg_map, dg, g, chunk, slices, 64, kWgK, dt))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int err = set_smem(weight_grad_tc_kernel, kWgSmem);
+  const int err = set_smem(weight_grad_tc_kernel<E>, kWgSmem);
   if (err != 0) return err;
   const dim3 grid(g / kWgTile, a_width / kWgTile, num_chunks * *used);
-  weight_grad_tc_kernel<<<grid, kWgThreads, kWgSmem, stream>>>(
+  weight_grad_tc_kernel<E><<<grid, kWgThreads, kWgSmem, stream>>>(
       a0_map, a1_map, dg_map, static_cast<float*>(part), a0_width, a_width,
       g, chunk_tiles, k_total, tiles_per_split, num_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dW [a_width, g] (bf16) from the split partials part [splits, a_width, g]
+// dW [a_width, g] (E) from the split partials part [splits, a_width, g]
 // (f32 scratch) over all total_rows rows: the products, then the
 // fixed-order sum.
+template <typename E = __nv_bfloat16>
 static int weight_grad_tc(const void* a0, int a0_width, const void* a1,
                           int a_width, const void* dg, int g, int total_rows,
                           int splits, void* part, void* dw,
                           cudaStream_t stream) {
   int used = 0;
-  const int err = weight_grad_tc_partials(a0, a0_width, a1, a_width, dg, g,
-                                          1, total_rows, 1, splits, part,
-                                          &used, stream);
+  const int err = weight_grad_tc_partials<E>(a0, a0_width, a1, a_width, dg,
+                                             g, 1, total_rows, 1, splits,
+                                             part, &used, stream);
   if (err != 0) return err;
-  return sum_splits<__nv_bfloat16>(part, dw, used, a_width * g, stream);
+  return sum_splits<E>(part, dw, used, a_width * g, stream);
 }
 
 }  // namespace mlt

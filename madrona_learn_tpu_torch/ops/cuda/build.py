@@ -173,9 +173,10 @@ _SIGNATURES = {
     # dtype, tensor_core, x, weights, chunk_policy, y, B, C, IN, P, OUT,
     # stream
     "mlt_grouped_matmul": [_I, _I] + [_P] * 4 + [_I] * 5 + [_P],
-    # H, F, phases, x, keep, wi, wi_t, wr, wr_t, bias, c0, h0, ys, cs, dys,
-    # dx, dg, hin, dh0, dc0, part_w, part_b, dw, db, T, N, splits, stream
-    "mlt_lstm_bwd_tc": [_I] * 3 + [_P] * 21 + [_I] * 3 + [_P],
+    # dtype, H, F, phases, x, keep, wi, wi_t, wr, wr_t, bias, c0, h0, ys,
+    # cs, dys, dx, dg, hin, dh0, dc0, part_w, part_b, dw, db, T, N, splits,
+    # stream
+    "mlt_lstm_bwd_tc": [_I] * 4 + [_P] * 21 + [_I] * 3 + [_P],
     # H, phases, xp, keep, wh, wh_t, bias_h, h0, ys, dys, dxp, dhp, hin,
     # dh0, part_w, part_b, dwh, dbh, T, N, splits, stream
     "mlt_gru_bwd_tc": [_I] * 2 + [_P] * 16 + [_I] * 3 + [_P],

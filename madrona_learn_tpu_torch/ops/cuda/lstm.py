@@ -26,28 +26,31 @@ the wrappers raise on operands no kernel takes (a multiple of 128 past
 
 Two paths for each of the four kernels, picked from the dtype and H alone
 by :func:`fwd_uses_tensor_cores` (the sequence forward, its chunk-indexed
-instance, and the rollout steps that run them) and :func:`uses_tensor_cores`
-(the backwards and the projection kernels); no fallback: the kernel a call
-is routed to runs or raises:
+instance, and the rollout steps that run them), :func:`bwd_uses_tensor_cores`
+(the sequence backward and its chunk-indexed instance) and
+:func:`uses_tensor_cores` (the projection kernels); no fallback: the kernel
+a call is routed to runs or raises:
 
-- bfloat16, the forwards at every width and the backwards and the
-  projection kernels at H = 128 or 256: the recurrence on Hopper's
-  warpgroup tensor cores (``wgmma``, bf16 operands, f32 accumulators; the
-  weights stream through a TMA ring, read as they stand by the forwards
-  and from transposed copies by the backwards; a block owns R batch rows,
-  R being :func:`fwd_tc_rows` for the forwards and :func:`tc_rows` for the
-  backwards, and at H = 384 and 512 a cluster of two blocks splits the
-  forward's units, ``csrc/lstm.cu``, "Wider layers"); the backwards then
-  take the weight gradients as a split-K ``wgmma`` product over the T * N
-  rows. Bound by streaming the weights from L2. TMA and the kernels'
-  16-byte copies read every operand on a 16-byte boundary: one that is not
-  is copied onto one first;
-- float32, whose products tensor cores would round, float16, and the
-  bfloat16 backwards at H = 384 and 512 (their weight slices would be TMA
-  boxes of H rows, past 256): the CUDA-core kernels, bound by f32 FMA
-  issue. Float16 is built for the two sequence kernels alone:
-  :func:`lstm_proj_supported` refuses it, as JAX's does, so a float16
-  layer takes the unfused kernels.
+- bfloat16 at every width (the projection kernels at H = 128 or 256), and
+  the float16 backwards at H = 128 or 256: the recurrence on Hopper's
+  warpgroup tensor cores (``wgmma``, bf16 or f16 operands, f32
+  accumulators; the weights stream through a TMA ring, read as they stand
+  by the forwards and from transposed copies by the backwards; a block owns
+  R batch rows, R being :func:`fwd_tc_rows` for the forwards and
+  :func:`tc_rows` for the backwards, and at H = 384 and 512 a cluster of
+  two blocks splits the units, ``csrc/lstm.cu``, "Wider layers"); the
+  backwards then take the weight gradients as a split-K ``wgmma`` product
+  over the T * N rows. Bound by streaming the weights from L2. TMA and the
+  kernels' 16-byte copies read every operand on a 16-byte boundary: one
+  that is not is copied onto one first. The float16 backward is the port's
+  own (JAX sends float16 to its jnp twin): f16 operands, dgates, dx_proj,
+  dh0, dc0, dWr and db rounded once to float16, as the CUDA-core kernel
+  and the plain twin round them;
+- float32, whose products tensor cores would round, the float16 forwards,
+  and the float16 backwards at H = 384 and 512: the CUDA-core kernels,
+  bound by f32 FMA issue. Float16 is built for the two sequence kernels
+  alone: :func:`lstm_proj_supported` refuses it, as JAX's does, so a
+  float16 layer takes the unfused kernels.
 
 Contract (all operands in the storage dtype, float32, bfloat16 or float16;
 the projection variant float32 or bfloat16):
@@ -153,9 +156,9 @@ LSTM_PROJ_BWD_CHUNKED = Kernel(
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The widths the sequence kernels are built for (every dtype; the bfloat16
-# forwards on tensor cores at all four, the bfloat16 backwards at the first
-# two), and those the projection kernels and the tensor-core backwards are
-# built for.
+# ones on tensor cores at all four, the float16 backwards at the first
+# two), and those the projection kernels and the float16 tensor-core
+# backwards are built for.
 _HIDDEN_SIZES = (128, 256, 384, 512)
 _TC_HIDDEN_SIZES = (128, 256)
 
@@ -455,7 +458,8 @@ def lstm_sequence_bwd_chunked(x_proj, keep, wr, bias, chunk_policy, c0, h0,
     chunk (a chunk whose policy lies outside [0, P) gets NaN rows and adds
     to no policy). The weight gradients split each chunk's rows by the
     single-policy rule applied to the chunk alone. Same path rule as
-    ``lstm_sequence_bwd``; float32, bfloat16 or float16."""
+    ``lstm_sequence_bwd`` (:func:`bwd_uses_tensor_cores`); float32,
+    bfloat16 or float16."""
     what = "lstm_sequence_bwd_chunked"
     steps, n, hidden, B, C, P = _check_chunked(what, x_proj, keep, wr, bias,
                                                chunk_policy, c0, h0)
@@ -463,7 +467,7 @@ def lstm_sequence_bwd_chunked(x_proj, keep, wr, bias, chunk_policy, c0, h0,
     _check("ys", ys, dtype, (steps, n, hidden))
     _check("cs", cs, dtype, (steps, n, hidden))
     _check("dys", dys, dtype, (steps, n, hidden))
-    tensor_core = uses_tensor_cores(dtype, hidden)
+    tensor_core = bwd_uses_tensor_cores(dtype, hidden)
     num_sms = torch.cuda.get_device_properties(device).multi_processor_count
     g4 = 4 * hidden
 
@@ -552,14 +556,24 @@ def fwd_tc_rows():
 
 
 def uses_tensor_cores(dtype, hidden):
-    """The path rule of the backwards (``lstm_sequence_bwd`` and its
-    chunk-indexed instance) and of the projection kernels: bfloat16 with H
-    in (128, 256) takes the tensor-core kernels (``wgmma``); float32, whose
-    products tensor cores would round, float16, and bfloat16 at H = 384
-    and 512, whose backward weight slices would be TMA boxes of H rows,
-    past 256 (``csrc/lstm.cu``, "Wider layers"), the CUDA-core ones. (The
-    projection's F rule holds on both paths.)"""
+    """The path rule of the projection kernels (``lstm_sequence_proj_*``
+    and their chunk-indexed instances): bfloat16 with H in (128, 256)
+    takes the tensor-core kernels (``wgmma``); float32, whose products
+    tensor cores would round, the CUDA-core ones. (The projection's F rule
+    holds on both paths, and :func:`lstm_proj_supported` refuses float16
+    and H = 384 / 512.)"""
     return dtype == torch.bfloat16 and hidden in _TC_HIDDEN_SIZES
+
+
+def bwd_uses_tensor_cores(dtype, hidden):
+    """The path rule of the sequence backward (``lstm_sequence_bwd`` and its
+    chunk-indexed instance): bfloat16 at every width the kernels are built
+    for takes the tensor-core kernel (split over a cluster of two blocks at
+    H = 384 and 512), and so does float16 at H = 128 and 256 (f16
+    ``wgmma``); float32, whose products tensor cores would round, and
+    float16 at 384 and 512 the CUDA-core one."""
+    return ((dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES)
+            or (dtype == torch.float16 and hidden in _TC_HIDDEN_SIZES))
 
 
 def fwd_uses_tensor_cores(dtype, hidden):
@@ -611,9 +625,10 @@ def _bwd_tc_buffers(x, wi, wr):
 
 def _bwd_tc(x, keep, wi, wr, bias, c0, h0, ys, cs, dys, *, phases=3,
             buffers=None):
-    """The bf16 tensor-core backward of both variants (``wi`` None: x is
-    x_proj) in its two passes, phases bit 0 the recurrence and bit 1 the
-    weight gradients; the buffers of :func:`_bwd_tc_buffers`, filled."""
+    """The tensor-core backward of both variants (``wi`` None: x is
+    x_proj; bfloat16, or float16 without the projection) in its two
+    passes, phases bit 0 the recurrence and bit 1 the weight gradients;
+    the buffers of :func:`_bwd_tc_buffers`, filled."""
     steps, n = x.shape[:2]
     hidden = wr.shape[0]
     f_in = 0 if wi is None else x.shape[2]
@@ -628,7 +643,8 @@ def _bwd_tc(x, keep, wi, wr, bias, c0, h0, ys, cs, dys, *, phases=3,
     wr = on_16_bytes(wr)
     wi = wr if wi is None else on_16_bytes(wi)
     err = library().mlt_lstm_bwd_tc(
-        hidden, f_in, phases, x.data_ptr(), keep.data_ptr(),
+        _DTYPE_CODES[x.dtype], hidden, f_in, phases, x.data_ptr(),
+        keep.data_ptr(),
         wi.data_ptr(), wi_t.data_ptr(),
         wr.data_ptr(), wr_t.data_ptr(), bias.data_ptr(), c0.data_ptr(),
         h0.data_ptr(), ys.data_ptr(), cs.data_ptr(), dys.data_ptr(),
@@ -642,13 +658,13 @@ def _bwd_tc(x, keep, wi, wr, bias, c0, h0, ys, cs, dys, *, phases=3,
 
 def lstm_sequence_bwd(x_proj, keep, wr, bias, c0, h0, ys, cs, dys):
     """The backward kernel: (dx_proj, dwr, db, dc0, dh0) given the
-    forward's ys / cs."""
+    forward's ys / cs, on the route :func:`bwd_uses_tensor_cores` names."""
     steps, n, hidden = _check_inputs(x_proj, keep, wr, bias, c0, h0)
     dtype, device = x_proj.dtype, x_proj.device
     _check("ys", ys, dtype, (steps, n, hidden))
     _check("cs", cs, dtype, (steps, n, hidden))
     _check("dys", dys, dtype, (steps, n, hidden))
-    if uses_tensor_cores(dtype, hidden):
+    if bwd_uses_tensor_cores(dtype, hidden):
         b = _bwd_tc(x_proj, keep, None, wr, bias, c0, h0, ys, cs, dys)
         LSTM_BWD.launches += 1
         LSTM_BWD.tc_launches += 1

@@ -38,7 +38,9 @@ from madrona_learn_tpu.ops.pallas.lstm import \
 from madrona_learn_tpu.ops.pallas.policy_step import \
     policy_step_supported as jax_policy_step_supported
 from madrona_learn_tpu_torch.compat.from_jax import actor_critic_state_dict
-from madrona_learn_tpu_torch.ops.cuda.lstm import (lstm_proj_supported,
+from madrona_learn_tpu_torch.ops.cuda.lstm import (bwd_uses_tensor_cores,
+                                                   fwd_uses_tensor_cores,
+                                                   lstm_proj_supported,
                                                    lstm_sequence_proj_fwd,
                                                    uses_tensor_cores)
 from madrona_learn_tpu_torch.ops.cuda.gru import \
@@ -152,8 +154,12 @@ def test_float16_takes_no_fused_step_and_no_projection_kernel(monkeypatch):
     for f_in, hidden in ((128, 128), (256, 256), (512, 128)):
         assert not lstm_proj_supported(f_in, hidden, torch.float16)
         assert not jax_lstm_proj_supported(f_in, hidden, jnp.float16)
-    # Neither recurrence takes tensor cores in float16 (no wgmma route yet).
+    # In float16 only the LSTM backward takes tensor cores (its f16 wgmma
+    # instance at 128 and 256); the forwards, the projection kernels and
+    # the GRU stay on CUDA cores.
     assert not uses_tensor_cores(torch.float16, 256)
+    assert bwd_uses_tensor_cores(torch.float16, 256)
+    assert not fwd_uses_tensor_cores(torch.float16, 256)
     assert not gru_uses_tensor_cores(torch.float16, 256)
     # The projection kernel refuses float16 on the card's route too.
     meta = lambda *s: torch.empty(*s, dtype=torch.float16, device="meta")

@@ -24,8 +24,7 @@ a row's arithmetic is the same emulation; the wide cases hold it to the
 plain forward and to JAX at T <= 4, to itself bitwise (the T = 1 step
 against step t of T = 8, N = 70 against N = 16, a chunk's rows of the
 chunk-indexed form against the single-policy form), and the wrappers'
-routes: the forwards on the tensor-core entry points, the backwards on
-the CUDA-core ones.
+routes: the forwards and the backwards on the tensor-core entry points.
 
 Inputs come from numpy seeds, at N = 70 (ragged against the kernel's rows
 a block), H = 128, 384 and 512, F = 128 and 256.
@@ -51,6 +50,7 @@ from madrona_learn_tpu_torch.ops.cuda.lstm import (
     LSTM_FWD_CHUNKED,
     LSTM_PROJ_FWD,
     _cell,
+    bwd_uses_tensor_cores,
     fwd_uses_tensor_cores,
     lstm_sequence_bwd,
     lstm_sequence_bwd_chunked,
@@ -104,8 +104,10 @@ def _slices(a, b, acc=None):
     return acc
 
 
-def emulate_tc_fwd(x, keep, wi, wr, bias, c0, h0):
-    """The tensor-core forward's arithmetic: (ys, cs), each [T, N, H]."""
+def emulate_tc_fwd(x, keep, wi, wr, bias, c0, h0, pres=None):
+    """The tensor-core forward's arithmetic: (ys, cs), each [T, N, H].
+    ``pres``, where given, is a list that receives each step's
+    pre-activations [N, 4H] (f32), in step order."""
     b32 = bias.float()
     zero = torch.zeros((), dtype=BF16)
     c, h = c0, h0
@@ -116,6 +118,8 @@ def emulate_tc_fwd(x, keep, wi, wr, bias, c0, h0):
         else:
             xp = _slices(x[t], wi).to(BF16).float()
             pre = _slices(h, wr, acc=xp) + b32
+        if pres is not None:
+            pres.append(pre)
         gi, gf, gg, go = pre.chunk(4, dim=-1)
         new_c = torch.sigmoid(gf) * c.float() + torch.sigmoid(gi) * torch.tanh(
             gg)
@@ -422,10 +426,10 @@ def test_wide_bf16_forwards_take_tensor_cores_backwards_cuda_cores(
         monkeypatch, H):
     """At H = 384 and 512 in bf16 the two forwards launch their
     tensor-core entry points (the chunk-indexed one with tensor_core 1) and
-    count a tensor-core launch each; the two backwards launch their
-    CUDA-core entry points (dtype code 1) and count none. Operands stand on
-    the CPU: the library, the operand check, the SM count and the stream
-    are stand-ins."""
+    count a tensor-core launch each; so do the two backwards (the
+    two-block cluster's instances: dtype code 1, the chunk-indexed one with
+    tensor_core 1). Operands stand on the CPU: the library, the operand
+    check, the SM count and the stream are stand-ins."""
     lib = _stand_in_card(monkeypatch)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda device=None: types.SimpleNamespace(
@@ -434,7 +438,8 @@ def test_wide_bf16_forwards_take_tensor_cores_backwards_cuda_cores(
     for k in kernels:
         monkeypatch.setattr(k, "launches", 0)
         monkeypatch.setattr(k, "tc_launches", 0)
-    assert fwd_uses_tensor_cores(BF16, H) and not uses_tensor_cores(BF16, H)
+    assert fwd_uses_tensor_cores(BF16, H) and bwd_uses_tensor_cores(BF16, H)
+    assert not uses_tensor_cores(BF16, H)     # no projection kernel here
     T, N, P = 2, 8, 2
 
     def z(*shape):
@@ -452,11 +457,11 @@ def test_wide_bf16_forwards_take_tensor_cores_backwards_cuda_cores(
                               z(P, 4 * H), idx, z(N, H), z(N, H), seq, seq,
                               seq)
     assert lib.calls == ["mlt_lstm_fwd_tc", "mlt_lstm_fwd_chunked",
-                         "mlt_lstm_bwd", "mlt_lstm_bwd_chunked"]
+                         "mlt_lstm_bwd_tc", "mlt_lstm_bwd_chunked"]
     fwd_tc, fwd_chunked, bwd, bwd_chunked = lib.args
     assert fwd_tc[:2] == (H, 0)
     assert fwd_chunked[:3] == (1, 1, H)
-    assert bwd[:2] == (1, H)
-    assert bwd_chunked[:3] == (0, 1, H)
+    assert bwd[:4] == (1, H, 0, 3)          # dtype, hidden, f_in, phases
+    assert bwd_chunked[:3] == (1, 1, H)
     assert [(k.launches, k.tc_launches) for k in kernels] == [
-        (1, 1), (1, 1), (1, 0), (1, 0)]
+        (1, 1), (1, 1), (1, 1), (1, 1)]

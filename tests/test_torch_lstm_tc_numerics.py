@@ -5,11 +5,18 @@ and the rule that routes a call to it.
 
 A plain-torch emulation of the kernels' arithmetic: bf16 operands with f32
 products summed 64 deep at a time in the kernels' K order (the ring's
-slices), ``round(x . Wi)`` before ``+ h_in . Wr`` in the projection, gate
+slices), the pre-activations recomputed as the forward computes them
+(``round(x . Wi)`` before ``+ h_in . Wr`` in the projection; the forward
+emulation's slice sums, ``test_torch_lstm_fwd_tc_numerics._slices``), gate
 math in f32, dgates rounded to bf16 before ``dh_prev = dgates . Wr^T``,
 ``dx = round(dgates . Wi^T)`` and the weight gradients; dW as f32 partials
 over splits of the T * N rows (a multiple of 64 each), summed in split
-order, and db as per-block partials over R rows summed in block order. It
+order, and db as per-block partials over R rows summed in block order. At
+H = 384 and 512 the kernel splits the units over a cluster of two blocks,
+each recomputing its units' pre-activations and dh_prev over the full K,
+which the emulation follows rank by rank; in float16 (the port's own
+instance, no projection) the operands and the rounding points are
+float16 (``tests/test_torch_lstm_bwd_tc_wide_f16.py`` holds those). It
 is held
 
 - against ``lstm_sequence_reference`` / ``lstm_sequence_proj_reference``'s
@@ -37,14 +44,15 @@ from madrona_learn_tpu_torch.ops.cuda import KERNELS
 from madrona_learn_tpu_torch.ops.cuda.lstm import (
     _cell,
     _num_splits_tc,
+    bwd_uses_tensor_cores,
     lstm_sequence_bwd,
     lstm_sequence_proj_bwd,
     lstm_sequence_proj_reference,
     lstm_sequence_reference,
     on_16_bytes,
     tc_rows,
-    uses_tensor_cores,
 )
+from test_torch_lstm_fwd_tc_numerics import _slices
 
 torch.set_num_threads(1)
 
@@ -58,13 +66,13 @@ BWD_RTOL = 3.2e-2
 H100_SMS = 132
 
 
-def _inputs(seed, T, N, H, F=None):
-    """bf16 operands (the distribution chip_smoke.py draws) and a bf16
-    cotangent, as numpy f32 arrays holding bf16 values."""
+def _inputs(seed, T, N, H, F=None, dtype=BF16):
+    """Operands of ``dtype`` (bf16 by default; the distribution
+    chip_smoke.py draws) and a cotangent of it, from numpy f32 draws."""
     rng = np.random.default_rng(seed)
 
     def bf(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(BF16)
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
 
     width = 4 * H if F is None else F
     args = dict(
@@ -89,8 +97,10 @@ def _chunked(a, b):
 
 
 def _forward_states(x, keep, wi, wr, bias, c0, h0):
-    """ys and cs of the plain forward (the states the backward reads)."""
-    x_proj = x if wi is None else (x.float() @ wi.float()).to(BF16)
+    """ys and cs of the plain forward (the states the backward reads), in
+    the operands' dtype."""
+    dt = x.dtype
+    x_proj = x if wi is None else (x.float() @ wi.float()).to(dt)
     c, h = c0, h0
     ys, cs = [], []
     for t in range(x.shape[0]):
@@ -98,22 +108,38 @@ def _forward_states(x, keep, wi, wr, bias, c0, h0):
         ys.append(new_h)
         cs.append(new_c)
         mask = keep[t][:, None] > 0.5
-        c = torch.where(mask, new_c, torch.zeros((), dtype=BF16))
-        h = torch.where(mask, new_h, torch.zeros((), dtype=BF16))
+        c = torch.where(mask, new_c, torch.zeros((), dtype=dt))
+        h = torch.where(mask, new_h, torch.zeros((), dtype=dt))
     return torch.stack(ys), torch.stack(cs)
 
 
 def emulate_tc_bwd(x, keep, wi, wr, bias, c0, h0, ys, cs, dys,
-                   sms=H100_SMS):
+                   sms=H100_SMS, pres=None, state=None):
     """The tensor-core backward's arithmetic: (dx, dwi, dwr, db, dc0, dh0),
-    dx the dgates without the projection (dwi then None)."""
+    dx the dgates without the projection (dwi then None), each in the
+    operands' dtype (bf16; float16 without the projection). At H = 384
+    and 512 rank r of the two-block cluster owns units r H / 2 .. of each
+    gate: it recomputes their pre-activations over all H (the forward's
+    slices), and dh_prev of its units over all 4H dgates, both blocks'.
+    ``pres``, where given, is a list that receives each step's recomputed
+    pre-activations [N, 4H] (f32), in reverse step order; ``state``, a
+    dict that receives the rounded dgates ``dg`` [T, N, 4H], ``hin`` [T,
+    N, H] as each step used it and the db partials of the row tiles
+    ``db_blocks`` (f32, in tile order)."""
+    dt = x.dtype
     T, N, _ = x.shape
     rows = tc_rows(wi is not None)
     H = wr.shape[0]
+    ranks = 2 if H > 256 else 1
+    U = H // ranks
+    # Rank r's columns of the 4H gates, and its rows of Wr (its units).
+    cols = [torch.cat([torch.arange(g * H + r * U, g * H + (r + 1) * U)
+                       for g in range(4)]) for r in range(ranks)]
+    units = [slice(r * U, (r + 1) * U) for r in range(ranks)]
     b32 = bias.float()
     dh = torch.zeros(N, H, dtype=F32)
     dc = torch.zeros(N, H, dtype=F32)
-    zero = torch.zeros((), dtype=BF16)
+    zero = torch.zeros((), dtype=dt)
     dgs, dxs, hins = [None] * T, [None] * T, [None] * T
     dh0 = dc0 = None
     for t in reversed(range(T)):
@@ -125,15 +151,16 @@ def emulate_tc_bwd(x, keep, wi, wr, bias, c0, h0, ys, cs, dys,
             h_in = torch.where(kept, ys[t - 1], zero)
             c_in = torch.where(kept, cs[t - 1], zero)
         hins[t] = h_in
-        if wi is None:
-            pre = (x[t].float() + _chunked(h_in, wr)) + b32
-        else:
-            xp = _chunked(x[t], wi).to(BF16).float()
-            pre = xp
-            for k0 in range(0, H, K_SLICE):
-                pre = pre + (h_in[:, k0:k0 + K_SLICE].float()
-                             @ wr[k0:k0 + K_SLICE].float())
-            pre = pre + b32
+        pre = torch.empty(N, 4 * H, dtype=F32)
+        for c in cols:
+            if wi is None:
+                pre[:, c] = (x[t][:, c].float() + _slices(h_in, wr[:, c])) \
+                    + b32[c]
+            else:
+                xp = _slices(x[t], wi[:, c]).to(dt).float()
+                pre[:, c] = _slices(h_in, wr[:, c], acc=xp) + b32[c]
+        if pres is not None:
+            pres.append(pre)
         gi, gf, gg, go = pre.chunk(4, dim=-1)
         si, sf, tg, so = (torch.sigmoid(gi), torch.sigmoid(gf),
                           torch.tanh(gg), torch.sigmoid(go))
@@ -144,14 +171,14 @@ def emulate_tc_bwd(x, keep, wi, wr, bias, c0, h0, ys, cs, dys,
             dc_total * tg * si * (1 - si),
             dc_total * c_in.float() * sf * (1 - sf),
             dc_total * si * (1 - tg * tg),
-            dh_total * tanh_c * so * (1 - so)], dim=-1).to(BF16)
+            dh_total * tanh_c * so * (1 - so)], dim=-1).to(dt)
         dgs[t] = dg
-        dh_prev = _chunked(dg, wr.t())
+        dh_prev = torch.cat([_chunked(dg, wr[u].t()) for u in units], dim=1)
         if wi is not None:
-            dxs[t] = _chunked(dg, wi.t()).to(BF16)
+            dxs[t] = _chunked(dg, wi.t()).to(dt)
         dc_prev = dc_total * sf
         if t == 0:
-            dh0, dc0 = dh_prev.to(BF16), dc_prev.to(BF16)
+            dh0, dc0 = dh_prev.to(dt), dc_prev.to(dt)
         dh = torch.where(kept, dh_prev, torch.zeros(()))
         dc = torch.where(kept, dc_prev, torch.zeros(()))
 
@@ -172,16 +199,21 @@ def emulate_tc_bwd(x, keep, wi, wr, bias, c0, h0, ys, cs, dys,
         dw = dw + part
     dgs_t = torch.stack(dgs).float()      # [T, N, 4H]
     db = torch.zeros(4 * H, dtype=F32)
+    blocks = []
     for n0 in range(0, N, rows):
         block = torch.zeros(4 * H, dtype=F32)
         for t in reversed(range(T)):
             block = block + dgs_t[t, n0:n0 + rows].sum(0)
+        blocks.append(block)
         db = db + block
-    dw = dw.to(BF16)
+    if state is not None:
+        state.update(dg=torch.stack(dgs), hin=torch.stack(hins),
+                     db_blocks=blocks)
+    dw = dw.to(dt)
     if wi is None:
-        return torch.stack(dgs), None, dw, db.to(BF16), dc0, dh0
+        return torch.stack(dgs), None, dw, db.to(dt), dc0, dh0
     F = x.shape[2]
-    return (torch.stack(dxs), dw[:F], dw[F:], db.to(BF16), dc0, dh0)
+    return (torch.stack(dxs), dw[:F], dw[F:], db.to(dt), dc0, dh0)
 
 
 def _plain_grads(args, probe):
@@ -289,12 +321,15 @@ def _aligned_at(shape, dtype, shift):
     (BF16, 192, 0, False),    # no kernel at this width
     (F32, 256, 0, False),     # float32 stays on CUDA cores
     (F32, 128, 0, False),
+    (BF16, 512, 0, True),     # the two-block cluster
+    (torch.float16, 256, 0, True),     # f16 wgmma
+    (torch.float16, 384, 0, False),    # float16 wide: CUDA cores
 ])
 def test_lstm_bwd_path_rule(dtype, H, shift, tensor_core):
     """The route depends on dtype and H alone; the tensor-core wrapper puts
     an operand off a 16-byte boundary onto one, the same values, and leaves
     one on a boundary as it is."""
-    assert uses_tensor_cores(dtype, H) is tensor_core
+    assert bwd_uses_tensor_cores(dtype, H) is tensor_core
     x = _aligned_at((2, 3, 4 * H), dtype, shift)
     x.copy_(torch.arange(x.numel(), dtype=dtype).view(x.shape))
     on = on_16_bytes(x)

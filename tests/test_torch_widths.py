@@ -21,8 +21,8 @@ wider layers, which then take the unfused sequence kernels.
   host sync) against their CPU form (a loop over the chunks).
 - The wrappers' operand checks take H = 384 and 512 in every dtype, and
   their launches go to the CUDA-core entry points (a stand-in library),
-  but for the bfloat16 LSTM forwards, which take their tensor-core ones;
-  a width without an instance is refused.
+  but for the bfloat16 LSTM forwards and backwards, which take their
+  tensor-core ones; a width without an instance is refused.
 - An H = 96 GRU and an H = 384 LSTM (float32), carried over from flax
   (``compat/from_jax.py``): the rollout step and the sequence against the
   JAX module, the chunked step and the batched sequence against
@@ -65,6 +65,7 @@ from madrona_learn_tpu_torch.models.common import StackedParams
 from madrona_learn_tpu_torch.ops.cuda import KERNELS
 from madrona_learn_tpu_torch.ops.cuda.gru import gru_supported
 from madrona_learn_tpu_torch.ops.cuda.lstm import (
+    bwd_uses_tensor_cores,
     fwd_uses_tensor_cores,
     lstm_proj_supported,
     lstm_supported,
@@ -105,9 +106,12 @@ def test_gates_are_jaxs(H, dtype):
             H in (128, 256)
             and bool(jax_policy_step_supported(H, f_in, jdt)))
     # bfloat16 takes tensor cores where the wgmma instances are built: the
-    # LSTM forwards at every instance's width, the backwards (and the
-    # GRU) at 128 and 256.
+    # LSTM forwards and backwards at every instance's width, the projection
+    # (and the GRU) at 128 and 256; float16 the LSTM backwards at 128 and
+    # 256.
     assert fwd_uses_tensor_cores(tdt, H) is (tdt == BF16 and H in INSTANCES)
+    assert bwd_uses_tensor_cores(tdt, H) is (
+        (tdt == BF16 and H in INSTANCES) or (tdt == F16 and H in (128, 256)))
     assert uses_tensor_cores(tdt, H) is (tdt == BF16 and H in (128, 256))
     assert gru_mod.uses_tensor_cores(tdt, H) is (tdt == BF16
                                                  and H in (128, 256))
@@ -327,11 +331,12 @@ def test_wide_launches_take_the_cuda_core_entry_points(monkeypatch, H,
     """At H = 384 and 512 each of the eight wrappers launches its
     CUDA-core entry point with the tensor's dtype code (bfloat16 1: the
     bf16 CUDA-core instance) and counts the launch, none on tensor cores;
-    but in bfloat16 the two LSTM forwards, which launch their tensor-core
-    entry points (the two-block cluster; the chunk-indexed one with
-    tensor_core 1) and count a tensor-core launch each. The operands stand
-    on the CPU here: the library, the operand check, the SM count and the
-    stream are stand-ins."""
+    but in bfloat16 the four LSTM wrappers, which launch their tensor-core
+    entry points (the two-block cluster; the chunk-indexed ones with
+    tensor_core 1, the single-policy backward with dtype code 1) and count
+    a tensor-core launch each. The operands stand on the CPU here: the
+    library, the operand check, the SM count and the stream are
+    stand-ins."""
     tdt = DTYPES[dtype][0]
     code = {F32: 0, BF16: 1, F16: 2}[tdt]
     lib = _Lib()
@@ -375,23 +380,27 @@ def test_wide_launches_take_the_cuda_core_entry_points(monkeypatch, H,
     gru_mod.gru_sequence_bwd_chunked(z(T, N, 3 * H), z(T, N),
                                      z(P, H, 3 * H), z(P, H), idx, z(N, H),
                                      seq, seq)
-    tc_fwd = tdt == BF16
+    tc_lstm = tdt == BF16
     assert [c[0] for c in lib.calls] == [
-        "mlt_lstm_fwd_tc" if tc_fwd else "mlt_lstm_fwd", "mlt_lstm_bwd",
+        "mlt_lstm_fwd_tc" if tc_lstm else "mlt_lstm_fwd",
+        "mlt_lstm_bwd_tc" if tc_lstm else "mlt_lstm_bwd",
         "mlt_lstm_fwd_chunked", "mlt_lstm_bwd_chunked", "mlt_gru_fwd",
         "mlt_gru_bwd", "mlt_gru_fwd_chunked", "mlt_gru_bwd_chunked"]
     for name, args in lib.calls:
         if name == "mlt_lstm_fwd_tc":       # (hidden, f_in, ...)
             assert args[:2] == (H, 0), name
             continue
+        if name == "mlt_lstm_bwd_tc":       # (dtype, hidden, f_in, ...)
+            assert args[:3] == (code, H, 0), name
+            continue
         # (dtype, hidden, ...) or, chunked, (tensor_core, dtype, hidden).
         head = args[1:3] if name.endswith("_chunked") else args[:2]
         assert head == (code, H), name
         if name.endswith("_chunked"):
-            on_tc = tc_fwd and name == "mlt_lstm_fwd_chunked"
-            assert args[0] == int(on_tc), name
-    tc_names = (("lstm_sequence_fwd", "lstm_sequence_fwd_chunked")
-                if tc_fwd else ())
+            assert args[0] == int(tc_lstm and "lstm" in name), name
+    tc_names = (("lstm_sequence_fwd", "lstm_sequence_bwd",
+                 "lstm_sequence_fwd_chunked", "lstm_sequence_bwd_chunked")
+                if tc_lstm else ())
     assert {n: (k.launches, k.tc_launches) for n, k in kernels.items()} == \
         {n: (1, int(n in tc_names)) for n in names}
 

@@ -6,8 +6,9 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --digests`` runs phases 1 and 2, then prints the
-SHA-256 of the bf16 LSTM and GRU kernels' (the chunk-indexed ones
-included, and the fused step's), ``mha``'s, ``gae``'s and the two ``layer_norm`` kernels'
+SHA-256 of the LSTM and GRU kernels' tensor-core instances (bf16, and
+float16 at 128 / 256; the chunk-indexed ones included, and the fused
+step's), ``mha``'s, ``gae``'s and the two ``layer_norm`` kernels'
 outputs from seeded inputs, to hold two
 checkouts' kernels bitwise equal: copy the script into the other
 checkout's root and run it there too. ``--timings`` runs phases 1 and 2,
@@ -39,8 +40,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    N = 8192 must equal N = 256 on the shared rows and the batch rolled by
    5 rows bitwise, a T = 1 call from the cleared state must equal the
    matching step of the T = 16 call bitwise, and at ragged N they must
-   write no row past N; the LSTM and GRU kernels' float16 instances (CUDA
-   cores) are checked, forward and backward, and timed at
+   write no row past N; the LSTM and GRU kernels' float16 instances (on
+   tensor cores but for the GRU forward, whose float16 instance runs on
+   CUDA cores; the tensor-core ones held bitwise as the bf16 ones: batch
+   invariance, and for the LSTM forward the rollout step) are checked,
+   forward and backward, and timed at
    headline_fp16's and headline_gru_fp16's update minibatch and rollout
    step, with their bounds at 2 bytes an element; the GRU forward is also
    timed at each rows-a-block
@@ -94,8 +98,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    bitwise it; and the float16 instances of ``grouped_matmul`` at
    headline_pbt's three pass shapes (tensor cores at 256 -> 256 and 256 ->
    1024, CUDA cores at IN = 2), of ``lstm_sequence_fwd_chunked`` /
-   ``gru_sequence_fwd_chunked`` at the collect step and of their
-   backwards at the learn step (CUDA cores): against the
+   ``gru_sequence_fwd_chunked`` at the collect step (the LSTM's also at
+   the learn step) and of their backwards at the learn step (tensor cores
+   but for the GRU forward): against the
    plain twins (the recurrences within 2^-8, ``grouped_matmul`` within
    one float16 ulp of the largest value), every row bitwise one
    single-policy float16 launch a policy over the same rows, chunks of
@@ -263,10 +268,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``grouped_matmul`` 260, ``gae`` 1; the learn A/B) and
     headline_pbt_fp16 (the headline's model in float16, the obs cast to
     float16, ``compute_dtype=float16``: one loss scaler a train policy;
-    headline_pbt's launches, 37 / 4 / 164 / 1, the recurrences none on
+    headline_pbt's launches, 37 / 4 / 164 / 1, every LSTM launch on
     tensor cores, ``grouped_matmul`` 66 of its 164 on them (the products
     with IN and OUT multiples of 8); both A/Bs), headline_pbt_gru_fp16
-    (the GRU in float16: 37 / 4 / 164 / 1, 66 likewise; the learn A/B) and headline_pbt_window (headline_window's
+    (the GRU in float16: 37 / 4 / 164 / 1, the 4 backwards on tensor
+    cores, 66 likewise; the learn A/B) and headline_pbt_window
+    (headline_window's
     WindowAttentionMemory(256, window 16, 4 heads), bf16: ``grouped_matmul``
     263, 8 a step and 7 for the bootstrap, ``gae`` 1, no recurrent
     kernel; both A/Bs); the float16 phases print each policy's loss scale
@@ -314,8 +321,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     critic's tower alone for the bootstrap value, ``lstm_sequence_bwd``
     8, ratio exactly 0), headline_fp16 and headline_gru_fp16 (the
     headline and headline_gru in float16 with the observations cast and
-    the loss scaled: the headline's and headline_gru's launches, all on
-    the recurrences' CUDA-core float16 instances, the scaler checked as at
+    the loss scaled: the headline's and headline_gru's launches, every
+    LSTM launch and every GRU backward on the float16 tensor-core
+    instances, the GRU forwards on CUDA cores, the scaler checked as at
     mlp_fp16; ratio exactly 0 at headline_fp16), headline_window
     (``WindowAttentionMemory(256, window 16, 4 heads)`` in the LSTM's
     place, bf16: ``gae`` alone, its ratio printed) and
@@ -955,10 +963,9 @@ def check_lstm(results):
     # 4100 rows), a train policy's 2560 agents at the bootstrap value, and
     # its update minibatch of 1280 sequences; then flagship_large's
     # minibatch, a ragged batch at both widths (the bf16 kernels on tensor
-    # cores), the float16 instances (the forward on CUDA cores, the
-    # backward on tensor cores) at headline_fp16's update minibatch and
-    # rollout step ("fp16") and ragged at 128, and float32 at both
-    # instantiated widths (CUDA cores).
+    # cores), the float16 instances (on tensor cores, f16 wgmma) at
+    # headline_fp16's update minibatch and rollout step ("fp16") and ragged
+    # at 128, and float32 at both instantiated widths (CUDA cores).
     cases = [
         (16, 8192, 256, torch.bfloat16, "timed"),
         (1, 16384, 256, torch.bfloat16, "step"),
@@ -987,10 +994,11 @@ def check_lstm(results):
         err = fwd_err = compare(f"lstm fwd {tag} ({fpath})", ys,
                                 lstm_sequence_reference(*args),
                                 **TOL[("fwd", dname)])
-        if main_path:
+        if main_path or role == "fp16":
             if fpath != "tensor_core":
                 raise AssertionError(f"lstm fwd {tag}: the main path took "
                                      f"the {fpath} route")
+        if main_path:
             fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
             fwd["path"] = fpath
         if fpath == "tensor_core" and N % fwd_tc_rows():
@@ -1020,8 +1028,9 @@ def check_lstm(results):
             if main_path and T > 1:
                 bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
         if role == "fp16" and T > 1:
-            # The float16 backward's main route: tensor cores,
-            # deterministic and batch invariant as the bf16 one.
+            # The float16 forward and backward's main route: tensor cores,
+            # deterministic, batch invariant and the rollout step the
+            # sequence's step, as the bf16 ones.
             if path != "tensor_core":
                 raise AssertionError(f"lstm bwd {tag}: the main path took "
                                      f"the {path} route")
@@ -1029,6 +1038,8 @@ def check_lstm(results):
                            (ys, cs), probe, got,
                            row_args={0: 1, 1: 1, 4: 0, 5: 0},
                            row_outs={0: 1, 3: 0, 4: 0}, weight_outs=(1, 2))
+            _tc_fwd_checks("lstm fwd " + tag, lstm_sequence_fwd, args,
+                           (ys, cs), {4: 1, 5: 0})
             x_proj, keep, wr, bias, c0, h0 = args
             split = {}
             _tc_bwd_timing("lstm bwd " + tag, split, x_proj, keep, None, wr,
@@ -1517,8 +1528,9 @@ def _gru_fwd_sweep(update_args, step_args):
 def check_gru(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gru import (
-        FWD_TC_ROWS, GRU_BWD, GRU_FWD, _fwd_tc, gru_sequence_bwd,
-        gru_sequence_fwd, gru_sequence_reference, uses_tensor_cores)
+        FWD_TC_ROWS, GRU_BWD, GRU_FWD, _fwd_tc, bwd_uses_tensor_cores,
+        fwd_uses_tensor_cores, gru_sequence_bwd, gru_sequence_fwd,
+        gru_sequence_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(10)
     fwd = results["gru_sequence_fwd"] = {"max_abs_err": 0.0}
@@ -1526,8 +1538,9 @@ def check_gru(results):
     bf16, f32 = torch.bfloat16, torch.float32
     # (T, N, H, dtype, on the main path): the headline_gru update minibatch,
     # its rollout step, ragged batches at both widths (bf16 on tensor
-    # cores), the float16 instances (CUDA cores) at headline_gru_fp16's
-    # update minibatch and rollout step ("fp16"), and float32 at both
+    # cores), the float16 instances (the forward on CUDA cores, the
+    # backward on tensor cores) at headline_gru_fp16's update minibatch
+    # and rollout step ("fp16") and ragged at 128, and float32 at both
     # widths (CUDA cores).
     f16 = torch.float16
     cases = [
@@ -1550,7 +1563,7 @@ def check_gru(results):
         args = _gru_inputs(gen, T, N, H, dtype)
         probe = torch.randn(T, N, H, device="cuda", generator=gen).to(dtype)
 
-        ys, fpath = _routed(GRU_FWD, uses_tensor_cores(dtype, H),
+        ys, fpath = _routed(GRU_FWD, fwd_uses_tensor_cores(dtype, H),
                             gru_sequence_fwd, *args)
         err = fwd_err = compare(f"gru fwd {tag} ({fpath})", ys,
                                 gru_sequence_reference(*args),
@@ -1576,7 +1589,7 @@ def check_gru(results):
             return torch.autograd.grad(
                 (out.float() * probe.float()).sum(), diff)
 
-        got, path = _routed(GRU_BWD, uses_tensor_cores(dtype, H),
+        got, path = _routed(GRU_BWD, bwd_uses_tensor_cores(dtype, H),
                             gru_sequence_bwd, *args, ys, probe)
         bwd_err = 0.0
         for name, g, w in zip(("dxp", "dwh", "dbh", "dh0"), got,
@@ -1586,13 +1599,23 @@ def check_gru(results):
             bwd_err = max(bwd_err, err)
             if main_path and T > 1:
                 bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
+        if role == "fp16" and T > 1:
+            # The float16 backward's main route: tensor cores,
+            # deterministic and batch invariant as the bf16 one.
+            if path != "tensor_core":
+                raise AssertionError(f"gru bwd {tag}: the main path took "
+                                     f"the {path} route")
+            _tc_bwd_checks("gru bwd " + tag, gru_sequence_bwd, args, (ys,),
+                           probe, got, row_args={0: 1, 1: 1, 4: 0},
+                           row_outs={0: 1, 3: 0}, weight_outs=(1, 2))
+            _gru_tc_timing(bwd.setdefault("float16", {}), args, ys, probe)
         if role == "fp16":
             _float16_record(
                 "gru", fwd, bwd, T, N, H, (fwd_err, bwd_err),
                 (lambda: gru_sequence_fwd(*args),
                  lambda: gru_sequence_reference(*args),
                  lambda: gru_sequence_bwd(*args, ys, probe), plain_bwd),
-                _gru_bounds)
+                _gru_bounds, paths=(fpath, path))
 
         if main_path and T > 1:
             if path != "tensor_core":
@@ -2207,15 +2230,18 @@ def check_lstm_chunked(results, H):
     count init_training derives), at its learn step (T = 16, 8 chunks of
     1280, one a train policy) and at chunks of 100 rows (not a multiple of
     the 32-row tile), bf16 (on tensor cores, as ``fwd_uses_tensor_cores``
-    says at every width) and f32 on CUDA cores, its float16 instance (CUDA
-    cores) at the collect step and, at 512, infer_512's step (95 chunks of
+    says at every width) and f32 on CUDA cores, its float16 instance (on
+    tensor cores at 256, CUDA cores at 384 and 512) at the collect step
+    (and at 256 at the learn step), and, at 512, infer_512's step (95
+    chunks of
     256 rows, 32 policies): against its plain twin; row for row bitwise
     ``lstm_sequence_fwd`` with the row's policy's weights (each policy's
     chunks in one call); batch invariance (the first chunks alone, and the
     chunks rolled); chunks of index P and -1 NaN, the others unchanged;
     its time against one ``lstm_sequence_fwd`` a policy over the same rows
     (the per-policy loop's launches) and its bound (the float16 instance's
-    into ``float16``, the learn step's into ``learn_shape``). At 384 and 512
+    into ``float16``, its learn step's into ``float16["learn_shape"]``, the
+    bf16 learn step's into ``learn_shape``). At 384 and 512
     also ``lstm_sequence_fwd`` on one policy's rows against its twin,
     timed."""
     import torch
@@ -2236,13 +2262,17 @@ def check_lstm_chunked(results, H):
     bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     # role: "collect" for the bf16 collect step, "learn" for the bf16
     # learn step (timed into res["learn_shape"]), "float16" for the
-    # collect step's float16 instance (timed into res["float16"]), "infer"
-    # for infer_512's step, None for the ragged checks.
+    # collect step's float16 instance (timed into res["float16"]),
+    # "float16_learn" for its learn step (res["float16"]["learn_shape"]),
+    # "infer" for infer_512's step, None for the ragged checks.
     learn_T = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS
     cases = [(bf16, 1, C, B, P, "collect"),
              (bf16, learn_T, PBT_MINIBATCH, PBT_TRAIN, PBT_TRAIN, "learn"),
              (f16, 1, C, B, P, "float16"),
              (bf16, 1, 100, 41, P, None), (f32, 1, 100, 41, P, None)]
+    if not wide:
+        cases.insert(3, (f16, learn_T, PBT_MINIBATCH, PBT_TRAIN, PBT_TRAIN,
+                         "float16_learn"))
     if H == INFER_CHANNELS:
         infer_c, infer_b = _infer_geometry()
         cases.append((bf16, 1, infer_c, infer_b, INFER_POLICIES, "infer"))
@@ -2251,7 +2281,7 @@ def check_lstm_chunked(results, H):
     for dtype, T, chunk, chunks, P_c, role in cases:
         dname = str(dtype).split(".")[-1]
         args = _chunked_lstm_inputs(gen, T, chunks, chunk, H, P_c, dtype)
-        if role == "learn":
+        if role in ("learn", "float16_learn"):
             args = (*args[:4], torch.arange(P_c, dtype=torch.int32,
                                             device="cuda"), *args[5:])
         x, keep, wr, bias, idx, c0, h0 = args
@@ -2297,7 +2327,7 @@ def check_lstm_chunked(results, H):
                                ("rolled", rolled[0], roll(ys, 1)),
                                ("rolled cs", rolled[1], roll(cs, 1))):
             bitwise(f"lstm_sequence_fwd_chunked {tag} {name}", got, ref)
-        if role not in ("collect", "infer", "learn"):
+        if role not in ("collect", "infer", "learn", "float16_learn"):
             bad = idx.clone()
             bad[1], bad[3] = P_c, -1
             yb, cb = lstm_sequence_fwd_chunked(x, keep, wr, bias, bad, c0,
@@ -2336,6 +2366,9 @@ def check_lstm_chunked(results, H):
                    library_ms=None, path=path, per_policy_ms=loop_ms,
                    chunk=chunk, chunks=chunks, policies=P_c, **b)
         if not wide:
+            if role == "float16_learn":
+                res.setdefault("float16", {})["learn_shape"] = rec
+                continue
             key = {"collect": None, "float16": "float16",
                    "learn": "learn_shape"}[role]
             (res if key is None else res.setdefault(key, {})).update(rec)
@@ -2634,8 +2667,8 @@ def check_gru_chunked(results, H):
     headline_pbt_gru's collect step (T = 1, the chunk size and count
     init_training derives, 12 policies) and its learn step (T = 16, 8
     train policies, one chunk of a minibatch's 1280 sequences each), bf16
-    on tensor cores where ``uses_tensor_cores`` says, and at chunks of 37
-    rows (no multiple of a tile) in a shuffled order, in bf16 and f32
+    on tensor cores where ``fwd_uses_tensor_cores`` says, and at chunks of
+    37 rows (no multiple of a tile) in a shuffled order, in bf16 and f32
     (CUDA cores): against its plain twin; row for row bitwise
     ``gru_sequence_fwd`` with the row's policy's weights (each policy's
     rows in one call); bitwise over two calls and for the first chunk
@@ -2647,9 +2680,9 @@ def check_gru_chunked(results, H):
     ``gru_sequence_fwd`` on one policy's rows against its twin, timed."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gru import (
-        GRU_FWD_CHUNKED, gru_sequence_fwd, gru_sequence_fwd_chunked,
-        gru_sequence_fwd_chunked_reference, gru_sequence_reference,
-        uses_tensor_cores)
+        GRU_FWD_CHUNKED, fwd_uses_tensor_cores, gru_sequence_fwd,
+        gru_sequence_fwd_chunked, gru_sequence_fwd_chunked_reference,
+        gru_sequence_reference)
 
     P, C, B = _pbt_chunk_geometry()
     T = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS
@@ -2657,7 +2690,8 @@ def check_gru_chunked(results, H):
     gen = torch.Generator(device="cuda").manual_seed(24 + wide * H)
     res = results.setdefault("gru_sequence_fwd_chunked", {"max_abs_err": 0.0})
     bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
-    main_route = "tensor_core" if uses_tensor_cores(bf16, H) else "cuda_core"
+    main_route = ("tensor_core" if fwd_uses_tensor_cores(bf16, H)
+                  else "cuda_core")
     shuffled = [2, 0, 3, 2, 1, 0]      # policy 4 of 5 owns no chunk
     # (T, chunks, C, P, dtype, role): the collect step, the learn step,
     # the float16 collect step, then the ragged, shuffled chunks.
@@ -2676,7 +2710,7 @@ def check_gru_chunked(results, H):
             args[4] = torch.tensor(shuffled, dtype=torch.int32,
                                    device="cuda")
         x, keep, wh, bias_h, idx, h0 = args
-        ys, path = _routed(GRU_FWD_CHUNKED, uses_tensor_cores(dtype, H),
+        ys, path = _routed(GRU_FWD_CHUNKED, fwd_uses_tensor_cores(dtype, H),
                            gru_sequence_fwd_chunked, *args)
         tag = (f"[{T_c}, {chunks} x {chunk}, {3 * H}] P={P_c} {dname} "
                f"({path})")
@@ -2761,7 +2795,7 @@ def check_gru_bwd_chunked(results, H):
     instances at 384 and 512, under the record's ``wide``) at
     headline_pbt_gru's learn step (8 train policies, one chunk of a
     minibatch's 1280 sequences each, T = 16, bf16 on tensor cores where
-    ``uses_tensor_cores`` says) and at chunks of 37 rows in a shuffled
+    ``bwd_uses_tensor_cores`` says) and at chunks of 37 rows in a shuffled
     order with a policy owning two chunks and one owning none, in bf16 and
     f32 (CUDA cores): the forward's T = 1 steps bitwise steps of its
     sequence; against its plain twin's autograd; every chunk's dx_proj /
@@ -2772,22 +2806,24 @@ def check_gru_bwd_chunked(results, H):
     policy of one chunk, bitwise the call over that chunk alone; a chunk
     of index P or -1 NaN and adding to no policy; the time against the
     per-policy loop's gru_sequence_bwd launches over the same rows, and
-    its bound. Its float16 instance (CUDA cores) at the learn step the
-    same way, with the NaN chunks, its times and bound into ``float16``.
-    At 384 and 512 also ``gru_sequence_bwd`` on one chunk's rows against
-    its twin's autograd, timed."""
+    its bound. Its float16 instance (on tensor cores at 256, CUDA cores at
+    384 and 512) at the learn step the same way, with the NaN chunks, its
+    times and bound into ``float16``. At 384 and 512 also
+    ``gru_sequence_bwd`` on one chunk's rows against its twin's autograd,
+    timed."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gru import (
-        GRU_BWD_CHUNKED, gru_sequence_bwd, gru_sequence_bwd_chunked,
-        gru_sequence_chunked_reference, gru_sequence_fwd_chunked,
-        gru_sequence_reference, uses_tensor_cores)
+        GRU_BWD_CHUNKED, bwd_uses_tensor_cores, gru_sequence_bwd,
+        gru_sequence_bwd_chunked, gru_sequence_chunked_reference,
+        gru_sequence_fwd_chunked, gru_sequence_reference)
 
     T, P = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, PBT_TRAIN
     wide = H != CHANNELS
     gen = torch.Generator(device="cuda").manual_seed(25 + wide * H)
     res = results.setdefault("gru_sequence_bwd_chunked", {"max_abs_err": 0.0})
     bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
-    main_route = "tensor_core" if uses_tensor_cores(bf16, H) else "cuda_core"
+    main_route = ("tensor_core" if bwd_uses_tensor_cores(bf16, H)
+                  else "cuda_core")
     shuffled = [2, 0, 3, 2, 1, 0]      # policy 4 of 5 owns no chunk
     # main_path: True for the bf16 learn step, "float16" for its float16
     # instance (timed into res["float16"]), False for the ragged checks.
@@ -2808,7 +2844,7 @@ def check_gru_bwd_chunked(results, H):
                      (h0,), (ys,), (ys,))
         probe = torch.randn(T_c, B * C, H, device="cuda",
                             generator=gen).to(dtype)
-        got, path = _routed(GRU_BWD_CHUNKED, uses_tensor_cores(dtype, H),
+        got, path = _routed(GRU_BWD_CHUNKED, bwd_uses_tensor_cores(dtype, H),
                             gru_sequence_bwd_chunked, *args, ys, probe)
         tag = (f"[{T_c}, {B} x {C}, {3 * H}] P={P_c} {dname} chunks "
                f"{order} ({path})")
@@ -4784,16 +4820,20 @@ def _tc_kernels(dtype, hidden):
     in a model of this dtype and recurrent width: in bfloat16 every one at
     H = 128 and 256, and at 384 and 512 the four LSTM sequence kernels
     alone (their two-block cluster; the GRU stays on CUDA cores); in
-    float16 the two LSTM backwards at 128 and 256 alone."""
-    from madrona_learn_tpu_torch.ops.cuda.lstm import (
-        bwd_uses_tensor_cores, fwd_uses_tensor_cores, uses_tensor_cores)
+    float16 the four LSTM sequence kernels and the two GRU backwards at
+    128 and 256 alone."""
+    from madrona_learn_tpu_torch.ops.cuda import gru, lstm
 
-    rules = {"lstm_sequence_fwd": fwd_uses_tensor_cores,
-             "lstm_sequence_fwd_chunked": fwd_uses_tensor_cores,
-             "lstm_sequence_bwd": bwd_uses_tensor_cores,
-             "lstm_sequence_bwd_chunked": bwd_uses_tensor_cores}
+    rules = {"lstm_sequence_fwd": lstm.fwd_uses_tensor_cores,
+             "lstm_sequence_fwd_chunked": lstm.fwd_uses_tensor_cores,
+             "lstm_sequence_bwd": lstm.bwd_uses_tensor_cores,
+             "lstm_sequence_bwd_chunked": lstm.bwd_uses_tensor_cores,
+             "gru_sequence_fwd": gru.fwd_uses_tensor_cores,
+             "gru_sequence_fwd_chunked": gru.fwd_uses_tensor_cores,
+             "gru_sequence_bwd": gru.bwd_uses_tensor_cores,
+             "gru_sequence_bwd_chunked": gru.bwd_uses_tensor_cores}
     return {name for name in TC_ROUTED
-            if rules.get(name, uses_tensor_cores)(dtype, hidden)}
+            if rules.get(name, lstm.uses_tensor_cores)(dtype, hidden)}
 
 
 def trainer_phase(card, name, build, per_update, trials, timed_updates,
@@ -4892,8 +4932,8 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
     # The trainers run bf16 at H = 256: every launch of a kernel with a
     # counted tensor-core route (the four LSTM kernels, the two GRU
     # kernels, mha, the fused step) takes it. In float16 the LSTM
-    # backwards take theirs, the other recurrences their CUDA-core
-    # instances.
+    # kernels and the GRU backwards take theirs, the GRU forwards their
+    # CUDA-core instances.
     for kernel, tc in tc_launches.items():
         if tc != (launches[kernel] if kernel in tensor_cores else 0):
             raise AssertionError(
@@ -5680,8 +5720,8 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
     the learn A/B (``_pbt_collect_ab``, ``_pbt_learn_ab``). Each kernel
     with a tensor-core route takes it on every launch or on none, as
     ``_tc_kernels`` says for the model's dtype and width: a float16 model
-    the LSTM backward alone; at 384 and 512 (``channels``) the
-    LSTM forward and backward. With
+    the LSTM forward and backward and the GRU backward; at 384 and 512
+    (``channels``) the LSTM forward and backward. With
     ``gmm_tc``, ``grouped_matmul``'s tensor-core launches an update must be
     exactly that many (the products with IN and OUT multiples of 8). A
     float16 model's policies' loss scales and non-finite steps are printed
@@ -6836,9 +6876,11 @@ def two_hot_loss_timing(card):
 def digest_phase():
     """``--digests``: the SHA-256 of each bf16 recurrence kernel's outputs
     (the four LSTM kernels, the two GRU kernels) and of ``mha``'s at the
-    update pass's shapes, from seeded inputs, as one JSON line. Copied into
-    another checkout and run there, it holds that checkout's kernels
-    bitwise to this one's."""
+    update pass's shapes, from seeded inputs, then of the other kernels
+    and instances (each group from a generator of its own, so a later
+    group leaves the earlier digests as they were), as one JSON line.
+    Copied into another checkout and run there, it holds that checkout's
+    kernels bitwise to this one's."""
     import hashlib
 
     import torch
@@ -6884,6 +6926,7 @@ def digest_phase():
         **_cuda_core_digests(digest),
         **_chunked_digests(digest),
         **_bwd_route_digests(digest),
+        **_f16_route_digests(digest),
     }}))
 
 
@@ -6931,6 +6974,47 @@ def _bwd_route_digests(digest):
         out[f"lstm_sequence_bwd_chunked {dname} H={H}"] = digest(
             lstm_sequence_bwd_chunked(*_bwd_route_inputs(
                 gen, dtype, H, chunks=PBT_TRAIN)))
+    return out
+
+
+def _f16_route_digests(digest):
+    """The float16 LSTM forward's and GRU backward's digests at H = 128 and
+    256 (f16 wgmma since the float16 forward and GRU backward moved onto
+    tensor cores), from a generator of their own: single-policy at
+    headline_fp16's and headline_gru_fp16's update minibatch (and at 2048
+    rows at 128), chunk-indexed at headline_pbt_fp16's collect step (the
+    LSTM forward) and headline_pbt_gru_fp16's learn step (the GRU
+    backward). The GRU backward's ys / dys are drawn, not taken from a
+    forward."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.gru import (
+        gru_sequence_bwd, gru_sequence_bwd_chunked)
+    from madrona_learn_tpu_torch.ops.cuda.lstm import (
+        lstm_sequence_fwd, lstm_sequence_fwd_chunked)
+
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    f16, T = torch.float16, STEPS_PER_UPDATE // NUM_BPTT_CHUNKS
+    P, C, B = _pbt_chunk_geometry()
+
+    def drawn(n, H):
+        return [torch.randn(T, n, H, device="cuda", generator=gen).to(f16)
+                for _ in range(2)]
+
+    out = {}
+    for H, N in ((128, 2048), (256, 8192)):
+        out[f"lstm_sequence_fwd float16 H={H}"] = digest(
+            lstm_sequence_fwd(*_lstm_inputs(gen, T, N, H, f16)))
+        out[f"gru_sequence_bwd float16 H={H}"] = digest(gru_sequence_bwd(
+            *_gru_inputs(gen, T, N, H, f16), *drawn(N, H)))
+    out[f"lstm_sequence_fwd_chunked float16 H={CHANNELS}"] = digest(
+        lstm_sequence_fwd_chunked(*_chunked_lstm_inputs(
+            gen, 1, B, C, CHANNELS, P, f16)))
+    learn = list(_chunked_gru_inputs(gen, T, PBT_TRAIN, PBT_MINIBATCH,
+                                     CHANNELS, PBT_TRAIN, f16))
+    learn[4] = torch.arange(PBT_TRAIN, dtype=torch.int32, device="cuda")
+    out[f"gru_sequence_bwd_chunked float16 H={CHANNELS}"] = digest(
+        gru_sequence_bwd_chunked(*learn, *drawn(PBT_TRAIN * PBT_MINIBATCH,
+                                                CHANNELS)))
     return out
 
 
@@ -7057,8 +7141,10 @@ def timing_phase():
     the float16 grouped_matmul at headline_pbt_fp16's pass shapes beside
     ``torch.bmm(x, W[idx])``, the bf16 lstm_sequence_fwd_chunked at H =
     384 and 512 at infer_512's step, headline_pbt's collect step and its
-    learn step, and the LSTM backward's bf16 384 / 512 and float16
-    instances at their learn shapes, with their bounds; as one JSON line.
+    learn step, the LSTM backward's bf16 384 / 512 and float16 instances
+    at their learn shapes, and the float16 LSTM forward's and GRU
+    backward's instances at headline_fp16's, headline_gru_fp16's and their
+    populations' shapes, with their bounds; as one JSON line.
     It calls the wrappers' public signatures only, so a copy of this
     script run in another checkout times that checkout's kernels."""
     import torch
@@ -7098,7 +7184,8 @@ def _route_timings():
     backward's tensor-core instances: lstm_sequence_bwd_chunked bf16 at
     H = 512 and 384 and float16 at 256 at headline_pbt's learn step,
     lstm_sequence_bwd bf16 at 512 on one policy's [16, 1280] and float16
-    at 256 at headline_fp16's minibatch [16, 8192]."""
+    at 256 at headline_fp16's minibatch [16, 8192]; and (``_f16_timings``)
+    the float16 LSTM forward and GRU backward at 256."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.grouped_matmul import \
         grouped_matmul
@@ -7152,6 +7239,66 @@ def _route_timings():
             f"[{learn_T}, {N}]"] = dict(
                 ms=time_ms(lambda: lstm_sequence_bwd(*args)),
                 bound_ms=b["bound_ms"])
+    out.update(_f16_timings(gen))
+    return out
+
+
+def _f16_timings(gen):
+    """The float16 LSTM forward and GRU backward at H = 256, each a median
+    of CUDA-event timings with its bound (f16 tensor-core rate):
+    lstm_sequence_fwd at headline_fp16's minibatch [16, 8192] and rollout
+    step [1, 16384], lstm_sequence_fwd_chunked at headline_pbt_fp16's
+    collect step (T = 1, 75 x 512, 12 policies) and learn step (T = 16,
+    8 x 1280, 8 policies), gru_sequence_bwd at headline_gru_fp16's
+    minibatch and gru_sequence_bwd_chunked at headline_pbt_gru_fp16's learn
+    step."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.gru import (
+        gru_sequence_bwd, gru_sequence_bwd_chunked)
+    from madrona_learn_tpu_torch.ops.cuda.lstm import (
+        lstm_sequence_fwd, lstm_sequence_fwd_chunked)
+
+    f16, H = torch.float16, CHANNELS
+    P, C, B = _pbt_chunk_geometry()
+    learn_T = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS
+    out = {}
+    for T, N in ((learn_T, 8192), (1, 16384)):
+        args = _lstm_inputs(gen, T, N, H, f16)
+        b = _lstm_bounds(T, N, H, 2, tensor="f16_tensor")[0]
+        out[f"lstm_sequence_fwd float16 H={H} [{T}, {N}]"] = dict(
+            ms=time_ms(lambda: lstm_sequence_fwd(*args)),
+            bound_ms=b["bound_ms"])
+    for label, T, chunks, chunk, P_c in (
+            ("collect", 1, B, C, P),
+            ("learn", learn_T, PBT_TRAIN, PBT_MINIBATCH, PBT_TRAIN)):
+        args = list(_chunked_lstm_inputs(gen, T, chunks, chunk, H, P_c, f16))
+        if label == "learn":
+            args[4] = torch.arange(P_c, dtype=torch.int32, device="cuda")
+        b = _chunked_lstm_bound(T, chunks, chunk, H,
+                                int(args[4].unique().numel()), 2)
+        out[f"lstm_sequence_fwd_chunked float16 H={H} {label} "
+            f"[{T}, {chunks} x {chunk}] P={P_c}"] = dict(
+                ms=time_ms(lambda: lstm_sequence_fwd_chunked(*args)),
+                bound_ms=b["bound_ms"])
+
+    def drawn(n):
+        return [torch.randn(learn_T, n, H, device="cuda",
+                            generator=gen).to(f16) for _ in range(2)]
+
+    args = [*_gru_inputs(gen, learn_T, 8192, H, f16), *drawn(8192)]
+    b = _gru_bounds(learn_T, 8192, H, 2, tensor="f16_tensor")[1]
+    out[f"gru_sequence_bwd float16 H={H} [{learn_T}, 8192]"] = dict(
+        ms=time_ms(lambda: gru_sequence_bwd(*args)), bound_ms=b["bound_ms"])
+    args = list(_chunked_gru_inputs(gen, learn_T, PBT_TRAIN, PBT_MINIBATCH,
+                                    H, PBT_TRAIN, f16))
+    args[4] = torch.arange(PBT_TRAIN, dtype=torch.int32, device="cuda")
+    args += drawn(PBT_TRAIN * PBT_MINIBATCH)
+    b = _chunked_gru_bounds(learn_T, PBT_TRAIN, PBT_MINIBATCH, H, PBT_TRAIN,
+                            2)[1]
+    out[f"gru_sequence_bwd_chunked float16 H={H} learn [{learn_T}, "
+        f"{PBT_TRAIN} x {PBT_MINIBATCH}] P={PBT_TRAIN}"] = dict(
+            ms=time_ms(lambda: gru_sequence_bwd_chunked(*args)),
+            bound_ms=b["bound_ms"])
     return out
 
 
@@ -7325,8 +7472,8 @@ def main():
               "grouped_matmul": 8 * STEPS_PER_UPDATE + 4}, 1, False),
             # The headline's model in float16 (headline_fp16's) and the GRU
             # in float16: headline_pbt's and headline_pbt_gru's launches, the
-            # recurrences on their float16 instances (the LSTM backward on
-            # tensor cores, the rest on CUDA cores) and
+            # recurrences on their float16 instances (on tensor cores but
+            # for the GRU forward) and
             # grouped_matmul on tensor cores at its aligned products (gmm_tc),
             # loss scaling a policy.
             ("headline_pbt_fp16", dict(dtype=torch.float16), pbt_lstm, 1,
@@ -7397,8 +7544,7 @@ def main():
             setting=f"bf16, an MLP + LSTM tower for the actor and one for "
                     f"the critic, {NUM_MINIBATCHES} minibatches"),
         # Float16 recurrences: the headline's launches on the kernels'
-        # float16 instances, the LSTM backward's on tensor cores,
-        # the forwards' and the GRU's on CUDA cores.
+        # float16 instances, on tensor cores but for the GRU forward's.
         "headline_fp16": trainer_phase(
             card, "headline_fp16", build_headline_fp16, lstm, trials=2,
             timed_updates=5, last_rewards=5, ratio_zero=True,

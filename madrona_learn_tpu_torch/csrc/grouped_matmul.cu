@@ -317,9 +317,7 @@ template <typename T>
 int launch_tc(const void* x, const void* w, const int* chunk_policy, void* y,
               int chunks, int rows, int in, int policies, int out,
               cudaStream_t stream) {
-  const CUtensorMapDataType dtype = std::is_same<T, __half>::value
-                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapDataType dtype = mlt::tma_dtype<T>();
   const int m_tiles = (rows + kTcM - 1) / kTcM;
   const int n_tiles = (out + kTcN - 1) / kTcN;
   const long long blocks = static_cast<long long>(chunks) * m_tiles * n_tiles;

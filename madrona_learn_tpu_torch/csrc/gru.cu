@@ -42,9 +42,9 @@
 //
 // These are bound by CUDA-core FMA issue and shared/L1 load throughput,
 // far below the tensor-core rate that bounds the work itself; they serve
-// float32 and float16, and bfloat16 at H = 384 and 512 (the same f32 math
-// from float16 or bfloat16 operands, h and the
-// rounded dhp stored in float16).
+// float32, the float16 forward, and every dtype at H = 384 and 512 (the
+// same f32 math from float16 or bfloat16 operands, h and the rounded dhp
+// stored in the storage type).
 //
 // In bfloat16, both on Hopper's tensor cores: the forward
 // (gru_fwd_tc_kernel) and the backward (gru_bwd_tc_kernel, then
@@ -53,10 +53,18 @@
 // dh_prev = dhp . Wh^T and dWh = h_in^T . dhp), which is what wgmma
 // computes, with only the order of the sums changed. They are lstm.cu's
 // lstm_fwd_tc_kernel and lstm_bwd_tc_kernel with three gates in place of
-// four; the wrapper's rule (ops/cuda/gru.py: uses_tensor_cores) sends bf16
-// at H = 128 or 256 here. One helper computes h . Wh (hidden_products) and
-// one the gates (gru_gates) for the forward and the backward's recompute,
-// so the backward differentiates the forward that ran.
+// four; the wrappers' rules (ops/cuda/gru.py: fwd_uses_tensor_cores,
+// bwd_uses_tensor_cores) send bf16 at H = 128 or 256 here. One helper
+// computes h . Wh (hidden_products) and one the gates (gru_gates) for the
+// forward and the backward's recompute, so the backward differentiates the
+// forward that ran. The float16 backward (gru_sequence_bwd and its
+// chunk-indexed instance, the port's own: JAX sends float16 to its jnp
+// twin) takes the same kernels at H = 128 and 256 with f16 operands (wgmma
+// .f16, f32 sums; dxp, dhp, dh0, dWh and dbh rounded once to f16, where
+// the CUDA-core kernel and the plain twin round them). The float16 forward
+// stays on CUDA cores, so the float16 backward recomputes h . Wh in
+// another order than the forward that wrote ys, and is held to its plain
+// twin (2^-8 of the largest value).
 //
 // The forward: one block owns R batch rows (FWD_TC_ROWS in ops/cuda/gru.py)
 // and loops over time; warpgroup w owns units 64 w .. 64 w + 63 of r, z
@@ -435,7 +443,7 @@ int launch_bwd(const void* xp, const void* keep, const void* wh,
   return sum_splits<T>(part_b, db3, splits, 3 * H, stream);
 }
 
-// ------------------------------------ bf16 backward on tensor cores
+// ------------------------------------ bf16 and f16 backward on tensor cores
 
 using bf16 = __nv_bfloat16;
 
@@ -445,7 +453,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kGruTcRows = 32;
 
 // Shared memory of gru_bwd_tc_kernel, from a 1024-byte aligned base: the
-// ring of weight slices ([H rows][64] bf16 each), then the block's h_in
+// ring of weight slices ([H rows][64] each), then the block's h_in
 // tile and its x_proj / dhp tile (K-major wgmma B operands: [K / 64]
 // subtiles of [R][64], 128-byte swizzle), its dn_pre tile (the same
 // layout) and its dys tile ([R][H], row_off).
@@ -471,8 +479,9 @@ struct GruTcBwd {
 // of gate g. The ring's next slices are Wh by (H-chunk, gate): K-major
 // slices of Wh^T (kTransA 0, the backward) or MN-major boxes of Wh as it
 // stands (kTransA 1, the forward; ring_product); h_s is the K-major h
-// tile, a_off this warpgroup's rows of a stage.
-template <int H, int R, int kTransA, int S, class Issue>
+// tile, a_off this warpgroup's rows of a stage. E: the operands' type (bf16;
+// f16 in the float16 backward).
+template <int H, int R, int kTransA, typename E, int S, class Issue>
 __device__ __forceinline__ void hidden_products(SliceRing<S>& slices,
                                                 Issue& issue,
                                                 float (&acc)[3][R / 2],
@@ -481,8 +490,8 @@ __device__ __forceinline__ void hidden_products(SliceRing<S>& slices,
   for (int kc = 0; kc < H / kTcK; ++kc)
 #pragma unroll
     for (int g = 0; g < 3; ++g)
-      ring_product<R, kTransA>(slices, issue, acc[g], a_off,
-                               h_s + kc * R * 128, kc == 0);
+      ring_product<R, kTransA, E>(slices, issue, acc[g], a_off,
+                                  h_s + kc * R * 128, kc == 0);
   wgmma_wait<0>();
 #pragma unroll
   for (int g = 0; g < 3; ++g)
@@ -507,25 +516,24 @@ __device__ __forceinline__ Gates gru_gates(float xr, float xz, float xn,
   return g;
 }
 
-// The reverse-time recurrence of the bf16 backward (see the header). One
-// block owns R batch rows; warpgroup w owns units 64 w .. 64 w + 63 of all
-// three gates. Thread (warp v of its warpgroup, lane l) holds units
+// The reverse-time recurrence of the tensor-core backward (see the header),
+// E the storage type: bf16, or f16 (the float16 instance). One block owns R
+// batch rows; warpgroup w owns units 64 w .. 64 w + 63 of all three
+// gates. Thread (warp v of its warpgroup, lane l) holds units
 // 64 w + 16 v + l / 4 (+ 8) and rows 8 j + 2 (l % 4) (+ 1) of each m64nR
 // accumulator: element 4 j + 2 s + e is unit + 8 s, row 8 j + 2 (l % 4) +
 // e. Outputs: dxp and dhp ([T, N, 3H]), hin (h_in as the step used it,
 // [T, N, H]), dh0 and part_b (this block's dbh partial, [blocks, H]).
-template <int H, int R>
+template <typename E, int H, int R>
 __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
     gru_bwd_tc_kernel(const __grid_constant__ CUtensorMap wht_map,
                       const __grid_constant__ CUtensorMap wh_map,
-                      const bf16* __restrict__ xp,
-                      const bf16* __restrict__ keep,
-                      const bf16* __restrict__ bias_h,
-                      const bf16* __restrict__ h0,
-                      const bf16* __restrict__ ys,
-                      const bf16* __restrict__ dys, bf16* __restrict__ dxp,
-                      bf16* __restrict__ dhp, bf16* __restrict__ hin,
-                      bf16* __restrict__ dh0, float* __restrict__ part_b,
+                      const E* __restrict__ xp, const E* __restrict__ keep,
+                      const E* __restrict__ bias_h, const E* __restrict__ h0,
+                      const E* __restrict__ ys, const E* __restrict__ dys,
+                      E* __restrict__ dxp, E* __restrict__ dhp,
+                      E* __restrict__ hin, E* __restrict__ dh0,
+                      float* __restrict__ part_b,
                       int steps, int n_rows,
                       const int* __restrict__ chunk_policy, int chunk,
                       int num_policies) {
@@ -602,7 +610,7 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
     }
   float bn[2], db[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int s = 0; s < 2; ++s) bn[s] = __bfloat162float(bias_h[unit0 + 8 * s]);
+  for (int s = 0; s < 2; ++s) bn[s] = to_f(bias_h[unit0 + 8 * s]);
   float dh[kAcc];   // the carried cotangent, f32
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) dh[i] = 0.0f;
@@ -618,11 +626,11 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
       const int row = block_row + n;
       const bool live = row < row_end;
       bool kept = live;
-      const bf16* hs = h0;
+      const E* hs = h0;
       if (live && t == 0) {
         hs = h0 + static_cast<size_t>(row) * H + c * 8;
       } else if (live) {
-        kept = __bfloat162float(keep[prow + row]) > 0.5f;
+        kept = to_f(keep[prow + row]) > 0.5f;
         hs = ys + (prow + row) * H + c * 8;
       }
       cp_async16(hin_s + kmaj_off<R>(n, c * 8), hs, kept);
@@ -655,17 +663,16 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = block_row + 8 * j + 2 * lt + e;
-        if (t > 0 && row < row_end &&
-            __bfloat162float(keep[prow + row]) > 0.5f)
+        if (t > 0 && row < row_end && to_f(keep[prow + row]) > 0.5f)
           keep_prev |= 1u << (2 * j + e);
       }
 
     // hp^T = Wh^T . h_in^T, gates as M and rows as N.
     float acc[3][kAcc];
-    hidden_products<H, R, 0>(slices, issue, acc, a_off, hin_s);
+    hidden_products<H, R, 0, E>(slices, issue, acc, a_off, hin_s);
 
     // Gate math, thread-local (ops/pallas/gru.py:_gates_fp32 and the
-    // backward's chain): dhp rounded to bf16 into the dhp tile (each thread
+    // backward's chain): dhp rounded to E into the dhp tile (each thread
     // rewrites only the x_proj elements it read), dn_pre into its tile, the
     // dbh partial, and dh_total * z, h_in's direct path into h'.
     float dhz[kAcc];
@@ -679,13 +686,13 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
           const bool live = block_row + 8 * j + 2 * lt + e < row_end;
           uint8_t* dgo = dg_p + kb[s][e] + j * 1024;
           const Gates gt =
-              gru_gates(ld_bf16(dgo), ld_bf16(dgo + kGate),
-                        ld_bf16(dgo + 2 * kGate), acc[0][i], acc[1][i],
+              gru_gates(ld_elem<E>(dgo), ld_elem<E>(dgo + kGate),
+                        ld_elem<E>(dgo + 2 * kGate), acc[0][i], acc[1][i],
                         acc[2][i], bn[s]);
           const float hn_lin = gt.hn_lin, r = gt.r, z = gt.z, nn = gt.n;
-          const float h_in = ld_bf16(hin_p + kb[s][e] + j * 1024);
+          const float h_in = ld_elem<E>(hin_p + kb[s][e] + j * 1024);
           const float dh_total =
-              ld_bf16(dys_p + rb[s][e] + j * 16 * H) + dh[i];
+              ld_elem<E>(dys_p + rb[s][e] + j * 16 * H) + dh[i];
           const float dn = dh_total * (1.0f - z);
           const float dz = dh_total * (h_in - nn);
           const float dn_pre = dn * (1.0f - nn * nn);
@@ -693,16 +700,14 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
           const float dhn = dn_pre * r;
           const float dz_pre = dz * z * (1.0f - z);
           const float dr_pre = dr * r * (1.0f - r);
-          const bf16 zero = __float2bfloat16_rn(0.0f);
-          const bf16 d_hn = live ? __float2bfloat16_rn(dhn) : zero;
-          *reinterpret_cast<bf16*>(dgo) =
-              live ? __float2bfloat16_rn(dr_pre) : zero;
-          *reinterpret_cast<bf16*>(dgo + kGate) =
-              live ? __float2bfloat16_rn(dz_pre) : zero;
-          *reinterpret_cast<bf16*>(dgo + 2 * kGate) = d_hn;
-          *reinterpret_cast<bf16*>(dn_p + kb[s][e] + j * 1024) =
-              live ? __float2bfloat16_rn(dn_pre) : zero;
-          db[s] += __bfloat162float(d_hn);
+          const E zero = from_f<E>(0.0f);
+          const E d_hn = live ? from_f<E>(dhn) : zero;
+          *reinterpret_cast<E*>(dgo) = live ? from_f<E>(dr_pre) : zero;
+          *reinterpret_cast<E*>(dgo + kGate) = live ? from_f<E>(dz_pre) : zero;
+          *reinterpret_cast<E*>(dgo + 2 * kGate) = d_hn;
+          *reinterpret_cast<E*>(dn_p + kb[s][e] + j * 1024) =
+              live ? from_f<E>(dn_pre) : zero;
+          db[s] += to_f(d_hn);
           dhz[i] = live ? dh_total * z : 0.0f;
         }
     fence_proxy_async();
@@ -729,8 +734,8 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
     // its carry; then + dh_total * z.
     float dhp_acc[kAcc];
     for (int kc = 0; kc < G3 / kTcK; ++kc)
-      ring_product<R, 0>(slices, issue, dhp_acc, a_off, dg_s + kc * L::kSub,
-                         kc == 0);
+      ring_product<R, 0, E>(slices, issue, dhp_acc, a_off,
+                            dg_s + kc * L::kSub, kc == 0);
     wgmma_wait<0>();
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) wgmma_fence_operand(dhp_acc[i]);
@@ -747,8 +752,7 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
           const int row = block_row + 8 * j + 2 * lt + e;
           const float d = dhp_acc[i] + dhz[i];
           if (t == 0 && row < row_end)
-            dh0[static_cast<size_t>(row) * H + unit0 + 8 * s] =
-                __float2bfloat16_rn(d);
+            dh0[static_cast<size_t>(row) * H + unit0 + 8 * s] = from_f<E>(d);
           dh[i] = (keep_prev >> (2 * j + e)) & 1u ? d : 0.0f;
         }
     __syncthreads();   // every tile of this step is consumed
@@ -770,8 +774,8 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
 // recurrence's dhp and hin, dbh from its part_b). chunk_policy null: one
 // policy; else the chunk-indexed instance over the [num_policies, H, 3H]
 // stacks wh and wh_t (Wh^T a policy, [num_policies, 3H, H]), `splits`
-// weight-gradient splits a chunk.
-template <int H>
+// weight-gradient splits a chunk. E: __nv_bfloat16 or __half.
+template <typename E, int H>
 int launch_bwd_tc(int phases, const void* xp, const void* keep,
                   const void* wh, const void* wh_t, const void* bias_h,
                   const void* h0, const void* ys, const void* dys, void* dxp,
@@ -784,19 +788,20 @@ int launch_bwd_tc(int phases, const void* xp, const void* keep,
   using L = GruTcBwd<H, R>;
   const int blocks = fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, R);
   if (phases & 1) {
+    constexpr CUtensorMapDataType dt = tma_dtype<E>();
     CUtensorMap wht_map, wh_map;
-    if (!make_tma_map(&wht_map, wh_t, H, 3 * H, num_policies, kTcK, H) ||
-        !make_tma_map(&wh_map, wh, 3 * H, H, num_policies, kTcK, H))
+    if (!make_tma_map(&wht_map, wh_t, H, 3 * H, num_policies, kTcK, H, dt) ||
+        !make_tma_map(&wh_map, wh, 3 * H, H, num_policies, kTcK, H, dt))
       return static_cast<int>(cudaErrorInvalidValue);
-    int err = set_smem(gru_bwd_tc_kernel<H, R>, L::kSmem);
+    int err = set_smem(gru_bwd_tc_kernel<E, H, R>, L::kSmem);
     if (err != 0) return err;
-    gru_bwd_tc_kernel<H, R><<<blocks, L::kThreads, L::kSmem, stream>>>(
-        wht_map, wh_map, static_cast<const bf16*>(xp),
-        static_cast<const bf16*>(keep), static_cast<const bf16*>(bias_h),
-        static_cast<const bf16*>(h0), static_cast<const bf16*>(ys),
-        static_cast<const bf16*>(dys), static_cast<bf16*>(dxp),
-        static_cast<bf16*>(dhp), static_cast<bf16*>(hin),
-        static_cast<bf16*>(dh0), static_cast<float*>(part_b), steps, n_rows,
+    gru_bwd_tc_kernel<E, H, R><<<blocks, L::kThreads, L::kSmem, stream>>>(
+        wht_map, wh_map, static_cast<const E*>(xp),
+        static_cast<const E*>(keep), static_cast<const E*>(bias_h),
+        static_cast<const E*>(h0), static_cast<const E*>(ys),
+        static_cast<const E*>(dys), static_cast<E*>(dxp),
+        static_cast<E*>(dhp), static_cast<E*>(hin), static_cast<E*>(dh0),
+        static_cast<float*>(part_b), steps, n_rows,
         static_cast<const int*>(chunk_policy), chunk, num_policies);
     err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
@@ -805,22 +810,22 @@ int launch_bwd_tc(int phases, const void* xp, const void* keep,
     // dWh of each policy from its chunks' own splits of boxes (never a box
     // of two chunks: weight_grad_tc.cuh), dbh from its chunks' blocks.
     int used = 0;
-    int err = weight_grad_tc_partials(hin, H, nullptr, H, dhp, 3 * H, steps,
-                                      chunk, num_chunks, splits, part_w,
-                                      &used, stream);
+    int err = weight_grad_tc_partials<E>(hin, H, nullptr, H, dhp, 3 * H,
+                                         steps, chunk, num_chunks, splits,
+                                         part_w, &used, stream);
     if (err != 0) return err;
-    err = sum_by_policy<bf16>(part_w, dwh, chunk_policy, num_chunks, used,
-                              num_policies, H * 3 * H, stream);
+    err = sum_by_policy<E>(part_w, dwh, chunk_policy, num_chunks, used,
+                           num_policies, H * 3 * H, stream);
     if (err != 0) return err;
-    return sum_by_policy<bf16>(part_b, dbh, chunk_policy, num_chunks,
-                               blocks / num_chunks, num_policies, H, stream);
+    return sum_by_policy<E>(part_b, dbh, chunk_policy, num_chunks,
+                            blocks / num_chunks, num_policies, H, stream);
   }
   if (phases & 2) {
-    const int err = weight_grad_tc(hin, H, nullptr, H, dhp, 3 * H,
-                                   steps * n_rows, splits, part_w, dwh,
-                                   stream);
+    const int err = weight_grad_tc<E>(hin, H, nullptr, H, dhp, 3 * H,
+                                      steps * n_rows, splits, part_w, dwh,
+                                      stream);
     if (err != 0) return err;
-    return sum_splits<bf16>(part_b, dbh, blocks, H, stream);
+    return sum_splits<E>(part_b, dbh, blocks, H, stream);
   }
   return 0;
 }
@@ -969,7 +974,7 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
       }
 
     float acc[3][kAcc];
-    hidden_products<H, R, 1>(slices, issue, acc, a_off, h_s);
+    hidden_products<H, R, 1, bf16>(slices, issue, acc, a_off, h_s);
     cp_async_wait<0>();   // x_proj of step t
     // Every warpgroup is done reading the h tile; x_proj of step t is in.
     __syncthreads();
@@ -1033,25 +1038,33 @@ int launch_fwd_tc(const void* xp, const void* keep, const void* wh,
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. Each entry point returns a
 // cudaError_t, or -1 for arguments without an instantiation. The CUDA-core
-// kernels are built for float32 and float16 at H = 128 and 256 (bfloat16
-// there takes mlt_gru_fwd_tc and mlt_gru_bwd_tc), and for all three at
-// H = 384 and 512, where the tensor-core design does not fit, for lstm.cu's
-// reasons ("Wider layers" at its dispatch: H / 64 warpgroups leave 80 or 64
-// registers a thread, and the backward's K-major slices of Wh^T are TMA
-// boxes of H rows, past 256): the same templates, with the narrower
-// instances' contracts (ops/cuda/gru.py: uses_tensor_cores states it).
+// kernels are built for float32 at H = 128 and 256, and the forward for
+// float16 there too (bfloat16 takes mlt_gru_fwd_tc and mlt_gru_bwd_tc,
+// float16's backward mlt_gru_bwd_tc), and for all three at H = 384 and 512,
+// where the tensor-core design does not fit, for lstm.cu's reasons ("Wider
+// layers" at its dispatch: H / 64 warpgroups leave 80 or 64 registers a
+// thread, and the backward's K-major slices of Wh^T are TMA boxes of H
+// rows, past 256): the same templates, with the narrower instances'
+// contracts (ops/cuda/gru.py: fwd_uses_tensor_cores and
+// bwd_uses_tensor_cores state it).
 #define MLT_DISPATCH_WIDE(CALL, H)                               \
   if (dtype == 0 && hidden == H) return CALL(float, H);          \
   if (dtype == 1 && hidden == H) return CALL(__nv_bfloat16, H);  \
   if (dtype == 2 && hidden == H) return CALL(__half, H)
-#define MLT_DISPATCH_F32_F16(CALL)                               \
+// The CUDA-core backwards: every dtype at 384 and 512, float32 at 128 and
+// 256.
+#define MLT_DISPATCH_BWD(CALL)                                   \
   MLT_DISPATCH_WIDE(CALL, 384);                                  \
   MLT_DISPATCH_WIDE(CALL, 512);                                  \
   if (dtype == 0 && hidden == 128) return CALL(float, 128);      \
   if (dtype == 0 && hidden == 256) return CALL(float, 256);      \
+  return -1
+// The CUDA-core forwards: the backwards' instances and float16 at 128 and
+// 256.
+#define MLT_DISPATCH_FWD(CALL)                                   \
   if (dtype == 2 && hidden == 128) return CALL(__half, 128);     \
   if (dtype == 2 && hidden == 256) return CALL(__half, 256);     \
-  return -1
+  MLT_DISPATCH_BWD(CALL)
 
 extern "C" int mlt_gru_fwd(int dtype, int hidden, const void* xp,
                            const void* keep, const void* wh,
@@ -1060,7 +1073,7 @@ extern "C" int mlt_gru_fwd(int dtype, int hidden, const void* xp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MLT_FWD(T, H) \
   launch_fwd<T, H>(xp, keep, wh, bias_h, h0, ys, steps, n_rows, s)
-  MLT_DISPATCH_F32_F16(MLT_FWD);
+  MLT_DISPATCH_FWD(MLT_FWD);
 #undef MLT_FWD
 }
 
@@ -1075,13 +1088,14 @@ extern "C" int mlt_gru_bwd(int dtype, int hidden, const void* xp,
 #define MLT_BWD(T, H)                                                       \
   launch_bwd<T, H>(xp, keep, wh, wh_t, bias_h, h0, ys, dys, dxp, dhp, dh0, \
                    part_w, part_b, dwh, db3, steps, n_rows, splits, s)
-  MLT_DISPATCH_F32_F16(MLT_BWD);
+  MLT_DISPATCH_BWD(MLT_BWD);
 #undef MLT_BWD
 }
 
-// The bf16 tensor-core backward. Returns a cudaError_t, or -1 for
-// arguments without an instantiation.
-extern "C" int mlt_gru_bwd_tc(int hidden, int phases,
+// The tensor-core backward: bfloat16 (dtype 1) and float16 (dtype 2) at
+// H = 128 and 256. Returns a cudaError_t, or -1 for arguments without an
+// instantiation.
+extern "C" int mlt_gru_bwd_tc(int dtype, int hidden, int phases,
                               const void* xp, const void* keep,
                               const void* wh, const void* wh_t,
                               const void* bias_h, const void* h0,
@@ -1091,13 +1105,14 @@ extern "C" int mlt_gru_bwd_tc(int hidden, int phases,
                               int n_rows, int splits, void* stream) {
   if (static_cast<long long>(steps) * n_rows > 0x7fffffffLL) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MLT_BWD_TC(H)                                                      \
-  if (hidden == H)                                                         \
-  return launch_bwd_tc<H>(phases, xp, keep, wh, wh_t, bias_h, h0, ys, dys, \
-                          dxp, dhp, hin, dh0, part_w, part_b, dwh, dbh,    \
-                          steps, n_rows, splits, s)
-  MLT_BWD_TC(128);
-  MLT_BWD_TC(256);
+#define MLT_BWD_TC(E, H)                                                   \
+  return launch_bwd_tc<E, H>(phases, xp, keep, wh, wh_t, bias_h, h0, ys,   \
+                             dys, dxp, dhp, hin, dh0, part_w, part_b, dwh, \
+                             dbh, steps, n_rows, splits, s)
+  if (dtype == 1 && hidden == 128) MLT_BWD_TC(bf16, 128);
+  if (dtype == 1 && hidden == 256) MLT_BWD_TC(bf16, 256);
+  if (dtype == 2 && hidden == 128) MLT_BWD_TC(__half, 128);
+  if (dtype == 2 && hidden == 256) MLT_BWD_TC(__half, 256);
 #undef MLT_BWD_TC
   return -1;
 }
@@ -1163,7 +1178,7 @@ extern "C" int mlt_gru_fwd_chunked(int tensor_core, int dtype, int hidden,
 #define MLT_FWD_CHUNKED(T, H)                                              \
   launch_fwd<T, H>(xp, keep, wh, bias_h, h0, ys, steps, n_rows, s,          \
                    chunk_policy, num_chunks, chunk, num_policies)
-  MLT_DISPATCH_F32_F16(MLT_FWD_CHUNKED);
+  MLT_DISPATCH_FWD(MLT_FWD_CHUNKED);
 #undef MLT_FWD_CHUNKED
 }
 
@@ -1174,11 +1189,11 @@ extern "C" int mlt_gru_fwd_chunked(int tensor_core, int dtype, int hidden,
 // and dh0 a row, each row's bitwise gru_sequence_bwd's with its policy's
 // weights (a chunk of no policy: NaN rows), and dwh [num_policies, H, 3H]
 // and db, a policy's summed over its chunks' `splits` partials each (0 for
-// a policy without a chunk). tensor_core 1 takes the bf16 tensor-core
-// recurrence and weight-gradient pass (hin: [T, N, H] scratch; part_w
-// [num_chunks * splits, H, 3H], part_b [num_chunks * ceil(chunk / 32), H];
-// db is dbh [num_policies, H]), 0 the CUDA-core kernels (float32,
-// float16; bfloat16 at H = 384 and 512; hin
+// a policy without a chunk). tensor_core 1 takes the tensor-core recurrence
+// and weight-gradient pass (bfloat16 and float16 at H = 128 and 256; hin:
+// [T, N, H] scratch; part_w [num_chunks * splits, H, 3H], part_b
+// [num_chunks * ceil(chunk / 32), H]; db is dbh [num_policies, H]), 0 the
+// CUDA-core kernels (float32; every dtype at H = 384 and 512; hin
 // unused; part_w and part_b [num_chunks * splits, ...]; db is db3
 // [num_policies, 3H], whose last H columns are dbh). Returns a
 // cudaError_t, or -1 for arguments without an instantiation.
@@ -1196,15 +1211,15 @@ extern "C" int mlt_gru_bwd_chunked(
   const int n_rows = static_cast<int>(n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tensor_core) {
-    if (dtype != 1) return -1;
-#define MLT_BWD_CHUNKED_TC(H)                                               \
-  if (hidden == H)                                                         \
-    return launch_bwd_tc<H>(3, xp, keep, wh, wh_t, bias_h, h0, ys, dys,     \
-                            dxp, dhp, hin, dh0, part_w, part_b, dwh, db,    \
-                            steps, n_rows, splits, s, chunk_policy,         \
-                            num_chunks, chunk, num_policies)
-    MLT_BWD_CHUNKED_TC(128);
-    MLT_BWD_CHUNKED_TC(256);
+#define MLT_BWD_CHUNKED_TC(E, H)                                            \
+  return launch_bwd_tc<E, H>(3, xp, keep, wh, wh_t, bias_h, h0, ys, dys,    \
+                             dxp, dhp, hin, dh0, part_w, part_b, dwh, db,   \
+                             steps, n_rows, splits, s, chunk_policy,        \
+                             num_chunks, chunk, num_policies)
+    if (dtype == 1 && hidden == 128) MLT_BWD_CHUNKED_TC(bf16, 128);
+    if (dtype == 1 && hidden == 256) MLT_BWD_CHUNKED_TC(bf16, 256);
+    if (dtype == 2 && hidden == 128) MLT_BWD_CHUNKED_TC(__half, 128);
+    if (dtype == 2 && hidden == 256) MLT_BWD_CHUNKED_TC(__half, 256);
 #undef MLT_BWD_CHUNKED_TC
     return -1;
   }
@@ -1212,9 +1227,10 @@ extern "C" int mlt_gru_bwd_chunked(
   launch_bwd<T, H>(xp, keep, wh, wh_t, bias_h, h0, ys, dys, dxp, dhp, dh0,  \
                    part_w, part_b, dwh, db, steps, n_rows, splits, s,       \
                    chunk_policy, num_chunks, chunk, num_policies)
-  MLT_DISPATCH_F32_F16(MLT_BWD_CHUNKED);
+  MLT_DISPATCH_BWD(MLT_BWD_CHUNKED);
 #undef MLT_BWD_CHUNKED
 }
 
-#undef MLT_DISPATCH_F32_F16
+#undef MLT_DISPATCH_FWD
+#undef MLT_DISPATCH_BWD
 #undef MLT_DISPATCH_WIDE

@@ -16,9 +16,9 @@
 // in no order, so neither the resident weight nor a sum carried across grid
 // steps exists.
 //
-// In float32, and float16 but for its backward at H = 128 and 256 (layout
-// and product in common.cuh), forwards and backwards (the projection
-// variant in float32 only):
+// In float32, and float16 at H = 384 and 512 (layout and product in
+// common.cuh), forwards and backwards (the projection variant in float32
+// only):
 // - One block owns kRows batch rows and all H units of those rows, and
 //   loops over time inside the kernel (the TPU's sequential grid axis
 //   becomes the in-block loop). Each thread computes all four gates of its
@@ -62,16 +62,16 @@
 // bwd_uses_tensor_cores, uses_tensor_cores for the projection) send the
 // bf16 sequence kernels at every width and the bf16 projection kernels at
 // H = 128 or 256 here (an operand off a 16-byte boundary is copied onto one
-// first), and float32 to the kernels above. At 384 and 512 the units are
+// first), and float32 (and float16 at 384 and 512) to the kernels above.
+// At 384 and 512 the units are
 // split over a cluster of two blocks ("Wider layers", at the dispatch).
-// The float16 backward (lstm_sequence_bwd and its chunk-indexed instance,
-// the port's own: JAX sends float16 to its jnp twin) takes the same
-// kernels at H = 128 and 256 with f16 operands (wgmma .f16, f32 sums;
-// dgates, dx_proj, dh0, dc0, dWr and db rounded once to f16, where the
-// CUDA-core kernel and the plain twin round them). The float16 forwards
-// stay on CUDA cores, so the float16 backward recomputes the
-// pre-activations in another order than the forward that wrote ys / cs,
-// and is held to its plain twin (2^-8 of the largest value).
+// The float16 sequence kernels (lstm_sequence_fwd / _bwd and their
+// chunk-indexed instances, the port's own: JAX sends float16 to its jnp
+// twin) take the same kernels at H = 128 and 256 with f16 operands (wgmma
+// .f16, f32 sums; ys, cs, dgates, dh0, dc0, dWr and db rounded once to
+// f16, where the CUDA-core kernels and the plain twin round them), so the
+// float16 backward, too, recomputes the pre-activations of the forward
+// that ran, bitwise.
 // - Row ownership as above, with R rows a block (kFwdTcRows for the
 //   forwards, kTcRows for the backwards: the fastest on the H100, PERF.md):
 //   warpgroup w owns units 64 w .. 64 w + 63 of all four gates, so the gate
@@ -83,8 +83,7 @@
 //   (rounded once), each warpgroup's result in the layout of its carries.
 //   One helper (preactivations, gate_pre) computes the pre-activations for
 //   the forward and for the backward's recompute, so both compute them
-//   alike, at every width (in bf16: the float16 forward runs on CUDA
-//   cores).
+//   alike, at every width in bf16 and at H = 128 and 256 in f16.
 // - A: 64-deep slices of the weights (128-byte swizzle) through a ring of
 //   stages (32 KB at H = 256) filled by TMA (slice_ring.cuh, shared with
 //   gru.cu and policy_step.cu): a forward step takes Wi then Wr as
@@ -126,7 +125,8 @@
 // weights. Here the rows are [B][C], a block owns one row tile of one chunk
 // (fwd_rows, chunk_rows.cuh: no block straddles two policies, and C need
 // not be a multiple of R), and reads its policy's slice of the [P, H, 4H] / [P, 4H] stacks:
-// by a pointer offset on CUDA cores (float32, float16), by the third
+// by a pointer offset on CUDA cores (float32; float16 at 384 and 512), by
+// the third
 // coordinate of one TMA map over the whole stack on tensor cores (no map
 // a policy, no gathered copy of the weights; at 384 and 512 both blocks of
 // a cluster share the row tile and its policy). A row's arithmetic is the
@@ -1479,9 +1479,7 @@ int launch_bwd_tc(int phases, const void* x, const void* keep,
   using L = TcBwd<H, R, kSplit>;
   const int tiles = fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, R);
   const int total_rows = steps * n_rows;
-  const CUtensorMapDataType dt = std::is_same<E, __half>::value
-                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapDataType dt = tma_dtype<E>();
   // Every map spans the [P, ...] stack (P = 1 without chunks: Wi^T
   // [P, 4H, F] and Wi [P, F, 4H] with the projection), in boxes of the U
   // rows of a block's units (at most 256: TMA's limit of a box dimension).
@@ -1557,7 +1555,7 @@ int launch_bwd_tc(int phases, const void* x, const void* keep,
   return 0;
 }
 
-// ------------------------------------ bf16 forward on tensor cores
+// ------------------------------------ bf16 and f16 forward on tensor cores
 
 // Batch rows a block of the tensor-core forward (R) in both variants, the
 // faster of 16 and 32 on the H100 (PERF.md; R = 64 would hold 128
@@ -1570,7 +1568,7 @@ constexpr int kFwdTcRows = 32;
 constexpr int kFwdTcStages = 4;
 
 // Shared memory of lstm_fwd_tc_kernel, from a 1024-byte aligned base: the
-// ring of weight slices ([64 k][U units] bf16 each, U = H / kSplit the
+// ring of weight slices ([64 k][U units] each, U = H / kSplit the
 // block's units, as U / 64 TMA boxes of [64 k][64 units]), the block's h
 // tile (the K-major B operand of h . Wr over all H units, which the gate
 // math overwrites with the next step's carry) and its x tile (K-major
@@ -1593,15 +1591,17 @@ struct TcFwd {
   static_assert(kStages >= 2, "a ring of at least two slices");
 };
 
-// The forward recurrence of both variants on tensor cores (see the header).
-// One block owns R batch rows and loops over time; warpgroup w owns units
-// 64 w .. 64 w + 63 of all four gates, in the accumulator layout of
-// lstm_bwd_tc_kernel (element 4 j + 2 s + e of an m64nR accumulator is unit
-// unit0 + 8 s, row 8 j + 2 (l % 4) + e), so the gate math and the f32 c
-// carry are thread-local. The maps are TMA maps of the row-major weights,
-// Wi [F, 4H] (wi_map; Wr again without the projection) and Wr [H, 4H]
-// (wr_map), in boxes of [64 k][64 units]: wgmma's MN-major A operand as
-// they stand, so the forward needs no transposed copy of a weight.
+// The forward recurrence of both variants on tensor cores (see the header),
+// E the storage type: bf16, or f16 (the float16 instance at H = 128 and
+// 256, without the projection). One block owns R batch rows and loops over
+// time; warpgroup w owns units 64 w .. 64 w + 63 of all four gates, in the
+// accumulator layout of lstm_bwd_tc_kernel (element 4 j + 2 s + e of an
+// m64nR accumulator is unit unit0 + 8 s, row 8 j + 2 (l % 4) + e), so the
+// gate math and the f32 c carry are thread-local. The maps are TMA maps
+// of the row-major weights, Wi [F, 4H] (wi_map; Wr again without the
+// projection) and Wr [H, 4H] (wr_map), in boxes of [64 k][64 units]:
+// wgmma's MN-major A operand as they stand, so the forward needs no
+// transposed copy of a weight.
 //
 // With kSplit = 2 (H = 384, 512; no projection) the two blocks of a
 // cluster own the same R rows and H / 2 units each (rank r: units r H / 2
@@ -1617,16 +1617,16 @@ struct TcFwd {
 // peer can still write into it: the last write is before the last step's
 // second barrier, and a chunk of no policy is skipped by both blocks of
 // its cluster together (they share its rows, so its policy).
-template <int H, int R, bool kProj, int kSplit>
+template <typename E, int H, int R, bool kProj, int kSplit>
 __global__ void __launch_bounds__(TcFwd<H, R, kSplit>::kThreads, 1)
     lstm_fwd_tc_kernel(const __grid_constant__ CUtensorMap wi_map,
                        const __grid_constant__ CUtensorMap wr_map,
-                       const bf16* __restrict__ x, const bf16* __restrict__ keep,
-                       const bf16* __restrict__ bias,
-                       const bf16* __restrict__ c0, const bf16* __restrict__ h0,
-                       bf16* __restrict__ ys, bf16* __restrict__ cs, int steps,
-                       int n_rows, int f_in, const int* __restrict__ chunk_policy,
-                       int chunk, int num_policies) {
+                       const E* __restrict__ x, const E* __restrict__ keep,
+                       const E* __restrict__ bias, const E* __restrict__ c0,
+                       const E* __restrict__ h0, E* __restrict__ ys,
+                       E* __restrict__ cs, int steps, int n_rows, int f_in,
+                       const int* __restrict__ chunk_policy, int chunk,
+                       int num_policies) {
   static_assert(kSplit == 1 || !kProj, "the projection is not split");
   using L = TcFwd<H, R, kSplit>;
   constexpr int S = L::kStages;
@@ -1739,7 +1739,7 @@ __global__ void __launch_bounds__(TcFwd<H, R, kSplit>::kThreads, 1)
       kb[s][e] = kmaj_off<R>(2 * lt + e, unit0 + 8 * s);
 #pragma unroll
     for (int g = 0; g < 4; ++g)
-      b[g][s] = __bfloat162float(bias[g * H + unit_base + unit0 + 8 * s]);
+      b[g][s] = to_f(bias[g * H + unit_base + unit0 + 8 * s]);
   }
 #pragma unroll
   for (int j = 0; j < R / 8; ++j)
@@ -1750,8 +1750,8 @@ __global__ void __launch_bounds__(TcFwd<H, R, kSplit>::kThreads, 1)
         const int row = block_row + 8 * j + 2 * lt + e;
         c[4 * j + 2 * s + e] =
             row < row_end
-                ? __bfloat162float(c0[static_cast<size_t>(row) * H +
-                                      unit_base + unit0 + 8 * s])
+                ? to_f(c0[static_cast<size_t>(row) * H + unit_base +
+                          unit0 + 8 * s])
                 : 0.0f;
       }
   cp_async_wait<0>();
@@ -1762,7 +1762,7 @@ __global__ void __launch_bounds__(TcFwd<H, R, kSplit>::kThreads, 1)
       kSplit == 1 ? 0 : map_cluster_rank(h_s, static_cast<uint32_t>(rank ^ 1));
 
   const uint32_t a_off = wg * 64 * 128;
-  const bf16 zero = __float2bfloat16_rn(0.0f);
+  const E zero = from_f<E>(0.0f);
   for (int t = 0; t < steps; ++t) {
     const size_t trow = static_cast<size_t>(t) * n_rows;
     uint32_t kept = 0;   // bit 2 j + e: row 8 j + 2 (l % 4) + e
@@ -1771,15 +1771,15 @@ __global__ void __launch_bounds__(TcFwd<H, R, kSplit>::kThreads, 1)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = block_row + 8 * j + 2 * lt + e;
-        if (row < row_end && __bfloat162float(keep[trow + row]) > 0.5f)
+        if (row < row_end && to_f(keep[trow + row]) > 0.5f)
           kept |= 1u << (2 * j + e);
       }
     if (x_bufs == 2 && t + 1 < steps) load_x(t + 1);
 
     float acc[4][kAcc];
-    preactivations<H, R, kProj, 1, bf16>(slices, issue, acc, a_off,
-                                         x_s + (t % x_bufs) * x_buf_bytes,
-                                         h_s, f_in);
+    preactivations<H, R, kProj, 1, E>(slices, issue, acc, a_off,
+                                      x_s + (t % x_bufs) * x_buf_bytes, h_s,
+                                      f_in);
     if constexpr (!kProj) cp_async_wait<0>();   // x_proj of step t
     // Every warpgroup is done reading the h tile (and x with the
     // projection); x_proj of step t is in. With a cluster: the peer's
@@ -1805,19 +1805,19 @@ __global__ void __launch_bounds__(TcFwd<H, R, kSplit>::kThreads, 1)
           float pre[4];
 #pragma unroll
           for (int g = 0; g < 4; ++g)
-            pre[g] = gate_pre<kProj, bf16>(x_p + ko + g * kGate, acc[g][i],
-                                           b[g][s]);
+            pre[g] = gate_pre<kProj, E>(x_p + ko + g * kGate, acc[g][i],
+                                        b[g][s]);
           const float new_c =
               sigmoid_f(pre[1]) * c[i] + sigmoid_f(pre[0]) * tanhf(pre[2]);
           const float new_h = sigmoid_f(pre[3]) * tanhf(new_c);
-          const bf16 c_t = __float2bfloat16_rn(new_c);
-          const bf16 h_t = __float2bfloat16_rn(new_h);
+          const E c_t = from_f<E>(new_c);
+          const E h_t = from_f<E>(new_h);
           const bool k = (kept >> (2 * j + e)) & 1u;
-          const bf16 h_next = k ? h_t : zero;
-          *reinterpret_cast<bf16*>(h_p + ko + h_shift) = h_next;
+          const E h_next = k ? h_t : zero;
+          *reinterpret_cast<E*>(h_p + ko + h_shift) = h_next;
           if constexpr (kSplit > 1)
-            st_cluster_u16(peer_h + ko + h_shift, __bfloat16_as_ushort(h_next));
-          c[i] = k ? __bfloat162float(c_t) : 0.0f;
+            st_cluster_u16(peer_h + ko + h_shift, elem_bits(h_next));
+          c[i] = k ? to_f(c_t) : 0.0f;
           const int row = block_row + 8 * j + 2 * lt + e;
           if (row < row_end) {
             const size_t o = (trow + row) * H + unit_base + unit0 + 8 * s;
@@ -1846,8 +1846,9 @@ __global__ void __launch_bounds__(TcFwd<H, R, kSplit>::kThreads, 1)
 // stacks (and [num_policies, F, 4H] of Wi with the projection), one TMA map
 // over each whole stack. At H = 384 and 512, clusters of two blocks
 // (kTcSplit), launched with their cluster dimension by cudaLaunchKernelEx;
-// a refused launch returns its error.
-template <int H, bool kProj>
+// a refused launch returns its error. E: __nv_bfloat16, or __half without
+// the projection at H = 128 and 256.
+template <typename E, int H, bool kProj>
 int launch_fwd_tc(const void* x, const void* keep, const void* wi,
                   const void* wr, const void* bias, const void* c0,
                   const void* h0, void* ys, void* cs, int steps, int n_rows,
@@ -1857,11 +1858,12 @@ int launch_fwd_tc(const void* x, const void* keep, const void* wi,
   constexpr int R = kFwdTcRows;
   constexpr int kSplit = kTcSplit<H>;
   using L = TcFwd<H, R, kSplit>;
-  const auto kernel = lstm_fwd_tc_kernel<H, R, kProj, kSplit>;
+  const auto kernel = lstm_fwd_tc_kernel<E, H, R, kProj, kSplit>;
+  constexpr CUtensorMapDataType dt = tma_dtype<E>();
   CUtensorMap wi_map, wr_map;
-  if (!make_tma_map(&wr_map, wr, 4 * H, H, num_policies, 64, kTcK) ||
+  if (!make_tma_map(&wr_map, wr, 4 * H, H, num_policies, 64, kTcK, dt) ||
       !make_tma_map(&wi_map, kProj ? wi : wr, 4 * H, kProj ? f_in : H,
-                    num_policies, 64, kTcK))
+                    num_policies, 64, kTcK, dt))
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = set_smem(kernel, L::kSmem);
   if (err != 0) return err;
@@ -1879,10 +1881,10 @@ int launch_fwd_tc(const void* x, const void* keep, const void* wi,
   cfg.attrs = cluster;
   cfg.numAttrs = kSplit > 1 ? 1 : 0;
   const cudaError_t launched = cudaLaunchKernelEx(
-      &cfg, kernel, wi_map, wr_map, static_cast<const bf16*>(x),
-      static_cast<const bf16*>(keep), static_cast<const bf16*>(bias),
-      static_cast<const bf16*>(c0), static_cast<const bf16*>(h0),
-      static_cast<bf16*>(ys), static_cast<bf16*>(cs), steps, n_rows, f_in,
+      &cfg, kernel, wi_map, wr_map, static_cast<const E*>(x),
+      static_cast<const E*>(keep), static_cast<const E*>(bias),
+      static_cast<const E*>(c0), static_cast<const E*>(h0),
+      static_cast<E*>(ys), static_cast<E*>(cs), steps, n_rows, f_in,
       static_cast<const int*>(chunk_policy), chunk, num_policies);
   if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
@@ -1896,10 +1898,10 @@ bool proj_width_ok(int hidden, int f_in) {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. Each entry point returns a
 // cudaError_t, or -1 for arguments without an instantiation. The CUDA-core
-// forwards are built for float32 and float16 at H = 128, 256, 384 and 512,
-// the CUDA-core backwards for float32 at those widths and float16 at 384
-// and 512 (bfloat16 takes mlt_lstm_fwd_tc and mlt_lstm_bwd_tc at every
-// width, float16's backward mlt_lstm_bwd_tc at 128 and 256); the
+// sequence kernels, forward and backward, are built for float32 at H = 128,
+// 256, 384 and 512 and for float16 at 384 and 512 (bfloat16 takes
+// mlt_lstm_fwd_tc and mlt_lstm_bwd_tc at every width, float16 at 128 and
+// 256); the
 // projection kernels for float32 alone, at 128 and 256 (float16 takes the
 // unfused kernels, as the JAX package's lstm_proj_supported sends it to its
 // unfused route).
@@ -1940,22 +1942,13 @@ bool proj_width_ok(int hidden, int f_in) {
   if (dtype == 0 && hidden == 128) return CALL(float, 128);      \
   if (dtype == 0 && hidden == 256) return CALL(float, 256);      \
   return -1
-#define MLT_DISPATCH_F32_F16(CALL)                               \
-  if (dtype == 2 && hidden == 128) return CALL(__half, 128);     \
-  if (dtype == 2 && hidden == 256) return CALL(__half, 256);     \
-  MLT_DISPATCH_F32(CALL)
 // The CUDA-core kernels at H = 384 and 512: float32 and float16.
 #define MLT_DISPATCH_WIDE(CALL, H)                               \
   if (dtype == 0 && hidden == H) return CALL(float, H);          \
   if (dtype == 2 && hidden == H) return CALL(__half, H)
-// The CUDA-core forwards: float32 and float16 at every width.
-#define MLT_DISPATCH_FWD(CALL)                                   \
-  MLT_DISPATCH_WIDE(CALL, 384);                                  \
-  MLT_DISPATCH_WIDE(CALL, 512);                                  \
-  MLT_DISPATCH_F32_F16(CALL)
-// The CUDA-core backwards: float32 at every width, float16 at 384 and 512
-// (at 128 and 256 it takes the tensor cores).
-#define MLT_DISPATCH_BWD(CALL)                                   \
+// The CUDA-core sequence kernels: float32 at every width, float16 at 384
+// and 512 (at 128 and 256 it takes the tensor cores).
+#define MLT_DISPATCH_SEQ(CALL)                                   \
   MLT_DISPATCH_WIDE(CALL, 384);                                  \
   MLT_DISPATCH_WIDE(CALL, 512);                                  \
   MLT_DISPATCH_F32(CALL)
@@ -1968,7 +1961,7 @@ extern "C" int mlt_lstm_fwd(int dtype, int hidden, const void* xp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MLT_FWD(T, H) \
   launch_fwd<T, H>(xp, keep, wr, bias, c0, h0, ys, cs, steps, n_rows, s)
-  MLT_DISPATCH_FWD(MLT_FWD);
+  MLT_DISPATCH_SEQ(MLT_FWD);
 #undef MLT_FWD
 }
 
@@ -1984,7 +1977,7 @@ extern "C" int mlt_lstm_bwd(int dtype, int hidden, const void* xp,
 #define MLT_BWD(T, H)                                                      \
   launch_bwd<T, H>(xp, keep, wr, wr_t, bias, c0, h0, ys, cs, dys, dxp, dh0, \
                    dc0, part_w, part_b, dwr, db, steps, n_rows, splits, s)
-  MLT_DISPATCH_BWD(MLT_BWD);
+  MLT_DISPATCH_SEQ(MLT_BWD);
 #undef MLT_BWD
 }
 
@@ -2057,29 +2050,37 @@ extern "C" int mlt_lstm_bwd_tc(
   return -1;
 }
 
-// The bf16 tensor-core forward of both variants (f_in = 0:
-// lstm_sequence_fwd, x = x_proj, at H = 128, 256, 384 and 512; else
-// lstm_sequence_proj_fwd, at 128 and 256), from the weights as they stand,
-// Wi [F, 4H] (unread without the projection) and Wr [H, 4H]. Returns a
-// cudaError_t, or -1 for arguments without an instantiation.
-extern "C" int mlt_lstm_fwd_tc(int hidden, int f_in, const void* x,
-                               const void* keep, const void* wi,
-                               const void* wr, const void* bias,
-                               const void* c0, const void* h0, void* ys,
-                               void* cs, int steps, int n_rows,
-                               void* stream) {
+// The tensor-core forward of both variants (f_in = 0: lstm_sequence_fwd,
+// x = x_proj; else lstm_sequence_proj_fwd), from the weights as they stand,
+// Wi [F, 4H] (unread without the projection) and Wr [H, 4H]: bfloat16
+// (dtype 1) at H = 128, 256, 384 and 512 (the projection at 128 and 256),
+// float16 (dtype 2, no projection) at 128 and 256. Returns a cudaError_t,
+// or -1 for arguments without an instantiation.
+extern "C" int mlt_lstm_fwd_tc(int dtype, int hidden, int f_in,
+                               const void* x, const void* keep,
+                               const void* wi, const void* wr,
+                               const void* bias, const void* c0,
+                               const void* h0, void* ys, void* cs, int steps,
+                               int n_rows, void* stream) {
   if (f_in != 0 && !proj_width_ok(hidden, f_in)) return -1;
   if (static_cast<long long>(steps) * n_rows > 0x7fffffffLL) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MLT_FWD_TC(H, P)                                                   \
-  launch_fwd_tc<H, P>(x, keep, wi, wr, bias, c0, h0, ys, cs, steps,        \
-                      n_rows, f_in, s)
-#define MLT_FWD_TC_H(H) \
-  if (hidden == H) return f_in == 0 ? MLT_FWD_TC(H, false) : MLT_FWD_TC(H, true)
-  MLT_FWD_TC_H(128);
-  MLT_FWD_TC_H(256);
-  if (f_in == 0 && hidden == 384) return MLT_FWD_TC(384, false);
-  if (f_in == 0 && hidden == 512) return MLT_FWD_TC(512, false);
+#define MLT_FWD_TC(E, H, P)                                                \
+  launch_fwd_tc<E, H, P>(x, keep, wi, wr, bias, c0, h0, ys, cs, steps,     \
+                         n_rows, f_in, s)
+#define MLT_FWD_TC_H(H)                                                    \
+  if (hidden == H)                                                         \
+    return f_in == 0 ? MLT_FWD_TC(bf16, H, false) : MLT_FWD_TC(bf16, H, true)
+  if (dtype == 1) {
+    MLT_FWD_TC_H(128);
+    MLT_FWD_TC_H(256);
+    if (f_in == 0 && hidden == 384) return MLT_FWD_TC(bf16, 384, false);
+    if (f_in == 0 && hidden == 512) return MLT_FWD_TC(bf16, 512, false);
+  }
+  if (dtype == 2 && f_in == 0) {
+    if (hidden == 128) return MLT_FWD_TC(__half, 128, false);
+    if (hidden == 256) return MLT_FWD_TC(__half, 256, false);
+  }
 #undef MLT_FWD_TC_H
 #undef MLT_FWD_TC
   return -1;
@@ -2088,9 +2089,10 @@ extern "C" int mlt_lstm_fwd_tc(int hidden, int f_in, const void* x,
 // lstm_sequence_fwd_chunked: the forward over [num_chunks * chunk] rows,
 // chunk c with the weights of policy chunk_policy[c] of the [num_policies,
 // H, 4H] / [num_policies, 4H] stacks (a chunk of no policy is skipped, its
-// rows NaN). tensor_core 1 takes the bf16 tensor-core kernel (every
-// width), 0 the CUDA-core one (float32, float16). Returns a cudaError_t, or
-// -1 for arguments without an instantiation.
+// rows NaN). tensor_core 1 takes the tensor-core kernel (bfloat16 at every
+// width, float16 at 128 and 256), 0 the CUDA-core one (float32; float16
+// at 384 and 512).
+// Returns a cudaError_t, or -1 for arguments without an instantiation.
 extern "C" int mlt_lstm_fwd_chunked(int tensor_core, int dtype, int hidden,
                                     const void* xp, const void* keep,
                                     const void* wr, const void* bias,
@@ -2105,23 +2107,23 @@ extern "C" int mlt_lstm_fwd_chunked(int tensor_core, int dtype, int hidden,
   const int n_rows = static_cast<int>(n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tensor_core) {
-    if (dtype != 1) return -1;
-#define MLT_FWD_CHUNKED_TC(H)                                               \
-  if (hidden == H)                                                         \
-    return launch_fwd_tc<H, false>(xp, keep, wr, wr, bias, c0, h0, ys, cs, \
-                                   steps, n_rows, 0, s, chunk_policy,      \
-                                   num_chunks, chunk, num_policies)
-    MLT_FWD_CHUNKED_TC(128);
-    MLT_FWD_CHUNKED_TC(256);
-    MLT_FWD_CHUNKED_TC(384);
-    MLT_FWD_CHUNKED_TC(512);
+#define MLT_FWD_CHUNKED_TC(E, H)                                            \
+  return launch_fwd_tc<E, H, false>(xp, keep, wr, wr, bias, c0, h0, ys, cs, \
+                                    steps, n_rows, 0, s, chunk_policy,      \
+                                    num_chunks, chunk, num_policies)
+    if (dtype == 1 && hidden == 128) MLT_FWD_CHUNKED_TC(bf16, 128);
+    if (dtype == 1 && hidden == 256) MLT_FWD_CHUNKED_TC(bf16, 256);
+    if (dtype == 1 && hidden == 384) MLT_FWD_CHUNKED_TC(bf16, 384);
+    if (dtype == 1 && hidden == 512) MLT_FWD_CHUNKED_TC(bf16, 512);
+    if (dtype == 2 && hidden == 128) MLT_FWD_CHUNKED_TC(__half, 128);
+    if (dtype == 2 && hidden == 256) MLT_FWD_CHUNKED_TC(__half, 256);
 #undef MLT_FWD_CHUNKED_TC
     return -1;
   }
 #define MLT_FWD_CHUNKED(T, H)                                              \
   launch_fwd<T, H>(xp, keep, wr, bias, c0, h0, ys, cs, steps, n_rows, s,    \
                    chunk_policy, num_chunks, chunk, num_policies)
-  MLT_DISPATCH_FWD(MLT_FWD_CHUNKED);
+  MLT_DISPATCH_SEQ(MLT_FWD_CHUNKED);
 #undef MLT_FWD_CHUNKED
 }
 
@@ -2172,7 +2174,7 @@ extern "C" int mlt_lstm_bwd_chunked(
   launch_bwd<T, H>(xp, keep, wr, wr_t, bias, c0, h0, ys, cs, dys, dxp, dh0, \
                    dc0, part_w, part_b, dwr, db, steps, n_rows, splits, s,  \
                    chunk_policy, num_chunks, chunk, num_policies)
-  MLT_DISPATCH_BWD(MLT_BWD_CHUNKED);
+  MLT_DISPATCH_SEQ(MLT_BWD_CHUNKED);
 #undef MLT_BWD_CHUNKED
 }
 
@@ -2199,9 +2201,10 @@ extern "C" int mlt_lstm_proj_fwd_chunked(
     if (dtype != 1) return -1;
 #define MLT_PROJ_FWD_CHUNKED_TC(H)                                          \
   if (hidden == H)                                                         \
-    return launch_fwd_tc<H, true>(x, keep, wi, wr, bias, c0, h0, ys, cs,   \
-                                  steps, n_rows, f_in, s, chunk_policy,    \
-                                  num_chunks, chunk, num_policies)
+    return launch_fwd_tc<bf16, H, true>(x, keep, wi, wr, bias, c0, h0, ys, \
+                                        cs, steps, n_rows, f_in, s,         \
+                                        chunk_policy, num_chunks, chunk,    \
+                                        num_policies)
     MLT_PROJ_FWD_CHUNKED_TC(128);
     MLT_PROJ_FWD_CHUNKED_TC(256);
 #undef MLT_PROJ_FWD_CHUNKED_TC
@@ -2269,8 +2272,6 @@ extern "C" int mlt_lstm_proj_bwd_chunked(
 #undef MLT_PROJ_BWD_CHUNKED
 }
 
-#undef MLT_DISPATCH_BWD
-#undef MLT_DISPATCH_FWD
+#undef MLT_DISPATCH_SEQ
 #undef MLT_DISPATCH_WIDE
-#undef MLT_DISPATCH_F32_F16
 #undef MLT_DISPATCH_F32

@@ -510,8 +510,15 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The tensor-map element type of E (__nv_bfloat16 or __half).
+template <typename E>
+static constexpr CUtensorMapDataType tma_dtype() {
+  return std::is_same<E, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
 // A 3-D tensor map of 2-byte elements (bf16, or f16 with
-// CU_TENSOR_MAP_DATA_TYPE_FLOAT16) over [d2][d1][d0] (d0 innermost), boxes
+// tma_dtype<__half>()) over [d2][d1][d0] (d0 innermost), boxes
 // of [1][b1][b0] (b0 = 64: 128 bytes), 128-byte swizzle, out-of-bounds
 // elements read as zeros.
 static bool make_tma_map(

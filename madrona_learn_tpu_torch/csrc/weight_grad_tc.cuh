@@ -174,9 +174,7 @@ static int weight_grad_tc_partials(const void* a0, int a0_width,
   const int slices = steps * num_chunks;
   CUtensorMap a0_map, a1_map, dg_map;
   const int a1_width = a_width - a0_width;
-  const CUtensorMapDataType dt = std::is_same<E, __half>::value
-                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapDataType dt = tma_dtype<E>();
   if (!make_tma_map(&a0_map, a0, a0_width, chunk, slices, 64, kWgK, dt) ||
       !make_tma_map(&a1_map, a1 != nullptr ? a1 : a0,
                     a1 != nullptr ? a1_width : a0_width, chunk, slices, 64,

@@ -177,11 +177,11 @@ _SIGNATURES = {
     # cs, dys, dx, dg, hin, dh0, dc0, part_w, part_b, dw, db, T, N, splits,
     # stream
     "mlt_lstm_bwd_tc": [_I] * 4 + [_P] * 21 + [_I] * 3 + [_P],
-    # H, phases, xp, keep, wh, wh_t, bias_h, h0, ys, dys, dxp, dhp, hin,
-    # dh0, part_w, part_b, dwh, dbh, T, N, splits, stream
-    "mlt_gru_bwd_tc": [_I] * 2 + [_P] * 16 + [_I] * 3 + [_P],
-    # H, F, x, keep, wi, wr, bias, c0, h0, ys, cs, T, N, stream
-    "mlt_lstm_fwd_tc": [_I] * 2 + [_P] * 9 + [_I] * 2 + [_P],
+    # dtype, H, phases, xp, keep, wh, wh_t, bias_h, h0, ys, dys, dxp, dhp,
+    # hin, dh0, part_w, part_b, dwh, dbh, T, N, splits, stream
+    "mlt_gru_bwd_tc": [_I] * 3 + [_P] * 16 + [_I] * 3 + [_P],
+    # dtype, H, F, x, keep, wi, wr, bias, c0, h0, ys, cs, T, N, stream
+    "mlt_lstm_fwd_tc": [_I] * 3 + [_P] * 9 + [_I] * 2 + [_P],
     # tensor_core, dtype, H, xp, keep, wr, bias, chunk_policy, c0, h0, ys,
     # cs, T, chunks, C, P, stream
     "mlt_lstm_fwd_chunked": [_I] * 3 + [_P] * 9 + [_I] * 4 + [_P],

@@ -19,23 +19,31 @@ to the plain twins, on the card too, as JAX routes it to its jnp twin; the
 wrappers raise on operands no kernel takes (a multiple of 128 past 512
 among them).
 
-Two paths for each kernel, picked by :func:`uses_tensor_cores` from the
-dtype and H alone (no fallback: the kernel a call is routed to runs or
-raises):
+Two paths for each kernel, picked from the dtype and H alone by
+:func:`fwd_uses_tensor_cores` (the forward, its chunk-indexed instance
+and the rollout steps that run them) and :func:`bwd_uses_tensor_cores`
+(the backward and its chunk-indexed instance); no fallback: the kernel a
+call is routed to runs or raises:
 
-- bfloat16 at H = 128 or 256: the recurrences on Hopper's warpgroup tensor
-  cores (``wgmma``, bf16 operands, f32 accumulators). The forward reads Wh
-  as it stands through a TMA ring, :data:`FWD_TC_ROWS` batch rows a block;
-  the backward streams Wh^T and Wh the same way, :data:`TC_ROWS` rows a
-  block, then takes dWh as a split-K ``wgmma`` product over the T * N rows
+- bfloat16 at H = 128 or 256, and the float16 backwards there: the
+  recurrences on Hopper's warpgroup tensor cores (``wgmma``, bf16 or f16
+  operands, f32 accumulators). The forward reads Wh as it stands through a
+  TMA ring, :data:`FWD_TC_ROWS` batch rows a block; the backward streams
+  Wh^T and Wh the same way, :data:`TC_ROWS` rows a block, then takes dWh
+  as a split-K ``wgmma`` product over the T * N rows
   (``csrc/weight_grad_tc.cuh``). Both are bound by streaming Wh from L2.
-  An operand off a 16-byte boundary is copied onto one first;
-- float32, whose products tensor cores would round, float16, and
-  bfloat16 at H = 384 and 512 (one block would need H / 64 warpgroups,
-  ``csrc/lstm.cu``, "Wider layers"; the LSTM forward's two-block cluster
-  is not built for the GRU yet): the CUDA-core kernels
-  (the backward with the split-M pass of ``csrc/weight_grad.cuh``), bound
-  by f32 FMA issue.
+  An operand off a 16-byte boundary is copied onto one first. The float16
+  backward is the port's own (JAX sends float16 to its jnp twin): f16
+  operands, dxp, dhp, dh0, dWh and dbh rounded once to float16, as the
+  CUDA-core kernel and the plain twin round them;
+- float32, whose products tensor cores would round, the float16 forwards,
+  and every dtype at H = 384 and 512 (one block would need H / 64
+  warpgroups, ``csrc/lstm.cu``, "Wider layers"; the LSTM's two-block
+  cluster is not built for the GRU yet): the CUDA-core kernels (the
+  backward with the split-M pass of ``csrc/weight_grad.cuh``), bound by
+  f32 FMA issue. The float16 backward on tensor cores therefore
+  recomputes h . Wh in another sum order than the CUDA-core forward that
+  wrote ys.
 
 Contract (all operands in the storage dtype, float32, bfloat16 or
 float16):
@@ -66,8 +74,8 @@ split by the single-policy rule over each chunk's rows alone.
 ``gru_sequence_chunked`` the differentiable pair, whose plain twin
 ``gru_sequence_chunked_reference`` runs ``gru_sequence_reference``'s
 arithmetic chunk by chunk (its autograd defines the backward). Float32,
-bfloat16 and float16 (on the CUDA-core kernels, as for one policy); the
-wrappers raise on a hidden size no kernel takes.
+bfloat16 and float16 (on the routes of one policy); the wrappers raise on
+a hidden size no kernel takes.
 
 CPU tensors take the plain version; CUDA tensors launch the kernels or
 raise.
@@ -109,7 +117,7 @@ GRU_BWD_CHUNKED = Kernel(
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The widths the kernels are built for (every dtype), and those of the
-# bfloat16 tensor-core instances.
+# tensor-core instances (bfloat16; float16's backward).
 _HIDDEN_SIZES = (128, 256, 384, 512)
 _TC_HIDDEN_SIZES = (128, 256)
 _check = functools.partial(check_operand, "gru kernel")
@@ -143,12 +151,22 @@ def gru_kernel_route(hidden, dtype):
     return hidden % 128 == 0 and dtype in _DTYPE_CODES
 
 
-def uses_tensor_cores(dtype, hidden):
-    """The path rule of both kernels, forward and backward: bfloat16 with H
-    in (128, 256) takes the tensor-core kernels (``wgmma``); float32, whose
-    products tensor cores would round, float16, and bfloat16 at H = 384 and
-    512, the CUDA-core ones."""
+def fwd_uses_tensor_cores(dtype, hidden):
+    """The path rule of the forward and its chunk-indexed instance (and so
+    of ``gru_step`` / ``gru_step_chunked``): bfloat16 with H in (128, 256)
+    takes the tensor-core kernel (``wgmma``); float32, whose products
+    tensor cores would round, float16, and bfloat16 at H = 384 and 512,
+    the CUDA-core one."""
     return dtype == torch.bfloat16 and hidden in _TC_HIDDEN_SIZES
+
+
+def bwd_uses_tensor_cores(dtype, hidden):
+    """The path rule of the backward and its chunk-indexed instance:
+    bfloat16 and float16 with H in (128, 256) take the tensor-core kernel
+    (bf16 or f16 ``wgmma``); float32, whose products tensor cores would
+    round, and every dtype at H = 384 and 512, the CUDA-core one."""
+    return (dtype in (torch.bfloat16, torch.float16)
+            and hidden in _TC_HIDDEN_SIZES)
 
 
 def _cell(x_proj_t, wh32, bh32, h):
@@ -272,7 +290,7 @@ def _fwd_tc(x_proj, keep, wh, bias_h, h0, rows=FWD_TC_ROWS,
 def gru_sequence_fwd(x_proj, keep, wh, bias_h, h0):
     """The forward kernel: ys [T, N, H] in the storage dtype."""
     steps, n, hidden = _check_inputs(x_proj, keep, wh, bias_h, h0)
-    if uses_tensor_cores(x_proj.dtype, hidden):
+    if fwd_uses_tensor_cores(x_proj.dtype, hidden):
         ys = _fwd_tc(x_proj, keep, wh, bias_h, h0)
         GRU_FWD.launches += 1
         GRU_FWD.tc_launches += 1
@@ -313,9 +331,9 @@ def _bwd_tc_buffers(x_proj):
 
 def _bwd_tc(x_proj, keep, wh, bias_h, h0, ys, dys, *, phases=3,
             buffers=None):
-    """The bf16 tensor-core backward in its two passes, phases bit 0 the
-    recurrence and bit 1 the weight gradients; the buffers of
-    :func:`_bwd_tc_buffers`, filled."""
+    """The tensor-core backward (bfloat16 or float16) in its two passes,
+    phases bit 0 the recurrence and bit 1 the weight gradients; the
+    buffers of :func:`_bwd_tc_buffers`, filled."""
     steps, n, g3 = x_proj.shape
     x_proj, keep, bias_h, h0, ys, dys = map(
         on_16_bytes, (x_proj, keep, bias_h, h0, ys, dys))
@@ -324,9 +342,9 @@ def _bwd_tc(x_proj, keep, wh, bias_h, h0, ys, dys, *, phases=3,
     wh_t = wh.t().contiguous()
     wh = on_16_bytes(wh)
     err = library().mlt_gru_bwd_tc(
-        g3 // 3, phases, x_proj.data_ptr(), keep.data_ptr(),
-        wh.data_ptr(), wh_t.data_ptr(), bias_h.data_ptr(), h0.data_ptr(),
-        ys.data_ptr(), dys.data_ptr(), b["dxp"].data_ptr(),
+        _DTYPE_CODES[x_proj.dtype], g3 // 3, phases, x_proj.data_ptr(),
+        keep.data_ptr(), wh.data_ptr(), wh_t.data_ptr(), bias_h.data_ptr(),
+        h0.data_ptr(), ys.data_ptr(), dys.data_ptr(), b["dxp"].data_ptr(),
         b["dhp"].data_ptr(), b["hin"].data_ptr(), b["dh0"].data_ptr(),
         b["part_w"].data_ptr(), b["part_b"].data_ptr(), b["dw"].data_ptr(),
         b["db"].data_ptr(), steps, n, b["splits"],
@@ -343,7 +361,7 @@ def gru_sequence_bwd(x_proj, keep, wh, bias_h, h0, ys, dys):
     dtype, device = x_proj.dtype, x_proj.device
     _check("ys", ys, dtype, (steps, n, hidden))
     _check("dys", dys, dtype, (steps, n, hidden))
-    if uses_tensor_cores(dtype, hidden):
+    if bwd_uses_tensor_cores(dtype, hidden):
         b = _bwd_tc(x_proj, keep, wh, bias_h, h0, ys, dys)
         GRU_BWD.launches += 1
         GRU_BWD.tc_launches += 1
@@ -450,7 +468,7 @@ def gru_sequence_fwd_chunked(x_proj, keep, wh, bias_h, chunk_policy, h0):
     steps, n, hidden, B, _, P = _check_chunked(
         "gru_sequence_fwd_chunked", x_proj, keep, wh, bias_h, chunk_policy,
         h0)
-    tensor_core = uses_tensor_cores(x_proj.dtype, hidden)
+    tensor_core = fwd_uses_tensor_cores(x_proj.dtype, hidden)
     if tensor_core:
         # x_proj and h0 arrive by 16-byte copies, the weights by TMA.
         x_proj, h0, wh = map(on_16_bytes, (x_proj, h0, wh))
@@ -501,7 +519,7 @@ def gru_sequence_bwd_chunked(x_proj, keep, wh, bias_h, chunk_policy, h0,
     dtype, device = x_proj.dtype, x_proj.device
     _check("ys", ys, dtype, (steps, n, hidden))
     _check("dys", dys, dtype, (steps, n, hidden))
-    tensor_core = uses_tensor_cores(dtype, hidden)
+    tensor_core = bwd_uses_tensor_cores(dtype, hidden)
     num_sms = torch.cuda.get_device_properties(device).multi_processor_count
     g3 = 3 * hidden
 

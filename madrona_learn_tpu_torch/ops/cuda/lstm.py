@@ -32,7 +32,7 @@ instance, and the rollout steps that run them), :func:`bwd_uses_tensor_cores`
 a call is routed to runs or raises:
 
 - bfloat16 at every width (the projection kernels at H = 128 or 256), and
-  the float16 backwards at H = 128 or 256: the recurrence on Hopper's
+  the float16 sequence kernels at H = 128 or 256: the recurrence on Hopper's
   warpgroup tensor cores (``wgmma``, bf16 or f16 operands, f32
   accumulators; the weights stream through a TMA ring, read as they stand
   by the forwards and from transposed copies by the backwards; a block owns
@@ -42,15 +42,15 @@ a call is routed to runs or raises:
   backwards then take the weight gradients as a split-K ``wgmma`` product
   over the T * N rows. Bound by streaming the weights from L2. TMA and the
   kernels' 16-byte copies read every operand on a 16-byte boundary: one
-  that is not is copied onto one first. The float16 backward is the port's
-  own (JAX sends float16 to its jnp twin): f16 operands, dgates, dx_proj,
-  dh0, dc0, dWr and db rounded once to float16, as the CUDA-core kernel
-  and the plain twin round them;
-- float32, whose products tensor cores would round, the float16 forwards,
-  and the float16 backwards at H = 384 and 512: the CUDA-core kernels,
-  bound by f32 FMA issue. Float16 is built for the two sequence kernels
-  alone: :func:`lstm_proj_supported` refuses it, as JAX's does, so a
-  float16 layer takes the unfused kernels.
+  that is not is copied onto one first. The float16 kernels are the port's
+  own (JAX sends float16 to its jnp twin): f16 operands, ys, cs, dgates,
+  dx_proj, dh0, dc0, dWr and db rounded once to float16, as the CUDA-core
+  kernels and the plain twin round them; forward and backward share their
+  route, so the backward recomputes the forward's pre-activations bitwise;
+- float32, whose products tensor cores would round, and float16 at H = 384
+  and 512: the CUDA-core kernels, bound by f32 FMA issue. Float16 is built
+  for the two sequence kernels alone: :func:`lstm_proj_supported` refuses
+  it, as JAX's does, so a float16 layer takes the unfused kernels.
 
 Contract (all operands in the storage dtype, float32, bfloat16 or float16;
 the projection variant float32 or bfloat16):
@@ -156,9 +156,9 @@ LSTM_PROJ_BWD_CHUNKED = Kernel(
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The widths the sequence kernels are built for (every dtype; the bfloat16
-# ones on tensor cores at all four, the float16 backwards at the first
-# two), and those the projection kernels and the float16 tensor-core
-# backwards are built for.
+# ones on tensor cores at all four, the float16 ones at the first two), and
+# those the projection kernels and the float16 tensor-core kernels are
+# built for.
 _HIDDEN_SIZES = (128, 256, 384, 512)
 _TC_HIDDEN_SIZES = (128, 256)
 
@@ -325,8 +325,9 @@ def _check_inputs(x_proj, keep, wr, bias, c0, h0):
 
 
 def _fwd_tc(x, keep, wi, wr, bias, c0, h0, out=None):
-    """The bf16 tensor-core forward of both variants (``wi`` None: x is
-    x_proj): (ys, cs), into ``out`` where given."""
+    """The tensor-core forward of both variants (``wi`` None: x is x_proj;
+    bfloat16, or float16 without the projection): (ys, cs), into ``out``
+    where given."""
     steps, n = x.shape[:2]
     hidden = wr.shape[0]
     f_in = 0 if wi is None else x.shape[2]
@@ -338,9 +339,9 @@ def _fwd_tc(x, keep, wi, wr, bias, c0, h0, out=None):
         out = ys, torch.empty_like(ys)
     ys, cs = out
     err = library().mlt_lstm_fwd_tc(
-        hidden, f_in, x.data_ptr(), keep.data_ptr(), wi.data_ptr(),
-        wr.data_ptr(), bias.data_ptr(), c0.data_ptr(), h0.data_ptr(),
-        ys.data_ptr(), cs.data_ptr(), steps, n,
+        _DTYPE_CODES[x.dtype], hidden, f_in, x.data_ptr(), keep.data_ptr(),
+        wi.data_ptr(), wr.data_ptr(), bias.data_ptr(), c0.data_ptr(),
+        h0.data_ptr(), ys.data_ptr(), cs.data_ptr(), steps, n,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "lstm_sequence_proj_fwd" if f_in else "lstm_sequence_fwd")
     return ys, cs
@@ -578,11 +579,14 @@ def bwd_uses_tensor_cores(dtype, hidden):
 
 def fwd_uses_tensor_cores(dtype, hidden):
     """The path rule of the sequence forward and its chunk-indexed instance
-    (and so of ``lstm_step`` / ``lstm_step_chunked``): bfloat16 at every
-    width the kernels are built for takes the tensor-core kernel, split
-    over a cluster of two blocks at H = 384 and 512; float32 and float16
-    the CUDA-core one."""
-    return dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES
+    (and so of ``lstm_step`` / ``lstm_step_chunked``): the backward's
+    (:func:`bwd_uses_tensor_cores`), so that a float16 or bfloat16 backward
+    on tensor cores recomputes the pre-activations of the forward that ran,
+    bitwise. bfloat16 at every width the kernels are built for takes the
+    tensor-core kernel (split over a cluster of two blocks at H = 384 and
+    512), and so does float16 at H = 128 and 256 (f16 ``wgmma``); float32
+    and float16 at 384 and 512 the CUDA-core one."""
+    return bwd_uses_tensor_cores(dtype, hidden)
 
 
 def on_16_bytes(t):

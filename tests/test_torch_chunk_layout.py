@@ -458,7 +458,7 @@ def test_chunked_lstm_twin_is_each_chunks_reference():
 
 @pytest.mark.parametrize("dtype,H,tensor_core", [
     (BF16, 256, True), (BF16, 128, True), (F32, 256, False),
-    (F32, 128, False), (F16, 256, False), (F16, 128, False)])
+    (F32, 128, False), (F16, 256, True), (F16, 128, True)])
 def test_chunked_lstm_wrapper_routes(monkeypatch, dtype, H, tensor_core):
     """The wrapper takes the route of ``lstm_sequence_fwd``'s rule, hands
     the kernel the stacks' own storage, the chunk count, the chunk size

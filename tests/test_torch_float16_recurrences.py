@@ -44,7 +44,9 @@ from madrona_learn_tpu_torch.ops.cuda.lstm import (bwd_uses_tensor_cores,
                                                    lstm_sequence_proj_fwd,
                                                    uses_tensor_cores)
 from madrona_learn_tpu_torch.ops.cuda.gru import \
-    uses_tensor_cores as gru_uses_tensor_cores
+    bwd_uses_tensor_cores as gru_bwd_uses_tensor_cores
+from madrona_learn_tpu_torch.ops.cuda.gru import \
+    fwd_uses_tensor_cores as gru_fwd_uses_tensor_cores
 from madrona_learn_tpu_torch.ops.cuda.policy_step import \
     policy_step_supported
 from test_torch_advantage_side import (H, _spec, run_two_update_iters)
@@ -154,13 +156,14 @@ def test_float16_takes_no_fused_step_and_no_projection_kernel(monkeypatch):
     for f_in, hidden in ((128, 128), (256, 256), (512, 128)):
         assert not lstm_proj_supported(f_in, hidden, torch.float16)
         assert not jax_lstm_proj_supported(f_in, hidden, jnp.float16)
-    # In float16 only the LSTM backward takes tensor cores (its f16 wgmma
-    # instance at 128 and 256); the forwards, the projection kernels and
-    # the GRU stay on CUDA cores.
+    # In float16 the LSTM forward and backward and the GRU backward take
+    # tensor cores (their f16 wgmma instances at 128 and 256); the GRU
+    # forward stays on CUDA cores, and no projection kernel serves float16.
     assert not uses_tensor_cores(torch.float16, 256)
     assert bwd_uses_tensor_cores(torch.float16, 256)
-    assert not fwd_uses_tensor_cores(torch.float16, 256)
-    assert not gru_uses_tensor_cores(torch.float16, 256)
+    assert fwd_uses_tensor_cores(torch.float16, 256)
+    assert gru_bwd_uses_tensor_cores(torch.float16, 256)
+    assert not gru_fwd_uses_tensor_cores(torch.float16, 256)
     # The projection kernel refuses float16 on the card's route too.
     meta = lambda *s: torch.empty(*s, dtype=torch.float16, device="meta")
     with pytest.raises(ValueError, match="float16"):

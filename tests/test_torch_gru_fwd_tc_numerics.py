@@ -36,8 +36,8 @@ from madrona_learn_tpu_torch.ops.cuda.gru import (
     FWD_TC_STAGES,
     GRU_FWD,
     gru_sequence_fwd,
+    fwd_uses_tensor_cores,
     gru_sequence_reference,
-    uses_tensor_cores,
 )
 
 torch.set_num_threads(1)
@@ -196,6 +196,7 @@ def _stand_in_card(monkeypatch):
     (BF16, 128, True),
     (F32, 256, False),     # float32 stays on CUDA cores
     (F32, 128, False),
+    (torch.float16, 256, False),   # so does float16's forward
 ])
 def test_gru_fwd_path_rule(monkeypatch, dtype, H, tensor_core):
     """The forward wrapper takes the route the rule names and counts a
@@ -204,7 +205,7 @@ def test_gru_fwd_path_rule(monkeypatch, dtype, H, tensor_core):
     boxes are wgmma's MN-major A operand), R and the ring depth. The
     operands stand on the CPU here: the library, the operand check and the
     stream are stand-ins."""
-    assert uses_tensor_cores(dtype, H) is tensor_core
+    assert fwd_uses_tensor_cores(dtype, H) is tensor_core
     lib = _stand_in_card(monkeypatch)
     T, N = 2, 8
     wh = torch.zeros(H, 3 * H, dtype=dtype)

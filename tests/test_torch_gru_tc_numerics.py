@@ -35,9 +35,9 @@ from madrona_learn_tpu_torch.ops.cuda import KERNELS
 from madrona_learn_tpu_torch.ops.cuda.gru import (
     TC_ROWS,
     _cell,
+    bwd_uses_tensor_cores,
     gru_sequence_bwd,
     gru_sequence_reference,
-    uses_tensor_cores,
 )
 from madrona_learn_tpu_torch.ops.cuda.lstm import _num_splits_tc
 
@@ -54,13 +54,13 @@ H100_SMS = 132
 NAMES = ("dxp", "dwh", "dbh", "dh0")
 
 
-def _inputs(seed, T, N, H):
-    """bf16 operands (the distribution chip_smoke.py draws) and a bf16
-    cotangent."""
+def _inputs(seed, T, N, H, dtype=BF16):
+    """Operands of ``dtype`` (bf16 by default; the distribution
+    chip_smoke.py draws) and a cotangent of it, from numpy f32 draws."""
     rng = np.random.default_rng(seed)
 
     def bf(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(BF16)
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
 
     args = dict(
         x_proj=bf(rng.normal(size=(T, N, 3 * H))),
@@ -73,8 +73,8 @@ def _inputs(seed, T, N, H):
 
 
 def _chunked(a, b):
-    """a [M, K] . b [K, N] of bf16 values in f32, K_SLICE deep at a time,
-    the slices added in K order."""
+    """a [M, K] . b [K, N] of bf16 (or f16) values in f32, K_SLICE deep at
+    a time, the slices added in K order."""
     acc = torch.zeros(a.shape[0], b.shape[1], dtype=F32)
     for k0 in range(0, a.shape[1], K_SLICE):
         acc = acc + a[:, k0:k0 + K_SLICE].float() @ b[k0:k0 + K_SLICE].float()
@@ -82,25 +82,29 @@ def _chunked(a, b):
 
 
 def _forward_states(x_proj, keep, wh, bias_h, h0):
-    """ys of the plain forward (the states the backward reads)."""
+    """ys of the plain forward (the states the backward reads), in the
+    operands' dtype."""
     h = h0
     ys = []
     for t in range(x_proj.shape[0]):
         new_h = _cell(x_proj[t], wh.float(), bias_h.float(), h)
         ys.append(new_h)
         h = torch.where(keep[t][:, None] > 0.5, new_h,
-                        torch.zeros((), dtype=BF16))
+                        torch.zeros((), dtype=x_proj.dtype))
     return torch.stack(ys)
 
 
 def emulate_tc_bwd(x_proj, keep, wh, bias_h, h0, ys, dys, sms=H100_SMS,
                    rows=TC_ROWS):
-    """The tensor-core backward's arithmetic: (dxp, dwh, dbh, dh0)."""
+    """The tensor-core backward's arithmetic: (dxp, dwh, dbh, dh0), each in
+    the operands' element type (bf16, or float16: the f16 ``wgmma``
+    instance)."""
+    dt = x_proj.dtype
     T, N, G3 = x_proj.shape
     H = G3 // 3
     bh = bias_h.float()
     dh = torch.zeros(N, H, dtype=F32)
-    zero = torch.zeros((), dtype=BF16)
+    zero = torch.zeros((), dtype=dt)
     dxps, dhps, hins = [None] * T, [None] * T, [None] * T
     dh0 = None
     for t in reversed(range(T)):
@@ -121,11 +125,11 @@ def emulate_tc_bwd(x_proj, keep, wh, bias_h, h0, ys, dys, sms=H100_SMS,
         dn_pre = dh_total * (1 - z) * (1 - n * n)
         dz_pre = dh_total * (h_in.float() - n) * z * (1 - z)
         dr_pre = dn_pre * hn_lin * r * (1 - r)
-        dxps[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1).to(BF16)
-        dhps[t] = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=-1).to(BF16)
+        dxps[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1).to(dt)
+        dhps[t] = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=-1).to(dt)
         dh_prev = _chunked(dhps[t], wh.t()) + dh_total * z
         if t == 0:
-            dh0 = dh_prev.to(BF16)
+            dh0 = dh_prev.to(dt)
         dh = torch.where(kept, dh_prev, torch.zeros(()))
 
     M = T * N
@@ -148,7 +152,7 @@ def emulate_tc_bwd(x_proj, keep, wh, bias_h, h0, ys, dys, sms=H100_SMS,
         for t in reversed(range(T)):
             block = block + dn_slices[t, n0:n0 + rows].sum(0)
         db = db + block
-    return torch.stack(dxps), dw.to(BF16), db.to(BF16), dh0
+    return torch.stack(dxps), dw.to(dt), db.to(dt), dh0
 
 
 def _plain_grads(args, probe):
@@ -222,10 +226,13 @@ def test_tc_gru_weight_gradients_do_not_depend_on_the_split_count():
     (BF16, 384, False),
     (F32, 256, False),      # float32 stays on CUDA cores
     (F32, 128, False),
+    (torch.float16, 256, True),    # headline_gru_fp16's f16 wgmma
+    (torch.float16, 128, True),
+    (torch.float16, 384, False),
 ])
 def test_gru_bwd_path_rule(dtype, H, tensor_core):
     """The route depends on dtype and H alone."""
-    assert uses_tensor_cores(dtype, H) is tensor_core
+    assert bwd_uses_tensor_cores(dtype, H) is tensor_core
 
 
 def test_gru_bwd_wrapper_refuses_what_no_kernel_takes():

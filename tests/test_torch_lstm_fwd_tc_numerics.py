@@ -92,7 +92,8 @@ def _inputs(seed, T, N, H, F=None):
 
 
 def _slices(a, b, acc=None):
-    """acc (+)= a [N, K] . b [K, M] of bf16 values in f32: one K_SLICE-deep
+    """acc (+)= a [N, K] . b [K, M] of bf16 (or f16) values in f32, whose
+    products are exact: one K_SLICE-deep
     slice at a time in K order, each slice's products summed in k order and
     then added to acc."""
     a, b = a.float(), b.float()
@@ -105,18 +106,20 @@ def _slices(a, b, acc=None):
 
 
 def emulate_tc_fwd(x, keep, wi, wr, bias, c0, h0, pres=None):
-    """The tensor-core forward's arithmetic: (ys, cs), each [T, N, H].
-    ``pres``, where given, is a list that receives each step's
-    pre-activations [N, 4H] (f32), in step order."""
+    """The tensor-core forward's arithmetic: (ys, cs), each [T, N, H] in
+    the operands' element type (bf16; float16 without the projection, the
+    f16 ``wgmma`` instance). ``pres``, where given, is a list that receives
+    each step's pre-activations [N, 4H] (f32), in step order."""
+    dt = x.dtype
     b32 = bias.float()
-    zero = torch.zeros((), dtype=BF16)
+    zero = torch.zeros((), dtype=dt)
     c, h = c0, h0
     ys, cs = [], []
     for t in range(x.shape[0]):
         if wi is None:
             pre = (x[t].float() + _slices(h, wr)) + b32
         else:
-            xp = _slices(x[t], wi).to(BF16).float()
+            xp = _slices(x[t], wi).to(dt).float()
             pre = _slices(h, wr, acc=xp) + b32
         if pres is not None:
             pres.append(pre)
@@ -124,7 +127,7 @@ def emulate_tc_fwd(x, keep, wi, wr, bias, c0, h0, pres=None):
         new_c = torch.sigmoid(gf) * c.float() + torch.sigmoid(gi) * torch.tanh(
             gg)
         new_h = torch.sigmoid(go) * torch.tanh(new_c)
-        c_t, h_t = new_c.to(BF16), new_h.to(BF16)
+        c_t, h_t = new_c.to(dt), new_h.to(dt)
         ys.append(h_t)
         cs.append(c_t)
         kept = keep[t][:, None] > 0.5
@@ -256,7 +259,7 @@ def emulate_tc_fwd_chunked(x, keep, wr, bias, idx, c0, h0):
     outside [0, P)."""
     C = x.shape[1] // idx.shape[0]
     ys = torch.full((x.shape[0], x.shape[1], wr.shape[1]), float("nan"),
-                    dtype=BF16)
+                    dtype=x.dtype)
     cs = ys.clone()
     for b, p in enumerate(idx.tolist()):
         if not 0 <= p < wr.shape[0]:
@@ -341,7 +344,9 @@ def _stand_in_card(monkeypatch):
     (BF16, 384, None, True),     # the two-block cluster
     (BF16, 512, None, True),     # infer_512's rollout step
     (F32, 512, None, False),
-    (torch.float16, 384, None, False),
+    (torch.float16, 384, None, False),   # float16 at 384 / 512: CUDA cores
+    (torch.float16, 256, None, True),    # headline_fp16's f16 wgmma
+    (torch.float16, 128, None, True),
 ])
 def test_lstm_fwd_path_rule(monkeypatch, dtype, H, F, tensor_core):
     """The forward wrappers take the route the rule names, and count a
@@ -394,9 +399,9 @@ def test_tc_lstm_fwd_reads_the_weights_as_they_stand(monkeypatch, F):
         lstm_sequence_proj_fwd(torch.zeros(T, N, F, dtype=BF16), keep, wi,
                                wr, bias, state, state)
     (args,) = lib.args
-    # hidden, f_in, x, keep, wi, wr, ...
-    assert args[:2] == (H, F or 0)
-    assert args[4:6] == (wi.data_ptr(), wr.data_ptr())
+    # dtype, hidden, f_in, x, keep, wi, wr, ...
+    assert args[:3] == (1, H, F or 0)
+    assert args[5:7] == (wi.data_ptr(), wr.data_ptr())
 
 
 def test_lstm_fwd_wrappers_refuse_what_no_kernel_takes():
@@ -459,7 +464,7 @@ def test_wide_bf16_forwards_take_tensor_cores_backwards_cuda_cores(
     assert lib.calls == ["mlt_lstm_fwd_tc", "mlt_lstm_fwd_chunked",
                          "mlt_lstm_bwd_tc", "mlt_lstm_bwd_chunked"]
     fwd_tc, fwd_chunked, bwd, bwd_chunked = lib.args
-    assert fwd_tc[:2] == (H, 0)
+    assert fwd_tc[:3] == (1, H, 0)            # dtype, hidden, f_in
     assert fwd_chunked[:3] == (1, 1, H)
     assert bwd[:4] == (1, H, 0, 3)          # dtype, hidden, f_in, phases
     assert bwd_chunked[:3] == (1, 1, H)

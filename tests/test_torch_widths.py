@@ -107,14 +107,17 @@ def test_gates_are_jaxs(H, dtype):
             and bool(jax_policy_step_supported(H, f_in, jdt)))
     # bfloat16 takes tensor cores where the wgmma instances are built: the
     # LSTM forwards and backwards at every instance's width, the projection
-    # (and the GRU) at 128 and 256; float16 the LSTM backwards at 128 and
-    # 256.
-    assert fwd_uses_tensor_cores(tdt, H) is (tdt == BF16 and H in INSTANCES)
-    assert bwd_uses_tensor_cores(tdt, H) is (
-        (tdt == BF16 and H in INSTANCES) or (tdt == F16 and H in (128, 256)))
+    # (and the GRU) at 128 and 256; float16 the LSTM forwards and backwards
+    # and the GRU backwards at 128 and 256.
+    lstm_tc = ((tdt == BF16 and H in INSTANCES)
+               or (tdt == F16 and H in (128, 256)))
+    assert fwd_uses_tensor_cores(tdt, H) is lstm_tc
+    assert bwd_uses_tensor_cores(tdt, H) is lstm_tc
     assert uses_tensor_cores(tdt, H) is (tdt == BF16 and H in (128, 256))
-    assert gru_mod.uses_tensor_cores(tdt, H) is (tdt == BF16
-                                                 and H in (128, 256))
+    assert gru_mod.fwd_uses_tensor_cores(tdt, H) is (tdt == BF16
+                                                     and H in (128, 256))
+    assert gru_mod.bwd_uses_tensor_cores(tdt, H) is (
+        tdt in (BF16, F16) and H in (128, 256))
 
 
 class _Recorder:
@@ -387,11 +390,8 @@ def test_wide_launches_take_the_cuda_core_entry_points(monkeypatch, H,
         "mlt_lstm_fwd_chunked", "mlt_lstm_bwd_chunked", "mlt_gru_fwd",
         "mlt_gru_bwd", "mlt_gru_fwd_chunked", "mlt_gru_bwd_chunked"]
     for name, args in lib.calls:
-        if name == "mlt_lstm_fwd_tc":       # (hidden, f_in, ...)
-            assert args[:2] == (H, 0), name
-            continue
-        if name == "mlt_lstm_bwd_tc":       # (dtype, hidden, f_in, ...)
-            assert args[:3] == (code, H, 0), name
+        if name in ("mlt_lstm_fwd_tc", "mlt_lstm_bwd_tc"):
+            assert args[:3] == (code, H, 0), name   # (dtype, hidden, f_in)
             continue
         # (dtype, hidden, ...) or, chunked, (tensor_core, dtype, hidden).
         head = args[1:3] if name.endswith("_chunked") else args[:2]

@@ -41,14 +41,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    5 rows bitwise, a T = 1 call from the cleared state must equal the
    matching step of the T = 16 call bitwise, and at ragged N they must
    write no row past N; the LSTM and GRU kernels' float16 instances (on
-   tensor cores but for the GRU forward, whose float16 instance runs on
-   CUDA cores; the tensor-core ones held bitwise as the bf16 ones: batch
-   invariance, and for the LSTM forward the rollout step) are checked,
+   tensor cores, held bitwise as the bf16 ones: batch invariance, and for
+   the forwards the rollout step) are checked,
    forward and backward, and timed at
    headline_fp16's and headline_gru_fp16's update minibatch and rollout
    step, with their bounds at 2 bytes an element; the GRU forward is also
-   timed at each rows-a-block
-   and ring-depth pair it is built for; ``gae`` must equal its plain
+   timed at each rows-a-block and ring-depth pair it is built for (at 256
+   here, at 384 and 512 in the chunk-indexed checks); ``gae`` must equal its plain
    version bitwise at four shapes and on the columns two calls share, and
    is timed at each steps-a-chunk and columns-a-block pair it is built
    for; ``layer_norm_fwd``'s y and ``layer_norm_bwd``'s dx at N = 131072
@@ -100,15 +99,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    1024, CUDA cores at IN = 2), of ``lstm_sequence_fwd_chunked`` /
    ``gru_sequence_fwd_chunked`` at the collect step (the LSTM's also at
    the learn step) and of their backwards at the learn step (tensor cores
-   but for the GRU forward): against the
+   at 256): against the
    plain twins (the recurrences within 2^-8, ``grouped_matmul`` within
    one float16 ulp of the largest value), every row bitwise one
    single-policy float16 launch a policy over the same rows, chunks of
    index P and -1 NaN, and timed against those launches (the
    ``kernels`` line's ``float16`` entries); and the same four checks of
    the chunk-indexed recurrences again at H = 384 and 512 (CUDA cores in
-   every dtype but the bf16 LSTM forward's two-block cluster on tensor
-   cores), with infer_512's step and the learn step for the LSTM forward:
+   every dtype but the bf16 LSTM kernels' and GRU forward's two-block
+   clusters on tensor cores; the GRU forward's ring depths swept), with
+   infer_512's step and the learn step for the LSTM forward:
    every check
    above at those widths (batch invariance, bitwise rows, a one-chunk
    policy's dW / db bitwise the single-policy kernel's on CUDA cores, the
@@ -271,7 +271,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     headline_pbt's launches, 37 / 4 / 164 / 1, every LSTM launch on
     tensor cores, ``grouped_matmul`` 66 of its 164 on them (the products
     with IN and OUT multiples of 8); both A/Bs), headline_pbt_gru_fp16
-    (the GRU in float16: 37 / 4 / 164 / 1, the 4 backwards on tensor
+    (the GRU in float16: 37 / 4 / 164 / 1, every GRU launch on tensor
     cores, 66 likewise; the learn A/B) and headline_pbt_window
     (headline_window's
     WindowAttentionMemory(256, window 16, 4 heads), bf16: ``grouped_matmul``
@@ -322,9 +322,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     8, ratio exactly 0), headline_fp16 and headline_gru_fp16 (the
     headline and headline_gru in float16 with the observations cast and
     the loss scaled: the headline's and headline_gru's launches, every
-    LSTM launch and every GRU backward on the float16 tensor-core
-    instances, the GRU forwards on CUDA cores, the scaler checked as at
-    mlp_fp16; ratio exactly 0 at headline_fp16), headline_window
+    LSTM and GRU launch on the float16 tensor-core instances, the scaler
+    checked as at mlp_fp16; ratio exactly 0 at both), headline_window
     (``WindowAttentionMemory(256, window 16, 4 heads)`` in the LSTM's
     place, bf16: ``gae`` alone, its ratio printed) and
     flagship_concat_self_remat (the flagship with ``embed_concat_self``
@@ -1503,26 +1502,31 @@ def _gru_tc_timing(results, args, ys, probe):
     results.update(split)
 
 
-def _gru_fwd_sweep(update_args, step_args):
-    """The tensor-core forward at each rows-a-block (R) and ring-depth pair
-    that csrc/gru.cu builds at H = 256, timed at the update minibatch and
-    the rollout step; each variant's ys against the wrapper's, bitwise."""
+# The (rows a block, ring stages) pairs csrc/gru.cu builds for the bf16
+# tensor-core forward at each width (mlt_gru_fwd_tc), which
+# ``_gru_fwd_sweep`` times.
+GRU_FWD_VARIANTS = {256: ((16, 4), (32, 2), (32, 3), (32, 4)),
+                    384: ((32, 4), (32, 5), (32, 6)),
+                    512: ((32, 3), (32, 4))}
+
+
+def _gru_fwd_sweep(H, args, label):
+    """The bf16 tensor-core forward at each rows-a-block (R) and ring-depth
+    pair that csrc/gru.cu builds at width H (``GRU_FWD_VARIANTS``) on
+    ``args`` (at ``label``'s shape), each variant's ys against the
+    wrapper's, bitwise."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gru import (
         FWD_TC_ROWS, FWD_TC_STAGES, _fwd_tc)
 
-    want = _fwd_tc(*update_args)
-    for rows, stages in ((16, 4), (32, 2), (32, 3), (32, 4)):
-        update_ms = time_ms(
-            lambda: _fwd_tc(*update_args, rows=rows, stages=stages))
-        step_ms = time_ms(
-            lambda: _fwd_tc(*step_args, rows=rows, stages=stages))
-        same = torch.equal(
-            _fwd_tc(*update_args, rows=rows, stages=stages), want)
-        log(f"  gru fwd sweep: R = {rows}, {stages} ring stages: "
-            f"{update_ms:.3f} ms at [16, 8192], {step_ms:.3f} ms at [1, "
-            f"16384]; ys bitwise equal to R = {FWD_TC_ROWS}, "
-            f"{FWD_TC_STAGES} stages: {same}")
+    T, N = args[0].shape[:2]
+    want = _fwd_tc(*args)
+    for rows, stages in GRU_FWD_VARIANTS[H]:
+        ms = time_ms(lambda: _fwd_tc(*args, rows=rows, stages=stages))
+        same = torch.equal(_fwd_tc(*args, rows=rows, stages=stages), want)
+        log(f"  gru fwd sweep H={H} {label} [{T}, {N}]: R = {rows}, "
+            f"{stages} ring stages: {ms:.4f} ms; ys bitwise equal to R = "
+            f"{FWD_TC_ROWS}, {FWD_TC_STAGES} stages: {same}")
 
 
 def check_gru(results):
@@ -1538,10 +1542,9 @@ def check_gru(results):
     bf16, f32 = torch.bfloat16, torch.float32
     # (T, N, H, dtype, on the main path): the headline_gru update minibatch,
     # its rollout step, ragged batches at both widths (bf16 on tensor
-    # cores), the float16 instances (the forward on CUDA cores, the
-    # backward on tensor cores) at headline_gru_fp16's update minibatch
-    # and rollout step ("fp16") and ragged at 128, and float32 at both
-    # widths (CUDA cores).
+    # cores), the float16 instances (on f16 tensor cores) at
+    # headline_gru_fp16's update minibatch and rollout step ("fp16") and
+    # ragged at 128, and float32 at both widths (CUDA cores).
     f16 = torch.float16
     cases = [
         (16, 8192, 256, bf16, True),
@@ -1599,15 +1602,21 @@ def check_gru(results):
             bwd_err = max(bwd_err, err)
             if main_path and T > 1:
                 bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
+        if role == "fp16" and fpath != "tensor_core":
+            raise AssertionError(f"gru fwd {tag}: the main path took the "
+                                 f"{fpath} route")
         if role == "fp16" and T > 1:
-            # The float16 backward's main route: tensor cores,
-            # deterministic and batch invariant as the bf16 one.
+            # The float16 main route: tensor cores, deterministic and batch
+            # invariant as the bf16 one, the T = 1 step the sequence's.
             if path != "tensor_core":
                 raise AssertionError(f"gru bwd {tag}: the main path took "
                                      f"the {path} route")
             _tc_bwd_checks("gru bwd " + tag, gru_sequence_bwd, args, (ys,),
                            probe, got, row_args={0: 1, 1: 1, 4: 0},
                            row_outs={0: 1, 3: 0}, weight_outs=(1, 2))
+            _tc_fwd_checks("gru fwd " + tag,
+                           lambda *a: (gru_sequence_fwd(*a),), args, (ys,),
+                           {4: 0})
             _gru_tc_timing(bwd.setdefault("float16", {}), args, ys, probe)
         if role == "fp16":
             _float16_record(
@@ -1655,7 +1664,8 @@ def check_gru(results):
                 f"({step_bound['bound_by']}); host {host:.1f} us a call "
                 f"(enqueue, 100 calls)")
             cudnn_gru_check(args, ys)
-    _gru_fwd_sweep(main_args[16], main_args[1])
+    _gru_fwd_sweep(256, main_args[16], "update")
+    _gru_fwd_sweep(256, main_args[1], "step")
 
 
 def _layer_norm_bounds(N, D, itemsize):
@@ -2662,25 +2672,27 @@ def _skipped_rows(B, C, bad=(1, 3)):
 
 
 def check_gru_chunked(results, H):
-    """gru_sequence_fwd_chunked at width H (256, and the CUDA-core
+    """gru_sequence_fwd_chunked at width H (256, and the two-block-cluster
     instances at 384 and 512, under the record's ``wide``) at
     headline_pbt_gru's collect step (T = 1, the chunk size and count
     init_training derives, 12 policies) and its learn step (T = 16, 8
     train policies, one chunk of a minibatch's 1280 sequences each), bf16
-    on tensor cores where ``fwd_uses_tensor_cores`` says, and at chunks of
-    37 rows (no multiple of a tile) in a shuffled order, in bf16 and f32
-    (CUDA cores): against its plain twin; row for row bitwise
+    on tensor cores (as ``fwd_uses_tensor_cores`` says at every width), and
+    at chunks of 37 rows (no multiple of a tile) in a shuffled order, in
+    bf16 and f32 (CUDA cores): against its plain twin; row for row bitwise
     ``gru_sequence_fwd`` with the row's policy's weights (each policy's
     rows in one call); bitwise over two calls and for the first chunk
     alone; chunks of index P and -1 NaN, the others unchanged; its time
     against one ``gru_sequence_fwd`` a policy over the same rows (the
-    per-policy loop's launches) and its bound. Its float16 instance (CUDA
-    cores) at the collect step the same way, with the NaN chunks, its
-    times and bound into ``float16``. At 384 and 512 also
-    ``gru_sequence_fwd`` on one policy's rows against its twin, timed."""
+    per-policy loop's launches) and its bound. Its float16 instance (on
+    tensor cores at 256, CUDA cores at 384 and 512) at the collect step
+    the same way, with the NaN chunks, its times and bound into
+    ``float16``. At 384 and 512 also ``gru_sequence_fwd`` on one policy's
+    rows against its twin, timed, and the cluster's ring depths swept at
+    both bf16 shapes (``_gru_fwd_sweep``)."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gru import (
-        GRU_FWD_CHUNKED, fwd_uses_tensor_cores, gru_sequence_fwd,
+        GRU_FWD, GRU_FWD_CHUNKED, fwd_uses_tensor_cores, gru_sequence_fwd,
         gru_sequence_fwd_chunked, gru_sequence_fwd_chunked_reference,
         gru_sequence_reference)
 
@@ -2777,11 +2789,18 @@ def check_gru_chunked(results, H):
             _wide_record(results, "gru_sequence_fwd_chunked", H, dname,
                          label, **record)
             a1 = per_policy[0]
+            _, single_path = _routed(GRU_FWD, fwd_uses_tensor_cores(dtype, H),
+                                     gru_sequence_fwd, *a1)
             _wide_single(results, "gru_sequence_fwd", H, dname, label,
                          lambda: (gru_sequence_fwd(*a1),),
                          lambda: (gru_sequence_reference(*a1),), tol,
                          _gru_bounds(T_c, a1[0].shape[1], H,
-                                     x.element_size())[0])
+                                     x.element_size())[0],
+                         path=single_path)
+            if dtype == bf16:
+                # The cluster's ring depth: the depths csrc/gru.cu builds
+                # at this width, single-policy over the same rows.
+                _gru_fwd_sweep(H, (x, keep, wh[0], bias_h[0], h0), label)
         elif role == "collect":
             res.update(record)     # 33 of the 37 launches an update
         elif role == "float16":
@@ -4818,9 +4837,9 @@ TC_ROUTED = ("lstm_sequence_fwd", "lstm_sequence_bwd",
 def _tc_kernels(dtype, hidden):
     """The kernels of TC_ROUTED whose launches take the tensor-core route
     in a model of this dtype and recurrent width: in bfloat16 every one at
-    H = 128 and 256, and at 384 and 512 the four LSTM sequence kernels
-    alone (their two-block cluster; the GRU stays on CUDA cores); in
-    float16 the four LSTM sequence kernels and the two GRU backwards at
+    H = 128 and 256, and at 384 and 512 the four LSTM sequence kernels and
+    the two GRU forwards (their two-block clusters; the GRU backwards stay
+    on CUDA cores); in float16 the eight LSTM and GRU sequence kernels at
     128 and 256 alone."""
     from madrona_learn_tpu_torch.ops.cuda import gru, lstm
 
@@ -4931,9 +4950,8 @@ def trainer_phase(card, name, build, per_update, trials, timed_updates,
         f"{ {k: v * num_updates for k, v in per_update.items()} })")
     # The trainers run bf16 at H = 256: every launch of a kernel with a
     # counted tensor-core route (the four LSTM kernels, the two GRU
-    # kernels, mha, the fused step) takes it. In float16 the LSTM
-    # kernels and the GRU backwards take theirs, the GRU forwards their
-    # CUDA-core instances.
+    # kernels, mha, the fused step) takes it. In float16 the LSTM and GRU
+    # sequence kernels take theirs (_tc_kernels).
     for kernel, tc in tc_launches.items():
         if tc != (launches[kernel] if kernel in tensor_cores else 0):
             raise AssertionError(
@@ -6927,6 +6945,7 @@ def digest_phase():
         **_chunked_digests(digest),
         **_bwd_route_digests(digest),
         **_f16_route_digests(digest),
+        **_gru_fwd_route_digests(digest),
     }}))
 
 
@@ -7015,6 +7034,40 @@ def _f16_route_digests(digest):
     out[f"gru_sequence_bwd_chunked float16 H={CHANNELS}"] = digest(
         gru_sequence_bwd_chunked(*learn, *drawn(PBT_TRAIN * PBT_MINIBATCH,
                                                 CHANNELS)))
+    return out
+
+
+def _gru_fwd_route_digests(digest):
+    """The GRU forward's digests at the instances that moved onto tensor
+    cores after the others' (float16 at H = 128 and 256, bf16 at 384 and
+    512: the two-block cluster), from a generator of their own:
+    single-policy at headline_gru_fp16's update minibatch (and at 2048 rows
+    at 128), chunk-indexed at headline_pbt_gru_fp16's collect step, and at
+    384 / 512 at headline_pbt's collect and learn steps."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.gru import (
+        gru_sequence_fwd, gru_sequence_fwd_chunked)
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    bf16, f16 = torch.bfloat16, torch.float16
+    T = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS
+    P, C, B = _pbt_chunk_geometry()
+    out = {}
+    for H, N in ((128, 2048), (256, 8192)):
+        out[f"gru_sequence_fwd float16 H={H}"] = digest(
+            [gru_sequence_fwd(*_gru_inputs(gen, T, N, H, f16))])
+    out[f"gru_sequence_fwd_chunked float16 H={CHANNELS}"] = digest(
+        [gru_sequence_fwd_chunked(*_chunked_gru_inputs(
+            gen, 1, B, C, CHANNELS, P, f16))])
+    for H in WIDE_HIDDEN:
+        step = _chunked_gru_inputs(gen, 1, B, C, H, P, bf16)
+        learn = list(_chunked_gru_inputs(gen, T, PBT_TRAIN, PBT_MINIBATCH, H,
+                                         PBT_TRAIN, bf16))
+        learn[4] = torch.arange(PBT_TRAIN, dtype=torch.int32, device="cuda")
+        out[f"gru_sequence_fwd_chunked bf16 H={H} collect"] = digest(
+            [gru_sequence_fwd_chunked(*step)])
+        out[f"gru_sequence_fwd_chunked bf16 H={H} learn"] = digest(
+            [gru_sequence_fwd_chunked(*learn)])
     return out
 
 
@@ -7240,6 +7293,47 @@ def _route_timings():
                 ms=time_ms(lambda: lstm_sequence_bwd(*args)),
                 bound_ms=b["bound_ms"])
     out.update(_f16_timings(gen))
+    out.update(_gru_fwd_timings(gen))
+    return out
+
+
+def _gru_fwd_timings(gen):
+    """The GRU forward at the instances that moved onto tensor cores after
+    the others', each a median of CUDA-event timings with its bound: float16
+    gru_sequence_fwd at headline_gru_fp16's minibatch [16, 8192] and rollout
+    step [1, 16384], float16 gru_sequence_fwd_chunked at
+    headline_pbt_gru_fp16's collect step (T = 1, 75 x 512, 12 policies) and
+    learn step (T = 16, 8 x 1280, 8 policies), and bf16
+    gru_sequence_fwd_chunked at H = 512 and 384 at the same two steps."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.gru import (
+        gru_sequence_fwd, gru_sequence_fwd_chunked)
+
+    f16, bf16 = torch.float16, torch.bfloat16
+    P, C, B = _pbt_chunk_geometry()
+    learn_T = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS
+    out = {}
+    for T, N in ((learn_T, 8192), (1, 16384)):
+        args = _gru_inputs(gen, T, N, CHANNELS, f16)
+        b = _gru_bounds(T, N, CHANNELS, 2, tensor="f16_tensor")[0]
+        out[f"gru_sequence_fwd float16 H={CHANNELS} [{T}, {N}]"] = dict(
+            ms=time_ms(lambda: gru_sequence_fwd(*args)),
+            bound_ms=b["bound_ms"])
+    for dtype, H in ((f16, CHANNELS), (bf16, INFER_CHANNELS), (bf16, 384)):
+        for label, T, chunks, chunk, P_c in (
+                ("collect", 1, B, C, P),
+                ("learn", learn_T, PBT_TRAIN, PBT_MINIBATCH, PBT_TRAIN)):
+            args = list(_chunked_gru_inputs(gen, T, chunks, chunk, H, P_c,
+                                            dtype))
+            if label == "learn":
+                args[4] = torch.arange(P_c, dtype=torch.int32,
+                                       device="cuda")
+            b = _chunked_gru_bounds(T, chunks, chunk, H,
+                                    int(args[4].unique().numel()), 2)[0]
+            out[f"gru_sequence_fwd_chunked {str(dtype).split('.')[-1]} "
+                f"H={H} {label} [{T}, {chunks} x {chunk}] P={P_c}"] = dict(
+                    ms=time_ms(lambda: gru_sequence_fwd_chunked(*args)),
+                    bound_ms=b["bound_ms"])
     return out
 
 
@@ -7472,8 +7566,8 @@ def main():
               "grouped_matmul": 8 * STEPS_PER_UPDATE + 4}, 1, False),
             # The headline's model in float16 (headline_fp16's) and the GRU
             # in float16: headline_pbt's and headline_pbt_gru's launches, the
-            # recurrences on their float16 instances (on tensor cores but
-            # for the GRU forward) and
+            # recurrences on their float16 instances (all on tensor cores)
+            # and
             # grouped_matmul on tensor cores at its aligned products (gmm_tc),
             # loss scaling a policy.
             ("headline_pbt_fp16", dict(dtype=torch.float16), pbt_lstm, 1,
@@ -7544,7 +7638,8 @@ def main():
             setting=f"bf16, an MLP + LSTM tower for the actor and one for "
                     f"the critic, {NUM_MINIBATCHES} minibatches"),
         # Float16 recurrences: the headline's launches on the kernels'
-        # float16 instances, on tensor cores but for the GRU forward's.
+        # float16 instances, all on tensor cores; the rollout step is the
+        # update pass's step, so the ratio starts at exactly 1.
         "headline_fp16": trainer_phase(
             card, "headline_fp16", build_headline_fp16, lstm, trials=2,
             timed_updates=5, last_rewards=5, ratio_zero=True,
@@ -7554,7 +7649,7 @@ def main():
                     f"{NUM_MINIBATCHES} minibatches"),
         "headline_gru_fp16": trainer_phase(
             card, "headline_gru_fp16", build_headline_gru_fp16, gru,
-            trials=2, timed_updates=3, last_rewards=3,
+            trials=2, timed_updates=3, last_rewards=3, ratio_zero=True,
             final_check=check_scaler,
             tensor_cores=_tc_kernels(torch.float16, CHANNELS),
             setting=f"float16 MLP + GRU with loss scaling, "

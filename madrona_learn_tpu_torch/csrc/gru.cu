@@ -42,29 +42,30 @@
 //
 // These are bound by CUDA-core FMA issue and shared/L1 load throughput,
 // far below the tensor-core rate that bounds the work itself; they serve
-// float32, the float16 forward, and every dtype at H = 384 and 512 (the
+// float32, float16 at H = 384 and 512, and the bfloat16 backward there (the
 // same f32 math from float16 or bfloat16 operands, h and the rounded dhp
 // stored in the storage type).
 //
-// In bfloat16, both on Hopper's tensor cores: the forward
-// (gru_fwd_tc_kernel) and the backward (gru_bwd_tc_kernel, then
-// weight_grad_tc.cuh). The TPU kernel's products are bf16 operands with
-// f32 accumulation (h . Wh; dhp rounded to the storage type before
-// dh_prev = dhp . Wh^T and dWh = h_in^T . dhp), which is what wgmma
-// computes, with only the order of the sums changed. They are lstm.cu's
-// lstm_fwd_tc_kernel and lstm_bwd_tc_kernel with three gates in place of
-// four; the wrappers' rules (ops/cuda/gru.py: fwd_uses_tensor_cores,
-// bwd_uses_tensor_cores) send bf16 at H = 128 or 256 here. One helper
-// computes h . Wh (hidden_products) and one the gates (gru_gates) for the
-// forward and the backward's recompute, so the backward differentiates the
-// forward that ran. The float16 backward (gru_sequence_bwd and its
-// chunk-indexed instance, the port's own: JAX sends float16 to its jnp
-// twin) takes the same kernels at H = 128 and 256 with f16 operands (wgmma
-// .f16, f32 sums; dxp, dhp, dh0, dWh and dbh rounded once to f16, where
-// the CUDA-core kernel and the plain twin round them). The float16 forward
-// stays on CUDA cores, so the float16 backward recomputes h . Wh in
-// another order than the forward that wrote ys, and is held to its plain
-// twin (2^-8 of the largest value).
+// On Hopper's tensor cores: the forward (gru_fwd_tc_kernel) in bfloat16 at
+// every width and in float16 at H = 128 and 256, and the backward
+// (gru_bwd_tc_kernel, then weight_grad_tc.cuh) in both at 128 and 256. The
+// TPU kernel's products are bf16 operands with f32 accumulation (h . Wh;
+// dhp rounded to the storage type before dh_prev = dhp . Wh^T and dWh =
+// h_in^T . dhp), which is what wgmma computes, with only the order of the
+// sums changed. They are lstm.cu's lstm_fwd_tc_kernel and
+// lstm_bwd_tc_kernel with three gates in place of four; the wrappers'
+// rules (ops/cuda/gru.py: fwd_uses_tensor_cores, bwd_uses_tensor_cores)
+// send calls here. One helper computes h . Wh (hidden_products) and one
+// the gates (gru_gates) for the forward and the backward's recompute, so
+// the backward differentiates the forward that ran, and the forward's rule
+// holds wherever the backward's does, so the rollout step is the update
+// pass's step. The float16 instances (the port's own: JAX sends float16 to
+// its jnp twin) take the bf16 schedules with f16 operands (wgmma .f16, f32
+// sums; ys, dxp, dhp, dh0, dWh and dbh rounded once to f16, where the
+// CUDA-core kernels and the plain twin round them). At H = 384 and 512 the
+// bf16 forward splits the units over a cluster of two blocks, as
+// lstm_fwd_tc_kernel does; the backward there stays on CUDA cores, and
+// recomputes h . Wh in another sum order than the forward that wrote ys.
 //
 // The forward: one block owns R batch rows (FWD_TC_ROWS in ops/cuda/gru.py)
 // and loops over time; warpgroup w owns units 64 w .. 64 w + 63 of r, z
@@ -73,12 +74,17 @@
 // as MN-major TMA boxes ([64 k][64 units]) of the weight as it stands,
 // through the slice_ring.cuh ring, so a rollout step copies no weight. B:
 // the block's h tile, K-major with the 128-byte swizzle, which the gate
-// math overwrites with the next step's carry (bf16, after keep), so h never
+// math overwrites with the next step's carry (E, after keep), so h never
 // goes through global memory between steps. x_proj arrives by 16-byte
 // cp.async with zero-fill during the step's products; each thread stores
 // its own ys elements. Rows past N give zeros and are never stored. A
 // row's ys depends neither on N, nor on where the row sits, nor on T: the
-// rollout step (T = 1) is step t of the update pass bitwise.
+// rollout step (T = 1) is step t of the update pass bitwise. At H = 384
+// and 512 each block of a cluster owns H / 2 units of the same rows (the
+// H = 192 / 256 layout), streams its units' Wh columns, stages its units'
+// x_proj and holds the whole h tile, into which both blocks write their
+// halves of each carry through distributed shared memory, two cluster
+// barriers a step (gru_fwd_tc_kernel).
 //
 // The backward:
 // - One block owns R = kGruTcRows batch rows (32: the faster of 16 and 32
@@ -115,10 +121,8 @@
 // the rows are [num_chunks][chunk], each chunk of one policy; a block owns
 // one row tile of one chunk (fwd_rows, chunk_rows.cuh) and reads its
 // policy's slice of the [P, H, 3H] / [P, H] stacks: by a pointer offset on
-// CUDA cores (float32, float16; bfloat16 at H = 384 and 512), by the
-// third coordinate of one TMA map
-// over the whole stack on tensor cores (bf16: Wh, and the backward's
-// [P, 3H, H] Wh^T stack). A row's arithmetic is the single-policy
+// CUDA cores, by the third coordinate of one TMA map over the whole stack
+// on tensor cores (Wh, and the backward's [P, 3H, H] Wh^T stack). A row's arithmetic is the single-policy
 // kernel's, so every row equals
 // gru_sequence_fwd's / _bwd's with its policy's weights bitwise; a chunk of
 // no policy (index P or -1) writes NaN rows and reads no weight. The
@@ -478,9 +482,10 @@ struct GruTcBwd {
 // both compute it alike: acc[g] = (h . W_hg)^T, this warpgroup's 64 units
 // of gate g. The ring's next slices are Wh by (H-chunk, gate): K-major
 // slices of Wh^T (kTransA 0, the backward) or MN-major boxes of Wh as it
-// stands (kTransA 1, the forward; ring_product); h_s is the K-major h
-// tile, a_off this warpgroup's rows of a stage. E: the operands' type (bf16;
-// f16 in the float16 backward).
+// stands (kTransA 1, the forward; ring_product), each this block's units
+// of its gate (all H, or H / 2 in a cluster of two); h_s is the K-major h
+// tile over all H units, a_off this warpgroup's rows of a stage. E: the
+// operands' type (bf16, or f16 in the float16 instances).
 template <int H, int R, int kTransA, typename E, int S, class Issue>
 __device__ __forceinline__ void hidden_products(SliceRing<S>& slices,
                                                 Issue& issue,
@@ -830,23 +835,31 @@ int launch_bwd_tc(int phases, const void* xp, const void* keep,
   return 0;
 }
 
-// ------------------------------------ bf16 forward on tensor cores
+// ------------------------------------ bf16 and f16 forward on tensor cores
+
+// Ring stages of the tensor-core forward that the wrapper and the
+// chunk-indexed instance take at every width: the fastest of the depths
+// mlt_gru_fwd_tc builds for chip_smoke.py's sweeps, at 256, 384 and 512 on
+// the H100 (ops/cuda/gru.py:FWD_TC_STAGES mirrors it).
+constexpr int kGruFwdStages = 4;
 
 // Shared memory of gru_fwd_tc_kernel at R rows a block and at most kStages
 // ring stages, from a 1024-byte aligned base: the ring of weight slices
-// ([64 k][H units] bf16 each, as H / 64 TMA boxes of [64 k][64 units]), the
-// block's h tile (the K-major B operand of h . Wh, which the gate math
-// overwrites with the next step's carry) and its x_proj tile (K-major
-// [R][3H]).
-template <int H, int R, int kStages>
+// ([64 k][U units] each, U = H / kSplit the block's units, as U / 64 TMA
+// boxes of [64 k][64 units]), the block's h tile (the K-major B operand of
+// h . Wh over all H units, which the gate math overwrites with the next
+// step's carry) and its x_proj tile (K-major [R][3U]: the x_proj columns of
+// its units).
+template <int H, int R, int kStages, int kSplit>
 struct GruTcFwd {
-  static constexpr int kWarpgroups = H / 64;   // 64 units each
+  static constexpr int kUnits = H / kSplit;
+  static constexpr int kWarpgroups = kUnits / 64;   // 64 units each
   static constexpr int kThreads = 128 * kWarpgroups;
   static constexpr int kWarps = 4 * kWarpgroups;
   static constexpr int kSub = R * 128;          // one [R][64] subtile
-  static constexpr int kStageBytes = H * 128;
+  static constexpr int kStageBytes = kUnits * 128;
   static constexpr int kHBytes = R * H * 2;
-  static constexpr int kXBytes = R * 3 * H * 2;
+  static constexpr int kXBytes = R * 3 * kUnits * 2;
   static constexpr int kFixed = kHBytes + kXBytes;
   static constexpr int kRing =
       min_c(kStages, (kSmemLimit - 2048 - kFixed) / kStageBytes);
@@ -854,28 +867,46 @@ struct GruTcFwd {
   static_assert(kRing >= 2, "a ring of at least two slices");
 };
 
-// The forward recurrence on tensor cores (see the header). One block owns R
-// batch rows and loops over time; warpgroup w owns units 64 w .. 64 w + 63
-// of r, z and n, in the accumulator layout of gru_bwd_tc_kernel (element
-// 4 j + 2 s + e of an m64nR accumulator is unit unit0 + 8 s, row
-// 8 j + 2 (l % 4) + e), so the gate math is thread-local. wh_map is a TMA
-// map of the row-major Wh [H, 3H] in boxes of [64 k][64 units]: wgmma's
-// MN-major A operand as it stands, so a call copies no weight.
-template <int H, int R, int kStages>
-__global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
+// The forward recurrence on tensor cores (see the header), E the storage
+// type: bf16, or f16 (the float16 instance at H = 128 and 256). One block
+// owns R batch rows and loops over time; warpgroup w owns units
+// 64 w .. 64 w + 63 of r, z and n, in the accumulator layout of
+// gru_bwd_tc_kernel (element 4 j + 2 s + e of an m64nR accumulator is unit
+// unit0 + 8 s, row 8 j + 2 (l % 4) + e), so the gate math is thread-local.
+// wh_map is a TMA map of the row-major Wh [H, 3H] in boxes of
+// [64 k][64 units]: wgmma's MN-major A operand as it stands, so a call
+// copies no weight.
+//
+// With kSplit = 2 (bf16 at H = 384, 512) the two blocks of a cluster own
+// the same R rows and H / 2 units each (rank r: units r H / 2 ..), so a
+// block keeps the H = 192 / 256 instance's warpgroups and registers: it
+// streams its units' columns of Wh, stages its units' x_proj columns and
+// holds the whole h tile (the product's K = H). After the gate math a
+// thread writes its carry into its own h tile and its peer's (distributed
+// shared memory). Two cluster barriers a step keep the tiles right: the
+// first after both blocks' products, so that no write reaches an h tile
+// that wgmma still reads; the second after the writes (release / acquire,
+// then fence.proxy.async on both sides), so that the next step's products
+// read both halves. A block never exits while its peer can still write
+// into it: the last write is before the last step's second barrier, and a
+// chunk of no policy is skipped by both blocks of its cluster together
+// (they share its rows, so its policy). lstm_fwd_tc_kernel's cluster, with
+// three gates.
+template <typename E, int H, int R, int kStages, int kSplit>
+__global__ void __launch_bounds__(GruTcFwd<H, R, kStages, kSplit>::kThreads,
+                                  1)
     gru_fwd_tc_kernel(const __grid_constant__ CUtensorMap wh_map,
-                      const bf16* __restrict__ xp,
-                      const bf16* __restrict__ keep,
-                      const bf16* __restrict__ bias_h,
-                      const bf16* __restrict__ h0, bf16* __restrict__ ys,
-                      int steps, int n_rows,
+                      const E* __restrict__ xp, const E* __restrict__ keep,
+                      const E* __restrict__ bias_h, const E* __restrict__ h0,
+                      E* __restrict__ ys, int steps, int n_rows,
                       const int* __restrict__ chunk_policy, int chunk,
                       int num_policies) {
-  using L = GruTcFwd<H, R, kStages>;
+  using L = GruTcFwd<H, R, kStages, kSplit>;
   constexpr int S = L::kRing;
+  constexpr int U = L::kUnits;
   constexpr int G3 = 3 * H;
   constexpr int kAcc = R / 2;
-  constexpr int kGate = (H / 64) * L::kSub;   // gate stride of the x tile
+  constexpr int kGate = (U / 64) * L::kSub;   // gate stride of the x tile
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[S];
   __shared__ __align__(8) uint64_t empty[S];
@@ -886,11 +917,14 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
   uint8_t* h_p = smem_raw + (h_s - raw_s);
   const uint8_t* x_p = smem_raw + (x_s - raw_s);
 
-  // The block's rows and policy (fwd_rows); a chunk of no policy is
-  // skipped before any barrier, so the whole block leaves together.
-  const FwdRows rows = fwd_rows(chunk_policy, chunk, R, n_rows);
+  // The block's rows and policy (fwd_rows: the cluster's row tile); a chunk
+  // of no policy is skipped before any barrier, so the whole block (the
+  // whole cluster) leaves together.
+  const int rank = kSplit == 1 ? 0 : static_cast<int>(cluster_rank());
+  const FwdRows rows = fwd_rows(chunk_policy, chunk, R, n_rows,
+                                static_cast<int>(blockIdx.x) / kSplit);
   if (rows.policy < 0 || rows.policy >= num_policies) {
-    fill_nan(ys, steps, n_rows, H, rows, R);
+    if (rank == 0) fill_nan(ys, steps, n_rows, H, rows, R);
     return;
   }
   bias_h += static_cast<size_t>(rows.policy) * H;
@@ -899,22 +933,29 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
   const int tid = threadIdx.x;
   const int wg = tid / 128, lane = tid % 32;
   const int lt = lane % 4;
+  // unit0 counts the block's own units (the ring's and the x tile's
+  // columns); unit_base + unit0 is the unit of the layer.
+  const int unit_base = rank * U;
   const int unit0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
   const int block_row = rows.first;
+  // The h tile's byte offset of unit u + unit_base over unit u's (U is a
+  // multiple of 64: whole [R][64] subtiles).
+  const uint32_t h_shift = (unit_base / 64) * L::kSub;
 
   // The weight slices of one step, in the order hidden_products consumes
-  // them: Wh by (H-chunk, gate), each the H / 64 boxes of its gate's units;
-  // the same sequence every step, so the ring prefetches across steps. The
-  // map spans the [P, H, 3H] stack (P = 1 without chunks); the block's
-  // policy is the third coordinate.
+  // them: Wh by (H-chunk, gate), each the U / 64 boxes of its gate's units
+  // of this block; the same sequence every step, so the ring prefetches
+  // across steps. The map spans the [P, H, 3H] stack (P = 1 without
+  // chunks); the block's policy is the third coordinate.
   constexpr int step_loads = 3 * (H / kTcK);
   const CUtensorMap* whm = &wh_map;
   auto issue = [&](int q, uint32_t dst, uint64_t* bar) {
     const int p = q % step_loads;
 #pragma unroll
-    for (int w = 0; w < H / 64; ++w)
-      tma_load_3d(dst + w * 64 * 128, whm, bar, (p % 3) * H + w * 64,
-                  (p / 3) * kTcK, rows.policy);
+    for (int w = 0; w < U / 64; ++w)
+      tma_load_3d(dst + w * 64 * 128, whm, bar,
+                  (p % 3) * H + unit_base + w * 64, (p / 3) * kTcK,
+                  rows.policy);
   };
   SliceRing<S> slices{full, empty, ring, L::kStageBytes, steps * step_loads,
                       0};
@@ -923,21 +964,23 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
   if (tid == 0) slices.prime(issue);
 
   // x_proj of step t into the x tile by 16-byte cp.async with zero-fill:
-  // rows past N arrive as zeros. Step t + 1's is issued once step t's gate
-  // math has read the tile, and lands while step t + 1's products run.
+  // rows past N arrive as zeros. Column g U + u of the tile is column
+  // g H + unit_base + u of x_proj. Step t + 1's is issued once step t's
+  // gate math has read the tile, and lands while step t + 1's products run.
   auto load_x = [&](int t) {
     const size_t trow = static_cast<size_t>(t) * n_rows;
-    for (int e = tid; e < R * (G3 / 8); e += L::kThreads) {
-      const int n = e / (G3 / 8), c = e % (G3 / 8);
+    for (int e = tid; e < R * (3 * U / 8); e += L::kThreads) {
+      const int n = e / (3 * U / 8), c = (e % (3 * U / 8)) * 8;
+      const int col = kSplit == 1 ? c : (c / U) * H + unit_base + c % U;
       const int row = block_row + n;
       const bool live = row < row_end;
-      cp_async16(x_s + kmaj_off<R>(n, c * 8),
-                 xp + (live ? (trow + row) * G3 + c * 8 : 0), live);
+      cp_async16(x_s + kmaj_off<R>(n, c),
+                 xp + (live ? (trow + row) * G3 + col : 0), live);
     }
     cp_async_commit();
   };
 
-  // h0 into the h tile (rows past N: zeros).
+  // h0 into the h tile, all H units (rows past N: zeros).
   for (int e = tid; e < R * (H / 8); e += L::kThreads) {
     const int n = e / (H / 8), c = e % (H / 8);
     const int row = block_row + n;
@@ -953,14 +996,17 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
 #pragma unroll
     for (int e = 0; e < 2; ++e)
       kb[s][e] = kmaj_off<R>(2 * lt + e, unit0 + 8 * s);
-    bn[s] = __bfloat162float(bias_h[unit0 + 8 * s]);
+    bn[s] = to_f(bias_h[unit_base + unit0 + 8 * s]);
   }
   cp_async_wait<0>();
   fence_proxy_async();
   __syncthreads();
+  // The peer's h tile, where this block writes its half of each carry.
+  const uint32_t peer_h =
+      kSplit == 1 ? 0 : map_cluster_rank(h_s, static_cast<uint32_t>(rank ^ 1));
 
   const uint32_t a_off = wg * 64 * 128;
-  const bf16 zero = __float2bfloat16_rn(0.0f);
+  const E zero = from_f<E>(0.0f);
   for (int t = 0; t < steps; ++t) {
     const size_t trow = static_cast<size_t>(t) * n_rows;
     uint32_t kept = 0;   // bit 2 j + e: row 8 j + 2 (l % 4) + e
@@ -969,19 +1015,25 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = block_row + 8 * j + 2 * lt + e;
-        if (row < row_end && __bfloat162float(keep[trow + row]) > 0.5f)
+        if (row < row_end && to_f(keep[trow + row]) > 0.5f)
           kept |= 1u << (2 * j + e);
       }
 
     float acc[3][kAcc];
-    hidden_products<H, R, 1, bf16>(slices, issue, acc, a_off, h_s);
+    hidden_products<H, R, 1, E>(slices, issue, acc, a_off, h_s);
     cp_async_wait<0>();   // x_proj of step t
     // Every warpgroup is done reading the h tile; x_proj of step t is in.
-    __syncthreads();
+    // With a cluster: the peer's warpgroups too, before this block writes
+    // into its h tile.
+    if constexpr (kSplit == 1)
+      __syncthreads();
+    else
+      cluster_sync();
 
     // Gate math, thread-local (the contract's, gru_gates): each thread
-    // reads and rewrites only its own elements of the h tile, with the new
-    // carry (bf16, cleared where keep is 0); ys straight to memory.
+    // reads and rewrites only its own elements of the h tile (with a
+    // cluster also the peer's copies of them), with the new carry (E,
+    // cleared where keep is 0); ys straight to memory.
 #pragma unroll
     for (int j = 0; j < R / 8; ++j)
 #pragma unroll
@@ -990,19 +1042,30 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
         for (int e = 0; e < 2; ++e) {
           const int i = 4 * j + 2 * s + e;
           const uint32_t ko = kb[s][e] + j * 1024;
-          const Gates g =
-              gru_gates(ld_bf16(x_p + ko), ld_bf16(x_p + ko + kGate),
-                        ld_bf16(x_p + ko + 2 * kGate), acc[0][i], acc[1][i],
-                        acc[2][i], bn[s]);
-          const float h = ld_bf16(h_p + ko);
-          const bf16 h_t = __float2bfloat16_rn((1.0f - g.z) * g.n + g.z * h);
-          *reinterpret_cast<bf16*>(h_p + ko) =
-              (kept >> (2 * j + e)) & 1u ? h_t : zero;
+          const Gates g = gru_gates(
+              ld_elem<E>(x_p + ko), ld_elem<E>(x_p + ko + kGate),
+              ld_elem<E>(x_p + ko + 2 * kGate), acc[0][i], acc[1][i],
+              acc[2][i], bn[s]);
+          const float h = ld_elem<E>(h_p + ko + h_shift);
+          const E h_t = from_f<E>((1.0f - g.z) * g.n + g.z * h);
+          const E h_next = (kept >> (2 * j + e)) & 1u ? h_t : zero;
+          *reinterpret_cast<E*>(h_p + ko + h_shift) = h_next;
+          if constexpr (kSplit > 1)
+            st_cluster_u16(peer_h + ko + h_shift, elem_bits(h_next));
           const int row = block_row + 8 * j + 2 * lt + e;
-          if (row < row_end) ys[(trow + row) * H + unit0 + 8 * s] = h_t;
+          if (row < row_end)
+            ys[(trow + row) * H + unit_base + unit0 + 8 * s] = h_t;
         }
-    fence_proxy_async();
-    __syncthreads();   // the carry is in for the next step's products
+    // The carry is in for the next step's products: this block's writes,
+    // and with a cluster the peer's, visible to wgmma.
+    if constexpr (kSplit == 1) {
+      fence_proxy_async();
+      __syncthreads();
+    } else {
+      fence_proxy_async_all();
+      cluster_sync();
+      fence_proxy_async_all();
+    }
     // The x tile is free once every thread's gate math has read it.
     if (t + 1 < steps) load_x(t + 1);
   }
@@ -1010,27 +1073,43 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages>::kThreads, 1)
 
 // chunk_policy null: one policy; else the chunk-indexed instance over the
 // [num_policies, H, 3H] / [num_policies, H] stacks, one TMA map over the
-// whole stack.
-template <int H, int R, int kStages>
+// whole stack. E: __nv_bfloat16, or __half at H = 128 and 256. At H = 384
+// and 512, clusters of two blocks (kTcSplit), launched with their cluster
+// dimension by cudaLaunchKernelEx; a refused launch returns its error.
+template <typename E, int H, int R, int kStages>
 int launch_fwd_tc(const void* xp, const void* keep, const void* wh,
                   const void* bias_h, const void* h0, void* ys, int steps,
                   int n_rows, cudaStream_t stream,
                   const void* chunk_policy = nullptr, int num_chunks = 0,
                   int chunk = 0, int num_policies = 1) {
-  using L = GruTcFwd<H, R, kStages>;
+  constexpr int kSplit = kTcSplit<H>;
+  using L = GruTcFwd<H, R, kStages, kSplit>;
+  const auto kernel = gru_fwd_tc_kernel<E, H, R, kStages, kSplit>;
   CUtensorMap wh_map;
-  if (!make_tma_map(&wh_map, wh, 3 * H, H, num_policies, 64, kTcK))
+  if (!make_tma_map(&wh_map, wh, 3 * H, H, num_policies, 64, kTcK,
+                    tma_dtype<E>()))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int err = set_smem(gru_fwd_tc_kernel<H, R, kStages>, L::kSmem);
+  const int err = set_smem(kernel, L::kSmem);
   if (err != 0) return err;
-  const int blocks = fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, R);
-  gru_fwd_tc_kernel<H, R, kStages>
-      <<<blocks, L::kThreads, L::kSmem, stream>>>(
-          wh_map, static_cast<const bf16*>(xp),
-          static_cast<const bf16*>(keep), static_cast<const bf16*>(bias_h),
-          static_cast<const bf16*>(h0), static_cast<bf16*>(ys), steps,
-          n_rows, static_cast<const int*>(chunk_policy), chunk,
-          num_policies);
+  const int tiles = fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, R);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles) * kSplit);
+  cfg.blockDim = dim3(L::kThreads);
+  cfg.dynamicSmemBytes = L::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = kSplit;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = kSplit > 1 ? 1 : 0;
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &cfg, kernel, wh_map, static_cast<const E*>(xp),
+      static_cast<const E*>(keep), static_cast<const E*>(bias_h),
+      static_cast<const E*>(h0), static_cast<E*>(ys), steps, n_rows,
+      static_cast<const int*>(chunk_policy), chunk, num_policies);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1038,33 +1117,36 @@ int launch_fwd_tc(const void* xp, const void* keep, const void* wh,
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. Each entry point returns a
 // cudaError_t, or -1 for arguments without an instantiation. The CUDA-core
-// kernels are built for float32 at H = 128 and 256, and the forward for
-// float16 there too (bfloat16 takes mlt_gru_fwd_tc and mlt_gru_bwd_tc,
-// float16's backward mlt_gru_bwd_tc), and for all three at H = 384 and 512,
-// where the tensor-core design does not fit, for lstm.cu's reasons ("Wider
-// layers" at its dispatch: H / 64 warpgroups leave 80 or 64 registers a
-// thread, and the backward's K-major slices of Wh^T are TMA boxes of H
-// rows, past 256): the same templates, with the narrower instances'
-// contracts (ops/cuda/gru.py: fwd_uses_tensor_cores and
-// bwd_uses_tensor_cores state it).
-#define MLT_DISPATCH_WIDE(CALL, H)                               \
-  if (dtype == 0 && hidden == H) return CALL(float, H);          \
-  if (dtype == 1 && hidden == H) return CALL(__nv_bfloat16, H);  \
-  if (dtype == 2 && hidden == H) return CALL(__half, H)
-// The CUDA-core backwards: every dtype at 384 and 512, float32 at 128 and
-// 256.
-#define MLT_DISPATCH_BWD(CALL)                                   \
-  MLT_DISPATCH_WIDE(CALL, 384);                                  \
-  MLT_DISPATCH_WIDE(CALL, 512);                                  \
+// forward is built for float32 at every width and float16 at H = 384 and
+// 512 (bfloat16 takes mlt_gru_fwd_tc at every width, float16 at 128 and
+// 256); the CUDA-core backward for float32 at every width and for
+// bfloat16 and float16 at 384 and 512 (both take mlt_gru_bwd_tc at 128 and
+// 256). At 384 and 512 the tensor-core forward splits the units over a
+// cluster of two blocks, as lstm.cu's does (its "Wider layers", at the
+// dispatch); the backward's tensor-core design does not fit there yet (H /
+// 64 warpgroups leave 80 or 64 registers a thread, and its K-major slices
+// of Wh^T would be TMA boxes of H rows, past 256), so it keeps the
+// CUDA-core templates, with the narrower instances' contracts
+// (ops/cuda/gru.py: fwd_uses_tensor_cores and bwd_uses_tensor_cores state
+// it). Until it moves, the bf16 backward at 384 and 512 recomputes h . Wh
+// in another sum order than the forward that wrote ys.
+#define MLT_DISPATCH_F32(CALL)                                   \
   if (dtype == 0 && hidden == 128) return CALL(float, 128);      \
   if (dtype == 0 && hidden == 256) return CALL(float, 256);      \
   return -1
-// The CUDA-core forwards: the backwards' instances and float16 at 128 and
-// 256.
+// The CUDA-core forwards: float32 at every width, float16 at 384 and 512.
 #define MLT_DISPATCH_FWD(CALL)                                   \
-  if (dtype == 2 && hidden == 128) return CALL(__half, 128);     \
-  if (dtype == 2 && hidden == 256) return CALL(__half, 256);     \
-  MLT_DISPATCH_BWD(CALL)
+  if (dtype == 0 && hidden == 384) return CALL(float, 384);      \
+  if (dtype == 0 && hidden == 512) return CALL(float, 512);      \
+  if (dtype == 2 && hidden == 384) return CALL(__half, 384);     \
+  if (dtype == 2 && hidden == 512) return CALL(__half, 512);     \
+  MLT_DISPATCH_F32(CALL)
+// The CUDA-core backwards: the forwards' instances and bfloat16 at 384 and
+// 512.
+#define MLT_DISPATCH_BWD(CALL)                                   \
+  if (dtype == 1 && hidden == 384) return CALL(__nv_bfloat16, 384); \
+  if (dtype == 1 && hidden == 512) return CALL(__nv_bfloat16, 512); \
+  MLT_DISPATCH_FWD(CALL)
 
 extern "C" int mlt_gru_fwd(int dtype, int hidden, const void* xp,
                            const void* keep, const void* wh,
@@ -1117,27 +1199,41 @@ extern "C" int mlt_gru_bwd_tc(int dtype, int hidden, int phases,
   return -1;
 }
 
-// The bf16 tensor-core forward, from Wh as it stands, at R rows a block and
-// a ring of at most `stages` slices: R = 32 with 4 stages (the wrapper's,
-// ops/cuda/gru.py: FWD_TC_ROWS, FWD_TC_STAGES) at H = 128 and 256, and at
-// H = 256 also R = 16, and 2 or 3 stages, for chip_smoke.py's sweep.
-// Returns a cudaError_t, or -1 for arguments without an instantiation.
-extern "C" int mlt_gru_fwd_tc(int hidden, int rows, int stages,
+// The tensor-core forward, from Wh as it stands, at R rows a block and a
+// ring of at most `stages` slices: bfloat16 (dtype 1) at H = 128, 256, 384
+// and 512 (two-block clusters at 384 and 512), float16 (dtype 2) at 128
+// and 256, each with R = 32 and kGruFwdStages stages (the wrapper's,
+// ops/cuda/gru.py: FWD_TC_ROWS, FWD_TC_STAGES); bfloat16 also at H = 256
+// with R = 16, and 2 or 3 stages, and at 384 and 512 with the other ring
+// depths that fit, for chip_smoke.py's sweeps. Returns a cudaError_t, or
+// -1 for arguments without an instantiation.
+extern "C" int mlt_gru_fwd_tc(int dtype, int hidden, int rows, int stages,
                               const void* xp, const void* keep,
                               const void* wh, const void* bias_h,
                               const void* h0, void* ys, int steps,
                               int n_rows, void* stream) {
   if (static_cast<long long>(steps) * n_rows > 0x7fffffffLL) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MLT_FWD_TC(H, R, S)                                             \
+#define MLT_FWD_TC(E, H, R, S)                                          \
   if (hidden == H && rows == R && stages == S)                          \
-  return launch_fwd_tc<H, R, S>(xp, keep, wh, bias_h, h0, ys, steps,    \
-                                n_rows, s)
-  MLT_FWD_TC(128, 32, 4);
-  MLT_FWD_TC(256, 32, 4);
-  MLT_FWD_TC(256, 16, 4);
-  MLT_FWD_TC(256, 32, 3);
-  MLT_FWD_TC(256, 32, 2);
+  return launch_fwd_tc<E, H, R, S>(xp, keep, wh, bias_h, h0, ys, steps, \
+                                   n_rows, s)
+  if (dtype == 1) {
+    MLT_FWD_TC(bf16, 128, 32, 4);
+    MLT_FWD_TC(bf16, 256, 32, 4);
+    MLT_FWD_TC(bf16, 256, 16, 4);
+    MLT_FWD_TC(bf16, 256, 32, 3);
+    MLT_FWD_TC(bf16, 256, 32, 2);
+    MLT_FWD_TC(bf16, 384, 32, 4);
+    MLT_FWD_TC(bf16, 384, 32, 5);
+    MLT_FWD_TC(bf16, 384, 32, 6);
+    MLT_FWD_TC(bf16, 512, 32, 3);
+    MLT_FWD_TC(bf16, 512, 32, 4);
+  }
+  if (dtype == 2) {
+    MLT_FWD_TC(__half, 128, 32, 4);
+    MLT_FWD_TC(__half, 256, 32, 4);
+  }
 #undef MLT_FWD_TC
   return -1;
 }
@@ -1145,11 +1241,11 @@ extern "C" int mlt_gru_fwd_tc(int hidden, int rows, int stages,
 // gru_sequence_fwd_chunked: the forward over [num_chunks * chunk] rows,
 // chunk c with the weights of policy chunk_policy[c] of the [num_policies,
 // H, 3H] / [num_policies, H] stacks (a chunk of no policy is skipped, its
-// rows NaN). tensor_core 1 takes the bf16 tensor-core kernel (R = 32, 4
-// stages: the wrapper's FWD_TC_ROWS, FWD_TC_STAGES), 0 the CUDA-core one
-// (float32, float16; bfloat16 at H = 384 and 512). Returns a cudaError_t,
-// or -1 for arguments without an
-// instantiation.
+// rows NaN). tensor_core 1 takes the tensor-core kernel (bfloat16 at
+// every width, float16 at 128 and 256; R = 32 and kGruFwdStages stages:
+// the wrapper's FWD_TC_ROWS, FWD_TC_STAGES), 0 the CUDA-core one (float32;
+// float16 at 384 and 512). Returns a cudaError_t, or -1 for arguments
+// without an instantiation.
 extern "C" int mlt_gru_fwd_chunked(int tensor_core, int dtype, int hidden,
                                    const void* xp, const void* keep,
                                    const void* wh, const void* bias_h,
@@ -1164,14 +1260,16 @@ extern "C" int mlt_gru_fwd_chunked(int tensor_core, int dtype, int hidden,
   const int n_rows = static_cast<int>(n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tensor_core) {
-    if (dtype != 1) return -1;
-#define MLT_FWD_CHUNKED_TC(H)                                             \
-  if (hidden == H)                                                        \
-    return launch_fwd_tc<H, 32, 4>(xp, keep, wh, bias_h, h0, ys, steps,   \
-                                   n_rows, s, chunk_policy, num_chunks,   \
-                                   chunk, num_policies)
-    MLT_FWD_CHUNKED_TC(128);
-    MLT_FWD_CHUNKED_TC(256);
+#define MLT_FWD_CHUNKED_TC(E, H)                                           \
+  return launch_fwd_tc<E, H, 32, kGruFwdStages>(                        \
+      xp, keep, wh, bias_h, h0, ys, steps, n_rows, s, chunk_policy,        \
+      num_chunks, chunk, num_policies)
+    if (dtype == 1 && hidden == 128) MLT_FWD_CHUNKED_TC(bf16, 128);
+    if (dtype == 1 && hidden == 256) MLT_FWD_CHUNKED_TC(bf16, 256);
+    if (dtype == 1 && hidden == 384) MLT_FWD_CHUNKED_TC(bf16, 384);
+    if (dtype == 1 && hidden == 512) MLT_FWD_CHUNKED_TC(bf16, 512);
+    if (dtype == 2 && hidden == 128) MLT_FWD_CHUNKED_TC(__half, 128);
+    if (dtype == 2 && hidden == 256) MLT_FWD_CHUNKED_TC(__half, 256);
 #undef MLT_FWD_CHUNKED_TC
     return -1;
   }
@@ -1231,6 +1329,6 @@ extern "C" int mlt_gru_bwd_chunked(
 #undef MLT_BWD_CHUNKED
 }
 
-#undef MLT_DISPATCH_FWD
 #undef MLT_DISPATCH_BWD
-#undef MLT_DISPATCH_WIDE
+#undef MLT_DISPATCH_FWD
+#undef MLT_DISPATCH_F32

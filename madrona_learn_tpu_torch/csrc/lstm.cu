@@ -957,20 +957,6 @@ using bf16 = __nv_bfloat16;
 template <bool kProj>
 constexpr int kTcRows = kProj ? 32 : 16;
 
-// Blocks of a cluster that split the units of the tensor-core recurrences
-// (kSplit), forward and backward: one at H = 128 and 256; two at H = 384
-// and 512 ("Wider layers", at the dispatch), each owning H / 2 units of the
-// same rows.
-template <int H>
-constexpr int kTcSplit = H > 256 ? 2 : 1;
-
-// The bits of an element of E (__nv_bfloat16 or __half), for a store into
-// another block's shared memory.
-template <typename E>
-__device__ __forceinline__ uint16_t elem_bits(E v) {
-  return *reinterpret_cast<const uint16_t*>(&v);
-}
-
 // Shared memory of lstm_bwd_tc_kernel, from a 1024-byte aligned base: the
 // ring of weight slices ([U rows][64] each, U = H / kSplit the block's
 // units), the block's h_in tile and its dgates tile (K-major wgmma B

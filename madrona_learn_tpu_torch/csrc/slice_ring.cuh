@@ -35,6 +35,20 @@ constexpr int kSmemLimit = 232448;   // shared memory a block can use
 
 constexpr int min_c(int a, int b) { return a < b ? a : b; }
 
+// Blocks of a cluster that split the units of the tensor-core recurrences
+// (kSplit), lstm.cu's forward and backward and gru.cu's forward: one at
+// H = 128 and 256; two at H = 384 and 512 (lstm.cu, "Wider layers", at
+// its dispatch), each owning H / 2 units of the same rows.
+template <int H>
+constexpr int kTcSplit = H > 256 ? 2 : 1;
+
+// The bits of an element of E (__nv_bfloat16 or __half), for a store into
+// another block's shared memory.
+template <typename E>
+static __device__ __forceinline__ uint16_t elem_bits(E v) {
+  return *reinterpret_cast<const uint16_t*>(&v);
+}
+
 // Byte offset of element (n, k) of a K-major [R][K] operand tile.
 template <int R>
 static __device__ __forceinline__ uint32_t kmaj_off(int n, int k) {
@@ -49,11 +63,7 @@ static __device__ __forceinline__ uint32_t row_off(int n, int u) {
   return n * H * 2 + (((u / 8) ^ (n % 8)) * 16) + (u % 8) * 2;
 }
 
-static __device__ __forceinline__ float ld_bf16(const uint8_t* p) {
-  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
-}
-
-// The same for an element of type E (__nv_bfloat16 or __half).
+// The element of type E (__nv_bfloat16 or __half) at p, in f32.
 template <typename E>
 static __device__ __forceinline__ float ld_elem(const uint8_t* p) {
   return to_f(*reinterpret_cast<const E*>(p));

@@ -25,25 +25,28 @@ and the rollout steps that run them) and :func:`bwd_uses_tensor_cores`
 (the backward and its chunk-indexed instance); no fallback: the kernel a
 call is routed to runs or raises:
 
-- bfloat16 at H = 128 or 256, and the float16 backwards there: the
-  recurrences on Hopper's warpgroup tensor cores (``wgmma``, bf16 or f16
-  operands, f32 accumulators). The forward reads Wh as it stands through a
-  TMA ring, :data:`FWD_TC_ROWS` batch rows a block; the backward streams
-  Wh^T and Wh the same way, :data:`TC_ROWS` rows a block, then takes dWh
-  as a split-K ``wgmma`` product over the T * N rows
-  (``csrc/weight_grad_tc.cuh``). Both are bound by streaming Wh from L2.
-  An operand off a 16-byte boundary is copied onto one first. The float16
-  backward is the port's own (JAX sends float16 to its jnp twin): f16
-  operands, dxp, dhp, dh0, dWh and dbh rounded once to float16, as the
-  CUDA-core kernel and the plain twin round them;
-- float32, whose products tensor cores would round, the float16 forwards,
-  and every dtype at H = 384 and 512 (one block would need H / 64
-  warpgroups, ``csrc/lstm.cu``, "Wider layers"; the LSTM's two-block
-  cluster is not built for the GRU yet): the CUDA-core kernels (the
-  backward with the split-M pass of ``csrc/weight_grad.cuh``), bound by
-  f32 FMA issue. The float16 backward on tensor cores therefore
-  recomputes h . Wh in another sum order than the CUDA-core forward that
-  wrote ys.
+- bfloat16, and float16 at H = 128 or 256: the recurrences on Hopper's
+  warpgroup tensor cores (``wgmma``, bf16 or f16 operands, f32
+  accumulators). The forward reads Wh as it stands through a TMA ring,
+  :data:`FWD_TC_ROWS` batch rows a block (at H = 384 and 512, in bf16,
+  the units split over a cluster of two blocks, as the LSTM's forward);
+  the backward, at 128 and 256, streams Wh^T and Wh the same way,
+  :data:`TC_ROWS` rows a block, then takes dWh as a split-K ``wgmma``
+  product over the T * N rows (``csrc/weight_grad_tc.cuh``). Both are
+  bound by streaming Wh from L2. An operand off a 16-byte boundary is
+  copied onto one first. Float16 is the port's own route (JAX sends it
+  to its jnp twin): f16 operands, ys, dxp, dhp, dh0, dWh and dbh rounded
+  once to float16, as the CUDA-core kernels and the plain twin round
+  them. The forward and the backward's recompute share one product, so
+  the backward differentiates the forward that ran and the rollout step
+  is the update pass's step bitwise;
+- float32, whose products tensor cores would round, float16 at H = 384
+  and 512, and the bfloat16 backward there (one block would need H / 64
+  warpgroups, ``csrc/lstm.cu``, "Wider layers"; its cluster is not built
+  for the GRU backward yet): the CUDA-core kernels (the backward with the
+  split-M pass of ``csrc/weight_grad.cuh``), bound by f32 FMA issue. The
+  bf16 backward at 384 and 512 therefore recomputes h . Wh in another sum
+  order than the tensor-core forward that wrote ys.
 
 Contract (all operands in the storage dtype, float32, bfloat16 or
 float16):
@@ -117,7 +120,7 @@ GRU_BWD_CHUNKED = Kernel(
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The widths the kernels are built for (every dtype), and those of the
-# tensor-core instances (bfloat16; float16's backward).
+# single-block tensor-core instances (bfloat16 and float16).
 _HIDDEN_SIZES = (128, 256, 384, 512)
 _TC_HIDDEN_SIZES = (128, 256)
 _check = functools.partial(check_operand, "gru kernel")
@@ -126,8 +129,9 @@ _check = functools.partial(check_operand, "gru kernel")
 # csrc/gru.cu), which sets the count of its per-block dbh partials.
 TC_ROWS = 32
 # Batch rows a block of the tensor-core forward owns, and the stages of its
-# weight ring (gru_fwd_tc_kernel's template arguments; csrc/gru.cu also
-# builds R = 16, and 2 or 3 stages, at H = 256 for chip_smoke.py's sweep).
+# weight ring (gru_fwd_tc_kernel's template arguments, kGruFwdStages in
+# csrc/gru.cu; it also builds R = 16, and 2 or 3 stages, at H = 256, and
+# the other depths that fit at 384 and 512, for chip_smoke.py's sweeps).
 FWD_TC_ROWS = 32
 FWD_TC_STAGES = 4
 
@@ -136,7 +140,8 @@ def gru_supported(hidden, dtype):
     """Whether the kernels serve this layer shape: true exactly for the
     (H, dtype) pairs with a kernel instance. In float32 and bfloat16 that
     is JAX's gate (``ops/pallas/gru.py:47``, ``H % 128 == 0``) for H up to
-    512; float16 too, on CUDA cores, where JAX takes its jnp twin."""
+    512; float16 too, where JAX takes its jnp twin (on tensor cores at 128
+    and 256, on CUDA cores at 384 and 512)."""
     return hidden in _HIDDEN_SIZES and dtype in _DTYPE_CODES
 
 
@@ -153,11 +158,14 @@ def gru_kernel_route(hidden, dtype):
 
 def fwd_uses_tensor_cores(dtype, hidden):
     """The path rule of the forward and its chunk-indexed instance (and so
-    of ``gru_step`` / ``gru_step_chunked``): bfloat16 with H in (128, 256)
-    takes the tensor-core kernel (``wgmma``); float32, whose products
-    tensor cores would round, float16, and bfloat16 at H = 384 and 512,
-    the CUDA-core one."""
-    return dtype == torch.bfloat16 and hidden in _TC_HIDDEN_SIZES
+    of ``gru_step`` / ``gru_step_chunked``): the backward's rule, so that
+    the backward recomputes the forward that ran and the rollout step is
+    the update pass's step, and bfloat16 at H = 384 and 512 too (a cluster
+    of two blocks): those take the tensor-core kernel (``wgmma``);
+    float32, whose products tensor cores would round, and float16 at 384
+    and 512, the CUDA-core one."""
+    return bwd_uses_tensor_cores(dtype, hidden) or (
+        dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES)
 
 
 def bwd_uses_tensor_cores(dtype, hidden):
@@ -271,16 +279,18 @@ def _check_inputs(x_proj, keep, wh, bias_h, h0):
 
 def _fwd_tc(x_proj, keep, wh, bias_h, h0, rows=FWD_TC_ROWS,
             stages=FWD_TC_STAGES, out=None):
-    """The bf16 tensor-core forward at ``rows`` batch rows a block and a
-    ring of ``stages`` weight slices: ys [T, N, H], into ``out`` where
-    given."""
+    """The tensor-core forward (bfloat16 or float16) at ``rows`` batch rows
+    a block and a ring of ``stages`` weight slices: ys [T, N, H], into
+    ``out`` where given."""
     steps, n, g3 = x_proj.shape
+    hidden = g3 // 3
     # x_proj and h0 arrive by 16-byte copies, Wh by TMA.
     x_proj, h0, wh = on_16_bytes(x_proj), on_16_bytes(h0), on_16_bytes(wh)
     ys = out if out is not None else torch.empty(
-        (steps, n, g3 // 3), dtype=x_proj.dtype, device=x_proj.device)
+        (steps, n, hidden), dtype=x_proj.dtype, device=x_proj.device)
     err = library().mlt_gru_fwd_tc(
-        g3 // 3, rows, stages, x_proj.data_ptr(), keep.data_ptr(),
+        _DTYPE_CODES[x_proj.dtype], hidden, rows, stages,
+        x_proj.data_ptr(), keep.data_ptr(),
         wh.data_ptr(), bias_h.data_ptr(), h0.data_ptr(), ys.data_ptr(),
         steps, n, torch.cuda.current_stream(x_proj.device).cuda_stream)
     check(err, "gru_sequence_fwd")

@@ -156,14 +156,14 @@ def test_float16_takes_no_fused_step_and_no_projection_kernel(monkeypatch):
     for f_in, hidden in ((128, 128), (256, 256), (512, 128)):
         assert not lstm_proj_supported(f_in, hidden, torch.float16)
         assert not jax_lstm_proj_supported(f_in, hidden, jnp.float16)
-    # In float16 the LSTM forward and backward and the GRU backward take
-    # tensor cores (their f16 wgmma instances at 128 and 256); the GRU
-    # forward stays on CUDA cores, and no projection kernel serves float16.
+    # In float16 the LSTM and GRU forwards and backwards take tensor cores
+    # (their f16 wgmma instances at 128 and 256); no projection kernel
+    # serves float16.
     assert not uses_tensor_cores(torch.float16, 256)
     assert bwd_uses_tensor_cores(torch.float16, 256)
     assert fwd_uses_tensor_cores(torch.float16, 256)
     assert gru_bwd_uses_tensor_cores(torch.float16, 256)
-    assert not gru_fwd_uses_tensor_cores(torch.float16, 256)
+    assert gru_fwd_uses_tensor_cores(torch.float16, 256)
     # The projection kernel refuses float16 on the card's route too.
     meta = lambda *s: torch.empty(*s, dtype=torch.float16, device="meta")
     with pytest.raises(ValueError, match="float16"):

@@ -218,11 +218,11 @@ def _stand_in_card(monkeypatch):
     return lib
 
 
-# (dtype, H, tensor-core route) of the forward; the backward's differs in
-# float16, whose backward takes its f16 wgmma instance.
+# (dtype, H, tensor-core route) of the forward; the backward's is the same
+# at these widths (both on f16 wgmma in float16).
 ROUTES = [(BF16, 256, True), (BF16, 128, True), (F32, 256, False),
-          (F32, 128, False), (F16, 256, False), (F16, 128, False)]
-BWD_ROUTES = [(d, H, tc or d == F16) for d, H, tc in ROUTES]
+          (F32, 128, False), (F16, 256, True), (F16, 128, True)]
+BWD_ROUTES = ROUTES
 
 
 @pytest.mark.parametrize("dtype,H,tensor_core", ROUTES)

@@ -66,9 +66,9 @@ def _inputs(seed, T, N, H):
 
 
 def _slices(a, b):
-    """a [N, K] . b [K, M] of bf16 values in f32: one K_SLICE-deep slice at
-    a time in K order, each slice's products summed in k order and then
-    added to the running sum."""
+    """a [N, K] . b [K, M] of bf16 (or f16) values in f32: one K_SLICE-deep
+    slice at a time in K order, each slice's products summed in k order and
+    then added to the running sum."""
     a, b = a.float(), b.float()
     acc = None
     for k0 in range(0, a.shape[1], K_SLICE):
@@ -79,21 +79,29 @@ def _slices(a, b):
     return acc
 
 
-def emulate_tc_fwd(x_proj, keep, wh, bias_h, h0):
-    """The tensor-core forward's arithmetic: ys [T, N, H]."""
+def emulate_tc_fwd(x_proj, keep, wh, bias_h, h0, hps=None):
+    """The tensor-core forward's arithmetic: ys [T, N, H] in the operands'
+    element type (bf16; float16 at H = 128 / 256, the f16 ``wgmma``
+    instance). The two-block cluster at H = 384 / 512 computes the same:
+    each block sums its units' products over all H in the same slices.
+    ``hps``, where given, is a list that receives each step's h . Wh [N, 3H]
+    (f32), in step order."""
     H = wh.shape[0]
+    dt = x_proj.dtype
     bn = bias_h.float()
-    zero = torch.zeros((), dtype=BF16)
+    zero = torch.zeros((), dtype=dt)
     h = h0
     ys = []
     for t in range(x_proj.shape[0]):
         hp = _slices(h, wh)
+        if hps is not None:
+            hps.append(hp)
         xp = x_proj[t].float()
         hn_lin = hp[:, 2 * H:] + bn
         r = torch.sigmoid(xp[:, :H] + hp[:, :H])
         z = torch.sigmoid(xp[:, H:2 * H] + hp[:, H:2 * H])
         n = torch.tanh(xp[:, 2 * H:] + r * hn_lin)
-        h_t = ((1.0 - z) * n + z * h.float()).to(BF16)
+        h_t = ((1.0 - z) * n + z * h.float()).to(dt)
         ys.append(h_t)
         h = torch.where(keep[t][:, None] > 0.5, h_t, zero)
     return torch.stack(ys)
@@ -196,15 +204,15 @@ def _stand_in_card(monkeypatch):
     (BF16, 128, True),
     (F32, 256, False),     # float32 stays on CUDA cores
     (F32, 128, False),
-    (torch.float16, 256, False),   # so does float16's forward
+    (torch.float16, 256, True),    # float16's forward on f16 wgmma
 ])
 def test_gru_fwd_path_rule(monkeypatch, dtype, H, tensor_core):
     """The forward wrapper takes the route the rule names and counts a
     launch, and a tensor-core launch where it took that route; the
-    tensor-core route hands the kernel the weight's own storage (its TMA
-    boxes are wgmma's MN-major A operand), R and the ring depth. The
-    operands stand on the CPU here: the library, the operand check and the
-    stream are stand-ins."""
+    tensor-core route hands the kernel the dtype code, the weight's own
+    storage (its TMA boxes are wgmma's MN-major A operand), R and the ring
+    depth. The operands stand on the CPU here: the library, the operand
+    check and the stream are stand-ins."""
     assert fwd_uses_tensor_cores(dtype, H) is tensor_core
     lib = _stand_in_card(monkeypatch)
     T, N = 2, 8
@@ -218,9 +226,10 @@ def test_gru_fwd_path_rule(monkeypatch, dtype, H, tensor_core):
     (args,) = lib.args
     if tensor_core:
         assert lib.calls == ["mlt_gru_fwd_tc"]
-        # hidden, rows, stages, xp, keep, wh, ...
-        assert args[:3] == (H, FWD_TC_ROWS, FWD_TC_STAGES)
-        assert args[5] == wh.data_ptr()
+        # dtype, hidden, rows, stages, xp, keep, wh, ...
+        code = {BF16: 1, torch.float16: 2}[dtype]
+        assert args[:4] == (code, H, FWD_TC_ROWS, FWD_TC_STAGES)
+        assert args[6] == wh.data_ptr()
     else:
         assert lib.calls == ["mlt_gru_fwd"]
 

@@ -5,8 +5,10 @@ call to it.
 
 A plain-torch emulation of the kernels' arithmetic: bf16 operands with f32
 products summed 64 deep at a time in the kernels' K order (the ring's
-slices), the recomputed ``h_in . Wh`` kept apart from x_proj's n slice
-(linear before reset), gate math in f32, dhp = [dr_pre, dz_pre, dn_pre * r]
+slices; the recomputed ``h_in . Wh`` through the forward emulation's slice
+sums, ``test_torch_gru_fwd_tc_numerics._slices``), that product kept apart
+from x_proj's n slice (linear before reset), gate math in f32,
+dhp = [dr_pre, dz_pre, dn_pre * r]
 and dxp = [dr_pre, dz_pre, dn_pre] rounded to bf16, dhp rounded before
 ``dh_prev = dhp . Wh^T + dh_total * z``; dWh = h_in^T . dhp as f32 partials
 over splits of the T * N rows (a multiple of 64 each), summed in split
@@ -40,6 +42,7 @@ from madrona_learn_tpu_torch.ops.cuda.gru import (
     gru_sequence_reference,
 )
 from madrona_learn_tpu_torch.ops.cuda.lstm import _num_splits_tc
+from test_torch_gru_fwd_tc_numerics import _slices
 
 torch.set_num_threads(1)
 
@@ -95,10 +98,13 @@ def _forward_states(x_proj, keep, wh, bias_h, h0):
 
 
 def emulate_tc_bwd(x_proj, keep, wh, bias_h, h0, ys, dys, sms=H100_SMS,
-                   rows=TC_ROWS):
+                   rows=TC_ROWS, hps=None):
     """The tensor-core backward's arithmetic: (dxp, dwh, dbh, dh0), each in
     the operands' element type (bf16, or float16: the f16 ``wgmma``
-    instance)."""
+    instance). The recomputed h_in . Wh is the forward's product
+    (``test_torch_gru_fwd_tc_numerics._slices``, the helper both kernels
+    share); ``hps``, where given, is a list that receives it [N, 3H] (f32)
+    step by step, in reverse step order."""
     dt = x_proj.dtype
     T, N, G3 = x_proj.shape
     H = G3 // 3
@@ -115,7 +121,9 @@ def emulate_tc_bwd(x_proj, keep, wh, bias_h, h0, ys, dys, sms=H100_SMS,
             kept = keep[t - 1][:, None] > 0.5
             h_in = torch.where(kept, ys[t - 1], zero)
         hins[t] = h_in
-        hp = _chunked(h_in, wh)
+        hp = _slices(h_in, wh)
+        if hps is not None:
+            hps.append(hp)
         xp = x_proj[t].float()
         hn_lin = hp[:, 2 * H:] + bh
         r = torch.sigmoid(xp[:, :H] + hp[:, :H])

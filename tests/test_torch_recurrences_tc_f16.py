@@ -24,8 +24,9 @@ type. Held here:
   float16 backward rule (``TOL[("gru_bwd", "float16")]``: max |diff| <=
   2^-8 of the largest value);
 - the wrappers' routes on a stand-in library: the LSTM forwards (and the
-  rollout steps) and the GRU backwards on their tensor-core entry points
-  with dtype code 2, the GRU forward on its CUDA-core one.
+  rollout steps) and the GRU backwards and forward on their tensor-core
+  entry points with dtype code 2 (the float16 GRU forward's arithmetic:
+  ``test_torch_gru_fwd_tc_f16_wide.py``).
 
 All at T <= 3 and N <= 20 (ragged against the kernels' 32 rows a block),
 one or two policies.
@@ -299,11 +300,13 @@ def test_f16_gru_backwards_take_tensor_cores_forward_cuda_cores(
     """In float16 at H = 128 / 256 ``gru_sequence_bwd`` and its
     chunk-indexed instance launch the tensor-core entry points (dtype code
     2 first; tensor_core 1 and an h_in scratch in the chunked one) and
-    count a tensor-core launch each, while ``gru_sequence_fwd`` stays on
-    the CUDA-core entry point. The operands stand on the CPU: the library,
-    the operand check, the SM count and the stream are stand-ins."""
+    count a tensor-core launch each, and so, since its forward moved onto
+    f16 ``wgmma`` too, does ``gru_sequence_fwd`` (``mlt_gru_fwd_tc``:
+    dtype code 2, then H, the rows a block and the ring depth). The
+    operands stand on the CPU: the library, the operand check, the SM
+    count and the stream are stand-ins."""
     assert gru_mod.bwd_uses_tensor_cores(F16, H)
-    assert not gru_mod.fwd_uses_tensor_cores(F16, H)
+    assert gru_mod.fwd_uses_tensor_cores(F16, H)
     lib = _stand_in_card(monkeypatch, (GRU_FWD, GRU_BWD, GRU_BWD_CHUNKED))
     T, N, P = 2, 8, 2
     z = lambda *s: torch.zeros(*s, dtype=F16)
@@ -315,10 +318,11 @@ def test_f16_gru_backwards_take_tensor_cores_forward_cuda_cores(
     gru_sequence_bwd_chunked(z(T, N, 3 * H), z(T, N), z(P, H, 3 * H),
                              z(P, H), idx, z(N, H), seq, seq)
     (f, a1), (b1, a2), (b2, a3) = lib.calls
-    assert f == "mlt_gru_fwd" and a1[:2] == (2, H)
+    assert f == "mlt_gru_fwd_tc" and a1[:4] == (
+        2, H, gru_mod.FWD_TC_ROWS, gru_mod.FWD_TC_STAGES)
     assert b1 == "mlt_gru_bwd_tc" and a2[:3] == (2, H, 3)  # phases 3
     assert b2 == "mlt_gru_bwd_chunked" and a3[:3] == (1, 2, H)
     assert a3[14] != 0                         # the h_in scratch
     assert [(k.launches, k.tc_launches) for k in (GRU_FWD, GRU_BWD,
                                                   GRU_BWD_CHUNKED)] == \
-        [(1, 0), (1, 1), (1, 1)]
+        [(1, 1), (1, 1), (1, 1)]

@@ -106,16 +106,15 @@ def test_gates_are_jaxs(H, dtype):
             H in (128, 256)
             and bool(jax_policy_step_supported(H, f_in, jdt)))
     # bfloat16 takes tensor cores where the wgmma instances are built: the
-    # LSTM forwards and backwards at every instance's width, the projection
-    # (and the GRU) at 128 and 256; float16 the LSTM forwards and backwards
-    # and the GRU backwards at 128 and 256.
+    # LSTM forwards and backwards and the GRU forwards at every instance's
+    # width, the projection and the GRU backwards at 128 and 256; float16
+    # the LSTM and GRU forwards and backwards at 128 and 256.
     lstm_tc = ((tdt == BF16 and H in INSTANCES)
                or (tdt == F16 and H in (128, 256)))
     assert fwd_uses_tensor_cores(tdt, H) is lstm_tc
     assert bwd_uses_tensor_cores(tdt, H) is lstm_tc
     assert uses_tensor_cores(tdt, H) is (tdt == BF16 and H in (128, 256))
-    assert gru_mod.fwd_uses_tensor_cores(tdt, H) is (tdt == BF16
-                                                     and H in (128, 256))
+    assert gru_mod.fwd_uses_tensor_cores(tdt, H) is lstm_tc
     assert gru_mod.bwd_uses_tensor_cores(tdt, H) is (
         tdt in (BF16, F16) and H in (128, 256))
 
@@ -334,12 +333,12 @@ def test_wide_launches_take_the_cuda_core_entry_points(monkeypatch, H,
     """At H = 384 and 512 each of the eight wrappers launches its
     CUDA-core entry point with the tensor's dtype code (bfloat16 1: the
     bf16 CUDA-core instance) and counts the launch, none on tensor cores;
-    but in bfloat16 the four LSTM wrappers, which launch their tensor-core
-    entry points (the two-block cluster; the chunk-indexed ones with
-    tensor_core 1, the single-policy backward with dtype code 1) and count
-    a tensor-core launch each. The operands stand on the CPU here: the
-    library, the operand check, the SM count and the stream are
-    stand-ins."""
+    but in bfloat16 the four LSTM wrappers and the two GRU forwards, which
+    launch their tensor-core entry points (the two-block cluster; the
+    chunk-indexed ones with tensor_core 1, the single-policy ones with
+    dtype code 1) and count a tensor-core launch each. The operands stand
+    on the CPU here: the library, the operand check, the SM count and the
+    stream are stand-ins."""
     tdt = DTYPES[dtype][0]
     code = {F32: 0, BF16: 1, F16: 2}[tdt]
     lib = _Lib()
@@ -384,12 +383,17 @@ def test_wide_launches_take_the_cuda_core_entry_points(monkeypatch, H,
                                      z(P, H, 3 * H), z(P, H), idx, z(N, H),
                                      seq, seq)
     tc_lstm = tdt == BF16
+    tc_names = (("lstm_sequence_fwd", "lstm_sequence_bwd",
+                 "lstm_sequence_fwd_chunked", "lstm_sequence_bwd_chunked",
+                 "gru_sequence_fwd", "gru_sequence_fwd_chunked")
+                if tc_lstm else ())
     assert [c[0] for c in lib.calls] == [
         "mlt_lstm_fwd_tc" if tc_lstm else "mlt_lstm_fwd",
         "mlt_lstm_bwd_tc" if tc_lstm else "mlt_lstm_bwd",
-        "mlt_lstm_fwd_chunked", "mlt_lstm_bwd_chunked", "mlt_gru_fwd",
+        "mlt_lstm_fwd_chunked", "mlt_lstm_bwd_chunked",
+        "mlt_gru_fwd_tc" if tc_lstm else "mlt_gru_fwd",
         "mlt_gru_bwd", "mlt_gru_fwd_chunked", "mlt_gru_bwd_chunked"]
-    for name, args in lib.calls:
+    for (name, args), kernel in zip(lib.calls, names):
         if name in ("mlt_lstm_fwd_tc", "mlt_lstm_bwd_tc"):
             assert args[:3] == (code, H, 0), name   # (dtype, hidden, f_in)
             continue
@@ -397,10 +401,7 @@ def test_wide_launches_take_the_cuda_core_entry_points(monkeypatch, H,
         head = args[1:3] if name.endswith("_chunked") else args[:2]
         assert head == (code, H), name
         if name.endswith("_chunked"):
-            assert args[0] == int(tc_lstm and "lstm" in name), name
-    tc_names = (("lstm_sequence_fwd", "lstm_sequence_bwd",
-                 "lstm_sequence_fwd_chunked", "lstm_sequence_bwd_chunked")
-                if tc_lstm else ())
+            assert args[0] == int(kernel in tc_names), name
     assert {n: (k.launches, k.tc_launches) for n, k in kernels.items()} == \
         {n: (1, int(n in tc_names)) for n in names}
 

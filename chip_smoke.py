@@ -1486,9 +1486,10 @@ def _gru_tc_timing(results, args, ys, probe):
     """The tensor-core GRU backward's time split into the recurrence and
     the weight-gradient pass (the same buffers, one pass a call)."""
     from madrona_learn_tpu_torch.ops.cuda.gru import (
-        TC_ROWS, _bwd_tc, _bwd_tc_buffers)
+        _bwd_tc, _bwd_tc_buffers, tc_rows)
 
     buffers = _bwd_tc_buffers(args[0])
+    T, N, H = ys.shape
 
     def run(phases):
         return _bwd_tc(*args, ys, probe, phases=phases, buffers=buffers)
@@ -1496,10 +1497,34 @@ def _gru_tc_timing(results, args, ys, probe):
     run(3)
     split = dict(recurrence_ms=time_ms(lambda: run(1)),
                  weight_grad_ms=time_ms(lambda: run(2)))
-    log(f"  gru bwd tensor-core split (R = {TC_ROWS} rows a block): "
-        f"recurrence {split['recurrence_ms']:.3f} ms, weight gradients "
-        f"{split['weight_grad_ms']:.3f} ms")
+    log(f"  gru bwd tensor-core split H={H} [{T},{N}] (R = {tc_rows(H)} "
+        f"rows a row tile): recurrence {split['recurrence_ms']:.3f} ms, "
+        f"weight gradients {split['weight_grad_ms']:.3f} ms")
     results.update(split)
+
+
+def _gru_product_witness(tag, args, probe):
+    """The witness that the tensor-core backward differentiates the forward
+    that ran: on ``args`` (x_proj, keep, Wh, bias_h, h0), the forward's
+    h . Wh of every step (``_fwd_tc``'s ``hp``) and the backward's
+    recomputed h_in . Wh (``_bwd_tc``'s, from the forward's ys), both f32
+    [T, N, 3H], bitwise equal."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.gru import _bwd_tc, _fwd_tc
+
+    T, N, G3 = args[0].shape
+    fwd_hp, bwd_hp = (torch.full((T, N, G3), float("nan"), device="cuda")
+                      for _ in range(2))
+    ys = _fwd_tc(*args, hp=fwd_hp)
+    _bwd_tc(*args, ys, probe, phases=1, hp=bwd_hp)
+    if not (bool(torch.isfinite(fwd_hp).all())
+            and torch.equal(fwd_hp, bwd_hp)):
+        bad = (fwd_hp != bwd_hp).sum().item()
+        raise AssertionError(f"{tag}: the backward's recomputed h_in . Wh "
+                             f"differs from the forward's h . Wh at {bad} "
+                             f"of {fwd_hp.numel()} elements")
+    log(f"  {tag}: the backward's recomputed h_in . Wh bitwise the "
+        f"forward's h . Wh at every step ({fwd_hp.numel()} f32) ok")
 
 
 # The (rows a block, ring stages) pairs csrc/gru.cu builds for the bf16
@@ -1544,7 +1569,8 @@ def check_gru(results):
     # its rollout step, ragged batches at both widths (bf16 on tensor
     # cores), the float16 instances (on f16 tensor cores) at
     # headline_gru_fp16's update minibatch and rollout step ("fp16") and
-    # ragged at 128, and float32 at both widths (CUDA cores).
+    # ragged at 128, ragged batches at 384 and 512 in float16 and bf16 (the
+    # two-block clusters), and float32 at both widths (CUDA cores).
     f16 = torch.float16
     cases = [
         (16, 8192, 256, bf16, True),
@@ -1555,6 +1581,9 @@ def check_gru(results):
         (16, 1000, 256, bf16, False),
         (5, 70, 128, bf16, False),
         (16, 1000, 128, bf16, False),
+        (5, 70, 384, f16, False),
+        (4, 70, 512, f16, False),
+        (5, 70, 512, bf16, False),
         (5, 1000, 256, f32, False),
         (4, 70, 128, f32, False),
     ]
@@ -2647,7 +2676,8 @@ def _chunked_gru_inputs(gen, T, B, C, H, P, dtype):
     return x, keep, wh, bias_h, idx, h0
 
 
-def _chunked_gru_bounds(T, B, C, H, policies_used, itemsize):
+def _chunked_gru_bounds(T, B, C, H, policies_used, itemsize,
+                        tensor="bf16_tensor"):
     """``_gru_bounds`` over the B * C rows with the weights of the policies
     in use (read, and backward their dWh / dbh written) and the chunk
     indices read: (forward, backward)."""
@@ -2658,8 +2688,8 @@ def _chunked_gru_bounds(T, B, C, H, policies_used, itemsize):
     bwd_bytes = (itemsize * (3 * seq + T * N + weights + state + 2 * seq
                              + 3 * seq + weights + state) + 4 * B)
     product = 2 * T * N * H * 3 * H
-    return (bound(fwd_bytes, {"bf16_tensor": product, "f32": 25 * seq}),
-            bound(bwd_bytes, {"bf16_tensor": 3 * product, "f32": 35 * seq}))
+    return (bound(fwd_bytes, {tensor: product, "f32": 25 * seq}),
+            bound(bwd_bytes, {tensor: 3 * product, "f32": 35 * seq}))
 
 
 def _skipped_rows(B, C, bad=(1, 3)):
@@ -2685,11 +2715,11 @@ def check_gru_chunked(results, H):
     alone; chunks of index P and -1 NaN, the others unchanged; its time
     against one ``gru_sequence_fwd`` a policy over the same rows (the
     per-policy loop's launches) and its bound. Its float16 instance (on
-    tensor cores at 256, CUDA cores at 384 and 512) at the collect step
-    the same way, with the NaN chunks, its times and bound into
-    ``float16``. At 384 and 512 also ``gru_sequence_fwd`` on one policy's
-    rows against its twin, timed, and the cluster's ring depths swept at
-    both bf16 shapes (``_gru_fwd_sweep``)."""
+    tensor cores at every width, in the two-block cluster at 384 and 512)
+    at the collect step the same way, with the NaN chunks, its times and
+    bound into ``float16``. At 384 and 512 also ``gru_sequence_fwd`` on one
+    policy's rows against its twin, timed, and the cluster's ring depths
+    swept at both bf16 shapes (``_gru_fwd_sweep``)."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gru import (
         GRU_FWD, GRU_FWD_CHUNKED, fwd_uses_tensor_cores, gru_sequence_fwd,
@@ -2726,7 +2756,7 @@ def check_gru_chunked(results, H):
                            gru_sequence_fwd_chunked, *args)
         tag = (f"[{T_c}, {chunks} x {chunk}, {3 * H}] P={P_c} {dname} "
                f"({path})")
-        if role in ("collect", "learn") and path != main_route:
+        if role in ("collect", "learn", "float16") and path != main_route:
             raise AssertionError(f"gru_sequence_fwd_chunked {tag}: the main "
                                  f"path took the {path} route")
         tol = TOL[("gru_fwd", dname)]
@@ -2810,11 +2840,11 @@ def check_gru_chunked(results, H):
 
 
 def check_gru_bwd_chunked(results, H):
-    """gru_sequence_bwd_chunked at width H (256, and the CUDA-core
+    """gru_sequence_bwd_chunked at width H (256, and the two-block-cluster
     instances at 384 and 512, under the record's ``wide``) at
     headline_pbt_gru's learn step (8 train policies, one chunk of a
-    minibatch's 1280 sequences each, T = 16, bf16 on tensor cores where
-    ``bwd_uses_tensor_cores`` says) and at chunks of 37 rows in a shuffled
+    minibatch's 1280 sequences each, T = 16, bf16 on tensor cores as
+    ``bwd_uses_tensor_cores`` says at every width) and at chunks of 37 rows in a shuffled
     order with a policy owning two chunks and one owning none, in bf16 and
     f32 (CUDA cores): the forward's T = 1 steps bitwise steps of its
     sequence; against its plain twin's autograd; every chunk's dx_proj /
@@ -2825,16 +2855,22 @@ def check_gru_bwd_chunked(results, H):
     policy of one chunk, bitwise the call over that chunk alone; a chunk
     of index P or -1 NaN and adding to no policy; the time against the
     per-policy loop's gru_sequence_bwd launches over the same rows, and
-    its bound. Its float16 instance (on tensor cores at 256, CUDA cores at
-    384 and 512) at the learn step the same way, with the NaN chunks, its
-    times and bound into ``float16``. At 384 and 512 also
-    ``gru_sequence_bwd`` on one chunk's rows against its twin's autograd,
-    timed."""
+    its bound. Its float16 instance (on tensor cores at every width) at
+    the learn step the same way, with the NaN chunks, its times and bound
+    into ``float16``. At 384 and 512 also, in both dtypes,
+    ``gru_sequence_bwd`` and ``gru_sequence_fwd`` on one chunk's rows:
+    against the twins, timed, the backward's recurrence and weight-gradient
+    passes timed apart, its weight gradients bitwise over two calls and
+    its rows and the forward's bitwise N-independent, the forward's T = 1
+    steps bitwise steps of its sequence (``_tc_bwd_checks``,
+    ``_tc_fwd_checks``). At every width, in bf16 and float16 on the
+    learn step's rows, the backward's recomputed h_in . Wh bitwise the
+    forward's h . Wh (``_gru_product_witness``)."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gru import (
-        GRU_BWD_CHUNKED, bwd_uses_tensor_cores, gru_sequence_bwd,
+        GRU_BWD, GRU_BWD_CHUNKED, bwd_uses_tensor_cores, gru_sequence_bwd,
         gru_sequence_bwd_chunked, gru_sequence_chunked_reference,
-        gru_sequence_fwd_chunked, gru_sequence_reference)
+        gru_sequence_fwd, gru_sequence_fwd_chunked, gru_sequence_reference)
 
     T, P = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, PBT_TRAIN
     wide = H != CHANNELS
@@ -2867,7 +2903,7 @@ def check_gru_bwd_chunked(results, H):
                             gru_sequence_bwd_chunked, *args, ys, probe)
         tag = (f"[{T_c}, {B} x {C}, {3 * H}] P={P_c} {dname} chunks "
                f"{order} ({path})")
-        if main_path is True and path != main_route:
+        if main_path and path != main_route:
             raise AssertionError(f"gru_sequence_bwd_chunked {tag}: the main "
                                  f"path took the {path} route")
         leaves = [a.detach().clone().requires_grad_(i in (0, 2, 3, 5))
@@ -2971,6 +3007,9 @@ def check_gru_bwd_chunked(results, H):
                        + tuple(t[:, b * C:(b + 1) * C].contiguous()
                                for t in (ys, probe)))
                       for b, p in enumerate(order)]
+        _gru_product_witness(f"gru_sequence_bwd H={H} [{T_c}, {B * C}] "
+                             f"{dname}, policy 0's weights",
+                             (x, keep, wh[0], bias_h[0], h0), probe)
         same = all(torch.equal(gru_sequence_bwd(*a)[1], dwh[p])
                    and torch.equal(gru_sequence_bwd(*a)[2], dbh[p])
                    for a, p in zip(per_policy, order))
@@ -3012,9 +3051,21 @@ def check_gru_bwd_chunked(results, H):
             return torch.autograd.grad(
                 (out.float() * a1[6].float()).sum(), one_leaves)
 
+        got1, single = _routed(GRU_BWD, bwd_uses_tensor_cores(dtype, H),
+                               gru_sequence_bwd, *a1)
         _wide_single(results, "gru_sequence_bwd", H, dname, "learn",
                      lambda: gru_sequence_bwd(*a1), plain_one, tol,
-                     _gru_bounds(T_c, C, H, x.element_size())[1])
+                     _gru_bounds(T_c, C, H, x.element_size())[1],
+                     path=single)
+        name1 = f"gru bwd H={H} [{T_c},{C}] {dname} ({single})"
+        _tc_bwd_checks(name1, gru_sequence_bwd, a1[:5], (a1[5],), a1[6],
+                       got1, row_args={0: 1, 1: 1, 4: 0},
+                       row_outs={0: 1, 3: 0}, weight_outs=(1, 2))
+        _tc_fwd_checks(f"gru fwd H={H} [{T_c},{C}] {dname}",
+                       lambda *a: (gru_sequence_fwd(*a),), a1[:5],
+                       (gru_sequence_fwd(*a1[:5]),), {4: 0})
+        _gru_tc_timing(results["gru_sequence_bwd"]["wide"][str(H)][dname]
+                       ["learn"], a1[:5], a1[5], a1[6])
 
 
 def _chunked_step_inputs(gen, B, C, F, H, layers, P, dtype):
@@ -4837,10 +4888,10 @@ TC_ROUTED = ("lstm_sequence_fwd", "lstm_sequence_bwd",
 def _tc_kernels(dtype, hidden):
     """The kernels of TC_ROUTED whose launches take the tensor-core route
     in a model of this dtype and recurrent width: in bfloat16 every one at
-    H = 128 and 256, and at 384 and 512 the four LSTM sequence kernels and
-    the two GRU forwards (their two-block clusters; the GRU backwards stay
-    on CUDA cores); in float16 the eight LSTM and GRU sequence kernels at
-    128 and 256 alone."""
+    H = 128 and 256, and at 384 and 512 the eight LSTM and GRU sequence
+    kernels (their two-block clusters); in float16 the eight LSTM and GRU
+    sequence kernels at 128 and 256, and the four GRU ones at 384 and
+    512."""
     from madrona_learn_tpu_torch.ops.cuda import gru, lstm
 
     rules = {"lstm_sequence_fwd": lstm.fwd_uses_tensor_cores,
@@ -5732,14 +5783,15 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
     keywords of ``_pbt_actor_critic``): it must take the policy-chunk
     layout and the batched learn; one warm-up update, whose first
     minibatch's max |ratio - 1| must stay below PBT_RATIO_DEV for every
-    train policy, and ``timed_updates`` timed ones (agent-steps/s), with
+    train policy, and ``timed_updates`` timed ones (agent-steps/s; their
+    collect and the rest of the update split by CUDA events), with
     the launches exact (``per_update``, every other kernel 0), finite
     losses and metrics; then, with ``collect_ab``, the collect A/B, and
     the learn A/B (``_pbt_collect_ab``, ``_pbt_learn_ab``). Each kernel
     with a tensor-core route takes it on every launch or on none, as
     ``_tc_kernels`` says for the model's dtype and width: a float16 model
-    the LSTM forward and backward and the GRU backward; at 384 and 512
-    (``channels``) the LSTM forward and backward. With
+    the LSTM and GRU forwards and backwards; at 384 and 512
+    (``channels``) the LSTM and GRU forwards and backwards. With
     ``gmm_tc``, ``grouped_matmul``'s tensor-core launches an update must be
     exactly that many (the products with IN and OUT multiples of 8). A
     float16 model's policies' loss scales and non-finite steps are printed
@@ -5783,14 +5835,37 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
         raise AssertionError(f"{name}: first-minibatch max |ratio - 1| "
                              f"{ratios} not all below {PBT_RATIO_DEV}")
     losses = [torch.stack([s["loss"] for s in mgr.first_minibatch_stats])]
+    # Each timed update's split on the card's clock: an event as the update
+    # starts, one as its collect returns, one as it ends.
+    events = []
+
+    def mark():
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    collect = mgr.rollout_mgr.collect
+
+    def marked_collect(*args, **kwargs):
+        out = collect(*args, **kwargs)
+        mark()
+        return out
+
+    mgr.rollout_mgr.collect = marked_collect
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(timed_updates):
+        mark()
         mgr.update_iter()
+        mark()
         losses.append(torch.stack([s["loss"]
                                    for s in mgr.first_minibatch_stats]))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    del mgr.rollout_mgr.collect
+    collect_ms = sum(events[k].elapsed_time(events[k + 1])
+                     for k in range(0, len(events), 3)) / timed_updates
+    learn_ms = sum(events[k + 1].elapsed_time(events[k + 2])
+                   for k in range(0, len(events), 3)) / timed_updates
     num_updates = 1 + timed_updates
     launches = _check_launches(
         f"{name} over {num_updates} updates",
@@ -5824,6 +5899,13 @@ def pbt_variant_phase(card, name, model, per_update, timed_updates,
             f"policy: {scales}")
     ab = _pbt_collect_ab(card, mgr) if collect_ab else {}
     ab.update(_pbt_learn_ab(card, mgr))
+    update_ms = seconds * 1e3 / timed_updates
+    ab["split"] = dict(update_ms=update_ms, collect_ms=collect_ms,
+                       learn_ms=learn_ms)
+    log(f"  {name} update split ({timed_updates} timed updates, CUDA "
+        f"events): {update_ms:.1f} ms an update on the host's clock; "
+        f"collect {collect_ms:.1f} ms, learn and the rest {learn_ms:.1f} "
+        f"ms on the card's, on {card}")
     if half:
         ab.update(_pbt_learn_ab(card, mgr, force=1))
     if final_check is not None:
@@ -6946,6 +7028,7 @@ def digest_phase():
         **_bwd_route_digests(digest),
         **_f16_route_digests(digest),
         **_gru_fwd_route_digests(digest),
+        **_gru_wide_route_digests(digest),
     }}))
 
 
@@ -7067,6 +7150,59 @@ def _gru_fwd_route_digests(digest):
         out[f"gru_sequence_fwd_chunked bf16 H={H} collect"] = digest(
             [gru_sequence_fwd_chunked(*step)])
         out[f"gru_sequence_fwd_chunked bf16 H={H} learn"] = digest(
+            [gru_sequence_fwd_chunked(*learn)])
+    return out
+
+
+def _gru_wide_inputs(gen, dtype, H, T, chunks=None):
+    """gru_sequence_bwd's operands at width H over one policy's
+    PBT_MINIBATCH rows, or, with ``chunks``, gru_sequence_bwd_chunked's
+    over that many chunks of PBT_MINIBATCH rows, one a policy; ys and dys
+    drawn, not taken from a forward."""
+    import torch
+
+    if chunks is None:
+        args, n = list(_gru_inputs(gen, T, PBT_MINIBATCH, H, dtype)), \
+            PBT_MINIBATCH
+    else:
+        args = list(_chunked_gru_inputs(gen, T, chunks, PBT_MINIBATCH, H,
+                                        chunks, dtype))
+        args[4] = torch.arange(chunks, dtype=torch.int32, device="cuda")
+        n = chunks * PBT_MINIBATCH
+    return args + [torch.randn(T, n, H, device="cuda",
+                               generator=gen).to(dtype) for _ in range(2)]
+
+
+def _gru_wide_route_digests(digest):
+    """The GRU's digests at the instances that moved onto tensor cores
+    last (the backward in bf16 and float16 at H = 384 and 512, the two-block
+    cluster, and the float16 forward there), from a generator of their own:
+    the backward single-policy on one policy's [16, 1280] and chunk-indexed
+    at headline_pbt's learn step, the float16 forward chunk-indexed at its
+    collect and learn steps."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.gru import (
+        gru_sequence_bwd, gru_sequence_bwd_chunked, gru_sequence_fwd_chunked)
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    T = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS
+    P, C, B = _pbt_chunk_geometry()
+    out = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        dname = str(dtype).split(".")[-1]
+        for H in WIDE_HIDDEN:
+            out[f"gru_sequence_bwd {dname} H={H}"] = digest(
+                gru_sequence_bwd(*_gru_wide_inputs(gen, dtype, H, T)))
+            out[f"gru_sequence_bwd_chunked {dname} H={H}"] = digest(
+                gru_sequence_bwd_chunked(*_gru_wide_inputs(
+                    gen, dtype, H, T, chunks=PBT_TRAIN)))
+    for H in WIDE_HIDDEN:
+        step = _chunked_gru_inputs(gen, 1, B, C, H, P, torch.float16)
+        learn = _gru_wide_inputs(gen, torch.float16, H, T,
+                                 chunks=PBT_TRAIN)[:6]
+        out[f"gru_sequence_fwd_chunked float16 H={H} collect"] = digest(
+            [gru_sequence_fwd_chunked(*step)])
+        out[f"gru_sequence_fwd_chunked float16 H={H} learn"] = digest(
             [gru_sequence_fwd_chunked(*learn)])
     return out
 
@@ -7294,6 +7430,57 @@ def _route_timings():
                 bound_ms=b["bound_ms"])
     out.update(_f16_timings(gen))
     out.update(_gru_fwd_timings(gen))
+    out.update(_gru_wide_timings(gen))
+    return out
+
+
+def _gru_wide_timings(gen):
+    """The GRU at the instances that moved onto tensor cores last, each a
+    median of CUDA-event timings with its bound (the dtype's tensor-core
+    rate): gru_sequence_bwd_chunked in bf16 and float16 at H = 512 and 384
+    at headline_pbt's learn step (T = 16, 8 x 1280, 8 policies),
+    gru_sequence_bwd on one policy's [16, 1280], and the float16
+    gru_sequence_fwd_chunked at the collect step (T = 1, 75 x 512, 12
+    policies) and the learn step."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.gru import (
+        gru_sequence_bwd, gru_sequence_bwd_chunked, gru_sequence_fwd_chunked)
+
+    P, C, B = _pbt_chunk_geometry()
+    T = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS
+    out = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        dname = str(dtype).split(".")[-1]
+        tensor = "bf16_tensor" if dtype == torch.bfloat16 else "f16_tensor"
+        for H in (INFER_CHANNELS, 384):
+            args = _gru_wide_inputs(gen, dtype, H, T, chunks=PBT_TRAIN)
+            b = _chunked_gru_bounds(T, PBT_TRAIN, PBT_MINIBATCH, H,
+                                    PBT_TRAIN, 2, tensor=tensor)[1]
+            out[f"gru_sequence_bwd_chunked {dname} H={H} learn [{T}, "
+                f"{PBT_TRAIN} x {PBT_MINIBATCH}] P={PBT_TRAIN}"] = dict(
+                    ms=time_ms(lambda: gru_sequence_bwd_chunked(*args)),
+                    bound_ms=b["bound_ms"])
+            args = _gru_wide_inputs(gen, dtype, H, T)
+            b = _gru_bounds(T, PBT_MINIBATCH, H, 2, tensor=tensor)[1]
+            out[f"gru_sequence_bwd {dname} H={H} [{T}, {PBT_MINIBATCH}]"] = \
+                dict(ms=time_ms(lambda: gru_sequence_bwd(*args)),
+                     bound_ms=b["bound_ms"])
+    for H in (INFER_CHANNELS, 384):
+        for label, T_c, chunks, chunk, P_c in (
+                ("collect", 1, B, C, P),
+                ("learn", T, PBT_TRAIN, PBT_MINIBATCH, PBT_TRAIN)):
+            args = list(_chunked_gru_inputs(gen, T_c, chunks, chunk, H, P_c,
+                                            torch.float16))
+            if label == "learn":
+                args[4] = torch.arange(P_c, dtype=torch.int32,
+                                       device="cuda")
+            b = _chunked_gru_bounds(T_c, chunks, chunk, H,
+                                    int(args[4].unique().numel()), 2,
+                                    tensor="f16_tensor")[0]
+            out[f"gru_sequence_fwd_chunked float16 H={H} {label} "
+                f"[{T_c}, {chunks} x {chunk}] P={P_c}"] = dict(
+                    ms=time_ms(lambda: gru_sequence_fwd_chunked(*args)),
+                    bound_ms=b["bound_ms"])
     return out
 
 
@@ -7603,6 +7790,13 @@ def main():
             # tensor-core instances (two-block clusters).
             ("headline_pbt_512", dict(channels=INFER_CHANNELS), pbt_lstm, 2,
              False, None),
+            # The same population with GRU(512): the GRU forward and
+            # backward on their 512-wide tensor-core instances (two-block
+            # clusters), headline_pbt_gru's launches.
+            ("headline_pbt_gru_512", dict(rnn="gru", channels=INFER_CHANNELS),
+             {"gae": 1, "gru_sequence_fwd_chunked": steps,
+              "gru_sequence_bwd_chunked": NUM_MINIBATCHES,
+              "grouped_matmul": 5 * STEPS_PER_UPDATE + 4}, 1, False, None),
             # A width no recurrent kernel is built for: the LSTM on its
             # plain twins, as JAX takes its jnp twin; the card against the
             # CPU, and the chunked collect (the twins' gathered batched

@@ -42,30 +42,26 @@
 //
 // These are bound by CUDA-core FMA issue and shared/L1 load throughput,
 // far below the tensor-core rate that bounds the work itself; they serve
-// float32, float16 at H = 384 and 512, and the bfloat16 backward there (the
-// same f32 math from float16 or bfloat16 operands, h and the rounded dhp
-// stored in the storage type).
+// float32 alone.
 //
-// On Hopper's tensor cores: the forward (gru_fwd_tc_kernel) in bfloat16 at
-// every width and in float16 at H = 128 and 256, and the backward
-// (gru_bwd_tc_kernel, then weight_grad_tc.cuh) in both at 128 and 256. The
-// TPU kernel's products are bf16 operands with f32 accumulation (h . Wh;
-// dhp rounded to the storage type before dh_prev = dhp . Wh^T and dWh =
-// h_in^T . dhp), which is what wgmma computes, with only the order of the
-// sums changed. They are lstm.cu's lstm_fwd_tc_kernel and
-// lstm_bwd_tc_kernel with three gates in place of four; the wrappers'
-// rules (ops/cuda/gru.py: fwd_uses_tensor_cores, bwd_uses_tensor_cores)
-// send calls here. One helper computes h . Wh (hidden_products) and one
-// the gates (gru_gates) for the forward and the backward's recompute, so
-// the backward differentiates the forward that ran, and the forward's rule
-// holds wherever the backward's does, so the rollout step is the update
+// On Hopper's tensor cores: the forward (gru_fwd_tc_kernel) and the
+// backward (gru_bwd_tc_kernel, then weight_grad_tc.cuh) in bfloat16 and
+// float16 at every width. The TPU kernel's products are bf16 operands with
+// f32 accumulation (h . Wh; dhp rounded to the storage type before dh_prev
+// = dhp . Wh^T and dWh = h_in^T . dhp), which is what wgmma computes, with
+// only the order of the sums changed. They are lstm.cu's
+// lstm_fwd_tc_kernel and lstm_bwd_tc_kernel with three gates in place of
+// four; the wrappers' rules (ops/cuda/gru.py: fwd_uses_tensor_cores,
+// bwd_uses_tensor_cores, one rule) send calls here. One helper computes
+// h . Wh (hidden_products) and one the gates (gru_gates) for the forward
+// and the backward's recompute, in one slice order, so the backward
+// differentiates the forward that ran, and the rollout step is the update
 // pass's step. The float16 instances (the port's own: JAX sends float16 to
 // its jnp twin) take the bf16 schedules with f16 operands (wgmma .f16, f32
 // sums; ys, dxp, dhp, dh0, dWh and dbh rounded once to f16, where the
-// CUDA-core kernels and the plain twin round them). At H = 384 and 512 the
-// bf16 forward splits the units over a cluster of two blocks, as
-// lstm_fwd_tc_kernel does; the backward there stays on CUDA cores, and
-// recomputes h . Wh in another sum order than the forward that wrote ys.
+// CUDA-core kernels and the plain twin round them). At H = 384 and 512
+// both split the units over a cluster of two blocks, as lstm.cu's
+// lstm_fwd_tc_kernel and lstm_bwd_tc_kernel do.
 //
 // The forward: one block owns R batch rows (FWD_TC_ROWS in ops/cuda/gru.py)
 // and loops over time; warpgroup w owns units 64 w .. 64 w + 63 of r, z
@@ -87,8 +83,9 @@
 // barriers a step (gru_fwd_tc_kernel).
 //
 // The backward:
-// - One block owns R = kGruTcRows batch rows (32: the faster of 16 and 32
-//   at the update shape on the H100) and loops over time in reverse;
+// - One block owns R = kGruTcRows<H> batch rows (the faster of 16 and 32
+//   at the update shape on the H100: 32, and 16 at H = 512) and loops over
+//   time in reverse;
 //   warpgroup w owns units 64 w .. 64 w + 63 of all three gates,
 //   so the gate math, the dh_total * z term and the f32 dh carry stay
 //   thread-local. The products run transposed, gates (or units) as wgmma's
@@ -111,6 +108,13 @@
 //   order; dbh from per-block partials of dhp's n slice, summed in block
 //   order. Deterministic, and a row's dxp and dh0 do not depend on N or on
 //   where the row sits.
+// - At H = 384 and 512 each block of a cluster owns H / 2 units of the same
+//   rows (the H = 192 / 256 layout), streams the Wh^T and Wh rows of its
+//   units, loads the whole h_in tile and recomputes its units' h_in . Wh in
+//   the forward cluster's slice order; both blocks write their units' dhp
+//   into both dhp tiles through distributed shared memory, two cluster
+//   barriers a step, before each computes dh_prev of its units over all 3H
+//   gate columns (gru_bwd_tc_kernel).
 //
 // The chunk-indexed instances (gru_sequence_fwd_chunked and
 // gru_sequence_bwd_chunked, both paths) are the GRU's policy-batched passes
@@ -122,8 +126,8 @@
 // one row tile of one chunk (fwd_rows, chunk_rows.cuh) and reads its
 // policy's slice of the [P, H, 3H] / [P, H] stacks: by a pointer offset on
 // CUDA cores, by the third coordinate of one TMA map over the whole stack
-// on tensor cores (Wh, and the backward's [P, 3H, H] Wh^T stack). A row's arithmetic is the single-policy
-// kernel's, so every row equals
+// on tensor cores (Wh, and the backward's [P, 3H, H] Wh^T stack). A row's
+// arithmetic is the single-policy kernel's, so every row equals
 // gru_sequence_fwd's / _bwd's with its policy's weights bitwise; a chunk of
 // no policy (index P or -1) writes NaN rows and reads no weight. The
 // backward's weight gradients split each chunk's own T * chunk rows (the
@@ -451,26 +455,33 @@ int launch_bwd(const void* xp, const void* keep, const void* wh,
 
 using bf16 = __nv_bfloat16;
 
-// Batch rows a block of the tensor-core recurrence (R): 32 ran 14-17%
-// faster than 16 at [16, 8192, 256 -> 768] on the H100, though it spills
-// at H = 256. ops/cuda/gru.py:TC_ROWS mirrors it.
-constexpr int kGruTcRows = 32;
+// Batch rows a block (a cluster) of the tensor-core backward owns (R), by
+// width, the faster of 16 and 32 on the H100: 32 ran 14-17% faster at
+// [16, 8192, 256 -> 768], though it spills at H = 256; at 512, where R =
+// 32 leaves room for 2 ring stages and R = 16 for 4, 16 ran 15% faster at
+// the learn's [16, 8 x 1280] rows (PERF.md). ops/cuda/gru.py:tc_rows
+// mirrors it.
+template <int H>
+constexpr int kGruTcRows = H == 512 ? 16 : 32;
 
 // Shared memory of gru_bwd_tc_kernel, from a 1024-byte aligned base: the
-// ring of weight slices ([H rows][64] each), then the block's h_in
-// tile and its x_proj / dhp tile (K-major wgmma B operands: [K / 64]
-// subtiles of [R][64], 128-byte swizzle), its dn_pre tile (the same
-// layout) and its dys tile ([R][H], row_off).
-template <int H, int R>
+// ring of weight slices ([U rows][64] each, U = H / kSplit the block's
+// units), the block's h_in tile and its x_proj / dhp tile (K-major wgmma B
+// operands over all H units and 3H gate columns: [K / 64] subtiles of
+// [R][64], 128-byte swizzle), its dn_pre tile (the same layout over its U
+// units) and its dys tile ([R][U], row_off).
+template <int H, int R, int kSplit = 1>
 struct GruTcBwd {
-  static constexpr int kWarpgroups = H / 64;   // 64 units each
+  static constexpr int kUnits = H / kSplit;
+  static constexpr int kWarpgroups = kUnits / 64;   // 64 units each
   static constexpr int kThreads = 128 * kWarpgroups;
   static constexpr int kWarps = 4 * kWarpgroups;
   static constexpr int kSub = R * 128;          // one [R][64] subtile
-  static constexpr int kStageBytes = H * 128;
-  static constexpr int kTileBytes = R * H * 2;
-  static constexpr int kDgBytes = 3 * kTileBytes;
-  static constexpr int kFixed = kDgBytes + 3 * kTileBytes;
+  static constexpr int kStageBytes = kUnits * 128;
+  static constexpr int kHinBytes = R * H * 2;
+  static constexpr int kDgBytes = 3 * kHinBytes;
+  static constexpr int kTileBytes = R * kUnits * 2;
+  static constexpr int kFixed = kHinBytes + kDgBytes + 2 * kTileBytes;
   static constexpr int kStages =
       min_c(4, (kSmemLimit - 2048 - kFixed) / kStageBytes);
   static constexpr int kSmem = kStages * kStageBytes + kFixed + 1024;
@@ -521,6 +532,17 @@ __device__ __forceinline__ Gates gru_gates(float xr, float xz, float xn,
   return g;
 }
 
+// The witness of a product: (row, unit)'s h . Wh of each gate (acc[g][i]),
+// into the f32 [T * N, 3H] hp at columns g H + unit.
+template <int H, int kAcc>
+__device__ __forceinline__ void store_products(float* hp, size_t row,
+                                               int unit,
+                                               const float (&acc)[3][kAcc],
+                                               int i) {
+#pragma unroll
+  for (int g = 0; g < 3; ++g) hp[row * 3 * H + g * H + unit] = acc[g][i];
+}
+
 // The reverse-time recurrence of the tensor-core backward (see the header),
 // E the storage type: bf16, or f16 (the float16 instance). One block owns R
 // batch rows; warpgroup w owns units 64 w .. 64 w + 63 of all three
@@ -528,9 +550,33 @@ __device__ __forceinline__ Gates gru_gates(float xr, float xz, float xn,
 // 64 w + 16 v + l / 4 (+ 8) and rows 8 j + 2 (l % 4) (+ 1) of each m64nR
 // accumulator: element 4 j + 2 s + e is unit + 8 s, row 8 j + 2 (l % 4) +
 // e. Outputs: dxp and dhp ([T, N, 3H]), hin (h_in as the step used it,
-// [T, N, H]), dh0 and part_b (this block's dbh partial, [blocks, H]).
-template <typename E, int H, int R>
-__global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
+// [T, N, H]), dh0 and part_b (this row tile's dbh partial, [tiles, H]);
+// the kWitness instance also writes each step's recomputed h_in . Wh to hp
+// (f32 [T, N, 3H], gate g in columns g H ..), as gru_fwd_tc_kernel's
+// kWitness instance writes the product it computed: the witness that the
+// two are the same bitwise. The other instances never touch hp.
+//
+// With kSplit = 2 (H = 384, 512) the two blocks of a cluster own the same R
+// rows and H / 2 units each (rank r: units r H / 2 ..), as the forward's
+// do, so a block keeps the H = 192 / 256 instance's warpgroups and
+// registers. Each loads the whole h_in tile (from ys / h0, no exchange),
+// recomputes h_in . Wh for its units through hidden_products from the Wh^T
+// slices of its units, in the forward cluster's slice order (so bitwise
+// the product the forward's block of the same rank computed), and streams
+// the Wh rows of its units for dh_prev^T = Wh . dhp^T, whose K is all 3H
+// gate columns: so after the gate math a thread writes its dhp into its
+// own dhp tile and its peer's (distributed shared memory). Two cluster
+// barriers a step keep the tiles right: the first after both blocks'
+// recomputes, so that no write reaches a dhp tile that the peer's dh_prev
+// product of the step before still reads; the second after the writes
+// (release / acquire, then fence.proxy.async on both sides), so that both
+// blocks' products read both halves. A block never exits while its peer
+// can still write into it: the last write is before the last step's second
+// barrier, and a chunk of no policy is skipped by both blocks of its
+// cluster together (they share its rows, so its policy). lstm_bwd_tc_kernel's
+// cluster, with three gates.
+template <typename E, int H, int R, int kSplit, bool kWitness>
+__global__ void __launch_bounds__(GruTcBwd<H, R, kSplit>::kThreads, 1)
     gru_bwd_tc_kernel(const __grid_constant__ CUtensorMap wht_map,
                       const __grid_constant__ CUtensorMap wh_map,
                       const E* __restrict__ xp, const E* __restrict__ keep,
@@ -538,12 +584,13 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
                       const E* __restrict__ ys, const E* __restrict__ dys,
                       E* __restrict__ dxp, E* __restrict__ dhp,
                       E* __restrict__ hin, E* __restrict__ dh0,
-                      float* __restrict__ part_b,
+                      float* __restrict__ part_b, float* __restrict__ hp,
                       int steps, int n_rows,
                       const int* __restrict__ chunk_policy, int chunk,
                       int num_policies) {
-  using L = GruTcBwd<H, R>;
+  using L = GruTcBwd<H, R, kSplit>;
   constexpr int G3 = 3 * H;
+  constexpr int U = L::kUnits;
   constexpr int S = L::kStages;
   constexpr int kAcc = R / 2;
   constexpr int kGate = (H / 64) * L::kSub;   // gate stride in the dhp tile
@@ -553,7 +600,7 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
   const uint32_t raw_s = smem_u32(smem_raw);
   const uint32_t ring = (raw_s + 1023) & ~1023u;
   const uint32_t hin_s = ring + S * L::kStageBytes;
-  const uint32_t dg_s = hin_s + L::kTileBytes;
+  const uint32_t dg_s = hin_s + L::kHinBytes;
   const uint32_t dn_s = dg_s + L::kDgBytes;
   const uint32_t dys_s = dn_s + L::kTileBytes;
   const uint8_t* hin_p = smem_raw + (hin_s - raw_s);
@@ -561,14 +608,19 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
   uint8_t* dn_p = smem_raw + (dn_s - raw_s);
   const uint8_t* dys_p = smem_raw + (dys_s - raw_s);
 
-  // The block's rows and policy (fwd_rows); a chunk of no policy is skipped
-  // before any barrier. The maps span the [P, ...] stacks (P = 1 without
-  // chunks); the policy is the third coordinate.
-  const FwdRows rows = fwd_rows(chunk_policy, chunk, R, n_rows);
+  // The block's rows and policy (fwd_rows: the cluster's row tile); a chunk
+  // of no policy is skipped before any barrier, by the whole cluster. The
+  // maps span the [P, ...] stacks (P = 1 without chunks); the policy is the
+  // third coordinate.
+  const int rank = kSplit == 1 ? 0 : static_cast<int>(cluster_rank());
+  const int tile = static_cast<int>(blockIdx.x) / kSplit;
+  const FwdRows rows = fwd_rows(chunk_policy, chunk, R, n_rows, tile);
   if (rows.policy < 0 || rows.policy >= num_policies) {
-    fill_nan(dxp, steps, n_rows, G3, rows, R);
-    fill_nan(dhp, steps, n_rows, G3, rows, R);
-    fill_nan(dh0, 1, n_rows, H, rows, R);
+    if (rank == 0) {
+      fill_nan(dxp, steps, n_rows, G3, rows, R);
+      fill_nan(dhp, steps, n_rows, G3, rows, R);
+      fill_nan(dh0, 1, n_rows, H, rows, R);
+    }
     return;
   }
   bias_h += static_cast<size_t>(rows.policy) * H;
@@ -578,11 +630,15 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
   const int tid = threadIdx.x;
   const int wg = tid / 128, lane = tid % 32;
   const int lt = lane % 4;
+  // unit0 counts the block's own units (the ring's rows, the dn_pre and dys
+  // tiles' columns); unit_base + unit0 is the unit of the layer.
+  const int unit_base = rank * U;
   const int unit0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
   const int block_row = rows.first;
 
   // The weight slices of one step, in the order the step consumes them:
-  // Wh^T by (H-chunk, gate), then Wh by 3H-chunk; the same every step.
+  // Wh^T by (H-chunk, gate), then Wh by 3H-chunk, each the U rows of the
+  // block's units; the same every step.
   constexpr int g_loads = 3 * (H / kTcK);
   constexpr int d_loads = G3 / kTcK;
   constexpr int step_loads = g_loads + d_loads;
@@ -591,9 +647,10 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
   auto issue = [&](int q, uint32_t dst, uint64_t* bar) {
     const int p = q % step_loads;
     if (p < g_loads)
-      tma_load_3d(dst, wht, bar, (p / 3) * kTcK, (p % 3) * H, pol);
+      tma_load_3d(dst, wht, bar, (p / 3) * kTcK, (p % 3) * H + unit_base,
+                  pol);
     else
-      tma_load_3d(dst, whm, bar, (p - g_loads) * kTcK, 0, pol);
+      tma_load_3d(dst, whm, bar, (p - g_loads) * kTcK, unit_base, pol);
   };
   SliceRing<S> slices{full, empty, ring, L::kStageBytes, steps * step_loads,
                       0};
@@ -603,29 +660,43 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
   const uint32_t a_off = wg * 64 * 128;
 
   // Byte offsets of this thread's elements (rows 2 (l % 4) + e, units
-  // unit0 + 8 s) in the K-major tiles and in the dys tile: row 8 j + .. is
-  // j * 1024 (j * 16 H) bytes on, gate g of the dhp tile g * kGate.
-  uint32_t kb[2][2], rb[2][2];
+  // unit0 + 8 s): kb in the K-major tiles over all H (h_in; gate g of the
+  // dhp tile g * kGate on), ku in the dn_pre tile, rb in the dys tile; row
+  // 8 j + .. is j * 1024 (j * 16 U) bytes on.
+  uint32_t kb[2][2], ku[2][2], rb[2][2];
 #pragma unroll
   for (int s = 0; s < 2; ++s)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      kb[s][e] = kmaj_off<R>(2 * lt + e, unit0 + 8 * s);
-      rb[s][e] = row_off<H>(2 * lt + e, unit0 + 8 * s);
+      kb[s][e] = kmaj_off<R>(2 * lt + e, unit_base + unit0 + 8 * s);
+      ku[s][e] = kmaj_off<R>(2 * lt + e, unit0 + 8 * s);
+      rb[s][e] = row_off<U>(2 * lt + e, unit0 + 8 * s);
     }
   float bn[2], db[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int s = 0; s < 2; ++s) bn[s] = to_f(bias_h[unit0 + 8 * s]);
+  for (int s = 0; s < 2; ++s) bn[s] = to_f(bias_h[unit_base + unit0 + 8 * s]);
   float dh[kAcc];   // the carried cotangent, f32
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) dh[i] = 0.0f;
+
+  // Column c of the block's 3U gate columns (its units of each gate) is
+  // column g H + unit_base + u of the layer's 3H.
+  auto gate_col = [&](int c) {
+    return kSplit == 1 ? c : (c / U) * H + unit_base + c % U;
+  };
+  // The peer's dhp tile, where this block writes its units' dhp.
+  const uint32_t peer_dg =
+      kSplit == 1 ? 0
+                  : map_cluster_rank(dg_s, static_cast<uint32_t>(rank ^ 1));
+  const E zero = from_f<E>(0.0f);
 
   for (int t = steps - 1; t >= 0; --t) {
     const size_t trow = static_cast<size_t>(t) * n_rows;
     const size_t prow = trow - n_rows;   // step t - 1 (t > 0)
     // The tiles of step t, by 16-byte cp.async with zero-fill: the carry
-    // into step t (the cleared state after step t - 1, or the unmasked h0
-    // at t == 0), dys, and x_proj into the dhp tile.
+    // into step t over all H units (the cleared state after step t - 1, or
+    // the unmasked h0 at t == 0), dys of the block's units, and x_proj of
+    // its gate columns into the dhp tile.
     for (int e = tid; e < R * (H / 8); e += L::kThreads) {
       const int n = e / (H / 8), c = e % (H / 8);
       const int row = block_row + n;
@@ -639,28 +710,31 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
         hs = ys + (prow + row) * H + c * 8;
       }
       cp_async16(hin_s + kmaj_off<R>(n, c * 8), hs, kept);
-      cp_async16(dys_s + row_off<H>(n, c * 8),
-                 dys + (live ? (trow + row) * H + c * 8 : 0), live);
+      if (c < U / 8)
+        cp_async16(dys_s + row_off<U>(n, c * 8),
+                   dys + (live ? (trow + row) * H + unit_base + c * 8 : 0),
+                   live);
     }
-    for (int e = tid; e < R * (G3 / 8); e += L::kThreads) {
-      const int n = e / (G3 / 8), c = e % (G3 / 8);
+    for (int e = tid; e < R * (3 * U / 8); e += L::kThreads) {
+      const int n = e / (3 * U / 8), col = gate_col((e % (3 * U / 8)) * 8);
       const int row = block_row + n;
       const bool live = row < row_end;
-      cp_async16(dg_s + kmaj_off<R>(n, c * 8),
-                 xp + (live ? (trow + row) * G3 + c * 8 : 0), live);
+      cp_async16(dg_s + kmaj_off<R>(n, col),
+                 xp + (live ? (trow + row) * G3 + col : 0), live);
     }
     cp_async_commit();
     cp_async_wait<0>();
     fence_proxy_async();
     __syncthreads();
 
-    // h_in as this step used it, for the weight-gradient pass.
-    for (int e = tid; e < R * (H / 8); e += L::kThreads) {
-      const int n = e / (H / 8), c = e % (H / 8);
+    // h_in as this step used it, for the weight-gradient pass (the block's
+    // units' columns).
+    for (int e = tid; e < R * (U / 8); e += L::kThreads) {
+      const int n = e / (U / 8), c = unit_base + (e % (U / 8)) * 8;
       const int row = block_row + n;
       if (row < row_end)
-        *reinterpret_cast<uint4*>(hin + (trow + row) * H + c * 8) =
-            *reinterpret_cast<const uint4*>(hin_p + kmaj_off<R>(n, c * 8));
+        *reinterpret_cast<uint4*>(hin + (trow + row) * H + c) =
+            *reinterpret_cast<const uint4*>(hin_p + kmaj_off<R>(n, c));
     }
     uint32_t keep_prev = 0;   // bit 2 j + e: row 8 j + 2 (l % 4) + e
 #pragma unroll
@@ -672,14 +746,18 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
           keep_prev |= 1u << (2 * j + e);
       }
 
-    // hp^T = Wh^T . h_in^T, gates as M and rows as N.
+    // hp^T = Wh^T . h_in^T for the block's units, gates as M and rows as N.
     float acc[3][kAcc];
     hidden_products<H, R, 0, E>(slices, issue, acc, a_off, hin_s);
+    // With a cluster: the peer's dh_prev product of step t + 1 is done,
+    // before this block writes into its dhp tile.
+    if constexpr (kSplit > 1) cluster_sync();
 
     // Gate math, thread-local (ops/pallas/gru.py:_gates_fp32 and the
     // backward's chain): dhp rounded to E into the dhp tile (each thread
-    // rewrites only the x_proj elements it read), dn_pre into its tile, the
-    // dbh partial, and dh_total * z, h_in's direct path into h'.
+    // rewrites only the x_proj elements it read; with a cluster into the
+    // peer's too), dn_pre into its tile, the dbh partial, and
+    // dh_total * z, h_in's direct path into h'.
     float dhz[kAcc];
 #pragma unroll
     for (int j = 0; j < R / 8; ++j)
@@ -689,15 +767,20 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
         for (int e = 0; e < 2; ++e) {
           const int i = 4 * j + 2 * s + e;
           const bool live = block_row + 8 * j + 2 * lt + e < row_end;
-          uint8_t* dgo = dg_p + kb[s][e] + j * 1024;
+          const uint32_t ko = kb[s][e] + j * 1024;
+          uint8_t* dgo = dg_p + ko;
           const Gates gt =
               gru_gates(ld_elem<E>(dgo), ld_elem<E>(dgo + kGate),
                         ld_elem<E>(dgo + 2 * kGate), acc[0][i], acc[1][i],
                         acc[2][i], bn[s]);
           const float hn_lin = gt.hn_lin, r = gt.r, z = gt.z, nn = gt.n;
-          const float h_in = ld_elem<E>(hin_p + kb[s][e] + j * 1024);
+          if constexpr (kWitness)
+            if (live)
+              store_products<H>(hp, trow + block_row + 8 * j + 2 * lt + e,
+                                unit_base + unit0 + 8 * s, acc, i);
+          const float h_in = ld_elem<E>(hin_p + ko);
           const float dh_total =
-              ld_elem<E>(dys_p + rb[s][e] + j * 16 * H) + dh[i];
+              ld_elem<E>(dys_p + rb[s][e] + j * 16 * U) + dh[i];
           const float dn = dh_total * (1.0f - z);
           const float dz = dh_total * (h_in - nn);
           const float dn_pre = dn * (1.0f - nn * nn);
@@ -705,38 +788,50 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
           const float dhn = dn_pre * r;
           const float dz_pre = dz * z * (1.0f - z);
           const float dr_pre = dr * r * (1.0f - r);
-          const E zero = from_f<E>(0.0f);
-          const E d_hn = live ? from_f<E>(dhn) : zero;
-          *reinterpret_cast<E*>(dgo) = live ? from_f<E>(dr_pre) : zero;
-          *reinterpret_cast<E*>(dgo + kGate) = live ? from_f<E>(dz_pre) : zero;
-          *reinterpret_cast<E*>(dgo + 2 * kGate) = d_hn;
-          *reinterpret_cast<E*>(dn_p + kb[s][e] + j * 1024) =
+          const E d[3] = {live ? from_f<E>(dr_pre) : zero,
+                          live ? from_f<E>(dz_pre) : zero,
+                          live ? from_f<E>(dhn) : zero};
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            *reinterpret_cast<E*>(dgo + g * kGate) = d[g];
+            if constexpr (kSplit > 1)
+              st_cluster_u16(peer_dg + ko + g * kGate, elem_bits(d[g]));
+          }
+          *reinterpret_cast<E*>(dn_p + ku[s][e] + j * 1024) =
               live ? from_f<E>(dn_pre) : zero;
-          db[s] += to_f(d_hn);
+          db[s] += to_f(d[2]);
           dhz[i] = live ? dh_total * z : 0.0f;
         }
-    fence_proxy_async();
-    __syncthreads();
+    // The dhp tile is whole for the products: this block's writes, and
+    // with a cluster the peer's, visible to wgmma.
+    if constexpr (kSplit == 1) {
+      fence_proxy_async();
+      __syncthreads();
+    } else {
+      fence_proxy_async_all();
+      cluster_sync();
+      fence_proxy_async_all();
+    }
 
-    // dhp (the weight-gradient pass's B operand) and dxp, which differs
-    // from it in the n slice alone.
-    for (int e = tid; e < R * (G3 / 8); e += L::kThreads) {
-      const int n = e / (G3 / 8), c = e % (G3 / 8);
+    // dhp of the block's gate columns (the weight-gradient pass's B
+    // operand) and dxp, which differs from it in the n slice alone.
+    for (int e = tid; e < R * (3 * U / 8); e += L::kThreads) {
+      const int n = e / (3 * U / 8), c = gate_col((e % (3 * U / 8)) * 8);
       const int row = block_row + n;
       if (row < row_end) {
         const uint4 v =
-            *reinterpret_cast<const uint4*>(dg_p + kmaj_off<R>(n, c * 8));
-        const size_t o = (trow + row) * G3 + c * 8;
+            *reinterpret_cast<const uint4*>(dg_p + kmaj_off<R>(n, c));
+        const size_t o = (trow + row) * G3 + c;
         *reinterpret_cast<uint4*>(dhp + o) = v;
         *reinterpret_cast<uint4*>(dxp + o) =
-            c * 8 < 2 * H ? v
-                          : *reinterpret_cast<const uint4*>(
-                                dn_p + kmaj_off<R>(n, c * 8 - 2 * H));
+            c < 2 * H ? v
+                      : *reinterpret_cast<const uint4*>(
+                            dn_p + kmaj_off<R>(n, c - 2 * H - unit_base));
       }
     }
 
     // dh_prev^T = Wh . dhp^T: this warpgroup's 64 units, in the layout of
-    // its carry; then + dh_total * z.
+    // its carry, over all 3H gate columns; then + dh_total * z.
     float dhp_acc[kAcc];
     for (int kc = 0; kc < G3 / kTcK; ++kc)
       ring_product<R, 0, E>(slices, issue, dhp_acc, a_off,
@@ -757,21 +852,22 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
           const int row = block_row + 8 * j + 2 * lt + e;
           const float d = dhp_acc[i] + dhz[i];
           if (t == 0 && row < row_end)
-            dh0[static_cast<size_t>(row) * H + unit0 + 8 * s] = from_f<E>(d);
+            dh0[static_cast<size_t>(row) * H + unit_base + unit0 + 8 * s] =
+                from_f<E>(d);
           dh[i] = (keep_prev >> (2 * j + e)) & 1u ? d : 0.0f;
         }
     __syncthreads();   // every tile of this step is consumed
   }
 
-  // This block's dbh partial: the thread's rows and steps, then the four
-  // lanes of a unit in a fixed order.
+  // This row tile's dbh partial over the block's units: the thread's rows
+  // and steps, then the four lanes of a unit in a fixed order.
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
     float v = db[s];
     v += __shfl_xor_sync(0xffffffffu, v, 1);
     v += __shfl_xor_sync(0xffffffffu, v, 2);
     if (lt == 0)
-      part_b[static_cast<size_t>(blockIdx.x) * H + unit0 + 8 * s] = v;
+      part_b[static_cast<size_t>(tile) * H + unit_base + unit0 + 8 * s] = v;
   }
 }
 
@@ -779,8 +875,12 @@ __global__ void __launch_bounds__(GruTcBwd<H, R>::kThreads, 1)
 // recurrence's dhp and hin, dbh from its part_b). chunk_policy null: one
 // policy; else the chunk-indexed instance over the [num_policies, H, 3H]
 // stacks wh and wh_t (Wh^T a policy, [num_policies, 3H, H]), `splits`
-// weight-gradient splits a chunk. E: __nv_bfloat16 or __half.
-template <typename E, int H>
+// weight-gradient splits a chunk. E: __nv_bfloat16 or __half; R rows a
+// row tile. At H = 384 and 512, clusters of two blocks (kTcSplit),
+// launched with their cluster dimension by cudaLaunchKernelEx; a refused
+// launch returns its error. hp: null, or the recompute's witness (f32
+// [T, N, 3H]: the kWitness instance of gru_bwd_tc_kernel).
+template <typename E, int H, int R = kGruTcRows<H> >
 int launch_bwd_tc(int phases, const void* xp, const void* keep,
                   const void* wh, const void* wh_t, const void* bias_h,
                   const void* h0, const void* ys, const void* dys, void* dxp,
@@ -788,32 +888,51 @@ int launch_bwd_tc(int phases, const void* xp, const void* keep,
                   void* part_b, void* dwh, void* dbh, int steps, int n_rows,
                   int splits, cudaStream_t stream,
                   const void* chunk_policy = nullptr, int num_chunks = 1,
-                  int chunk = 0, int num_policies = 1) {
-  constexpr int R = kGruTcRows;
-  using L = GruTcBwd<H, R>;
-  const int blocks = fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, R);
+                  int chunk = 0, int num_policies = 1, void* hp = nullptr) {
+  constexpr int kSplit = kTcSplit<H>;
+  constexpr int U = H / kSplit;
+  using L = GruTcBwd<H, R, kSplit>;
+  const int tiles = fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, R);
   if (phases & 1) {
+    // Both maps span the [P, ...] stack, in boxes of the U rows of a
+    // block's units (at most 256: TMA's limit of a box dimension).
     constexpr CUtensorMapDataType dt = tma_dtype<E>();
     CUtensorMap wht_map, wh_map;
-    if (!make_tma_map(&wht_map, wh_t, H, 3 * H, num_policies, kTcK, H, dt) ||
-        !make_tma_map(&wh_map, wh, 3 * H, H, num_policies, kTcK, H, dt))
+    if (!make_tma_map(&wht_map, wh_t, H, 3 * H, num_policies, kTcK, U, dt) ||
+        !make_tma_map(&wh_map, wh, 3 * H, H, num_policies, kTcK, U, dt))
       return static_cast<int>(cudaErrorInvalidValue);
-    int err = set_smem(gru_bwd_tc_kernel<E, H, R>, L::kSmem);
+    const auto kernel = hp != nullptr
+                            ? gru_bwd_tc_kernel<E, H, R, kSplit, true>
+                            : gru_bwd_tc_kernel<E, H, R, kSplit, false>;
+    int err = set_smem(kernel, L::kSmem);
     if (err != 0) return err;
-    gru_bwd_tc_kernel<E, H, R><<<blocks, L::kThreads, L::kSmem, stream>>>(
-        wht_map, wh_map, static_cast<const E*>(xp),
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(tiles) * kSplit);
+    cfg.blockDim = dim3(L::kThreads);
+    cfg.dynamicSmemBytes = L::kSmem;
+    cfg.stream = stream;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = kSplit;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cfg.attrs = cluster;
+    cfg.numAttrs = kSplit > 1 ? 1 : 0;
+    const cudaError_t launched = cudaLaunchKernelEx(
+        &cfg, kernel, wht_map, wh_map, static_cast<const E*>(xp),
         static_cast<const E*>(keep), static_cast<const E*>(bias_h),
         static_cast<const E*>(h0), static_cast<const E*>(ys),
         static_cast<const E*>(dys), static_cast<E*>(dxp),
         static_cast<E*>(dhp), static_cast<E*>(hin), static_cast<E*>(dh0),
-        static_cast<float*>(part_b), steps, n_rows,
+        static_cast<float*>(part_b), static_cast<float*>(hp), steps, n_rows,
         static_cast<const int*>(chunk_policy), chunk, num_policies);
+    if (launched != cudaSuccess) return static_cast<int>(launched);
     err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
   }
   if ((phases & 2) && chunk_policy != nullptr) {
     // dWh of each policy from its chunks' own splits of boxes (never a box
-    // of two chunks: weight_grad_tc.cuh), dbh from its chunks' blocks.
+    // of two chunks: weight_grad_tc.cuh), dbh from its chunks' row tiles.
     int used = 0;
     int err = weight_grad_tc_partials<E>(hin, H, nullptr, H, dhp, 3 * H,
                                          steps, chunk, num_chunks, splits,
@@ -823,14 +942,14 @@ int launch_bwd_tc(int phases, const void* xp, const void* keep,
                            num_policies, H * 3 * H, stream);
     if (err != 0) return err;
     return sum_by_policy<E>(part_b, dbh, chunk_policy, num_chunks,
-                            blocks / num_chunks, num_policies, H, stream);
+                            tiles / num_chunks, num_policies, H, stream);
   }
   if (phases & 2) {
     const int err = weight_grad_tc<E>(hin, H, nullptr, H, dhp, 3 * H,
                                       steps * n_rows, splits, part_w, dwh,
                                       stream);
     if (err != 0) return err;
-    return sum_splits<E>(part_b, dbh, blocks, H, stream);
+    return sum_splits<E>(part_b, dbh, tiles, H, stream);
   }
   return 0;
 }
@@ -868,7 +987,7 @@ struct GruTcFwd {
 };
 
 // The forward recurrence on tensor cores (see the header), E the storage
-// type: bf16, or f16 (the float16 instance at H = 128 and 256). One block
+// type: bf16, or f16 (the float16 instance). One block
 // owns R batch rows and loops over time; warpgroup w owns units
 // 64 w .. 64 w + 63 of r, z and n, in the accumulator layout of
 // gru_bwd_tc_kernel (element 4 j + 2 s + e of an m64nR accumulator is unit
@@ -877,7 +996,7 @@ struct GruTcFwd {
 // [64 k][64 units]: wgmma's MN-major A operand as it stands, so a call
 // copies no weight.
 //
-// With kSplit = 2 (bf16 at H = 384, 512) the two blocks of a cluster own
+// With kSplit = 2 (H = 384, 512) the two blocks of a cluster own
 // the same R rows and H / 2 units each (rank r: units r H / 2 ..), so a
 // block keeps the H = 192 / 256 instance's warpgroups and registers: it
 // streams its units' columns of Wh, stages its units' x_proj columns and
@@ -891,16 +1010,17 @@ struct GruTcFwd {
 // into it: the last write is before the last step's second barrier, and a
 // chunk of no policy is skipped by both blocks of its cluster together
 // (they share its rows, so its policy). lstm_fwd_tc_kernel's cluster, with
-// three gates.
-template <typename E, int H, int R, int kStages, int kSplit>
+// three gates. The kWitness instance also writes each step's h . Wh to hp
+// (f32 [T, N, 3H], store_products), for gru_bwd_tc_kernel's witness.
+template <typename E, int H, int R, int kStages, int kSplit, bool kWitness>
 __global__ void __launch_bounds__(GruTcFwd<H, R, kStages, kSplit>::kThreads,
                                   1)
     gru_fwd_tc_kernel(const __grid_constant__ CUtensorMap wh_map,
                       const E* __restrict__ xp, const E* __restrict__ keep,
                       const E* __restrict__ bias_h, const E* __restrict__ h0,
-                      E* __restrict__ ys, int steps, int n_rows,
-                      const int* __restrict__ chunk_policy, int chunk,
-                      int num_policies) {
+                      E* __restrict__ ys, float* __restrict__ hp, int steps,
+                      int n_rows, const int* __restrict__ chunk_policy,
+                      int chunk, int num_policies) {
   using L = GruTcFwd<H, R, kStages, kSplit>;
   constexpr int S = L::kRing;
   constexpr int U = L::kUnits;
@@ -1055,6 +1175,10 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages, kSplit>::kThreads,
           const int row = block_row + 8 * j + 2 * lt + e;
           if (row < row_end)
             ys[(trow + row) * H + unit_base + unit0 + 8 * s] = h_t;
+          if constexpr (kWitness)
+            if (row < row_end)
+              store_products<H>(hp, trow + row, unit_base + unit0 + 8 * s,
+                                acc, i);
         }
     // The carry is in for the next step's products: this block's writes,
     // and with a cluster the peer's, visible to wgmma.
@@ -1073,18 +1197,27 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages, kSplit>::kThreads,
 
 // chunk_policy null: one policy; else the chunk-indexed instance over the
 // [num_policies, H, 3H] / [num_policies, H] stacks, one TMA map over the
-// whole stack. E: __nv_bfloat16, or __half at H = 128 and 256. At H = 384
+// whole stack. E: __nv_bfloat16 or __half. At H = 384
 // and 512, clusters of two blocks (kTcSplit), launched with their cluster
 // dimension by cudaLaunchKernelEx; a refused launch returns its error.
+// hp: null, or the products' witness (the kWitness instance of
+// gru_fwd_tc_kernel, built at R = 32 and kGruFwdStages alone: other
+// arguments with hp are refused).
 template <typename E, int H, int R, int kStages>
 int launch_fwd_tc(const void* xp, const void* keep, const void* wh,
                   const void* bias_h, const void* h0, void* ys, int steps,
                   int n_rows, cudaStream_t stream,
                   const void* chunk_policy = nullptr, int num_chunks = 0,
-                  int chunk = 0, int num_policies = 1) {
+                  int chunk = 0, int num_policies = 1, void* hp = nullptr) {
   constexpr int kSplit = kTcSplit<H>;
   using L = GruTcFwd<H, R, kStages, kSplit>;
-  const auto kernel = gru_fwd_tc_kernel<E, H, R, kStages, kSplit>;
+  constexpr bool kWitnessed = R == 32 && kStages == kGruFwdStages;
+  if (hp != nullptr && !kWitnessed)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel =
+      hp != nullptr
+          ? gru_fwd_tc_kernel<E, H, R, kStages, kSplit, kWitnessed>
+          : gru_fwd_tc_kernel<E, H, R, kStages, kSplit, false>;
   CUtensorMap wh_map;
   if (!make_tma_map(&wh_map, wh, 3 * H, H, num_policies, 64, kTcK,
                     tma_dtype<E>()))
@@ -1107,7 +1240,8 @@ int launch_fwd_tc(const void* xp, const void* keep, const void* wh,
   const cudaError_t launched = cudaLaunchKernelEx(
       &cfg, kernel, wh_map, static_cast<const E*>(xp),
       static_cast<const E*>(keep), static_cast<const E*>(bias_h),
-      static_cast<const E*>(h0), static_cast<E*>(ys), steps, n_rows,
+      static_cast<const E*>(h0), static_cast<E*>(ys),
+      static_cast<float*>(hp), steps, n_rows,
       static_cast<const int*>(chunk_policy), chunk, num_policies);
   if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
@@ -1117,36 +1251,33 @@ int launch_fwd_tc(const void* xp, const void* keep, const void* wh,
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. Each entry point returns a
 // cudaError_t, or -1 for arguments without an instantiation. The CUDA-core
-// forward is built for float32 at every width and float16 at H = 384 and
-// 512 (bfloat16 takes mlt_gru_fwd_tc at every width, float16 at 128 and
-// 256); the CUDA-core backward for float32 at every width and for
-// bfloat16 and float16 at 384 and 512 (both take mlt_gru_bwd_tc at 128 and
-// 256). At 384 and 512 the tensor-core forward splits the units over a
-// cluster of two blocks, as lstm.cu's does (its "Wider layers", at the
-// dispatch); the backward's tensor-core design does not fit there yet (H /
-// 64 warpgroups leave 80 or 64 registers a thread, and its K-major slices
-// of Wh^T would be TMA boxes of H rows, past 256), so it keeps the
-// CUDA-core templates, with the narrower instances' contracts
-// (ops/cuda/gru.py: fwd_uses_tensor_cores and bwd_uses_tensor_cores state
-// it). Until it moves, the bf16 backward at 384 and 512 recomputes h . Wh
-// in another sum order than the forward that wrote ys.
+// kernels serve float32 alone, at every width; bfloat16 and float16 take
+// the tensor-core entry points at every width (mlt_gru_fwd_tc,
+// mlt_gru_bwd_tc, and tensor_core 1 in the chunk-indexed ones). At H = 384
+// and 512 their instances split the units over a cluster of two blocks
+// (kTcSplit), as lstm.cu's do ("Wider layers", at its dispatch: one block
+// would need H / 64 warpgroups, leaving 80 or 64 registers a thread, and
+// the backward's K-major slices of Wh^T would be TMA boxes of H rows, past
+// 256). At every width the forward and the backward's recompute share
+// hidden_products in one slice order, so the backward differentiates the
+// forward that ran.
 #define MLT_DISPATCH_F32(CALL)                                   \
   if (dtype == 0 && hidden == 128) return CALL(float, 128);      \
   if (dtype == 0 && hidden == 256) return CALL(float, 256);      \
-  return -1
-// The CUDA-core forwards: float32 at every width, float16 at 384 and 512.
-#define MLT_DISPATCH_FWD(CALL)                                   \
   if (dtype == 0 && hidden == 384) return CALL(float, 384);      \
   if (dtype == 0 && hidden == 512) return CALL(float, 512);      \
+  return -1
+// The tensor-core instances: bfloat16 and float16 at every width.
+#define MLT_DISPATCH_TC(CALL)                                    \
+  if (dtype == 1 && hidden == 128) return CALL(bf16, 128);       \
+  if (dtype == 1 && hidden == 256) return CALL(bf16, 256);       \
+  if (dtype == 1 && hidden == 384) return CALL(bf16, 384);       \
+  if (dtype == 1 && hidden == 512) return CALL(bf16, 512);       \
+  if (dtype == 2 && hidden == 128) return CALL(__half, 128);     \
+  if (dtype == 2 && hidden == 256) return CALL(__half, 256);     \
   if (dtype == 2 && hidden == 384) return CALL(__half, 384);     \
   if (dtype == 2 && hidden == 512) return CALL(__half, 512);     \
-  MLT_DISPATCH_F32(CALL)
-// The CUDA-core backwards: the forwards' instances and bfloat16 at 384 and
-// 512.
-#define MLT_DISPATCH_BWD(CALL)                                   \
-  if (dtype == 1 && hidden == 384) return CALL(__nv_bfloat16, 384); \
-  if (dtype == 1 && hidden == 512) return CALL(__nv_bfloat16, 512); \
-  MLT_DISPATCH_FWD(CALL)
+  return -1
 
 extern "C" int mlt_gru_fwd(int dtype, int hidden, const void* xp,
                            const void* keep, const void* wh,
@@ -1155,7 +1286,7 @@ extern "C" int mlt_gru_fwd(int dtype, int hidden, const void* xp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MLT_FWD(T, H) \
   launch_fwd<T, H>(xp, keep, wh, bias_h, h0, ys, steps, n_rows, s)
-  MLT_DISPATCH_FWD(MLT_FWD);
+  MLT_DISPATCH_F32(MLT_FWD);
 #undef MLT_FWD
 }
 
@@ -1170,13 +1301,15 @@ extern "C" int mlt_gru_bwd(int dtype, int hidden, const void* xp,
 #define MLT_BWD(T, H)                                                       \
   launch_bwd<T, H>(xp, keep, wh, wh_t, bias_h, h0, ys, dys, dxp, dhp, dh0, \
                    part_w, part_b, dwh, db3, steps, n_rows, splits, s)
-  MLT_DISPATCH_BWD(MLT_BWD);
+  MLT_DISPATCH_F32(MLT_BWD);
 #undef MLT_BWD
 }
 
 // The tensor-core backward: bfloat16 (dtype 1) and float16 (dtype 2) at
-// H = 128 and 256. Returns a cudaError_t, or -1 for arguments without an
-// instantiation.
+// H = 128, 256, 384 and 512 (two-block clusters at 384 and 512), each with
+// kGruTcRows<H> rows a row tile (ops/cuda/gru.py:tc_rows). hp: null, or
+// the f32 [T, N, 3H] witness of the recomputed h_in . Wh. Returns a
+// cudaError_t, or -1 for arguments without an instantiation.
 extern "C" int mlt_gru_bwd_tc(int dtype, int hidden, int phases,
                               const void* xp, const void* keep,
                               const void* wh, const void* wh_t,
@@ -1184,40 +1317,38 @@ extern "C" int mlt_gru_bwd_tc(int dtype, int hidden, int phases,
                               const void* ys, const void* dys, void* dxp,
                               void* dhp, void* hin, void* dh0, void* part_w,
                               void* part_b, void* dwh, void* dbh, int steps,
-                              int n_rows, int splits, void* stream) {
+                              int n_rows, int splits, void* hp,
+                              void* stream) {
   if (static_cast<long long>(steps) * n_rows > 0x7fffffffLL) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MLT_BWD_TC(E, H)                                                   \
-  return launch_bwd_tc<E, H>(phases, xp, keep, wh, wh_t, bias_h, h0, ys,   \
-                             dys, dxp, dhp, hin, dh0, part_w, part_b, dwh, \
-                             dbh, steps, n_rows, splits, s)
-  if (dtype == 1 && hidden == 128) MLT_BWD_TC(bf16, 128);
-  if (dtype == 1 && hidden == 256) MLT_BWD_TC(bf16, 256);
-  if (dtype == 2 && hidden == 128) MLT_BWD_TC(__half, 128);
-  if (dtype == 2 && hidden == 256) MLT_BWD_TC(__half, 256);
+#define MLT_BWD_TC(E, H)                                                    \
+  launch_bwd_tc<E, H>(phases, xp, keep, wh, wh_t, bias_h, h0, ys, dys, dxp, \
+                      dhp, hin, dh0, part_w, part_b, dwh, dbh, steps,       \
+                      n_rows, splits, s, nullptr, 1, 0, 1, hp)
+  MLT_DISPATCH_TC(MLT_BWD_TC);
 #undef MLT_BWD_TC
-  return -1;
 }
 
 // The tensor-core forward, from Wh as it stands, at R rows a block and a
-// ring of at most `stages` slices: bfloat16 (dtype 1) at H = 128, 256, 384
-// and 512 (two-block clusters at 384 and 512), float16 (dtype 2) at 128
-// and 256, each with R = 32 and kGruFwdStages stages (the wrapper's,
-// ops/cuda/gru.py: FWD_TC_ROWS, FWD_TC_STAGES); bfloat16 also at H = 256
-// with R = 16, and 2 or 3 stages, and at 384 and 512 with the other ring
-// depths that fit, for chip_smoke.py's sweeps. Returns a cudaError_t, or
-// -1 for arguments without an instantiation.
+// ring of at most `stages` slices: bfloat16 (dtype 1) and float16 (dtype 2)
+// at H = 128, 256, 384 and 512 (two-block clusters at 384 and 512), each
+// with R = 32 and kGruFwdStages stages (the wrapper's, ops/cuda/gru.py:
+// FWD_TC_ROWS, FWD_TC_STAGES); bfloat16 also at H = 256 with R = 16, and 2
+// or 3 stages, and at 384 and 512 with the other ring depths that fit, for
+// chip_smoke.py's sweeps. hp: null, or the f32 [T, N, 3H] witness of the
+// products h . Wh (gru_fwd_tc_kernel). Returns a cudaError_t, or -1 for
+// arguments without an instantiation.
 extern "C" int mlt_gru_fwd_tc(int dtype, int hidden, int rows, int stages,
                               const void* xp, const void* keep,
                               const void* wh, const void* bias_h,
                               const void* h0, void* ys, int steps,
-                              int n_rows, void* stream) {
+                              int n_rows, void* hp, void* stream) {
   if (static_cast<long long>(steps) * n_rows > 0x7fffffffLL) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MLT_FWD_TC(E, H, R, S)                                          \
   if (hidden == H && rows == R && stages == S)                          \
   return launch_fwd_tc<E, H, R, S>(xp, keep, wh, bias_h, h0, ys, steps, \
-                                   n_rows, s)
+                                   n_rows, s, nullptr, 0, 0, 1, hp)
   if (dtype == 1) {
     MLT_FWD_TC(bf16, 128, 32, 4);
     MLT_FWD_TC(bf16, 256, 32, 4);
@@ -1233,6 +1364,8 @@ extern "C" int mlt_gru_fwd_tc(int dtype, int hidden, int rows, int stages,
   if (dtype == 2) {
     MLT_FWD_TC(__half, 128, 32, 4);
     MLT_FWD_TC(__half, 256, 32, 4);
+    MLT_FWD_TC(__half, 384, 32, 4);
+    MLT_FWD_TC(__half, 512, 32, 4);
   }
 #undef MLT_FWD_TC
   return -1;
@@ -1241,11 +1374,10 @@ extern "C" int mlt_gru_fwd_tc(int dtype, int hidden, int rows, int stages,
 // gru_sequence_fwd_chunked: the forward over [num_chunks * chunk] rows,
 // chunk c with the weights of policy chunk_policy[c] of the [num_policies,
 // H, 3H] / [num_policies, H] stacks (a chunk of no policy is skipped, its
-// rows NaN). tensor_core 1 takes the tensor-core kernel (bfloat16 at
-// every width, float16 at 128 and 256; R = 32 and kGruFwdStages stages:
-// the wrapper's FWD_TC_ROWS, FWD_TC_STAGES), 0 the CUDA-core one (float32;
-// float16 at 384 and 512). Returns a cudaError_t, or -1 for arguments
-// without an instantiation.
+// rows NaN). tensor_core 1 takes the tensor-core kernel (bfloat16 and
+// float16 at every width; R = 32 and kGruFwdStages stages: the wrapper's
+// FWD_TC_ROWS, FWD_TC_STAGES), 0 the CUDA-core one (float32). Returns a
+// cudaError_t, or -1 for arguments without an instantiation.
 extern "C" int mlt_gru_fwd_chunked(int tensor_core, int dtype, int hidden,
                                    const void* xp, const void* keep,
                                    const void* wh, const void* bias_h,
@@ -1261,22 +1393,16 @@ extern "C" int mlt_gru_fwd_chunked(int tensor_core, int dtype, int hidden,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tensor_core) {
 #define MLT_FWD_CHUNKED_TC(E, H)                                           \
-  return launch_fwd_tc<E, H, 32, kGruFwdStages>(                        \
-      xp, keep, wh, bias_h, h0, ys, steps, n_rows, s, chunk_policy,        \
-      num_chunks, chunk, num_policies)
-    if (dtype == 1 && hidden == 128) MLT_FWD_CHUNKED_TC(bf16, 128);
-    if (dtype == 1 && hidden == 256) MLT_FWD_CHUNKED_TC(bf16, 256);
-    if (dtype == 1 && hidden == 384) MLT_FWD_CHUNKED_TC(bf16, 384);
-    if (dtype == 1 && hidden == 512) MLT_FWD_CHUNKED_TC(bf16, 512);
-    if (dtype == 2 && hidden == 128) MLT_FWD_CHUNKED_TC(__half, 128);
-    if (dtype == 2 && hidden == 256) MLT_FWD_CHUNKED_TC(__half, 256);
+  launch_fwd_tc<E, H, 32, kGruFwdStages>(xp, keep, wh, bias_h, h0, ys,     \
+                                         steps, n_rows, s, chunk_policy,   \
+                                         num_chunks, chunk, num_policies)
+    MLT_DISPATCH_TC(MLT_FWD_CHUNKED_TC);
 #undef MLT_FWD_CHUNKED_TC
-    return -1;
   }
 #define MLT_FWD_CHUNKED(T, H)                                              \
   launch_fwd<T, H>(xp, keep, wh, bias_h, h0, ys, steps, n_rows, s,          \
                    chunk_policy, num_chunks, chunk, num_policies)
-  MLT_DISPATCH_FWD(MLT_FWD_CHUNKED);
+  MLT_DISPATCH_F32(MLT_FWD_CHUNKED);
 #undef MLT_FWD_CHUNKED
 }
 
@@ -1288,13 +1414,13 @@ extern "C" int mlt_gru_fwd_chunked(int tensor_core, int dtype, int hidden,
 // weights (a chunk of no policy: NaN rows), and dwh [num_policies, H, 3H]
 // and db, a policy's summed over its chunks' `splits` partials each (0 for
 // a policy without a chunk). tensor_core 1 takes the tensor-core recurrence
-// and weight-gradient pass (bfloat16 and float16 at H = 128 and 256; hin:
+// and weight-gradient pass (bfloat16 and float16 at every width; hin:
 // [T, N, H] scratch; part_w [num_chunks * splits, H, 3H], part_b
-// [num_chunks * ceil(chunk / 32), H]; db is dbh [num_policies, H]), 0 the
-// CUDA-core kernels (float32; every dtype at H = 384 and 512; hin
-// unused; part_w and part_b [num_chunks * splits, ...]; db is db3
-// [num_policies, 3H], whose last H columns are dbh). Returns a
-// cudaError_t, or -1 for arguments without an instantiation.
+// [num_chunks * ceil(chunk / kGruTcRows<H>), H]; db is dbh [num_policies,
+// H]), 0 the CUDA-core kernels (float32; hin unused; part_w and part_b
+// [num_chunks * splits, ...]; db is db3 [num_policies, 3H], whose last H
+// columns are dbh). Returns a cudaError_t, or -1 for arguments without an
+// instantiation.
 extern "C" int mlt_gru_bwd_chunked(
     int tensor_core, int dtype, int hidden, const void* xp, const void* keep,
     const void* wh, const void* wh_t, const void* bias_h,
@@ -1310,25 +1436,20 @@ extern "C" int mlt_gru_bwd_chunked(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tensor_core) {
 #define MLT_BWD_CHUNKED_TC(E, H)                                            \
-  return launch_bwd_tc<E, H>(3, xp, keep, wh, wh_t, bias_h, h0, ys, dys,    \
-                             dxp, dhp, hin, dh0, part_w, part_b, dwh, db,   \
-                             steps, n_rows, splits, s, chunk_policy,        \
-                             num_chunks, chunk, num_policies)
-    if (dtype == 1 && hidden == 128) MLT_BWD_CHUNKED_TC(bf16, 128);
-    if (dtype == 1 && hidden == 256) MLT_BWD_CHUNKED_TC(bf16, 256);
-    if (dtype == 2 && hidden == 128) MLT_BWD_CHUNKED_TC(__half, 128);
-    if (dtype == 2 && hidden == 256) MLT_BWD_CHUNKED_TC(__half, 256);
+  launch_bwd_tc<E, H>(3, xp, keep, wh, wh_t, bias_h, h0, ys, dys, dxp, dhp, \
+                      hin, dh0, part_w, part_b, dwh, db, steps, n_rows,     \
+                      splits, s, chunk_policy, num_chunks, chunk,           \
+                      num_policies)
+    MLT_DISPATCH_TC(MLT_BWD_CHUNKED_TC);
 #undef MLT_BWD_CHUNKED_TC
-    return -1;
   }
 #define MLT_BWD_CHUNKED(T, H)                                              \
   launch_bwd<T, H>(xp, keep, wh, wh_t, bias_h, h0, ys, dys, dxp, dhp, dh0,  \
                    part_w, part_b, dwh, db, steps, n_rows, splits, s,       \
                    chunk_policy, num_chunks, chunk, num_policies)
-  MLT_DISPATCH_BWD(MLT_BWD_CHUNKED);
+  MLT_DISPATCH_F32(MLT_BWD_CHUNKED);
 #undef MLT_BWD_CHUNKED
 }
 
-#undef MLT_DISPATCH_BWD
-#undef MLT_DISPATCH_FWD
+#undef MLT_DISPATCH_TC
 #undef MLT_DISPATCH_F32

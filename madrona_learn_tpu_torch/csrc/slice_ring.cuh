@@ -36,7 +36,7 @@ constexpr int kSmemLimit = 232448;   // shared memory a block can use
 constexpr int min_c(int a, int b) { return a < b ? a : b; }
 
 // Blocks of a cluster that split the units of the tensor-core recurrences
-// (kSplit), lstm.cu's forward and backward and gru.cu's forward: one at
+// (kSplit), lstm.cu's and gru.cu's forwards and backwards: one at
 // H = 128 and 256; two at H = 384 and 512 (lstm.cu, "Wider layers", at
 // its dispatch), each owning H / 2 units of the same rows.
 template <int H>

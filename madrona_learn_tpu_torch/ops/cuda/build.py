@@ -178,8 +178,8 @@ _SIGNATURES = {
     # stream
     "mlt_lstm_bwd_tc": [_I] * 4 + [_P] * 21 + [_I] * 3 + [_P],
     # dtype, H, phases, xp, keep, wh, wh_t, bias_h, h0, ys, dys, dxp, dhp,
-    # hin, dh0, part_w, part_b, dwh, dbh, T, N, splits, stream
-    "mlt_gru_bwd_tc": [_I] * 3 + [_P] * 16 + [_I] * 3 + [_P],
+    # hin, dh0, part_w, part_b, dwh, dbh, T, N, splits, hp, stream
+    "mlt_gru_bwd_tc": [_I] * 3 + [_P] * 16 + [_I] * 3 + [_P] * 2,
     # dtype, H, F, x, keep, wi, wr, bias, c0, h0, ys, cs, T, N, stream
     "mlt_lstm_fwd_tc": [_I] * 3 + [_P] * 9 + [_I] * 2 + [_P],
     # tensor_core, dtype, H, xp, keep, wr, bias, chunk_policy, c0, h0, ys,
@@ -189,8 +189,8 @@ _SIGNATURES = {
     # ys, cs, dys, dxp, hin, dh0, dc0, part_w, part_b, dwr, db, T, chunks,
     # C, P, splits a chunk, stream
     "mlt_lstm_bwd_chunked": [_I] * 3 + [_P] * 19 + [_I] * 5 + [_P],
-    # dtype, H, R, stages, xp, keep, wh, bias_h, h0, ys, T, N, stream
-    "mlt_gru_fwd_tc": [_I] * 4 + [_P] * 6 + [_I] * 2 + [_P],
+    # dtype, H, R, stages, xp, keep, wh, bias_h, h0, ys, T, N, hp, stream
+    "mlt_gru_fwd_tc": [_I] * 4 + [_P] * 6 + [_I] * 2 + [_P] * 2,
     # tensor_core, dtype, H, xp, keep, wh, bias_h, chunk_policy, h0, ys, T,
     # chunks, C, P, stream
     "mlt_gru_fwd_chunked": [_I] * 3 + [_P] * 7 + [_I] * 4 + [_P],

@@ -19,34 +19,30 @@ to the plain twins, on the card too, as JAX routes it to its jnp twin; the
 wrappers raise on operands no kernel takes (a multiple of 128 past 512
 among them).
 
-Two paths for each kernel, picked from the dtype and H alone by
-:func:`fwd_uses_tensor_cores` (the forward, its chunk-indexed instance
-and the rollout steps that run them) and :func:`bwd_uses_tensor_cores`
-(the backward and its chunk-indexed instance); no fallback: the kernel a
-call is routed to runs or raises:
+Two paths for each kernel, picked from the dtype and H alone by one
+rule, :func:`bwd_uses_tensor_cores` (``fwd_uses_tensor_cores`` is the
+same function): the forward, the backward, their chunk-indexed instances
+and the rollout steps that run them; no fallback: the kernel a call is
+routed to runs or raises:
 
-- bfloat16, and float16 at H = 128 or 256: the recurrences on Hopper's
+- bfloat16 and float16, at every width: the recurrences on Hopper's
   warpgroup tensor cores (``wgmma``, bf16 or f16 operands, f32
   accumulators). The forward reads Wh as it stands through a TMA ring,
-  :data:`FWD_TC_ROWS` batch rows a block (at H = 384 and 512, in bf16,
-  the units split over a cluster of two blocks, as the LSTM's forward);
-  the backward, at 128 and 256, streams Wh^T and Wh the same way,
-  :data:`TC_ROWS` rows a block, then takes dWh as a split-K ``wgmma``
-  product over the T * N rows (``csrc/weight_grad_tc.cuh``). Both are
-  bound by streaming Wh from L2. An operand off a 16-byte boundary is
-  copied onto one first. Float16 is the port's own route (JAX sends it
-  to its jnp twin): f16 operands, ys, dxp, dhp, dh0, dWh and dbh rounded
-  once to float16, as the CUDA-core kernels and the plain twin round
-  them. The forward and the backward's recompute share one product, so
-  the backward differentiates the forward that ran and the rollout step
-  is the update pass's step bitwise;
-- float32, whose products tensor cores would round, float16 at H = 384
-  and 512, and the bfloat16 backward there (one block would need H / 64
-  warpgroups, ``csrc/lstm.cu``, "Wider layers"; its cluster is not built
-  for the GRU backward yet): the CUDA-core kernels (the backward with the
-  split-M pass of ``csrc/weight_grad.cuh``), bound by f32 FMA issue. The
-  bf16 backward at 384 and 512 therefore recomputes h . Wh in another sum
-  order than the tensor-core forward that wrote ys.
+  :data:`FWD_TC_ROWS` batch rows a block; the backward streams Wh^T and
+  Wh the same way, :func:`tc_rows` rows a block, then takes dWh as a
+  split-K ``wgmma`` product over the T * N rows
+  (``csrc/weight_grad_tc.cuh``). At H = 384 and 512 both split the units
+  over a cluster of two blocks, as the LSTM's do. Both are bound by
+  streaming Wh from L2. An operand off a 16-byte boundary is copied onto
+  one first. Float16 is the port's own route (JAX sends it to its jnp
+  twin): f16 operands, ys, dxp, dhp, dh0, dWh and dbh rounded once to
+  float16, as the CUDA-core kernels and the plain twin round them. The
+  forward and the backward's recompute share one product in one slice
+  order at every width, so the backward differentiates the forward that
+  ran and the rollout step is the update pass's step bitwise;
+- float32, whose products tensor cores would round: the CUDA-core kernels
+  (the backward with the split-M pass of ``csrc/weight_grad.cuh``), bound
+  by f32 FMA issue.
 
 Contract (all operands in the storage dtype, float32, bfloat16 or
 float16):
@@ -119,15 +115,13 @@ GRU_BWD_CHUNKED = Kernel(
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# The widths the kernels are built for (every dtype), and those of the
-# single-block tensor-core instances (bfloat16 and float16).
+# The widths the kernels are built for, in every dtype.
 _HIDDEN_SIZES = (128, 256, 384, 512)
-_TC_HIDDEN_SIZES = (128, 256)
 _check = functools.partial(check_operand, "gru kernel")
 
-# Batch rows a block of the tensor-core backward owns (kGruTcRows in
-# csrc/gru.cu), which sets the count of its per-block dbh partials.
-TC_ROWS = 32
+# Batch rows a row tile of the tensor-core backward owns at each width
+# (kGruTcRows<H> in csrc/gru.cu), which sets the count of its dbh partials.
+_TC_ROWS = {128: 32, 256: 32, 384: 32, 512: 16}
 # Batch rows a block of the tensor-core forward owns, and the stages of its
 # weight ring (gru_fwd_tc_kernel's template arguments, kGruFwdStages in
 # csrc/gru.cu; it also builds R = 16, and 2 or 3 stages, at H = 256, and
@@ -140,8 +134,8 @@ def gru_supported(hidden, dtype):
     """Whether the kernels serve this layer shape: true exactly for the
     (H, dtype) pairs with a kernel instance. In float32 and bfloat16 that
     is JAX's gate (``ops/pallas/gru.py:47``, ``H % 128 == 0``) for H up to
-    512; float16 too, where JAX takes its jnp twin (on tensor cores at 128
-    and 256, on CUDA cores at 384 and 512)."""
+    512; float16 too, where JAX takes its jnp twin (on tensor cores at
+    every width)."""
     return hidden in _HIDDEN_SIZES and dtype in _DTYPE_CODES
 
 
@@ -156,25 +150,26 @@ def gru_kernel_route(hidden, dtype):
     return hidden % 128 == 0 and dtype in _DTYPE_CODES
 
 
-def fwd_uses_tensor_cores(dtype, hidden):
-    """The path rule of the forward and its chunk-indexed instance (and so
-    of ``gru_step`` / ``gru_step_chunked``): the backward's rule, so that
-    the backward recomputes the forward that ran and the rollout step is
-    the update pass's step, and bfloat16 at H = 384 and 512 too (a cluster
-    of two blocks): those take the tensor-core kernel (``wgmma``);
-    float32, whose products tensor cores would round, and float16 at 384
-    and 512, the CUDA-core one."""
-    return bwd_uses_tensor_cores(dtype, hidden) or (
-        dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES)
+def tc_rows(hidden):
+    """Batch rows a row tile of the tensor-core backward owns at width
+    ``hidden`` (a block's, or at H = 384 and 512 a cluster's)."""
+    return _TC_ROWS[hidden]
 
 
 def bwd_uses_tensor_cores(dtype, hidden):
-    """The path rule of the backward and its chunk-indexed instance:
-    bfloat16 and float16 with H in (128, 256) take the tensor-core kernel
-    (bf16 or f16 ``wgmma``); float32, whose products tensor cores would
-    round, and every dtype at H = 384 and 512, the CUDA-core one."""
+    """The path rule of the GRU kernels, one for the backward and the
+    forward (``fwd_uses_tensor_cores`` is this function), their
+    chunk-indexed instances and so ``gru_step`` / ``gru_step_chunked``, so
+    that the backward recomputes the forward that ran and the rollout step
+    is the update pass's step: bfloat16 and float16 at every width the
+    kernels take the tensor-core kernels (bf16 or f16 ``wgmma``; a cluster
+    of two blocks at H = 384 and 512); float32, whose products tensor
+    cores would round, the CUDA-core ones."""
     return (dtype in (torch.bfloat16, torch.float16)
-            and hidden in _TC_HIDDEN_SIZES)
+            and hidden in _HIDDEN_SIZES)
+
+
+fwd_uses_tensor_cores = bwd_uses_tensor_cores
 
 
 def _cell(x_proj_t, wh32, bh32, h):
@@ -278,10 +273,11 @@ def _check_inputs(x_proj, keep, wh, bias_h, h0):
 
 
 def _fwd_tc(x_proj, keep, wh, bias_h, h0, rows=FWD_TC_ROWS,
-            stages=FWD_TC_STAGES, out=None):
+            stages=FWD_TC_STAGES, out=None, hp=None):
     """The tensor-core forward (bfloat16 or float16) at ``rows`` batch rows
     a block and a ring of ``stages`` weight slices: ys [T, N, H], into
-    ``out`` where given."""
+    ``out`` where given; each step's h . Wh into ``hp`` (f32 [T, N, 3H])
+    where given."""
     steps, n, g3 = x_proj.shape
     hidden = g3 // 3
     # x_proj and h0 arrive by 16-byte copies, Wh by TMA.
@@ -292,7 +288,8 @@ def _fwd_tc(x_proj, keep, wh, bias_h, h0, rows=FWD_TC_ROWS,
         _DTYPE_CODES[x_proj.dtype], hidden, rows, stages,
         x_proj.data_ptr(), keep.data_ptr(),
         wh.data_ptr(), bias_h.data_ptr(), h0.data_ptr(), ys.data_ptr(),
-        steps, n, torch.cuda.current_stream(x_proj.device).cuda_stream)
+        steps, n, None if hp is None else hp.data_ptr(),
+        torch.cuda.current_stream(x_proj.device).cuda_stream)
     check(err, "gru_sequence_fwd")
     return ys
 
@@ -335,15 +332,17 @@ def _bwd_tc_buffers(x_proj):
         dhp=empty(steps, n, g3), hin=empty(steps, n, hidden),
         dh0=empty(n, hidden),
         part_w=empty(splits, hidden, g3, dt=torch.float32),
-        part_b=empty(-(-n // TC_ROWS), hidden, dt=torch.float32),
+        part_b=empty(-(-n // tc_rows(hidden)), hidden, dt=torch.float32),
         dw=empty(hidden, g3), db=empty(hidden))
 
 
 def _bwd_tc(x_proj, keep, wh, bias_h, h0, ys, dys, *, phases=3,
-            buffers=None):
+            buffers=None, hp=None):
     """The tensor-core backward (bfloat16 or float16) in its two passes,
     phases bit 0 the recurrence and bit 1 the weight gradients; the
-    buffers of :func:`_bwd_tc_buffers`, filled."""
+    buffers of :func:`_bwd_tc_buffers`, filled. ``hp`` (f32 [T, N, 3H]),
+    where given, receives the recurrence's recomputed h_in . Wh: bitwise
+    what :func:`_fwd_tc` writes to its ``hp`` from the same carry."""
     steps, n, g3 = x_proj.shape
     x_proj, keep, bias_h, h0, ys, dys = map(
         on_16_bytes, (x_proj, keep, bias_h, h0, ys, dys))
@@ -358,6 +357,7 @@ def _bwd_tc(x_proj, keep, wh, bias_h, h0, ys, dys, *, phases=3,
         b["dhp"].data_ptr(), b["hin"].data_ptr(), b["dh0"].data_ptr(),
         b["part_w"].data_ptr(), b["part_b"].data_ptr(), b["dw"].data_ptr(),
         b["db"].data_ptr(), steps, n, b["splits"],
+        None if hp is None else hp.data_ptr(),
         torch.cuda.current_stream(x_proj.device).cuda_stream)
     check(err, "gru_sequence_bwd")
     return b
@@ -544,7 +544,8 @@ def gru_sequence_bwd_chunked(x_proj, keep, wh, bias_h, chunk_policy, h0,
             on_16_bytes, (x_proj, keep, wh, bias_h, h0, ys, dys))
         splits = _num_splits_tc(steps * C, hidden, hidden, num_sms, gates=3)
         hin = empty(steps, n, hidden)
-        part_b = empty(B * -(-C // TC_ROWS), hidden, dt=torch.float32)
+        part_b = empty(B * -(-C // tc_rows(hidden)), hidden,
+                       dt=torch.float32)
         db = empty(P, hidden)
     else:
         splits = _num_splits(steps, C, hidden, num_sms, gates=3)

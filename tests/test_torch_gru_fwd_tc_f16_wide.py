@@ -21,9 +21,10 @@ type. Held here:
   is the single-policy row; chunks of no policy NaN;
 - the float16 backward's recomputed h . Wh bitwise the forward's, now
   that both run on f16 ``wgmma`` through one helper;
-- the wrappers' routes on a stand-in library: float16 at 128 / 256 and
-  bf16 at 384 / 512 on the tensor-core entry points with their dtype
-  codes, float32 and float16 at 384 / 512 on the CUDA-core ones.
+- the wrappers' routes on a stand-in library: float16 and bf16 at every
+  width on the tensor-core entry points with their dtype codes (the
+  float16 instances at 384 / 512 in the cluster too), float32 on the
+  CUDA-core ones.
 
 All at T <= 4 and N <= 70 (ragged against the kernel's 32 rows a block).
 """
@@ -244,7 +245,7 @@ class _Lib:
     (F16, 128, True), (F16, 256, True),      # f16 wgmma
     (BF16, 384, True), (BF16, 512, True),    # the two-block cluster
     (F32, 384, False), (F32, 512, False),    # CUDA cores
-    (F16, 384, False), (F16, 512, False),
+    (F16, 384, True), (F16, 512, True),      # f16 in the cluster
 ])
 def test_gru_fwd_routes(monkeypatch, dtype, H, tensor_core):
     """``gru_sequence_fwd`` and its chunk-indexed instance (which the

@@ -13,7 +13,9 @@ and dxp = [dr_pre, dz_pre, dn_pre] rounded to bf16, dhp rounded before
 ``dh_prev = dhp . Wh^T + dh_total * z``; dWh = h_in^T . dhp as f32 partials
 over splits of the T * N rows (a multiple of 64 each), summed in split
 order, and dbh as per-block partials of dhp's n slice over R rows, summed
-in block order. It is held
+in block order. At H = 384 and 512 the kernel splits the units over a
+cluster of two blocks, which the emulation follows rank by rank. It is
+held
 
 - against ``gru_sequence_reference``'s autograd gradients under the chip
   check's bf16 rule (chip_smoke.py ``TOL[("gru_bwd", "bfloat16")]``:
@@ -35,11 +37,11 @@ import torch
 from madrona_learn_tpu.ops.pallas.gru import gru_sequence as jax_gru_seq
 from madrona_learn_tpu_torch.ops.cuda import KERNELS
 from madrona_learn_tpu_torch.ops.cuda.gru import (
-    TC_ROWS,
     _cell,
     bwd_uses_tensor_cores,
     gru_sequence_bwd,
     gru_sequence_reference,
+    tc_rows,
 )
 from madrona_learn_tpu_torch.ops.cuda.lstm import _num_splits_tc
 from test_torch_gru_fwd_tc_numerics import _slices
@@ -98,16 +100,30 @@ def _forward_states(x_proj, keep, wh, bias_h, h0):
 
 
 def emulate_tc_bwd(x_proj, keep, wh, bias_h, h0, ys, dys, sms=H100_SMS,
-                   rows=TC_ROWS, hps=None):
+                   rows=None, hps=None, state=None):
     """The tensor-core backward's arithmetic: (dxp, dwh, dbh, dh0), each in
     the operands' element type (bf16, or float16: the f16 ``wgmma``
-    instance). The recomputed h_in . Wh is the forward's product
+    instance), at ``rows`` rows a row tile (``tc_rows`` by default). The
+    recomputed h_in . Wh is the forward's product
     (``test_torch_gru_fwd_tc_numerics._slices``, the helper both kernels
-    share); ``hps``, where given, is a list that receives it [N, 3H] (f32)
-    step by step, in reverse step order."""
+    share). At H = 384 and 512 rank r of the two-block cluster owns units
+    r H / 2 .. of each gate: it recomputes their h_in . Wh over all H (the
+    forward's slices), and dh_prev of its units over all 3H columns of
+    dhp, both blocks'. ``hps``, where given, is a list that receives the
+    recomputed product [N, 3H] (f32) step by step, in reverse step order;
+    ``state``, a dict that receives the rounded dhp ``dhp`` [T, N, 3H],
+    ``hin`` [T, N, H] as each step used it and the dbh partials of the row
+    tiles ``db_blocks`` (f32, in tile order)."""
     dt = x_proj.dtype
     T, N, G3 = x_proj.shape
     H = G3 // 3
+    rows = tc_rows(H) if rows is None else rows
+    ranks = 2 if H > 256 else 1
+    U = H // ranks
+    # Rank r's columns of the 3H gates, and its rows of Wh (its units).
+    cols = [torch.cat([torch.arange(g * H + r * U, g * H + (r + 1) * U)
+                       for g in range(3)]) for r in range(ranks)]
+    units = [slice(r * U, (r + 1) * U) for r in range(ranks)]
     bh = bias_h.float()
     dh = torch.zeros(N, H, dtype=F32)
     zero = torch.zeros((), dtype=dt)
@@ -121,7 +137,9 @@ def emulate_tc_bwd(x_proj, keep, wh, bias_h, h0, ys, dys, sms=H100_SMS,
             kept = keep[t - 1][:, None] > 0.5
             h_in = torch.where(kept, ys[t - 1], zero)
         hins[t] = h_in
-        hp = _slices(h_in, wh)
+        hp = torch.empty(N, G3, dtype=F32)
+        for c in cols:
+            hp[:, c] = _slices(h_in, wh[:, c])
         if hps is not None:
             hps.append(hp)
         xp = x_proj[t].float()
@@ -135,7 +153,8 @@ def emulate_tc_bwd(x_proj, keep, wh, bias_h, h0, ys, dys, sms=H100_SMS,
         dr_pre = dn_pre * hn_lin * r * (1 - r)
         dxps[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1).to(dt)
         dhps[t] = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=-1).to(dt)
-        dh_prev = _chunked(dhps[t], wh.t()) + dh_total * z
+        dh_prev = torch.cat([_chunked(dhps[t], wh[u].t()) for u in units],
+                            dim=1) + dh_total * z
         if t == 0:
             dh0 = dh_prev.to(dt)
         dh = torch.where(kept, dh_prev, torch.zeros(()))
@@ -155,11 +174,16 @@ def emulate_tc_bwd(x_proj, keep, wh, bias_h, h0, ys, dys, sms=H100_SMS,
         dw = dw + part
     dn_slices = torch.stack(dhps).float()[..., 2 * H:]   # [T, N, H]
     db = torch.zeros(H, dtype=F32)
+    blocks = []
     for n0 in range(0, N, rows):
         block = torch.zeros(H, dtype=F32)
         for t in reversed(range(T)):
             block = block + dn_slices[t, n0:n0 + rows].sum(0)
+        blocks.append(block)
         db = db + block
+    if state is not None:
+        state.update(dhp=torch.stack(dhps), hin=torch.stack(hins),
+                     db_blocks=blocks)
     return torch.stack(dxps), dw.to(dt), db.to(dt), dh0
 
 
@@ -222,7 +246,7 @@ def test_tc_gru_weight_gradients_do_not_depend_on_the_split_count():
     contract; dbh does not depend on R's blocks either."""
     args, probe = _inputs(60, 4, 70, 128)
     one = _emulated(args, probe, sms=1, rows=16)
-    many = _emulated(args, probe, sms=H100_SMS, rows=TC_ROWS)
+    many = _emulated(args, probe, sms=H100_SMS, rows=tc_rows(128))
     _check(many, one, "splits")
     assert torch.equal(many[0], one[0]) and torch.equal(many[3], one[3])
 
@@ -231,12 +255,12 @@ def test_tc_gru_weight_gradients_do_not_depend_on_the_split_count():
     (BF16, 256, True),      # the headline_gru update minibatch
     (BF16, 128, True),
     (BF16, 192, False),     # no kernel at this width
-    (BF16, 384, False),
+    (BF16, 384, True),      # the two-block cluster
     (F32, 256, False),      # float32 stays on CUDA cores
     (F32, 128, False),
     (torch.float16, 256, True),    # headline_gru_fp16's f16 wgmma
     (torch.float16, 128, True),
-    (torch.float16, 384, False),
+    (torch.float16, 384, True),    # f16 in the cluster
 ])
 def test_gru_bwd_path_rule(dtype, H, tensor_core):
     """The route depends on dtype and H alone."""

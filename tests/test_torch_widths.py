@@ -13,16 +13,16 @@ and the fused step are built at H = 128 and 256 alone: their gates refuse
 wider layers, which then take the unfused sequence kernels.
 
 - The gates against JAX's for H in {32, 64, 96, 128, 256, 384, 512} and
-  each dtype (float16: the port's own choice, the kernels' CUDA-core
-  instances); the modules' routes (the step, the sequence and both
+  each dtype (float16: the port's own choice); the modules' routes (the step, the sequence and both
   policy-batched forms) against JAX's gate up to H = 640, read by
   recording which of the kernel wrappers and twins each form calls.
 - The chunked twins' card form (one gathered batched product a step, no
   host sync) against their CPU form (a loop over the chunks).
 - The wrappers' operand checks take H = 384 and 512 in every dtype, and
   their launches go to the CUDA-core entry points (a stand-in library),
-  but for the bfloat16 LSTM forwards and backwards, which take their
-  tensor-core ones; a width without an instance is refused.
+  but for the bfloat16 LSTM and the bfloat16 and float16 GRU forwards and
+  backwards, which take their tensor-core ones; a width without an
+  instance is refused.
 - An H = 96 GRU and an H = 384 LSTM (float32), carried over from flax
   (``compat/from_jax.py``): the rollout step and the sequence against the
   JAX module, the chunked step and the batched sequence against
@@ -90,7 +90,7 @@ INSTANCES = (128, 256, 384, 512)
 def test_gates_are_jaxs(H, dtype):
     """The recurrences' gates equal JAX's in float32 and bfloat16 (true
     where H % 128 == 0); in float16, where JAX takes its twin, they are
-    true at the kernels' widths (the CUDA-core float16 instances). The
+    true at the kernels' widths (the float16 instances). The
     projection kernels' and the fused step's gates are JAX's at H = 128
     and 256 and refuse wider layers, whose instances are not built."""
     tdt, jdt = DTYPES[dtype]
@@ -106,17 +106,17 @@ def test_gates_are_jaxs(H, dtype):
             H in (128, 256)
             and bool(jax_policy_step_supported(H, f_in, jdt)))
     # bfloat16 takes tensor cores where the wgmma instances are built: the
-    # LSTM forwards and backwards and the GRU forwards at every instance's
-    # width, the projection and the GRU backwards at 128 and 256; float16
-    # the LSTM and GRU forwards and backwards at 128 and 256.
+    # LSTM and GRU forwards and backwards at every instance's width, the
+    # projection at 128 and 256; float16 the GRU forwards and backwards at
+    # every instance's width, the LSTM's at 128 and 256.
     lstm_tc = ((tdt == BF16 and H in INSTANCES)
                or (tdt == F16 and H in (128, 256)))
+    gru_tc = tdt in (BF16, F16) and H in INSTANCES
     assert fwd_uses_tensor_cores(tdt, H) is lstm_tc
     assert bwd_uses_tensor_cores(tdt, H) is lstm_tc
     assert uses_tensor_cores(tdt, H) is (tdt == BF16 and H in (128, 256))
-    assert gru_mod.fwd_uses_tensor_cores(tdt, H) is lstm_tc
-    assert gru_mod.bwd_uses_tensor_cores(tdt, H) is (
-        tdt in (BF16, F16) and H in (128, 256))
+    assert gru_mod.fwd_uses_tensor_cores(tdt, H) is gru_tc
+    assert gru_mod.bwd_uses_tensor_cores(tdt, H) is gru_tc
 
 
 class _Recorder:
@@ -331,14 +331,14 @@ class _Lib:
 def test_wide_launches_take_the_cuda_core_entry_points(monkeypatch, H,
                                                        dtype):
     """At H = 384 and 512 each of the eight wrappers launches its
-    CUDA-core entry point with the tensor's dtype code (bfloat16 1: the
-    bf16 CUDA-core instance) and counts the launch, none on tensor cores;
-    but in bfloat16 the four LSTM wrappers and the two GRU forwards, which
-    launch their tensor-core entry points (the two-block cluster; the
-    chunk-indexed ones with tensor_core 1, the single-policy ones with
-    dtype code 1) and count a tensor-core launch each. The operands stand
-    on the CPU here: the library, the operand check, the SM count and the
-    stream are stand-ins."""
+    CUDA-core entry point with the tensor's dtype code and counts the
+    launch, none on tensor cores; but the four LSTM wrappers in bfloat16
+    and the four GRU wrappers in bfloat16 and float16 launch their
+    tensor-core entry points (the two-block cluster; the chunk-indexed
+    ones with tensor_core 1, the single-policy ones with the dtype code)
+    and count a tensor-core launch each. The operands stand on the CPU
+    here: the library, the operand check, the SM count and the stream are
+    stand-ins."""
     tdt = DTYPES[dtype][0]
     code = {F32: 0, BF16: 1, F16: 2}[tdt]
     lib = _Lib()
@@ -383,16 +383,20 @@ def test_wide_launches_take_the_cuda_core_entry_points(monkeypatch, H,
                                      z(P, H, 3 * H), z(P, H), idx, z(N, H),
                                      seq, seq)
     tc_lstm = tdt == BF16
-    tc_names = (("lstm_sequence_fwd", "lstm_sequence_bwd",
-                 "lstm_sequence_fwd_chunked", "lstm_sequence_bwd_chunked",
-                 "gru_sequence_fwd", "gru_sequence_fwd_chunked")
-                if tc_lstm else ())
+    tc_gru = tdt in (BF16, F16)
+    tc_names = ((("lstm_sequence_fwd", "lstm_sequence_bwd",
+                  "lstm_sequence_fwd_chunked", "lstm_sequence_bwd_chunked")
+                 if tc_lstm else ())
+                + (("gru_sequence_fwd", "gru_sequence_bwd",
+                    "gru_sequence_fwd_chunked", "gru_sequence_bwd_chunked")
+                   if tc_gru else ()))
     assert [c[0] for c in lib.calls] == [
         "mlt_lstm_fwd_tc" if tc_lstm else "mlt_lstm_fwd",
         "mlt_lstm_bwd_tc" if tc_lstm else "mlt_lstm_bwd",
         "mlt_lstm_fwd_chunked", "mlt_lstm_bwd_chunked",
-        "mlt_gru_fwd_tc" if tc_lstm else "mlt_gru_fwd",
-        "mlt_gru_bwd", "mlt_gru_fwd_chunked", "mlt_gru_bwd_chunked"]
+        "mlt_gru_fwd_tc" if tc_gru else "mlt_gru_fwd",
+        "mlt_gru_bwd_tc" if tc_gru else "mlt_gru_bwd",
+        "mlt_gru_fwd_chunked", "mlt_gru_bwd_chunked"]
     for (name, args), kernel in zip(lib.calls, names):
         if name in ("mlt_lstm_fwd_tc", "mlt_lstm_bwd_tc"):
             assert args[:3] == (code, H, 0), name   # (dtype, hidden, f_in)

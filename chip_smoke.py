@@ -45,9 +45,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    the forwards the rollout step) are checked,
    forward and backward, and timed at
    headline_fp16's and headline_gru_fp16's update minibatch and rollout
-   step, with their bounds at 2 bytes an element; the GRU forward is also
-   timed at each rows-a-block and ring-depth pair it is built for (at 256
-   here, at 384 and 512 in the chunk-indexed checks); ``gae`` must equal its plain
+   step, with their bounds at 2 bytes an element; ``gae`` must equal its plain
    version bitwise at four shapes and on the columns two calls share, and
    is timed at each steps-a-chunk and columns-a-block pair it is built
    for; ``layer_norm_fwd``'s y and ``layer_norm_bwd``'s dx at N = 131072
@@ -107,14 +105,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``kernels`` line's ``float16`` entries); and the same four checks of
    the chunk-indexed recurrences again at H = 384 and 512 (CUDA cores in
    every dtype but the bf16 LSTM kernels' and GRU forward's two-block
-   clusters on tensor cores; the GRU forward's ring depths swept), with
+   clusters on tensor cores), with
    infer_512's step and the learn step for the LSTM forward:
    every check
    above at those widths (batch invariance, bitwise rows, a one-chunk
    policy's dW / db bitwise the single-policy kernel's on CUDA cores, the
    forwards' T = 1 steps bitwise their sequence's steps at every width),
    and the single-policy kernels at those widths against their twins,
-   timed (the ``kernels`` line's ``wide`` entries); and
+   timed (the ``kernels`` line's ``wide`` entries); the fused trunk's
+   checks above again at H = 384 and 512 (bf16 on the two-block
+   clusters, f32 on CUDA cores; the projection also at F = 128 and 4H),
+   with the single-policy step and projection kernels against their
+   twins, their bitwise checks and the projection's product witness
+   (``_lstm_proj_witness``: the backward's recomputed round(x . Wi) and
+   round(x . Wi) + h . Wr bitwise the forward's); and
    ``layer_norm_fwd_chunked`` / ``_bwd_chunked`` at
    headline_pbt_lnkernel's collect and learn rows and at ragged chunks:
    against the twin, every row (y, mu, rsigma, dx) bitwise one
@@ -299,7 +303,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     with the model at 512 channels (headline_pbt_512: headline_pbt's
     launches, 37 / 4 / 164 / 1, the LSTM forward on its 512-wide
     tensor-core instance and the backward on its CUDA-core one, 2 timed
-    updates, the learn A/B), at 32 (headline_pbt_h32: no recurrent
+    updates, the learn A/B), with the fused trunk at 512
+    (headline_pbt_fused_512: headline_pbt_fused's launches, 33 / 4 / 4 /
+    65 / 1, every fused step and projection launch on its two-block
+    cluster, 1 timed update, its collect and learn printed against
+    headline_pbt_512's), at 32 (headline_pbt_h32: no recurrent
     kernel, the LSTM on its plain twins as JAX takes its jnp twin, on the
     card one gathered batched product a step over the chunks,
     ``grouped_matmul`` 164, ``gae`` 1; one collect step and one learn pass
@@ -831,9 +839,10 @@ def _tc_bwd_timing(name, results, x, keep, wi, wr, bias, c0, h0, ys, cs,
     run(3)
     split = dict(recurrence_ms=time_ms(lambda: run(1)),
                  weight_grad_ms=time_ms(lambda: run(2)))
-    log(f"  {name} tensor-core split (R = {tc_rows(wi is not None)} rows a "
-        f"block): recurrence {split['recurrence_ms']:.3f} ms, weight "
-        f"gradients {split['weight_grad_ms']:.3f} ms")
+    rows = tc_rows(wi is not None, wr.shape[0])
+    log(f"  {name} tensor-core split (R = {rows} rows a block): recurrence "
+        f"{split['recurrence_ms']:.3f} ms, weight gradients "
+        f"{split['weight_grad_ms']:.3f} ms")
     results.update(split)
 
 
@@ -1527,33 +1536,6 @@ def _gru_product_witness(tag, args, probe):
         f"forward's h . Wh at every step ({fwd_hp.numel()} f32) ok")
 
 
-# The (rows a block, ring stages) pairs csrc/gru.cu builds for the bf16
-# tensor-core forward at each width (mlt_gru_fwd_tc), which
-# ``_gru_fwd_sweep`` times.
-GRU_FWD_VARIANTS = {256: ((16, 4), (32, 2), (32, 3), (32, 4)),
-                    384: ((32, 4), (32, 5), (32, 6)),
-                    512: ((32, 3), (32, 4))}
-
-
-def _gru_fwd_sweep(H, args, label):
-    """The bf16 tensor-core forward at each rows-a-block (R) and ring-depth
-    pair that csrc/gru.cu builds at width H (``GRU_FWD_VARIANTS``) on
-    ``args`` (at ``label``'s shape), each variant's ys against the
-    wrapper's, bitwise."""
-    import torch
-    from madrona_learn_tpu_torch.ops.cuda.gru import (
-        FWD_TC_ROWS, FWD_TC_STAGES, _fwd_tc)
-
-    T, N = args[0].shape[:2]
-    want = _fwd_tc(*args)
-    for rows, stages in GRU_FWD_VARIANTS[H]:
-        ms = time_ms(lambda: _fwd_tc(*args, rows=rows, stages=stages))
-        same = torch.equal(_fwd_tc(*args, rows=rows, stages=stages), want)
-        log(f"  gru fwd sweep H={H} {label} [{T}, {N}]: R = {rows}, "
-            f"{stages} ring stages: {ms:.4f} ms; ys bitwise equal to R = "
-            f"{FWD_TC_ROWS}, {FWD_TC_STAGES} stages: {same}")
-
-
 def check_gru(results):
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gru import (
@@ -1587,7 +1569,6 @@ def check_gru(results):
         (5, 1000, 256, f32, False),
         (4, 70, 128, f32, False),
     ]
-    main_args = {}
     for T, N, H, dtype, role in cases:
         main_path = role is True
         dname = str(dtype).split(".")[-1]
@@ -1606,7 +1587,6 @@ def check_gru(results):
                                      f"the {fpath} route")
             fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
             fwd["path"] = fpath
-            main_args[T] = args
         elif fpath == "tensor_core" and N % FWD_TC_ROWS:
             _tc_fwd_guard_check(
                 "gru fwd " + tag,
@@ -1693,8 +1673,6 @@ def check_gru(results):
                 f"({step_bound['bound_by']}); host {host:.1f} us a call "
                 f"(enqueue, 100 calls)")
             cudnn_gru_check(args, ys)
-    _gru_fwd_sweep(256, main_args[16], "update")
-    _gru_fwd_sweep(256, main_args[1], "step")
 
 
 def _layer_norm_bounds(N, D, itemsize):
@@ -2718,8 +2696,7 @@ def check_gru_chunked(results, H):
     tensor cores at every width, in the two-block cluster at 384 and 512)
     at the collect step the same way, with the NaN chunks, its times and
     bound into ``float16``. At 384 and 512 also ``gru_sequence_fwd`` on one
-    policy's rows against its twin, timed, and the cluster's ring depths
-    swept at both bf16 shapes (``_gru_fwd_sweep``)."""
+    policy's rows against its twin, timed."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.gru import (
         GRU_FWD, GRU_FWD_CHUNKED, fwd_uses_tensor_cores, gru_sequence_fwd,
@@ -2827,10 +2804,6 @@ def check_gru_chunked(results, H):
                          _gru_bounds(T_c, a1[0].shape[1], H,
                                      x.element_size())[0],
                          path=single_path)
-            if dtype == bf16:
-                # The cluster's ring depth: the depths csrc/gru.cu builds
-                # at this width, single-policy over the same rows.
-                _gru_fwd_sweep(H, (x, keep, wh[0], bias_h[0], h0), label)
         elif role == "collect":
             res.update(record)     # 33 of the 37 launches an update
         elif role == "float16":
@@ -3109,38 +3082,48 @@ def _one_policy(mlp, p):
     return [tuple(t[p] for t in layer) for layer in mlp]
 
 
-def check_policy_step_chunked(results):
-    """fused_policy_step_chunked at headline_pbt_fused's collect step (the
-    chunk size and count init_training derives for headline_pbt, 12
-    policies, F = 2: layer 0's W a [12, 2, 256] stack, whose rows past F
-    must arrive as zeros for every policy), bf16 on tensor cores, and at
-    chunks of 37 rows (no multiple of the 32-row tile) in a shuffled order
-    in bf16 at both widths and in f32 (CUDA cores): against its plain
-    twin; row for row bitwise ``fused_policy_step`` with the row's policy's
-    weights (each policy's rows in one call); bitwise over two calls and
-    for the first chunk alone; chunks of index P and -1 NaN, the others
-    unchanged; its time against one ``fused_policy_step`` a policy over the
-    same rows (the per-policy loop's launches) and its bound."""
+def check_policy_step_chunked(results, H):
+    """fused_policy_step_chunked at width H (the model's 256, and the
+    two-block-cluster instances at 384 and 512, whose numbers go under the
+    record's ``wide``) at headline_pbt_fused's collect step (the chunk size
+    and count init_training derives for headline_pbt, 12 policies, F = 2:
+    layer 0's W a [12, 2, H] stack, whose rows past F must arrive as zeros
+    for every policy), bf16 on tensor cores, and at chunks of 37 rows (no
+    multiple of the 32-row tile) in a shuffled order in bf16 (at 256 also
+    at H = 128; at 384 and 512 also at F = 128, one layer) and in f32
+    (CUDA cores): against its plain twin; row for row bitwise
+    ``fused_policy_step`` with the row's policy's weights (each policy's
+    rows in one call); bitwise over two calls and for the first chunk
+    alone; chunks of index P and -1 NaN, the others unchanged; its time
+    against one ``fused_policy_step`` a policy over the same rows (the
+    per-policy loop's launches) and its bound. At 384 and 512 also
+    ``fused_policy_step`` on one policy's rows of each case against its
+    twin, rows 0-255 of the collect step's bitwise the step at N = 256,
+    and the collect step's timed."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.policy_step import (
-        POLICY_STEP_CHUNKED, fused_policy_step, fused_policy_step_chunked,
-        fused_policy_step_chunked_reference, uses_tensor_cores)
+        POLICY_STEP, POLICY_STEP_CHUNKED, fused_policy_step,
+        fused_policy_step_chunked, fused_policy_step_chunked_reference,
+        fused_policy_step_reference, uses_tensor_cores)
 
     P, C, B = _pbt_chunk_geometry()
-    H, F, layers = CHANNELS, 2, 2
+    F, layers = 2, 2
+    wide = H != CHANNELS
     log(f"fused_policy_step_chunked at headline_pbt_fused's collect step: "
         f"{P} policies, {B} chunks of C = {C} rows, F = {F}, MLP {layers} x "
         f"{H}, LSTM {H}")
-    gen = torch.Generator(device="cuda").manual_seed(26)
-    res = results["fused_policy_step_chunked"] = {"max_abs_err": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(26 + wide * H)
+    res = results.setdefault("fused_policy_step_chunked",
+                             {"max_abs_err": 0.0})
     bf16, f32 = torch.bfloat16, torch.float32
     shuffled = [2, 0, 3, 2, 1, 0]      # policy 4 of 5 owns no chunk
     # (chunks, C, P, F, H, layers, dtype, on the main path).
-    for chunks, chunk, P_c, F_c, H_c, layers_c, dtype, main_path in (
-            (B, C, P, F, H, layers, bf16, True),
-            (len(shuffled), 37, 5, F, H, layers, bf16, False),
-            (len(shuffled), 37, 5, 3, 128, 1, bf16, False),
-            (len(shuffled), 37, 5, F, H, layers, f32, False)):
+    cases = [(B, C, P, F, H, layers, bf16, True),
+             (len(shuffled), 37, 5, F, H, layers, bf16, False),
+             (len(shuffled), 37, 5, F, H, layers, f32, False)]
+    cases.insert(2, (len(shuffled), 37, 5, 128, H, 1, bf16, False) if wide
+                 else (len(shuffled), 37, 5, 3, 128, 1, bf16, False))
+    for chunks, chunk, P_c, F_c, H_c, layers_c, dtype, main_path in cases:
         dname = str(dtype).split(".")[-1]
         args = list(_chunked_step_inputs(gen, chunks, chunk, F_c, H_c,
                                          layers_c, P_c, dtype))
@@ -3185,6 +3168,24 @@ def check_policy_step_chunked(results):
         bitwise(f"fused_policy_step_chunked {tag} the first chunk alone",
                 torch.stack([alone[0], *alone[1]]),
                 torch.stack([feats[:chunk], c1[:chunk], h1[:chunk]]))
+        per_policy = [(x[rows].contiguous(), _one_policy(mlp, p), wi[p],
+                       wr[p], bias[p], c[rows], h[rows])
+                      for p, rows in by_policy]
+        if wide:
+            # The single-policy kernel on one policy's rows, against its
+            # twin (its rows are the chunked kernel's, checked above).
+            a1 = per_policy[0]
+            one, single_path = _routed(
+                POLICY_STEP, uses_tensor_cores(dtype, H_c, F_c),
+                fused_policy_step, *a1)
+            ref = fused_policy_step_reference(*a1)
+            single_err = max(
+                compare(f"fused_policy_step H={H_c} {dname} {name} on "
+                        f"policy 0's {a1[0].shape[0]} rows", g, w,
+                        **TOL[("step", dname)])
+                for name, g, w in (("feats", one[0], ref[0]),
+                                   ("c'", one[1][0], ref[1][0]),
+                                   ("h'", one[1][1], ref[1][1])))
         if not main_path:
             bad = idx.clone()
             bad[1], bad[3] = P_c, -1
@@ -3199,10 +3200,14 @@ def check_policy_step_chunked(results):
                                      f"skipped alone")
             log(f"  fused_policy_step_chunked {tag}: chunks of index P and "
                 f"-1 NaN, the others unchanged ok")
+            if wide:
+                for name in ("fused_policy_step_chunked",
+                             "fused_policy_step"):
+                    _wide_record(results, name, H_c, dname,
+                                 f"ragged F={F_c}", shape=tag,
+                                 max_abs_err=(err if name.endswith("chunked")
+                                              else single_err))
             continue
-        per_policy = [(x[rows].contiguous(), _one_policy(mlp, p), wi[p],
-                       wr[p], bias[p], c[rows], h[rows])
-                      for p, rows in by_policy]
         ms = time_ms(lambda: fused_policy_step_chunked(*args))
         loop_ms = time_ms(lambda: [fused_policy_step(*a) for a in per_policy])
         plain_ms = time_ms(lambda: fused_policy_step_chunked_reference(*args),
@@ -3214,9 +3219,35 @@ def check_policy_step_chunked(results):
             f"{loop_ms:.4f} ms, plain {plain_ms:.3f} ms, no library call "
             f"(no single PyTorch call computes the trunk), bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-        res.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    library_ms=None, path=path, per_policy_ms=loop_ms,
                    chunk=chunk, chunks=chunks, policies=P_c, **b)
+        if not wide:
+            res.update(rec)
+            continue
+        _wide_record(results, "fused_policy_step_chunked", H_c, dname,
+                     "collect", shape=tag, **rec)
+        # The single-policy kernel at the collect step's per-policy shape:
+        # batch invariance (its first 256 rows alone), its time and bound.
+        sub = fused_policy_step(a1[0][:256].contiguous(), *a1[1:5],
+                                a1[5][:256].contiguous(),
+                                a1[6][:256].contiguous())
+        bitwise(f"fused_policy_step H={H_c} {dname} rows 0-255 against the "
+                f"step at N = 256", torch.stack([sub[0], *sub[1]]),
+                torch.stack([one[0][:256], one[1][0][:256],
+                             one[1][1][:256]]))
+        n1 = a1[0].shape[0]
+        s_ms = time_ms(lambda: fused_policy_step(*a1))
+        s_plain = time_ms(lambda: fused_policy_step_reference(*a1), reps=3,
+                          warmup=1)
+        s_b = _step_bound(n1, F_c, H_c, layers_c, x.element_size())
+        log(f"  fused_policy_step H={H_c} {dname} at the collect step's "
+            f"policy 0 rows [{n1}, {F_c}->{H_c}x{layers_c}] ({single_path}):"
+            f" kernel {s_ms:.4f} ms, plain {s_plain:.3f} ms, bound "
+            f"{s_b['bound_ms']:.4f} ms ({s_b['bound_by']}), no library call")
+        _wide_record(results, "fused_policy_step", H_c, dname, "collect",
+                     max_abs_err=single_err, ms=s_ms, plain_ms=s_plain,
+                     library_ms=None, path=single_path, rows=n1, **s_b)
 
 
 def _chunked_proj_bounds(T, B, C, F, H, policies_used, itemsize):
@@ -3235,13 +3266,17 @@ def _chunked_proj_bounds(T, B, C, F, H, policies_used, itemsize):
             bound(bwd_bytes, {"bf16_tensor": 3 * products, "f32": 40 * seq}))
 
 
-def check_lstm_proj_chunked(results):
+def check_lstm_proj_chunked(results, H):
     """lstm_sequence_proj_fwd_chunked and lstm_sequence_proj_bwd_chunked at
+    width H (the model's 256, and the two-block-cluster instances at 384
+    and 512, whose numbers go under the record's ``wide``) at
     headline_pbt_fused's learn step (8 train policies, one chunk of a
-    minibatch's 1280 sequences each, T = 16, F = 256 -> 4H = 1024, bf16 on
-    tensor cores) and at chunks of 37 rows in a shuffled order with a
-    policy owning two chunks and one owning none, in bf16 and f32 (CUDA
-    cores): against their plain twins (the backward against its twin's
+    minibatch's 1280 sequences each, T = 16, F = H -> 4H, bf16 on tensor
+    cores) and at chunks of 37 rows in a shuffled order with a policy
+    owning two chunks and one owning none, in bf16 and f32 (CUDA cores; at
+    384 and 512 also at F = 4H, the largest x tile, and in bf16 at F =
+    128, where one block of a cluster owns no dx feature): against their
+    plain twins (the backward against its twin's
     autograd); every row's ys / cs bitwise ``lstm_sequence_proj_fwd``'s
     with its policy's weights, every chunk's dx / dh0 / dc0 bitwise
     ``lstm_sequence_proj_bwd``'s on its rows, each policy's dwi / dwr / db
@@ -3250,7 +3285,12 @@ def check_lstm_proj_chunked(results):
     calls and, for a policy of one chunk, its dwi / dwr / db bitwise its
     chunk alone; chunks of index P and -1 NaN and in no policy's
     gradients; the times against one single-policy launch a policy over
-    the same rows, and the bounds."""
+    the same rows, and the bounds. At 384 and 512 also the single-policy
+    kernels on one policy's rows of each case against their twins, and at
+    the learn step's (bf16): the weight gradients bitwise over two calls,
+    rows 0-255 bitwise the kernels' at N = 256, the batch rolled, the
+    forward's T = 1 steps, the products' witness
+    (``_lstm_proj_witness``) and their times."""
     import torch
     from madrona_learn_tpu_torch.ops.cuda.lstm import (
         LSTM_PROJ_BWD_CHUNKED, LSTM_PROJ_FWD_CHUNKED,
@@ -3259,20 +3299,27 @@ def check_lstm_proj_chunked(results):
         lstm_sequence_proj_fwd_chunked,
         lstm_sequence_proj_fwd_chunked_reference, uses_tensor_cores)
 
-    H, T, P = CHANNELS, STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, PBT_TRAIN
+    T, P = STEPS_PER_UPDATE // NUM_BPTT_CHUNKS, PBT_TRAIN
+    wide = H != CHANNELS
     log(f"lstm_sequence_proj_*_chunked at headline_pbt_fused's learn step: "
         f"{P} train policies, one chunk of a minibatch's C = {PBT_MINIBATCH} "
         f"sequences each, T = {T}, F = {H} -> {4 * H}")
-    gen = torch.Generator(device="cuda").manual_seed(27)
-    fwd = results["lstm_sequence_proj_fwd_chunked"] = {"max_abs_err": 0.0}
-    bwd = results["lstm_sequence_proj_bwd_chunked"] = {"max_abs_err": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(27 + wide * H)
+    fwd = results.setdefault("lstm_sequence_proj_fwd_chunked",
+                             {"max_abs_err": 0.0})
+    bwd = results.setdefault("lstm_sequence_proj_bwd_chunked",
+                             {"max_abs_err": 0.0})
     bf16, f32 = torch.bfloat16, torch.float32
     shuffled = [2, 0, 3, 2, 1, 0]      # policy 4 of 5 owns no chunk
-    for dtype, T_c, C, F, H_c, order, main_path in (
-            (bf16, T, PBT_MINIBATCH, H, H, list(range(P)), True),
-            (bf16, 5, 37, H, H, shuffled, False),
-            (bf16, 4, 37, 256, 128, shuffled, False),
-            (f32, 5, 37, H, H, shuffled, False)):
+    cases = [(bf16, T, PBT_MINIBATCH, H, H, list(range(P)), True),
+             (bf16, 5, 37, H, H, shuffled, False),
+             (bf16, 4, 37, 256, 128, shuffled, False),
+             (f32, 5, 37, H, H, shuffled, False)]
+    if wide:
+        cases[2:3] = [(bf16, 3, 37, 4 * H, H, shuffled, False),
+                      (bf16, 3, 37, 128, H, shuffled, False),
+                      (f32, 2, 37, 4 * H, H, shuffled, False)]
+    for dtype, T_c, C, F, H_c, order, main_path in cases:
         P_c = P if main_path else 5
         B = len(order)
         dname = str(dtype).split(".")[-1]
@@ -3380,6 +3427,15 @@ def check_lstm_proj_chunked(results):
                                      f"from its chunk's alone")
         log(f"  lstm_sequence_proj_bwd_chunked {tag}: dwi / dwr / db of "
             f"policies {alone} bitwise their chunk's alone ok")
+        label = "learn" if main_path else f"ragged F={F}"
+        if wide:
+            rows = slice(0, C)
+            _lstm_proj_single_wide(
+                results, label, (x[:, rows].contiguous(),
+                                 keep[:, rows].contiguous(), wi[order[0]],
+                                 wr[order[0]], bias[order[0]], c0[rows],
+                                 h0[rows]),
+                probe[:, rows].contiguous(), main_path)
         if not main_path:
             bad = idx.clone()
             bad[1], bad[3] = P_c, -1
@@ -3407,6 +3463,11 @@ def check_lstm_proj_chunked(results):
             log(f"  lstm_sequence_proj_*_chunked {tag}: chunks of index P "
                 f"and -1 NaN and in no policy's dwi / dwr / db, the others "
                 f"unchanged ok")
+            if wide:
+                for name, e in (("lstm_sequence_proj_fwd_chunked", f_err),
+                                ("lstm_sequence_proj_bwd_chunked", b_err)):
+                    _wide_record(results, name, H_c, dname, label,
+                                 max_abs_err=e, shape=tag)
             continue
         same = all(torch.equal(singles[p][i], got[i][p])
                    for p in range(P_c) for i in (1, 2, 3))
@@ -3445,11 +3506,116 @@ def check_lstm_proj_chunked(results):
             f"keep mask)")
         common = dict(library_ms=None, path=path, chunk=C, chunks=B,
                       policies=P_c)
-        fwd.update(max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
-                   per_policy_ms=f_loop, **common, **f_b)
-        bwd.update(max_abs_err=b_err, ms=b_ms, plain_ms=b_plain,
-                   per_policy_ms=b_loop, dw_bitwise_single=same, **common,
-                   **b_b)
+        f_rec = dict(max_abs_err=f_err, ms=f_ms, plain_ms=f_plain,
+                     per_policy_ms=f_loop, **common, **f_b)
+        b_rec = dict(max_abs_err=b_err, ms=b_ms, plain_ms=b_plain,
+                     per_policy_ms=b_loop, dw_bitwise_single=same, **common,
+                     **b_b)
+        if not wide:
+            fwd.update(f_rec)
+            bwd.update(b_rec)
+            continue
+        _wide_record(results, "lstm_sequence_proj_fwd_chunked", H_c, dname,
+                     label, shape=tag, **f_rec)
+        _wide_record(results, "lstm_sequence_proj_bwd_chunked", H_c, dname,
+                     label, shape=tag, **b_rec)
+
+
+def _lstm_proj_witness(tag, args, probe):
+    """The witness that the tensor-core projection backward differentiates
+    the forward that ran: on ``args`` (x, keep, Wi, Wr, bias, c0, h0), the
+    forward's round(x . Wi) and round(x . Wi) + h . Wr of every step
+    (``_fwd_tc``'s ``wit``) and the backward's recomputed ones (``_bwd_tc``'s,
+    from the forward's ys), both f32 [2, T, N, 4H], bitwise equal."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.lstm import _bwd_tc, _fwd_tc
+
+    T, N = args[0].shape[:2]
+    H = args[3].shape[0]
+    fwd_wit, bwd_wit = (torch.full((2, T, N, 4 * H), float("nan"),
+                                   device="cuda") for _ in range(2))
+    ys, cs = _fwd_tc(*args, wit=fwd_wit)
+    _bwd_tc(*args, ys, cs, probe, phases=1, wit=bwd_wit)
+    for i, what in enumerate(("round(x . Wi)", "round(x . Wi) + h . Wr")):
+        f, b = fwd_wit[i], bwd_wit[i]
+        if not (bool(torch.isfinite(f).all()) and torch.equal(f, b)):
+            bad = (f != b).sum().item()
+            raise AssertionError(f"{tag}: the backward's recomputed {what} "
+                                 f"differs from the forward's at {bad} of "
+                                 f"{f.numel()} elements")
+    log(f"  {tag}: the backward's recomputed round(x . Wi) and round(x . Wi)"
+        f" + h . Wr bitwise the forward's at every step "
+        f"({2 * fwd_wit[0].numel()} f32) ok")
+
+
+def _lstm_proj_single_wide(results, label, args, probe, main_path):
+    """``lstm_sequence_proj_fwd`` / ``_bwd`` at H = 384 or 512 on one
+    policy's rows (``args``, at the chunk-indexed check's ``label`` shape)
+    against their twins (the backward against the twin's autograd), into
+    results[name]["wide"]. At the learn step (``main_path``, bf16) also
+    the tensor-core forward's and backward's bitwise checks
+    (``_tc_fwd_checks``, ``_tc_bwd_checks``), the products' witness, and
+    their times and bounds."""
+    import torch
+    from madrona_learn_tpu_torch.ops.cuda.lstm import (
+        LSTM_PROJ_BWD, LSTM_PROJ_FWD, lstm_sequence_proj_bwd,
+        lstm_sequence_proj_fwd, lstm_sequence_proj_reference,
+        uses_tensor_cores)
+
+    T, N, F = args[0].shape
+    H = args[3].shape[0]
+    dtype = args[0].dtype
+    dname = str(dtype).split(".")[-1]
+    tag = f"H={H} {dname} [{T},{N},{F}->{4 * H}]"
+    (ys, cs), fpath = _routed(LSTM_PROJ_FWD, uses_tensor_cores(dtype, H),
+                              lstm_sequence_proj_fwd, *args)
+    f_err = compare(f"lstm_sequence_proj_fwd {tag} ({fpath})", ys,
+                    lstm_sequence_proj_reference(*args),
+                    **TOL[("fwd", dname)])
+    leaves = [a.detach().clone().requires_grad_(i != 1)
+              for i, a in enumerate(args)]
+    diff = [leaves[i] for i in (0, 2, 3, 4, 5, 6)]
+
+    def plain_bwd():
+        out = lstm_sequence_proj_reference(*leaves)
+        return torch.autograd.grad((out.float() * probe.float()).sum(), diff)
+
+    got, path = _routed(LSTM_PROJ_BWD, uses_tensor_cores(dtype, H),
+                        lstm_sequence_proj_bwd, *args, ys, cs, probe)
+    b_err = max(compare(f"lstm_sequence_proj_bwd {name} {tag} ({path})", g,
+                        w, **TOL[("bwd", dname)])
+                for name, g, w in zip(("dx", "dwi", "dwr", "db", "dc0",
+                                       "dh0"), got, plain_bwd()))
+    if not main_path:
+        _wide_record(results, "lstm_sequence_proj_fwd", H, dname, label,
+                     max_abs_err=f_err, path=fpath, shape=tag)
+        _wide_record(results, "lstm_sequence_proj_bwd", H, dname, label,
+                     max_abs_err=b_err, path=path, shape=tag)
+        return
+    _tc_fwd_checks("lstm_sequence_proj_fwd " + tag, lstm_sequence_proj_fwd,
+                   args, (ys, cs), {5: 1, 6: 0})
+    _tc_bwd_checks("lstm_sequence_proj_bwd " + tag, lstm_sequence_proj_bwd,
+                   args, (ys, cs), probe, got,
+                   row_args={0: 1, 1: 1, 5: 0, 6: 0},
+                   row_outs={0: 1, 4: 0, 5: 0}, weight_outs=(1, 2, 3))
+    _lstm_proj_witness("lstm_sequence_proj " + tag, args, probe)
+    f_b, b_b = _proj_bounds(T, N, F, H, 2)
+    for name, run, plain, err, p, b in (
+            ("lstm_sequence_proj_fwd",
+             lambda: lstm_sequence_proj_fwd(*args),
+             lambda: lstm_sequence_proj_reference(*args), f_err, fpath, f_b),
+            ("lstm_sequence_proj_bwd",
+             lambda: lstm_sequence_proj_bwd(*args, ys, cs, probe),
+             plain_bwd, b_err, path, b_b)):
+        ms = time_ms(run)
+        plain_ms = time_ms(plain, reps=3, warmup=1)
+        log(f"  {name} {tag} ({p}): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}), no library call (cuDNN cannot clear the "
+            f"carry mid-sequence)")
+        _wide_record(results, name, H, dname, label, max_abs_err=err, ms=ms,
+                     plain_ms=plain_ms, library_ms=None, path=p, shape=tag,
+                     **b)
 
 
 def check_grouped_matmul_pbt(results):
@@ -3998,8 +4164,8 @@ def kernel_phase():
         check_lstm_bwd_chunked(results, H)
         check_gru_chunked(results, H)
         check_gru_bwd_chunked(results, H)
-    check_policy_step_chunked(results)
-    check_lstm_proj_chunked(results)
+        check_policy_step_chunked(results, H)
+        check_lstm_proj_chunked(results, H)
     check_layer_norm_chunked(results)
     return results
 
@@ -4888,10 +5054,9 @@ TC_ROUTED = ("lstm_sequence_fwd", "lstm_sequence_bwd",
 def _tc_kernels(dtype, hidden):
     """The kernels of TC_ROUTED whose launches take the tensor-core route
     in a model of this dtype and recurrent width: in bfloat16 every one at
-    H = 128 and 256, and at 384 and 512 the eight LSTM and GRU sequence
-    kernels (their two-block clusters); in float16 the eight LSTM and GRU
-    sequence kernels at 128 and 256, and the four GRU ones at 384 and
-    512."""
+    every width (at 384 and 512 the LSTM, GRU and fused step's two-block
+    clusters); in float16 the eight LSTM and GRU sequence kernels at 128
+    and 256, and the four GRU ones at 384 and 512."""
     from madrona_learn_tpu_torch.ops.cuda import gru, lstm
 
     rules = {"lstm_sequence_fwd": lstm.fwd_uses_tensor_cores,
@@ -7711,6 +7876,10 @@ def main():
     pbt_lstm = {"gae": 1, "lstm_sequence_fwd_chunked": steps,
                 "lstm_sequence_bwd_chunked": NUM_MINIBATCHES,
                 "grouped_matmul": 5 * STEPS_PER_UPDATE + 4}
+    pbt_fused = {"gae": 1, "fused_policy_step_chunked": STEPS_PER_UPDATE + 1,
+                 "lstm_sequence_proj_fwd_chunked": NUM_MINIBATCHES,
+                 "lstm_sequence_proj_bwd_chunked": NUM_MINIBATCHES,
+                 "grouped_matmul": 2 * STEPS_PER_UPDATE + 1}
     # The float16 models' grouped_matmul launches on tensor cores: of the
     # five products a step (2 -> 256, 256 -> 256, the recurrence's input
     # projection 256 -> 1024 or 768, the actor's 256 -> 5 and the critic's
@@ -7728,11 +7897,7 @@ def main():
             ("headline_pbt_hlgauss", dict(critic="hlgauss_two_part"),
              dict(pbt_lstm, grouped_matmul=6 * STEPS_PER_UPDATE + 5), 1,
              False),
-            ("headline_pbt_fused", dict(fused=True),
-             {"gae": 1, "fused_policy_step_chunked": STEPS_PER_UPDATE + 1,
-              "lstm_sequence_proj_fwd_chunked": NUM_MINIBATCHES,
-              "lstm_sequence_proj_bwd_chunked": NUM_MINIBATCHES,
-              "grouped_matmul": 2 * STEPS_PER_UPDATE + 1}, 1, True),
+            ("headline_pbt_fused", dict(fused=True), pbt_fused, 1, True),
             # The flagship: mha over every chunk's entities once a step,
             # for the bootstrap and a minibatch (the chunk and policy axes
             # folded into its batch); grouped_matmul 12 times a step (3
@@ -7784,12 +7949,20 @@ def main():
     # twin route below 128) and the kernel LayerNorm's population.
     launches_by_path["infer_512"], r = infer_phase(card)
     elapsed("infer_512")
+    splits = {}
     for name, model, per_update, timed, collect_ab, check in (
             # infer_bench.py's width: headline_pbt's launches, the LSTM
             # forward and backward on their 512-wide
             # tensor-core instances (two-block clusters).
             ("headline_pbt_512", dict(channels=INFER_CHANNELS), pbt_lstm, 2,
              False, None),
+            # The fused trunk at that width (MLP 2 x 512, LSTM 512 on an
+            # input of 512): headline_pbt_fused's launches, the fused step
+            # and the projection kernels on their 512-wide tensor-core
+            # instances (two-block clusters).
+            ("headline_pbt_fused_512",
+             dict(fused=True, channels=INFER_CHANNELS), pbt_fused, 1, False,
+             None),
             # The same population with GRU(512): the GRU forward and
             # backward on their 512-wide tensor-core instances (two-block
             # clusters), headline_pbt_gru's launches.
@@ -7814,11 +7987,18 @@ def main():
         launches, r = pbt_variant_phase(card, name, model, per_update, timed,
                                         collect_ab, final_check=check)
         elapsed(name)
+        splits[name] = r["split"]
         launches_by_path[name] = launches
         log(f"{name}: {r['sps']:.0f} agent-steps/s (headline_pbt "
             f"{paths_pbt_sps:.0f} in this run), max |ratio - 1| over the "
             f"train policies {r['ratio_dev']:.3e}, peak {r['peak_gib']:.2f} "
             f"GiB on {card}")
+    fused, unfused = (splits[k] for k in ("headline_pbt_fused_512",
+                                          "headline_pbt_512"))
+    log(f"headline_pbt_fused_512 against headline_pbt_512 (this run, CUDA "
+        f"events, on {card}): collect {fused['collect_ms']:.1f} against "
+        f"{unfused['collect_ms']:.1f} ms an update, learn and the rest "
+        f"{fused['learn_ms']:.1f} against {unfused['learn_ms']:.1f} ms")
     zoo = {
         # The rest of the model zoo. Separate towers: each tower's LSTM at
         # every rollout step and every minibatch, the critic's alone for

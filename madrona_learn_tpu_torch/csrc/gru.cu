@@ -956,10 +956,10 @@ int launch_bwd_tc(int phases, const void* xp, const void* keep,
 
 // ------------------------------------ bf16 and f16 forward on tensor cores
 
-// Ring stages of the tensor-core forward that the wrapper and the
-// chunk-indexed instance take at every width: the fastest of the depths
-// mlt_gru_fwd_tc builds for chip_smoke.py's sweeps, at 256, 384 and 512 on
-// the H100 (ops/cuda/gru.py:FWD_TC_STAGES mirrors it).
+// Rows a block and ring stages of the tensor-core forward at every width
+// (the only pair built): the fastest of the pairs swept at 256, 384 and
+// 512 on the H100 (PERF.md; ops/cuda/gru.py:FWD_TC_ROWS mirrors R).
+constexpr int kGruFwdRows = 32;
 constexpr int kGruFwdStages = 4;
 
 // Shared memory of gru_fwd_tc_kernel at R rows a block and at most kStages
@@ -1201,23 +1201,20 @@ __global__ void __launch_bounds__(GruTcFwd<H, R, kStages, kSplit>::kThreads,
 // and 512, clusters of two blocks (kTcSplit), launched with their cluster
 // dimension by cudaLaunchKernelEx; a refused launch returns its error.
 // hp: null, or the products' witness (the kWitness instance of
-// gru_fwd_tc_kernel, built at R = 32 and kGruFwdStages alone: other
-// arguments with hp are refused).
-template <typename E, int H, int R, int kStages>
+// gru_fwd_tc_kernel).
+template <typename E, int H>
 int launch_fwd_tc(const void* xp, const void* keep, const void* wh,
                   const void* bias_h, const void* h0, void* ys, int steps,
                   int n_rows, cudaStream_t stream,
                   const void* chunk_policy = nullptr, int num_chunks = 0,
                   int chunk = 0, int num_policies = 1, void* hp = nullptr) {
+  constexpr int R = kGruFwdRows;
+  constexpr int kStages = kGruFwdStages;
   constexpr int kSplit = kTcSplit<H>;
   using L = GruTcFwd<H, R, kStages, kSplit>;
-  constexpr bool kWitnessed = R == 32 && kStages == kGruFwdStages;
-  if (hp != nullptr && !kWitnessed)
-    return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel =
-      hp != nullptr
-          ? gru_fwd_tc_kernel<E, H, R, kStages, kSplit, kWitnessed>
-          : gru_fwd_tc_kernel<E, H, R, kStages, kSplit, false>;
+      hp != nullptr ? gru_fwd_tc_kernel<E, H, R, kStages, kSplit, true>
+                    : gru_fwd_tc_kernel<E, H, R, kStages, kSplit, false>;
   CUtensorMap wh_map;
   if (!make_tma_map(&wh_map, wh, 3 * H, H, num_policies, 64, kTcK,
                     tma_dtype<E>()))
@@ -1329,54 +1326,31 @@ extern "C" int mlt_gru_bwd_tc(int dtype, int hidden, int phases,
 #undef MLT_BWD_TC
 }
 
-// The tensor-core forward, from Wh as it stands, at R rows a block and a
-// ring of at most `stages` slices: bfloat16 (dtype 1) and float16 (dtype 2)
-// at H = 128, 256, 384 and 512 (two-block clusters at 384 and 512), each
-// with R = 32 and kGruFwdStages stages (the wrapper's, ops/cuda/gru.py:
-// FWD_TC_ROWS, FWD_TC_STAGES); bfloat16 also at H = 256 with R = 16, and 2
-// or 3 stages, and at 384 and 512 with the other ring depths that fit, for
-// chip_smoke.py's sweeps. hp: null, or the f32 [T, N, 3H] witness of the
-// products h . Wh (gru_fwd_tc_kernel). Returns a cudaError_t, or -1 for
-// arguments without an instantiation.
-extern "C" int mlt_gru_fwd_tc(int dtype, int hidden, int rows, int stages,
-                              const void* xp, const void* keep,
-                              const void* wh, const void* bias_h,
-                              const void* h0, void* ys, int steps,
-                              int n_rows, void* hp, void* stream) {
+// The tensor-core forward, from Wh as it stands, at kGruFwdRows rows a
+// block and a ring of kGruFwdStages slices: bfloat16 (dtype 1) and float16
+// (dtype 2) at H = 128, 256, 384 and 512 (two-block clusters at 384 and
+// 512). hp: null, or the f32 [T, N, 3H] witness of the products h . Wh
+// (gru_fwd_tc_kernel). Returns a cudaError_t, or -1 for arguments without
+// an instantiation.
+extern "C" int mlt_gru_fwd_tc(int dtype, int hidden, const void* xp,
+                              const void* keep, const void* wh,
+                              const void* bias_h, const void* h0, void* ys,
+                              int steps, int n_rows, void* hp,
+                              void* stream) {
   if (static_cast<long long>(steps) * n_rows > 0x7fffffffLL) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MLT_FWD_TC(E, H, R, S)                                          \
-  if (hidden == H && rows == R && stages == S)                          \
-  return launch_fwd_tc<E, H, R, S>(xp, keep, wh, bias_h, h0, ys, steps, \
-                                   n_rows, s, nullptr, 0, 0, 1, hp)
-  if (dtype == 1) {
-    MLT_FWD_TC(bf16, 128, 32, 4);
-    MLT_FWD_TC(bf16, 256, 32, 4);
-    MLT_FWD_TC(bf16, 256, 16, 4);
-    MLT_FWD_TC(bf16, 256, 32, 3);
-    MLT_FWD_TC(bf16, 256, 32, 2);
-    MLT_FWD_TC(bf16, 384, 32, 4);
-    MLT_FWD_TC(bf16, 384, 32, 5);
-    MLT_FWD_TC(bf16, 384, 32, 6);
-    MLT_FWD_TC(bf16, 512, 32, 3);
-    MLT_FWD_TC(bf16, 512, 32, 4);
-  }
-  if (dtype == 2) {
-    MLT_FWD_TC(__half, 128, 32, 4);
-    MLT_FWD_TC(__half, 256, 32, 4);
-    MLT_FWD_TC(__half, 384, 32, 4);
-    MLT_FWD_TC(__half, 512, 32, 4);
-  }
+#define MLT_FWD_TC(E, H)                                                  \
+  launch_fwd_tc<E, H>(xp, keep, wh, bias_h, h0, ys, steps, n_rows, s,     \
+                      nullptr, 0, 0, 1, hp)
+  MLT_DISPATCH_TC(MLT_FWD_TC);
 #undef MLT_FWD_TC
-  return -1;
 }
 
 // gru_sequence_fwd_chunked: the forward over [num_chunks * chunk] rows,
 // chunk c with the weights of policy chunk_policy[c] of the [num_policies,
 // H, 3H] / [num_policies, H] stacks (a chunk of no policy is skipped, its
 // rows NaN). tensor_core 1 takes the tensor-core kernel (bfloat16 and
-// float16 at every width; R = 32 and kGruFwdStages stages: the wrapper's
-// FWD_TC_ROWS, FWD_TC_STAGES), 0 the CUDA-core one (float32). Returns a
+// float16 at every width), 0 the CUDA-core one (float32). Returns a
 // cudaError_t, or -1 for arguments without an instantiation.
 extern "C" int mlt_gru_fwd_chunked(int tensor_core, int dtype, int hidden,
                                    const void* xp, const void* keep,
@@ -1393,9 +1367,8 @@ extern "C" int mlt_gru_fwd_chunked(int tensor_core, int dtype, int hidden,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tensor_core) {
 #define MLT_FWD_CHUNKED_TC(E, H)                                           \
-  launch_fwd_tc<E, H, 32, kGruFwdStages>(xp, keep, wh, bias_h, h0, ys,     \
-                                         steps, n_rows, s, chunk_policy,   \
-                                         num_chunks, chunk, num_policies)
+  launch_fwd_tc<E, H>(xp, keep, wh, bias_h, h0, ys, steps, n_rows, s,      \
+                      chunk_policy, num_chunks, chunk, num_policies)
     MLT_DISPATCH_TC(MLT_FWD_CHUNKED_TC);
 #undef MLT_FWD_CHUNKED_TC
   }

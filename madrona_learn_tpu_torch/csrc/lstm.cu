@@ -58,13 +58,13 @@
 // (lstm_fwd_tc_kernel) and the backwards (lstm_bwd_tc_kernel, then
 // weight_grad_tc.cuh). The TPU kernel's products are bf16 operands with f32
 // accumulation, which is what wgmma computes, with only the order of the
-// sums changed. The wrappers' rules (ops/cuda/lstm.py: fwd_uses_tensor_cores,
-// bwd_uses_tensor_cores, uses_tensor_cores for the projection) send the
-// bf16 sequence kernels at every width and the bf16 projection kernels at
-// H = 128 or 256 here (an operand off a 16-byte boundary is copied onto one
-// first), and float32 (and float16 at 384 and 512) to the kernels above.
-// At 384 and 512 the units are
-// split over a cluster of two blocks ("Wider layers", at the dispatch).
+// sums changed. The wrappers' rules (ops/cuda/lstm.py: bwd_uses_tensor_cores,
+// which fwd_uses_tensor_cores is, and uses_tensor_cores for the projection)
+// send the bf16 sequence and projection kernels here at every width (an
+// operand off a 16-byte boundary is copied onto one first), and float32
+// (and float16 at 384 and 512) to the kernels above. At 384 and 512 the
+// units are split over a cluster of two blocks ("Wider layers", at the
+// dispatch).
 // The float16 sequence kernels (lstm_sequence_fwd / _bwd and their
 // chunk-indexed instances, the port's own: JAX sends float16 to its jnp
 // twin) take the same kernels at H = 128 and 256 with f16 operands (wgmma
@@ -670,10 +670,18 @@ __global__ void __launch_bounds__(kThreads) lstm_bwd_kernel(
   }
 }
 
+// Whether the projection backward's x tile shares the dgates tile's
+// shared memory: where hin_s, dg_s and an x tile of F = 4H would not fit
+// side by side (H = 512: 288 KiB at kRows = 16).
+template <int H>
+constexpr bool kProjXInDg = kRows * 9 * H * 4 > kSmemLimit;
+
 // Projection backward. Shared memory: hin_s [kRows][H], dg_s [kRows][4H],
-// x_s [kRows][F]. With chunks (lstm_sequence_proj_bwd_chunked), the rows
-// and policy of fwd_rows, and that policy's Wi, Wi^T, Wr, Wr^T and bias at
-// an offset into their [P, ...] stacks.
+// x_s [kRows][F] (in dg_s where kProjXInDg: x is read by the recompute
+// alone, before the gate math writes the dgates). With chunks
+// (lstm_sequence_proj_bwd_chunked), the rows and policy of fwd_rows, and
+// that policy's Wi, Wi^T, Wr, Wr^T and bias at an offset into their
+// [P, ...] stacks.
 template <typename T, int H>
 __global__ void __launch_bounds__(kThreads) lstm_proj_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ keep,
@@ -692,7 +700,7 @@ __global__ void __launch_bounds__(kThreads) lstm_proj_bwd_kernel(
   extern __shared__ float smem[];
   float* hin_s = smem;
   float* dg_s = smem + kRows * H;
-  float* x_s = smem + kRows * 5 * H;
+  float* x_s = kProjXInDg<H> ? dg_s : smem + kRows * 5 * H;
 
   const FwdRows rows = fwd_rows(chunk_policy, chunk, kRows, n_rows);
   if (rows.policy < 0 || rows.policy >= num_policies) {
@@ -752,6 +760,8 @@ __global__ void __launch_bounds__(kThreads) lstm_proj_bwd_kernel(
 #pragma unroll
         for (int j = 0; j < UPT; ++j) acc[i][g][j] = round_to<T>(acc[i][g][j]);
     row_tile_fma<T, 4, RPT, UPT>(hin_s, H, wr, G4, H, row_base, u0, acc);
+    if constexpr (kProjXInDg<H>)
+      __syncthreads();   // every thread is done reading x before the dgates
 
     float dc_prev[RPT][UPT];
     gate_cotangents<T, H, RPT, UPT>(acc, b, c_in, dh, dc, cs, dys, dg, dg_s,
@@ -785,7 +795,9 @@ __global__ void __launch_bounds__(kThreads) lstm_proj_bwd_kernel(
                                      dc);
     // As in lstm_bwd_kernel: hin_s and x_s are rewritten before the next
     // first barrier and read by no thread after the second; dg_s is
-    // rewritten only after the next first barrier.
+    // rewritten only after the next first barrier. Where x_s is dg_s, the
+    // next step's x waits until every thread has read this step's dgates.
+    if constexpr (kProjXInDg<H>) __syncthreads();
   }
 }
 
@@ -909,7 +921,8 @@ int launch_proj_bwd(const void* x, const void* keep, const void* wi,
                     void* db, int steps, int n_rows, int f_in, int splits,
                     cudaStream_t stream, const void* chunk_policy = nullptr,
                     int num_chunks = 1, int chunk = 0, int num_policies = 1) {
-  const int smem = kRows * (5 * H + f_in) * static_cast<int>(sizeof(float));
+  const int smem = kRows * (5 * H + (kProjXInDg<H> ? 0 : f_in)) *
+                   static_cast<int>(sizeof(float));
   int err = set_smem(lstm_proj_bwd_kernel<T, H>, smem);
   if (err != 0) return err;
   const int blocks =
@@ -951,11 +964,14 @@ int launch_proj_bwd(const void* x, const void* keep, const void* wi,
 
 using bf16 = __nv_bfloat16;
 
-// Batch rows a block of the tensor-core recurrence (R), by variant: the
+// Batch rows a row tile of the tensor-core recurrence (R), by variant: the
 // faster of 16 and 32 at the update shape on the H100. R = 32 halves the L2
 // weight traffic but spills at H = 256; with the projection it still wins.
-template <bool kProj>
-constexpr int kTcRows = kProj ? 32 : 16;
+// The projection at H = 512 takes 16: at 32 the h_in (32 KiB), dgates
+// (128 KiB, which also holds x of F <= 4H) and row tiles (48 KiB) leave no
+// room for a ring stage of 32 KiB (TcBwd); at 384 they leave two of 24.
+template <bool kProj, int H>
+constexpr int kTcRows = kProj && H < 512 ? 32 : 16;
 
 // Shared memory of lstm_bwd_tc_kernel, from a 1024-byte aligned base: the
 // ring of weight slices ([U rows][64] each, U = H / kSplit the block's
@@ -980,12 +996,51 @@ struct TcBwd {
   static_assert(kStages >= 2, "a ring of at least two slices");
 };
 
+// No witness: the instances on the path write no product.
+struct NoWitness {
+  template <class A>
+  __device__ __forceinline__ void operator()(int, const A&) const {}
+};
+
+// The witness of the projection's products (the kWitness instances of
+// lstm_fwd_tc_kernel and lstm_bwd_tc_kernel): stage 0, round(x . Wi), and
+// stage 1, round(x . Wi) + h . Wr (the pre-activations before the bias),
+// of row `row` and unit `unit` of each gate into wit [2][T * N][4H] f32.
+template <int H, int R>
+struct ProjWitness {
+  float* wit;
+  size_t trow;      // t * N
+  size_t rows;      // T * N
+  int first_row;    // the thread's rows: first_row + 8 j + e
+  int row_end;
+  int unit;         // the thread's unit (+ 8 s)
+
+  __device__ __forceinline__ void operator()(
+      int stage, const float (&acc)[4][R / 2]) const {
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = first_row + 8 * j + e;
+          if (row >= row_end) continue;
+          float* out =
+              wit + (stage * rows + trow + row) * 4 * H + unit + 8 * s;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) out[g * H] = acc[g][4 * j + 2 * s + e];
+        }
+  }
+};
+
 // The gates' pre-activations of one step on tensor cores, gates as wgmma's
 // M and the block's rows as its N, shared by the forward and the
 // backward's recompute so that both compute them alike: acc[g] =
 // round(x . Wi)^T (the hoisted Dense's rounding point) with the
-// projection, then (+)= (h . Wr)^T. The ring's next slices are Wi by
-// (F-chunk, gate), then Wr by (H-chunk, gate), each the block's units of
+// projection, then (+)= (h . Wr)^T; witness(0, acc) after the first,
+// witness(1, acc) after the second (no-ops but in the witness instances).
+// The ring's next slices are Wi by (F-chunk, gate), then Wr by (H-chunk,
+// gate), each the block's units of
 // its gate (all H, or H / 2 in a cluster of two), as K-major slices of the
 // transposed weight (kTransA 0, the backward) or MN-major boxes of the
 // weight as it stands (kTransA 1, the forward; ring_product); x_s is the
@@ -993,12 +1048,11 @@ struct TcBwd {
 // over all H units, a_off this warpgroup's rows of a stage. E: the
 // operands' type (bf16; f16 in the float16 backward).
 template <int H, int R, bool kProj, int kTransA, typename E, int S,
-          class Issue>
-__device__ __forceinline__ void preactivations(SliceRing<S>& slices,
-                                               Issue& issue,
-                                               float (&acc)[4][R / 2],
-                                               uint32_t a_off, uint32_t x_s,
-                                               uint32_t h_s, int f_in) {
+          class Issue, class Witness = NoWitness>
+__device__ __forceinline__ void preactivations(
+    SliceRing<S>& slices, Issue& issue, float (&acc)[4][R / 2],
+    uint32_t a_off, uint32_t x_s, uint32_t h_s, int f_in,
+    const Witness& witness = Witness()) {
   constexpr int kSub = R * 128;   // one [R][64] subtile
   if constexpr (kProj) {
     for (int kc = 0; kc < f_in / kTcK; ++kc)
@@ -1014,6 +1068,7 @@ __device__ __forceinline__ void preactivations(SliceRing<S>& slices,
         wgmma_fence_operand(acc[g][i]);
         acc[g][i] = round_to<E>(acc[g][i]);
       }
+    witness(0, acc);
   }
   for (int kc = 0; kc < H / kTcK; ++kc)
 #pragma unroll
@@ -1025,6 +1080,7 @@ __device__ __forceinline__ void preactivations(SliceRing<S>& slices,
   for (int g = 0; g < 4; ++g)
 #pragma unroll
     for (int i = 0; i < R / 2; ++i) wgmma_fence_operand(acc[g][i]);
+  if constexpr (kProj) witness(1, acc);
 }
 
 // One gate's pre-activation from its product acc: x_proj + h . Wr + b in
@@ -1046,24 +1102,35 @@ __device__ __forceinline__ float gate_pre(const uint8_t* x, float acc,
 // (h_in as the step used it, [T, N, H]), dx (projection), dh0, dc0 and
 // part_b (this row tile's db partial, [tiles, 4H]).
 //
-// With kSplit = 2 (H = 384, 512; no projection) the two blocks of a
-// cluster own the same R rows and H / 2 units each (rank r: units r H / 2
-// ..), as the forward's do, so a block keeps the H = 192 / 256 instance's
-// warpgroups and registers. Each loads the whole h_in tile (from ys / h0,
-// no exchange), recomputes its units' pre-activations from the Wr^T
-// slices of its units in the forward's slice order, and streams the Wr
-// rows of its units for dh_prev^T = Wr . dgates^T, whose K is all 4H
-// gates: so after the gate math a thread writes its dgates into its own
-// dgates tile and its peer's (distributed shared memory). Two cluster
-// barriers a step keep the tiles right: the first after both blocks'
-// pre-activations, so that no write reaches a dgates tile that the peer's
-// dh_prev product of the step before still reads; the second after the
-// writes (release / acquire, then fence.proxy.async on both sides), so
-// that both blocks' products read both halves. A block never exits while
-// its peer can still write into it: the last write is before the last
-// step's second barrier, and a chunk of no policy is skipped by both blocks
-// of its cluster together (they share its rows, so its policy).
-template <typename E, int H, int R, bool kProj, int kSplit>
+// With kSplit = 2 (H = 384, 512) the two blocks of a cluster own the same
+// R rows and H / 2 units each (rank r: units r H / 2 ..), as the forward's
+// do, so a block keeps the H = 192 / 256 instance's warpgroups and
+// registers. Each loads the whole h_in tile (from ys / h0, no exchange; with
+// the projection the whole x tile too), recomputes its units'
+// pre-activations from the Wi^T and Wr^T slices of its units in the
+// forward's slice order, and streams the Wr rows of its units for
+// dh_prev^T = Wr . dgates^T, whose K is all 4H gates: so after the gate
+// math a thread writes its dgates into its own dgates tile and its peer's
+// (distributed shared memory). With the projection, dx^T = Wi . dgates^T
+// (K = 4H as well) is split by input feature: each band of H features
+// gives rank r its U features r U .., the Wi rows of the ring's slices, so
+// no feature is computed twice (a rank whose features of a band all lie
+// past F issues no slice for it). Two cluster barriers a step keep the
+// tiles right: the first after both blocks' pre-activations, so that no
+// write reaches a dgates tile whose x the peer still reads or that the
+// peer's dh_prev (dx) product of the step before still reads; the second
+// after the writes (release / acquire, then fence.proxy.async on both
+// sides), so that both blocks' products read both halves. A block never
+// exits while its peer can still write into it: the last write is before
+// the last step's second barrier, and a chunk of no policy is skipped by
+// both blocks of its cluster together (they share its rows, so its
+// policy). The kWitness instance (H = 384 and 512 with the projection)
+// also writes each step's recomputed products to wit (ProjWitness), which
+// the forward's kWitness instance writes from the products it computed:
+// the witness that the two are the same bitwise. The other instances
+// never touch wit.
+template <typename E, int H, int R, bool kProj, int kSplit,
+          bool kWitness = false>
 __global__ void __launch_bounds__(TcBwd<H, R, kSplit>::kThreads, 1)
     lstm_bwd_tc_kernel(const __grid_constant__ CUtensorMap wit_map,
                        const __grid_constant__ CUtensorMap wrt_map,
@@ -1078,8 +1145,7 @@ __global__ void __launch_bounds__(TcBwd<H, R, kSplit>::kThreads, 1)
                        E* __restrict__ dc0, float* __restrict__ part_b,
                        int steps, int n_rows, int f_in,
                        const int* __restrict__ chunk_policy, int chunk,
-                       int num_policies) {
-  static_assert(kSplit == 1 || !kProj, "the projection is not split");
+                       int num_policies, float* __restrict__ wit_out) {
   using L = TcBwd<H, R, kSplit>;
   constexpr int G4 = 4 * H;
   constexpr int U = L::kUnits;
@@ -1131,12 +1197,14 @@ __global__ void __launch_bounds__(TcBwd<H, R, kSplit>::kThreads, 1)
 
   // The weight slices of one step, in the order the step consumes them:
   // Wi^T by (F-chunk, gate), Wr^T by (H-chunk, gate), Wr by 4H-chunk, Wi by
-  // (band of H rows, 4H-chunk), each the U rows of the block's units; the
-  // same sequence every step.
+  // (band of H rows, 4H-chunk), each the U rows of the block's units (of
+  // Wi: its U features of the band); the same sequence every step. A band
+  // whose features of this block all lie past F is not loaded.
   const int xp_loads = kProj ? 4 * (f_in / kTcK) : 0;
   const int g_loads = 4 * (H / kTcK);
   const int d_loads = G4 / kTcK;
-  const int bands = kProj ? (f_in + H - 1) / H : 0;
+  const int bands =
+      kProj && f_in > unit_base ? (f_in - unit_base + H - 1) / H : 0;
   const int step_loads = xp_loads + g_loads + d_loads * (1 + bands);
   const int total = steps * step_loads;
   const CUtensorMap* wit = &wit_map;
@@ -1147,7 +1215,8 @@ __global__ void __launch_bounds__(TcBwd<H, R, kSplit>::kThreads, 1)
   auto issue = [&](int q, uint32_t dst, uint64_t* bar) {
     int p = q % step_loads;
     if (p < xp_loads) {
-      tma_load_3d(dst, wit, bar, (p / 4) * kTcK, (p % 4) * H, pol);
+      tma_load_3d(dst, wit, bar, (p / 4) * kTcK, (p % 4) * H + unit_base,
+                  pol);
       return;
     }
     p -= xp_loads;
@@ -1162,8 +1231,8 @@ __global__ void __launch_bounds__(TcBwd<H, R, kSplit>::kThreads, 1)
       return;
     }
     p -= d_loads;
-    tma_load_3d(dst, wim, bar, (p % d_loads) * kTcK, (p / d_loads) * H,
-                pol);
+    tma_load_3d(dst, wim, bar, (p % d_loads) * kTcK,
+                (p / d_loads) * H + unit_base, pol);
   };
   SliceRing<S> slices{full, empty, ring, L::kStageBytes, total, 0};
   if (tid == 0) slices.init(L::kWarps);
@@ -1295,15 +1364,23 @@ __global__ void __launch_bounds__(TcBwd<H, R, kSplit>::kThreads, 1)
 
     // Pre-activations as the forward computes them (x in the dgates tile).
     float acc[4][kAcc];
-    preactivations<H, R, kProj, 0, E>(slices, issue, acc, a_off, dg_s,
-                                      hin_s, f_in);
+    if constexpr (kWitness)
+      preactivations<H, R, kProj, 0, E>(
+          slices, issue, acc, a_off, dg_s, hin_s, f_in,
+          ProjWitness<H, R>{wit_out, trow, static_cast<size_t>(steps) * n_rows,
+                            block_row + 2 * lt, row_end,
+                            unit_base + unit0});
+    else
+      preactivations<H, R, kProj, 0, E>(slices, issue, acc, a_off, dg_s,
+                                        hin_s, f_in);
     // The projection's x sits where the dgates go: every warpgroup is done
-    // reading it. With a cluster: the peer's dh_prev product of step t + 1
-    // is done, before this block writes into its dgates tile.
-    if constexpr (kProj)
-      __syncthreads();
-    else if constexpr (kSplit > 1)
+    // reading it. With a cluster: the peer's too, and the peer's dh_prev
+    // (dx) products of step t + 1 are done, before this block writes into
+    // its dgates tile.
+    if constexpr (kSplit > 1)
       cluster_sync();
+    else if constexpr (kProj)
+      __syncthreads();
 
     // Gate math, thread-local: dgates rounded to E into the dgates tile
     // (each thread rewrites only the x_proj elements it read; with a
@@ -1379,11 +1456,11 @@ __global__ void __launch_bounds__(TcBwd<H, R, kSplit>::kThreads, 1)
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) wgmma_fence_operand(dhp[i]);
 
-    // dx^T = Wi . dgates^T, a band of H input features at a time, rounded
-    // once to E.
+    // dx^T = Wi . dgates^T, a band of H input features at a time (this
+    // block's U of them), rounded once to E.
     if constexpr (kProj) {
       for (int band = 0; band < bands; ++band) {
-        const int f0 = band * H + wg * 64;
+        const int f0 = band * H + unit_base + wg * 64;
         float dxa[kAcc];
         for (int kc = 0; kc < G4 / kTcK; ++kc)
           consume(dxa, dg_s + kc * L::kSub, kc == 0);
@@ -1448,7 +1525,10 @@ __global__ void __launch_bounds__(TcBwd<H, R, kSplit>::kThreads, 1)
 // recurrence's dg and hin, db from its part_b). E: __nv_bfloat16, or
 // __half without the projection. At H = 384 and 512, clusters of two
 // blocks (kTcSplit), launched with their cluster dimension by
-// cudaLaunchKernelEx; a refused launch returns its error.
+// cudaLaunchKernelEx; a refused launch returns its error. wit: null, or
+// the recompute's witness (f32 [2][T * N][4H]: the kWitness instance of
+// lstm_bwd_tc_kernel, built with the projection at 384 and 512 alone;
+// other arguments with wit are refused).
 template <typename E, int H, bool kProj>
 int launch_bwd_tc(int phases, const void* x, const void* keep,
                   const void* wi, const void* wi_t, const void* wr,
@@ -1458,11 +1538,15 @@ int launch_bwd_tc(int phases, const void* x, const void* keep,
                   void* dc0, void* part_w, void* part_b, void* dw, void* db,
                   int steps, int n_rows, int f_in, int splits,
                   cudaStream_t stream, const void* chunk_policy = nullptr,
-                  int num_chunks = 1, int chunk = 0, int num_policies = 1) {
-  constexpr int R = kTcRows<kProj>;
+                  int num_chunks = 1, int chunk = 0, int num_policies = 1,
+                  void* wit = nullptr) {
+  constexpr int R = kTcRows<kProj, H>;
   constexpr int kSplit = kTcSplit<H>;
   constexpr int U = H / kSplit;
   using L = TcBwd<H, R, kSplit>;
+  constexpr bool kWitnessed = kProj && kSplit > 1;
+  if (wit != nullptr && !kWitnessed)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = fwd_blocks(chunk_policy, num_chunks, chunk, n_rows, R);
   const int total_rows = steps * n_rows;
   constexpr CUtensorMapDataType dt = tma_dtype<E>();
@@ -1479,7 +1563,10 @@ int launch_bwd_tc(int phases, const void* x, const void* keep,
         !make_tma_map(&wi_map, kProj ? wi : wr, 4 * H, kProj ? f_in : H,
                       num_policies, kTcK, U, dt))
       return static_cast<int>(cudaErrorInvalidValue);
-    const auto kernel = lstm_bwd_tc_kernel<E, H, R, kProj, kSplit>;
+    const auto kernel =
+        wit != nullptr
+            ? lstm_bwd_tc_kernel<E, H, R, kProj, kSplit, kWitnessed>
+            : lstm_bwd_tc_kernel<E, H, R, kProj, kSplit, false>;
     int err = set_smem(kernel, L::kSmem);
     if (err != 0) return err;
     cudaLaunchConfig_t cfg = {};
@@ -1503,7 +1590,8 @@ int launch_bwd_tc(int phases, const void* x, const void* keep,
         static_cast<E*>(dx), static_cast<E*>(dg), static_cast<E*>(hin),
         static_cast<E*>(dh0), static_cast<E*>(dc0),
         static_cast<float*>(part_b), steps, n_rows, f_in,
-        static_cast<const int*>(chunk_policy), chunk, num_policies);
+        static_cast<const int*>(chunk_policy), chunk, num_policies,
+        static_cast<float*>(wit));
     if (launched != cudaSuccess) return static_cast<int>(launched);
     err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
@@ -1558,9 +1646,11 @@ constexpr int kFwdTcStages = 4;
 // block's units, as U / 64 TMA boxes of [64 k][64 units]), the block's h
 // tile (the K-major B operand of h . Wr over all H units, which the gate
 // math overwrites with the next step's carry) and its x tile (K-major
-// [R][4U]: the x_proj columns of its units, or x in one or two buffers of
-// [R][F]).
-template <int H, int R, int kSplit>
+// [R][4U]: the x_proj columns of its units; or x, the whole K of x . Wi in
+// every block, in one or two buffers of [R][F], F <= 4H). At H = 512 with
+// the projection that is 128 KiB of x and 32 of h, which leave two ring
+// stages of 32 KiB (four at 384).
+template <int H, int R, int kSplit, bool kProj = false>
 struct TcFwd {
   static constexpr int kUnits = H / kSplit;
   static constexpr int kWarpgroups = kUnits / 64;   // 64 units each
@@ -1569,7 +1659,7 @@ struct TcFwd {
   static constexpr int kSub = R * 128;          // one [R][64] subtile
   static constexpr int kStageBytes = kUnits * 128;
   static constexpr int kHBytes = R * H * 2;
-  static constexpr int kXBytes = R * 4 * kUnits * 2;
+  static constexpr int kXBytes = R * 4 * (kProj ? H : kUnits) * 2;
   static constexpr int kFixed = kHBytes + kXBytes;
   static constexpr int kStages =
       min_c(kFwdTcStages, (kSmemLimit - 2048 - kFixed) / kStageBytes);
@@ -1589,11 +1679,12 @@ struct TcFwd {
 // wgmma's MN-major A operand as they stand, so the forward needs no
 // transposed copy of a weight.
 //
-// With kSplit = 2 (H = 384, 512; no projection) the two blocks of a
-// cluster own the same R rows and H / 2 units each (rank r: units r H / 2
-// ..), so a block keeps the H = 192 / 256 instance's warpgroups and
-// registers. Each streams its units' columns of Wr, stages its units'
-// x_proj columns, and holds the whole h tile (the product's K = H). After
+// With kSplit = 2 (H = 384, 512) the two blocks of a cluster own the same
+// R rows and H / 2 units each (rank r: units r H / 2 ..), so a block keeps
+// the H = 192 / 256 instance's warpgroups and registers. Each streams its
+// units' columns of Wr (and Wi), stages its units' x_proj columns (or the
+// whole x: the projection's K is F), and holds the whole h tile (the
+// product's K = H). After
 // the gate math a thread writes its carry into its own h tile and its
 // peer's (distributed shared memory). Two cluster barriers a step keep the
 // tiles right: the first after both blocks' products, so that no write
@@ -1602,9 +1693,13 @@ struct TcFwd {
 // next step's products read both halves. A block never exits while its
 // peer can still write into it: the last write is before the last step's
 // second barrier, and a chunk of no policy is skipped by both blocks of
-// its cluster together (they share its rows, so its policy).
-template <typename E, int H, int R, bool kProj, int kSplit>
-__global__ void __launch_bounds__(TcFwd<H, R, kSplit>::kThreads, 1)
+// its cluster together (they share its rows, so its policy). The kWitness
+// instance (H = 384 and 512 with the projection) also writes each step's
+// products to wit (ProjWitness): the witness lstm_bwd_tc_kernel's recompute
+// is held to.
+template <typename E, int H, int R, bool kProj, int kSplit,
+          bool kWitness = false>
+__global__ void __launch_bounds__(TcFwd<H, R, kSplit, kProj>::kThreads, 1)
     lstm_fwd_tc_kernel(const __grid_constant__ CUtensorMap wi_map,
                        const __grid_constant__ CUtensorMap wr_map,
                        const E* __restrict__ x, const E* __restrict__ keep,
@@ -1612,9 +1707,8 @@ __global__ void __launch_bounds__(TcFwd<H, R, kSplit>::kThreads, 1)
                        const E* __restrict__ h0, E* __restrict__ ys,
                        E* __restrict__ cs, int steps, int n_rows, int f_in,
                        const int* __restrict__ chunk_policy, int chunk,
-                       int num_policies) {
-  static_assert(kSplit == 1 || !kProj, "the projection is not split");
-  using L = TcFwd<H, R, kSplit>;
+                       int num_policies, float* __restrict__ wit) {
+  using L = TcFwd<H, R, kSplit, kProj>;
   constexpr int S = L::kStages;
   constexpr int U = L::kUnits;
   constexpr int kAcc = R / 2;
@@ -1696,7 +1790,8 @@ __global__ void __launch_bounds__(TcFwd<H, R, kSplit>::kThreads, 1)
     const size_t trow = static_cast<size_t>(t) * n_rows;
     for (int e = tid; e < R * (x_width / 8); e += L::kThreads) {
       const int n = e / (x_width / 8), c = (e % (x_width / 8)) * 8;
-      const int col = kSplit == 1 ? c : (c / U) * H + unit_base + c % U;
+      const int col =
+          kProj || kSplit == 1 ? c : (c / U) * H + unit_base + c % U;
       const int row = block_row + n;
       const bool live = row < row_end;
       cp_async16(dst + kmaj_off<R>(n, c),
@@ -1763,9 +1858,17 @@ __global__ void __launch_bounds__(TcFwd<H, R, kSplit>::kThreads, 1)
     if (x_bufs == 2 && t + 1 < steps) load_x(t + 1);
 
     float acc[4][kAcc];
-    preactivations<H, R, kProj, 1, E>(slices, issue, acc, a_off,
-                                      x_s + (t % x_bufs) * x_buf_bytes, h_s,
-                                      f_in);
+    if constexpr (kWitness)
+      preactivations<H, R, kProj, 1, E>(
+          slices, issue, acc, a_off, x_s + (t % x_bufs) * x_buf_bytes, h_s,
+          f_in,
+          ProjWitness<H, R>{wit, trow, static_cast<size_t>(steps) * n_rows,
+                            block_row + 2 * lt, row_end,
+                            unit_base + unit0});
+    else
+      preactivations<H, R, kProj, 1, E>(slices, issue, acc, a_off,
+                                        x_s + (t % x_bufs) * x_buf_bytes,
+                                        h_s, f_in);
     if constexpr (!kProj) cp_async_wait<0>();   // x_proj of step t
     // Every warpgroup is done reading the h tile (and x with the
     // projection); x_proj of step t is in. With a cluster: the peer's
@@ -1833,18 +1936,26 @@ __global__ void __launch_bounds__(TcFwd<H, R, kSplit>::kThreads, 1)
 // over each whole stack. At H = 384 and 512, clusters of two blocks
 // (kTcSplit), launched with their cluster dimension by cudaLaunchKernelEx;
 // a refused launch returns its error. E: __nv_bfloat16, or __half without
-// the projection at H = 128 and 256.
+// the projection at H = 128 and 256. wit: null, or the products' witness
+// (f32 [2][T * N][4H]: the kWitness instance of lstm_fwd_tc_kernel, built
+// with the projection at 384 and 512 alone; other arguments with wit are
+// refused).
 template <typename E, int H, bool kProj>
 int launch_fwd_tc(const void* x, const void* keep, const void* wi,
                   const void* wr, const void* bias, const void* c0,
                   const void* h0, void* ys, void* cs, int steps, int n_rows,
                   int f_in, cudaStream_t stream,
                   const void* chunk_policy = nullptr, int num_chunks = 0,
-                  int chunk = 0, int num_policies = 1) {
+                  int chunk = 0, int num_policies = 1, void* wit = nullptr) {
   constexpr int R = kFwdTcRows;
   constexpr int kSplit = kTcSplit<H>;
-  using L = TcFwd<H, R, kSplit>;
-  const auto kernel = lstm_fwd_tc_kernel<E, H, R, kProj, kSplit>;
+  using L = TcFwd<H, R, kSplit, kProj>;
+  constexpr bool kWitnessed = kProj && kSplit > 1;
+  if (wit != nullptr && !kWitnessed)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel =
+      wit != nullptr ? lstm_fwd_tc_kernel<E, H, R, kProj, kSplit, kWitnessed>
+                     : lstm_fwd_tc_kernel<E, H, R, kProj, kSplit, false>;
   constexpr CUtensorMapDataType dt = tma_dtype<E>();
   CUtensorMap wi_map, wr_map;
   if (!make_tma_map(&wr_map, wr, 4 * H, H, num_policies, 64, kTcK, dt) ||
@@ -1871,7 +1982,8 @@ int launch_fwd_tc(const void* x, const void* keep, const void* wi,
       static_cast<const E*>(keep), static_cast<const E*>(bias),
       static_cast<const E*>(c0), static_cast<const E*>(h0),
       static_cast<E*>(ys), static_cast<E*>(cs), steps, n_rows, f_in,
-      static_cast<const int*>(chunk_policy), chunk, num_policies);
+      static_cast<const int*>(chunk_policy), chunk, num_policies,
+      static_cast<float*>(wit));
   if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1888,9 +2000,9 @@ bool proj_width_ok(int hidden, int f_in) {
 // 256, 384 and 512 and for float16 at 384 and 512 (bfloat16 takes
 // mlt_lstm_fwd_tc and mlt_lstm_bwd_tc at every width, float16 at 128 and
 // 256); the
-// projection kernels for float32 alone, at 128 and 256 (float16 takes the
-// unfused kernels, as the JAX package's lstm_proj_supported sends it to its
-// unfused route).
+// projection kernels for float32 alone, at every width (bfloat16 takes the
+// tensor-core entry points; float16 the unfused kernels, as the JAX
+// package's lstm_proj_supported sends it to its unfused route).
 //
 // Wider layers (H = 384, 512). The tensor-core kernels give each warpgroup
 // 64 units of all four gates, so one block would need H / 64 warpgroups:
@@ -1907,18 +2019,27 @@ bool proj_width_ok(int hidden, int f_in) {
 // boxes of H / 2 <= 256 rows). The forward (lstm_fwd_tc_kernel) stages its
 // units' x_proj and holds the whole h tile, into which both blocks write
 // their halves of each carry through distributed shared memory (224 KiB at
-// 512 with a 4-stage ring). The backward (lstm_bwd_tc_kernel) loads the
+// 512 with a 4-stage ring; with the projection each block holds the whole
+// x, 128 KiB at F = 4H = 2048, and the ring keeps two stages). The
+// projection's products are split like Wr's: each block computes
+// round(x . Wi) for its units' gate columns, then adds h . Wr, in the
+// single block's slice order. The backward (lstm_bwd_tc_kernel) loads the
 // whole h_in tile from ys / h0 (no exchange), recomputes its units'
 // pre-activations through the forward's helper in the forward's slice
 // order, so that "both compute them alike" (the header) holds at every
 // width, and writes its units' dgates into both blocks' dgates tiles
 // through distributed shared memory, so that each computes dh_prev of its
 // units over all 4H gates (200 KiB at 512 with a 3-stage ring, 175 KiB at
-// 384 with 4). A single block of 4 warpgroups x 128 units at R = 16 would
+// 384 with 4); with the projection x arrives in the dgates tile (F <= 4H)
+// and dx's features are split between the blocks, at R = 16 at 512 (3
+// stages) and 32 at 384 (2 stages): kTcRows. A single block of 4
+// warpgroups x 128 units at R = 16 would
 // also fit the forward, but it doubles Wr's L2 traffic a row, which bounds
 // these kernels; the cluster was taken. float32, and float16 at these
 // widths, stay on the CUDA-core kernels (storage-type operands converted
-// exactly to f32, f32 sums, the carry rounded to the storage type). Every
+// exactly to f32, f32 sums, the carry rounded to the storage type; the
+// float32 projection backward's x tile shares the dgates tile at 512,
+// kProjXInDg). Every
 // contract of the narrower instances holds: the rollout step is the
 // sequence forward's step, a chunked row is the single-policy kernel's, a
 // chunk of no policy writes NaN, a policy's dWr / db sum its chunks' split
@@ -1937,6 +2058,11 @@ bool proj_width_ok(int hidden, int f_in) {
 #define MLT_DISPATCH_SEQ(CALL)                                   \
   MLT_DISPATCH_WIDE(CALL, 384);                                  \
   MLT_DISPATCH_WIDE(CALL, 512);                                  \
+  MLT_DISPATCH_F32(CALL)
+// The CUDA-core projection kernels: float32 at every width.
+#define MLT_DISPATCH_PROJ(CALL)                                  \
+  if (dtype == 0 && hidden == 384) return CALL(float, 384);      \
+  if (dtype == 0 && hidden == 512) return CALL(float, 512);      \
   MLT_DISPATCH_F32(CALL)
 
 extern "C" int mlt_lstm_fwd(int dtype, int hidden, const void* xp,
@@ -1978,7 +2104,7 @@ extern "C" int mlt_lstm_proj_fwd(int dtype, int hidden, int f_in,
 #define MLT_PROJ_FWD(T, H)                                                 \
   launch_proj_fwd<T, H>(x, keep, wi, wr, bias, c0, h0, ys, cs, steps,      \
                         n_rows, f_in, s)
-  MLT_DISPATCH_F32(MLT_PROJ_FWD);
+  MLT_DISPATCH_PROJ(MLT_PROJ_FWD);
 #undef MLT_PROJ_FWD
 }
 
@@ -1995,15 +2121,15 @@ extern "C" int mlt_lstm_proj_bwd(
   launch_proj_bwd<T, H>(x, keep, wi, wi_t, wr, wr_t, bias, c0, h0, ys, cs, \
                         dys, dx, dg, dh0, dc0, part_wi, part_w, part_b,    \
                         dwi, dwr, db, steps, n_rows, f_in, splits, s)
-  MLT_DISPATCH_F32(MLT_PROJ_BWD);
+  MLT_DISPATCH_PROJ(MLT_PROJ_BWD);
 #undef MLT_PROJ_BWD
 }
 
 // The tensor-core backward of both variants (f_in = 0: lstm_sequence_bwd,
 // with x = x_proj and dg = dx_proj; else lstm_sequence_proj_bwd): bfloat16
-// (dtype 1) at H = 128, 256, 384 and 512 (the projection at 128 and 256),
-// float16 (dtype 2, no projection) at 128 and 256. Returns a cudaError_t,
-// or -1 for arguments without an instantiation.
+// (dtype 1) at H = 128, 256, 384 and 512, float16 (dtype 2, no projection)
+// at 128 and 256. Returns a cudaError_t, or -1 for arguments without an
+// instantiation.
 extern "C" int mlt_lstm_bwd_tc(
     int dtype, int hidden, int f_in, int phases, const void* x,
     const void* keep, const void* wi, const void* wi_t, const void* wr,
@@ -2024,8 +2150,8 @@ extern "C" int mlt_lstm_bwd_tc(
   if (dtype == 1) {
     MLT_BWD_TC_H(128);
     MLT_BWD_TC_H(256);
-    if (f_in == 0 && hidden == 384) return MLT_BWD_TC(bf16, 384, false);
-    if (f_in == 0 && hidden == 512) return MLT_BWD_TC(bf16, 512, false);
+    MLT_BWD_TC_H(384);
+    MLT_BWD_TC_H(512);
   }
   if (dtype == 2 && f_in == 0) {
     if (hidden == 128) return MLT_BWD_TC(__half, 128, false);
@@ -2039,9 +2165,9 @@ extern "C" int mlt_lstm_bwd_tc(
 // The tensor-core forward of both variants (f_in = 0: lstm_sequence_fwd,
 // x = x_proj; else lstm_sequence_proj_fwd), from the weights as they stand,
 // Wi [F, 4H] (unread without the projection) and Wr [H, 4H]: bfloat16
-// (dtype 1) at H = 128, 256, 384 and 512 (the projection at 128 and 256),
-// float16 (dtype 2, no projection) at 128 and 256. Returns a cudaError_t,
-// or -1 for arguments without an instantiation.
+// (dtype 1) at H = 128, 256, 384 and 512, float16 (dtype 2, no
+// projection) at 128 and 256. Returns a cudaError_t, or -1 for arguments
+// without an instantiation.
 extern "C" int mlt_lstm_fwd_tc(int dtype, int hidden, int f_in,
                                const void* x, const void* keep,
                                const void* wi, const void* wr,
@@ -2060,8 +2186,8 @@ extern "C" int mlt_lstm_fwd_tc(int dtype, int hidden, int f_in,
   if (dtype == 1) {
     MLT_FWD_TC_H(128);
     MLT_FWD_TC_H(256);
-    if (f_in == 0 && hidden == 384) return MLT_FWD_TC(bf16, 384, false);
-    if (f_in == 0 && hidden == 512) return MLT_FWD_TC(bf16, 512, false);
+    MLT_FWD_TC_H(384);
+    MLT_FWD_TC_H(512);
   }
   if (dtype == 2 && f_in == 0) {
     if (hidden == 128) return MLT_FWD_TC(__half, 128, false);
@@ -2193,6 +2319,8 @@ extern "C" int mlt_lstm_proj_fwd_chunked(
                                         num_policies)
     MLT_PROJ_FWD_CHUNKED_TC(128);
     MLT_PROJ_FWD_CHUNKED_TC(256);
+    MLT_PROJ_FWD_CHUNKED_TC(384);
+    MLT_PROJ_FWD_CHUNKED_TC(512);
 #undef MLT_PROJ_FWD_CHUNKED_TC
     return -1;
   }
@@ -2200,7 +2328,7 @@ extern "C" int mlt_lstm_proj_fwd_chunked(
   launch_proj_fwd<T, H>(x, keep, wi, wr, bias, c0, h0, ys, cs, steps,      \
                         n_rows, f_in, s, chunk_policy, num_chunks, chunk,  \
                         num_policies)
-  MLT_DISPATCH_F32(MLT_PROJ_FWD_CHUNKED);
+  MLT_DISPATCH_PROJ(MLT_PROJ_FWD_CHUNKED);
 #undef MLT_PROJ_FWD_CHUNKED
 }
 
@@ -2214,7 +2342,8 @@ extern "C" int mlt_lstm_proj_fwd_chunked(
 // (0 for a policy without a chunk). dg is the rounded dgates' [T, N, 4H]
 // scratch. tensor_core 1 takes the bf16 tensor-core recurrence and
 // weight-gradient pass: hin [T, N, H] scratch, part_w [num_chunks *
-// splits, F + H, 4H], part_b [num_chunks * ceil(chunk / 32), 4H], and dwr
+// splits, F + H, 4H], part_b [num_chunks * ceil(chunk / R), 4H] (R =
+// kTcRows<true, H>: 32, and 16 at H = 512), and dwr
 // receives [P, F + H, 4H], dWi over dWr (dwi and part_wi unused); 0 the
 // float32 CUDA-core kernels: hin unused, part_wi [num_chunks * splits, F,
 // 4H], part_w [.., H, 4H] and part_b [.., 4H], dwi [P, F, 4H] and dwr
@@ -2246,6 +2375,8 @@ extern "C" int mlt_lstm_proj_bwd_chunked(
         s, chunk_policy, num_chunks, chunk, num_policies)
     MLT_PROJ_BWD_CHUNKED_TC(128);
     MLT_PROJ_BWD_CHUNKED_TC(256);
+    MLT_PROJ_BWD_CHUNKED_TC(384);
+    MLT_PROJ_BWD_CHUNKED_TC(512);
 #undef MLT_PROJ_BWD_CHUNKED_TC
     return -1;
   }
@@ -2254,10 +2385,60 @@ extern "C" int mlt_lstm_proj_bwd_chunked(
                         dys, dx, dg, dh0, dc0, part_wi, part_w, part_b,    \
                         dwi, dwr, db, steps, n_rows, f_in, splits, s,      \
                         chunk_policy, num_chunks, chunk, num_policies)
-  MLT_DISPATCH_F32(MLT_PROJ_BWD_CHUNKED);
+  MLT_DISPATCH_PROJ(MLT_PROJ_BWD_CHUNKED);
 #undef MLT_PROJ_BWD_CHUNKED
 }
 
+// The projection's product witness, held bitwise on the card
+// (chip_smoke.py): the bf16 tensor-core forward (mlt_lstm_proj_fwd_witness)
+// and the backward's recurrence alone (mlt_lstm_proj_bwd_witness, phase 1)
+// on their kWitness instances at H = 384 or 512, with the arguments of
+// mlt_lstm_fwd_tc / mlt_lstm_bwd_tc, each writing wit, f32 [2][T * N][4H]:
+// round(x . Wi), then round(x . Wi) + h . Wr, of every row and step (the
+// backward's recomputed from ys). Returns a cudaError_t, or -1 for
+// arguments without an instantiation.
+extern "C" int mlt_lstm_proj_fwd_witness(
+    int hidden, int f_in, const void* x, const void* keep, const void* wi,
+    const void* wr, const void* bias, const void* c0, const void* h0,
+    void* ys, void* cs, int steps, int n_rows, void* wit, void* stream) {
+  if (!proj_width_ok(hidden, f_in) || wit == nullptr ||
+      static_cast<long long>(steps) * n_rows > 0x7fffffffLL)
+    return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MLT_FWD_WITNESS(H)                                                  \
+  if (hidden == H)                                                         \
+    return launch_fwd_tc<bf16, H, true>(x, keep, wi, wr, bias, c0, h0, ys, \
+                                        cs, steps, n_rows, f_in, s,         \
+                                        nullptr, 0, 0, 1, wit)
+  MLT_FWD_WITNESS(384);
+  MLT_FWD_WITNESS(512);
+#undef MLT_FWD_WITNESS
+  return -1;
+}
+
+extern "C" int mlt_lstm_proj_bwd_witness(
+    int hidden, int f_in, const void* x, const void* keep, const void* wi,
+    const void* wi_t, const void* wr, const void* wr_t, const void* bias,
+    const void* c0, const void* h0, const void* ys, const void* cs,
+    const void* dys, void* dx, void* dg, void* hin, void* dh0, void* dc0,
+    void* part_b, int steps, int n_rows, void* wit, void* stream) {
+  if (!proj_width_ok(hidden, f_in) || wit == nullptr ||
+      static_cast<long long>(steps) * n_rows > 0x7fffffffLL)
+    return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MLT_BWD_WITNESS(H)                                                  \
+  if (hidden == H)                                                         \
+    return launch_bwd_tc<bf16, H, true>(                                   \
+        1, x, keep, wi, wi_t, wr, wr_t, bias, c0, h0, ys, cs, dys, dx, dg,  \
+        hin, dh0, dc0, nullptr, part_b, nullptr, nullptr, steps, n_rows,    \
+        f_in, 1, s, nullptr, 1, 0, 1, wit)
+  MLT_BWD_WITNESS(384);
+  MLT_BWD_WITNESS(512);
+#undef MLT_BWD_WITNESS
+  return -1;
+}
+
+#undef MLT_DISPATCH_PROJ
 #undef MLT_DISPATCH_SEQ
 #undef MLT_DISPATCH_WIDE
 #undef MLT_DISPATCH_F32

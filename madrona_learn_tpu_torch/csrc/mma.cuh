@@ -474,6 +474,13 @@ static __device__ __forceinline__ void st_cluster_u16(uint32_t addr,
                : "memory");
 }
 
+// Four bytes into another block's shared memory.
+static __device__ __forceinline__ void st_cluster_f32(uint32_t addr,
+                                                      float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
 // fence_proxy_async for every state space: generic-proxy writes into this
 // block's or another block's shared memory before the async proxy reads
 // them.

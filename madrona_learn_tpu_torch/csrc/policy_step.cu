@@ -27,17 +27,19 @@
 // reuses each element for its rows.
 //
 // The float32 kernel (policy_step_kernel; layout and product in
-// common.cuh): kRows rows a block, activations as f32 [kRows][H], the
-// products as f32 FMA loops, which bound it. LayerNorm's row sums over all
-// H units, which one row group's 64 threads (two warps) own: warp
-// shuffles, then one exchange of the two warps' partials through shared
-// memory.
+// common.cuh), at H = 128, 256, 384 and 512: kRows rows a block,
+// activations as f32 [kRows][H], the products as f32 FMA loops, which
+// bound it. One row group's 64 threads (two warps) own all H units of its
+// rows (H / 64 units a thread: 6 at 384, 8 at 512). LayerNorm's row sums
+// over those units: warp shuffles, then one exchange of the two warps'
+// partials through shared memory.
 //
 // The bfloat16 kernel (policy_step_tc_kernel), on Hopper's tensor cores:
 // the twin's products are bf16 operands with f32 accumulation, which is
 // what wgmma computes, with only the order of the sums changed. The
 // wrapper's rule (ops/cuda/policy_step.py: uses_tensor_cores) sends bf16
-// at H = 128 or 256 here.
+// at every width here; at H = 384 and 512 the units are split over a
+// cluster of two blocks (the kernel's comment).
 // - R = kStepTcRows batch rows a block (32: 32-34% faster than 16 at the
 //   headline_fused step on the H100); warpgroup w
 //   owns units 64 w .. 64 w + 63 of every layer and of all four gates. The
@@ -56,8 +58,9 @@
 //   and the h tile.
 // - LayerNorm's row sums over units: a thread's two units, a shuffle over
 //   the eight lanes of a row, then each warp's partial through shared
-//   memory, summed in warp order by one thread a row; a row's outputs do
-//   not depend on N or on where the row sits.
+//   memory, summed in warp order (the cluster's warps in unit order) by one
+//   thread a row; a row's outputs do not depend on N or on where the row
+//   sits.
 // - h' and c' go back over h and c in shared memory, then out by 16-byte
 //   stores.
 //
@@ -76,8 +79,11 @@
 // the single-policy kernel's, so every row equals fused_policy_step's with
 // its policy's weights bitwise; a chunk whose policy lies outside [0, P)
 // (custom policies, which the simulator plays) reads no weight and writes
-// NaN rows. Bound as the step: the 12 policies' 15 MiB of weights stay
-// resident in L2, each block streams its own policy's.
+// NaN rows. Bound as the step: at H = 256 the 12 policies' 15 MiB of
+// weights stay resident in L2, each block streams its own policy's. At
+// H = 512 a policy's W0, W1, Wi and Wr are about 4.5 MiB in bf16, 54 MiB
+// for 12, more than the 50 MB of L2: there the stacks no longer stay
+// resident, and blocks of other policies evict each other's weights.
 //
 // Bound on the H100: at [16384, 3 -> 256 -> 256, LSTM 256] bf16 the step
 // does 19.35 GFLOP, 89% of it in the two [256, 1024] products, against
@@ -277,6 +283,10 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int H>
 int launch_step(const StepArgs<T>& args, cudaStream_t stream) {
   const int smem = kRows * 2 * H * static_cast<int>(sizeof(float));
+  if constexpr (H > 256) {   // 48 and 64 KiB: past the default 48 KB
+    const int err = set_smem(policy_step_kernel<T, H>, smem);
+    if (err != 0) return err;
+  }
   const int blocks =
       fwd_blocks(args.chunk_policy, chunk_count(args), args.chunk,
                  args.n_rows, kRows);
@@ -324,24 +334,27 @@ constexpr int kStepTcRows = 32;   // R, the batch rows a block
 
 // Shared memory of policy_step_tc_kernel, from a 1024-byte aligned base:
 // the ring of weight slices (one 64-deep slice of a [K, H] weight, or of
-// one gate's H columns of Wi or Wr: H / 64 TMA boxes of [64 k][64 units],
-// one a warpgroup), then the block's activation tile (x, zero-padded to
-// 64 or 128 columns, then each layer's output: the K-major B operand of
-// the next product), its h tile (K-major; h' for the copy-out after the
-// products) and its c tile ([R][H], row_off; c' after the gate math).
-template <int H, int R>
+// one gate's H columns of Wi or Wr, the block's U = H / kSplit units of
+// it: U / 64 TMA boxes of [64 k][64 units], one a warpgroup), then the
+// block's activation tile (x, zero-padded to 64 or 128 columns, then each
+// layer's output over all H units: the K-major B operand of the next
+// product), its h tile (K-major over all H; h' of its units for the
+// copy-out after the products) and its c tile ([R][U], row_off; c' after
+// the gate math).
+template <int H, int R, int kSplit = 1>
 struct StepTc {
-  static constexpr int kWarpgroups = H / 64;   // 64 units each
+  static constexpr int kUnits = H / kSplit;
+  static constexpr int kWarpgroups = kUnits / 64;   // 64 units each
   static constexpr int kThreads = 128 * kWarpgroups;
   static constexpr int kWarps = 4 * kWarpgroups;
   static constexpr int kSub = R * 128;          // one [R][64] subtile
   static constexpr int kBox = 64 * 64 * 2;      // one [64 k][64 units] box
-  static constexpr int kStageBytes = H * 128;
+  static constexpr int kStageBytes = kUnits * 128;
   static constexpr int kTileBytes = R * H * 2;
-  static constexpr int kFixed = 3 * kTileBytes;
-  // The row statistics' exchange ([warps][R][2] + [R][2] f32) and the
-  // barriers are static shared memory.
-  static constexpr int kStatic = (kWarps + 1) * R * 8 + 256;
+  static constexpr int kFixed = 2 * kTileBytes + R * kUnits * 2;
+  // The row statistics' exchange ([warps of the cluster][R][2] + [R][2]
+  // f32) and the barriers are static shared memory.
+  static constexpr int kStatic = (kSplit * kWarps + 1) * R * 8 + 256;
   static constexpr int kStages =
       min_c(4, (kSmemLimit - 2048 - kStatic - kFixed) / kStageBytes);
   static constexpr int kSmem = kStages * kStageBytes + kFixed + 1024;
@@ -358,8 +371,27 @@ struct StepTc {
 // operand of wgmma as they stand, each over the [P, K, n] stack of the
 // chunk-indexed instance (P = 1 without chunks), the block's policy the
 // third coordinate; maps past p.layers are never read.
-template <int H, int R>
-__global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
+//
+// With kSplit = 2 (H = 384, 512) the two blocks of a cluster own the same
+// R rows and H / 2 units each (rank r: units r H / 2 ..), so a block keeps
+// the H = 192 / 256 instance's warpgroups and registers (H / 64 warpgroups
+// in one block would leave 85 or 64 registers a thread, where four m64nR
+// accumulators at R = 32 alone take 64). Each block streams its units'
+// columns of every weight and holds the whole activation and h tiles (the
+// products' K); only its units' c. Per layer, two cluster barriers: after
+// the Dense, each warp's LayerNorm partials go into both blocks' red_s
+// (distributed shared memory; at [rank * warps + warp], so the cluster's
+// warps stand in unit order), and the barrier (also: both blocks' products
+// are done) lets each block sum all of them in that fixed order, the same
+// sums in both; then each thread writes its normalized units into both
+// activation tiles, and the second barrier (release / acquire, then
+// fence.proxy.async on both sides) makes the tile whole for the next
+// product. The LSTM cell needs no exchange: each block's gates are its
+// units'. A block never exits while its peer can still write into it: the
+// last remote write is before the last layer's second barrier, and a chunk
+// of no policy is skipped by both blocks of its cluster together.
+template <int H, int R, int kSplit>
+__global__ void __launch_bounds__(StepTc<H, R, kSplit>::kThreads, 1)
     policy_step_tc_kernel(const __grid_constant__ CUtensorMap w0_map,
                           const __grid_constant__ CUtensorMap w1_map,
                           const __grid_constant__ CUtensorMap w2_map,
@@ -367,14 +399,16 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
                           const __grid_constant__ CUtensorMap wi_map,
                           const __grid_constant__ CUtensorMap wr_map,
                           const StepArgs<bf16> p) {
-  using L = StepTc<H, R>;
+  using L = StepTc<H, R, kSplit>;
   constexpr int S = L::kStages;
+  constexpr int U = L::kUnits;
   constexpr int kAcc = R / 2;
   constexpr int kSlices = H / kTcK;   // slices of a [H, H] weight
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[S];
   __shared__ __align__(8) uint64_t empty[S];
-  __shared__ float red_s[L::kWarps][R][2];   // per-warp row sums
+  // per-warp row sums, the cluster's warps in unit order
+  __shared__ float red_s[kSplit * L::kWarps][R][2];
   __shared__ float stat_s[R][2];             // round(mean), rsqrt(var + eps)
   const uint32_t raw_s = smem_u32(smem_raw);
   const uint32_t ring = (raw_s + 1023) & ~1023u;
@@ -385,11 +419,14 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
   uint8_t* h_p = smem_raw + (h_s - raw_s);
   uint8_t* c_p = smem_raw + (c_s - raw_s);
 
-  // The block's rows and policy (fwd_rows); a chunk of no policy is
-  // skipped before any barrier, so the whole block leaves together.
-  const FwdRows rows = fwd_rows(p.chunk_policy, p.chunk, R, p.n_rows);
+  // The block's rows and policy (fwd_rows: the cluster's row tile); a chunk
+  // of no policy is skipped before any barrier, so the whole block (the
+  // whole cluster) leaves together.
+  const int rank = kSplit == 1 ? 0 : static_cast<int>(cluster_rank());
+  const FwdRows rows = fwd_rows(p.chunk_policy, p.chunk, R, p.n_rows,
+                                static_cast<int>(blockIdx.x) / kSplit);
   if (rows.policy < 0 || rows.policy >= p.num_policies) {
-    fill_nan_step<bf16, H>(p, rows, R);
+    if (rank == 0) fill_nan_step<bf16, H>(p, rows, R);
     return;
   }
   const int pol = rows.policy;
@@ -398,12 +435,19 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
   const int tid = threadIdx.x;
   const int wg = tid / 128, warp = tid / 32, lane = tid % 32;
   const int lt = lane % 4;
+  // unit0 counts the block's own units (the ring's columns, the c tile's);
+  // unit_base + unit0 is the unit of the layer.
+  const int unit_base = rank * U;
   const int unit0 = wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
   const int block_row = rows.first;
+  // The tiles' byte offset of unit u + unit_base over unit u's (U is a
+  // multiple of 64: whole [R][64] subtiles).
+  const uint32_t u_shift = (unit_base / 64) * L::kSub;
 
   // The weight slices in the order the step consumes them: layer 0 by
   // 64-row slice of its F_in (rows past F_in arrive as zeros), each later
-  // layer by slice, then Wi and Wr by (H-chunk, gate).
+  // layer by slice, then Wi and Wr by (H-chunk, gate), each the block's
+  // units' columns.
   const int k0 = (p.f_in + kTcK - 1) / kTcK;
   const int layer_loads = k0 + (p.layers - 1) * kSlices;
   constexpr int gate_loads = 4 * kSlices;
@@ -415,7 +459,7 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
   const CUtensorMap* wrm = &wr_map;
   auto issue = [&](int q, uint32_t dst, uint64_t* bar) {
     const CUtensorMap* m = w0m;
-    int k = q, col0 = 0;
+    int k = q, col0 = unit_base;
     if (q >= k0 && q < layer_loads) {
       const int l = 1 + (q - k0) / kSlices;
       m = l == 1 ? w1m : l == 2 ? w2m : w3m;
@@ -424,7 +468,7 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
       const int r = (q - layer_loads) % gate_loads;
       m = q - layer_loads < gate_loads ? wim : wrm;
       k = r / 4;
-      col0 = (r % 4) * H;
+      col0 = (r % 4) * H + unit_base;
     }
     for (int w = 0; w < L::kWarpgroups; ++w)
       tma_load_3d(dst + w * L::kBox, m, bar, col0 + w * 64, k * kTcK, pol);
@@ -432,12 +476,17 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
   SliceRing<S> slices{full, empty, ring, L::kStageBytes,
                       layer_loads + 2 * gate_loads, 0};
   if (tid == 0) slices.init(L::kWarps);
-  __syncthreads();
+  // With a cluster: both blocks have started before any distributed
+  // shared-memory store.
+  if constexpr (kSplit == 1)
+    __syncthreads();
+  else
+    cluster_sync();
   if (tid == 0) slices.prime(issue);
 
   // The block's tiles: x into the activation tile (rows past N and columns
-  // past F_in as zeros; x's rows need not lie on 16 bytes), h and c by
-  // 16-byte cp.async with zero-fill.
+  // past F_in as zeros; x's rows need not lie on 16 bytes), h (all H units)
+  // and c (the block's) by 16-byte cp.async with zero-fill.
   const int xw = k0 * kTcK;
   for (int e = tid; e < R * xw; e += L::kThreads) {
     const int n = e / xw, k = e % xw;
@@ -453,7 +502,9 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
     const bool live = row < row_end;
     const size_t off = live ? static_cast<size_t>(row) * H + c * 8 : 0;
     cp_async16(h_s + kmaj_off<R>(n, c * 8), p.h + off, live);
-    cp_async16(c_s + row_off<H>(n, c * 8), p.c + off, live);
+    if (c < U / 8)
+      cp_async16(c_s + row_off<U>(n, c * 8),
+                 p.c + (live ? off + unit_base : 0), live);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -461,17 +512,27 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
   __syncthreads();
 
   // Byte offsets of this thread's elements (rows 2 (l % 4) + e, units
-  // unit0 + 8 s) in the K-major tiles and in the c tile: row 8 j + .. is
-  // j * 1024 (j * 16 H) bytes on.
+  // unit0 + 8 s) in the K-major tiles (unit_base + unit0: u_shift on) and
+  // in the c tile: row 8 j + .. is j * 1024 (j * 16 U) bytes on.
   uint32_t kb[2][2], rb[2][2];
 #pragma unroll
   for (int s = 0; s < 2; ++s)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      kb[s][e] = kmaj_off<R>(2 * lt + e, unit0 + 8 * s);
-      rb[s][e] = row_off<H>(2 * lt + e, unit0 + 8 * s);
+      kb[s][e] = kmaj_off<R>(2 * lt + e, unit0 + 8 * s) + u_shift;
+      rb[s][e] = row_off<U>(2 * lt + e, unit0 + 8 * s);
     }
   const uint32_t a_off = wg * L::kBox;
+  // The peer's activation tile and row sums (kSplit = 2).
+  const uint32_t peer_act =
+      kSplit == 1 ? 0
+                  : map_cluster_rank(act_s, static_cast<uint32_t>(rank ^ 1));
+  const uint32_t peer_red =
+      kSplit == 1
+          ? 0
+          : map_cluster_rank(smem_u32(&red_s[0][0][0]),
+                             static_cast<uint32_t>(rank ^ 1));
+  const int red_warp = rank * L::kWarps + warp;
 
   // The MLP: Dense (bf16 operands, f32 sums, rounded), LayerNorm, ReLU,
   // each layer's output over its input in the activation tile.
@@ -487,7 +548,7 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
 
     // Row sums of the rounded Dense output and of its squares: the
     // thread's two units, then the eight lanes of a row within the warp,
-    // then the warps in order through shared memory.
+    // then the warps (of the cluster) in order through shared memory.
     float sum[R / 8][2], sq[R / 8][2];
 #pragma unroll
     for (int j = 0; j < R / 8; ++j)
@@ -505,14 +566,25 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
           sq[j][e] += __shfl_xor_sync(0xffffffffu, sq[j][e], off);
         }
         if (lane < 4) {
-          red_s[warp][8 * j + 2 * lt + e][0] = sum[j][e];
-          red_s[warp][8 * j + 2 * lt + e][1] = sq[j][e];
+          const int n = 8 * j + 2 * lt + e;
+          red_s[red_warp][n][0] = sum[j][e];
+          red_s[red_warp][n][1] = sq[j][e];
+          if constexpr (kSplit > 1) {
+            const uint32_t o = ((red_warp * R + n) * 2) * 4;
+            st_cluster_f32(peer_red + o, sum[j][e]);
+            st_cluster_f32(peer_red + o + 4, sq[j][e]);
+          }
         }
       }
-    __syncthreads();   // partials written; every product of the layer done
+    // Partials written, every product of the layer done (with a cluster:
+    // the peer's too, so that its activation tile is free to write).
+    if constexpr (kSplit == 1)
+      __syncthreads();
+    else
+      cluster_sync();
     if (tid < R) {
       float s_all = 0.0f, sq_all = 0.0f;
-      for (int w = 0; w < L::kWarps; ++w) {
+      for (int w = 0; w < kSplit * L::kWarps; ++w) {
         s_all += red_s[w][tid][0];
         sq_all += red_s[w][tid][1];
       }
@@ -527,8 +599,9 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
     float scale[2], lbias[2];
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
-      scale[s] = round_to<bf16>(p.ln_scale[l][pol * H + unit0 + 8 * s]);
-      lbias[s] = round_to<bf16>(p.ln_bias[l][pol * H + unit0 + 8 * s]);
+      const int u = unit_base + unit0 + 8 * s;
+      scale[s] = round_to<bf16>(p.ln_scale[l][pol * H + u]);
+      lbias[s] = round_to<bf16>(p.ln_bias[l][pol * H + u]);
     }
 #pragma unroll
     for (int j = 0; j < R / 8; ++j)
@@ -541,11 +614,23 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
               __fmul_rn(__fsub_rn(acc[4 * j + 2 * s + e], stat_s[n][0]),
                         __fmul_rn(stat_s[n][1], scale[s])),
               lbias[s]);
-          *reinterpret_cast<bf16*>(act_p + kb[s][e] + j * 1024) =
+          const bf16 out =
               __float2bfloat16_rn(fmaxf(round_to<bf16>(y), 0.0f));
+          const uint32_t o = kb[s][e] + j * 1024;
+          *reinterpret_cast<bf16*>(act_p + o) = out;
+          if constexpr (kSplit > 1)
+            st_cluster_u16(peer_act + o, elem_bits(out));
         }
-    fence_proxy_async();
-    __syncthreads();   // the layer's output is the next product's B
+    // The layer's output is the next product's B (with a cluster: both
+    // halves, in both tiles); red_s and stat_s are free.
+    if constexpr (kSplit == 1) {
+      fence_proxy_async();
+      __syncthreads();
+    } else {
+      fence_proxy_async_all();
+      cluster_sync();
+      fence_proxy_async_all();
+    }
   }
 
   // LSTM cell, gates as M and rows as N: xp = round(a . Wi), then h . Wr
@@ -583,7 +668,8 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
   for (int g = 0; g < 4; ++g)
 #pragma unroll
     for (int s = 0; s < 2; ++s)
-      b[g][s] = __bfloat162float(p.bias[(pol * 4 + g) * H + unit0 + 8 * s]);
+      b[g][s] = __bfloat162float(
+          p.bias[(pol * 4 + g) * H + unit_base + unit0 + 8 * s]);
 #pragma unroll
   for (int j = 0; j < R / 8; ++j)
 #pragma unroll
@@ -591,7 +677,7 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int i = 4 * j + 2 * s + e;
-        bf16* cp = reinterpret_cast<bf16*>(c_p + rb[s][e] + j * 16 * H);
+        bf16* cp = reinterpret_cast<bf16*>(c_p + rb[s][e] + j * 16 * U);
         const float new_c =
             sigmoid_f(acc[1][i] + b[1][s]) * __bfloat162float(*cp) +
             sigmoid_f(acc[0][i] + b[0][s]) * tanhf(acc[2][i] + b[2][s]);
@@ -602,18 +688,19 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
       }
   __syncthreads();
 
-  // feats = h' and h_out, c_out: 16-byte stores of the block's live rows.
-  for (int e = tid; e < R * (H / 8); e += L::kThreads) {
-    const int n = e / (H / 8), c = e % (H / 8);
+  // feats = h' and h_out, c_out of the block's units: 16-byte stores of
+  // the block's live rows.
+  for (int e = tid; e < R * (U / 8); e += L::kThreads) {
+    const int n = e / (U / 8), c = e % (U / 8);
     const int row = block_row + n;
     if (row < row_end) {
-      const size_t o = static_cast<size_t>(row) * H + c * 8;
-      const uint4 hv =
-          *reinterpret_cast<const uint4*>(h_p + kmaj_off<R>(n, c * 8));
+      const size_t o = static_cast<size_t>(row) * H + unit_base + c * 8;
+      const uint4 hv = *reinterpret_cast<const uint4*>(
+          h_p + kmaj_off<R>(n, unit_base + c * 8));
       *reinterpret_cast<uint4*>(p.feats + o) = hv;
       *reinterpret_cast<uint4*>(p.h_out + o) = hv;
       *reinterpret_cast<uint4*>(p.c_out + o) =
-          *reinterpret_cast<const uint4*>(c_p + row_off<H>(n, c * 8));
+          *reinterpret_cast<const uint4*>(c_p + row_off<U>(n, c * 8));
     }
   }
 }
@@ -621,7 +708,8 @@ __global__ void __launch_bounds__(StepTc<H, R>::kThreads, 1)
 template <int H>
 int launch_step_tc(const StepArgs<bf16>& a, cudaStream_t stream) {
   constexpr int R = kStepTcRows;
-  using L = StepTc<H, R>;
+  constexpr int kSplit = kTcSplit<H>;
+  using L = StepTc<H, R, kSplit>;
   CUtensorMap maps[6];
   // One map over each [P, K, n] stack (P = 1 without chunks), K its own
   // dimension, so that layer 0's rows past F arrive as zeros for every
@@ -637,21 +725,39 @@ int launch_step_tc(const StepArgs<bf16>& a, cudaStream_t stream) {
   if (!make_tma_map(&maps[4], a.wi, 4 * H, H, P, 64, 64) ||
       !make_tma_map(&maps[5], a.wr, 4 * H, H, P, 64, 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  int err = set_smem(policy_step_tc_kernel<H, R>, L::kSmem);
+  const auto kernel = policy_step_tc_kernel<H, R, kSplit>;
+  int err = set_smem(kernel, L::kSmem);
   if (err != 0) return err;
-  const int blocks =
+  const int tiles =
       fwd_blocks(a.chunk_policy, chunk_count(a), a.chunk, a.n_rows, R);
-  policy_step_tc_kernel<H, R><<<blocks, L::kThreads, L::kSmem, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], a);
+  // At H = 384 and 512, clusters of two blocks (kTcSplit), launched with
+  // their cluster dimension by cudaLaunchKernelEx; a refused launch
+  // returns its error.
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles) * kSplit);
+  cfg.blockDim = dim3(L::kThreads);
+  cfg.dynamicSmemBytes = L::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = kSplit;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = kSplit > 1 ? 1 : 0;
+  const cudaError_t launched =
+      cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], maps[2], maps[3],
+                         maps[4], maps[5], a);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (the CUDA-core kernel is built for float32 alone:
-// bfloat16 takes mlt_policy_step_tc); layers 1..4, each (w_l, s_l, b_l),
-// the unused ones null. Returns a cudaError_t, or -1 for arguments without
-// an instantiation.
+// dtype: 0 = float32 (the CUDA-core kernel is built for float32 alone, at
+// H = 128, 256, 384 and 512: bfloat16 takes mlt_policy_step_tc); layers
+// 1..4, each (w_l, s_l, b_l), the unused ones null. Returns a cudaError_t,
+// or -1 for arguments without an instantiation.
 extern "C" int mlt_policy_step(
     int dtype, int hidden, int layers, int f_in, int n_rows, const void* x,
     const void* w0, const void* s0, const void* b0, const void* w1,
@@ -672,11 +778,14 @@ extern "C" int mlt_policy_step(
                     st)
   if (dtype == 0 && hidden == 128) return MLT_STEP(float, 128);
   if (dtype == 0 && hidden == 256) return MLT_STEP(float, 256);
+  if (dtype == 0 && hidden == 384) return MLT_STEP(float, 384);
+  if (dtype == 0 && hidden == 512) return MLT_STEP(float, 512);
 #undef MLT_STEP
   return -1;
 }
 
-// The bf16 step on tensor cores: the arguments of mlt_policy_step but the
+// The bf16 step on tensor cores, at H = 128, 256, 384 and 512 (clusters of
+// two blocks at 384 and 512): the arguments of mlt_policy_step but the
 // dtype, every pointer but x on a 16-byte boundary. Returns a cudaError_t,
 // or -1 for arguments without an instantiation.
 extern "C" int mlt_policy_step_tc(
@@ -698,6 +807,8 @@ extern "C" int mlt_policy_step_tc(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hidden == 128) return launch_step_tc<128>(args, st);
   if (hidden == 256) return launch_step_tc<256>(args, st);
+  if (hidden == 384) return launch_step_tc<384>(args, st);
+  if (hidden == 512) return launch_step_tc<512>(args, st);
   return -1;
 }
 
@@ -734,6 +845,8 @@ extern "C" int mlt_policy_step_chunked(
         h_out, chunk_policy, chunk, num_policies);
     if (hidden == 128) return launch_step_tc<128>(args, st);
     if (hidden == 256) return launch_step_tc<256>(args, st);
+    if (hidden == 384) return launch_step_tc<384>(args, st);
+    if (hidden == 512) return launch_step_tc<512>(args, st);
     return -1;
   }
 #define MLT_STEP_CHUNKED(T, H)                                             \
@@ -743,6 +856,8 @@ extern "C" int mlt_policy_step_chunked(
                     st)
   if (dtype == 0 && hidden == 128) return MLT_STEP_CHUNKED(float, 128);
   if (dtype == 0 && hidden == 256) return MLT_STEP_CHUNKED(float, 256);
+  if (dtype == 0 && hidden == 384) return MLT_STEP_CHUNKED(float, 384);
+  if (dtype == 0 && hidden == 512) return MLT_STEP_CHUNKED(float, 512);
 #undef MLT_STEP_CHUNKED
   return -1;
 }

@@ -136,7 +136,8 @@ class RecurrentBackboneEncoder(nn.Module):
 
     def _fused_step_applicable(self, inputs):
         """JAX's gate: an MLP net, a one-layer LSTM, one rank-2 input, net
-        width == LSTM width, one dtype, and ``policy_step_supported``. The
+        width == LSTM width, one dtype, and ``policy_step_supported`` (JAX's
+        own, at H = 128, 256, 384 and 512 where the kernel is built). The
         port's LSTM always runs precise gates, so JAX's ``use_pallas or
         float32`` clause always holds."""
         from .common import MLP

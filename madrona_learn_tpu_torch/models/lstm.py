@@ -58,9 +58,9 @@ its jnp twin: ``lstm_step_reference``, ``lstm_sequence_reference``,
 ``lstm_step_chunked_reference`` and ``lstm_sequence_chunked_reference``
 (on the card one gathered batched product a step over the chunks). So a
 population of any width takes the chunked rollout and the batched learn.
-The projection kernels are built at H = 128 and 256
-(``lstm_proj_supported``): with ``fuse_input_proj`` a wider layer takes
-the unfused sequence kernels.
+The projection kernels are built at the same four widths
+(``lstm_proj_supported``, JAX's gate there): with ``fuse_input_proj`` a
+layer past 512 takes the unfused sequence route.
 """
 
 from __future__ import annotations
@@ -215,8 +215,8 @@ class LSTM(nn.Module):
 
     def _fuses_proj(self, in_features):
         """Whether ``sequence`` runs a layer of this input width through
-        the projection kernels (``lstm_proj_supported``: H = 128 or 256,
-        float32 or bfloat16)."""
+        the projection kernels (``lstm_proj_supported``: H = 128, 256, 384
+        or 512, float32 or bfloat16, F % 128 == 0 and F <= 4H)."""
         return self.fuse_input_proj and lstm_proj_supported(
             in_features, self.num_hidden_channels, self.dtype)
 

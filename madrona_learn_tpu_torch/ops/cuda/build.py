@@ -189,8 +189,8 @@ _SIGNATURES = {
     # ys, cs, dys, dxp, hin, dh0, dc0, part_w, part_b, dwr, db, T, chunks,
     # C, P, splits a chunk, stream
     "mlt_lstm_bwd_chunked": [_I] * 3 + [_P] * 19 + [_I] * 5 + [_P],
-    # dtype, H, R, stages, xp, keep, wh, bias_h, h0, ys, T, N, hp, stream
-    "mlt_gru_fwd_tc": [_I] * 4 + [_P] * 6 + [_I] * 2 + [_P] * 2,
+    # dtype, H, xp, keep, wh, bias_h, h0, ys, T, N, hp, stream
+    "mlt_gru_fwd_tc": [_I] * 2 + [_P] * 6 + [_I] * 2 + [_P] * 2,
     # tensor_core, dtype, H, xp, keep, wh, bias_h, chunk_policy, h0, ys, T,
     # chunks, C, P, stream
     "mlt_gru_fwd_chunked": [_I] * 3 + [_P] * 7 + [_I] * 4 + [_P],
@@ -211,6 +211,11 @@ _SIGNATURES = {
     # chunk_policy, c0, h0, ys, cs, dys, dx, dg, hin, dh0, dc0, part_wi,
     # part_w, part_b, dwi, dwr, db, T, chunks, C, P, splits a chunk, stream
     "mlt_lstm_proj_bwd_chunked": [_I] * 4 + [_P] * 24 + [_I] * 5 + [_P],
+    # H, F, x, keep, wi, wr, bias, c0, h0, ys, cs, T, N, wit, stream
+    "mlt_lstm_proj_fwd_witness": [_I] * 2 + [_P] * 9 + [_I] * 2 + [_P] * 2,
+    # H, F, x, keep, wi, wi_t, wr, wr_t, bias, c0, h0, ys, cs, dys, dx, dg,
+    # hin, dh0, dc0, part_b, T, N, wit, stream
+    "mlt_lstm_proj_bwd_witness": [_I] * 2 + [_P] * 18 + [_I] * 2 + [_P] * 2,
     # dtype, D, x, scale, bias, chunk_policy, y, mu, rsigma, chunks, C, P,
     # eps, stream
     "mlt_layer_norm_fwd_chunked": [_I, _I] + [_P] * 7 + [_I] * 3 + [_F, _P],

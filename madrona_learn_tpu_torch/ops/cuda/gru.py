@@ -122,12 +122,9 @@ _check = functools.partial(check_operand, "gru kernel")
 # Batch rows a row tile of the tensor-core backward owns at each width
 # (kGruTcRows<H> in csrc/gru.cu), which sets the count of its dbh partials.
 _TC_ROWS = {128: 32, 256: 32, 384: 32, 512: 16}
-# Batch rows a block of the tensor-core forward owns, and the stages of its
-# weight ring (gru_fwd_tc_kernel's template arguments, kGruFwdStages in
-# csrc/gru.cu; it also builds R = 16, and 2 or 3 stages, at H = 256, and
-# the other depths that fit at 384 and 512, for chip_smoke.py's sweeps).
+# Batch rows a block of the tensor-core forward owns (kGruFwdRows in
+# csrc/gru.cu).
 FWD_TC_ROWS = 32
-FWD_TC_STAGES = 4
 
 
 def gru_supported(hidden, dtype):
@@ -272,10 +269,8 @@ def _check_inputs(x_proj, keep, wh, bias_h, h0):
     return steps, n, hidden
 
 
-def _fwd_tc(x_proj, keep, wh, bias_h, h0, rows=FWD_TC_ROWS,
-            stages=FWD_TC_STAGES, out=None, hp=None):
-    """The tensor-core forward (bfloat16 or float16) at ``rows`` batch rows
-    a block and a ring of ``stages`` weight slices: ys [T, N, H], into
+def _fwd_tc(x_proj, keep, wh, bias_h, h0, out=None, hp=None):
+    """The tensor-core forward (bfloat16 or float16): ys [T, N, H], into
     ``out`` where given; each step's h . Wh into ``hp`` (f32 [T, N, 3H])
     where given."""
     steps, n, g3 = x_proj.shape
@@ -285,8 +280,8 @@ def _fwd_tc(x_proj, keep, wh, bias_h, h0, rows=FWD_TC_ROWS,
     ys = out if out is not None else torch.empty(
         (steps, n, hidden), dtype=x_proj.dtype, device=x_proj.device)
     err = library().mlt_gru_fwd_tc(
-        _DTYPE_CODES[x_proj.dtype], hidden, rows, stages,
-        x_proj.data_ptr(), keep.data_ptr(),
+        _DTYPE_CODES[x_proj.dtype], hidden, x_proj.data_ptr(),
+        keep.data_ptr(),
         wh.data_ptr(), bias_h.data_ptr(), h0.data_ptr(), ys.data_ptr(),
         steps, n, None if hp is None else hp.data_ptr(),
         torch.cuda.current_stream(x_proj.device).cuda_stream)

@@ -18,7 +18,8 @@ float32, bfloat16 and float16: :func:`lstm_supported` is true exactly
 there, which for float32 and bfloat16 is JAX's gate (``H % 128 == 0``,
 ``ops/pallas/lstm.py:83``) over H from 32 to 512; float16 is the port's
 choice (JAX sends it to its jnp twin). The projection kernels are built at
-H = 128 and 256 (:func:`lstm_proj_supported`). The modules route a layer
+the same four widths in float32 and bfloat16 (:func:`lstm_proj_supported`,
+JAX's gate there). The modules route a layer
 by JAX's gate (:func:`lstm_kernel_route`): a width that is no multiple of
 128 to the plain twins, on the card too, as JAX routes it to its jnp twin;
 the wrappers raise on operands no kernel takes (a multiple of 128 past
@@ -31,8 +32,8 @@ instance, and the rollout steps that run them), :func:`bwd_uses_tensor_cores`
 :func:`uses_tensor_cores` (the projection kernels); no fallback: the kernel
 a call is routed to runs or raises:
 
-- bfloat16 at every width (the projection kernels at H = 128 or 256), and
-  the float16 sequence kernels at H = 128 or 256: the recurrence on Hopper's
+- bfloat16 at every width, the projection kernels too, and the float16
+  sequence kernels at H = 128 or 256: the recurrence on Hopper's
   warpgroup tensor cores (``wgmma``, bf16 or f16 operands, f32
   accumulators; the weights stream through a TMA ring, read as they stand
   by the forwards and from transposed copies by the backwards; a block owns
@@ -155,12 +156,16 @@ LSTM_PROJ_BWD_CHUNKED = Kernel(
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# The widths the sequence kernels are built for (every dtype; the bfloat16
-# ones on tensor cores at all four, the float16 ones at the first two), and
-# those the projection kernels and the float16 tensor-core kernels are
-# built for.
+# The widths the kernels are built for (the sequence kernels in every
+# dtype, the projection kernels in float32 and bfloat16; the bfloat16 ones
+# on tensor cores at all four), and those of the float16 tensor-core
+# kernels.
 _HIDDEN_SIZES = (128, 256, 384, 512)
-_TC_HIDDEN_SIZES = (128, 256)
+_F16_TC_HIDDEN_SIZES = (128, 256)
+# Batch rows a row tile of the tensor-core backward owns with the
+# projection (kTcRows<true, H> in csrc/lstm.cu): 16 at H = 512, where 32
+# leaves no room in shared memory for a ring stage.
+_PROJ_TC_ROWS = {128: 32, 256: 32, 384: 32, 512: 16}
 
 
 def lstm_supported(hidden, dtype):
@@ -324,10 +329,12 @@ def _check_inputs(x_proj, keep, wr, bias, c0, h0):
     return steps, n, hidden
 
 
-def _fwd_tc(x, keep, wi, wr, bias, c0, h0, out=None):
+def _fwd_tc(x, keep, wi, wr, bias, c0, h0, out=None, wit=None):
     """The tensor-core forward of both variants (``wi`` None: x is x_proj;
     bfloat16, or float16 without the projection): (ys, cs), into ``out``
-    where given."""
+    where given. ``wit`` (f32 [2, T, N, 4H]; the bf16 projection at H =
+    384 and 512 alone): each step's round(x . Wi), then round(x . Wi) +
+    h . Wr, the products' witness."""
     steps, n = x.shape[:2]
     hidden = wr.shape[0]
     f_in = 0 if wi is None else x.shape[2]
@@ -338,11 +345,16 @@ def _fwd_tc(x, keep, wi, wr, bias, c0, h0, out=None):
         ys = torch.empty((steps, n, hidden), dtype=x.dtype, device=x.device)
         out = ys, torch.empty_like(ys)
     ys, cs = out
-    err = library().mlt_lstm_fwd_tc(
-        _DTYPE_CODES[x.dtype], hidden, f_in, x.data_ptr(), keep.data_ptr(),
-        wi.data_ptr(), wr.data_ptr(), bias.data_ptr(), c0.data_ptr(),
-        h0.data_ptr(), ys.data_ptr(), cs.data_ptr(), steps, n,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    args = (x.data_ptr(), keep.data_ptr(), wi.data_ptr(), wr.data_ptr(),
+            bias.data_ptr(), c0.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+            cs.data_ptr(), steps, n)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if wit is None:
+        err = library().mlt_lstm_fwd_tc(_DTYPE_CODES[x.dtype], hidden, f_in,
+                                        *args, stream)
+    else:
+        err = library().mlt_lstm_proj_fwd_witness(hidden, f_in, *args,
+                                                  wit.data_ptr(), stream)
     check(err, "lstm_sequence_proj_fwd" if f_in else "lstm_sequence_fwd")
     return ys, cs
 
@@ -483,7 +495,8 @@ def lstm_sequence_bwd_chunked(x_proj, keep, wr, bias, chunk_policy, c0, h0,
             on_16_bytes, (x_proj, keep, wr, bias, c0, h0, ys, cs, dys))
         splits = _num_splits_tc(steps * C, hidden, hidden, num_sms)
         hin = empty(steps, n, hidden)
-        part_b = empty(B * -(-C // tc_rows(False)), g4, dt=torch.float32)
+        part_b = empty(B * -(-C // tc_rows(False, hidden)), g4,
+                       dt=torch.float32)
     else:
         splits = _num_splits(steps, C, hidden, num_sms)
         hin = None
@@ -544,10 +557,10 @@ def _num_splits(steps, n, hidden, num_sms, gates=4):
     return max(1, min(-(-4 * num_sms // tiles), (steps * n) // 32))
 
 
-def tc_rows(proj):
-    """Batch rows a block of the tensor-core backward owns (kTcRows in
-    csrc/lstm.cu): 16, and 32 with the projection."""
-    return 32 if proj else 16
+def tc_rows(proj, hidden):
+    """Batch rows a row tile of the tensor-core backward owns (kTcRows in
+    csrc/lstm.cu): 16, and with the projection 32 (16 at H = 512)."""
+    return _PROJ_TC_ROWS[hidden] if proj else 16
 
 
 def fwd_tc_rows():
@@ -558,35 +571,29 @@ def fwd_tc_rows():
 
 def uses_tensor_cores(dtype, hidden):
     """The path rule of the projection kernels (``lstm_sequence_proj_*``
-    and their chunk-indexed instances): bfloat16 with H in (128, 256)
-    takes the tensor-core kernels (``wgmma``); float32, whose products
-    tensor cores would round, the CUDA-core ones. (The projection's F rule
-    holds on both paths, and :func:`lstm_proj_supported` refuses float16
-    and H = 384 / 512.)"""
-    return dtype == torch.bfloat16 and hidden in _TC_HIDDEN_SIZES
+    and their chunk-indexed instances): bfloat16 at every width they are
+    built for takes the tensor-core kernels (``wgmma``; a cluster of two
+    blocks at H = 384 and 512); float32, whose products tensor cores would
+    round, the CUDA-core ones. (The projection's F rule holds on both
+    paths, and :func:`lstm_proj_supported` refuses float16.)"""
+    return dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES
 
 
 def bwd_uses_tensor_cores(dtype, hidden):
-    """The path rule of the sequence backward (``lstm_sequence_bwd`` and its
-    chunk-indexed instance): bfloat16 at every width the kernels are built
-    for takes the tensor-core kernel (split over a cluster of two blocks at
-    H = 384 and 512), and so does float16 at H = 128 and 256 (f16
-    ``wgmma``); float32, whose products tensor cores would round, and
-    float16 at 384 and 512 the CUDA-core one."""
+    """The path rule of the sequence kernels, one for the backward and the
+    forward (``fwd_uses_tensor_cores`` is this function), their
+    chunk-indexed instances and so ``lstm_step`` / ``lstm_step_chunked``,
+    so that a float16 or bfloat16 backward on tensor cores recomputes the
+    pre-activations of the forward that ran, bitwise: bfloat16 at every
+    width the kernels are built for takes the tensor-core kernels (split
+    over a cluster of two blocks at H = 384 and 512), and so does float16
+    at H = 128 and 256 (f16 ``wgmma``); float32, whose products tensor
+    cores would round, and float16 at 384 and 512 the CUDA-core ones."""
     return ((dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES)
-            or (dtype == torch.float16 and hidden in _TC_HIDDEN_SIZES))
+            or (dtype == torch.float16 and hidden in _F16_TC_HIDDEN_SIZES))
 
 
-def fwd_uses_tensor_cores(dtype, hidden):
-    """The path rule of the sequence forward and its chunk-indexed instance
-    (and so of ``lstm_step`` / ``lstm_step_chunked``): the backward's
-    (:func:`bwd_uses_tensor_cores`), so that a float16 or bfloat16 backward
-    on tensor cores recomputes the pre-activations of the forward that ran,
-    bitwise. bfloat16 at every width the kernels are built for takes the
-    tensor-core kernel (split over a cluster of two blocks at H = 384 and
-    512), and so does float16 at H = 128 and 256 (f16 ``wgmma``); float32
-    and float16 at 384 and 512 the CUDA-core one."""
-    return bwd_uses_tensor_cores(dtype, hidden)
+fwd_uses_tensor_cores = bwd_uses_tensor_cores
 
 
 def on_16_bytes(t):
@@ -622,17 +629,20 @@ def _bwd_tc_buffers(x, wi, wr):
         hin=empty(steps, n, hidden), dh0=empty(n, hidden),
         dc0=empty(n, hidden),
         part_w=empty(splits, f_in + hidden, 4 * hidden, dt=torch.float32),
-        part_b=empty(-(-n // tc_rows(wi is not None)), 4 * hidden,
+        part_b=empty(-(-n // tc_rows(wi is not None, hidden)), 4 * hidden,
                      dt=torch.float32),
         dw=empty(f_in + hidden, 4 * hidden), db=empty(4 * hidden))
 
 
 def _bwd_tc(x, keep, wi, wr, bias, c0, h0, ys, cs, dys, *, phases=3,
-            buffers=None):
+            buffers=None, wit=None):
     """The tensor-core backward of both variants (``wi`` None: x is
     x_proj; bfloat16, or float16 without the projection) in its two
     passes, phases bit 0 the recurrence and bit 1 the weight gradients;
-    the buffers of :func:`_bwd_tc_buffers`, filled."""
+    the buffers of :func:`_bwd_tc_buffers`, filled. ``wit`` (f32 [2, T, N,
+    4H]; the bf16 projection at H = 384 and 512, the recurrence alone):
+    the recomputed products, what :func:`_fwd_tc` writes to its ``wit``
+    from the same carry."""
     steps, n = x.shape[:2]
     hidden = wr.shape[0]
     f_in = 0 if wi is None else x.shape[2]
@@ -646,6 +656,17 @@ def _bwd_tc(x, keep, wi, wr, bias, c0, h0, ys, cs, dys, *, phases=3,
     wi_t = wr_t if wi is None else wi.t().contiguous()
     wr = on_16_bytes(wr)
     wi = wr if wi is None else on_16_bytes(wi)
+    if wit is not None:
+        err = library().mlt_lstm_proj_bwd_witness(
+            hidden, f_in, x.data_ptr(), keep.data_ptr(), wi.data_ptr(),
+            wi_t.data_ptr(), wr.data_ptr(), wr_t.data_ptr(), bias.data_ptr(),
+            c0.data_ptr(), h0.data_ptr(), ys.data_ptr(), cs.data_ptr(),
+            dys.data_ptr(), b["dx"].data_ptr(), b["dg"].data_ptr(),
+            b["hin"].data_ptr(), b["dh0"].data_ptr(), b["dc0"].data_ptr(),
+            b["part_b"].data_ptr(), steps, n, wit.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        check(err, "lstm_sequence_proj_bwd")
+        return b
     err = library().mlt_lstm_bwd_tc(
         _DTYPE_CODES[x.dtype], hidden, f_in, phases, x.data_ptr(),
         keep.data_ptr(),
@@ -742,13 +763,12 @@ def lstm_step(x_proj, wr, bias, c, h):
 
 
 def lstm_proj_supported(in_features, hidden, dtype):
-    """Whether the projection kernels serve this layer shape (JAX:
-    ``ops/pallas/lstm.py:369``): float32 or bfloat16, as there, at the
-    widths they are built for, H = 128 and 256. JAX takes every H % 128 ==
-    0; at H = 384 and 512 the port runs such a layer on the unfused
-    sequence kernels instead (``fuse_input_proj`` hoists nothing in the
-    kernel there)."""
-    return (hidden in _TC_HIDDEN_SIZES
+    """Whether the projection kernels serve this layer shape: JAX's gate
+    (``ops/pallas/lstm.py:369``: float32 or bfloat16, H % 128 == 0,
+    F % 128 == 0 and F <= 4H) at the widths they are built for, H = 128,
+    256, 384 and 512. Past 512 a ``fuse_input_proj`` layer takes the
+    unfused sequence route (which raises on the card there)."""
+    return (hidden in _HIDDEN_SIZES
             and dtype in (torch.float32, torch.bfloat16)
             and in_features % 128 == 0 and in_features <= 4 * hidden)
 
@@ -771,7 +791,7 @@ def _check_proj_inputs(x, keep, wi, wr, bias, c0, h0):
     if not lstm_proj_supported(f_in, hidden, dtype):
         raise ValueError(
             f"lstm_sequence_proj: supports float32/bfloat16, H in "
-            f"{_TC_HIDDEN_SIZES}, F % 128 == 0 and F <= 4H; got {dtype}, "
+            f"{_HIDDEN_SIZES}, F % 128 == 0 and F <= 4H; got {dtype}, "
             f"H={hidden}, F={f_in}")
     if steps == 0 or n == 0:
         raise ValueError(f"lstm_sequence_proj: empty input "
@@ -1011,7 +1031,8 @@ def lstm_sequence_proj_bwd_chunked(x, keep, wi, wr, bias, chunk_policy, c0,
         hin = empty(steps, n, hidden)
         part_wi = None
         part_w = empty(B * splits, f_in + hidden, g4, dt=torch.float32)
-        part_b = empty(B * -(-C // tc_rows(True)), g4, dt=torch.float32)
+        part_b = empty(B * -(-C // tc_rows(True, hidden)), g4,
+                       dt=torch.float32)
         dw = empty(P, f_in + hidden, g4)
         dwi, dwr = dw[:, :f_in], dw[:, f_in:]
     else:

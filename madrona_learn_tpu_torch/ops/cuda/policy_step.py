@@ -9,11 +9,12 @@ the LSTM cell, and streams the weights from L2.
 Two paths, picked by :func:`uses_tensor_cores` from the dtype, H and F
 alone (no fallback: the kernel a call is routed to runs or raises):
 
-- bfloat16 at H = 128 or 256 (F <= 128): every product on Hopper's
-  warpgroup tensor cores (``wgmma``, bf16 operands, f32 accumulators), the
-  weights streaming through a TMA ring, 32 batch rows a block.
-  TMA and the kernel's 16-byte copies read every operand but x on a
-  16-byte boundary: one that is not is copied onto one first;
+- bfloat16 at H = 128, 256, 384 or 512 (F <= 128): every product on
+  Hopper's warpgroup tensor cores (``wgmma``, bf16 operands, f32
+  accumulators), the weights streaming through a TMA ring, 32 batch rows
+  a block (a cluster of two blocks at H = 384 and 512, each with half the
+  units). TMA and the kernel's 16-byte copies read every operand but x on
+  a 16-byte boundary: one that is not is copied onto one first;
 - float32, whose products tensor cores would round: the CUDA-core kernel,
   bound by f32 FMA issue.
 
@@ -74,25 +75,24 @@ POLICY_STEP_CHUNKED = Kernel(
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HIDDEN_SIZES = (128, 256)
+_HIDDEN_SIZES = (128, 256, 384, 512)
 _MAX_LAYERS = 4
 _LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 
 
 def policy_step_supported(hidden, feat_in, dtype):
-    """Whether the fused step can serve this tower shape (JAX:
-    ``ops/pallas/policy_step.py:62``, which takes every H % 128 == 0): true
-    exactly where the kernel is built, H = 128 and 256, F <= 128, float32
-    or bfloat16. At H = 384 and 512 the port runs the tower unfused (the
-    MLP, then the LSTM's sequence kernels), where JAX would fuse it."""
+    """Whether the fused step can serve this tower shape: JAX's gate
+    (``ops/pallas/policy_step.py:62``: H % 128 == 0, F <= 128, float32 or
+    bfloat16) at the widths the kernel is built for, H = 128, 256, 384 and
+    512. Past 512 the port runs the tower unfused."""
     return (hidden in _HIDDEN_SIZES and feat_in <= 128
             and dtype in (torch.float32, torch.bfloat16))
 
 
 def uses_tensor_cores(dtype, hidden, feat_in):
-    """The path rule: bfloat16 with H in (128, 256) and F <= 128 takes the
-    tensor-core kernel (``wgmma``); float32, whose products tensor cores
-    would round, the CUDA-core one."""
+    """The path rule: bfloat16 with H in (128, 256, 384, 512) and F <= 128
+    takes the tensor-core kernel (``wgmma``); float32, whose products
+    tensor cores would round, the CUDA-core one."""
     return (dtype == torch.bfloat16 and hidden in _HIDDEN_SIZES
             and 1 <= feat_in <= 128)
 

@@ -41,8 +41,6 @@ from madrona_learn_tpu.ops.pallas.gru import (
 )
 from madrona_learn_tpu_torch.ops.cuda import gru as gru_mod
 from madrona_learn_tpu_torch.ops.cuda.gru import (
-    FWD_TC_ROWS,
-    FWD_TC_STAGES,
     GRU_FWD,
     GRU_FWD_CHUNKED,
     fwd_uses_tensor_cores,
@@ -251,7 +249,7 @@ def test_gru_fwd_routes(monkeypatch, dtype, H, tensor_core):
     """``gru_sequence_fwd`` and its chunk-indexed instance (which the
     rollout steps run at T = 1 on the card) take the route the rule names:
     the tensor-core entry points with the dtype code (``mlt_gru_fwd_tc``:
-    dtype, H, the rows a block, the width's ring depth;
+    dtype, H;
     ``mlt_gru_fwd_chunked`` with tensor_core 1), counting a tensor-core
     launch each, or the CUDA-core ones. The operands stand on the CPU: the
     library, the operand check and the stream are stand-ins."""
@@ -275,7 +273,7 @@ def test_gru_fwd_routes(monkeypatch, dtype, H, tensor_core):
     (single, s_args), (chunked, c_args) = lib.calls
     if tensor_core:
         assert single == "mlt_gru_fwd_tc"
-        assert s_args[:4] == (code, H, FWD_TC_ROWS, FWD_TC_STAGES)
+        assert s_args[:2] == (code, H)
     else:
         assert single == "mlt_gru_fwd" and s_args[:2] == (code, H)
     assert chunked == "mlt_gru_fwd_chunked"

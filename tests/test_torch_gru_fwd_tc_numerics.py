@@ -32,8 +32,6 @@ from madrona_learn_tpu.ops.pallas.gru import gru_sequence as jax_gru_seq
 from madrona_learn_tpu_torch.ops.cuda import KERNELS
 from madrona_learn_tpu_torch.ops.cuda import gru as gru_mod
 from madrona_learn_tpu_torch.ops.cuda.gru import (
-    FWD_TC_ROWS,
-    FWD_TC_STAGES,
     GRU_FWD,
     gru_sequence_fwd,
     fwd_uses_tensor_cores,
@@ -210,9 +208,9 @@ def test_gru_fwd_path_rule(monkeypatch, dtype, H, tensor_core):
     """The forward wrapper takes the route the rule names and counts a
     launch, and a tensor-core launch where it took that route; the
     tensor-core route hands the kernel the dtype code, the weight's own
-    storage (its TMA boxes are wgmma's MN-major A operand), R and the ring
-    depth. The operands stand on the CPU here: the library, the operand
-    check and the stream are stand-ins."""
+    storage (its TMA boxes are wgmma's MN-major A operand). The operands
+    stand on the CPU here: the library, the operand check and the stream
+    are stand-ins."""
     assert fwd_uses_tensor_cores(dtype, H) is tensor_core
     lib = _stand_in_card(monkeypatch)
     T, N = 2, 8
@@ -226,10 +224,10 @@ def test_gru_fwd_path_rule(monkeypatch, dtype, H, tensor_core):
     (args,) = lib.args
     if tensor_core:
         assert lib.calls == ["mlt_gru_fwd_tc"]
-        # dtype, hidden, rows, stages, xp, keep, wh, ...
+        # dtype, hidden, xp, keep, wh, ...
         code = {BF16: 1, torch.float16: 2}[dtype]
-        assert args[:4] == (code, H, FWD_TC_ROWS, FWD_TC_STAGES)
-        assert args[6] == wh.data_ptr()
+        assert args[:2] == (code, H)
+        assert args[4] == wh.data_ptr()
     else:
         assert lib.calls == ["mlt_gru_fwd"]
 

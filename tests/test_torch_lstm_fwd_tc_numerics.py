@@ -171,7 +171,8 @@ def _within(got, want, what):
 
 
 CASES = [(5, 70, 128, None), (4, 70, 128, 128), (4, 70, 128, 256),
-         (4, 70, 384, None), (3, 70, 512, None)]
+         (4, 70, 384, None), (3, 70, 512, None), (3, 70, 384, 384),
+         (2, 70, 512, 512)]
 
 
 @pytest.mark.parametrize("T,N,H,F", CASES)
@@ -230,6 +231,13 @@ def test_tc_lstm_fwd_wide_step_equals_its_sequence_step(H):
     _step_equals_sequence_step(8, 70, H, None, 90 + H)
 
 
+@pytest.mark.parametrize("H,F", [(384, 1536), (512, 512)])
+def test_tc_lstm_proj_fwd_wide_step_equals_its_sequence_step(H, F):
+    """The projection forward's cluster the same way, T = 6 (F = 4H: one
+    x buffer; F = H: two)."""
+    _step_equals_sequence_step(6, 40, H, F, 91 + H)
+
+
 def _rows_do_not_depend_on_the_batch(H, F, seed):
     T, N, rows = 4, 70, 16
     args = _inputs(seed, T, N, H, F)
@@ -251,6 +259,12 @@ def test_tc_lstm_fwd_rows_do_not_depend_on_the_batch(F):
 @pytest.mark.parametrize("H", [384, 512])
 def test_tc_lstm_fwd_wide_rows_do_not_depend_on_the_batch(H):
     _rows_do_not_depend_on_the_batch(H, None, 95 + H)
+
+
+@pytest.mark.parametrize("H", [384, 512])
+def test_tc_lstm_proj_fwd_wide_rows_do_not_depend_on_the_batch(H):
+    """The projection forward's cluster the same way (F = H)."""
+    _rows_do_not_depend_on_the_batch(H, H, 96 + H)
 
 
 def emulate_tc_fwd_chunked(x, keep, wr, bias, idx, c0, h0):
@@ -344,6 +358,9 @@ def _stand_in_card(monkeypatch):
     (BF16, 384, None, True),     # the two-block cluster
     (BF16, 512, None, True),     # infer_512's rollout step
     (F32, 512, None, False),
+    (BF16, 384, 384, True),      # the projection's two-block cluster
+    (BF16, 512, 512, True),      # headline_pbt_fused_512's learn step
+    (F32, 512, 2048, False),
     (torch.float16, 384, None, False),   # float16 at 384 / 512: CUDA cores
     (torch.float16, 256, None, True),    # headline_fp16's f16 wgmma
     (torch.float16, 128, None, True),
@@ -444,7 +461,7 @@ def test_wide_bf16_forwards_take_tensor_cores_backwards_cuda_cores(
         monkeypatch.setattr(k, "launches", 0)
         monkeypatch.setattr(k, "tc_launches", 0)
     assert fwd_uses_tensor_cores(BF16, H) and bwd_uses_tensor_cores(BF16, H)
-    assert not uses_tensor_cores(BF16, H)     # no projection kernel here
+    assert uses_tensor_cores(BF16, H)     # the projection's cluster too
     T, N, P = 2, 8, 2
 
     def z(*shape):

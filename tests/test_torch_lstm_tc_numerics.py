@@ -128,8 +128,8 @@ def emulate_tc_bwd(x, keep, wi, wr, bias, c0, h0, ys, cs, dys,
     ``db_blocks`` (f32, in tile order)."""
     dt = x.dtype
     T, N, _ = x.shape
-    rows = tc_rows(wi is not None)
     H = wr.shape[0]
+    rows = tc_rows(wi is not None, H)
     ranks = 2 if H > 256 else 1
     U = H // ranks
     # Rank r's columns of the 4H gates, and its rows of Wr (its units).
@@ -277,7 +277,12 @@ def _check(got, want, what):
             f"max |want| {scale:.3e}")
 
 
-CASES = [(5, 70, 128, None), (4, 70, 128, 128), (4, 70, 128, 256)]
+# The projection at H = 384 and 512 is the two-block cluster's: rank r
+# recomputes round(x . Wi) and h . Wr of its units' gate columns (the
+# emulation's ``cols``) and computes its features' dx over all 4H dgates,
+# each feature's sum the same slices in the same order as one block's.
+CASES = [(5, 70, 128, None), (4, 70, 128, 128), (4, 70, 128, 256),
+         (2, 20, 384, 384), (2, 20, 512, 512)]
 
 
 @pytest.mark.parametrize("T,N,H,F", CASES)
@@ -290,6 +295,25 @@ def test_tc_lstm_bwd_arithmetic_meets_the_plain_contract(T, N, H, F):
 def test_tc_lstm_bwd_arithmetic_matches_the_pallas_backward(T, N, H, F):
     args, probe = _inputs(50 + T + (F or 0), T, N, H, F)
     _check(_emulated(args, probe), _jax_grads(args, probe), "vs Pallas")
+
+
+@pytest.mark.parametrize("H,F", [(384, 128), (512, 512)])
+def test_tc_lstm_proj_bwd_wide_recomputes_the_forwards_products(H, F):
+    """The projection backward's recompute at H = 384 and 512 (the
+    cluster) goes through the forward's helper in the forward's slice
+    order: every step's pre-activations round(x . Wi) + h . Wr + b
+    bitwise those the tensor-core forward computed from the same carry
+    (the card's kernels are held to it by chip_smoke.py's
+    ``_lstm_proj_witness``)."""
+    from test_torch_lstm_fwd_tc_numerics import emulate_tc_fwd
+
+    T, N = 2, 20
+    args, probe = _inputs(70 + H + F, T, N, H, F)
+    fwd_pres, bwd_pres = [], []
+    ys, cs = emulate_tc_fwd(**args, pres=fwd_pres)
+    emulate_tc_bwd(**args, ys=ys, cs=cs, dys=probe, pres=bwd_pres)
+    for t in range(T):
+        assert torch.equal(bwd_pres[T - 1 - t], fwd_pres[t]), t
 
 
 def test_tc_weight_gradients_do_not_depend_on_the_split_count():
@@ -322,6 +346,7 @@ def _aligned_at(shape, dtype, shift):
     (F32, 256, 0, False),     # float32 stays on CUDA cores
     (F32, 128, 0, False),
     (BF16, 512, 0, True),     # the two-block cluster
+    (BF16, 384, 0, True),
     (torch.float16, 256, 0, True),     # f16 wgmma
     (torch.float16, 384, 0, False),    # float16 wide: CUDA cores
 ])

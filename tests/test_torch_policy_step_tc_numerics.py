@@ -18,7 +18,8 @@ and h' rounded once. It is held
   interpret mode) under the same rule.
 
 Inputs come from numpy seeds, at N = 70 (ragged against the kernel's R =
-32 rows a block), H = 128 and F = 3, 100 and 128.
+32 rows a block), H = 128 and F = 3, 100 and 128, and at N = 40, H = 384
+and 512 (the two-block cluster's instances).
 """
 
 import jax.numpy as jnp
@@ -141,8 +142,11 @@ def _check(got, want, what):
 
 
 # (N, F, H, layers): the headline_fused tower's shape at H = 128, F in the
-# second 64-column slice, and F = 128 with three layers.
-CASES = [(70, 3, 128, 2), (70, 100, 128, 1), (70, 128, 128, 3)]
+# second 64-column slice, and F = 128 with three layers; at H = 384 and
+# 512 the two-block cluster (each block's warps' row sums, the cluster's
+# warps in unit order: the emulation's 16-unit warps in order).
+CASES = [(70, 3, 128, 2), (70, 100, 128, 1), (70, 128, 128, 3),
+         (40, 3, 384, 2), (40, 128, 512, 1)]
 
 
 @pytest.mark.parametrize("N,F,H,layers", CASES)
@@ -176,6 +180,9 @@ def test_tc_step_rows_do_not_depend_on_the_batch():
     (BF16, 256, 128, True),
     (BF16, 256, 129, False),    # no kernel takes F > 128
     (BF16, 192, 3, False),      # no kernel at this width
+    (BF16, 384, 3, True),       # the two-block cluster
+    (BF16, 512, 128, True),
+    (F32, 512, 3, False),
     (F32, 256, 3, False),       # float32 stays on CUDA cores
     (F32, 128, 128, False),
 ])

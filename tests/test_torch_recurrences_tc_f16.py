@@ -302,7 +302,7 @@ def test_f16_gru_backwards_take_tensor_cores_forward_cuda_cores(
     2 first; tensor_core 1 and an h_in scratch in the chunked one) and
     count a tensor-core launch each, and so, since its forward moved onto
     f16 ``wgmma`` too, does ``gru_sequence_fwd`` (``mlt_gru_fwd_tc``:
-    dtype code 2, then H, the rows a block and the ring depth). The
+    dtype code 2, then H). The
     operands stand on the CPU: the library, the operand check, the SM
     count and the stream are stand-ins."""
     assert gru_mod.bwd_uses_tensor_cores(F16, H)
@@ -318,8 +318,7 @@ def test_f16_gru_backwards_take_tensor_cores_forward_cuda_cores(
     gru_sequence_bwd_chunked(z(T, N, 3 * H), z(T, N), z(P, H, 3 * H),
                              z(P, H), idx, z(N, H), seq, seq)
     (f, a1), (b1, a2), (b2, a3) = lib.calls
-    assert f == "mlt_gru_fwd_tc" and a1[:4] == (
-        2, H, gru_mod.FWD_TC_ROWS, gru_mod.FWD_TC_STAGES)
+    assert f == "mlt_gru_fwd_tc" and a1[:2] == (2, H)
     assert b1 == "mlt_gru_bwd_tc" and a2[:3] == (2, H, 3)  # phases 3
     assert b2 == "mlt_gru_bwd_chunked" and a3[:3] == (1, 2, H)
     assert a3[14] != 0                         # the h_in scratch

@@ -9,8 +9,8 @@ float16, to the kernel's jnp twin (``madrona_learn_tpu/models/lstm.py``,
 the kernels or their plain twins by JAX's gate before any launch, on the
 card as on the CPU, and keep the kernels' route (which raises on the
 card) at a multiple of 128 without an instance. The projection kernels
-and the fused step are built at H = 128 and 256 alone: their gates refuse
-wider layers, which then take the unfused sequence kernels.
+and the fused step are built at the same four widths: their gates are
+JAX's there, and a wider layer takes the unfused sequence route.
 
 - The gates against JAX's for H in {32, 64, 96, 128, 256, 384, 512} and
   each dtype (float16: the port's own choice); the modules' routes (the step, the sequence and both
@@ -91,8 +91,8 @@ def test_gates_are_jaxs(H, dtype):
     """The recurrences' gates equal JAX's in float32 and bfloat16 (true
     where H % 128 == 0); in float16, where JAX takes its twin, they are
     true at the kernels' widths (the float16 instances). The
-    projection kernels' and the fused step's gates are JAX's at H = 128
-    and 256 and refuse wider layers, whose instances are not built."""
+    projection kernels' and the fused step's gates are JAX's at every
+    width up to 512, where their instances are built."""
     tdt, jdt = DTYPES[dtype]
     for port, jax_gate in ((lstm_supported, jax_lstm_supported),
                            (gru_supported, jax_gru_supported)):
@@ -100,21 +100,21 @@ def test_gates_are_jaxs(H, dtype):
         assert port(H, tdt) is want
     for f_in in (128, 256, 512):
         assert lstm_proj_supported(f_in, H, tdt) is (
-            H in (128, 256) and bool(jax_lstm_proj_supported(f_in, H, jdt)))
+            H in INSTANCES and bool(jax_lstm_proj_supported(f_in, H, jdt)))
     for f_in in (3, 128, 129):
         assert policy_step_supported(H, f_in, tdt) is (
-            H in (128, 256)
+            H in INSTANCES
             and bool(jax_policy_step_supported(H, f_in, jdt)))
     # bfloat16 takes tensor cores where the wgmma instances are built: the
-    # LSTM and GRU forwards and backwards at every instance's width, the
-    # projection at 128 and 256; float16 the GRU forwards and backwards at
-    # every instance's width, the LSTM's at 128 and 256.
+    # LSTM and GRU forwards and backwards and the projection at every
+    # instance's width; float16 the GRU forwards and backwards at every
+    # instance's width, the LSTM's at 128 and 256.
     lstm_tc = ((tdt == BF16 and H in INSTANCES)
                or (tdt == F16 and H in (128, 256)))
     gru_tc = tdt in (BF16, F16) and H in INSTANCES
     assert fwd_uses_tensor_cores(tdt, H) is lstm_tc
     assert bwd_uses_tensor_cores(tdt, H) is lstm_tc
-    assert uses_tensor_cores(tdt, H) is (tdt == BF16 and H in (128, 256))
+    assert uses_tensor_cores(tdt, H) is (tdt == BF16 and H in INSTANCES)
     assert gru_mod.fwd_uses_tensor_cores(tdt, H) is gru_tc
     assert gru_mod.bwd_uses_tensor_cores(tdt, H) is gru_tc
 
@@ -252,14 +252,14 @@ def _no_sync(*args, **kwargs):
 @pytest.mark.parametrize("H", [256, 384, 512])
 def test_fused_options_take_the_unfused_kernels_past_256(H):
     """``fuse_input_proj`` and ``use_fused_step`` hold where their kernels
-    are built (H = 128, 256); at H = 384 and 512 the layer runs the
-    unfused sequence kernels (a route JAX, which builds them there, would
-    not take)."""
-    lstm = tm.LSTM(H, H, 1, BF16, fuse_input_proj=True)
-    assert lstm._fuses_proj(H) is (H == 256)
-    encoder = tm.RecurrentBackboneEncoder(
-        net=tm.MLP(3, H, 1, BF16), rnn=lstm, use_fused_step=True)
-    assert encoder._fused_step_applicable(torch.zeros(2, 3)) is (H == 256)
+    are built, H = 128 to 512 as JAX's gates take them; only past 512
+    (H = 640, no instance) does the layer take the unfused route."""
+    for width, fused in ((H, True), (640, False)):
+        lstm = tm.LSTM(width, width, 1, BF16, fuse_input_proj=True)
+        assert lstm._fuses_proj(width) is fused
+        encoder = tm.RecurrentBackboneEncoder(
+            net=tm.MLP(3, width, 1, BF16), rnn=lstm, use_fused_step=True)
+        assert encoder._fused_step_applicable(torch.zeros(2, 3)) is fused
 
 
 # -- The wrappers at H = 384 and 512 -------------------------------------------
@@ -279,9 +279,9 @@ def _shape_check(name, x, dtype, shape):
 def test_operand_checks_take_the_wide_instances(monkeypatch, H, dtype):
     """The sequence kernels' operand checks take H = 384 and 512 in every
     dtype, single-policy and chunk-indexed (every operand's dtype and
-    shape; the device check stands aside for meta tensors); the projection
-    kernels' refuse them (no instance), and so does every check at H =
-    640."""
+    shape; the device check stands aside for meta tensors), and so do the
+    projection kernels' in float32 and bfloat16 (float16 has no projection
+    instance, as JAX's gate refuses it); every check refuses H = 640."""
     for mod in (lstm_mod, gru_mod):
         monkeypatch.setattr(mod, "_check", _shape_check)
     tdt = DTYPES[dtype][0]
@@ -298,11 +298,13 @@ def test_operand_checks_take_the_wide_instances(monkeypatch, H, dtype):
     assert gru_mod._check_chunked(
         "gru", m(T, N, 3 * H), m(T, N), m(P, H, 3 * H), m(P, H), idx,
         m(N, H)) == (T, N, H, B, N // B, P)
+    proj = (m(T, N, 128), m(T, N), m(128, 4 * H), m(H, 4 * H), m(4 * H),
+            m(N, H), m(N, H))
     if tdt != F16:
+        assert lstm_mod._check_proj_inputs(*proj) == (T, N, 128, H)
+    else:
         with pytest.raises(ValueError):
-            lstm_mod._check_proj_inputs(m(T, N, 128), m(T, N), m(128, 4 * H),
-                                        m(H, 4 * H), m(4 * H), m(N, H),
-                                        m(N, H))
+            lstm_mod._check_proj_inputs(*proj)
     W = 640
     with pytest.raises(ValueError):
         lstm_mod._check_inputs(m(T, N, 4 * W), m(T, N), m(W, 4 * W),
